@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (``deepspeed_tpu_torch``) on one
 NVIDIA GPU: builds the port's CUDA kernels from this checkout, holds
-each against its plain PyTorch version, times it, and serves GPT-2 125M
-at full width through the port's main path.
+each against its plain PyTorch version, times it, serves GPT-2 125M and
+trains GPT-2 350M at full width through the port's main paths.
 
     python3 chip_smoke.py                 # every phase (one GPU)
-    python3 chip_smoke.py --kernels-only  # device, build, kernel check
+    python3 chip_smoke.py --kernels-only  # device, build, kernel checks
 
 Phases, each printing one JSON line:
 
@@ -31,6 +31,28 @@ Phases, each printing one JSON line:
    ``compile_counts() == {"prefill": 1, "decode": 1}``, the kernel ran
    n_layer times per decode step, and teacher-forced decode logits of
    the flash engine match a dense engine on the same params.
+6. ``train_kernel_check`` — flash attention K1 (out, lse), K2 (dq) and
+   K3 (dk, dv, dbias partials) against their plain versions on the card:
+   B 2-8, T 128/1000/1024, H 16, D 64 and 128, bf16 and f32, causal and
+   not, with and without a key bias, dropout 0 and 0.1 at a nonzero head
+   offset; the K1 dropout mask read back bitwise against
+   ``dropout_multiplier``; fused Adam K4 against its plain version over
+   3 steps and a skipped one, both modes, leaves of odd sizes.
+7. ``train_kernel_timing`` — CUDA-event ms per call of K1, K2, K3 at the
+   training shape (B 8, T 1024, H 16, D 64, bf16, causal) and of K4
+   over GPT-2 350M's 292 leaves, beside their plain versions, their
+   bounds and the library yardsticks (``F.scaled_dot_product_attention``
+   forward and backward, ``torch.optim.AdamW(fused=True)``; the port
+   never calls them).
+8. ``train`` — GPT-2 350M (n_positions 1024, bf16 over fp32 masters,
+   flash attention, seeded random params) through ``initialize`` with
+   the JAX bench's config (train_batch_size 8, bf16, Adam lr 1e-4 with
+   ``pallas: true``): 2 warmup and 10 timed ``train_batch`` steps on a
+   fixed batch. Checks: finite, falling loss; K1, K2, K3 launched
+   n_layer times per step and K4 once; the step-1 loss within a bf16
+   tolerance of a dense-attention engine's on the same params. Reports
+   tokens/s, step p50, MFU, peak memory and a profiler window; then 3
+   steps with gradient_accumulation_steps 2.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -410,18 +432,25 @@ def _profile_decode(torch, engine, steps=10):
     wall, device busy time (sum of kernel self times) and its share of
     the wall, and the kernels that take most of it. Device fields are
     None when the profiler records no device time."""
-    from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(3)
     vocab = engine.model.config.vocab_size
     pos = rng.integers(8, 152, B).astype(np.int32)
     toks = rng.integers(0, vocab, B).astype(np.int32)
     engine.decode(toks, pos)
+    return _profile(torch, lambda: engine.decode(toks, pos), steps)
+
+
+def _profile(torch, step, steps):
+    """``torch.profiler`` over ``steps`` calls of ``step()``: host wall
+    per step, device busy time (sum of kernel self times), its share of
+    the wall, and the kernels that take most of it."""
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            engine.decode(toks, pos)
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     kernels = []
@@ -514,10 +543,405 @@ def phase_serve(torch, kv):
     return row
 
 
+# ---------------------------------------------------------------------------
+# training slice: flash attention K1-K3, fused Adam K4, GPT-2 350M
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_T, TRAIN_H, TRAIN_D = 8, 1024, 16, 64
+TRAIN_LAYERS = 24
+TRAIN_STEPS, TRAIN_WARMUP = 10, 2
+HEAD_OFFSET, NUM_HEADS = 3, 24      # a head shard's global coordinates
+BF16_PEAK_FLOPS = 989e12             # H100 SXM dense bf16
+# K1-K3 outputs are one rounding of fp32 sums that the kernel and the
+# plain version take in different orders: up to one unit in the last
+# place of the output type (relative), plus fp32 summation noise of
+# ~1e-5 of the largest value
+TRAIN_RTOL = {"bfloat16": 2.0 ** -7, "float32": 1e-4}
+TRAIN_ATOL_REL = 1e-5
+# flash vs dense step-1 loss (~10.8 nats), bf16: the dense route rounds
+# scores and probabilities to bf16, the kernel keeps them in fp32
+TRAIN_LOSS_ATOL = 0.05
+
+
+def _attn_inputs(torch, b, t, h, d, dtype, bias, gen):
+    """q, k, v as strided views of one fused [B, T, 3, H, D] tensor (as
+    the model's c_attn output gives them), dO, and a key bias with every
+    7th key hard-masked."""
+    qkv = torch.randn((b, t, 3, h, d), generator=gen, device="cuda")
+    qkv = qkv.to(dtype)
+    q, k, v = qkv.unbind(2)
+    g = torch.randn((b, t, h, d), generator=gen, device="cuda").to(dtype)
+    kb = None
+    if bias:
+        from deepspeed_tpu_torch.ops.flash_attention import MASK_BIAS
+        kb = torch.randn((b, t), generator=gen, device="cuda")
+        kb[:, 3::7] = MASK_BIAS
+    return q, k, v, g, kb
+
+
+def _close(torch, got, want, rtol):
+    """(max |diff|, within atol + rtol * |want|) for one output."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    allowed = TRAIN_ATOL_REL * float(want.abs().max()) + rtol * want.abs()
+    ok = bool(torch.isfinite(got).all()) and bool((diff <= allowed).all())
+    return float(diff.max()), ok
+
+
+def _attn_case(torch, fa, b, t, h, d, dtype, causal, bias, rate, gen):
+    q, k, v, g, kb = _attn_inputs(torch, b, t, h, d, getattr(torch, dtype),
+                                  bias, gen)
+    kw = dict(key_bias=kb, causal=causal, dropout_rate=rate,
+              dropout_seed=-123456789, dropout_head_offset=HEAD_OFFSET,
+              dropout_num_heads=NUM_HEADS)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    ref_out, ref_lse = fa.flash_attention_fwd_reference(q, k, v, **kw)
+    delta = (g.float() * ref_out.float()).sum(-1).permute(0, 2, 1) \
+        .reshape(b * h, t).contiguous()
+    dq = fa.flash_attention_bwd_dq(q, k, v, g, ref_lse, delta, **kw)
+    ref_dq = fa.flash_attention_bwd_dq_reference(q, k, v, g, ref_lse, delta,
+                                                 **kw)
+    dk, dv, db = fa.flash_attention_bwd_dkv(q, k, v, g, ref_lse, delta, **kw)
+    ref_dk, ref_dv, ref_db = fa.flash_attention_bwd_dkv_reference(
+        q, k, v, g, ref_lse, delta, **kw)
+    torch.cuda.synchronize()
+    rtol = TRAIN_RTOL[dtype]
+    checks = {"out": _close(torch, out, ref_out, rtol),
+              "lse": _close(torch, lse, ref_lse, TRAIN_RTOL["float32"]),
+              "dq": _close(torch, dq, ref_dq, rtol),
+              "dk": _close(torch, dk, ref_dk, rtol),
+              "dv": _close(torch, dv, ref_dv, rtol)}
+    if bias:
+        checks["dbias"] = _close(torch, db, ref_db, TRAIN_RTOL["float32"])
+    case = {"B": b, "T": t, "H": h, "D": d, "dtype": dtype,
+            "causal": causal, "bias": bias, "dropout": rate,
+            "max_abs_err": {n: c[0] for n, c in checks.items()},
+            "ok": all(c[1] for c in checks.values())}
+    return case
+
+
+def _dropout_bitwise(torch, fa):
+    """K1's dropout mask, read back: with q = k = 0 every probability is
+    1/S and v = I (S = D = 64) makes out[t, d] = mult(t, d) / S, so
+    ``out * S`` must equal ``dropout_multiplier`` bit for bit."""
+    b, t, h, s = 2, 128, TRAIN_H, 64
+    q = torch.zeros((b, t, h, s), device="cuda")
+    k = torch.zeros((b, s, h, s), device="cuda")
+    v = torch.eye(s, device="cuda")[None, :, None, :].expand(
+        b, s, h, s).contiguous()
+    ok = True
+    for seed, rate in ((-123456789, 0.1), (7, 0.5), (2 ** 31 - 1, 0.25)):
+        out, _ = fa.flash_attention_fwd(
+            q, k, v, causal=False, dropout_rate=rate, dropout_seed=seed,
+            dropout_head_offset=HEAD_OFFSET, dropout_num_heads=NUM_HEADS)
+        mult = fa._dropout_multiplier_full(b, h, t, s, rate, seed,
+                                           HEAD_OFFSET, NUM_HEADS,
+                                           device="cuda")
+        ok = ok and bool(torch.equal(out.permute(0, 2, 1, 3) * s, mult))
+    return ok
+
+
+ADAM_SIZES = (1, 3, 517, 4099, 65536 + 5, 300001)
+
+
+def _adam_leaves(torch, gen, misaligned):
+    leaves = []
+    for i, n in enumerate(ADAM_SIZES):
+        group = []
+        for _ in range(4):
+            base = torch.empty(n + 1, device="cuda")
+            x = base[1:] if (misaligned and i % 2) else base[:n]
+            group.append(x)
+        p, g, m, v = group
+        p.copy_(torch.randn(n, generator=gen, device="cuda"))
+        g.copy_(torch.randn(n, generator=gen, device="cuda"))
+        m.zero_()
+        v.zero_()
+        leaves.append(group)
+    return leaves
+
+
+def _adam_check(torch):
+    """K4 against its plain version: 3 steps then a skipped one, both
+    modes, odd leaf sizes, some leaves 4 bytes off 16-byte alignment."""
+    from deepspeed_tpu_torch.ops.fused_adam import (
+        adam_hyperparams, fused_adam, fused_adam_reference)
+    worst, ok = 0.0, True
+    for adam_w in (True, False):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(5)
+        kern = _adam_leaves(torch, gen, misaligned=True)
+        plain = [[x.clone() for x in group] for group in kern]
+        for step in range(1, 5):
+            skip = 1.0 if step == 4 else 0.0
+            hyper = adam_hyperparams(1e-3, 0.9, 0.999, 1e-8, 0.01,
+                                     1.0 - 0.9 ** step, 1.0 - 0.999 ** step,
+                                     skip, "cuda")
+            before = [x.clone() for group in kern for x in group]
+            for leaves, fn in ((kern, fused_adam),
+                               (plain, fused_adam_reference)):
+                p, g, m, v = (list(c) for c in zip(*leaves))
+                fn(p, g, m, v, hyper, adam_w_mode=adam_w)
+            torch.cuda.synchronize()
+            for a, b in zip((x for gr in kern for x in gr),
+                            (x for gr in plain for x in gr)):
+                err = float((a - b).abs().max())
+                worst = max(worst, err)
+                ok = ok and err <= 1e-6 * (1.0 + float(b.abs().max()))
+            if skip:
+                after = [x for group in kern for x in group]
+                ok = ok and all(torch.equal(a, b)
+                                for a, b in zip(before, after))
+    return worst, ok
+
+
+def phase_train_kernel_check(torch):
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    grid = [(2, 128, TRAIN_H, 64, dt, c, bias, r)
+            for dt in ("bfloat16", "float32") for c in (True, False)
+            for bias in (False, True) for r in (0.0, 0.1)]
+    grid += [(2, 1000, TRAIN_H, 64, "bfloat16", True, True, 0.1),
+             (2, 1000, TRAIN_H, 64, "float32", False, False, 0.1),
+             (TRAIN_B, TRAIN_T, TRAIN_H, TRAIN_D, "bfloat16", True, False,
+              0.0),
+             (2, 1000, TRAIN_H, 128, "bfloat16", True, True, 0.1),
+             (2, 128, TRAIN_H, 128, "float32", False, True, 0.0)]
+    cases = []
+    for spec in grid:
+        case = _attn_case(torch, fa, *spec, gen)
+        cases.append(case)
+        if not case["ok"]:
+            emit({"phase": "train_kernel_check", "failed": case})
+            fail(f"flash attention kernels disagree with their plain "
+                 f"versions: {case}")
+    bitwise = _dropout_bitwise(torch, fa)
+    adam_err, adam_ok = _adam_check(torch)
+    errs = {
+        "K1": max(max(c["max_abs_err"]["out"], c["max_abs_err"]["lse"])
+                  for c in cases),
+        "K2": max(c["max_abs_err"]["dq"] for c in cases),
+        "K3": max(max(v for n, v in c["max_abs_err"].items()
+                      if n in ("dk", "dv", "dbias")) for c in cases),
+        "K4": adam_err}
+    emit({"phase": "train_kernel_check", "cases": len(cases),
+          "dropout_mask_bitwise": bitwise, "adam_ok": adam_ok,
+          "max_abs_err": errs, "rtol": TRAIN_RTOL,
+          "atol_rel": TRAIN_ATOL_REL, "results": cases})
+    if not bitwise:
+        fail("K1's dropout mask differs from dropout_multiplier")
+    if not adam_ok:
+        fail(f"fused_adam disagrees with its plain version ({adam_err})")
+    return errs
+
+
+def _causal_pairs(b, h, t):
+    return b * h * t * (t + 1) // 2
+
+
+def _gpt2_shapes(cfg):
+    """The 292 param shapes of GPT-2 (wte, wpe, 12 per layer, ln_f)."""
+    c = cfg.n_embd
+    layer = [(c,), (c,), (3 * c, c), (3 * c,), (c, c), (c,), (c,), (c,),
+             (4 * c, c), (4 * c,), (c, 4 * c), (c,)]
+    return ([(cfg.vocab_size, c), (cfg.n_positions, c)]
+            + layer * cfg.n_layer + [(c,), (c,)])
+
+
+def phase_train_kernel_timing(torch):
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.models.gpt2 import gpt2_350m
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops.fused_adam import (
+        adam_hyperparams, fused_adam, fused_adam_reference)
+    b, t, h, d = TRAIN_B, TRAIN_T, TRAIN_H, TRAIN_D
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    q, k, v, g, _ = _attn_inputs(torch, b, t, h, d, torch.bfloat16, False,
+                                 gen)
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    delta = (g.float() * out.float()).sum(-1).permute(0, 2, 1) \
+        .reshape(b * h, t).contiguous()
+    pairs = _causal_pairs(b, h, t)
+    io = 2 * b * t * h * d                     # bytes of one bf16 tensor
+    rows = {}
+
+    def row(name, kern, plain, flops, nbytes, dtype, lib=None):
+        """The bound takes the operations at the peak for the inputs'
+        type (bf16 tensor cores for K1-K3), the least time the card could
+        take; ``fp32_ops_ms`` is the same count at the fp32 (CUDA-core)
+        peak, the rate the current K1-K3 multiply at."""
+        ms, paced, _ = _time_ms(torch, kern, 10)
+        plain_ms, _, plain_sync = _time_ms(torch, plain, 3)
+        t_ops = flops / PEAK_OPS_PER_S[dtype] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        r = {"ms": ms, "host_paced_ms": paced, "plain_ms": plain_ms,
+             "plain_host_syncs": plain_sync, "flops": flops,
+             "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+             "fp32_ops_ms": flops / PEAK_OPS_PER_S["float32"] * 1e3,
+             "library_ms": None}
+        if lib is not None:
+            r["library_ms"] = _time_ms(torch, lib, 10)[0]
+        r["roofline_share"] = r["bound_ms"] / ms
+        rows[name] = r
+
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa_in = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+    sdpa_out = F.scaled_dot_product_attention(*sdpa_in, is_causal=True)
+    g_t = g.transpose(1, 2)
+    row("K1", lambda i: fa.flash_attention_fwd(q, k, v),
+        lambda i: fa.flash_attention_fwd_reference(q, k, v),
+        4 * pairs * d, 4 * io + 4 * b * h * t, "bfloat16",
+        lambda i: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+
+    def sdpa_bwd(i):
+        torch.autograd.grad(sdpa_out, sdpa_in, g_t, retain_graph=True)
+
+    row("K2", lambda i: fa.flash_attention_bwd_dq(q, k, v, g, lse, delta),
+        lambda i: fa.flash_attention_bwd_dq_reference(q, k, v, g, lse,
+                                                       delta),
+        6 * pairs * d, 5 * io + 8 * b * h * t, "bfloat16", sdpa_bwd)
+    row("K3", lambda i: fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta),
+        lambda i: fa.flash_attention_bwd_dkv_reference(q, k, v, g, lse,
+                                                       delta),
+        8 * pairs * d, 6 * io + 8 * b * h * t, "bfloat16", sdpa_bwd)
+    del sdpa_out, sdpa_in
+
+    # K4 over GPT-2 350M's leaves (354.8 M fp32 elements)
+    shapes = _gpt2_shapes(gpt2_350m())
+    p, gr, m, vv = ([torch.randn(s, generator=gen, device="cuda") * 0.02
+                     for s in shapes] for _ in range(4))
+    for x in vv:
+        x.abs_()
+    n = sum(x.numel() for x in p)
+    hyper = adam_hyperparams(1e-4, 0.9, 0.999, 1e-8, 0.0, 0.1, 0.001, 0.0,
+                             "cuda")
+    lib_params = [torch.nn.Parameter(x.clone()) for x in p]
+    for lp, x in zip(lib_params, gr):
+        lp.grad = x.clone()
+    adamw = torch.optim.AdamW(lib_params, lr=1e-4, fused=True)
+    row("K4", lambda i: fused_adam(p, gr, m, vv, hyper),
+        lambda i: fused_adam_reference(p, gr, m, vv, hyper),
+        15 * n, 28 * n, "float32", lambda i: adamw.step())
+    rows["K4"].update(leaves=len(p), elements=n)
+    del p, gr, m, vv, lib_params, adamw
+    torch.cuda.empty_cache()
+    emit({"phase": "train_kernel_timing", "shape": [b, t, h, d],
+          "dtype": "bfloat16", "causal": True, "results": rows})
+    return rows
+
+
+def _train_engine(torch, flash, extra=None):
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHead, gpt2_350m
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    model = GPT2LMHead(gpt2_350m(n_positions=TRAIN_T, dropout=0.0,
+                                 use_flash_attention=flash, loss_chunk=0),
+                       device="cuda", generator=gen)
+    config = {"train_batch_size": TRAIN_B, "bf16": {"enabled": True},
+              "optimizer": {"type": "Adam",
+                            "params": {"lr": 1e-4, "pallas": True}},
+              "steps_per_print": 10 ** 9, **(extra or {})}
+    engine, _, _, _ = initialize(model=model, config=config)
+    return engine
+
+
+def _flash_counters():
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops.fused_adam import fused_adam
+    return {"K1": fa.flash_attention_fwd, "K2": fa.flash_attention_bwd_dq,
+            "K3": fa.flash_attention_bwd_dkv, "K4": fused_adam}
+
+
+def model_flops_per_token(cfg, seq_len):
+    """Matmul FLOPs per token, fwd + bwd (the JAX bench's formula,
+    ``bench.py:39-48``): 6x the block and tied-head weights plus the
+    attention score/value matmuls."""
+    block_params = cfg.n_layer * (12 * cfg.n_embd ** 2 + 13 * cfg.n_embd)
+    lm_head = cfg.vocab_size * cfg.n_embd
+    attention = 12 * cfg.n_layer * cfg.n_embd * seq_len
+    return 6 * (block_params + 2 * cfg.n_embd + lm_head) + attention
+
+
+def phase_train(torch):
+    rng = np.random.default_rng(0)
+    batch = {"input_ids": rng.integers(0, 50257, (TRAIN_B, TRAIN_T))
+             .astype(np.int32)}
+    counters = _flash_counters()
+
+    # the same params through dense attention: the step-1 loss to match
+    dense = _train_engine(torch, flash=False)
+    dense_loss = float(dense.eval_batch(batch))
+    del dense
+    torch.cuda.empty_cache()
+
+    engine = _train_engine(torch, flash=True)
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    losses, walls = [], []
+    for _ in range(TRAIN_WARMUP + TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        walls.append(time.perf_counter() - t0)
+    launches = {n: c.launches for n, c in counters.items()}
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    timed = walls[TRAIN_WARMUP:]
+    tokens = TRAIN_B * TRAIN_T
+    cfg = engine.module.config
+    fpt = model_flops_per_token(cfg, TRAIN_T)
+    tps = tokens * len(timed) / sum(timed)
+    profile = _profile(torch, lambda: engine.train_batch(batch), 2)
+    del engine
+    torch.cuda.empty_cache()
+
+    accum = _train_engine(torch, flash=True,
+                          extra={"gradient_accumulation_steps": 2})
+    for c in counters.values():
+        c.launches = 0
+    accum_losses = [float(accum.train_batch(batch)) for _ in range(3)]
+    accum_launches = {n: c.launches for n, c in counters.items()}
+    del accum
+    torch.cuda.empty_cache()
+
+    row = {"phase": "train", "model": "gpt2_350m", "batch": TRAIN_B,
+           "seq": TRAIN_T, "dtype": "bfloat16", "attention": "flash",
+           "optimizer": "adam (fused K4)", "losses": losses,
+           "step_wall_s": walls, "tokens_per_s": tps,
+           "step_p50_ms": statistics.median(timed) * 1e3,
+           "model_flops_per_token": fpt,
+           "mfu": tps * fpt / BF16_PEAK_FLOPS,
+           "max_memory_allocated": peak, "launches": launches,
+           "steps": steps, "dense_step1_loss": dense_loss,
+           "flash_step1_loss": losses[0],
+           "step1_loss_atol": TRAIN_LOSS_ATOL, "profile": profile,
+           "accum2_losses": accum_losses, "accum2_launches": accum_launches}
+    emit(row)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"training loss not finite and falling: {losses}")
+    want = {"K1": TRAIN_LAYERS * steps, "K2": TRAIN_LAYERS * steps,
+            "K3": TRAIN_LAYERS * steps, "K4": steps}
+    if launches != want:
+        fail(f"kernel launches {launches} != {want} over {steps} steps")
+    want2 = {"K1": 2 * TRAIN_LAYERS * 3, "K2": 2 * TRAIN_LAYERS * 3,
+             "K3": 2 * TRAIN_LAYERS * 3, "K4": 3}
+    if accum_launches != want2 or not all(np.isfinite(accum_losses)):
+        fail(f"accumulation run: launches {accum_launches} != {want2} or "
+             f"losses {accum_losses}")
+    if not abs(losses[0] - dense_loss) <= TRAIN_LOSS_ATOL:
+        fail(f"flash step-1 loss {losses[0]} vs dense {dense_loss}")
+    return row
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--kernels-only", action="store_true",
-                        help="stop after the kernel check")
+                        help="stop after the kernel checks")
     args = parser.parse_args(argv)
 
     import torch
@@ -534,20 +958,42 @@ def main(argv=None):
     smi = phase_device(torch)
     phase_build()
     worst = phase_kernel_check(torch)
+    train_errs = phase_train_kernel_check(torch)
     if args.kernels_only:
         print(smi, flush=True)
         return 0
     timing = phase_kernel_timing(torch)
     serves = [phase_serve(torch, kv) for kv in (None, "int8")]
+    train_timing = phase_train_kernel_timing(torch)
+    train = phase_train(torch)
     t = timing["bfloat16/serve_mix"]
-    emit({"kernels": [{
+    kernels = [{
         "name": "flash_decode", "route": "cuda",
         "source": "deepspeed_tpu_torch/ops/csrc/flash_decode.cu",
         "replaces": "deepspeed_tpu/ops/pallas/flash_decode.py:193",
         "launches": sum(s["kernel_launches"] for s in serves),
         "max_abs_err": worst, "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-        "library_ms": t["library_ms"]}]})
+        "library_ms": t["library_ms"]}]
+    train_src = {
+        "K1": ("flash_attention_fwd", "flash_attention.cu",
+               "deepspeed_tpu/ops/pallas/flash_attention.py:275"),
+        "K2": ("flash_attention_bwd_dq", "flash_attention.cu",
+               "deepspeed_tpu/ops/pallas/flash_attention.py:489"),
+        "K3": ("flash_attention_bwd_dkv", "flash_attention.cu",
+               "deepspeed_tpu/ops/pallas/flash_attention.py:556"),
+        "K4": ("fused_adam", "fused_adam.cu",
+               "deepspeed_tpu/ops/pallas/fused_adam.py:30")}
+    for key, (name, src, replaces) in train_src.items():
+        r = train_timing[key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"deepspeed_tpu_torch/ops/csrc/{src}",
+            "replaces": replaces, "launches": train["launches"][key],
+            "max_abs_err": train_errs[key], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

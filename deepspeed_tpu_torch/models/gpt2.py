@@ -13,11 +13,23 @@ numerics so converted weights give the same logits:
 - GELU is the tanh approximation.
 - Embeddings are ``wte[ids].to(dtype) + wpe[positions].to(dtype)``.
 
-Two forward paths: the uncached causal one (a full sequence) and the
+Two forward paths: the uncached causal one (a full sequence; training
+runs it, with flash attention when ``use_flash_attention``) and the
 cached one (``kv_cache`` from `inference/cache.py`: this call's k/v are
 written at explicit ``positions`` and attention runs over the whole
-cache row under a position mask). Training-only features (remat,
-progressive layer drop, scan_layers, fp8, the losses) are not ported.
+cache row under a position mask). The losses
+(:func:`cross_entropy_loss`, :func:`chunked_cross_entropy_with_head`)
+and :func:`make_gpt2_loss_fn` are ported; remat, ``scan_layers``,
+progressive layer drop and fp8 are not yet (they raise).
+
+Dropout runs only when the forward gets a ``dropout_seed`` (an int the
+engine derives from its seed and step counter). Attention-prob dropout
+is the counter hash of ``ops/flash_attention.py`` on both attention
+routes, keyed per layer by ``fold_in_seed(seed, layer)``: bit-identical
+to the JAX kernels for the same int32 seed. Hidden-state dropout draws
+from a ``torch.Generator`` seeded with ``dropout_seed``. Neither seed
+can match the JAX model's ``jax.random`` streams: that mismatch is
+deliberate, and parity tests run with dropout 0.
 
 :func:`convert_gpt2_params` turns the JAX package's param tree (as
 numpy arrays) into a ``state_dict`` for :class:`GPT2LMHead`.
@@ -42,6 +54,12 @@ class GPT2Config:
     n_head: int = 12
     dtype: torch.dtype = torch.bfloat16        # compute dtype
     param_dtype: torch.dtype = torch.float32   # master param dtype
+    dropout: float = 0.0
+    use_flash_attention: bool = False          # K1-K3 on the training path
+    loss_chunk: int = 0              # >0: chunked cross-entropy over the
+    #                                  vocab head (no [B, T, V] logits)
+    remat: bool = False              # not yet ported
+    scan_layers: bool = False        # not yet ported
 
 
 # Sizes follow the reference perf-harness configs.
@@ -146,9 +164,11 @@ class CausalSelfAttention(nn.Module):
         self.c_proj = Dense(C, C, cfg, device)
 
     def forward(self, x, positions=None, kv_cache=None, attn_impl="dense",
-                attn_block_k=128, attn_mask=None):
+                attn_block_k=128, attn_mask=None, drop=None):
         from deepspeed_tpu_torch.inference.cache import (
             attention_scale, cached_attention)
+        from deepspeed_tpu_torch.ops.flash_attention import (
+            _dropout_multiplier_full, flash_attention)
 
         cfg = self.cfg
         B, T, C = x.shape
@@ -161,15 +181,24 @@ class CausalSelfAttention(nn.Module):
             y, _ = cached_attention(q, k, v, kv_cache, positions,
                                     compute_dtype=cfg.dtype, impl=attn_impl,
                                     block_k=attn_block_k, mask=attn_mask)
+        elif cfg.use_flash_attention:
+            rate, seed = (0.0, None) if drop is None else \
+                (drop.rate, drop.attn_seed)
+            y = flash_attention(q, k, v, causal=True, dropout_rate=rate,
+                                dropout_seed=seed)
         else:
             att = torch.einsum("bthd,bshd->bhts", q, k) * \
                 attention_scale(C // H, cfg.dtype)
             mask = torch.ones(T, T, dtype=torch.bool,
                               device=x.device).tril()
             att = torch.where(mask, att, torch.finfo(att.dtype).min)
-            att = torch.softmax(att.float(), dim=-1).to(cfg.dtype)
-            y = torch.einsum("bhts,bshd->bthd", att, v)
-        return self.c_proj(y.reshape(B, T, C))
+            att = torch.softmax(att.float(), dim=-1)
+            if drop is not None:
+                att = att * _dropout_multiplier_full(
+                    B, H, T, T, drop.rate, drop.attn_seed, device=x.device)
+            y = torch.einsum("bhts,bshd->bthd", att.to(cfg.dtype), v)
+        y = self.c_proj(y.reshape(B, T, C))
+        return y if drop is None else drop.hidden(y)
 
 
 class MLP(nn.Module):
@@ -179,8 +208,9 @@ class MLP(nn.Module):
         self.c_fc = Dense(C, 4 * C, cfg, device)
         self.c_proj = Dense(4 * C, C, cfg, device)
 
-    def forward(self, x):
-        return self.c_proj(F.gelu(self.c_fc(x), approximate="tanh"))
+    def forward(self, x, drop=None):
+        h = self.c_proj(F.gelu(self.c_fc(x), approximate="tanh"))
+        return h if drop is None else drop.hidden(h)
 
 
 class Block(nn.Module):
@@ -191,9 +221,33 @@ class Block(nn.Module):
         self.ln_2 = LayerNorm(cfg.n_embd, cfg, device=device)
         self.mlp = MLP(cfg, device)
 
-    def forward(self, x, **attn_kw):
-        x = x + self.attn(self.ln_1(x), **attn_kw)
-        return x + self.mlp(self.ln_2(x))
+    def forward(self, x, drop=None, **attn_kw):
+        x = x + self.attn(self.ln_1(x), drop=drop, **attn_kw)
+        return x + self.mlp(self.ln_2(x), drop=drop)
+
+
+class _Dropout:
+    """One training forward's dropout: ``rate``, the hidden-state
+    ``generator`` and the attention-prob hash seed of the current layer
+    (``fold_in_seed(seed, layer)``)."""
+
+    def __init__(self, rate, seed, generator, attn_seed=None):
+        self.rate = rate
+        self.seed = seed
+        self.generator = generator
+        self.attn_seed = attn_seed
+
+    def layer(self, i):
+        from deepspeed_tpu_torch.ops.flash_attention import fold_in_seed
+        return _Dropout(self.rate, self.seed, self.generator,
+                        fold_in_seed(self.seed, i))
+
+    def hidden(self, x):
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                       device=x.device))
 
 
 class GPT2LMHead(nn.Module):
@@ -207,6 +261,11 @@ class GPT2LMHead(nn.Module):
 
     def __init__(self, cfg, device=None, generator=None):
         super().__init__()
+        for name in ("remat", "scan_layers"):
+            if getattr(cfg, name):
+                raise NotImplementedError(
+                    f"GPT2Config.{name} is not yet ported to "
+                    f"deepspeed_tpu_torch")
         self.config = cfg
         self.wte = nn.Parameter(torch.empty(
             cfg.vocab_size, cfg.n_embd, dtype=cfg.param_dtype,
@@ -246,11 +305,15 @@ class GPT2LMHead(nn.Module):
         return self
 
     def forward(self, input_ids, positions=None, kv_cache=None,
-                attn_impl="dense", attn_block_k=128):
+                attn_impl="dense", attn_block_k=128, dropout_seed=None,
+                return_hidden=False):
         """Logits ``[B, T, vocab]`` in the compute dtype; with
         ``kv_cache``, ``(logits, kv_cache)`` (the cache updated in
         place). ``positions`` ``[B, T]`` places a chunk at explicit
-        absolute positions (required with ``kv_cache``)."""
+        absolute positions (required with ``kv_cache``).
+        ``dropout_seed`` (an int) turns on training dropout on the
+        uncached path; ``return_hidden`` returns the final hidden states
+        instead of logits (the chunked loss applies the head itself)."""
         from deepspeed_tpu_torch.inference.cache import attention_mask
 
         cfg = self.config
@@ -260,9 +323,16 @@ class GPT2LMHead(nn.Module):
         else:
             pos_emb = self.wpe[positions]
         x = self.wte[input_ids].to(cfg.dtype) + pos_emb.to(cfg.dtype)
+        drop = None
+        if dropout_seed is not None and cfg.dropout > 0.0 and \
+                kv_cache is None:
+            gen = torch.Generator(device=x.device)
+            gen.manual_seed(int(dropout_seed) & 0xFFFFFFFFFFFFFFFF)
+            drop = _Dropout(cfg.dropout, int(dropout_seed), gen)
+            x = drop.hidden(x)
         if kv_cache is None:
-            for block in self.h:
-                x = block(x)
+            for i, block in enumerate(self.h):
+                x = block(x, drop=None if drop is None else drop.layer(i))
         else:
             if positions is None:
                 raise ValueError("the cached path needs explicit positions")
@@ -275,10 +345,131 @@ class GPT2LMHead(nn.Module):
                           attn_impl=attn_impl, attn_block_k=attn_block_k,
                           attn_mask=attn_mask)
         x = self.ln_f(x)
+        if return_hidden:
+            return x
         logits = torch.matmul(x, self.wte.to(cfg.dtype).t())
         if kv_cache is not None:
             return logits, kv_cache
         return logits
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def cross_entropy_sum_and_count(logits, labels, ignore_index=-100):
+    """(summed token cross-entropy in fp32, valid-token count)."""
+    logits = logits.float()
+    mask = labels != ignore_index
+    safe = torch.where(mask, labels, torch.zeros_like(labels))
+    logp = torch.log_softmax(logits, dim=-1)
+    token_loss = -torch.gather(logp, -1, safe[..., None].long())[..., 0]
+    token_loss = torch.where(mask, token_loss, 0.0)
+    return token_loss.sum(), mask.sum()
+
+
+def cross_entropy_loss(logits, labels, ignore_index=-100):
+    """Mean token cross-entropy in fp32, masking ``ignore_index``."""
+    total, count = cross_entropy_sum_and_count(logits, labels, ignore_index)
+    return total / torch.clamp(count, min=1)
+
+
+class _HeadMatmul(torch.autograd.Function):
+    """``[B, c, M] x [M, V]`` head matmul at ``xc``'s dtype whose head
+    cotangent is produced directly in fp32 (``models/gpt2.py:427-457``):
+    the bf16 inputs widen exactly and the sum over rows runs in fp32, so
+    the chunked head's gradient is rounded once, like the dense head's."""
+
+    @staticmethod
+    def forward(ctx, xc, head):
+        ctx.save_for_backward(xc, head)
+        return torch.matmul(xc, head.to(xc.dtype))
+
+    @staticmethod
+    def backward(ctx, g):
+        xc, head = ctx.saved_tensors
+        dx = torch.matmul(g, head.to(g.dtype).t())
+        dhead = torch.matmul(xc.reshape(-1, xc.shape[-1]).float().t(),
+                             g.reshape(-1, g.shape[-1]).float())
+        return dx, dhead
+
+
+def _chunk_loss(xc, lc, head, bias, ignore_index):
+    logits = _HeadMatmul.apply(xc, head)
+    if bias is not None:
+        logits = logits + bias.to(logits.dtype)
+    total, count = cross_entropy_sum_and_count(logits, lc, ignore_index)
+    return total, count
+
+
+def chunked_cross_entropy_with_head(x, head, bias, labels, chunk,
+                                    ignore_index=-100):
+    """Cross-entropy against a vocab head without the [B, T, V] logits
+    (``models/gpt2.py:460``): a loop over sequence chunks, each chunk's
+    logits recomputed in the backward (``torch.utils.checkpoint``), the
+    head and bias kept fp32 so their gradients accumulate in fp32.
+
+    x: [B, T, M] final hidden states; head: [M, V]; bias: [V] or None;
+    labels: [B, T]. Returns (loss sum, valid-token count)."""
+    from torch.utils.checkpoint import checkpoint
+
+    B, T, M = x.shape
+    chunk = min(chunk, T)
+    n = -(-T // chunk)
+    pad = n * chunk - T
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=ignore_index)
+    head = head.float()
+    if bias is not None:
+        bias = bias.float()
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = torch.zeros((), dtype=torch.int64, device=x.device)
+    for i in range(n):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        s, c = checkpoint(_chunk_loss, x[:, sl], labels[:, sl], head, bias,
+                          ignore_index, use_reentrant=False)
+        total = total + s
+        count = count + c
+    return total, count
+
+
+def chunked_cross_entropy_sum_and_count(x, wte, labels, chunk,
+                                        ignore_index=-100):
+    """Tied-head form: cross-entropy against ``wte.T``."""
+    return chunked_cross_entropy_with_head(x, wte.t(), None, labels, chunk,
+                                           ignore_index)
+
+
+def make_gpt2_loss_fn(model):
+    """``loss_fn(batch, rng=None)`` for the engine over ``model``'s
+    params (``models/gpt2.py:521``). ``batch`` is a dict with
+    ``input_ids`` [B, T] (labels default to the next-token shift, the
+    last position ignored) or explicit ``labels``; ``rng`` is the
+    engine's int dropout seed, None for a deterministic forward."""
+
+    def loss_fn(batch, rng=None, pld_theta=None):
+        if pld_theta is not None:
+            raise NotImplementedError(
+                "progressive layer drop is not yet ported to "
+                "deepspeed_tpu_torch")
+        input_ids = batch["input_ids"]
+        labels = batch.get("labels")
+        if labels is None:
+            labels = torch.cat(
+                [input_ids[:, 1:],
+                 torch.full((input_ids.shape[0], 1), -100,
+                            dtype=input_ids.dtype,
+                            device=input_ids.device)], dim=1)
+        chunk = model.config.loss_chunk
+        if chunk:
+            hidden = model(input_ids, dropout_seed=rng, return_hidden=True)
+            total, count = chunked_cross_entropy_sum_and_count(
+                hidden, model.wte.to(model.config.dtype), labels, chunk)
+            return total / torch.clamp(count, min=1)
+        return cross_entropy_loss(model(input_ids, dropout_seed=rng), labels)
+
+    return loss_fn
 
 
 # ---------------------------------------------------------------------------

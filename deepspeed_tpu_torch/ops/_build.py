@@ -24,7 +24,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNELS = ("flash_decode",)      # one csrc/<name>.cu each
+KERNELS = ("flash_decode", "flash_attention", "fused_adam")  # csrc/<name>.cu
 BUILD_DIR = Path(__file__).resolve().parents[2] / ".torch_ext"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",

@@ -77,3 +77,19 @@ def test_kernel_sources_ship_with_the_package():
     assert os.path.join(REPO, ".torch_ext") == str(_build.BUILD_DIR)
     with open(os.path.join(REPO, ".gitignore")) as f:
         assert ".torch_ext/" in f.read().split()
+
+
+def test_scan_covers_the_training_slice_and_every_kernel_wrapper():
+    """The import guard reads every module of the package, the training
+    runtime and each kernel's wrapper (``ops/<name>.py`` beside
+    ``ops/csrc/<name>.cu``) among them."""
+    from deepspeed_tpu_torch.ops import _build
+    scanned = {os.path.relpath(p, REPO) for p in _sources()}
+    wrappers = {f"deepspeed_tpu_torch/ops/{name}.py"
+                for name in _build.KERNELS}
+    training = {f"deepspeed_tpu_torch/{m}.py" for m in (
+        "__init__", "runtime/engine", "runtime/config", "runtime/constants",
+        "runtime/lr_schedules", "runtime/utils", "runtime/fp16/loss_scaler",
+        "ops/adam/fused_adam", "models/gpt2")}
+    assert len(wrappers) == 3
+    assert wrappers | training <= scanned
