@@ -168,7 +168,7 @@ class CausalSelfAttention(nn.Module):
         from deepspeed_tpu_torch.inference.cache import (
             attention_scale, cached_attention)
         from deepspeed_tpu_torch.ops.flash_attention import (
-            _dropout_multiplier_full, flash_attention)
+            dense_attention, flash_attention)
 
         cfg = self.cfg
         B, T, C = x.shape
@@ -181,22 +181,17 @@ class CausalSelfAttention(nn.Module):
             y, _ = cached_attention(q, k, v, kv_cache, positions,
                                     compute_dtype=cfg.dtype, impl=attn_impl,
                                     block_k=attn_block_k, mask=attn_mask)
-        elif cfg.use_flash_attention:
+        else:
             rate, seed = (0.0, None) if drop is None else \
                 (drop.rate, drop.attn_seed)
-            y = flash_attention(q, k, v, causal=True, dropout_rate=rate,
-                                dropout_seed=seed)
-        else:
-            att = torch.einsum("bthd,bshd->bhts", q, k) * \
-                attention_scale(C // H, cfg.dtype)
-            mask = torch.ones(T, T, dtype=torch.bool,
-                              device=x.device).tril()
-            att = torch.where(mask, att, torch.finfo(att.dtype).min)
-            att = torch.softmax(att.float(), dim=-1)
-            if drop is not None:
-                att = att * _dropout_multiplier_full(
-                    B, H, T, T, drop.rate, drop.attn_seed, device=x.device)
-            y = torch.einsum("bhts,bshd->bthd", att.to(cfg.dtype), v)
+            if cfg.use_flash_attention:
+                y = flash_attention(q, k, v, causal=True, dropout_rate=rate,
+                                    dropout_seed=seed)
+            else:
+                y = dense_attention(
+                    q, k, v, causal=True,
+                    sm_scale=attention_scale(C // H, cfg.dtype),
+                    dropout_rate=rate, dropout_seed=seed)
         y = self.c_proj(y.reshape(B, T, C))
         return y if drop is None else drop.hidden(y)
 

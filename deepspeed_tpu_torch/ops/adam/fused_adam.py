@@ -1,16 +1,20 @@
 """Fused Adam / AdamW optimizer (port of
 ``deepspeed_tpu/ops/adam/fused_adam.py``).
 
-:func:`adam_update` is the functional update with the JAX XLA path's
-math, as plain torch ops (in JAX it is XLA, not a Pallas kernel): it
-returns new tensors and leaves its inputs alone. The one-pass in-place
-kernel (K4, the engine's ``"pallas": true`` route) is
-:mod:`deepspeed_tpu_torch.ops.fused_adam`.
+:func:`adam_update` is the functional update: it returns new tensors
+and leaves its inputs alone, with the per-leaf arithmetic of the
+one-pass in-place kernel K4 (:mod:`deepspeed_tpu_torch.ops.fused_adam`),
+which the engine runs on every step.
 """
 
 from typing import Any, NamedTuple
 
 import torch
+
+from deepspeed_tpu_torch.ops.fused_adam import (
+    adam_leaf_update,
+    bias_corrections,
+)
 
 
 class AdamState(NamedTuple):
@@ -38,28 +42,17 @@ def adam_update(params, grads, state, lr, beta1=0.9, beta2=0.999, eps=1e-8,
     """One Adam(W) step (``fused_adam.py:32``). Returns
     ``(new_params, new_state)``; ADAM_MODE_0 (``adam_w_mode``) decouples
     weight decay from the moments, ADAM_MODE_1 folds ``weight_decay * p``
-    into the gradient."""
+    into the gradient. The arithmetic is K4's
+    (:func:`adam_leaf_update`), with the hyperparameters as Python
+    floats as the JAX XLA update takes them."""
     step = state.step + 1
-    if bias_correction:
-        sf = step.to(torch.float32)
-        bc1 = 1.0 - torch.full((), beta1, dtype=torch.float32,
-                               device=sf.device) ** sf
-        bc2 = 1.0 - torch.full((), beta2, dtype=torch.float32,
-                               device=sf.device) ** sf
-    else:
-        bc1 = bc2 = 1.0
+    bc1, bc2 = bias_corrections(step, beta1, beta2, bias_correction)
     new_p, new_m, new_v = [], [], []
     for p, g, m, v in zip(params, grads, state.m, state.v):
-        g32 = g.to(torch.float32)
-        p32 = p.to(torch.float32)
-        if not adam_w_mode and weight_decay != 0.0:
-            g32 = g32 + weight_decay * p32
-        m_n = beta1 * m + (1.0 - beta1) * g32
-        v_n = beta2 * v + (1.0 - beta2) * torch.square(g32)
-        update = (m_n / bc1) / (torch.sqrt(v_n / bc2) + eps)
-        if adam_w_mode and weight_decay != 0.0:
-            update = update + weight_decay * p32
-        new_p.append((p32 - lr * update).to(p.dtype))
+        p_n, m_n, v_n = adam_leaf_update(
+            p.to(torch.float32), g.to(torch.float32), m, v, lr, beta1, beta2,
+            eps, weight_decay, bc1, bc2, adam_w_mode)
+        new_p.append(p_n.to(p.dtype))
         new_m.append(m_n)
         new_v.append(v_n)
     return new_p, AdamState(m=new_m, v=new_v, step=step)

@@ -23,8 +23,6 @@ import functools
 
 import torch
 
-from deepspeed_tpu_torch.ops.adam.fused_adam import AdamState
-
 CHUNK = 1 << 16         # elements per CTA of the multi-tensor launch
 
 # the last leaf table built, reused while the leaves keep their storage
@@ -73,22 +71,43 @@ def _check(params, grads, exp_avgs, exp_avg_sqs, hyper):
     return device.type == "cuda"
 
 
+def adam_leaf_update(p, g, m, v, lr, b1, b2, eps, wd, bc1, bc2,
+                     adam_w_mode):
+    """One fp32 leaf's new ``(p, m, v)``: the Adam arithmetic of the
+    port, in the order of the kernel (``fused_adam.py:32-44``). The
+    hyperparameters are 0-d f32 tensors (the kernel's vector, ``1 - b``
+    taken in fp32) or Python floats (the XLA update's weakly typed
+    constants, ``1 - b`` rounded once to fp32)."""
+    g = g if adam_w_mode else g + wd * p
+    m_new = b1 * m + (1.0 - b1) * g
+    v_new = b2 * v + (1.0 - b2) * g * g
+    upd = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
+    if adam_w_mode:
+        upd = upd + wd * p
+    return p - lr * upd, m_new, v_new
+
+
+def bias_corrections(step, beta1, beta2, bias_correction):
+    """``1 - beta ** step`` for both moments as fp32 tensors on
+    ``step``'s device, or ``1.0, 1.0`` without bias correction."""
+    if not bias_correction:
+        return 1.0, 1.0
+    sf = step.to(torch.float32)
+    return tuple(1.0 - torch.full((), b, dtype=torch.float32,
+                                  device=step.device) ** sf
+                 for b in (beta1, beta2))
+
+
 @torch.no_grad()
 def fused_adam_reference(params, grads, exp_avgs, exp_avg_sqs, hyper,
                          adam_w_mode=True):
-    """Plain K4, in place: the kernel's per-element math
-    (``fused_adam.py:32-44``) as torch ops over each leaf."""
+    """Plain K4, in place: :func:`adam_leaf_update` over each leaf with
+    the hyperparameters read from ``hyper``."""
     lr, b1, b2, eps, wd, bc1, bc2, skip = hyper.unbind(0)
     keep = skip != 0
-    one_minus_b1, one_minus_b2 = 1.0 - b1, 1.0 - b2
     for p, g, m, v in zip(params, grads, exp_avgs, exp_avg_sqs):
-        g = g if adam_w_mode else g + wd * p
-        m_new = b1 * m + one_minus_b1 * g
-        v_new = b2 * v + one_minus_b2 * g * g
-        upd = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
-        if adam_w_mode:
-            upd = upd + wd * p
-        p_new = p - lr * upd
+        p_new, m_new, v_new = adam_leaf_update(p, g, m, v, lr, b1, b2, eps,
+                                               wd, bc1, bc2, adam_w_mode)
         p.copy_(torch.where(keep, p, p_new))
         m.copy_(torch.where(keep, m, m_new))
         v.copy_(torch.where(keep, v, v_new))
@@ -156,25 +175,17 @@ def _library():
 def fused_adam_update(params, grads, state, lr, beta1=0.9, beta2=0.999,
                       eps=1e-8, weight_decay=0.0, adam_w_mode=True,
                       bias_correction=True, skip=None):
-    """The engine's K4 step (``pallas_adam_update``'s contract, in
-    place): updates ``params`` and ``state.m``/``state.v`` through
-    :func:`fused_adam` and returns the new :class:`AdamState`. ``skip``
-    (a bool device tensor, the fp16 overflow verdict) turns the step
-    into a no-op that does not advance ``state.step``."""
-    device = params[0].device
+    """The engine's optimizer step (``pallas_adam_update``'s contract,
+    in place): updates ``params`` and ``state.m``/``state.v`` through
+    :func:`fused_adam` and returns the new ``AdamState``. ``skip`` (a
+    bool device tensor, the fp16 overflow verdict) turns the step into a
+    no-op that does not advance ``state.step``."""
     step = state.step + 1
-    if bias_correction:
-        sf = step.to(torch.float32)
-        bc1 = 1.0 - torch.full((), beta1, dtype=torch.float32,
-                               device=device) ** sf
-        bc2 = 1.0 - torch.full((), beta2, dtype=torch.float32,
-                               device=device) ** sf
-    else:
-        bc1 = bc2 = 1.0
+    bc1, bc2 = bias_corrections(step, beta1, beta2, bias_correction)
     flag = 0.0 if skip is None else skip.to(torch.float32)
     hyper = adam_hyperparams(lr, beta1, beta2, eps, weight_decay, bc1, bc2,
-                             flag, device)
+                             flag, step.device)
     fused_adam(params, grads, state.m, state.v, hyper, adam_w_mode)
     if skip is not None:
         step = torch.where(skip, state.step, step)
-    return AdamState(m=state.m, v=state.v, step=step)
+    return state._replace(step=step)

@@ -11,9 +11,9 @@ run eagerly:
   port's ``Dense`` / embedding casts, as the JAX engine casts the tree);
 - :func:`grad_epilogue`: unscale and average, the fp16 overflow check,
   the global norm and clipping, in place on the gradients;
-- Adam / AdamW: ``optimizer.params.pallas: true`` runs the fused
-  one-launch kernel K4 (``ops/fused_adam.py``); the default is the
-  functional ``adam_update`` in plain torch ops (in JAX that is XLA);
+- Adam / AdamW: every step is one launch of the fused kernel K4
+  (``ops/fused_adam.py``), with or without ``optimizer.params.pallas``
+  (the JAX engine's choice between XLA and its Pallas kernel);
 - the fp16 overflow skip and :func:`loss_scale_epilogue` on device
   tensors (``torch.where``, no host sync); counters as in
   ``DeviceState``.
@@ -38,10 +38,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch.ops.adam.fused_adam import (
-    adam_update,
-    init_adam_state,
-)
+from deepspeed_tpu_torch.ops.adam.fused_adam import init_adam_state
 from deepspeed_tpu_torch.ops.flash_attention import fold_in_seed
 from deepspeed_tpu_torch.ops.fused_adam import fused_adam_update
 from deepspeed_tpu_torch.runtime.config import (
@@ -273,9 +270,10 @@ class DeepSpeedEngine:
             raise ValueError(f"unknown optimizer {name!r}; supported: adam, "
                              f"adamw, lamb, onebitadam")
         self._adam_w_mode = opt.pop("adam_w_mode", name == "adamw")
-        # "pallas": true -> the one-launch fused kernel K4 (on CPU
-        # tensors its wrapper runs the plain version)
-        self.fused_optimizer = bool(opt.pop("pallas", False))
+        # "pallas" is accepted for config compatibility and chooses
+        # nothing: every step runs K4, whose wrapper runs its plain
+        # version on CPU tensors
+        opt.pop("pallas", None)
 
     def _configure_lr_scheduler(self, client_scheduler):
         """Schedule resolution (``engine.py:867``): host functions of the
@@ -365,24 +363,12 @@ class DeepSpeedEngine:
             grads, scale, accum, fp16, clip)
         lr = float(self._lr_fn(self.global_steps))
         beta1 = float(self._mom_fn(self.global_steps))
-        kw = dict(lr=lr, beta1=beta1, beta2=self._betas[1], eps=self._eps,
-                  weight_decay=self._weight_decay,
-                  adam_w_mode=self._adam_w_mode,
-                  bias_correction=self._bias_correction)
-        params = [p.data for p in self.params]
-        if self.fused_optimizer:
-            self.opt_state = fused_adam_update(
-                params, grads, self.opt_state,
-                skip=overflow if fp16 else None, **kw)
-        else:
-            new_p, new_state = adam_update(params, grads, self.opt_state,
-                                           **kw)
-            state = self.opt_state
-            for old, new in zip(params + state.m + state.v,
-                                new_p + new_state.m + new_state.v):
-                old.copy_(torch.where(overflow, old, new) if fp16 else new)
-            self.opt_state = state._replace(
-                step=torch.where(overflow, state.step, new_state.step))
+        self.opt_state = fused_adam_update(
+            [p.data for p in self.params], grads, self.opt_state, lr=lr,
+            beta1=beta1, beta2=self._betas[1], eps=self._eps,
+            weight_decay=self._weight_decay, adam_w_mode=self._adam_w_mode,
+            bias_correction=self._bias_correction,
+            skip=overflow if fp16 else None)
         self.device_state = loss_scale_epilogue(
             self.device_state, overflow, fp16, self.dynamic_loss_scale,
             self._scale_args())

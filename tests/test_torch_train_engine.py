@@ -33,6 +33,7 @@ from deepspeed_tpu_torch.models.gpt2 import (
     convert_gpt2_params,
     gpt2_tiny,
 )
+from deepspeed_tpu_torch.ops import fused_adam as fused_adam_module
 from deepspeed_tpu_torch.ops.fused_adam import fused_adam
 
 STEPS = 5
@@ -103,13 +104,22 @@ def test_loss_curve_matches_jax_engine(jax_params, name):
     assert int(teng.opt_state.step) == STEPS
 
 
-def test_fused_optimizer_route_runs_k4(jax_params):
-    """``pallas: true`` sends the update through the K4 wrapper (its
-    plain version here, on CPU tensors: no launch is counted)."""
-    teng = _port_engine(jax_params, CONFIGS["accum2_clip_warmup_fused"])
-    assert teng.fused_optimizer
+def test_fused_optimizer_route_runs_k4(jax_params, monkeypatch):
+    """Every step sends the update through the K4 wrapper, once, with or
+    without ``pallas: true`` (its plain version here, on CPU tensors: no
+    launch is counted)."""
+    calls = []
+
+    def counting(*args, **kwargs):
+        calls.append(1)
+        return fused_adam(*args, **kwargs)
+
+    monkeypatch.setattr(fused_adam_module, "fused_adam", counting)
     before = fused_adam.launches
-    teng.train_batch(_batches(1)[0])
+    for name in ("adam", "accum2_clip_warmup_fused"):
+        teng = _port_engine(jax_params, CONFIGS[name])
+        teng.train_batch(_batches(1)[0])
+    assert len(calls) == 2
     assert fused_adam.launches == before
 
 
@@ -159,7 +169,8 @@ def test_fp16_overflow_skips_the_step(jax_params, fused):
     """An inf injected into one gradient: the step is skipped (params,
     moments and the Adam step unchanged), ``skipped_steps`` +1, and the
     dynamic scale follows the hysteresis rule (delayed_shift 2: the
-    first overflow only spends hysteresis)."""
+    first overflow only spends hysteresis). With and without the
+    ``pallas`` key, which the engine accepts and ignores."""
     config = dict(BASE, fp16={"enabled": True, "initial_scale_power": 8},
                   optimizer={"type": "Adam",
                              "params": {"lr": 1e-3, "pallas": fused}})
