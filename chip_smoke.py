@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (``deepspeed_tpu_torch``) on one
 NVIDIA GPU: builds the port's CUDA kernels from this checkout, holds
-each against its plain PyTorch version, times it, serves GPT-2 125M and
-trains GPT-2 350M at full width through the port's main paths.
+each against its plain PyTorch version, times it, serves GPT-2 125M
+(ring, paged and speculative) and trains GPT-2 350M at full width
+through the port's main paths.
 
     python3 chip_smoke.py                 # every phase (one GPU)
     python3 chip_smoke.py --kernels-only  # device, build, kernel checks
@@ -19,33 +20,65 @@ Phases, each printing one JSON line:
    H=16/D=96 (plus H=4/D=256), positions {0, 63, 127, 128, 300, 511}
    and random ones, storage bf16/f32/int8/f8e4m3fn/f8e5m2 under bf16
    and f32 queries; a poisoned-tail bitwise check per storage dtype.
-4. ``kernel_timing`` — median CUDA-event time per call of the kernel,
+4. ``paged_kernel_check`` — the CUDA ``flash_decode_paged`` (K6)
+   against ``flash_decode_paged_reference`` on the card: B=8, page
+   size 128, 4 pages a row (S=512), H=12/D=64 and H=16/D=96 (plus
+   H=4/D=256), positions {0, 127, 128, 255, 300, 511} and random ones,
+   shuffled page tables, the five storage dtypes under bf16 and f32
+   queries; per storage dtype, table entries past each row's occupancy
+   pointed at a poisoned trash page and then at an out-of-range id
+   (both bitwise equal to the clean run), and K6 over an in-order table
+   against K5 over the same bytes laid out as a ring (bitwise).
+5. ``kernel_timing`` — median CUDA-event time per call of the kernel,
    of its plain version and of ``F.scaled_dot_product_attention`` on
    the bf16 cache (a yardstick only; the port never calls it), against
    the bound of moving the occupied cache once at the card's HBM rate.
-5. ``serve``   — GPT-2 125M (bf16, seeded random params) served through
+6. ``paged_kernel_timing`` — the same for K6 over 12 layer pools at
+   the paged serve stream's positions, beside its plain version, its
+   bound (the occupied keys' bytes, scales and table entries at the
+   HBM rate) and ``F.scaled_dot_product_attention`` over the pool
+   already gathered into a bf16 ring view (the gather not timed; a
+   yardstick only).
+7. ``serve``   — GPT-2 125M (bf16, seeded random params) served through
    ``InferenceEngine`` + ``ContinuousBatchingScheduler`` with flash
    decode, once with a bf16 and once with an int8 KV cache: a warmup
    request, then 24 requests (prompts 8-120 tokens, 32 new tokens,
    one arrival per decode step). Checks: every request completes,
    ``compile_counts() == {"prefill": 1, "decode": 1}``, the kernel ran
-   n_layer times per decode step, and teacher-forced decode logits of
-   the flash engine match a dense engine on the same params.
-6. ``train_kernel_check`` — flash attention K1 (out, lse), K2 (dq) and
+   n_layer times per decode step (K6 never), and teacher-forced decode
+   logits of the flash engine match a dense engine on the same params.
+8. ``serve_paged`` — the same model on the paged pool (page size 128,
+   33 pages) with flash decode, bf16 and int8 KV: a warmup request, 24
+   requests of a shared 256-token system prompt plus 8-120 tokens of
+   their own (32 new tokens, one arrival per decode step), the first 4
+   with a ``session_id``, then 4 follow-ups extending those sessions;
+   host park threshold 0.9 sends every parked session to host RAM.
+   Checks: every request completes, 2 programs, K6 n_layer times per
+   decode step and K5 never, prefix hits, skipped prefill chunks and
+   pages paged back in; teacher-forced logits of the paged flash engine
+   against a paged dense and a ring flash engine; in f32, 8 requests'
+   greedy streams paged == ring. Reports tokens/s, latency, peak memory
+   and cache bytes per session, paged against ring.
+9. ``serve_speculative`` — the paged flash engine with self-speculative
+   decoding (k 4, 6 draft layers, greedy): 3 programs with decode at 0,
+   K6 6 times per draft call, at least one token per live row per round;
+   in f32, 8 requests' streams equal the plain paged engine's. Reports
+   rounds, mean accepted tokens per row-round and tokens/s.
+10. ``train_kernel_check`` — flash attention K1 (out, lse), K2 (dq) and
    K3 (dk, dv, dbias partials) against their plain versions on the card:
    B 2-8, T 128/1000/1024, H 16, D 64 and 128, bf16 and f32, causal and
    not, with and without a key bias, dropout 0 and 0.1 at a nonzero head
    offset; the K1 dropout mask read back bitwise against
    ``dropout_multiplier``; fused Adam K4 against its plain version over
    3 steps and a skipped one, both modes, leaves of odd sizes.
-7. ``train_kernel_timing`` — CUDA-event ms per call of K1, K2, K3 at the
+11. ``train_kernel_timing`` — CUDA-event ms per call of K1, K2, K3 at the
    training shape (B 8, T 1024, H 16, D 64, bf16, causal) and of K4
    over GPT-2 350M's 292 leaves, beside their plain versions, their
    bounds and the library yardsticks (``F.scaled_dot_product_attention``
    forward and backward, ``torch.optim.AdamW(fused=True)``; the port
    never calls them). Before K4 is timed, one K4 step over those 292
    leaves is held against its plain version on copies of them.
-8. ``train`` — GPT-2 350M (n_positions 1024, bf16 over fp32 masters,
+12. ``train`` — GPT-2 350M (n_positions 1024, bf16 over fp32 masters,
    flash attention, seeded random params) through ``initialize`` with
    the JAX bench's config (train_batch_size 8, bf16, Adam lr 1e-4 with
    ``pallas: true``): 2 warmup and 10 timed ``train_batch`` steps on a
@@ -83,6 +116,11 @@ B, S = 8, 512
 FIXED_POSITIONS = (0, 63, 127, 128, 300, 511)
 SERVE_BLOCK_K = 128     # the engine's default attention_block_k
 N_LAYER = 12
+PAGE_SIZE, PAGES_PER_ROW = 128, 4       # the paged engine's auto geometry
+N_PAGES = B * PAGES_PER_ROW + 1         # ... and its auto pool (+ trash)
+PAGED_FIXED_POSITIONS = (0, 127, 128, 255, 300, 511)
+OUT_OF_RANGE_PAGE = 10 ** 9
+SYSTEM_PROMPT = 256
 
 
 def emit(obj):
@@ -374,20 +412,276 @@ def phase_kernel_timing(torch):
     return results
 
 
-def _make_model(torch, seed):
+# ---------------------------------------------------------------------------
+# paged serving slice: flash_decode_paged (K6)
+# ---------------------------------------------------------------------------
+
+def _paged_positions(torch, rng):
+    extra = rng.integers(0, S, B - len(PAGED_FIXED_POSITIONS))
+    pos = np.concatenate([PAGED_FIXED_POSITIONS, extra]).astype(np.int32)
+    return torch.from_numpy(pos).cuda()
+
+
+def _shuffled_table(torch, rng, b, n_pages):
+    """``[b, PAGES_PER_ROW]`` distinct physical ids in shuffled order,
+    none of them the trash page."""
+    ids = rng.permutation(np.arange(1, n_pages))[:b * PAGES_PER_ROW]
+    return torch.from_numpy(ids.reshape(b, PAGES_PER_ROW).astype(
+        np.int32)).cuda()
+
+
+def _tail_mask(torch, pos):
+    """``[b, PAGES_PER_ROW]``: table entries past each row's occupancy."""
+    used = pos.long().clamp(max=S - 1) // PAGE_SIZE
+    return torch.arange(PAGES_PER_ROW, device="cuda")[None, :] > used[:, None]
+
+
+def _paged_poison_check(torch, kern, q, k, v, pos, table, ks, vs, clean):
+    """Entries past each row's occupancy pointed first at a trash page
+    (page 0) holding huge values, then at an out-of-range id: the
+    output must not change a bit either way."""
+    big = 100.0 if k.dtype == torch.int8 else 1e4 if ks is None else 400.0
+    trash = torch.arange(k.shape[0], device="cuda") == 0
+    scales = ()
+    if ks is not None:
+        scales = (_fill(torch, ks, trash, 1e4), _fill(torch, vs, trash, 1e4))
+    kp, vp = _fill(torch, k, trash, big), _fill(torch, v, trash, -big)
+    tail = _tail_mask(torch, pos)
+    same = True
+    for entry in (0, OUT_OF_RANGE_PAGE):
+        bad = table.masked_fill(tail, entry)
+        out = kern(q, kp, vp, pos, bad, *scales, block_k=SERVE_BLOCK_K)
+        torch.cuda.synchronize()
+        same = same and bool(torch.equal(out, clean))
+    return same
+
+
+def _ring_equivalence(torch, paged_kern, ring_kern, storage, h, d, gen, rng):
+    """K6 over an in-order table onto the bytes of a ring cache against
+    K5 over that ring: (bitwise equal, max abs err)."""
+    k, ks = _cache(torch, storage, (B, S, h, d), gen)
+    v, vs = _cache(torch, storage, (B, S, h, d), gen)
+    q = torch.randn((B, 1, h, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    pos = _paged_positions(torch, rng)
+    pool = (B * PAGES_PER_ROW, PAGE_SIZE, h, d)
+    table = torch.arange(B * PAGES_PER_ROW, dtype=torch.int32,
+                         device="cuda").reshape(B, PAGES_PER_ROW)
+    ring_scales = (ks, vs) if ks is not None else ()
+    pool_scales = tuple(x.view(pool[:3]) for x in ring_scales)
+    paged = paged_kern(q, k.view(pool), v.view(pool), pos, table,
+                       *pool_scales, block_k=SERVE_BLOCK_K)
+    ring = ring_kern(q, k, v, pos, *ring_scales, block_k=SERVE_BLOCK_K)
+    torch.cuda.synchronize()
+    return (bool(torch.equal(paged, ring)),
+            float((paged.float() - ring.float()).abs().max()))
+
+
+def phase_paged_kernel_check(torch):
+    from deepspeed_tpu_torch.ops.flash_decode import (
+        flash_decode, flash_decode_paged, flash_decode_paged_reference)
+    rng = np.random.default_rng(10)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(10)
+    cases, worst = [], 0.0
+    n_pages = N_PAGES + 3                   # spare pages: unused ids exist
+    for b, h, d in [(8, 12, 64), (8, 16, 96), (4, 4, 256)]:
+        for storage in STORAGES:
+            for qdt in ("bfloat16", "float32"):
+                if d == 256 and qdt == "float32":
+                    continue
+                shape = (n_pages, PAGE_SIZE, h, d)
+                k, ks = _cache(torch, storage, shape, gen)
+                v, vs = _cache(torch, storage, shape, gen)
+                q = torch.randn((b, 1, h, d), generator=gen,
+                                device="cuda").to(getattr(torch, qdt))
+                pos = _paged_positions(torch, rng)[:b]
+                table = _shuffled_table(torch, rng, b, n_pages)
+                scales = (ks, vs) if ks is not None else ()
+                out = flash_decode_paged(q, k, v, pos, table, *scales,
+                                         block_k=SERVE_BLOCK_K)
+                ref = flash_decode_paged_reference(q, k, v, pos, table,
+                                                   *scales,
+                                                   block_k=SERVE_BLOCK_K)
+                torch.cuda.synchronize()
+                diff = (out.float() - ref.float()).abs()
+                allowed = ATOL + RTOL[qdt] * ref.float().abs()
+                ok = bool(torch.isfinite(out.float()).all()) and \
+                    bool((diff <= allowed).all())
+                err = float(diff.max())
+                worst = max(worst, err)
+                case = {"B": b, "H": h, "D": d, "storage": storage,
+                        "q": qdt, "max_abs_err": err, "atol": ATOL,
+                        "rtol": RTOL[qdt], "ok": ok}
+                if qdt == "bfloat16" and d == 64:
+                    case["poison_bitwise"] = _paged_poison_check(
+                        torch, flash_decode_paged, q, k, v, pos, table, ks,
+                        vs, out)
+                    case["ring_bitwise"], case["ring_max_abs_err"] = \
+                        _ring_equivalence(torch, flash_decode_paged,
+                                          flash_decode, storage, h, d, gen,
+                                          rng)
+                    ok = ok and case["poison_bitwise"]
+                cases.append(case)
+                if not ok:
+                    emit({"phase": "paged_kernel_check", "failed": case})
+                    fail(f"flash_decode_paged disagrees with its plain "
+                         f"version: {case}")
+    ring = [c for c in cases if "ring_bitwise" in c]
+    emit({"phase": "paged_kernel_check", "cases": len(cases),
+          "max_abs_err": worst, "page_size": PAGE_SIZE,
+          "pages_per_row": PAGES_PER_ROW,
+          "ring_bitwise": all(c["ring_bitwise"] for c in ring),
+          "ring_max_abs_err": max(c["ring_max_abs_err"] for c in ring),
+          "results": cases})
+    return worst
+
+
+def _paged_bound(torch, pos, H, D, storage, qbytes):
+    """Least time for one K6 call: the occupied keys' k/v (and scales),
+    the table entries covering them, q, positions and out moved once at
+    the HBM rate, or its flops at the storage type's peak."""
+    from deepspeed_tpu_torch.runtime.comm.codecs import CODECS
+    occupied = pos.long().clamp(max=S - 1) + 1
+    keys = int(occupied.sum())
+    entries = int(((occupied + PAGE_SIZE - 1) // PAGE_SIZE).sum())
+    quant = storage in CODECS
+    dtype = CODECS[storage].dtype if quant else getattr(torch, storage)
+    nbytes = 2 * keys * H * D * dtype.itemsize + 2 * B * H * D * qbytes \
+        + 4 * B + 4 * entries
+    if quant:
+        nbytes += 2 * keys * H * 4
+    flops = 4 * keys * H * D
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_OPS_PER_S[str(dtype).replace("torch.", "")] * 1e3
+    return (max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", nbytes)
+
+
+def phase_paged_kernel_timing(torch):
+    """Time K6 at the paged serve stream's decode shape over N_LAYER
+    separate pools in turn (past the 50 MB L2, as in the decode step)."""
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops.flash_decode import (
+        flash_decode_paged, flash_decode_paged_reference)
+    H, D = 12, 64
+    rng = np.random.default_rng(11)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    # positions the paged serve stream's decode steps see: a 256-token
+    # system prompt, 8-120 own tokens, up to 32 generated ones
+    mixes = {"serve_mix": torch.from_numpy(rng.integers(
+        SYSTEM_PROMPT + 8, SYSTEM_PROMPT + 152, B).astype(np.int32)).cuda(),
+        "full": torch.full((B,), S - 1, dtype=torch.int32, device="cuda"),
+        # kernel_timing's serve_mix positions (its first draw from
+        # seed 1), so K6 and K5 compare at the same occupancy
+        "ring_serve_mix": torch.from_numpy(np.random.default_rng(1).integers(
+            8, 152, B).astype(np.int32)).cuda()}
+    q = torch.randn((B, 1, H, D), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    shape = (N_PAGES, PAGE_SIZE, H, D)
+    results = {}
+    for storage in ("bfloat16", "int8"):
+        layers = [(_cache(torch, storage, shape, gen),
+                   _cache(torch, storage, shape, gen),
+                   _shuffled_table(torch, rng, B, N_PAGES))
+                  for _ in range(N_LAYER)]
+
+        def args(i):
+            (k, ks), (v, vs), table = layers[i % N_LAYER]
+            return (q, k, v), table, (ks, vs) if ks is not None else ()
+
+        for mix, pos in mixes.items():
+            def kern(i):
+                base, table, sc = args(i)
+                flash_decode_paged(*base, pos, table, *sc,
+                                   block_k=SERVE_BLOCK_K)
+
+            def plain(i):
+                base, table, sc = args(i)
+                flash_decode_paged_reference(*base, pos, table, *sc,
+                                             block_k=SERVE_BLOCK_K)
+
+            ms, paced, kern_sync = _time_ms(torch, kern, 10 * N_LAYER)
+            plain_ms, plain_paced, plain_sync = _time_ms(torch, plain,
+                                                         2 * N_LAYER)
+            bound, by, nbytes = _paged_bound(torch, pos, H, D, storage, 2)
+            row = {"ms": ms, "host_paced_ms": paced, "host_syncs": kern_sync,
+                   "plain_ms": plain_ms,
+                   "plain_host_paced_ms": plain_paced,
+                   "plain_host_syncs": plain_sync, "bound_ms": bound,
+                   "bound_by": by, "bytes": nbytes,
+                   "roofline_share": bound / ms, "positions": pos.tolist(),
+                   "library_ms": None}
+            if storage == "bfloat16":
+                mask = (torch.arange(S, device="cuda")[None, :]
+                        <= pos[:, None].long())[:, None, None, :]
+                gathered = []
+                for (k, _), (v, _), table in layers:
+                    idx = table.long()
+                    gathered.append(tuple(
+                        x[idx].reshape(B, S, H, D).transpose(1, 2)
+                        for x in (k, v)))
+
+                def lib(i):
+                    k, v = gathered[i % N_LAYER]
+                    F.scaled_dot_product_attention(q.transpose(1, 2), k, v,
+                                                   attn_mask=mask)
+
+                (row["library_ms"], row["library_host_paced_ms"],
+                 row["library_host_syncs"]) = _time_ms(torch, lib,
+                                                       10 * N_LAYER)
+                row["library_note"] = ("scaled_dot_product_attention over "
+                                       "the pool pre-gathered into a bf16 "
+                                       "[B, H, S, D] view; gather not timed")
+                del gathered
+            results[f"{storage}/{mix}"] = row
+    emit({"phase": "paged_kernel_timing", "pool": list(shape),
+          "pages_per_row": PAGES_PER_ROW, "batch": B, "results": results})
+    return results
+
+
+def _make_model(torch, seed, dtype=None):
     from deepspeed_tpu_torch.models.gpt2 import GPT2LMHead, gpt2_125m
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
-    return GPT2LMHead(gpt2_125m(), device="cuda", generator=gen)
+    cfg = gpt2_125m() if dtype is None else gpt2_125m(dtype=dtype)
+    return GPT2LMHead(cfg, device="cuda", generator=gen)
 
 
-def _engine(torch, kv, impl, session=None):
+def _engine(torch, kv, impl, session=None, dtype=None, **extra):
+    """GPT-2 125M at the repo's serving row (max_batch 8, buckets 128 /
+    512, prefill chunk 64) from seed 0; ``extra`` adds config keys
+    (``kv_layout``, ``host_park_threshold``, ``speculative``)."""
     from deepspeed_tpu_torch.inference.engine import InferenceEngine
     return InferenceEngine(
-        _make_model(torch, 0), session=session, device="cuda",
+        _make_model(torch, 0, dtype), session=session, device="cuda",
         config={"max_batch": B, "seq_buckets": (128, 512),
                 "prefill_chunk": 64, "kv_cache_dtype": kv,
-                "attention_impl": impl})
+                "attention_impl": impl, **extra})
+
+
+def _step_stats(evts):
+    """Decode tokens/s (tokens over the sum of step walls) and
+    per-token latency percentiles over ``decode_step`` events."""
+    walls = [float(e["wall_s"]) for e in evts]
+    tokens = sum(int(e["tokens"]) for e in evts)
+    lat = [w for e in evts for w in [float(e["wall_s"])] * int(e["tokens"])]
+    return {"tokens": tokens,
+            "tokens_per_s": tokens / max(sum(walls), 1e-9),
+            "p50_ms": _percentile(lat, 0.50) * 1e3,
+            "p99_ms": _percentile(lat, 0.99) * 1e3,
+            "latency_samples": len(lat)}
+
+
+def _reset_peak(torch):
+    """The peak allocation so far (the engine build: fp32 params made,
+    then cast), then reset, so the serve phases' ``max_memory_allocated``
+    is the serving peak alone."""
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    return peak
 
 
 def _percentile(xs, q):
@@ -402,45 +696,70 @@ def _percentile(xs, q):
 TEACHER_FORCED_ATOL = 0.05
 
 
-def _teacher_forced_diff(torch, kv):
-    """Same params, same prompts, same forced tokens through a flash and
-    a dense engine: max |logit difference| over every decode step and
-    row."""
-    rng = np.random.default_rng(2)
-    flash = _engine(torch, kv, "flash")
-    dense = _engine(torch, kv, "dense")
-    lens = rng.integers(8, 150, B)
-    prompts = [rng.integers(0, 50257, n).tolist() for n in lens]
-    worst, scale = 0.0, 0.0
-    for eng in (flash, dense):
-        for i, p in enumerate(prompts):
-            eng.prefill(i, p)
-    pos = lens.astype(np.int32)
-    for _ in range(8):
-        toks = rng.integers(0, 50257, B).astype(np.int32)
-        _, lf = flash.decode(toks, pos)
-        _, ld = dense.decode(toks, pos)
-        if not (np.isfinite(lf).all() and lf.shape == (B, 50257)):
-            fail(f"flash decode logits not finite / wrong shape {lf.shape}")
-        worst = max(worst, float(np.abs(lf - ld).max()))
-        scale = max(scale, float(np.abs(ld).max()))
+def _in_order_tables(engine):
+    """Row r on pages 1 + 4r .. 4 + 4r (None for a ring engine)."""
+    if engine.kv_layout != "paged":
+        return None
+    ppr = engine.pages_per_row
+    return (1 + np.arange(B * ppr, dtype=np.int32)).reshape(B, ppr)
+
+
+def _forced_logits(engine, prompts, forced):
+    """Prefill ``prompts`` into rows 0..B-1 (paged engines: row r on
+    pages 1 + 4r .. 4 + 4r, in order), then decode the ``forced`` tokens
+    [steps, B]: the decode logits [steps, B, vocab]."""
+    tables = _in_order_tables(engine)
+    for i, p in enumerate(prompts):
+        engine.prefill(i, p, **({} if tables is None
+                                else {"page_table": tables[i]}))
+    pos = np.asarray([len(p) for p in prompts], np.int32)
+    out = []
+    for toks in forced:
+        _, logits = engine.decode(toks, pos, page_tables=tables)
+        if not (np.isfinite(logits).all() and logits.shape == (B, 50257)):
+            fail(f"decode logits not finite / wrong shape {logits.shape}")
+        out.append(logits)
         pos = pos + 1
-    del flash, dense
-    return worst, scale
+    return np.stack(out)
 
 
-def _profile_decode(torch, engine, steps=10):
+def _teacher_forced_diff(torch, kv, engine=None, oracles=(("dense", {}),),
+                         min_len=8):
+    """Same params, same prompts, same forced tokens through a flash
+    engine and each oracle engine (``(impl, extra config)``): the max
+    |logit difference| against each oracle over every decode step and
+    row, and the oracles' largest |logit|."""
+    rng = np.random.default_rng(2)
+    lens = rng.integers(min_len, min_len + 142, B)
+    prompts = [rng.integers(0, 50257, n).tolist() for n in lens]
+    forced = rng.integers(0, 50257, (8, B)).astype(np.int32)
+    flash = engine if engine is not None else _engine(torch, kv, "flash")
+    got = _forced_logits(flash, prompts, forced)
+    del flash
+    diffs, scale = [], 0.0
+    for impl, extra in oracles:
+        want = _forced_logits(_engine(torch, kv, impl, **extra), prompts,
+                              forced)
+        diffs.append(float(np.abs(got - want).max()))
+        scale = max(scale, float(np.abs(want).max()))
+    return diffs, scale
+
+
+def _profile_decode(torch, engine, first=8, steps=10):
     """Where a decode step's time goes: ``torch.profiler`` over
-    ``steps`` full-batch decode steps (positions mid-stream) — host
-    wall, device busy time (sum of kernel self times) and its share of
-    the wall, and the kernels that take most of it. Device fields are
-    None when the profiler records no device time."""
+    ``steps`` full-batch decode steps (positions ``first`` to
+    ``first + 143``, mid-stream; a paged engine's rows on in-order
+    pages) — host wall, device busy time (sum of kernel self times) and
+    its share of the wall, and the kernels that take most of it. Device
+    fields are None when the profiler records no device time."""
     rng = np.random.default_rng(3)
     vocab = engine.model.config.vocab_size
-    pos = rng.integers(8, 152, B).astype(np.int32)
+    pos = rng.integers(first, first + 144, B).astype(np.int32)
     toks = rng.integers(0, vocab, B).astype(np.int32)
-    engine.decode(toks, pos)
-    return _profile(torch, lambda: engine.decode(toks, pos), steps)
+    tables = _in_order_tables(engine)
+    engine.decode(toks, pos, page_tables=tables)
+    return _profile(torch, lambda: engine.decode(toks, pos,
+                                                 page_tables=tables), steps)
 
 
 def _profile(torch, step, steps):
@@ -476,13 +795,15 @@ def _profile(torch, step, steps):
 def phase_serve(torch, kv):
     from deepspeed_tpu_torch.inference.scheduler import (
         ContinuousBatchingScheduler, Request)
-    from deepspeed_tpu_torch.ops.flash_decode import flash_decode
+    from deepspeed_tpu_torch.ops.flash_decode import (
+        flash_decode, flash_decode_paged)
     from deepspeed_tpu_torch.telemetry.session import TelemetrySession
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     session = TelemetrySession(history=1_000_000)
     engine = _engine(torch, kv, "flash", session=session)
+    build_peak = _reset_peak(torch)
     sched = ContinuousBatchingScheduler(engine)
     rng = np.random.default_rng(0)
     vocab = engine.model.config.vocab_size
@@ -494,6 +815,7 @@ def phase_serve(torch, kv):
                     max_new_tokens=32, arrival_step=i)
             for i in range(24)]
     flash_decode.launches = 0
+    flash_decode_paged.launches = 0
     t0 = time.perf_counter()
     sched.run([warmup])
     n0 = len(session.events.recent(event="decode_step"))
@@ -502,11 +824,10 @@ def phase_serve(torch, kv):
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = flash_decode.launches
+    paged_launches = flash_decode_paged.launches
     steps = session.events.recent(event="decode_step")
     evts = steps[n0:]
-    walls = [float(e["wall_s"]) for e in evts]
-    tokens = sum(int(e["tokens"]) for e in evts)
-    lat = [w for e in evts for w in [float(e["wall_s"])] * int(e["tokens"])]
+    stats = _step_stats(evts)
     counts = engine.compile_counts()
     done = [c for c in completions if c.rid != "warmup"]
     row = {"phase": "serve", "model": "gpt2_125m", "kv_cache_dtype": kv,
@@ -515,19 +836,17 @@ def phase_serve(torch, kv):
            "finish_reasons": sorted({c.finish_reason for c in done}),
            "decode_steps": len(steps), "kernel_launches": launches,
            "launches_per_step": launches / max(len(steps), 1),
-           "tokens": tokens,
-           "tokens_per_s": tokens / max(sum(walls), 1e-9),
-           "tokens_per_s_wall": tokens / (t2 - t1),
+           **stats,
+           "tokens_per_s_wall": stats["tokens"] / (t2 - t1),
            "warmup_s": t1 - t0,
-           "p50_ms": _percentile(lat, 0.50) * 1e3,
-           "p99_ms": _percentile(lat, 0.99) * 1e3,
-           "latency_samples": len(lat),
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "build_max_memory_allocated": build_peak,
            "compile_counts": counts,
            "cache_bytes": engine.cache_facts()["bytes"]}
     row["decode_profile"] = _profile_decode(torch, engine)
+    row["paged_kernel_launches"] = paged_launches
     del engine, sched
-    diff, scale = _teacher_forced_diff(torch, kv)
+    (diff,), scale = _teacher_forced_diff(torch, kv)
     row.update(teacher_forced_max_abs_diff=diff,
                teacher_forced_logit_scale=scale,
                teacher_forced_atol=TEACHER_FORCED_ATOL)
@@ -537,12 +856,255 @@ def phase_serve(torch, kv):
         fail(f"not every request completed: {row}")
     if counts != {"prefill": 1, "decode": 1}:
         fail(f"compile_counts {counts} != {{'prefill': 1, 'decode': 1}}")
-    if launches != N_LAYER * len(steps) or not steps:
+    if launches != N_LAYER * len(steps) or not steps or \
+            row["paged_kernel_launches"]:
         fail(f"flash_decode launched {launches} times over {len(steps)} "
-             f"decode steps; expected {N_LAYER} per step")
+             f"decode steps; expected {N_LAYER} per step (and "
+             f"flash_decode_paged {row['paged_kernel_launches']}, expected 0)")
     if not diff <= TEACHER_FORCED_ATOL:
         fail(f"flash vs dense teacher-forced logits differ by {diff} > "
              f"{TEACHER_FORCED_ATOL}")
+    return row
+
+
+def _paged_stream(rng, vocab, Request, n=24, sessions=4):
+    """A shared 256-token system prompt plus 8-120 tokens of each
+    request's own, 32 new tokens, one arrival per decode step; the
+    first ``sessions`` requests carry a session id."""
+    system = rng.integers(0, vocab, SYSTEM_PROMPT).tolist()
+    return [Request(f"r{i}",
+                    system + rng.integers(
+                        0, vocab, int(rng.integers(8, 120))).tolist(),
+                    max_new_tokens=32, arrival_step=i,
+                    session_id=f"s{i}" if i < sessions else None)
+            for i in range(n)]
+
+
+def _follow_ups(Request, first, done, step):
+    """One follow-up per session: the earlier request's prompt plus
+    every token it generated, so the parked KV covers all but the last."""
+    return [Request(f"f{r.session_id}", list(r.prompt) + done[r.rid].tokens,
+                    max_new_tokens=32, arrival_step=step + i,
+                    session_id=r.session_id)
+            for i, r in enumerate(x for x in first if x.session_id)]
+
+
+def _greedy_streams(torch, Request, ContinuousBatchingScheduler, **extra):
+    """8 requests of the paged stream, f32, greedy: {rid: tokens}."""
+    rng = np.random.default_rng(5)
+    reqs = _paged_stream(rng, 50257, Request, n=8, sessions=0)
+    eng = _engine(torch, None, "flash", dtype=torch.float32, **extra)
+    done = ContinuousBatchingScheduler(eng).run(reqs)
+    counts = eng.compile_counts()
+    del eng
+    return {c.rid: c.tokens for c in done}, counts
+
+
+def phase_serve_paged(torch, kv):
+    from deepspeed_tpu_torch.inference.scheduler import (
+        ContinuousBatchingScheduler, Request)
+    from deepspeed_tpu_torch.ops.flash_decode import (
+        flash_decode, flash_decode_paged)
+    from deepspeed_tpu_torch.telemetry.session import TelemetrySession
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    session = TelemetrySession(history=1_000_000)
+    engine = _engine(torch, kv, "flash", session=session, kv_layout="paged",
+                     host_park_threshold=0.9)
+    build_peak = _reset_peak(torch)
+    sched = ContinuousBatchingScheduler(engine)
+    rng = np.random.default_rng(0)
+    vocab = engine.model.config.vocab_size
+    warmup = Request("warmup", rng.integers(0, vocab, 8).tolist(),
+                     max_new_tokens=4)
+    reqs = _paged_stream(rng, vocab, Request)
+    flash_decode.launches = 0
+    flash_decode_paged.launches = 0
+    t0 = time.perf_counter()
+    sched.run([warmup])
+    n0 = len(session.events.recent(event="decode_step"))
+    t1 = time.perf_counter()
+    done = {c.rid: c for c in sched.run(reqs)}
+    follow = _follow_ups(Request, reqs, done, sched.step_count)
+    done = {c.rid: c for c in sched.run(follow)}
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = flash_decode_paged.launches
+    ring_launches = flash_decode.launches
+    steps = session.events.recent(event="decode_step")
+    evts = steps[n0:]
+    stats = _step_stats(evts)
+    counts = engine.compile_counts()
+    facts = sched.paging.facts()
+    served = [done[r.rid] for r in reqs + follow]
+    kv_lens = [c.prompt_len + len(c.tokens) - 1 for c in served]
+    pages = [-(-n // facts["page_size"]) for n in kv_lens]
+    paged_bps = facts["page_bytes"] * sum(pages) / len(pages)
+    ring_bps = _ring_cache_bytes(engine) / B
+    row = {"phase": "serve_paged", "model": "gpt2_125m",
+           "kv_cache_dtype": kv, "attention": "flash",
+           "requests": len(reqs) + len(follow),
+           "completed": len(served),
+           "finish_reasons": sorted({c.finish_reason for c in served}),
+           "decode_steps": len(steps), "kernel_launches": launches,
+           "launches_per_step": launches / max(len(steps), 1),
+           "ring_kernel_launches": ring_launches,
+           **stats,
+           "tokens_per_s_wall": stats["tokens"] / (t2 - t1),
+           "warmup_s": t1 - t0,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "build_max_memory_allocated": build_peak,
+           "compile_counts": counts, "paging": facts,
+           "prefix_hit_requests": sum(c.prefix_hit for c in served),
+           "resumed_requests": sum(c.resumed for c in served),
+           "prefill_chunks_run": sum(c.prefill_chunks for c in served),
+           "prefill_chunks_skipped": sum(c.prefill_chunks_skipped
+                                         for c in served),
+           "cache_bytes": engine.cache_facts()["bytes"],
+           "paged_cache_bytes_per_session": paged_bps,
+           "ring_cache_bytes_per_session": ring_bps,
+           "cache_bytes_ratio": paged_bps / ring_bps}
+    row["decode_profile"] = _profile_decode(torch, engine,
+                                            first=SYSTEM_PROMPT + 8)
+    del engine, sched
+    diffs, scale = _teacher_forced_diff(
+        torch, kv, engine=_engine(torch, kv, "flash", kv_layout="paged"),
+        oracles=(("dense", {"kv_layout": "paged"}), ("flash", {})),
+        min_len=SYSTEM_PROMPT)
+    row.update(teacher_forced_vs_paged_dense=diffs[0],
+               teacher_forced_vs_ring_flash=diffs[1],
+               teacher_forced_logit_scale=scale,
+               teacher_forced_atol=TEACHER_FORCED_ATOL)
+    if kv is None:
+        paged, paged_counts = _greedy_streams(
+            torch, Request, ContinuousBatchingScheduler, kv_layout="paged")
+        ring, _ = _greedy_streams(torch, Request,
+                                  ContinuousBatchingScheduler)
+        row["f32_greedy_paged_equals_ring"] = paged == ring
+        row["f32_greedy_compile_counts"] = paged_counts
+    emit(row)
+    if len(served) != len(reqs) + len(follow) or \
+            row["finish_reasons"] != ["max_new_tokens"]:
+        fail(f"not every paged request completed: {row}")
+    if counts != {"prefill": 1, "decode": 1}:
+        fail(f"paged compile_counts {counts} != "
+             f"{{'prefill': 1, 'decode': 1}}")
+    if launches != N_LAYER * len(steps) or not steps or ring_launches:
+        fail(f"flash_decode_paged launched {launches} times over "
+             f"{len(steps)} decode steps (expected {N_LAYER} per step), "
+             f"flash_decode {ring_launches} (expected 0)")
+    if not (facts["prefix_hits"] >= 1 and row["prefill_chunks_skipped"] > 0
+            and facts["pages_paged_in"] > 0
+            and row["resumed_requests"] == len(follow)):
+        fail(f"paging did not share, skip and page back in: {facts}")
+    if not max(diffs) <= TEACHER_FORCED_ATOL:
+        fail(f"paged flash teacher-forced logits differ from paged dense / "
+             f"ring flash by {diffs} > {TEACHER_FORCED_ATOL}")
+    if kv is None and not row["f32_greedy_paged_equals_ring"]:
+        fail("f32 greedy streams differ between the paged and ring engines")
+    return row
+
+
+def _ring_cache_bytes(engine):
+    """Bytes of the ring cache the same engine config would hold
+    (max_batch rows of max_seq)."""
+    spec = engine.spec
+    item = spec.dtype.itemsize
+    per_layer = 2 * B * spec.max_seq * spec.n_head * spec.head_dim * item
+    if spec.codec is not None:
+        per_layer += 2 * B * spec.max_seq * spec.n_head * 4
+    return spec.n_layer * per_layer
+
+
+SPEC_K, DRAFT_LAYERS = 4, 6             # k 4, the auto n_layer // 2
+
+
+def phase_serve_speculative(torch):
+    from deepspeed_tpu_torch.inference.scheduler import (
+        ContinuousBatchingScheduler, Request)
+    from deepspeed_tpu_torch.ops.flash_decode import (
+        flash_decode, flash_decode_paged)
+    from deepspeed_tpu_torch.telemetry.session import TelemetrySession
+
+    spec_cfg = {"enabled": True, "k": SPEC_K, "draft_layers": 0}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    session = TelemetrySession(history=1_000_000)
+    engine = _engine(torch, None, "flash", session=session,
+                     kv_layout="paged", speculative=spec_cfg)
+    build_peak = _reset_peak(torch)
+    sched = ContinuousBatchingScheduler(engine)
+    rng = np.random.default_rng(0)
+    vocab = engine.model.config.vocab_size
+    warmup = Request("warmup", rng.integers(0, vocab, 8).tolist(),
+                     max_new_tokens=4)
+    reqs = _paged_stream(rng, vocab, Request, sessions=0)
+    sched.run([warmup])
+    spec = engine.speculative
+    rounds0, emitted0, row_rounds0 = (spec.rounds, spec.emitted_total,
+                                      spec.row_rounds)
+    n0 = len(session.events.recent(event="decode_step"))
+    flash_decode.launches = 0
+    flash_decode_paged.launches = 0
+    t1 = time.perf_counter()
+    done = [c for c in sched.run(reqs) if c.rid != "warmup"]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = flash_decode_paged.launches
+    ring_launches = flash_decode.launches
+    evts = session.events.recent(event="decode_step")[n0:]
+    draft_calls = sum(int(e["draft_len"]) for e in evts)
+    stats = _step_stats(evts)
+    short = [e for e in evts if int(e["tokens"]) < int(e["batch"])]
+    counts = engine.compile_counts()
+    facts = spec.facts()
+    row = {"phase": "serve_speculative", "model": "gpt2_125m",
+           "kv_layout": "paged", "attention": "flash", "k": spec.k,
+           "draft_layers": spec.draft_layers,
+           "requests": len(reqs), "completed": len(done),
+           "finish_reasons": sorted({c.finish_reason for c in done}),
+           "rounds": facts["rounds"] - rounds0,
+           "mean_accepted": ((facts["emitted_total"] - emitted0)
+                             / max(facts["row_rounds"] - row_rounds0, 1)),
+           "draft_efficiency": facts["draft_efficiency"],
+           "draft_calls": draft_calls, "kernel_launches": launches,
+           "launches_per_draft_call": launches / max(draft_calls, 1),
+           "ring_kernel_launches": ring_launches,
+           "rounds_short_of_one_token_per_row": len(short),
+           **stats,
+           "tokens_per_s_wall": stats["tokens"] / (t2 - t1),
+           "draft_wall_s": sum(float(e["draft_wall_s"]) for e in evts),
+           "verify_wall_s": sum(float(e["verify_wall_s"]) for e in evts),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "build_max_memory_allocated": build_peak,
+           "compile_counts": counts}
+    del engine, sched
+    spec_streams, spec_counts = _greedy_streams(
+        torch, Request, ContinuousBatchingScheduler, kv_layout="paged",
+        speculative=spec_cfg)
+    plain_streams, _ = _greedy_streams(
+        torch, Request, ContinuousBatchingScheduler, kv_layout="paged")
+    row["f32_greedy_equals_plain_paged"] = spec_streams == plain_streams
+    row["f32_compile_counts"] = spec_counts
+    emit(row)
+    want = {"prefill": 1, "decode": 0, "draft": 1, "verify": 1}
+    if len(done) != len(reqs) or not set(row["finish_reasons"]) <= \
+            {"max_new_tokens", "length"}:
+        fail(f"not every speculative request completed: {row}")
+    if counts != want or spec_counts != want:
+        fail(f"speculative compile_counts {counts} / {spec_counts} != {want}")
+    if launches != DRAFT_LAYERS * draft_calls or not draft_calls or \
+            ring_launches:
+        fail(f"flash_decode_paged launched {launches} times over "
+             f"{draft_calls} draft calls (expected {DRAFT_LAYERS} per "
+             f"call), flash_decode {ring_launches} (expected 0)")
+    if short:
+        fail(f"{len(short)} speculative rounds emitted fewer tokens than "
+             f"live rows")
+    if not row["f32_greedy_equals_plain_paged"]:
+        fail("f32 speculative greedy streams differ from the plain paged "
+             "engine's")
     return row
 
 
@@ -1039,12 +1601,16 @@ def main(argv=None):
     smi = phase_device(torch)
     phase_build()
     worst = phase_kernel_check(torch)
+    paged_worst = phase_paged_kernel_check(torch)
     train_errs = phase_train_kernel_check(torch)
     if args.kernels_only:
         print(smi, flush=True)
         return 0
     timing = phase_kernel_timing(torch)
+    paged_timing = phase_paged_kernel_timing(torch)
     serves = [phase_serve(torch, kv) for kv in (None, "int8")]
+    paged_serves = [phase_serve_paged(torch, kv) for kv in (None, "int8")]
+    speculative = phase_serve_speculative(torch)
     train_timing = phase_train_kernel_timing(torch)
     train = phase_train(torch)
     t = timing["bfloat16/serve_mix"]
@@ -1056,6 +1622,16 @@ def main(argv=None):
         "max_abs_err": worst, "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"]}]
+    t = paged_timing["bfloat16/serve_mix"]
+    kernels.append({
+        "name": "flash_decode_paged", "route": "cuda",
+        "source": "deepspeed_tpu_torch/ops/csrc/flash_decode.cu",
+        "replaces": "deepspeed_tpu/ops/pallas/flash_decode.py:269",
+        "launches": sum(s["kernel_launches"] for s in paged_serves)
+        + speculative["kernel_launches"],
+        "max_abs_err": paged_worst, "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"]})
     train_src = {
         "K1": ("flash_attention_fwd", "flash_attention.cu",
                "deepspeed_tpu/ops/pallas/flash_attention.py:275"),

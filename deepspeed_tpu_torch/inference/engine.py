@@ -1,5 +1,5 @@
-"""InferenceEngine: the two programs of the serving path (ring layout
-of ``deepspeed_tpu/inference/engine.py``).
+"""InferenceEngine: the two programs of the serving path (ring and
+paged layouts of ``deepspeed_tpu/inference/engine.py``).
 
 - **prefill** — one chunk of one prompt: ``[1, prefill_chunk]`` tokens
   at explicit positions, written into cache row ``slot``. Long prompts
@@ -15,6 +15,15 @@ static shapes. PyTorch runs eagerly and compiles nothing, so
 signatures each program has run with: ``{"prefill": 1, "decode": 1}``
 from warmup to drain is the same contract the JAX engine pins with its
 jit caches (a later step captures each as a CUDA graph).
+
+``kv_layout="paged"`` swaps the ring rows for a page pool
+(`inference/cache.py` paged layout): both programs take fixed-shape
+int32 page tables as plain data, so page allocation, prefix sharing
+and host-tier park/resume (`inference/paging.py`) are admission-time
+metadata under the same 2-program contract. An ``inference.
+speculative`` block hangs a draft/verify pair off the engine
+(`inference/speculative.py`): the contract is then 3 programs and the
+plain decode program runs 0 times.
 
 The engine runs on ``device`` (default: the GPU, raising when there is
 none); the KV cache is updated in place.
@@ -38,6 +47,13 @@ DEFAULT_MAX_BATCH = 8
 DEFAULT_SEQ_BUCKETS = (128, 512)
 DEFAULT_PREFILL_CHUNK = 32
 DEFAULT_ATTENTION_BLOCK_K = 128
+DEFAULT_HOST_PARK_THRESHOLD = 0.25
+
+# numpy has no bf16 or fp8: host page snapshots carry those pool leaves
+# as integer views of the same width
+_HOST_VIEW = {torch.bfloat16: torch.int16, torch.float16: torch.int16,
+              torch.float8_e4m3fn: torch.uint8,
+              torch.float8_e5m2: torch.uint8}
 
 
 def _cfg_get(config, key, default):
@@ -91,19 +107,26 @@ class InferenceEngine:
         self.top_p = float(_cfg_get(config, "top_p", 1.0))
         self.sampling_seed = int(_cfg_get(config, "sampling_seed", 0))
         self.kv_layout = str(_cfg_get(config, "kv_layout", "ring"))
-        if self.kv_layout != "ring":
-            raise ValueError(
-                f"inference.kv_layout {self.kv_layout!r} is not yet "
-                f"ported (ring only)")
-        for key in ("tier", "speculative"):
-            spec = _cfg_get(config, key, None)
-            if spec and (not isinstance(spec, dict) or
-                         spec.get("enabled", True)):
-                raise ValueError(f"inference.{key} is not yet ported")
+        self.page_size = int(_cfg_get(config, "page_size", 0))
+        self.n_pages = int(_cfg_get(config, "n_pages", 0))
+        self.prefix_cache = bool(_cfg_get(config, "prefix_cache", True))
+        self.host_park_threshold = float(_cfg_get(
+            config, "host_park_threshold", DEFAULT_HOST_PARK_THRESHOLD))
+        if _cfg_get(config, "tier", None):
+            raise ValueError("inference.tier is not yet ported "
+                             "(disaggregated serving)")
         if self.attention_impl not in ("dense", "flash"):
             raise ValueError(
                 f"inference.attention.impl must be 'dense' or 'flash', "
                 f"got {self.attention_impl!r}")
+        if self.kv_layout not in ("ring", "paged"):
+            raise ValueError(
+                f"inference.kv_layout must be 'ring' or 'paged', got "
+                f"{self.kv_layout!r}")
+        if not 0.0 <= self.host_park_threshold < 1.0:
+            raise ValueError(
+                f"host_park_threshold must be in [0, 1), got "
+                f"{self.host_park_threshold}")
         if self.temperature < 0.0:
             raise ValueError(f"sampling temperature must be >= 0, got "
                              f"{self.temperature}")
@@ -133,8 +156,35 @@ class InferenceEngine:
             raise ValueError(
                 f"attention block_k {self.attention_block_k} must be a "
                 f"positive divisor of max_seq {self.max_seq}")
+        if self.kv_layout == "paged":
+            if not self.page_size:
+                # auto: two prefill chunks per page
+                self.page_size = min(2 * self.prefill_chunk, self.max_seq)
+            if self.page_size % self.prefill_chunk:
+                # a prefill chunk must land inside ONE page
+                raise ValueError(
+                    f"page_size {self.page_size} must be a multiple of "
+                    f"prefill_chunk {self.prefill_chunk}")
+            if self.max_seq % self.page_size:
+                raise ValueError(
+                    f"page_size {self.page_size} must divide max_seq "
+                    f"{self.max_seq}")
+            # a flash KV block must not straddle a page boundary
+            self.attention_block_k = min(self.attention_block_k,
+                                         self.page_size)
+            if self.page_size % self.attention_block_k:
+                raise ValueError(
+                    f"attention block_k {self.attention_block_k} must "
+                    f"divide page_size {self.page_size}")
+        else:
+            self.page_size = 0
+            self.n_pages = 0
         self.spec = spec_for_model(cfg, self.max_batch, self.max_seq,
-                                   self.kv_cache_dtype)
+                                   self.kv_cache_dtype,
+                                   page_size=self.page_size,
+                                   n_pages=self.n_pages)
+        self.n_pages = self.spec.n_pages
+        self.pages_per_row = self.spec.pages_per_row
         self.session = session
 
         if params is not None:
@@ -145,6 +195,13 @@ class InferenceEngine:
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(self.sampling_seed)
         self._signatures = {"prefill": set(), "decode": set()}
+
+        # speculative decoding: a draft + verify pair hung off the
+        # engine, or None when the block is absent, disabled or
+        # degenerate (then the 2-program contract is unchanged)
+        from deepspeed_tpu_torch.inference.speculative import (
+            build_speculative)
+        self.speculative = build_speculative(self, config)
 
     # -- the two programs ---------------------------------------------------
 
@@ -159,27 +216,49 @@ class InferenceEngine:
         return logits.float()
 
     @torch.no_grad()
-    def _decode_fn(self, tokens, positions):
-        self._signatures["decode"].add(_signature(tokens, positions))
+    def _decode_fn(self, tokens, positions, page_tables=None):
+        self._signatures["decode"].add(_signature(
+            tokens, positions, *(() if page_tables is None
+                                 else (page_tables,))))
         logits, _ = self.model(
             tokens[:, None], positions=positions[:, None],
             kv_cache=self.cache, attn_impl=self.attention_impl,
-            attn_block_k=self.attention_block_k)
+            attn_block_k=self.attention_block_k, kv_page_table=page_tables)
         logits = logits[:, 0].float()
         next_tokens = sample_logits(
             logits, self._generator, temperature=self.temperature,
             top_k=self.top_k, top_p=self.top_p)
         return next_tokens, logits
 
+    @torch.no_grad()
+    def _prefill_fn_paged(self, tokens, positions, page_table):
+        # the paged prefill addresses the POOL through the chunk's page
+        # table: no row slice, the whole cache is written in place
+        self._signatures["prefill"].add(
+            _signature(tokens, positions, page_table))
+        logits, _ = self.model(tokens, positions=positions,
+                               kv_cache=self.cache,
+                               kv_page_table=page_table)
+        return logits.float()
+
     def _tensor(self, array):
         return torch.from_numpy(np.asarray(array, np.int32)).to(self.device)
 
     # -- host API -----------------------------------------------------------
 
-    def prefill(self, slot, prompt):
+    def prefill(self, slot, prompt, page_table=None, start=0):
         """Chunked prefill of ``prompt`` (token ids) into cache row
         ``slot``; returns the fp32 logits at the last prompt token
-        (``[vocab]``, numpy)."""
+        (``[vocab]``, numpy).
+
+        Paged layout: ``page_table`` (``[pages_per_row]`` ints, pages
+        covering the prompt allocated by the scheduler) addresses the
+        pool instead of ``slot``, and ``start`` (chunk-aligned) resumes
+        mid-prompt: a prefix-cache hit skips the chunks the shared
+        pages already hold, a parked-session resume restarts at the
+        session's frontier. Every chunk has the same ``[1,
+        prefill_chunk]`` shape, so the skipped span's KV is the bytes a
+        cold prefill would have written."""
         n = len(prompt)
         if not 0 < n <= self.max_seq:
             raise ValueError(
@@ -189,27 +268,85 @@ class InferenceEngine:
         toks = np.zeros((1, padded), np.int32)
         toks[0, :n] = np.asarray(prompt, np.int32)
         last_chunk = (n - 1) // chunk
+        paged = self.kv_layout == "paged"
+        if paged:
+            if page_table is None:
+                raise ValueError("paged prefill requires a page_table")
+            pt = self._tensor(np.asarray(page_table).reshape(1, -1))
+        # the last chunk always runs (it produces the logits the first
+        # sampled token reads), so a resume start clamps to it
+        start = min(int(start), last_chunk * chunk) if paged else 0
+        if start % chunk:
+            raise ValueError(
+                f"prefill start {start} must be chunk-aligned "
+                f"(chunk={chunk})")
         from deepspeed_tpu_torch.runtime.resilience import fault_injection
         last = None
-        for ci in range(padded // chunk):
+        for ci in range(start // chunk, padded // chunk):
             fault_injection.maybe_kill("prefill_chunk", ci)
             tc = self._tensor(toks[:, ci * chunk:(ci + 1) * chunk])
             pc = self._tensor(
                 np.arange(ci * chunk, (ci + 1) * chunk)[None, :])
-            logits = self._prefill_fn(tc, pc, int(slot))
+            if paged:
+                logits = self._prefill_fn_paged(tc, pc, pt)
+            else:
+                logits = self._prefill_fn(tc, pc, int(slot))
             if ci == last_chunk:
                 last = logits[0, (n - 1) % chunk].cpu().numpy()
         return last
 
-    def decode(self, tokens, positions):
+    def decode(self, tokens, positions, page_tables=None):
         """One decode step for every cache row at once. ``tokens`` /
         ``positions``: ``[max_batch]`` int arrays (inactive rows padded
         with zeros — their outputs are meaningless and ignored).
         Returns ``(next_tokens [max_batch], logits [max_batch, vocab])``
-        as numpy; sampling runs on the device before the copy back."""
+        as numpy; sampling runs on the device before the copy back.
+        Paged layout also takes the ``[max_batch, pages_per_row]`` page
+        tables (inactive rows all zeros: their garbage token lands on
+        the trash page)."""
+        pt = None
+        if self.kv_layout == "paged":
+            if page_tables is None:
+                raise ValueError("paged decode requires page_tables")
+            pt = self._tensor(page_tables)
         nxt, logits = self._decode_fn(self._tensor(tokens),
-                                      self._tensor(positions))
+                                      self._tensor(positions), pt)
         return nxt.cpu().numpy(), logits.cpu().numpy()
+
+    # -- host-RAM page tier (paged layout only) -----------------------------
+
+    def gather_pages(self, page_ids):
+        """Snapshot the given physical pages to host RAM: a per-layer
+        ``{"h_<i>": {"k": [n, page_size, H, D], ...}}`` dict of numpy
+        COPIES (a later in-place pool write must not reach the parked
+        bytes). bf16 and fp8 leaves travel as integer views of the same
+        width (numpy has neither); :meth:`scatter_pages` views them
+        back. Runs outside the two programs: parking is admission-time
+        host work."""
+        ids = self._tensor(page_ids).long()
+        out = {}
+        for name, layer in self.cache.items():
+            out[name] = {}
+            for key, leaf in layer.items():
+                g = leaf.index_select(0, ids)
+                if g.dtype in _HOST_VIEW:
+                    g = g.view(_HOST_VIEW[g.dtype])
+                out[name][key] = g.cpu().numpy().copy()
+        return out
+
+    def scatter_pages(self, page_ids, host_pages):
+        """Inverse of :meth:`gather_pages`: write a host page snapshot
+        back into (freshly allocated) physical pages — the resume half
+        of the host tier."""
+        ids = self._tensor(page_ids).long()
+        for name, layer in self.cache.items():
+            for key, leaf in layer.items():
+                vals = torch.from_numpy(
+                    np.ascontiguousarray(host_pages[name][key])).to(
+                        self.device)
+                if leaf.dtype in _HOST_VIEW:
+                    vals = vals.view(leaf.dtype)
+                leaf.index_copy_(0, ids, vals.to(leaf.dtype))
 
     def sample_first(self, last_logits):
         """Sample the FIRST generated token from prefill's last-prompt-
@@ -230,18 +367,28 @@ class InferenceEngine:
 
     def compile_counts(self):
         """Distinct input signatures each program has run with,
-        ``{"prefill": n, "decode": n}``: 1/1 after warmup and forever
-        after is the contract; growth means a shape or dtype leaked
-        into a program boundary."""
-        return {name: len(sigs) for name, sigs in self._signatures.items()}
+        ``{"prefill": n, "decode": n}`` (plus ``draft`` and ``verify``
+        with speculation on): 1 each after warmup and forever after is
+        the contract; growth means a shape or dtype leaked into a
+        program boundary."""
+        counts = {name: len(sigs) for name, sigs in self._signatures.items()}
+        if self.speculative is not None:
+            counts.update(self.speculative.compile_counts())
+        return counts
 
     def cache_facts(self):
         """Static cache facts for audits and the serve result."""
-        return {"bytes": kv_cache_nbytes(self.cache),
-                "dtype_census": cache_dtype_census(self.cache),
-                "kv_cache_dtype": self.kv_cache_dtype,
-                "kv_layout": self.kv_layout,
-                "max_batch": self.max_batch,
-                "max_seq": self.max_seq,
-                "seq_buckets": list(self.seq_buckets),
-                "prefill_chunk": self.prefill_chunk}
+        facts = {"bytes": kv_cache_nbytes(self.cache),
+                 "dtype_census": cache_dtype_census(self.cache),
+                 "kv_cache_dtype": self.kv_cache_dtype,
+                 "kv_layout": self.kv_layout,
+                 "max_batch": self.max_batch,
+                 "max_seq": self.max_seq,
+                 "seq_buckets": list(self.seq_buckets),
+                 "prefill_chunk": self.prefill_chunk}
+        if self.kv_layout == "paged":
+            facts.update(page_size=self.page_size, n_pages=self.n_pages,
+                         pages_per_row=self.pages_per_row)
+        if self.speculative is not None:
+            facts["speculative"] = self.speculative.facts()
+        return facts

@@ -17,7 +17,9 @@ Two forward paths: the uncached causal one (a full sequence; training
 runs it, with flash attention when ``use_flash_attention``) and the
 cached one (``kv_cache`` from `inference/cache.py`: this call's k/v are
 written at explicit ``positions`` and attention runs over the whole
-cache row under a position mask). The losses
+cache row under a position mask; ``kv_page_table`` addresses a paged
+pool, and ``truncate_layers`` runs only the first blocks, the
+speculative draft's early exit). The losses
 (:func:`cross_entropy_loss`, :func:`chunked_cross_entropy_with_head`)
 and :func:`make_gpt2_loss_fn` are ported; remat, ``scan_layers``,
 progressive layer drop and fp8 are not yet (they raise).
@@ -164,7 +166,8 @@ class CausalSelfAttention(nn.Module):
         self.c_proj = Dense(C, C, cfg, device)
 
     def forward(self, x, positions=None, kv_cache=None, attn_impl="dense",
-                attn_block_k=128, attn_mask=None, drop=None):
+                attn_block_k=128, attn_mask=None, kv_page_table=None,
+                drop=None):
         from deepspeed_tpu_torch.inference.cache import (
             attention_scale, cached_attention)
         from deepspeed_tpu_torch.ops.flash_attention import (
@@ -180,7 +183,8 @@ class CausalSelfAttention(nn.Module):
         if kv_cache is not None:
             y, _ = cached_attention(q, k, v, kv_cache, positions,
                                     compute_dtype=cfg.dtype, impl=attn_impl,
-                                    block_k=attn_block_k, mask=attn_mask)
+                                    block_k=attn_block_k, mask=attn_mask,
+                                    page_table=kv_page_table)
         else:
             rate, seed = (0.0, None) if drop is None else \
                 (drop.rate, drop.attn_seed)
@@ -301,17 +305,31 @@ class GPT2LMHead(nn.Module):
 
     def forward(self, input_ids, positions=None, kv_cache=None,
                 attn_impl="dense", attn_block_k=128, dropout_seed=None,
-                return_hidden=False):
+                return_hidden=False, kv_page_table=None,
+                truncate_layers=None):
         """Logits ``[B, T, vocab]`` in the compute dtype; with
         ``kv_cache``, ``(logits, kv_cache)`` (the cache updated in
         place). ``positions`` ``[B, T]`` places a chunk at explicit
         absolute positions (required with ``kv_cache``).
         ``dropout_seed`` (an int) turns on training dropout on the
         uncached path; ``return_hidden`` returns the final hidden states
-        instead of logits (the chunked loss applies the head itself)."""
+        instead of logits (the chunked loss applies the head itself).
+        ``kv_page_table`` (``[B, pages_per_row]`` int32) addresses a
+        paged cache pool. ``truncate_layers`` (cached path only) runs
+        only the first that many blocks, then ``ln_f`` and the tied
+        head: the speculative draft's early exit."""
         from deepspeed_tpu_torch.inference.cache import attention_mask
 
         cfg = self.config
+        n_run = cfg.n_layer if truncate_layers is None \
+            else int(truncate_layers)
+        if not 0 < n_run <= cfg.n_layer:
+            raise ValueError(
+                f"truncate_layers {truncate_layers} outside "
+                f"1..{cfg.n_layer}")
+        if truncate_layers is not None and kv_cache is None:
+            raise ValueError("truncate_layers is a decode-path knob "
+                             "(requires kv_cache)")
         B, T = input_ids.shape
         if positions is None:
             pos_emb = self.wpe[:T][None]
@@ -334,11 +352,14 @@ class GPT2LMHead(nn.Module):
             attn_mask = None
             if attn_impl == "dense":
                 # one position mask per step, shared by every layer
-                attn_mask = attention_mask(kv_cache["h_0"], positions)
-            for i, block in enumerate(self.h):
-                x = block(x, positions=positions, kv_cache=kv_cache[f"h_{i}"],
-                          attn_impl=attn_impl, attn_block_k=attn_block_k,
-                          attn_mask=attn_mask)
+                attn_mask = attention_mask(kv_cache["h_0"], positions,
+                                           page_table=kv_page_table)
+            for i in range(n_run):
+                x = self.h[i](x, positions=positions,
+                              kv_cache=kv_cache[f"h_{i}"],
+                              attn_impl=attn_impl, attn_block_k=attn_block_k,
+                              attn_mask=attn_mask,
+                              kv_page_table=kv_page_table)
         x = self.ln_f(x)
         if return_hidden:
             return x

@@ -6,8 +6,11 @@ from deepspeed_tpu_torch.ops.flash_decode import (
     DEFAULT_MASK_VALUE,
     KernelGeometryError,
     flash_decode,
+    flash_decode_paged,
+    flash_decode_paged_reference,
     flash_decode_reference,
 )
 
 __all__ = ["DEFAULT_MASK_VALUE", "KernelGeometryError", "flash_decode",
+           "flash_decode_paged", "flash_decode_paged_reference",
            "flash_decode_reference"]

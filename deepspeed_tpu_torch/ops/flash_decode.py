@@ -1,20 +1,24 @@
-"""Flash decode over the serving ring KV cache.
+"""Flash decode over the serving KV cache: the ring layout and the
+paged pool.
 
-Port of ``deepspeed_tpu/ops/pallas/flash_decode.py:flash_decode``: the
-decode step attends one query token per row over that row's cache
-``k``/``v`` ``[B, S, H, D]``, admitting cache index ``s`` iff ``s <=
-positions[b]``, with int8 / fp8 storage dequantized on the fly through
-per-(row, position, head) f32 scales.
+Port of ``deepspeed_tpu/ops/pallas/flash_decode.py``:
+:func:`flash_decode` attends one query token per row over that row's
+ring cache ``k``/``v`` ``[B, S, H, D]``, admitting cache index ``s``
+iff ``s <= positions[b]``, with int8 / fp8 storage dequantized on the
+fly through per-(row, position, head) f32 scales.
+:func:`flash_decode_paged` does the same over a page pool ``[n_pages,
+page_size, H, D]`` through per-row page tables.
 
-On CUDA tensors :func:`flash_decode` launches the hand-written
-``sm_90a`` kernel in ``ops/csrc/flash_decode.cu`` (built from source at
-first use, see ``ops/_build.py``); a build or launch failure raises.
-On CPU tensors it runs :func:`flash_decode_reference`, the plain
-PyTorch version of the same arithmetic, which the CPU tests hold to
-the JAX kernel and ``chip_smoke.py`` holds the CUDA kernel to.
-``flash_decode.launches`` counts kernel launches (plain-version calls
-do not count), so a run can show that its decode steps went through
-the kernel.
+On CUDA tensors both launch the hand-written ``sm_90a`` kernels in
+``ops/csrc/flash_decode.cu`` (built from source at first use, see
+``ops/_build.py``); a build or launch failure raises. On CPU tensors
+they run :func:`flash_decode_reference` /
+:func:`flash_decode_paged_reference`, the plain PyTorch versions of the
+same arithmetic, which the CPU tests hold to the JAX kernels and
+``chip_smoke.py`` holds the CUDA kernels to. ``flash_decode.launches``
+and ``flash_decode_paged.launches`` count kernel launches (plain-version
+calls do not count), so a run can show which kernel its decode steps
+went through.
 """
 
 import ctypes
@@ -72,44 +76,63 @@ def _check_args(q, k, v, k_scale, v_scale, block_k):
     return block_k
 
 
-def flash_decode_reference(q, k, v, positions, k_scale=None, v_scale=None,
-                           block_k=DEFAULT_BLOCK_K):
-    """Plain PyTorch flash decode, block by block as the TPU kernel
-    runs it: per ``block_k`` KV block, rows whose position reaches the
-    block update an online-softmax state (fp32 max, sum, acc); masked
-    keys inside a live block score ``DEFAULT_MASK_VALUE``. Same
-    argument contract and scaling order as :func:`flash_decode`."""
-    block_k = _check_args(q, k, v, k_scale, v_scale, block_k)
-    B, S, H, D = k.shape
-    pos = positions.to(device=k.device, dtype=torch.long).reshape(B)
+def _block_walk(q, pos, S, block_k, fetch):
+    """The TPU kernel's block walk in plain PyTorch: per ``block_k`` KV
+    block, rows whose position reaches the block update an online-
+    softmax state (fp32 max, sum, acc); masked keys inside a live block
+    score ``DEFAULT_MASK_VALUE``. ``fetch(ki, run)`` returns block
+    ``ki``'s ``(k, v, k_scale, v_scale)`` for every row, ``[B, bk, H,
+    D]`` and ``[B, bk, H]`` (scales None when unquantized); ``run``
+    ``[B]`` says which rows use it."""
+    B, _, H, D = q.shape
     qf = q[:, 0].float()                                    # [B, H, D]
-    acc = torch.zeros(B, H, D, dtype=torch.float32, device=k.device)
+    acc = torch.zeros(B, H, D, dtype=torch.float32, device=q.device)
     m = torch.full((B, H), float("-inf"), dtype=torch.float32,
-                   device=k.device)
-    l = torch.zeros(B, H, dtype=torch.float32, device=k.device)
+                   device=q.device)
+    l = torch.zeros(B, H, dtype=torch.float32, device=q.device)
     scale = D ** -0.5
-    for k0 in range(0, S, block_k):
-        run = (k0 <= pos)[:, None]                           # [B, 1]
-        kb = k[:, k0:k0 + block_k].float()                   # [B, bk, H, D]
-        s = torch.einsum("bhd,bshd->bhs", qf, kb)
-        if k_scale is not None:
-            s = s * k_scale[:, k0:k0 + block_k].permute(0, 2, 1)
+    for ki in range(S // block_k):
+        k0 = ki * block_k
+        run = k0 <= pos                                     # [B]
+        kb, vb, ksb, vsb = fetch(ki, run)
+        s = torch.einsum("bhd,bshd->bhs", qf, kb.float())
+        if ksb is not None:
+            s = s * ksb.permute(0, 2, 1)
         s = s * scale
-        k_pos = torch.arange(k0, k0 + block_k, device=k.device)
+        k_pos = torch.arange(k0, k0 + block_k, device=q.device)
         s = torch.where(k_pos[None, None, :] <= pos[:, None, None], s,
                         DEFAULT_MASK_VALUE)
         m_new = torch.maximum(m, s.amax(-1))
         pr = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
+        run = run[:, None]                                  # [B, 1]
         l = torch.where(run, l * corr + pr.sum(-1), l)
         m = torch.where(run, m_new, m)
-        if v_scale is not None:
-            pr = pr * v_scale[:, k0:k0 + block_k].permute(0, 2, 1)
-        vb = v[:, k0:k0 + block_k].float()
-        upd = acc * corr[..., None] + torch.einsum("bhs,bshd->bhd", pr, vb)
+        if vsb is not None:
+            pr = pr * vsb.permute(0, 2, 1)
+        upd = acc * corr[..., None] + torch.einsum("bhs,bshd->bhd", pr,
+                                                   vb.float())
         acc = torch.where(run[..., None], upd, acc)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out[:, None].to(q.dtype)
+
+
+def flash_decode_reference(q, k, v, positions, k_scale=None, v_scale=None,
+                           block_k=DEFAULT_BLOCK_K):
+    """Plain PyTorch flash decode, block by block as the TPU kernel
+    runs it (:func:`_block_walk`). Same argument contract and scaling
+    order as :func:`flash_decode`."""
+    block_k = _check_args(q, k, v, k_scale, v_scale, block_k)
+    B, S = k.shape[:2]
+    pos = positions.to(device=k.device, dtype=torch.long).reshape(B)
+
+    def fetch(ki, run):
+        sl = slice(ki * block_k, (ki + 1) * block_k)
+        if k_scale is None:
+            return k[:, sl], v[:, sl], None, None
+        return k[:, sl], v[:, sl], k_scale[:, sl], v_scale[:, sl]
+
+    return _block_walk(q, pos, S, block_k, fetch)
 
 
 def flash_decode(q, k, v, positions, k_scale=None, v_scale=None,
@@ -150,6 +173,100 @@ def flash_decode(q, k, v, positions, k_scale=None, v_scale=None,
 flash_decode.launches = 0
 
 
+def _check_paged_args(q, k, v, page_tables, k_scale, v_scale, block_k):
+    n_pages, page_size, H, D = k.shape
+    B = q.shape[0]
+    if tuple(q.shape) != (B, 1, H, D):
+        raise ValueError(
+            f"flash_decode_paged takes one query token per row: q "
+            f"shape {tuple(q.shape)} != {(B, 1, H, D)}")
+    if page_tables.shape[0] != B:
+        raise ValueError(
+            f"page_tables rows {page_tables.shape[0]} != batch {B}")
+    block_k = _validate_block_k(block_k, page_size, "page_size")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass both k_scale and v_scale or neither")
+    return block_k
+
+
+def flash_decode_paged_reference(q, k, v, positions, page_tables,
+                                 k_scale=None, v_scale=None,
+                                 block_k=DEFAULT_BLOCK_K):
+    """Plain PyTorch paged flash decode: :func:`_block_walk` with each
+    row's logical block index clamped to ``positions[b] // block_k``
+    BEFORE the page-table lookup (the JAX kernel's index map), and the
+    pool read only for rows whose position reaches the block. A table
+    entry past a row's occupancy is therefore never used to index the
+    pool, whatever it holds. Same argument contract as
+    :func:`flash_decode_paged`."""
+    block_k = _check_paged_args(q, k, v, page_tables, k_scale, v_scale,
+                                block_k)
+    page_size = k.shape[1]
+    B, n_pt = page_tables.shape
+    bpp = page_size // block_k                  # kv blocks per page
+    pos = positions.to(device=k.device, dtype=torch.long).reshape(B)
+    table = page_tables.to(device=k.device, dtype=torch.long)
+    rows = torch.arange(B, device=k.device)
+    last = torch.div(pos, block_k, rounding_mode="floor")
+
+    def fetch(ki, run):
+        kc = last.clamp(0, ki)
+        page = torch.where(run, table[rows, kc // bpp], 0)[:, None]
+        slots = ((kc % bpp) * block_k)[:, None] + \
+            torch.arange(block_k, device=k.device)
+        if k_scale is None:
+            return k[page, slots], v[page, slots], None, None
+        return (k[page, slots], v[page, slots], k_scale[page, slots],
+                v_scale[page, slots])
+
+    return _block_walk(q, pos, n_pt * page_size, block_k, fetch)
+
+
+def flash_decode_paged(q, k, v, positions, page_tables, k_scale=None,
+                       v_scale=None, block_k=DEFAULT_BLOCK_K):
+    """Flash decode over a paged KV pool.
+
+    ``q``: ``[B, 1, H, D]`` as in :func:`flash_decode`. ``k``/``v``:
+    the POOL buffers ``[n_pages, page_size, H, D]`` in storage dtype
+    (scales ``[n_pages, page_size, H]`` when quantized —
+    `inference/cache.py` paged layout). ``page_tables``: ``[B,
+    pages_per_row]`` int32 physical page ids per row (0 = the trash
+    page for unallocated slots). ``positions``: ``[B]`` int write
+    positions, same mask contract as :func:`flash_decode` over ``S =
+    pages_per_row * page_size``. Returns ``[B, 1, H, D]`` in
+    ``q.dtype``.
+
+    Only table entries that cover a key ``s <= min(positions[b], S -
+    1)`` are read; entries past a row's occupancy may hold any value,
+    out-of-range ids included. ``block_k`` clamps to ``page_size`` and
+    must divide it (:class:`KernelGeometryError`); it sets the plain
+    version's block walk, while the CUDA kernel walks the occupied keys
+    directly. The table and positions are read on the device: no host
+    sync, no host-side check of table values.
+    """
+    block_k = _check_paged_args(q, k, v, page_tables, k_scale, v_scale,
+                                block_k)
+    tensors = [q, k, v, positions, page_tables] + (
+        [k_scale, v_scale] if k_scale is not None else [])
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(
+            f"flash_decode_paged inputs span devices "
+            f"{sorted(map(str, devices))}")
+    device = q.device
+    if device.type == "cpu":
+        return flash_decode_paged_reference(q, k, v, positions, page_tables,
+                                            k_scale, v_scale,
+                                            block_k=block_k)
+    if device.type != "cuda":
+        raise ValueError(
+            f"flash_decode_paged runs on cuda or cpu, got {device}")
+    return _launch_paged(q, k, v, positions, page_tables, k_scale, v_scale)
+
+
+flash_decode_paged.launches = 0
+
+
 @functools.lru_cache(None)
 def _library():
     from deepspeed_tpu_torch.ops._build import load_library
@@ -158,48 +275,60 @@ def _library():
     lib.flash_decode_launch.argtypes = (
         [p] * 7 + [i] * 4 + [ctypes.c_float] + [i64] * 16 + [i, i, p])
     lib.flash_decode_launch.restype = ctypes.c_int
+    lib.flash_decode_paged_launch.argtypes = (
+        [p] * 8 + [i] * 5 + [ctypes.c_float] + [i64] * 17 + [i, i, p])
+    lib.flash_decode_paged_launch.restype = ctypes.c_int
     lib.flash_decode_error_string.argtypes = [ctypes.c_int]
     lib.flash_decode_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(q, k, v, positions, k_scale, v_scale):
-    B, S, H, D = k.shape
+def _check_launch(name, q, k, v, k_scale, v_scale, scale_shape):
+    """The kernel's own contract: head_dim, dtypes, scales, strides."""
+    D = k.shape[-1]
     if D > MAX_HEAD_DIM:
         raise ValueError(
-            f"flash_decode kernel takes head_dim <= {MAX_HEAD_DIM}, got {D}")
+            f"{name} kernel takes head_dim <= {MAX_HEAD_DIM}, got {D}")
     if q.dtype not in _Q_DTYPES:
-        raise TypeError(f"flash_decode: query dtype {q.dtype} not in "
+        raise TypeError(f"{name}: query dtype {q.dtype} not in "
                         f"{_Q_DTYPES}")
     if k.dtype not in _DTYPE_CODES or v.dtype != k.dtype:
-        raise TypeError(f"flash_decode: cache dtypes k={k.dtype} "
+        raise TypeError(f"{name}: cache dtypes k={k.dtype} "
                         f"v={v.dtype} unsupported or mismatched")
     quant = k_scale is not None
     if quant != (k.dtype in (torch.int8, torch.float8_e4m3fn,
                              torch.float8_e5m2)):
         raise TypeError(
-            f"flash_decode: {k.dtype} storage "
+            f"{name}: {k.dtype} storage "
             f"{'must not' if quant else 'needs'} k/v scales")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for tname, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:
-            raise ValueError(f"flash_decode: {name} head dim must be "
+            raise ValueError(f"{name}: {tname} head dim must be "
                              f"contiguous, strides {t.stride()}")
     if quant:
-        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
-            if t.dtype != torch.float32 or tuple(t.shape) != (B, S, H):
+        for tname, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if t.dtype != torch.float32 or tuple(t.shape) != scale_shape:
                 raise ValueError(
-                    f"flash_decode: {name} must be f32 [B, S, H], got "
-                    f"{t.dtype} {tuple(t.shape)}")
+                    f"{name}: {tname} must be f32 {list(scale_shape)}, "
+                    f"got {t.dtype} {tuple(t.shape)}")
+        return (k_scale.data_ptr(), v_scale.data_ptr()), \
+            (*k_scale.stride(), *v_scale.stride())
+    return (None, None), (0,) * 6
+
+
+def _raise_on(lib, err, name):
+    if err != 0:
+        msg = lib.flash_decode_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg}")
+
+
+def _launch(q, k, v, positions, k_scale, v_scale):
+    B, S, H, D = k.shape
+    scale_args, scale_strides = _check_launch(
+        "flash_decode", q, k, v, k_scale, v_scale, (B, S, H))
     pos = positions.reshape(B).to(torch.int32).contiguous()
     out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
     lib = _library()
-    if quant:
-        ks, vs = k_scale, v_scale
-        scale_args = (ks.data_ptr(), vs.data_ptr())
-        scale_strides = (*ks.stride(), *vs.stride())
-    else:
-        scale_args = (None, None)
-        scale_strides = (0,) * 6
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.flash_decode_launch(
@@ -212,8 +341,35 @@ def _launch(q, k, v, positions, k_scale, v_scale):
             *scale_strides,
             out.stride(0), out.stride(2),
             _DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype], stream)
-    if err != 0:
-        msg = lib.flash_decode_error_string(err).decode()
-        raise RuntimeError(f"flash_decode kernel launch failed: {msg}")
+    _raise_on(lib, err, "flash_decode")
     flash_decode.launches += 1
+    return out
+
+
+def _launch_paged(q, k, v, positions, page_tables, k_scale, v_scale):
+    n_pages, page_size, H, D = k.shape
+    B, n_pt = page_tables.shape
+    scale_args, scale_strides = _check_launch(
+        "flash_decode_paged", q, k, v, k_scale, v_scale,
+        (n_pages, page_size, H))
+    pos = positions.reshape(B).to(torch.int32).contiguous()
+    table = page_tables.to(torch.int32)
+    if table.stride(1) != 1:
+        table = table.contiguous()
+    out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
+    lib = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.flash_decode_paged_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), *scale_args,
+            pos.data_ptr(), table.data_ptr(), out.data_ptr(),
+            B, n_pt * page_size, H, D, page_size, float(D ** -0.5),
+            q.stride(0), q.stride(2),
+            k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2),
+            *scale_strides, table.stride(0),
+            out.stride(0), out.stride(2),
+            _DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype], stream)
+    _raise_on(lib, err, "flash_decode_paged")
+    flash_decode_paged.launches += 1
     return out

@@ -11,6 +11,9 @@ matching fault.
   (``op="prefill_chunk"``). It never raises: the process just dies.
 - ``decode_exception`` — :func:`maybe_fail_decode` raises
   :class:`InjectedDecodeError` from inside the scheduler's decode step.
+- ``page_corruption`` — :func:`corrupt_host_pages` tells the host page
+  tier (`inference/paging.py:HostPageStore`) to flip one byte of a
+  parked snapshot after its CRCs were stamped, so resume must detect it.
 
 Use :func:`clear_faults` to disarm everything between tests.
 """
@@ -81,7 +84,35 @@ def maybe_fail_decode(step):
         if entry is None or int(step) < entry["at_step"]:
             return
         entry["times"] -= 1
-        if entry["times"] <= 0:
-            _faults.pop("decode_exception", None)
+        _pop_if_exhausted("decode_exception", entry)
     raise InjectedDecodeError(
         f"injected decode-step failure at step {step}")
+
+
+def _pop_if_exhausted(name, entry):
+    if entry["times"] <= 0:
+        _faults.pop(name, None)
+
+
+def inject_page_corruption(session_id=None, times=1):
+    """Arm host-page corruption: the next ``times`` sessions parked to
+    the host tier (or only ``session_id``'s parks, when given) get one
+    byte flipped AFTER their CRCs are stamped, so resume detects it."""
+    with _lock:
+        _faults["page_corruption"] = {
+            "session_id": session_id, "times": int(times)}
+
+
+def corrupt_host_pages(session_id):
+    """Probe called by the host page store at park time; True when the
+    harness wants this session's snapshot corrupted."""
+    with _lock:
+        entry = _faults.get("page_corruption")
+        if entry is None:
+            return False
+        if entry["session_id"] is not None and \
+                entry["session_id"] != session_id:
+            return False
+        entry["times"] -= 1
+        _pop_if_exhausted("page_corruption", entry)
+    return True

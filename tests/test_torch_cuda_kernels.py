@@ -17,6 +17,8 @@ import torch
 from deepspeed_tpu_torch.inference.cache import _quantize
 from deepspeed_tpu_torch.ops.flash_decode import (
     flash_decode,
+    flash_decode_paged,
+    flash_decode_paged_reference,
     flash_decode_reference,
 )
 
@@ -49,6 +51,80 @@ def test_flash_decode_kernel_matches_plain_version(cuda, codec):
     assert flash_decode.launches == before + 1
     want = flash_decode_reference(q, *args, pos, *scales, block_k=8)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+# --- paged flash decode K6 ---------------------------------------------------
+# Page size 8, 4 pages a row (S = 32), shuffled physical ids; positions on
+# page edges. Same atol as K5.
+PS, PPR, N_PAGES = 8, 4, 16
+PAGED_POS = np.array([7, 8, S - 1], np.int32)
+
+
+def _paged_inputs(cuda, codec):
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda) for shape in ((B, 1, H, D),
+                                            (N_PAGES, PS, H, D),
+                                            (N_PAGES, PS, H, D)))
+    table = torch.from_numpy(rng.permutation(np.arange(1, N_PAGES))[
+        :B * PPR].reshape(B, PPR).astype(np.int32)).to(cuda)
+    if codec is None:
+        return q, (k, v), (), table
+    (kq, ks), (vq, vs) = _quantize(k, codec), _quantize(v, codec)
+    return q, (kq, vq), (ks, vs), table
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", [None, "int8"])
+def test_flash_decode_paged_kernel_matches_plain_version(cuda, codec):
+    q, kv, scales, table = _paged_inputs(cuda, codec)
+    pos = torch.from_numpy(PAGED_POS).to(cuda)
+    before = (flash_decode.launches, flash_decode_paged.launches)
+    got = flash_decode_paged(q, *kv, pos, table, *scales, block_k=8)
+    assert (flash_decode.launches, flash_decode_paged.launches) == \
+        (before[0], before[1] + 1)
+    want = flash_decode_paged_reference(q, *kv, pos, table, *scales,
+                                        block_k=8)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", [None, "int8"])
+def test_flash_decode_paged_kernel_ignores_poisoned_tail(cuda, codec):
+    """Table entries past each row's occupancy hold out-of-range ids and
+    the trash page holds huge values: the output does not move a bit."""
+    q, (k, v), scales, table = _paged_inputs(cuda, codec)
+    pos = torch.tensor([3, PS + 1, 2 * PS], dtype=torch.int32, device=cuda)
+    clean = flash_decode_paged(q, k, v, pos, table, *scales, block_k=8)
+    bad = table.clone()
+    for b in range(B):
+        bad[b, int(pos[b]) // PS + 1:] = 10 ** 9
+    k2, v2 = k.clone(), v.clone()
+    k2[0] = 100 if codec else 1e4
+    v2[0] = -100 if codec else -1e4
+    scales2 = tuple(x.clone() for x in scales)
+    for x in scales2:
+        x[0] = 1e4
+    got = flash_decode_paged(q, k2, v2, pos, bad, *scales2, block_k=8)
+    torch.cuda.synchronize()
+    assert torch.equal(got, clean)
+
+
+@pytest.mark.cuda
+def test_flash_decode_paged_kernel_equals_ring_kernel_in_order(cuda):
+    """Over an in-order table onto the same bytes as the ring rows, K6
+    and K5 share their walk: bitwise equal."""
+    rng = np.random.default_rng(4)
+    q, ring_k, ring_v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda) for shape in ((B, 1, H, D), (B, S, H, D),
+                                            (B, S, H, D)))
+    pool_k = ring_k.reshape(B * PPR, PS, H, D)
+    pool_v = ring_v.reshape(B * PPR, PS, H, D)
+    table = torch.arange(B * PPR, dtype=torch.int32, device=cuda).reshape(
+        B, PPR)
+    pos = torch.from_numpy(PAGED_POS).to(cuda)
+    assert torch.equal(flash_decode_paged(q, pool_k, pool_v, pos, table),
+                       flash_decode(q, ring_k, ring_v, pos))
 
 
 # --- training kernels: flash attention K1-K3, fused Adam K4 ----------------

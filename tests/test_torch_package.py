@@ -53,6 +53,12 @@ def test_engine_without_gpu_raises_instead_of_falling_back(monkeypatch):
     for device in (None, "cuda"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             InferenceEngine(model, device=device)
+    for config in ({"kv_layout": "paged"},
+                   {"speculative": {"enabled": True, "k": 2}},
+                   {"kv_layout": "paged",
+                    "speculative": {"enabled": True, "k": 2}}):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            InferenceEngine(model, config=config)
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError, match="cuda' or 'cpu"):
         resolve_device("meta")
@@ -70,6 +76,24 @@ def test_flash_decode_on_a_non_cpu_device_never_runs_the_plain_version():
     assert flash_decode.launches == before
 
 
+def test_flash_decode_paged_on_a_non_cpu_device_never_runs_the_plain_version(
+        monkeypatch):
+    """K6's wrapper takes its plain version only for CPU tensors."""
+    import importlib
+    fd = importlib.import_module("deepspeed_tpu_torch.ops.flash_decode")
+    called = []
+    monkeypatch.setattr(fd, "flash_decode_paged_reference",
+                        lambda *a, **k: called.append(1))
+    q = torch.zeros(2, 1, 1, 8, device="meta")
+    pool = torch.zeros(5, 8, 1, 8, device="meta")
+    pos = torch.zeros(2, dtype=torch.int32, device="meta")
+    table = torch.zeros(2, 4, dtype=torch.int32, device="meta")
+    before = fd.flash_decode_paged.launches
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fd.flash_decode_paged(q, pool, pool, pos, table, block_k=8)
+    assert called == [] and fd.flash_decode_paged.launches == before
+
+
 def test_kernel_sources_ship_with_the_package():
     from deepspeed_tpu_torch.ops import _build
     for name in _build.KERNELS:
@@ -81,8 +105,9 @@ def test_kernel_sources_ship_with_the_package():
 
 def test_scan_covers_the_training_slice_and_every_kernel_wrapper():
     """The import guard reads every module of the package, the training
-    runtime and each kernel's wrapper (``ops/<name>.py`` beside
-    ``ops/csrc/<name>.cu``) among them."""
+    runtime, the paged and speculative serving modules and each
+    kernel's wrapper (``ops/<name>.py`` beside ``ops/csrc/<name>.cu``)
+    among them."""
     from deepspeed_tpu_torch.ops import _build
     scanned = {os.path.relpath(p, REPO) for p in _sources()}
     wrappers = {f"deepspeed_tpu_torch/ops/{name}.py"
@@ -91,5 +116,10 @@ def test_scan_covers_the_training_slice_and_every_kernel_wrapper():
         "__init__", "runtime/engine", "runtime/config", "runtime/constants",
         "runtime/lr_schedules", "runtime/utils", "runtime/fp16/loss_scaler",
         "ops/adam/fused_adam", "models/gpt2")}
+    serving = {f"deepspeed_tpu_torch/{m}.py" for m in (
+        "inference/cache", "inference/engine", "inference/scheduler",
+        "inference/serve", "inference/paging", "inference/speculative",
+        "runtime/resilience/fault_injection",
+        "runtime/resilience/checksums")}
     assert len(wrappers) == 3
-    assert wrappers | training <= scanned
+    assert wrappers | training | serving <= scanned

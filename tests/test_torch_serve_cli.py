@@ -47,9 +47,40 @@ def test_int8_sampled_serve_writes_telemetry(tmp_path):
     assert any(e["event"] == "decode_step" for e in events)
 
 
+def test_paged_route_hits_the_prefix_cache():
+    proc = _serve(*BASE, "--arrival-every", "1", "--kv-layout", "paged",
+                  "--shared-prefix", "12", "--expect-prefix-hits", "1",
+                  "--expect-compiles", "2")
+    assert proc.returncode == 0, proc.stderr
+    assert "4/4 requests completed" in proc.stdout
+    assert "paged KV:" in proc.stdout and "prefix hit" in proc.stdout
+
+
+def test_speculative_route_runs_three_programs():
+    proc = _serve(*BASE, "--speculative", "--spec-k", "3", "--draft-layers",
+                  "1", "--expect-compiles", "3", "--json")
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout)
+    assert out["compile_counts"] == {"prefill": 1, "decode": 0, "draft": 1,
+                                     "verify": 1}
+    assert out["speculative"]["k"] == 3
+    assert out["speculative"]["mean_accepted"] >= 1.0
+
+
+@pytest.mark.parametrize("route,message", [
+    (["--expect-prefix-hits", "1"], "requires --kv-layout paged"),
+    (["--expect-min-accepted", "1.0"], "requires --speculative"),
+    (["--speculative", "--spec-k", "0"], "--spec-k must be >= 1")])
+def test_gates_without_their_route_exit_2(route, message, capsys):
+    from deepspeed_tpu_torch.inference.serve import main
+    with pytest.raises(SystemExit) as info:
+        main(BASE + route)
+    assert info.value.code == 2
+    assert message in capsys.readouterr().err
+
+
 @pytest.mark.parametrize("route", [["--replicas", "2"], ["--disaggregate"],
-                                   ["--kv-layout", "paged"],
-                                   ["--speculative"], ["--scan-layers"],
+                                   ["--scan-layers"],
                                    ["--checkpoint", "ckpt"],
                                    ["--config", "ds.json"]])
 def test_unported_routes_exit_2(route, capsys):

@@ -158,8 +158,7 @@ def test_config_rejects_what_jax_rejects(jax_params):
                 {"attention_block_k": 12}, {"kv_cache_dtype": "int4"}):
         with pytest.raises(ValueError):
             _port_engine(params, **bad)
-    for unported in ({"kv_layout": "paged"},
-                     {"speculative": {"enabled": True, "k": 2}}):
+    for unported in ({"tier": "prefill"}, {"tier": "decode"}):
         with pytest.raises(ValueError, match="not yet ported"):
             _port_engine(params, **unported)
 
