@@ -2,8 +2,9 @@
 """Smoke test of the PyTorch port (``deepspeed_tpu_torch``) on one
 NVIDIA GPU: builds the port's CUDA kernels from this checkout, holds
 each against its plain PyTorch version, times it, serves GPT-2 125M
-(ring, paged and speculative) and trains GPT-2 350M at full width
-through the port's main paths.
+(ring, paged and speculative), and trains GPT-2 350M and BERT-Large
+with block-sparse attention at full width through the port's main
+paths.
 
     python3 chip_smoke.py                 # every phase (one GPU)
     python3 chip_smoke.py --kernels-only  # device, build, kernel checks
@@ -90,6 +91,38 @@ Phases, each printing one JSON line:
    bf16 tolerance at every step, and their first micro-batch's c_attn
    weight gradients (the q, k and v rows) within a relative tolerance.
 
+13. ``sparse_kernel_check`` (also under ``--kernels-only``) — block-sparse
+   K7 (out, lse), K8a (dq) and K8b (dk, dv) against their plain versions:
+   blocks 16/32/64/128 at T = 8 blocks, D 64 and 128, bf16 and f32,
+   causal and not, dropout 0 and 0.1, over a Fixed layout with an empty
+   q-block row; then all five layout families (per-head where they
+   allow it) and a hand-made layout with an empty row and an unvisited
+   k-block at T 512; the shape ``train_bert_sparse`` gives the kernels
+   (B 32, T 512, H 16, D 64, block 64, the bench's Fixed layout,
+   dropout 0.1) in f32 and bf16; K7's dropout mask read back bitwise
+   (q = k = 0, v = I); a dense layout through K7 against K1.
+14. ``sparse_kernel_timing`` — CUDA-event ms per call of K7, K8a, K8b at
+   the BERT bench shape (B 32, T 512, H 16, D 64, block 64, the Fixed
+   layout of density 0.625) in f32, the dtype the encoder gives them,
+   and in bf16, and at the causal long-context shape in bf16 (B 1,
+   T 4096, block 128, unidirectional Fixed), beside their plain
+   versions, their bounds and ``F.scaled_dot_product_attention`` with
+   the layout as a boolean mask, forward and backward (a yardstick
+   only; the port never calls it).
+15. ``train_bert_sparse`` — BERT-Large (seq 512, bf16 over fp32 masters
+   with the encoder layers in fp32 as in the JAX model, dropout 0.1, the bench's Fixed block-sparse layout, seeded random
+   params) through ``initialize`` with the JAX bench's config
+   (``bench.py:142-199``: train_batch_size 32, bf16, Adam lr 1e-4) on a
+   fixed MLM batch (labels every 7th token): 2 warmup and 10 timed
+   steps; micro-batch 16 with accumulation 2 if 32 x 512 does not fit.
+   Reports tokens/s, samples/s, step p50, MFU (``bench.py:51-62`` at the
+   layout's density), peak memory and a profiler window. Checks: finite,
+   falling loss; K7, K8a, K8b 24 times per micro-batch, K1-K3 and the
+   gather route never, K4 once per step; then at dropout 0, 3 steps with
+   accumulation 2 on the kernels and again on ``masked_dense_attention``:
+   losses within a bf16 tolerance, first micro-batch attn_qkvw
+   gradients within a relative tolerance.
+
 Then the ``kernels`` summary line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
 before the last line; without a CUDA device it exits 1 at once.
@@ -97,6 +130,7 @@ before the last line; without a CUDA device it exits 1 at once.
 
 import argparse
 import concurrent.futures
+import gc
 import json
 import statistics
 import subprocess
@@ -1332,6 +1366,28 @@ def _gpt2_shapes(cfg):
             + layer * cfg.n_layer + [(c,), (c,)])
 
 
+def _timing_row(torch, kern, plain, flops, nbytes, dtype, lib=None):
+    """One kernel's timing row. The bound takes the operations at the
+    peak for the inputs' type (bf16 tensor cores for the attention
+    kernels), the least time the card could take; ``fp32_ops_ms`` is the
+    same count at the fp32 (CUDA-core) peak, the rate the fp32-FMA
+    attention kernels multiply at."""
+    ms, paced, _ = _time_ms(torch, kern, 10)
+    plain_ms, _, plain_sync = _time_ms(torch, plain, 3)
+    t_ops = flops / PEAK_OPS_PER_S[dtype] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    r = {"ms": ms, "host_paced_ms": paced, "plain_ms": plain_ms,
+         "plain_host_syncs": plain_sync, "flops": flops,
+         "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+         "fp32_ops_ms": flops / PEAK_OPS_PER_S["float32"] * 1e3,
+         "library_ms": None}
+    if lib is not None:
+        r["library_ms"] = _time_ms(torch, lib, 10)[0]
+    r["roofline_share"] = r["bound_ms"] / ms
+    return r
+
+
 def phase_train_kernel_timing(torch):
     import torch.nn.functional as F
 
@@ -1351,25 +1407,8 @@ def phase_train_kernel_timing(torch):
     io = 2 * b * t * h * d                     # bytes of one bf16 tensor
     rows = {}
 
-    def row(name, kern, plain, flops, nbytes, dtype, lib=None):
-        """The bound takes the operations at the peak for the inputs'
-        type (bf16 tensor cores for K1-K3), the least time the card could
-        take; ``fp32_ops_ms`` is the same count at the fp32 (CUDA-core)
-        peak, the rate the current K1-K3 multiply at."""
-        ms, paced, _ = _time_ms(torch, kern, 10)
-        plain_ms, _, plain_sync = _time_ms(torch, plain, 3)
-        t_ops = flops / PEAK_OPS_PER_S[dtype] * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        r = {"ms": ms, "host_paced_ms": paced, "plain_ms": plain_ms,
-             "plain_host_syncs": plain_sync, "flops": flops,
-             "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
-             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-             "fp32_ops_ms": flops / PEAK_OPS_PER_S["float32"] * 1e3,
-             "library_ms": None}
-        if lib is not None:
-            r["library_ms"] = _time_ms(torch, lib, 10)[0]
-        r["roofline_share"] = r["bound_ms"] / ms
-        rows[name] = r
+    def row(name, *args, **kw):
+        rows[name] = _timing_row(torch, *args, **kw)
 
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     sdpa_in = [x.detach().requires_grad_() for x in (qt, kt, vt)]
@@ -1464,18 +1503,16 @@ def model_flops_per_token(cfg, seq_len):
     return 6 * (block_params + 2 * cfg.n_embd + lm_head) + attention
 
 
-def _accum_run(torch, flash, batch, counters):
-    """3 steps with gradient accumulation 2 (micro-batch 4) from the
+def _accum_run(torch, engine, batch, counters, grads_of):
+    """3 steps of ``engine`` (built with gradient accumulation 2) from its
     seeded params. Step 1 goes through forward / backward / step, so the
-    c_attn weight gradients of its first micro-batch are read before
-    the update. Returns the losses, those gradients per layer, the
-    kernel launches of the 3 steps and the peak memory."""
-    engine = _train_engine(torch, flash,
-                           extra={"gradient_accumulation_steps": 2})
+    gradients ``grads_of(module)`` of its first micro-batch are read
+    before the update. Returns the losses, those gradients, the kernel
+    launches of the 3 steps and the peak memory."""
     torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
         c.launches = 0
-    half = TRAIN_B // 2
+    half = len(next(iter(batch.values()))) // 2
     micro_losses, grads = [], None
     for i in range(2):
         loss = engine.forward({k: x[i * half:(i + 1) * half]
@@ -1483,8 +1520,7 @@ def _accum_run(torch, flash, batch, counters):
         engine.backward(loss)
         micro_losses.append(float(loss.detach()))
         if grads is None:
-            grads = [blk.attn.c_attn.weight.grad.clone()
-                     for blk in engine.module.h]
+            grads = [g.clone() for g in grads_of(engine.module)]
     engine.step()
     losses = [sum(micro_losses) / 2] + \
         [float(engine.train_batch(batch)) for _ in range(2)]
@@ -1493,6 +1529,10 @@ def _accum_run(torch, flash, batch, counters):
     del engine
     torch.cuda.empty_cache()
     return losses, grads, launches, peak
+
+
+def _c_attn_grads(module):
+    return [blk.attn.c_attn.weight.grad for blk in module.h]
 
 
 def _grad_rel_err(torch, got, want, c):
@@ -1533,11 +1573,14 @@ def phase_train(torch):
     del engine
     torch.cuda.empty_cache()
 
+    accum2 = {"gradient_accumulation_steps": 2}
     accum_losses, flash_grads, accum_launches, _ = _accum_run(
-        torch, True, batch, counters)
+        torch, _train_engine(torch, True, accum2), batch, counters,
+        _c_attn_grads)
     # the same params and micro-batches through dense attention
     dense_losses, dense_grads, _, dense_peak = _accum_run(
-        torch, False, batch, counters)
+        torch, _train_engine(torch, False, accum2), batch, counters,
+        _c_attn_grads)
     grad_err = _grad_rel_err(torch, flash_grads, dense_grads, cfg.n_embd)
     loss_gap = max(abs(a - b) for a, b in
                    zip([losses[0]] + accum_losses, dense_losses[:1]
@@ -1581,6 +1624,496 @@ def phase_train(torch):
     return row
 
 
+
+# ---------------------------------------------------------------------------
+# sparse-attention slice: block-sparse K7, K8a, K8b, BERT-Large MLM
+# ---------------------------------------------------------------------------
+
+BERT_B, BERT_T, BERT_H, BERT_D, BERT_BLOCK = 32, 512, 16, 64, 64
+BERT_LAYERS = 24
+BERT_VOCAB = 30522
+LONG_B, LONG_T, LONG_BLOCK = 1, 4096, 128   # benchmarks/long_context.py
+SPARSE_SEED = -123456789
+
+
+def _bsa():
+    """The kernel module (the package re-exports its entry function
+    under the module's own name)."""
+    import importlib
+    return importlib.import_module(
+        "deepspeed_tpu_torch.ops.sparse_attention.block_sparse_attention")
+
+
+def _bert_sparsity(torch_cfg_module, causal=False, block=BERT_BLOCK,
+                   heads=BERT_H):
+    """The bench's Fixed layout (``bench.py:173-177``): 4 local blocks, 1
+    global, bidirectional (or the unidirectional long-context one)."""
+    return torch_cfg_module.FixedSparsityConfig(
+        num_heads=heads, block=block, num_local_blocks=4,
+        num_global_blocks=1,
+        attention="unidirectional" if causal else "bidirectional")
+
+
+def _sparse_layouts(sc, block, t, heads):
+    """(name, layout) of all five layout families at ``block`` / ``t``,
+    and a hand-made one whose head 1 has an empty q-block row and whose
+    last k-block no q-block of head 0 visits."""
+    fams = [
+        ("dense", sc.DenseSparsityConfig(heads, block=block)),
+        ("fixed_per_head", sc.FixedSparsityConfig(
+            heads, block=block, different_layout_per_head=True,
+            num_local_blocks=4, num_global_blocks=1,
+            num_different_global_patterns=4)),
+        ("variable", sc.VariableSparsityConfig(
+            heads, block=block, different_layout_per_head=True,
+            num_random_blocks=1, local_window_blocks=[2, 4],
+            global_block_indices=[0], seed=3)),
+        ("bigbird", sc.BigBirdSparsityConfig(
+            heads, block=block, different_layout_per_head=True,
+            num_random_blocks=1, num_sliding_window_blocks=3,
+            num_global_blocks=1, seed=5)),
+        ("bslongformer", sc.BSLongformerSparsityConfig(
+            heads, block=block, num_sliding_window_blocks=3,
+            global_block_indices=[0, 5], global_block_end_indices=[1, 6]))]
+    out = [(name, cfg.make_layout(t)) for name, cfg in fams]
+    hand = sc.FixedSparsityConfig(heads, block=block, num_local_blocks=2,
+                                  num_global_blocks=1).make_layout(t)
+    hand[1, 2, :] = 0
+    hand[0, :, -1] = 0
+    out.append(("empty_row", hand))
+    return out
+
+
+def _sparse_case(torch, bsa, b, t, h, d, dtype, block, layout, causal, rate,
+                 gen):
+    """K7, K8a and K8b against their plain versions on one input set."""
+    q, k, v, g, _ = _attn_inputs(torch, b, t, h, d, getattr(torch, dtype),
+                                 False, gen)
+    lut, nnz, lut_t, nnz_t = bsa.layout_tables(layout, "cuda")
+    kw = dict(causal=causal, dropout_rate=rate, dropout_seed=SPARSE_SEED)
+    out, lse = bsa.block_sparse_attention_fwd(q, k, v, lut, nnz, block, **kw)
+    ref_out, ref_lse = bsa.block_sparse_attention_fwd_reference(
+        q, k, v, lut, nnz, block, **kw)
+    delta = (g.float() * ref_out.float()).sum(-1).permute(0, 2, 1) \
+        .reshape(b * h, t).contiguous()
+    dq = bsa.block_sparse_attention_bwd_dq(q, k, v, g, ref_lse, delta, lut,
+                                           nnz, block, **kw)
+    ref_dq = bsa.block_sparse_attention_bwd_dq_reference(
+        q, k, v, g, ref_lse, delta, lut, nnz, block, **kw)
+    dk, dv = bsa.block_sparse_attention_bwd_dkv(q, k, v, g, ref_lse, delta,
+                                                lut_t, nnz_t, block, **kw)
+    ref_dk, ref_dv = bsa.block_sparse_attention_bwd_dkv_reference(
+        q, k, v, g, ref_lse, delta, lut_t, nnz_t, block, **kw)
+    torch.cuda.synchronize()
+    rtol = TRAIN_RTOL[dtype]
+    # an empty row's lse is -inf on both sides; compare the rest
+    empty = torch.isinf(ref_lse)
+    lse_same_inf = bool(torch.equal(torch.isinf(lse), empty))
+    checks = {"out": _close(torch, out, ref_out, rtol),
+              "lse": _close(torch, lse.masked_fill(empty, 0.0),
+                            ref_lse.masked_fill(empty, 0.0),
+                            TRAIN_RTOL["float32"]),
+              "dq": _close(torch, dq, ref_dq, rtol),
+              "dk": _close(torch, dk, ref_dk, rtol),
+              "dv": _close(torch, dv, ref_dv, rtol)}
+    return {"B": b, "T": t, "H": h, "D": d, "dtype": dtype, "block": block,
+            "causal": causal, "dropout": rate,
+            "density": float(np.asarray(layout).mean()),
+            "empty_rows": int(empty.any(-1).sum()),
+            "max_abs_err": {n: c[0] for n, c in checks.items()},
+            "ok": lse_same_inf and all(c[1] for c in checks.values())}
+
+
+def _sparse_dropout_bitwise(torch, bsa, sc):
+    """K7's dropout mask, read back: with q = k = 0 every visited key of
+    a row gets probability 1/n and v = I (T = D = 64) makes out[t, d] =
+    mult(t, d) / n for a visited key d, else 0; n is 64 (dense layout) or
+    32 (2 of 4 blocks a row), so ``out * n`` is exact. A row with no
+    block must come out 0."""
+    from deepspeed_tpu_torch.ops.flash_attention import (
+        _dropout_multiplier_full)
+    b, t, h = 2, 64, BERT_H
+    q = torch.zeros((b, t, h, t), device="cuda")
+    v = torch.eye(t, device="cuda")[None, :, None, :].expand(
+        b, t, h, t).contiguous()
+    ok = True
+    for block in (16, 32):
+        nb = t // block
+        dense = sc.DenseSparsityConfig(h, block=block).make_layout(t)
+        half = np.zeros_like(dense)
+        for i in range(nb):
+            half[:, i, [i, (i + 1) % nb]] = 1
+        half[3 % h, 1, :] = 0                 # an empty row
+        for layout, n in ((dense, t), (half, 2 * block)):
+            lut, nnz, _, _ = bsa.layout_tables(layout, "cuda")
+            allowed = torch.from_numpy(layout != 0).cuda().float() \
+                .repeat_interleave(block, 1).repeat_interleave(block, 2)
+            for seed, rate in ((SPARSE_SEED, 0.1), (7, 0.5)):
+                out, _ = bsa.block_sparse_attention_fwd(
+                    q, q, v, lut, nnz, block, dropout_rate=rate,
+                    dropout_seed=seed)
+                mult = _dropout_multiplier_full(b, h, t, t, rate, seed,
+                                                device="cuda")
+                ok = ok and bool(torch.equal(out.permute(0, 2, 1, 3) * n,
+                                             mult * allowed[None]))
+    return ok
+
+
+def _dense_layout_vs_k1(torch, bsa, sc):
+    """A dense layout through K7 (non-causal) equals K1 on the same
+    inputs within the bf16 tolerance."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    b, t, h, d = 2, BERT_T, BERT_H, BERT_D
+    q, k, v, _, _ = _attn_inputs(torch, b, t, h, d, torch.bfloat16, False,
+                                 gen)
+    layout = sc.DenseSparsityConfig(h, block=BERT_BLOCK).make_layout(t)
+    lut, nnz, _, _ = bsa.layout_tables(layout, "cuda")
+    out, lse = bsa.block_sparse_attention_fwd(q, k, v, lut, nnz, BERT_BLOCK)
+    k1_out, k1_lse = fa.flash_attention_fwd(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    checks = {"out": _close(torch, out, k1_out, TRAIN_RTOL["bfloat16"]),
+              "lse": _close(torch, lse, k1_lse, TRAIN_RTOL["float32"])}
+    return {n: c[0] for n, c in checks.items()}, \
+        all(c[1] for c in checks.values())
+
+
+def phase_sparse_kernel_check(torch):
+    from deepspeed_tpu_torch.ops import sparse_attention as sc
+    bsa = _bsa()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    h = 4
+    cases = []
+    for block in bsa.BLOCKS:
+        t = 8 * block
+        for d in (64, 128):
+            for dtype in ("bfloat16", "float32"):
+                for causal in (False, True):
+                    layout = _bert_sparsity(sc, causal, block, h) \
+                        .make_layout(t)
+                    layout[1, 2, :] = 0        # an empty q-block row
+                    for rate in (0.0, 0.1):
+                        cases.append(_sparse_case(
+                            torch, bsa, 2, t, h, d, dtype, block, layout,
+                            causal, rate, gen))
+    for name, layout in _sparse_layouts(sc, BERT_BLOCK, BERT_T, h):
+        for causal in (False, True):
+            case = _sparse_case(torch, bsa, 2, BERT_T, h, BERT_D, "bfloat16",
+                                BERT_BLOCK, layout, causal, 0.1, gen)
+            case["layout"] = name
+            cases.append(case)
+    # the shape train_bert_sparse gives the kernels: its micro-batch, the
+    # bench's Fixed layout, dropout 0.1, in the encoder's fp32 (and bf16)
+    layout = _bert_sparsity(sc).make_layout(BERT_T)
+    for dtype in ("float32", "bfloat16"):
+        case = _sparse_case(torch, bsa, BERT_B, BERT_T, BERT_H, BERT_D, dtype,
+                            BERT_BLOCK, layout, False, 0.1, gen)
+        case["layout"] = "bert_bench"
+        cases.append(case)
+    for case in cases:
+        if not case["ok"]:
+            emit({"phase": "sparse_kernel_check", "failed": case})
+            fail(f"block-sparse kernels disagree with their plain "
+                 f"versions: {case}")
+    bitwise = _sparse_dropout_bitwise(torch, bsa, sc)
+    k1_err, k1_ok = _dense_layout_vs_k1(torch, bsa, sc)
+    errs = {
+        "K7": max(max(c["max_abs_err"]["out"], c["max_abs_err"]["lse"])
+                  for c in cases),
+        "K8a": max(c["max_abs_err"]["dq"] for c in cases),
+        "K8b": max(max(c["max_abs_err"]["dk"], c["max_abs_err"]["dv"])
+                   for c in cases)}
+    emit({"phase": "sparse_kernel_check", "cases": len(cases),
+          "empty_row_cases": sum(c["empty_rows"] > 0 for c in cases),
+          "dropout_mask_bitwise": bitwise,
+          "dense_layout_vs_k1_max_abs_err": k1_err,
+          "dense_layout_vs_k1_ok": k1_ok, "max_abs_err": errs,
+          "rtol": TRAIN_RTOL, "atol_rel": TRAIN_ATOL_REL, "results": cases})
+    if not bitwise:
+        fail("K7's dropout mask differs from dropout_multiplier")
+    if not k1_ok:
+        fail(f"a dense layout through K7 differs from K1: {k1_err}")
+    return errs
+
+
+def _visited_pairs(layout, block, causal):
+    """(q, k) pairs per batch row the function needs: every pair of a
+    nonzero block, minus the causally masked ones."""
+    layout = np.asarray(layout)
+    if not causal:
+        return int(layout.sum()) * block * block
+    nb = layout.shape[1]
+    qi, kj = np.meshgrid(np.arange(nb), np.arange(nb), indexing="ij")
+    per = np.where(kj < qi, block * block,
+                   np.where(kj == qi, block * (block + 1) // 2, 0))
+    return int((layout * per[None]).sum())
+
+
+def _sparse_timing(torch, bsa, sc, b, t, block, causal, dtype, shape_name):
+    import torch.nn.functional as F
+    h, d = BERT_H, BERT_D
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    q, k, v, g, _ = _attn_inputs(torch, b, t, h, d, getattr(torch, dtype),
+                                 False, gen)
+    layout = _bert_sparsity(sc, causal, block).make_layout(t)
+    lut, nnz, lut_t, nnz_t = bsa.layout_tables(layout, "cuda")
+    kw = dict(causal=causal)
+    out, lse = bsa.block_sparse_attention_fwd(q, k, v, lut, nnz, block, **kw)
+    delta = (g.float() * out.float()).sum(-1).permute(0, 2, 1) \
+        .reshape(b * h, t).contiguous()
+    pairs = b * _visited_pairs(layout, block, causal)
+    io = q.element_size() * b * t * h * d      # bytes of one q/k/v/dO
+    lut_bytes = 4 * (lut.numel() + nnz.numel())
+    lut_t_bytes = 4 * (lut_t.numel() + nnz_t.numel())
+    allowed = torch.from_numpy(layout != 0).cuda() \
+        .repeat_interleave(block, 1).repeat_interleave(block, 2)
+    if causal:
+        allowed &= torch.ones((t, t), dtype=torch.bool,
+                              device="cuda").tril()[None]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa_in = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+    sdpa_out = F.scaled_dot_product_attention(*sdpa_in,
+                                              attn_mask=allowed[None])
+    g_t = g.transpose(1, 2)
+    rows = {}
+
+    def row(name, kern, plain, flops, nbytes, lib):
+        rows[name] = _timing_row(torch, kern, plain, flops, nbytes, dtype,
+                                 lib)
+
+    def sdpa_bwd(i):
+        torch.autograd.grad(sdpa_out, sdpa_in, g_t, retain_graph=True)
+
+    row("K7", lambda i: bsa.block_sparse_attention_fwd(q, k, v, lut, nnz,
+                                                       block, **kw),
+        lambda i: bsa.block_sparse_attention_fwd_reference(
+            q, k, v, lut, nnz, block, **kw),
+        4 * pairs * d, 4 * io + 4 * b * h * t + lut_bytes,
+        lambda i: F.scaled_dot_product_attention(qt, kt, vt,
+                                                 attn_mask=allowed[None]))
+    row("K8a", lambda i: bsa.block_sparse_attention_bwd_dq(
+        q, k, v, g, lse, delta, lut, nnz, block, **kw),
+        lambda i: bsa.block_sparse_attention_bwd_dq_reference(
+            q, k, v, g, lse, delta, lut, nnz, block, **kw),
+        6 * pairs * d, 5 * io + 8 * b * h * t + lut_bytes, sdpa_bwd)
+    row("K8b", lambda i: bsa.block_sparse_attention_bwd_dkv(
+        q, k, v, g, lse, delta, lut_t, nnz_t, block, **kw),
+        lambda i: bsa.block_sparse_attention_bwd_dkv_reference(
+            q, k, v, g, lse, delta, lut_t, nnz_t, block, **kw),
+        8 * pairs * d, 6 * io + 8 * b * h * t + lut_t_bytes, sdpa_bwd)
+    del sdpa_out, sdpa_in
+    torch.cuda.empty_cache()
+    return {"shape": shape_name, "B": b, "T": t, "H": h, "D": d,
+            "dtype": dtype, "block": block, "causal": causal,
+            "density": float(layout.mean()), "pairs": pairs,
+            "library": "scaled_dot_product_attention with the layout as a "
+                       "boolean attn_mask (K8a and K8b: its backward)",
+            "results": rows}
+
+
+def phase_sparse_kernel_timing(torch):
+    from deepspeed_tpu_torch.ops import sparse_attention as sc
+    bsa = _bsa()
+    # the BERT bench shape in the encoder's fp32 (what the main path gives
+    # the kernels) and in bf16; the long-context study in its bf16
+    shapes = {
+        "bert_bench": _sparse_timing(torch, bsa, sc, BERT_B, BERT_T,
+                                     BERT_BLOCK, False, "float32",
+                                     "bert_bench"),
+        "bert_bench_bf16": _sparse_timing(torch, bsa, sc, BERT_B, BERT_T,
+                                          BERT_BLOCK, False, "bfloat16",
+                                          "bert_bench_bf16"),
+        "long_context": _sparse_timing(torch, bsa, sc, LONG_B, LONG_T,
+                                       LONG_BLOCK, True, "bfloat16",
+                                       "long_context")}
+    emit({"phase": "sparse_kernel_timing", "shapes": shapes})
+    return shapes
+
+
+def bert_flops_per_token(cfg, seq_len, attn_density=1.0):
+    """Matmul FLOPs per token for BERT MLM, fwd + bwd (the JAX bench's
+    formula, ``bench.py:51-62``): 6x the encoder and head weights plus
+    the attention matmuls at the layout's density."""
+    d = cfg.hidden_size
+    block_params = cfg.num_hidden_layers * (
+        4 * d * d + 2 * d * cfg.intermediate_size)
+    head = d * d + d * cfg.vocab_size
+    attention = 12 * cfg.num_hidden_layers * d * seq_len * attn_density
+    return 6 * (block_params + head) + attention
+
+
+def _bert_batch(vocab):
+    """The bench's fixed batch (``bench.py:190-194``): random ids, MLM
+    labels at every 7th position."""
+    rng = np.random.default_rng(0)
+    labels = np.full((BERT_B, BERT_T), -100, np.int64)
+    labels[:, ::7] = rng.integers(0, vocab, labels[:, ::7].shape)
+    return {"input_ids": rng.integers(0, vocab, (BERT_B, BERT_T))
+            .astype(np.int32), "labels": labels}
+
+
+def _bert_engine(torch, dropout, accum):
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.bert import BertForMaskedLM, bert_large
+    from deepspeed_tpu_torch.ops import sparse_attention as sc
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    # as the bench builds it: the sparse core wins over flash attention
+    cfg = bert_large(dtype=torch.bfloat16, use_flash_attention=True,
+                     sparse_attention=_bert_sparsity(sc),
+                     hidden_dropout_prob=dropout,
+                     attention_probs_dropout_prob=dropout)
+    model = BertForMaskedLM(cfg, device="cuda", generator=gen)
+    config = {"train_batch_size": BERT_B, "bf16": {"enabled": True},
+              "optimizer": {"type": "Adam", "params": {"lr": 1e-4}},
+              "gradient_accumulation_steps": accum,
+              "steps_per_print": 10 ** 9}
+    engine, _, _, _ = initialize(model=model, config=config)
+    return engine
+
+
+def _sparse_counters():
+    bsa = _bsa()
+    return {"K7": bsa.block_sparse_attention_fwd,
+            "K8a": bsa.block_sparse_attention_bwd_dq,
+            "K8b": bsa.block_sparse_attention_bwd_dkv, **_flash_counters()}
+
+
+class _MaskedDenseCore:
+    """The sparse core's call to ``block_sparse_attention`` replaced by
+    ``masked_dense_attention`` (the parity oracle) while inside."""
+
+    def __enter__(self):
+        from deepspeed_tpu_torch.ops.sparse_attention import (
+            sparse_self_attention as ssa)
+        bsa = _bsa()
+        self._ssa, self._orig = ssa, ssa.block_sparse_attention
+
+        def dense(*args, implementation=None, **kw):
+            return bsa.masked_dense_attention(*args, **kw)
+
+        ssa.block_sparse_attention = dense
+        return self
+
+    def __exit__(self, *exc):
+        self._ssa.block_sparse_attention = self._orig
+
+
+def _qkvw_grads(module):
+    """attn_qkvw gradients as [3 * hidden, hidden] (q, k, v row blocks)."""
+    return [layer.attn_qkvw.grad.t() for layer in module.bert.layer]
+
+
+def phase_train_bert_sparse(torch):
+    bsa = _bsa()
+    batch = _bert_batch(BERT_VOCAB)
+    counters = _sparse_counters()
+    accum, engine = 1, None
+    try:
+        engine = _bert_engine(torch, 0.1, accum)
+        engine.train_batch(batch)
+        fits = True
+    except torch.cuda.OutOfMemoryError:
+        fits = False
+    if not fits:
+        # 32 x 512 beside the fp32 masters and Adam state: split the
+        # same 32-sample step into 2 micro-batches of 16 (outside the
+        # handler, so the failed step's tensors are free)
+        engine = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        accum = 2
+        engine = _bert_engine(torch, 0.1, accum)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    bsa._xla_impl.calls = 0
+    losses, walls = [], []
+    for _ in range(TRAIN_WARMUP + TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        walls.append(time.perf_counter() - t0)
+    launches = {n: c.launches for n, c in counters.items()}
+    gather_calls = bsa._xla_impl.calls
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    timed = walls[TRAIN_WARMUP:]
+    cfg = engine.module.config
+    layout = cfg.sparse_attention.make_layout(BERT_T)
+    density = float(layout.sum()) / layout.size
+    fpt = bert_flops_per_token(cfg, BERT_T, density)
+    tps = BERT_B * BERT_T * len(timed) / sum(timed)
+    profile = _profile(torch, lambda: engine.train_batch(batch), 2)
+    del engine
+    torch.cuda.empty_cache()
+
+    # at dropout 0 with accumulation 2 (micro-batch 16), on the kernels
+    # and again on the masked-dense oracle
+    kern_losses, kern_grads, accum_launches, _ = _accum_run(
+        torch, _bert_engine(torch, 0.0, 2), batch, counters, _qkvw_grads)
+    with _MaskedDenseCore():
+        dense_losses, dense_grads, dense_launches, dense_peak = _accum_run(
+            torch, _bert_engine(torch, 0.0, 2), batch, counters,
+            _qkvw_grads)
+    grad_err = _grad_rel_err(torch, kern_grads, dense_grads, cfg.hidden_size)
+    loss_gap = max(abs(a - b) for a, b in zip(kern_losses, dense_losses))
+    del kern_grads, dense_grads
+
+    row = {"phase": "train_bert_sparse", "model": "bert_large",
+           "batch": BERT_B, "seq": BERT_T, "micro_batch": BERT_B // accum,
+           "gradient_accumulation_steps": accum, "dtype": "bfloat16",
+           "encoder_dtype": "float32", "dropout": 0.1,
+           "attention": "block-sparse (K7/K8)",
+           "layout_density": density, "optimizer": "adam (fused K4)",
+           "losses": losses, "step_wall_s": walls, "tokens_per_s": tps,
+           "samples_per_s": tps / BERT_T,
+           "step_p50_ms": statistics.median(timed) * 1e3,
+           "model_flops_per_token": fpt,
+           "mfu": tps * fpt / BF16_PEAK_FLOPS,
+           "max_memory_allocated": peak, "launches": launches,
+           "gather_route_calls": gather_calls, "steps": steps,
+           "profile": profile, "accum2_losses": kern_losses,
+           "accum2_launches": accum_launches,
+           "masked_dense_accum2_losses": dense_losses,
+           "masked_dense_accum2_launches": dense_launches,
+           "masked_dense_accum2_max_memory_allocated": dense_peak,
+           "kernel_vs_masked_dense_loss_gap": loss_gap,
+           "loss_atol": TRAIN_LOSS_ATOL,
+           "kernel_vs_masked_dense_qkvw_grad_rel_err": grad_err,
+           "grad_rtol": TRAIN_GRAD_RTOL}
+    emit(row)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"BERT training loss not finite and falling: {losses}")
+    micro = steps * accum
+    want = {"K7": BERT_LAYERS * micro, "K8a": BERT_LAYERS * micro,
+            "K8b": BERT_LAYERS * micro, "K1": 0, "K2": 0, "K3": 0,
+            "K4": steps}
+    if launches != want or gather_calls != 0:
+        fail(f"kernel launches {launches} != {want} over {steps} steps of "
+             f"{accum} micro-batches, or gather-route calls "
+             f"{gather_calls} != 0")
+    want2 = dict(want, K7=2 * BERT_LAYERS * 3, K8a=2 * BERT_LAYERS * 3,
+                 K8b=2 * BERT_LAYERS * 3, K4=3)
+    if accum_launches != want2 or not all(np.isfinite(kern_losses)):
+        fail(f"accumulation run: launches {accum_launches} != {want2} or "
+             f"losses {kern_losses}")
+    if dense_launches["K7"] or dense_launches["K8a"] or \
+            dense_launches["K8b"]:
+        fail(f"the masked-dense oracle run launched sparse kernels: "
+             f"{dense_launches}")
+    if not loss_gap <= TRAIN_LOSS_ATOL:
+        fail(f"kernel losses {kern_losses} vs masked dense {dense_losses}: "
+             f"gap {loss_gap} > {TRAIN_LOSS_ATOL}")
+    if not all(e <= TRAIN_GRAD_RTOL for e in grad_err.values()):
+        fail(f"kernel vs masked-dense attn_qkvw gradients differ by "
+             f"{grad_err} > {TRAIN_GRAD_RTOL} (relative)")
+    return row
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -1603,6 +2136,7 @@ def main(argv=None):
     worst = phase_kernel_check(torch)
     paged_worst = phase_paged_kernel_check(torch)
     train_errs = phase_train_kernel_check(torch)
+    sparse_errs = phase_sparse_kernel_check(torch)
     if args.kernels_only:
         print(smi, flush=True)
         return 0
@@ -1613,6 +2147,8 @@ def main(argv=None):
     speculative = phase_serve_speculative(torch)
     train_timing = phase_train_kernel_timing(torch)
     train = phase_train(torch)
+    sparse_timing = phase_sparse_kernel_timing(torch)
+    bert = phase_train_bert_sparse(torch)
     t = timing["bfloat16/serve_mix"]
     kernels = [{
         "name": "flash_decode", "route": "cuda",
@@ -1649,6 +2185,26 @@ def main(argv=None):
             "replaces": replaces, "launches": train["launches"][key],
             "max_abs_err": max(train_errs[key], r.get("max_abs_err", 0.0)),
             "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    sparse_src = {
+        "K7": ("block_sparse_attention_fwd",
+               "deepspeed_tpu/ops/sparse_attention/"
+               "block_sparse_attention.py:217"),
+        "K8a": ("block_sparse_attention_bwd_dq",
+                "deepspeed_tpu/ops/sparse_attention/"
+                "block_sparse_attention.py:381"),
+        "K8b": ("block_sparse_attention_bwd_dkv",
+                "deepspeed_tpu/ops/sparse_attention/"
+                "block_sparse_attention.py:450")}
+    for key, (name, replaces) in sparse_src.items():
+        r = sparse_timing["bert_bench"]["results"][key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "deepspeed_tpu_torch/ops/csrc/"
+                      "block_sparse_attention.cu",
+            "replaces": replaces, "launches": bert["launches"][key],
+            "max_abs_err": sparse_errs[key], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     emit({"kernels": kernels})

@@ -10,9 +10,13 @@ the reference it keeps its own copy.
 Ported so far: GPT-2 serving on the ring KV cache
 (:mod:`deepspeed_tpu_torch.inference`), with flash decode as a
 hand-written ``sm_90a`` CUDA kernel (:mod:`deepspeed_tpu_torch.ops`);
-and GPT-2 training through :func:`initialize` and the engine's dense
+GPT-2 training through :func:`initialize` and the engine's dense
 path (:mod:`deepspeed_tpu_torch.runtime`), with the flash-attention
-forward / backward and the fused Adam as hand-written CUDA kernels.
+forward / backward and the fused Adam as hand-written CUDA kernels;
+paged serving with flash decode over page tables; and BERT MLM training
+with block-sparse attention (:mod:`deepspeed_tpu_torch.models.bert`,
+:mod:`deepspeed_tpu_torch.ops.sparse_attention`), whose forward, dQ and
+dK/dV are hand-written CUDA kernels too.
 
 Nothing heavy is imported here: submodules load on first use.
 """
@@ -51,14 +55,12 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
 
     ``model`` is an ``nn.Module`` holding fp32 master params (moved to
     ``device``); ``loss_fn(batch, rng)`` defaults to ``model.loss_fn``
-    or, for a :class:`~deepspeed_tpu_torch.models.gpt2.GPT2LMHead`, to
-    ``make_gpt2_loss_fn(model)``. ``config`` is a DeepSpeed config dict
-    or JSON path (or ``args.deepspeed_config``). Runs on CUDA unless
+    (the port's GPT-2 and BERT models each have one).
+    ``config`` is a DeepSpeed config dict or JSON path (or
+    ``args.deepspeed_config``). Runs on CUDA unless
     ``device="cpu"``. Returns ``(engine, optimizer, dataloader,
     lr_scheduler)``; the data loader is not yet ported, so it is None.
     """
-    from deepspeed_tpu_torch.models.gpt2 import (
-        GPT2LMHead, make_gpt2_loss_fn)
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
 
     not_yet = {"training_data": training_data, "mpu": mpu,
@@ -79,8 +81,6 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     model.to(dev)
     if loss_fn is None:
         loss_fn = getattr(model, "loss_fn", None)
-    if loss_fn is None and isinstance(model, GPT2LMHead):
-        loss_fn = make_gpt2_loss_fn(model)
     if loss_fn is None:
         raise ValueError("pass loss_fn(batch, rng) or a model exposing "
                          ".loss_fn")

@@ -46,6 +46,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from deepspeed_tpu_torch.ops.flash_attention import (
+    dropout_generator,
+    hidden_dropout,
+)
+
 
 @dataclasses.dataclass(frozen=True)
 class GPT2Config:
@@ -242,11 +247,7 @@ class _Dropout:
                         fold_in_seed(self.seed, i))
 
     def hidden(self, x):
-        keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) < keep
-        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
-                                                       device=x.device))
+        return hidden_dropout(x, self.rate, self.generator)
 
 
 class GPT2LMHead(nn.Module):
@@ -303,6 +304,11 @@ class GPT2LMHead(nn.Module):
         self.wpe.data = self.wpe.data.to(dtype)
         return self
 
+    def loss_fn(self, batch, rng=None, pld_theta=None):
+        """The engine's default loss: :func:`make_gpt2_loss_fn` of this
+        model."""
+        return make_gpt2_loss_fn(self)(batch, rng, pld_theta)
+
     def forward(self, input_ids, positions=None, kv_cache=None,
                 attn_impl="dense", attn_block_k=128, dropout_seed=None,
                 return_hidden=False, kv_page_table=None,
@@ -339,9 +345,8 @@ class GPT2LMHead(nn.Module):
         drop = None
         if dropout_seed is not None and cfg.dropout > 0.0 and \
                 kv_cache is None:
-            gen = torch.Generator(device=x.device)
-            gen.manual_seed(int(dropout_seed) & 0xFFFFFFFFFFFFFFFF)
-            drop = _Dropout(cfg.dropout, int(dropout_seed), gen)
+            drop = _Dropout(cfg.dropout, int(dropout_seed),
+                            dropout_generator(dropout_seed, x.device))
             x = drop.hidden(x)
         if kv_cache is None:
             for i, block in enumerate(self.h):

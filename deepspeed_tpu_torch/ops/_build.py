@@ -24,13 +24,15 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNELS = ("flash_decode", "flash_attention", "fused_adam")  # csrc/<name>.cu
+KERNELS = ("flash_decode", "flash_attention", "fused_adam",
+           "block_sparse_attention")                # csrc/<name>.cu
 BUILD_DIR = Path(__file__).resolve().parents[2] / ".torch_ext"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-lineinfo", "-Xptxas", "-v") + ARCH_FLAGS
 
-_lock = threading.Lock()
+# one lock per library, so builds of different sources run side by side
+_locks = {name: threading.Lock() for name in KERNELS}
 _libs = {}
 # name -> {"seconds": build wall (0.0 when reused), "ptxas": [lines]}
 build_info = {}
@@ -56,13 +58,17 @@ def load_library(name):
     """Build (if needed) and load ``csrc/<name>.cu``; returns the
     ``ctypes.CDLL``. Raises ``RuntimeError`` with the compiler output
     when the build fails."""
-    with _lock:
+    with _locks[name]:
         lib = _libs.get(name)
         if lib is not None:
             return lib
         src = CSRC / f"{name}.cu"
+        # the shared headers are part of every source's digest
+        headers = b"".join(h.read_bytes()
+                           for h in sorted(CSRC.glob("*.cuh")))
         digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+            src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
+        ).hexdigest()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         so = BUILD_DIR / f"{name}-{digest[:16]}.so"
         if so.exists():

@@ -36,12 +36,11 @@
 // fields, launched on the caller's stream; it returns the cudaError_t
 // of the launch.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
-#include <float.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "attention_common.cuh"
 
 // The launch parameters: every field 8 bytes wide (mirrored by
 // `_Params` in ops/flash_attention.py). At global scope: the extern "C"
@@ -72,46 +71,6 @@ namespace {
 constexpr int kB = 64;          // Q-tile rows = KV-tile keys
 constexpr int kThreads = 256;   // 16 x 16: ty owns 4 rows, tx 4 columns
 constexpr int kPs = kB + 1;     // padded row stride of a score tile
-// DEFAULT_MASK_VALUE = -0.7 * f32max (flash_attention.py:31)
-constexpr float kMaskValue = -0.7f * FLT_MAX;
-
-enum DType : int { kF32 = 0, kBF16 = 1, kF16 = 2 };
-
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-template <>
-__device__ __forceinline__ __half from_f32<__half>(float x) {
-  return __float2half_rn(x);
-}
-
-// murmur3 fmix32 over the coordinates (flash_attention.py:67-76, :106):
-// uint32 wrapping arithmetic, logical shifts, top 24 bits vs threshold.
-__device__ __forceinline__ float drop_mult(uint32_t seed, uint32_t head,
-                                          int q, int k, uint32_t thr,
-                                          float inv_keep) {
-  uint32_t h = static_cast<uint32_t>(q) * 0x9E3779B9u +
-               static_cast<uint32_t>(k) * 0xC2B2AE35u + head * 0x85EBCA6Bu +
-               seed;
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return (h >> 8) < thr ? inv_keep : 0.0f;
-}
 
 __device__ __forceinline__ uint32_t global_head(const AttnParams& p,
                                                 int bh) {

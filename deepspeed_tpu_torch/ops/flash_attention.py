@@ -128,6 +128,25 @@ def _dropout_multiplier_full(B, H, T, S, rate, seed, head_offset=0,
         torch.arange(S, device=device)[None, None, None, :], rate)
 
 
+def hidden_dropout(x, rate, generator):
+    """Inverted dropout of a model's hidden states, drawn from
+    ``generator`` (None: identity). The models' dropout outside
+    attention; it does not reproduce ``jax.random``."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
+def dropout_generator(seed, device):
+    """The hidden-dropout generator of one training forward at ``seed``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed) & 0xFFFFFFFFFFFFFFFF)
+    return gen
+
+
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------

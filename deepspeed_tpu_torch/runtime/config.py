@@ -4,8 +4,9 @@
 Ported: the batch triple solver (``train_batch_size = micro_batch *
 grad_accum * world_size``) and ``_batch_assertion``, ``fp16`` / ``bf16``
 with the loss-scale arguments, the ``optimizer`` and ``scheduler``
-sections (``optimizer.params.pallas`` kept: it routes Adam to the fused
-kernel K4), ``gradient_clipping`` and ``steps_per_print``. Key names
+sections (``optimizer.params.pallas`` accepted; every step runs the fused
+kernel K4), ``gradient_clipping``, ``steps_per_print`` and the
+``sparse_attention`` section (:func:`get_sparse_attention`). Key names
 and error texts are the JAX package's. Every other top-level section
 raises "not yet ported" instead of being silently ignored.
 """
@@ -26,7 +27,22 @@ from deepspeed_tpu_torch.runtime.constants import (
     SCHEDULER_TYPE_DEFAULT, STEPS_PER_PRINT, STEPS_PER_PRINT_DEFAULT,
     TRAIN_BATCH_SIZE, TRAIN_BATCH_SIZE_DEFAULT,
     TRAIN_MICRO_BATCH_SIZE_PER_GPU, TRAIN_MICRO_BATCH_SIZE_PER_GPU_DEFAULT,
-    TYPE)
+    TYPE, SPARSE_ATTENTION, SPARSE_ATTENTION_TYPE,
+    SPARSE_ATTENTION_TYPE_DEFAULT, SPARSE_BIGBIRD_MODE, SPARSE_BLOCK,
+    SPARSE_BLOCK_DEFAULT, SPARSE_BSLONGFORMER_MODE, SPARSE_DENSE_MODE,
+    SPARSE_DIFFERENT_LAYOUT_PER_HEAD,
+    SPARSE_DIFFERENT_LAYOUT_PER_HEAD_DEFAULT, SPARSE_FIXED_MODE,
+    SPARSE_GLOBAL_BLOCK_END_INDICES, SPARSE_GLOBAL_BLOCK_END_INDICES_DEFAULT,
+    SPARSE_GLOBAL_BLOCK_INDICES, SPARSE_GLOBAL_BLOCK_INDICES_DEFAULT,
+    SPARSE_HORIZONTAL_GLOBAL_ATTENTION,
+    SPARSE_HORIZONTAL_GLOBAL_ATTENTION_DEFAULT, SPARSE_LOCAL_WINDOW_BLOCKS,
+    SPARSE_LOCAL_WINDOW_BLOCKS_DEFAULT, SPARSE_MODE, SPARSE_MODE_DEFAULT,
+    SPARSE_NUM_DIFFERENT_GLOBAL_PATTERNS,
+    SPARSE_NUM_DIFFERENT_GLOBAL_PATTERNS_DEFAULT, SPARSE_NUM_GLOBAL_BLOCKS,
+    SPARSE_NUM_GLOBAL_BLOCKS_DEFAULT, SPARSE_NUM_LOCAL_BLOCKS,
+    SPARSE_NUM_LOCAL_BLOCKS_DEFAULT, SPARSE_NUM_RANDOM_BLOCKS,
+    SPARSE_NUM_RANDOM_BLOCKS_DEFAULT, SPARSE_NUM_SLIDING_WINDOW_BLOCKS,
+    SPARSE_NUM_SLIDING_WINDOW_BLOCKS_DEFAULT, SPARSE_VARIABLE_MODE)
 
 ADAM_OPTIMIZER = "adam"
 LAMB_OPTIMIZER = "lamb"
@@ -38,7 +54,7 @@ DEEPSPEED_OPTIMIZERS = [ADAM_OPTIMIZER, LAMB_OPTIMIZER, ONEBIT_ADAM_OPTIMIZER]
 _PORTED_KEYS = frozenset((
     TRAIN_BATCH_SIZE, TRAIN_MICRO_BATCH_SIZE_PER_GPU,
     GRADIENT_ACCUMULATION_STEPS, STEPS_PER_PRINT, FP16, BF16, OPTIMIZER,
-    SCHEDULER, GRADIENT_CLIPPING))
+    SCHEDULER, GRADIENT_CLIPPING, SPARSE_ATTENTION))
 
 
 def get_scalar_param(param_dict, param_name, param_default_value):
@@ -132,6 +148,70 @@ def get_scheduler_params(param_dict):
     return None
 
 
+def get_sparse_attention(param_dict):
+    """Parse the sparse_attention section into kwargs for a SparsityConfig.
+
+    Mirrors the mode dispatch of the reference (`runtime/config.py:177-345`)
+    and of the JAX package (`deepspeed_tpu/runtime/config.py:167-227`).
+    """
+    if SPARSE_ATTENTION not in param_dict:
+        return None
+    sparsity = param_dict[SPARSE_ATTENTION]
+    mode = get_scalar_param(sparsity, SPARSE_MODE, SPARSE_MODE_DEFAULT)
+
+    common = {
+        SPARSE_MODE: mode,
+        SPARSE_BLOCK: get_scalar_param(sparsity, SPARSE_BLOCK, SPARSE_BLOCK_DEFAULT),
+        SPARSE_DIFFERENT_LAYOUT_PER_HEAD: get_scalar_param(
+            sparsity, SPARSE_DIFFERENT_LAYOUT_PER_HEAD,
+            SPARSE_DIFFERENT_LAYOUT_PER_HEAD_DEFAULT),
+    }
+    if mode == SPARSE_DENSE_MODE:
+        return common
+    if mode == SPARSE_FIXED_MODE:
+        extra_keys = [
+            (SPARSE_NUM_LOCAL_BLOCKS, SPARSE_NUM_LOCAL_BLOCKS_DEFAULT),
+            (SPARSE_NUM_GLOBAL_BLOCKS, SPARSE_NUM_GLOBAL_BLOCKS_DEFAULT),
+            (SPARSE_ATTENTION_TYPE, SPARSE_ATTENTION_TYPE_DEFAULT),
+            (SPARSE_HORIZONTAL_GLOBAL_ATTENTION,
+             SPARSE_HORIZONTAL_GLOBAL_ATTENTION_DEFAULT),
+            (SPARSE_NUM_DIFFERENT_GLOBAL_PATTERNS,
+             SPARSE_NUM_DIFFERENT_GLOBAL_PATTERNS_DEFAULT),
+        ]
+    elif mode == SPARSE_VARIABLE_MODE:
+        extra_keys = [
+            (SPARSE_NUM_RANDOM_BLOCKS, SPARSE_NUM_RANDOM_BLOCKS_DEFAULT),
+            (SPARSE_LOCAL_WINDOW_BLOCKS, SPARSE_LOCAL_WINDOW_BLOCKS_DEFAULT),
+            (SPARSE_GLOBAL_BLOCK_INDICES, SPARSE_GLOBAL_BLOCK_INDICES_DEFAULT),
+            (SPARSE_GLOBAL_BLOCK_END_INDICES,
+             SPARSE_GLOBAL_BLOCK_END_INDICES_DEFAULT),
+            (SPARSE_ATTENTION_TYPE, SPARSE_ATTENTION_TYPE_DEFAULT),
+            (SPARSE_HORIZONTAL_GLOBAL_ATTENTION,
+             SPARSE_HORIZONTAL_GLOBAL_ATTENTION_DEFAULT),
+        ]
+    elif mode == SPARSE_BIGBIRD_MODE:
+        extra_keys = [
+            (SPARSE_NUM_RANDOM_BLOCKS, SPARSE_NUM_RANDOM_BLOCKS_DEFAULT),
+            (SPARSE_NUM_SLIDING_WINDOW_BLOCKS,
+             SPARSE_NUM_SLIDING_WINDOW_BLOCKS_DEFAULT),
+            (SPARSE_NUM_GLOBAL_BLOCKS, SPARSE_NUM_GLOBAL_BLOCKS_DEFAULT),
+        ]
+    elif mode == SPARSE_BSLONGFORMER_MODE:
+        extra_keys = [
+            (SPARSE_NUM_SLIDING_WINDOW_BLOCKS,
+             SPARSE_NUM_SLIDING_WINDOW_BLOCKS_DEFAULT),
+            (SPARSE_GLOBAL_BLOCK_INDICES, SPARSE_GLOBAL_BLOCK_INDICES_DEFAULT),
+            (SPARSE_GLOBAL_BLOCK_END_INDICES,
+             SPARSE_GLOBAL_BLOCK_END_INDICES_DEFAULT),
+        ]
+    else:
+        raise NotImplementedError(
+            f"Given sparsity mode, {mode}, has not been implemented yet!")
+    for key, default in extra_keys:
+        common[key] = get_scalar_param(sparsity, key, default)
+    return common
+
+
 class DeepSpeedConfig:
     """Typed view of a DeepSpeed config dict or JSON file, world size 1
     unless given."""
@@ -183,6 +263,7 @@ class DeepSpeedConfig:
         self.scheduler_params = get_scheduler_params(param_dict)
         self.gradient_clipping = get_scalar_param(
             param_dict, GRADIENT_CLIPPING, GRADIENT_CLIPPING_DEFAULT)
+        self.sparse_attention = get_sparse_attention(param_dict)
 
     def _batch_assertion(self):
         train_batch = self.train_batch_size

@@ -6,9 +6,12 @@ harness in ``tests/conftest.py`` out of the run:
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -m cuda -q
 
 ``chip_smoke.py`` runs the full-width matrix; these are the small,
-fast cases. Tolerance atol 1e-5 on f32 outputs of magnitude ~1: both
+fast cases (flash decode K5/K6, flash attention K1-K3, fused Adam K4,
+block-sparse attention K7/K8). Tolerance atol 1e-5 on f32 outputs of magnitude ~1: both
 sides accumulate in fp32, in a different order.
 """
+
+import importlib
 
 import numpy as np
 import pytest
@@ -221,3 +224,99 @@ def test_gpt2_train_step_goes_through_the_kernels(cuda):
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
     assert fa.flash_attention_fwd.launches == counts[0] + 3 * 2
     assert fused_adam.launches == counts[1] + 3
+
+
+# --- block-sparse attention K7, K8a, K8b -----------------------------------
+# f32 against the plain versions (atol 2e-5, as K1-K3: fp32 sums in a
+# different order); head 1 has an empty q-block row (out 0, lse -inf,
+# dq 0) and no q-block of head 0 visits the last k-block (dk = dv = 0).
+# The module by path: the package re-exports its entry function under
+# the module's name.
+BSA = "deepspeed_tpu_torch.ops.sparse_attention.block_sparse_attention"
+
+def _sparse_layout(block, t, h, causal):
+    from deepspeed_tpu_torch.ops.sparse_attention import FixedSparsityConfig
+    layout = FixedSparsityConfig(
+        h, block=block, num_local_blocks=2, num_global_blocks=1,
+        attention="unidirectional" if causal else "bidirectional") \
+        .make_layout(t)
+    layout[1, 1, :] = 0
+    layout[0, :, -1] = 0
+    return layout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block,causal,rate", [(16, False, 0.0),
+                                               (32, True, 0.1),
+                                               (64, False, 0.1),
+                                               (128, True, 0.0)])
+def test_block_sparse_kernels_match_plain_versions(cuda, block, causal,
+                                                   rate):
+    bsa = importlib.import_module(BSA)
+    rng = np.random.default_rng(5)
+    b, h, d = 2, 3, 64
+    t = 4 * block
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((b, t, h, d)).astype(
+        np.float32)).to(cuda) for _ in range(4))
+    lut, nnz, lut_t, nnz_t = bsa.layout_tables(
+        _sparse_layout(block, t, h, causal), cuda)
+    kw = dict(causal=causal, dropout_rate=rate, dropout_seed=-99)
+    counters = (bsa.block_sparse_attention_fwd,
+                bsa.block_sparse_attention_bwd_dq,
+                bsa.block_sparse_attention_bwd_dkv)
+    before = [c.launches for c in counters]
+    out, lse = bsa.block_sparse_attention_fwd(q, k, v, lut, nnz, block, **kw)
+    want_out, want_lse = bsa.block_sparse_attention_fwd_reference(
+        q, k, v, lut, nnz, block, **kw)
+    delta = (g * want_out).sum(-1).permute(0, 2, 1).reshape(b * h, t) \
+        .contiguous()
+    dq = bsa.block_sparse_attention_bwd_dq(q, k, v, g, want_lse, delta, lut,
+                                           nnz, block, **kw)
+    dk, dv = bsa.block_sparse_attention_bwd_dkv(q, k, v, g, want_lse, delta,
+                                                lut_t, nnz_t, block, **kw)
+    want_dq = bsa.block_sparse_attention_bwd_dq_reference(
+        q, k, v, g, want_lse, delta, lut, nnz, block, **kw)
+    want_dk, want_dv = bsa.block_sparse_attention_bwd_dkv_reference(
+        q, k, v, g, want_lse, delta, lut_t, nnz_t, block, **kw)
+    assert [c.launches for c in counters] == [n + 1 for n in before]
+    empty = torch.isinf(want_lse)
+    assert bool(empty.any()) and torch.equal(torch.isinf(lse), empty)
+    assert torch.equal(out[1, block:2 * block, 1],
+                       torch.zeros_like(out[1, block:2 * block, 1]))
+    assert torch.equal(dk[:, -block:, 0], torch.zeros_like(dk[:, -block:, 0]))
+    for got, want in [(out, want_out), (lse.masked_fill(empty, 0.0),
+                                        want_lse.masked_fill(empty, 0.0)),
+                      (dq, want_dq), (dk, want_dk), (dv, want_dv)]:
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_bert_sparse_train_step_goes_through_the_kernels(cuda):
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.bert import BertForMaskedLM, bert_tiny
+    from deepspeed_tpu_torch.ops.sparse_attention import FixedSparsityConfig
+    bsa = importlib.import_module(BSA)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    model = BertForMaskedLM(bert_tiny(
+        dtype=torch.bfloat16, hidden_dropout_prob=0.1,
+        attention_probs_dropout_prob=0.1,
+        sparse_attention=FixedSparsityConfig(4, block=16,
+                                             num_local_blocks=2)),
+        device=cuda, generator=gen)
+    engine, _, _, _ = initialize(model=model, config={
+        "train_batch_size": 4, "bf16": {"enabled": True},
+        "optimizer": {"type": "Adam", "params": {"lr": 1e-3}}})
+    rng = np.random.default_rng(0)
+    labels = np.full((4, 64), -100, np.int64)
+    labels[:, ::7] = rng.integers(0, 256, labels[:, ::7].shape)
+    batch = {"input_ids": rng.integers(0, 256, (4, 64)).astype(np.int32),
+             "labels": labels}
+    counts = [bsa.block_sparse_attention_fwd.launches,
+              bsa.block_sparse_attention_bwd_dkv.launches, bsa._xla_impl.calls]
+    losses = [float(engine.train_batch(batch)) for _ in range(3)]
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+    assert [bsa.block_sparse_attention_fwd.launches,
+            bsa.block_sparse_attention_bwd_dkv.launches,
+            bsa._xla_impl.calls] == [counts[0] + 6, counts[1] + 6, counts[2]]

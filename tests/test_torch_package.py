@@ -103,15 +103,20 @@ def test_kernel_sources_ship_with_the_package():
         assert ".torch_ext/" in f.read().split()
 
 
+# a kernel's wrapper sits where the JAX module it ports sits
+WRAPPER_DIRS = {"block_sparse_attention": "ops/sparse_attention"}
+
+
 def test_scan_covers_the_training_slice_and_every_kernel_wrapper():
     """The import guard reads every module of the package, the training
-    runtime, the paged and speculative serving modules and each
-    kernel's wrapper (``ops/<name>.py`` beside ``ops/csrc/<name>.cu``)
-    among them."""
+    runtime, the paged and speculative serving modules, the BERT /
+    sparse-attention slice and each kernel's wrapper (``ops/<name>.py``
+    beside ``ops/csrc/<name>.cu``, or under the JAX module's own
+    directory) among them."""
     from deepspeed_tpu_torch.ops import _build
     scanned = {os.path.relpath(p, REPO) for p in _sources()}
-    wrappers = {f"deepspeed_tpu_torch/ops/{name}.py"
-                for name in _build.KERNELS}
+    wrappers = {f"deepspeed_tpu_torch/{WRAPPER_DIRS.get(name, 'ops')}/"
+                f"{name}.py" for name in _build.KERNELS}
     training = {f"deepspeed_tpu_torch/{m}.py" for m in (
         "__init__", "runtime/engine", "runtime/config", "runtime/constants",
         "runtime/lr_schedules", "runtime/utils", "runtime/fp16/loss_scaler",
@@ -121,5 +126,10 @@ def test_scan_covers_the_training_slice_and_every_kernel_wrapper():
         "inference/serve", "inference/paging", "inference/speculative",
         "runtime/resilience/fault_injection",
         "runtime/resilience/checksums")}
-    assert len(wrappers) == 3
-    assert wrappers | training | serving <= scanned
+    bert = {f"deepspeed_tpu_torch/{m}.py" for m in (
+        "models/bert", "ops/transformer/transformer",
+        "ops/sparse_attention/sparsity_config",
+        "ops/sparse_attention/sparse_self_attention",
+        "ops/sparse_attention/bert_sparse_self_attention")}
+    assert len(wrappers) == 4
+    assert wrappers | training | serving | bert <= scanned

@@ -104,7 +104,8 @@ def test_json_file_load(tmp_path):
 
 
 @pytest.mark.parametrize("block", ["zero_optimization", "pipeline", "mesh",
-                                   "sparse_attention", "fp8", "telemetry"])
+                                   "progressive_layer_drop", "fp8",
+                                   "telemetry"])
 def test_unported_blocks_raise(block):
     with pytest.raises(ValueError, match="not yet ported"):
         DeepSpeedConfig({"train_batch_size": 8, block: {}})
