@@ -14,8 +14,10 @@ Phases, each printing one JSON line:
 1. ``device``  — ``nvidia-smi`` name and power limit (also printed as
    its own line), torch and CUDA versions.
 2. ``build``   — every kernel built from ``deepspeed_tpu_torch/ops/
-   csrc`` (one ``nvcc`` per source, all started together); seconds and
-   the ``ptxas`` register/shared-memory report.
+   csrc`` (one ``nvcc`` per source, all started together); seconds, the
+   ``ptxas`` register/shared-memory report, and the count of ``HGMMA``
+   (wgmma) and ``UTMALDG`` (TMA load) instructions in the SASS of the
+   bf16 K1 and K3 functions (head dim 64 and 128): no ``HGMMA`` fails.
 3. ``kernel_check`` — the CUDA ``flash_decode`` against
    ``flash_decode_reference`` on the card: B=8, S=512, H=12/D=64 and
    H=16/D=96 (plus H=4/D=256), positions {0, 63, 127, 128, 300, 511}
@@ -65,13 +67,18 @@ Phases, each printing one JSON line:
    K6 6 times per draft call, at least one token per live row per round;
    in f32, 8 requests' streams equal the plain paged engine's. Reports
    rounds, mean accepted tokens per row-round and tokens/s.
-10. ``train_kernel_check`` — flash attention K1 (out, lse), K2 (dq) and
-   K3 (dk, dv, dbias partials) against their plain versions on the card:
-   B 2-8, T 128/1000/1024, H 16, D 64 and 128, bf16 and f32, causal and
-   not, with and without a key bias, dropout 0 and 0.1 at a nonzero head
-   offset; the K1 dropout mask read back bitwise against
-   ``dropout_multiplier``; fused Adam K4 against its plain version over
-   3 steps and a skipped one, both modes, leaves of odd sizes.
+10. ``train_kernel_check`` — first one 64 x N x K bf16 product through
+   the tensor-core kernels' TMA loads and wgmma forms (K-major and
+   MN-major B, N and K 64 and 128) against ``torch.matmul`` in fp32;
+   then flash attention K1 (out, lse), K2 (dq) and K3 (dk, dv, dbias
+   partials) against their plain versions on the card: B 2-8, T
+   128/1000/1024, H 16, D 64 and 128, bf16 (K1 and K3 on the tensor
+   cores) and f32, causal and not, with and without a key bias, dropout
+   0 and 0.1 at a nonzero head offset, q/k/v as views of one fused
+   tensor and once as three tensors; the K1 dropout mask read back
+   bitwise against ``dropout_multiplier`` (f32; on bf16 its zeros);
+   fused Adam K4 against its plain version over 3 steps and a skipped
+   one, both modes, leaves of odd sizes.
 11. ``train_kernel_timing`` — CUDA-event ms per call of K1, K2, K3 at the
    training shape (B 8, T 1024, H 16, D 64, bf16, causal) and of K4
    over GPT-2 350M's 292 leaves, beside their plain versions, their
@@ -132,6 +139,8 @@ import argparse
 import concurrent.futures
 import gc
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -183,6 +192,38 @@ def phase_device(torch):
     return smi
 
 
+# the bf16 K1 / K3 instantiations (head dim 64 and 128) and the SASS
+# instructions that show they run on the tensor cores and are fed by TMA
+TENSOR_CORE_FUNCTIONS = ("fwd_wgmma_kernel", "dkv_wgmma_kernel")
+SASS_OPS = ("HGMMA", "UTMALDG")
+
+
+def _sass_counts(lib_path, nvcc):
+    """{"<function><<head dim>>": {op: count}} for the tensor-core
+    functions of a built library, from ``cuobjdump -sass``."""
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    proc = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"cuobjdump -sass {lib_path} failed: {proc.stderr.strip()}")
+    counts, current = {}, None
+    for line in proc.stdout.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            dim = re.search(r"ILi(\d+)E", name)
+            current = None
+            for fn in TENSOR_CORE_FUNCTIONS:
+                if fn in name and dim:
+                    current = f"{fn}<{dim.group(1)}>"
+                    counts[current] = dict.fromkeys(SASS_OPS, 0)
+            continue
+        if current is not None:
+            for op in SASS_OPS:
+                if op in line:
+                    counts[current][op] += 1
+    return counts
+
+
 def phase_build():
     from deepspeed_tpu_torch.ops import _build
     t0 = time.perf_counter()
@@ -191,9 +232,18 @@ def phase_build():
                    for name in _build.KERNELS}
         for name, fut in futures.items():
             fut.result()            # raises with the compiler output
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+    seconds = time.perf_counter() - t0
+    sass = _sass_counts(_build.load_library("flash_attention")._name,
+                        _build._nvcc())
+    emit({"phase": "build", "seconds": seconds,
           "kernels": {name: _build.build_info[name]
-                      for name in _build.KERNELS}})
+                      for name in _build.KERNELS},
+          "flash_attention_sass": sass})
+    want = [f"{fn}<{d}>" for fn in TENSOR_CORE_FUNCTIONS for d in (64, 128)]
+    for fn in want:
+        if sass.get(fn, {}).get("HGMMA", 0) == 0:
+            fail(f"{fn} has no HGMMA instruction in its SASS ({sass}): the "
+                 f"bf16 attention kernels must run on the tensor cores")
 
 
 def _positions(torch, rng):
@@ -796,10 +846,22 @@ def _profile_decode(torch, engine, first=8, steps=10):
                                                  page_tables=tables), steps)
 
 
+# the __global__ functions of ops/csrc/*.cu, all in an anonymous
+# namespace at file scope
+PORT_KERNELS = ("fwd_kernel", "dq_kernel", "dkv_kernel", "fwd_wgmma_kernel",
+                "dkv_wgmma_kernel", "adam_kernel", "flash_decode_kernel")
+
+
+def _port_kernel(name):
+    m = re.match(r"(?:void )?\(anonymous namespace\)::(\w+)", name)
+    return m is not None and m.group(1) in PORT_KERNELS
+
+
 def _profile(torch, step, steps):
     """``torch.profiler`` over ``steps`` calls of ``step()``: host wall
     per step, device busy time (sum of kernel self times), its share of
-    the wall, and the kernels that take most of it."""
+    the wall, the kernels that take most of it, and every kernel of the
+    port's own sources (``PORT_KERNELS``)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -823,7 +885,11 @@ def _profile(torch, step, steps):
             "kernels_per_step": sum(k[1] for k in kernels),
             "top_kernels": [{"name": name[:80], "ms_per_step": ms,
                              "calls_per_step": n}
-                            for ms, n, name in kernels[:8]]}
+                            for ms, n, name in kernels[:8]],
+            "port_kernels": [{"name": name[:80], "ms_per_step": ms,
+                              "calls_per_step": n}
+                             for ms, n, name in kernels
+                             if _port_kernel(name)]}
 
 
 def phase_serve(torch, kv):
@@ -1171,13 +1237,17 @@ TRAIN_GRAD_RTOL = 0.05
 ADAM_RTOL = 1e-6
 
 
-def _attn_inputs(torch, b, t, h, d, dtype, bias, gen):
+def _attn_inputs(torch, b, t, h, d, dtype, bias, gen, fused=True):
     """q, k, v as strided views of one fused [B, T, 3, H, D] tensor (as
-    the model's c_attn output gives them), dO, and a key bias with every
-    7th key hard-masked."""
-    qkv = torch.randn((b, t, 3, h, d), generator=gen, device="cuda")
-    qkv = qkv.to(dtype)
-    q, k, v = qkv.unbind(2)
+    the model's c_attn output gives them; with ``fused`` False, three
+    contiguous tensors), dO, and a key bias with every 7th key
+    hard-masked."""
+    if fused:
+        qkv = torch.randn((b, t, 3, h, d), generator=gen, device="cuda")
+        q, k, v = qkv.to(dtype).unbind(2)
+    else:
+        q, k, v = (torch.randn((b, t, h, d), generator=gen,
+                               device="cuda").to(dtype) for _ in range(3))
     g = torch.randn((b, t, h, d), generator=gen, device="cuda").to(dtype)
     kb = None
     if bias:
@@ -1196,9 +1266,10 @@ def _close(torch, got, want, rtol):
     return float(diff.max()), ok
 
 
-def _attn_case(torch, fa, b, t, h, d, dtype, causal, bias, rate, gen):
+def _attn_case(torch, fa, gen, b, t, h, d, dtype, causal, bias, rate,
+               fused=True):
     q, k, v, g, kb = _attn_inputs(torch, b, t, h, d, getattr(torch, dtype),
-                                  bias, gen)
+                                  bias, gen, fused)
     kw = dict(key_bias=kb, causal=causal, dropout_rate=rate,
               dropout_seed=-123456789, dropout_head_offset=HEAD_OFFSET,
               dropout_num_heads=NUM_HEADS)
@@ -1222,7 +1293,7 @@ def _attn_case(torch, fa, b, t, h, d, dtype, causal, bias, rate, gen):
     if bias:
         checks["dbias"] = _close(torch, db, ref_db, TRAIN_RTOL["float32"])
     case = {"B": b, "T": t, "H": h, "D": d, "dtype": dtype,
-            "causal": causal, "bias": bias, "dropout": rate,
+            "causal": causal, "bias": bias, "dropout": rate, "fused": fused,
             "max_abs_err": {n: c[0] for n, c in checks.items()},
             "ok": all(c[1] for c in checks.values())}
     return case
@@ -1230,8 +1301,10 @@ def _attn_case(torch, fa, b, t, h, d, dtype, causal, bias, rate, gen):
 
 def _dropout_bitwise(torch, fa):
     """K1's dropout mask, read back: with q = k = 0 every probability is
-    1/S and v = I (S = D = 64) makes out[t, d] = mult(t, d) / S, so
-    ``out * S`` must equal ``dropout_multiplier`` bit for bit."""
+    1/S and v = I (S = D = 64) makes out[t, d] = mult(t, d) / S, so on
+    f32 inputs ``out * S`` must equal ``dropout_multiplier`` bit for bit.
+    On bf16 inputs (the tensor-core kernel) the zeros of ``out`` must be
+    exactly the dropped keys."""
     b, t, h, s = 2, 128, TRAIN_H, 64
     q = torch.zeros((b, t, h, s), device="cuda")
     k = torch.zeros((b, s, h, s), device="cuda")
@@ -1239,14 +1312,47 @@ def _dropout_bitwise(torch, fa):
         b, s, h, s).contiguous()
     ok = True
     for seed, rate in ((-123456789, 0.1), (7, 0.5), (2 ** 31 - 1, 0.25)):
-        out, _ = fa.flash_attention_fwd(
-            q, k, v, causal=False, dropout_rate=rate, dropout_seed=seed,
-            dropout_head_offset=HEAD_OFFSET, dropout_num_heads=NUM_HEADS)
+        kw = dict(causal=False, dropout_rate=rate, dropout_seed=seed,
+                  dropout_head_offset=HEAD_OFFSET, dropout_num_heads=NUM_HEADS)
+        out, _ = fa.flash_attention_fwd(q, k, v, **kw)
         mult = fa._dropout_multiplier_full(b, h, t, s, rate, seed,
                                            HEAD_OFFSET, NUM_HEADS,
                                            device="cuda")
         ok = ok and bool(torch.equal(out.permute(0, 2, 1, 3) * s, mult))
+        out16, _ = fa.flash_attention_fwd(*(x.bfloat16() for x in (q, k, v)),
+                                          **kw)
+        ok = ok and bool(torch.equal(out16.permute(0, 2, 1, 3) != 0,
+                                     mult != 0))
     return ok
+
+
+def _tile_check(torch, fa):
+    """The tensor-core kernels' TMA loads and wgmma forms on one 64 x N x
+    K bf16 product each, against ``torch.matmul`` in fp32: K-major B
+    (A from shared memory, as S = Q.K^T) and MN-major B (A in registers,
+    as O += P.V), N and K in {64, 128}. bf16 products are exact in fp32,
+    so both sides differ only in the order of K fp32 additions: at most
+    2 K 2^-24 sum_k |a b| per element (each sum's rounding bound)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    results, ok = [], True
+    for mn in (False, True):
+        for n in (64, 128):
+            for kd in (64, 128):
+                a = torch.randn((64, kd), generator=gen,
+                                device="cuda").bfloat16()
+                b = torch.randn((kd, n) if mn else (n, kd), generator=gen,
+                                device="cuda").bfloat16()
+                got = fa.wgmma_tile_product(a, b, mn)
+                bf = b.float() if mn else b.float().T
+                want = a.float() @ bf
+                bound = 2 * kd * 2.0 ** -24 * (a.float().abs() @ bf.abs())
+                err = float((got - want).abs().max())
+                case_ok = bool(((got - want).abs() <= bound).all())
+                results.append({"b_mn_major": mn, "N": n, "K": kd,
+                                "max_abs_err": err, "ok": case_ok})
+                ok = ok and case_ok
+    return results, ok
 
 
 ADAM_SIZES = (1, 3, 517, 4099, 65536 + 5, 300001)
@@ -1314,6 +1420,10 @@ def _adam_check(torch):
 
 def phase_train_kernel_check(torch):
     from deepspeed_tpu_torch.ops import flash_attention as fa
+    tiles, tiles_ok = _tile_check(torch, fa)
+    emit({"phase": "train_kernel_check", "wgmma_tile_check": tiles})
+    if not tiles_ok:
+        fail(f"the wgmma tile product disagrees with torch.matmul: {tiles}")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     grid = [(2, 128, TRAIN_H, 64, dt, c, bias, r)
@@ -1324,10 +1434,11 @@ def phase_train_kernel_check(torch):
              (TRAIN_B, TRAIN_T, TRAIN_H, TRAIN_D, "bfloat16", True, False,
               0.0),
              (2, 1000, TRAIN_H, 128, "bfloat16", True, True, 0.1),
-             (2, 128, TRAIN_H, 128, "float32", False, True, 0.0)]
+             (2, 128, TRAIN_H, 128, "float32", False, True, 0.0),
+             (2, 1000, TRAIN_H, 64, "bfloat16", False, True, 0.1, False)]
     cases = []
     for spec in grid:
-        case = _attn_case(torch, fa, *spec, gen)
+        case = _attn_case(torch, fa, gen, *spec)
         cases.append(case)
         if not case["ok"]:
             emit({"phase": "train_kernel_check", "failed": case})
@@ -1370,8 +1481,8 @@ def _timing_row(torch, kern, plain, flops, nbytes, dtype, lib=None):
     """One kernel's timing row. The bound takes the operations at the
     peak for the inputs' type (bf16 tensor cores for the attention
     kernels), the least time the card could take; ``fp32_ops_ms`` is the
-    same count at the fp32 (CUDA-core) peak, the rate the fp32-FMA
-    attention kernels multiply at."""
+    same count at the fp32 (CUDA-core) peak, the rate K2 (fp32 FMA on
+    every type) multiplies at."""
     ms, paced, _ = _time_ms(torch, kern, 10)
     plain_ms, _, plain_sync = _time_ms(torch, plain, 3)
     t_ops = flops / PEAK_OPS_PER_S[dtype] * 1e3

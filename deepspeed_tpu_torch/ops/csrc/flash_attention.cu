@@ -3,9 +3,11 @@
 //
 // Replaces three Pallas kernels of
 // deepspeed_tpu/ops/pallas/flash_attention.py:
-//   K1 `_pallas_fwd` (kernel :311, pallas_call :391)      -> fwd_kernel
+//   K1 `_pallas_fwd` (kernel :311, pallas_call :391)      -> fwd_wgmma_kernel
+//                                                           (bf16), fwd_kernel
 //   K2 `_pallas_bwd` dq_kernel (:489, pallas_call :545)   -> dq_kernel
-//   K3 `_pallas_bwd` dkv_kernel (:556, pallas_call :655)  -> dkv_kernel
+//   K3 `_pallas_bwd` dkv_kernel (:556, pallas_call :655)  -> dkv_wgmma_kernel
+//                                                           (bf16), dkv_kernel
 // Same functions: causal or not, an optional additive f32 key bias
 // [B, S], in-kernel attention-prob dropout from the counter hash
 // (bit-identical to `dropout_multiplier`, :45) at the global head
@@ -15,32 +17,51 @@
 //
 // What bounds it on the card: operations. Per (b, h) the work is
 // O(T * S * D) against O((T + S) * D) bytes, far above the H100's ridge
-// point, so the kernel must keep the [T, S] tiles on chip, as the TPU
-// kernel keeps them in VMEM: one CTA owns a 64-row Q tile (K1, K2) or a
-// 64-key KV tile (K3), stages the other side's 64-row tiles in shared
-// memory, and never writes a score to device memory. This first version
-// multiplies in fp32 FMA (the TPU kernel's own precision: it widens
-// every operand to f32 before its dots); each thread holds a 4 x 4
-// block of the score tile and a 4 x D/16 block of the accumulator in
-// registers, reading the padded shared tiles without bank conflicts.
-// Tensor-core products (mma.sync / wgmma with TMA) are the next step.
+// point, so a kernel keeps the [T, S] tiles on chip, as the TPU kernel
+// keeps them in VMEM, and never writes a score to device memory.
+//
+// Dispatch on the input type (`flash_attention_launch`):
+// - bf16 K1 and K3 run on the tensor cores (`fwd_wgmma_kernel`,
+//   `dkv_wgmma_kernel`): a producer warp feeds a TMA ring of 128-byte
+//   swizzled tiles in shared memory through mbarriers, and two consumer
+//   warpgroups run every product as bf16 `wgmma` with fp32 accumulation
+//   (helpers in hopper_common.cuh). Q.K^T and dO.V^T of bf16 inputs are
+//   exact products summed in fp32, as the reference's f32 dots. The
+//   products whose left operand is an fp32 intermediate (P.V in K1;
+//   P^T.dO and dS^T.Q in K3) take it as two bf16 register operands,
+//   hi = bf16(x) and lo = bf16(x - hi), into one fp32 accumulator: x to
+//   2^-17, which keeps the reference's f32 precision (one bf16 rounding
+//   of P or dS, as FlashAttention-2/3 make it, would be a precision
+//   change; tests/test_torch_flash_attention_split.py pins why).
+// - K2 on every type, and K1 / K3 on f32 and fp16 inputs, keep the
+//   fp32-FMA kernels: one CTA owns a 64-row Q tile (K1, K2) or a 64-key
+//   KV tile (K3), stages the other side's 64-row tiles in shared memory
+//   as f32, and each thread holds a 4 x 4 block of the score tile and a
+//   4 x D/16 block of the accumulator in registers. TF32 for f32 inputs
+//   would be a precision change; fp16 on the tensor cores needs its own
+//   range argument for the lo term (fp16 subnormals).
 //
 // Causal tiles above the diagonal are skipped (K1/K2 stop at the
 // diagonal tile; K3 starts there). Any T and S: rows and keys past the
-// end are zero-filled on load, excluded from the softmax and never
-// written. q, k, v and dO are read in place as [B, T, H, D] through
-// their strides; outputs are contiguous [B, T, H, D], lse / delta /
+// end are zero-filled on load (by the TMA box itself on the tensor-core
+// path), excluded from the softmax and never written. q, k, v and dO are
+// read in place as [B, T, H, D] through their strides (on the tensor-core
+// path the base address and every stride must be 16-byte aligned, which
+// the wrapper checks); outputs are contiguous [B, T, H, D], lse / delta /
 // dbias [B * H, T or S].
 //
 // Interface: a plain C function (ctypes) taking a struct of 8-byte
 // fields, launched on the caller's stream; it returns the cudaError_t
-// of the launch.
+// of the launch. `wgmma_tile_check` runs one 64 x N x K product through
+// the same TMA loads and wgmma forms, for the card-side check.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "attention_common.cuh"
+#include "hopper_common.cuh"
 
 // The launch parameters: every field 8 bytes wide (mirrored by
 // `_Params` in ops/flash_attention.py). At global scope: the extern "C"
@@ -545,6 +566,844 @@ cudaError_t launch_dim(int which, const AttnParams& p, cudaStream_t st) {
   return launch_typed<T, 8>(which, p, st);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 K1 and K3 on the tensor cores
+// ---------------------------------------------------------------------------
+//
+// A CTA is three warpgroups: warpgroup 0 the producer (one thread issues
+// every TMA load; the warpgroup hands its registers to the others), 1
+// and 2 the consumers, each owning 64 rows of the CTA's 128 (K1: query
+// rows; K3: keys). Tiles are 128-byte-swizzled boxes of [rows x 64 bf16]
+// (hopper_common.cuh); a head dim past 64 takes two boxes side by side,
+// and columns past D are zero-filled by the box. Each mbarrier's n-th
+// completion has parity n & 1.
+
+constexpr int kWg = 128;                 // threads of a warpgroup
+constexpr int kConsumers = 2;            // consumer warpgroups of a CTA
+constexpr int kWgmmaThreads = (kConsumers + 1) * kWg;
+constexpr int kBox128 = 128 * 128;       // bytes of a [128 x 64] bf16 box
+constexpr int kBox64 = 64 * 128;         // bytes of a [64 x 64] bf16 box
+// one CTA an SM: 128 x 24 + 2 x 128 x 240 registers <= 65536
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+
+// the launch's tensor maps, in kernel parameter space
+struct TmaMaps {
+  CUtensorMap q, k, v, g, lse, delta;
+};
+
+// a thread's 2-row accumulator slice (rows pos0 and pos0 + 8): write it,
+// row r scaled by inv[r], as bf16 into a contiguous [B, L, H, D] tensor
+template <int kN>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst,
+                                           const float (&acc)[kN / 2],
+                                           int pos0, const float (&inv)[2],
+                                           int L, int b, int h,
+                                           const AttnParams& p, int cq) {
+  const int H = static_cast<int>(p.H), D = static_cast<int>(p.D);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int pos = pos0 + 8 * r;
+    if (pos >= L) continue;
+    __nv_bfloat16* row =
+        dst + ((static_cast<int64_t>(b) * L + pos) * H + h) * D;
+#pragma unroll
+    for (int c8 = 0; c8 < kN / 8; ++c8) {
+      const int d = 8 * c8 + cq;
+      const float x0 = acc[4 * c8 + 2 * r] * inv[r];
+      const float x1 = acc[4 * c8 + 2 * r + 1] * inv[r];
+      if ((D & 1) == 0 && d + 1 < D) {
+        *reinterpret_cast<__nv_bfloat162*>(row + d) =
+            __floats2bfloat162_rn(x0, x1);
+      } else {
+        if (d < D) row[d] = __float2bfloat16_rn(x0);
+        if (d + 1 < D) row[d + 1] = __float2bfloat16_rn(x1);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// ---- K1 ----------------------------------------------------------------
+// grid (B*H, ceil(T / 128)), the heaviest causal tiles first. The
+// producer loads the CTA's [128 x D] Q tile once, then K and V tiles of
+// 128 keys into a 2-stage ring; one producer thread walks the K tiles and
+// another the V tiles, each stage with its own full and empty barriers,
+// so a K tile is refilled as soon as its product is done. A consumer
+// (64 rows), per K/V tile: S = Q.K^T (wgmma m64n128, A and B from shared
+// memory, K-major); sm_scale, masks, bias and the online softmax in fp32
+// registers; O += P_hi.V + P_lo.V (A = P from registers, B = V MN-major).
+// The two consumers drift apart by a product's length, so one's softmax
+// runs while the other's products do. Every loop over a thread's
+// registers is unrolled, so each variant of the loop body is code: the
+// tile walk is not unrolled further, and dropout is a pass of its own,
+// which keeps the hot loop inside the instruction cache (unrolling two
+// tiles, to overlap S_{j+1} with the softmax of S_j, was slower).
+
+constexpr int kFwdKeys = 128;   // keys of a K / V tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the special-function unit (2 ulp; 0 for -inf)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int kD>
+struct FwdLayout {
+  static constexpr int kRows = 64 * kConsumers;       // query rows of a CTA
+  static constexpr int kTile = (kD / 64) * kBox128;   // Q, or a K/V stage
+  static constexpr int kQ = 0;
+  static constexpr int kK = kTile;                    // 2 stages
+  static constexpr int kV = 3 * kTile;                // 2 stages
+  static constexpr int kBar = 5 * kTile;
+  // barrier slots (8 bytes each) after kBar; 1024 bytes of alignment slack
+  static constexpr int kQFull = 0, kKFull = 1, kVFull = 3, kKEmpty = 5,
+                       kVEmpty = 7;
+  static constexpr int kBytes = kBar + 9 * 8 + 1024;
+};
+
+// what a K1 consumer thread knows about its rows
+struct FwdRows {
+  const AttnParams* p;
+  uint32_t base, bars, q_tile, ghead, seed, thr;
+  int qpos[2], q_lo, cq, S;
+  float sm_scale, inv_keep;
+  const float* bias;          // the batch row's [S] key bias, or null
+
+  __device__ __forceinline__ uint32_t bar(int slot, int s) const {
+    return bars + 8 * (slot + s);
+  }
+  __device__ __forceinline__ void wait_bar(int slot, int s,
+                                           uint32_t par) const {
+    hopper::mbar_wait(bar(slot, s), par);
+  }
+};
+
+// S = Q.K_j^T into sc, asynchronously (the caller commits and waits)
+template <int kD>
+__device__ __forceinline__ void fwd_issue_qk(const FwdRows& c, int j,
+                                             float (&sc)[kFwdKeys / 2]) {
+  using L = FwdLayout<kD>;
+  const int s = j & 1;
+  const uint32_t k_tile = c.base + L::kK + s * L::kTile;
+  c.wait_bar(L::kKFull, s, (j >> 1) & 1);
+  hopper::fence_regs(sc);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kBox128 + (kk % 4) * 32;
+    hopper::wgmma_ss<kFwdKeys>(sc, hopper::smem_desc(c.q_tile + off, 16, 1024),
+                               hopper::smem_desc(k_tile + off, 16, 1024),
+                               kk > 0);
+  }
+  hopper::wgmma_commit();
+}
+
+// S_j (in sc) -> P_j in fp32, in place: scores as the reference forms
+// them (scale, causal mask, then the key bias; keys past S excluded),
+// then the online softmax. Updates the running max m and the per-thread
+// partial sums l; returns in corr the factor O must be rescaled by.
+template <int kD>
+__device__ __forceinline__ void fwd_softmax(const FwdRows& c, int j,
+                                            float (&sc)[kFwdKeys / 2],
+                                            float (&m)[2], float (&l)[2],
+                                            float (&corr)[2]) {
+  constexpr int kS = kFwdKeys / 2;
+  const AttnParams& p = *c.p;
+  const int k0 = j * kFwdKeys;
+  // tiles that need no mask take the short path
+  const bool edge =
+      (p.causal && k0 + kFwdKeys - 1 > c.q_lo) || k0 + kFwdKeys > c.S;
+  float mx[2] = {m[0], m[1]};
+  if (edge || c.bias != nullptr) {
+#pragma unroll
+    for (int c8 = 0; c8 < kS / 4; ++c8) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kpos = k0 + 8 * c8 + c.cq + e;
+        const float kb =
+            (c.bias != nullptr && kpos < c.S) ? __ldg(c.bias + kpos) : 0.0f;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float x = sc[4 * c8 + 2 * r + e] * c.sm_scale;
+          if (edge) {
+            if (p.causal && kpos > c.qpos[r]) x = kMaskValue;
+            x = kpos < c.S ? x + kb : -INFINITY;
+          } else {
+            x += kb;
+          }
+          sc[4 * c8 + 2 * r + e] = x;
+          mx[r] = fmaxf(mx[r], x);
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kS; ++i) {
+      sc[i] *= c.sm_scale;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    }
+  }
+  // tile 0 holds key 0 < S, so every row's running max is finite
+  float mlog[2], ls[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = quad_max(mx[r]);
+    corr[r] = ex2((m[r] - mx[r]) * kLog2e);
+    m[r] = mx[r];
+    mlog[r] = mx[r] * kLog2e;
+  }
+  if (edge) {
+    // a masked score overflows to -inf here: its prob is 0
+#pragma unroll
+    for (int i = 0; i < kS; ++i) {
+      sc[i] = ex2((sc[i] - m[(i >> 1) & 1]) * kLog2e);
+      ls[(i >> 1) & 1] += sc[i];
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kS; ++i) {
+      sc[i] = ex2(fmaf(sc[i], kLog2e, -mlog[(i >> 1) & 1]));
+      ls[(i >> 1) & 1] += sc[i];
+    }
+  }
+  // l sums the undropped probs; P.V takes the dropped ones
+  if (p.dropping) {
+#pragma unroll
+    for (int c8 = 0; c8 < kS / 4; ++c8) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          sc[4 * c8 + 2 * r + e] *=
+              drop_mult(c.seed, c.ghead, c.qpos[r], k0 + 8 * c8 + c.cq + e,
+                        c.thr, c.inv_keep);
+        }
+      }
+    }
+  }
+  // l stays a per-thread partial (corr is the row's, so the quad's
+  // partials add up at the end)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + ls[r];
+}
+
+// O += P_hi.V_j + P_lo.V_j, asynchronously (the caller commits and
+// waits; the fragments stay live until then)
+template <int kD>
+__device__ __forceinline__ void fwd_issue_pv(
+    const FwdRows& c, int j, const uint32_t (&p_hi)[kFwdKeys / 4],
+    const uint32_t (&p_lo)[kFwdKeys / 4], float (&o)[kD / 2]) {
+  using L = FwdLayout<kD>;
+  const int s = j & 1;
+  const uint32_t v_tile = c.base + L::kV + s * L::kTile;
+  c.wait_bar(L::kVFull, s, (j >> 1) & 1);
+  hopper::fence_regs(o);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kFwdKeys / 16; ++kk) {
+    const uint64_t vd = hopper::smem_desc(v_tile + kk * 2048, kBox128, 1024);
+    hopper::wgmma_rs<kD>(o, p_hi + 4 * kk, vd, 1);
+    hopper::wgmma_rs<kD>(o, p_lo + 4 * kk, vd, 1);
+  }
+  hopper::wgmma_commit();
+}
+
+template <int kD>
+__device__ __forceinline__ void rescale(float (&o)[kD / 2],
+                                        const float (&corr)[2]) {
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+}
+
+// one K/V tile: S_j = Q.K_j^T, the softmax into P_j, O += P_j.V_j
+template <int kD>
+__device__ __forceinline__ void fwd_step(const FwdRows& c, int j,
+                                         float (&sc)[kFwdKeys / 2],
+                                         float (&o)[kD / 2], float (&m)[2],
+                                         float (&l)[2]) {
+  using L = FwdLayout<kD>;
+  fwd_issue_qk<kD>(c, j, sc);
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(sc);
+  hopper::mbar_arrive(c.bar(L::kKEmpty, j & 1));
+  float corr[2];
+  fwd_softmax<kD>(c, j, sc, m, l, corr);
+  rescale<kD>(o, corr);
+  uint32_t p_hi[kFwdKeys / 4], p_lo[kFwdKeys / 4];
+  hopper::split_bf16(sc, p_hi, p_lo);
+  hopper::fence_regs(p_hi);
+  hopper::fence_regs(p_lo);
+  fwd_issue_pv<kD>(c, j, p_hi, p_lo, o);
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(o);
+  hopper::mbar_arrive(c.bar(L::kVEmpty, j & 1));
+}
+
+template <int kD>
+__device__ __forceinline__ void fwd_consumer(const AttnParams& p,
+                                             uint32_t base, uint32_t bars,
+                                             int cw, int b, int bh, int q0,
+                                             int n_tiles) {
+  using L = FwdLayout<kD>;
+  constexpr int kS = kFwdKeys / 2;      // score floats a thread
+  const int tid = threadIdx.x % kWg, warp = tid / 32, lane = tid % 32;
+  const int row = cw * 64 + warp * 16 + lane / 4;
+  FwdRows c;
+  c.p = &p;
+  c.base = base;
+  c.bars = bars;
+  c.q_tile = base + L::kQ + cw * 64 * 128;
+  c.ghead = global_head(p, bh);
+  c.seed = static_cast<uint32_t>(p.seed);
+  c.thr = static_cast<uint32_t>(p.keep_threshold);
+  c.qpos[0] = q0 + row;
+  c.qpos[1] = q0 + row + 8;
+  c.q_lo = q0 + cw * 64;                // the warpgroup's first row
+  c.cq = 2 * (lane % 4);
+  c.S = static_cast<int>(p.S);
+  c.sm_scale = static_cast<float>(p.sm_scale);
+  c.inv_keep = static_cast<float>(p.inv_keep);
+  c.bias = p.bias == nullptr ? nullptr
+                           : p.bias + static_cast<int64_t>(b) * c.S;
+  float o[kD / 2], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) o[i] = 0.0f;
+
+  c.wait_bar(L::kQFull, 0, 0);
+  float sc[kS];
+  for (int j = 0; j < n_tiles; ++j) fwd_step<kD>(c, j, sc, o, m, l);
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float l_safe = fmaxf(quad_sum(l[r]), 1e-30f);
+    inv[r] = 1.0f / l_safe;
+    if (lane % 4 == 0 && c.qpos[r] < p.T) {
+      p.lse_out[static_cast<int64_t>(bh) * p.T + c.qpos[r]] =
+          m[r] + logf(l_safe);
+    }
+  }
+  store_rows<kD>(static_cast<__nv_bfloat16*>(p.out), o, c.qpos[0], inv,
+                 static_cast<int>(p.T), b, bh % static_cast<int>(p.H), p,
+                 c.cq);
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
+    fwd_wgmma_kernel(const __grid_constant__ AttnParams p,
+                     const __grid_constant__ TmaMaps maps) {
+  using L = FwdLayout<kD>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = hopper::smem_u32(hopper::align_1024(smem_raw));
+  const uint32_t bars = base + L::kBar;
+  const int H = static_cast<int>(p.H), S = static_cast<int>(p.S);
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * L::kRows;
+  const int k_end = p.causal ? min(S, q0 + L::kRows) : S;
+  const int n_tiles = (k_end + kFwdKeys - 1) / kFwdKeys;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(bars + 8 * L::kQFull, 1);
+    for (int s = 0; s < 2; ++s) {
+      hopper::mbar_init(bars + 8 * (L::kKFull + s), 1);
+      hopper::mbar_init(bars + 8 * (L::kVFull + s), 1);
+      hopper::mbar_init(bars + 8 * (L::kKEmpty + s), kConsumers * kWg);
+      hopper::mbar_init(bars + 8 * (L::kVEmpty + s), kConsumers * kWg);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x < kWg) {
+    hopper::regs_dealloc<kProducerRegs>();
+    // thread 0: Q, then the K tiles; thread 32: the V tiles
+    if (threadIdx.x == 0 || threadIdx.x == 32) {
+      const bool is_k = threadIdx.x == 0;
+      const CUtensorMap* map = is_k ? &maps.k : &maps.v;
+      const int full = is_k ? L::kKFull : L::kVFull;
+      const int empty = is_k ? L::kKEmpty : L::kVEmpty;
+      const int dst = is_k ? L::kK : L::kV;
+      if (is_k) {
+        const uint32_t qf = bars + 8 * L::kQFull;
+        hopper::mbar_expect_tx(qf, L::kTile);
+        for (int i = 0; i < kD / 64; ++i) {
+          hopper::tma_load_4d(base + L::kQ + i * kBox128, &maps.q, qf,
+                              64 * i, h, q0, b);
+        }
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j & 1;
+        if (j >= 2) {
+          hopper::mbar_wait(bars + 8 * (empty + s), ((j >> 1) - 1) & 1);
+        }
+        const uint32_t f = bars + 8 * (full + s);
+        hopper::mbar_expect_tx(f, L::kTile);
+        for (int i = 0; i < kD / 64; ++i) {
+          hopper::tma_load_4d(base + dst + s * L::kTile + i * kBox128, map, f,
+                              64 * i, h, j * kFwdKeys, b);
+        }
+      }
+    }
+  } else {
+    hopper::regs_alloc<kConsumerRegs>();
+    fwd_consumer<kD>(p, base, bars, threadIdx.x / kWg - 1, b, bh, q0,
+                     n_tiles);
+  }
+}
+
+// ---- K3 ----------------------------------------------------------------
+// grid (B*H, ceil(S / 128)); causal: low keys see most rows, so they
+// start first. The producer loads the CTA's K and V tiles (128 keys)
+// once, then Q and dO tiles of 64 rows with their lse and delta into a
+// 2-stage ring. A consumer (64 keys), per Q tile: S^T = K.Q^T and
+// dP^T = V.dO^T (wgmma m64n64, A and B from shared memory, K-major);
+// P, dS0 and the dbias partial in fp32 registers (dbias before any
+// rounding); dV += (P mult)^T.dO and dK += (dS0 sm_scale)^T.Q as hi/lo
+// pairs (A from registers, B = dO or Q MN-major).
+
+constexpr int kDkvRows = 64;    // query rows of a Q / dO tile
+
+template <int kD>
+struct DkvLayout {
+  static constexpr int kKeys = 64 * kConsumers;    // keys of a CTA
+  static constexpr int kKV = (kD / 64) * kBox128;   // K or V
+  static constexpr int kQT = (kD / 64) * kBox64;    // a Q or dO stage
+  static constexpr int kK = 0;
+  static constexpr int kV = kKV;
+  static constexpr int kQ = 2 * kKV;                // 2 stages
+  static constexpr int kG = kQ + 2 * kQT;           // 2 stages
+  static constexpr int kLse = kG + 2 * kQT;         // 2 stages of 64 f32
+  static constexpr int kDelta = kLse + 2 * 256;
+  static constexpr int kBar = kDelta + 2 * 256;
+  // kv_full, full[2], empty[2]; 1024 bytes of alignment slack
+  static constexpr int kBytes = kBar + 5 * 8 + 1024;
+};
+
+template <int kD>
+__device__ __forceinline__ void dkv_consumer(const AttnParams& p,
+                                             const uint8_t* smem,
+                                             uint32_t base, uint32_t bars,
+                                             int cw, int b, int h, int bh,
+                                             int k0, int q_start) {
+  using L = DkvLayout<kD>;
+  const int tid = threadIdx.x % kWg, warp = tid / 32, lane = tid % 32;
+  const int k_lo = k0 + cw * 64;        // the warpgroup's first key
+  const int krow = k_lo + warp * 16 + lane / 4;
+  const int kpos[2] = {krow, krow + 8};
+  const int cq = 2 * (lane % 4);
+  const int Tq = static_cast<int>(p.T), S = static_cast<int>(p.S);
+  const float sm_scale = static_cast<float>(p.sm_scale);
+  const float inv_keep = static_cast<float>(p.inv_keep);
+  const uint32_t ghead = global_head(p, bh);
+  const uint32_t seed = static_cast<uint32_t>(p.seed);
+  const uint32_t thr = static_cast<uint32_t>(p.keep_threshold);
+  float kbias[2], dbias[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    kbias[r] = (p.bias != nullptr && kpos[r] < S)
+                   ? p.bias[static_cast<int64_t>(b) * S + kpos[r]]
+                   : 0.0f;
+  }
+  float dk[kD / 2], dv[kD / 2];
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) dk[i] = dv[i] = 0.0f;
+  const uint32_t k_tile = base + L::kK + cw * 64 * 128;
+  const uint32_t v_tile = base + L::kV + cw * 64 * 128;
+  hopper::mbar_wait(bars, 0);
+  int it = 0;
+  for (int q0 = q_start; q0 < Tq; q0 += kDkvRows, ++it) {
+    const int s = it & 1;
+    const uint32_t par = (it >> 1) & 1;
+    const uint32_t q_tile = base + L::kQ + s * L::kQT;
+    const uint32_t g_tile = base + L::kG + s * L::kQT;
+    const float* lse_s =
+        reinterpret_cast<const float*>(smem + L::kLse + s * 256);
+    const float* delta_s =
+        reinterpret_cast<const float*>(smem + L::kDelta + s * 256);
+    float st[kDkvRows / 2], dpt[kDkvRows / 2];
+    hopper::mbar_wait(bars + 8 * (1 + s), par);
+    hopper::fence_regs(st);
+    hopper::fence_regs(dpt);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      const uint32_t oa = (kk / 4) * kBox128 + (kk % 4) * 32;
+      const uint32_t ob = (kk / 4) * kBox64 + (kk % 4) * 32;
+      hopper::wgmma_ss<kDkvRows>(st, hopper::smem_desc(k_tile + oa, 16, 1024),
+                                 hopper::smem_desc(q_tile + ob, 16, 1024),
+                                 kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      const uint32_t oa = (kk / 4) * kBox128 + (kk % 4) * 32;
+      const uint32_t ob = (kk / 4) * kBox64 + (kk % 4) * 32;
+      hopper::wgmma_ss<kDkvRows>(dpt,
+                                 hopper::smem_desc(v_tile + oa, 16, 1024),
+                                 hopper::smem_desc(g_tile + ob, 16, 1024),
+                                 kk > 0);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(st);
+    hopper::fence_regs(dpt);
+
+    // rows are keys, columns queries: st becomes P mult, dpt dS0 sm_scale.
+    // A tile with no causal mask, no row or key past the end and no
+    // dropout takes the short path.
+    const bool edge = (p.causal && k_lo + 63 > q0) ||
+                      q0 + kDkvRows > Tq || k_lo + 64 > S;
+    if (!edge && !p.dropping) {
+#pragma unroll
+      for (int c8 = 0; c8 < kDkvRows / 8; ++c8) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * c8 + cq + e;
+          const float lse_log = lse_s[c] * kLog2e, delta = delta_s[c];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int i = 4 * c8 + 2 * r + e;
+            const float x = st[i] * sm_scale + kbias[r];
+            const float pr = ex2(fmaf(x, kLog2e, -lse_log));
+            const float ds0 = pr * (dpt[i] - delta);
+            dbias[r] += ds0;
+            st[i] = pr;
+            dpt[i] = ds0 * sm_scale;
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int c8 = 0; c8 < kDkvRows / 8; ++c8) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * c8 + cq + e;
+          const int qpos = q0 + c;
+          const float lse = lse_s[c], delta = delta_s[c];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int i = 4 * c8 + 2 * r + e;
+            float pd = 0.0f, ds = 0.0f;
+            if (qpos < Tq && kpos[r] < S) {
+              float x = st[i] * sm_scale;
+              if (p.causal && kpos[r] > qpos) x = kMaskValue;
+              x += kbias[r];
+              // a masked score overflows to -inf here: its prob is 0
+              const float pr = ex2((x - lse) * kLog2e);
+              float mult = 1.0f;
+              if (p.dropping) {
+                mult = drop_mult(seed, ghead, qpos, kpos[r], thr, inv_keep);
+              }
+              pd = pr * mult;
+              const float ds0 = pr * (dpt[i] * mult - delta);
+              dbias[r] += ds0;
+              ds = ds0 * sm_scale;
+            }
+            st[i] = pd;
+            dpt[i] = ds;
+          }
+        }
+      }
+    }
+    uint32_t p_hi[kDkvRows / 4], p_lo[kDkvRows / 4];
+    uint32_t s_hi[kDkvRows / 4], s_lo[kDkvRows / 4];
+    hopper::split_bf16(st, p_hi, p_lo);
+    hopper::split_bf16(dpt, s_hi, s_lo);
+    hopper::fence_regs(dv);
+    hopper::fence_regs(dk);
+    hopper::fence_regs(p_hi);
+    hopper::fence_regs(p_lo);
+    hopper::fence_regs(s_hi);
+    hopper::fence_regs(s_lo);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kDkvRows / 16; ++kk) {
+      const uint64_t gd = hopper::smem_desc(g_tile + kk * 2048, kBox64, 1024);
+      hopper::wgmma_rs<kD>(dv, p_hi + 4 * kk, gd, 1);
+      hopper::wgmma_rs<kD>(dv, p_lo + 4 * kk, gd, 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kDkvRows / 16; ++kk) {
+      const uint64_t qd = hopper::smem_desc(q_tile + kk * 2048, kBox64, 1024);
+      hopper::wgmma_rs<kD>(dk, s_hi + 4 * kk, qd, 1);
+      hopper::wgmma_rs<kD>(dk, s_lo + 4 * kk, qd, 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dv);
+    hopper::fence_regs(dk);
+    hopper::mbar_arrive(bars + 8 * (3 + s));
+  }
+  const float one[2] = {1.0f, 1.0f};
+  store_rows<kD>(static_cast<__nv_bfloat16*>(p.dk), dk, kpos[0], one, S, b,
+                 h, p, cq);
+  store_rows<kD>(static_cast<__nv_bfloat16*>(p.dv), dv, kpos[0], one, S, b,
+                 h, p, cq);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float db = quad_sum(dbias[r]);
+    if (p.dbias != nullptr && lane % 4 == 0 && kpos[r] < S) {
+      p.dbias[static_cast<int64_t>(bh) * S + kpos[r]] = db;
+    }
+  }
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
+    dkv_wgmma_kernel(const __grid_constant__ AttnParams p,
+                     const __grid_constant__ TmaMaps maps) {
+  using L = DkvLayout<kD>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align_1024(smem_raw);
+  const uint32_t base = hopper::smem_u32(smem);
+  const uint32_t bars = base + L::kBar;
+  const int H = static_cast<int>(p.H), Tq = static_cast<int>(p.T);
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  const int k0 = blockIdx.y * L::kKeys;
+  // Q tiles strictly above the diagonal see nothing of these keys
+  const int q_start = p.causal ? k0 : 0;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(bars, 1);
+    for (int s = 0; s < 2; ++s) {
+      hopper::mbar_init(bars + 8 * (1 + s), 1);
+      hopper::mbar_init(bars + 8 * (3 + s), kConsumers * kWg);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x < kWg) {
+    hopper::regs_dealloc<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      hopper::mbar_expect_tx(bars, 2 * L::kKV);
+      for (int i = 0; i < kD / 64; ++i) {
+        hopper::tma_load_4d(base + L::kK + i * kBox128, &maps.k, bars,
+                            64 * i, h, k0, b);
+        hopper::tma_load_4d(base + L::kV + i * kBox128, &maps.v, bars,
+                            64 * i, h, k0, b);
+      }
+      int it = 0;
+      for (int q0 = q_start; q0 < Tq; q0 += kDkvRows, ++it) {
+        const int s = it & 1;
+        if (it >= 2) {
+          hopper::mbar_wait(bars + 8 * (3 + s), ((it >> 1) - 1) & 1);
+        }
+        const uint32_t full = bars + 8 * (1 + s);
+        hopper::mbar_expect_tx(full, 2 * L::kQT + 2 * 256);
+        for (int i = 0; i < kD / 64; ++i) {
+          hopper::tma_load_4d(base + L::kQ + s * L::kQT + i * kBox64, &maps.q,
+                              full, 64 * i, h, q0, b);
+          hopper::tma_load_4d(base + L::kG + s * L::kQT + i * kBox64, &maps.g,
+                              full, 64 * i, h, q0, b);
+        }
+        hopper::tma_load_1d(base + L::kLse + s * 256, &maps.lse, full,
+                            bh * Tq + q0);
+        hopper::tma_load_1d(base + L::kDelta + s * 256, &maps.delta, full,
+                            bh * Tq + q0);
+      }
+    }
+  } else {
+    hopper::regs_alloc<kConsumerRegs>();
+    dkv_consumer<kD>(p, smem, base, bars, threadIdx.x / kWg - 1, b, h, bh,
+                     k0, q_start);
+  }
+}
+
+// the map of a [B, L, H, D] bf16 tensor read in [rows x 64] boxes:
+// dims {D, H, L, B}
+cudaError_t bf16_map(CUtensorMap* map, const void* ptr, const AttnParams& p,
+                     int64_t len, int64_t sb, int64_t sl, int64_t sh,
+                     int rows) {
+  const uint64_t dims[4] = {static_cast<uint64_t>(p.D),
+                            static_cast<uint64_t>(p.H),
+                            static_cast<uint64_t>(len),
+                            static_cast<uint64_t>(p.B)};
+  const int64_t strides[3] = {sh, sl, sb};
+  const uint32_t box[4] = {64, 1, static_cast<uint32_t>(rows), 1};
+  return hopper::make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, 4,
+                          dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// the map of a contiguous f32 [B * H, T] row statistic, flat, in boxes of
+// 64 (a box that runs past a row's end reads the next row: those queries
+// are masked)
+cudaError_t stat_map(CUtensorMap* map, const float* ptr, const AttnParams& p) {
+  const uint64_t n = static_cast<uint64_t>(p.B * p.H * p.T);
+  const uint32_t box[1] = {kDkvRows};
+  return hopper::make_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ptr, 1, &n,
+                          nullptr, box, CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
+template <int kD>
+cudaError_t launch_wgmma(int which, const AttnParams& p, cudaStream_t st) {
+  TmaMaps maps;
+  memset(&maps, 0, sizeof(maps));
+  const unsigned bh = static_cast<unsigned>(p.B * p.H);
+  cudaError_t err;
+  if (which == 0) {
+    using L = FwdLayout<kD>;
+    if ((err = bf16_map(&maps.q, p.q, p, p.T, p.q_sb, p.q_st, p.q_sh,
+                        L::kRows)) != cudaSuccess ||
+        (err = bf16_map(&maps.k, p.k, p, p.S, p.k_sb, p.k_st, p.k_sh,
+                        kFwdKeys)) != cudaSuccess ||
+        (err = bf16_map(&maps.v, p.v, p, p.S, p.v_sb, p.v_st, p.v_sh,
+                        kFwdKeys)) != cudaSuccess) {
+      return err;
+    }
+    err = cudaFuncSetAttribute(fwd_wgmma_kernel<kD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               L::kBytes);
+    if (err != cudaSuccess) return err;
+    const unsigned nq = static_cast<unsigned>((p.T + L::kRows - 1) / L::kRows);
+    fwd_wgmma_kernel<kD>
+        <<<dim3(bh, nq), kWgmmaThreads, L::kBytes, st>>>(p, maps);
+  } else {
+    using L = DkvLayout<kD>;
+    if ((err = bf16_map(&maps.q, p.q, p, p.T, p.q_sb, p.q_st, p.q_sh,
+                        kDkvRows)) != cudaSuccess ||
+        (err = bf16_map(&maps.g, p.g, p, p.T, p.g_sb, p.g_st, p.g_sh,
+                        kDkvRows)) != cudaSuccess ||
+        (err = bf16_map(&maps.k, p.k, p, p.S, p.k_sb, p.k_st, p.k_sh,
+                        L::kKeys)) != cudaSuccess ||
+        (err = bf16_map(&maps.v, p.v, p, p.S, p.v_sb, p.v_st, p.v_sh,
+                        L::kKeys)) != cudaSuccess ||
+        (err = stat_map(&maps.lse, p.lse, p)) != cudaSuccess ||
+        (err = stat_map(&maps.delta, p.delta, p)) != cudaSuccess) {
+      return err;
+    }
+    err = cudaFuncSetAttribute(dkv_wgmma_kernel<kD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               L::kBytes);
+    if (err != cudaSuccess) return err;
+    const unsigned nk = static_cast<unsigned>((p.S + L::kKeys - 1) / L::kKeys);
+    dkv_wgmma_kernel<kD>
+        <<<dim3(bh, nk), kWgmmaThreads, L::kBytes, st>>>(p, maps);
+  }
+  return cudaGetLastError();
+}
+
+// ---- the tile check ------------------------------------------------------
+// C[64 x N] = A[64 x K] B through the kernels' TMA loads and wgmma forms:
+// B K-major ([N, K] row-major: C = A B^T; A from shared memory, as
+// S = Q.K^T) or MN-major ([K, N] row-major: C = A B; A in registers
+// in the accumulator's fragment order, as O += P.V).
+
+template <int kN, int kK, bool kMN>
+__global__ void __launch_bounds__(kWg)
+    tile_check_kernel(const __grid_constant__ CUtensorMap map_a,
+                      const __grid_constant__ CUtensorMap map_b,
+                      const __nv_bfloat16* a, float* c) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = hopper::smem_u32(hopper::align_1024(smem_raw));
+  const uint32_t a_tile = base;                    // K/64 boxes [64 x 64]
+  const uint32_t b_tile = base + kK * 128;         // boxes of 128-byte rows
+  const uint32_t bar = b_tile + kN * kK * 2;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row = warp * 16 + lane / 4, cq = 2 * (lane % 4);
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(bar, 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    hopper::mbar_expect_tx(bar, (kMN ? 0 : 64 * kK * 2) + kN * kK * 2);
+    if (!kMN) {
+      for (int i = 0; i < kK / 64; ++i) {
+        hopper::tma_load_2d(a_tile + i * kBox64, &map_a, bar, 64 * i, 0);
+        hopper::tma_load_2d(b_tile + i * kN * 128, &map_b, bar, 64 * i, 0);
+      }
+    } else {
+      for (int i = 0; i < kN / 64; ++i) {
+        hopper::tma_load_2d(b_tile + i * kK * 128, &map_b, bar, 64 * i, 0);
+      }
+    }
+  }
+  hopper::mbar_wait(bar, 0);
+  float acc[kN / 2];
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) acc[i] = 0.0f;
+  if constexpr (!kMN) {
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kK / 16; ++kk) {
+      const uint32_t oa = (kk / 4) * kBox64 + (kk % 4) * 32;
+      const uint32_t ob = (kk / 4) * kN * 128 + (kk % 4) * 32;
+      hopper::wgmma_ss<kN>(acc, hopper::smem_desc(a_tile + oa, 16, 1024),
+                           hopper::smem_desc(b_tile + ob, 16, 1024), 1);
+    }
+  } else {
+    uint32_t frag[kK / 4];
+    const uint32_t* a32 = reinterpret_cast<const uint32_t*>(a);
+#pragma unroll
+    for (int kk = 0; kk < kK / 16; ++kk) {
+      const int col = 16 * kk + cq;
+      frag[4 * kk + 0] = a32[(row * kK + col) / 2];
+      frag[4 * kk + 1] = a32[((row + 8) * kK + col) / 2];
+      frag[4 * kk + 2] = a32[(row * kK + col + 8) / 2];
+      frag[4 * kk + 3] = a32[((row + 8) * kK + col + 8) / 2];
+    }
+    hopper::fence_regs(acc);
+    hopper::fence_regs(frag);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kK / 16; ++kk) {
+      hopper::wgmma_rs<kN>(acc, frag + 4 * kk,
+                           hopper::smem_desc(b_tile + kk * 2048, kK * 128,
+                                             1024),
+                           1);
+    }
+  }
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
+#pragma unroll
+  for (int c8 = 0; c8 < kN / 8; ++c8) {
+    const int col = 8 * c8 + cq;
+    c[row * kN + col] = acc[4 * c8];
+    c[row * kN + col + 1] = acc[4 * c8 + 1];
+    c[(row + 8) * kN + col] = acc[4 * c8 + 2];
+    c[(row + 8) * kN + col + 1] = acc[4 * c8 + 3];
+  }
+}
+
+template <int kN, int kK, bool kMN>
+cudaError_t launch_tile_check(const void* a, const void* b, float* c,
+                              cudaStream_t st) {
+  CUtensorMap map_a, map_b;
+  memset(&map_a, 0, sizeof(map_a));
+  const uint64_t dims_a[2] = {kK, 64};
+  const int64_t stride_a[1] = {kK};
+  const uint32_t box_a[2] = {64, 64};
+  cudaError_t err = hopper::make_map(&map_a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                                     2, a, 2, dims_a, stride_a, box_a,
+                                     CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  // K-major B [N, K]: boxes [N rows x 64]; MN-major B [K, N]: [K x 64]
+  const uint64_t dims_b[2] = {kMN ? kN : kK, kMN ? kK : kN};
+  const int64_t stride_b[1] = {kMN ? kN : kK};
+  const uint32_t box_b[2] = {64, kMN ? kK : kN};
+  err = hopper::make_map(&map_b, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, b, 2,
+                         dims_b, stride_b, box_b, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  const int bytes = kK * 128 + kN * kK * 2 + 8 + 1024;
+  err = cudaFuncSetAttribute(tile_check_kernel<kN, kK, kMN>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err != cudaSuccess) return err;
+  tile_check_kernel<kN, kK, kMN><<<1, kWg, bytes, st>>>(
+      map_a, map_b, static_cast<const __nv_bfloat16*>(a), c);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int flash_attention_launch(int which, const AttnParams* p,
@@ -557,9 +1416,42 @@ extern "C" int flash_attention_launch(int which, const AttnParams* p,
   cudaError_t err;
   switch (dtype) {
     case kF32: err = launch_dim<float>(which, *p, st); break;
-    case kBF16: err = launch_dim<__nv_bfloat16>(which, *p, st); break;
+    case kBF16:
+      // K1 and K3 on the tensor cores; K2 stays on the fp32-FMA kernel
+      if (which == 1) {
+        err = launch_dim<__nv_bfloat16>(which, *p, st);
+      } else if (which == 0 || which == 2) {
+        err = p->D <= 64 ? launch_wgmma<64>(which, *p, st)
+                         : launch_wgmma<128>(which, *p, st);
+      } else {
+        err = cudaErrorInvalidValue;
+      }
+      break;
     case kF16: err = launch_dim<__half>(which, *p, st); break;
     default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// C f32 [64, n] = a bf16 [64, k] times b bf16 ([n, k] when b_mn_major is
+// 0, C = a b^T; [k, n] when 1, C = a b), all contiguous; n, k in {64, 128}
+extern "C" int wgmma_tile_check(const void* a, const void* b, float* c, int n,
+                                int k, int b_mn_major, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int key = (n == 128) * 4 + (k == 128) * 2 + (b_mn_major != 0);
+  if ((n != 64 && n != 128) || (k != 64 && k != 128)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err;
+  switch (key) {
+    case 0: err = launch_tile_check<64, 64, false>(a, b, c, st); break;
+    case 1: err = launch_tile_check<64, 64, true>(a, b, c, st); break;
+    case 2: err = launch_tile_check<64, 128, false>(a, b, c, st); break;
+    case 3: err = launch_tile_check<64, 128, true>(a, b, c, st); break;
+    case 4: err = launch_tile_check<128, 64, false>(a, b, c, st); break;
+    case 5: err = launch_tile_check<128, 64, true>(a, b, c, st); break;
+    case 6: err = launch_tile_check<128, 128, false>(a, b, c, st); break;
+    default: err = launch_tile_check<128, 128, true>(a, b, c, st); break;
   }
   return static_cast<int>(err);
 }

@@ -16,6 +16,15 @@ kernels become three hand-written ``sm_90a`` CUDA kernels in
 Each wrapper runs its plain PyTorch version on CPU tensors and launches
 its kernel on CUDA tensors (a build or launch failure raises; there is
 no fallback), and counts kernel launches in ``.launches``.
+
+The kernel a CUDA call takes depends on the input type: bf16 K1 and K3
+run on Hopper's tensor cores (TMA-fed ``wgmma``, fp32 accumulation, the
+fp32 intermediates P and dS as a bf16 hi + lo pair, so they compute
+what the reference's f32 dots compute); K2, and f32 and fp16 inputs to
+K1 and K3, run the fp32-FMA kernels. The tensor-core kernels read their
+inputs through TMA tensor maps, which need a 16-byte-aligned base
+address and 16-byte-aligned strides (:func:`tma_violation`); a bf16
+input that breaks the rule raises rather than taking another kernel.
 :func:`flash_attention` is the public, differentiable entry
 (a ``torch.autograd.Function``); ``delta`` and the head-sum of the
 dbias partials are plain torch ops, as the JAX code leaves them to XLA.
@@ -55,6 +64,10 @@ _FOLD = 0x7F4A7C15
 BLOCK = 64
 MAX_HEAD_DIM = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# K1 (0) and K3 (2) run on the tensor cores for bf16 inputs, reading
+# them through TMA tensor maps
+_TENSOR_CORE_KERNELS = (0, 2)
+TMA_ALIGN = 16      # bytes: a tensor map's base address and strides
 
 
 # ---------------------------------------------------------------------------
@@ -444,6 +457,9 @@ def _library():
         ctypes.c_int, ctypes.POINTER(_Params), ctypes.c_int,
         ctypes.c_void_p]
     lib.flash_attention_launch.restype = ctypes.c_int
+    lib.wgmma_tile_check.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.wgmma_tile_check.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -451,6 +467,39 @@ def _library():
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def tma_violation(shape, strides, itemsize, address):
+    """Why the tensor-core kernels' TMA tensor maps cannot read a tensor,
+    or None when they can. ``shape`` / ``strides`` (in elements) of a
+    ``[B, L, H, D]`` input, its ``itemsize`` and the ``address`` of its
+    first element. The rule: the last dim is contiguous, the address is
+    a multiple of :data:`TMA_ALIGN` bytes, and so is the stride in bytes
+    of every other dim longer than 1 (a dim of extent 1 is never
+    stepped). A fused ``[B, T, 3, H, D]`` bf16 view meets it whenever
+    ``H * D`` is a multiple of 8."""
+    if strides[-1] != 1:
+        return f"the last dim is not contiguous (strides {tuple(strides)})"
+    if address % TMA_ALIGN:
+        return (f"the address is {address % TMA_ALIGN} bytes off a "
+                f"{TMA_ALIGN}-byte boundary")
+    for dim, (n, st) in enumerate(zip(shape[:-1], strides[:-1])):
+        if n > 1 and (st * itemsize) % TMA_ALIGN:
+            return (f"dim {dim}'s stride is {st * itemsize} bytes, not a "
+                    f"multiple of {TMA_ALIGN}")
+    return None
+
+
+def _check_tma(**tensors):
+    for name, t in tensors.items():
+        why = tma_violation(tuple(t.shape), t.stride(), t.element_size(),
+                            t.data_ptr())
+        if why is not None:
+            raise ValueError(
+                f"flash_attention: {t.dtype} {name} cannot be read by the "
+                f"tensor-core kernels' TMA tensor maps: {why}. Their rule: "
+                f"a {TMA_ALIGN}-byte-aligned base address and strides "
+                f"(e.g. .contiguous())")
 
 
 def _launch(which, q, k, v, g, lse, delta, kw, out=None, lse_out=None,
@@ -477,6 +526,10 @@ def _launch(which, q, k, v, g, lse, delta, kw, out=None, lse_out=None,
             raise ValueError(f"flash_attention: {name} must be contiguous "
                              f"f32 [B*H, T], got {t.dtype} "
                              f"{tuple(t.shape)}")
+    if q.dtype == torch.bfloat16 and which in _TENSOR_CORE_KERNELS:
+        # lse and delta are read flat, in boxes of 64 values
+        _check_tma(q=q, k=k, v=v, **({} if g is None else dict(
+            g=g, lse=lse.reshape(-1), delta=delta.reshape(-1))))
     bias = kw["key_bias"]
     if bias is not None:
         bias = bias.to(torch.float32).contiguous()
@@ -508,6 +561,39 @@ def _launch(which, q, k, v, g, lse, delta, kw, out=None, lse_out=None,
         msg = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(f"flash_attention kernel {which} launch "
                            f"failed: {msg}")
+
+
+def wgmma_tile_product(a, b, b_mn_major):
+    """One 64 x N x K bf16 product through the tensor-core kernels' TMA
+    loads and ``wgmma`` forms (``wgmma_tile_check`` in
+    ops/csrc/flash_attention.cu), f32 ``[64, N]``: ``a @ b.T`` for a
+    K-major ``b`` ``[N, K]`` (A from shared memory, as S = Q.K^T) or
+    ``a @ b`` for an MN-major ``b`` ``[K, N]`` (A from registers, as
+    O += P.V). ``a`` ``[64, K]``; N and K 64 or 128; contiguous bf16.
+    A check of the building blocks, not a kernel of the model."""
+    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
+        raise TypeError("wgmma_tile_product takes bf16 operands")
+    k = a.shape[1]
+    n = b.shape[1] if b_mn_major else b.shape[0]
+    want_b = (k, n) if b_mn_major else (n, k)
+    if a.shape[0] != 64 or tuple(b.shape) != want_b or \
+            n not in (64, 128) or k not in (64, 128):
+        raise ValueError(f"wgmma_tile_product: a {tuple(a.shape)}, b "
+                         f"{tuple(b.shape)} (mn_major={b_mn_major})")
+    a, b = a.contiguous(), b.contiguous()
+    if a.device.type == "cpu":
+        bf = b.float() if b_mn_major else b.float().T
+        return a.float() @ bf
+    lib = _library()
+    c = torch.empty((64, n), dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.wgmma_tile_check(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                                   n, k, int(bool(b_mn_major)), stream)
+    if err != 0:
+        raise RuntimeError("wgmma_tile_check launch failed: "
+                           + lib.flash_attention_error_string(err).decode())
+    return c
 
 
 # ---------------------------------------------------------------------------

@@ -6,9 +6,10 @@ harness in ``tests/conftest.py`` out of the run:
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -m cuda -q
 
 ``chip_smoke.py`` runs the full-width matrix; these are the small,
-fast cases (flash decode K5/K6, flash attention K1-K3, fused Adam K4,
-block-sparse attention K7/K8). Tolerance atol 1e-5 on f32 outputs of magnitude ~1: both
-sides accumulate in fp32, in a different order.
+fast cases (flash decode K5/K6, flash attention K1-K3 with the bf16
+tensor-core K1/K3 and their wgmma tile check, fused Adam K4,
+block-sparse attention K7/K8). Tolerance atol 1e-5 on f32 outputs of
+magnitude ~1: both sides accumulate in fp32, in a different order.
 """
 
 import importlib
@@ -174,6 +175,88 @@ def test_flash_attention_kernels_match_plain_versions(cuda, causal, bias,
             assert got is None
             continue
         torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+
+
+# bf16 K1 and K3 run on the tensor cores (TMA-fed wgmma, P and dS as a
+# bf16 hi + lo pair): held to their plain versions at chip_smoke.py's gate
+# (one unit in bf16's last place plus 1e-5 of the largest value).
+
+def _bf16_attn_inputs(cuda, b, t, h, d, fused, seed):
+    rng = np.random.default_rng(seed)
+    if fused:
+        qkv = torch.from_numpy(rng.standard_normal((b, t, 3, h, d)).astype(
+            np.float32)).to(cuda, torch.bfloat16)
+        q, k, v = qkv.unbind(2)
+    else:
+        q, k, v = (torch.from_numpy(rng.standard_normal((b, t, h, d)).astype(
+            np.float32)).to(cuda, torch.bfloat16) for _ in range(3))
+    g = torch.from_numpy(rng.standard_normal((b, t, h, d)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    kb = torch.from_numpy(rng.standard_normal((b, t)).astype(
+        np.float32)).to(cuda)
+    return q, k, v, g, kb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,d,fused,causal", [(1000, 128, True, True),
+                                              (1000, 64, False, False),
+                                              (200, 40, True, True)])
+def test_bf16_tensor_core_kernels_match_plain_versions(cuda, t, d, fused,
+                                                       causal):
+    import chip_smoke
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    q, k, v, g, kb = _bf16_attn_inputs(cuda, 2, t, 4, d, fused, 5)
+    kw = dict(key_bias=kb, causal=causal, dropout_rate=0.1,
+              dropout_seed=-77, dropout_head_offset=2, dropout_num_heads=5)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    want_out, want_lse = fa.flash_attention_fwd_reference(q, k, v, **kw)
+    delta = (g.float() * want_out.float()).sum(-1).permute(0, 2, 1) \
+        .reshape(2 * 4, t).contiguous()
+    dk, dv, db = fa.flash_attention_bwd_dkv(q, k, v, g, want_lse, delta, **kw)
+    want = fa.flash_attention_bwd_dkv_reference(q, k, v, g, want_lse, delta,
+                                                **kw)
+    rtol = chip_smoke.TRAIN_RTOL
+    for got, ref, tol in [(out, want_out, rtol["bfloat16"]),
+                          (lse, want_lse, rtol["float32"]),
+                          (dk, want[0], rtol["bfloat16"]),
+                          (dv, want[1], rtol["bfloat16"]),
+                          (db, want[2], rtol["float32"])]:
+        err, ok = chip_smoke._close(torch, got, ref, tol)
+        assert ok, err
+
+
+@pytest.mark.cuda
+def test_bf16_view_off_the_tma_alignment_raises(cuda):
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    n = 2 * 64 * 4 * 64
+    base = torch.zeros(n + 8, dtype=torch.bfloat16, device=cuda)
+    q = base[1:1 + n].view(2, 64, 4, 64)
+    k = v = torch.zeros((2, 64, 4, 64), dtype=torch.bfloat16, device=cuda)
+    before = fa.flash_attention_fwd.launches
+    with pytest.raises(ValueError, match="TMA"):
+        fa.flash_attention_fwd(q, k, v)
+    assert fa.flash_attention_fwd.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mn_major", [False, True])
+@pytest.mark.parametrize("n,kd", [(64, 64), (64, 128), (128, 64),
+                                  (128, 128)])
+def test_wgmma_tile_product_matches_matmul(cuda, mn_major, n, kd):
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    rng = np.random.default_rng(6)
+    a = torch.from_numpy(rng.standard_normal((64, kd)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    b = torch.from_numpy(rng.standard_normal(
+        (kd, n) if mn_major else (n, kd)).astype(np.float32)).to(
+            cuda, torch.bfloat16)
+    got = fa.wgmma_tile_product(a, b, mn_major)
+    bf = (b if mn_major else b.T).float().cpu()
+    want = a.float().cpu() @ bf
+    # exact bf16 products; two orders of kd fp32 additions, each within
+    # kd 2^-24 sum |a b| of the exact sum
+    bound = 2 * kd * 2.0 ** -24 * (a.float().cpu().abs() @ bf.abs())
+    assert ((got.cpu() - want).abs() <= bound).all()
 
 
 @pytest.mark.cuda
