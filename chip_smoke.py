@@ -17,7 +17,8 @@ Phases, each printing one JSON line:
    csrc`` (one ``nvcc`` per source, all started together); seconds, the
    ``ptxas`` register/shared-memory report, and the count of ``HGMMA``
    (wgmma) and ``UTMALDG`` (TMA load) instructions in the SASS of the
-   bf16 K1 and K3 functions (head dim 64 and 128): no ``HGMMA`` fails.
+   bf16 K1, K2 and K3 functions (head dim 64 and 128): no ``HGMMA``
+   fails.
 3. ``kernel_check`` — the CUDA ``flash_decode`` against
    ``flash_decode_reference`` on the card: B=8, S=512, H=12/D=64 and
    H=16/D=96 (plus H=4/D=256), positions {0, 63, 127, 128, 300, 511}
@@ -31,7 +32,10 @@ Phases, each printing one JSON line:
    queries; per storage dtype, table entries past each row's occupancy
    pointed at a poisoned trash page and then at an out-of-range id
    (both bitwise equal to the clean run), and K6 over an in-order table
-   against K5 over the same bytes laid out as a ring (bitwise).
+   against K5 over the same bytes laid out as a ring (bitwise; a gate);
+   then per storage dtype the same three checks at positions on the
+   kernels' 128-key chunk edges (127, 128, 255, 256, 511), rows live in
+   chunk 0 only, a negative position and one past S.
 5. ``kernel_timing`` — median CUDA-event time per call of the kernel,
    of its plain version and of ``F.scaled_dot_product_attention`` on
    the bf16 cache (a yardstick only; the port never calls it), against
@@ -72,10 +76,12 @@ Phases, each printing one JSON line:
    MN-major B, N and K 64 and 128) against ``torch.matmul`` in fp32;
    then flash attention K1 (out, lse), K2 (dq) and K3 (dk, dv, dbias
    partials) against their plain versions on the card: B 2-8, T
-   128/1000/1024, H 16, D 64 and 128, bf16 (K1 and K3 on the tensor
-   cores) and f32, causal and not, with and without a key bias, dropout
-   0 and 0.1 at a nonzero head offset, q/k/v as views of one fused
-   tensor and once as three tensors; the K1 dropout mask read back
+   128/1000/1024, H 16, D 64 and 128, bf16 (on the tensor cores) and
+   f32, causal and not, with and without a key bias, dropout 0 and 0.1
+   at a nonzero head offset, q/k/v as views of one fused tensor and
+   once as three tensors; bf16 off TMA's rule (D 36, and views one
+   element into their storage) on the FMA kernels; every case checks
+   the route each kernel took; the K1 dropout mask read back
    bitwise against ``dropout_multiplier`` (f32; on bf16 its zeros);
    fused Adam K4 against its plain version over 3 steps and a skipped
    one, both modes, leaves of odd sizes.
@@ -94,7 +100,8 @@ Phases, each printing one JSON line:
    profiler window. Then 3 steps with gradient_accumulation_steps 2
    from the same params, once with flash and once with dense attention.
    Checks: finite, falling loss; K1, K2, K3 launched n_layer times per
-   micro-batch and K4 once per step; flash and dense losses within a
+   micro-batch, every launch on the tensor-core route, and K4 once per
+   step; flash and dense losses within a
    bf16 tolerance at every step, and their first micro-batch's c_attn
    weight gradients (the q, k and v rows) within a relative tolerance.
 
@@ -162,6 +169,10 @@ N_LAYER = 12
 PAGE_SIZE, PAGES_PER_ROW = 128, 4       # the paged engine's auto geometry
 N_PAGES = B * PAGES_PER_ROW + 1         # ... and its auto pool (+ trash)
 PAGED_FIXED_POSITIONS = (0, 127, 128, 255, 300, 511)
+# the decode kernels' 128-key chunks: last / first keys of a chunk, rows
+# whose live keys all fall in chunk 0, a negative position (zeros) and
+# one past S (every slot admitted)
+CHUNK_EDGE_POSITIONS = (127, 128, 255, 256, 511, 60, -1, 900)
 OUT_OF_RANGE_PAGE = 10 ** 9
 SYSTEM_PROMPT = 256
 
@@ -192,9 +203,10 @@ def phase_device(torch):
     return smi
 
 
-# the bf16 K1 / K3 instantiations (head dim 64 and 128) and the SASS
+# the bf16 K1 / K2 / K3 instantiations (head dim 64 and 128) and the SASS
 # instructions that show they run on the tensor cores and are fed by TMA
-TENSOR_CORE_FUNCTIONS = ("fwd_wgmma_kernel", "dkv_wgmma_kernel")
+TENSOR_CORE_FUNCTIONS = ("fwd_wgmma_kernel", "dq_wgmma_kernel",
+                         "dkv_wgmma_kernel")
 SASS_OPS = ("HGMMA", "UTMALDG")
 
 
@@ -540,14 +552,16 @@ def _paged_poison_check(torch, kern, q, k, v, pos, table, ks, vs, clean):
     return same
 
 
-def _ring_equivalence(torch, paged_kern, ring_kern, storage, h, d, gen, rng):
+def _ring_equivalence(torch, paged_kern, ring_kern, storage, h, d, gen, rng,
+                      pos=None):
     """K6 over an in-order table onto the bytes of a ring cache against
     K5 over that ring: (bitwise equal, max abs err)."""
     k, ks = _cache(torch, storage, (B, S, h, d), gen)
     v, vs = _cache(torch, storage, (B, S, h, d), gen)
     q = torch.randn((B, 1, h, d), generator=gen, device="cuda").to(
         torch.bfloat16)
-    pos = _paged_positions(torch, rng)
+    if pos is None:
+        pos = _paged_positions(torch, rng)
     pool = (B * PAGES_PER_ROW, PAGE_SIZE, h, d)
     table = torch.arange(B * PAGES_PER_ROW, dtype=torch.int32,
                          device="cuda").reshape(B, PAGES_PER_ROW)
@@ -605,12 +619,50 @@ def phase_paged_kernel_check(torch):
                         _ring_equivalence(torch, flash_decode_paged,
                                           flash_decode, storage, h, d, gen,
                                           rng)
-                    ok = ok and case["poison_bitwise"]
+                    ok = ok and case["poison_bitwise"] and \
+                        case["ring_bitwise"]
                 cases.append(case)
                 if not ok:
                     emit({"phase": "paged_kernel_check", "failed": case})
                     fail(f"flash_decode_paged disagrees with its plain "
                          f"version: {case}")
+    # chunk edges, per storage: K6 against its plain version, the
+    # poisoned tail, and K5 over the same bytes as a ring (bitwise)
+    edges = torch.tensor(CHUNK_EDGE_POSITIONS, dtype=torch.int32,
+                         device="cuda")
+    h, d = 12, 64
+    for storage in STORAGES:
+        shape = (n_pages, PAGE_SIZE, h, d)
+        k, ks = _cache(torch, storage, shape, gen)
+        v, vs = _cache(torch, storage, shape, gen)
+        q = torch.randn((B, 1, h, d), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        table = _shuffled_table(torch, rng, B, n_pages)
+        scales = (ks, vs) if ks is not None else ()
+        out = flash_decode_paged(q, k, v, edges, table, *scales,
+                                 block_k=SERVE_BLOCK_K)
+        ref = flash_decode_paged_reference(q, k, v, edges, table, *scales,
+                                           block_k=SERVE_BLOCK_K)
+        torch.cuda.synchronize()
+        diff = (out.float() - ref.float()).abs()
+        ok = bool(torch.isfinite(out.float()).all()) and bool(
+            (diff <= ATOL + RTOL["bfloat16"] * ref.float().abs()).all())
+        err = float(diff.max())
+        worst = max(worst, err)
+        case = {"B": B, "H": h, "D": d, "storage": storage, "q": "bfloat16",
+                "positions": list(CHUNK_EDGE_POSITIONS), "max_abs_err": err,
+                "atol": ATOL, "rtol": RTOL["bfloat16"],
+                "poison_bitwise": _paged_poison_check(
+                    torch, flash_decode_paged, q, k, v, edges, table, ks, vs,
+                    out)}
+        case["ring_bitwise"], case["ring_max_abs_err"] = _ring_equivalence(
+            torch, flash_decode_paged, flash_decode, storage, h, d, gen, rng,
+            edges)
+        case["ok"] = ok and case["poison_bitwise"] and case["ring_bitwise"]
+        cases.append(case)
+        if not case["ok"]:
+            emit({"phase": "paged_kernel_check", "failed": case})
+            fail(f"flash_decode_paged at the chunk edges: {case}")
     ring = [c for c in cases if "ring_bitwise" in c]
     emit({"phase": "paged_kernel_check", "cases": len(cases),
           "max_abs_err": worst, "page_size": PAGE_SIZE,
@@ -849,7 +901,8 @@ def _profile_decode(torch, engine, first=8, steps=10):
 # the __global__ functions of ops/csrc/*.cu, all in an anonymous
 # namespace at file scope
 PORT_KERNELS = ("fwd_kernel", "dq_kernel", "dkv_kernel", "fwd_wgmma_kernel",
-                "dkv_wgmma_kernel", "adam_kernel", "flash_decode_kernel")
+                "dq_wgmma_kernel", "dkv_wgmma_kernel", "adam_kernel",
+                "flash_decode_kernel")
 
 
 def _port_kernel(name):
@@ -1237,18 +1290,30 @@ TRAIN_GRAD_RTOL = 0.05
 ADAM_RTOL = 1e-6
 
 
+def _off_by_one(torch, x):
+    """``x`` copied into a view one element into its storage (2 bytes off
+    a 16-byte boundary for bf16)."""
+    base = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = base[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
 def _attn_inputs(torch, b, t, h, d, dtype, bias, gen, fused=True):
     """q, k, v as strided views of one fused [B, T, 3, H, D] tensor (as
     the model's c_attn output gives them; with ``fused`` False, three
-    contiguous tensors), dO, and a key bias with every 7th key
+    contiguous tensors; with ``fused`` "misaligned", q, k, v and dO each
+    one element into its storage), dO, and a key bias with every 7th key
     hard-masked."""
-    if fused:
+    if fused is True:
         qkv = torch.randn((b, t, 3, h, d), generator=gen, device="cuda")
         q, k, v = qkv.to(dtype).unbind(2)
     else:
         q, k, v = (torch.randn((b, t, h, d), generator=gen,
                                device="cuda").to(dtype) for _ in range(3))
     g = torch.randn((b, t, h, d), generator=gen, device="cuda").to(dtype)
+    if fused == "misaligned":
+        q, k, v, g = (_off_by_one(torch, x) for x in (q, k, v, g))
     kb = None
     if bias:
         from deepspeed_tpu_torch.ops.flash_attention import MASK_BIAS
@@ -1266,13 +1331,34 @@ def _close(torch, got, want, rtol):
     return float(diff.max()), ok
 
 
+def _routes(fa):
+    """{K: {route: launches}} of the three attention wrappers."""
+    return {key: dict(w.routes) for key, w in (
+        ("K1", fa.flash_attention_fwd), ("K2", fa.flash_attention_bwd_dq),
+        ("K3", fa.flash_attention_bwd_dkv))}
+
+
+def _route_taken(before, after):
+    """{K: the one route launched between two ``_routes`` readings}."""
+    taken = {}
+    for key in before:
+        moved = [r for r in before[key] if after[key][r] != before[key][r]]
+        taken[key] = moved[0] if len(moved) == 1 else moved
+    return taken
+
+
 def _attn_case(torch, fa, gen, b, t, h, d, dtype, causal, bias, rate,
                fused=True):
+    """K1, K2, K3 against their plain versions on one input set; the case
+    also records the route each kernel took and the route the rule
+    names: bf16 with 16-byte rows on an aligned base takes the tensor
+    cores, anything else the FMA kernels."""
     q, k, v, g, kb = _attn_inputs(torch, b, t, h, d, getattr(torch, dtype),
                                   bias, gen, fused)
     kw = dict(key_bias=kb, causal=causal, dropout_rate=rate,
               dropout_seed=-123456789, dropout_head_offset=HEAD_OFFSET,
               dropout_num_heads=NUM_HEADS)
+    routes_before = _routes(fa)
     out, lse = fa.flash_attention_fwd(q, k, v, **kw)
     ref_out, ref_lse = fa.flash_attention_fwd_reference(q, k, v, **kw)
     delta = (g.float() * ref_out.float()).sum(-1).permute(0, 2, 1) \
@@ -1284,6 +1370,9 @@ def _attn_case(torch, fa, gen, b, t, h, d, dtype, causal, bias, rate,
     ref_dk, ref_dv, ref_db = fa.flash_attention_bwd_dkv_reference(
         q, k, v, g, ref_lse, delta, **kw)
     torch.cuda.synchronize()
+    taken = _route_taken(routes_before, _routes(fa))
+    want_route = "tensor_core" if (dtype == "bfloat16" and d % 8 == 0 and
+                                   fused != "misaligned") else "fma"
     rtol = TRAIN_RTOL[dtype]
     checks = {"out": _close(torch, out, ref_out, rtol),
               "lse": _close(torch, lse, ref_lse, TRAIN_RTOL["float32"]),
@@ -1294,8 +1383,10 @@ def _attn_case(torch, fa, gen, b, t, h, d, dtype, causal, bias, rate,
         checks["dbias"] = _close(torch, db, ref_db, TRAIN_RTOL["float32"])
     case = {"B": b, "T": t, "H": h, "D": d, "dtype": dtype,
             "causal": causal, "bias": bias, "dropout": rate, "fused": fused,
+            "routes": taken, "want_route": want_route,
             "max_abs_err": {n: c[0] for n, c in checks.items()},
-            "ok": all(c[1] for c in checks.values())}
+            "ok": all(c[1] for c in checks.values()) and all(
+                r == want_route for r in taken.values())}
     return case
 
 
@@ -1435,7 +1526,15 @@ def phase_train_kernel_check(torch):
               0.0),
              (2, 1000, TRAIN_H, 128, "bfloat16", True, True, 0.1),
              (2, 128, TRAIN_H, 128, "float32", False, True, 0.0),
-             (2, 1000, TRAIN_H, 64, "bfloat16", False, True, 0.1, False)]
+             (2, 1000, TRAIN_H, 64, "bfloat16", False, True, 0.1, False),
+             # off TMA's rule: the FMA kernels (72-byte rows; a view 2
+             # bytes off its boundary)
+             (2, 1000, TRAIN_H, 36, "bfloat16", True, True, 0.1),
+             (2, 100, 4, 36, "bfloat16", False, False, 0.0, False),
+             (2, 1000, TRAIN_H, 64, "bfloat16", True, True, 0.1,
+              "misaligned"),
+             (2, 128, TRAIN_H, 128, "bfloat16", False, False, 0.0,
+              "misaligned")]
     cases = []
     for spec in grid:
         case = _attn_case(torch, fa, gen, *spec)
@@ -1667,12 +1766,16 @@ def phase_train(torch):
     torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
         c.launches = 0
+        if hasattr(c, "routes"):
+            c.routes = dict.fromkeys(c.routes, 0)
     losses, walls = [], []
     for _ in range(TRAIN_WARMUP + TRAIN_STEPS):
         t0 = time.perf_counter()
         losses.append(float(engine.train_batch(batch)))
         walls.append(time.perf_counter() - t0)
     launches = {n: c.launches for n, c in counters.items()}
+    routes = {n: dict(c.routes) for n, c in counters.items()
+              if hasattr(c, "routes")}
     steps = TRAIN_WARMUP + TRAIN_STEPS
     peak = torch.cuda.max_memory_allocated()
     timed = walls[TRAIN_WARMUP:]
@@ -1706,7 +1809,7 @@ def phase_train(torch):
            "model_flops_per_token": fpt,
            "mfu": tps * fpt / BF16_PEAK_FLOPS,
            "max_memory_allocated": peak, "launches": launches,
-           "steps": steps, "profile": profile,
+           "routes": routes, "steps": steps, "profile": profile,
            "accum2_losses": accum_losses, "accum2_launches": accum_launches,
            "dense_accum2_losses": dense_losses,
            "dense_accum2_max_memory_allocated": dense_peak,
@@ -1721,6 +1824,10 @@ def phase_train(torch):
             "K3": TRAIN_LAYERS * steps, "K4": steps}
     if launches != want:
         fail(f"kernel launches {launches} != {want} over {steps} steps")
+    tensor_core = {key: routes[key]["tensor_core"] for key in routes}
+    if any(tensor_core[key] != want[key] for key in tensor_core):
+        fail(f"attention launches by route {routes}: every bf16 launch of "
+             f"the main path must take the tensor cores ({want})")
     want2 = {"K1": 2 * TRAIN_LAYERS * 3, "K2": 2 * TRAIN_LAYERS * 3,
              "K3": 2 * TRAIN_LAYERS * 3, "K4": 3}
     if accum_launches != want2 or not all(np.isfinite(accum_losses)):

@@ -3,11 +3,12 @@
 //
 // Replaces three Pallas kernels of
 // deepspeed_tpu/ops/pallas/flash_attention.py:
-//   K1 `_pallas_fwd` (kernel :311, pallas_call :391)      -> fwd_wgmma_kernel
-//                                                           (bf16), fwd_kernel
-//   K2 `_pallas_bwd` dq_kernel (:489, pallas_call :545)   -> dq_kernel
-//   K3 `_pallas_bwd` dkv_kernel (:556, pallas_call :655)  -> dkv_wgmma_kernel
-//                                                           (bf16), dkv_kernel
+//   K1 `_pallas_fwd` (kernel :311, pallas_call :391)      -> fwd_wgmma_kernel,
+//                                                           fwd_kernel
+//   K2 `_pallas_bwd` dq_kernel (:489, pallas_call :545)   -> dq_wgmma_kernel,
+//                                                           dq_kernel
+//   K3 `_pallas_bwd` dkv_kernel (:556, pallas_call :655)  -> dkv_wgmma_kernel,
+//                                                           dkv_kernel
 // Same functions: causal or not, an optional additive f32 key bias
 // [B, S], in-kernel attention-prob dropout from the counter hash
 // (bit-identical to `dropout_multiplier`, :45) at the global head
@@ -20,35 +21,40 @@
 // point, so a kernel keeps the [T, S] tiles on chip, as the TPU kernel
 // keeps them in VMEM, and never writes a score to device memory.
 //
-// Dispatch on the input type (`flash_attention_launch`):
-// - bf16 K1 and K3 run on the tensor cores (`fwd_wgmma_kernel`,
-//   `dkv_wgmma_kernel`): a producer warp feeds a TMA ring of 128-byte
-//   swizzled tiles in shared memory through mbarriers, and two consumer
-//   warpgroups run every product as bf16 `wgmma` with fp32 accumulation
-//   (helpers in hopper_common.cuh). Q.K^T and dO.V^T of bf16 inputs are
-//   exact products summed in fp32, as the reference's f32 dots. The
-//   products whose left operand is an fp32 intermediate (P.V in K1;
-//   P^T.dO and dS^T.Q in K3) take it as two bf16 register operands,
-//   hi = bf16(x) and lo = bf16(x - hi), into one fp32 accumulator: x to
-//   2^-17, which keeps the reference's f32 precision (one bf16 rounding
-//   of P or dS, as FlashAttention-2/3 make it, would be a precision
-//   change; tests/test_torch_flash_attention_split.py pins why).
-// - K2 on every type, and K1 / K3 on f32 and fp16 inputs, keep the
-//   fp32-FMA kernels: one CTA owns a 64-row Q tile (K1, K2) or a 64-key
-//   KV tile (K3), stages the other side's 64-row tiles in shared memory
-//   as f32, and each thread holds a 4 x 4 block of the score tile and a
-//   4 x D/16 block of the accumulator in registers. TF32 for f32 inputs
-//   would be a precision change; fp16 on the tensor cores needs its own
-//   range argument for the lo term (fp16 subnormals).
+// Two routes, chosen by the caller for each call (`AttnParams.
+// tensor_core`; the wrapper decides it from the inputs, as the reference
+// dispatches on shape, :794) and never switched here:
+// - Tensor cores, for bf16 inputs that meet TMA's rule (16-byte-aligned
+//   base addresses and strides): `fwd_wgmma_kernel` (K1),
+//   `dq_wgmma_kernel` (K2), `dkv_wgmma_kernel` (K3). A producer warp
+//   feeds a TMA ring of 128-byte swizzled tiles in shared memory through
+//   mbarriers, and two consumer warpgroups run every product as bf16
+//   `wgmma` with fp32 accumulation (helpers in hopper_common.cuh).
+//   Q.K^T and dO.V^T of bf16 inputs are exact products summed in fp32,
+//   as the reference's f32 dots. The products whose left operand is an
+//   fp32 intermediate (P.V in K1; dS.K in K2; P^T.dO and dS^T.Q in K3)
+//   take it as two bf16 register operands, hi = bf16(x) and lo = bf16(x
+//   - hi), into one fp32 accumulator: x to 2^-17, which keeps the
+//   reference's f32 precision (one bf16 rounding of P or dS, as
+//   FlashAttention-2/3 make it, would be a precision change;
+//   tests/test_torch_flash_attention_split.py pins why). A tensor-core
+//   launch on inputs that break the rule is refused.
+// - FMA, for f32 and fp16 inputs and for bf16 inputs off TMA's rule (a
+//   head dim whose rows are not a multiple of 16 bytes, a view a few
+//   elements into its storage): `fwd_kernel`, `dq_kernel`, `dkv_kernel`.
+//   One CTA owns a 64-row Q tile (K1, K2) or a 64-key KV tile (K3),
+//   stages the other side's 64-row tiles in shared memory as f32, and
+//   each thread holds a 4 x 4 block of the score tile and a 4 x D/16
+//   block of the accumulator in registers. TF32 for f32 inputs would be
+//   a precision change; fp16 on the tensor cores needs its own range
+//   argument for the lo term (fp16 subnormals).
 //
 // Causal tiles above the diagonal are skipped (K1/K2 stop at the
 // diagonal tile; K3 starts there). Any T and S: rows and keys past the
 // end are zero-filled on load (by the TMA box itself on the tensor-core
-// path), excluded from the softmax and never written. q, k, v and dO are
-// read in place as [B, T, H, D] through their strides (on the tensor-core
-// path the base address and every stride must be 16-byte aligned, which
-// the wrapper checks); outputs are contiguous [B, T, H, D], lse / delta /
-// dbias [B * H, T or S].
+// route), excluded from the softmax and never written. q, k, v and dO are
+// read in place as [B, T, H, D] through their strides; outputs are
+// contiguous [B, T, H, D], lse / delta / dbias [B * H, T or S].
 //
 // Interface: a plain C function (ctypes) taking a struct of 8-byte
 // fields, launched on the caller's stream; it returns the cudaError_t
@@ -82,6 +88,7 @@ struct AttnParams {
   float* dbias;           // [B*H, S] (K3, with a bias)
   int64_t B, T, S, H, D, causal, dropping, seed, head_offset, num_heads,
       keep_threshold;
+  int64_t tensor_core;    // the route: 1 tensor-core kernels, 0 FMA kernels
   int64_t q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh;
   int64_t g_sb, g_st, g_sh;
   double sm_scale, inv_keep;
@@ -567,13 +574,13 @@ cudaError_t launch_dim(int which, const AttnParams& p, cudaStream_t st) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 K1 and K3 on the tensor cores
+// bf16 K1, K2 and K3 on the tensor cores
 // ---------------------------------------------------------------------------
 //
 // A CTA is three warpgroups: warpgroup 0 the producer (one thread issues
 // every TMA load; the warpgroup hands its registers to the others), 1
-// and 2 the consumers, each owning 64 rows of the CTA's 128 (K1: query
-// rows; K3: keys). Tiles are 128-byte-swizzled boxes of [rows x 64 bf16]
+// and 2 the consumers, each owning 64 rows of the CTA's 128 (K1, K2:
+// query rows; K3: keys). Tiles are 128-byte-swizzled boxes of [rows x 64 bf16]
 // (hopper_common.cuh); a head dim past 64 takes two boxes side by side,
 // and columns past D are zero-filled by the box. Each mbarrier's n-th
 // completion has parity n & 1.
@@ -1217,6 +1224,269 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1)
   }
 }
 
+// ---- K2 ----------------------------------------------------------------
+// grid (B*H, ceil(T / 128)), the heaviest causal tiles first (K1's CTA
+// shape). The producer loads the CTA's [128 x D] Q and dO tiles and
+// their 128 lse and delta values once, then K and V tiles of 64 keys
+// into a 2-stage ring: one producer thread walks the K tiles and another
+// the V tiles, each stage with its own full and empty barriers. A
+// consumer (64 query rows), per K/V tile: S = Q.K_j^T and dP = dO.V_j^T
+// (wgmma m64n64, A and B from shared memory, K-major), which frees the V
+// stage; in fp32 registers dP mult (dropout, a pass of its own), then
+// P = exp(S sm_scale [mask] + bias - lse) and dS = P (dP mult - delta)
+// sm_scale (K3's arithmetic); dQ += dS_hi.K_j + dS_lo.K_j (A from
+// registers, B = the same K tile read MN-major, so K is loaded once for
+// both of its products), which frees the K stage. 64-key tiles keep S,
+// dP, the hi/lo pair and dQ (32 + 32 + 32 + kD/2 floats a thread) inside
+// the consumer's 240 registers. Causal: a consumer stops at its own
+// diagonal tile, so the first consumer may skip the CTA's last tile; no
+// refill ever waits for that tile's release.
+
+constexpr int kDqKeys = 64;     // keys of a K / V tile
+
+template <int kD>
+struct DqLayout {
+  static constexpr int kRows = 64 * kConsumers;     // query rows of a CTA
+  static constexpr int kQT = (kD / 64) * kBox128;   // Q or dO
+  static constexpr int kKT = (kD / 64) * kBox64;    // a K or V stage
+  static constexpr int kQ = 0;
+  static constexpr int kG = kQT;
+  static constexpr int kK = 2 * kQT;                // 2 stages
+  static constexpr int kV = kK + 2 * kKT;           // 2 stages
+  static constexpr int kLse = kV + 2 * kKT;         // kRows f32
+  static constexpr int kDelta = kLse + 4 * kRows;   // kRows f32
+  static constexpr int kBar = kDelta + 4 * kRows;
+  // barrier slots (8 bytes each) after kBar; 1024 bytes of alignment slack
+  static constexpr int kQFull = 0, kKFull = 1, kVFull = 3, kKEmpty = 5,
+                       kVEmpty = 7;
+  static constexpr int kBytes = kBar + 9 * 8 + 1024;
+};
+
+template <int kD>
+__device__ __forceinline__ void dq_consumer(const AttnParams& p,
+                                            const uint8_t* smem,
+                                            uint32_t base, uint32_t bars,
+                                            int cw, int b, int h, int bh,
+                                            int q0, int n_tiles) {
+  using L = DqLayout<kD>;
+  constexpr int kS = kDqKeys / 2;       // score floats a thread
+  const int tid = threadIdx.x % kWg, warp = tid / 32, lane = tid % 32;
+  const int row = cw * 64 + warp * 16 + lane / 4;   // of the CTA's rows
+  const int qpos[2] = {q0 + row, q0 + row + 8};
+  const int q_lo = q0 + cw * 64;        // the warpgroup's first row
+  const int cq = 2 * (lane % 4);
+  const int Tq = static_cast<int>(p.T), S = static_cast<int>(p.S);
+  const float sm_scale = static_cast<float>(p.sm_scale);
+  const float inv_keep = static_cast<float>(p.inv_keep);
+  const uint32_t ghead = global_head(p, bh);
+  const uint32_t seed = static_cast<uint32_t>(p.seed);
+  const uint32_t thr = static_cast<uint32_t>(p.keep_threshold);
+  const float* bias =
+      p.bias == nullptr ? nullptr : p.bias + static_cast<int64_t>(b) * S;
+  const uint32_t q_tile = base + L::kQ + cw * 64 * 128;
+  const uint32_t g_tile = base + L::kG + cw * 64 * 128;
+  hopper::mbar_wait(bars + 8 * L::kQFull, 0);
+  // rows past T read the next head's statistics (or zeros past the
+  // end): their dS is masked to 0 and their dQ is never written
+  const float* lse_s = reinterpret_cast<const float*>(smem + L::kLse);
+  const float* delta_s = reinterpret_cast<const float*>(smem + L::kDelta);
+  float lse[2], lse_log[2], delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lse[r] = lse_s[row + 8 * r];
+    lse_log[r] = lse[r] * kLog2e;
+    delta[r] = delta_s[row + 8 * r];
+  }
+  float dq[kD / 2];
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) dq[i] = 0.0f;
+  const int k_end = p.causal ? min(S, q_lo + 64) : S;
+  const int my_tiles = min(n_tiles, (k_end + kDqKeys - 1) / kDqKeys);
+  for (int j = 0; j < my_tiles; ++j) {
+    const int s = j & 1;
+    const uint32_t par = (j >> 1) & 1;
+    const uint32_t k_tile = base + L::kK + s * L::kKT;
+    const uint32_t v_tile = base + L::kV + s * L::kKT;
+    const int k0 = j * kDqKeys;
+    float sc[kS], dp[kS];
+    hopper::mbar_wait(bars + 8 * (L::kKFull + s), par);
+    hopper::mbar_wait(bars + 8 * (L::kVFull + s), par);
+    hopper::fence_regs(sc);
+    hopper::fence_regs(dp);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      const uint32_t oa = (kk / 4) * kBox128 + (kk % 4) * 32;
+      const uint32_t ob = (kk / 4) * kBox64 + (kk % 4) * 32;
+      hopper::wgmma_ss<kDqKeys>(sc, hopper::smem_desc(q_tile + oa, 16, 1024),
+                                hopper::smem_desc(k_tile + ob, 16, 1024),
+                                kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      const uint32_t oa = (kk / 4) * kBox128 + (kk % 4) * 32;
+      const uint32_t ob = (kk / 4) * kBox64 + (kk % 4) * 32;
+      hopper::wgmma_ss<kDqKeys>(dp, hopper::smem_desc(g_tile + oa, 16, 1024),
+                                hopper::smem_desc(v_tile + ob, 16, 1024),
+                                kk > 0);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+    hopper::fence_regs(dp);
+    hopper::mbar_arrive(bars + 8 * (L::kVEmpty + s));
+
+    if (p.dropping) {
+#pragma unroll
+      for (int c8 = 0; c8 < kS / 4; ++c8) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            dp[4 * c8 + 2 * r + e] *=
+                drop_mult(seed, ghead, qpos[r], k0 + 8 * c8 + cq + e, thr,
+                          inv_keep);
+          }
+        }
+      }
+    }
+    // sc becomes dS. A tile with no causal mask and no row or key past
+    // the end takes the short path.
+    const bool edge = (p.causal && k0 + kDqKeys - 1 > q_lo) ||
+                      k0 + kDqKeys > S || q_lo + 64 > Tq;
+    if (!edge) {
+#pragma unroll
+      for (int c8 = 0; c8 < kS / 4; ++c8) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kpos = k0 + 8 * c8 + cq + e;
+          const float kb = bias != nullptr ? __ldg(bias + kpos) : 0.0f;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int i = 4 * c8 + 2 * r + e;
+            const float x = sc[i] * sm_scale + kb;
+            const float pr = ex2(fmaf(x, kLog2e, -lse_log[r]));
+            sc[i] = pr * (dp[i] - delta[r]) * sm_scale;
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int c8 = 0; c8 < kS / 4; ++c8) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kpos = k0 + 8 * c8 + cq + e;
+          const float kb =
+              (bias != nullptr && kpos < S) ? __ldg(bias + kpos) : 0.0f;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int i = 4 * c8 + 2 * r + e;
+            float ds = 0.0f;
+            if (qpos[r] < Tq && kpos < S) {
+              float x = sc[i] * sm_scale;
+              if (p.causal && kpos > qpos[r]) x = kMaskValue;
+              x += kb;
+              // a masked score overflows to -inf here: its prob is 0
+              const float pr = ex2((x - lse[r]) * kLog2e);
+              ds = pr * (dp[i] - delta[r]) * sm_scale;
+            }
+            sc[i] = ds;
+          }
+        }
+      }
+    }
+    uint32_t s_hi[kS / 2], s_lo[kS / 2];
+    hopper::split_bf16(sc, s_hi, s_lo);
+    hopper::fence_regs(dq);
+    hopper::fence_regs(s_hi);
+    hopper::fence_regs(s_lo);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kDqKeys / 16; ++kk) {
+      const uint64_t kd = hopper::smem_desc(k_tile + kk * 2048, kBox64, 1024);
+      hopper::wgmma_rs<kD>(dq, s_hi + 4 * kk, kd, 1);
+      hopper::wgmma_rs<kD>(dq, s_lo + 4 * kk, kd, 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dq);
+    hopper::mbar_arrive(bars + 8 * (L::kKEmpty + s));
+  }
+  const float one[2] = {1.0f, 1.0f};
+  store_rows<kD>(static_cast<__nv_bfloat16*>(p.dq), dq, qpos[0], one, Tq, b,
+                 h, p, cq);
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
+    dq_wgmma_kernel(const __grid_constant__ AttnParams p,
+                    const __grid_constant__ TmaMaps maps) {
+  using L = DqLayout<kD>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align_1024(smem_raw);
+  const uint32_t base = hopper::smem_u32(smem);
+  const uint32_t bars = base + L::kBar;
+  const int H = static_cast<int>(p.H), S = static_cast<int>(p.S);
+  const int Tq = static_cast<int>(p.T);
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * L::kRows;
+  const int k_end = p.causal ? min(S, q0 + L::kRows) : S;
+  const int n_tiles = (k_end + kDqKeys - 1) / kDqKeys;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(bars + 8 * L::kQFull, 1);
+    for (int s = 0; s < 2; ++s) {
+      hopper::mbar_init(bars + 8 * (L::kKFull + s), 1);
+      hopper::mbar_init(bars + 8 * (L::kVFull + s), 1);
+      hopper::mbar_init(bars + 8 * (L::kKEmpty + s), kConsumers * kWg);
+      hopper::mbar_init(bars + 8 * (L::kVEmpty + s), kConsumers * kWg);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x < kWg) {
+    hopper::regs_dealloc<kProducerRegs>();
+    // thread 0: Q, dO, lse and delta, then the K tiles; thread 32: the V
+    // tiles. A refill of tile j waits for the release of tile j - 2,
+    // which both consumers read (each reads a prefix of the tiles, and
+    // the two prefixes differ by at most the last tile).
+    if (threadIdx.x == 0 || threadIdx.x == 32) {
+      const bool is_k = threadIdx.x == 0;
+      const CUtensorMap* map = is_k ? &maps.k : &maps.v;
+      const int full = is_k ? L::kKFull : L::kVFull;
+      const int empty = is_k ? L::kKEmpty : L::kVEmpty;
+      const int dst = is_k ? L::kK : L::kV;
+      if (is_k) {
+        const uint32_t qf = bars + 8 * L::kQFull;
+        hopper::mbar_expect_tx(qf, 2 * L::kQT + 8 * L::kRows);
+        for (int i = 0; i < kD / 64; ++i) {
+          hopper::tma_load_4d(base + L::kQ + i * kBox128, &maps.q, qf,
+                              64 * i, h, q0, b);
+          hopper::tma_load_4d(base + L::kG + i * kBox128, &maps.g, qf,
+                              64 * i, h, q0, b);
+        }
+        hopper::tma_load_1d(base + L::kLse, &maps.lse, qf, bh * Tq + q0);
+        hopper::tma_load_1d(base + L::kDelta, &maps.delta, qf, bh * Tq + q0);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j & 1;
+        if (j >= 2) {
+          hopper::mbar_wait(bars + 8 * (empty + s), ((j >> 1) - 1) & 1);
+        }
+        const uint32_t f = bars + 8 * (full + s);
+        hopper::mbar_expect_tx(f, L::kKT);
+        for (int i = 0; i < kD / 64; ++i) {
+          hopper::tma_load_4d(base + dst + s * L::kKT + i * kBox64, map, f,
+                              64 * i, h, j * kDqKeys, b);
+        }
+      }
+    }
+  } else {
+    hopper::regs_alloc<kConsumerRegs>();
+    dq_consumer<kD>(p, smem, base, bars, threadIdx.x / kWg - 1, b, h, bh, q0,
+                    n_tiles);
+  }
+}
+
 // the map of a [B, L, H, D] bf16 tensor read in [rows x 64] boxes:
 // dims {D, H, L, B}
 cudaError_t bf16_map(CUtensorMap* map, const void* ptr, const AttnParams& p,
@@ -1233,11 +1503,12 @@ cudaError_t bf16_map(CUtensorMap* map, const void* ptr, const AttnParams& p,
 }
 
 // the map of a contiguous f32 [B * H, T] row statistic, flat, in boxes of
-// 64 (a box that runs past a row's end reads the next row: those queries
-// are masked)
-cudaError_t stat_map(CUtensorMap* map, const float* ptr, const AttnParams& p) {
+// `rows` (a box that runs past a row's end reads the next row: those
+// queries are masked)
+cudaError_t stat_map(CUtensorMap* map, const float* ptr, const AttnParams& p,
+                     int rows) {
   const uint64_t n = static_cast<uint64_t>(p.B * p.H * p.T);
-  const uint32_t box[1] = {kDkvRows};
+  const uint32_t box[1] = {static_cast<uint32_t>(rows)};
   return hopper::make_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ptr, 1, &n,
                           nullptr, box, CU_TENSOR_MAP_SWIZZLE_NONE);
 }
@@ -1265,6 +1536,27 @@ cudaError_t launch_wgmma(int which, const AttnParams& p, cudaStream_t st) {
     const unsigned nq = static_cast<unsigned>((p.T + L::kRows - 1) / L::kRows);
     fwd_wgmma_kernel<kD>
         <<<dim3(bh, nq), kWgmmaThreads, L::kBytes, st>>>(p, maps);
+  } else if (which == 1) {
+    using L = DqLayout<kD>;
+    if ((err = bf16_map(&maps.q, p.q, p, p.T, p.q_sb, p.q_st, p.q_sh,
+                        L::kRows)) != cudaSuccess ||
+        (err = bf16_map(&maps.g, p.g, p, p.T, p.g_sb, p.g_st, p.g_sh,
+                        L::kRows)) != cudaSuccess ||
+        (err = bf16_map(&maps.k, p.k, p, p.S, p.k_sb, p.k_st, p.k_sh,
+                        kDqKeys)) != cudaSuccess ||
+        (err = bf16_map(&maps.v, p.v, p, p.S, p.v_sb, p.v_st, p.v_sh,
+                        kDqKeys)) != cudaSuccess ||
+        (err = stat_map(&maps.lse, p.lse, p, L::kRows)) != cudaSuccess ||
+        (err = stat_map(&maps.delta, p.delta, p, L::kRows)) != cudaSuccess) {
+      return err;
+    }
+    err = cudaFuncSetAttribute(dq_wgmma_kernel<kD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               L::kBytes);
+    if (err != cudaSuccess) return err;
+    const unsigned nq = static_cast<unsigned>((p.T + L::kRows - 1) / L::kRows);
+    dq_wgmma_kernel<kD>
+        <<<dim3(bh, nq), kWgmmaThreads, L::kBytes, st>>>(p, maps);
   } else {
     using L = DkvLayout<kD>;
     if ((err = bf16_map(&maps.q, p.q, p, p.T, p.q_sb, p.q_st, p.q_sh,
@@ -1275,8 +1567,8 @@ cudaError_t launch_wgmma(int which, const AttnParams& p, cudaStream_t st) {
                         L::kKeys)) != cudaSuccess ||
         (err = bf16_map(&maps.v, p.v, p, p.S, p.v_sb, p.v_st, p.v_sh,
                         L::kKeys)) != cudaSuccess ||
-        (err = stat_map(&maps.lse, p.lse, p)) != cudaSuccess ||
-        (err = stat_map(&maps.delta, p.delta, p)) != cudaSuccess) {
+        (err = stat_map(&maps.lse, p.lse, p, kDkvRows)) != cudaSuccess ||
+        (err = stat_map(&maps.delta, p.delta, p, kDkvRows)) != cudaSuccess) {
       return err;
     }
     err = cudaFuncSetAttribute(dkv_wgmma_kernel<kD>,
@@ -1288,6 +1580,31 @@ cudaError_t launch_wgmma(int which, const AttnParams& p, cudaStream_t st) {
         <<<dim3(bh, nk), kWgmmaThreads, L::kBytes, st>>>(p, maps);
   }
   return cudaGetLastError();
+}
+
+// TMA's rule for the tensor-core route's inputs: 16-byte-aligned base
+// addresses, and 16-byte strides on every dim longer than 1 (the head
+// dim contiguous, as the wrapper checks). The wrapper sends inputs that
+// break it to the FMA kernels; the launch refuses them here.
+bool tma_ok(const void* ptr, int64_t sb, int64_t sl, int64_t sh, int64_t len,
+            const AttnParams& p) {
+  const auto legal = [](int64_t stride, int64_t extent) {
+    return extent <= 1 || (stride * 2) % 16 == 0;
+  };
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && legal(sb, p.B) &&
+         legal(sl, len) && legal(sh, p.H);
+}
+
+bool tma_legal(int which, const AttnParams& p) {
+  bool ok = tma_ok(p.q, p.q_sb, p.q_st, p.q_sh, p.T, p) &&
+            tma_ok(p.k, p.k_sb, p.k_st, p.k_sh, p.S, p) &&
+            tma_ok(p.v, p.v_sb, p.v_st, p.v_sh, p.S, p);
+  if (which != 0) {
+    ok = ok && tma_ok(p.g, p.g_sb, p.g_st, p.g_sh, p.T, p) &&
+         reinterpret_cast<uintptr_t>(p.lse) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(p.delta) % 16 == 0;
+  }
+  return ok;
 }
 
 // ---- the tile check ------------------------------------------------------
@@ -1412,21 +1729,23 @@ extern "C" int flash_attention_launch(int which, const AttnParams* p,
       p->D > 128 || p->num_heads < p->H) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (which < 0 || which > 2) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // the route is the caller's: bf16 inputs that meet TMA's rule run on
+  // the tensor cores, every other input on the FMA kernels. A tensor-core
+  // launch on inputs that break the rule is refused, never rerouted.
+  if (p->tensor_core) {
+    if (dtype != kBF16) return static_cast<int>(cudaErrorInvalidValue);
+    if (!tma_legal(which, *p)) {
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    }
+    return static_cast<int>(p->D <= 64 ? launch_wgmma<64>(which, *p, st)
+                                       : launch_wgmma<128>(which, *p, st));
+  }
   cudaError_t err;
   switch (dtype) {
     case kF32: err = launch_dim<float>(which, *p, st); break;
-    case kBF16:
-      // K1 and K3 on the tensor cores; K2 stays on the fp32-FMA kernel
-      if (which == 1) {
-        err = launch_dim<__nv_bfloat16>(which, *p, st);
-      } else if (which == 0 || which == 2) {
-        err = p->D <= 64 ? launch_wgmma<64>(which, *p, st)
-                         : launch_wgmma<128>(which, *p, st);
-      } else {
-        err = cudaErrorInvalidValue;
-      }
-      break;
+    case kBF16: err = launch_dim<__nv_bfloat16>(which, *p, st); break;
     case kF16: err = launch_dim<__half>(which, *p, st); break;
     default: err = cudaErrorInvalidValue;
   }

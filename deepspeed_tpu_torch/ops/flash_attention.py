@@ -15,16 +15,20 @@ kernels become three hand-written ``sm_90a`` CUDA kernels in
 
 Each wrapper runs its plain PyTorch version on CPU tensors and launches
 its kernel on CUDA tensors (a build or launch failure raises; there is
-no fallback), and counts kernel launches in ``.launches``.
+no fallback), and counts kernel launches in ``.launches`` and by route
+in ``.routes``.
 
-The kernel a CUDA call takes depends on the input type: bf16 K1 and K3
-run on Hopper's tensor cores (TMA-fed ``wgmma``, fp32 accumulation, the
-fp32 intermediates P and dS as a bf16 hi + lo pair, so they compute
-what the reference's f32 dots compute); K2, and f32 and fp16 inputs to
-K1 and K3, run the fp32-FMA kernels. The tensor-core kernels read their
-inputs through TMA tensor maps, which need a 16-byte-aligned base
-address and 16-byte-aligned strides (:func:`tma_violation`); a bf16
-input that breaks the rule raises rather than taking another kernel.
+The route of a CUDA call is decided once, from the inputs
+(:func:`attention_route`), as the reference dispatches on shape
+(``flash_attention.py:794``): bf16 inputs that meet TMA's rule run on
+Hopper's tensor cores (TMA-fed ``wgmma``, fp32 accumulation, the fp32
+intermediates P and dS as a bf16 hi + lo pair, so they compute what the
+reference's f32 dots compute); every other input runs the hand-written
+fp32-FMA kernels: f32 and fp16, and bf16 inputs that break the rule
+(:func:`tma_violation`: a 16-byte-aligned base address and 16-byte
+strides, so a head dim like 36, or a view one element into its storage,
+takes the FMA kernels). The kernel library refuses a tensor-core launch
+on inputs that break the rule; it never reroutes.
 :func:`flash_attention` is the public, differentiable entry
 (a ``torch.autograd.Function``); ``delta`` and the head-sum of the
 dbias partials are plain torch ops, as the JAX code leaves them to XLA.
@@ -64,10 +68,8 @@ _FOLD = 0x7F4A7C15
 BLOCK = 64
 MAX_HEAD_DIM = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-# K1 (0) and K3 (2) run on the tensor cores for bf16 inputs, reading
-# them through TMA tensor maps
-_TENSOR_CORE_KERNELS = (0, 2)
 TMA_ALIGN = 16      # bytes: a tensor map's base address and strides
+ROUTES = ("tensor_core", "fma")
 
 
 # ---------------------------------------------------------------------------
@@ -386,8 +388,8 @@ def flash_attention_fwd(q, k, v, key_bias=None, causal=True, sm_scale=None,
     B, T, H, D = q.shape
     out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
-    _launch(0, q, k, v, None, None, None, kw, out=out, lse_out=lse)
-    flash_attention_fwd.launches += 1
+    _launch(flash_attention_fwd, 0, q, k, v, None, None, None, kw, out=out,
+            lse_out=lse)
     return out, lse
 
 
@@ -402,8 +404,7 @@ def flash_attention_bwd_dq(q, k, v, g, lse, delta, key_bias=None,
     if not _on_cuda(q, k, v, key_bias, (g, lse, delta)):
         return flash_attention_bwd_dq_reference(q, k, v, g, lse, delta, **kw)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch(1, q, k, v, g, lse, delta, kw, dq=dq)
-    flash_attention_bwd_dq.launches += 1
+    _launch(flash_attention_bwd_dq, 1, q, k, v, g, lse, delta, kw, dq=dq)
     return dq
 
 
@@ -425,14 +426,15 @@ def flash_attention_bwd_dkv(q, k, v, g, lse, delta, key_bias=None,
     if key_bias is not None:
         dbias = torch.empty((B * H, k.shape[1]), dtype=torch.float32,
                             device=q.device)
-    _launch(2, q, k, v, g, lse, delta, kw, dk=dk, dv=dv, dbias=dbias)
-    flash_attention_bwd_dkv.launches += 1
+    _launch(flash_attention_bwd_dkv, 2, q, k, v, g, lse, delta, kw, dk=dk,
+            dv=dv, dbias=dbias)
     return dk, dv, dbias
 
 
-flash_attention_fwd.launches = 0
-flash_attention_bwd_dq.launches = 0
-flash_attention_bwd_dkv.launches = 0
+for _wrapper in (flash_attention_fwd, flash_attention_bwd_dq,
+                 flash_attention_bwd_dkv):
+    _wrapper.launches = 0
+    _wrapper.routes = dict.fromkeys(ROUTES, 0)
 
 
 class _Params(ctypes.Structure):
@@ -443,7 +445,7 @@ class _Params(ctypes.Structure):
         "out", "lse_out", "dq", "dk", "dv", "dbias")] + \
         [(name, ctypes.c_int64) for name in (
             "B", "T", "S", "H", "D", "causal", "dropping", "seed",
-            "head_offset", "num_heads", "keep_threshold",
+            "head_offset", "num_heads", "keep_threshold", "tensor_core",
             "q_sb", "q_st", "q_sh", "k_sb", "k_st", "k_sh",
             "v_sb", "v_st", "v_sh", "g_sb", "g_st", "g_sh")] + \
         [("sm_scale", ctypes.c_double), ("inv_keep", ctypes.c_double)]
@@ -490,20 +492,24 @@ def tma_violation(shape, strides, itemsize, address):
     return None
 
 
-def _check_tma(**tensors):
-    for name, t in tensors.items():
-        why = tma_violation(tuple(t.shape), t.stride(), t.element_size(),
-                            t.data_ptr())
-        if why is not None:
-            raise ValueError(
-                f"flash_attention: {t.dtype} {name} cannot be read by the "
-                f"tensor-core kernels' TMA tensor maps: {why}. Their rule: "
-                f"a {TMA_ALIGN}-byte-aligned base address and strides "
-                f"(e.g. .contiguous())")
+def attention_route(q, k, v, g=None, lse=None, delta=None):
+    """The kernel route of one call on these inputs: ``"tensor_core"``
+    when they are bf16 and every one the call reads through TMA (q, k,
+    v; for the backward also dO and the flat lse and delta) meets
+    :func:`tma_violation`'s rule, else ``"fma"``."""
+    if q.dtype != torch.bfloat16:
+        return "fma"
+    tensors = [q, k, v] + ([] if g is None else
+                           [g, lse.reshape(-1), delta.reshape(-1)])
+    for t in tensors:
+        if tma_violation(tuple(t.shape), t.stride(), t.element_size(),
+                         t.data_ptr()) is not None:
+            return "fma"
+    return "tensor_core"
 
 
-def _launch(which, q, k, v, g, lse, delta, kw, out=None, lse_out=None,
-            dq=None, dk=None, dv=None, dbias=None):
+def _launch(wrapper, which, q, k, v, g, lse, delta, kw, out=None,
+            lse_out=None, dq=None, dk=None, dv=None, dbias=None):
     B, T, H, D = q.shape
     S = k.shape[1]
     if D > MAX_HEAD_DIM:
@@ -526,10 +532,7 @@ def _launch(which, q, k, v, g, lse, delta, kw, out=None, lse_out=None,
             raise ValueError(f"flash_attention: {name} must be contiguous "
                              f"f32 [B*H, T], got {t.dtype} "
                              f"{tuple(t.shape)}")
-    if q.dtype == torch.bfloat16 and which in _TENSOR_CORE_KERNELS:
-        # lse and delta are read flat, in boxes of 64 values
-        _check_tma(q=q, k=k, v=v, **({} if g is None else dict(
-            g=g, lse=lse.reshape(-1), delta=delta.reshape(-1))))
+    route = attention_route(q, k, v, g, lse, delta)
     bias = kw["key_bias"]
     if bias is not None:
         bias = bias.to(torch.float32).contiguous()
@@ -546,6 +549,7 @@ def _launch(which, q, k, v, g, lse, delta, kw, out=None, lse_out=None,
         dropping=int(rate > 0.0), seed=kw["dropout_seed"],
         head_offset=int(kw["dropout_head_offset"]), num_heads=num_heads,
         keep_threshold=_keep_threshold(rate) if rate > 0.0 else 0,
+        tensor_core=int(route == "tensor_core"),
         q_sb=q.stride(0), q_st=q.stride(1), q_sh=q.stride(2),
         k_sb=k.stride(0), k_st=k.stride(1), k_sh=k.stride(2),
         v_sb=v.stride(0), v_st=v.stride(1), v_sh=v.stride(2),
@@ -560,7 +564,9 @@ def _launch(which, q, k, v, g, lse, delta, kw, out=None, lse_out=None,
     if err != 0:
         msg = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(f"flash_attention kernel {which} launch "
-                           f"failed: {msg}")
+                           f"failed on the {route} route: {msg}")
+    wrapper.launches += 1
+    wrapper.routes[route] += 1
 
 
 def wgmma_tile_product(a, b, b_mn_major):

@@ -33,6 +33,9 @@ DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 DEFAULT_BLOCK_K = 128
 MAX_HEAD_DIM = 256
+# keys of key index a CTA of the CUDA kernels takes (kChunk in
+# ops/csrc/flash_decode.cu); a row's live chunks merge in chunk order
+DECODE_CHUNK = 128
 
 # dtype codes of ops/csrc/flash_decode.cu
 _DTYPE_CODES = {
@@ -151,8 +154,10 @@ def flash_decode(q, k, v, positions, k_scale=None, v_scale=None,
     ``block_k`` is validated as the JAX kernel validates it (>= 1,
     clamped to S, dividing S; else :class:`KernelGeometryError`) and
     sets the plain version's block walk. The CUDA kernel has no KV
-    block grid: its warps walk the occupied keys directly, so the value
-    does not change its result beyond fp32 summation order.
+    block grid: its CTAs split the occupied keys into chunks of
+    :data:`DECODE_CHUNK` and merge them in chunk order within the one
+    launch, so the value does not change its result beyond fp32
+    summation order.
     """
     block_k = _check_args(q, k, v, k_scale, v_scale, block_k)
     tensors = [q, k, v, positions] + (
@@ -240,9 +245,11 @@ def flash_decode_paged(q, k, v, positions, page_tables, k_scale=None,
     1)`` are read; entries past a row's occupancy may hold any value,
     out-of-range ids included. ``block_k`` clamps to ``page_size`` and
     must divide it (:class:`KernelGeometryError`); it sets the plain
-    version's block walk, while the CUDA kernel walks the occupied keys
-    directly. The table and positions are read on the device: no host
-    sync, no host-side check of table values.
+    version's block walk, while the CUDA kernel splits the occupied keys
+    into chunks of :data:`DECODE_CHUNK` as :func:`flash_decode` does (so
+    over an in-order table the two kernels agree bit for bit). The table
+    and positions are read on the device: no host sync, no host-side
+    check of table values.
     """
     block_k = _check_paged_args(q, k, v, page_tables, k_scale, v_scale,
                                 block_k)
@@ -273,10 +280,10 @@ def _library():
     lib = load_library("flash_decode")
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.flash_decode_launch.argtypes = (
-        [p] * 7 + [i] * 4 + [ctypes.c_float] + [i64] * 16 + [i, i, p])
+        [p] * 9 + [i] * 4 + [ctypes.c_float] + [i64] * 16 + [i, i, p])
     lib.flash_decode_launch.restype = ctypes.c_int
     lib.flash_decode_paged_launch.argtypes = (
-        [p] * 8 + [i] * 5 + [ctypes.c_float] + [i64] * 17 + [i, i, p])
+        [p] * 10 + [i] * 5 + [ctypes.c_float] + [i64] * 17 + [i, i, p])
     lib.flash_decode_paged_launch.restype = ctypes.c_int
     lib.flash_decode_error_string.argtypes = [ctypes.c_int]
     lib.flash_decode_error_string.restype = ctypes.c_char_p
@@ -316,6 +323,26 @@ def _check_launch(name, q, k, v, k_scale, v_scale, scale_shape):
     return (None, None), (0,) * 6
 
 
+# (device index, stream) -> int32 tickets, zero between launches: each
+# launch's merging CTAs reset what they counted, so one zero-filled
+# buffer per stream serves every later launch (and a CUDA graph replay)
+_tickets = {}
+
+
+def _scratch(q, n_rows, S, D, stream):
+    """The launch's chunk-partial workspace (f32, uninitialised) and the
+    stream's ticket buffer, at least ``n_rows`` = B * H long."""
+    n_chunks = -(-S // DECODE_CHUNK)
+    ws = torch.empty(n_rows * n_chunks * (D + 2), dtype=torch.float32,
+                     device=q.device)
+    key = (q.device.index, stream)
+    tickets = _tickets.get(key)
+    if tickets is None or tickets.numel() < n_rows:
+        tickets = torch.zeros(n_rows, dtype=torch.int32, device=q.device)
+        _tickets[key] = tickets
+    return ws, tickets
+
+
 def _raise_on(lib, err, name):
     if err != 0:
         msg = lib.flash_decode_error_string(err).decode()
@@ -331,10 +358,11 @@ def _launch(q, k, v, positions, k_scale, v_scale):
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
+        ws, tickets = _scratch(q, B * H, S, D, stream)
         err = lib.flash_decode_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), *scale_args,
-            pos.data_ptr(), out.data_ptr(),
-            B, S, H, D, float(D ** -0.5),
+            pos.data_ptr(), out.data_ptr(), ws.data_ptr(),
+            tickets.data_ptr(), B, S, H, D, float(D ** -0.5),
             q.stride(0), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
@@ -360,9 +388,11 @@ def _launch_paged(q, k, v, positions, page_tables, k_scale, v_scale):
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
+        ws, tickets = _scratch(q, B * H, n_pt * page_size, D, stream)
         err = lib.flash_decode_paged_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), *scale_args,
             pos.data_ptr(), table.data_ptr(), out.data_ptr(),
+            ws.data_ptr(), tickets.data_ptr(),
             B, n_pt * page_size, H, D, page_size, float(D ** -0.5),
             q.stride(0), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),

@@ -7,7 +7,8 @@ harness in ``tests/conftest.py`` out of the run:
 
 ``chip_smoke.py`` runs the full-width matrix; these are the small,
 fast cases (flash decode K5/K6, flash attention K1-K3 with the bf16
-tensor-core K1/K3 and their wgmma tile check, fused Adam K4,
+tensor-core K1/K2/K3, the FMA route for bf16 off TMA's rule, and the
+wgmma tile check, fused Adam K4,
 block-sparse attention K7/K8). Tolerance atol 1e-5 on f32 outputs of
 magnitude ~1: both sides accumulate in fp32, in a different order.
 """
@@ -131,6 +132,50 @@ def test_flash_decode_paged_kernel_equals_ring_kernel_in_order(cuda):
                        flash_decode(q, ring_k, ring_v, pos))
 
 
+# --- the decode kernels' 128-key chunks --------------------------------------
+# S 512 in 4 chunks, page size 16 (chunks and pages do not line up);
+# positions on chunk edges, rows live in chunk 0 only, a negative one and
+# one past S. f32 rows are read as 16-byte vectors (D 36: 9 of them,
+# not a power of two); int8 rows at D 64 too, and at D 36 (36 bytes) one
+# element a lane a load. Each call is one launch; the merge tickets are
+# back at 0 after it.
+EDGE_POS = np.array([127, 128, 255, 256, 511, 60, -1, 700], np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", [None, "int8"])
+@pytest.mark.parametrize("d", [64, 36])
+def test_split_decode_at_chunk_edges(cuda, d, codec):
+    fd = importlib.import_module("deepspeed_tpu_torch.ops.flash_decode")
+    rng = np.random.default_rng(9)
+    b, s, h, ps = len(EDGE_POS), 512, 3, 16
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda) for shape in ((b, 1, h, d), (b, s, h, d),
+                                            (b, s, h, d)))
+    if codec is None:
+        kv, scales = (k, v), ()
+    else:
+        (kq, ks), (vq, vs) = _quantize(k, codec), _quantize(v, codec)
+        kv, scales = (kq, vq), (ks, vs)
+    pos = torch.from_numpy(EDGE_POS).to(cuda)
+    pool = (b * s // ps, ps, h, d)
+    table = torch.arange(b * s // ps, dtype=torch.int32,
+                         device=cuda).reshape(b, s // ps)
+    before = (flash_decode.launches, flash_decode_paged.launches)
+    ring = flash_decode(q, *kv, pos, *scales, block_k=ps)
+    paged = flash_decode_paged(q, *(x.view(pool) for x in kv), pos, table,
+                               *(x.view(pool[:3]) for x in scales),
+                               block_k=ps)
+    torch.cuda.synchronize()
+    assert (flash_decode.launches, flash_decode_paged.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert all(int(t.abs().sum()) == 0 for t in fd._tickets.values())
+    want = flash_decode_reference(q, *kv, pos, *scales, block_k=ps)
+    torch.testing.assert_close(ring, want, atol=1e-5, rtol=0)
+    assert torch.equal(paged, ring)
+    assert torch.equal(ring[6], torch.zeros_like(ring[6]))
+
+
 # --- training kernels: flash attention K1-K3, fused Adam K4 ----------------
 # K1-K3 at f32: both sides sum in fp32 in different orders (atol 2e-5 on
 # values of magnitude ~1); K4 runs the plain version's operations in the
@@ -177,7 +222,7 @@ def test_flash_attention_kernels_match_plain_versions(cuda, causal, bias,
         torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
 
 
-# bf16 K1 and K3 run on the tensor cores (TMA-fed wgmma, P and dS as a
+# bf16 K1, K2 and K3 run on the tensor cores (TMA-fed wgmma, P and dS as a
 # bf16 hi + lo pair): held to their plain versions at chip_smoke.py's gate
 # (one unit in bf16's last place plus 1e-5 of the largest value).
 
@@ -212,12 +257,16 @@ def test_bf16_tensor_core_kernels_match_plain_versions(cuda, t, d, fused,
     want_out, want_lse = fa.flash_attention_fwd_reference(q, k, v, **kw)
     delta = (g.float() * want_out.float()).sum(-1).permute(0, 2, 1) \
         .reshape(2 * 4, t).contiguous()
+    dq = fa.flash_attention_bwd_dq(q, k, v, g, want_lse, delta, **kw)
+    want_dq = fa.flash_attention_bwd_dq_reference(q, k, v, g, want_lse,
+                                                  delta, **kw)
     dk, dv, db = fa.flash_attention_bwd_dkv(q, k, v, g, want_lse, delta, **kw)
     want = fa.flash_attention_bwd_dkv_reference(q, k, v, g, want_lse, delta,
                                                 **kw)
     rtol = chip_smoke.TRAIN_RTOL
     for got, ref, tol in [(out, want_out, rtol["bfloat16"]),
                           (lse, want_lse, rtol["float32"]),
+                          (dq, want_dq, rtol["bfloat16"]),
                           (dk, want[0], rtol["bfloat16"]),
                           (dv, want[1], rtol["bfloat16"]),
                           (db, want[2], rtol["float32"])]:
@@ -226,16 +275,74 @@ def test_bf16_tensor_core_kernels_match_plain_versions(cuda, t, d, fused,
 
 
 @pytest.mark.cuda
-def test_bf16_view_off_the_tma_alignment_raises(cuda):
+@pytest.mark.parametrize("causal,bias,rate", [(True, True, 0.1),
+                                              (False, False, 0.0)])
+@pytest.mark.parametrize("d", [64, 128])
+def test_bf16_dq_runs_on_the_tensor_cores(cuda, d, causal, bias, rate):
+    """K2 on bf16 inputs that meet TMA's rule: ``dq_wgmma_kernel`` (one
+    tensor-core launch), held to its plain version at chip_smoke.py's
+    gate, T 1000 (not a multiple of the 128-row CTA or 64-key tile)."""
+    import chip_smoke
     from deepspeed_tpu_torch.ops import flash_attention as fa
-    n = 2 * 64 * 4 * 64
-    base = torch.zeros(n + 8, dtype=torch.bfloat16, device=cuda)
-    q = base[1:1 + n].view(2, 64, 4, 64)
-    k = v = torch.zeros((2, 64, 4, 64), dtype=torch.bfloat16, device=cuda)
-    before = fa.flash_attention_fwd.launches
-    with pytest.raises(ValueError, match="TMA"):
-        fa.flash_attention_fwd(q, k, v)
-    assert fa.flash_attention_fwd.launches == before
+    t = 1000
+    q, k, v, g, kb = _bf16_attn_inputs(cuda, 2, t, 4, d, True, 7)
+    kw = dict(key_bias=kb if bias else None, causal=causal,
+              dropout_rate=rate, dropout_seed=-77, dropout_head_offset=2,
+              dropout_num_heads=5)
+    out, lse = fa.flash_attention_fwd_reference(q, k, v, **kw)
+    delta = (g.float() * out.float()).sum(-1).permute(0, 2, 1) \
+        .reshape(2 * 4, t).contiguous()
+    before = dict(fa.flash_attention_bwd_dq.routes)
+    dq = fa.flash_attention_bwd_dq(q, k, v, g, lse, delta, **kw)
+    want = fa.flash_attention_bwd_dq_reference(q, k, v, g, lse, delta, **kw)
+    assert fa.flash_attention_bwd_dq.routes == dict(
+        before, tensor_core=before["tensor_core"] + 1)
+    err, ok = chip_smoke._close(torch, dq, want,
+                                chip_smoke.TRAIN_RTOL["bfloat16"])
+    assert ok, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["misaligned", "d36"])
+def test_bf16_view_off_the_tma_alignment_raises(cuda, layout):
+    """bf16 inputs off TMA's rule no longer raise: a view one element
+    into its storage (2 bytes off the boundary) and a head dim of 36
+    (72-byte rows) run K1, K2 and K3 on the hand-written FMA kernels, one
+    FMA-route launch each, and match the plain versions at chip_smoke.py's
+    bf16 gate."""
+    import chip_smoke
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    d = 64 if layout == "misaligned" else 36
+    q, k, v, g, kb = _bf16_attn_inputs(cuda, 2, 200, 4, d, False, 8)
+    if layout == "misaligned":
+        q, k, v, g = (chip_smoke._off_by_one(torch, x) for x in (q, k, v, g))
+    kw = dict(key_bias=kb, causal=True, dropout_rate=0.1, dropout_seed=-77,
+              dropout_head_offset=2, dropout_num_heads=5)
+    wrappers = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv)
+    before = [dict(w.routes) for w in wrappers]
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    want_out, want_lse = fa.flash_attention_fwd_reference(q, k, v, **kw)
+    delta = (g.float() * want_out.float()).sum(-1).permute(0, 2, 1) \
+        .reshape(2 * 4, 200).contiguous()
+    dq = fa.flash_attention_bwd_dq(q, k, v, g, want_lse, delta, **kw)
+    dk, dv, db = fa.flash_attention_bwd_dkv(q, k, v, g, want_lse, delta,
+                                            **kw)
+    want_dq = fa.flash_attention_bwd_dq_reference(q, k, v, g, want_lse,
+                                                  delta, **kw)
+    want = fa.flash_attention_bwd_dkv_reference(q, k, v, g, want_lse, delta,
+                                                **kw)
+    for w, b in zip(wrappers, before):
+        assert w.routes == dict(b, fma=b["fma"] + 1)
+    rtol = chip_smoke.TRAIN_RTOL
+    for got, ref, tol in [(out, want_out, rtol["bfloat16"]),
+                          (lse, want_lse, rtol["float32"]),
+                          (dq, want_dq, rtol["bfloat16"]),
+                          (dk, want[0], rtol["bfloat16"]),
+                          (dv, want[1], rtol["bfloat16"]),
+                          (db, want[2], rtol["float32"])]:
+        err, ok = chip_smoke._close(torch, got, ref, tol)
+        assert ok, err
 
 
 @pytest.mark.cuda

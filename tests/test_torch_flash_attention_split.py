@@ -1,22 +1,23 @@
-"""The arithmetic of the tensor-core flash-attention kernels (bf16 K1 and
-K3 in ``deepspeed_tpu_torch/ops/csrc/flash_attention.cu``), emulated on
-the CPU, against the reference.
+"""The arithmetic of the tensor-core flash-attention kernels (bf16 K1, K2
+and K3 in ``deepspeed_tpu_torch/ops/csrc/flash_attention.cu``), emulated
+on the CPU, against the reference.
 
 Those kernels multiply bf16 operands on the tensor cores with fp32
 accumulation. Q.K^T and dO.V^T of bf16 inputs are exact products summed
-in fp32, as the reference's f32 dots. P.V (K1), P^T.dO and dS^T.Q (K3)
-have an fp32 left operand; the kernels feed it as two bf16 operands,
-hi = bf16(x) and lo = bf16(x - hi), into one fp32 accumulator. These
-tests pin why: with the split, every element of out, dK and dV stays
-inside the gate ``chip_smoke.py`` holds the kernels to (``_close`` with
-``TRAIN_RTOL["bfloat16"]`` and ``TRAIN_ATOL_REL``), against the port's
-plain versions and against the JAX Pallas kernels (interpret mode);
-with one bf16 rounding of P and dS (what FlashAttention-2/3 do) more
-than 1% of the elements break it.
+in fp32, as the reference's f32 dots. P.V (K1), dS.K (K2), P^T.dO and
+dS^T.Q (K3) have an fp32 left operand; the kernels feed it as two bf16
+operands, hi = bf16(x) and lo = bf16(x - hi), into one fp32
+accumulator. These tests pin why: with the split, every element of out,
+dQ, dK and dV stays inside the gate ``chip_smoke.py`` holds the kernels
+to (``_close`` with ``TRAIN_RTOL["bfloat16"]`` and ``TRAIN_ATOL_REL``),
+against the port's plain versions and against the JAX Pallas kernels
+(interpret mode); with one bf16 rounding of P and dS (what
+FlashAttention-2/3 do) more than 1% of the elements break it.
 
 They also pin the wrapper's TMA legality rule (:func:`tma_violation`)
-as a function of shape, strides, item size and address. Inputs come
-from ``numpy.random.default_rng``.
+as a function of shape, strides, item size and address, and the route
+rule built on it (:func:`attention_route`). Inputs come from
+``numpy.random.default_rng``.
 """
 
 import importlib
@@ -100,6 +101,25 @@ def _emulated_dkv(q, k, v, g, lse, delta, kb, causal, rate, two_terms):
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+DQ_KEYS = 64        # keys of a K / V tile of the tensor-core K2
+
+
+def _emulated_dq(q, k, v, g, lse, delta, kb, causal, rate, two_terms):
+    """K2 on bf16 inputs: S and dP from exact products in fp32, P and dS
+    in fp32, then dQ += dS.K over 64-key tiles into one fp32 accumulator,
+    with dS split (or rounded once); dq rounded to bf16."""
+    sm_scale = q.shape[-1] ** -0.5
+    p, _, dp, dl = tfa._bwd_probs(q, k, v, g, lse, delta, kb, causal,
+                                  sm_scale, rate, SEED, OFFSET, NUM_HEADS)
+    ds = p * (dp - dl) * sm_scale
+    dq = torch.zeros(q.shape, dtype=torch.float32)
+    for k0 in range(0, k.shape[1], DQ_KEYS):
+        kt = k[:, k0:k0 + DQ_KEYS].float()
+        for part in _split(ds[..., k0:k0 + DQ_KEYS], two_terms):
+            dq = dq + torch.einsum("bhts,bshd->bthd", part, kt)
+    return dq.to(q.dtype)
+
+
 def _inputs(seed, bias):
     rng = np.random.default_rng(seed)
     q, k, v, g = (rng.standard_normal((B, T, H, D)).astype(np.float32)
@@ -173,8 +193,9 @@ def _jax_out_and_grads(q, k, v, g, kb, causal, rate):
 
     args = [jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v)]
     out, vjp = jax.vjp(f, *args)
-    _, dk, dv = vjp(jnp.asarray(g).astype(jnp.bfloat16))
-    return [np.asarray(x.astype(jnp.float32)) for x in (out, dk, dv)]
+    dq, dk, dv = vjp(jnp.asarray(g).astype(jnp.bfloat16))
+    return {name: np.array(x.astype(jnp.float32)) for name, x in
+            (("out", out), ("dq", dq), ("dk", dk), ("dv", dv))}
 
 
 @pytest.mark.parametrize("causal,bias,rate", [(True, True, 0.1),
@@ -194,11 +215,56 @@ def test_split_keeps_the_jax_kernels_gate(causal, bias, rate):
         .reshape(B * H, T).contiguous()
     got = _both_roundings(q, k, v, g, kb, causal, rate, ref_lse, delta)
     jax_out = _jax_out_and_grads(qn, kn, vn, gn, kbn, causal, rate)
-    for name, want in zip(("out", "dk", "dv"), jax_out):
-        want = torch.from_numpy(want)
+    for name in ("out", "dk", "dv"):
+        want = torch.from_numpy(jax_out[name])
         err, ok = chip_smoke._close(torch, got[True][name], want, RTOL)
         assert ok, f"split {name} vs JAX: max abs err {err}"
         assert _broken_share(got[False][name], want) > SINGLE_MIN_BROKEN
+
+
+# --- K2 on the tensor cores ------------------------------------------------
+# dQ = sum over keys of dS K: with dS as hi + lo every element stays in
+# the gate; one bf16 rounding of dS (2^-9 of each term) breaks it where
+# the sum cancels (on 10-12% of the elements at this shape).
+
+def _dq_case(seed, causal, bias, rate):
+    qn, kn, vn, gn, kbn = _inputs(seed, bias)
+    q, k, v, g = (_bf16(x) for x in (qn, kn, vn, gn))
+    kb = None if kbn is None else torch.from_numpy(kbn)
+    kw = dict(key_bias=kb, causal=causal, dropout_rate=rate,
+              dropout_seed=SEED, dropout_head_offset=OFFSET,
+              dropout_num_heads=NUM_HEADS)
+    ref_out, ref_lse = tfa.flash_attention_fwd_reference(q, k, v, **kw)
+    delta = (g.float() * ref_out.float()).sum(-1).permute(0, 2, 1) \
+        .reshape(B * H, T).contiguous()
+    got = {two: _emulated_dq(q, k, v, g, ref_lse, delta, kb, causal, rate,
+                             two) for two in (True, False)}
+    return (qn, kn, vn, gn, kbn), got, tfa.flash_attention_bwd_dq_reference(
+        q, k, v, g, ref_lse, delta, **kw)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+def test_dq_split_keeps_the_plain_versions_gate_and_single_rounding_breaks_it(
+        causal, bias, rate):
+    _, got, ref = _dq_case(0, causal, bias, rate)
+    err, ok = chip_smoke._close(torch, got[True], ref, RTOL)
+    assert ok, f"split dq: max abs err {err}"
+    assert not chip_smoke._close(torch, got[False], ref, RTOL)[1]
+    assert _broken_share(got[False], ref) > SINGLE_MIN_BROKEN
+
+
+@pytest.mark.parametrize("causal,bias,rate", [(True, True, 0.1),
+                                              (False, False, 0.0)])
+def test_dq_split_keeps_the_jax_kernels_gate(causal, bias, rate):
+    """The same gate against the JAX Pallas dQ (interpret mode) on bf16
+    inputs; lse and delta from the port's plain forward."""
+    inputs, got, _ = _dq_case(1, causal, bias, rate)
+    want = torch.from_numpy(_jax_out_and_grads(*inputs, causal, rate)["dq"])
+    err, ok = chip_smoke._close(torch, got[True], want, RTOL)
+    assert ok, f"split dq vs JAX: max abs err {err}"
+    assert _broken_share(got[False], want) > SINGLE_MIN_BROKEN
 
 
 # --- the TMA legality rule -------------------------------------------------
@@ -231,16 +297,42 @@ def test_tma_violation_is_a_function_of_the_layout(shape, strides, itemsize,
 
 
 def test_wrapper_rule_rejects_a_misaligned_bf16_view():
-    """A view one element into its storage is 2 bytes off the boundary;
-    the check raises with the rule (the CUDA launch runs it first)."""
-    n = 2 * 64 * 4 * 64
+    """The route rule (:func:`attention_route`, decided once per call):
+    TMA's rule rejects a bf16 view one element into its storage (2 bytes
+    off the boundary) and a head dim of 36 (72-byte rows) from the tensor
+    cores, so any of K1's (q, k, v) or K2/K3's (q, k, v, dO, lse, delta)
+    that breaks it sends the call to the FMA kernels; aligned bf16 sets
+    take the tensor cores, and f32 always takes the FMA kernels."""
+    shape = (2, 64, 4, 64)
+    n = int(np.prod(shape))
     base = torch.zeros(n + 8, dtype=torch.bfloat16)
-    view = base[1:1 + n].view(2, 64, 4, 64)
+    view = base[1:1 + n].view(shape)
     assert tfa.tma_violation(tuple(view.shape), view.stride(), 2,
                              view.data_ptr()) is not None
-    with pytest.raises(ValueError, match="16-byte-aligned"):
-        tfa._check_tma(q=view)
-    tfa._check_tma(q=base[8:8 + n].view(2, 64, 4, 64))
+    good = {name: base[8:8 + n].view(shape) for name in "qkvg"}
+    stats = torch.zeros(2 * 4 * 64 + 1)
+    good.update(lse=stats[:-1].view(8, 64), delta=stats[:-1].view(8, 64))
+    fwd, bwd = ("q", "k", "v"), ("q", "k", "v", "g", "lse", "delta")
+
+    def route(names, **swap):
+        t = dict(good, **swap)
+        return tfa.attention_route(*(t[name] for name in names))
+
+    for names in (fwd, bwd):
+        assert route(names) == "tensor_core"
+        assert route(names, **{n_: t.float() for n_, t in good.items()
+                               if n_ in "qkvg"}) == "fma"
+        for name in names:
+            bad = view if name in "qkvg" else stats[1:].view(8, 64)
+            assert route(names, **{name: bad}) == "fma", name
+    d36 = {name: torch.zeros((2, 64, 4, 36), dtype=torch.bfloat16)
+           for name in "qkvg"}
+    assert route(fwd, **d36) == route(bwd, **d36) == "fma"
+    # the route a CPU call would take is recorded nowhere: CPU tensors
+    # run the plain versions, which count no launch
+    before = dict(tfa.flash_attention_fwd.routes)
+    tfa.flash_attention_fwd(view, good["k"], good["v"])
+    assert tfa.flash_attention_fwd.routes == before
 
 
 @pytest.mark.parametrize("mn_major", [False, True])
