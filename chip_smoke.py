@@ -18,7 +18,11 @@ Phases, each printing one JSON line:
    ``ptxas`` register/shared-memory report, and the count of ``HGMMA``
    (wgmma) and ``UTMALDG`` (TMA load) instructions in the SASS of the
    bf16 K1, K2 and K3 functions (head dim 64 and 128): no ``HGMMA``
-   fails.
+   fails; the count of ``HMMA`` (mma.sync TF32) instructions in the SASS
+   of each of the 48 K8a / K8b instances (``block_sparse_k8_hmma``: 2
+   kinds x f32/bf16 x 4 blocks x head-dim bounds 64/128/256), none
+   fails, and their registers and spills from ``ptxas -v``
+   (``block_sparse_k8_ptxas``).
 3. ``kernel_check`` — the CUDA ``flash_decode`` against
    ``flash_decode_reference`` on the card: B=8, S=512, H=12/D=64 and
    H=16/D=96 (plus H=4/D=256), positions {0, 63, 127, 128, 300, 511}
@@ -80,8 +84,9 @@ Phases, each printing one JSON line:
    f32, causal and not, with and without a key bias, dropout 0 and 0.1
    at a nonzero head offset, q/k/v as views of one fused tensor and
    once as three tensors; bf16 off TMA's rule (D 36, and views one
-   element into their storage) on the FMA kernels; every case checks
-   the route each kernel took; the K1 dropout mask read back
+   element into their storage) on the FMA kernels; head dims 160 and 256
+   in f32, bf16 and fp16 (causal, key bias, dropout 0.1) on the FMA
+   kernels; every case checks the route each kernel took; the K1 dropout mask read back
    bitwise against ``dropout_multiplier`` (f32; on bf16 its zeros);
    fused Adam K4 against its plain version over 3 steps and a skipped
    one, both modes, leaves of odd sizes.
@@ -109,7 +114,7 @@ Phases, each printing one JSON line:
    K7 (out, lse), K8a (dq) and K8b (dk, dv) against their plain versions:
    blocks 16/32/64/128 at T = 8 blocks, D 64 and 128, bf16 and f32,
    causal and not, dropout 0 and 0.1, over a Fixed layout with an empty
-   q-block row; then all five layout families (per-head where they
+   q-block row; the same at D 256 for blocks 16 and 64; then all five layout families (per-head where they
    allow it) and a hand-made layout with an empty row and an unvisited
    k-block at T 512; the shape ``train_bert_sparse`` gives the kernels
    (B 32, T 512, H 16, D 64, block 64, the bench's Fixed layout,
@@ -122,7 +127,10 @@ Phases, each printing one JSON line:
    T 4096, block 128, unidirectional Fixed), beside their plain
    versions, their bounds and ``F.scaled_dot_product_attention`` with
    the layout as a boolean mask, forward and backward (a yardstick
-   only; the port never calls it).
+   only; the port never calls it). K8a / K8b rows add
+   ``tf32x3_ops_ms`` (their operations at 495 / 3 TFLOP/s, the TF32
+   tensor cores in three passes); on f32 rows their bound is read at
+   that rate.
 15. ``train_bert_sparse`` — BERT-Large (seq 512, bf16 over fp32 masters
    with the encoder layers in fp32 as in the JAX model, dropout 0.1, the bench's Fixed block-sparse layout, seeded random
    params) through ``initialize`` with the JAX bench's config
@@ -137,7 +145,8 @@ Phases, each printing one JSON line:
    losses within a bf16 tolerance, first micro-batch attn_qkvw
    gradients within a relative tolerance.
 
-Then the ``kernels`` summary line, the ``nvidia-smi`` line, and last
+Then the ``kernels`` summary line (K7/K8 entries name their design), the
+``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
 before the last line; without a CUDA device it exits 1 at once.
 """
@@ -161,6 +170,9 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float16": 989e12,
                   "float32": 67e12, "int8": 1979e12,
                   "float8_e4m3fn": 1979e12, "float8_e5m2": 1979e12}
+# fp32 precision on the TF32 tensor cores (495 TFLOP/s dense) takes three
+# passes a product (hi.hi + hi.lo + lo.hi): the rate K8a / K8b compute at
+TF32X3_OPS_PER_S = 495e12 / 3
 
 B, S = 8, 512
 FIXED_POSITIONS = (0, 63, 127, 128, 300, 511)
@@ -210,30 +222,83 @@ TENSOR_CORE_FUNCTIONS = ("fwd_wgmma_kernel", "dq_wgmma_kernel",
 SASS_OPS = ("HGMMA", "UTMALDG")
 
 
-def _sass_counts(lib_path, nvcc):
-    """{"<function><<head dim>>": {op: count}} for the tensor-core
-    functions of a built library, from ``cuobjdump -sass``."""
+def _sass_by_function(lib_path, nvcc):
+    """{mangled function name: [SASS lines]} of a built library, from
+    ``cuobjdump -sass``."""
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     proc = subprocess.run([tool, "-sass", lib_path], capture_output=True,
                           text=True, timeout=300)
     if proc.returncode != 0:
         fail(f"cuobjdump -sass {lib_path} failed: {proc.stderr.strip()}")
-    counts, current = {}, None
+    functions, current = {}, None
     for line in proc.stdout.splitlines():
         if "Function :" in line:
-            name = line.split("Function :", 1)[1].strip()
-            dim = re.search(r"ILi(\d+)E", name)
-            current = None
-            for fn in TENSOR_CORE_FUNCTIONS:
-                if fn in name and dim:
-                    current = f"{fn}<{dim.group(1)}>"
-                    counts[current] = dict.fromkeys(SASS_OPS, 0)
-            continue
-        if current is not None:
-            for op in SASS_OPS:
-                if op in line:
-                    counts[current][op] += 1
+            current = line.split("Function :", 1)[1].strip()
+            functions[current] = []
+        elif current is not None:
+            functions[current].append(line)
+    return functions
+
+
+def _sass_counts(lib_path, nvcc):
+    """{"<function><<head dim>>": {op: count}} for the tensor-core
+    functions of a built library."""
+    counts = {}
+    for name, lines in _sass_by_function(lib_path, nvcc).items():
+        dim = re.search(r"ILi(\d+)E", name)
+        for fn in TENSOR_CORE_FUNCTIONS:
+            if fn in name and dim:
+                counts[f"{fn}<{dim.group(1)}>"] = {
+                    op: sum(op in ln for ln in lines) for op in SASS_OPS}
     return counts
+
+
+# the K8a / K8b instances (dtype, layout block, head-dim bound) and the
+# SASS instruction that shows they run on the tensor cores (mma.sync TF32)
+SPARSE_MMA = re.compile(
+    r"(dq|dkv)_mma_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E")
+
+
+def _sparse_instance(name):
+    m = SPARSE_MMA.search(name)
+    if m is None:
+        return None
+    kind = "K8a" if m.group(1) == "dq" else "K8b"
+    dtype = "float32" if m.group(2) == "f" else "bfloat16"
+    return f"{kind}<{dtype},{m.group(3)},{m.group(4)}>"
+
+
+def _sparse_sass_counts(lib_path, nvcc):
+    """{"K8a<dtype,block,dmax>": HMMA count} for the K8 instances of a
+    built library."""
+    return {_sparse_instance(name): sum("HMMA" in ln for ln in lines)
+            for name, lines in _sass_by_function(lib_path, nvcc).items()
+            if _sparse_instance(name) is not None}
+
+
+def _sparse_ptxas(lines):
+    """{"K8a<dtype,block,dmax>": {"registers", "spill_stores",
+    "spill_loads"}} from the ``ptxas -v`` lines of the block-sparse
+    build."""
+    out, current = {}, None
+    for line in lines:
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = _sparse_instance(m.group(1))
+            if current is not None:
+                out[current] = {}
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[current].update(spill_stores=int(m.group(1)),
+                                spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[current]["registers"] = int(m.group(1))
+    return out
 
 
 def phase_build():
@@ -247,15 +312,25 @@ def phase_build():
     seconds = time.perf_counter() - t0
     sass = _sass_counts(_build.load_library("flash_attention")._name,
                         _build._nvcc())
+    sparse_sass = _sparse_sass_counts(
+        _build.load_library("block_sparse_attention")._name, _build._nvcc())
+    sparse_ptxas = _sparse_ptxas(
+        _build.build_info["block_sparse_attention"]["ptxas"])
     emit({"phase": "build", "seconds": seconds,
           "kernels": {name: _build.build_info[name]
                       for name in _build.KERNELS},
-          "flash_attention_sass": sass})
+          "flash_attention_sass": sass,
+          "block_sparse_k8_hmma": sparse_sass,
+          "block_sparse_k8_ptxas": sparse_ptxas})
     want = [f"{fn}<{d}>" for fn in TENSOR_CORE_FUNCTIONS for d in (64, 128)]
     for fn in want:
         if sass.get(fn, {}).get("HGMMA", 0) == 0:
             fail(f"{fn} has no HGMMA instruction in its SASS ({sass}): the "
                  f"bf16 attention kernels must run on the tensor cores")
+    # 2 kinds x 2 dtypes x 4 blocks x 3 head-dim bounds
+    if len(sparse_sass) != 48 or not all(sparse_sass.values()):
+        fail(f"the K8a / K8b instances must all run mma.sync on the tensor "
+             f"cores (HMMA in their SASS): {sparse_sass}")
 
 
 def _positions(torch, rng):
@@ -1274,7 +1349,8 @@ BF16_PEAK_FLOPS = 989e12             # H100 SXM dense bf16
 # plain version take in different orders: up to one unit in the last
 # place of the output type (relative), plus fp32 summation noise of
 # ~1e-5 of the largest value
-TRAIN_RTOL = {"bfloat16": 2.0 ** -7, "float32": 1e-4}
+TRAIN_RTOL = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10,
+              "float32": 1e-4}
 TRAIN_ATOL_REL = 1e-5
 # flash vs dense engines on the same params and batch, bf16: the dense
 # route rounds scores, probabilities and their gradients to bf16, the
@@ -1351,8 +1427,8 @@ def _attn_case(torch, fa, gen, b, t, h, d, dtype, causal, bias, rate,
                fused=True):
     """K1, K2, K3 against their plain versions on one input set; the case
     also records the route each kernel took and the route the rule
-    names: bf16 with 16-byte rows on an aligned base takes the tensor
-    cores, anything else the FMA kernels."""
+    names: bf16 with 16-byte rows of at most 128 elements on an aligned
+    base takes the tensor cores, anything else the FMA kernels."""
     q, k, v, g, kb = _attn_inputs(torch, b, t, h, d, getattr(torch, dtype),
                                   bias, gen, fused)
     kw = dict(key_bias=kb, causal=causal, dropout_rate=rate,
@@ -1372,7 +1448,8 @@ def _attn_case(torch, fa, gen, b, t, h, d, dtype, causal, bias, rate,
     torch.cuda.synchronize()
     taken = _route_taken(routes_before, _routes(fa))
     want_route = "tensor_core" if (dtype == "bfloat16" and d % 8 == 0 and
-                                   fused != "misaligned") else "fma"
+                                   d <= 128 and fused != "misaligned") \
+        else "fma"
     rtol = TRAIN_RTOL[dtype]
     checks = {"out": _close(torch, out, ref_out, rtol),
               "lse": _close(torch, lse, ref_lse, TRAIN_RTOL["float32"]),
@@ -1535,6 +1612,11 @@ def phase_train_kernel_check(torch):
               "misaligned"),
              (2, 128, TRAIN_H, 128, "bfloat16", False, False, 0.0,
               "misaligned")]
+    # head dims past 128: the FMA kernels in every dtype (K2 / K3 on
+    # 32-row tiles past 128)
+    grid += [(2, 300, TRAIN_H, d, dt, True, True, 0.1)
+             for d in (160, 256)
+             for dt in ("float32", "bfloat16", "float16")]
     cases = []
     for spec in grid:
         case = _attn_case(torch, fa, gen, *spec)
@@ -1576,15 +1658,17 @@ def _gpt2_shapes(cfg):
             + layer * cfg.n_layer + [(c,), (c,)])
 
 
-def _timing_row(torch, kern, plain, flops, nbytes, dtype, lib=None):
+def _timing_row(torch, kern, plain, flops, nbytes, dtype, lib=None,
+                ops_per_s=None):
     """One kernel's timing row. The bound takes the operations at the
     peak for the inputs' type (bf16 tensor cores for the attention
-    kernels), the least time the card could take; ``fp32_ops_ms`` is the
-    same count at the fp32 (CUDA-core) peak, the rate K2 (fp32 FMA on
-    every type) multiplies at."""
+    kernels), or at ``ops_per_s`` where the caller names the rate the
+    kernel's precision allows, the least time the card could take;
+    ``fp32_ops_ms`` is the same count at the fp32 (CUDA-core) peak, the
+    rate the FMA kernels multiply at."""
     ms, paced, _ = _time_ms(torch, kern, 10)
     plain_ms, _, plain_sync = _time_ms(torch, plain, 3)
-    t_ops = flops / PEAK_OPS_PER_S[dtype] * 1e3
+    t_ops = flops / (ops_per_s or PEAK_OPS_PER_S[dtype]) * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     r = {"ms": ms, "host_paced_ms": paced, "plain_ms": plain_ms,
          "plain_host_syncs": plain_sync, "flops": flops,
@@ -2016,6 +2100,17 @@ def phase_sparse_kernel_check(torch):
                         cases.append(_sparse_case(
                             torch, bsa, 2, t, h, d, dtype, block, layout,
                             causal, rate, gen))
+    # head dim 256 (K8 on 32-row tiles with the head split over warps)
+    for block in (16, 64):
+        t = 8 * block
+        for dtype in ("bfloat16", "float32"):
+            for causal in (False, True):
+                layout = _bert_sparsity(sc, causal, block, h).make_layout(t)
+                layout[1, 2, :] = 0
+                for rate in (0.0, 0.1):
+                    cases.append(_sparse_case(
+                        torch, bsa, 2, t, h, 256, dtype, block, layout,
+                        causal, rate, gen))
     for name, layout in _sparse_layouts(sc, BERT_BLOCK, BERT_T, h):
         for causal in (False, True):
             case = _sparse_case(torch, bsa, 2, BERT_T, h, BERT_D, "bfloat16",
@@ -2099,8 +2194,14 @@ def _sparse_timing(torch, bsa, sc, b, t, block, causal, dtype, shape_name):
     rows = {}
 
     def row(name, kern, plain, flops, nbytes, lib):
-        rows[name] = _timing_row(torch, kern, plain, flops, nbytes, dtype,
-                                 lib)
+        # K8a / K8b multiply on the TF32 tensor cores in 3 passes: on f32
+        # their bound is read at that rate (bf16 keeps the bf16 peak)
+        tf32x3 = name in ("K8a", "K8b")
+        rows[name] = _timing_row(
+            torch, kern, plain, flops, nbytes, dtype, lib,
+            TF32X3_OPS_PER_S if tf32x3 and dtype == "float32" else None)
+        if tf32x3:
+            rows[name]["tf32x3_ops_ms"] = flops / TF32X3_OPS_PER_S * 1e3
 
     def sdpa_bwd(i):
         torch.autograd.grad(sdpa_out, sdpa_in, g_t, retain_graph=True)
@@ -2133,6 +2234,14 @@ def _sparse_timing(torch, bsa, sc, b, t, block, causal, dtype, shape_name):
 
 
 def phase_sparse_kernel_timing(torch):
+    """K7, K8a and K8b timed at three shapes (see the module docstring).
+    Each row's ``bound_ms`` is the larger of its bytes at the HBM rate and
+    its operations at the rate its precision allows: the bf16 tensor-core
+    peak on bf16 rows; on f32 rows the fp32 peak for K7 (fp32 FMA) and,
+    for K8a and K8b, which keep fp32 precision on the TF32 tensor cores
+    in three passes, 495 / 3 TFLOP/s (``tf32x3_ops_ms``, beside
+    ``fp32_ops_ms`` at the CUDA-core peak), so ``roofline_share`` stays a
+    share of what the card can do at that precision."""
     from deepspeed_tpu_torch.ops import sparse_attention as sc
     bsa = _bsa()
     # the BERT bench shape in the encoder's fp32 (what the main path gives
@@ -2415,6 +2524,13 @@ def main(argv=None):
         "K8b": ("block_sparse_attention_bwd_dkv",
                 "deepspeed_tpu/ops/sparse_attention/"
                 "block_sparse_attention.py:450")}
+    sparse_design = {
+        "K7": "fp32 FMA",
+        "K8a": "mma.sync m16n8k8 TF32 x3 (hi/lo split, fp32 precision); "
+               "f32: visited tiles split once at staging, the next one "
+               "prefetched in registers; bf16: cp.async double buffer",
+        "K8b": "mma.sync m16n8k8 TF32 x3 (hi/lo split, fp32 precision), "
+               "cp.async double buffer"}
     for key, (name, replaces) in sparse_src.items():
         r = sparse_timing["bert_bench"]["results"][key]
         kernels.append({
@@ -2424,7 +2540,8 @@ def main(argv=None):
             "replaces": replaces, "launches": bert["launches"][key],
             "max_abs_err": sparse_errs[key], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "design": sparse_design[key]})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -34,7 +34,8 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
 # one lock per library, so builds of different sources run side by side
 _locks = {name: threading.Lock() for name in KERNELS}
 _libs = {}
-# name -> {"seconds": build wall (0.0 when reused), "ptxas": [lines]}
+# name -> {"seconds": build wall (0.0 when reused), "ptxas": [lines of
+# ptxas -v, with each function's spill line]}
 build_info = {}
 
 
@@ -87,8 +88,10 @@ def load_library(name):
                     f"(exit {proc.returncode}):\n{proc.stdout}"
                     f"{proc.stderr}")
             os.replace(tmp, so)
-            ptxas = [ln for ln in (proc.stdout + proc.stderr).splitlines()
-                     if "ptxas" in ln]
+            # ptxas -v: each entry function, its registers and its spills
+            ptxas = [ln.strip() for ln in
+                     (proc.stdout + proc.stderr).splitlines()
+                     if "ptxas" in ln or "spill" in ln]
             build_info[name] = {"seconds": seconds, "ptxas": ptxas}
         lib = ctypes.CDLL(str(so))
         _libs[name] = lib

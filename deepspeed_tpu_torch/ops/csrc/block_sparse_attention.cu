@@ -3,9 +3,9 @@
 //
 // Replaces three Pallas kernels of
 // deepspeed_tpu/ops/sparse_attention/block_sparse_attention.py:
-//   K7  `_pallas_impl` (kernel :241, pallas_call :320)         -> fwd_kernel
-//   K8a `_pallas_bwd_impl` dq_kernel (:381, pallas_call :429)  -> dq_kernel
-//   K8b `_pallas_bwd_impl` dkv_kernel (:450, pallas_call :508) -> dkv_kernel
+//   K7  `_pallas_impl` (kernel :241, pallas_call :320)  -> fwd_kernel
+//   K8a `_pallas_bwd_impl` dq_kernel (:381, call :429)  -> dq_mma_kernel
+//   K8b `_pallas_bwd_impl` dkv_kernel (:450, call :508) -> dkv_mma_kernel
 // Same functions: each (b*h, q-block) walks its row of the forward LUT
 // (`lut[h, qi, j]` for j < `nnz[h, qi]`, the nonzero k-blocks of the
 // layout) with an fp32 online softmax; dK/dV walk the transposed LUT
@@ -21,24 +21,63 @@
 // dropout multiplier is the counter hash at head b*H + h and global q/k
 // positions (`dropout_multiplier`, flash_attention.py:45), bit for bit.
 //
-// What bounds it on the card: at the BERT-Large bench shape (B 32, T 512,
-// H 16, D 64, block 64, 5 of 8 k-blocks a row) the work is 21.5 GFLOP
-// (K7) to 43 GFLOP (K8b) against 135-235 MB, so the H100's bound is its
-// memory rate; the kernel must read each visited K/V (or Q/dO) block once
-// per visit and keep every score on chip. One CTA of 256 threads owns a
-// tile of up to 64 rows of one layout block (a 128-block is two tiles),
-// stages the visited blocks' tiles in padded shared memory, and never
-// writes a score to device memory. This first version multiplies in fp32
-// FMA (the TPU kernel's own precision: it widens every operand to f32
-// before its dots), as K1-K3 do; each thread holds a (tile/16)^2 block
-// of the score tile and (tile/16) x D/16 of the accumulator in
-// registers. Tensor cores (mma.sync, then wgmma with TMA) come next.
+// What bounds them on the card: operations. At the BERT-Large bench
+// shape (B 32, T 512, H 16, D 64, block 64, 5 of 8 k-blocks a row) the
+// work is 21.5 GFLOP (K7), 32.2 GFLOP (K8a) and 43 GFLOP (K8b) against
+// 135-235 MB, 8-15x past the card's ridge point even at the fp32 rate.
+// So every kernel keeps the scores on chip and reads each visited K/V
+// (or Q/dO) block once per visit, and the multiplies set the time.
+//
+// K7 (`fwd_kernel`) multiplies in fp32 FMA: one CTA of 256 threads owns
+// a tile of up to 64 rows of one layout block (a 128-block is two
+// tiles), stages the visited blocks' tiles in padded shared memory, and
+// each thread holds a (tile/16)^2 block of the score tile and (tile/16)
+// x D/16 of the accumulator in registers.
+//
+// K8a (`dq_mma_kernel`) and K8b (`dkv_mma_kernel`) multiply on the
+// tensor cores at the reference's fp32 precision (the TPU kernels widen
+// every operand to f32 before their dots, :367, :401-417, :471-495):
+// every product goes through `mma.sync.m16n8k8` in TF32 as three passes,
+// hi.hi + hi.lo + lo.hi into fp32 accumulators (the small terms first),
+// with hi = tf32_rna(x) and lo = tf32_rna(x - hi); only lo.lo, about
+// 2^-22 of each product, is left out. bf16 inputs are exact in TF32, so
+// on bf16 the Q.K^T and dO.V^T products take one pass and those with an
+// fp32 left operand (dS, P) two. At 495 TFLOP/s over three passes the
+// bound is 165 TFLOP/s, 2.5x the fp32 FMA rate. Design:
+// - A CTA owns a tile of kR rows (64, or 32 at D > 128; a smaller block
+//   is one tile) of its own block: q rows for dQ, k rows for dK/dV.
+//   Warps are (kR / 16 row groups) x (D slices): each owns 16 rows and
+//   accumulates kDc columns of dQ (128) or of dK and dV (64 each) in
+//   registers; the row group's score chunk is recomputed by each slice.
+// - Own tiles (Q, dO or K, V) and the visited block's tiles (K, V or Q,
+//   dO, with K8b's lse / delta rows) sit in shared memory, rows padded to
+//   4 (mod 8) 32-bit words, so every fragment load below is free of bank
+//   conflicts and every row 16-byte aligned. The own tiles come in by
+//   cp.async (16 bytes a copy where the strides allow it) in the input
+//   type, and so do the visited blocks of K8b and of bf16, the next one
+//   copied into a second buffer while this one is computed. f32 K8a
+//   splits each visited element into hi and lo once, as it is staged (hi
+//   in the tile, lo in a plane beside it), instead of by each of the four
+//   warps at each use; that takes the second buffer's space, and the
+//   SM's other CTA computes while one stages. (K8b, with twice K8a's B
+//   loads a tile, ran slower that way on the card.)
+// - TF32 rounding is two integer instructions (tf32_rna), and the small
+//   passes of S and dP sum in their own accumulators, so no chain of
+//   dependent HMMA runs the whole length of D.
+// - Per chunk of up to 32 visited rows: S (S^T in K8b) and dP by
+//   m16n8k8 over D, then p, dS (and dropped p) elementwise in the
+//   accumulator fragment at each element's (q, k) (row g / g + 8,
+//   columns 2t / 2t + 1), then that fragment is the A operand of the
+//   next product as it stands: A's k index t / t + 4 is read as visited
+//   row 2t / 2t + 1, and B's k rows are read in the same order. Scores
+//   never leave registers.
 //
 // The layout block (16, 32, 64 or 128) is a template parameter; T is a
 // multiple of it (the wrapper checks), so no tile is ragged. q, k, v and
 // dO are read in place as [B, T, H, D] through their strides; outputs
-// are contiguous [B, T, H, D], lse / delta [B * H, T]. The LUTs are int32
-// device tensors the wrapper uploads once per layout.
+// are contiguous [B, T, H, D], lse / delta [B * H, T]. D <= 256: above,
+// no fp32 tile of >= 32 rows fits in shared memory beside its partners.
+// The LUTs are int32 device tensors the wrapper uploads once per layout.
 //
 // Interface: a plain C function (ctypes) taking a struct of 8-byte
 // fields, launched on the caller's stream; it returns the cudaError_t
@@ -47,6 +86,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 #include "attention_common.cuh"
 
@@ -230,308 +271,655 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(const SparseParams p) {
   }
 }
 
-// K8a: grid (B*H, nq * kSub); dq over the forward LUT's k-blocks
-template <typename T, int kBlk, int kJ>
-__global__ void __launch_bounds__(kThreads) dq_kernel(const SparseParams p) {
-  using G = Tile<kBlk>;
-  constexpr int kR = G::kR, kI = G::kI, kPs = G::kPs;
-  extern __shared__ float smem[];
-  const int D = static_cast<int>(p.D), ld = D + 1;
-  const int Tq = static_cast<int>(p.T), H = static_cast<int>(p.H);
-  const int nb = Tq / kBlk;
-  float* Qs = smem;
-  float* Gs = Qs + kR * ld;
-  float* Ks = Gs + kR * ld;
-  float* Vs = Ks + kR * ld;
-  float* Ss = Vs + kR * ld;
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh - b * H;
-  const int qi = blockIdx.y / G::kSub;
-  const int q0 = qi * kBlk + (blockIdx.y - qi * G::kSub) * kR;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const float sm_scale = static_cast<float>(p.sm_scale);
-  const float inv_keep = static_cast<float>(p.inv_keep);
-  const uint32_t seed = static_cast<uint32_t>(p.seed);
-  const uint32_t thr = static_cast<uint32_t>(p.keep_threshold);
-  const int row = h * nb + qi;
-  const int n = p.nnz[row];
-  const int32_t* lut = p.lut + static_cast<int64_t>(row) * p.max_nnz;
+// ---------------------------------------------------------------------------
+// K8a and K8b on the tensor cores: mma.sync m16n8k8 TF32, three passes
+// ---------------------------------------------------------------------------
 
-  float lse[kI], delta[kI], acc[kI][kJ];
-#pragma unroll
-  for (int i = 0; i < kI; ++i) {
-    const int64_t at = static_cast<int64_t>(bh) * Tq + q0 + ty * kI + i;
-    // an empty row never reads its -inf lse: its loop below is empty
-    lse[i] = n > 0 ? p.lse[at] : 0.0f;
-    delta[i] = p.delta[at];
-#pragma unroll
-    for (int j = 0; j < kJ; ++j) acc[i][j] = 0.0f;
+// round to TF32 (10 explicit mantissa bits), nearest, ties away from
+// zero: what cvt.rna.tf32.f32 gives for every finite x, in two integer
+// instructions (half a step added to the magnitude bits, the 13 low bits
+// cleared), which issue faster on the card than the cvt
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x as TF32 operands: hi = tf32(x), lo = tf32(x - hi); a value exact in
+// TF32 (a bf16 input) is its own hi and has no lo
+template <bool kExact>
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  if (kExact) {
+    hi = __float_as_uint(x);
+    lo = 0u;
+  } else {
+    hi = tf32_rna(x);
+    lo = tf32_rna(x - __uint_as_float(hi));
   }
-  if (n > 0) {
-    load_tile<T, kR>(Qs, static_cast<const T*>(p.q), p.q_sb, p.q_st, p.q_sh,
-                     b, h, q0, D, 1.0f);
-    load_tile<T, kR>(Gs, static_cast<const T*>(p.g), p.g_sb, p.g_st, p.g_sh,
-                     b, h, q0, D, 1.0f);
-  }
-  for (int e = 0; e < n * G::kSub; ++e) {
-    const int k0 = lut[e / G::kSub] * kBlk + (e % G::kSub) * kR;
-    __syncthreads();
-    load_tile<T, kR>(Ks, static_cast<const T*>(p.k), p.k_sb, p.k_st, p.k_sh,
-                     b, h, k0, D, 1.0f);
-    load_tile<T, kR>(Vs, static_cast<const T*>(p.v), p.v_sb, p.v_st, p.v_sh,
-                     b, h, k0, D, 1.0f);
-    __syncthreads();
-    float s[kI][kI], dp[kI][kI];
-#pragma unroll
-    for (int i = 0; i < kI; ++i)
-#pragma unroll
-      for (int j = 0; j < kI; ++j) s[i][j] = dp[i][j] = 0.0f;
-    for (int d = 0; d < D; ++d) {
-      float a[kI], gg[kI], kc[kI], vc[kI];
-#pragma unroll
-      for (int i = 0; i < kI; ++i) {
-        a[i] = Qs[(ty * kI + i) * ld + d];
-        gg[i] = Gs[(ty * kI + i) * ld + d];
-      }
-#pragma unroll
-      for (int j = 0; j < kI; ++j) {
-        kc[j] = Ks[(tx + 16 * j) * ld + d];
-        vc[j] = Vs[(tx + 16 * j) * ld + d];
-      }
-#pragma unroll
-      for (int i = 0; i < kI; ++i)
-#pragma unroll
-        for (int j = 0; j < kI; ++j) {
-          s[i][j] += a[i] * kc[j];
-          dp[i][j] += gg[i] * vc[j];
-        }
+}
+
+// c += a.b for one 16 x 8 x 8 tile (fragments per the PTX ISA: a0 (g, t),
+// a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4); b0 (t, g), b1 (t + 4,
+// g); c0/c1 (g, 2t / 2t + 1), c2/c3 (g + 8, 2t / 2t + 1))
+__device__ __forceinline__ void mma_tf32(float (&c)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a.b at fp32 precision: lo.hi + hi.lo + hi.hi, the small terms
+// first; an exact operand has no lo term
+template <bool kExactA, bool kExactB>
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4],
+                                     const uint32_t (&bh)[2],
+                                     const uint32_t (&bl)[2]) {
+  if (!kExactA) mma_tf32(c, al, bh);
+  if (!kExactB) mma_tf32(c, ah, bl);
+  mma_tf32(c, ah, bh);
+}
+
+// the same with the small terms summed in a second accumulator `cs`
+// (added to c once the dot is done): two dependent chains of HMMA half as
+// long, where a chain over D would leave the tensor pipe waiting
+template <bool kExactA, bool kExactB>
+__device__ __forceinline__ void mma3_split(float (&c)[4], float (&cs)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  if (!kExactA) mma_tf32(cs, al, bh);
+  if (!kExactB) mma_tf32(cs, ah, bl);
+  mma_tf32(c, ah, bh);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int kN>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kN));
+}
+
+// 32-bit words of a staged row of D elements of `bytes` each: the row
+// rounded up to 8 words, plus 4, so rows sit 4 (mod 8) words apart (no
+// bank conflict in any fragment load) and start 16-byte aligned
+__host__ __device__ __forceinline__ int row_words(int D, int bytes) {
+  return (D * bytes + 31) / 32 * 8 + 4;
+}
+
+// the tiling of one K8 instance: kDkv selects K8b
+template <int kBlk, int kDmax, bool kDkv>
+struct MmaTile {
+  static constexpr int kRmax = kDmax > 128 ? 32 : 64;
+  static constexpr int kR = kBlk < kRmax ? kBlk : kRmax;  // rows a CTA owns
+  static constexpr int kSub = kBlk / kR;        // tiles a block
+  static constexpr int kRowWarps = kR / 16;     // 16 rows a warp
+  // accumulator columns a warp owns: dQ 128, dK and dV 64 each
+  static constexpr int kDc = kDkv ? 64 : (kDmax < 128 ? kDmax : 128);
+  static constexpr int kSlices = kDmax / kDc;   // warps sharing 16 rows
+  static constexpr int kThreads = 32 * kRowWarps * kSlices;
+  static constexpr int kNt = kR / 8 < 4 ? kR / 8 : 4;  // n-tiles a chunk
+  static constexpr int kChunk = 8 * kNt;        // visited rows a chunk
+  static constexpr int kAcc = kDc / 8;          // n-tiles of an accumulator
+};
+
+// rows [r0, r0 + kR) of a [B, T, H, D] tensor of (b, h) into a staged
+// tile with `lde` elements a row: 16-byte cp.async copies when `vec`
+// (D * sizeof(T), base and strides all multiples of 16 bytes), else one
+// element a thread, synchronously
+template <typename T, int kR, int kThr>
+__device__ __forceinline__ void stage_tile(T* dst, const T* src, int64_t sb,
+                                           int64_t st, int64_t sh, int b,
+                                           int h, int r0, int D, int lde,
+                                           bool vec) {
+  const T* base = src + b * sb + h * sh + static_cast<int64_t>(r0) * st;
+  if (vec) {
+    constexpr int kPer = 16 / sizeof(T);
+    const int chunks = D / kPer;
+    for (int i = threadIdx.x; i < kR * chunks; i += kThr) {
+      const int r = i / chunks;
+      const int c = (i - r * chunks) * kPer;
+      cp_async16(dst + r * lde + c, base + r * st + c);
     }
-#pragma unroll
-    for (int i = 0; i < kI; ++i) {
-      const int qpos = q0 + ty * kI + i;
-#pragma unroll
-      for (int j = 0; j < kI; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        float x = s[i][j] * sm_scale;      // scores_block (:366-373)
-        if (p.causal && kpos > qpos) x = kMaskValue;
-        const float pr = expf(x - lse[i]);
-        float dpv = dp[i][j];
-        if (p.dropping) {
-          dpv *= drop_mult(seed, static_cast<uint32_t>(bh), qpos, kpos, thr,
-                           inv_keep);
-        }
-        Ss[(ty * kI + i) * kPs + tx + 16 * j] =
-            pr * (dpv - delta[i]) * sm_scale;
-      }
-    }
-    __syncthreads();
-    for (int kk = 0; kk < kR; ++kk) {
-      float ds[kI];
-#pragma unroll
-      for (int i = 0; i < kI; ++i) ds[i] = Ss[(ty * kI + i) * kPs + kk];
-#pragma unroll
-      for (int j = 0; j < kJ; ++j) {
-        const int d = tx + 16 * j;
-        const float kv = d < D ? Ks[kk * ld + d] : 0.0f;
-#pragma unroll
-        for (int i = 0; i < kI; ++i) acc[i][j] += ds[i] * kv;
-      }
-    }
-  }
-  T* dq = static_cast<T*>(p.dq);
-#pragma unroll
-  for (int i = 0; i < kI; ++i) {
-    const int t = q0 + ty * kI + i;
-    T* drow = dq + ((static_cast<int64_t>(b) * Tq + t) * H + h) * D;
-#pragma unroll
-    for (int j = 0; j < kJ; ++j) {
-      const int d = tx + 16 * j;
-      if (d < D) drow[d] = from_f32<T>(acc[i][j]);
+  } else {
+    for (int i = threadIdx.x; i < kR * D; i += kThr) {
+      const int r = i / D;
+      const int d = i - r * D;
+      dst[r * lde + d] = base[r * st + d];
     }
   }
 }
 
-// K8b: grid (B*H, nk * kSub); dk, dv over the transposed LUT's q-blocks.
-// Here ty owns kI keys and tx kI queries of the transposed score tile.
-template <typename T, int kBlk, int kJ>
-__global__ void __launch_bounds__(kThreads) dkv_kernel(const SparseParams p) {
-  using G = Tile<kBlk>;
-  constexpr int kR = G::kR, kI = G::kI, kPs = G::kPs;
-  extern __shared__ float smem[];
-  const int D = static_cast<int>(p.D), ld = D + 1;
+// A fragment of rows [r0, r0 + 16) x columns [c0, c0 + 8) of a staged tile
+template <bool kExact, typename T>
+__device__ __forceinline__ void load_a(const T* tile, int lde, int r0,
+                                       int c0, int g, int t,
+                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const T* at = tile + (r0 + g) * lde + c0 + t;
+  split_tf32<kExact>(to_f32(at[0]), hi[0], lo[0]);
+  split_tf32<kExact>(to_f32(at[8 * lde]), hi[1], lo[1]);
+  split_tf32<kExact>(to_f32(at[4]), hi[2], lo[2]);
+  split_tf32<kExact>(to_f32(at[8 * lde + 4]), hi[3], lo[3]);
+}
+
+// B fragment of X^T for X's rows [r0, r0 + 8) x columns [c0, c0 + 8):
+// b0 = X[r0 + g][c0 + t], b1 = X[r0 + g][c0 + t + 4]
+template <bool kExact, typename T>
+__device__ __forceinline__ void load_bt(const T* tile, int lde, int r0,
+                                        int c0, int g, int t,
+                                        uint32_t (&hi)[2], uint32_t (&lo)[2]) {
+  const T* at = tile + (r0 + g) * lde + c0 + t;
+  split_tf32<kExact>(to_f32(at[0]), hi[0], lo[0]);
+  split_tf32<kExact>(to_f32(at[4]), hi[1], lo[1]);
+}
+
+// B fragment of X's rows [r0, r0 + 8) x columns [c0, c0 + 8), its k rows
+// in the order an accumulator fragment gives them as an A operand (k
+// index t is row 2t, t + 4 is row 2t + 1): b0 = X[r0 + 2t][c0 + g], b1 =
+// X[r0 + 2t + 1][c0 + g]
+template <bool kExact, typename T>
+__device__ __forceinline__ void load_b_paired(const T* tile, int lde, int r0,
+                                              int c0, int g, int t,
+                                              uint32_t (&hi)[2],
+                                              uint32_t (&lo)[2]) {
+  const T* at = tile + (r0 + 2 * t) * lde + c0 + g;
+  split_tf32<kExact>(to_f32(at[0]), hi[0], lo[0]);
+  split_tf32<kExact>(to_f32(at[lde]), hi[1], lo[1]);
+}
+
+// an accumulator fragment (rows g / g + 8, columns 2t / 2t + 1) as the A
+// operand over those 8 columns, split into TF32 hi / lo
+__device__ __forceinline__ void acc_as_a(const float (&c)[4],
+                                         uint32_t (&hi)[4],
+                                         uint32_t (&lo)[4]) {
+  split_tf32<false>(c[0], hi[0], lo[0]);
+  split_tf32<false>(c[2], hi[1], lo[1]);
+  split_tf32<false>(c[1], hi[2], lo[2]);
+  split_tf32<false>(c[3], hi[3], lo[3]);
+}
+
+// four f32 values split into TF32 hi (to `hi`) and lo (to `lo`)
+__device__ __forceinline__ void store_split4(float* hi, float* lo,
+                                             float4 x) {
+  uint32_t h4[4], l4[4];
+  split_tf32<false>(x.x, h4[0], l4[0]);
+  split_tf32<false>(x.y, h4[1], l4[1]);
+  split_tf32<false>(x.z, h4[2], l4[2]);
+  split_tf32<false>(x.w, h4[3], l4[3]);
+  *reinterpret_cast<uint4*>(hi) = make_uint4(h4[0], h4[1], h4[2], h4[3]);
+  *reinterpret_cast<uint4*>(lo) = make_uint4(l4[0], l4[1], l4[2], l4[3]);
+}
+
+// rows [r0, r0 + kR) of a [B, T, H, D] f32 tensor of (b, h), split once
+// as they are staged: TF32 hi into `hi`, lo into `lo` (16-byte loads when
+// `vec`)
+template <int kR, int kThr>
+__device__ __forceinline__ void stage_split(float* hi, float* lo,
+                                           const float* src, int64_t sb,
+                                           int64_t st, int64_t sh, int b,
+                                           int h, int r0, int D, int lde,
+                                           bool vec) {
+  const float* base = src + b * sb + h * sh + static_cast<int64_t>(r0) * st;
+  if (vec) {
+    const int chunks = D / 4;
+#pragma unroll 4
+    for (int i = threadIdx.x; i < kR * chunks; i += kThr) {
+      const int r = i / chunks;
+      const int c = (i - r * chunks) * 4;
+      store_split4(hi + r * lde + c, lo + r * lde + c,
+                   *reinterpret_cast<const float4*>(base + r * st + c));
+    }
+  } else {
+    for (int i = threadIdx.x; i < kR * D; i += kThr) {
+      const int r = i / D;
+      const int d = i - r * D;
+      uint32_t h1, l1;
+      split_tf32<false>(base[r * st + d], h1, l1);
+      hi[r * lde + d] = __uint_as_float(h1);
+      lo[r * lde + d] = __uint_as_float(l1);
+    }
+  }
+}
+
+// load_bt and load_b_paired on a tile split at staging (hi, lo planes)
+__device__ __forceinline__ void load_bt_split(const float* hi,
+                                              const float* lo, int lde,
+                                              int r0, int c0, int g, int t,
+                                              uint32_t (&bh)[2],
+                                              uint32_t (&bl)[2]) {
+  const int i = (r0 + g) * lde + c0 + t;
+  bh[0] = __float_as_uint(hi[i]);
+  bh[1] = __float_as_uint(hi[i + 4]);
+  bl[0] = __float_as_uint(lo[i]);
+  bl[1] = __float_as_uint(lo[i + 4]);
+}
+
+__device__ __forceinline__ void load_b_paired_split(const float* hi,
+                                                    const float* lo, int lde,
+                                                    int r0, int c0, int g,
+                                                    int t, uint32_t (&bh)[2],
+                                                    uint32_t (&bl)[2]) {
+  const int i = (r0 + 2 * t) * lde + c0 + g;
+  bh[0] = __float_as_uint(hi[i]);
+  bh[1] = __float_as_uint(hi[i + lde]);
+  bl[0] = __float_as_uint(lo[i]);
+  bl[1] = __float_as_uint(lo[i + lde]);
+}
+
+// K8a (kDkv false): grid (B*H, nq * kSub); the CTA owns q rows, visits
+// the forward LUT's k-blocks and accumulates dQ += dS.K.
+// K8b (kDkv true): grid (B*H, nk * kSub); the CTA owns k rows, visits the
+// transposed LUT's q-blocks and accumulates dK += dS^T.Q, dV += P^T.dO.
+// In both, "own" rows index the score fragment's rows and "visited" rows
+// its columns: S = Q.K^T in K8a, S^T = K.Q^T in K8b.
+template <typename T, int kBlk, int kDmax, bool kDkv>
+__device__ __forceinline__ void bwd_mma(const SparseParams& p, bool vec) {
+  using G = MmaTile<kBlk, kDmax, kDkv>;
+  constexpr int kR = G::kR, kThr = G::kThreads, kNt = G::kNt;
+  constexpr int kAcc = G::kAcc, kDc = G::kDc;
+  constexpr bool kExact = sizeof(T) == 2;      // bf16 is exact in TF32
+  // f32 K8a splits each visited element once, at staging; K8b (twice
+  // the B loads a tile: dK and dV) and bf16 keep the double buffer
+  constexpr bool kSplitOnce = !kExact && !kDkv;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int D = static_cast<int>(p.D), Dp = (D + 7) & ~7;
   const int Tq = static_cast<int>(p.T), H = static_cast<int>(p.H);
   const int nb = Tq / kBlk;
-  float* Ks = smem;
-  float* Vs = Ks + kR * ld;
-  float* Qs = Vs + kR * ld;
-  float* Gs = Qs + kR * ld;
-  float* Pt = Gs + kR * ld;           // dropped probs, [key][query]
-  float* St = Pt + kR * kPs;          // scaled dS, [key][query]
-  float* lse_s = St + kR * kPs;
-  float* delta_s = lse_s + kR;
+  const int words = row_words(D, sizeof(T));
+  const int lde = words * 4 / static_cast<int>(sizeof(T));
+  const int tile = kR * words;                 // 32-bit words of a tile
+  T* own1 = reinterpret_cast<T*>(smem);        // Q (K8a) / K (K8b)
+  T* own2 = reinterpret_cast<T*>(smem + tile); // dO / V
+  float* stats = smem + 6 * tile;              // K8b: lse, delta [2][kR]
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh - b * H;
-  const int ki = blockIdx.y / G::kSub;
-  const int k0 = ki * kBlk + (blockIdx.y - ki * G::kSub) * kR;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int ob = blockIdx.y / G::kSub;
+  const int o0 = ob * kBlk + (blockIdx.y - ob * G::kSub) * kR;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rw = warp % G::kRowWarps, slice = warp / G::kRowWarps;
+  const int g = lane >> 2, t = lane & 3;
+  const int r16 = rw * 16;
   const float sm_scale = static_cast<float>(p.sm_scale);
   const float inv_keep = static_cast<float>(p.inv_keep);
   const uint32_t seed = static_cast<uint32_t>(p.seed);
   const uint32_t thr = static_cast<uint32_t>(p.keep_threshold);
-  const int row = h * nb + ki;
-  const int n = p.nnz[row];
-  const int32_t* lut = p.lut + static_cast<int64_t>(row) * p.max_nnz;
+  const int lrow = h * nb + ob;
+  const int n = p.nnz[lrow] * G::kSub;         // visited tiles
+  const int32_t* lut = p.lut + static_cast<int64_t>(lrow) * p.max_nnz;
+
+  const T* o1 = static_cast<const T*>(kDkv ? p.k : p.q);
+  const T* o2 = static_cast<const T*>(kDkv ? p.v : p.g);
+  const T* v1 = static_cast<const T*>(kDkv ? p.q : p.k);
+  const T* v2 = static_cast<const T*>(kDkv ? p.g : p.v);
+  const int64_t o1b = kDkv ? p.k_sb : p.q_sb, o1t = kDkv ? p.k_st : p.q_st,
+                o1h = kDkv ? p.k_sh : p.q_sh;
+  const int64_t o2b = kDkv ? p.v_sb : p.g_sb, o2t = kDkv ? p.v_st : p.g_st,
+                o2h = kDkv ? p.v_sh : p.g_sh;
+  const int64_t v1b = kDkv ? p.q_sb : p.k_sb, v1t = kDkv ? p.q_st : p.k_st,
+                v1h = kDkv ? p.q_sh : p.k_sh;
+  const int64_t v2b = kDkv ? p.g_sb : p.v_sb, v2t = kDkv ? p.g_st : p.v_st,
+                v2h = kDkv ? p.g_sh : p.v_sh;
+
+  // K8a: lse / delta of this thread's own rows (g, g + 8); an empty row
+  // never reads its -inf lse (its loop below is empty)
+  float lse_r[2] = {0.0f, 0.0f}, delta_r[2] = {0.0f, 0.0f};
+  if (!kDkv && n > 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int64_t at = static_cast<int64_t>(bh) * Tq + o0 + r16 + g + 8 * i;
+      lse_r[i] = p.lse[at];
+      delta_r[i] = p.delta[at];
+    }
+  }
+  float acc1[kAcc][4], acc2[kDkv ? kAcc : 1][4];
+#pragma unroll
+  for (int j = 0; j < kAcc; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc1[j][r] = 0.0f;
+#pragma unroll
+  for (int j = 0; j < (kDkv ? kAcc : 1); ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc2[j][r] = 0.0f;
 
   if (n > 0) {
-    load_tile<T, kR>(Ks, static_cast<const T*>(p.k), p.k_sb, p.k_st, p.k_sh,
-                     b, h, k0, D, 1.0f);
-    load_tile<T, kR>(Vs, static_cast<const T*>(p.v), p.v_sb, p.v_st, p.v_sh,
-                     b, h, k0, D, 1.0f);
+    // columns [D, Dp) of every tile are read by the last 8-column step
+    if (D < Dp) {
+      T* all = reinterpret_cast<T*>(smem);
+      for (int i = threadIdx.x; i < 6 * kR * (Dp - D); i += kThr) {
+        const int r = i / (Dp - D);
+        all[r * lde + D + (i - r * (Dp - D))] = from_f32<T>(0.0f);
+      }
+      __syncthreads();
+    }
+    // one visited tile at v0: y1 / y2 its K, V (K8a) or Q, dO (K8b)
+    // tiles. With kSplitOnce they hold the TF32 hi halves and y1lo / y2lo
+    // the lo halves; else the tiles as staged, split at each use (bf16
+    // needs no split)
+    auto visit = [&](int v0, const T* y1, const T* y2, const float* y1lo,
+                     const float* y2lo, const float* lse_s,
+                     const float* delta_s) {
+      auto frag_bt = [&](const T* y, const float* ylo, int r0, int c0,
+                         uint32_t (&bh_)[2], uint32_t (&bl_)[2]) {
+        if constexpr (!kSplitOnce) {
+          load_bt<kExact>(y, lde, r0, c0, g, t, bh_, bl_);
+        } else {
+          load_bt_split(reinterpret_cast<const float*>(y), ylo, lde, r0, c0,
+                        g, t, bh_, bl_);
+        }
+      };
+      auto frag_b_paired = [&](const T* y, const float* ylo, int r0, int c0,
+                               uint32_t (&bh_)[2], uint32_t (&bl_)[2]) {
+        if constexpr (!kSplitOnce) {
+          load_b_paired<kExact>(y, lde, r0, c0, g, t, bh_, bl_);
+        } else {
+          load_b_paired_split(reinterpret_cast<const float*>(y), ylo, lde,
+                              r0, c0, g, t, bh_, bl_);
+        }
+      };
+      for (int c0 = 0; c0 < kR; c0 += G::kChunk) {
+        float s[kNt][4], dp[kNt][4], s_lo[kNt][4], dp_lo[kNt][4];
+#pragma unroll
+        for (int j = 0; j < kNt; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            s[j][r] = dp[j][r] = s_lo[j][r] = dp_lo[j][r] = 0.0f;
+          }
+        for (int kk = 0; kk < Dp; kk += 8) {
+          uint32_t a1h[4], a1l[4], a2h[4], a2l[4];
+          load_a<kExact>(own1, lde, r16, kk, g, t, a1h, a1l);
+          load_a<kExact>(own2, lde, r16, kk, g, t, a2h, a2l);
+#pragma unroll
+          for (int j = 0; j < kNt; ++j) {
+            uint32_t bh_[2], bl_[2];
+            frag_bt(y1, y1lo, c0 + 8 * j, kk, bh_, bl_);
+            mma3_split<kExact, kExact>(s[j], s_lo[j], a1h, a1l, bh_, bl_);
+            frag_bt(y2, y2lo, c0 + 8 * j, kk, bh_, bl_);
+            mma3_split<kExact, kExact>(dp[j], dp_lo[j], a2h, a2l, bh_, bl_);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kNt; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            s[j][r] += s_lo[j][r];
+            dp[j][r] += dp_lo[j][r];
+          }
+        // p = exp(s sm_scale - lse) (:366-373); s becomes the scaled dS,
+        // dp (K8b) the dropped p
+#pragma unroll
+        for (int j = 0; j < kNt; ++j) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int own = o0 + r16 + g + 8 * (r >> 1);
+            const int col = c0 + 8 * j + 2 * t + (r & 1);
+            const int qpos = kDkv ? v0 + col : own;
+            const int kpos = kDkv ? own : v0 + col;
+            float x = s[j][r] * sm_scale;
+            if (p.causal && kpos > qpos) x = kMaskValue;
+            const float l = kDkv ? lse_s[col] : lse_r[r >> 1];
+            const float dl = kDkv ? delta_s[col] : delta_r[r >> 1];
+            const float pr = expf(x - l);
+            float mult = 1.0f;
+            if (p.dropping) {
+              mult = drop_mult(seed, static_cast<uint32_t>(bh), qpos, kpos,
+                               thr, inv_keep);
+            }
+            s[j][r] = pr * (dp[j][r] * mult - dl) * sm_scale;
+            if (kDkv) dp[j][r] = pr * mult;
+          }
+        }
+        // acc1 += dS.(K | Q), acc2 += P.dO over this chunk's visited rows
+#pragma unroll
+        for (int j = 0; j < kNt; ++j) {
+          uint32_t dsh[4], dsl[4], pdh[4], pdl[4];
+          acc_as_a(s[j], dsh, dsl);
+          if (kDkv) acc_as_a(dp[j], pdh, pdl);
+#pragma unroll
+          for (int a = 0; a < kAcc; ++a) {
+            const int d0 = slice * kDc + 8 * a;
+            if (d0 < Dp) {
+              uint32_t bh_[2], bl_[2];
+              frag_b_paired(y1, y1lo, c0 + 8 * j, d0, bh_, bl_);
+              mma3<false, kExact>(acc1[a], dsh, dsl, bh_, bl_);
+              if (kDkv) {
+                frag_b_paired(y2, y2lo, c0 + 8 * j, d0, bh_, bl_);
+                mma3<false, kExact>(acc2[kDkv ? a : 0], pdh, pdl, bh_, bl_);
+              }
+            }
+          }
+        }
+      }
+    };
+    auto tile_at = [&](int i) {
+      return reinterpret_cast<T*>(smem + i * tile);
+    };
+    stage_tile<T, kR, kThr>(own1, o1, o1b, o1t, o1h, b, h, o0, D, lde, vec);
+    stage_tile<T, kR, kThr>(own2, o2, o2b, o2t, o2h, b, h, o0, D, lde, vec);
+    if constexpr (!kSplitOnce) {
+      // the next visited tile is copied (cp.async) into the second buffer
+      // while this one is computed; the LUT is read a step ahead
+      auto prefetch = [&](int e) {
+        const int v0 = lut[e / G::kSub] * kBlk + (e % G::kSub) * kR;
+        const int buf = e & 1;
+        stage_tile<T, kR, kThr>(tile_at(2 + 2 * buf), v1, v1b, v1t, v1h, b,
+                                h, v0, D, lde, vec);
+        stage_tile<T, kR, kThr>(tile_at(3 + 2 * buf), v2, v2b, v2t, v2h, b,
+                                h, v0, D, lde, vec);
+        if (kDkv) {
+          // every visited q-block has this k-block in its LUT row: its
+          // rows' lse are finite
+          for (int i = threadIdx.x; i < kR; i += kThr) {
+            const int64_t at = static_cast<int64_t>(bh) * Tq + v0 + i;
+            cp_async4(stats + buf * 2 * kR + i, p.lse + at);
+            cp_async4(stats + buf * 2 * kR + kR + i, p.delta + at);
+          }
+        }
+      };
+      prefetch(0);
+      cp_async_commit();
+      for (int e = 0; e < n; ++e) {
+        const int buf = e & 1;
+        if (e + 1 < n) {
+          prefetch(e + 1);
+          cp_async_commit();
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        __syncthreads();
+        const float* lse_s = stats + buf * 2 * kR;
+        visit(lut[e / G::kSub] * kBlk + (e % G::kSub) * kR,
+              tile_at(2 + 2 * buf), tile_at(3 + 2 * buf), nullptr, nullptr,
+              lse_s, lse_s + kR);
+        __syncthreads();   // this buffer is refilled at step e + 2
+      }
+    } else {
+      // f32 K8a: each visited element is split into TF32 hi / lo once, as
+      // it is staged, instead of by every warp at every use; tiles 2, 3
+      // hold the hi halves and 4, 5 the lo halves (one buffer)
+      cp_async_commit();
+      cp_async_wait<0>();
+      float* y1 = smem + 2 * tile;
+      float* y2 = smem + 3 * tile;
+      float* y1lo = smem + 4 * tile;
+      float* y2lo = smem + 5 * tile;
+      const float* k32 = reinterpret_cast<const float*>(v1);
+      const float* v32 = reinterpret_cast<const float*>(v2);
+      // at D <= 64 (16-byte rows) the next visited tile waits in
+      // registers, 64 a thread, while this one is computed; past it the
+      // staging is synchronous
+      constexpr int kPre = kDmax == 64 ? kR * kDmax / (4 * kThr) : 1;
+      const bool reg_prefetch = kDmax == 64 && vec;
+      const int chunks = D / 4;
+      float4 pre1[kPre], pre2[kPre];
+      auto fetch = [&](int e) {
+        const int v0 = lut[e / G::kSub] * kBlk + (e % G::kSub) * kR;
+        const float* s1 = k32 + b * v1b + h * v1h +
+                          static_cast<int64_t>(v0) * v1t;
+        const float* s2 = v32 + b * v2b + h * v2h +
+                          static_cast<int64_t>(v0) * v2t;
+#pragma unroll
+        for (int k = 0; k < kPre; ++k) {
+          const int i = threadIdx.x + k * kThr;
+          if (i < kR * chunks) {
+            const int r = i / chunks;
+            const int c = (i - r * chunks) * 4;
+            pre1[k] = *reinterpret_cast<const float4*>(s1 + r * v1t + c);
+            pre2[k] = *reinterpret_cast<const float4*>(s2 + r * v2t + c);
+          }
+        }
+      };
+      if (reg_prefetch) fetch(0);
+      for (int e = 0; e < n; ++e) {
+        const int v0 = lut[e / G::kSub] * kBlk + (e % G::kSub) * kR;
+        __syncthreads();   // the previous tile is no longer read
+        if (reg_prefetch) {
+#pragma unroll
+          for (int k = 0; k < kPre; ++k) {
+            const int i = threadIdx.x + k * kThr;
+            if (i < kR * chunks) {
+              const int at = (i / chunks) * lde + (i % chunks) * 4;
+              store_split4(y1 + at, y1lo + at, pre1[k]);
+              store_split4(y2 + at, y2lo + at, pre2[k]);
+            }
+          }
+        } else {
+          stage_split<kR, kThr>(y1, y1lo, k32, v1b, v1t, v1h, b, h, v0, D,
+                                lde, vec);
+          stage_split<kR, kThr>(y2, y2lo, v32, v2b, v2t, v2h, b, h, v0, D,
+                                lde, vec);
+        }
+        __syncthreads();
+        if (reg_prefetch && e + 1 < n) fetch(e + 1);
+        visit(v0, reinterpret_cast<const T*>(y1),
+              reinterpret_cast<const T*>(y2), y1lo, y2lo, stats,
+              stats + kR);
+      }
+    }
   }
-  float dk[kI][kJ], dv[kI][kJ];
+  // acc1 -> dQ (K8a) / dK (K8b), acc2 -> dV
+  T* out1 = static_cast<T*>(kDkv ? p.dk : p.dq);
+  T* out2 = static_cast<T*>(p.dv);
 #pragma unroll
-  for (int i = 0; i < kI; ++i)
+  for (int i = 0; i < 2; ++i) {
+    const int own = o0 + r16 + g + 8 * i;
+    const int64_t at = ((static_cast<int64_t>(b) * Tq + own) * H + h) * D;
 #pragma unroll
-    for (int j = 0; j < kJ; ++j) dk[i][j] = dv[i][j] = 0.0f;
-  for (int e = 0; e < n * G::kSub; ++e) {
-    // every visited q-block has this k-block in its LUT row: its rows'
-    // lse are finite
-    const int q0 = lut[e / G::kSub] * kBlk + (e % G::kSub) * kR;
-    __syncthreads();
-    load_tile<T, kR>(Qs, static_cast<const T*>(p.q), p.q_sb, p.q_st, p.q_sh,
-                     b, h, q0, D, 1.0f);
-    load_tile<T, kR>(Gs, static_cast<const T*>(p.g), p.g_sb, p.g_st, p.g_sh,
-                     b, h, q0, D, 1.0f);
-    for (int c = threadIdx.x; c < kR; c += kThreads) {
-      const int64_t at = static_cast<int64_t>(bh) * Tq + q0 + c;
-      lse_s[c] = p.lse[at];
-      delta_s[c] = p.delta[at];
-    }
-    __syncthreads();
-    float s[kI][kI], dp[kI][kI];
+    for (int a = 0; a < kAcc; ++a) {
 #pragma unroll
-    for (int i = 0; i < kI; ++i)
-#pragma unroll
-      for (int j = 0; j < kI; ++j) s[i][j] = dp[i][j] = 0.0f;
-    for (int d = 0; d < D; ++d) {
-      float kr[kI], vr[kI], qc[kI], gc[kI];
-#pragma unroll
-      for (int i = 0; i < kI; ++i) {
-        kr[i] = Ks[(ty * kI + i) * ld + d];
-        vr[i] = Vs[(ty * kI + i) * ld + d];
-      }
-#pragma unroll
-      for (int j = 0; j < kI; ++j) {
-        qc[j] = Qs[(tx + 16 * j) * ld + d];
-        gc[j] = Gs[(tx + 16 * j) * ld + d];
-      }
-#pragma unroll
-      for (int i = 0; i < kI; ++i)
-#pragma unroll
-        for (int j = 0; j < kI; ++j) {
-          s[i][j] += kr[i] * qc[j];
-          dp[i][j] += vr[i] * gc[j];
+      for (int c = 0; c < 2; ++c) {
+        const int d = slice * kDc + 8 * a + 2 * t + c;
+        if (d < D) {
+          out1[at + d] = from_f32<T>(acc1[a][2 * i + c]);
+          if (kDkv) out2[at + d] = from_f32<T>(acc2[kDkv ? a : 0][2 * i + c]);
         }
-    }
-#pragma unroll
-    for (int i = 0; i < kI; ++i) {
-      const int kpos = k0 + ty * kI + i;
-#pragma unroll
-      for (int j = 0; j < kI; ++j) {
-        const int c = tx + 16 * j;
-        const int qpos = q0 + c;
-        float x = s[i][j] * sm_scale;
-        if (p.causal && kpos > qpos) x = kMaskValue;
-        const float pr = expf(x - lse_s[c]);
-        float mult = 1.0f;
-        if (p.dropping) {
-          mult = drop_mult(seed, static_cast<uint32_t>(bh), qpos, kpos, thr,
-                           inv_keep);
-        }
-        Pt[(ty * kI + i) * kPs + c] = pr * mult;
-        St[(ty * kI + i) * kPs + c] =
-            pr * (dp[i][j] * mult - delta_s[c]) * sm_scale;
-      }
-    }
-    __syncthreads();
-    for (int c = 0; c < kR; ++c) {
-      float pr[kI], ds[kI];
-#pragma unroll
-      for (int i = 0; i < kI; ++i) {
-        pr[i] = Pt[(ty * kI + i) * kPs + c];
-        ds[i] = St[(ty * kI + i) * kPs + c];
-      }
-#pragma unroll
-      for (int j = 0; j < kJ; ++j) {
-        const int d = tx + 16 * j;
-        const float gv = d < D ? Gs[c * ld + d] : 0.0f;
-        const float qv = d < D ? Qs[c * ld + d] : 0.0f;
-#pragma unroll
-        for (int i = 0; i < kI; ++i) {
-          dv[i][j] += pr[i] * gv;
-          dk[i][j] += ds[i] * qv;
-        }
-      }
-    }
-  }
-  T* dkp = static_cast<T*>(p.dk);
-  T* dvp = static_cast<T*>(p.dv);
-#pragma unroll
-  for (int i = 0; i < kI; ++i) {
-    const int kpos = k0 + ty * kI + i;
-    const int64_t at = ((static_cast<int64_t>(b) * Tq + kpos) * H + h) * D;
-#pragma unroll
-    for (int j = 0; j < kJ; ++j) {
-      const int d = tx + 16 * j;
-      if (d < D) {
-        dkp[at + d] = from_f32<T>(dk[i][j]);
-        dvp[at + d] = from_f32<T>(dv[i][j]);
       }
     }
   }
 }
 
-template <typename F>
-cudaError_t launch_kernel(F kernel, size_t bytes, dim3 grid,
-                          const SparseParams& p, cudaStream_t st) {
+// K8a
+template <typename T, int kBlk, int kDmax>
+__global__ void __launch_bounds__(MmaTile<kBlk, kDmax, false>::kThreads)
+    dq_mma_kernel(const SparseParams p, int vec) {
+  bwd_mma<T, kBlk, kDmax, false>(p, vec != 0);
+}
+
+// K8b
+template <typename T, int kBlk, int kDmax>
+__global__ void __launch_bounds__(MmaTile<kBlk, kDmax, true>::kThreads)
+    dkv_mma_kernel(const SparseParams p, int vec) {
+  bwd_mma<T, kBlk, kDmax, true>(p, vec != 0);
+}
+
+template <typename T, int kBlk, int kJ>
+cudaError_t launch_fwd(const SparseParams& p, cudaStream_t st) {
+  using G = Tile<kBlk>;
+  constexpr int kR = G::kR, kPs = G::kPs;
+  const size_t ld = static_cast<size_t>(p.D) + 1;
+  const size_t bytes = (3 * kR * ld + kR * kPs) * sizeof(float);
+  auto kernel = fwd_kernel<T, kBlk, kJ>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, bytes, st>>>(p);
+  kernel<<<dim3(static_cast<unsigned>(p.B * p.H),
+                static_cast<unsigned>(p.T / kBlk * G::kSub)),
+           kThreads, bytes, st>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T, int kBlk, int kJ>
+bool aligned16(const void* ptr) {
+  return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0;
+}
+
+// 16-byte cp.async copies need 16-byte rows, base addresses and strides
+template <typename T>
+bool vec_rows(const SparseParams& p) {
+  const int64_t s = sizeof(T);
+  if ((p.D * s) % 16 != 0) return false;
+  for (const void* ptr : {p.q, p.k, p.v, p.g}) {
+    if (!aligned16(ptr)) return false;
+  }
+  for (int64_t stride : {p.q_sb, p.q_st, p.q_sh, p.k_sb, p.k_st, p.k_sh,
+                         p.v_sb, p.v_st, p.v_sh, p.g_sb, p.g_st, p.g_sh}) {
+    if ((stride * s) % 16 != 0) return false;
+  }
+  return true;
+}
+
+template <typename T, int kBlk, int kDmax, bool kDkv>
+cudaError_t launch_mma(const SparseParams& p, cudaStream_t st) {
+  using G = MmaTile<kBlk, kDmax, kDkv>;
+  const int words = row_words(static_cast<int>(p.D), sizeof(T));
+  const size_t bytes =
+      (6 * static_cast<size_t>(G::kR) * words + (kDkv ? 4 * G::kR : 0)) *
+      sizeof(float);
+  auto kernel = kDkv ? dkv_mma_kernel<T, kBlk, kDmax>
+                     : dq_mma_kernel<T, kBlk, kDmax>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(static_cast<unsigned>(p.B * p.H),
+                static_cast<unsigned>(p.T / kBlk * G::kSub)),
+           G::kThreads, bytes, st>>>(p, vec_rows<T>(p) ? 1 : 0);
+  return cudaGetLastError();
+}
+
+template <typename T, int kBlk, int kDmax, int kJ>
 cudaError_t launch_typed(int which, const SparseParams& p, cudaStream_t st) {
-  using G = Tile<kBlk>;
-  constexpr int kR = G::kR, kPs = G::kPs;
-  const size_t ld = static_cast<size_t>(p.D) + 1;
-  const dim3 grid(static_cast<unsigned>(p.B * p.H),
-                  static_cast<unsigned>(p.T / kBlk * G::kSub));
   switch (which) {
-    case 0:
-      return launch_kernel(fwd_kernel<T, kBlk, kJ>,
-                           (3 * kR * ld + kR * kPs) * sizeof(float), grid, p,
-                           st);
-    case 1:
-      return launch_kernel(dq_kernel<T, kBlk, kJ>,
-                           (4 * kR * ld + kR * kPs) * sizeof(float), grid, p,
-                           st);
-    case 2:
-      return launch_kernel(dkv_kernel<T, kBlk, kJ>,
-                           (4 * kR * ld + 2 * kR * kPs + 2 * kR) *
-                               sizeof(float),
-                           grid, p, st);
-    default:
-      return cudaErrorInvalidValue;
+    case 0: return launch_fwd<T, kBlk, kJ>(p, st);
+    case 1: return launch_mma<T, kBlk, kDmax, false>(p, st);
+    case 2: return launch_mma<T, kBlk, kDmax, true>(p, st);
+    default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename T, int kBlk>
 cudaError_t launch_dim(int which, const SparseParams& p, cudaStream_t st) {
-  if (p.D <= 64) return launch_typed<T, kBlk, 4>(which, p, st);
-  return launch_typed<T, kBlk, 8>(which, p, st);
+  if (p.D <= 64) return launch_typed<T, kBlk, 64, 4>(which, p, st);
+  if (p.D <= 128) return launch_typed<T, kBlk, 128, 8>(which, p, st);
+  return launch_typed<T, kBlk, 256, 16>(which, p, st);
 }
 
 template <typename T>
@@ -551,7 +939,7 @@ extern "C" int block_sparse_attention_launch(int which,
                                              const SparseParams* p,
                                              int dtype, void* stream) {
   if (p->B < 1 || p->H < 1 || p->T < p->block || p->T % p->block != 0 ||
-      p->D < 1 || p->D > 128 || p->max_nnz < 1) {
+      p->D < 1 || p->D > 256 || p->max_nnz < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);

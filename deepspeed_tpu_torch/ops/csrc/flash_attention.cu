@@ -24,8 +24,8 @@
 // Two routes, chosen by the caller for each call (`AttnParams.
 // tensor_core`; the wrapper decides it from the inputs, as the reference
 // dispatches on shape, :794) and never switched here:
-// - Tensor cores, for bf16 inputs that meet TMA's rule (16-byte-aligned
-//   base addresses and strides): `fwd_wgmma_kernel` (K1),
+// - Tensor cores, for bf16 inputs with D <= 128 that meet TMA's rule
+//   (16-byte-aligned base addresses and strides): `fwd_wgmma_kernel` (K1),
 //   `dq_wgmma_kernel` (K2), `dkv_wgmma_kernel` (K3). A producer warp
 //   feeds a TMA ring of 128-byte swizzled tiles in shared memory through
 //   mbarriers, and two consumer warpgroups run every product as bf16
@@ -45,9 +45,14 @@
 //   One CTA owns a 64-row Q tile (K1, K2) or a 64-key KV tile (K3),
 //   stages the other side's 64-row tiles in shared memory as f32, and
 //   each thread holds a 4 x 4 block of the score tile and a 4 x D/16
-//   block of the accumulator in registers. TF32 for f32 inputs would be
+//   block of the accumulator in registers. Past D 128, K2 and K3 take
+//   32-row tiles (2 x 2 a thread), since four 64-row f32 tiles no
+//   longer fit in shared memory. TF32 for f32 inputs would be
 //   a precision change; fp16 on the tensor cores needs its own range
 //   argument for the lo term (fp16 subnormals).
+//
+// Head dims up to 256 (the FMA route; the tensor-core kernels hold up to
+// 128). Above 256 no f32 tile of >= 32 rows fits beside its partners.
 //
 // Causal tiles above the diagonal are skipped (K1/K2 stop at the
 // diagonal tile; K3 starts there). Any T and S: rows and keys past the
@@ -96,9 +101,10 @@ struct AttnParams {
 
 namespace {
 
-constexpr int kB = 64;          // Q-tile rows = KV-tile keys
-constexpr int kThreads = 256;   // 16 x 16: ty owns 4 rows, tx 4 columns
-constexpr int kPs = kB + 1;     // padded row stride of a score tile
+// FMA kernels: a tile of kBr (64, or 32 for K2 / K3 past D 128) Q rows
+// = KV keys; 16 x 16 threads, ty owns kBr / 16 rows and tx kBr / 16
+// columns of the score tile
+constexpr int kThreads = 256;
 
 __device__ __forceinline__ uint32_t global_head(const AttnParams& p,
                                                 int bh) {
@@ -107,16 +113,16 @@ __device__ __forceinline__ uint32_t global_head(const AttnParams& p,
       p.num_heads) - H) + static_cast<int>(p.head_offset));
 }
 
-// rows [r0, r0 + kB) of a [B, L, H, D] tensor of (b, h) into a padded
-// f32 tile [kB][D + 1], times `scale`; rows past L are zero
-template <typename T>
+// rows [r0, r0 + kRows) of a [B, L, H, D] tensor of (b, h) into a padded
+// f32 tile [kRows][D + 1], times `scale`; rows past L are zero
+template <int kRows, typename T>
 __device__ __forceinline__ void load_tile(float* dst, const T* src,
                                           int64_t sb, int64_t sl, int64_t sh,
                                           int b, int h, int r0, int L,
                                           int D, float scale) {
   const int ld = D + 1;
   const T* base = src + b * sb + h * sh;
-  for (int i = threadIdx.x; i < kB * D; i += kThreads) {
+  for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
     const int r = i / D;
     const int d = i - r * D;
     const int row = r0 + r;
@@ -124,20 +130,21 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
   }
 }
 
-// K1: grid (B*H, ceil(T / kB)); the heaviest causal tiles start first
-template <typename T, int kJ>
+// K1: grid (B*H, ceil(T / kBr)); the heaviest causal tiles start first
+template <typename T, int kJ, int kBr>
 __global__ void __launch_bounds__(kThreads) fwd_kernel(const AttnParams p) {
   extern __shared__ float smem[];
+  constexpr int kI = kBr / 16, kPs = kBr + 1;
   const int D = static_cast<int>(p.D), ld = D + 1;
   const int Tq = static_cast<int>(p.T), S = static_cast<int>(p.S);
   const int H = static_cast<int>(p.H);
   float* Qs = smem;
-  float* Ks = Qs + kB * ld;
-  float* Vs = Ks + kB * ld;
-  float* Ps = Vs + kB * ld;
+  float* Ks = Qs + kBr * ld;
+  float* Vs = Ks + kBr * ld;
+  float* Ps = Vs + kBr * ld;
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh - b * H;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kB;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBr;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const float sm_scale = static_cast<float>(p.sm_scale);
   const float inv_keep = static_cast<float>(p.inv_keep);
@@ -146,46 +153,46 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(const AttnParams p) {
   const uint32_t thr = static_cast<uint32_t>(p.keep_threshold);
 
   // the TPU kernel scales q before its dot (:333)
-  load_tile(Qs, static_cast<const T*>(p.q), p.q_sb, p.q_st, p.q_sh, b, h, q0,
-            Tq, D, sm_scale);
-  float m[4], l[4], acc[4][kJ];
+  load_tile<kBr>(Qs, static_cast<const T*>(p.q), p.q_sb, p.q_st, p.q_sh, b, h,
+                 q0, Tq, D, sm_scale);
+  float m[kI], l[kI], acc[kI][kJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < kI; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.0f;
 #pragma unroll
     for (int j = 0; j < kJ; ++j) acc[i][j] = 0.0f;
   }
-  const int k_end = p.causal ? min(S, q0 + kB) : S;
-  for (int k0 = 0; k0 < k_end; k0 += kB) {
+  const int k_end = p.causal ? min(S, q0 + kBr) : S;
+  for (int k0 = 0; k0 < k_end; k0 += kBr) {
     __syncthreads();
-    load_tile(Ks, static_cast<const T*>(p.k), p.k_sb, p.k_st, p.k_sh, b, h,
-              k0, S, D, 1.0f);
-    load_tile(Vs, static_cast<const T*>(p.v), p.v_sb, p.v_st, p.v_sh, b, h,
-              k0, S, D, 1.0f);
+    load_tile<kBr>(Ks, static_cast<const T*>(p.k), p.k_sb, p.k_st, p.k_sh, b, h,
+                   k0, S, D, 1.0f);
+    load_tile<kBr>(Vs, static_cast<const T*>(p.v), p.v_sb, p.v_st, p.v_sh, b, h,
+                   k0, S, D, 1.0f);
     __syncthreads();
-    float s[4][4];
+    float s[kI][kI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
+      for (int j = 0; j < kI; ++j) s[i][j] = 0.0f;
     for (int d = 0; d < D; ++d) {
-      float a[4], c[4];
+      float a[kI], c[kI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qs[(ty * 4 + i) * ld + d];
+      for (int i = 0; i < kI; ++i) a[i] = Qs[(ty * kI + i) * ld + d];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) c[j] = Ks[(tx + 16 * j) * ld + d];
+      for (int j = 0; j < kI; ++j) c[j] = Ks[(tx + 16 * j) * ld + d];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < kI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] += a[i] * c[j];
+        for (int j = 0; j < kI; ++j) s[i][j] += a[i] * c[j];
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i;
+    for (int i = 0; i < kI; ++i) {
+      const int qpos = q0 + ty * kI + i;
       float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < kI; ++j) {
         const int kpos = k0 + tx + 16 * j;
         float x = s[i][j];
         if (p.causal && kpos > qpos) x = kMaskValue;
@@ -206,14 +213,14 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(const AttnParams p) {
       const float corr = expf(m[i] - m_new);
       float psum = 0.0f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < kI; ++j) {
         const int kpos = k0 + tx + 16 * j;
         float pr = expf(s[i][j] - m_new);
         psum += pr;
         if (p.dropping) {
           pr *= drop_mult(seed, ghead, qpos, kpos, thr, inv_keep);
         }
-        Ps[(ty * 4 + i) * kPs + tx + 16 * j] = pr;
+        Ps[(ty * kI + i) * kPs + tx + 16 * j] = pr;
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1) {
@@ -225,24 +232,24 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(const AttnParams p) {
       for (int j = 0; j < kJ; ++j) acc[i][j] *= corr;
     }
     __syncthreads();
-    const int kn = min(kB, S - k0);
+    const int kn = min(kBr, S - k0);
     for (int kk = 0; kk < kn; ++kk) {
-      float pr[4];
+      float pr[kI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pr[i] = Ps[(ty * 4 + i) * kPs + kk];
+      for (int i = 0; i < kI; ++i) pr[i] = Ps[(ty * kI + i) * kPs + kk];
 #pragma unroll
       for (int j = 0; j < kJ; ++j) {
         const int d = tx + 16 * j;
         const float vv = d < D ? Vs[kk * ld + d] : 0.0f;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] += pr[i] * vv;
+        for (int i = 0; i < kI; ++i) acc[i][j] += pr[i] * vv;
       }
     }
   }
   T* out = static_cast<T*>(p.out);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + ty * 4 + i;
+  for (int i = 0; i < kI; ++i) {
+    const int t = q0 + ty * kI + i;
     if (t >= Tq) continue;
     const float l_safe = fmaxf(l[i], 1e-30f);
     T* orow = out + ((static_cast<int64_t>(b) * Tq + t) * H + h) * D;
@@ -256,21 +263,22 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(const AttnParams p) {
   }
 }
 
-// K2: grid (B*H, ceil(T / kB)); dq accumulated over KV tiles
-template <typename T, int kJ>
+// K2: grid (B*H, ceil(T / kBr)); dq accumulated over KV tiles
+template <typename T, int kJ, int kBr>
 __global__ void __launch_bounds__(kThreads) dq_kernel(const AttnParams p) {
   extern __shared__ float smem[];
+  constexpr int kI = kBr / 16, kPs = kBr + 1;
   const int D = static_cast<int>(p.D), ld = D + 1;
   const int Tq = static_cast<int>(p.T), S = static_cast<int>(p.S);
   const int H = static_cast<int>(p.H);
   float* Qs = smem;
-  float* Gs = Qs + kB * ld;
-  float* Ks = Gs + kB * ld;
-  float* Vs = Ks + kB * ld;
-  float* Ss = Vs + kB * ld;
+  float* Gs = Qs + kBr * ld;
+  float* Ks = Gs + kBr * ld;
+  float* Vs = Ks + kBr * ld;
+  float* Ss = Vs + kBr * ld;
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh - b * H;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kB;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBr;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const float sm_scale = static_cast<float>(p.sm_scale);
   const float inv_keep = static_cast<float>(p.inv_keep);
@@ -278,58 +286,58 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const AttnParams p) {
   const uint32_t seed = static_cast<uint32_t>(p.seed);
   const uint32_t thr = static_cast<uint32_t>(p.keep_threshold);
 
-  load_tile(Qs, static_cast<const T*>(p.q), p.q_sb, p.q_st, p.q_sh, b, h, q0,
-            Tq, D, 1.0f);
-  load_tile(Gs, static_cast<const T*>(p.g), p.g_sb, p.g_st, p.g_sh, b, h, q0,
-            Tq, D, 1.0f);
-  float lse[4], delta[4], acc[4][kJ];
+  load_tile<kBr>(Qs, static_cast<const T*>(p.q), p.q_sb, p.q_st, p.q_sh, b, h,
+                 q0, Tq, D, 1.0f);
+  load_tile<kBr>(Gs, static_cast<const T*>(p.g), p.g_sb, p.g_st, p.g_sh, b, h,
+                 q0, Tq, D, 1.0f);
+  float lse[kI], delta[kI], acc[kI][kJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + ty * 4 + i;
+  for (int i = 0; i < kI; ++i) {
+    const int t = q0 + ty * kI + i;
     const int64_t at = static_cast<int64_t>(bh) * Tq + t;
     lse[i] = t < Tq ? p.lse[at] : 0.0f;
     delta[i] = t < Tq ? p.delta[at] : 0.0f;
 #pragma unroll
     for (int j = 0; j < kJ; ++j) acc[i][j] = 0.0f;
   }
-  const int k_end = p.causal ? min(S, q0 + kB) : S;
-  for (int k0 = 0; k0 < k_end; k0 += kB) {
+  const int k_end = p.causal ? min(S, q0 + kBr) : S;
+  for (int k0 = 0; k0 < k_end; k0 += kBr) {
     __syncthreads();
-    load_tile(Ks, static_cast<const T*>(p.k), p.k_sb, p.k_st, p.k_sh, b, h,
-              k0, S, D, 1.0f);
-    load_tile(Vs, static_cast<const T*>(p.v), p.v_sb, p.v_st, p.v_sh, b, h,
-              k0, S, D, 1.0f);
+    load_tile<kBr>(Ks, static_cast<const T*>(p.k), p.k_sb, p.k_st, p.k_sh, b, h,
+                   k0, S, D, 1.0f);
+    load_tile<kBr>(Vs, static_cast<const T*>(p.v), p.v_sb, p.v_st, p.v_sh, b, h,
+                   k0, S, D, 1.0f);
     __syncthreads();
-    float s[4][4], dp[4][4];
+    float s[kI][kI], dp[kI][kI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.0f;
+      for (int j = 0; j < kI; ++j) s[i][j] = dp[i][j] = 0.0f;
     for (int d = 0; d < D; ++d) {
-      float a[4], gg[4], kc[4], vc[4];
+      float a[kI], gg[kI], kc[kI], vc[kI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = Qs[(ty * 4 + i) * ld + d];
-        gg[i] = Gs[(ty * 4 + i) * ld + d];
+      for (int i = 0; i < kI; ++i) {
+        a[i] = Qs[(ty * kI + i) * ld + d];
+        gg[i] = Gs[(ty * kI + i) * ld + d];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < kI; ++j) {
         kc[j] = Ks[(tx + 16 * j) * ld + d];
         vc[j] = Vs[(tx + 16 * j) * ld + d];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < kI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < kI; ++j) {
           s[i][j] += a[i] * kc[j];
           dp[i][j] += gg[i] * vc[j];
         }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i;
+    for (int i = 0; i < kI; ++i) {
+      const int qpos = q0 + ty * kI + i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < kI; ++j) {
         const int kpos = k0 + tx + 16 * j;
         float ds = 0.0f;
         if (kpos < S) {
@@ -343,28 +351,28 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const AttnParams p) {
           }
           ds = pr * (dpv - delta[i]) * sm_scale;
         }
-        Ss[(ty * 4 + i) * kPs + tx + 16 * j] = ds;
+        Ss[(ty * kI + i) * kPs + tx + 16 * j] = ds;
       }
     }
     __syncthreads();
-    const int kn = min(kB, S - k0);
+    const int kn = min(kBr, S - k0);
     for (int kk = 0; kk < kn; ++kk) {
-      float ds[4];
+      float ds[kI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = Ss[(ty * 4 + i) * kPs + kk];
+      for (int i = 0; i < kI; ++i) ds[i] = Ss[(ty * kI + i) * kPs + kk];
 #pragma unroll
       for (int j = 0; j < kJ; ++j) {
         const int d = tx + 16 * j;
         const float kv = d < D ? Ks[kk * ld + d] : 0.0f;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] += ds[i] * kv;
+        for (int i = 0; i < kI; ++i) acc[i][j] += ds[i] * kv;
       }
     }
   }
   T* dq = static_cast<T*>(p.dq);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + ty * 4 + i;
+  for (int i = 0; i < kI; ++i) {
+    const int t = q0 + ty * kI + i;
     if (t >= Tq) continue;
     T* row = dq + ((static_cast<int64_t>(b) * Tq + t) * H + h) * D;
 #pragma unroll
@@ -375,25 +383,26 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const AttnParams p) {
   }
 }
 
-// K3: grid (B*H, ceil(S / kB)); dk, dv (and dbias partials) over Q tiles.
-// Here ty owns 4 keys and tx 4 queries of the transposed score tile.
-template <typename T, int kJ>
+// K3: grid (B*H, ceil(S / kBr)); dk, dv (and dbias partials) over Q tiles.
+// Here ty owns kI keys and tx kI queries of the transposed score tile.
+template <typename T, int kJ, int kBr>
 __global__ void __launch_bounds__(kThreads) dkv_kernel(const AttnParams p) {
   extern __shared__ float smem[];
+  constexpr int kI = kBr / 16, kPs = kBr + 1;
   const int D = static_cast<int>(p.D), ld = D + 1;
   const int Tq = static_cast<int>(p.T), S = static_cast<int>(p.S);
   const int H = static_cast<int>(p.H);
   float* Ks = smem;
-  float* Vs = Ks + kB * ld;
-  float* Qs = Vs + kB * ld;
-  float* Gs = Qs + kB * ld;
-  float* Pt = Gs + kB * ld;           // dropped probs, [key][query]
-  float* St = Pt + kB * kPs;          // scaled dS, [key][query]
-  float* lse_s = St + kB * kPs;
-  float* delta_s = lse_s + kB;
+  float* Vs = Ks + kBr * ld;
+  float* Qs = Vs + kBr * ld;
+  float* Gs = Qs + kBr * ld;
+  float* Pt = Gs + kBr * ld;           // dropped probs, [key][query]
+  float* St = Pt + kBr * kPs;          // scaled dS, [key][query]
+  float* lse_s = St + kBr * kPs;
+  float* delta_s = lse_s + kBr;
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh - b * H;
-  const int k0 = blockIdx.y * kB;     // causal: low keys see most rows
+  const int k0 = blockIdx.y * kBr;     // causal: low keys see most rows
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const float sm_scale = static_cast<float>(p.sm_scale);
   const float inv_keep = static_cast<float>(p.inv_keep);
@@ -401,64 +410,64 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const AttnParams p) {
   const uint32_t seed = static_cast<uint32_t>(p.seed);
   const uint32_t thr = static_cast<uint32_t>(p.keep_threshold);
 
-  load_tile(Ks, static_cast<const T*>(p.k), p.k_sb, p.k_st, p.k_sh, b, h, k0,
-            S, D, 1.0f);
-  load_tile(Vs, static_cast<const T*>(p.v), p.v_sb, p.v_st, p.v_sh, b, h, k0,
-            S, D, 1.0f);
-  float dk[4][kJ], dv[4][kJ], dbias[4], kbias[4];
+  load_tile<kBr>(Ks, static_cast<const T*>(p.k), p.k_sb, p.k_st, p.k_sh, b, h,
+                 k0, S, D, 1.0f);
+  load_tile<kBr>(Vs, static_cast<const T*>(p.v), p.v_sb, p.v_st, p.v_sh, b, h,
+                 k0, S, D, 1.0f);
+  float dk[kI][kJ], dv[kI][kJ], dbias[kI], kbias[kI];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kpos = k0 + ty * 4 + i;
+  for (int i = 0; i < kI; ++i) {
+    const int kpos = k0 + ty * kI + i;
     dbias[i] = 0.0f;
     kbias[i] = (p.bias != nullptr && kpos < S) ? p.bias[b * S + kpos] : 0.0f;
 #pragma unroll
     for (int j = 0; j < kJ; ++j) dk[i][j] = dv[i][j] = 0.0f;
   }
   // Q tiles strictly above the diagonal see nothing of this KV tile
-  const int q_start = p.causal ? (k0 / kB) * kB : 0;
-  for (int q0 = q_start; q0 < Tq; q0 += kB) {
+  const int q_start = p.causal ? (k0 / kBr) * kBr : 0;
+  for (int q0 = q_start; q0 < Tq; q0 += kBr) {
     __syncthreads();
-    load_tile(Qs, static_cast<const T*>(p.q), p.q_sb, p.q_st, p.q_sh, b, h,
-              q0, Tq, D, 1.0f);
-    load_tile(Gs, static_cast<const T*>(p.g), p.g_sb, p.g_st, p.g_sh, b, h,
-              q0, Tq, D, 1.0f);
-    for (int c = threadIdx.x; c < kB; c += kThreads) {
+    load_tile<kBr>(Qs, static_cast<const T*>(p.q), p.q_sb, p.q_st, p.q_sh, b, h,
+                   q0, Tq, D, 1.0f);
+    load_tile<kBr>(Gs, static_cast<const T*>(p.g), p.g_sb, p.g_st, p.g_sh, b, h,
+                   q0, Tq, D, 1.0f);
+    for (int c = threadIdx.x; c < kBr; c += kThreads) {
       const int t = q0 + c;
       const int64_t at = static_cast<int64_t>(bh) * Tq + t;
       lse_s[c] = t < Tq ? p.lse[at] : 0.0f;
       delta_s[c] = t < Tq ? p.delta[at] : 0.0f;
     }
     __syncthreads();
-    float s[4][4], dp[4][4];
+    float s[kI][kI], dp[kI][kI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.0f;
+      for (int j = 0; j < kI; ++j) s[i][j] = dp[i][j] = 0.0f;
     for (int d = 0; d < D; ++d) {
-      float kr[4], vr[4], qc[4], gc[4];
+      float kr[kI], vr[kI], qc[kI], gc[kI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        kr[i] = Ks[(ty * 4 + i) * ld + d];
-        vr[i] = Vs[(ty * 4 + i) * ld + d];
+      for (int i = 0; i < kI; ++i) {
+        kr[i] = Ks[(ty * kI + i) * ld + d];
+        vr[i] = Vs[(ty * kI + i) * ld + d];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < kI; ++j) {
         qc[j] = Qs[(tx + 16 * j) * ld + d];
         gc[j] = Gs[(tx + 16 * j) * ld + d];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < kI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < kI; ++j) {
           s[i][j] += kr[i] * qc[j];
           dp[i][j] += vr[i] * gc[j];
         }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kpos = k0 + ty * 4 + i;
+    for (int i = 0; i < kI; ++i) {
+      const int kpos = k0 + ty * kI + i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < kI; ++j) {
         const int c = tx + 16 * j;
         const int qpos = q0 + c;
         float pd = 0.0f, ds = 0.0f;
@@ -476,18 +485,18 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const AttnParams p) {
           dbias[i] += ds0;
           ds = ds0 * sm_scale;
         }
-        Pt[(ty * 4 + i) * kPs + c] = pd;
-        St[(ty * 4 + i) * kPs + c] = ds;
+        Pt[(ty * kI + i) * kPs + c] = pd;
+        St[(ty * kI + i) * kPs + c] = ds;
       }
     }
     __syncthreads();
-    const int qn = min(kB, Tq - q0);
+    const int qn = min(kBr, Tq - q0);
     for (int c = 0; c < qn; ++c) {
-      float pr[4], ds[4];
+      float pr[kI], ds[kI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pr[i] = Pt[(ty * 4 + i) * kPs + c];
-        ds[i] = St[(ty * 4 + i) * kPs + c];
+      for (int i = 0; i < kI; ++i) {
+        pr[i] = Pt[(ty * kI + i) * kPs + c];
+        ds[i] = St[(ty * kI + i) * kPs + c];
       }
 #pragma unroll
       for (int j = 0; j < kJ; ++j) {
@@ -495,7 +504,7 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const AttnParams p) {
         const float gv = d < D ? Gs[c * ld + d] : 0.0f;
         const float qv = d < D ? Qs[c * ld + d] : 0.0f;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < kI; ++i) {
           dv[i][j] += pr[i] * gv;
           dk[i][j] += ds[i] * qv;
         }
@@ -505,8 +514,8 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const AttnParams p) {
   T* dkp = static_cast<T*>(p.dk);
   T* dvp = static_cast<T*>(p.dv);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kpos = k0 + ty * 4 + i;
+  for (int i = 0; i < kI; ++i) {
+    const int kpos = k0 + ty * kI + i;
     float db = dbias[i];
 #pragma unroll
     for (int off = 8; off > 0; off >>= 1) {
@@ -528,49 +537,49 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const AttnParams p) {
   }
 }
 
-template <typename T, int kJ>
-cudaError_t launch_typed(int which, const AttnParams& p, cudaStream_t st) {
-  const int ld = static_cast<int>(p.D) + 1;
-  const unsigned bh = static_cast<unsigned>(p.B * p.H);
-  const unsigned nq = static_cast<unsigned>((p.T + kB - 1) / kB);
-  const unsigned nk = static_cast<unsigned>((p.S + kB - 1) / kB);
-  size_t bytes;
-  cudaError_t err;
+// fp32 bytes of each FMA kernel's shared memory at row tile kBr
+size_t fma_smem_bytes(int which, int kBr, int64_t D) {
+  const size_t ld = static_cast<size_t>(D) + 1, ps = kBr + 1;
   switch (which) {
-    case 0:
-      bytes = (3 * kB * ld + kB * kPs) * sizeof(float);
-      err = cudaFuncSetAttribute(fwd_kernel<T, kJ>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(bytes));
-      if (err != cudaSuccess) return err;
-      fwd_kernel<T, kJ><<<dim3(bh, nq), kThreads, bytes, st>>>(p);
-      break;
-    case 1:
-      bytes = (4 * kB * ld + kB * kPs) * sizeof(float);
-      err = cudaFuncSetAttribute(dq_kernel<T, kJ>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(bytes));
-      if (err != cudaSuccess) return err;
-      dq_kernel<T, kJ><<<dim3(bh, nq), kThreads, bytes, st>>>(p);
-      break;
-    case 2:
-      bytes = (4 * kB * ld + 2 * kB * kPs + 2 * kB) * sizeof(float);
-      err = cudaFuncSetAttribute(dkv_kernel<T, kJ>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(bytes));
-      if (err != cudaSuccess) return err;
-      dkv_kernel<T, kJ><<<dim3(bh, nk), kThreads, bytes, st>>>(p);
-      break;
-    default:
-      return cudaErrorInvalidValue;
+    case 0: return (3 * kBr * ld + kBr * ps) * sizeof(float);
+    case 1: return (4 * kBr * ld + kBr * ps) * sizeof(float);
+    default: return (4 * kBr * ld + 2 * kBr * ps + 2 * kBr) * sizeof(float);
   }
+}
+
+template <typename F>
+cudaError_t launch_fma(F kernel, int which, int kBr, unsigned rows,
+                       const AttnParams& p, cudaStream_t st) {
+  const size_t bytes = fma_smem_bytes(which, kBr, p.D);
+  const unsigned bh = static_cast<unsigned>(p.B * p.H);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(bh, (rows + kBr - 1) / kBr), kThreads, bytes, st>>>(p);
   return cudaGetLastError();
 }
 
+// kBf rows a tile for K1, kBb for K2 / K3
+template <typename T, int kJ, int kBf, int kBb>
+cudaError_t launch_typed(int which, const AttnParams& p, cudaStream_t st) {
+  const unsigned T_ = static_cast<unsigned>(p.T);
+  const unsigned S_ = static_cast<unsigned>(p.S);
+  switch (which) {
+    case 0: return launch_fma(fwd_kernel<T, kJ, kBf>, 0, kBf, T_, p, st);
+    case 1: return launch_fma(dq_kernel<T, kJ, kBb>, 1, kBb, T_, p, st);
+    case 2: return launch_fma(dkv_kernel<T, kJ, kBb>, 2, kBb, S_, p, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Past D 128 the K2 / K3 tiles of 64 rows (263 KB and more at D 256) do
+// not fit in shared memory: they take 32 rows; K1 keeps 64 (214 KB).
 template <typename T>
 cudaError_t launch_dim(int which, const AttnParams& p, cudaStream_t st) {
-  if (p.D <= 64) return launch_typed<T, 4>(which, p, st);
-  return launch_typed<T, 8>(which, p, st);
+  if (p.D <= 64) return launch_typed<T, 4, 64, 64>(which, p, st);
+  if (p.D <= 128) return launch_typed<T, 8, 64, 64>(which, p, st);
+  return launch_typed<T, 16, 64, 32>(which, p, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -1726,7 +1735,7 @@ cudaError_t launch_tile_check(const void* a, const void* b, float* c,
 extern "C" int flash_attention_launch(int which, const AttnParams* p,
                                       int dtype, void* stream) {
   if (p->B < 1 || p->H < 1 || p->T < 1 || p->S < 1 || p->D < 1 ||
-      p->D > 128 || p->num_heads < p->H) {
+      p->D > 256 || p->num_heads < p->H) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (which < 0 || which > 2) return static_cast<int>(cudaErrorInvalidValue);
@@ -1735,7 +1744,10 @@ extern "C" int flash_attention_launch(int which, const AttnParams* p,
   // the tensor cores, every other input on the FMA kernels. A tensor-core
   // launch on inputs that break the rule is refused, never rerouted.
   if (p->tensor_core) {
-    if (dtype != kBF16) return static_cast<int>(cudaErrorInvalidValue);
+    // the wgmma kernels hold at most a 128-wide head
+    if (dtype != kBF16 || p->D > 128) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
     if (!tma_legal(which, *p)) {
       return static_cast<int>(cudaErrorMisalignedAddress);
     }

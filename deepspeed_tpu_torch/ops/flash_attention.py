@@ -20,14 +20,16 @@ in ``.routes``.
 
 The route of a CUDA call is decided once, from the inputs
 (:func:`attention_route`), as the reference dispatches on shape
-(``flash_attention.py:794``): bf16 inputs that meet TMA's rule run on
+(``flash_attention.py:794``): bf16 inputs with a head dim of at most
+128 that meet TMA's rule run on
 Hopper's tensor cores (TMA-fed ``wgmma``, fp32 accumulation, the fp32
 intermediates P and dS as a bf16 hi + lo pair, so they compute what the
 reference's f32 dots compute); every other input runs the hand-written
 fp32-FMA kernels: f32 and fp16, and bf16 inputs that break the rule
 (:func:`tma_violation`: a 16-byte-aligned base address and 16-byte
 strides, so a head dim like 36, or a view one element into its storage,
-takes the FMA kernels). The kernel library refuses a tensor-core launch
+takes the FMA kernels), and bf16 past head dim 128. The kernels take
+head dims up to ``MAX_HEAD_DIM`` (256). The kernel library refuses a tensor-core launch
 on inputs that break the rule; it never reroutes.
 :func:`flash_attention` is the public, differentiable entry
 (a ``torch.autograd.Function``); ``delta`` and the head-sum of the
@@ -66,7 +68,11 @@ _FOLD = 0x7F4A7C15
 
 # tile of the CUDA kernels (rows of a Q tile = keys of a KV tile)
 BLOCK = 64
-MAX_HEAD_DIM = 128
+# head dims the kernels take: up to 256 on the FMA kernels (above it no
+# f32 tile of >= 32 rows fits in shared memory beside its partners), up
+# to 128 on the tensor-core kernels
+MAX_HEAD_DIM = 256
+TENSOR_CORE_MAX_HEAD_DIM = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 TMA_ALIGN = 16      # bytes: a tensor map's base address and strides
 ROUTES = ("tensor_core", "fma")
@@ -494,10 +500,11 @@ def tma_violation(shape, strides, itemsize, address):
 
 def attention_route(q, k, v, g=None, lse=None, delta=None):
     """The kernel route of one call on these inputs: ``"tensor_core"``
-    when they are bf16 and every one the call reads through TMA (q, k,
-    v; for the backward also dO and the flat lse and delta) meets
+    when they are bf16 with a head dim of at most
+    ``TENSOR_CORE_MAX_HEAD_DIM`` and every one the call reads through TMA
+    (q, k, v; for the backward also dO and the flat lse and delta) meets
     :func:`tma_violation`'s rule, else ``"fma"``."""
-    if q.dtype != torch.bfloat16:
+    if q.dtype != torch.bfloat16 or q.shape[-1] > TENSOR_CORE_MAX_HEAD_DIM:
         return "fma"
     tensors = [q, k, v] + ([] if g is None else
                            [g, lse.reshape(-1), delta.reshape(-1)])

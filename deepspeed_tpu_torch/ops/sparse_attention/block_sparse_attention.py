@@ -16,6 +16,12 @@ kernels in ``ops/csrc/block_sparse_attention.cu``:
 - K8b :func:`block_sparse_attention_bwd_dkv` (``_pallas_bwd_impl``
   dkv_kernel): dK and dV over the transposed LUT.
 
+K8a and K8b multiply on the tensor cores in TF32 at fp32 precision:
+each operand x enters as ``tf32_split(x)``'s hi and lo and each product
+as hi.hi + hi.lo + lo.hi in fp32 (bf16 inputs are exact in TF32 and
+skip their lo terms). K7 multiplies in fp32 FMA. Head dims up to
+``MAX_HEAD_DIM`` (256).
+
 Each wrapper runs its plain PyTorch version (``*_reference``, the
 kernel's walk and arithmetic, vectorised over heads and blocks) on CPU
 tensors and launches its kernel on CUDA tensors (a build or launch
@@ -54,7 +60,9 @@ from deepspeed_tpu_torch.ops.flash_attention import (
 )
 
 BLOCKS = (16, 32, 64, 128)     # layout blocks the kernels are built for
-MAX_HEAD_DIM = 128
+# above 256 no fp32 tile of >= 32 rows fits in shared memory beside its
+# partners (ops/csrc/block_sparse_attention.cu)
+MAX_HEAD_DIM = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -193,6 +201,28 @@ _xla_impl.calls = 0
 # plain versions of K7, K8a, K8b: the kernels' walk over the LUT, one LUT
 # column j at a time for every (b, h, block) at once
 # ---------------------------------------------------------------------------
+
+def tf32_split(x):
+    """``(hi, lo)`` f32 tensors: the operands the K8 kernels feed the
+    tensor cores for an fp32 value x. ``hi`` is x rounded to TF32 (10
+    explicit mantissa bits) to nearest with ties away from zero, as
+    ``cvt.rna.tf32.f32`` rounds: on the 13 low mantissa bits of the
+    magnitude, a carry moving into the exponent; ``lo`` the same rounding
+    of ``x - hi`` (exact in fp32). hi.hi + hi.lo + lo.hi leaves out only
+    lo.lo, about 2^-22 of a product. A value with its 13 low bits zero
+    (every bf16 value) has ``lo == 0``; NaN stays NaN."""
+
+    def rna(v):
+        # on the int32 view: adding half a step to the magnitude bits
+        # rounds it half away from zero for either sign (only a NaN's
+        # bits can wrap, and NaN is kept)
+        out = ((v.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+        return torch.where(torch.isnan(v), v, out)
+
+    x = x.to(torch.float32)
+    hi = rna(x)
+    return hi, rna(x - hi)
+
 
 def _pair_positions(lut_j, block, device):
     """Global positions of the own block rows and of the visited block

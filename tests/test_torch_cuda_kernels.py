@@ -9,7 +9,7 @@ harness in ``tests/conftest.py`` out of the run:
 fast cases (flash decode K5/K6, flash attention K1-K3 with the bf16
 tensor-core K1/K2/K3, the FMA route for bf16 off TMA's rule, and the
 wgmma tile check, fused Adam K4,
-block-sparse attention K7/K8). Tolerance atol 1e-5 on f32 outputs of
+block-sparse attention K7/K8; K1-K3 and K7/K8 at head dim 256). Tolerance atol 1e-5 on f32 outputs of
 magnitude ~1: both sides accumulate in fp32, in a different order.
 """
 
@@ -303,6 +303,48 @@ def test_bf16_dq_runs_on_the_tensor_cores(cuda, d, causal, bias, rate):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_flash_attention_kernels_at_head_dim_256(cuda, dtype):
+    """K1-K3 at D 256 (K2 and K3 on 32-row tiles) against their plain
+    versions at chip_smoke.py's gate; every dtype, bf16 included, takes
+    the FMA route past D 128."""
+    import chip_smoke
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    b, t, h, d = 2, 200, 2, 256
+    rng = np.random.default_rng(11)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((b, t, h, d)).astype(
+        np.float32)).to(cuda, getattr(torch, dtype)) for _ in range(4))
+    kb = torch.from_numpy(rng.standard_normal((b, t)).astype(
+        np.float32)).to(cuda)
+    kw = dict(key_bias=kb, causal=True, dropout_rate=0.1, dropout_seed=-77,
+              dropout_head_offset=2, dropout_num_heads=5)
+    wrappers = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv)
+    before = [dict(w.routes) for w in wrappers]
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    want_out, want_lse = fa.flash_attention_fwd_reference(q, k, v, **kw)
+    delta = (g.float() * want_out.float()).sum(-1).permute(0, 2, 1) \
+        .reshape(b * h, t).contiguous()
+    dq = fa.flash_attention_bwd_dq(q, k, v, g, want_lse, delta, **kw)
+    want_dq = fa.flash_attention_bwd_dq_reference(q, k, v, g, want_lse,
+                                                  delta, **kw)
+    dk, dv, db = fa.flash_attention_bwd_dkv(q, k, v, g, want_lse, delta, **kw)
+    want = fa.flash_attention_bwd_dkv_reference(q, k, v, g, want_lse, delta,
+                                                **kw)
+    for w, was in zip(wrappers, before):
+        assert w.routes == dict(was, fma=was["fma"] + 1)
+    rtol = chip_smoke.TRAIN_RTOL
+    for got, ref, tol in [(out, want_out, rtol[dtype]),
+                          (lse, want_lse, rtol["float32"]),
+                          (dq, want_dq, rtol[dtype]),
+                          (dk, want[0], rtol[dtype]),
+                          (dv, want[1], rtol[dtype]),
+                          (db, want[2], rtol["float32"])]:
+        err, ok = chip_smoke._close(torch, got, ref, tol)
+        assert ok, err
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["misaligned", "d36"])
 def test_bf16_view_off_the_tma_alignment_raises(cuda, layout):
     """bf16 inputs off TMA's rule no longer raise: a view one element
@@ -479,6 +521,52 @@ def test_block_sparse_kernels_match_plain_versions(cuda, block, causal,
                       (dq, want_dq), (dk, want_dk), (dv, want_dv)]:
         assert torch.isfinite(got).all()
         torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block,causal,rate,dtype", [
+    (16, False, 0.1, "float32"), (64, True, 0.0, "float32"),
+    (32, True, 0.1, "bfloat16"), (128, False, 0.0, "bfloat16")])
+def test_block_sparse_kernels_at_head_dim_256(cuda, block, causal, rate,
+                                              dtype):
+    """K7, K8a and K8b at D 256 against their plain versions at
+    chip_smoke.py's gate (K8 on 32-row tiles with the head split over
+    warps)."""
+    import chip_smoke
+    bsa = importlib.import_module(BSA)
+    rng = np.random.default_rng(6)
+    b, h, d = 2, 3, 256
+    t = 4 * block
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((b, t, h, d)).astype(
+        np.float32)).to(cuda, getattr(torch, dtype)) for _ in range(4))
+    lut, nnz, lut_t, nnz_t = bsa.layout_tables(
+        _sparse_layout(block, t, h, causal), cuda)
+    kw = dict(causal=causal, dropout_rate=rate, dropout_seed=-99)
+    out, lse = bsa.block_sparse_attention_fwd(q, k, v, lut, nnz, block, **kw)
+    want_out, want_lse = bsa.block_sparse_attention_fwd_reference(
+        q, k, v, lut, nnz, block, **kw)
+    delta = (g.float() * want_out.float()).sum(-1).permute(0, 2, 1) \
+        .reshape(b * h, t).contiguous()
+    dq = bsa.block_sparse_attention_bwd_dq(q, k, v, g, want_lse, delta, lut,
+                                           nnz, block, **kw)
+    dk, dv = bsa.block_sparse_attention_bwd_dkv(q, k, v, g, want_lse, delta,
+                                                lut_t, nnz_t, block, **kw)
+    want_dq = bsa.block_sparse_attention_bwd_dq_reference(
+        q, k, v, g, want_lse, delta, lut, nnz, block, **kw)
+    want_dk, want_dv = bsa.block_sparse_attention_bwd_dkv_reference(
+        q, k, v, g, want_lse, delta, lut_t, nnz_t, block, **kw)
+    empty = torch.isinf(want_lse)
+    assert bool(empty.any()) and torch.equal(torch.isinf(lse), empty)
+    rtol = chip_smoke.TRAIN_RTOL
+    for got, ref, tol in [(out, want_out, rtol[dtype]),
+                          (lse.masked_fill(empty, 0.0),
+                           want_lse.masked_fill(empty, 0.0),
+                           rtol["float32"]),
+                          (dq, want_dq, rtol[dtype]),
+                          (dk, want_dk, rtol[dtype]),
+                          (dv, want_dv, rtol[dtype])]:
+        err, ok = chip_smoke._close(torch, got, ref, tol)
+        assert ok, err
 
 
 @pytest.mark.cuda
