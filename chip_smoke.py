@@ -8,6 +8,9 @@ paths.
 
     python3 chip_smoke.py                 # every phase (one GPU)
     python3 chip_smoke.py --kernels-only  # device, build, kernel checks
+    python3 chip_smoke.py --turns DIR     # device, build, then K1-K8
+                                          # against the checkout at DIR
+                                          # (the parent commit's), in turns
 
 Phases, each printing one JSON line:
 
@@ -19,19 +22,25 @@ Phases, each printing one JSON line:
    (wgmma) and ``UTMALDG`` (TMA load) instructions in the SASS of the
    bf16 K1, K2 and K3 functions (head dim 64 and 128): no ``HGMMA``
    fails; the count of ``HMMA`` (mma.sync TF32) instructions in the SASS
-   of each of the 48 K8a / K8b instances (``block_sparse_k8_hmma``: 2
-   kinds x f32/bf16 x 4 blocks x head-dim bounds 64/128/256), none
-   fails, and their registers and spills from ``ptxas -v``
-   (``block_sparse_k8_ptxas``).
+   of each of the 144 K7 / K8a / K8b instances (``block_sparse_hmma``: 3
+   kinds x f32/bf16/fp16 x 4 blocks x head-dim bounds 64/128/256 and the
+   256 one that holds the column chunks' code for heads past 256, from
+   the block-sparse source's six builds, one per storage type and part:
+   forward, backward), none fails, and their registers and spills from
+   ``ptxas -v``
+   (``block_sparse_ptxas``; a K7 instance that spills fails).
 3. ``kernel_check`` — the CUDA ``flash_decode`` against
    ``flash_decode_reference`` on the card: B=8, S=512, H=12/D=64 and
    H=16/D=96 (plus H=4/D=256), positions {0, 63, 127, 128, 300, 511}
    and random ones, storage bf16/f32/int8/f8e4m3fn/f8e5m2 under bf16
-   and f32 queries; a poisoned-tail bitwise check per storage dtype.
+   and f32 queries; a poisoned-tail bitwise check per storage dtype;
+   head dims 320 and 512 (column chunks of 256) on bf16 and int8
+   caches.
 4. ``paged_kernel_check`` — the CUDA ``flash_decode_paged`` (K6)
    against ``flash_decode_paged_reference`` on the card: B=8, page
    size 128, 4 pages a row (S=512), H=12/D=64 and H=16/D=96 (plus
-   H=4/D=256), positions {0, 127, 128, 255, 300, 511} and random ones,
+   H=4/D=256, and D 320 / 512 on bf16 and int8 pools), positions {0,
+   127, 128, 255, 300, 511} and random ones,
    shuffled page tables, the five storage dtypes under bf16 and f32
    queries; per storage dtype, table entries past each row's occupancy
    pointed at a poisoned trash page and then at an out-of-range id
@@ -86,7 +95,9 @@ Phases, each printing one JSON line:
    once as three tensors; bf16 off TMA's rule (D 36, and views one
    element into their storage) on the FMA kernels; head dims 160 and 256
    in f32, bf16 and fp16 (causal, key bias, dropout 0.1) on the FMA
-   kernels; every case checks the route each kernel took; the K1 dropout mask read back
+   kernels, and 320 and 512 (column chunks of 256; causal with a key
+   bias and dropout, and plain); every case checks the route each
+   kernel took; the K1 dropout mask read back
    bitwise against ``dropout_multiplier`` (f32; on bf16 its zeros);
    fused Adam K4 against its plain version over 3 steps and a skipped
    one, both modes, leaves of odd sizes.
@@ -114,23 +125,29 @@ Phases, each printing one JSON line:
    K7 (out, lse), K8a (dq) and K8b (dk, dv) against their plain versions:
    blocks 16/32/64/128 at T = 8 blocks, D 64 and 128, bf16 and f32,
    causal and not, dropout 0 and 0.1, over a Fixed layout with an empty
-   q-block row; the same at D 256 for blocks 16 and 64; then all five layout families (per-head where they
-   allow it) and a hand-made layout with an empty row and an unvisited
-   k-block at T 512; the shape ``train_bert_sparse`` gives the kernels
-   (B 32, T 512, H 16, D 64, block 64, the bench's Fixed layout,
-   dropout 0.1) in f32 and bf16; K7's dropout mask read back bitwise
-   (q = k = 0, v = I); a dense layout through K7 against K1.
+   q-block row; fp16 at D 64 for blocks 16 and 64; head dims 320
+   (block 16) and 512 (block 32) in f32, bf16 and fp16 (column chunks of
+   256); the same at D 256 for blocks 16 and 64; then all five layout
+   families (per-head where they allow it) and a hand-made layout with
+   an empty row and an unvisited k-block at T 512; the shape
+   ``train_bert_sparse`` gives the kernels (B 32, T 512, H 16, D 64,
+   block 64, the bench's Fixed layout, dropout 0.1) in f32, bf16 and
+   fp16; K7's dropout mask read back bitwise (q = k = 0, v = I); a dense
+   layout through K7 against K1.
 14. ``sparse_kernel_timing`` — CUDA-event ms per call of K7, K8a, K8b at
    the BERT bench shape (B 32, T 512, H 16, D 64, block 64, the Fixed
    layout of density 0.625) in f32, the dtype the encoder gives them,
-   and in bf16, and at the causal long-context shape in bf16 (B 1,
+   and in bf16 and fp16, and at the causal long-context shape in bf16 (B 1,
    T 4096, block 128, unidirectional Fixed), beside their plain
    versions, their bounds and ``F.scaled_dot_product_attention`` with
    the layout as a boolean mask, forward and backward (a yardstick
-   only; the port never calls it). K8a / K8b rows add
+   only; the port never calls it). K7 / K8a / K8b rows add
    ``tf32x3_ops_ms`` (their operations at 495 / 3 TFLOP/s, the TF32
    tensor cores in three passes); on f32 rows their bound is read at
-   that rate.
+   that rate (``fp32_ops_ms`` keeps the CUDA-core figure beside it).
+   Then ``wide_head_timing``: one row at head dim 512 for each kernel
+   the column chunks reach (K1-K3, K7/K8, K5/K6), beside its plain
+   version, its bound and SDPA where it runs at that head dim.
 15. ``train_bert_sparse`` — BERT-Large (seq 512, bf16 over fp32 masters
    with the encoder layers in fp32 as in the JAX model, dropout 0.1, the bench's Fixed block-sparse layout, seeded random
    params) through ``initialize`` with the JAX bench's config
@@ -253,32 +270,38 @@ def _sass_counts(lib_path, nvcc):
     return counts
 
 
-# the K8a / K8b instances (dtype, layout block, head-dim bound) and the
-# SASS instruction that shows they run on the tensor cores (mma.sync TF32)
+# the K7 / K8a / K8b instances (dtype, layout block, head-dim bound, and
+# whether it holds the column chunks' code past 256) and the SASS
+# instruction that shows they run on the tensor cores (mma.sync TF32)
 SPARSE_MMA = re.compile(
-    r"(dq|dkv)_mma_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E")
+    r"(fwd|dq|dkv)_mma_kernelI(f|13__nv_bfloat16|6__half)Li(\d+)ELi(\d+)E"
+    r"Lb([01])E")
+SPARSE_KINDS = {"fwd": "K7", "dq": "K8a", "dkv": "K8b"}
+SPARSE_DTYPES = {"f": "float32", "13__nv_bfloat16": "bfloat16",
+                 "6__half": "float16"}
+# 3 kinds x 3 dtypes x 4 blocks x (3 head-dim bounds + the wide 256)
+SPARSE_INSTANCES = 144
 
 
 def _sparse_instance(name):
     m = SPARSE_MMA.search(name)
     if m is None:
         return None
-    kind = "K8a" if m.group(1) == "dq" else "K8b"
-    dtype = "float32" if m.group(2) == "f" else "bfloat16"
-    return f"{kind}<{dtype},{m.group(3)},{m.group(4)}>"
+    return (f"{SPARSE_KINDS[m.group(1)]}<{SPARSE_DTYPES[m.group(2)]},"
+            f"{m.group(3)},{m.group(4)}{',wide' * (m.group(5) == '1')}>")
 
 
 def _sparse_sass_counts(lib_path, nvcc):
-    """{"K8a<dtype,block,dmax>": HMMA count} for the K8 instances of a
-    built library."""
+    """{"K7<dtype,block,dmax>": HMMA count} for the K7 / K8 instances of
+    a built library."""
     return {_sparse_instance(name): sum("HMMA" in ln for ln in lines)
             for name, lines in _sass_by_function(lib_path, nvcc).items()
             if _sparse_instance(name) is not None}
 
 
 def _sparse_ptxas(lines):
-    """{"K8a<dtype,block,dmax>": {"registers", "spill_stores",
-    "spill_loads"}} from the ``ptxas -v`` lines of the block-sparse
+    """{"K7<dtype,block,dmax>": {"registers", "spill_stores",
+    "spill_loads"}} from the ``ptxas -v`` lines of a block-sparse
     build."""
     out, current = {}, None
     for line in lines:
@@ -301,36 +324,61 @@ def _sparse_ptxas(lines):
     return out
 
 
+def _build_all():
+    """Every kernel library of the importable package built from its
+    sources, one ``nvcc`` per library, all started together (a package
+    without ``libraries()`` builds each of its ``KERNELS`` once); returns
+    the wall seconds."""
+    from deepspeed_tpu_torch.ops import _build
+    libs = _build.libraries() if hasattr(_build, "libraries") else \
+        [(name,) for name in _build.KERNELS]
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as ex:
+        futures = [ex.submit(_build.load_library, *lib) for lib in libs]
+        for fut in futures:
+            fut.result()            # raises with the compiler output
+    return time.perf_counter() - t0
+
+
 def phase_build():
     from deepspeed_tpu_torch.ops import _build
-    t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(_build.KERNELS)) as ex:
-        futures = {name: ex.submit(_build.load_library, name)
-                   for name in _build.KERNELS}
-        for name, fut in futures.items():
-            fut.result()            # raises with the compiler output
-    seconds = time.perf_counter() - t0
-    sass = _sass_counts(_build.load_library("flash_attention")._name,
-                        _build._nvcc())
-    sparse_sass = _sparse_sass_counts(
-        _build.load_library("block_sparse_attention")._name, _build._nvcc())
-    sparse_ptxas = _sparse_ptxas(
-        _build.build_info["block_sparse_attention"]["ptxas"])
+    libs = _build.libraries()
+    seconds = _build_all()
+    nvcc = _build._nvcc()
+    sass = _sass_counts(_build.load_library("flash_attention")._name, nvcc)
+    sparse_sass, sparse_ptxas = {}, {}
+    for name, variant in libs:
+        if name == "block_sparse_attention":
+            sparse_sass.update(_sparse_sass_counts(
+                _build.load_library(name, variant)._name, nvcc))
+            sparse_ptxas.update(_sparse_ptxas(_build.build_info[
+                _build.library_key(name, variant)]["ptxas"]))
     emit({"phase": "build", "seconds": seconds,
-          "kernels": {name: _build.build_info[name]
-                      for name in _build.KERNELS},
+          "kernels": {_build.library_key(*lib):
+                      _build.build_info[_build.library_key(*lib)]
+                      for lib in libs},
           "flash_attention_sass": sass,
-          "block_sparse_k8_hmma": sparse_sass,
-          "block_sparse_k8_ptxas": sparse_ptxas})
+          "block_sparse_hmma": sparse_sass,
+          "block_sparse_ptxas": sparse_ptxas})
     want = [f"{fn}<{d}>" for fn in TENSOR_CORE_FUNCTIONS for d in (64, 128)]
     for fn in want:
         if sass.get(fn, {}).get("HGMMA", 0) == 0:
             fail(f"{fn} has no HGMMA instruction in its SASS ({sass}): the "
                  f"bf16 attention kernels must run on the tensor cores")
-    # 2 kinds x 2 dtypes x 4 blocks x 3 head-dim bounds
-    if len(sparse_sass) != 48 or not all(sparse_sass.values()):
-        fail(f"the K8a / K8b instances must all run mma.sync on the tensor "
-             f"cores (HMMA in their SASS): {sparse_sass}")
+    if len(sparse_sass) != SPARSE_INSTANCES or not all(sparse_sass.values()):
+        fail(f"the K7 / K8a / K8b instances must all run mma.sync on the "
+             f"tensor cores (HMMA in their SASS): {sparse_sass}")
+    # the K7 instances (new in their tensor-core form) must not spill; a
+    # library reused from an earlier build in this checkout has no ptxas
+    # report to read
+    if not sparse_ptxas:
+        return
+    spills = {k: v for k, v in sparse_ptxas.items() if k.startswith("K7")
+              and (v.get("spill_stores", 0) or v.get("spill_loads", 0))}
+    if spills or sum(k.startswith("K7") for k in sparse_ptxas) != \
+            SPARSE_INSTANCES // 3:
+        fail(f"K7 instances spill registers or lack a ptxas report: "
+             f"{spills or sparse_ptxas}")
 
 
 def _positions(torch, rng):
@@ -364,44 +412,51 @@ def phase_kernel_check(torch):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     cases, worst = [], 0.0
-    shapes = [(8, 12, 64), (8, 16, 96), (4, 4, 256)]
-    for b, h, d in shapes:
-        for storage in STORAGES:
-            for qdt in ("bfloat16", "float32"):
-                if d == 256 and qdt == "float32":
-                    continue
-                k, ks = _cache(torch, storage, (b, S, h, d), gen)
-                v, vs = _cache(torch, storage, (b, S, h, d), gen)
-                q = torch.randn((b, 1, h, d), generator=gen,
-                                device="cuda").to(getattr(torch, qdt))
-                pos = _positions(torch, rng)[:b]
-                scales = (ks, vs) if ks is not None else ()
-                out = flash_decode(q, k, v, pos, *scales,
-                                   block_k=SERVE_BLOCK_K)
-                ref = flash_decode_reference(q, k, v, pos, *scales,
-                                             block_k=SERVE_BLOCK_K)
-                torch.cuda.synchronize()
-                diff = (out.float() - ref.float()).abs()
-                allowed = ATOL + RTOL[qdt] * ref.float().abs()
-                ok = bool(torch.isfinite(out.float()).all()) and \
-                    bool((diff <= allowed).all())
-                err = float(diff.max())
-                worst = max(worst, err)
-                case = {"B": b, "H": h, "D": d, "storage": storage,
-                        "q": qdt, "max_abs_err": err, "atol": ATOL,
-                        "rtol": RTOL[qdt], "ok": ok}
-                if qdt == "bfloat16" and d == 64:
-                    case["poison_bitwise"] = _poison_check(
-                        torch, flash_decode, q, k, v, pos, ks, vs, out)
-                    ok = ok and case["poison_bitwise"]
-                cases.append(case)
-                if not ok:
-                    emit({"phase": "kernel_check", "failed": case})
-                    fail(f"flash_decode disagrees with its plain "
-                         f"version: {case}")
+    for b, h, d, storage, qdt in _decode_specs():
+        k, ks = _cache(torch, storage, (b, S, h, d), gen)
+        v, vs = _cache(torch, storage, (b, S, h, d), gen)
+        q = torch.randn((b, 1, h, d), generator=gen,
+                        device="cuda").to(getattr(torch, qdt))
+        pos = _positions(torch, rng)[:b]
+        scales = (ks, vs) if ks is not None else ()
+        out = flash_decode(q, k, v, pos, *scales,
+                           block_k=SERVE_BLOCK_K)
+        ref = flash_decode_reference(q, k, v, pos, *scales,
+                                     block_k=SERVE_BLOCK_K)
+        torch.cuda.synchronize()
+        diff = (out.float() - ref.float()).abs()
+        allowed = ATOL + RTOL[qdt] * ref.float().abs()
+        ok = bool(torch.isfinite(out.float()).all()) and \
+            bool((diff <= allowed).all())
+        err = float(diff.max())
+        worst = max(worst, err)
+        case = {"B": b, "H": h, "D": d, "storage": storage,
+                "q": qdt, "max_abs_err": err, "atol": ATOL,
+                "rtol": RTOL[qdt], "ok": ok}
+        if qdt == "bfloat16" and d == 64:
+            case["poison_bitwise"] = _poison_check(
+                torch, flash_decode, q, k, v, pos, ks, vs, out)
+            ok = ok and case["poison_bitwise"]
+        cases.append(case)
+        if not ok:
+            emit({"phase": "kernel_check", "failed": case})
+            fail(f"flash_decode disagrees with its plain "
+                 f"version: {case}")
     emit({"phase": "kernel_check", "cases": len(cases),
           "max_abs_err": worst, "results": cases})
     return worst
+
+
+def _decode_specs():
+    """(B, H, D, storage, query dtype) of the decode kernel checks: the
+    serving shapes in every storage, D 256, and head dims past 256 (the
+    kernels' column chunks of 256) on bf16 and int8 caches."""
+    specs = [(b, h, d, storage, qdt)
+             for b, h, d in [(8, 12, 64), (8, 16, 96), (4, 4, 256)]
+             for storage in STORAGES for qdt in ("bfloat16", "float32")
+             if not (d == 256 and qdt == "float32")]
+    return specs + [(4, 4, d, storage, "bfloat16") for d in (320, 512)
+                    for storage in ("bfloat16", "int8")]
 
 
 def _fill(torch, x, mask, value):
@@ -658,49 +713,45 @@ def phase_paged_kernel_check(torch):
     gen.manual_seed(10)
     cases, worst = [], 0.0
     n_pages = N_PAGES + 3                   # spare pages: unused ids exist
-    for b, h, d in [(8, 12, 64), (8, 16, 96), (4, 4, 256)]:
-        for storage in STORAGES:
-            for qdt in ("bfloat16", "float32"):
-                if d == 256 and qdt == "float32":
-                    continue
-                shape = (n_pages, PAGE_SIZE, h, d)
-                k, ks = _cache(torch, storage, shape, gen)
-                v, vs = _cache(torch, storage, shape, gen)
-                q = torch.randn((b, 1, h, d), generator=gen,
-                                device="cuda").to(getattr(torch, qdt))
-                pos = _paged_positions(torch, rng)[:b]
-                table = _shuffled_table(torch, rng, b, n_pages)
-                scales = (ks, vs) if ks is not None else ()
-                out = flash_decode_paged(q, k, v, pos, table, *scales,
-                                         block_k=SERVE_BLOCK_K)
-                ref = flash_decode_paged_reference(q, k, v, pos, table,
-                                                   *scales,
-                                                   block_k=SERVE_BLOCK_K)
-                torch.cuda.synchronize()
-                diff = (out.float() - ref.float()).abs()
-                allowed = ATOL + RTOL[qdt] * ref.float().abs()
-                ok = bool(torch.isfinite(out.float()).all()) and \
-                    bool((diff <= allowed).all())
-                err = float(diff.max())
-                worst = max(worst, err)
-                case = {"B": b, "H": h, "D": d, "storage": storage,
-                        "q": qdt, "max_abs_err": err, "atol": ATOL,
-                        "rtol": RTOL[qdt], "ok": ok}
-                if qdt == "bfloat16" and d == 64:
-                    case["poison_bitwise"] = _paged_poison_check(
-                        torch, flash_decode_paged, q, k, v, pos, table, ks,
-                        vs, out)
-                    case["ring_bitwise"], case["ring_max_abs_err"] = \
-                        _ring_equivalence(torch, flash_decode_paged,
-                                          flash_decode, storage, h, d, gen,
-                                          rng)
-                    ok = ok and case["poison_bitwise"] and \
-                        case["ring_bitwise"]
-                cases.append(case)
-                if not ok:
-                    emit({"phase": "paged_kernel_check", "failed": case})
-                    fail(f"flash_decode_paged disagrees with its plain "
-                         f"version: {case}")
+    for b, h, d, storage, qdt in _decode_specs():
+        shape = (n_pages, PAGE_SIZE, h, d)
+        k, ks = _cache(torch, storage, shape, gen)
+        v, vs = _cache(torch, storage, shape, gen)
+        q = torch.randn((b, 1, h, d), generator=gen,
+                        device="cuda").to(getattr(torch, qdt))
+        pos = _paged_positions(torch, rng)[:b]
+        table = _shuffled_table(torch, rng, b, n_pages)
+        scales = (ks, vs) if ks is not None else ()
+        out = flash_decode_paged(q, k, v, pos, table, *scales,
+                                 block_k=SERVE_BLOCK_K)
+        ref = flash_decode_paged_reference(q, k, v, pos, table,
+                                           *scales,
+                                           block_k=SERVE_BLOCK_K)
+        torch.cuda.synchronize()
+        diff = (out.float() - ref.float()).abs()
+        allowed = ATOL + RTOL[qdt] * ref.float().abs()
+        ok = bool(torch.isfinite(out.float()).all()) and \
+            bool((diff <= allowed).all())
+        err = float(diff.max())
+        worst = max(worst, err)
+        case = {"B": b, "H": h, "D": d, "storage": storage,
+                "q": qdt, "max_abs_err": err, "atol": ATOL,
+                "rtol": RTOL[qdt], "ok": ok}
+        if qdt == "bfloat16" and d == 64:
+            case["poison_bitwise"] = _paged_poison_check(
+                torch, flash_decode_paged, q, k, v, pos, table, ks,
+                vs, out)
+            case["ring_bitwise"], case["ring_max_abs_err"] = \
+                _ring_equivalence(torch, flash_decode_paged,
+                                  flash_decode, storage, h, d, gen,
+                                  rng)
+            ok = ok and case["poison_bitwise"] and \
+                case["ring_bitwise"]
+        cases.append(case)
+        if not ok:
+            emit({"phase": "paged_kernel_check", "failed": case})
+            fail(f"flash_decode_paged disagrees with its plain "
+                 f"version: {case}")
     # chunk edges, per storage: K6 against its plain version, the
     # poisoned tail, and K5 over the same bytes as a ring (bitwise)
     edges = torch.tensor(CHUNK_EDGE_POSITIONS, dtype=torch.int32,
@@ -977,7 +1028,8 @@ def _profile_decode(torch, engine, first=8, steps=10):
 # namespace at file scope
 PORT_KERNELS = ("fwd_kernel", "dq_kernel", "dkv_kernel", "fwd_wgmma_kernel",
                 "dq_wgmma_kernel", "dkv_wgmma_kernel", "adam_kernel",
-                "flash_decode_kernel")
+                "flash_decode_kernel", "fwd_mma_kernel", "dq_mma_kernel",
+                "dkv_mma_kernel")
 
 
 def _port_kernel(name):
@@ -1617,6 +1669,10 @@ def phase_train_kernel_check(torch):
     grid += [(2, 300, TRAIN_H, d, dt, True, True, 0.1)
              for d in (160, 256)
              for dt in ("float32", "bfloat16", "float16")]
+    # past 256: column chunks of 256 a CTA, the scores streamed over D
+    grid += [(2, 300, 4, d, dt, causal, causal, 0.1 if causal else 0.0)
+             for d in (320, 512) for causal in (True, False)
+             for dt in ("float32", "bfloat16", "float16")]
     cases = []
     for spec in grid:
         case = _attn_case(torch, fa, gen, *spec)
@@ -2100,6 +2156,27 @@ def phase_sparse_kernel_check(torch):
                         cases.append(_sparse_case(
                             torch, bsa, 2, t, h, d, dtype, block, layout,
                             causal, rate, gen))
+    # fp16 (exact in TF32: the bf16 path)
+    for block in (16, 64):
+        t = 8 * block
+        for causal in (False, True):
+            layout = _bert_sparsity(sc, causal, block, h).make_layout(t)
+            layout[1, 2, :] = 0
+            for rate in (0.0, 0.1):
+                cases.append(_sparse_case(
+                    torch, bsa, 2, t, h, 64, "float16", block, layout,
+                    causal, rate, gen))
+    # head dims past 256: column chunks of 256 a CTA, the scores streamed
+    # over D in windows of 256
+    for d, block in ((320, 16), (512, 32)):
+        t = 8 * block
+        for dtype in ("float32", "bfloat16", "float16"):
+            for causal in (False, True):
+                layout = _bert_sparsity(sc, causal, block, h).make_layout(t)
+                layout[1, 2, :] = 0
+                cases.append(_sparse_case(
+                    torch, bsa, 2, t, h, d, dtype, block, layout, causal,
+                    0.1 if causal else 0.0, gen))
     # head dim 256 (K8 on 32-row tiles with the head split over warps)
     for block in (16, 64):
         t = 8 * block
@@ -2118,9 +2195,10 @@ def phase_sparse_kernel_check(torch):
             case["layout"] = name
             cases.append(case)
     # the shape train_bert_sparse gives the kernels: its micro-batch, the
-    # bench's Fixed layout, dropout 0.1, in the encoder's fp32 (and bf16)
+    # bench's Fixed layout, dropout 0.1, in the encoder's fp32 (and bf16,
+    # fp16)
     layout = _bert_sparsity(sc).make_layout(BERT_T)
-    for dtype in ("float32", "bfloat16"):
+    for dtype in ("float32", "bfloat16", "float16"):
         case = _sparse_case(torch, bsa, BERT_B, BERT_T, BERT_H, BERT_D, dtype,
                             BERT_BLOCK, layout, False, 0.1, gen)
         case["layout"] = "bert_bench"
@@ -2164,14 +2242,14 @@ def _visited_pairs(layout, block, causal):
     return int((layout * per[None]).sum())
 
 
-def _sparse_timing(torch, bsa, sc, b, t, block, causal, dtype, shape_name):
+def _sparse_timing(torch, bsa, sc, b, t, block, causal, dtype, shape_name,
+                   h=BERT_H, d=BERT_D):
     import torch.nn.functional as F
-    h, d = BERT_H, BERT_D
     gen = torch.Generator(device="cuda")
     gen.manual_seed(6)
     q, k, v, g, _ = _attn_inputs(torch, b, t, h, d, getattr(torch, dtype),
                                  False, gen)
-    layout = _bert_sparsity(sc, causal, block).make_layout(t)
+    layout = _bert_sparsity(sc, causal, block, h).make_layout(t)
     lut, nnz, lut_t, nnz_t = bsa.layout_tables(layout, "cuda")
     kw = dict(causal=causal)
     out, lse = bsa.block_sparse_attention_fwd(q, k, v, lut, nnz, block, **kw)
@@ -2194,9 +2272,10 @@ def _sparse_timing(torch, bsa, sc, b, t, block, causal, dtype, shape_name):
     rows = {}
 
     def row(name, kern, plain, flops, nbytes, lib):
-        # K8a / K8b multiply on the TF32 tensor cores in 3 passes: on f32
-        # their bound is read at that rate (bf16 keeps the bf16 peak)
-        tf32x3 = name in ("K8a", "K8b")
+        # K7 / K8a / K8b multiply on the TF32 tensor cores in 3 passes: on
+        # f32 their bound is read at that rate (bf16 and fp16 keep their
+        # tensor-core peak)
+        tf32x3 = name in ("K7", "K8a", "K8b")
         rows[name] = _timing_row(
             torch, kern, plain, flops, nbytes, dtype, lib,
             TF32X3_OPS_PER_S if tf32x3 and dtype == "float32" else None)
@@ -2253,11 +2332,369 @@ def phase_sparse_kernel_timing(torch):
         "bert_bench_bf16": _sparse_timing(torch, bsa, sc, BERT_B, BERT_T,
                                           BERT_BLOCK, False, "bfloat16",
                                           "bert_bench_bf16"),
+        "bert_bench_fp16": _sparse_timing(torch, bsa, sc, BERT_B, BERT_T,
+                                          BERT_BLOCK, False, "float16",
+                                          "bert_bench_fp16"),
         "long_context": _sparse_timing(torch, bsa, sc, LONG_B, LONG_T,
                                        LONG_BLOCK, True, "bfloat16",
                                        "long_context")}
     emit({"phase": "sparse_kernel_timing", "shapes": shapes})
     return shapes
+
+
+# ``--turns``: the rows of the ``kernels`` line at the shapes their timing
+# phases give them (K7 / K8 also in bf16 and fp16), and the instances
+# that also hold the code for head dims past 256: the FMA route of K1-K3
+# at head dims 160 and 256 in f32 and fp16, K7 / K8 at 256 in f32 and
+# bf16; as groups that share their inputs: group -> (kernel keys,
+# n_calls a timing)
+TURN_FMA_SHAPE = (2, 1024, 8)           # B, T, H of the FMA-route groups
+TURN_GROUPS = {
+    "attention/bfloat16/D64": (("K1", "K2", "K3"), 20),
+    **{f"attention/{dt}/D{d}": (("K1", "K2", "K3"), 10)
+       for dt in ("float32", "float16") for d in (160, 256)},
+    "adam/float32": (("K4",), 10),
+    "decode/bfloat16/D64": (("K5", "K6"), 50),
+    **{f"sparse/{dt}/D64": (("K7", "K8a", "K8b"), 20)
+       for dt in ("float32", "bfloat16", "float16")},
+    **{f"sparse/{dt}/D256": (("K7", "K8a", "K8b"), 10)
+       for dt in ("float32", "bfloat16")},
+}
+
+
+def _turn_group(torch, group):
+    """One group of ``TURN_GROUPS`` built on the card from fixed seeds
+    through the importable package's public wrappers (this checkout's, or
+    another's in the turns worker): ``{key: (run, (max |diff|, ok))}``,
+    ``run(i)`` one call of the kernel, the pair its output held to the
+    plain version at the kernel checks' gate."""
+    import importlib
+    kind, dtype = group.split("/")[:2]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    first = (lambda x: x[0] if isinstance(x, tuple) else x)
+    if kind == "attention":
+        fa = importlib.import_module("deepspeed_tpu_torch.ops.flash_attention")
+        d = int(group.rsplit("D", 1)[1])
+        b, t, h = (TRAIN_B, TRAIN_T, TRAIN_H) if d == TRAIN_D \
+            else TURN_FMA_SHAPE
+        q, k, v, g, _ = _attn_inputs(torch, b, t, h, d, getattr(torch, dtype),
+                                     False, gen)
+        out, lse = fa.flash_attention_fwd_reference(q, k, v)
+        delta = (g.float() * out.float()).sum(-1).permute(0, 2, 1) \
+            .reshape(b * h, t).contiguous()
+        fns = {"K1": (lambda i: fa.flash_attention_fwd(q, k, v), out),
+               "K2": (lambda i: fa.flash_attention_bwd_dq(q, k, v, g, lse,
+                                                          delta),
+                      fa.flash_attention_bwd_dq_reference(q, k, v, g, lse,
+                                                          delta)),
+               "K3": (lambda i: fa.flash_attention_bwd_dkv(q, k, v, g, lse,
+                                                           delta),
+                      fa.flash_attention_bwd_dkv_reference(
+                          q, k, v, g, lse, delta)[0])}
+        rtol = TRAIN_RTOL[dtype]
+    elif kind == "sparse":
+        from deepspeed_tpu_torch.ops import sparse_attention as sc
+        bsa = _bsa()
+        q, k, v, g, _ = _attn_inputs(torch, BERT_B, BERT_T, BERT_H,
+                                     int(group.rsplit("D", 1)[1]),
+                                     getattr(torch, dtype), False, gen)
+        layout = _bert_sparsity(sc).make_layout(BERT_T)
+        lut, nnz, lut_t, nnz_t = bsa.layout_tables(layout, "cuda")
+        out, lse = bsa.block_sparse_attention_fwd_reference(
+            q, k, v, lut, nnz, BERT_BLOCK)
+        delta = (g.float() * out.float()).sum(-1).permute(0, 2, 1) \
+            .reshape(BERT_B * BERT_H, BERT_T).contiguous()
+        fns = {"K7": (lambda i: bsa.block_sparse_attention_fwd(
+                   q, k, v, lut, nnz, BERT_BLOCK), out),
+               "K8a": (lambda i: bsa.block_sparse_attention_bwd_dq(
+                   q, k, v, g, lse, delta, lut, nnz, BERT_BLOCK),
+                   bsa.block_sparse_attention_bwd_dq_reference(
+                       q, k, v, g, lse, delta, lut, nnz, BERT_BLOCK)),
+               "K8b": (lambda i: bsa.block_sparse_attention_bwd_dkv(
+                   q, k, v, g, lse, delta, lut_t, nnz_t, BERT_BLOCK),
+                   bsa.block_sparse_attention_bwd_dkv_reference(
+                       q, k, v, g, lse, delta, lut_t, nnz_t,
+                       BERT_BLOCK)[0])}
+        rtol = TRAIN_RTOL[dtype]
+    elif kind == "decode":
+        fd = importlib.import_module("deepspeed_tpu_torch.ops.flash_decode")
+        h, d = 12, 64
+        rng = np.random.default_rng(1)
+        pos = torch.from_numpy(rng.integers(8, 152, B).astype(np.int32)) \
+            .cuda()
+        q = torch.randn((B, 1, h, d), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        kc, _ = _cache(torch, "bfloat16", (B, S, h, d), gen)
+        vc, _ = _cache(torch, "bfloat16", (B, S, h, d), gen)
+        pool_k, pool_v = (torch.cat([torch.zeros_like(x[:1, :PAGE_SIZE]),
+                                     x.reshape(B * PAGES_PER_ROW, PAGE_SIZE,
+                                               h, d)]) for x in (kc, vc))
+        table = torch.arange(1, B * PAGES_PER_ROW + 1, dtype=torch.int32,
+                             device="cuda").reshape(B, PAGES_PER_ROW)
+        want = fd.flash_decode_reference(q, kc, vc, pos,
+                                         block_k=SERVE_BLOCK_K)
+        fns = {"K5": (lambda i: fd.flash_decode(q, kc, vc, pos,
+                                                block_k=SERVE_BLOCK_K), want),
+               "K6": (lambda i: fd.flash_decode_paged(
+                   q, pool_k, pool_v, pos, table, block_k=SERVE_BLOCK_K),
+                   want)}
+        rtol = RTOL[dtype]
+    else:
+        # K4 over GPT-2 350M's leaves with the main path's hyperparameters,
+        # one step first held against the plain version on copies
+        from deepspeed_tpu_torch.models.gpt2 import gpt2_350m
+        from deepspeed_tpu_torch.ops.fused_adam import (
+            adam_hyperparams, fused_adam, fused_adam_reference)
+        p, gr, m, vv = ([torch.randn(sh, generator=gen, device="cuda") * 0.02
+                         for sh in _gpt2_shapes(gpt2_350m())]
+                        for _ in range(4))
+        for x in vv:
+            x.abs_()
+        hyper = adam_hyperparams(1e-4, 0.9, 0.999, 1e-8, 0.0, 0.1, 0.001,
+                                 0.0, "cuda")
+        kern = [[x.clone() for x in xs] for xs in (p, m, vv)]
+        plain = [[x.clone() for x in xs] for xs in (p, m, vv)]
+        fused_adam(kern[0], gr, kern[1], kern[2], hyper, adam_w_mode=False)
+        fused_adam_reference(plain[0], gr, plain[1], plain[2], hyper,
+                             adam_w_mode=False)
+        torch.cuda.synchronize()
+        checked = _adam_compare(sum(kern, []), sum(plain, []))
+        del kern, plain
+        return {"K4": (lambda i: fused_adam(p, gr, m, vv, hyper,
+                                            adam_w_mode=False), checked)}
+    return {key: (run, _close(torch, first(run(0)), want, rtol))
+            for key, (run, want) in fns.items()}
+
+
+TURN_REPLY = "TURN "       # a worker's reply line starts so
+
+
+class _TurnsWorker:
+    """The turns' other side: this script in a process of its own with
+    another checkout's package first on its path, building that
+    package's kernels and timing its wrappers on request (one JSON line
+    each way). It waits on its pipe while this process times, so the two
+    never share the card."""
+
+    def __init__(self, root):
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--turns-worker",
+             root], stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+
+    def ask(self, **req):
+        """The reply to ``req`` (with none, the worker's first line)."""
+        if req:
+            self.proc.stdin.write(json.dumps(req) + "\n")
+            self.proc.stdin.flush()
+        for line in self.proc.stdout:
+            if line.startswith(TURN_REPLY):
+                return json.loads(line[len(TURN_REPLY):])
+            print(line, end="", file=sys.stderr)
+        fail(f"turns worker exited ({self.proc.wait()})")
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+
+
+def _turns_serve(torch):
+    """The worker's loop: builds its package's kernels, then for each
+    request ``{"group", "key", "n_calls"}`` times that kernel (building
+    the group's inputs when the group changes) and replies with its ms
+    and check, or with the error its package raised."""
+    reply = (lambda obj: print(TURN_REPLY + json.dumps(obj), flush=True))
+    try:
+        reply({"build_s": _build_all()})
+    except Exception as e:          # an unbuildable package: say so
+        reply({"error": f"build: {e}"})
+    name, cases = None, {}
+    for line in sys.stdin:
+        req = json.loads(line)
+        try:
+            if req["group"] != name:
+                name, cases = None, {}
+                torch.cuda.empty_cache()
+                cases, name = _turn_group(torch, req["group"]), req["group"]
+            run, (err, ok) = cases[req["key"]]
+            reply({"ms": _time_ms(torch, run, req["n_calls"])[0],
+                   "max_abs_err": err, "ok": ok})
+        except Exception as e:      # what that package cannot run
+            reply({"error": f"{type(e).__name__}: {e}"})
+    return 0
+
+
+def phase_turns(torch, parent):
+    """Every group of ``TURN_GROUPS`` timed in turns on one card, this
+    checkout's wrappers against those of the checkout at ``parent`` (the
+    parent commit's, each built from its own source), parent, this,
+    this, parent per kernel. This side's output must pass the plain
+    version's gate; the other side's check and any error it raises (a
+    kernel or dtype it lacks) are reported."""
+    worker = _TurnsWorker(os.path.abspath(parent))
+    out = {}
+    try:
+        built = worker.ask()
+        for group, (keys, n_calls) in TURN_GROUPS.items():
+            mine = _turn_group(torch, group)
+            for key in keys:
+                run, (err, ok) = mine[key]
+                if not ok:
+                    fail(f"turns: {key} {group} disagrees with its plain "
+                         f"version ({err})")
+                turns, theirs = [], {}
+                for side in ("parent", "this", "this", "parent"):
+                    if side == "this":
+                        turns.append([side, _time_ms(torch, run,
+                                                     n_calls)[0]])
+                    elif "error" not in theirs:
+                        theirs = worker.ask(group=group, key=key,
+                                            n_calls=n_calls)
+                        if "error" not in theirs:
+                            turns.append([side, theirs["ms"]])
+                median = {w: statistics.median(t for v, t in turns if v == w)
+                          for w in {v for v, _ in turns}}
+                out[f"{key}/{group.split('/', 1)[1]}"] = {
+                    "group": group, "turns": turns, "median_ms": median,
+                    "max_abs_err": {"this": err,
+                                    "parent": theirs.get("max_abs_err")},
+                    "parent_ok": theirs.get("ok"),
+                    "parent_error": theirs.get("error")}
+            del mine
+            torch.cuda.empty_cache()
+    finally:
+        worker.close()
+    emit({"phase": "turns", "parent": parent, "parent_build": built,
+          "fma_shape": TURN_FMA_SHAPE,
+          "attention_shape": [TRAIN_B, TRAIN_T, TRAIN_H, TRAIN_D],
+          "sparse_shape": [BERT_B, BERT_T, BERT_H],   # D: the group's
+          "block": BERT_BLOCK, "decode_shape": [B, S, 12, 64],
+          "results": out})
+    return out
+
+
+WIDE_D = 512
+
+
+def phase_wide_head_timing(torch):
+    """One row at head dim 512 for each kernel the column-chunk repair
+    reaches: K1-K3 (B 2, T 1024, H 4, bf16, causal: the FMA route), K7 /
+    K8a / K8b (the same B, T, H, the bench's Fixed layout at block 64,
+    bf16) and K5 / K6 (the decode timing's B 8, S 512, serve-mix
+    positions, H 4, bf16 cache; K6 over the same bytes in pages of 128),
+    each beside its plain version, its bound and
+    ``F.scaled_dot_product_attention`` where it runs at this head dim
+    (else ``library_ms`` is null and ``library_error`` says why)."""
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import sparse_attention as sc
+    from deepspeed_tpu_torch.ops.flash_decode import (
+        flash_decode, flash_decode_paged, flash_decode_paged_reference,
+        flash_decode_reference)
+    b, t, h, d = 2, 1024, 4, WIDE_D
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    rows = {}
+
+    def with_library(name, lib, run):
+        """``run(lib)``, or with no yardstick where SDPA refuses."""
+        try:
+            lib(0)
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            rows[name] = run(None)
+            rows[name]["library_error"] = str(e).splitlines()[0][:200]
+            return
+        rows[name] = run(lib)
+
+    q, k, v, g, _ = _attn_inputs(torch, b, t, h, d, torch.bfloat16, False,
+                                 gen)
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    delta = (g.float() * out.float()).sum(-1).permute(0, 2, 1) \
+        .reshape(b * h, t).contiguous()
+    pairs = _causal_pairs(b, h, t)
+    io = 2 * b * t * h * d
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa_in = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+    g_t = g.transpose(1, 2)
+
+    def sdpa(i):
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    def sdpa_bwd(i):
+        o = F.scaled_dot_product_attention(*sdpa_in, is_causal=True)
+        torch.autograd.grad(o, sdpa_in, g_t)
+
+    with_library("K1", sdpa, lambda lib: _timing_row(
+        torch, lambda i: fa.flash_attention_fwd(q, k, v),
+        lambda i: fa.flash_attention_fwd_reference(q, k, v),
+        4 * pairs * d, 4 * io + 4 * b * h * t, "bfloat16", lib))
+    with_library("K2", sdpa_bwd, lambda lib: _timing_row(
+        torch, lambda i: fa.flash_attention_bwd_dq(q, k, v, g, lse, delta),
+        lambda i: fa.flash_attention_bwd_dq_reference(q, k, v, g, lse,
+                                                       delta),
+        6 * pairs * d, 5 * io + 8 * b * h * t, "bfloat16", lib))
+    with_library("K3", sdpa_bwd, lambda lib: _timing_row(
+        torch, lambda i: fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta),
+        lambda i: fa.flash_attention_bwd_dkv_reference(q, k, v, g, lse,
+                                                        delta),
+        8 * pairs * d, 6 * io + 8 * b * h * t, "bfloat16", lib))
+    del sdpa_in, q, k, v, g, out
+    sparse = _sparse_timing(torch, _bsa(), sc, b, t, BERT_BLOCK, False,
+                            "bfloat16", "wide_512", h=h, d=d)
+    rows.update(sparse["results"])
+
+    # decode: one query token a row over a bf16 cache
+    rng = np.random.default_rng(12)
+    pos = torch.from_numpy(rng.integers(8, 152, B).astype(np.int32)).cuda()
+    qd = torch.randn((B, 1, h, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    kc, _ = _cache(torch, "bfloat16", (B, S, h, d), gen)
+    vc, _ = _cache(torch, "bfloat16", (B, S, h, d), gen)
+    mask = (torch.arange(S, device="cuda")[None, :]
+            <= pos[:, None].long())[:, None, None, :]
+
+    def decode_lib(i):
+        F.scaled_dot_product_attention(
+            qd.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
+            attn_mask=mask)
+
+    def decode_row(kern, plain, bound):
+        def run(lib):
+            ms, paced, _ = _time_ms(torch, kern, 50)
+            r = {"ms": ms, "host_paced_ms": paced,
+                 "plain_ms": _time_ms(torch, plain, 3)[0],
+                 "bound_ms": bound[0], "bound_by": bound[1],
+                 "bytes": bound[2], "roofline_share": bound[0] / ms,
+                 "library_ms": None}
+            if lib is not None:
+                r["library_ms"] = _time_ms(torch, lib, 50)[0]
+            return r
+        return run
+
+    with_library("K5", decode_lib, decode_row(
+        lambda i: flash_decode(qd, kc, vc, pos, block_k=SERVE_BLOCK_K),
+        lambda i: flash_decode_reference(qd, kc, vc, pos,
+                                         block_k=SERVE_BLOCK_K),
+        _bound(torch, pos, h, d, "bfloat16", 2)))
+    # the same bytes as pages of 128 behind the trash page, in order
+    pool_k, pool_v = (torch.cat([torch.zeros_like(x[:1, :PAGE_SIZE]),
+                                 x.reshape(B * PAGES_PER_ROW, PAGE_SIZE, h,
+                                           d)]) for x in (kc, vc))
+    table = torch.arange(1, B * PAGES_PER_ROW + 1, dtype=torch.int32,
+                         device="cuda").reshape(B, PAGES_PER_ROW)
+    with_library("K6", decode_lib, decode_row(
+        lambda i: flash_decode_paged(qd, pool_k, pool_v, pos, table,
+                                     block_k=SERVE_BLOCK_K),
+        lambda i: flash_decode_paged_reference(qd, pool_k, pool_v, pos,
+                                               table, block_k=SERVE_BLOCK_K),
+        _paged_bound(torch, pos, h, d, "bfloat16", 2)))
+    emit({"phase": "wide_head_timing", "D": d,
+          "attention_shape": [b, t, h, d], "decode_shape": [B, S, h, d],
+          "dtype": "bfloat16", "results": rows})
+    return rows
 
 
 def bert_flops_per_token(cfg, seq_len, attn_density=1.0):
@@ -2445,11 +2882,21 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--kernels-only", action="store_true",
                         help="stop after the kernel checks")
+    parser.add_argument("--turns", metavar="PARENT_CHECKOUT",
+                        help="only time every kernel in turns against the "
+                             "checkout at this path (the parent commit's; "
+                             "its deepspeed_tpu_torch/ is enough)")
+    parser.add_argument("--turns-worker", metavar="CHECKOUT",
+                        help=argparse.SUPPRESS)   # --turns' other side
     args = parser.parse_args(argv)
 
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test runs on the GPU only")
+    if args.turns_worker:
+        sys.path.insert(0, args.turns_worker)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        return _turns_serve(torch)
     try:
         import deepspeed_tpu_torch  # noqa: F401
     except ImportError as e:
@@ -2460,6 +2907,10 @@ def main(argv=None):
 
     smi = phase_device(torch)
     phase_build()
+    if args.turns:
+        phase_turns(torch, args.turns)
+        print(smi, flush=True)
+        return 0
     worst = phase_kernel_check(torch)
     paged_worst = phase_paged_kernel_check(torch)
     train_errs = phase_train_kernel_check(torch)
@@ -2475,6 +2926,7 @@ def main(argv=None):
     train_timing = phase_train_kernel_timing(torch)
     train = phase_train(torch)
     sparse_timing = phase_sparse_kernel_timing(torch)
+    phase_wide_head_timing(torch)
     bert = phase_train_bert_sparse(torch)
     t = timing["bfloat16/serve_mix"]
     kernels = [{
@@ -2525,7 +2977,10 @@ def main(argv=None):
                 "deepspeed_tpu/ops/sparse_attention/"
                 "block_sparse_attention.py:450")}
     sparse_design = {
-        "K7": "fp32 FMA",
+        "K7": "mma.sync m16n8k8 TF32 x3 (hi/lo split, fp32 precision), "
+              "online softmax in the fragment; f32: q and the visited "
+              "tiles split once at staging; 2-byte: cp.async double "
+              "buffer",
         "K8a": "mma.sync m16n8k8 TF32 x3 (hi/lo split, fp32 precision); "
                "f32: visited tiles split once at staging, the next one "
                "prefetched in registers; bf16: cp.async double buffer",

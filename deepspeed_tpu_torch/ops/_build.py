@@ -11,7 +11,9 @@ the root of the checkout (listed in ``.gitignore``). A library is named
 after a hash of its source and flags, so an edited source rebuilds and
 an unchanged one is reused; the compile writes a temporary file and
 renames it into place, so concurrent first uses never load a partial
-library.
+library. A source listed in ``VARIANTS`` is built once per value of its
+macros, each into a library of its own, so those builds too run side by
+side (each library holds a share of the source's instances).
 """
 
 import ctypes
@@ -26,16 +28,37 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("flash_decode", "flash_attention", "fused_adam",
            "block_sparse_attention")                # csrc/<name>.cu
+# name -> (macros, values): the source built once per tuple of values
+# (block_sparse_attention once per storage type, BSA_DTYPE 0 f32, 1 bf16,
+# 2 fp16, and part, BSA_PART 0 the forward K7, 1 the backward K8a / K8b)
+VARIANTS = {"block_sparse_attention": (
+    ("BSA_DTYPE", "BSA_PART"), tuple((d, k) for d in (0, 1, 2)
+                                     for k in (0, 1)))}
 BUILD_DIR = Path(__file__).resolve().parents[2] / ".torch_ext"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-lineinfo", "-Xptxas", "-v") + ARCH_FLAGS
 
-# one lock per library, so builds of different sources run side by side
-_locks = {name: threading.Lock() for name in KERNELS}
+
+def libraries():
+    """``(name, variant)`` of every library the kernel sources build
+    into (variant None for a source built once)."""
+    return [(name, v) for name in KERNELS
+            for v in (VARIANTS[name][1] if name in VARIANTS else (None,))]
+
+
+def library_key(name, variant=None):
+    """The name a library goes by in ``build_info``: the source's name,
+    with ``.<value>`` per macro for a variant build."""
+    return name if variant is None else ".".join(
+        [name] + [str(v) for v in variant])
+
+
+# one lock per library, so builds of different libraries run side by side
+_locks = {library_key(*lib): threading.Lock() for lib in libraries()}
 _libs = {}
-# name -> {"seconds": build wall (0.0 when reused), "ptxas": [lines of
-# ptxas -v, with each function's spill line]}
+# library key -> {"seconds": build wall (0.0 when reused), "ptxas": [lines
+# of ptxas -v, with each function's spill line]}
 build_info = {}
 
 
@@ -55,12 +78,21 @@ def _nvcc():
         "port's CUDA kernels are built from source at first use")
 
 
-def load_library(name):
-    """Build (if needed) and load ``csrc/<name>.cu``; returns the
-    ``ctypes.CDLL``. Raises ``RuntimeError`` with the compiler output
-    when the build fails."""
-    with _locks[name]:
-        lib = _libs.get(name)
+def load_library(name, variant=None):
+    """Build (if needed) and load ``csrc/<name>.cu`` (for a source in
+    ``VARIANTS``, its build with the macros set to the values of
+    ``variant``); returns the ``ctypes.CDLL``. Raises ``RuntimeError``
+    with the compiler output when the build fails."""
+    if variant is not None:
+        variant = tuple(variant)
+    key = library_key(name, variant)
+    if (variant is None) != (name not in VARIANTS) or \
+            (variant is not None and variant not in VARIANTS[name][1]):
+        raise ValueError(f"no library {key!r}: variants {VARIANTS}")
+    flags = NVCC_FLAGS if variant is None else NVCC_FLAGS + tuple(
+        f"-D{m}={v}" for m, v in zip(VARIANTS[name][0], variant))
+    with _locks[key]:
+        lib = _libs.get(key)
         if lib is not None:
             return lib
         src = CSRC / f"{name}.cu"
@@ -68,17 +100,17 @@ def load_library(name):
         headers = b"".join(h.read_bytes()
                            for h in sorted(CSRC.glob("*.cuh")))
         digest = hashlib.sha256(
-            src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
+            src.read_bytes() + headers + " ".join(flags).encode()
         ).hexdigest()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        so = BUILD_DIR / f"{name}-{digest[:16]}.so"
+        so = BUILD_DIR / f"{key}-{digest[:16]}.so"
         if so.exists():
-            build_info[name] = {"seconds": 0.0, "ptxas": []}
+            build_info[key] = {"seconds": 0.0, "ptxas": []}
         else:
             tmp = BUILD_DIR / f".{so.name}.{os.getpid()}.tmp"
             t0 = time.perf_counter()
             proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                [_nvcc(), *flags, "-o", str(tmp), str(src)],
                 capture_output=True, text=True)
             seconds = time.perf_counter() - t0
             if proc.returncode != 0:
@@ -92,7 +124,7 @@ def load_library(name):
             ptxas = [ln.strip() for ln in
                      (proc.stdout + proc.stderr).splitlines()
                      if "ptxas" in ln or "spill" in ln]
-            build_info[name] = {"seconds": seconds, "ptxas": ptxas}
+            build_info[key] = {"seconds": seconds, "ptxas": ptxas}
         lib = ctypes.CDLL(str(so))
-        _libs[name] = lib
+        _libs[key] = lib
         return lib

@@ -1,6 +1,7 @@
 // Device helpers shared by the training-attention kernels
 // (flash_attention.cu, block_sparse_attention.cu): the input types, the
-// masked-score value, and the counter-based dropout hash.
+// masked-score value and the counter-based dropout hash (and, through
+// column_chunk.cuh, the column chunks of a wide head).
 //
 // `ops/_build.py` hashes every header in this directory into each
 // library's digest, so an edited header rebuilds every kernel.
@@ -11,6 +12,8 @@
 #include <cuda_fp16.h>
 #include <float.h>
 #include <stdint.h>
+
+#include "column_chunk.cuh"
 
 namespace {
 

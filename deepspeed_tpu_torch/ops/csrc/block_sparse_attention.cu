@@ -3,7 +3,7 @@
 //
 // Replaces three Pallas kernels of
 // deepspeed_tpu/ops/sparse_attention/block_sparse_attention.py:
-//   K7  `_pallas_impl` (kernel :241, pallas_call :320)  -> fwd_kernel
+//   K7  `_pallas_impl` (kernel :241, pallas_call :320)  -> fwd_mma_kernel
 //   K8a `_pallas_bwd_impl` dq_kernel (:381, call :429)  -> dq_mma_kernel
 //   K8b `_pallas_bwd_impl` dkv_kernel (:450, call :508) -> dkv_mma_kernel
 // Same functions: each (b*h, q-block) walks its row of the forward LUT
@@ -28,39 +28,40 @@
 // So every kernel keeps the scores on chip and reads each visited K/V
 // (or Q/dO) block once per visit, and the multiplies set the time.
 //
-// K7 (`fwd_kernel`) multiplies in fp32 FMA: one CTA of 256 threads owns
-// a tile of up to 64 rows of one layout block (a 128-block is two
-// tiles), stages the visited blocks' tiles in padded shared memory, and
-// each thread holds a (tile/16)^2 block of the score tile and (tile/16)
-// x D/16 of the accumulator in registers.
-//
-// K8a (`dq_mma_kernel`) and K8b (`dkv_mma_kernel`) multiply on the
-// tensor cores at the reference's fp32 precision (the TPU kernels widen
-// every operand to f32 before their dots, :367, :401-417, :471-495):
-// every product goes through `mma.sync.m16n8k8` in TF32 as three passes,
-// hi.hi + hi.lo + lo.hi into fp32 accumulators (the small terms first),
-// with hi = tf32_rna(x) and lo = tf32_rna(x - hi); only lo.lo, about
-// 2^-22 of each product, is left out. bf16 inputs are exact in TF32, so
-// on bf16 the Q.K^T and dO.V^T products take one pass and those with an
-// fp32 left operand (dS, P) two. At 495 TFLOP/s over three passes the
-// bound is 165 TFLOP/s, 2.5x the fp32 FMA rate. Design:
+// All three multiply on the tensor cores at the reference's fp32
+// precision (the TPU kernels widen every operand to f32 before their
+// dots, :263-264, :367, :401-417, :471-495): every product goes through
+// `mma.sync.m16n8k8` in TF32 as three passes, hi.hi + hi.lo + lo.hi into
+// fp32 accumulators (the small terms first), with hi = tf32_rna(x) and
+// lo = tf32_rna(x - hi); only lo.lo, about 2^-22 of each product, is
+// left out. bf16 and fp16 inputs are exact in TF32 (8 and 11 significant
+// bits, exponents inside TF32's 8 bits, fp16 subnormals too), so on them
+// every product whose operands are both inputs takes one pass and those
+// with an fp32 left operand (dS, P) two. K7's left operand of S is q *
+// sm_scale rounded to f32, as the JAX kernel forms it (:263): on a
+// 2-byte input it is exact when sm_scale is a power of two (head dim 64
+// or 256), which the wrapper decides per call (`q_exact`); else it
+// keeps its lo term. At 495 TFLOP/s over three passes the bound is 165
+// TFLOP/s, 2.5x the fp32 FMA rate. Design:
 // - A CTA owns a tile of kR rows (64, or 32 at D > 128; a smaller block
-//   is one tile) of its own block: q rows for dQ, k rows for dK/dV.
-//   Warps are (kR / 16 row groups) x (D slices): each owns 16 rows and
-//   accumulates kDc columns of dQ (128) or of dK and dV (64 each) in
-//   registers; the row group's score chunk is recomputed by each slice.
+//   is one tile) of its own block: q rows for the forward and dQ, k rows
+//   for dK/dV. Warps are (kR / 16 row groups) x (D slices): each owns 16
+//   rows and accumulates kDc columns of O or dQ (128) or of dK and dV (64
+//   each) in registers; the row group's score chunk is recomputed by
+//   each slice.
 // - Own tiles (Q, dO or K, V) and the visited block's tiles (K, V or Q,
 //   dO, with K8b's lse / delta rows) sit in shared memory, rows padded to
 //   4 (mod 8) 32-bit words, so every fragment load below is free of bank
-//   conflicts and every row 16-byte aligned. The own tiles come in by
-//   cp.async (16 bytes a copy where the strides allow it) in the input
-//   type, and so do the visited blocks of K8b and of bf16, the next one
-//   copied into a second buffer while this one is computed. f32 K8a
-//   splits each visited element into hi and lo once, as it is staged (hi
-//   in the tile, lo in a plane beside it), instead of by each of the four
-//   warps at each use; that takes the second buffer's space, and the
-//   SM's other CTA computes while one stages. (K8b, with twice K8a's B
-//   loads a tile, ran slower that way on the card.)
+//   conflicts and every row 16-byte aligned. K7 stages its own Q once as
+//   f32 q * sm_scale, split into hi and lo planes. The other tiles come
+//   in by cp.async (16 bytes a copy where the strides allow it) in the
+//   input type, and so do the visited blocks of K8b and of 2-byte
+//   inputs, the next one copied into a second buffer while this one is
+//   computed. f32 K7 and K8a split each visited element into hi and lo
+//   once, as it is staged (hi in the tile, lo in a plane beside it),
+//   instead of by each warp at each use; that takes the second buffer's
+//   space, and the SM's other CTA computes while one stages. (K8b, with
+//   twice K8a's B loads a tile, ran slower that way on the card.)
 // - TF32 rounding is two integer instructions (tf32_rna), and the small
 //   passes of S and dP sum in their own accumulators, so no chain of
 //   dependent HMMA runs the whole length of D.
@@ -70,14 +71,32 @@
 //   columns 2t / 2t + 1), then that fragment is the A operand of the
 //   next product as it stands: A's k index t / t + 4 is read as visited
 //   row 2t / 2t + 1, and B's k rows are read in the same order. Scores
-//   never leave registers.
+//   never leave registers. K7's online softmax runs in the fragment: a
+//   row lives in the four lanes of a quad, so its max and its sum take
+//   two xor-shuffles (1, 2).
+//
+// Any head dim. Up to kColChunk (256) columns a tile row holds all of D.
+// Past it a launch splits the output columns into chunks of kColChunk,
+// one CTA each along grid z (`n_col`, from ops/head_dim.py), and each
+// CTA streams the contraction of S (and dP) over D in windows of
+// kColChunk columns through the same tiles (32 rows, staged
+// synchronously), accumulating in registers. K8a / K8b
+// visit their own chunk's window last, so the tiles then hold the
+// columns their accumulation reads; K7 stages its V chunk beside the
+// first window. Every chunk's CTA forms the same S in the same order,
+// so their softmax statistics agree bit for bit; only chunk 0 writes
+// lse. No atomics: each output element has one writer.
 //
 // The layout block (16, 32, 64 or 128) is a template parameter; T is a
 // multiple of it (the wrapper checks), so no tile is ragged. q, k, v and
 // dO are read in place as [B, T, H, D] through their strides; outputs
-// are contiguous [B, T, H, D], lse / delta [B * H, T]. D <= 256: above,
-// no fp32 tile of >= 32 rows fits in shared memory beside its partners.
-// The LUTs are int32 device tensors the wrapper uploads once per layout.
+// are contiguous [B, T, H, D], lse / delta [B * H, T]. The LUTs are
+// int32 device tensors the wrapper uploads once per layout.
+//
+// The source is built once per storage type (BSA_DTYPE, set by
+// ops/_build.py: 0 f32, 1 bf16, 2 fp16) and part (BSA_PART: 0 the
+// forward, 1 the backward), six nvcc runs side by side, each library
+// taking only its own type and kernels.
 //
 // Interface: a plain C function (ctypes) taking a struct of 8-byte
 // fields, launched on the caller's stream; it returns the cudaError_t
@@ -108,6 +127,8 @@ struct SparseParams {
   void* dk;               // [B, T, H, D] (K8b)
   void* dv;
   int64_t B, T, H, D, block, max_nnz, causal, dropping, seed, keep_threshold;
+  int64_t n_col;          // column chunks of kColChunk (grid z)
+  int64_t q_exact;        // K7: q * sm_scale is exact in TF32 (no lo term)
   int64_t q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh;
   int64_t g_sb, g_st, g_sh;
   double sm_scale, inv_keep;
@@ -115,164 +136,8 @@ struct SparseParams {
 
 namespace {
 
-constexpr int kThreads = 256;   // 16 x 16 (tx, ty)
-
-// tile geometry of a layout block: kR rows (and keys) per tile, kSub
-// tiles per block, kI score rows (and columns) per thread
-template <int kBlk>
-struct Tile {
-  static constexpr int kR = kBlk < 64 ? kBlk : 64;
-  static constexpr int kSub = kBlk / kR;
-  static constexpr int kI = kR / 16;
-  static constexpr int kPs = kR + 1;   // padded row stride of a score tile
-};
-
-// rows [r0, r0 + kR) of a [B, T, H, D] tensor of (b, h) into a padded f32
-// tile [kR][D + 1], times `scale`
-template <typename T, int kR>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          int64_t sb, int64_t st, int64_t sh,
-                                          int b, int h, int r0, int D,
-                                          float scale) {
-  const int ld = D + 1;
-  const T* base = src + b * sb + h * sh + static_cast<int64_t>(r0) * st;
-  for (int i = threadIdx.x; i < kR * D; i += kThreads) {
-    const int r = i / D;
-    const int d = i - r * D;
-    dst[r * ld + d] = to_f32(base[r * st + d]) * scale;
-  }
-}
-
-// K7: grid (B*H, nq * kSub); one CTA per tile of a q-block
-template <typename T, int kBlk, int kJ>
-__global__ void __launch_bounds__(kThreads) fwd_kernel(const SparseParams p) {
-  using G = Tile<kBlk>;
-  constexpr int kR = G::kR, kI = G::kI, kPs = G::kPs;
-  extern __shared__ float smem[];
-  const int D = static_cast<int>(p.D), ld = D + 1;
-  const int Tq = static_cast<int>(p.T), H = static_cast<int>(p.H);
-  const int nb = Tq / kBlk;
-  float* Qs = smem;
-  float* Ks = Qs + kR * ld;
-  float* Vs = Ks + kR * ld;
-  float* Ps = Vs + kR * ld;
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh - b * H;
-  const int qi = blockIdx.y / G::kSub;
-  const int q0 = qi * kBlk + (blockIdx.y - qi * G::kSub) * kR;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const float inv_keep = static_cast<float>(p.inv_keep);
-  const uint32_t seed = static_cast<uint32_t>(p.seed);
-  const uint32_t thr = static_cast<uint32_t>(p.keep_threshold);
-  const int row = h * nb + qi;
-  const int n = p.nnz[row];
-  const int32_t* lut = p.lut + static_cast<int64_t>(row) * p.max_nnz;
-
-  // the TPU kernel scales q before its dot (:263)
-  load_tile<T, kR>(Qs, static_cast<const T*>(p.q), p.q_sb, p.q_st, p.q_sh,
-                   b, h, q0, D, static_cast<float>(p.sm_scale));
-  float m[kI], l[kI], acc[kI][kJ];
-#pragma unroll
-  for (int i = 0; i < kI; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < kJ; ++j) acc[i][j] = 0.0f;
-  }
-  for (int e = 0; e < n * G::kSub; ++e) {
-    const int k0 = lut[e / G::kSub] * kBlk + (e % G::kSub) * kR;
-    __syncthreads();
-    load_tile<T, kR>(Ks, static_cast<const T*>(p.k), p.k_sb, p.k_st, p.k_sh,
-                     b, h, k0, D, 1.0f);
-    load_tile<T, kR>(Vs, static_cast<const T*>(p.v), p.v_sb, p.v_st, p.v_sh,
-                     b, h, k0, D, 1.0f);
-    __syncthreads();
-    float s[kI][kI];
-#pragma unroll
-    for (int i = 0; i < kI; ++i)
-#pragma unroll
-      for (int j = 0; j < kI; ++j) s[i][j] = 0.0f;
-    for (int d = 0; d < D; ++d) {
-      float a[kI], c[kI];
-#pragma unroll
-      for (int i = 0; i < kI; ++i) a[i] = Qs[(ty * kI + i) * ld + d];
-#pragma unroll
-      for (int j = 0; j < kI; ++j) c[j] = Ks[(tx + 16 * j) * ld + d];
-#pragma unroll
-      for (int i = 0; i < kI; ++i)
-#pragma unroll
-        for (int j = 0; j < kI; ++j) s[i][j] += a[i] * c[j];
-    }
-#pragma unroll
-    for (int i = 0; i < kI; ++i) {
-      const int qpos = q0 + ty * kI + i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < kI; ++j) {
-        if (p.causal && k0 + tx + 16 * j > qpos) s[i][j] = kMaskValue;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) {
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      }
-      // every score is finite (masked ones too), so m_new is finite
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - m_new);
-      float psum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < kI; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        float pr = expf(s[i][j] - m_new);
-        psum += pr;
-        if (p.dropping) {
-          pr *= drop_mult(seed, static_cast<uint32_t>(bh), qpos, kpos, thr,
-                          inv_keep);
-        }
-        Ps[(ty * kI + i) * kPs + tx + 16 * j] = pr;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) {
-        psum += __shfl_xor_sync(0xffffffffu, psum, off);
-      }
-      l[i] = l[i] * corr + psum;         // l sums the undropped probs
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < kJ; ++j) acc[i][j] *= corr;
-    }
-    __syncthreads();
-    for (int kk = 0; kk < kR; ++kk) {
-      float pr[kI];
-#pragma unroll
-      for (int i = 0; i < kI; ++i) pr[i] = Ps[(ty * kI + i) * kPs + kk];
-#pragma unroll
-      for (int j = 0; j < kJ; ++j) {
-        const int d = tx + 16 * j;
-        const float vv = d < D ? Vs[kk * ld + d] : 0.0f;
-#pragma unroll
-        for (int i = 0; i < kI; ++i) acc[i][j] += pr[i] * vv;
-      }
-    }
-  }
-  T* out = static_cast<T*>(p.out);
-#pragma unroll
-  for (int i = 0; i < kI; ++i) {
-    const int t = q0 + ty * kI + i;
-    const float l_safe = fmaxf(l[i], 1e-30f);
-    T* orow = out + ((static_cast<int64_t>(b) * Tq + t) * H + h) * D;
-#pragma unroll
-    for (int j = 0; j < kJ; ++j) {
-      const int d = tx + 16 * j;
-      if (d < D) orow[d] = from_f32<T>(acc[i][j] / l_safe);
-    }
-    // an empty row: m = -inf, so lse = -inf
-    if (tx == 0) p.lse_out[static_cast<int64_t>(bh) * Tq + t] =
-        m[i] + logf(l_safe);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// K8a and K8b on the tensor cores: mma.sync m16n8k8 TF32, three passes
+// The tensor-core pieces: mma.sync m16n8k8 TF32, three passes
 // ---------------------------------------------------------------------------
 
 // round to TF32 (10 explicit mantissa bits), nearest, ties away from
@@ -523,27 +388,459 @@ __device__ __forceinline__ void load_b_paired_split(const float* hi,
   bl[1] = __float_as_uint(lo[i + lde]);
 }
 
+// The part of the source this library is built with (ops/_build.py
+// passes -DBSA_PART): 0 the forward K7, 1 the backward K8a and K8b
+#ifndef BSA_PART
+#define BSA_PART 0
+#endif
+
+// rows [r0, r0 + kR) x columns [0, n) of a [B, T, H, D] tensor of (b, h)
+// (`src` at the first column), times `scale` in f32, split into TF32 hi
+// and lo planes of row stride `ld`
+template <typename T, int kR, int kThr>
+__device__ __forceinline__ void stage_scaled_split(
+    float* hi, float* lo, const T* src, int64_t sb, int64_t st, int64_t sh,
+    int b, int h, int r0, int n, int ld, float scale) {
+  const T* base = src + b * sb + h * sh + static_cast<int64_t>(r0) * st;
+  for (int i = threadIdx.x; i < kR * n; i += kThr) {
+    const int r = i / n;
+    const int d = i - r * n;
+    uint32_t h1, l1;
+    split_tf32<false>(to_f32(base[r * st + d]) * scale, h1, l1);
+    hi[r * ld + d] = __uint_as_float(h1);
+    lo[r * ld + d] = __uint_as_float(l1);
+  }
+}
+
+// the A fragment of rows [r0, r0 + 16) x columns [c0, c0 + 8) of a tile
+// split at staging (hi, lo planes); the lo plane only when `with_lo`
+__device__ __forceinline__ void load_a_split(const float* hi, const float* lo,
+                                             int ld, int r0, int c0, int g,
+                                             int t, bool with_lo,
+                                             uint32_t (&ah)[4],
+                                             uint32_t (&al)[4]) {
+  const int i = (r0 + g) * ld + c0 + t;
+  ah[0] = __float_as_uint(hi[i]);
+  ah[1] = __float_as_uint(hi[i + 8 * ld]);
+  ah[2] = __float_as_uint(hi[i + 4]);
+  ah[3] = __float_as_uint(hi[i + 8 * ld + 4]);
+  if (with_lo) {
+    al[0] = __float_as_uint(lo[i]);
+    al[1] = __float_as_uint(lo[i + 8 * ld]);
+    al[2] = __float_as_uint(lo[i + 4]);
+    al[3] = __float_as_uint(lo[i + 8 * ld + 4]);
+  }
+}
+
+// columns [c_from, (c_from + 7) & ~7) of `rows` rows (stride ld) set to
+// zero: the pad the last 8-column step of a product reads
+template <typename T, int kThr>
+__device__ __forceinline__ void zero_pad(T* tile, int ld, int rows,
+                                         int c_from) {
+  const int w = ((c_from + 7) & ~7) - c_from;
+  for (int i = threadIdx.x; i < rows * w; i += kThr) {
+    const int r = i / w;
+    tile[r * ld + c_from + (i - r * w)] = from_f32<T>(0.0f);
+  }
+}
+
+// K7: grid (B*H, nq * kSub, n_col); the CTA owns kR q rows of a q-block
+// and the output columns of its column chunk, walks the forward LUT's
+// k-blocks and keeps the online softmax and O in registers. kWide (past
+// kColChunk columns, kDmax 256 only) compiles the column chunks' code.
+template <typename T, int kBlk, int kDmax, bool kWide>
+__device__ __forceinline__ void fwd_mma(const SparseParams& p, bool vec) {
+  using G = MmaTile<kBlk, kDmax, false>;       // K8a's tiling
+  constexpr int kR = G::kR, kThr = G::kThreads, kNt = G::kNt;
+  constexpr int kAcc = G::kAcc, kDc = G::kDc;
+  constexpr bool kExact = sizeof(T) == 2;      // 2-byte K, V exact in TF32
+  // f32 splits each visited element once, at staging (on the card faster
+  // than splitting at each use from the cp.async double buffer); 2-byte
+  // inputs need no split and keep the double buffer
+  constexpr bool kSplitOnce = !kExact;
+  static_assert(kDmax <= 128 || kR == G::kChunk,
+                "a wide head's window is staged once per visited tile");
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int D = static_cast<int>(p.D);
+  static_assert(!kWide || kDmax == 256, "a wide head takes 256-column rows");
+  constexpr bool wide = kWide;
+  // the column chunk is read from the grid even where it is 0: with it
+  // folded to a constant ptxas gives f32 K7 at head dim 64 168 registers
+  // in place of 197, and the kernel took 12% longer on the card
+  const int cc = blockIdx.z, oc0 = cc * kColChunk;
+  const int on = min(kColChunk, D - oc0);      // this CTA's output columns
+  const int oDp = (on + 7) & ~7;
+  const int Dw = wide ? kColChunk : D;         // columns a tile row holds
+  const int Tq = static_cast<int>(p.T), H = static_cast<int>(p.H);
+  const int nb = Tq / kBlk;
+  const int words = row_words(Dw, sizeof(T));
+  const int lde = words * 4 / static_cast<int>(sizeof(T));
+  const int ld32 = row_words(Dw, 4);
+  const int plane = kR * ld32;                 // words of an f32 plane
+  const int tile = kR * words;                 // words of a tile in T
+  float* qhi = smem;                           // q * sm_scale, split
+  float* qlo = smem + plane;
+  float* vis = smem + 2 * plane;               // the visited tiles
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh - b * H;
+  const int qb = blockIdx.y / G::kSub;
+  const int q0 = qb * kBlk + (blockIdx.y - qb * G::kSub) * kR;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rw = warp % G::kRowWarps, slice = warp / G::kRowWarps;
+  const int g = lane >> 2, t = lane & 3;
+  const int r16 = rw * 16;
+  const float sm_scale = static_cast<float>(p.sm_scale);
+  const float inv_keep = static_cast<float>(p.inv_keep);
+  const uint32_t seed = static_cast<uint32_t>(p.seed);
+  const uint32_t thr = static_cast<uint32_t>(p.keep_threshold);
+  const bool q_lo = !kExact || p.q_exact == 0;  // the scaled q has a lo
+  const int lrow = h * nb + qb;
+  const int n = p.nnz[lrow] * G::kSub;         // visited tiles
+  const int32_t* lut = p.lut + static_cast<int64_t>(lrow) * p.max_nnz;
+  const T* qg = static_cast<const T*>(p.q);
+  const T* kg = static_cast<const T*>(p.k);
+  const T* vg = static_cast<const T*>(p.v);
+
+  float acc[kAcc][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int a = 0; a < kAcc; ++a)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[a][r] = 0.0f;
+
+  if (n > 0) {
+    auto kv_tile = [&](int i) { return reinterpret_cast<T*>(vis + i * tile); };
+    // split at staging (f32): K hi, V hi, K lo, V lo planes
+    float* khi = vis;
+    float* vhi = vis + plane;
+    float* klo = vis + 2 * plane;
+    float* vlo = vis + 3 * plane;
+    // a wide head's window wi of Q and K (and V's output chunk beside the
+    // first), staged synchronously into buffer 0
+    auto stage_window = [&](int wi, int v0) {
+      const int w0 = wi * kColChunk;
+      const int wn = min(kColChunk, D - w0);
+      __syncthreads();                 // the previous window is no longer read
+      stage_scaled_split<T, kR, kThr>(qhi, qlo, qg + w0, p.q_sb, p.q_st,
+                                      p.q_sh, b, h, q0, wn, ld32, sm_scale);
+      if constexpr (kSplitOnce) {
+        stage_split<kR, kThr>(khi, klo, reinterpret_cast<const float*>(kg) +
+                              w0, p.k_sb, p.k_st, p.k_sh, b, h, v0, wn, ld32,
+                              vec);
+        if (wi == 0) {
+          stage_split<kR, kThr>(vhi, vlo, reinterpret_cast<const float*>(vg)
+                                + oc0, p.v_sb, p.v_st, p.v_sh, b, h, v0, on,
+                                ld32, vec);
+        }
+      } else {
+        stage_tile<T, kR, kThr>(kv_tile(0), kg + w0, p.k_sb, p.k_st, p.k_sh,
+                                b, h, v0, wn, lde, vec);
+        if (wi == 0) {
+          stage_tile<T, kR, kThr>(kv_tile(1), vg + oc0, p.v_sb, p.v_st,
+                                  p.v_sh, b, h, v0, on, lde, vec);
+        }
+        cp_async_commit();
+        cp_async_wait<0>();
+      }
+      zero_pad<float, kThr>(qhi, ld32, 2 * kR, wn);
+      if constexpr (kSplitOnce) {
+        zero_pad<float, kThr>(khi, ld32, kR, wn);
+        zero_pad<float, kThr>(klo, ld32, kR, wn);
+        if (wi == 0) {
+          zero_pad<float, kThr>(vhi, ld32, kR, on);
+          zero_pad<float, kThr>(vlo, ld32, kR, on);
+        }
+      } else {
+        zero_pad<T, kThr>(kv_tile(0), lde, kR, wn);
+        if (wi == 0) zero_pad<T, kThr>(kv_tile(1), lde, kR, on);
+      }
+      __syncthreads();
+      return wn;
+    };
+    // one visited tile at v0: kt / vt its K and V tiles (TF32 hi halves
+    // with kSplitOnce, klo_ / vlo_ the lo planes; else as staged)
+    auto visit = [&](int v0, const T* kt, const T* vt, const float* klo_,
+                     const float* vlo_) {
+      auto frag_bt = [&](int r0, int c0, uint32_t (&bh_)[2],
+                         uint32_t (&bl_)[2]) {
+        if constexpr (!kSplitOnce) {
+          load_bt<kExact>(kt, lde, r0, c0, g, t, bh_, bl_);
+        } else {
+          load_bt_split(reinterpret_cast<const float*>(kt), klo_, lde, r0,
+                        c0, g, t, bh_, bl_);
+        }
+      };
+      auto frag_b_paired = [&](int r0, int c0, uint32_t (&bh_)[2],
+                               uint32_t (&bl_)[2]) {
+        if constexpr (!kSplitOnce) {
+          load_b_paired<kExact>(vt, lde, r0, c0, g, t, bh_, bl_);
+        } else {
+          load_b_paired_split(reinterpret_cast<const float*>(vt), vlo_, lde,
+                              r0, c0, g, t, bh_, bl_);
+        }
+      };
+      for (int c0 = 0; c0 < kR; c0 += G::kChunk) {
+        float s[kNt][4], s_lo[kNt][4];
+#pragma unroll
+        for (int j = 0; j < kNt; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) s[j][r] = s_lo[j][r] = 0.0f;
+        const int n_win = wide ? static_cast<int>(gridDim.z) : 1;
+        for (int wi = 0; wi < n_win; ++wi) {
+          const int wn = wide ? stage_window(wi, v0) : D;
+          const int wDp = (wn + 7) & ~7;
+          // S = (q sm_scale) K^T: lo.hi + hi.lo (small terms, their own
+          // accumulator) + hi.hi; an exact operand has no lo pass
+          for (int kk = 0; kk < wDp; kk += 8) {
+            uint32_t ah[4], al[4];
+            load_a_split(qhi, qlo, ld32, r16, kk, g, t, q_lo, ah, al);
+#pragma unroll
+            for (int j = 0; j < kNt; ++j) {
+              uint32_t bh_[2], bl_[2];
+              frag_bt(c0 + 8 * j, kk, bh_, bl_);
+              if (q_lo) mma_tf32(s_lo[j], al, bh_);
+              if (!kExact) mma_tf32(s_lo[j], ah, bl_);
+              mma_tf32(s[j], ah, bh_);
+            }
+          }
+        }
+        // the causal mask, then the online softmax over this chunk's keys:
+        // a thread holds rows g (r 0, 1) and g + 8 (r 2, 3), the rest of
+        // each row is in the other lanes of its quad
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int j = 0; j < kNt; ++j) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int qpos = q0 + r16 + g + 8 * (r >> 1);
+            const int kpos = v0 + c0 + 8 * j + 2 * t + (r & 1);
+            float x = s[j][r] + s_lo[j][r];
+            if (p.causal && kpos > qpos) x = kMaskValue;
+            s[j][r] = x;
+            mx[r >> 1] = fmaxf(mx[r >> 1], x);
+          }
+        }
+        float corr[2], psum[2] = {0.0f, 0.0f};
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+          // every score is finite (masked ones too), so m_new is finite
+          const float m_new = fmaxf(m[i], mx[i]);
+          corr[i] = expf(m[i] - m_new);
+          m[i] = m_new;
+        }
+#pragma unroll
+        for (int j = 0; j < kNt; ++j) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            float pr = expf(s[j][r] - m[r >> 1]);
+            psum[r >> 1] += pr;
+            if (p.dropping) {
+              const int qpos = q0 + r16 + g + 8 * (r >> 1);
+              const int kpos = v0 + c0 + 8 * j + 2 * t + (r & 1);
+              pr *= drop_mult(seed, static_cast<uint32_t>(bh), qpos, kpos,
+                              thr, inv_keep);
+            }
+            s[j][r] = pr;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], 1);
+          psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], 2);
+          l[i] = l[i] * corr[i] + psum[i];     // l sums the undropped probs
+        }
+#pragma unroll
+        for (int a = 0; a < kAcc; ++a)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[a][r] *= corr[r >> 1];
+        // O += P.V over this chunk's keys, P (dropped) split hi / lo
+#pragma unroll
+        for (int j = 0; j < kNt; ++j) {
+          uint32_t ph[4], pl[4];
+          acc_as_a(s[j], ph, pl);
+#pragma unroll
+          for (int a = 0; a < kAcc; ++a) {
+            const int d0 = slice * kDc + 8 * a;
+            if (d0 < oDp) {
+              uint32_t bh_[2], bl_[2];
+              frag_b_paired(c0 + 8 * j, d0, bh_, bl_);
+              mma3<false, kExact>(acc[a], ph, pl, bh_, bl_);
+            }
+          }
+        }
+      }
+    };
+    auto tile_v0 = [&](int e) {
+      return lut[e / G::kSub] * kBlk + (e % G::kSub) * kR;
+    };
+    // the own q tile, scaled and split once; the pad columns [D, Dp) of
+    // every tile read by the last 8-column step, zeroed once (a wide
+    // head stages its windows inside `visit`)
+    if (!wide) {
+      stage_scaled_split<T, kR, kThr>(qhi, qlo, qg, p.q_sb, p.q_st, p.q_sh,
+                                      b, h, q0, D, ld32, sm_scale);
+      zero_pad<float, kThr>(qhi, ld32, 2 * kR, D);
+      if constexpr (kSplitOnce) {
+        zero_pad<float, kThr>(vis, ld32, 4 * kR, D);
+      } else {
+        zero_pad<T, kThr>(kv_tile(0), lde, 4 * kR, D);
+      }
+    }
+    // 2-byte: the next visited tile is copied (cp.async) into the second
+    // buffer while this one is computed; the LUT is read a step ahead
+    auto prefetch = [&](int e) {
+      const int v0 = tile_v0(e);
+      const int buf = e & 1;
+      stage_tile<T, kR, kThr>(kv_tile(2 * buf), kg, p.k_sb, p.k_st, p.k_sh,
+                              b, h, v0, D, lde, vec);
+      stage_tile<T, kR, kThr>(kv_tile(2 * buf + 1), vg, p.v_sb, p.v_st,
+                              p.v_sh, b, h, v0, D, lde, vec);
+    };
+    // f32: each visited element split into TF32 hi / lo once, as it is
+    // staged; at D <= 64 (16-byte rows) the next visited tile waits in
+    // registers, 64 a thread, while this one is computed; past it the
+    // staging is synchronous
+    const float* k32 = reinterpret_cast<const float*>(kg);
+    const float* v32 = reinterpret_cast<const float*>(vg);
+    constexpr int kPre = kSplitOnce && kDmax == 64
+                             ? kR * kDmax / (4 * kThr) : 1;
+    const bool reg_prefetch = kSplitOnce && kDmax == 64 && vec;
+    const int chunks = D / 4;
+    float4 pre1[kPre], pre2[kPre];
+    auto fetch = [&](int e) {
+      const int v0 = tile_v0(e);
+      const float* s1 = k32 + b * p.k_sb + h * p.k_sh +
+                        static_cast<int64_t>(v0) * p.k_st;
+      const float* s2 = v32 + b * p.v_sb + h * p.v_sh +
+                        static_cast<int64_t>(v0) * p.v_st;
+#pragma unroll
+      for (int k = 0; k < kPre; ++k) {
+        const int i = threadIdx.x + k * kThr;
+        if (i < kR * chunks) {
+          const int r = i / chunks;
+          const int c = (i - r * chunks) * 4;
+          pre1[k] = *reinterpret_cast<const float4*>(s1 + r * p.k_st + c);
+          pre2[k] = *reinterpret_cast<const float4*>(s2 + r * p.v_st + c);
+        }
+      }
+    };
+    if (!wide) {
+      if constexpr (!kSplitOnce) {
+        prefetch(0);
+        cp_async_commit();
+      } else {
+        if (reg_prefetch) fetch(0);
+      }
+    }
+    for (int e = 0; e < n; ++e) {
+      const int v0 = tile_v0(e);
+      const T* kt;
+      const T* vt;
+      if constexpr (!kSplitOnce) {
+        const int buf = wide ? 0 : e & 1;
+        if (!wide) {
+          if (e + 1 < n) {
+            prefetch(e + 1);
+            cp_async_commit();
+            cp_async_wait<1>();
+          } else {
+            cp_async_wait<0>();
+          }
+          __syncthreads();
+        }
+        kt = kv_tile(2 * buf);
+        vt = kv_tile(2 * buf + 1);
+      } else {
+        if (!wide) {
+          __syncthreads();   // the previous tile is no longer read
+          if (reg_prefetch) {
+#pragma unroll
+            for (int k = 0; k < kPre; ++k) {
+              const int i = threadIdx.x + k * kThr;
+              if (i < kR * chunks) {
+                const int at = (i / chunks) * ld32 + (i % chunks) * 4;
+                store_split4(khi + at, klo + at, pre1[k]);
+                store_split4(vhi + at, vlo + at, pre2[k]);
+              }
+            }
+          } else {
+            stage_split<kR, kThr>(khi, klo, k32, p.k_sb, p.k_st, p.k_sh, b,
+                                  h, v0, D, ld32, vec);
+            stage_split<kR, kThr>(vhi, vlo, v32, p.v_sb, p.v_st, p.v_sh, b,
+                                  h, v0, D, ld32, vec);
+          }
+          __syncthreads();
+          if (reg_prefetch && e + 1 < n) fetch(e + 1);
+        }
+        kt = reinterpret_cast<const T*>(khi);
+        vt = reinterpret_cast<const T*>(vhi);
+      }
+      visit(v0, kt, vt, klo, vlo);
+      if constexpr (!kSplitOnce) {
+        if (!wide) __syncthreads();   // this buffer is refilled at e + 2
+      }
+    }
+  }
+  // out = acc / max(l, 1e-30); lse = m + log(max(l, 1e-30)) from chunk 0
+  // (an empty row: acc 0, m -inf, so out 0 and lse -inf)
+  T* out = static_cast<T*>(p.out);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r16 + g + 8 * i;
+    const float l_safe = fmaxf(l[i], 1e-30f);
+    const int64_t at = ((static_cast<int64_t>(b) * Tq + row) * H + h) * D +
+                       oc0;
+#pragma unroll
+    for (int a = 0; a < kAcc; ++a) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int d = slice * kDc + 8 * a + 2 * t + c;
+        if (d < on) out[at + d] = from_f32<T>(acc[a][2 * i + c] / l_safe);
+      }
+    }
+    if (cc == 0 && slice == 0 && t == 0) {
+      p.lse_out[static_cast<int64_t>(bh) * Tq + row] = m[i] + logf(l_safe);
+    }
+  }
+}
+
+// K7
+template <typename T, int kBlk, int kDmax, bool kWide>
+__global__ void __launch_bounds__(MmaTile<kBlk, kDmax, false>::kThreads)
+    fwd_mma_kernel(const SparseParams p, int vec) {
+  fwd_mma<T, kBlk, kDmax, kWide>(p, vec != 0);
+}
+
 // K8a (kDkv false): grid (B*H, nq * kSub); the CTA owns q rows, visits
 // the forward LUT's k-blocks and accumulates dQ += dS.K.
 // K8b (kDkv true): grid (B*H, nk * kSub); the CTA owns k rows, visits the
 // transposed LUT's q-blocks and accumulates dK += dS^T.Q, dV += P^T.dO.
 // In both, "own" rows index the score fragment's rows and "visited" rows
-// its columns: S = Q.K^T in K8a, S^T = K.Q^T in K8b.
-template <typename T, int kBlk, int kDmax, bool kDkv>
+// its columns: S = Q.K^T in K8a, S^T = K.Q^T in K8b. kWide as for K7.
+template <typename T, int kBlk, int kDmax, bool kDkv, bool kWide>
 __device__ __forceinline__ void bwd_mma(const SparseParams& p, bool vec) {
   using G = MmaTile<kBlk, kDmax, kDkv>;
   constexpr int kR = G::kR, kThr = G::kThreads, kNt = G::kNt;
   constexpr int kAcc = G::kAcc, kDc = G::kDc;
-  constexpr bool kExact = sizeof(T) == 2;      // bf16 is exact in TF32
+  constexpr bool kExact = sizeof(T) == 2;      // bf16 / fp16 exact in TF32
   // f32 K8a splits each visited element once, at staging; K8b (twice
-  // the B loads a tile: dK and dV) and bf16 keep the double buffer
+  // the B loads a tile: dK and dV) and 2-byte inputs keep the double
+  // buffer
   constexpr bool kSplitOnce = !kExact && !kDkv;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int D = static_cast<int>(p.D), Dp = (D + 7) & ~7;
+  static_assert(!kWide || kDmax == 256, "a wide head takes 256-column rows");
+  constexpr bool wide = kWide;
+  const int cc = wide ? blockIdx.z : 0, oc0 = cc * kColChunk;
+  const int on = wide ? min(kColChunk, D - oc0) : D;  // output columns
+  const int oDp = (on + 7) & ~7;
+  const int Dw = wide ? kColChunk : D;         // columns a tile row holds
   const int Tq = static_cast<int>(p.T), H = static_cast<int>(p.H);
   const int nb = Tq / kBlk;
-  const int words = row_words(D, sizeof(T));
+  const int words = row_words(Dw, sizeof(T));
   const int lde = words * 4 / static_cast<int>(sizeof(T));
   const int tile = kR * words;                 // 32-bit words of a tile
   T* own1 = reinterpret_cast<T*>(smem);        // Q (K8a) / K (K8b)
@@ -601,7 +898,7 @@ __device__ __forceinline__ void bwd_mma(const SparseParams& p, bool vec) {
 
   if (n > 0) {
     // columns [D, Dp) of every tile are read by the last 8-column step
-    if (D < Dp) {
+    if (!wide && D < Dp) {
       T* all = reinterpret_cast<T*>(smem);
       for (int i = threadIdx.x; i < 6 * kR * (Dp - D); i += kThr) {
         const int r = i / (Dp - D);
@@ -613,6 +910,50 @@ __device__ __forceinline__ void bwd_mma(const SparseParams& p, bool vec) {
     // tiles. With kSplitOnce they hold the TF32 hi halves and y1lo / y2lo
     // the lo halves; else the tiles as staged, split at each use (bf16
     // needs no split)
+    // a wide head's window of the own and visited tiles, staged
+    // synchronously into buffer 0 (with K8b's lse / delta rows beside the
+    // first); window wi is column chunk (cc + 1 + wi) mod n_col, so the
+    // last is the CTA's own chunk, which the accumulation then reads
+    auto stage_window = [&](int wi, int v0) {
+      const int nw = static_cast<int>(gridDim.z);
+      const int w0 = (cc + 1 + wi) % nw * kColChunk;
+      const int wn = min(kColChunk, D - w0);
+      T* y1 = reinterpret_cast<T*>(smem + 2 * tile);
+      T* y2 = reinterpret_cast<T*>(smem + 3 * tile);
+      __syncthreads();                 // the previous window is no longer read
+      stage_tile<T, kR, kThr>(own1, o1 + w0, o1b, o1t, o1h, b, h, o0, wn,
+                              lde, vec);
+      stage_tile<T, kR, kThr>(own2, o2 + w0, o2b, o2t, o2h, b, h, o0, wn,
+                              lde, vec);
+      if constexpr (kSplitOnce) {
+        float* y1lo = smem + 4 * tile;
+        float* y2lo = smem + 5 * tile;
+        stage_split<kR, kThr>(reinterpret_cast<float*>(y1), y1lo,
+                              reinterpret_cast<const float*>(v1) + w0, v1b,
+                              v1t, v1h, b, h, v0, wn, lde, vec);
+        stage_split<kR, kThr>(reinterpret_cast<float*>(y2), y2lo,
+                              reinterpret_cast<const float*>(v2) + w0, v2b,
+                              v2t, v2h, b, h, v0, wn, lde, vec);
+        zero_pad<float, kThr>(y1lo, lde, 2 * kR, wn);
+      } else {
+        stage_tile<T, kR, kThr>(y1, v1 + w0, v1b, v1t, v1h, b, h, v0, wn,
+                                lde, vec);
+        stage_tile<T, kR, kThr>(y2, v2 + w0, v2b, v2t, v2h, b, h, v0, wn,
+                                lde, vec);
+      }
+      if (kDkv && wi == 0) {
+        for (int i = threadIdx.x; i < kR; i += kThr) {
+          const int64_t at = static_cast<int64_t>(bh) * Tq + v0 + i;
+          stats[i] = p.lse[at];
+          stats[kR + i] = p.delta[at];
+        }
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      zero_pad<T, kThr>(own1, lde, 4 * kR, wn);   // own1, own2, y1, y2
+      __syncthreads();
+      return wn;
+    };
     auto visit = [&](int v0, const T* y1, const T* y2, const float* y1lo,
                      const float* y2lo, const float* lse_s,
                      const float* delta_s) {
@@ -642,17 +983,22 @@ __device__ __forceinline__ void bwd_mma(const SparseParams& p, bool vec) {
           for (int r = 0; r < 4; ++r) {
             s[j][r] = dp[j][r] = s_lo[j][r] = dp_lo[j][r] = 0.0f;
           }
-        for (int kk = 0; kk < Dp; kk += 8) {
-          uint32_t a1h[4], a1l[4], a2h[4], a2l[4];
-          load_a<kExact>(own1, lde, r16, kk, g, t, a1h, a1l);
-          load_a<kExact>(own2, lde, r16, kk, g, t, a2h, a2l);
+        const int n_win = wide ? static_cast<int>(gridDim.z) : 1;
+        for (int wi = 0; wi < n_win; ++wi) {
+          const int wDp = wide ? (stage_window(wi, v0) + 7) & ~7 : Dp;
+          for (int kk = 0; kk < wDp; kk += 8) {
+            uint32_t a1h[4], a1l[4], a2h[4], a2l[4];
+            load_a<kExact>(own1, lde, r16, kk, g, t, a1h, a1l);
+            load_a<kExact>(own2, lde, r16, kk, g, t, a2h, a2l);
 #pragma unroll
-          for (int j = 0; j < kNt; ++j) {
-            uint32_t bh_[2], bl_[2];
-            frag_bt(y1, y1lo, c0 + 8 * j, kk, bh_, bl_);
-            mma3_split<kExact, kExact>(s[j], s_lo[j], a1h, a1l, bh_, bl_);
-            frag_bt(y2, y2lo, c0 + 8 * j, kk, bh_, bl_);
-            mma3_split<kExact, kExact>(dp[j], dp_lo[j], a2h, a2l, bh_, bl_);
+            for (int j = 0; j < kNt; ++j) {
+              uint32_t bh_[2], bl_[2];
+              frag_bt(y1, y1lo, c0 + 8 * j, kk, bh_, bl_);
+              mma3_split<kExact, kExact>(s[j], s_lo[j], a1h, a1l, bh_, bl_);
+              frag_bt(y2, y2lo, c0 + 8 * j, kk, bh_, bl_);
+              mma3_split<kExact, kExact>(dp[j], dp_lo[j], a2h, a2l, bh_,
+                                         bl_);
+            }
           }
         }
 #pragma unroll
@@ -695,7 +1041,7 @@ __device__ __forceinline__ void bwd_mma(const SparseParams& p, bool vec) {
 #pragma unroll
           for (int a = 0; a < kAcc; ++a) {
             const int d0 = slice * kDc + 8 * a;
-            if (d0 < Dp) {
+            if (d0 < oDp) {
               uint32_t bh_[2], bl_[2];
               frag_b_paired(y1, y1lo, c0 + 8 * j, d0, bh_, bl_);
               mma3<false, kExact>(acc1[a], dsh, dsl, bh_, bl_);
@@ -711,107 +1057,127 @@ __device__ __forceinline__ void bwd_mma(const SparseParams& p, bool vec) {
     auto tile_at = [&](int i) {
       return reinterpret_cast<T*>(smem + i * tile);
     };
-    stage_tile<T, kR, kThr>(own1, o1, o1b, o1t, o1h, b, h, o0, D, lde, vec);
-    stage_tile<T, kR, kThr>(own2, o2, o2b, o2t, o2h, b, h, o0, D, lde, vec);
-    if constexpr (!kSplitOnce) {
-      // the next visited tile is copied (cp.async) into the second buffer
-      // while this one is computed; the LUT is read a step ahead
-      auto prefetch = [&](int e) {
-        const int v0 = lut[e / G::kSub] * kBlk + (e % G::kSub) * kR;
-        const int buf = e & 1;
-        stage_tile<T, kR, kThr>(tile_at(2 + 2 * buf), v1, v1b, v1t, v1h, b,
-                                h, v0, D, lde, vec);
-        stage_tile<T, kR, kThr>(tile_at(3 + 2 * buf), v2, v2b, v2t, v2h, b,
-                                h, v0, D, lde, vec);
-        if (kDkv) {
-          // every visited q-block has this k-block in its LUT row: its
-          // rows' lse are finite
-          for (int i = threadIdx.x; i < kR; i += kThr) {
-            const int64_t at = static_cast<int64_t>(bh) * Tq + v0 + i;
-            cp_async4(stats + buf * 2 * kR + i, p.lse + at);
-            cp_async4(stats + buf * 2 * kR + kR + i, p.delta + at);
-          }
+    auto tile_v0 = [&](int e) {
+      return lut[e / G::kSub] * kBlk + (e % G::kSub) * kR;
+    };
+    // (a wide head stages its windows inside `visit`)
+    if (!wide) {
+      stage_tile<T, kR, kThr>(own1, o1, o1b, o1t, o1h, b, h, o0, D, lde,
+                              vec);
+      stage_tile<T, kR, kThr>(own2, o2, o2b, o2t, o2h, b, h, o0, D, lde,
+                              vec);
+    }
+    // K8b and 2-byte inputs: the next visited tile is copied (cp.async)
+    // into the second buffer while this one is computed; the LUT is read
+    // a step ahead
+    auto prefetch = [&](int e) {
+      const int v0 = tile_v0(e);
+      const int buf = e & 1;
+      stage_tile<T, kR, kThr>(tile_at(2 + 2 * buf), v1, v1b, v1t, v1h, b, h,
+                              v0, D, lde, vec);
+      stage_tile<T, kR, kThr>(tile_at(3 + 2 * buf), v2, v2b, v2t, v2h, b, h,
+                              v0, D, lde, vec);
+      if (kDkv) {
+        // every visited q-block has this k-block in its LUT row: its
+        // rows' lse are finite
+        for (int i = threadIdx.x; i < kR; i += kThr) {
+          const int64_t at = static_cast<int64_t>(bh) * Tq + v0 + i;
+          cp_async4(stats + buf * 2 * kR + i, p.lse + at);
+          cp_async4(stats + buf * 2 * kR + kR + i, p.delta + at);
         }
-      };
-      prefetch(0);
-      cp_async_commit();
-      for (int e = 0; e < n; ++e) {
-        const int buf = e & 1;
-        if (e + 1 < n) {
-          prefetch(e + 1);
-          cp_async_commit();
-          cp_async_wait<1>();
-        } else {
-          cp_async_wait<0>();
-        }
-        __syncthreads();
-        const float* lse_s = stats + buf * 2 * kR;
-        visit(lut[e / G::kSub] * kBlk + (e % G::kSub) * kR,
-              tile_at(2 + 2 * buf), tile_at(3 + 2 * buf), nullptr, nullptr,
-              lse_s, lse_s + kR);
-        __syncthreads();   // this buffer is refilled at step e + 2
       }
-    } else {
-      // f32 K8a: each visited element is split into TF32 hi / lo once, as
-      // it is staged, instead of by every warp at every use; tiles 2, 3
-      // hold the hi halves and 4, 5 the lo halves (one buffer)
-      cp_async_commit();
-      cp_async_wait<0>();
-      float* y1 = smem + 2 * tile;
-      float* y2 = smem + 3 * tile;
-      float* y1lo = smem + 4 * tile;
-      float* y2lo = smem + 5 * tile;
-      const float* k32 = reinterpret_cast<const float*>(v1);
-      const float* v32 = reinterpret_cast<const float*>(v2);
-      // at D <= 64 (16-byte rows) the next visited tile waits in
-      // registers, 64 a thread, while this one is computed; past it the
-      // staging is synchronous
-      constexpr int kPre = kDmax == 64 ? kR * kDmax / (4 * kThr) : 1;
-      const bool reg_prefetch = kDmax == 64 && vec;
-      const int chunks = D / 4;
-      float4 pre1[kPre], pre2[kPre];
-      auto fetch = [&](int e) {
-        const int v0 = lut[e / G::kSub] * kBlk + (e % G::kSub) * kR;
-        const float* s1 = k32 + b * v1b + h * v1h +
-                          static_cast<int64_t>(v0) * v1t;
-        const float* s2 = v32 + b * v2b + h * v2h +
-                          static_cast<int64_t>(v0) * v2t;
+    };
+    // f32 K8a: each visited element is split into TF32 hi / lo once, as
+    // it is staged, instead of by every warp at every use; tiles 2, 3
+    // hold the hi halves and 4, 5 the lo halves (one buffer). At D <= 64
+    // (16-byte rows) the next visited tile waits in registers, 64 a
+    // thread, while this one is computed; past it the staging is
+    // synchronous
+    float* y1s = smem + 2 * tile;
+    float* y2s = smem + 3 * tile;
+    float* y1lo = smem + 4 * tile;
+    float* y2lo = smem + 5 * tile;
+    const float* k32 = reinterpret_cast<const float*>(v1);
+    const float* v32 = reinterpret_cast<const float*>(v2);
+    constexpr int kPre = kSplitOnce && kDmax == 64
+                             ? kR * kDmax / (4 * kThr) : 1;
+    const bool reg_prefetch = kSplitOnce && kDmax == 64 && vec;
+    const int chunks = D / 4;
+    float4 pre1[kPre], pre2[kPre];
+    auto fetch = [&](int e) {
+      const int v0 = tile_v0(e);
+      const float* s1 = k32 + b * v1b + h * v1h +
+                        static_cast<int64_t>(v0) * v1t;
+      const float* s2 = v32 + b * v2b + h * v2h +
+                        static_cast<int64_t>(v0) * v2t;
 #pragma unroll
-        for (int k = 0; k < kPre; ++k) {
-          const int i = threadIdx.x + k * kThr;
-          if (i < kR * chunks) {
-            const int r = i / chunks;
-            const int c = (i - r * chunks) * 4;
-            pre1[k] = *reinterpret_cast<const float4*>(s1 + r * v1t + c);
-            pre2[k] = *reinterpret_cast<const float4*>(s2 + r * v2t + c);
-          }
+      for (int k = 0; k < kPre; ++k) {
+        const int i = threadIdx.x + k * kThr;
+        if (i < kR * chunks) {
+          const int r = i / chunks;
+          const int c = (i - r * chunks) * 4;
+          pre1[k] = *reinterpret_cast<const float4*>(s1 + r * v1t + c);
+          pre2[k] = *reinterpret_cast<const float4*>(s2 + r * v2t + c);
         }
-      };
-      if (reg_prefetch) fetch(0);
-      for (int e = 0; e < n; ++e) {
-        const int v0 = lut[e / G::kSub] * kBlk + (e % G::kSub) * kR;
-        __syncthreads();   // the previous tile is no longer read
-        if (reg_prefetch) {
+      }
+    };
+    if (!wide) {
+      if constexpr (!kSplitOnce) {
+        prefetch(0);
+      } else {
+        if (reg_prefetch) fetch(0);
+      }
+      cp_async_commit();                // the own tiles (and tile 0)
+      if constexpr (kSplitOnce) cp_async_wait<0>();
+    }
+    for (int e = 0; e < n; ++e) {
+      const int v0 = tile_v0(e);
+      const T* y1;
+      const T* y2;
+      const float* lse_s = stats;
+      if constexpr (!kSplitOnce) {
+        const int buf = wide ? 0 : e & 1;
+        if (!wide) {
+          if (e + 1 < n) {
+            prefetch(e + 1);
+            cp_async_commit();
+            cp_async_wait<1>();
+          } else {
+            cp_async_wait<0>();
+          }
+          __syncthreads();
+        }
+        y1 = tile_at(2 + 2 * buf);
+        y2 = tile_at(3 + 2 * buf);
+        lse_s = stats + buf * 2 * kR;
+      } else {
+        if (!wide) {
+          __syncthreads();   // the previous tile is no longer read
+          if (reg_prefetch) {
 #pragma unroll
-          for (int k = 0; k < kPre; ++k) {
-            const int i = threadIdx.x + k * kThr;
-            if (i < kR * chunks) {
-              const int at = (i / chunks) * lde + (i % chunks) * 4;
-              store_split4(y1 + at, y1lo + at, pre1[k]);
-              store_split4(y2 + at, y2lo + at, pre2[k]);
+            for (int k = 0; k < kPre; ++k) {
+              const int i = threadIdx.x + k * kThr;
+              if (i < kR * chunks) {
+                const int at = (i / chunks) * lde + (i % chunks) * 4;
+                store_split4(y1s + at, y1lo + at, pre1[k]);
+                store_split4(y2s + at, y2lo + at, pre2[k]);
+              }
             }
+          } else {
+            stage_split<kR, kThr>(y1s, y1lo, k32, v1b, v1t, v1h, b, h, v0,
+                                  D, lde, vec);
+            stage_split<kR, kThr>(y2s, y2lo, v32, v2b, v2t, v2h, b, h, v0,
+                                  D, lde, vec);
           }
-        } else {
-          stage_split<kR, kThr>(y1, y1lo, k32, v1b, v1t, v1h, b, h, v0, D,
-                                lde, vec);
-          stage_split<kR, kThr>(y2, y2lo, v32, v2b, v2t, v2h, b, h, v0, D,
-                                lde, vec);
+          __syncthreads();
+          if (reg_prefetch && e + 1 < n) fetch(e + 1);
         }
-        __syncthreads();
-        if (reg_prefetch && e + 1 < n) fetch(e + 1);
-        visit(v0, reinterpret_cast<const T*>(y1),
-              reinterpret_cast<const T*>(y2), y1lo, y2lo, stats,
-              stats + kR);
+        y1 = reinterpret_cast<const T*>(y1s);
+        y2 = reinterpret_cast<const T*>(y2s);
+      }
+      visit(v0, y1, y2, y1lo, y2lo, lse_s, lse_s + kR);
+      if constexpr (!kSplitOnce) {
+        if (!wide) __syncthreads();   // this buffer is refilled at e + 2
       }
     }
   }
@@ -821,13 +1187,14 @@ __device__ __forceinline__ void bwd_mma(const SparseParams& p, bool vec) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int own = o0 + r16 + g + 8 * i;
-    const int64_t at = ((static_cast<int64_t>(b) * Tq + own) * H + h) * D;
+    const int64_t at = ((static_cast<int64_t>(b) * Tq + own) * H + h) * D +
+                       oc0;
 #pragma unroll
     for (int a = 0; a < kAcc; ++a) {
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const int d = slice * kDc + 8 * a + 2 * t + c;
-        if (d < D) {
+        if (d < on) {
           out1[at + d] = from_f32<T>(acc1[a][2 * i + c]);
           if (kDkv) out2[at + d] = from_f32<T>(acc2[kDkv ? a : 0][2 * i + c]);
         }
@@ -837,34 +1204,17 @@ __device__ __forceinline__ void bwd_mma(const SparseParams& p, bool vec) {
 }
 
 // K8a
-template <typename T, int kBlk, int kDmax>
+template <typename T, int kBlk, int kDmax, bool kWide>
 __global__ void __launch_bounds__(MmaTile<kBlk, kDmax, false>::kThreads)
     dq_mma_kernel(const SparseParams p, int vec) {
-  bwd_mma<T, kBlk, kDmax, false>(p, vec != 0);
+  bwd_mma<T, kBlk, kDmax, false, kWide>(p, vec != 0);
 }
 
 // K8b
-template <typename T, int kBlk, int kDmax>
+template <typename T, int kBlk, int kDmax, bool kWide>
 __global__ void __launch_bounds__(MmaTile<kBlk, kDmax, true>::kThreads)
     dkv_mma_kernel(const SparseParams p, int vec) {
-  bwd_mma<T, kBlk, kDmax, true>(p, vec != 0);
-}
-
-template <typename T, int kBlk, int kJ>
-cudaError_t launch_fwd(const SparseParams& p, cudaStream_t st) {
-  using G = Tile<kBlk>;
-  constexpr int kR = G::kR, kPs = G::kPs;
-  const size_t ld = static_cast<size_t>(p.D) + 1;
-  const size_t bytes = (3 * kR * ld + kR * kPs) * sizeof(float);
-  auto kernel = fwd_kernel<T, kBlk, kJ>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(static_cast<unsigned>(p.B * p.H),
-                static_cast<unsigned>(p.T / kBlk * G::kSub)),
-           kThreads, bytes, st>>>(p);
-  return cudaGetLastError();
+  bwd_mma<T, kBlk, kDmax, true, kWide>(p, vec != 0);
 }
 
 bool aligned16(const void* ptr) {
@@ -886,40 +1236,61 @@ bool vec_rows(const SparseParams& p) {
   return true;
 }
 
-template <typename T, int kBlk, int kDmax, bool kDkv>
-cudaError_t launch_mma(const SparseParams& p, cudaStream_t st) {
-  using G = MmaTile<kBlk, kDmax, kDkv>;
-  const int words = row_words(static_cast<int>(p.D), sizeof(T));
-  const size_t bytes =
-      (6 * static_cast<size_t>(G::kR) * words + (kDkv ? 4 * G::kR : 0)) *
-      sizeof(float);
-  auto kernel = kDkv ? dkv_mma_kernel<T, kBlk, kDmax>
-                     : dq_mma_kernel<T, kBlk, kDmax>;
+// shared memory of a launch: K7 the q planes (f32) and four visited
+// tiles; K8 six tiles (K8b: lse / delta rows of two buffers beside)
+template <typename T, int kR>
+size_t smem_bytes(int which, int64_t D) {
+  const int Dw = static_cast<int>(D < kColChunk ? D : kColChunk);
+  const size_t words = row_words(Dw, sizeof(T));
+  if (which == 0) {
+    return (2 * static_cast<size_t>(kR) * row_words(Dw, 4) +
+            4 * kR * words) * sizeof(float);
+  }
+  return (6 * kR * words + (which == 2 ? 4 * kR : 0)) * sizeof(float);
+}
+
+template <typename T, int kBlk, int kDmax, bool kWide = false>
+cudaError_t launch_typed(int which, const SparseParams& p, cudaStream_t st) {
+  using F = MmaTile<kBlk, kDmax, false>;
+  using B = MmaTile<kBlk, kDmax, true>;
+  void (*kernel)(const SparseParams, int);
+  int threads;
+  switch (which) {
+#if BSA_PART == 0
+    case 0: kernel = fwd_mma_kernel<T, kBlk, kDmax, kWide>;
+      threads = F::kThreads;
+      break;
+#else
+    case 1: kernel = dq_mma_kernel<T, kBlk, kDmax, kWide>;
+      threads = F::kThreads;
+      break;
+    case 2: kernel = dkv_mma_kernel<T, kBlk, kDmax, kWide>;
+      threads = B::kThreads;
+      break;
+#endif
+    default: return cudaErrorInvalidValue;
+  }
+  const size_t bytes = smem_bytes<T, F::kR>(which, p.D);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   kernel<<<dim3(static_cast<unsigned>(p.B * p.H),
-                static_cast<unsigned>(p.T / kBlk * G::kSub)),
-           G::kThreads, bytes, st>>>(p, vec_rows<T>(p) ? 1 : 0);
+                static_cast<unsigned>(p.T / kBlk * F::kSub),
+                static_cast<unsigned>(p.n_col)),
+           threads, bytes, st>>>(p, vec_rows<T>(p) ? 1 : 0);
   return cudaGetLastError();
 }
 
-template <typename T, int kBlk, int kDmax, int kJ>
-cudaError_t launch_typed(int which, const SparseParams& p, cudaStream_t st) {
-  switch (which) {
-    case 0: return launch_fwd<T, kBlk, kJ>(p, st);
-    case 1: return launch_mma<T, kBlk, kDmax, false>(p, st);
-    case 2: return launch_mma<T, kBlk, kDmax, true>(p, st);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
+// past 256 columns a kDmax 256 instance of its own (kWide, chosen here
+// when n_col > 1) streams windows of 256; up to 256 the kernels hold no
+// column-chunk code
 template <typename T, int kBlk>
 cudaError_t launch_dim(int which, const SparseParams& p, cudaStream_t st) {
-  if (p.D <= 64) return launch_typed<T, kBlk, 64, 4>(which, p, st);
-  if (p.D <= 128) return launch_typed<T, kBlk, 128, 8>(which, p, st);
-  return launch_typed<T, kBlk, 256, 16>(which, p, st);
+  if (p.D <= 64) return launch_typed<T, kBlk, 64>(which, p, st);
+  if (p.D <= 128) return launch_typed<T, kBlk, 128>(which, p, st);
+  if (p.n_col > 1) return launch_typed<T, kBlk, 256, true>(which, p, st);
+  return launch_typed<T, kBlk, 256>(which, p, st);
 }
 
 template <typename T>
@@ -933,23 +1304,36 @@ cudaError_t launch_block(int which, const SparseParams& p, cudaStream_t st) {
   }
 }
 
+// the storage type this library is built for (ops/_build.py passes
+// -DBSA_DTYPE): 0 f32, 1 bf16, 2 fp16 (the DType codes)
+#ifndef BSA_DTYPE
+#define BSA_DTYPE 0
+#endif
+#if BSA_DTYPE == 0
+using Elem = float;
+#elif BSA_DTYPE == 1
+using Elem = __nv_bfloat16;
+#elif BSA_DTYPE == 2
+using Elem = __half;
+#else
+#error "BSA_DTYPE must be 0 (f32), 1 (bf16) or 2 (fp16)"
+#endif
+
 }  // namespace
 
+// `dtype` must be the library's own (BSA_DTYPE) and `which` one of its
+// part's kernels (else cudaErrorInvalidValue); `n_col` the launch's
+// column chunks, column_chunks(D)
 extern "C" int block_sparse_attention_launch(int which,
                                              const SparseParams* p,
                                              int dtype, void* stream) {
-  if (p->B < 1 || p->H < 1 || p->T < p->block || p->T % p->block != 0 ||
-      p->D < 1 || p->D > 256 || p->max_nnz < 1) {
+  if (dtype != BSA_DTYPE || p->B < 1 || p->H < 1 || p->T < p->block ||
+      p->T % p->block != 0 || p->D < 1 || p->max_nnz < 1 ||
+      p->n_col != column_chunks(p->D) || p->n_col > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (dtype) {
-    case kF32: err = launch_block<float>(which, *p, st); break;
-    case kBF16: err = launch_block<__nv_bfloat16>(which, *p, st); break;
-    default: err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(launch_block<Elem>(
+      which, *p, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* block_sparse_attention_error_string(int err) {

@@ -51,8 +51,16 @@
 //   a precision change; fp16 on the tensor cores needs its own range
 //   argument for the lo term (fp16 subnormals).
 //
-// Head dims up to 256 (the FMA route; the tensor-core kernels hold up to
-// 128). Above 256 no f32 tile of >= 32 rows fits beside its partners.
+// Any head dim on the FMA route (the tensor-core kernels hold up to 128).
+// Past kColChunk (256) columns no f32 tile of >= 32 rows fits beside its
+// partners, so a launch splits the output columns into chunks of 256, one
+// CTA each along grid z (`n_col`, from ops/head_dim.py), and each CTA
+// streams the score contraction over D in windows of 256 columns through
+// the same tiles, accumulating in registers (K2 and K3
+// take their own chunk's window last, whose tiles their accumulation then
+// reads). Every chunk's CTA forms the same scores in the same order, so
+// their row statistics agree bit for bit; chunk 0 alone writes lse (K1)
+// and the dbias partials (K3). No atomics: each output has one writer.
 //
 // Causal tiles above the diagonal are skipped (K1/K2 stop at the
 // diagonal tile; K3 starts there). Any T and S: rows and keys past the
@@ -94,6 +102,7 @@ struct AttnParams {
   int64_t B, T, S, H, D, causal, dropping, seed, head_offset, num_heads,
       keep_threshold;
   int64_t tensor_core;    // the route: 1 tensor-core kernels, 0 FMA kernels
+  int64_t n_col;          // FMA route: column chunks of kColChunk (grid z)
   int64_t q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh;
   int64_t g_sb, g_st, g_sh;
   double sm_scale, inv_keep;
@@ -113,29 +122,38 @@ __device__ __forceinline__ uint32_t global_head(const AttnParams& p,
       p.num_heads) - H) + static_cast<int>(p.head_offset));
 }
 
-// rows [r0, r0 + kRows) of a [B, L, H, D] tensor of (b, h) into a padded
-// f32 tile [kRows][D + 1], times `scale`; rows past L are zero
+// rows [r0, r0 + kRows) x columns [0, n) of a [B, L, H, D] tensor of
+// (b, h) (`src` at the first column) into a padded f32 tile of row
+// stride ld, times `scale`; rows past L are zero
 template <int kRows, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
+__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
                                           int64_t sb, int64_t sl, int64_t sh,
                                           int b, int h, int r0, int L,
-                                          int D, float scale) {
-  const int ld = D + 1;
+                                          int n, float scale) {
   const T* base = src + b * sb + h * sh;
-  for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
-    const int r = i / D;
-    const int d = i - r * D;
+  for (int i = threadIdx.x; i < kRows * n; i += kThreads) {
+    const int r = i / n;
+    const int d = i - r * n;
     const int row = r0 + r;
     dst[r * ld + d] = row < L ? to_f32(base[row * sl + d]) * scale : 0.0f;
   }
 }
 
-// K1: grid (B*H, ceil(T / kBr)); the heaviest causal tiles start first
-template <typename T, int kJ, int kBr>
+// K1: grid (B*H, ceil(T / kBr), n_col); the heaviest causal tiles start
+// first
+template <typename T, int kJ, int kBr, bool kWide>
 __global__ void __launch_bounds__(kThreads) fwd_kernel(const AttnParams p) {
   extern __shared__ float smem[];
   constexpr int kI = kBr / 16, kPs = kBr + 1;
-  const int D = static_cast<int>(p.D), ld = D + 1;
+  const int D = static_cast<int>(p.D);
+  // past kColChunk columns (the kWide instance): the CTA owns the output
+  // columns [oc0, oc0 + on) and streams Q.K^T over D in windows of
+  // kColChunk, V's chunk staged beside them
+  static_assert(!kWide || kJ == 16, "a wide head takes 256-column rows");
+  constexpr bool wide = kWide;
+  const int oc0 = wide ? blockIdx.z * kColChunk : 0;
+  const int on = wide ? min(kColChunk, D - oc0) : D;
+  const int ld = (wide ? kColChunk : D) + 1;
   const int Tq = static_cast<int>(p.T), S = static_cast<int>(p.S);
   const int H = static_cast<int>(p.H);
   float* Qs = smem;
@@ -152,9 +170,14 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(const AttnParams p) {
   const uint32_t seed = static_cast<uint32_t>(p.seed);
   const uint32_t thr = static_cast<uint32_t>(p.keep_threshold);
 
+  const T* qg = static_cast<const T*>(p.q);
+  const T* kg = static_cast<const T*>(p.k);
+  const T* vg = static_cast<const T*>(p.v);
   // the TPU kernel scales q before its dot (:333)
-  load_tile<kBr>(Qs, static_cast<const T*>(p.q), p.q_sb, p.q_st, p.q_sh, b, h,
-                 q0, Tq, D, sm_scale);
+  if (!wide) {
+    load_tile<kBr>(Qs, ld, qg, p.q_sb, p.q_st, p.q_sh, b, h, q0, Tq, D,
+                   sm_scale);
+  }
   float m[kI], l[kI], acc[kI][kJ];
 #pragma unroll
   for (int i = 0; i < kI; ++i) {
@@ -164,28 +187,47 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(const AttnParams p) {
     for (int j = 0; j < kJ; ++j) acc[i][j] = 0.0f;
   }
   const int k_end = p.causal ? min(S, q0 + kBr) : S;
+  const int n_win = wide ? static_cast<int>(gridDim.z) : 1;
   for (int k0 = 0; k0 < k_end; k0 += kBr) {
     __syncthreads();
-    load_tile<kBr>(Ks, static_cast<const T*>(p.k), p.k_sb, p.k_st, p.k_sh, b, h,
-                   k0, S, D, 1.0f);
-    load_tile<kBr>(Vs, static_cast<const T*>(p.v), p.v_sb, p.v_st, p.v_sh, b, h,
-                   k0, S, D, 1.0f);
-    __syncthreads();
+    if (wide) {
+      load_tile<kBr>(Vs, ld, vg + oc0, p.v_sb, p.v_st, p.v_sh, b, h, k0, S,
+                     on, 1.0f);
+    } else {
+      load_tile<kBr>(Ks, ld, kg, p.k_sb, p.k_st, p.k_sh, b, h, k0, S, D,
+                     1.0f);
+      load_tile<kBr>(Vs, ld, vg, p.v_sb, p.v_st, p.v_sh, b, h, k0, S, D,
+                     1.0f);
+      __syncthreads();
+    }
     float s[kI][kI];
 #pragma unroll
     for (int i = 0; i < kI; ++i)
 #pragma unroll
       for (int j = 0; j < kI; ++j) s[i][j] = 0.0f;
-    for (int d = 0; d < D; ++d) {
-      float a[kI], c[kI];
+    for (int wi = 0; wi < n_win; ++wi) {
+      int wn = D;
+      if (wide) {
+        const int w0 = wi * kColChunk;
+        wn = min(kColChunk, D - w0);
+        if (wi > 0) __syncthreads();   // the last window is no longer read
+        load_tile<kBr>(Qs, ld, qg + w0, p.q_sb, p.q_st, p.q_sh, b, h, q0, Tq,
+                       wn, sm_scale);
+        load_tile<kBr>(Ks, ld, kg + w0, p.k_sb, p.k_st, p.k_sh, b, h, k0, S,
+                       wn, 1.0f);
+        __syncthreads();
+      }
+      for (int d = 0; d < wn; ++d) {
+        float a[kI], c[kI];
 #pragma unroll
-      for (int i = 0; i < kI; ++i) a[i] = Qs[(ty * kI + i) * ld + d];
+        for (int i = 0; i < kI; ++i) a[i] = Qs[(ty * kI + i) * ld + d];
 #pragma unroll
-      for (int j = 0; j < kI; ++j) c[j] = Ks[(tx + 16 * j) * ld + d];
+        for (int j = 0; j < kI; ++j) c[j] = Ks[(tx + 16 * j) * ld + d];
 #pragma unroll
-      for (int i = 0; i < kI; ++i)
+        for (int i = 0; i < kI; ++i)
 #pragma unroll
-        for (int j = 0; j < kI; ++j) s[i][j] += a[i] * c[j];
+          for (int j = 0; j < kI; ++j) s[i][j] += a[i] * c[j];
+      }
     }
 #pragma unroll
     for (int i = 0; i < kI; ++i) {
@@ -240,7 +282,7 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(const AttnParams p) {
 #pragma unroll
       for (int j = 0; j < kJ; ++j) {
         const int d = tx + 16 * j;
-        const float vv = d < D ? Vs[kk * ld + d] : 0.0f;
+        const float vv = d < on ? Vs[kk * ld + d] : 0.0f;
 #pragma unroll
         for (int i = 0; i < kI; ++i) acc[i][j] += pr[i] * vv;
       }
@@ -252,23 +294,33 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(const AttnParams p) {
     const int t = q0 + ty * kI + i;
     if (t >= Tq) continue;
     const float l_safe = fmaxf(l[i], 1e-30f);
-    T* orow = out + ((static_cast<int64_t>(b) * Tq + t) * H + h) * D;
+    T* orow = out + ((static_cast<int64_t>(b) * Tq + t) * H + h) * D + oc0;
 #pragma unroll
     for (int j = 0; j < kJ; ++j) {
       const int d = tx + 16 * j;
-      if (d < D) orow[d] = from_f32<T>(acc[i][j] / l_safe);
+      if (d < on) orow[d] = from_f32<T>(acc[i][j] / l_safe);
     }
-    if (tx == 0) p.lse_out[static_cast<int64_t>(bh) * Tq + t] =
-        m[i] + logf(l_safe);
+    // every chunk's CTA has the same m and l; chunk 0 writes lse
+    if (tx == 0 && (!wide || blockIdx.z == 0)) {
+      p.lse_out[static_cast<int64_t>(bh) * Tq + t] = m[i] + logf(l_safe);
+    }
   }
 }
 
-// K2: grid (B*H, ceil(T / kBr)); dq accumulated over KV tiles
-template <typename T, int kJ, int kBr>
+// K2: grid (B*H, ceil(T / kBr), n_col); dq accumulated over KV tiles
+template <typename T, int kJ, int kBr, bool kWide>
 __global__ void __launch_bounds__(kThreads) dq_kernel(const AttnParams p) {
   extern __shared__ float smem[];
   constexpr int kI = kBr / 16, kPs = kBr + 1;
-  const int D = static_cast<int>(p.D), ld = D + 1;
+  const int D = static_cast<int>(p.D);
+  // past kColChunk columns (the kWide instance): the CTA owns dq's
+  // columns [oc0, oc0 + on) and streams S and dP over D in windows of
+  // kColChunk, its own chunk last, so Ks then holds the K columns dq reads
+  static_assert(!kWide || kJ == 16, "a wide head takes 256-column rows");
+  constexpr bool wide = kWide;
+  const int oc0 = wide ? blockIdx.z * kColChunk : 0;
+  const int on = wide ? min(kColChunk, D - oc0) : D;
+  const int ld = (wide ? kColChunk : D) + 1;
   const int Tq = static_cast<int>(p.T), S = static_cast<int>(p.S);
   const int H = static_cast<int>(p.H);
   float* Qs = smem;
@@ -286,10 +338,16 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const AttnParams p) {
   const uint32_t seed = static_cast<uint32_t>(p.seed);
   const uint32_t thr = static_cast<uint32_t>(p.keep_threshold);
 
-  load_tile<kBr>(Qs, static_cast<const T*>(p.q), p.q_sb, p.q_st, p.q_sh, b, h,
-                 q0, Tq, D, 1.0f);
-  load_tile<kBr>(Gs, static_cast<const T*>(p.g), p.g_sb, p.g_st, p.g_sh, b, h,
-                 q0, Tq, D, 1.0f);
+  const T* qg = static_cast<const T*>(p.q);
+  const T* gg_ = static_cast<const T*>(p.g);
+  const T* kg = static_cast<const T*>(p.k);
+  const T* vg = static_cast<const T*>(p.v);
+  if (!wide) {
+    load_tile<kBr>(Qs, ld, qg, p.q_sb, p.q_st, p.q_sh, b, h, q0, Tq, D,
+                   1.0f);
+    load_tile<kBr>(Gs, ld, gg_, p.g_sb, p.g_st, p.g_sh, b, h, q0, Tq, D,
+                   1.0f);
+  }
   float lse[kI], delta[kI], acc[kI][kJ];
 #pragma unroll
   for (int i = 0; i < kI; ++i) {
@@ -301,37 +359,57 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const AttnParams p) {
     for (int j = 0; j < kJ; ++j) acc[i][j] = 0.0f;
   }
   const int k_end = p.causal ? min(S, q0 + kBr) : S;
+  const int n_win = wide ? static_cast<int>(gridDim.z) : 1;
   for (int k0 = 0; k0 < k_end; k0 += kBr) {
     __syncthreads();
-    load_tile<kBr>(Ks, static_cast<const T*>(p.k), p.k_sb, p.k_st, p.k_sh, b, h,
-                   k0, S, D, 1.0f);
-    load_tile<kBr>(Vs, static_cast<const T*>(p.v), p.v_sb, p.v_st, p.v_sh, b, h,
-                   k0, S, D, 1.0f);
-    __syncthreads();
+    if (!wide) {
+      load_tile<kBr>(Ks, ld, kg, p.k_sb, p.k_st, p.k_sh, b, h, k0, S, D,
+                     1.0f);
+      load_tile<kBr>(Vs, ld, vg, p.v_sb, p.v_st, p.v_sh, b, h, k0, S, D,
+                     1.0f);
+      __syncthreads();
+    }
     float s[kI][kI], dp[kI][kI];
 #pragma unroll
     for (int i = 0; i < kI; ++i)
 #pragma unroll
       for (int j = 0; j < kI; ++j) s[i][j] = dp[i][j] = 0.0f;
-    for (int d = 0; d < D; ++d) {
-      float a[kI], gg[kI], kc[kI], vc[kI];
-#pragma unroll
-      for (int i = 0; i < kI; ++i) {
-        a[i] = Qs[(ty * kI + i) * ld + d];
-        gg[i] = Gs[(ty * kI + i) * ld + d];
+    for (int wi = 0; wi < n_win; ++wi) {
+      int wn = D;
+      if (wide) {
+        const int w0 = (blockIdx.z + 1 + wi) % n_win * kColChunk;
+        wn = min(kColChunk, D - w0);
+        if (wi > 0) __syncthreads();   // the last window is no longer read
+        load_tile<kBr>(Qs, ld, qg + w0, p.q_sb, p.q_st, p.q_sh, b, h, q0, Tq,
+                       wn, 1.0f);
+        load_tile<kBr>(Gs, ld, gg_ + w0, p.g_sb, p.g_st, p.g_sh, b, h, q0,
+                       Tq, wn, 1.0f);
+        load_tile<kBr>(Ks, ld, kg + w0, p.k_sb, p.k_st, p.k_sh, b, h, k0, S,
+                       wn, 1.0f);
+        load_tile<kBr>(Vs, ld, vg + w0, p.v_sb, p.v_st, p.v_sh, b, h, k0, S,
+                       wn, 1.0f);
+        __syncthreads();
       }
+      for (int d = 0; d < wn; ++d) {
+        float a[kI], gg[kI], kc[kI], vc[kI];
 #pragma unroll
-      for (int j = 0; j < kI; ++j) {
-        kc[j] = Ks[(tx + 16 * j) * ld + d];
-        vc[j] = Vs[(tx + 16 * j) * ld + d];
-      }
-#pragma unroll
-      for (int i = 0; i < kI; ++i)
+        for (int i = 0; i < kI; ++i) {
+          a[i] = Qs[(ty * kI + i) * ld + d];
+          gg[i] = Gs[(ty * kI + i) * ld + d];
+        }
 #pragma unroll
         for (int j = 0; j < kI; ++j) {
-          s[i][j] += a[i] * kc[j];
-          dp[i][j] += gg[i] * vc[j];
+          kc[j] = Ks[(tx + 16 * j) * ld + d];
+          vc[j] = Vs[(tx + 16 * j) * ld + d];
         }
+#pragma unroll
+        for (int i = 0; i < kI; ++i)
+#pragma unroll
+          for (int j = 0; j < kI; ++j) {
+            s[i][j] += a[i] * kc[j];
+            dp[i][j] += gg[i] * vc[j];
+          }
+      }
     }
 #pragma unroll
     for (int i = 0; i < kI; ++i) {
@@ -363,7 +441,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const AttnParams p) {
 #pragma unroll
       for (int j = 0; j < kJ; ++j) {
         const int d = tx + 16 * j;
-        const float kv = d < D ? Ks[kk * ld + d] : 0.0f;
+        const float kv = d < on ? Ks[kk * ld + d] : 0.0f;
 #pragma unroll
         for (int i = 0; i < kI; ++i) acc[i][j] += ds[i] * kv;
       }
@@ -374,22 +452,32 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const AttnParams p) {
   for (int i = 0; i < kI; ++i) {
     const int t = q0 + ty * kI + i;
     if (t >= Tq) continue;
-    T* row = dq + ((static_cast<int64_t>(b) * Tq + t) * H + h) * D;
+    T* row = dq + ((static_cast<int64_t>(b) * Tq + t) * H + h) * D + oc0;
 #pragma unroll
     for (int j = 0; j < kJ; ++j) {
       const int d = tx + 16 * j;
-      if (d < D) row[d] = from_f32<T>(acc[i][j]);
+      if (d < on) row[d] = from_f32<T>(acc[i][j]);
     }
   }
 }
 
-// K3: grid (B*H, ceil(S / kBr)); dk, dv (and dbias partials) over Q tiles.
-// Here ty owns kI keys and tx kI queries of the transposed score tile.
-template <typename T, int kJ, int kBr>
+// K3: grid (B*H, ceil(S / kBr), n_col); dk, dv (and dbias partials) over
+// Q tiles. Here ty owns kI keys and tx kI queries of the transposed score
+// tile.
+template <typename T, int kJ, int kBr, bool kWide>
 __global__ void __launch_bounds__(kThreads) dkv_kernel(const AttnParams p) {
   extern __shared__ float smem[];
   constexpr int kI = kBr / 16, kPs = kBr + 1;
-  const int D = static_cast<int>(p.D), ld = D + 1;
+  const int D = static_cast<int>(p.D);
+  // past kColChunk columns (the kWide instance): the CTA owns dk's and
+  // dv's columns [oc0, oc0 + on) and streams S^T and dP^T over D in
+  // windows of kColChunk, its own chunk last, so Qs and Gs then hold the
+  // columns dk and dv read; chunk 0 writes the dbias partials
+  static_assert(!kWide || kJ == 16, "a wide head takes 256-column rows");
+  constexpr bool wide = kWide;
+  const int oc0 = wide ? blockIdx.z * kColChunk : 0;
+  const int on = wide ? min(kColChunk, D - oc0) : D;
+  const int ld = (wide ? kColChunk : D) + 1;
   const int Tq = static_cast<int>(p.T), S = static_cast<int>(p.S);
   const int H = static_cast<int>(p.H);
   float* Ks = smem;
@@ -410,10 +498,16 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const AttnParams p) {
   const uint32_t seed = static_cast<uint32_t>(p.seed);
   const uint32_t thr = static_cast<uint32_t>(p.keep_threshold);
 
-  load_tile<kBr>(Ks, static_cast<const T*>(p.k), p.k_sb, p.k_st, p.k_sh, b, h,
-                 k0, S, D, 1.0f);
-  load_tile<kBr>(Vs, static_cast<const T*>(p.v), p.v_sb, p.v_st, p.v_sh, b, h,
-                 k0, S, D, 1.0f);
+  const T* qg = static_cast<const T*>(p.q);
+  const T* gg_ = static_cast<const T*>(p.g);
+  const T* kg = static_cast<const T*>(p.k);
+  const T* vg = static_cast<const T*>(p.v);
+  if (!wide) {
+    load_tile<kBr>(Ks, ld, kg, p.k_sb, p.k_st, p.k_sh, b, h, k0, S, D,
+                   1.0f);
+    load_tile<kBr>(Vs, ld, vg, p.v_sb, p.v_st, p.v_sh, b, h, k0, S, D,
+                   1.0f);
+  }
   float dk[kI][kJ], dv[kI][kJ], dbias[kI], kbias[kI];
 #pragma unroll
   for (int i = 0; i < kI; ++i) {
@@ -425,12 +519,15 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const AttnParams p) {
   }
   // Q tiles strictly above the diagonal see nothing of this KV tile
   const int q_start = p.causal ? (k0 / kBr) * kBr : 0;
+  const int n_win = wide ? static_cast<int>(gridDim.z) : 1;
   for (int q0 = q_start; q0 < Tq; q0 += kBr) {
     __syncthreads();
-    load_tile<kBr>(Qs, static_cast<const T*>(p.q), p.q_sb, p.q_st, p.q_sh, b, h,
-                   q0, Tq, D, 1.0f);
-    load_tile<kBr>(Gs, static_cast<const T*>(p.g), p.g_sb, p.g_st, p.g_sh, b, h,
-                   q0, Tq, D, 1.0f);
+    if (!wide) {
+      load_tile<kBr>(Qs, ld, qg, p.q_sb, p.q_st, p.q_sh, b, h, q0, Tq, D,
+                     1.0f);
+      load_tile<kBr>(Gs, ld, gg_, p.g_sb, p.g_st, p.g_sh, b, h, q0, Tq, D,
+                     1.0f);
+    }
     for (int c = threadIdx.x; c < kBr; c += kThreads) {
       const int t = q0 + c;
       const int64_t at = static_cast<int64_t>(bh) * Tq + t;
@@ -443,25 +540,42 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const AttnParams p) {
     for (int i = 0; i < kI; ++i)
 #pragma unroll
       for (int j = 0; j < kI; ++j) s[i][j] = dp[i][j] = 0.0f;
-    for (int d = 0; d < D; ++d) {
-      float kr[kI], vr[kI], qc[kI], gc[kI];
-#pragma unroll
-      for (int i = 0; i < kI; ++i) {
-        kr[i] = Ks[(ty * kI + i) * ld + d];
-        vr[i] = Vs[(ty * kI + i) * ld + d];
+    for (int wi = 0; wi < n_win; ++wi) {
+      int wn = D;
+      if (wide) {
+        const int w0 = (blockIdx.z + 1 + wi) % n_win * kColChunk;
+        wn = min(kColChunk, D - w0);
+        if (wi > 0) __syncthreads();   // the last window is no longer read
+        load_tile<kBr>(Ks, ld, kg + w0, p.k_sb, p.k_st, p.k_sh, b, h, k0, S,
+                       wn, 1.0f);
+        load_tile<kBr>(Vs, ld, vg + w0, p.v_sb, p.v_st, p.v_sh, b, h, k0, S,
+                       wn, 1.0f);
+        load_tile<kBr>(Qs, ld, qg + w0, p.q_sb, p.q_st, p.q_sh, b, h, q0, Tq,
+                       wn, 1.0f);
+        load_tile<kBr>(Gs, ld, gg_ + w0, p.g_sb, p.g_st, p.g_sh, b, h, q0,
+                       Tq, wn, 1.0f);
+        __syncthreads();
       }
+      for (int d = 0; d < wn; ++d) {
+        float kr[kI], vr[kI], qc[kI], gc[kI];
 #pragma unroll
-      for (int j = 0; j < kI; ++j) {
-        qc[j] = Qs[(tx + 16 * j) * ld + d];
-        gc[j] = Gs[(tx + 16 * j) * ld + d];
-      }
-#pragma unroll
-      for (int i = 0; i < kI; ++i)
+        for (int i = 0; i < kI; ++i) {
+          kr[i] = Ks[(ty * kI + i) * ld + d];
+          vr[i] = Vs[(ty * kI + i) * ld + d];
+        }
 #pragma unroll
         for (int j = 0; j < kI; ++j) {
-          s[i][j] += kr[i] * qc[j];
-          dp[i][j] += vr[i] * gc[j];
+          qc[j] = Qs[(tx + 16 * j) * ld + d];
+          gc[j] = Gs[(tx + 16 * j) * ld + d];
         }
+#pragma unroll
+        for (int i = 0; i < kI; ++i)
+#pragma unroll
+          for (int j = 0; j < kI; ++j) {
+            s[i][j] += kr[i] * qc[j];
+            dp[i][j] += vr[i] * gc[j];
+          }
+      }
     }
 #pragma unroll
     for (int i = 0; i < kI; ++i) {
@@ -501,8 +615,8 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const AttnParams p) {
 #pragma unroll
       for (int j = 0; j < kJ; ++j) {
         const int d = tx + 16 * j;
-        const float gv = d < D ? Gs[c * ld + d] : 0.0f;
-        const float qv = d < D ? Qs[c * ld + d] : 0.0f;
+        const float gv = d < on ? Gs[c * ld + d] : 0.0f;
+        const float qv = d < on ? Qs[c * ld + d] : 0.0f;
 #pragma unroll
         for (int i = 0; i < kI; ++i) {
           dv[i][j] += pr[i] * gv;
@@ -522,24 +636,27 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(const AttnParams p) {
       db += __shfl_xor_sync(0xffffffffu, db, off);
     }
     if (kpos >= S) continue;
-    const int64_t row = ((static_cast<int64_t>(b) * S + kpos) * H + h) * D;
+    const int64_t row = ((static_cast<int64_t>(b) * S + kpos) * H + h) * D +
+                        oc0;
 #pragma unroll
     for (int j = 0; j < kJ; ++j) {
       const int d = tx + 16 * j;
-      if (d < D) {
+      if (d < on) {
         dkp[row + d] = from_f32<T>(dk[i][j]);
         dvp[row + d] = from_f32<T>(dv[i][j]);
       }
     }
-    if (tx == 0 && p.dbias != nullptr) {
+    if (tx == 0 && p.dbias != nullptr && (!wide || blockIdx.z == 0)) {
       p.dbias[static_cast<int64_t>(bh) * S + kpos] = db;
     }
   }
 }
 
-// fp32 bytes of each FMA kernel's shared memory at row tile kBr
+// fp32 bytes of each FMA kernel's shared memory at row tile kBr (tile
+// rows of at most kColChunk columns)
 size_t fma_smem_bytes(int which, int kBr, int64_t D) {
-  const size_t ld = static_cast<size_t>(D) + 1, ps = kBr + 1;
+  const size_t ld = static_cast<size_t>(D < kColChunk ? D : kColChunk) + 1;
+  const size_t ps = kBr + 1;
   switch (which) {
     case 0: return (3 * kBr * ld + kBr * ps) * sizeof(float);
     case 1: return (4 * kBr * ld + kBr * ps) * sizeof(float);
@@ -556,29 +673,37 @@ cudaError_t launch_fma(F kernel, int which, int kBr, unsigned rows,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(bh, (rows + kBr - 1) / kBr), kThreads, bytes, st>>>(p);
+  kernel<<<dim3(bh, (rows + kBr - 1) / kBr, static_cast<unsigned>(p.n_col)),
+           kThreads, bytes, st>>>(p);
   return cudaGetLastError();
 }
 
 // kBf rows a tile for K1, kBb for K2 / K3
-template <typename T, int kJ, int kBf, int kBb>
+template <typename T, int kJ, int kBf, int kBb, bool kWide = false>
 cudaError_t launch_typed(int which, const AttnParams& p, cudaStream_t st) {
   const unsigned T_ = static_cast<unsigned>(p.T);
   const unsigned S_ = static_cast<unsigned>(p.S);
   switch (which) {
-    case 0: return launch_fma(fwd_kernel<T, kJ, kBf>, 0, kBf, T_, p, st);
-    case 1: return launch_fma(dq_kernel<T, kJ, kBb>, 1, kBb, T_, p, st);
-    case 2: return launch_fma(dkv_kernel<T, kJ, kBb>, 2, kBb, S_, p, st);
+    case 0:
+      return launch_fma(fwd_kernel<T, kJ, kBf, kWide>, 0, kBf, T_, p, st);
+    case 1:
+      return launch_fma(dq_kernel<T, kJ, kBb, kWide>, 1, kBb, T_, p, st);
+    case 2:
+      return launch_fma(dkv_kernel<T, kJ, kBb, kWide>, 2, kBb, S_, p, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // Past D 128 the K2 / K3 tiles of 64 rows (263 KB and more at D 256) do
-// not fit in shared memory: they take 32 rows; K1 keeps 64 (214 KB).
+// not fit in shared memory: they take 32 rows; K1 keeps 64 (214 KB). Past
+// D 256 an instance of its own (kWide, chosen here when n_col > 1) streams
+// windows of kColChunk columns; up to 256 the kernels hold no column
+// arithmetic.
 template <typename T>
 cudaError_t launch_dim(int which, const AttnParams& p, cudaStream_t st) {
   if (p.D <= 64) return launch_typed<T, 4, 64, 64>(which, p, st);
   if (p.D <= 128) return launch_typed<T, 8, 64, 64>(which, p, st);
+  if (p.n_col > 1) return launch_typed<T, 16, 64, 32, true>(which, p, st);
   return launch_typed<T, 16, 64, 32>(which, p, st);
 }
 
@@ -1735,7 +1860,8 @@ cudaError_t launch_tile_check(const void* a, const void* b, float* c,
 extern "C" int flash_attention_launch(int which, const AttnParams* p,
                                       int dtype, void* stream) {
   if (p->B < 1 || p->H < 1 || p->T < 1 || p->S < 1 || p->D < 1 ||
-      p->D > 256 || p->num_heads < p->H) {
+      p->num_heads < p->H || p->n_col != column_chunks(p->D) ||
+      p->n_col > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (which < 0 || which > 2) return static_cast<int>(cudaErrorInvalidValue);

@@ -68,6 +68,18 @@
 // q's dtype. A row whose position is negative attends to nothing and
 // writes zeros, as the TPU kernel's all-skipped grid does.
 //
+// Any head dim. A CTA holds at most kColChunk (256) output columns: past
+// it the grid's x splits each head into column chunks of 256 (`n_col`,
+// from ops/head_dim.py), and each CTA forms the full score
+// of every key, streaming q's and k's elements over D in chunks of 256
+// (a walk of its own, one element a lane), but reads and accumulates
+// only its own chunk of v. Every chunk's CTA forms the same scores in
+// the same order, so their (m, l) agree bit for bit; chunk 0 writes them
+// to the workspace, each CTA its own columns, and the merge waits for
+// all n_live x n_col tickets. The host picks that path (kWide) only when
+// n_col > 1: at D <= 256 the kernel is the one-chunk kernel above, with
+// no column arithmetic.
+//
 // Interface: a plain C function (ctypes), launched on the caller's
 // stream; it returns the cudaError_t of the launch.
 
@@ -80,12 +92,13 @@
 
 #include <type_traits>
 
+#include "column_chunk.cuh"
+
 namespace {
 
 constexpr int kChunk = 128;     // keys of a CTA
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kMaxD = 256;
 // keys a group loads before reducing any: 4 for 2-byte storage on the
 // 16-byte walk, 2 where a key's row takes more registers a lane (f32 rows
 // up to two vectors a lane; 1-byte rows 16 elements a lane, and at D 64
@@ -169,6 +182,7 @@ struct Params {
   float* ws;                   // [B*H, n_chunks, D + 2] chunk partials
   int32_t* tickets;            // [B*H], 0 between launches
   int S, D, H;
+  int n_col;                   // column chunks of kColChunk
   int page_size;               // paged only
   int n_chunks;
   int vec;                     // 16-byte loads of k/v rows
@@ -195,37 +209,48 @@ struct ChunkSmem {
 
 // One group's walk over the chunk's live keys [c0, last]: kVec loads a
 // row as 16-byte vectors of kE elements, else one element a lane a
-// load. Writes the group's (m, l, acc over its elements) to shared
-// memory. Lanes of a group hold the same m and l (the butterfly sums
-// give every lane the same bits).
-template <typename QT, typename KT, bool kPaged, bool kVec>
+// load. Writes the group's (m, l, acc over its elements of the output
+// columns [oc0, oc0 + on)) to shared memory. Lanes of a group hold the
+// same m and l (the butterfly sums give every lane the same bits). With
+// kWide (past kColChunk columns: one element a lane) the dot runs over
+// D in chunks of kColChunk, q's and k's elements of each chunk loaded in
+// turn; without it (oc0 0, on D) the walk holds q and a key's whole row.
+template <typename QT, typename KT, bool kPaged, bool kVec, bool kWide>
 __device__ __forceinline__ void group_walk(const Params& p, ChunkSmem& sm,
                                            int b, int h, int c0, int last,
-                                           int quant) {
+                                           int quant, int oc0, int on) {
   constexpr int kE = kVec ? 16 / static_cast<int>(sizeof(KT)) : 1;
   constexpr int kVPL = kVec ? (sizeof(KT) == 4 ? 2 : 1) : 8;
   constexpr int kN = (kVec && sizeof(KT) == 2) ? kU : kUWide;
   using Raw = typename std::conditional<kVec, uint4, KT>::type;
+  static_assert(!kWide || !kVec, "a wide head takes the element walk");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int shift = p.lpk_shift, lpk = 1 << shift;
   const int gl = lane & (lpk - 1);
   const int group = warp * (32 >> shift) + (lane >> shift);
   const int n_groups = kWarps * (32 >> shift);
-  const int nv = p.D / kE;             // vectors (elements) of a row
+  const int nv = on / kE;              // vectors (elements) of the output
 
   const QT* qrow = static_cast<const QT*>(p.q) + b * p.q_sb + h * p.q_sh;
   const KT* kbase = static_cast<const KT*>(p.k) + h * p.k_sh;
-  const KT* vbase = static_cast<const KT*>(p.v) + h * p.v_sh;
+  const KT* vbase = static_cast<const KT*>(p.v) + h * p.v_sh + oc0;
   float qv[kVPL][kE], acc[kVPL][kE];
+  // q's elements of columns [c, c + n)
+  auto load_q = [&](int c, int n) {
 #pragma unroll
-  for (int j = 0; j < kVPL; ++j) {
-    const int vi = gl + (j << shift);
+    for (int j = 0; j < kVPL; ++j) {
+      const int vi = gl + (j << shift);
 #pragma unroll
-    for (int e = 0; e < kE; ++e) {
-      qv[j][e] = vi < nv ? to_f32(qrow[vi * kE + e]) : 0.0f;
-      acc[j][e] = 0.0f;
+      for (int e = 0; e < kE; ++e) {
+        qv[j][e] = vi < n / kE ? to_f32(qrow[c + vi * kE + e]) : 0.0f;
+      }
     }
-  }
+  };
+  if constexpr (!kWide) load_q(0, p.D);
+#pragma unroll
+  for (int j = 0; j < kVPL; ++j)
+#pragma unroll
+    for (int e = 0; e < kE; ++e) acc[j][e] = 0.0f;
   float m = -INFINITY, l = 0.0f;
   const int n_live = last - c0 + 1;
   // the walk is uniform over a warp (its shuffles need every lane): it
@@ -236,7 +261,9 @@ __device__ __forceinline__ void group_walk(const Params& p, ChunkSmem& sm,
     Raw kr[kN][kVPL], vr[kN][kVPL];
     float ks[kN], vs[kN];
     bool live[kN];
-    // every load of the kN keys first
+    const KT* krows[kN];
+    // every load of the kN keys first (past kColChunk columns, k's
+    // chunks come in turn below)
 #pragma unroll
     for (int u = 0; u < kN; ++u) {
       const int i = i0 + u * n_groups;
@@ -250,13 +277,15 @@ __device__ __forceinline__ void group_walk(const Params& p, ChunkSmem& sm,
         lead = b;
         slot = c0 + ii;
       }
-      const KT* krow = kbase + lead * p.k_sb + slot * p.k_ss;
+      krows[u] = kbase + lead * p.k_sb + slot * p.k_ss;
       const KT* vrow = vbase + lead * p.v_sb + slot * p.v_ss;
 #pragma unroll
       for (int j = 0; j < kVPL; ++j) {
         const int vi = gl + (j << shift);
         if (live[u] && vi < nv) {
-          kr[u][j] = *reinterpret_cast<const Raw*>(krow + vi * kE);
+          if constexpr (!kWide) {
+            kr[u][j] = *reinterpret_cast<const Raw*>(krows[u] + vi * kE);
+          }
           vr[u][j] = *reinterpret_cast<const Raw*>(vrow + vi * kE);
         } else {
           kr[u][j] = Raw{};
@@ -270,23 +299,47 @@ __device__ __forceinline__ void group_walk(const Params& p, ChunkSmem& sm,
         vs[u] = p.v_scale[lead * p.vs_sb + slot * p.vs_ss + h * p.vs_sh];
       }
     }
+    // a wide head's dots, each lane's share over every chunk of D
+    float dots[kN];
+    if constexpr (kWide) {
+#pragma unroll
+      for (int u = 0; u < kN; ++u) dots[u] = 0.0f;
+      for (int c = 0; c < p.D; c += kColChunk) {
+        const int n = min(kColChunk, p.D - c);
+        load_q(c, n);
+#pragma unroll
+        for (int u = 0; u < kN; ++u) {
+#pragma unroll
+          for (int j = 0; j < kVPL; ++j) {
+            const int vi = gl + (j << shift);
+            const float x = live[u] && vi < n ? to_f32(krows[u][c + vi])
+                                              : 0.0f;
+            dots[u] += qv[j][0] * x;
+          }
+        }
+      }
+    }
     // scores; keys past the chunk's last live key score -inf
     float sc[kN];
     float m_new = m;
 #pragma unroll
     for (int u = 0; u < kN; ++u) {
       float dot = 0.0f;
+      if constexpr (kWide) {
+        dot = dots[u];
+      } else {
 #pragma unroll
-      for (int j = 0; j < kVPL; ++j) {
+        for (int j = 0; j < kVPL; ++j) {
 #pragma unroll
-        for (int e = 0; e < kE; ++e) {
-          float x;
-          if constexpr (kVec) {
-            x = widen<KT>(kr[u][j], e);
-          } else {
-            x = to_f32(kr[u][j]);
+          for (int e = 0; e < kE; ++e) {
+            float x;
+            if constexpr (kVec) {
+              x = widen<KT>(kr[u][j], e);
+            } else {
+              x = to_f32(kr[u][j]);
+            }
+            dot += qv[j][e] * x;
           }
-          dot += qv[j][e] * x;
         }
       }
       for (int off = 1; off < lpk; off <<= 1) {
@@ -345,7 +398,7 @@ __device__ __forceinline__ void group_walk(const Params& p, ChunkSmem& sm,
     if (vi < nv) {
 #pragma unroll
       for (int e = 0; e < kE; ++e) {
-        sm.acc[group * p.D + vi * kE + e] = acc[j][e];
+        sm.acc[group * on + vi * kE + e] = acc[j][e];
       }
     }
   }
@@ -359,14 +412,19 @@ __device__ __forceinline__ void group_walk(const Params& p, ChunkSmem& sm,
 // hold the 384 CTAs of 8 rows x 12 heads x 4 chunks in one wave, where
 // two (128 registers) would take a second wave. ptxas spills a few
 // dozen bytes a thread at this bound; the wave matters more.
-template <typename QT, typename KT, bool kPaged>
+// kWide (n_col > 1): grid x is head x column chunk, and the CTA owns the
+// output columns [oc0, oc0 + on); else grid x is the head and on is D.
+template <typename QT, typename KT, bool kPaged, bool kWide>
 __global__ void __launch_bounds__(kThreads, 3)
 flash_decode_kernel(const Params p) {
-  const int h = blockIdx.x;
+  const int h = kWide ? blockIdx.x / p.n_col : blockIdx.x;
+  const int cc = kWide ? blockIdx.x - h * p.n_col : 0;   // column chunk
   const int b = blockIdx.y;
   const int chunk = blockIdx.z;
   const int bh = b * p.H + h;
   const int c0 = chunk * kChunk;
+  const int oc0 = cc * kColChunk;
+  const int on = kWide ? min(kColChunk, p.D - oc0) : p.D;   // its columns
   const int quant = p.k_scale != nullptr;
   __shared__ ChunkSmem sm;
   __shared__ int is_last;
@@ -375,8 +433,8 @@ flash_decode_kernel(const Params p) {
   int pos = p.positions[b];
   if (pos < 0) {
     if (chunk == 0) {
-      for (int d = threadIdx.x; d < p.D; d += kThreads) {
-        out[d] = from_f32<QT>(0.0f);
+      for (int d = threadIdx.x; d < on; d += kThreads) {
+        out[oc0 + d] = from_f32<QT>(0.0f);
       }
     }
     return;
@@ -396,10 +454,15 @@ flash_decode_kernel(const Params p) {
     }
     __syncthreads();
   }
-  if (p.vec) {
-    group_walk<QT, KT, kPaged, true>(p, sm, b, h, c0, last, quant);
+  if constexpr (kWide) {
+    group_walk<QT, KT, kPaged, false, true>(p, sm, b, h, c0, last, quant,
+                                            oc0, on);
+  } else if (p.vec) {
+    group_walk<QT, KT, kPaged, true, false>(p, sm, b, h, c0, last, quant, 0,
+                                            p.D);
   } else {
-    group_walk<QT, KT, kPaged, false>(p, sm, b, h, c0, last, quant);
+    group_walk<QT, KT, kPaged, false, false>(p, sm, b, h, c0, last, quant,
+                                             0, p.D);
   }
   __syncthreads();
 
@@ -415,29 +478,32 @@ flash_decode_kernel(const Params p) {
   for (int g = 0; g < n_groups; ++g) l_all += sm.l[g] * sm.w[g];
   if (n_live == 1) {
     const float inv = 1.0f / fmaxf(l_all, 1e-30f);
-    for (int d = threadIdx.x; d < p.D; d += kThreads) {
+    for (int d = threadIdx.x; d < on; d += kThreads) {
       float o = 0.0f;
-      for (int g = 0; g < n_groups; ++g) o += sm.acc[g * p.D + d] * sm.w[g];
-      out[d] = from_f32<QT>(o * inv);
+      for (int g = 0; g < n_groups; ++g) o += sm.acc[g * on + d] * sm.w[g];
+      out[oc0 + d] = from_f32<QT>(o * inv);
     }
     return;
   }
   float* part = p.ws + (static_cast<int64_t>(bh) * p.n_chunks + chunk) *
                            (p.D + 2);
-  for (int d = threadIdx.x; d < p.D; d += kThreads) {
+  for (int d = threadIdx.x; d < on; d += kThreads) {
     float o = 0.0f;
-    for (int g = 0; g < n_groups; ++g) o += sm.acc[g * p.D + d] * sm.w[g];
-    part[d] = o;
+    for (int g = 0; g < n_groups; ++g) o += sm.acc[g * on + d] * sm.w[g];
+    part[oc0 + d] = o;
   }
-  if (threadIdx.x == 0) {
+  // every column chunk's CTA has the same (m, l); chunk 0 writes them
+  if (threadIdx.x == 0 && (!kWide || cc == 0)) {
     part[p.D] = m_all;
     part[p.D + 1] = l_all;
   }
-  // publish the partial, then take a ticket; the last ticket merges
+  // publish the partial, then take a ticket; the last of the n_live x
+  // n_col tickets merges
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) {
-    is_last = atomicAdd(p.tickets + bh, 1) == n_live - 1;
+    is_last = atomicAdd(p.tickets + bh, 1) ==
+              (kWide ? n_live * p.n_col : n_live) - 1;
   }
   __syncthreads();
   if (!is_last) return;
@@ -467,8 +533,13 @@ flash_decode_kernel(const Params p) {
 
 template <typename QT, typename KT, bool kPaged>
 cudaError_t launch_typed(const Params& p, int B, cudaStream_t stream) {
-  flash_decode_kernel<QT, KT, kPaged>
-      <<<dim3(p.H, B, p.n_chunks), kThreads, 0, stream>>>(p);
+  if (p.n_col > 1) {
+    flash_decode_kernel<QT, KT, kPaged, true>
+        <<<dim3(p.H * p.n_col, B, p.n_chunks), kThreads, 0, stream>>>(p);
+  } else {
+    flash_decode_kernel<QT, KT, kPaged, false>
+        <<<dim3(p.H, B, p.n_chunks), kThreads, 0, stream>>>(p);
+  }
   return cudaGetLastError();
 }
 
@@ -516,8 +587,9 @@ void set_walk(Params& p, int kv_dtype) {
              reinterpret_cast<uintptr_t>(p.k) % 16 == 0 &&
              reinterpret_cast<uintptr_t>(p.v) % 16 == 0;
   for (int64_t st : strides) vec = vec && (st * isz) % 16 == 0;
-  p.vec = vec;
-  const int nv = vec ? static_cast<int>(p.D * isz / 16) : p.D;
+  p.vec = vec && p.n_col == 1;   // a wide head takes the element walk
+  const int w = p.D < kColChunk ? p.D : kColChunk;   // a chunk's columns
+  const int nv = p.vec ? static_cast<int>(w * isz / 16) : w;
   p.lpk_shift = 0;
   while ((1 << p.lpk_shift) < nv && p.lpk_shift < 5) ++p.lpk_shift;
 }
@@ -525,7 +597,7 @@ void set_walk(Params& p, int kv_dtype) {
 void set_common(Params& p, const void* q, const void* k, const void* v,
                 const void* k_scale, const void* v_scale,
                 const void* positions, void* out, void* ws, void* tickets,
-                int S, int H, int D, float sm_scale) {
+                int S, int H, int D, int n_col, float sm_scale) {
   p.q = q;
   p.k = k;
   p.v = v;
@@ -539,20 +611,28 @@ void set_common(Params& p, const void* q, const void* k, const void* v,
   p.S = S;
   p.H = H;
   p.D = D;
+  p.n_col = n_col;
   p.page_size = 0;
   p.n_chunks = (S + kChunk - 1) / kChunk;
   p.sm_scale = sm_scale;
   p.t_sb = 0;
 }
 
+bool bad_shape(int B, int S, int H, int D, int n_col) {
+  return B < 1 || H < 1 || S < 1 || D < 1 || S / kChunk >= 65535 ||
+         n_col != column_chunks(D) ||
+         static_cast<int64_t>(H) * n_col > 0x7fffffff;
+}
+
 }  // namespace
 
 // ws: f32 [B * H, ceil(S / 128), D + 2] scratch; tickets: int32 [B * H],
-// all 0 before the launch (each launch leaves them 0 again)
+// all 0 before the launch (each launch leaves them 0 again); n_col: the
+// head's column chunks of 256, ceil(D / 256)
 extern "C" int flash_decode_launch(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, const void* positions, void* out, void* ws,
-    void* tickets, int B, int S, int H, int D, float sm_scale,
+    void* tickets, int B, int S, int H, int D, int n_col, float sm_scale,
     int64_t q_sb, int64_t q_sh,
     int64_t k_sb, int64_t k_ss, int64_t k_sh,
     int64_t v_sb, int64_t v_ss, int64_t v_sh,
@@ -560,12 +640,12 @@ extern "C" int flash_decode_launch(
     int64_t vs_sb, int64_t vs_ss, int64_t vs_sh,
     int64_t o_sb, int64_t o_sh,
     int q_dtype, int kv_dtype, void* stream) {
-  if (B < 1 || H < 1 || S < 1 || D < 1 || D > kMaxD || S / kChunk >= 65535) {
+  if (bad_shape(B, S, H, D, n_col)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
   set_common(p, q, k, v, k_scale, v_scale, positions, out, ws, tickets, S, H,
-             D, sm_scale);
+             D, n_col, sm_scale);
   p.q_sb = q_sb; p.q_sh = q_sh;
   p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;
   p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
@@ -582,7 +662,7 @@ extern "C" int flash_decode_launch(
 extern "C" int flash_decode_paged_launch(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, const void* positions, const void* page_table,
-    void* out, void* ws, void* tickets, int B, int S, int H, int D,
+    void* out, void* ws, void* tickets, int B, int S, int H, int D, int n_col,
     int page_size, float sm_scale,
     int64_t q_sb, int64_t q_sh,
     int64_t k_sp, int64_t k_ss, int64_t k_sh,
@@ -591,13 +671,12 @@ extern "C" int flash_decode_paged_launch(
     int64_t vs_sp, int64_t vs_ss, int64_t vs_sh,
     int64_t t_sb, int64_t o_sb, int64_t o_sh,
     int q_dtype, int kv_dtype, void* stream) {
-  if (B < 1 || H < 1 || S < 1 || D < 1 || D > kMaxD || page_size < 1 ||
-      S % page_size != 0 || S / kChunk >= 65535) {
+  if (bad_shape(B, S, H, D, n_col) || page_size < 1 || S % page_size != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
   set_common(p, q, k, v, k_scale, v_scale, positions, out, ws, tickets, S, H,
-             D, sm_scale);
+             D, n_col, sm_scale);
   p.page_table = static_cast<const int32_t*>(page_table);
   p.page_size = page_size;
   p.t_sb = t_sb;

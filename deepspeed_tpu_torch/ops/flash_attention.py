@@ -28,9 +28,14 @@ reference's f32 dots compute); every other input runs the hand-written
 fp32-FMA kernels: f32 and fp16, and bf16 inputs that break the rule
 (:func:`tma_violation`: a 16-byte-aligned base address and 16-byte
 strides, so a head dim like 36, or a view one element into its storage,
-takes the FMA kernels), and bf16 past head dim 128. The kernels take
-head dims up to ``MAX_HEAD_DIM`` (256). The kernel library refuses a tensor-core launch
-on inputs that break the rule; it never reroutes.
+takes the FMA kernels), and bf16 past head dim 128. The kernel library
+refuses a tensor-core launch on inputs that break the rule; it never
+reroutes.
+
+Any head dim, as the JAX kernels take: past 256 a launch splits the
+output columns into ``ops.head_dim.n_col(D)`` chunks, one CTA each, and
+each CTA streams the score contraction over the head dim in windows of
+256 columns.
 :func:`flash_attention` is the public, differentiable entry
 (a ``torch.autograd.Function``); ``delta`` and the head-sum of the
 dbias partials are plain torch ops, as the JAX code leaves them to XLA.
@@ -52,6 +57,8 @@ import numbers
 
 import torch
 
+from deepspeed_tpu_torch.ops.head_dim import n_col
+
 # ``flash_attention.py:31,34``: the score of a masked key, and the
 # additive form of a hard key mask (exp(s - 1e9) is an exact 0 in fp32)
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
@@ -68,10 +75,8 @@ _FOLD = 0x7F4A7C15
 
 # tile of the CUDA kernels (rows of a Q tile = keys of a KV tile)
 BLOCK = 64
-# head dims the kernels take: up to 256 on the FMA kernels (above it no
-# f32 tile of >= 32 rows fits in shared memory beside its partners), up
-# to 128 on the tensor-core kernels
-MAX_HEAD_DIM = 256
+# the tensor-core kernels hold a head of at most 128; the FMA kernels (and
+# the block-sparse and decode kernels) take any head dim (ops/head_dim.py)
 TENSOR_CORE_MAX_HEAD_DIM = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 TMA_ALIGN = 16      # bytes: a tensor map's base address and strides
@@ -452,7 +457,7 @@ class _Params(ctypes.Structure):
         [(name, ctypes.c_int64) for name in (
             "B", "T", "S", "H", "D", "causal", "dropping", "seed",
             "head_offset", "num_heads", "keep_threshold", "tensor_core",
-            "q_sb", "q_st", "q_sh", "k_sb", "k_st", "k_sh",
+            "n_col", "q_sb", "q_st", "q_sh", "k_sb", "k_st", "k_sh",
             "v_sb", "v_st", "v_sh", "g_sb", "g_st", "g_sh")] + \
         [("sm_scale", ctypes.c_double), ("inv_keep", ctypes.c_double)]
 
@@ -519,9 +524,7 @@ def _launch(wrapper, which, q, k, v, g, lse, delta, kw, out=None,
             lse_out=None, dq=None, dk=None, dv=None, dbias=None):
     B, T, H, D = q.shape
     S = k.shape[1]
-    if D > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention kernel takes head_dim <= "
-                         f"{MAX_HEAD_DIM}, got {D}")
+    cols = n_col(D)
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"flash_attention: dtype {q.dtype} not in "
                         f"{tuple(_DTYPE_CODES)}")
@@ -556,7 +559,7 @@ def _launch(wrapper, which, q, k, v, g, lse, delta, kw, out=None,
         dropping=int(rate > 0.0), seed=kw["dropout_seed"],
         head_offset=int(kw["dropout_head_offset"]), num_heads=num_heads,
         keep_threshold=_keep_threshold(rate) if rate > 0.0 else 0,
-        tensor_core=int(route == "tensor_core"),
+        tensor_core=int(route == "tensor_core"), n_col=cols,
         q_sb=q.stride(0), q_st=q.stride(1), q_sh=q.stride(2),
         k_sb=k.stride(0), k_st=k.stride(1), k_sh=k.stride(2),
         v_sb=v.stride(0), v_st=v.stride(1), v_sh=v.stride(2),

@@ -26,13 +26,14 @@ import functools
 
 import torch
 
+from deepspeed_tpu_torch.ops.head_dim import n_col
+
 # ``deepspeed_tpu/ops/pallas/flash_attention.py:DEFAULT_MASK_VALUE``:
 # the score of a masked key; exp() of it minus any live max is an
 # exact 0 in fp32.
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 DEFAULT_BLOCK_K = 128
-MAX_HEAD_DIM = 256
 # keys of key index a CTA of the CUDA kernels takes (kChunk in
 # ops/csrc/flash_decode.cu); a row's live chunks merge in chunk order
 DECODE_CHUNK = 128
@@ -280,10 +281,10 @@ def _library():
     lib = load_library("flash_decode")
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.flash_decode_launch.argtypes = (
-        [p] * 9 + [i] * 4 + [ctypes.c_float] + [i64] * 16 + [i, i, p])
+        [p] * 9 + [i] * 5 + [ctypes.c_float] + [i64] * 16 + [i, i, p])
     lib.flash_decode_launch.restype = ctypes.c_int
     lib.flash_decode_paged_launch.argtypes = (
-        [p] * 10 + [i] * 5 + [ctypes.c_float] + [i64] * 17 + [i, i, p])
+        [p] * 10 + [i] * 6 + [ctypes.c_float] + [i64] * 17 + [i, i, p])
     lib.flash_decode_paged_launch.restype = ctypes.c_int
     lib.flash_decode_error_string.argtypes = [ctypes.c_int]
     lib.flash_decode_error_string.restype = ctypes.c_char_p
@@ -291,11 +292,8 @@ def _library():
 
 
 def _check_launch(name, q, k, v, k_scale, v_scale, scale_shape):
-    """The kernel's own contract: head_dim, dtypes, scales, strides."""
-    D = k.shape[-1]
-    if D > MAX_HEAD_DIM:
-        raise ValueError(
-            f"{name} kernel takes head_dim <= {MAX_HEAD_DIM}, got {D}")
+    """The kernel's own contract: dtypes, scales, strides (any head dim:
+    past 256 the launch splits it into ``n_col(D)`` column chunks)."""
     if q.dtype not in _Q_DTYPES:
         raise TypeError(f"{name}: query dtype {q.dtype} not in "
                         f"{_Q_DTYPES}")
@@ -362,7 +360,8 @@ def _launch(q, k, v, positions, k_scale, v_scale):
         err = lib.flash_decode_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), *scale_args,
             pos.data_ptr(), out.data_ptr(), ws.data_ptr(),
-            tickets.data_ptr(), B, S, H, D, float(D ** -0.5),
+            tickets.data_ptr(), B, S, H, D, n_col(D),
+            float(D ** -0.5),
             q.stride(0), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
@@ -393,7 +392,8 @@ def _launch_paged(q, k, v, positions, page_tables, k_scale, v_scale):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), *scale_args,
             pos.data_ptr(), table.data_ptr(), out.data_ptr(),
             ws.data_ptr(), tickets.data_ptr(),
-            B, n_pt * page_size, H, D, page_size, float(D ** -0.5),
+            B, n_pt * page_size, H, D, n_col(D), page_size,
+            float(D ** -0.5),
             q.stride(0), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),

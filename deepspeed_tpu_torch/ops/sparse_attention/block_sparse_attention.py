@@ -16,11 +16,15 @@ kernels in ``ops/csrc/block_sparse_attention.cu``:
 - K8b :func:`block_sparse_attention_bwd_dkv` (``_pallas_bwd_impl``
   dkv_kernel): dK and dV over the transposed LUT.
 
-K8a and K8b multiply on the tensor cores in TF32 at fp32 precision:
-each operand x enters as ``tf32_split(x)``'s hi and lo and each product
-as hi.hi + hi.lo + lo.hi in fp32 (bf16 inputs are exact in TF32 and
-skip their lo terms). K7 multiplies in fp32 FMA. Head dims up to
-``MAX_HEAD_DIM`` (256).
+All three multiply on the tensor cores (``mma.sync`` m16n8k8) in TF32 at
+fp32 precision: each operand x enters as ``tf32_split(x)``'s hi and lo
+and each product as hi.hi + hi.lo + lo.hi in fp32. bf16 and fp16 inputs
+are exact in TF32 and skip their lo terms; K7's q * sm_scale (rounded
+to f32, as the JAX kernel forms it) is exact on them when sm_scale is a
+power of two (:func:`scaled_q_exact`). f32, bf16 and fp16 inputs; the
+kernel library is built once per type and part (forward, backward).
+Any head dim: past 256 a launch splits the output columns into
+``ops.head_dim.n_col(D)`` chunks, one CTA each.
 
 Each wrapper runs its plain PyTorch version (``*_reference``, the
 kernel's walk and arithmetic, vectorised over heads and blocks) on CPU
@@ -48,6 +52,7 @@ host-to-device copy. Attention-prob dropout is the counter hash of
 
 import ctypes
 import functools
+import math
 
 import numpy as np
 import torch
@@ -58,12 +63,11 @@ from deepspeed_tpu_torch.ops.flash_attention import (
     _keep_threshold,
     dropout_multiplier,
 )
+from deepspeed_tpu_torch.ops.head_dim import n_col
 
 BLOCKS = (16, 32, 64, 128)     # layout blocks the kernels are built for
-# above 256 no fp32 tile of >= 32 rows fits in shared memory beside its
-# partners (ops/csrc/block_sparse_attention.cu)
-MAX_HEAD_DIM = 256
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the storage types, each its own build of the source (BSA_DTYPE)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 # ---------------------------------------------------------------------------
@@ -222,6 +226,16 @@ def tf32_split(x):
     x = x.to(torch.float32)
     hi = rna(x)
     return hi, rna(x - hi)
+
+
+def scaled_q_exact(dtype, sm_scale):
+    """Whether K7's left operand of S, q * sm_scale rounded to f32, is
+    exact in TF32 for every q of ``dtype``: a 2-byte q (8 or 11
+    significant bits) times a power of two keeps its bits (f32's range
+    holds every scaled value, fp16 subnormals too), so the kernel skips
+    its lo pass; any other scale, or an f32 q, has a lo term."""
+    return (torch.empty((), dtype=dtype).element_size() == 2 and
+            sm_scale > 0 and math.frexp(sm_scale)[0] == 0.5)
 
 
 def _pair_positions(lut_j, block, device):
@@ -501,16 +515,20 @@ class _Params(ctypes.Structure):
         "dq", "dk", "dv")] + \
         [(name, ctypes.c_int64) for name in (
             "B", "T", "H", "D", "block", "max_nnz", "causal", "dropping",
-            "seed", "keep_threshold",
+            "seed", "keep_threshold", "n_col", "q_exact",
             "q_sb", "q_st", "q_sh", "k_sb", "k_st", "k_sh",
             "v_sb", "v_st", "v_sh", "g_sb", "g_st", "g_sh")] + \
         [("sm_scale", ctypes.c_double), ("inv_keep", ctypes.c_double)]
 
 
 @functools.lru_cache(None)
-def _library():
+def _library(dtype, which):
+    """The kernel library of kernel ``which`` (0 K7, 1 K8a, 2 K8b) for
+    storage type ``dtype``: the source compiled with ``-DBSA_DTYPE=<code>
+    -DBSA_PART=<0 forward, 1 backward>``."""
     from deepspeed_tpu_torch.ops._build import load_library
-    lib = load_library("block_sparse_attention")
+    lib = load_library("block_sparse_attention",
+                       (_DTYPE_CODES[dtype], int(which != 0)))
     lib.block_sparse_attention_launch.argtypes = [
         ctypes.c_int, ctypes.POINTER(_Params), ctypes.c_int,
         ctypes.c_void_p]
@@ -530,9 +548,7 @@ def _launch(which, q, k, v, g, lse, delta, lut, nnz, block, kw, out=None,
     if block not in BLOCKS:
         raise ValueError(f"block_sparse_attention kernels take blocks "
                          f"{BLOCKS}, got {block}")
-    if D > MAX_HEAD_DIM:
-        raise ValueError(f"block_sparse_attention kernels take head_dim <= "
-                         f"{MAX_HEAD_DIM}, got {D}")
+    cols = n_col(D)
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"block_sparse_attention: dtype {q.dtype} not in "
                         f"{tuple(_DTYPE_CODES)}")
@@ -565,13 +581,14 @@ def _launch(which, q, k, v, g, lse, delta, lut, nnz, block, kw, out=None,
         causal=int(kw["causal"]), dropping=int(rate > 0.0),
         seed=kw["dropout_seed"],
         keep_threshold=_keep_threshold(rate) if rate > 0.0 else 0,
+        n_col=cols, q_exact=int(scaled_q_exact(q.dtype, kw["sm_scale"])),
         q_sb=q.stride(0), q_st=q.stride(1), q_sh=q.stride(2),
         k_sb=k.stride(0), k_st=k.stride(1), k_sh=k.stride(2),
         v_sb=v.stride(0), v_st=v.stride(1), v_sh=v.stride(2),
         g_sb=gs[0], g_st=gs[1], g_sh=gs[2],
         sm_scale=kw["sm_scale"],
         inv_keep=1.0 / (1.0 - rate) if rate > 0.0 else 1.0)
-    lib = _library()
+    lib = _library(q.dtype, which)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.block_sparse_attention_launch(which, ctypes.byref(p),

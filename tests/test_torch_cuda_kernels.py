@@ -8,9 +8,13 @@ harness in ``tests/conftest.py`` out of the run:
 ``chip_smoke.py`` runs the full-width matrix; these are the small,
 fast cases (flash decode K5/K6, flash attention K1-K3 with the bf16
 tensor-core K1/K2/K3, the FMA route for bf16 off TMA's rule, and the
-wgmma tile check, fused Adam K4,
-block-sparse attention K7/K8; K1-K3 and K7/K8 at head dim 256). Tolerance atol 1e-5 on f32 outputs of
-magnitude ~1: both sides accumulate in fp32, in a different order.
+wgmma tile check, fused Adam K4, block-sparse attention K7/K8 (K7 on
+the TF32 tensor cores in f32, bf16 and fp16; fp16 K8); K1-K3 and K7/K8
+at head dim 256; K1-K3, K5/K6 and K7/K8 at head dims 320 and 512, in
+column chunks of 256). Tolerance atol 1e-5 on f32 outputs of magnitude
+~1: both sides accumulate in fp32, in a different order; where a test
+says so, chip_smoke.py's gate (``_close``: one unit of the output type
+plus 1e-5 of the largest value).
 """
 
 import importlib
@@ -523,25 +527,23 @@ def test_block_sparse_kernels_match_plain_versions(cuda, block, causal,
         torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("block,causal,rate,dtype", [
-    (16, False, 0.1, "float32"), (64, True, 0.0, "float32"),
-    (32, True, 0.1, "bfloat16"), (128, False, 0.0, "bfloat16")])
-def test_block_sparse_kernels_at_head_dim_256(cuda, block, causal, rate,
-                                              dtype):
-    """K7, K8a and K8b at D 256 against their plain versions at
-    chip_smoke.py's gate (K8 on 32-row tiles with the head split over
-    warps)."""
+def _sparse_results(cuda, block, causal, rate, dtype, d, seed, b=2, h=3):
+    """K7, K8a and K8b against their plain versions on one input set:
+    ``{name: (got, want, rtol)}`` at chip_smoke.py's gate, and the
+    launch counts each wrapper moved by."""
     import chip_smoke
     bsa = importlib.import_module(BSA)
-    rng = np.random.default_rng(6)
-    b, h, d = 2, 3, 256
+    rng = np.random.default_rng(seed)
     t = 4 * block
     q, k, v, g = (torch.from_numpy(rng.standard_normal((b, t, h, d)).astype(
         np.float32)).to(cuda, getattr(torch, dtype)) for _ in range(4))
     lut, nnz, lut_t, nnz_t = bsa.layout_tables(
         _sparse_layout(block, t, h, causal), cuda)
     kw = dict(causal=causal, dropout_rate=rate, dropout_seed=-99)
+    counters = (bsa.block_sparse_attention_fwd,
+                bsa.block_sparse_attention_bwd_dq,
+                bsa.block_sparse_attention_bwd_dkv)
+    before = [c.launches for c in counters]
     out, lse = bsa.block_sparse_attention_fwd(q, k, v, lut, nnz, block, **kw)
     want_out, want_lse = bsa.block_sparse_attention_fwd_reference(
         q, k, v, lut, nnz, block, **kw)
@@ -558,15 +560,35 @@ def test_block_sparse_kernels_at_head_dim_256(cuda, block, causal, rate,
     empty = torch.isinf(want_lse)
     assert bool(empty.any()) and torch.equal(torch.isinf(lse), empty)
     rtol = chip_smoke.TRAIN_RTOL
-    for got, ref, tol in [(out, want_out, rtol[dtype]),
-                          (lse.masked_fill(empty, 0.0),
-                           want_lse.masked_fill(empty, 0.0),
-                           rtol["float32"]),
-                          (dq, want_dq, rtol[dtype]),
-                          (dk, want_dk, rtol[dtype]),
-                          (dv, want_dv, rtol[dtype])]:
-        err, ok = chip_smoke._close(torch, got, ref, tol)
-        assert ok, err
+    results = {"out": (out, want_out, rtol[dtype]),
+               "lse": (lse.masked_fill(empty, 0.0),
+                       want_lse.masked_fill(empty, 0.0), rtol["float32"]),
+               "dq": (dq, want_dq, rtol[dtype]),
+               "dk": (dk, want_dk, rtol[dtype]),
+               "dv": (dv, want_dv, rtol[dtype])}
+    return results, [c.launches - n for c, n in zip(counters, before)]
+
+
+def _assert_close(results, names):
+    import chip_smoke
+    for name in names:
+        got, want, tol = results[name]
+        err, ok = chip_smoke._close(torch, got, want, tol)
+        assert ok, (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block,causal,rate,dtype", [
+    (16, False, 0.1, "float32"), (64, True, 0.0, "float32"),
+    (32, True, 0.1, "bfloat16"), (128, False, 0.0, "bfloat16")])
+def test_block_sparse_kernels_at_head_dim_256(cuda, block, causal, rate,
+                                              dtype):
+    """K7, K8a and K8b at D 256 against their plain versions at
+    chip_smoke.py's gate (K8 on 32-row tiles with the head split over
+    warps)."""
+    results, _ = _sparse_results(cuda, block, causal, rate, dtype, 256,
+                                 seed=6)
+    _assert_close(results, ("out", "lse", "dq", "dk", "dv"))
 
 
 @pytest.mark.cuda
@@ -598,3 +620,111 @@ def test_bert_sparse_train_step_goes_through_the_kernels(cuda):
     assert [bsa.block_sparse_attention_fwd.launches,
             bsa.block_sparse_attention_bwd_dkv.launches,
             bsa._xla_impl.calls] == [counts[0] + 6, counts[1] + 6, counts[2]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("d,block,causal", [(64, 64, False), (64, 16, True),
+                                            (128, 32, True),
+                                            (256, 16, False)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_k7_tensor_core_kernel_matches_plain_version(cuda, dtype, d, block,
+                                                     causal, rate):
+    """K7 (``fwd_mma_kernel``: mma.sync TF32, the online softmax in the
+    fragment) against its plain version, out and lse, with an empty
+    q-block row; bf16 and fp16 at D 64 / 256 drop the lo term of the
+    scaled q (sm_scale a power of two), at D 128 keep it."""
+    results, launches = _sparse_results(cuda, block, causal, rate, dtype,
+                                        d, seed=d + block)
+    assert launches == [1, 1, 1]
+    _assert_close(results, ("out", "lse"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block,causal,rate", [(16, True, 0.1),
+                                               (64, False, 0.0),
+                                               (128, True, 0.1)])
+def test_fp16_block_sparse_backward_matches_plain_versions(cuda, block,
+                                                           causal, rate):
+    """fp16 K8a and K8b (the 2-byte path: exact in TF32) at D 64."""
+    results, _ = _sparse_results(cuda, block, causal, rate, "float16", 64,
+                                 seed=block)
+    _assert_close(results, ("dq", "dk", "dv"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("d,block", [(320, 16), (512, 32)])
+def test_block_sparse_kernels_past_head_dim_256(cuda, dtype, d, block):
+    """K7, K8a and K8b at head dims split into column chunks of 256."""
+    results, _ = _sparse_results(cuda, block, True, 0.1, dtype, d, seed=d)
+    _assert_close(results, ("out", "lse", "dq", "dk", "dv"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("d", [320, 512])
+def test_flash_attention_kernels_past_head_dim_256(cuda, dtype, d):
+    """K1-K3 on the FMA route at head dims split into column chunks of
+    256, causal with a key bias and dropout (dbias from chunk 0)."""
+    import chip_smoke
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    b, t, h = 2, 150, 2
+    rng = np.random.default_rng(d)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((b, t, h, d)).astype(
+        np.float32)).to(cuda, getattr(torch, dtype)) for _ in range(4))
+    kb = torch.from_numpy(rng.standard_normal((b, t)).astype(
+        np.float32)).to(cuda)
+    kw = dict(key_bias=kb, causal=True, dropout_rate=0.1, dropout_seed=-77,
+              dropout_head_offset=2, dropout_num_heads=5)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    want_out, want_lse = fa.flash_attention_fwd_reference(q, k, v, **kw)
+    delta = (g.float() * want_out.float()).sum(-1).permute(0, 2, 1) \
+        .reshape(b * h, t).contiguous()
+    dq = fa.flash_attention_bwd_dq(q, k, v, g, want_lse, delta, **kw)
+    want_dq = fa.flash_attention_bwd_dq_reference(q, k, v, g, want_lse,
+                                                  delta, **kw)
+    dk, dv, db = fa.flash_attention_bwd_dkv(q, k, v, g, want_lse, delta, **kw)
+    want = fa.flash_attention_bwd_dkv_reference(q, k, v, g, want_lse, delta,
+                                                **kw)
+    rtol = chip_smoke.TRAIN_RTOL
+    for got, ref, tol in [(out, want_out, rtol[dtype]),
+                          (lse, want_lse, rtol["float32"]),
+                          (dq, want_dq, rtol[dtype]),
+                          (dk, want[0], rtol[dtype]),
+                          (dv, want[1], rtol[dtype]),
+                          (db, want[2], rtol["float32"])]:
+        err, ok = chip_smoke._close(torch, got, ref, tol)
+        assert ok, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", [None, "int8"])
+@pytest.mark.parametrize("d", [320, 512])
+def test_flash_decode_kernels_past_head_dim_256(cuda, codec, d):
+    """K5 and K6 (an in-order table over the same bytes) at head dims
+    split into column chunks of 256, positions across 128-key chunks."""
+    rng = np.random.default_rng(d)
+    s = 384
+    q = torch.from_numpy(rng.standard_normal((B, 1, H, d)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    k, v = (torch.from_numpy(rng.standard_normal((B, s, H, d)).astype(
+        np.float32)).to(cuda) for _ in range(2))
+    pos = torch.tensor([5, 200, s - 1], dtype=torch.int32, device=cuda)
+    if codec is None:
+        (k, v), scales = (k.bfloat16(), v.bfloat16()), ()
+    else:
+        (k, ks), (v, vs) = _quantize(k, codec), _quantize(v, codec)
+        scales = (ks, vs)
+    got = flash_decode(q, k, v, pos, *scales, block_k=128)
+    want = flash_decode_reference(q, k, v, pos, *scales, block_k=128)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-5,
+                               rtol=2.0 ** -7)
+    per_row = s // 128
+    table = torch.arange(B * per_row, dtype=torch.int32,
+                         device=cuda).reshape(B, per_row)
+    pool = [x.reshape((B * per_row, 128) + x.shape[2:])
+            for x in (k, v) + scales]
+    paged = flash_decode_paged(q, pool[0], pool[1], pos, table, *pool[2:],
+                               block_k=128)
+    assert torch.equal(paged, got)
