@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (``deepspeed_tpu_torch``) on one
-NVIDIA GPU: builds the port's CUDA kernels from this checkout, holds
-each against its plain PyTorch version, times it, serves GPT-2 125M
-(ring, paged and speculative), and trains GPT-2 350M and BERT-Large
-with block-sparse attention at full width through the port's main
-paths.
+NVIDIA GPU: builds the port's CUDA kernels and its host C++ Adam from
+this checkout, holds each kernel against its plain PyTorch version,
+times it, serves GPT-2 125M (ring, paged and speculative), trains GPT-2
+350M and BERT-Large with block-sparse attention, and GPT-2 1.5B under
+ZeRO-Offload, at full width through the port's main paths.
 
     python3 chip_smoke.py                 # every phase (one GPU)
     python3 chip_smoke.py --kernels-only  # device, build, kernel checks
+    python3 chip_smoke.py --offload-only  # device, build, phases 16-18
     python3 chip_smoke.py --turns DIR     # device, build, then K1-K8
                                           # against the checkout at DIR
                                           # (the parent commit's), in turns
@@ -17,7 +18,8 @@ Phases, each printing one JSON line:
 1. ``device``  — ``nvidia-smi`` name and power limit (also printed as
    its own line), torch and CUDA versions.
 2. ``build``   — every kernel built from ``deepspeed_tpu_torch/ops/
-   csrc`` (one ``nvcc`` per source, all started together); seconds, the
+   csrc`` (one ``nvcc`` per source and ``g++ -fopenmp`` for the host
+   Adam ``cpu_adam.cpp``, all started together); seconds, the
    ``ptxas`` register/shared-memory report, and the count of ``HGMMA``
    (wgmma) and ``UTMALDG`` (TMA load) instructions in the SASS of the
    bf16 K1, K2 and K3 functions (head dim 64 and 128): no ``HGMMA``
@@ -90,7 +92,8 @@ Phases, each printing one JSON line:
    then flash attention K1 (out, lse), K2 (dq) and K3 (dk, dv, dbias
    partials) against their plain versions on the card: B 2-8, T
    128/1000/1024, H 16, D 64 and 128, bf16 (on the tensor cores) and
-   f32, causal and not, with and without a key bias, dropout 0 and 0.1
+   f32, causal and not, the offload phases' shapes (B 4, T 1024, D 64,
+   bf16, causal: H 25 for GPT-2 1.5B, H 12 for 125M), with and without a key bias, dropout 0 and 0.1
    at a nonzero head offset, q/k/v as views of one fused tensor and
    once as three tensors; bf16 off TMA's rule (D 36, and views one
    element into their storage) on the FMA kernels; head dims 160 and 256
@@ -162,7 +165,44 @@ Phases, each printing one JSON line:
    losses within a bf16 tolerance, first micro-batch attn_qkvw
    gradients within a relative tolerance.
 
-Then the ``kernels`` summary line (K7/K8 entries name their design), the
+16. ``train_offload`` — GPT-2 1.5B (n_embd 1600, 48 layers, 25 heads,
+   vocab 50257, n_positions 1024; seeded random weights built on the
+   host) through ``initialize`` with the JAX bench's offload row
+   (``bench.py:343-398``: train_batch_size 4 x 1024, bf16,
+   ``zero_optimization: {stage: 2, cpu_offload: true,
+   offload_16bit_grads: true}``, Adam lr 1e-4, remat "full",
+   ``loss_chunk`` 512, flash attention, dropout 0), the batch fed by
+   ``training_data`` (4 rows made from the seed: a fixed batch, as the
+   bench's): 1 warmup and 3 timed steps, then a profile of 2. First the
+   host's CPU model, cores and MemTotal (too little RAM fails, with the
+   numbers) and the C++ Adam's SIMD width. Reports tokens/s, step p50,
+   MFU (no recompute counted), peak memory, the host phase's share of
+   the step, D2H and H2D GB/s, the C++ Adam's and the bf16 convert's ms
+   a step. Checks: finite, falling loss; after step 1 the host masters
+   equal the plain host Adam on the same gradient (rtol 1e-6, plus 1e-7
+   of the largest master), the gradient it read equals the device's bf16
+   wire widened and the device params equal bf16(masters), both bit
+   for bit; K1 2 x 48 (forward and remat recompute), K2 and K3 48 launches
+   a step and K4 none; the host buffers pinned, no fp32 param on the card.
+17. ``train_dense_yardstick`` — the same model, batch and remat on the
+   dense engine (fp32 masters, K4 on the card): 1 warmup and 3 timed
+   steps, step p50 and peak memory; checks a finite loss only.
+18. ``offload_resume`` — GPT-2 125M, bf16 offload (the same config), a
+   24-row dataset: 6 steps with ``save_checkpoint`` after step 3, then a
+   fresh engine (other weights, another seed) loads it and runs steps
+   4-6. Checks: its losses and final masters equal the uninterrupted
+   run's bit for bit, and the data cursor is restored. Reports save and
+   load GB/s.
+
+Then the phases' walls, the ``kernels`` summary line (K7/K8 entries name
+their design; K1-K4 count the ``train`` path's launches and give the
+``train_offload`` path's as ``offload_launches``),
+the ``host_ops`` line (the C++ Adam's ms a step over the 1.56 G masters
+beside its plain version and ``probe_ms``: the 28 bytes an element it
+must read and write at the best host memory rate that torch probes with
+its pattern measure in the same phase (a copy, in-place ``a += b`` and
+``a += b * c``, at torch's and OpenMP's thread counts); ``bound_ms`` is
+that time where the Adam did not beat it, else null), the
 ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
 before the last line; without a CUDA device it exits 1 at once.
@@ -332,9 +372,13 @@ def _build_all():
     from deepspeed_tpu_torch.ops import _build
     libs = _build.libraries() if hasattr(_build, "libraries") else \
         [(name,) for name in _build.KERNELS]
+    # the host ops (g++), where the package has them, alongside
+    hosts = getattr(_build, "HOST_KERNELS", ())
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(libs)) as ex:
+    with concurrent.futures.ThreadPoolExecutor(len(libs) + len(hosts)) as ex:
         futures = [ex.submit(_build.load_library, *lib) for lib in libs]
+        futures += [ex.submit(_build.load_host_library, name)
+                     for name in hosts]
         for fut in futures:
             fut.result()            # raises with the compiler output
     return time.perf_counter() - t0
@@ -357,6 +401,10 @@ def phase_build():
           "kernels": {_build.library_key(*lib):
                       _build.build_info[_build.library_key(*lib)]
                       for lib in libs},
+          "host_kernels": {name: dict(_build.build_info[name],
+                                      flags=list(_build.HOST_FLAGS +
+                                                 _build.host_simd_flags()))
+                           for name in _build.HOST_KERNELS},
           "flash_attention_sass": sass,
           "block_sparse_hmma": sparse_sass,
           "block_sparse_ptxas": sparse_ptxas})
@@ -1483,9 +1531,11 @@ def _attn_case(torch, fa, gen, b, t, h, d, dtype, causal, bias, rate,
     base takes the tensor cores, anything else the FMA kernels."""
     q, k, v, g, kb = _attn_inputs(torch, b, t, h, d, getattr(torch, dtype),
                                   bias, gen, fused)
+    # the head shard's global coordinates; a case with more heads than
+    # NUM_HEADS - HEAD_OFFSET (GPT-2 1.5B's 25) widens the global count
     kw = dict(key_bias=kb, causal=causal, dropout_rate=rate,
               dropout_seed=-123456789, dropout_head_offset=HEAD_OFFSET,
-              dropout_num_heads=NUM_HEADS)
+              dropout_num_heads=max(NUM_HEADS, HEAD_OFFSET + h))
     routes_before = _routes(fa)
     out, lse = fa.flash_attention_fwd(q, k, v, **kw)
     ref_out, ref_lse = fa.flash_attention_fwd_reference(q, k, v, **kw)
@@ -1663,7 +1713,13 @@ def phase_train_kernel_check(torch):
              (2, 1000, TRAIN_H, 64, "bfloat16", True, True, 0.1,
               "misaligned"),
              (2, 128, TRAIN_H, 128, "bfloat16", False, False, 0.0,
-              "misaligned")]
+              "misaligned"),
+             # what the offload slice's paths give K1-K3: GPT-2 1.5B
+             # (train_offload, 25 heads) and 125M (offload_resume, 12)
+             (OFFLOAD_B, OFFLOAD_T, OFFLOAD_HEADS, 64, "bfloat16", True,
+              False, 0.0),
+             (RESUME_B, RESUME_T, RESUME_HEADS, 64, "bfloat16", True, False,
+              0.0)]
     # head dims past 128: the FMA kernels in every dtype (K2 / K3 on
     # 32-row tiles past 128)
     grid += [(2, 300, TRAIN_H, d, dt, True, True, 0.1)
@@ -2878,6 +2934,445 @@ def phase_train_bert_sparse(torch):
     return row
 
 
+# ---------------------------------------------------------------------------
+# ZeRO-Offload slice: GPT-2 1.5B on one card, the host C++ Adam, remat, the
+# data loader and checkpoints
+# ---------------------------------------------------------------------------
+
+OFFLOAD_B, OFFLOAD_T = 4, 1024        # bench.py's offload row: bs 4 x 1024
+OFFLOAD_WARMUP, OFFLOAD_STEPS = 1, 3  # bench.py's BENCH_STEPS default
+OFFLOAD_LAYERS, OFFLOAD_HEADS = 48, 25
+OFFLOAD_CHUNK = 512                   # loss_chunk
+# host RAM the offload phase needs at 1.5B: masters, both moments and the
+# fp32 gradient (16 B an element), the bf16 landing and copy-back buffers
+# (4 B), one pinned block rounded up to a power of two; the host model's
+# fp32 init (4 B, freed once the engine has the masters) and the plain
+# check's master snapshot (4 B)
+OFFLOAD_HOST_BYTES_PER_PARAM = 28
+# the C++ Adam against its plain version: one unit in the last place of
+# fp32 (the SIMD body's FMAs and reciprocal against separate mul-adds and
+# a division), so rtol 1e-6, plus 1e-7 of the masters' largest magnitude
+# where an update cancels a master to near 0
+HOST_ADAM_RTOL, HOST_ADAM_ATOL_REL = 1e-6, 1e-7
+PLAIN_CHUNK = 1 << 26                 # elements a plain-check slice
+RESUME_STEPS, RESUME_SAVE_AT = 6, 3
+RESUME_B, RESUME_T, RESUME_HEADS = 4, 1024, 12
+RESUME_SAMPLES = 24                   # 6 batches an epoch
+
+
+def _host_info():
+    """The host's CPU model (``/proc/cpuinfo``'s ``model name``, else
+    ``lscpu``'s, else its vendor / family / model fields), core count and
+    MemTotal (bytes)."""
+    model, fields, mem = None, {}, None
+    try:
+        for line in open("/proc/cpuinfo"):
+            key, _, value = line.partition(":")
+            key = key.strip()
+            if key == "model name" and model is None and \
+                    value.strip() not in ("", "unknown"):
+                model = value.strip()
+            elif key in ("vendor_id", "cpu family", "model", "flags") and \
+                    key not in fields:
+                fields[key] = value.strip()
+        for line in open("/proc/meminfo"):
+            if line.startswith("MemTotal"):
+                mem = int(line.split()[1]) * 1024
+                break
+    except OSError:
+        pass
+    if model is None:
+        try:
+            out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                                 timeout=30).stdout
+            for line in out.splitlines():
+                name = line.split(":", 1)[-1].strip()
+                if line.startswith("Model name") and \
+                        name not in ("", "unknown", "-"):
+                    model = name
+        except (OSError, subprocess.SubprocessError):
+            pass
+    if model is None and fields:
+        model = " ".join(f"{k}={fields[k]}" for k in
+                         ("vendor_id", "cpu family", "model") if k in fields)
+    simd = [f for f in ("avx512f", "avx2", "fma")
+            if f in fields.get("flags", "").split()]
+    return {"cpu_model": model, "cpu_count": os.cpu_count(),
+            "cpu_simd_flags": simd, "mem_total_bytes": mem,
+            "cpuinfo": {k: v for k, v in fields.items() if k != "flags"}}
+
+
+def _host_rates_gbps(torch, n=1 << 28, reps=3):
+    """Host memory rates, GB/s, each the best of ``reps`` calls over
+    buffers of ``n`` fp32 elements, at torch's thread count and at one
+    thread a core (OpenMP's default, the C++ Adam's): a copy (bytes read
+    and written), and in-place updates with the C++ Adam's pattern of
+    streams read and written back where they lie (``a += b``: 12 bytes an
+    element; ``a += b * c``: 16)."""
+    bufs = [torch.full((n,), 1.0 + i) for i in range(4)]
+    a, b, c, d = bufs
+    probes = {"copy": (lambda: d.copy_(a), 8),
+              "add_inplace": (lambda: a.add_(b), 12),
+              "addcmul_inplace": (lambda: a.addcmul_(b, c), 16)}
+    threads = torch.get_num_threads()
+    rates = {}
+    for nt in sorted({threads, os.cpu_count() or threads}):
+        torch.set_num_threads(nt)
+        for name, (fn, per_elem) in probes.items():
+            best = float("inf")
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                fn()
+                best = min(best, time.perf_counter() - t0)
+            rates[f"{name}@{nt}"] = per_elem * n / best / 1e9
+    torch.set_num_threads(threads)
+    del a, b, c, d, bufs
+    return rates
+
+
+def _token_dataset(rng, n, t, vocab):
+    """``n`` samples of ``t`` random token ids (the bench's synthetic
+    batch), as a list of dicts the loader collates."""
+    ids = rng.integers(0, vocab, (n, t)).astype(np.int32)
+    return [{"input_ids": ids[i]} for i in range(n)]
+
+
+def _offload_config(extra=None):
+    return {"train_batch_size": OFFLOAD_B, "bf16": {"enabled": True},
+            "zero_optimization": {"stage": 2, "cpu_offload": True,
+                                  "offload_16bit_grads": True},
+            "optimizer": {"type": "Adam", "params": {"lr": 1e-4}},
+            "steps_per_print": 10 ** 9, **(extra or {})}
+
+
+def _plain_check(torch, engine, master0, lr, beta1):
+    """The masters after step 1 against the plain host Adam from
+    ``master0`` on the gradient the C++ kernel read (moments 0 before
+    step 1), slice by slice; returns (max abs err, max err past the
+    tolerance, the plain version's seconds over the whole buffer)."""
+    from deepspeed_tpu_torch.ops.adam.cpu_adam import adam_plain
+    opt = engine.cpu_optimizer
+    worst = worst_excess = plain_s = 0.0
+    atol = HOST_ADAM_ATOL_REL * float(master0.abs().max())
+    for a in range(0, opt.total, PLAIN_CHUNK):
+        b = min(a + PLAIN_CHUNK, opt.total)
+        m = master0[a:b].clone()
+        ea = torch.zeros(b - a)
+        es = torch.zeros(b - a)
+        t0 = time.perf_counter()
+        adam_plain(m, opt._grad_buf[a:b], ea, es, 1, lr, beta1,
+                   opt.betas[1], opt.eps, opt.weight_decay)
+        plain_s += time.perf_counter() - t0
+        d = (m - opt.master[a:b]).abs()
+        worst = max(worst, float(d.max()))
+        excess = d - (atol + HOST_ADAM_RTOL * m.abs())
+        worst_excess = max(worst_excess, float(excess.max()))
+    return worst, worst_excess, plain_s
+
+
+def _host_grads_equal_wire(torch, engine):
+    """The fp32 gradient the C++ Adam read equals the device's 16-bit
+    wire widened, bit for bit (slice by slice): the per-chunk D2H, the
+    landing buffer and the widen lost or moved nothing."""
+    opt = engine.cpu_optimizer
+    torch.cuda.synchronize()
+    for a in range(0, opt.total, PLAIN_CHUNK):
+        b = min(a + PLAIN_CHUNK, opt.total)
+        if not torch.equal(opt._grad_buf[a:b], engine._wire[a:b].cpu()
+                           .float()):
+            return False
+    return True
+
+
+def _device_equals_bf16_masters(torch, engine):
+    """The device params equal bf16(masters), bit for bit (compared on
+    the card, slice by slice)."""
+    opt = engine.cpu_optimizer
+    torch.cuda.synchronize()
+    for a in range(0, opt.total, PLAIN_CHUNK):
+        b = min(a + PLAIN_CHUNK, opt.total)
+        want = opt.master[a:b].to("cuda").to(torch.bfloat16)
+        if not torch.equal(engine._dev_flat[a:b], want):
+            return False
+    return True
+
+
+def phase_train_offload(torch):
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHead, gpt2_1_5b
+    from deepspeed_tpu_torch.ops._build import build_info
+    from deepspeed_tpu_torch.ops.adam.cpu_adam import load_cpu_adam
+
+    host = _host_info()
+    cfg = gpt2_1_5b(n_positions=OFFLOAD_T, dropout=0.0,
+                    use_flash_attention=True, loss_chunk=OFFLOAD_CHUNK,
+                    remat=True, remat_policy="full")
+    if (cfg.n_layer, cfg.n_head) != (OFFLOAD_LAYERS, OFFLOAD_HEADS):
+        fail(f"gpt2_1_5b has {cfg.n_layer} layers of {cfg.n_head} heads; "
+             f"the gates and train_kernel_check's shape assume "
+             f"{OFFLOAD_LAYERS} of {OFFLOAD_HEADS}")
+    n_params = OFFLOAD_LAYERS * (12 * cfg.n_embd ** 2 + 13 * cfg.n_embd) \
+        + (cfg.vocab_size + cfg.n_positions + 2) * cfg.n_embd
+    need = n_params * OFFLOAD_HOST_BYTES_PER_PARAM
+    emit({"phase": "train_offload_host", **host, "params": n_params,
+          "host_bytes_needed": need})
+    if host["mem_total_bytes"] is None or host["mem_total_bytes"] < need:
+        fail(f"the host holds {host['mem_total_bytes']} bytes of RAM, the "
+             f"1.5B offload phase needs about {need}")
+    simd = load_cpu_adam().ds_simd_width()
+    counters = _flash_counters()
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    model = GPT2LMHead(cfg, device="cpu", generator=gen)
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    data = _token_dataset(rng, OFFLOAD_B, OFFLOAD_T, cfg.vocab_size)
+    t0 = time.perf_counter()
+    engine, _, loader, _ = initialize(model=model, config=_offload_config(),
+                                      training_data=data)
+    engine_s = time.perf_counter() - t0
+    opt = engine.cpu_optimizer
+    if opt.total != n_params:
+        fail(f"the offload optimizer holds {opt.total} elements, the model "
+             f"{n_params}")
+    fp32_on_card = [n for n, p in model.named_parameters()
+                    if p.device.type == "cuda" and p.dtype != torch.bfloat16]
+    pinned = all(b.is_pinned() for b in (opt.master, opt.exp_avg,
+                                         opt.exp_avg_sq, opt._grad_buf,
+                                         opt._landing, opt._bf16_buf))
+    master0 = opt.master.clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    losses, walls, host_phase, stats = [], [], [], []
+    for i in range(OFFLOAD_WARMUP + OFFLOAD_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch()))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        host_phase.append(engine.last_host_phase_s)
+        stats.append(engine.host_phase_stats())
+        if i == 0:
+            lr = float(engine._last_metrics["lr"])
+            worst, excess, plain_s = _plain_check(torch, engine, master0,
+                                                  lr, engine._betas[0])
+            bitwise = _device_equals_bf16_masters(torch, engine)
+            wire_ok = _host_grads_equal_wire(torch, engine)
+            del master0
+    launches = {n: c.launches for n, c in counters.items()}
+    steps = OFFLOAD_WARMUP + OFFLOAD_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    timed = walls[OFFLOAD_WARMUP:]
+    tokens = OFFLOAD_B * OFFLOAD_T
+    fpt = model_flops_per_token(cfg, OFFLOAD_T)
+    tps = tokens * len(timed) / sum(timed)
+    tstats = stats[OFFLOAD_WARMUP:]
+    adam_ms = statistics.median(s["adam_s"] for s in tstats) * 1e3
+    convert_ms = statistics.median(s["convert_s"] for s in tstats) * 1e3
+    d2h = statistics.median(s["d2h_bytes"] / s["d2h_s"] for s in tstats)
+    h2d = statistics.median(s["h2d_bytes"] / s["h2d_s"] for s in tstats)
+    profile = _profile(torch, lambda: engine.train_batch(), 2)
+    host_bw = _host_rates_gbps(torch)
+    adam_bytes = 28 * opt.total
+    probe_ms = adam_bytes / (max(host_bw.values()) * 1e9) * 1e3
+    row = {"phase": "train_offload", "model": "gpt2_1_5b",
+           "batch": OFFLOAD_B, "seq": OFFLOAD_T, "dtype": "bfloat16",
+           "remat": "full", "loss_chunk": OFFLOAD_CHUNK,
+           "zero_optimization": _offload_config()["zero_optimization"],
+           "optimizer": "adam (host C++)", **host, "simd_width": simd,
+           "host_adam_build_s": build_info.get("cpu_adam", {}).get(
+               "seconds"),
+           "host_init_s": init_s, "initialize_s": engine_s,
+           "losses": losses, "step_wall_s": walls,
+           "host_phase_s": host_phase, "tokens_per_s": tps,
+           "step_p50_ms": statistics.median(timed) * 1e3,
+           "model_flops_per_token": fpt,
+           "model_flops_per_step": fpt * tokens,
+           "mfu": tps * fpt / BF16_PEAK_FLOPS,
+           "host_phase_share": sum(host_phase[OFFLOAD_WARMUP:]) / sum(timed),
+           "d2h_gb_per_s": d2h / 1e9, "h2d_gb_per_s": h2d / 1e9,
+           "d2h_bytes": tstats[-1]["d2h_bytes"],
+           "h2d_bytes": tstats[-1]["h2d_bytes"],
+           "cpu_adam_ms": adam_ms, "bf16_convert_ms": convert_ms,
+           "max_memory_allocated": peak, "launches": launches,
+           "launches_per_step": {n: v / steps for n, v in launches.items()},
+           "pinned": pinned, "fp32_params_on_card": fp32_on_card,
+           "plain_check": {"max_abs_err": worst, "excess": excess,
+                           "rtol": HOST_ADAM_RTOL,
+                           "atol_rel": HOST_ADAM_ATOL_REL},
+           "device_params_equal_bf16_masters": bitwise,
+           "host_grads_equal_wire": wire_ok,
+           "loader_samples_served": engine._data_iter.samples_served,
+           "profile": profile}
+    emit(row)
+    host_op = {"name": "cpu_adam", "route": "c++ (g++ -fopenmp, "
+               f"SIMD width {simd})",
+               "source": "deepspeed_tpu_torch/ops/csrc/cpu_adam.cpp",
+               "elements": opt.total, "ms": adam_ms,
+               "plain_ms": plain_s * 1e3,
+               # the Adam's bytes at the best probed rate; a bound only
+               # where the Adam did not beat it (the probes are torch
+               # ops, not a measured roof)
+               "probe_ms": probe_ms,
+               "bound_ms": probe_ms if adam_ms >= probe_ms else None,
+               "bound_by": "bytes", "bytes": adam_bytes,
+               "host_gb_per_s": host_bw,
+               "bf16_convert_ms": convert_ms,
+               "max_abs_err": worst, **host}
+    del engine, model, loader, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"offload loss not finite and falling: {losses}")
+    if excess > 0:
+        fail(f"the C++ Adam's masters after step 1 differ from the plain "
+             f"host Adam by {worst} (rtol {HOST_ADAM_RTOL}, atol "
+             f"{HOST_ADAM_ATOL_REL} of the largest master)")
+    if not bitwise:
+        fail("the device params differ from bf16(host masters) after step 1")
+    if not wire_ok:
+        fail("the host's fp32 gradient differs from the device's bf16 wire "
+             "after step 1")
+    want = {"K1": 2 * OFFLOAD_LAYERS * steps, "K2": OFFLOAD_LAYERS * steps,
+            "K3": OFFLOAD_LAYERS * steps, "K4": 0}
+    if launches != want:
+        fail(f"offload launches {launches} != {want} over {steps} steps "
+             f"(remat 'full' runs K1 again in each block's recompute; the "
+             f"update is the host Adam's, so K4 never)")
+    if not pinned or fp32_on_card:
+        fail(f"offload buffers pinned: {pinned}; fp32 params on the card: "
+             f"{fp32_on_card[:4]}")
+    return row, host_op
+
+
+def phase_train_dense_yardstick(torch):
+    """The same 1.5B model, batch and remat on the dense engine (fp32
+    masters and K4's moments on the card): what offload costs here."""
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHead, gpt2_1_5b
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    cfg = gpt2_1_5b(n_positions=OFFLOAD_T, dropout=0.0,
+                    use_flash_attention=True, loss_chunk=OFFLOAD_CHUNK,
+                    remat=True, remat_policy="full")
+    model = GPT2LMHead(cfg, device="cuda", generator=gen)
+    config = {"train_batch_size": OFFLOAD_B, "bf16": {"enabled": True},
+              "optimizer": {"type": "Adam",
+                            "params": {"lr": 1e-4, "pallas": True}},
+              "steps_per_print": 10 ** 9}
+    rng = np.random.default_rng(0)
+    engine, _, _, _ = initialize(
+        model=model, config=config,
+        training_data=_token_dataset(rng, OFFLOAD_B, OFFLOAD_T,
+                                     cfg.vocab_size))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    for _ in range(OFFLOAD_WARMUP + OFFLOAD_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch()))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    timed = walls[OFFLOAD_WARMUP:]
+    tps = OFFLOAD_B * OFFLOAD_T * len(timed) / sum(timed)
+    row = {"phase": "train_dense_yardstick", "model": "gpt2_1_5b",
+           "batch": OFFLOAD_B, "seq": OFFLOAD_T, "dtype": "bfloat16",
+           "remat": "full", "optimizer": "adam (fused K4)",
+           "losses": losses, "step_wall_s": walls,
+           "step_p50_ms": statistics.median(timed) * 1e3,
+           "tokens_per_s": tps,
+           "mfu": tps * model_flops_per_token(cfg, OFFLOAD_T)
+           / BF16_PEAK_FLOPS,
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    emit(row)
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(losses)):
+        fail(f"dense yardstick loss not finite: {losses}")
+    return row
+
+
+def _resume_engine(torch, seed, data):
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHead, gpt2_125m
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    model = GPT2LMHead(gpt2_125m(n_positions=RESUME_T, dropout=0.0,
+                                 use_flash_attention=True,
+                                 loss_chunk=OFFLOAD_CHUNK, remat=True),
+                       device="cpu", generator=gen)
+    config = dict(_offload_config(), train_batch_size=RESUME_B)
+    engine, _, _, _ = initialize(model=model, config=config, seed=seed,
+                                 training_data=data)
+    return engine
+
+
+def phase_offload_resume(torch):
+    """GPT-2 125M bf16 offload: 6 steps with a checkpoint after step 3,
+    then a fresh engine (another seed) loads it and runs steps 4-6; its
+    losses and final masters must equal the uninterrupted run's, bit for
+    bit, and its data cursor must be restored."""
+    import tempfile
+
+    from deepspeed_tpu_torch.models.gpt2 import gpt2_125m
+    if gpt2_125m().n_head != RESUME_HEADS:
+        fail(f"gpt2_125m has {gpt2_125m().n_head} heads; "
+             f"train_kernel_check's shape assumes {RESUME_HEADS}")
+    rng = np.random.default_rng(0)
+    data = _token_dataset(rng, RESUME_SAMPLES, RESUME_T, 50257)
+    with tempfile.TemporaryDirectory(prefix="offload_resume_") as root:
+        a = _resume_engine(torch, 0, data)
+        losses = []
+        for step in range(RESUME_STEPS):
+            losses.append(float(a.train_batch()))
+            if step + 1 == RESUME_SAVE_AT:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                a.save_checkpoint(root, tag="step3")
+                save_s = time.perf_counter() - t0
+                cursor = a._data_iter.samples_served
+        final = a.cpu_optimizer.master.clone()
+        state_bytes = 12 * a.cpu_optimizer.total
+        del a
+        b = _resume_engine(torch, 123, data)
+        t0 = time.perf_counter()
+        path, _ = b.load_checkpoint(root)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        restored_cursor = b._data_iter.samples_served
+        resumed = [float(b.train_batch())
+                   for _ in range(RESUME_STEPS - RESUME_SAVE_AT)]
+        same_masters = torch.equal(b.cpu_optimizer.master, final)
+        ckpt_bytes = sum(os.path.getsize(os.path.join(d, f))
+                         for d, _, fs in os.walk(path) for f in fs)
+        del b
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = {"phase": "offload_resume", "model": "gpt2_125m",
+           "batch": RESUME_B, "seq": RESUME_T, "dtype": "bfloat16",
+           "losses": losses, "resumed_losses": resumed,
+           "saved_at_step": RESUME_SAVE_AT, "cursor": cursor,
+           "restored_cursor": restored_cursor,
+           "final_masters_equal": same_masters,
+           "state_bytes": state_bytes, "checkpoint_bytes": ckpt_bytes,
+           "save_s": save_s, "load_s": load_s,
+           "save_gb_per_s": ckpt_bytes / save_s / 1e9,
+           "load_gb_per_s": ckpt_bytes / load_s / 1e9}
+    emit(row)
+    if resumed != losses[RESUME_SAVE_AT:] or not same_masters:
+        fail(f"resume is not bit-exact: losses {losses[RESUME_SAVE_AT:]} "
+             f"uninterrupted, {resumed} resumed; masters equal: "
+             f"{same_masters}")
+    if restored_cursor != cursor or cursor != RESUME_SAVE_AT * RESUME_B:
+        fail(f"data cursor {restored_cursor} restored, {cursor} saved")
+    if not all(np.isfinite(losses)):
+        fail(f"resume losses not finite: {losses}")
+    return row
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -2888,6 +3383,9 @@ def main(argv=None):
                              "its deepspeed_tpu_torch/ is enough)")
     parser.add_argument("--turns-worker", metavar="CHECKOUT",
                         help=argparse.SUPPRESS)   # --turns' other side
+    parser.add_argument("--offload-only", action="store_true",
+                        help="device, build, then only the ZeRO-Offload "
+                             "slice's phases")
     args = parser.parse_args(argv)
 
     import torch
@@ -2906,9 +3404,26 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
 
     smi = phase_device(torch)
+    walls = {}
+    t_phase = time.perf_counter()
+
+    def lap(name):
+        nonlocal t_phase
+        now = time.perf_counter()
+        walls[name] = now - t_phase
+        t_phase = now
+
     phase_build()
+    lap("build")
     if args.turns:
         phase_turns(torch, args.turns)
+        print(smi, flush=True)
+        return 0
+    if args.offload_only:
+        _, host_op = phase_train_offload(torch)
+        phase_train_dense_yardstick(torch)
+        phase_offload_resume(torch)
+        emit({"host_ops": [host_op]})
         print(smi, flush=True)
         return 0
     worst = phase_kernel_check(torch)
@@ -2928,6 +3443,14 @@ def main(argv=None):
     sparse_timing = phase_sparse_kernel_timing(torch)
     phase_wide_head_timing(torch)
     bert = phase_train_bert_sparse(torch)
+    lap("until_train_bert_sparse")
+    offload, host_op = phase_train_offload(torch)
+    lap("train_offload")
+    phase_train_dense_yardstick(torch)
+    lap("train_dense_yardstick")
+    phase_offload_resume(torch)
+    lap("offload_resume")
+    emit({"phase": "walls", "seconds": walls})
     t = timing["bfloat16/serve_mix"]
     kernels = [{
         "name": "flash_decode", "route": "cuda",
@@ -2961,7 +3484,9 @@ def main(argv=None):
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"deepspeed_tpu_torch/ops/csrc/{src}",
-            "replaces": replaces, "launches": train["launches"][key],
+            "replaces": replaces,
+            "launches": train["launches"][key],
+            "offload_launches": offload["launches"][key],
             "max_abs_err": max(train_errs[key], r.get("max_abs_err", 0.0)),
             "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -2998,6 +3523,7 @@ def main(argv=None):
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "design": sparse_design[key]})
     emit({"kernels": kernels})
+    emit({"host_ops": [host_op]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

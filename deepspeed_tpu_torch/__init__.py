@@ -13,10 +13,12 @@ hand-written ``sm_90a`` CUDA kernel (:mod:`deepspeed_tpu_torch.ops`);
 GPT-2 training through :func:`initialize` and the engine's dense
 path (:mod:`deepspeed_tpu_torch.runtime`), with the flash-attention
 forward / backward and the fused Adam as hand-written CUDA kernels;
-paged serving with flash decode over page tables; and BERT MLM training
+paged serving with flash decode over page tables; BERT MLM training
 with block-sparse attention (:mod:`deepspeed_tpu_torch.models.bert`,
 :mod:`deepspeed_tpu_torch.ops.sparse_attention`), whose forward, dQ and
-dK/dV are hand-written CUDA kernels too.
+dK/dV are hand-written CUDA kernels too; and ZeRO-Offload training (the
+C++ host Adam, :mod:`deepspeed_tpu_torch.ops.adam.cpu_adam`), GPT-2's
+remat, the data loader and preemption-safe checkpoints.
 
 Nothing heavy is imported here: submodules load on first use.
 """
@@ -53,22 +55,24 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                config_params=None, loss_fn=None, seed=0, device=None):
     """Build the training engine (``deepspeed_tpu/__init__.py:28``).
 
-    ``model`` is an ``nn.Module`` holding fp32 master params (moved to
-    ``device``); ``loss_fn(batch, rng)`` defaults to ``model.loss_fn``
-    (the port's GPT-2 and BERT models each have one).
-    ``config`` is a DeepSpeed config dict or JSON path (or
-    ``args.deepspeed_config``). Runs on CUDA unless
-    ``device="cpu"``. Returns ``(engine, optimizer, dataloader,
-    lr_scheduler)``; the data loader is not yet ported, so it is None.
+    ``model`` is an ``nn.Module`` holding fp32 master params. The
+    engine moves it to ``device``, except under ZeRO-Offload, where the
+    masters stay in host RAM and the device gets only their
+    compute-dtype copy (so build a large model on the host).
+    ``loss_fn(batch, rng)`` defaults to ``model.loss_fn`` (the port's
+    GPT-2 and BERT models each have one). ``config`` is a DeepSpeed
+    config dict or JSON path (or ``args.deepspeed_config``).
+    ``training_data`` (an indexable dataset) and ``collate_fn`` build the
+    engine's data loader, as JAX's ``deepspeed_io`` does. Runs on CUDA
+    unless ``device="cpu"``. Returns ``(engine, optimizer, dataloader,
+    lr_scheduler)``; the optimizer is the client's (None: the port
+    takes none), as in JAX.
     """
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
 
-    not_yet = {"training_data": training_data, "mpu": mpu,
-               "collate_fn": collate_fn}
-    given = sorted(k for k, v in not_yet.items() if v is not None)
-    if given:
+    if mpu is not None:
         raise NotImplementedError(
-            f"initialize: {given} not yet ported to deepspeed_tpu_torch")
+            "initialize: ['mpu'] not yet ported to deepspeed_tpu_torch")
     if model is None:
         raise ValueError("initialize needs the model (an nn.Module)")
     if config is None:
@@ -78,7 +82,6 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     if config is None:
         raise ValueError("config (dict or json path) required")
     dev = resolve_device(device)
-    model.to(dev)
     if loss_fn is None:
         loss_fn = getattr(model, "loss_fn", None)
     if loss_fn is None:
@@ -87,5 +90,7 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     engine = DeepSpeedEngine(model, loss_fn, config, dev,
                              optimizer=optimizer,
                              model_parameters=model_parameters,
-                             lr_scheduler=lr_scheduler, seed=seed)
-    return engine, None, None, engine.lr_scheduler
+                             lr_scheduler=lr_scheduler, seed=seed,
+                             training_data=training_data,
+                             collate_fn=collate_fn)
+    return engine, None, engine.training_dataloader, engine.lr_scheduler

@@ -21,8 +21,19 @@ cache row under a position mask; ``kv_page_table`` addresses a paged
 pool, and ``truncate_layers`` runs only the first blocks, the
 speculative draft's early exit). The losses
 (:func:`cross_entropy_loss`, :func:`chunked_cross_entropy_with_head`)
-and :func:`make_gpt2_loss_fn` are ported; remat, ``scan_layers``,
-progressive layer drop and fp8 are not yet (they raise).
+and :func:`make_gpt2_loss_fn` are ported; ``scan_layers``, progressive
+layer drop and fp8 are not yet (they raise).
+
+``remat`` checkpoints each block on the training path
+(``torch.utils.checkpoint``, non-reentrant) with ``remat_policy``
+"full" (keep only the block input; the backward recomputes the block,
+K1 included), "dots" (keep the matmul outputs through a selective
+checkpoint policy, recompute the rest: like JAX's ``checkpoint_dots``,
+which saves ``dot_general`` results only, so a K1 call's output is not
+kept) or "nothing" (keep everything: the same as no remat). The
+recompute draws the same hidden-dropout masks as the forward (the
+block's generator state is restored for it), so remat changes no loss
+or gradient bit.
 
 Dropout runs only when the forward gets a ``dropout_seed`` (an int the
 engine derives from its seed and step counter). Attention-prob dropout
@@ -65,7 +76,8 @@ class GPT2Config:
     use_flash_attention: bool = False          # K1-K3 on the training path
     loss_chunk: int = 0              # >0: chunked cross-entropy over the
     #                                  vocab head (no [B, T, V] logits)
-    remat: bool = False              # not yet ported
+    remat: bool = False              # activation checkpointing per block
+    remat_policy: str = "full"       # "full" | "dots" | "nothing"
     scan_layers: bool = False        # not yet ported
 
 
@@ -250,6 +262,52 @@ class _Dropout:
         return hidden_dropout(x, self.rate, self.generator)
 
 
+REMAT_POLICIES = ("full", "dots", "nothing")
+# the matmuls whose outputs remat "dots" keeps (their post-autograd forms)
+_DOT_OPS = frozenset(
+    getattr(torch.ops.aten, name).default
+    for name in ("mm", "bmm", "addmm", "baddbmm", "addbmm"))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return CheckpointPolicy.MUST_SAVE if op in _DOT_OPS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def remat_block(block, x, drop, policy):
+    """``block(x, drop=drop)`` under activation checkpointing with
+    ``policy`` ("full" or "dots"). The hidden-dropout generator's state
+    is taken before the block, and the recompute runs from it (then the
+    generator is put back where the forward left it): the recomputed
+    block draws the forward's masks."""
+    from torch.utils.checkpoint import checkpoint
+
+    start = None if drop is None else drop.generator.get_state()
+    calls = [0]
+
+    def run(h):
+        calls[0] += 1
+        if calls[0] == 1 or drop is None:
+            return block(h, drop=drop)
+        after = drop.generator.get_state()
+        drop.generator.set_state(start)
+        try:
+            return block(h, drop=drop)
+        finally:
+            drop.generator.set_state(after)
+
+    kw = {"context_fn": _dots_context} if policy == "dots" else {}
+    # the default generators are not drawn from (dropout has its own)
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False,
+                      **kw)
+
+
 class GPT2LMHead(nn.Module):
     """Decoder-only LM with tied embedding / output head.
 
@@ -261,11 +319,13 @@ class GPT2LMHead(nn.Module):
 
     def __init__(self, cfg, device=None, generator=None):
         super().__init__()
-        for name in ("remat", "scan_layers"):
-            if getattr(cfg, name):
-                raise NotImplementedError(
-                    f"GPT2Config.{name} is not yet ported to "
-                    f"deepspeed_tpu_torch")
+        if cfg.scan_layers:
+            raise NotImplementedError(
+                "GPT2Config.scan_layers is not yet ported to "
+                "deepspeed_tpu_torch")
+        if cfg.remat and cfg.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy {cfg.remat_policy!r} not in "
+                             f"{sorted(REMAT_POLICIES)}")
         self.config = cfg
         self.wte = nn.Parameter(torch.empty(
             cfg.vocab_size, cfg.n_embd, dtype=cfg.param_dtype,
@@ -349,8 +409,12 @@ class GPT2LMHead(nn.Module):
                             dropout_generator(dropout_seed, x.device))
             x = drop.hidden(x)
         if kv_cache is None:
+            remat = cfg.remat and cfg.remat_policy != "nothing" and \
+                torch.is_grad_enabled()
             for i, block in enumerate(self.h):
-                x = block(x, drop=None if drop is None else drop.layer(i))
+                d = None if drop is None else drop.layer(i)
+                x = remat_block(block, x, d, cfg.remat_policy) if remat \
+                    else block(x, drop=d)
         else:
             if positions is None:
                 raise ValueError("the cached path needs explicit positions")

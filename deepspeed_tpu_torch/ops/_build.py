@@ -14,6 +14,10 @@ renames it into place, so concurrent first uses never load a partial
 library. A source listed in ``VARIANTS`` is built once per value of its
 macros, each into a library of its own, so those builds too run side by
 side (each library holds a share of the source's instances).
+
+The host ops (``HOST_KERNELS``: the C++ Adam of ZeRO-Offload) are built
+the same way by ``g++`` with OpenMP and the SIMD flags the CPU reports
+(:func:`load_host_library`).
 """
 
 import ctypes
@@ -47,6 +51,29 @@ def libraries():
             for v in (VARIANTS[name][1] if name in VARIANTS else (None,))]
 
 
+HOST_KERNELS = ("cpu_adam",)                        # csrc/<name>.cpp
+HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-fopenmp")
+
+
+def host_simd_flags(cpuinfo=None):
+    """The SIMD flags of the host build, from ``/proc/cpuinfo``: the
+    choice of ``deepspeed_tpu/ops/op_builder/builder.py`` (AVX-512F,
+    then AVX2 always with FMA, whose kernels use fused multiply-adds)."""
+    if cpuinfo is None:
+        try:
+            cpuinfo = Path("/proc/cpuinfo").read_text()
+        except OSError:
+            cpuinfo = ""
+    flags = []
+    if "avx512f" in cpuinfo:
+        flags.append("-mavx512f")
+    if "avx2" in cpuinfo:
+        flags += ["-mavx2", "-mfma"]
+    elif "fma" in cpuinfo:
+        flags.append("-mfma")
+    return tuple(flags)
+
+
 def library_key(name, variant=None):
     """The name a library goes by in ``build_info``: the source's name,
     with ``.<value>`` per macro for a variant build."""
@@ -56,6 +83,7 @@ def library_key(name, variant=None):
 
 # one lock per library, so builds of different libraries run side by side
 _locks = {library_key(*lib): threading.Lock() for lib in libraries()}
+_locks.update((name, threading.Lock()) for name in HOST_KERNELS)
 _libs = {}
 # library key -> {"seconds": build wall (0.0 when reused), "ptxas": [lines
 # of ptxas -v, with each function's spill line]}
@@ -76,6 +104,58 @@ def _nvcc():
     raise RuntimeError(
         "nvcc not found (CUDA_HOME unset and no nvcc on PATH): the "
         "port's CUDA kernels are built from source at first use")
+
+
+def _compile(key, cmd, so):
+    """Run ``cmd`` (its output path last) into a temporary file and
+    rename it to ``so``; records the wall and the compiler's report
+    lines in ``build_info[key]``. Raises ``RuntimeError`` with the
+    compiler output when the build fails."""
+    tmp = BUILD_DIR / f".{so.name}.{os.getpid()}.tmp"
+    t0 = time.perf_counter()
+    proc = subprocess.run([*cmd, str(tmp)], capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"{Path(cmd[0]).name} failed building {key} (exit "
+            f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, so)
+    # ptxas -v: each entry function, its registers and its spills
+    ptxas = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
+             if "ptxas" in ln or "spill" in ln]
+    build_info[key] = {"seconds": seconds, "ptxas": ptxas}
+
+
+def load_host_library(name):
+    """Build (if needed) and load the host op ``csrc/<name>.cpp`` with
+    ``g++ -fopenmp`` and :func:`host_simd_flags`; returns the
+    ``ctypes.CDLL``. Raises ``RuntimeError`` when ``g++`` is missing or
+    the build fails: a host op never falls back to a plain version."""
+    if name not in HOST_KERNELS:
+        raise ValueError(f"no host library {name!r}: {HOST_KERNELS}")
+    flags = HOST_FLAGS + host_simd_flags()
+    with _locks[name]:
+        lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        src = CSRC / f"{name}.cpp"
+        digest = hashlib.sha256(
+            src.read_bytes() + " ".join(flags).encode()).hexdigest()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        so = BUILD_DIR / f"{name}-{digest[:16]}.so"
+        if so.exists():
+            build_info[name] = {"seconds": 0.0, "ptxas": []}
+        else:
+            gxx = shutil.which("g++")
+            if gxx is None:
+                raise RuntimeError(
+                    f"g++ not found on PATH: the host op {name} is built "
+                    f"from source at first use")
+            _compile(name, [gxx, *flags, str(src), "-o"], so)
+        lib = ctypes.CDLL(str(so))
+        _libs[name] = lib
+        return lib
 
 
 def load_library(name, variant=None):
@@ -107,24 +187,7 @@ def load_library(name, variant=None):
         if so.exists():
             build_info[key] = {"seconds": 0.0, "ptxas": []}
         else:
-            tmp = BUILD_DIR / f".{so.name}.{os.getpid()}.tmp"
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [_nvcc(), *flags, "-o", str(tmp), str(src)],
-                capture_output=True, text=True)
-            seconds = time.perf_counter() - t0
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(
-                    f"nvcc failed building {src.name} "
-                    f"(exit {proc.returncode}):\n{proc.stdout}"
-                    f"{proc.stderr}")
-            os.replace(tmp, so)
-            # ptxas -v: each entry function, its registers and its spills
-            ptxas = [ln.strip() for ln in
-                     (proc.stdout + proc.stderr).splitlines()
-                     if "ptxas" in ln or "spill" in ln]
-            build_info[key] = {"seconds": seconds, "ptxas": ptxas}
+            _compile(key, [_nvcc(), *flags, str(src), "-o"], so)
         lib = ctypes.CDLL(str(so))
         _libs[key] = lib
         return lib

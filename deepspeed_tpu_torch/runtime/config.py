@@ -6,9 +6,12 @@ grad_accum * world_size``) and ``_batch_assertion``, ``fp16`` / ``bf16``
 with the loss-scale arguments, the ``optimizer`` and ``scheduler``
 sections (``optimizer.params.pallas`` accepted; every step runs the fused
 kernel K4), ``gradient_clipping``, ``steps_per_print`` and the
-``sparse_attention`` section (:func:`get_sparse_attention`). Key names
-and error texts are the JAX package's. Every other top-level section
-raises "not yet ported" instead of being silently ignored.
+``sparse_attention`` section (:func:`get_sparse_attention`), and the
+``zero_optimization`` section (:class:`DeepSpeedZeroConfig`): ZeRO-Offload
+(``cpu_offload: true``) runs at any stage, as in the JAX engine, while a
+stage without offload raises "not yet ported". Key names and error texts
+are the JAX package's. Every other top-level section raises "not yet
+ported" instead of being silently ignored.
 """
 
 import collections
@@ -43,6 +46,10 @@ from deepspeed_tpu_torch.runtime.constants import (
     SPARSE_NUM_LOCAL_BLOCKS_DEFAULT, SPARSE_NUM_RANDOM_BLOCKS,
     SPARSE_NUM_RANDOM_BLOCKS_DEFAULT, SPARSE_NUM_SLIDING_WINDOW_BLOCKS,
     SPARSE_NUM_SLIDING_WINDOW_BLOCKS_DEFAULT, SPARSE_VARIABLE_MODE)
+from deepspeed_tpu_torch.runtime.zero.config import DeepSpeedZeroConfig
+from deepspeed_tpu_torch.runtime.zero.constants import (
+    MAX_STAGE_ZERO_OPTIMIZATION, ZERO_OPTIMIZATION,
+    ZERO_OPTIMIZATION_ALLGATHER_BUCKET_SIZE_DEPRECATED)
 
 ADAM_OPTIMIZER = "adam"
 LAMB_OPTIMIZER = "lamb"
@@ -54,7 +61,8 @@ DEEPSPEED_OPTIMIZERS = [ADAM_OPTIMIZER, LAMB_OPTIMIZER, ONEBIT_ADAM_OPTIMIZER]
 _PORTED_KEYS = frozenset((
     TRAIN_BATCH_SIZE, TRAIN_MICRO_BATCH_SIZE_PER_GPU,
     GRADIENT_ACCUMULATION_STEPS, STEPS_PER_PRINT, FP16, BF16, OPTIMIZER,
-    SCHEDULER, GRADIENT_CLIPPING, SPARSE_ATTENTION))
+    SCHEDULER, GRADIENT_CLIPPING, SPARSE_ATTENTION, ZERO_OPTIMIZATION,
+    ZERO_OPTIMIZATION_ALLGATHER_BUCKET_SIZE_DEPRECATED))
 
 
 def get_scalar_param(param_dict, param_name, param_default_value):
@@ -264,6 +272,9 @@ class DeepSpeedConfig:
         self.gradient_clipping = get_scalar_param(
             param_dict, GRADIENT_CLIPPING, GRADIENT_CLIPPING_DEFAULT)
         self.sparse_attention = get_sparse_attention(param_dict)
+        self.zero_config = DeepSpeedZeroConfig(param_dict)
+        self.zero_optimization_stage = self.zero_config.stage
+        self.zero_enabled = self.zero_optimization_stage > 0
 
     def _batch_assertion(self):
         train_batch = self.train_batch_size
@@ -319,5 +330,19 @@ class DeepSpeedConfig:
         self._batch_assertion()
 
     def _do_error_check(self):
+        if self.zero_enabled:
+            if self.zero_config.cpu_offload is not True:
+                raise ValueError(
+                    f"DeepSpeedConfig: zero_optimization stage "
+                    f"{self.zero_optimization_stage} without cpu_offload is "
+                    f"not yet ported to deepspeed_tpu_torch (ZeRO-Offload "
+                    f"is)")
+            assert self.fp16_enabled or self.bf16_enabled, (
+                "DeepSpeedConfig: ZeRO is only supported with fp16 or bf16 "
+                "enabled")
+            assert self.zero_optimization_stage <= \
+                MAX_STAGE_ZERO_OPTIMIZATION, (
+                    f"DeepSpeedConfig: Maximum supported ZeRO stage is "
+                    f"{MAX_STAGE_ZERO_OPTIMIZATION}")
         if self.fp16_enabled and self.bf16_enabled:
             raise ValueError("fp16 and bf16 cannot both be enabled")

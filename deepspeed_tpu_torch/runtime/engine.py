@@ -1,5 +1,6 @@
-"""DeepSpeedEngine, dense path on one device (port of
-``deepspeed_tpu/runtime/engine.py``).
+"""DeepSpeedEngine on one device (port of
+``deepspeed_tpu/runtime/engine.py``): the dense path and ZeRO-Offload,
+the data loader and checkpoints.
 
 One ``train_batch`` is the JAX compiled train step (``engine.py:1023``)
 run eagerly:
@@ -19,10 +20,55 @@ run eagerly:
   ``DeviceState``.
 
 Nothing in a step waits on the device except the ``steps_per_print``
-log line. ZeRO, offload, 1-bit Adam, LAMB, sparse gradients, comm
-quantization, fp8, the pipeline, progressive layer drop, telemetry,
-checkpoints and the data loader are not yet ported: their config blocks
-raise in ``runtime/config.py`` and their arguments raise here.
+log line.
+
+**ZeRO-Offload** (``zero_optimization.cpu_offload``, at any stage, as in
+JAX ``engine.py:440``): the fp32 masters and both moments live in host
+RAM in :class:`~deepspeed_tpu_torch.ops.adam.cpu_adam.DeepSpeedCPUAdam`,
+and the device holds only the compute-dtype params, as views of one flat
+buffer. The model is never moved to the device in fp32. A step:
+
+- loss and gradients on the device, differentiated with respect to the
+  compute-dtype params (JAX ``make_grad_accumulator`` over the offload
+  params): each micro-batch's 16-bit gradient is added into one flat
+  fp32 accumulator, as JAX's scan carry;
+- :func:`grad_epilogue` on that buffer (overflow, norm, clip) and the
+  loss scale, on the device;
+- with ``offload_16bit_grads`` under bf16 the gradient crosses to the
+  host in bf16 (fp32 otherwise, and always under fp16);
+- the host phase (:meth:`DeepSpeedEngine._host_phase`), pipelined by
+  chunk: every chunk's D2H is issued on a copy stream, then chunk k's
+  bytes are widened while a worker thread runs the C++ Adam and the bf16
+  convert of the chunks before it; each finished chunk's params start
+  their H2D on an upload stream. An event on the upload stream orders
+  the next forward after the uploads, and the next host phase's rewrite
+  of the copy-back buffer after them too. ``last_host_phase_s`` records
+  its wall;
+- an fp16 step that overflows skips the host update (JAX ``:1640``).
+
+Offload across processes (JAX ``_train_batch_offload_dp``), ZeRO stages
+without offload, 1-bit Adam, LAMB, sparse gradients, comm quantization,
+fp8, the pipeline, progressive layer drop and telemetry are not yet
+ported: their config blocks raise in ``runtime/config.py`` and their
+arguments raise here.
+
+**Data** (``training_data``): :meth:`DeepSpeedEngine.deepspeed_io` builds
+a :class:`~deepspeed_tpu_torch.runtime.dataloader.DeepSpeedDataLoader`
+of ``train_batch_size`` rows, and ``train_batch()`` without a batch
+pulls from it through a ``RepeatingLoader``.
+
+**Checkpoints** (:meth:`DeepSpeedEngine.save_checkpoint`,
+:meth:`DeepSpeedEngine.load_checkpoint`, JAX ``engine.py:2993-3270``):
+written through :class:`~deepspeed_tpu_torch.runtime.resilience.
+CheckpointManager` (atomic, CRC32 manifest, one ``.npy`` a leaf). The
+state is the fp32 masters (``params``, by module param name), the
+optimizer state (K4's per-leaf ``m``, ``v`` and ``step`` on the dense
+path; the host Adam's flat ``exp_avg``, ``exp_avg_sq`` and ``step``
+under offload) and the device counters; ``meta.json`` holds the step
+counters, the seed, the lr scheduler, the data cursor and
+``client_state``. A checkpoint saved under another ZeRO stage or offload
+setting raises :class:`CheckpointTopologyError` (elastic resharding is
+not ported).
 
 Randomness: the step's dropout seed is an int32 derived from
 ``(seed, global_steps)`` with ``fold_in_seed`` (micro-batch ``i`` folds
@@ -33,6 +79,7 @@ the attention-prob dropout mask is still the bit-identical counter hash
 for a given int32 seed.
 """
 
+import time
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -47,9 +94,16 @@ from deepspeed_tpu_torch.runtime.config import (
     LAMB_OPTIMIZER,
     ONEBIT_ADAM_OPTIMIZER,
 )
+from deepspeed_tpu_torch.runtime.resilience.checkpoint import (
+    CheckpointManager,
+)
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import (
     init_loss_scale_state,
     update_loss_scale,
+)
+from deepspeed_tpu_torch.runtime.dataloader import (
+    DeepSpeedDataLoader,
+    RepeatingLoader,
 )
 from deepspeed_tpu_torch.runtime.lr_schedules import (
     OneCycle,
@@ -128,10 +182,12 @@ def step_metrics(loss_sum, accum, grad_norm, applied_norm, lr, scale,
     return out
 
 
-def make_grad_accumulator(loss_fn, accum):
-    """``accumulate(params, micro_batches, seeds, scale) -> loss_sum``
+def make_grad_accumulator(loss_fn, accum, after_backward=None):
+    """``accumulate(micro_batches, seeds, scale) -> loss_sum``
     (``engine.py:182``): for each of the ``accum`` micro-batches, the
-    scaled loss's backward adds into the params' ``.grad``. Returns the
+    scaled loss's backward adds into the params' ``.grad`` (then
+    ``after_backward()`` runs, when given: the offload path folds the
+    16-bit gradient into its fp32 accumulator there). Returns the
     unscaled loss sum (a 0-d f32 tensor, detached)."""
 
     def accumulate(micro_batches, seeds, scale):
@@ -142,6 +198,8 @@ def make_grad_accumulator(loss_fn, accum):
         for micro, seed in zip(micro_batches, seeds):
             loss = loss_fn(micro, seed)
             (loss * scale).backward()
+            if after_backward is not None:
+                after_backward()
             loss = loss.detach().float()
             loss_sum = loss if loss_sum is None else loss_sum + loss
         return loss_sum
@@ -153,12 +211,19 @@ _NOT_YET = ("not yet ported to deepspeed_tpu_torch (the dense training "
             "path runs on one device)")
 
 
+class CheckpointTopologyError(ValueError):
+    """The checkpoint was saved under another ZeRO stage or offload
+    setting than this engine runs; resharding it on load (JAX
+    ``runtime/elastic``) is not ported."""
+
+
 class DeepSpeedEngine:
     """Training engine around an ``nn.Module`` with fp32 master params
     and ``loss_fn(batch, rng) -> scalar loss``."""
 
     def __init__(self, model, loss_fn, config, device, optimizer=None,
-                 model_parameters=None, lr_scheduler=None, seed=0):
+                 model_parameters=None, lr_scheduler=None, seed=0,
+                 training_data=None, collate_fn=None):
         if optimizer is not None:
             raise NotImplementedError(f"client optimizer objects are "
                                       f"{_NOT_YET}")
@@ -193,25 +258,51 @@ class DeepSpeedEngine:
                                    if model_parameters is None
                                    else model_parameters)
                        if p.requires_grad]
-        for p in self.params:
-            if p.dtype != torch.float32 or p.device != device:
-                raise ValueError(
-                    f"master params must be fp32 on {device}, got "
-                    f"{p.dtype} on {p.device}")
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-
         self.micro_steps = 0
         self.global_steps = 0
         self._configure_optimizer()
         self._configure_lr_scheduler(lr_scheduler)
-        self.opt_state = init_adam_state(self.params)
+        zc = self._config.zero_config
+        self._offload = bool(self._config.zero_enabled and zc.cpu_offload)
+        if zc.offload_16bit_grads and not self._offload:
+            log_dist("offload_16bit_grads: true has no effect without "
+                     "cpu_offload: true (grads only cross the wire on the "
+                     "offload path)", ranks=[0])
+        if zc.offload_16bit_grads and self._offload and \
+                self._config.fp16_enabled:
+            log_dist("offload_16bit_grads: true is inert under fp16 "
+                     "compute (grads are unscaled on device before "
+                     "transfer; fp16 would flush sub-6e-5 components). "
+                     "Grads transfer at fp32 — use bf16 to get the "
+                     "16-bit wire", ranks=[0])
+        if self._offload:
+            self._configure_offload(model)
+            self.opt_state = None
+        else:
+            self.cpu_optimizer = None
+            model.to(device)
+            for p in self.params:
+                if p.dtype != torch.float32 or p.device != device:
+                    raise ValueError(
+                        f"master params must be fp32 on {device}, got "
+                        f"{p.dtype} on {p.device}")
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            self.opt_state = init_adam_state(self.params)
         self.device_state = self._init_device_state()
         self._accumulate = make_grad_accumulator(
-            loss_fn, self._config.gradient_accumulation_steps)
+            loss_fn, self._config.gradient_accumulation_steps,
+            after_backward=self._fold_grads if self._offload else None)
         self._pending_loss = None
         self._micro_loss_sum = None     # forward/backward API, this step
         self._last_metrics = {}
+        self.training_dataloader = None
+        if training_data is not None:
+            self.training_dataloader = self.deepspeed_io(
+                training_data, collate_fn=collate_fn)
+        self._data_iter = RepeatingLoader(self.training_dataloader) \
+            if self.training_dataloader is not None else None
+        self._ckpt_manager = CheckpointManager()
 
     # ------------------------------------------------------------------
     # configuration accessors
@@ -240,6 +331,12 @@ class DeepSpeedEngine:
     @property
     def config(self):
         return self._config
+
+    def zero_optimization_stage(self):
+        return self._config.zero_optimization_stage
+
+    def zero_optimization(self):
+        return self._config.zero_enabled
 
     @property
     def loss_scale(self):
@@ -302,6 +399,164 @@ class DeepSpeedEngine:
             beta1 = float(self._betas[0])
             self._mom_fn = lambda step: beta1
 
+    def _configure_offload(self, model):
+        """ZeRO-Offload setup (JAX ``engine.py:457-506``): the host Adam
+        takes the fp32 masters from the params where they are (the
+        caller's host model), and the device receives only their
+        compute-dtype copy, as views of one flat buffer."""
+        from deepspeed_tpu_torch.ops.adam.cpu_adam import DeepSpeedCPUAdam
+        dist = torch.distributed
+        if dist.is_available() and dist.is_initialized() and \
+                dist.get_world_size() > 1:
+            raise NotImplementedError(
+                f"cpu_offload across {dist.get_world_size()} processes "
+                f"(JAX _train_batch_offload_dp) is {_NOT_YET}")
+        if self.optimizer_name not in (ADAM_OPTIMIZER, "adamw"):
+            raise AssertionError(
+                f"cpu_offload supports adam/adamw, got {self.optimizer_name}")
+        chunk_mb = self._config.zero_config.offload_chunk_mb
+        if not chunk_mb or float(chunk_mb) <= 0:
+            raise ValueError(
+                f"offload_chunk_mb must be a positive number of MB, "
+                f"got {chunk_mb!r}")
+        # fractional MB allowed; floor at 64 KB so a tiny value cannot
+        # degenerate into one worker submission per element
+        self._offload_chunk_bytes = max(
+            64 << 10, int(float(chunk_mb) * (1 << 20)))
+        dev = self.device
+        bf16 = self.compute_dtype == torch.bfloat16
+        # bf16 only: it shares fp32's exponent range, so casting the
+        # unscaled gradient is safe; fp16 would flush small components
+        self._grads_16bit = bool(self._config.zero_config.offload_16bit_grads
+                                 and bf16)
+        self.cpu_optimizer = DeepSpeedCPUAdam(
+            self.params, lr=self._base_lr, betas=self._betas, eps=self._eps,
+            weight_decay=self._weight_decay,
+            bias_correction=self._bias_correction,
+            adamw_mode=self._adam_w_mode, pin_memory=dev.type == "cuda",
+            landing_dtype=torch.bfloat16 if self._grads_16bit else None,
+            bf16_copy_back=bf16)
+        opt = self.cpu_optimizer
+        self._dev_flat = torch.empty(opt.total, dtype=self.compute_dtype,
+                                     device=dev)
+        with torch.no_grad():
+            for p, off, size, shape in zip(self.params, opt.offsets,
+                                           opt.sizes, opt.shapes):
+                p.data = self._dev_flat[off:off + size].view(shape)
+                p.grad = None
+        model.to(dev)        # buffers; the params are on the device now
+        self._grad32 = torch.zeros(opt.total, dtype=torch.float32,
+                                   device=dev)
+        self._grad32_views = [self._grad32[off:off + size].view(shape)
+                              for off, size, shape in
+                              zip(opt.offsets, opt.sizes, opt.shapes)]
+        self._wire = torch.empty(opt.total, dtype=torch.bfloat16,
+                                 device=dev) if self._grads_16bit else None
+        self._upload_stream = torch.cuda.Stream(dev) \
+            if dev.type == "cuda" else None
+        self._upload_done = None
+        self._upload_spans = []
+        self.last_host_phase_s = 0.0
+        self._upload_offload_params()
+
+    def _fold_grads(self):
+        """Add the micro-batch's compute-dtype gradients into the fp32
+        accumulator and drop them (JAX's fp32 scan carry)."""
+        with torch.no_grad():
+            grads = [p.grad for p in self.params]
+            torch._foreach_add_(self._grad32_views, grads)
+            for p in self.params:
+                p.grad = None
+
+    def _wait_for_params(self):
+        """Order the device's next use of the params after the last
+        upload."""
+        if self._offload and self._upload_done is not None:
+            torch.cuda.current_stream(self.device).wait_event(
+                self._upload_done)
+
+    def _upload(self, lo, hi, src):
+        """Copy flat ``src[lo:hi]`` into the device params (on the upload
+        stream on CUDA, timed by an event pair)."""
+        if self._upload_stream is None:
+            self._dev_flat[lo:hi].copy_(src[lo:hi])
+            return
+        with torch.cuda.stream(self._upload_stream):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            self._dev_flat[lo:hi].copy_(src[lo:hi], non_blocking=True)
+            end.record()
+        self._upload_spans.append((start, end, (hi - lo) *
+                                   self._dev_flat.element_size()))
+
+    def _begin_uploads(self):
+        if self._upload_done is not None:
+            # the copy-back buffer is rewritten only after the last
+            # step's uploads have read it
+            self._upload_done.synchronize()
+        self._upload_spans = []
+        if self._upload_stream is not None:
+            self._upload_stream.wait_stream(
+                torch.cuda.current_stream(self.device))
+
+    def _end_uploads(self):
+        if self._upload_stream is not None:
+            self._upload_done = torch.cuda.Event()
+            self._upload_done.record(self._upload_stream)
+
+    @torch.no_grad()
+    def _upload_offload_params(self):
+        """The device params from the host masters (init and load; JAX
+        ``engine.py:1524``): the C++ bf16 convert under bf16, a cast of
+        the masters otherwise."""
+        opt = self.cpu_optimizer
+        self._begin_uploads()
+        src = opt.params_bf16_flat() \
+            if self.compute_dtype == torch.bfloat16 else opt.master
+        self._upload(0, opt.total, src)
+        self._end_uploads()
+
+    @torch.no_grad()
+    def _host_phase(self, lr, beta1):
+        """The offload step's host half (JAX ``engine.py:1622``): the
+        gradient to host RAM, the C++ Adam on the masters, the params
+        back, pipelined by chunk."""
+        t0 = time.perf_counter()
+        opt = self.cpu_optimizer
+        wire = self._wire if self._grads_16bit else self._grad32
+        self._begin_uploads()
+        if self.compute_dtype == torch.bfloat16:
+            def upload_chunk(li, lj):
+                self._upload(opt.offsets[li], opt.offsets[lj],
+                             opt._bf16_buf)
+
+            opt.step_overlapped(wire, lr=lr, beta1=beta1, bf16_out=True,
+                                chunk_bytes=self._offload_chunk_bytes,
+                                on_chunk=upload_chunk)
+        else:
+            opt.step_overlapped(wire, lr=lr, beta1=beta1,
+                                chunk_bytes=self._offload_chunk_bytes)
+            self._upload(0, opt.total, opt.master)
+        self._end_uploads()
+        self.last_host_phase_s = time.perf_counter() - t0
+
+    def host_phase_stats(self):
+        """The last host phase: its wall, the C++ Adam's and the bf16
+        convert's seconds (summed over chunks), and on CUDA the D2H and
+        H2D device seconds and bytes (the copies' event spans, summed).
+        Reading the events waits for the uploads."""
+        opt = self.cpu_optimizer
+        out = {"host_phase_s": self.last_host_phase_s,
+               "adam_s": opt.last_adam_s, "convert_s": opt.last_convert_s}
+        if self._upload_stream is not None:
+            self._upload_done.synchronize()
+            out["h2d_s"] = sum(a.elapsed_time(b) for a, b, _ in
+                               self._upload_spans) / 1e3
+            out["h2d_bytes"] = sum(n for _, _, n in self._upload_spans)
+            out["d2h_s"], out["d2h_bytes"] = opt.last_d2h
+        return out
+
     def _scale_args(self):
         args = dict(scale_factor=2.0, scale_window=1000, min_scale=1.0,
                     delayed_shift=1, consecutive_hysteresis=False)
@@ -358,17 +613,27 @@ class DeepSpeedEngine:
         fp16 = self._config.fp16_enabled
         clip = float(self._config.gradient_clipping or 0.0)
         scale = self._scale()
-        grads = [p.grad for p in self.params]
+        # offload: one flat fp32 buffer (the epilogue's norm is then one
+        # reduction, in another summation order than the per-leaf one)
+        grads = [self._grad32] if self._offload else \
+            [p.grad for p in self.params]
         overflow, nonfinite, grad_norm, applied_norm = grad_epilogue(
             grads, scale, accum, fp16, clip)
         lr = float(self._lr_fn(self.global_steps))
         beta1 = float(self._mom_fn(self.global_steps))
-        self.opt_state = fused_adam_update(
-            [p.data for p in self.params], grads, self.opt_state, lr=lr,
-            beta1=beta1, beta2=self._betas[1], eps=self._eps,
-            weight_decay=self._weight_decay, adam_w_mode=self._adam_w_mode,
-            bias_correction=self._bias_correction,
-            skip=overflow if fp16 else None)
+        if self._offload:
+            if self._grads_16bit:
+                self._wire.copy_(self._grad32)
+            if not bool(overflow):      # waits for the device step
+                self._host_phase(lr, beta1)
+        else:
+            self.opt_state = fused_adam_update(
+                [p.data for p in self.params], grads, self.opt_state,
+                lr=lr, beta1=beta1, beta2=self._betas[1], eps=self._eps,
+                weight_decay=self._weight_decay,
+                adam_w_mode=self._adam_w_mode,
+                bias_correction=self._bias_correction,
+                skip=overflow if fp16 else None)
         self.device_state = loss_scale_epilogue(
             self.device_state, overflow, fp16, self.dynamic_loss_scale,
             self._scale_args())
@@ -390,13 +655,16 @@ class DeepSpeedEngine:
     def train_batch(self, batch=None):
         """One optimizer step over a global batch (``engine.py:2537``):
         ``batch`` is a dict of arrays or tensors with leading dim
-        ``train_batch_size``. Returns the mean loss (a 0-d tensor)."""
+        ``train_batch_size``, or None to pull the next one from the
+        engine's data loader. Returns the mean loss (a 0-d tensor)."""
         if batch is None:
-            raise ValueError("no training_data given; pass a batch "
-                             "explicitly (the data loader is "
-                             f"{_NOT_YET})")
+            if self._data_iter is None:
+                raise ValueError("no training_data given; pass a batch "
+                                 "explicitly")
+            batch = next(self._data_iter)
         accum = self._config.gradient_accumulation_steps
         micro = self._micro_batches(batch)
+        self._wait_for_params()
         step_seed = self._step_seed(0, self.global_steps)
         seeds = [fold_in_seed(step_seed, i) for i in range(accum)]
         self.module.train()
@@ -407,6 +675,7 @@ class DeepSpeedEngine:
     @torch.no_grad()
     def eval_batch(self, batch):
         """Forward-only loss over a batch (no dropout, no state change)."""
+        self._wait_for_params()
         return self.loss_fn(self._to_device(batch), None)
 
     # ------------------------------------------------------------------
@@ -416,6 +685,7 @@ class DeepSpeedEngine:
         """The micro-batch loss, with its autograd graph for
         :meth:`backward`."""
         seed = self._step_seed(1, self.micro_steps)
+        self._wait_for_params()
         self._pending_loss = self.loss_fn(self._to_device(batch), seed)
         return self._pending_loss
 
@@ -429,6 +699,8 @@ class DeepSpeedEngine:
         if loss is None:
             raise ValueError("call forward(batch) first or pass the loss")
         (loss * self._scale()).backward()
+        if self._offload:
+            self._fold_grads()
         loss_sum = loss.detach().float()
         if self._micro_loss_sum is not None:
             loss_sum = loss_sum + self._micro_loss_sum
@@ -449,3 +721,194 @@ class DeepSpeedEngine:
             raise ValueError("no gradients accumulated")
         loss_sum, self._micro_loss_sum = self._micro_loss_sum, None
         self._apply_step(loss_sum, self._config.gradient_accumulation_steps)
+
+    # ------------------------------------------------------------------
+    # data (``engine.py:975``)
+    # ------------------------------------------------------------------
+    def deepspeed_io(self, dataset, batch_size=None, route=None,
+                     collate_fn=None, num_local_io_workers=None,
+                     data_sampler=None):
+        """The loader over ``dataset`` that yields ``train_batch_size``
+        rows a batch (drop_last), as torch CPU tensors."""
+        if batch_size is None:
+            batch_size = self._config.train_batch_size
+        return DeepSpeedDataLoader(dataset, batch_size=batch_size,
+                                   collate_fn=collate_fn, drop_last=True)
+
+    # ------------------------------------------------------------------
+    # checkpoints (``engine.py:2930-3270``)
+    # ------------------------------------------------------------------
+    def _topology(self):
+        return {"world_size": 1, "zero_stage": self.zero_optimization_stage(),
+                "offload": self._offload}
+
+    def _param_names(self):
+        names = {id(p): n for n, p in self.module.named_parameters()}
+        return [names.get(id(p), f"param_{i}")
+                for i, p in enumerate(self.params)]
+
+    def _checkpoint_state_tree(self):
+        """The state a checkpoint holds: fp32 masters by param name, the
+        optimizer state and the device counters (0-d tensors)."""
+        names = self._param_names()
+        if self._offload:
+            opt = self.cpu_optimizer
+            params = dict(zip(names, opt.params()))
+            opt_state = {"exp_avg": opt.exp_avg, "exp_avg_sq": opt.exp_avg_sq,
+                         "step": np.int64(opt._step)}
+        else:
+            params = {n: p.data for n, p in zip(names, self.params)}
+            s = self.opt_state
+            opt_state = {"m": dict(zip(names, s.m)),
+                         "v": dict(zip(names, s.v)), "step": s.step}
+        ds = self.device_state
+        return {"params": params, "opt_state": opt_state,
+                "device_state": {
+                    "cur_scale": ds.loss_scale.cur_scale,
+                    "cur_iter": ds.loss_scale.cur_iter,
+                    "last_overflow_iter": ds.loss_scale.last_overflow_iter,
+                    "cur_hysteresis": ds.loss_scale.cur_hysteresis,
+                    "global_step": ds.global_step,
+                    "skipped_steps": ds.skipped_steps,
+                    "consecutive_skipped": ds.consecutive_skipped}}
+
+    def _checkpoint_meta(self, client_state):
+        """The JSON sidecar (``engine.py:2993``)."""
+        sched = self.lr_scheduler
+        return {
+            "global_steps": self.global_steps,
+            "micro_steps": self.micro_steps,
+            # the dropout stream's base: resume must not depend on the
+            # resuming process passing the same seed to initialize()
+            "seed": self.seed,
+            "lr_scheduler": sched.state_dict()
+            if sched is not None and hasattr(sched, "state_dict") else None,
+            "dataloader": self._data_iter.state_dict()
+            if self._data_iter is not None else None,
+            "client_state": client_state or {},
+        }
+
+    def save_checkpoint(self, save_dir, tag=None, client_state=None,
+                        save_latest=True):
+        """Write one checkpoint under ``save_dir`` (atomic; see
+        :class:`~deepspeed_tpu_torch.runtime.resilience.CheckpointManager`).
+        ``tag`` defaults to ``global_step<N>``. Raises
+        :class:`~deepspeed_tpu_torch.runtime.resilience.CheckpointIOError`
+        when I/O fails past the retry budget."""
+        if tag is None:
+            tag = f"global_step{self.global_steps}"
+        if self._offload and self._upload_done is not None:
+            self._upload_done.synchronize()
+        path = self._ckpt_manager.save(
+            save_dir, tag, self._checkpoint_state_tree(),
+            self._checkpoint_meta(client_state), save_latest=save_latest,
+            extra_manifest={"topology": self._topology()})
+        log_dist(f"saved checkpoint {path}", ranks=[0])
+        return True
+
+    def load_checkpoint(self, load_dir, tag=None, load_optimizer_states=True,
+                        load_lr_scheduler_states=True):
+        """Restore the engine from a checkpoint under ``load_dir``:
+        ``tag=None`` loads the newest valid one (the ``latest`` pointer
+        when it validates, else a scan past corrupt or partial ones); an
+        explicit tag is strict. Returns ``(path, client_state)``, or
+        ``(None, {})`` when nothing valid is there."""
+        mgr = self._ckpt_manager
+        mgr.wait()
+        resolved = mgr.resolve_tag(load_dir, tag)
+        if resolved is None:
+            log_dist(f"no valid checkpoint found at {load_dir}; cannot "
+                     f"load", ranks=[0])
+            return None, {}
+        manifest = mgr.validate(mgr.ckpt_path(load_dir, resolved))
+        saved = manifest.get("topology") or {}
+        here = self._topology()
+        changed = {k: (saved.get(k), v) for k, v in here.items()
+                   if k in saved and saved[k] != v}
+        if changed:
+            raise CheckpointTopologyError(
+                f"checkpoint {resolved!r} was saved under {saved}, this "
+                f"engine runs {here} (changed: {changed}); elastic "
+                f"resharding on load is not yet ported")
+        state, meta, path = mgr.load(load_dir, resolved)
+        self._install_restored_state(state, meta, load_optimizer_states,
+                                     load_lr_scheduler_states)
+        log_dist(f"loaded checkpoint {path}", ranks=[0])
+        return path, meta.get("client_state", {})
+
+    @torch.no_grad()
+    def _install_restored_state(self, state, meta, load_optimizer_states,
+                                load_lr_scheduler_states):
+        names = self._param_names()
+        saved = state["params"]
+        missing = sorted(set(names) - set(saved))
+        if missing or len(saved) != len(names):
+            raise ValueError(
+                f"checkpoint params {sorted(saved)[:4]}... do not match the "
+                f"model's ({len(saved)} saved, {len(names)} here; missing "
+                f"{missing[:4]}): checkpoint is from a different model")
+
+        def tensor(x):
+            return torch.as_tensor(np.asarray(x)) \
+                if not torch.is_tensor(x) else x
+
+        def check_shape(name, got, want):
+            if tuple(got.shape) != tuple(want):
+                raise ValueError(
+                    f"checkpoint leaf {name} has shape {tuple(got.shape)}, "
+                    f"expected {tuple(want)}: checkpoint is from a "
+                    f"different model shape")
+
+        if self._offload:
+            opt = self.cpu_optimizer
+            for name, off, size, shape in zip(names, opt.offsets, opt.sizes,
+                                              opt.shapes):
+                leaf = tensor(saved[name])
+                check_shape(name, leaf, shape)
+                opt.master[off:off + size].copy_(leaf.reshape(-1))
+            if load_optimizer_states:
+                o = state["opt_state"]
+                opt.exp_avg.copy_(tensor(o["exp_avg"]).reshape(-1))
+                opt.exp_avg_sq.copy_(tensor(o["exp_avg_sq"]).reshape(-1))
+                opt._step = int(np.asarray(o["step"]))
+            self._upload_offload_params()
+        else:
+            for name, p in zip(names, self.params):
+                leaf = tensor(saved[name])
+                check_shape(name, leaf, p.shape)
+                p.data.copy_(leaf)
+            if load_optimizer_states:
+                o = state["opt_state"]
+                for name, m, v in zip(names, self.opt_state.m,
+                                      self.opt_state.v):
+                    m.copy_(tensor(o["m"][name]))
+                    v.copy_(tensor(o["v"][name]))
+                self.opt_state = self.opt_state._replace(
+                    step=torch.as_tensor(int(np.asarray(o["step"])),
+                                         dtype=torch.int32,
+                                         device=self.device))
+        ds = state["device_state"]
+
+        def dev(key, dtype):
+            return torch.as_tensor(np.asarray(ds[key]), dtype=dtype,
+                                   device=self.device)
+
+        self.device_state = DeviceState(
+            loss_scale=type(self.device_state.loss_scale)(
+                cur_scale=dev("cur_scale", torch.float32),
+                cur_iter=dev("cur_iter", torch.int32),
+                last_overflow_iter=dev("last_overflow_iter", torch.int32),
+                cur_hysteresis=dev("cur_hysteresis", torch.int32)),
+            global_step=dev("global_step", torch.int32),
+            skipped_steps=dev("skipped_steps", torch.int32),
+            consecutive_skipped=dev("consecutive_skipped", torch.int32))
+        self.global_steps = int(meta["global_steps"])
+        self.micro_steps = int(meta["micro_steps"])
+        if meta.get("seed") is not None:
+            self.seed = int(meta["seed"])
+        sched = self.lr_scheduler
+        if load_lr_scheduler_states and meta.get("lr_scheduler") and \
+                sched is not None and hasattr(sched, "load_state_dict"):
+            sched.load_state_dict(meta["lr_scheduler"])
+        if meta.get("dataloader") is not None and self._data_iter is not None:
+            self._data_iter.load_state_dict(meta["dataloader"])

@@ -1,9 +1,9 @@
-"""Deterministic fault injection: the serving seams of
-``deepspeed_tpu/runtime/resilience/fault_injection.py``.
+"""Deterministic fault injection: the serving, checkpoint and host-Adam
+seams of ``deepspeed_tpu/runtime/resilience/fault_injection.py``.
 
-A process-global registry of *armed* faults that the serving path
-probes at fixed seams. Every probe is a no-op unless a test armed the
-matching fault.
+A process-global registry of *armed* faults that the serving and
+training paths probe at fixed seams. Every probe is a no-op unless a
+test armed the matching fault.
 
 - ``kill`` — :func:`maybe_kill` delivers a hard signal (default
   SIGKILL) to the process itself, inside the scheduler's decode step
@@ -14,6 +14,12 @@ matching fault.
 - ``page_corruption`` — :func:`corrupt_host_pages` tells the host page
   tier (`inference/paging.py:HostPageStore`) to flip one byte of a
   parked snapshot after its CRCs were stamped, so resume must detect it.
+- ``io_failure`` — :func:`maybe_fail_io` raises :class:`InjectedIOError`
+  (an ``OSError``) inside a checkpoint save or load, after the state
+  files are staged and before the checkpoint is published.
+- ``host_adam`` — :func:`maybe_fail_host_adam` raises
+  :class:`InjectedHostAdamError` when a host-Adam range update starts,
+  before the C++ kernel touches any buffer.
 
 Use :func:`clear_faults` to disarm everything between tests.
 """
@@ -24,6 +30,18 @@ import threading
 
 _lock = threading.Lock()
 _faults = {}
+
+
+class InjectedIOError(OSError):
+    """Checkpoint I/O failure injected by the fault harness."""
+
+
+class InjectedHostAdamError(RuntimeError):
+    """Host-Adam worker failure injected by the fault harness, raised
+    before the C++ kernel runs: the master and moment buffers are
+    untouched, so a resubmission is exact (``host_state_clean``)."""
+
+    host_state_clean = True
 
 
 class InjectedDecodeError(RuntimeError):
@@ -116,3 +134,40 @@ def corrupt_host_pages(session_id):
         entry["times"] -= 1
         _pop_if_exhausted("page_corruption", entry)
     return True
+
+
+def inject_io_failure(op="save", times=1):
+    """Arm ``times`` consecutive failures of checkpoint ``op`` ("save" or
+    "load")."""
+    with _lock:
+        _faults[f"io_failure:{op}"] = {"times": int(times)}
+
+
+def maybe_fail_io(op):
+    """Probe called from inside checkpoint I/O; raises if armed."""
+    with _lock:
+        name = f"io_failure:{op}"
+        entry = _faults.get(name)
+        if entry is None:
+            return
+        entry["times"] -= 1
+        _pop_if_exhausted(name, entry)
+    raise InjectedIOError(f"injected checkpoint {op} failure")
+
+
+def inject_host_adam_failure(times=1):
+    """Arm ``times`` consecutive host-Adam range-update failures."""
+    with _lock:
+        _faults["host_adam"] = {"times": int(times)}
+
+
+def maybe_fail_host_adam():
+    """Probe called as a host-Adam range update starts; raises if
+    armed."""
+    with _lock:
+        entry = _faults.get("host_adam")
+        if entry is None:
+            return
+        entry["times"] -= 1
+        _pop_if_exhausted("host_adam", entry)
+    raise InjectedHostAdamError("injected host-Adam worker failure")

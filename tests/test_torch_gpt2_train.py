@@ -141,5 +141,5 @@ def test_unported_training_features_raise(jax_params):
     with pytest.raises(NotImplementedError, match="progressive layer drop"):
         fn({"input_ids": torch.zeros(1, 4, dtype=torch.int64)}, 0,
            pld_theta=0.5)
-    with pytest.raises(NotImplementedError, match="remat"):
-        tg.GPT2LMHead(tg.gpt2_tiny(remat=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="scan_layers"):
+        tg.GPT2LMHead(tg.gpt2_tiny(scan_layers=True), device="cpu")

@@ -204,8 +204,7 @@ def test_initialize_defaults_to_cuda_and_rejects_unported(jax_params,
     with pytest.raises(RuntimeError, match="no CUDA device"):
         initialize(model=model, config=BASE)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        initialize(model=model, config=BASE, training_data=[1],
-                   device="cpu")
+        initialize(model=model, config=BASE, mpu=object(), device="cpu")
     with pytest.raises(ValueError, match="not yet ported"):
         initialize(model=model, config=dict(
             BASE, zero_optimization={"stage": 1}), device="cpu")
