@@ -8,7 +8,8 @@ ZeRO-Offload, at full width through the port's main paths.
 
     python3 chip_smoke.py                 # every phase (one GPU)
     python3 chip_smoke.py --kernels-only  # device, build, kernel checks
-    python3 chip_smoke.py --offload-only  # device, build, phases 16-18
+    python3 chip_smoke.py --offload-only  # device, build, phases 17-19
+    python3 chip_smoke.py --zero-only     # device, build, phase 13
     python3 chip_smoke.py --turns DIR     # device, build, then K1-K8
                                           # against the checkout at DIR
                                           # (the parent commit's), in turns
@@ -123,8 +124,25 @@ Phases, each printing one JSON line:
    step; flash and dense losses within a
    bf16 tolerance at every step, and their first micro-batch's c_attn
    weight gradients (the q, k and v rows) within a relative tolerance.
+13. ``train_zero`` — the same model, config and fixed batch through the
+   data-parallel path in an NCCL group of one process (the port's
+   ``initialize_distributed`` on a file store), at ZeRO stages 0, 1, 2
+   and 3 (world 1 is a partition into one piece: every collective is
+   issued), 2 warmup and 5 timed steps each, then stage 0 again. One
+   line per stage (losses, step p50, tokens/s, MFU, peak memory, K1-K4
+   launches, the collectives' calls and bytes a step from the engine's
+   ``Comm``, stage 3's plan and gathers, then a profile window of 2
+   more steps), then the summary. Checks:
+   finite, falling losses; K1-K3 n_layer launches a step and K4 one;
+   the collective bytes a step at each stage's formula (P the fp32
+   param bytes: all-reduce P; reduce-scatter P and all-gather P; the
+   same at accumulation 1; all-gathers of P/2 in the forward and again
+   in the backward and a reduce-scatter of P); stage 3 gathers every
+   leaf twice a step; losses and fp32 masters equal stage 0's bit for
+   bit (when stage 0 repeats itself bit for bit; else losses within
+   the ``train`` phase's 5e-3). The group is destroyed after it.
 
-13. ``sparse_kernel_check`` (also under ``--kernels-only``) — block-sparse
+14. ``sparse_kernel_check`` (also under ``--kernels-only``) — block-sparse
    K7 (out, lse), K8a (dq) and K8b (dk, dv) against their plain versions:
    blocks 16/32/64/128 at T = 8 blocks, D 64 and 128, bf16 and f32,
    causal and not, dropout 0 and 0.1, over a Fixed layout with an empty
@@ -137,7 +155,7 @@ Phases, each printing one JSON line:
    block 64, the bench's Fixed layout, dropout 0.1) in f32, bf16 and
    fp16; K7's dropout mask read back bitwise (q = k = 0, v = I); a dense
    layout through K7 against K1.
-14. ``sparse_kernel_timing`` — CUDA-event ms per call of K7, K8a, K8b at
+15. ``sparse_kernel_timing`` — CUDA-event ms per call of K7, K8a, K8b at
    the BERT bench shape (B 32, T 512, H 16, D 64, block 64, the Fixed
    layout of density 0.625) in f32, the dtype the encoder gives them,
    and in bf16 and fp16, and at the causal long-context shape in bf16 (B 1,
@@ -151,7 +169,7 @@ Phases, each printing one JSON line:
    Then ``wide_head_timing``: one row at head dim 512 for each kernel
    the column chunks reach (K1-K3, K7/K8, K5/K6), beside its plain
    version, its bound and SDPA where it runs at that head dim.
-15. ``train_bert_sparse`` — BERT-Large (seq 512, bf16 over fp32 masters
+16. ``train_bert_sparse`` — BERT-Large (seq 512, bf16 over fp32 masters
    with the encoder layers in fp32 as in the JAX model, dropout 0.1, the bench's Fixed block-sparse layout, seeded random
    params) through ``initialize`` with the JAX bench's config
    (``bench.py:142-199``: train_batch_size 32, bf16, Adam lr 1e-4) on a
@@ -165,7 +183,7 @@ Phases, each printing one JSON line:
    losses within a bf16 tolerance, first micro-batch attn_qkvw
    gradients within a relative tolerance.
 
-16. ``train_offload`` — GPT-2 1.5B (n_embd 1600, 48 layers, 25 heads,
+17. ``train_offload`` — GPT-2 1.5B (n_embd 1600, 48 layers, 25 heads,
    vocab 50257, n_positions 1024; seeded random weights built on the
    host) through ``initialize`` with the JAX bench's offload row
    (``bench.py:343-398``: train_batch_size 4 x 1024, bf16,
@@ -184,10 +202,10 @@ Phases, each printing one JSON line:
    wire widened and the device params equal bf16(masters), both bit
    for bit; K1 2 x 48 (forward and remat recompute), K2 and K3 48 launches
    a step and K4 none; the host buffers pinned, no fp32 param on the card.
-17. ``train_dense_yardstick`` — the same model, batch and remat on the
+18. ``train_dense_yardstick`` — the same model, batch and remat on the
    dense engine (fp32 masters, K4 on the card): 1 warmup and 3 timed
    steps, step p50 and peak memory; checks a finite loss only.
-18. ``offload_resume`` — GPT-2 125M, bf16 offload (the same config), a
+19. ``offload_resume`` — GPT-2 125M, bf16 offload (the same config), a
    24-row dataset: 6 steps with ``save_checkpoint`` after step 3, then a
    fresh engine (other weights, another seed) loads it and runs steps
    4-6. Checks: its losses and final masters equal the uninterrupted
@@ -196,7 +214,8 @@ Phases, each printing one JSON line:
 
 Then the phases' walls, the ``kernels`` summary line (K7/K8 entries name
 their design; K1-K4 count the ``train`` path's launches and give the
-``train_offload`` path's as ``offload_launches``),
+``train_zero`` path's as ``zero_launches`` and the ``train_offload``
+path's as ``offload_launches``),
 the ``host_ops`` line (the C++ Adam's ms a step over the 1.56 G masters
 beside its plain version and ``probe_ms``: the 28 bytes an element it
 must read and write at the best host memory rate that torch probes with
@@ -2039,6 +2058,167 @@ def phase_train(torch):
 
 
 
+ZERO_STAGES = (0, 1, 2, 3)
+ZERO_WARMUP, ZERO_STEPS = 2, 5
+
+
+def _zero_group(torch):
+    """An NCCL group of one process on a file store in a new temporary
+    directory (the port's ``initialize_distributed`` with explicit
+    arguments); returns the directory."""
+    import tempfile
+    from deepspeed_tpu_torch.parallel import initialize_distributed
+    root = tempfile.mkdtemp(prefix="zero_store_")
+    world = initialize_distributed(
+        coordinator_address=f"file://{os.path.join(root, 'store')}",
+        num_processes=1, process_id=0, device="cuda")
+    import torch.distributed as dist
+    if world != 1 or dist.get_backend() != "nccl":
+        fail(f"train_zero: group of {world} on {dist.get_backend()}, "
+             f"expected one process on nccl")
+    return root
+
+
+def _zero_formula(stage, p):
+    """Collective bytes a step at world 1 and accumulation 1, P the fp32
+    param bytes (whole tensors: the all-reduce's operand, the
+    reduce-scatter's input, the all-gather's output; stage 3's gathers
+    move bf16, once in the forward and once in the backward)."""
+    return {0: {"all_reduce": p, "reduce_scatter": 0, "all_gather": 0},
+            1: {"all_reduce": 0, "reduce_scatter": p, "all_gather": p},
+            2: {"all_reduce": 0, "reduce_scatter": p, "all_gather": p},
+            3: {"all_reduce": 0, "reduce_scatter": p,
+                "all_gather": 2 * (p // 2)}}[stage]
+
+
+def _zero_run(torch, stage, batch, counters):
+    """One stage: 2 warmup and 5 timed steps of GPT-2 350M through the
+    data-parallel path. Returns the row and the fp32 masters (host)."""
+    extra = {"zero_optimization": {"stage": stage}} if stage else {}
+    gc.collect()            # nothing of an earlier phase in the peak
+    torch.cuda.empty_cache()
+    engine = _train_engine(torch, flash=True, extra=extra)
+    if not engine.comm.active:
+        fail("train_zero: the engine did not join the process group")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    losses, walls, counts = [], [], None
+    for _ in range(ZERO_WARMUP + ZERO_STEPS):
+        engine.comm.reset()
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        walls.append(time.perf_counter() - t0)
+        counts = engine.comm.snapshot()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {n: c.launches for n, c in counters.items()}
+    masters = [m.detach().to("cpu", copy=True) for m in engine._masters]
+    p_bytes = sum(4 * m.numel() for m in masters)
+    plan = engine.zero3_plan
+    timed = walls[ZERO_WARMUP:]
+    tokens = TRAIN_B * TRAIN_T
+    fpt = model_flops_per_token(engine.module.config, TRAIN_T)
+    tps = tokens * len(timed) / sum(timed)
+    row = {"stage": stage, "losses": losses, "step_wall_s": walls,
+           "step_p50_ms": statistics.median(timed) * 1e3,
+           "tokens_per_s": tps, "mfu": tps * fpt / BF16_PEAK_FLOPS,
+           "max_memory_allocated": peak, "launches": launches,
+           "collectives_per_step": counts, "param_bytes": p_bytes,
+           "zero3_plan": plan.to_dict() if plan is not None else None}
+    if stage == 3:
+        inst = engine._installer
+        row["gathers"], row["regathers"] = inst.gathers, inst.regathers
+    # after every count and the masters are read: 2 more steps, profiled
+    row["profile"] = _profile(torch, lambda: engine.train_batch(batch), 2)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row, masters
+
+
+def phase_train_zero(torch):
+    """GPT-2 350M in the ``train`` phase's configuration through the
+    data-parallel path at ZeRO stages 0-3, in an NCCL group of one."""
+    import torch.distributed as dist
+    from deepspeed_tpu_torch.parallel import destroy_distributed
+    rng = np.random.default_rng(0)
+    batch = {"input_ids": rng.integers(0, 50257, (TRAIN_B, TRAIN_T))
+             .astype(np.int32)}
+    import shutil
+    counters = _flash_counters()
+    store_dir = _zero_group(torch)
+    rows, masters = {}, {}
+    try:
+        for stage in ZERO_STAGES:
+            rows[stage], masters[stage] = _zero_run(torch, stage, batch,
+                                                    counters)
+        # stage 0 again: does the path repeat itself bit for bit?
+        again, masters_again = _zero_run(torch, 0, batch, counters)
+    finally:
+        if dist.is_initialized():
+            destroy_distributed()
+        shutil.rmtree(store_dir, ignore_errors=True)
+    steps = ZERO_WARMUP + ZERO_STEPS
+    stage0_repeats = again["losses"] == rows[0]["losses"] and all(
+        torch.equal(a, b) for a, b in zip(masters_again, masters[0]))
+    out = {"phase": "train_zero", "model": "gpt2_350m", "world": 1,
+           "backend": "nccl", "batch": TRAIN_B, "seq": TRAIN_T,
+           "dtype": "bfloat16", "attention": "flash",
+           "warmup": ZERO_WARMUP, "steps": ZERO_STEPS,
+           "stage0_repeats_bitwise": stage0_repeats}
+    for stage in ZERO_STAGES:
+        r = rows[stage]
+        r["losses_equal_stage0"] = r["losses"] == rows[0]["losses"]
+        r["masters_equal_stage0"] = all(
+            torch.equal(a, b) for a, b in zip(masters[stage], masters[0]))
+        emit({"phase": "train_zero_stage", **r})
+        out[f"stage{stage}"] = {
+            k: r[k] for k in ("step_p50_ms", "tokens_per_s", "mfu",
+                              "max_memory_allocated",
+                              "losses_equal_stage0",
+                              "masters_equal_stage0")}
+    out["launches"] = {n: sum(rows[s]["launches"][n] for s in ZERO_STAGES)
+                       for n in counters}
+    emit(out)
+    for stage in ZERO_STAGES:
+        r = rows[stage]
+        losses = r["losses"]
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            fail(f"train_zero stage {stage}: loss not finite and falling: "
+                 f"{losses}")
+        want = {"K1": TRAIN_LAYERS * steps, "K2": TRAIN_LAYERS * steps,
+                "K3": TRAIN_LAYERS * steps, "K4": steps}
+        if r["launches"] != want:
+            fail(f"train_zero stage {stage}: launches {r['launches']} != "
+                 f"{want}")
+        got = {k: r["collectives_per_step"][k]["bytes"]
+               for k in ("all_reduce", "reduce_scatter", "all_gather")}
+        formula = _zero_formula(stage, r["param_bytes"])
+        if got != formula:
+            fail(f"train_zero stage {stage}: collective bytes a step {got} "
+                 f"!= {formula}")
+        if stage == 3:
+            leaves = r["zero3_plan"]["gather_leaves"]
+            if r["gathers"] != leaves * steps or \
+                    r["regathers"] != leaves * steps:
+                fail(f"train_zero stage 3: {r['gathers']} forward and "
+                     f"{r['regathers']} backward gathers over {steps} "
+                     f"steps, expected {leaves * steps} each")
+        if stage0_repeats:
+            if not (r["losses_equal_stage0"] and r["masters_equal_stage0"]):
+                fail(f"train_zero stage {stage}: losses or fp32 masters "
+                     f"differ from stage 0's ({losses} vs "
+                     f"{rows[0]['losses']})")
+        else:
+            gap = max(abs(a - b) for a, b in zip(losses, rows[0]["losses"]))
+            if not gap <= TRAIN_LOSS_ATOL:
+                fail(f"train_zero stage {stage}: losses {gap} from stage "
+                     f"0's (stage 0 does not repeat itself bit for bit)")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # sparse-attention slice: block-sparse K7, K8a, K8b, BERT-Large MLM
 # ---------------------------------------------------------------------------
@@ -3386,6 +3566,9 @@ def main(argv=None):
     parser.add_argument("--offload-only", action="store_true",
                         help="device, build, then only the ZeRO-Offload "
                              "slice's phases")
+    parser.add_argument("--zero-only", action="store_true",
+                        help="device, build, then only the train_zero "
+                             "phase")
     args = parser.parse_args(argv)
 
     import torch
@@ -3419,6 +3602,10 @@ def main(argv=None):
         phase_turns(torch, args.turns)
         print(smi, flush=True)
         return 0
+    if args.zero_only:
+        phase_train_zero(torch)
+        print(smi, flush=True)
+        return 0
     if args.offload_only:
         _, host_op = phase_train_offload(torch)
         phase_train_dense_yardstick(torch)
@@ -3440,6 +3627,9 @@ def main(argv=None):
     speculative = phase_serve_speculative(torch)
     train_timing = phase_train_kernel_timing(torch)
     train = phase_train(torch)
+    lap("until_train")
+    zero = phase_train_zero(torch)
+    lap("train_zero")
     sparse_timing = phase_sparse_kernel_timing(torch)
     phase_wide_head_timing(torch)
     bert = phase_train_bert_sparse(torch)
@@ -3486,6 +3676,7 @@ def main(argv=None):
             "source": f"deepspeed_tpu_torch/ops/csrc/{src}",
             "replaces": replaces,
             "launches": train["launches"][key],
+            "zero_launches": zero["launches"][key],
             "offload_launches": offload["launches"][key],
             "max_abs_err": max(train_errs[key], r.get("max_abs_err", 0.0)),
             "ms": r["ms"],

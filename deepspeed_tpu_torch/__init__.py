@@ -16,9 +16,12 @@ forward / backward and the fused Adam as hand-written CUDA kernels;
 paged serving with flash decode over page tables; BERT MLM training
 with block-sparse attention (:mod:`deepspeed_tpu_torch.models.bert`,
 :mod:`deepspeed_tpu_torch.ops.sparse_attention`), whose forward, dQ and
-dK/dV are hand-written CUDA kernels too; and ZeRO-Offload training (the
+dK/dV are hand-written CUDA kernels too; ZeRO-Offload training (the
 C++ host Adam, :mod:`deepspeed_tpu_torch.ops.adam.cpu_adam`), GPT-2's
-remat, the data loader and preemption-safe checkpoints.
+remat, the data loader and preemption-safe checkpoints; and data
+parallelism across processes (:mod:`deepspeed_tpu_torch.parallel`, one
+process a GPU over NCCL) with ZeRO stages 0-3
+(:mod:`deepspeed_tpu_torch.runtime.zero`) and offload across processes.
 
 Nothing heavy is imported here: submodules load on first use.
 """
@@ -64,9 +67,12 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     config dict or JSON path (or ``args.deepspeed_config``).
     ``training_data`` (an indexable dataset) and ``collate_fn`` build the
     engine's data loader, as JAX's ``deepspeed_io`` does. Runs on CUDA
-    unless ``device="cpu"``. Returns ``(engine, optimizer, dataloader,
-    lr_scheduler)``; the optimizer is the client's (None: the port
-    takes none), as in JAX.
+    unless ``device="cpu"``. With the ``DS_TPU_*`` launcher env (or a
+    process group already up) the engine joins the data-parallel group
+    (:func:`deepspeed_tpu_torch.parallel.initialize_distributed`) and
+    each process passes its ``train_batch_size // world`` rows. Returns
+    ``(engine, optimizer, dataloader, lr_scheduler)``; the optimizer is
+    the client's (None: the port takes none), as in JAX.
     """
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
 

@@ -124,7 +124,10 @@ _TRUNC_STD = 0.87962566103423978
 class Dense(nn.Module):
     """flax ``nn.Dense``: ``x.to(dtype) @ kernel.to(dtype) +
     bias.to(dtype)``. ``weight`` is stored ``[out, in]`` (torch
-    convention; the flax kernel is its transpose)."""
+    convention; the flax kernel is its transpose, which ZeRO's partition
+    rule reads: ``reference_transposed``)."""
+
+    reference_transposed = ("weight",)
 
     def __init__(self, n_in, n_out, cfg, device=None):
         super().__init__()

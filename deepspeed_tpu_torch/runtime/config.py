@@ -7,11 +7,15 @@ with the loss-scale arguments, the ``optimizer`` and ``scheduler``
 sections (``optimizer.params.pallas`` accepted; every step runs the fused
 kernel K4), ``gradient_clipping``, ``steps_per_print`` and the
 ``sparse_attention`` section (:func:`get_sparse_attention`), and the
-``zero_optimization`` section (:class:`DeepSpeedZeroConfig`): ZeRO-Offload
-(``cpu_offload: true``) runs at any stage, as in the JAX engine, while a
-stage without offload raises "not yet ported". Key names and error texts
-are the JAX package's. Every other top-level section raises "not yet
-ported" instead of being silently ignored.
+``zero_optimization`` section (:class:`DeepSpeedZeroConfig`): stages 0-3
+over the data-parallel processes (``world_size`` is the process group's),
+with or without ZeRO-Offload (``cpu_offload: true``), ``gather_on_use``
+and ``prefetch`` as in the JAX engine. Three stage-3 settings raise "not
+yet ported": ``gather_chunks > 1`` and ``bidirectional``, which shape
+the JAX package's TPU ring schedule, and an fp8 gather wire (the ``fp8``
+section, which raises with every other unported section). Key names and
+error texts are the JAX package's. Every other top-level section raises
+"not yet ported" instead of being silently ignored.
 """
 
 import collections
@@ -330,13 +334,8 @@ class DeepSpeedConfig:
         self._batch_assertion()
 
     def _do_error_check(self):
+        self._check_zero3()
         if self.zero_enabled:
-            if self.zero_config.cpu_offload is not True:
-                raise ValueError(
-                    f"DeepSpeedConfig: zero_optimization stage "
-                    f"{self.zero_optimization_stage} without cpu_offload is "
-                    f"not yet ported to deepspeed_tpu_torch (ZeRO-Offload "
-                    f"is)")
             assert self.fp16_enabled or self.bf16_enabled, (
                 "DeepSpeedConfig: ZeRO is only supported with fp16 or bf16 "
                 "enabled")
@@ -346,3 +345,35 @@ class DeepSpeedConfig:
                     f"{MAX_STAGE_ZERO_OPTIMIZATION}")
         if self.fp16_enabled and self.bf16_enabled:
             raise ValueError("fp16 and bf16 cannot both be enabled")
+
+    def _check_zero3(self):
+        """The stage-3 schedule keys (JAX ``config.py:1362``), then the
+        ones the port does not run."""
+        zc = self.zero_config
+
+        def _bool(name, v):
+            if not isinstance(v, bool):
+                raise ValueError(
+                    f"zero_optimization: {name} must be a bool, got {v!r}")
+
+        _bool("gather_on_use", zc.gather_on_use)
+        _bool("prefetch", zc.prefetch)
+        _bool("bidirectional", zc.bidirectional)
+        chunks = zc.gather_chunks
+        if isinstance(chunks, bool) or not isinstance(chunks, int) or \
+                chunks < 1:
+            raise ValueError(
+                f"zero_optimization: gather_chunks must be an int >= 1, "
+                f"got {chunks!r}")
+        if chunks > 1:
+            raise ValueError(
+                f"zero_optimization: gather_chunks={chunks} is not yet "
+                f"ported to deepspeed_tpu_torch (it stripes each stage-3 "
+                f"gather into ppermute rounds of the JAX package's TPU "
+                f"ring; the port gathers each leaf with one all-gather)")
+        if zc.bidirectional:
+            raise ValueError(
+                "zero_optimization: bidirectional=true is not yet ported "
+                "to deepspeed_tpu_torch (it alternates the direction of "
+                "the JAX package's TPU ring stripes; the port gathers "
+                "each leaf with one all-gather)")

@@ -121,11 +121,13 @@ def _default_collate(samples):
 class DeepSpeedDataLoader:
     """Batched loader over an indexable dataset with per-process sharding.
 
-    ``batch_size`` is the number of rows this loader emits per
-    ``__next__`` (the engine asks for the global train batch). With
-    ``process_count`` > 1 each process sees a strided subset of the
-    dataset and emits its ``batch_size // process_count`` share; the
-    port's engine runs one process, so both default to a single one.
+    ``batch_size`` is the global batch (the engine asks for the train
+    batch). With ``process_count`` > 1 each process sees a strided
+    subset of the dataset and emits its ``batch_size // process_count``
+    share. ``process_index`` and ``process_count`` default to the
+    data-parallel group's rank and world size (0 and 1 without a group),
+    as the JAX loader's default to ``jax.process_index()`` /
+    ``jax.process_count()``.
     """
 
     def __init__(self,
@@ -138,7 +140,9 @@ class DeepSpeedDataLoader:
                  process_index=None,
                  process_count=None):
         if process_index is None or process_count is None:
-            process_index, process_count = 0, 1
+            from deepspeed_tpu_torch.parallel import mesh
+            process_index, process_count = mesh.dp_rank(), \
+                mesh.dp_world_size()
         self.dataset = dataset
         self.batch_size = batch_size
         self.collate_fn = collate_fn or _default_collate

@@ -1,26 +1,60 @@
-"""DeepSpeedEngine on one device (port of
-``deepspeed_tpu/runtime/engine.py``): the dense path and ZeRO-Offload,
-the data loader and checkpoints.
+"""DeepSpeedEngine (port of ``deepspeed_tpu/runtime/engine.py``): the
+dense path under data parallelism with ZeRO stages 0-3, ZeRO-Offload
+(also across processes), the data loader and checkpoints.
 
 One ``train_batch`` is the JAX compiled train step (``engine.py:1023``)
 run eagerly:
 
 - gradient accumulation: a Python loop over the micro-batches (the JAX
-  ``lax.scan``), each one ``(loss * scale).backward()`` into the fp32
-  master params' ``.grad``;
-- fp32 master params, cast to the compute dtype inside the forward (the
-  port's ``Dense`` / embedding casts, as the JAX engine casts the tree);
+  ``lax.scan``), each one ``(loss * scale).backward()`` into fp32
+  gradients;
+- fp32 master params; under bf16 / fp16 the forward sees their
+  compute-dtype copies, put in the model's place by
+  :class:`~deepspeed_tpu_torch.runtime.zero.stage3.ParamInstaller` (the
+  JAX engine's ``cast_params``: LayerNorm scales round too, and a tied
+  leaf's two uses sum in the compute dtype);
 - :func:`grad_epilogue`: unscale and average, the fp16 overflow check,
   the global norm and clipping, in place on the gradients;
 - Adam / AdamW: every step is one launch of the fused kernel K4
-  (``ops/fused_adam.py``), with or without ``optimizer.params.pallas``
-  (the JAX engine's choice between XLA and its Pallas kernel);
+  (``ops/fused_adam.py``) over the rank's pieces, with or without
+  ``optimizer.params.pallas`` (the JAX engine's choice between XLA and
+  its Pallas kernel);
 - the fp16 overflow skip and :func:`loss_scale_epilogue` on device
   tensors (``torch.where``, no host sync); counters as in
   ``DeviceState``.
 
 Nothing in a step waits on the device except the ``steps_per_print``
 log line.
+
+**Data parallelism** (one process a device, joined by
+:func:`~deepspeed_tpu_torch.parallel.initialize_distributed` from the
+``DS_TPU_*`` env or an existing group: NCCL on CUDA, gloo on the CPU).
+Each process passes its ``train_batch_size // world`` rows; rank r's
+micro-batch k is global micro-batch k's rows ``[r*m, (r+1)*m)`` (JAX
+``_shard_batch``). Every collective goes through the engine's
+:class:`~deepspeed_tpu_torch.runtime.zero.comm.Comm`, which counts them.
+The stages, each computing what the JAX engine computes at that stage
+and world size, with the leaf partition of ``runtime/zero/sharding.py``:
+
+- stage 0: the accumulated fp32 gradient is all-reduced; the norm is
+  local (the gradient is replicated); K4 over the whole leaves;
+- stage 1: the accumulated gradient is reduce-scattered into the rank's
+  pieces; K4 updates the rank's fp32 master pieces and their moments;
+  the updated masters are all-gathered into the replicated params;
+- stage 2: each leaf's gradient is reduce-scattered into a sharded fp32
+  accumulator as soon as the backward has produced it (a
+  post-accumulate-grad hook), so no whole gradient is carried across
+  micro-batches; then as stage 1;
+- stage 3: the params live only as fp32 pieces, gathered on use
+  (``runtime/zero/stage3.py``); the gradient arrives reduce-scattered;
+  K4 updates the pieces in place.
+
+From stage 1 on the norm is global: each rank's sum of squares over its
+pieces (a replicated leaf on rank 0 only), all-reduced. The fp16
+overflow flag is all-reduced with MAX, so every rank skips together; the
+reported loss is the ranks' mean. World 1 is a partition into one piece:
+with a group of one (the card in ``chip_smoke.py``) every collective is
+issued, and changes no number.
 
 **ZeRO-Offload** (``zero_optimization.cpu_offload``, at any stage, as in
 JAX ``engine.py:440``): the fp32 masters and both moments live in host
@@ -46,11 +80,18 @@ buffer. The model is never moved to the device in fp32. A step:
   its wall;
 - an fp16 step that overflows skips the host update (JAX ``:1640``).
 
-Offload across processes (JAX ``_train_batch_offload_dp``), ZeRO stages
-without offload, 1-bit Adam, LAMB, sparse gradients, comm quantization,
-fp8, the pipeline, progressive layer drop and telemetry are not yet
-ported: their config blocks raise in ``runtime/config.py`` and their
-arguments raise here.
+Across processes (JAX ``_train_batch_offload_dp``, ``engine.py:1685``)
+the flat buffer is cut into ``world`` contiguous rows: the device
+gradient is reduce-scattered into the rank's row, the epilogue runs on
+the row (global norm), the C++ Adam updates only the row's range of the
+host master, and the updated 16-bit rows are all-gathered into every
+rank's device params. :meth:`DeepSpeedEngine._offload_sync_host_state`
+makes every rank's host buffers whole again (before a checkpoint).
+
+1-bit Adam, LAMB, sparse gradients, comm quantization, fp8, the
+pipeline, progressive layer drop and telemetry are not yet ported: their
+config blocks raise in ``runtime/config.py`` and their arguments raise
+here.
 
 **Data** (``training_data``): :meth:`DeepSpeedEngine.deepspeed_io` builds
 a :class:`~deepspeed_tpu_torch.runtime.dataloader.DeepSpeedDataLoader`
@@ -66,9 +107,12 @@ optimizer state (K4's per-leaf ``m``, ``v`` and ``step`` on the dense
 path; the host Adam's flat ``exp_avg``, ``exp_avg_sq`` and ``step``
 under offload) and the device counters; ``meta.json`` holds the step
 counters, the seed, the lr scheduler, the data cursor and
-``client_state``. A checkpoint saved under another ZeRO stage or offload
-setting raises :class:`CheckpointTopologyError` (elastic resharding is
-not ported).
+``client_state``. Every leaf is saved whole: the ranks gather their
+pieces, rank 0 writes and the others wait at a barrier; on load every
+rank reads the whole leaves and keeps its pieces. So a dense checkpoint
+from any stage and world loads at any other (JAX
+``test_checkpoint_elastic_resharding``); one saved with another offload
+setting raises :class:`CheckpointTopologyError`.
 
 Randomness: the step's dropout seed is an int32 derived from
 ``(seed, global_steps)`` with ``fold_in_seed`` (micro-batch ``i`` folds
@@ -79,7 +123,9 @@ the attention-prob dropout mask is still the bit-identical counter hash
 for a given int32 seed.
 """
 
+import contextlib
 import time
+import weakref
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -109,6 +155,13 @@ from deepspeed_tpu_torch.runtime.lr_schedules import (
     OneCycle,
     get_lr_scheduler,
 )
+from deepspeed_tpu_torch.parallel import mesh
+from deepspeed_tpu_torch.runtime.zero.comm import Comm
+from deepspeed_tpu_torch.runtime.zero.sharding import (
+    Partition,
+    is_transposed,
+)
+from deepspeed_tpu_torch.runtime.zero.stage3 import ParamInstaller
 from deepspeed_tpu_torch.runtime.utils import (
     check_overflow,
     clip_by_global_norm,
@@ -125,29 +178,44 @@ class DeviceState(NamedTuple):
     consecutive_skipped: torch.Tensor  # i32: current skip streak
 
 
-def grad_epilogue(grads, scale, accum, fp16, clip):
+def grad_epilogue(grads, scale, accum, fp16, clip, comm=None,
+                  sharded=False, counted=None):
     """Unscale and average over micro-batches, the fp16 overflow check,
     the global norm and clipping (``engine.py:99``), IN PLACE on
-    ``grads`` (the engine's ``.grad`` buffers, so the fused optimizer's
+    ``grads`` (the engine's gradient buffers, so the fused optimizer's
     leaf table keeps its pointers). Returns ``(overflow, nonfinite,
-    grad_norm, applied_norm)`` as 0-d device tensors."""
-    denom = scale * accum
+    grad_norm, applied_norm)`` as 0-d device tensors.
+
+    With ``comm`` (an active :class:`Comm`) the gradients are summed
+    over its ranks: they are averaged by the world size too, and the
+    overflow flag is voted (MAX) so every rank skips together. With
+    ``sharded`` they are this rank's pieces and the norm is the global
+    one (``counted``: see :func:`global_norm`); else they are replicated
+    and the local norm is the global one."""
+    world = comm.world if comm is not None else 1
+    denom = scale * accum * world if world > 1 else scale * accum
     for g in grads:
         g.div_(denom)
     device = grads[0].device
     if fp16:
         nonfinite = check_overflow(grads)
+        if comm is not None:
+            nonfinite = comm.any_flag(nonfinite)
         overflow = nonfinite
     else:
         nonfinite = overflow = torch.zeros((), dtype=torch.bool,
                                            device=device)
-    grad_norm = global_norm(grads)
+    reduce = None
+    if sharded and comm is not None:
+        def reduce(t):
+            return comm.all_reduce(t, stat=True)
+    grad_norm = global_norm(grads, reduce, counted)
     applied_norm = grad_norm
     if clip > 0:
         clipped = clip_by_global_norm(grads, clip, norm=grad_norm)
         for g, c in zip(grads, clipped):
             g.copy_(c)
-        applied_norm = global_norm(grads)
+        applied_norm = global_norm(grads, reduce, counted)
     return overflow, nonfinite, grad_norm, applied_norm
 
 
@@ -182,13 +250,19 @@ def step_metrics(loss_sum, accum, grad_norm, applied_norm, lr, scale,
     return out
 
 
-def make_grad_accumulator(loss_fn, accum, after_backward=None):
+def _backward(loss, scale):
+    (loss * scale).backward()
+
+
+def make_grad_accumulator(loss_fn, accum, after_backward=None,
+                          backward=_backward):
     """``accumulate(micro_batches, seeds, scale) -> loss_sum``
-    (``engine.py:182``): for each of the ``accum`` micro-batches, the
-    scaled loss's backward adds into the params' ``.grad`` (then
-    ``after_backward()`` runs, when given: the offload path folds the
-    16-bit gradient into its fp32 accumulator there). Returns the
-    unscaled loss sum (a 0-d f32 tensor, detached)."""
+    (``engine.py:182``): for each of the ``accum`` micro-batches,
+    ``backward(loss, scale)`` adds the scaled loss's gradient into the
+    params' ``.grad`` (then ``after_backward()`` runs, when given: the
+    offload path folds the 16-bit gradient into its fp32 accumulator
+    there). Returns the unscaled loss sum (a 0-d f32 tensor,
+    detached)."""
 
     def accumulate(micro_batches, seeds, scale):
         if len(micro_batches) != accum:
@@ -197,7 +271,7 @@ def make_grad_accumulator(loss_fn, accum, after_backward=None):
         loss_sum = None
         for micro, seed in zip(micro_batches, seeds):
             loss = loss_fn(micro, seed)
-            (loss * scale).backward()
+            backward(loss, scale)
             if after_backward is not None:
                 after_backward()
             loss = loss.detach().float()
@@ -207,14 +281,13 @@ def make_grad_accumulator(loss_fn, accum, after_backward=None):
     return accumulate
 
 
-_NOT_YET = ("not yet ported to deepspeed_tpu_torch (the dense training "
-            "path runs on one device)")
+_NOT_YET = "not yet ported to deepspeed_tpu_torch"
 
 
 class CheckpointTopologyError(ValueError):
-    """The checkpoint was saved under another ZeRO stage or offload
-    setting than this engine runs; resharding it on load (JAX
-    ``runtime/elastic``) is not ported."""
+    """The checkpoint was saved with another offload setting than this
+    engine runs (its flat host state and the dense per-leaf state do not
+    convert into each other)."""
 
 
 class DeepSpeedEngine:
@@ -227,13 +300,21 @@ class DeepSpeedEngine:
         if optimizer is not None:
             raise NotImplementedError(f"client optimizer objects are "
                                       f"{_NOT_YET}")
+        # the data-parallel group: the DS_TPU_* env or an existing group
+        # (NCCL on CUDA, gloo on the CPU); one process without either is
+        # world 1
+        mesh.initialize_distributed(device=device)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         self.module = model
         self.loss_fn = loss_fn
         self.device = device
         self.seed = int(seed)
-        self._config = DeepSpeedConfig(config, world_size=1)
+        self.comm = Comm()
+        self.dp_world_size = self.comm.world
+        self.dp_rank = self.comm.rank
+        self._config = DeepSpeedConfig(config,
+                                       world_size=self.dp_world_size)
 
         if self._config.fp16_enabled:
             self.compute_dtype = torch.float16
@@ -275,24 +356,16 @@ class DeepSpeedEngine:
                      "transfer; fp16 would flush sub-6e-5 components). "
                      "Grads transfer at fp32 — use bf16 to get the "
                      "16-bit wire", ranks=[0])
+        self._stage = self._config.zero_optimization_stage \
+            if self._config.zero_enabled else 0
+        self._installer = None
         if self._offload:
             self._configure_offload(model)
             self.opt_state = None
         else:
             self.cpu_optimizer = None
-            model.to(device)
-            for p in self.params:
-                if p.dtype != torch.float32 or p.device != device:
-                    raise ValueError(
-                        f"master params must be fp32 on {device}, got "
-                        f"{p.dtype} on {p.device}")
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-            self.opt_state = init_adam_state(self.params)
+            self._configure_dense(model)
         self.device_state = self._init_device_state()
-        self._accumulate = make_grad_accumulator(
-            loss_fn, self._config.gradient_accumulation_steps,
-            after_backward=self._fold_grads if self._offload else None)
         self._pending_loss = None
         self._micro_loss_sum = None     # forward/backward API, this step
         self._last_metrics = {}
@@ -337,6 +410,13 @@ class DeepSpeedEngine:
 
     def zero_optimization(self):
         return self._config.zero_enabled
+
+    @property
+    def zero3_plan(self):
+        """The stage-3 :class:`~deepspeed_tpu_torch.runtime.zero.stage3.
+        Zero3Plan`, or None below stage 3."""
+        inst = self._installer
+        return inst.plan if inst is not None else None
 
     @property
     def loss_scale(self):
@@ -399,18 +479,139 @@ class DeepSpeedEngine:
             beta1 = float(self._betas[0])
             self._mom_fn = lambda step: beta1
 
+    def _configure_dense(self, model):
+        """The fp32 masters, gradients and Adam moments of the dense path
+        at the ZeRO stage (the module docstring), and the installer of
+        the compute-dtype params."""
+        dev, stage = self.device, self._stage
+        world, rank = self.dp_world_size, self.dp_rank
+        for p in self.params:
+            if p.dtype != torch.float32:
+                raise ValueError(f"master params must be fp32, got "
+                                 f"{p.dtype}")
+        installs = stage == 3 or self.compute_dtype != torch.float32
+        owners = self._owners(model) if stage >= 1 or installs else None
+        self._parts = [Partition.of(p.shape, world, rank,
+                                    is_transposed(*owners[i]))
+                       for i, p in enumerate(self.params)] \
+            if stage >= 1 else None
+        # a replicated leaf counts in the norm on rank 0 only
+        self._counted = [part.sharded or rank == 0
+                         for part in self._parts] if stage >= 1 else None
+        with torch.no_grad():
+            if stage == 3:
+                pieces = [part.piece(p).to(dev) for p, part in
+                          zip(self.params, self._parts)]
+                for p in self.params:
+                    p.data = torch.empty(0, dtype=p.dtype, device=dev)
+                model.to(dev)           # buffers; the params are pieces
+                for pc in pieces:
+                    pc.requires_grad_(True)
+                    pc.grad = torch.zeros_like(pc)
+                self._pieces = pieces
+                self._masters = [pc.detach() for pc in pieces]
+                self._grads = [pc.grad for pc in pieces]
+            else:
+                model.to(dev)
+                for p in self.params:
+                    if p.device != dev:
+                        raise ValueError(f"master params must be on {dev}, "
+                                         f"got {p.device}")
+                    if stage != 2 and p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                if stage == 0:
+                    self._masters = [p.data for p in self.params]
+                    self._grads = [p.grad for p in self.params]
+                else:
+                    self._masters = [part.piece(p) for p, part in
+                                     zip(self.params, self._parts)]
+                    # stage 1: the reduce-scatter's output (a replicated
+                    # leaf's all-reduced gradient is its .grad); stage 2:
+                    # the sharded accumulator
+                    self._grads = [
+                        p.grad if stage == 1 and not part.sharded else
+                        torch.zeros(part.piece_shape, dtype=torch.float32,
+                                    device=dev)
+                        for p, part in zip(self.params, self._parts)]
+                if stage == 2:
+                    for i, p in enumerate(self.params):
+                        p.grad = None
+                        p.register_post_accumulate_grad_hook(
+                            self._stage2_hook(i))
+        self.opt_state = init_adam_state(self._masters)
+        zc = self._config.zero_config
+        if installs:
+            masters = self._pieces if stage == 3 else self.params
+            self._installer = ParamInstaller(
+                model, [(*owners[i], p, masters[i],
+                         self._parts[i] if self._parts else None)
+                        for i, p in enumerate(self.params)],
+                self.compute_dtype, self.comm, gather=stage == 3,
+                prefetch=bool(zc.prefetch))
+
+    def _owners(self, model):
+        """``(module, name)`` owning each trained param."""
+        index = {id(p): i for i, p in enumerate(self.params)}
+        owners = {}
+        for module in model.modules():
+            for name, p in module._parameters.items():
+                i = index.get(id(p)) if p is not None else None
+                if i is None:
+                    continue
+                if i in owners:
+                    raise ValueError(
+                        f"param {name!r} is registered in two modules: "
+                        f"the engine installs each param in one place")
+                owners[i] = (module, name)
+        if len(owners) != len(self.params):
+            raise ValueError("every trained param must belong to the model")
+        return owners
+
+    def _stage2_hook(self, i):
+        """Stage 2: leaf ``i``'s micro-batch gradient, reduce-scattered
+        into the sharded accumulator as soon as the backward has made it,
+        then dropped. The hook lives on the param (held by C++, out of
+        the garbage collector's reach), so it holds the engine weakly:
+        else a dropped engine would keep its buffers alive."""
+        engine = weakref.ref(self)
+
+        def hook(p):
+            self = engine()
+            if self is None:
+                return
+            part, acc = self._parts[i], self._grads[i]
+            with torch.no_grad():
+                g = p.grad
+                if part.sharded:
+                    out = torch.empty_like(acc)
+                    self.comm.reduce_scatter(out, part.rank_major(g))
+                    acc.add_(out)
+                else:
+                    acc.add_(self.comm.all_reduce(g))
+            p.grad = None
+
+        return hook
+
+    def _loss(self, batch, seed):
+        """``loss_fn`` with the compute-dtype params in the model."""
+        if self._installer is None:
+            return self.loss_fn(batch, seed)
+        with self._installer.forward():
+            return self.loss_fn(batch, seed)
+
+    def _backward(self, loss, scale):
+        scope = self._installer.backward() if self._installer is not None \
+            else contextlib.nullcontext()
+        with scope:
+            (loss * scale).backward()
+
     def _configure_offload(self, model):
         """ZeRO-Offload setup (JAX ``engine.py:457-506``): the host Adam
         takes the fp32 masters from the params where they are (the
         caller's host model), and the device receives only their
         compute-dtype copy, as views of one flat buffer."""
-        from deepspeed_tpu_torch.ops.adam.cpu_adam import DeepSpeedCPUAdam
-        dist = torch.distributed
-        if dist.is_available() and dist.is_initialized() and \
-                dist.get_world_size() > 1:
-            raise NotImplementedError(
-                f"cpu_offload across {dist.get_world_size()} processes "
-                f"(JAX _train_batch_offload_dp) is {_NOT_YET}")
+        from deepspeed_tpu_torch.ops.adam.cpu_adam import (
+            RANGE_ALIGN, DeepSpeedCPUAdam)
         if self.optimizer_name not in (ADAM_OPTIMIZER, "adamw"):
             raise AssertionError(
                 f"cpu_offload supports adam/adamw, got {self.optimizer_name}")
@@ -437,7 +638,19 @@ class DeepSpeedEngine:
             landing_dtype=torch.bfloat16 if self._grads_16bit else None,
             bf16_copy_back=bf16)
         opt = self.cpu_optimizer
-        self._dev_flat = torch.empty(opt.total, dtype=self.compute_dtype,
+        # across processes (JAX engine.py:501): the flat buffer as
+        # `world` rows of `chunk` elements (a SIMD-aligned row length, so
+        # each rank's Adam range starts on a RANGE_ALIGN boundary); rank
+        # r updates [r*chunk, r*chunk + n) of the host master
+        world = self.dp_world_size
+        self._offload_dp = world > 1
+        chunk = -(-opt.total // world)
+        chunk = -(-chunk // RANGE_ALIGN) * RANGE_ALIGN
+        padded = chunk * world if self._offload_dp else opt.total
+        self._off_chunk = chunk
+        self._off_lo = self.dp_rank * chunk
+        self._off_n = max(0, min(chunk, opt.total - self._off_lo))
+        self._dev_flat = torch.zeros(padded, dtype=self.compute_dtype,
                                      device=dev)
         with torch.no_grad():
             for p, off, size, shape in zip(self.params, opt.offsets,
@@ -445,8 +658,12 @@ class DeepSpeedEngine:
                 p.data = self._dev_flat[off:off + size].view(shape)
                 p.grad = None
         model.to(dev)        # buffers; the params are on the device now
-        self._grad32 = torch.zeros(opt.total, dtype=torch.float32,
-                                   device=dev)
+        self._grad32 = torch.zeros(padded, dtype=torch.float32, device=dev)
+        if self._offload_dp:
+            self._grad_row = torch.zeros(chunk, dtype=torch.float32,
+                                         device=dev)
+            self._row16 = torch.zeros(chunk, dtype=self.compute_dtype,
+                                      device=dev)
         self._grad32_views = [self._grad32[off:off + size].view(shape)
                               for off, size, shape in
                               zip(opt.offsets, opt.sizes, opt.shapes)]
@@ -541,6 +758,46 @@ class DeepSpeedEngine:
         self._end_uploads()
         self.last_host_phase_s = time.perf_counter() - t0
 
+    @torch.no_grad()
+    def _host_phase_dp(self, lr, beta1):
+        """The offload step's host half across processes (JAX
+        ``_train_batch_offload_dp``): the rank's gradient row to host
+        RAM, the C++ Adam (and bf16 convert) on the row's range of the
+        master, the updated row back to the device, and every rank's row
+        all-gathered into the device params."""
+        t0 = time.perf_counter()
+        opt = self.cpu_optimizer
+        lo, n = self._off_lo, self._off_n
+        opt._step += 1
+        opt.last_adam_s = opt.last_convert_s = 0.0
+        bf16 = self.compute_dtype == torch.bfloat16
+        if n:
+            row = self._grad_row[:n]
+            if self._grads_16bit:       # the 16-bit wire, widened on host
+                row = row.to(torch.bfloat16)
+            opt._grad_buf[lo:lo + n].copy_(row)
+            opt._update_range(opt._step, lr, beta1, lo, n, bf16)
+            src = opt._bf16_buf if bf16 else opt.master
+            self._row16[:n].copy_(src[lo:lo + n])
+        self.comm.all_gather(self._dev_flat, self._row16)
+        self.last_host_phase_s = time.perf_counter() - t0
+
+    @torch.no_grad()
+    def _offload_sync_host_state(self):
+        """Every rank's host master and moments made whole (each rank
+        updates only its row's range): an fp32 all-gather of the rows
+        through the device (JAX ``engine.py:1828``)."""
+        opt = self.cpu_optimizer
+        lo, n, chunk = self._off_lo, self._off_n, self._off_chunk
+        row = torch.zeros(chunk, dtype=torch.float32, device=self.device)
+        whole = torch.empty(chunk * self.dp_world_size,
+                            dtype=torch.float32, device=self.device)
+        for buf in (opt.master, opt.exp_avg, opt.exp_avg_sq):
+            row.zero_()
+            row[:n].copy_(buf[lo:lo + n])
+            self.comm.all_gather(whole, row)
+            buf.copy_(whole[:opt.total])
+
     def host_phase_stats(self):
         """The last host phase: its wall, the C++ Adam's and the bf16
         convert's seconds (summed over chunks), and on CUDA the D2H and
@@ -591,14 +848,19 @@ class DeepSpeedEngine:
                 for k, v in batch.items()}
 
     def _micro_batches(self, batch):
+        """This process's rows as ``accum`` micro-batches (JAX
+        ``_shard_batch``): rank r's micro-batch k holds global micro-batch
+        k's rows ``[r*m, (r+1)*m)``."""
         accum = self._config.gradient_accumulation_steps
-        expected = self._config.train_batch_size
+        n_proc = self.dp_world_size
+        expected = self._config.train_batch_size // n_proc
         placed = self._to_device(batch)
         for name, x in placed.items():
             if x.shape[0] != expected:
                 raise ValueError(
-                    f"train_batch expects {expected} rows "
-                    f"(train_batch_size), got {x.shape[0]} for {name!r}")
+                    f"train_batch expects {expected} rows per process "
+                    f"(train_batch_size {self._config.train_batch_size} / "
+                    f"{n_proc} processes), got {x.shape[0]} for {name!r}")
         micro = expected // accum
         return [{k: x[i * micro:(i + 1) * micro] for k, x in placed.items()}
                 for i in range(accum)]
@@ -606,38 +868,93 @@ class DeepSpeedEngine:
     def _step_seed(self, stream, counter):
         return fold_in_seed(fold_in_seed(self.seed, stream), counter)
 
+    def _reduce_grads(self):
+        """The step's fp32 gradients, summed over the ranks: stage 0
+        all-reduces each leaf; stage 1 reduce-scatters each into the
+        rank's piece; stages 2 and 3 already hold the pieces."""
+        comm = self.comm
+        if self._stage == 0:
+            if comm.active:
+                for g in self._grads:
+                    comm.all_reduce(g)
+        elif self._stage == 1:
+            for p, part, g in zip(self.params, self._parts, self._grads):
+                if part.sharded:
+                    comm.reduce_scatter(g, part.rank_major(p.grad))
+                else:
+                    comm.all_reduce(g)
+        return self._grads
+
+    def _refresh_params(self):
+        """Stages 1-2: the updated master pieces all-gathered into the
+        replicated params (the one param-sized refresh gather)."""
+        for p, part, m in zip(self.params, self._parts, self._masters):
+            if not part.sharded:
+                p.data.copy_(m)
+            elif part.dim == 0:
+                self.comm.all_gather(p.data.view(-1), m)
+            else:
+                flat = torch.empty(part.numel, dtype=m.dtype,
+                                   device=m.device)
+                self.comm.all_gather(flat, m)
+                p.data.copy_(part.from_gathered(flat))
+
     @torch.no_grad()
     def _apply_step(self, loss_sum, accum):
-        """Everything after the backward: epilogue, optimizer, overflow
-        skip, loss scale and counters. Returns the metrics dict."""
+        """Everything after the backward: the gradients' reduction, the
+        epilogue, the optimizer, overflow skip, loss scale and counters.
+        Returns the metrics dict."""
         fp16 = self._config.fp16_enabled
         clip = float(self._config.gradient_clipping or 0.0)
         scale = self._scale()
+        comm = self.comm if self.comm.active else None
+        offload_dp = self._offload and self._offload_dp
         # offload: one flat fp32 buffer (the epilogue's norm is then one
-        # reduction, in another summation order than the per-leaf one)
-        grads = [self._grad32] if self._offload else \
-            [p.grad for p in self.params]
+        # reduction, in another summation order than the per-leaf one);
+        # across processes, the rank's row of it
+        if self._offload:
+            if offload_dp:
+                self.comm.reduce_scatter(self._grad_row, self._grad32)
+                grads = [self._grad_row]
+            else:
+                grads = [self._grad32]
+            sharded, counted = offload_dp, None
+        else:
+            grads = self._reduce_grads()
+            sharded, counted = self._stage >= 1, self._counted
         overflow, nonfinite, grad_norm, applied_norm = grad_epilogue(
-            grads, scale, accum, fp16, clip)
+            grads, scale, accum, fp16, clip, comm=comm, sharded=sharded,
+            counted=counted)
         lr = float(self._lr_fn(self.global_steps))
         beta1 = float(self._mom_fn(self.global_steps))
         if self._offload:
-            if self._grads_16bit:
+            if self._grads_16bit and not offload_dp:
                 self._wire.copy_(self._grad32)
             if not bool(overflow):      # waits for the device step
-                self._host_phase(lr, beta1)
+                if offload_dp:
+                    self._host_phase_dp(lr, beta1)
+                else:
+                    self._host_phase(lr, beta1)
         else:
             self.opt_state = fused_adam_update(
-                [p.data for p in self.params], grads, self.opt_state,
+                self._masters, grads, self.opt_state,
                 lr=lr, beta1=beta1, beta2=self._betas[1], eps=self._eps,
                 weight_decay=self._weight_decay,
                 adam_w_mode=self._adam_w_mode,
                 bias_correction=self._bias_correction,
                 skip=overflow if fp16 else None)
+            if self._stage in (1, 2):
+                self._refresh_params()
         self.device_state = loss_scale_epilogue(
             self.device_state, overflow, fp16, self.dynamic_loss_scale,
             self._scale_args())
         torch._foreach_zero_(grads)
+        if offload_dp:
+            self._grad32.zero_()
+        elif self._stage == 1 and not self._offload:
+            torch._foreach_zero_([p.grad for p in self.params])
+        if comm is not None:
+            loss_sum = comm.mean_scalar(loss_sum)
         metrics = step_metrics(loss_sum, accum, grad_norm, applied_norm, lr,
                                scale, overflow, dstate=self.device_state,
                                nonfinite=nonfinite)
@@ -668,7 +985,13 @@ class DeepSpeedEngine:
         step_seed = self._step_seed(0, self.global_steps)
         seeds = [fold_in_seed(step_seed, i) for i in range(accum)]
         self.module.train()
-        loss_sum = self._accumulate(micro, seeds, self._scale())
+        # built per call: stored, its bound methods would tie the engine
+        # into a reference cycle that only the cyclic collector frees
+        accumulate = make_grad_accumulator(
+            self._loss, accum,
+            after_backward=self._fold_grads if self._offload else None,
+            backward=self._backward)
+        loss_sum = accumulate(micro, seeds, self._scale())
         self.micro_steps += accum
         return self._apply_step(loss_sum, accum)["loss"]
 
@@ -676,7 +999,7 @@ class DeepSpeedEngine:
     def eval_batch(self, batch):
         """Forward-only loss over a batch (no dropout, no state change)."""
         self._wait_for_params()
-        return self.loss_fn(self._to_device(batch), None)
+        return self._loss(self._to_device(batch), None)
 
     # ------------------------------------------------------------------
     # forward/backward/step API (``engine.py:2837-2928``)
@@ -686,7 +1009,7 @@ class DeepSpeedEngine:
         :meth:`backward`."""
         seed = self._step_seed(1, self.micro_steps)
         self._wait_for_params()
-        self._pending_loss = self.loss_fn(self._to_device(batch), seed)
+        self._pending_loss = self._loss(self._to_device(batch), seed)
         return self._pending_loss
 
     def __call__(self, *args, **kwargs):
@@ -698,7 +1021,7 @@ class DeepSpeedEngine:
             loss = self._pending_loss
         if loss is None:
             raise ValueError("call forward(batch) first or pass the loss")
-        (loss * self._scale()).backward()
+        self._backward(loss, self._scale())
         if self._offload:
             self._fold_grads()
         loss_sum = loss.detach().float()
@@ -728,10 +1051,13 @@ class DeepSpeedEngine:
     def deepspeed_io(self, dataset, batch_size=None, route=None,
                      collate_fn=None, num_local_io_workers=None,
                      data_sampler=None):
-        """The loader over ``dataset`` that yields ``train_batch_size``
-        rows a batch (drop_last), as torch CPU tensors."""
+        """The loader over ``dataset`` that yields this process's
+        ``train_batch_size // world`` rows a batch (drop_last; the
+        JAX loader's strided split), as torch CPU tensors."""
         if batch_size is None:
             batch_size = self._config.train_batch_size
+        # each process emits its batch_size // world rows (the loader's
+        # defaults are the group's rank and world)
         return DeepSpeedDataLoader(dataset, batch_size=batch_size,
                                    collate_fn=collate_fn, drop_last=True)
 
@@ -739,8 +1065,22 @@ class DeepSpeedEngine:
     # checkpoints (``engine.py:2930-3270``)
     # ------------------------------------------------------------------
     def _topology(self):
-        return {"world_size": 1, "zero_stage": self.zero_optimization_stage(),
+        """``meta``'s topology (JAX ``_topology``, ``engine.py:2936``)."""
+        return {"world_size": self.dp_world_size,
+                "dp_world_size": self.dp_world_size,
+                "zero_stage": self.zero_optimization_stage(),
                 "offload": self._offload}
+
+    def _whole(self, i, piece):
+        """Leaf ``i`` whole from this rank's fp32 ``piece`` (an fp32
+        all-gather; the piece itself at stage 0)."""
+        part = self._parts[i] if self._parts else None
+        if part is None or not part.sharded:
+            return piece
+        flat = torch.empty(part.numel, dtype=piece.dtype,
+                           device=piece.device)
+        self.comm.all_gather(flat, piece.contiguous())
+        return part.from_gathered(flat).contiguous()
 
     def _param_names(self):
         names = {id(p): n for n, p in self.module.named_parameters()}
@@ -757,10 +1097,18 @@ class DeepSpeedEngine:
             opt_state = {"exp_avg": opt.exp_avg, "exp_avg_sq": opt.exp_avg_sq,
                          "step": np.int64(opt._step)}
         else:
-            params = {n: p.data for n, p in zip(names, self.params)}
             s = self.opt_state
-            opt_state = {"m": dict(zip(names, s.m)),
-                         "v": dict(zip(names, s.v)), "step": s.step}
+            if self._stage == 3:
+                params = {n: self._whole(i, m) for i, (n, m) in
+                          enumerate(zip(names, self._masters))}
+            else:
+                params = {n: p.data for n, p in zip(names, self.params)}
+            opt_state = {
+                "m": {n: self._whole(i, m)
+                      for i, (n, m) in enumerate(zip(names, s.m))},
+                "v": {n: self._whole(i, v)
+                      for i, (n, v) in enumerate(zip(names, s.v))},
+                "step": s.step}
         ds = self.device_state
         return {"params": params, "opt_state": opt_state,
                 "device_state": {
@@ -799,11 +1147,17 @@ class DeepSpeedEngine:
             tag = f"global_step{self.global_steps}"
         if self._offload and self._upload_done is not None:
             self._upload_done.synchronize()
-        path = self._ckpt_manager.save(
-            save_dir, tag, self._checkpoint_state_tree(),
-            self._checkpoint_meta(client_state), save_latest=save_latest,
-            extra_manifest={"topology": self._topology()})
-        log_dist(f"saved checkpoint {path}", ranks=[0])
+        if self._offload and self._offload_dp:
+            self._offload_sync_host_state()
+        # every rank gathers (collectives); rank 0 writes, the rest wait
+        state = self._checkpoint_state_tree()
+        if self.dp_rank == 0:
+            path = self._ckpt_manager.save(
+                save_dir, tag, state, self._checkpoint_meta(client_state),
+                save_latest=save_latest,
+                extra_manifest={"topology": self._topology()})
+            log_dist(f"saved checkpoint {path}", ranks=[0])
+        self.comm.barrier()
         return True
 
     def load_checkpoint(self, load_dir, tag=None, load_optimizer_states=True,
@@ -823,13 +1177,13 @@ class DeepSpeedEngine:
         manifest = mgr.validate(mgr.ckpt_path(load_dir, resolved))
         saved = manifest.get("topology") or {}
         here = self._topology()
-        changed = {k: (saved.get(k), v) for k, v in here.items()
-                   if k in saved and saved[k] != v}
-        if changed:
+        # leaves are saved whole: stage and world may change on load
+        if "offload" in saved and saved["offload"] != here["offload"]:
             raise CheckpointTopologyError(
                 f"checkpoint {resolved!r} was saved under {saved}, this "
-                f"engine runs {here} (changed: {changed}); elastic "
-                f"resharding on load is not yet ported")
+                f"engine runs {here}: the offload setting changed (the "
+                f"host Adam's flat state and the per-leaf dense state do "
+                f"not convert into each other)")
         state, meta, path = mgr.load(load_dir, resolved)
         self._install_restored_state(state, meta, load_optimizer_states,
                                      load_lr_scheduler_states)
@@ -873,16 +1227,25 @@ class DeepSpeedEngine:
                 opt._step = int(np.asarray(o["step"]))
             self._upload_offload_params()
         else:
-            for name, p in zip(names, self.params):
+            def mine(i, full):
+                # this rank's piece of a whole leaf
+                return full if self._parts is None else \
+                    self._parts[i].piece(full)
+
+            for i, (name, p) in enumerate(zip(names, self.params)):
                 leaf = tensor(saved[name])
-                check_shape(name, leaf, p.shape)
-                p.data.copy_(leaf)
+                check_shape(name, leaf, self._parts[i].shape
+                            if self._stage == 3 else p.shape)
+                if self._stage < 3:
+                    p.data.copy_(leaf)
+                if self._stage >= 1:
+                    self._masters[i].copy_(mine(i, leaf))
             if load_optimizer_states:
                 o = state["opt_state"]
-                for name, m, v in zip(names, self.opt_state.m,
-                                      self.opt_state.v):
-                    m.copy_(tensor(o["m"][name]))
-                    v.copy_(tensor(o["v"][name]))
+                for i, (name, m, v) in enumerate(zip(
+                        names, self.opt_state.m, self.opt_state.v)):
+                    m.copy_(mine(i, tensor(o["m"][name])))
+                    v.copy_(mine(i, tensor(o["v"][name])))
                 self.opt_state = self.opt_state._replace(
                     step=torch.as_tensor(int(np.asarray(o["step"])),
                                          dtype=torch.int32,

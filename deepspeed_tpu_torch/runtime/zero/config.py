@@ -4,8 +4,9 @@ boolean form ``"zero_optimization": true``, the deprecated
 ``allgather_size`` key included).
 
 The port reads every key; what runs is decided in ``runtime/config.py``:
-``cpu_offload`` at any stage (ZeRO-Offload on one device), and a stage
-without offload raises "not yet ported".
+stages 0-3 over the data-parallel processes, with or without
+``cpu_offload``; ``gather_chunks > 1`` and ``bidirectional`` raise "not
+yet ported".
 """
 
 from deepspeed_tpu_torch.runtime.zero.constants import (

@@ -204,7 +204,7 @@ def test_offload_keeps_fp32_grad_accumulation_across_micro_batches(
     assert teng.global_steps == 1 and teng.cpu_optimizer._step == 1
 
 
-def test_offload_config_checks(jax_params, monkeypatch):
+def test_offload_config_checks(jax_params):
     base = CASES["bf16_16bit_grads"]
     # offload takes adam / adamw only (JAX asserts it); LAMB is not
     # ported at all, so it stops earlier
@@ -217,19 +217,17 @@ def test_offload_config_checks(jax_params, monkeypatch):
     with pytest.raises(AssertionError, match="fp16 or bf16"):
         _port_engine(jax_params, dict(BASE, zero_optimization=OFFLOAD),
                      torch.float32)
-    with pytest.raises(ValueError, match="not yet ported"):
-        _port_engine(jax_params, dict(base, zero_optimization={"stage": 2}),
-                     torch.bfloat16)
-    # the legacy boolean form is stage 1 (without offload: not ported)
-    with pytest.raises(ValueError, match="not yet ported"):
-        _port_engine(jax_params, dict(base, zero_optimization=True),
-                     torch.bfloat16)
-    # offload across processes waits for the parallel slice
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="2 processes"):
-        _port_engine(jax_params, base, torch.bfloat16)
-    monkeypatch.undo()
+    # a stage without offload runs the dense ZeRO path
+    eng = _port_engine(jax_params, dict(base, zero_optimization={"stage": 2}),
+                       torch.bfloat16)
+    assert eng.zero_optimization_stage() == 2 and eng.cpu_optimizer is None
+    # the legacy boolean form is stage 1
+    eng = _port_engine(jax_params, dict(base, zero_optimization=True),
+                       torch.bfloat16)
+    assert eng.zero_optimization_stage() == 1 and eng.cpu_optimizer is None
+    # one process: the offload step is not the one across processes
+    eng = _port_engine(jax_params, base, torch.bfloat16)
+    assert eng.dp_world_size == 1 and not eng._offload_dp
     # stage 3 with offload runs the offload path, as in JAX
     eng = _port_engine(jax_params, dict(base, zero_optimization=dict(
         OFFLOAD, stage=3)), torch.bfloat16)

@@ -107,10 +107,13 @@ def test_json_file_load(tmp_path):
                                    "progressive_layer_drop", "fp8",
                                    "telemetry"])
 def test_unported_blocks_raise(block):
-    # ZeRO-Offload is ported; a ZeRO stage without offload is not
-    body = {"stage": 2} if block == "zero_optimization" else {}
+    # ZeRO stages 0-3 are ported; the JAX ring's bidirectional stage-3
+    # gathers are not
+    body = {"stage": 3, "bidirectional": True} \
+        if block == "zero_optimization" else {}
     with pytest.raises(ValueError, match="not yet ported"):
-        DeepSpeedConfig({"train_batch_size": 8, block: body})
+        DeepSpeedConfig({"train_batch_size": 8, "bf16": {"enabled": True},
+                         block: body})
 
 
 # ---------------------------------------------------------------------------
