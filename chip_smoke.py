@@ -2,14 +2,18 @@
 """Smoke test of the PyTorch port (``deepspeed_tpu_torch``) on one
 NVIDIA GPU: builds the port's CUDA kernels and its host C++ Adam from
 this checkout, holds each kernel against its plain PyTorch version,
-times it, serves GPT-2 125M (ring, paged and speculative), trains GPT-2
-350M and BERT-Large with block-sparse attention, and GPT-2 1.5B under
-ZeRO-Offload, at full width through the port's main paths.
+times it, serves GPT-2 125M (ring, paged and speculative; from a
+training checkpoint; through the replica fleet and disaggregated
+tiers), trains GPT-2 350M and BERT-Large with block-sparse attention,
+and GPT-2 1.5B under ZeRO-Offload, at full width through the port's
+main paths.
 
     python3 chip_smoke.py                 # every phase (one GPU)
     python3 chip_smoke.py --kernels-only  # device, build, kernel checks
     python3 chip_smoke.py --offload-only  # device, build, phases 17-19
     python3 chip_smoke.py --zero-only     # device, build, phase 13
+    python3 chip_smoke.py --serving-only  # device, build, phases 14
+                                          # and 9a-9c
     python3 chip_smoke.py --turns DIR     # device, build, then K1-K8
                                           # against the checkout at DIR
                                           # (the parent commit's), in turns
@@ -38,7 +42,9 @@ Phases, each printing one JSON line:
    and random ones, storage bf16/f32/int8/f8e4m3fn/f8e5m2 under bf16
    and f32 queries; a poisoned-tail bitwise check per storage dtype;
    head dims 320 and 512 (column chunks of 256) on bf16 and int8
-   caches.
+   caches; then the serve CLI's ``gpt2_tiny`` engine's shape as the
+   process fleet runs it (B=2, S=32, H=4/D=8, f32 storage and queries,
+   block_k 32) at three position pairs, each with the poisoned tail.
 4. ``paged_kernel_check`` — the CUDA ``flash_decode_paged`` (K6)
    against ``flash_decode_paged_reference`` on the card: B=8, page
    size 128, 4 pages a row (S=512), H=12/D=64 and H=16/D=96 (plus
@@ -51,7 +57,10 @@ Phases, each printing one JSON line:
    against K5 over the same bytes laid out as a ring (bitwise; a gate);
    then per storage dtype the same three checks at positions on the
    kernels' 128-key chunk edges (127, 128, 255, 256, 511), rows live in
-   chunk 0 only, a negative position and one past S.
+   chunk 0 only, a negative position and one past S; then the serve
+   CLI's ``gpt2_tiny`` paged engine's shape as the process tiers run it
+   (B=2, H=4/D=8, f32, page size 8, 4 pages a row, block_k 8) at three
+   position pairs, each with the poisoned tail.
 5. ``kernel_timing`` — median CUDA-event time per call of the kernel,
    of its plain version and of ``F.scaled_dot_product_attention`` on
    the bf16 cache (a yardstick only; the port never calls it), against
@@ -87,6 +96,33 @@ Phases, each printing one JSON line:
    K6 6 times per draft call, at least one token per live row per round;
    in f32, 8 requests' streams equal the plain paged engine's. Reports
    rounds, mean accepted tokens per row-round and tokens/s.
+9a. ``serve_checkpoint`` — GPT-2 125M trained one step through
+   ``initialize`` (bf16), saved with ``save_checkpoint``, served by
+   ``serve --checkpoint --n-head 12`` (ring, int8 KV, flash decode K5,
+   the serving row's batch, buckets and chunk): the greedy streams equal
+   an engine's built straight from the training engine's fp32 params,
+   bit for bit; 2 programs; K5 n_layer times a decode step, K6 never.
+9b. ``serve_fleet`` — the fleet router over two thread replicas (one
+   CUDA stream each) of GPT-2 125M in the serving row's paged
+   configuration (int8 KV, flash decode K6), replica 0 killed after its
+   4th decode step; then two ``fleet_worker.py`` processes at the serve
+   CLI's width (``gpt2_tiny``, n_embd 32, flash decode K5) on the card,
+   worker 0 SIGKILLed at decode step 3. Checks: one replica dead,
+   requests redispatched, every stream equal to the one-engine stream
+   of the same weights bit for bit, each survivor holding 2 programs,
+   K6 n_layer times a thread replica's decode call, the surviving
+   worker's K5 n_layer times its decode step (its counts from its
+   ``stats``). Reports the router's latency percentiles and tokens/s
+   per replica.
+9c. ``serve_disagg`` — ``DisaggCoordinator`` with the device handoff
+   store at GPT-2 125M (paged, int8 KV, flash decode K6 on the decode
+   tier), each park and install timed on the card; then the same tiers
+   as two ``TierThreadReplica`` threads (a CUDA stream each, so each
+   handoff crosses streams) under ``DisaggRouter``; then ``serve
+   --disaggregate`` with a prefill and a decode process at the CLI's
+   width and the file store. Checks: streams equal the colocated
+   engine's, each tier holds its one program, K6 n_layer times a decode
+   step. Reports the handoff's bytes and ms per request.
 10. ``train_kernel_check`` — first one 64 x N x K bf16 product through
    the tensor-core kernels' TMA loads and wgmma forms (K-major and
    MN-major B, N and K 64 and 128) against ``torch.matmul`` in fp32;
@@ -153,8 +189,10 @@ Phases, each printing one JSON line:
    an empty row and an unvisited k-block at T 512; the shape
    ``train_bert_sparse`` gives the kernels (B 32, T 512, H 16, D 64,
    block 64, the bench's Fixed layout, dropout 0.1) in f32, bf16 and
-   fp16; K7's dropout mask read back bitwise (q = k = 0, v = I); a dense
-   layout through K7 against K1.
+   fp16; a data-parallel rank's rows (B 4 at ``dropout_head_offset``
+   r * B * H: rank 1 in f32, rank 3 in bf16, causal and not, dropout
+   0.1); K7's dropout mask read back bitwise (q = k = 0, v = I, also at
+   a nonzero head offset); a dense layout through K7 against K1.
 15. ``sparse_kernel_timing`` — CUDA-event ms per call of K7, K8a, K8b at
    the BERT bench shape (B 32, T 512, H 16, D 64, block 64, the Fixed
    layout of density 0.625) in f32, the dtype the encoder gives them,
@@ -215,7 +253,11 @@ Phases, each printing one JSON line:
 Then the phases' walls, the ``kernels`` summary line (K7/K8 entries name
 their design; K1-K4 count the ``train`` path's launches and give the
 ``train_zero`` path's as ``zero_launches`` and the ``train_offload``
-path's as ``offload_launches``),
+path's as ``offload_launches``; K5 and K6 count every serving path's,
+each also given apart: ``serve_launches``, ``checkpoint_launches``,
+``process_fleet_launches``, ``thread_fleet_launches``,
+``disagg_launches``, ``thread_tier_launches``,
+``process_tier_launches``),
 the ``host_ops`` line (the C++ Adam's ms a step over the 1.56 G masters
 beside its plain version and ``probe_ms``: the 28 bytes an element it
 must read and write at the best host memory rate that torch probes with
@@ -509,6 +551,13 @@ def phase_kernel_check(torch):
             emit({"phase": "kernel_check", "failed": case})
             fail(f"flash_decode disagrees with its plain "
                  f"version: {case}")
+    for case in _tiny_decode_cases(torch, "ring", gen, rng):
+        worst = max(worst, case["max_abs_err"])
+        cases.append(case)
+        if not case["ok"]:
+            emit({"phase": "kernel_check", "failed": case})
+            fail(f"flash_decode at the tiny serving shape disagrees with "
+                 f"its plain version: {case}")
     emit({"phase": "kernel_check", "cases": len(cases),
           "max_abs_err": worst, "results": cases})
     return worst
@@ -538,17 +587,19 @@ def _fill(torch, x, mask, value):
     return y
 
 
-def _poison_check(torch, flash_decode, q, k, v, pos, ks, vs, clean):
+def _poison_check(torch, flash_decode, q, k, v, pos, ks, vs, clean,
+                  block_k=SERVE_BLOCK_K):
     """Slots past each row's position hold huge garbage (a recycled
     ring row's previous tenant): the output must not change a bit."""
-    dead = torch.arange(S, device="cuda")[None, :] > pos[:, None].long()
+    dead = torch.arange(k.shape[1], device="cuda")[None, :] > \
+        pos[:, None].long()
     big = 100.0 if k.dtype == torch.int8 else 1e4 if ks is None else 400.0
     scales = ()
     if ks is not None:
         scales = (_fill(torch, ks, dead, 1e4), _fill(torch, vs, dead, 1e4))
     out = flash_decode(q, _fill(torch, k, dead, big),
                        _fill(torch, v, dead, -big), pos, *scales,
-                       block_k=SERVE_BLOCK_K)
+                       block_k=block_k)
     torch.cuda.synchronize()
     return bool(torch.equal(out, clean))
 
@@ -709,27 +760,102 @@ def phase_kernel_timing(torch):
 # paged serving slice: flash_decode_paged (K6)
 # ---------------------------------------------------------------------------
 
+def _tiny_geometry(torch, layout):
+    """(KV spec, attention block_k) of the serve CLI's ``gpt2_tiny``
+    engine as the process fleet (ring) and the process tiers (paged)
+    build it: head dim 8, f32 storage and queries."""
+    from deepspeed_tpu_torch.inference.engine import InferenceEngine
+    from deepspeed_tpu_torch.inference.serve import seeded_tiny_model
+    engine = InferenceEngine(seeded_tiny_model(0, "cuda"),
+                             config=dict(TINY_SPEC, kv_layout=layout),
+                             device="cuda")
+    return engine.spec, engine.attention_block_k
+
+
+def _tiny_decode_cases(torch, layout, gen, rng):
+    """K5 (``layout`` "ring") or K6 ("paged") against its plain version
+    at the tiny engine's shapes, over a few position pairs (the first
+    and last slot, a block / page edge, random), each with the poisoned
+    tail that must not change a bit."""
+    from deepspeed_tpu_torch.ops.flash_decode import (
+        flash_decode, flash_decode_paged, flash_decode_paged_reference,
+        flash_decode_reference)
+    spec, block_k = _tiny_geometry(torch, layout)
+    b, s, h, d = spec.max_batch, spec.max_seq, spec.n_head, spec.head_dim
+    storage = str(spec.dtype).split(".")[-1]
+    qdt = storage                           # f32 model: f32 queries
+    edge = spec.page_size or s // 2
+    pairs = [(0, s - 1), (edge - 1, edge),
+             tuple(int(x) for x in rng.integers(0, s, 2))]
+    cases = []
+    for pair in pairs:
+        pos = torch.tensor(pair[:b], dtype=torch.int32, device="cuda")
+        if layout == "paged":
+            n_pages = spec.n_pages + 3          # spare pages: unused ids
+            shape = (n_pages, spec.page_size, h, d)
+            table = _shuffled_table(torch, rng, b, n_pages,
+                                    spec.pages_per_row)
+        else:
+            shape = (b, s, h, d)
+        k, ks = _cache(torch, storage, shape, gen)
+        v, vs = _cache(torch, storage, shape, gen)
+        q = torch.randn((b, 1, h, d), generator=gen,
+                        device="cuda").to(getattr(torch, qdt))
+        scales = (ks, vs) if ks is not None else ()
+        if layout == "paged":
+            out = flash_decode_paged(q, k, v, pos, table, *scales,
+                                     block_k=block_k)
+            ref = flash_decode_paged_reference(q, k, v, pos, table,
+                                               *scales, block_k=block_k)
+            poison = _paged_poison_check(torch, flash_decode_paged, q, k,
+                                         v, pos, table, ks, vs, out,
+                                         block_k=block_k)
+        else:
+            out = flash_decode(q, k, v, pos, *scales, block_k=block_k)
+            ref = flash_decode_reference(q, k, v, pos, *scales,
+                                         block_k=block_k)
+            poison = _poison_check(torch, flash_decode, q, k, v, pos, ks,
+                                   vs, out, block_k=block_k)
+        torch.cuda.synchronize()
+        diff = (out.float() - ref.float()).abs()
+        ok = bool(torch.isfinite(out.float()).all()) and bool(
+            (diff <= ATOL + RTOL[qdt] * ref.float().abs()).all())
+        case = {"model": "gpt2_tiny", "B": b, "H": h, "D": d, "S": s,
+                "block_k": block_k, "storage": storage, "q": qdt,
+                "positions": list(pair[:b]),
+                "max_abs_err": float(diff.max()), "atol": ATOL,
+                "rtol": RTOL[qdt], "poison_bitwise": poison,
+                "ok": ok and poison}
+        if layout == "paged":
+            case.update(page_size=spec.page_size,
+                        pages_per_row=spec.pages_per_row)
+        cases.append(case)
+    return cases
+
+
 def _paged_positions(torch, rng):
     extra = rng.integers(0, S, B - len(PAGED_FIXED_POSITIONS))
     pos = np.concatenate([PAGED_FIXED_POSITIONS, extra]).astype(np.int32)
     return torch.from_numpy(pos).cuda()
 
 
-def _shuffled_table(torch, rng, b, n_pages):
-    """``[b, PAGES_PER_ROW]`` distinct physical ids in shuffled order,
+def _shuffled_table(torch, rng, b, n_pages, pages_per_row=PAGES_PER_ROW):
+    """``[b, pages_per_row]`` distinct physical ids in shuffled order,
     none of them the trash page."""
-    ids = rng.permutation(np.arange(1, n_pages))[:b * PAGES_PER_ROW]
-    return torch.from_numpy(ids.reshape(b, PAGES_PER_ROW).astype(
+    ids = rng.permutation(np.arange(1, n_pages))[:b * pages_per_row]
+    return torch.from_numpy(ids.reshape(b, pages_per_row).astype(
         np.int32)).cuda()
 
 
-def _tail_mask(torch, pos):
-    """``[b, PAGES_PER_ROW]``: table entries past each row's occupancy."""
-    used = pos.long().clamp(max=S - 1) // PAGE_SIZE
-    return torch.arange(PAGES_PER_ROW, device="cuda")[None, :] > used[:, None]
+def _tail_mask(torch, pos, page_size, pages_per_row):
+    """``[b, pages_per_row]``: table entries past each row's occupancy."""
+    used = pos.long().clamp(max=page_size * pages_per_row - 1) // page_size
+    return torch.arange(pages_per_row, device="cuda")[None, :] > \
+        used[:, None]
 
 
-def _paged_poison_check(torch, kern, q, k, v, pos, table, ks, vs, clean):
+def _paged_poison_check(torch, kern, q, k, v, pos, table, ks, vs, clean,
+                        block_k=SERVE_BLOCK_K):
     """Entries past each row's occupancy pointed first at a trash page
     (page 0) holding huge values, then at an out-of-range id: the
     output must not change a bit either way."""
@@ -739,11 +865,11 @@ def _paged_poison_check(torch, kern, q, k, v, pos, table, ks, vs, clean):
     if ks is not None:
         scales = (_fill(torch, ks, trash, 1e4), _fill(torch, vs, trash, 1e4))
     kp, vp = _fill(torch, k, trash, big), _fill(torch, v, trash, -big)
-    tail = _tail_mask(torch, pos)
+    tail = _tail_mask(torch, pos, k.shape[1], table.shape[1])
     same = True
     for entry in (0, OUT_OF_RANGE_PAGE):
         bad = table.masked_fill(tail, entry)
-        out = kern(q, kp, vp, pos, bad, *scales, block_k=SERVE_BLOCK_K)
+        out = kern(q, kp, vp, pos, bad, *scales, block_k=block_k)
         torch.cuda.synchronize()
         same = same and bool(torch.equal(out, clean))
     return same
@@ -856,6 +982,13 @@ def phase_paged_kernel_check(torch):
         if not case["ok"]:
             emit({"phase": "paged_kernel_check", "failed": case})
             fail(f"flash_decode_paged at the chunk edges: {case}")
+    for case in _tiny_decode_cases(torch, "paged", gen, rng):
+        worst = max(worst, case["max_abs_err"])
+        cases.append(case)
+        if not case["ok"]:
+            emit({"phase": "paged_kernel_check", "failed": case})
+            fail(f"flash_decode_paged at the tiny serving shape disagrees "
+                 f"with its plain version: {case}")
     ring = [c for c in cases if "ring_bitwise" in c]
     emit({"phase": "paged_kernel_check", "cases": len(cases),
           "max_abs_err": worst, "page_size": PAGE_SIZE,
@@ -1452,6 +1585,471 @@ def phase_serve_speculative(torch):
     if not row["f32_greedy_equals_plain_paged"]:
         fail("f32 speculative greedy streams differ from the plain paged "
              "engine's")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# serving from a checkpoint, the replica fleet and disaggregated tiers
+# ---------------------------------------------------------------------------
+
+FLEET_REQUESTS = 16
+FLEET_KILL_AFTER = 4      # decode steps replica 0 runs before it is killed
+TINY_SPEC = {"max_batch": 2, "seq_buckets": [16, 32], "prefill_chunk": 4,
+             "attention_impl": "flash"}
+
+
+def _serve_cli(argv):
+    """``inference/serve.py``'s ``main`` in this process: (exit code, the
+    JSON it printed)."""
+    import contextlib
+    import io
+
+    from deepspeed_tpu_torch.inference import serve
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = serve.main(["--device", "cuda", "--json", *argv])
+    return rc, json.loads(buf.getvalue())
+
+
+def _decode_counters():
+    from deepspeed_tpu_torch.ops.flash_decode import (
+        flash_decode, flash_decode_paged)
+    flash_decode.launches = 0
+    flash_decode_paged.launches = 0
+    return flash_decode, flash_decode_paged
+
+
+def _tokens(completions):
+    return {c["rid"]: list(c["tokens"]) for c in completions}
+
+
+def _one_engine_stream(torch, build, reqs):
+    from deepspeed_tpu_torch.inference.scheduler import (
+        ContinuousBatchingScheduler)
+    engine = build()
+    done = ContinuousBatchingScheduler(engine).run(reqs)
+    del engine
+    torch.cuda.empty_cache()
+    return {c.rid: list(c.tokens) for c in done}
+
+
+def _fleet_stream(Request, vocab, n, seed):
+    """The paged serve stream without sessions (a shared 256-token system
+    prompt plus 8-120 tokens of each request's own, 32 new tokens)."""
+    return _paged_stream(np.random.default_rng(seed), vocab, Request, n=n,
+                         sessions=0)
+
+
+def _tiny_stream(Request, n, seed):
+    rng = np.random.default_rng(seed)
+    return [Request(f"t{i}", rng.integers(0, 256, int(rng.integers(2, 24)))
+                    .tolist(), max_new_tokens=8) for i in range(n)]
+
+
+def _per_replica_tokens_per_s(completions, wall):
+    out = {}
+    for c in completions:
+        key = str(c["replica"])
+        out[key] = out.get(key, 0) + len(c["tokens"])
+    return {k: v / wall for k, v in sorted(out.items())}
+
+
+def phase_serve_checkpoint(torch):
+    """GPT-2 125M trained one step through ``initialize`` (bf16 over fp32
+    masters), saved with ``save_checkpoint``, then served with ``serve
+    --checkpoint`` (ring layout, int8 KV, flash decode K5). The greedy
+    streams must equal those of an engine built straight from the
+    training engine's fp32 params, bit for bit."""
+    import tempfile
+
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.inference.engine import InferenceEngine
+    from deepspeed_tpu_torch.inference.scheduler import Request
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHead, gpt2_125m
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    train_cfg = gpt2_125m(use_flash_attention=True)
+    model = GPT2LMHead(train_cfg, device="cuda", generator=gen)
+    engine, _, _, _ = initialize(
+        model=model,
+        config={"train_batch_size": 2, "bf16": {"enabled": True},
+                "steps_per_print": 10 ** 9,
+                "optimizer": {"type": "Adam", "params": {"lr": 1e-4}}})
+    rng = np.random.default_rng(3)
+    loss = float(engine.train_batch(
+        {"input_ids": rng.integers(0, train_cfg.vocab_size, (2, 128))}))
+    params = {n: t.detach().float().clone()
+              for n, t in engine._checkpoint_state_tree()["params"].items()}
+    serve_cfg = {"max_batch": B, "seq_buckets": (128, 512),
+                 "prefill_chunk": 64, "kv_cache_dtype": "int8",
+                 "attention_impl": "flash"}
+    reqs = [Request(f"c{i}", rng.integers(0, train_cfg.vocab_size,
+                                          int(rng.integers(8, 120)))
+                    .tolist(), max_new_tokens=32) for i in range(8)]
+    with tempfile.TemporaryDirectory(prefix="serve_ckpt_") as root:
+        ckpt = os.path.join(root, "ckpt")
+        t0 = time.perf_counter()
+        engine.save_checkpoint(ckpt, tag="step1")
+        save_s = time.perf_counter() - t0
+        del engine, model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        def direct():
+            m = GPT2LMHead(gpt2_125m(dtype=torch.float32), device="cuda")
+            return InferenceEngine(m, params, config=serve_cfg,
+                                   device="cuda")
+
+        want = _one_engine_stream(torch, direct, reqs)
+        requests = os.path.join(root, "requests.jsonl")
+        with open(requests, "w") as f:
+            for r in reqs:
+                f.write(json.dumps({"rid": r.rid, "prompt": r.prompt,
+                                    "max_new_tokens": 32}) + "\n")
+        fd, fdp = _decode_counters()
+        t1 = time.perf_counter()
+        rc, out = _serve_cli(
+            ["--checkpoint", ckpt, "--n-head", str(train_cfg.n_head),
+             "--requests", requests, "--max-batch", str(B),
+             "--seq-buckets", "128,512", "--prefill-chunk", "64",
+             "--kv-cache-dtype", "int8", "--attention", "flash",
+             "--expect-compiles", "2"])
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t1
+        launches, paged = fd.launches, fdp.launches
+    got = _tokens(out["completions"])
+    row = {"phase": "serve_checkpoint", "model": "gpt2_125m",
+           "train_loss": loss, "checkpoint": out.get("checkpoint"),
+           "requests": len(reqs), "completed": len(got),
+           "streams_equal_training_params": got == want,
+           "decode_steps": out["decode_steps"],
+           "compile_counts": out["compile_counts"],
+           "kernel_launches": launches, "paged_kernel_launches": paged,
+           "save_s": save_s, "load_and_serve_s": serve_s, "exit": rc}
+    emit(row)
+    if rc != 0 or got != want:
+        fail(f"serve --checkpoint: exit {rc}; streams equal to the "
+             f"training params' engine: {got == want}")
+    if launches != N_LAYER * out["decode_steps"] or paged:
+        fail(f"serve --checkpoint launched K5 {launches} times over "
+             f"{out['decode_steps']} decode steps (expected {N_LAYER} a "
+             f"step) and K6 {paged} (expected 0)")
+    return row
+
+
+def phase_serve_fleet(torch):
+    """The fleet router over two thread replicas of GPT-2 125M in the
+    serving row's paged configuration (int8 KV, flash decode K6), one
+    killed mid-flight; then two ``fleet_worker.py`` processes at the
+    serve CLI's width (``gpt2_tiny``, flash decode K5) on the card, one
+    SIGKILLed at decode step 3. Every stream must equal the one-engine
+    stream of the same weights, bit for bit."""
+    import tempfile
+    import threading
+
+    from deepspeed_tpu_torch.inference import fleet
+    from deepspeed_tpu_torch.inference.engine import InferenceEngine
+    from deepspeed_tpu_torch.inference.router import FleetRouter
+    from deepspeed_tpu_torch.inference.scheduler import Request
+    from deepspeed_tpu_torch.inference.serve import seeded_tiny_model
+
+    torch.cuda.empty_cache()
+    vocab = 50257
+
+    def build():
+        return _engine(torch, "int8", "flash", kv_layout="paged")
+
+    want = _one_engine_stream(
+        torch, build, _fleet_stream(Request, vocab, FLEET_REQUESTS, 6))
+    # decode calls per replica: each launches K6 once a layer (a
+    # scheduler step that admits nothing runs no decode, so the
+    # replicas' step counts are not the measure)
+    steps = [0, 0]
+
+    def counted(index):
+        engine = build()
+        real = engine.decode
+
+        def decode(*a, **kw):
+            steps[index] += 1
+            if index == 0 and steps[0] == FLEET_KILL_AFTER:
+                reps[0].kill()
+            return real(*a, **kw)
+        engine.decode = decode
+        return engine
+
+    reps = [fleet.ThreadReplica(0, lambda: counted(0)),
+            fleet.ThreadReplica(1, lambda: counted(1))]
+    fd, fdp = _decode_counters()
+    for r in reps:
+        r.start()
+    t0 = time.perf_counter()
+    thread_router = FleetRouter(reps, backoff_base_s=0.0)
+    fr = thread_router.run(_fleet_stream(Request, vocab, FLEET_REQUESTS, 6),
+                           timeout_s=300.0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    thread_launches, thread_ring = fdp.launches, fd.launches
+    got = _tokens(fr.completions)
+    thread = {"replicas": fr.replicas, "replicas_dead": fr.replicas_dead,
+              "dead_causes": {str(k): v
+                              for k, v in thread_router.dead.items()},
+              "redispatched": fr.redispatched_total,
+              "latency_s": fr.latency_s, "wall_s": wall,
+              "tokens_per_s_per_replica": _per_replica_tokens_per_s(
+                  fr.completions, wall),
+              "streams_equal_one_engine": got == want,
+              "stats": fr.stats, "decode_calls": list(steps),
+              "kernel_launches": thread_launches,
+              "ring_kernel_launches": thread_ring}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the process fleet: two workers, replica 0 SIGKILLs itself
+    spec = {"inf_cfg": dict(TINY_SPEC), "seed": 0, "device": "cuda"}
+    want_tiny = _one_engine_stream(
+        torch, lambda: InferenceEngine(seeded_tiny_model(0, "cuda"),
+                                       config=dict(TINY_SPEC),
+                                       device="cuda"),
+        _tiny_stream(Request, 12, 7))
+    with tempfile.TemporaryDirectory(prefix="serve_fleet_") as workdir:
+        t1 = time.perf_counter()
+        procs = fleet.build_process_fleet(
+            2, spec, workdir, inject={"kill": {"op": "decode_step",
+                                               "at_step": 3}})
+        ready_s = time.perf_counter() - t1
+        t2 = time.perf_counter()
+        router = FleetRouter(procs, backoff_base_s=0.0)
+        try:
+            pr = router.run(_tiny_stream(Request, 12, 7), timeout_s=300.0)
+        finally:
+            for r in procs:
+                if r.proc.poll() is None:
+                    r.kill()
+                r.reap()
+        pwall = time.perf_counter() - t2
+    tiny_got = _tokens(pr.completions)
+    proc_launches = sum(st.get("launches", {}).get("flash_decode", 0)
+                        for st in pr.stats)
+    proc_steps = sum(st["steps"] for st in pr.stats)
+    process = {"replicas": pr.replicas, "replicas_dead": pr.replicas_dead,
+               "dead_causes": {str(k): v for k, v in router.dead.items()},
+               "redispatched": pr.redispatched_total,
+               "latency_s": pr.latency_s, "ready_s": ready_s,
+               "wall_s": pwall,
+               "tokens_per_s_per_replica": _per_replica_tokens_per_s(
+                   pr.completions, pwall),
+               "streams_equal_one_engine": tiny_got == want_tiny,
+               "stats": pr.stats, "decode_steps": proc_steps,
+               "kernel_launches": proc_launches}
+    row = {"phase": "serve_fleet", "thread_fleet": dict(
+        thread, model="gpt2_125m", kv_layout="paged",
+        kv_cache_dtype="int8", attention="flash"),
+        "process_fleet": dict(process, model="gpt2_tiny",
+                              inf_cfg=TINY_SPEC)}
+    emit(row)
+    for name, part, ok in (("thread", thread, fr.ok),
+                           ("process", process, pr.ok)):
+        if not ok or not part["streams_equal_one_engine"]:
+            fail(f"{name} fleet: ok {ok}, streams equal to one engine's: "
+                 f"{part['streams_equal_one_engine']}")
+        if part["replicas_dead"] != 1 or part["redispatched"] < 1:
+            fail(f"{name} fleet: {part['replicas_dead']} replicas died and "
+                 f"{part['redispatched']} requests were redispatched "
+                 f"(expected 1 and >= 1)")
+    if thread_launches != N_LAYER * sum(steps) or not thread_launches or \
+            thread_ring:
+        fail(f"the thread fleet launched K6 {thread_launches} times over "
+             f"{steps} decode calls (expected {N_LAYER} a call) and K5 "
+             f"{thread_ring} (expected 0)")
+    tiny_layers = _tiny_geometry(torch, "ring")[0].n_layer
+    if proc_launches != tiny_layers * proc_steps or not proc_launches:
+        fail(f"the surviving fleet worker launched K5 {proc_launches} "
+             f"times over {proc_steps} decode steps (expected "
+             f"{tiny_layers} a step)")
+    for st in fr.stats + pr.stats:
+        if st["compile_counts"] != {"prefill": 1, "decode": 1}:
+            fail(f"a surviving replica holds {st['compile_counts']}")
+    return row
+
+
+def phase_serve_disagg(torch):
+    """Disaggregated serving: ``DisaggCoordinator`` with the device store
+    at GPT-2 125M in the serving row's paged configuration (int8 KV,
+    flash decode K6 on the decode tier), then ``serve --disaggregate``
+    with a prefill and a decode process at the serve CLI's width and the
+    file store. Streams equal the colocated engine's; each tier holds
+    one program."""
+    import tempfile
+
+    from deepspeed_tpu_torch.inference.disagg import (
+        DecodeWorker, DeviceHandoffStore, DisaggCoordinator, PrefillWorker)
+    from deepspeed_tpu_torch.inference.fleet import TierThreadReplica
+    from deepspeed_tpu_torch.inference.router import DisaggRouter
+    from deepspeed_tpu_torch.inference.scheduler import Request
+
+    class TimedStore(DeviceHandoffStore):
+        """The device store with each park and install timed on the
+        card (synchronized at both ends)."""
+
+        def __init__(self):
+            super().__init__()
+            self.park_s, self.install_s = [], []
+
+        def _timed(self, out, fn, *args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = fn(*args)
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+            return got
+
+        def park(self, rid, engine, page_ids, meta):
+            return self._timed(self.park_s, super().park, rid, engine,
+                               page_ids, meta)
+
+        def install(self, rid, engine, page_ids):
+            return self._timed(self.install_s, super().install, rid,
+                               engine, page_ids)
+
+    torch.cuda.empty_cache()
+    vocab = 50257
+
+    def build(**extra):
+        return _engine(torch, "int8", "flash", kv_layout="paged", **extra)
+
+    want = _one_engine_stream(
+        torch, build, _fleet_stream(Request, vocab, FLEET_REQUESTS, 8))
+    store = TimedStore()
+    coord = DisaggCoordinator([build(tier="prefill")],
+                              [build(tier="decode")], store=store)
+    fd, fdp = _decode_counters()
+    t0 = time.perf_counter()
+    comps = coord.run(_fleet_stream(Request, vocab, FLEET_REQUESTS, 8))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, ring = fdp.launches, fd.launches
+    stats = coord.tier_stats()
+    decode_steps = sum(w["steps"] for w in stats["decode"]["per_worker"])
+    got = _tokens(comps)
+    coordinator = {
+        "model": "gpt2_125m", "kv_layout": "paged",
+        "kv_cache_dtype": "int8", "attention": "flash",
+        "requests": FLEET_REQUESTS, "completed": len(comps),
+        "streams_equal_colocated": got == want, "wall_s": wall,
+        "handoffs": stats["handoffs"],
+        "handoff_bytes": stats["handoff_bytes"],
+        "handoff_bytes_per_session": stats["handoff_bytes_per_session"],
+        "park_ms_p50": _percentile(store.park_s, 0.5) * 1e3,
+        "install_ms_p50": _percentile(store.install_s, 0.5) * 1e3,
+        "handoff_ms_per_request": (sum(store.park_s) + sum(
+            store.install_s)) / max(stats["handoffs"], 1) * 1e3,
+        "compile_counts": {"prefill": stats["prefill"]["compile_counts"],
+                           "decode": stats["decode"]["compile_counts"]},
+        "decode_steps": decode_steps, "kernel_launches": launches,
+        "ring_kernel_launches": ring}
+    del coord, store
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # thread tiers: the router over a prefill and a decode tier thread,
+    # each on a CUDA stream of its own, so every handoff's copy is queued
+    # on the prefill stream and its install on the decode stream
+    tstore = DeviceHandoffStore()
+    decode_calls = [0]
+
+    def counted_decode():
+        engine = build(tier="decode")
+        real = engine.decode
+
+        def decode(*a, **kw):
+            decode_calls[0] += 1
+            return real(*a, **kw)
+        engine.decode = decode
+        return DecodeWorker(engine, tstore)
+
+    tiers = [TierThreadReplica(
+        0, lambda: PrefillWorker(build(tier="prefill"), tstore)),
+        TierThreadReplica(1, counted_decode)]
+    fd, fdp = _decode_counters()
+    for r in tiers:
+        r.start()
+    t2 = time.perf_counter()
+    tr = DisaggRouter(tiers[:1], tiers[1:], tstore).run(
+        _fleet_stream(Request, vocab, FLEET_REQUESTS, 8), timeout_s=300.0)
+    torch.cuda.synchronize()
+    twall = time.perf_counter() - t2
+    thread = {
+        "model": "gpt2_125m", "ok": tr.ok, "completed": len(tr.completions),
+        "streams_equal_colocated": _tokens(tr.completions) == want,
+        "wall_s": twall, "handoffs": tr.handoffs,
+        "handoff_bytes": tr.handoff_bytes, "ttft_s": tr.ttft_s,
+        "latency_s": tr.latency_s,
+        "tiers": {st["tier"]: st["compile_counts"] for st in tr.stats},
+        "decode_calls": decode_calls[0], "kernel_launches": fdp.launches,
+        "ring_kernel_launches": fd.launches}
+    del tiers, tstore
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    base = ["--synthetic", "8", "--max-new", "8", "--seed", "9",
+            "--kv-layout", "paged", "--attention", "flash"]
+    _, colocated = _serve_cli(base)
+    with tempfile.TemporaryDirectory(prefix="serve_disagg_") as workdir:
+        t1 = time.perf_counter()
+        rc, tiers = _serve_cli(base + ["--disaggregate", "--workdir",
+                                       workdir, "--expect-compiles", "2"])
+        pwall = time.perf_counter() - t1
+    dg = tiers["disagg"]
+    proc_launches = sum(st.get("launches", {}).get("flash_decode_paged", 0)
+                        for st in dg["stats"])
+    proc_steps = sum(st["steps"] for st in dg["stats"]
+                     if st["tier"] == "decode")
+    process = {
+        "model": "gpt2_tiny", "exit": rc,
+        "streams_equal_colocated": _tokens(tiers["completions"])
+        == _tokens(colocated["completions"]),
+        "handoffs": dg["handoffs"], "handoff_bytes": dg["handoff_bytes"],
+        "handoff_bytes_per_session": dg["handoff_bytes_per_session"],
+        "ttft_s": dg["ttft_s"], "latency_s": dg["latency_s"],
+        "total_compiles": dg["total_compiles"], "wall_s": pwall,
+        "tiers": {st["tier"]: st["compile_counts"] for st in dg["stats"]},
+        "decode_steps": proc_steps, "kernel_launches": proc_launches}
+    row = {"phase": "serve_disagg", "coordinator": coordinator,
+           "thread_tiers": thread, "process_tiers": process}
+    emit(row)
+    pins = {"prefill": {"prefill": 1, "decode": 0},
+            "decode": {"prefill": 0, "decode": 1}}
+    if not coordinator["streams_equal_colocated"] or \
+            len(comps) != FLEET_REQUESTS:
+        fail("disaggregated 125M streams differ from the colocated "
+             "engine's")
+    if not thread["ok"] or not thread["streams_equal_colocated"] or \
+            thread["completed"] != FLEET_REQUESTS:
+        fail("disaggregated 125M thread tiers: streams differ from the "
+             "colocated engine's")
+    if coordinator["compile_counts"] != pins or process["tiers"] != pins \
+            or thread["tiers"] != pins:
+        fail(f"tier program pins: coordinator "
+             f"{coordinator['compile_counts']}, thread {thread['tiers']}, "
+             f"process {process['tiers']}")
+    if launches != N_LAYER * decode_steps or not launches or ring:
+        fail(f"the decode tier launched K6 {launches} times over "
+             f"{decode_steps} steps (expected {N_LAYER} a step), K5 {ring}")
+    if thread["kernel_launches"] != N_LAYER * thread["decode_calls"] or \
+            not thread["kernel_launches"] or thread["ring_kernel_launches"]:
+        fail(f"the decode tier thread launched K6 "
+             f"{thread['kernel_launches']} times over "
+             f"{thread['decode_calls']} decode calls (expected {N_LAYER} a "
+             f"call), K5 {thread['ring_kernel_launches']}")
+    tiny_layers = _tiny_geometry(torch, "paged")[0].n_layer
+    if rc != 0 or not process["streams_equal_colocated"] or \
+            proc_launches != tiny_layers * proc_steps or not proc_launches:
+        fail(f"serve --disaggregate: exit {rc}, streams equal "
+             f"{process['streams_equal_colocated']}, K6 launches "
+             f"{proc_launches} over {proc_steps} decode steps (expected "
+             f"{tiny_layers} a step)")
     return row
 
 
@@ -2279,12 +2877,14 @@ def _sparse_layouts(sc, block, t, heads):
 
 
 def _sparse_case(torch, bsa, b, t, h, d, dtype, block, layout, causal, rate,
-                 gen):
-    """K7, K8a and K8b against their plain versions on one input set."""
+                 gen, head_offset=0):
+    """K7, K8a and K8b against their plain versions on one input set
+    (``head_offset``: the dropout hash's, as a data-parallel rank's)."""
     q, k, v, g, _ = _attn_inputs(torch, b, t, h, d, getattr(torch, dtype),
                                  False, gen)
     lut, nnz, lut_t, nnz_t = bsa.layout_tables(layout, "cuda")
-    kw = dict(causal=causal, dropout_rate=rate, dropout_seed=SPARSE_SEED)
+    kw = dict(causal=causal, dropout_rate=rate, dropout_seed=SPARSE_SEED,
+              dropout_head_offset=head_offset)
     out, lse = bsa.block_sparse_attention_fwd(q, k, v, lut, nnz, block, **kw)
     ref_out, ref_lse = bsa.block_sparse_attention_fwd_reference(
         q, k, v, lut, nnz, block, **kw)
@@ -2311,7 +2911,7 @@ def _sparse_case(torch, bsa, b, t, h, d, dtype, block, layout, causal, rate,
               "dk": _close(torch, dk, ref_dk, rtol),
               "dv": _close(torch, dv, ref_dv, rtol)}
     return {"B": b, "T": t, "H": h, "D": d, "dtype": dtype, "block": block,
-            "causal": causal, "dropout": rate,
+            "causal": causal, "dropout": rate, "head_offset": head_offset,
             "density": float(np.asarray(layout).mean()),
             "empty_rows": int(empty.any(-1).sum()),
             "max_abs_err": {n: c[0] for n, c in checks.items()},
@@ -2342,11 +2942,13 @@ def _sparse_dropout_bitwise(torch, bsa, sc):
             lut, nnz, _, _ = bsa.layout_tables(layout, "cuda")
             allowed = torch.from_numpy(layout != 0).cuda().float() \
                 .repeat_interleave(block, 1).repeat_interleave(block, 2)
-            for seed, rate in ((SPARSE_SEED, 0.1), (7, 0.5)):
+            for seed, rate, off in ((SPARSE_SEED, 0.1, 0), (7, 0.5, 0),
+                                    (SPARSE_SEED, 0.1, 3 * b * h)):
                 out, _ = bsa.block_sparse_attention_fwd(
                     q, q, v, lut, nnz, block, dropout_rate=rate,
-                    dropout_seed=seed)
+                    dropout_seed=seed, dropout_head_offset=off)
                 mult = _dropout_multiplier_full(b, h, t, t, rate, seed,
+                                                head_offset=off,
                                                 device="cuda")
                 ok = ok and bool(torch.equal(out.permute(0, 2, 1, 3) * n,
                                              mult * allowed[None]))
@@ -2439,6 +3041,20 @@ def phase_sparse_kernel_check(torch):
                             BERT_BLOCK, layout, False, 0.1, gen)
         case["layout"] = "bert_bench"
         cases.append(case)
+    # a data-parallel rank's rows: the same shape at rank 1 of 2 and rank
+    # 3 of 4 (the dropout hash's head coordinate starts at r * B * H),
+    # the only place one card shows the offset (NCCL refuses two ranks
+    # on one device)
+    offset_cases = []
+    for rank, dtype in ((1, "float32"), (3, "bfloat16")):
+        for causal in (False, True):
+            lay = _bert_sparsity(sc, causal).make_layout(BERT_T)
+            case = _sparse_case(torch, bsa, 4, BERT_T, BERT_H, BERT_D, dtype,
+                                BERT_BLOCK, lay, causal, 0.1, gen,
+                                head_offset=rank * 4 * BERT_H)
+            case["layout"] = "bert_bench_rank"
+            offset_cases.append(case)
+    cases.extend(offset_cases)
     for case in cases:
         if not case["ok"]:
             emit({"phase": "sparse_kernel_check", "failed": case})
@@ -2454,6 +3070,13 @@ def phase_sparse_kernel_check(torch):
                    for c in cases)}
     emit({"phase": "sparse_kernel_check", "cases": len(cases),
           "empty_row_cases": sum(c["empty_rows"] > 0 for c in cases),
+          "head_offset_cases": len(offset_cases),
+          "head_offset_max_abs_err": {
+              "K7": max(max(c["max_abs_err"]["out"], c["max_abs_err"]["lse"])
+                        for c in offset_cases),
+              "K8a": max(c["max_abs_err"]["dq"] for c in offset_cases),
+              "K8b": max(max(c["max_abs_err"]["dk"], c["max_abs_err"]["dv"])
+                         for c in offset_cases)},
           "dropout_mask_bitwise": bitwise,
           "dense_layout_vs_k1_max_abs_err": k1_err,
           "dense_layout_vs_k1_ok": k1_ok, "max_abs_err": errs,
@@ -3569,6 +4192,10 @@ def main(argv=None):
     parser.add_argument("--zero-only", action="store_true",
                         help="device, build, then only the train_zero "
                              "phase")
+    parser.add_argument("--serving-only", action="store_true",
+                        help="device, build, the decode and sparse "
+                             "kernel checks, then only the checkpoint, "
+                             "fleet and disaggregated serving phases")
     args = parser.parse_args(argv)
 
     import torch
@@ -3606,6 +4233,20 @@ def main(argv=None):
         phase_train_zero(torch)
         print(smi, flush=True)
         return 0
+    if args.serving_only:
+        phase_kernel_check(torch)
+        phase_paged_kernel_check(torch)
+        phase_sparse_kernel_check(torch)
+        lap("sparse_kernel_check")
+        phase_serve_checkpoint(torch)
+        lap("serve_checkpoint")
+        phase_serve_fleet(torch)
+        lap("serve_fleet")
+        phase_serve_disagg(torch)
+        lap("serve_disagg")
+        emit({"phase": "walls", "seconds": walls})
+        print(smi, flush=True)
+        return 0
     if args.offload_only:
         _, host_op = phase_train_offload(torch)
         phase_train_dense_yardstick(torch)
@@ -3625,6 +4266,13 @@ def main(argv=None):
     serves = [phase_serve(torch, kv) for kv in (None, "int8")]
     paged_serves = [phase_serve_paged(torch, kv) for kv in (None, "int8")]
     speculative = phase_serve_speculative(torch)
+    lap("until_serve_checkpoint")
+    checkpoint = phase_serve_checkpoint(torch)
+    lap("serve_checkpoint")
+    fleet_row = phase_serve_fleet(torch)
+    lap("serve_fleet")
+    disagg = phase_serve_disagg(torch)
+    lap("serve_disagg")
     train_timing = phase_train_kernel_timing(torch)
     train = phase_train(torch)
     lap("until_train")
@@ -3646,7 +4294,13 @@ def main(argv=None):
         "name": "flash_decode", "route": "cuda",
         "source": "deepspeed_tpu_torch/ops/csrc/flash_decode.cu",
         "replaces": "deepspeed_tpu/ops/pallas/flash_decode.py:193",
-        "launches": sum(s["kernel_launches"] for s in serves),
+        "launches": sum(s["kernel_launches"] for s in serves)
+        + checkpoint["kernel_launches"]
+        + fleet_row["process_fleet"]["kernel_launches"],
+        "serve_launches": sum(s["kernel_launches"] for s in serves),
+        "checkpoint_launches": checkpoint["kernel_launches"],
+        "process_fleet_launches":
+            fleet_row["process_fleet"]["kernel_launches"],
         "max_abs_err": worst, "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"]}]
@@ -3656,7 +4310,18 @@ def main(argv=None):
         "source": "deepspeed_tpu_torch/ops/csrc/flash_decode.cu",
         "replaces": "deepspeed_tpu/ops/pallas/flash_decode.py:269",
         "launches": sum(s["kernel_launches"] for s in paged_serves)
+        + speculative["kernel_launches"]
+        + fleet_row["thread_fleet"]["kernel_launches"]
+        + disagg["coordinator"]["kernel_launches"]
+        + disagg["thread_tiers"]["kernel_launches"]
+        + disagg["process_tiers"]["kernel_launches"],
+        "serve_launches": sum(s["kernel_launches"] for s in paged_serves)
         + speculative["kernel_launches"],
+        "thread_fleet_launches": fleet_row["thread_fleet"]["kernel_launches"],
+        "disagg_launches": disagg["coordinator"]["kernel_launches"],
+        "thread_tier_launches": disagg["thread_tiers"]["kernel_launches"],
+        "process_tier_launches":
+            disagg["process_tiers"]["kernel_launches"],
         "max_abs_err": paged_worst, "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"]})

@@ -1,5 +1,5 @@
 """PyTorch serving engine (ring or paged KV cache, flash decode,
-self-speculative decoding).
+self-speculative decoding, a replica fleet, disaggregated tiers).
 
 - :mod:`.cache` — ring-buffer KV cache and the paged pool, optionally
   stored int8/fp8.
@@ -10,6 +10,13 @@ self-speculative decoding).
 - :mod:`.speculative` — the draft and verify programs.
 - :mod:`.scheduler` — continuous batching over an open-loop queue,
   emitting ``decode_step`` telemetry events.
+- :mod:`.router` / :mod:`.fleet` / :mod:`.fleet_worker` — multi-replica
+  serving: an admission router owning the global queue in front of N
+  replicas (worker processes or in-process threads), with heartbeat
+  health checks, dead-replica drain and redispatch, deadlines and
+  backpressure.
+- :mod:`.disagg` — disaggregated serving: prefill and decode tiers and
+  the KV handoff between them.
 - :mod:`.serve` — the serve CLI
   (``python -m deepspeed_tpu_torch.inference.serve``).
 """
@@ -22,6 +29,17 @@ from deepspeed_tpu_torch.inference.cache import (
     spec_for_model,
 )
 from deepspeed_tpu_torch.inference.engine import InferenceEngine
+from deepspeed_tpu_torch.inference.fleet import (
+    ProcessReplica,
+    ThreadReplica,
+    build_process_fleet,
+)
+from deepspeed_tpu_torch.inference.paging import HostPageCorruptError
+from deepspeed_tpu_torch.inference.router import (
+    FleetResult,
+    FleetRouter,
+    RequestAbortedError,
+)
 from deepspeed_tpu_torch.inference.scheduler import (
     Completion,
     ContinuousBatchingScheduler,
@@ -30,4 +48,7 @@ from deepspeed_tpu_torch.inference.scheduler import (
 
 __all__ = ["KVCacheSpec", "cache_dtype_census", "init_kv_cache",
            "kv_cache_nbytes", "spec_for_model", "InferenceEngine",
-           "Completion", "ContinuousBatchingScheduler", "Request"]
+           "ProcessReplica", "ThreadReplica", "build_process_fleet",
+           "HostPageCorruptError", "FleetResult", "FleetRouter",
+           "RequestAbortedError", "Completion",
+           "ContinuousBatchingScheduler", "Request"]

@@ -25,6 +25,11 @@ speculative`` block hangs a draft/verify pair off the engine
 (`inference/speculative.py`): the contract is then 3 programs and the
 plain decode program runs 0 times.
 
+``inference.tier`` ("prefill" or "decode", paged only) pins a
+disaggregated tier's engine to one of the two programs
+(``inference/disagg.py``); :meth:`gather_pages_device` snapshots pages
+for the in-process KV handoff.
+
 The engine runs on ``device`` (default: the GPU, raising when there is
 none); the KV cache is updated in place.
 """
@@ -112,9 +117,21 @@ class InferenceEngine:
         self.prefix_cache = bool(_cfg_get(config, "prefix_cache", True))
         self.host_park_threshold = float(_cfg_get(
             config, "host_park_threshold", DEFAULT_HOST_PARK_THRESHOLD))
-        if _cfg_get(config, "tier", None):
-            raise ValueError("inference.tier is not yet ported "
-                             "(disaggregated serving)")
+        # disaggregated serving: a tiered engine runs one of the two
+        # programs, "prefill" writes paged KV and never decodes,
+        # "decode" resumes handed-off pages and never prefills; calling
+        # the other program raises, so each tier's compile_counts()
+        # holds one entry and the other stays at zero
+        tier = _cfg_get(config, "tier", None)
+        self.tier = str(tier) if tier else None
+        if self.tier not in (None, "prefill", "decode"):
+            raise ValueError(
+                f"inference tier must be 'prefill' or 'decode', got "
+                f"{self.tier!r}")
+        if self.tier is not None and self.kv_layout != "paged":
+            raise ValueError(
+                "tiered (disaggregated) engines require kv_layout="
+                "'paged' — the KV handoff is a page copy")
         if self.attention_impl not in ("dense", "flash"):
             raise ValueError(
                 f"inference.attention.impl must be 'dense' or 'flash', "
@@ -202,6 +219,11 @@ class InferenceEngine:
         from deepspeed_tpu_torch.inference.speculative import (
             build_speculative)
         self.speculative = build_speculative(self, config)
+        if self.tier is not None and self.speculative is not None:
+            raise ValueError(
+                "inference.speculative cannot combine with a tiered "
+                "(disaggregated) engine — the draft/verify pair would "
+                "break the one-program-per-tier contract")
 
     # -- the two programs ---------------------------------------------------
 
@@ -259,6 +281,10 @@ class InferenceEngine:
         session's frontier. Every chunk has the same ``[1,
         prefill_chunk]`` shape, so the skipped span's KV is the bytes a
         cold prefill would have written."""
+        if self.tier == "decode":
+            raise RuntimeError(
+                "decode-tier engine: the prefill program is pinned off "
+                "— prefill belongs to the prefill tier")
         n = len(prompt)
         if not 0 < n <= self.max_seq:
             raise ValueError(
@@ -304,6 +330,10 @@ class InferenceEngine:
         Paged layout also takes the ``[max_batch, pages_per_row]`` page
         tables (inactive rows all zeros: their garbage token lands on
         the trash page)."""
+        if self.tier == "prefill":
+            raise RuntimeError(
+                "prefill-tier engine: the decode program is pinned off "
+                "— decode belongs to the decode tier")
         pt = None
         if self.kv_layout == "paged":
             if page_tables is None:
@@ -334,17 +364,33 @@ class InferenceEngine:
                 out[name][key] = g.cpu().numpy().copy()
         return out
 
+    def gather_pages_device(self, page_ids):
+        """Like :meth:`gather_pages` but the snapshot stays on the
+        device: the same nested dict of fresh tensors, never a host
+        round trip (JAX ``engine.py:447``). This is the in-process
+        disaggregated handoff's source half: the decode tier scatters
+        these tensors straight into its own pool (:meth:`scatter_pages`
+        takes device values), so the prefill-to-decode page copy is
+        device to device. ``index_select`` copies: the snapshot is never
+        a view of the pool, which the next prefill writes in place."""
+        ids = self._tensor(page_ids).long()
+        return {name: {key: leaf.index_select(0, ids)
+                       for key, leaf in layer.items()}
+                for name, layer in self.cache.items()}
+
     def scatter_pages(self, page_ids, host_pages):
-        """Inverse of :meth:`gather_pages`: write a host page snapshot
-        back into (freshly allocated) physical pages — the resume half
-        of the host tier."""
+        """Inverse of :meth:`gather_pages` / :meth:`gather_pages_device`:
+        write a page snapshot (numpy, or tensors on any device) back
+        into (freshly allocated) physical pages — the resume half of
+        the host tier and the install half of a KV handoff."""
         ids = self._tensor(page_ids).long()
         for name, layer in self.cache.items():
             for key, leaf in layer.items():
-                vals = torch.from_numpy(
-                    np.ascontiguousarray(host_pages[name][key])).to(
-                        self.device)
-                if leaf.dtype in _HOST_VIEW:
+                vals = host_pages[name][key]
+                if not torch.is_tensor(vals):
+                    vals = torch.from_numpy(np.ascontiguousarray(vals))
+                vals = vals.to(self.device)
+                if leaf.dtype in _HOST_VIEW and vals.dtype != leaf.dtype:
                     vals = vals.view(leaf.dtype)
                 leaf.index_copy_(0, ids, vals.to(leaf.dtype))
 
@@ -389,6 +435,8 @@ class InferenceEngine:
         if self.kv_layout == "paged":
             facts.update(page_size=self.page_size, n_pages=self.n_pages,
                          pages_per_row=self.pages_per_row)
+        if self.tier is not None:
+            facts["tier"] = self.tier
         if self.speculative is not None:
             facts["speculative"] = self.speculative.facts()
         return facts

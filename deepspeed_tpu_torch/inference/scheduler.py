@@ -46,8 +46,11 @@ class Request:
     session resumes without re-prefilling its history. ``deadline_s``
     bounds the request's total wall clock from first submit,
     ``queue_timeout_s`` its wait for a cache row — either expiry
-    finishes it with the ``timeout`` reason. ``submit_t`` is the
-    monotonic clock at submit."""
+    finishes it with the ``timeout`` reason. ``redispatched`` /
+    ``restarts`` are stamped by the fleet router when a replica death
+    forces a re-prefill elsewhere; ``submit_t`` is the monotonic clock at
+    first submit and survives redispatch, so the deadline spans
+    retries."""
     rid: str
     prompt: List[int]
     max_new_tokens: int = 16
@@ -56,6 +59,8 @@ class Request:
     session_id: Optional[str] = None
     deadline_s: Optional[float] = None
     queue_timeout_s: Optional[float] = None
+    redispatched: int = 0       # replica-death redispatches (router)
+    restarts: int = 0           # total re-executions (router)
     submit_t: Optional[float] = None
 
 
@@ -73,6 +78,8 @@ class Completion:
     resumed: bool = False       # admitted by resuming a parked session
     prefill_chunks: int = 0     # prefill chunks actually run
     prefill_chunks_skipped: int = 0
+    redispatched: int = 0       # times redispatched across replicas
+    restarts: int = 0           # times its execution restarted
 
 
 @dataclasses.dataclass
@@ -95,7 +102,7 @@ class ContinuousBatchingScheduler:
         self.step_count = 0
         self.completions = []
         self.paging = None
-        if engine.kv_layout == "paged":
+        if getattr(engine, "kv_layout", "ring") == "paged":
             from deepspeed_tpu_torch.inference.paging import (
                 PagedCacheManager)
             self.paging = PagedCacheManager(engine, session=self.session)
@@ -117,6 +124,34 @@ class ContinuousBatchingScheduler:
             request.submit_t = time.monotonic()
         self.queue.append(request)
 
+    def admit_prefilled(self, request, row, first_token):
+        """Seed a slot from another tier's finished prefill
+        (disaggregated serving, JAX ``scheduler.py:133``): the prompt's
+        KV already sits in this engine's pool on ``row``'s pages
+        (installed by the KV handoff) and ``first_token`` was sampled
+        from the prefill tier's logits, so admission here runs no
+        prefill. Returns False when no slot is free (the caller keeps
+        the handoff queued)."""
+        for i in range(len(self.slots)):
+            if self.slots[i] is not None:
+                continue
+            if request.submit_t is None:
+                request.submit_t = time.monotonic()
+            self.slots[i] = _Slot(
+                request=request, bucket=self._bucket_for(request),
+                next_pos=len(request.prompt), pending=first_token,
+                generated=[first_token],
+                admitted_step=self.step_count, paging=row)
+            # eos / single-token budgets can finish right here, where
+            # the colocated loop's post-admission check fires
+            self._check_finished(i)
+            return True
+        return False
+
+    def occupancy(self):
+        live = sum(1 for s in self.slots if s is not None)
+        return live / float(self.engine.max_batch)
+
     def _bucket_for(self, request):
         need = len(request.prompt) + request.max_new_tokens
         for b in self.engine.seq_buckets:
@@ -129,7 +164,9 @@ class ContinuousBatchingScheduler:
         comp = Completion(
             rid=s.request.rid, prompt_len=len(s.request.prompt),
             tokens=list(s.generated), finish_reason=reason, bucket=s.bucket,
-            slot=i, steps=self.step_count - s.admitted_step)
+            slot=i, steps=self.step_count - s.admitted_step,
+            redispatched=s.request.redispatched,
+            restarts=s.request.restarts)
         if s.paging is not None:
             comp.prefix_hit = s.paging.prefix_hit
             comp.resumed = s.paging.resumed
@@ -149,7 +186,8 @@ class ContinuousBatchingScheduler:
         self.completions.append(Completion(
             rid=request.rid, prompt_len=len(request.prompt), tokens=[],
             finish_reason=reason, bucket=self._bucket_for(request),
-            slot=-1, steps=0))
+            slot=-1, steps=0, redispatched=request.redispatched,
+            restarts=request.restarts))
 
     def _check_finished(self, i):
         s = self.slots[i]
@@ -255,8 +293,9 @@ class ContinuousBatchingScheduler:
         (:meth:`_spec_step`)."""
         self._expire()
         self._admit()
-        if self.engine.speculative is not None:
-            return self._spec_step(self.engine.speculative)
+        spec = getattr(self.engine, "speculative", None)
+        if spec is not None:
+            return self._spec_step(spec)
         if self.paging is not None:
             # grow each live row's mapping to cover this step's write
             # BEFORE building the tables; a row the pool can't grow even
@@ -274,8 +313,11 @@ class ContinuousBatchingScheduler:
         fault_injection.maybe_kill("decode_step", self.step_count)
         fault_injection.maybe_fail_decode(self.step_count)
         t0 = time.perf_counter()
-        next_tokens, _ = self.engine.decode(tokens, positions,
-                                            page_tables=page_tables)
+        if page_tables is None:
+            next_tokens, _ = self.engine.decode(tokens, positions)
+        else:
+            next_tokens, _ = self.engine.decode(tokens, positions,
+                                                page_tables=page_tables)
         wall = time.perf_counter() - t0
         self.step_count += 1
         for i in active:

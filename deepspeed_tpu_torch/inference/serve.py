@@ -1,6 +1,6 @@
-"""Serve CLI of the port: the single-replica ring, paged and
-speculative paths of ``ds_tpu_serve`` (``deepspeed_tpu/inference/
-serve.py``).
+"""Serve CLI of the port: ``ds_tpu_serve`` (``deepspeed_tpu/inference/
+serve.py``) over the ring, paged and speculative engine, a checkpoint,
+a config file, the replica fleet and disaggregated tiers.
 
     python -m deepspeed_tpu_torch.inference.serve --synthetic 8
     python -m deepspeed_tpu_torch.inference.serve --requests stream.jsonl
@@ -10,13 +10,36 @@ serve.py``).
         --kv-layout paged --shared-prefix 12 --expect-prefix-hits 1
     python -m deepspeed_tpu_torch.inference.serve --synthetic 6 \
         --speculative --spec-k 3 --draft-layers 1 --expect-compiles 3
+    python -m deepspeed_tpu_torch.inference.serve --synthetic 4 \
+        --config ds_config.json              # the config's inference block
+    python -m deepspeed_tpu_torch.inference.serve --synthetic 4 \
+        --checkpoint ckpts/run1 --n-head 12  # a training checkpoint
+    python -m deepspeed_tpu_torch.inference.serve --synthetic 8 \
+        --replicas 2 --kill-replica 0 --kill-at-step 3 \
+        --expect-redispatch 1                # fleet with a SIGKILL
+    python -m deepspeed_tpu_torch.inference.serve --synthetic 8 \
+        --kv-layout paged --disaggregate --expect-compiles 2
 
-The model is the test-size GPT-2 with seeded random params — the CLI
-exercises and measures the serving engine, it does not ship
-checkpoints. A request line is ``{"rid": "r0", "prompt": [1, 2, 3],
-"max_new_tokens": 8, "eos_id": null, "arrival_step": 0}`` (only
-``prompt`` required; a ``session_id`` parks the request's KV pages on
-a paged engine).
+The model is the test-size GPT-2 with seeded random params
+(:func:`seeded_tiny_model`), or with ``--checkpoint`` the fp32 master
+params of a checkpoint the port's training engine saved
+(``runtime/resilience/checkpoint.py``; ``params`` keyed by
+``GPT2LMHead`` state-dict names), its geometry read off the leaf
+shapes and ``--n-head``. A request line is ``{"rid": "r0", "prompt":
+[1, 2, 3], "max_new_tokens": 8, "eos_id": null, "arrival_step": 0}``
+(only ``prompt`` required; a ``session_id`` parks the request's KV
+pages on a paged engine).
+
+``--config`` reads a DeepSpeed JSON config's ``inference`` block
+(:class:`~deepspeed_tpu_torch.runtime.config.InferenceConfig`, with the
+JAX package's checks); flags override it. ``--replicas N`` (N >= 2)
+serves through the fleet router (``inference/fleet.py``,
+``router.py``): process replicas (``fleet_worker.py``, one CUDA context
+each) or threads (``--replica-backend thread``, one CUDA stream each).
+``--disaggregate`` splits serving into a prefill tier and a decode
+tier (``inference/disagg.py``) whose KV pages hand off through a
+CRC-stamped file store (processes) or device-to-device (threads).
+Every worker runs on ``--device``.
 
 ``--device`` picks where it runs: CUDA by default (no GPU is an
 error, exit 2), ``--device cpu`` on the host. ``--expect-compiles N``
@@ -27,9 +50,11 @@ prefill, draft, verify, with the plain decode program at 0).
 (speculative) add their own gates. ``--jsonl`` writes telemetry events
 for ``ds_tpu_metrics summary`` serve mode.
 
-The JAX CLI's fleet (``--replicas`` > 1), disaggregated, ``--config``,
-``--checkpoint`` and ``--scan-layers`` routes are not ported yet: they
-exit 2 with "not yet ported".
+``--expect-compiles`` applies per surviving replica with
+``--replicas``, and counts distinct programs across the tiers with
+``--disaggregate`` (2). ``--expect-redispatch N`` gates on the fleet
+recovering. The JAX CLI's ``--scan-layers`` route is not ported yet
+(``ROADMAP.md`` section 1, item 3): it exits 2 with "not yet ported".
 
 Exit codes: 0 ok, 1 contract violation or unfinished requests,
 2 usage errors.
@@ -85,8 +110,479 @@ def _build_requests(args, vocab_size, max_seq):
 
 
 # routes of the JAX CLI that this port does not have yet
-_NOT_PORTED = ("config", "scan_layers", "checkpoint", "replicas",
-               "disaggregate")
+_NOT_PORTED = ("scan_layers",)
+
+# gpt2_tiny's test vocab: the synthetic stream only needs the token
+# range, so fleet and tier modes build no model in the parent
+_TINY_VOCAB = 256
+
+
+def seeded_tiny_model(seed, device):
+    """The CLI's model: ``gpt2_tiny`` at n_embd 32 in f32, params drawn
+    on ``device`` from a ``torch.Generator`` seeded with ``seed``. Fleet
+    workers and tier replicas build theirs the same way, so every
+    replica serves the same weights."""
+    import torch
+
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHead, gpt2_tiny
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    return GPT2LMHead(gpt2_tiny(n_embd=32, dtype=torch.float32),
+                      device=device, generator=gen)
+
+
+def load_checkpoint_model(path, n_head, tag=None):
+    """A :class:`GPT2LMHead` holding a training checkpoint's fp32 master
+    params (JAX ``_load_checkpoint_model``, ``serve.py:134``):
+    ``(model, info)``. The geometry comes from the leaf shapes (vocab
+    and width from ``wte``, positions from ``wpe``, depth from the
+    ``h.<i>.`` names) and ``n_head``; the manifest's ``topology`` is
+    reported. The model is built on the host: the serving engine moves
+    it to its device. Raises ``ValueError`` for a missing checkpoint,
+    one with no ``params``, or a head count that does not divide the
+    width."""
+    import re
+
+    import torch
+
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from deepspeed_tpu_torch.runtime.resilience.checkpoint import (
+        CheckpointCorruptError,
+        CheckpointManager,
+    )
+
+    mgr = CheckpointManager()
+    try:
+        tag = mgr.resolve_tag(path, tag)
+        if tag is None:
+            raise ValueError(f"no valid checkpoint under {path}")
+        state, _, ckpt = mgr.load(path, tag)
+    except CheckpointCorruptError as e:
+        raise ValueError(str(e)) from e
+    if "params" not in state:
+        raise ValueError(f"checkpoint {ckpt} carries no 'params'")
+    topo = mgr.validate(ckpt).get("topology") or {}
+    saved_tp = int((topo.get("mesh_shape") or {}).get("model", 1) or 1)
+    if saved_tp > 1:
+        print(f"note: checkpoint {tag} was saved on a model-parallel "
+              f"mesh (model axis {saved_tp}); if its leaves were "
+              f"persisted sharded, relayout before serving",
+              file=sys.stderr)
+    params = {k: torch.as_tensor(np.asarray(v, np.float32)
+                                 if not torch.is_tensor(v) else v.float())
+              for k, v in state["params"].items()}
+    wte, wpe = params["wte"], params["wpe"]
+    n_layer = len({int(m.group(1)) for k in params
+                   for m in [re.match(r"^h\.(\d+)\.", k)] if m})
+    n_embd = int(wte.shape[1])
+    if n_embd % n_head:
+        raise ValueError(f"--n-head {n_head} does not divide the "
+                         f"checkpoint's n_embd {n_embd}")
+    cfg = GPT2Config(vocab_size=int(wte.shape[0]),
+                     n_positions=int(wpe.shape[0]), n_embd=n_embd,
+                     n_layer=n_layer, n_head=n_head, dropout=0.0,
+                     dtype=torch.float32, param_dtype=torch.float32)
+    model = GPT2LMHead(cfg, device="cpu")
+    model.load_state_dict(params)
+    info = {"tag": tag, "path": ckpt, "n_layer": n_layer,
+            "n_embd": n_embd, "vocab_size": cfg.vocab_size,
+            "topology": topo}
+    return model, info
+
+
+def _config_inference(path):
+    """The ``inference`` block of a DeepSpeed JSON config as the
+    engine's config dict (JAX ``serve.py:834-869``)."""
+    from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+    with open(path) as f:
+        raw = json.load(f)
+    # a serving config need not carry training batch sizes: give the
+    # validator trivial ones (world size 1) so only the block matters
+    raw.setdefault("train_batch_size", 1)
+    raw.setdefault("train_micro_batch_size_per_gpu", 1)
+    inf = DeepSpeedConfig(raw, world_size=1).inference
+    keys = ("max_batch", "seq_buckets", "prefill_chunk", "kv_cache_dtype",
+            "max_new_tokens", "attention_impl", "attention_block_k",
+            "temperature", "top_k", "top_p", "sampling_seed", "kv_layout",
+            "page_size", "n_pages", "prefix_cache", "host_park_threshold",
+            "replicas", "max_redispatch", "max_queue_depth", "deadline_s",
+            "queue_timeout_s", "speculative", "disaggregated",
+            "prefill_workers", "decode_workers", "prefill_max_batch",
+            "decode_max_batch")
+    return {k: getattr(inf, k) for k in keys}
+
+
+def _check_args(parser, args):
+    """The flag checks of the JAX CLI (``serve.py:702-815``)."""
+    if not args.requests and not args.synthetic:
+        parser.error("one of --requests or --synthetic N is required")
+    if args.requests and args.synthetic:
+        parser.error("--requests and --synthetic are mutually exclusive")
+    if args.replicas < 1:
+        parser.error("--replicas must be >= 1")
+    if args.replicas == 1 and args.kill_replica is not None:
+        parser.error("--kill-replica requires --replicas >= 2 (use "
+                     "--kill-prefill-worker with --disaggregate)")
+    if args.replicas == 1 and args.expect_redispatch is not None \
+            and not args.disaggregate:
+        parser.error("--expect-redispatch requires --replicas >= 2 "
+                     "or --disaggregate")
+    if args.disaggregate:
+        if args.speculative:
+            parser.error("--disaggregate excludes --speculative (the "
+                         "draft/verify pair would break the one-"
+                         "program-per-tier contract)")
+        if args.replicas > 1:
+            parser.error("--disaggregate and --replicas are mutually "
+                         "exclusive; tiers scale via "
+                         "--prefill-workers/--decode-workers")
+    if args.kill_prefill_worker is not None:
+        if not args.disaggregate:
+            parser.error("--kill-prefill-worker requires --disaggregate")
+        if args.replica_backend != "process":
+            parser.error("--kill-prefill-worker needs --replica-backend "
+                         "process (a thread cannot be SIGKILLed in "
+                         "isolation)")
+    for name in ("prefill_workers", "decode_workers"):
+        v = getattr(args, name)
+        if v is not None and v < 1:
+            parser.error(f"--{name.replace('_', '-')} must be >= 1")
+    if args.kill_replica is not None and \
+            not 0 <= args.kill_replica < args.replicas:
+        parser.error(f"--kill-replica {args.kill_replica} outside "
+                     f"0..{args.replicas - 1}")
+    if args.kill_replica is not None and \
+            args.replica_backend != "process":
+        parser.error("--kill-replica needs --replica-backend process "
+                     "(a thread cannot be SIGKILLed in isolation)")
+    if args.speculative and args.replicas > 1:
+        parser.error("--speculative is single-replica only (the fleet "
+                     "router has no variable-tokens-per-step protocol "
+                     "yet)")
+    if args.expect_min_accepted is not None and not args.speculative:
+        parser.error("--expect-min-accepted requires --speculative")
+    if args.spec_k < 1:
+        parser.error("--spec-k must be >= 1")
+    if args.draft_layers < 0:
+        parser.error("--draft-layers must be >= 0 (0 = auto)")
+    if args.n_head < 1:
+        parser.error("--n-head must be >= 1")
+
+
+def _wire_cfg(cfg):
+    """An engine config as JSON for a worker's spec."""
+    return {k: (list(v) if isinstance(v, tuple) else v)
+            for k, v in cfg.items()}
+
+
+def _router_bounds(args, inf_cfg):
+    return dict(
+        max_redispatch=(args.max_redispatch
+                        if args.max_redispatch is not None
+                        else int(inf_cfg.get("max_redispatch", 2))),
+        max_queue_depth=(args.max_queue_depth
+                         if args.max_queue_depth is not None
+                         else int(inf_cfg.get("max_queue_depth", 8))),
+        max_pending=args.max_pending)
+
+
+def _ms(v):
+    return "n/a" if v is None else f"{v * 1e3:.1f}ms"
+
+
+def _run_fleet(args, inf_cfg, session, device):
+    """Serve through the N-replica fleet router (JAX ``serve.py:203``)."""
+    import os
+    import tempfile
+
+    from deepspeed_tpu_torch.inference import fleet as fleet_mod
+    from deepspeed_tpu_torch.inference.router import FleetRouter
+
+    workdir = os.path.abspath(
+        args.workdir or tempfile.mkdtemp(prefix="ds-torch-fleet-"))
+    max_seq = max(inf_cfg.get("seq_buckets", (16, 32)))
+    requests = _build_requests(args, _TINY_VOCAB, max_seq)
+    inject = None
+    if args.kill_replica is not None:
+        inject = {"kill": {"op": "decode_step",
+                           "at_step": args.kill_at_step}}
+    spec = {"inf_cfg": _wire_cfg(inf_cfg), "seed": args.seed,
+            "device": str(device)}
+    if args.replica_backend == "process":
+        replicas = []
+        for i in range(args.replicas):
+            rspec = dict(spec, jsonl=os.path.join(
+                workdir, f"replica{i}.jsonl"))
+            replicas.append(fleet_mod.ProcessReplica(
+                i, rspec, workdir, num_replicas=args.replicas,
+                inject=inject if i == args.kill_replica else None,
+                hang_timeout_s=args.hang_timeout_s,
+                heartbeat_stale_s=args.heartbeat_stale_s).start())
+        for r in replicas:
+            r.wait_ready()
+    else:
+        from deepspeed_tpu_torch.inference.engine import InferenceEngine
+
+        def factory():
+            return InferenceEngine(seeded_tiny_model(args.seed, device),
+                                   config=inf_cfg, device=device)
+
+        replicas = [fleet_mod.ThreadReplica(i, factory).start()
+                    for i in range(args.replicas)]
+    router = FleetRouter(replicas, session=session,
+                         **_router_bounds(args, inf_cfg))
+    fr = router.run(requests, timeout_s=args.fleet_timeout)
+
+    ok = fr.ok
+    compiles_bad = []
+    if args.expect_compiles is not None:
+        for st in fr.stats:
+            total = sum(n for n in st["compile_counts"].values()
+                        if n is not None)
+            if total != args.expect_compiles:
+                compiles_bad.append((st["replica"], total))
+        ok = ok and not compiles_bad
+    redisp_ok = True
+    if args.expect_redispatch is not None:
+        redisp_ok = fr.redispatched_total >= args.expect_redispatch
+        ok = ok and redisp_ok
+    result = {
+        "requests": len(requests),
+        "completions": fr.completions,
+        "fleet": {
+            "replicas": fr.replicas, "backend": args.replica_backend,
+            "replicas_dead": fr.replicas_dead,
+            "dead_causes": dict(router.dead),
+            "redispatched_total": fr.redispatched_total,
+            "aborted": fr.aborted, "shed": fr.shed,
+            "defers": fr.defers, "timeouts": fr.timeouts,
+            "latency_s": fr.latency_s, "stats": fr.stats,
+            "workdir": workdir},
+        "device": str(device),
+        "ok": ok,
+    }
+    if args.expect_compiles is not None:
+        result["expect_compiles"] = args.expect_compiles
+    if args.expect_redispatch is not None:
+        result["expect_redispatch"] = args.expect_redispatch
+    if args.as_json:
+        print(json.dumps(result, indent=2, sort_keys=True))
+        return 0 if ok else 1
+    for c in fr.completions:
+        extra = f", redispatched x{c['redispatched']}" \
+            if c["redispatched"] else ""
+        print(f"{c['rid']}: prompt {c['prompt_len']} tokens -> "
+              f"{len(c['tokens'])} generated ({c['finish_reason']}, "
+              f"replica {c['replica']}{extra})")
+    fl = result["fleet"]
+    print(f"{len(fr.completions)}/{len(requests)} requests completed on "
+          f"{fl['replicas']} replica(s) ({fl['replicas_dead']} died: "
+          f"{fl['dead_causes']}); redispatched="
+          f"{fl['redispatched_total']} aborted={fl['aborted']} "
+          f"shed={fl['shed']} timeouts={fl['timeouts']}; latency "
+          f"p50={_ms(fr.latency_s['p50'])} p99={_ms(fr.latency_s['p99'])}")
+    for st in fr.stats:
+        cc = st["compile_counts"]
+        print(f"replica {st['replica']}: {st['completed']} completed in "
+              f"{st['steps']} step(s); compiles: "
+              f"prefill={cc.get('prefill')} decode={cc.get('decode')}")
+    if not ok:
+        if compiles_bad:
+            why = (f"replica compile counts {compiles_bad} != expected "
+                   f"{args.expect_compiles}")
+        elif not redisp_ok:
+            why = (f"redispatched {fr.redispatched_total} < expected "
+                   f"{args.expect_redispatch}")
+        else:
+            why = ("unfinished/aborted/shed/timed-out requests in the "
+                   "fleet result")
+        print(f"FAIL: {why}", file=sys.stderr)
+    return 0 if ok else 1
+
+
+def _run_disagg(args, inf_cfg, session, device):
+    """Serve through disaggregated prefill/decode tiers (JAX
+    ``serve.py:338``). Each tier holds one program from warmup to
+    drain, so the fleet holds 2 whatever the worker counts. Process
+    tiers hand KV off through a durable ``FileHandoffStore`` under
+    ``workdir/handoff``; thread tiers through the consume-once
+    device-to-device ``DeviceHandoffStore``."""
+    import os
+    import tempfile
+
+    from deepspeed_tpu_torch.inference import fleet as fleet_mod
+    from deepspeed_tpu_torch.inference.router import DisaggRouter
+
+    workdir = os.path.abspath(
+        args.workdir or tempfile.mkdtemp(prefix="ds-torch-disagg-"))
+    max_seq = max(inf_cfg.get("seq_buckets", (16, 32)))
+    requests = _build_requests(args, _TINY_VOCAB, max_seq)
+    n_pre, n_dec = args.prefill_workers, args.decode_workers
+
+    def tier_inf(tier):
+        # tiers scale max_batch independently (0 / unset: the shared)
+        cfg = {k: v for k, v in inf_cfg.items()
+               if k not in ("disaggregated", "prefill_workers",
+                            "decode_workers", "prefill_max_batch",
+                            "decode_max_batch")}
+        mb = (args.prefill_max_batch if tier == "prefill"
+              else args.decode_max_batch)
+        if mb is None:
+            mb = int(inf_cfg.get(f"{tier}_max_batch", 0) or 0)
+        if mb:
+            cfg["max_batch"] = mb
+        return cfg
+
+    inject = None
+    if args.kill_prefill_worker is not None:
+        inject = {"kill": {"op": "prefill_chunk",
+                           "at_step": args.kill_at_step}}
+    if args.replica_backend == "process":
+        from deepspeed_tpu_torch.inference.disagg import FileHandoffStore
+        handoff_dir = os.path.join(workdir, "handoff")
+        # the router shares the workers' durable store: parked() and
+        # drop() are file probes, so recovery needs no device state here
+        store = FileHandoffStore(handoff_dir)
+
+        def spawn(i, tier, tag, inj):
+            rspec = {"inf_cfg": _wire_cfg(tier_inf(tier)),
+                     "seed": args.seed, "device": str(device),
+                     "tier": tier, "handoff_dir": handoff_dir,
+                     "jsonl": os.path.join(workdir, f"{tag}.jsonl")}
+            return fleet_mod.TierProcessReplica(
+                i, rspec, workdir, num_replicas=n_pre + n_dec,
+                inject=inj, hang_timeout_s=args.hang_timeout_s,
+                heartbeat_stale_s=args.heartbeat_stale_s).start()
+
+        # indices unique across tiers: prefill 0..N-1, decode N..N+M-1
+        prefill = [spawn(i, "prefill", f"prefill{i}",
+                         inject if i == args.kill_prefill_worker
+                         else None) for i in range(n_pre)]
+        decode = [spawn(n_pre + j, "decode", f"decode{j}", None)
+                  for j in range(n_dec)]
+        for r in prefill + decode:
+            r.wait_ready()
+    else:
+        from deepspeed_tpu_torch.inference.disagg import (
+            DecodeWorker,
+            DeviceHandoffStore,
+            PrefillWorker,
+        )
+        from deepspeed_tpu_torch.inference.engine import InferenceEngine
+        store = DeviceHandoffStore()
+
+        def make_factory(tier):
+            cfg_t = dict(tier_inf(tier), tier=tier)
+
+            def factory():
+                engine = InferenceEngine(
+                    seeded_tiny_model(args.seed, device), config=cfg_t,
+                    device=device)
+                cls = PrefillWorker if tier == "prefill" \
+                    else DecodeWorker
+                return cls(engine, store)
+            return factory
+
+        prefill = [fleet_mod.TierThreadReplica(
+            i, make_factory("prefill")).start() for i in range(n_pre)]
+        decode = [fleet_mod.TierThreadReplica(
+            n_pre + j, make_factory("decode")).start()
+            for j in range(n_dec)]
+    router = DisaggRouter(prefill, decode, store, session=session,
+                          **_router_bounds(args, inf_cfg))
+    fr = router.run(requests, timeout_s=args.fleet_timeout)
+
+    # every surviving worker holds exactly its own tier's program
+    pins = {"prefill": {"prefill": 1, "decode": 0},
+            "decode": {"prefill": 0, "decode": 1}}
+    tier_bad, programs = [], set()
+    for st in fr.stats:
+        cc = st.get("compile_counts") or {}
+        got = {"prefill": cc.get("prefill") or 0,
+               "decode": cc.get("decode") or 0}
+        programs.update(k for k, v in got.items() if v)
+        if got != pins[st["tier"]]:
+            tier_bad.append((st["replica"], st["tier"], got))
+    total_compiles = len(programs)
+    ok = fr.ok and not tier_bad
+    compiles_ok = True
+    if args.expect_compiles is not None:
+        compiles_ok = total_compiles == args.expect_compiles
+        ok = ok and compiles_ok
+    redisp_ok = True
+    if args.expect_redispatch is not None:
+        redisp_ok = fr.redispatched_total >= args.expect_redispatch
+        ok = ok and redisp_ok
+    result = {
+        "requests": len(requests),
+        "completions": fr.completions,
+        "disagg": {
+            "backend": args.replica_backend,
+            "prefill_workers": fr.prefill_replicas,
+            "decode_workers": fr.decode_replicas,
+            "replicas_dead": fr.replicas_dead,
+            "dead_by_tier": fr.dead_by_tier,
+            "dead_causes": dict(router.dead),
+            "redispatched_total": fr.redispatched_total,
+            "aborted": fr.aborted, "shed": fr.shed,
+            "defers": fr.defers, "timeouts": fr.timeouts,
+            "handoffs": fr.handoffs,
+            "handoff_bytes": fr.handoff_bytes,
+            "handoff_bytes_per_session": (
+                fr.handoff_bytes / fr.handoffs if fr.handoffs else 0.0),
+            "handoff_corrupt": fr.handoff_corrupt,
+            "resumed_from_park": fr.resumed_from_park,
+            "latency_s": fr.latency_s, "ttft_s": fr.ttft_s,
+            "total_compiles": total_compiles,
+            "stats": fr.stats, "workdir": workdir},
+        "device": str(device),
+        "ok": ok,
+    }
+    if args.expect_compiles is not None:
+        result["expect_compiles"] = args.expect_compiles
+    if args.expect_redispatch is not None:
+        result["expect_redispatch"] = args.expect_redispatch
+    if args.as_json:
+        print(json.dumps(result, indent=2, sort_keys=True))
+        return 0 if ok else 1
+    for c in fr.completions:
+        extra = ""
+        if c.get("redispatched"):
+            extra += f", redispatched x{c['redispatched']}"
+        if c.get("restarts"):
+            extra += f", re-prefilled x{c['restarts']}"
+        print(f"{c['rid']}: prompt {c['prompt_len']} tokens -> "
+              f"{len(c['tokens'])} generated ({c['finish_reason']}, "
+              f"replica {c['replica']}{extra})")
+    dg = result["disagg"]
+    print(f"{len(fr.completions)}/{len(requests)} requests completed "
+          f"across {dg['prefill_workers']}+{dg['decode_workers']} tiered "
+          f"worker(s) ({dg['replicas_dead']} died: "
+          f"{dg['dead_causes']}); redispatched="
+          f"{dg['redispatched_total']} aborted={dg['aborted']} "
+          f"timeouts={dg['timeouts']}")
+    tt, lat = fr.ttft_s, fr.latency_s
+    print(f"handoff: {dg['handoffs']} session(s), {dg['handoff_bytes']} "
+          f"byte(s) ({dg['handoff_bytes_per_session']:.0f}/session), "
+          f"corrupt={dg['handoff_corrupt']} resumed_from_park="
+          f"{dg['resumed_from_park']}; ttft p50={_ms(tt['p50'])} "
+          f"p99={_ms(tt['p99'])}; latency p99={_ms(lat['p99'])}; "
+          f"programs {total_compiles}")
+    if not ok:
+        if tier_bad:
+            why = (f"per-tier program pins violated: {tier_bad} (each "
+                   f"worker must hold exactly its own tier's program)")
+        elif not compiles_ok:
+            why = (f"fleet program total {total_compiles} != expected "
+                   f"{args.expect_compiles}")
+        elif not redisp_ok:
+            why = (f"redispatched {fr.redispatched_total} < expected "
+                   f"{args.expect_redispatch}")
+        else:
+            why = ("unfinished/aborted/shed/timed-out requests in the "
+                   "disaggregated result")
+        print(f"FAIL: {why}", file=sys.stderr)
+    return 0 if ok else 1
 
 
 def main(argv=None):
@@ -193,44 +689,84 @@ def main(argv=None):
                         help="write decode_step telemetry events here")
     parser.add_argument("--json", action="store_true", dest="as_json",
                         help="print the result dict as JSON")
-    # routes of the JAX CLI that are recognized but not yet ported
-    parser.add_argument("--config", default=None, help=argparse.SUPPRESS)
-    parser.add_argument("--scan-layers", action="store_true",
-                        help=argparse.SUPPRESS)
-    parser.add_argument("--checkpoint", default=None, help=argparse.SUPPRESS)
-    parser.add_argument("--replicas", type=int, default=None,
-                        help=argparse.SUPPRESS)
+    parser.add_argument("--config", default=None,
+                        help="DeepSpeed-style JSON config; its "
+                             "'inference' block configures the engine")
+    parser.add_argument("--checkpoint", default=None,
+                        help="serve the params of this training "
+                             "checkpoint dir instead of seeded random "
+                             "weights")
+    parser.add_argument("--ckpt-tag", default=None,
+                        help="checkpoint tag to load (default: the "
+                             "newest valid one)")
+    parser.add_argument("--n-head", type=int, default=4,
+                        help="attention heads for --checkpoint serving "
+                             "(not recoverable from param shapes)")
+    # -- fleet ---------------------------------------------------------
+    parser.add_argument("--replicas", type=int, default=1,
+                        help="serve through an N-replica fleet behind "
+                             "the admission router (N >= 2)")
+    parser.add_argument("--replica-backend", default="process",
+                        choices=("process", "thread"),
+                        help="fleet replicas: subprocess workers "
+                             "(SIGKILL-able) or in-process threads")
+    parser.add_argument("--workdir", default=None,
+                        help="fleet workdir (heartbeats, done markers, "
+                             "replica logs); default: a temp dir")
+    parser.add_argument("--max-redispatch", type=int, default=None,
+                        help="redispatches before a request aborts")
+    parser.add_argument("--max-queue-depth", type=int, default=None,
+                        help="per-replica in-flight bound (the router "
+                             "defers past it)")
+    parser.add_argument("--max-pending", type=int, default=None,
+                        help="global admission bound (the router sheds "
+                             "past it)")
+    parser.add_argument("--fleet-timeout", type=float, default=300.0,
+                        help="whole-fleet drive-loop wall bound")
+    parser.add_argument("--hang-timeout-s", type=float, default=None,
+                        help="replica heartbeat stuck-in-step bound")
+    parser.add_argument("--heartbeat-stale-s", type=float, default=None,
+                        help="replica heartbeat staleness bound")
+    parser.add_argument("--kill-replica", type=int, default=None,
+                        help="arm a SIGKILL fault in this replica index")
+    parser.add_argument("--kill-at-step", type=int, default=3,
+                        help="decode step the armed kill fires at")
+    parser.add_argument("--expect-redispatch", type=int, default=None,
+                        help="exit 1 unless the fleet redispatched at "
+                             "least this many requests")
+    # -- disaggregated prefill/decode tiers ----------------------------
     parser.add_argument("--disaggregate", action="store_true",
+                        help="split serving into a prefill tier and a "
+                             "decode tier (one program each; KV pages "
+                             "hand off between tiers)")
+    parser.add_argument("--prefill-workers", type=int, default=None,
+                        help="prefill-tier worker count (default from "
+                             "config, else 1)")
+    parser.add_argument("--decode-workers", type=int, default=None,
+                        help="decode-tier worker count (default from "
+                             "config, else 1)")
+    parser.add_argument("--prefill-max-batch", type=int, default=None,
+                        help="prefill-tier max_batch (0/unset = shared)")
+    parser.add_argument("--decode-max-batch", type=int, default=None,
+                        help="decode-tier max_batch (0/unset = shared)")
+    parser.add_argument("--kill-prefill-worker", type=int, default=None,
+                        help="arm a SIGKILL mid-prefill-chunk in this "
+                             "prefill-tier worker (process backend)")
+    # a route of the JAX CLI that is recognized but not yet ported
+    parser.add_argument("--scan-layers", action="store_true",
                         help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
 
     for name in _NOT_PORTED:
-        value = getattr(args, name)
-        if name == "replicas" and value == 1:
-            continue
-        if value:
+        if getattr(args, name):
             parser.error(f"--{name.replace('_', '-')} is not yet ported "
                          f"to deepspeed_tpu_torch")
-    if not args.requests and not args.synthetic:
-        parser.error("one of --requests or --synthetic N is required")
-    if args.requests and args.synthetic:
-        parser.error("--requests and --synthetic are mutually exclusive")
-    if args.expect_min_accepted is not None and not args.speculative:
-        parser.error("--expect-min-accepted requires --speculative")
-    if args.spec_k < 1:
-        parser.error("--spec-k must be >= 1")
-    if args.draft_layers < 0:
-        parser.error("--draft-layers must be >= 0 (0 = auto)")
-    if args.expect_prefix_hits is not None and args.kv_layout != "paged":
-        parser.error("--expect-prefix-hits requires --kv-layout paged")
-
-    import torch
+    _check_args(parser, args)
 
     from deepspeed_tpu_torch import resolve_device
     from deepspeed_tpu_torch.inference.engine import InferenceEngine
     from deepspeed_tpu_torch.inference.scheduler import (
         ContinuousBatchingScheduler)
-    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHead, gpt2_tiny
     from deepspeed_tpu_torch.telemetry.session import TelemetrySession
 
     try:
@@ -238,8 +774,12 @@ def main(argv=None):
     except (RuntimeError, ValueError) as e:
         parser.error(str(e))
 
-    inf_cfg = {"max_batch": 2, "seq_buckets": (16, 32), "prefill_chunk": 4,
-               "sampling_seed": args.seed}
+    inf_cfg = {"max_batch": 2, "seq_buckets": (16, 32), "prefill_chunk": 4}
+    if args.config:
+        try:
+            inf_cfg = _config_inference(args.config)
+        except (OSError, ValueError) as e:
+            parser.error(f"--config {args.config}: {e}")
     overrides = {"max_batch": args.max_batch,
                  "prefill_chunk": args.prefill_chunk,
                  "kv_cache_dtype": args.kv_cache_dtype,
@@ -260,16 +800,70 @@ def main(argv=None):
     if args.seq_buckets is not None:
         inf_cfg["seq_buckets"] = tuple(
             int(b) for b in args.seq_buckets.split(",") if b.strip())
+    if args.expect_prefix_hits is not None and \
+            inf_cfg.get("kv_layout", "ring") != "paged":
+        parser.error("--expect-prefix-hits requires --kv-layout paged")
+    # --seed doubles as the sampling seed (a non-default --seed beats
+    # the config's)
+    if args.seed != 0 or "sampling_seed" not in inf_cfg:
+        inf_cfg["sampling_seed"] = args.seed
 
     session = None
     if args.jsonl:
         from deepspeed_tpu_torch.telemetry.exporters import JsonlExporter
         session = TelemetrySession(exporters=[JsonlExporter(args.jsonl)])
 
-    cfg = gpt2_tiny(n_embd=32, dtype=torch.float32)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(args.seed)
-    model = GPT2LMHead(cfg, device=device, generator=gen)
+    # the config's fleet / deadline knobs apply where the flags stay at
+    # their defaults (0 in the config block means disabled)
+    args.replicas = max(args.replicas,
+                        int(inf_cfg.get("replicas", 1) or 1))
+    if args.deadline_s is None:
+        args.deadline_s = inf_cfg.get("deadline_s") or None
+    if args.queue_timeout_s is None:
+        args.queue_timeout_s = inf_cfg.get("queue_timeout_s") or None
+    args.disaggregate = args.disaggregate or \
+        bool(inf_cfg.get("disaggregated"))
+    if args.disaggregate:
+        if inf_cfg.get("kv_layout", "ring") != "paged":
+            parser.error("--disaggregate requires --kv-layout paged (the "
+                         "prefill->decode handoff is a KV page copy)")
+        if inf_cfg.get("speculative"):
+            parser.error("config enables speculative decoding but the "
+                         "serve is disaggregated; the tiers pin one "
+                         "program each")
+        if args.checkpoint:
+            parser.error("--disaggregate serves the seeded test model "
+                         "only (no --checkpoint)")
+        if args.prefill_workers is None:
+            args.prefill_workers = int(
+                inf_cfg.get("prefill_workers", 1) or 1)
+        if args.decode_workers is None:
+            args.decode_workers = int(
+                inf_cfg.get("decode_workers", 1) or 1)
+        if args.kill_prefill_worker is not None and not \
+                0 <= args.kill_prefill_worker < args.prefill_workers:
+            parser.error(f"--kill-prefill-worker "
+                         f"{args.kill_prefill_worker} outside "
+                         f"0..{args.prefill_workers - 1}")
+        return _run_disagg(args, inf_cfg, session, device)
+    if args.replicas > 1:
+        if inf_cfg.get("speculative"):
+            parser.error("config enables speculative decoding but the "
+                         "serve is fleet-mode; run single-replica")
+        if args.checkpoint:
+            parser.error("--checkpoint serving is single-replica only")
+        return _run_fleet(args, inf_cfg, session, device)
+
+    ckpt_info = None
+    if args.checkpoint:
+        try:
+            model, ckpt_info = load_checkpoint_model(
+                args.checkpoint, args.n_head, args.ckpt_tag)
+        except ValueError as e:
+            parser.error(f"--checkpoint: {e}")
+    else:
+        model = seeded_tiny_model(args.seed, device)
+    cfg = model.config
     try:
         engine = InferenceEngine(model, config=inf_cfg, session=session,
                                  device=device)
@@ -307,6 +901,8 @@ def main(argv=None):
         result["paging"] = sched.paging.facts()
     if engine.speculative is not None:
         result["speculative"] = engine.speculative.facts()
+    if ckpt_info is not None:
+        result["checkpoint"] = ckpt_info
     ok = len(completions) == len(requests)
     if args.expect_compiles is not None:
         result["expect_compiles"] = args.expect_compiles
@@ -345,6 +941,11 @@ def main(argv=None):
         print(f"{len(completions)}/{len(requests)} requests completed "
               f"in {sched.step_count} decode step(s) on {device}; "
               f"compiles: {compiles}")
+        if ckpt_info is not None:
+            print(f"checkpoint: tag {ckpt_info['tag']} "
+                  f"({ckpt_info['n_layer']}L/{ckpt_info['n_embd']}d, "
+                  f"vocab {ckpt_info['vocab_size']}, saved topology "
+                  f"{ckpt_info['topology']})")
         if engine.speculative is not None:
             sp = result["speculative"]
             print(f"speculative: k={sp['k']} "

@@ -42,7 +42,10 @@ routes, keyed per layer by ``fold_in_seed(seed, layer)``: bit-identical
 to the JAX kernels for the same int32 seed. Hidden-state dropout draws
 from a ``torch.Generator`` seeded with ``dropout_seed``. Neither seed
 can match the JAX model's ``jax.random`` streams: that mismatch is
-deliberate, and parity tests run with dropout 0.
+deliberate, and parity tests run with dropout 0. A data-parallel rank
+runs its forward inside ``ops.flash_attention.global_rows``: its rows'
+attention masks are then those of their global rows, and its hidden
+masks its own.
 
 :func:`convert_gpt2_params` turns the JAX package's param tree (as
 numpy arrays) into a ``state_dict`` for :class:`GPT2LMHead`.
@@ -58,6 +61,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from deepspeed_tpu_torch.ops.flash_attention import (
+    current_global_rows,
     dropout_generator,
     hidden_dropout,
 )
@@ -206,16 +210,18 @@ class CausalSelfAttention(nn.Module):
                                     block_k=attn_block_k, mask=attn_mask,
                                     page_table=kv_page_table)
         else:
-            rate, seed = (0.0, None) if drop is None else \
-                (drop.rate, drop.attn_seed)
+            rate, seed, offset = (0.0, None, 0) if drop is None else \
+                (drop.rate, drop.attn_seed, drop.row_offset * H)
             if cfg.use_flash_attention:
                 y = flash_attention(q, k, v, causal=True, dropout_rate=rate,
-                                    dropout_seed=seed)
+                                    dropout_seed=seed,
+                                    dropout_head_offset=offset)
             else:
                 y = dense_attention(
                     q, k, v, causal=True,
                     sm_scale=attention_scale(C // H, cfg.dtype),
-                    dropout_rate=rate, dropout_seed=seed)
+                    dropout_rate=rate, dropout_seed=seed,
+                    dropout_head_offset=offset)
         y = self.c_proj(y.reshape(B, T, C))
         return y if drop is None else drop.hidden(y)
 
@@ -250,16 +256,17 @@ class _Dropout:
     ``generator`` and the attention-prob hash seed of the current layer
     (``fold_in_seed(seed, layer)``)."""
 
-    def __init__(self, rate, seed, generator, attn_seed=None):
+    def __init__(self, rate, seed, generator, attn_seed=None, row_offset=0):
         self.rate = rate
         self.seed = seed
         self.generator = generator
         self.attn_seed = attn_seed
+        self.row_offset = row_offset    # this forward's first global row
 
     def layer(self, i):
         from deepspeed_tpu_torch.ops.flash_attention import fold_in_seed
         return _Dropout(self.rate, self.seed, self.generator,
-                        fold_in_seed(self.seed, i))
+                        fold_in_seed(self.seed, i), self.row_offset)
 
     def hidden(self, x):
         return hidden_dropout(x, self.rate, self.generator)
@@ -409,7 +416,8 @@ class GPT2LMHead(nn.Module):
         if dropout_seed is not None and cfg.dropout > 0.0 and \
                 kv_cache is None:
             drop = _Dropout(cfg.dropout, int(dropout_seed),
-                            dropout_generator(dropout_seed, x.device))
+                            dropout_generator(dropout_seed, x.device),
+                            row_offset=current_global_rows()[0])
             x = drop.hidden(x)
         if kv_cache is None:
             remat = cfg.remat and cfg.remat_policy != "nothing" and \

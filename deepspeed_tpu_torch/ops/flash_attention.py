@@ -51,6 +51,8 @@ Attention-prob dropout is the counter-based hash of
 the JAX package draw bit-identical masks for one int32 seed.
 """
 
+import contextlib
+import contextvars
 import ctypes
 import functools
 import numbers
@@ -166,10 +168,41 @@ def hidden_dropout(x, rate, generator):
                                                    device=x.device))
 
 
+_GLOBAL_ROWS = contextvars.ContextVar("dropout_global_rows", default=(0, 0))
+
+
+@contextlib.contextmanager
+def global_rows(row_offset, rank):
+    """Dropout of the rows ``[row_offset, row_offset + B)`` of a global
+    batch, drawn by data-parallel rank ``rank``, for the forwards run
+    inside the block. The JAX data-parallel step runs the model once over
+    the global batch, so its attention-dropout hash sees global rows
+    (``b * H + h`` over every process's rows); a rank that runs only its
+    own rows passes their offset, and the models add ``row_offset * H``
+    to the hash's head coordinate. The hidden-dropout generator folds in
+    ``rank`` so that ranks draw different hidden masks (``jax.random``'s
+    masks cannot be matched). Rank 0 at offset 0, the default, is the
+    one-process model."""
+    token = _GLOBAL_ROWS.set((int(row_offset), int(rank)))
+    try:
+        yield
+    finally:
+        _GLOBAL_ROWS.reset(token)
+
+
+def current_global_rows():
+    """``(row_offset, rank)`` of the innermost :func:`global_rows`."""
+    return _GLOBAL_ROWS.get()
+
+
 def dropout_generator(seed, device):
-    """The hidden-dropout generator of one training forward at ``seed``."""
+    """The hidden-dropout generator of one training forward at ``seed``
+    on the current :func:`global_rows` rank r, seeded ``seed + r *
+    2**32``: a stream of its own for each (int32 seed, rank), rank 0's
+    the one-process stream."""
+    rank = current_global_rows()[1]
     gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed) & 0xFFFFFFFFFFFFFFFF)
+    gen.manual_seed((int(seed) + (int(rank) << 32)) & 0xFFFFFFFFFFFFFFFF)
     return gen
 
 

@@ -23,6 +23,7 @@ went through.
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -275,8 +276,17 @@ def flash_decode_paged(q, k, v, positions, page_tables, k_scale=None,
 flash_decode_paged.launches = 0
 
 
-@functools.lru_cache(None)
 def _library():
+    # one build per process, whichever serving thread launches first
+    with _build_lock:
+        return _load_library()
+
+
+_build_lock = threading.Lock()
+
+
+@functools.lru_cache(None)
+def _load_library():
     from deepspeed_tpu_torch.ops._build import load_library
     lib = load_library("flash_decode")
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
@@ -323,8 +333,12 @@ def _check_launch(name, q, k, v, k_scale, v_scale, scale_shape):
 
 # (device index, stream) -> int32 tickets, zero between launches: each
 # launch's merging CTAs reset what they counted, so one zero-filled
-# buffer per stream serves every later launch (and a CUDA graph replay)
+# buffer per stream serves every later launch (and a CUDA graph replay).
+# Serving threads (``inference/fleet.py:ThreadReplica``, one CUDA stream
+# each) launch concurrently: the lock makes the buffer's grow-and-replace
+# and the wrappers' ``.launches`` counts atomic.
 _tickets = {}
+_lock = threading.Lock()
 
 
 def _scratch(q, n_rows, S, D, stream):
@@ -334,10 +348,12 @@ def _scratch(q, n_rows, S, D, stream):
     ws = torch.empty(n_rows * n_chunks * (D + 2), dtype=torch.float32,
                      device=q.device)
     key = (q.device.index, stream)
-    tickets = _tickets.get(key)
-    if tickets is None or tickets.numel() < n_rows:
-        tickets = torch.zeros(n_rows, dtype=torch.int32, device=q.device)
-        _tickets[key] = tickets
+    with _lock:
+        tickets = _tickets.get(key)
+        if tickets is None or tickets.numel() < n_rows:
+            tickets = torch.zeros(n_rows, dtype=torch.int32,
+                                  device=q.device)
+            _tickets[key] = tickets
     return ws, tickets
 
 
@@ -369,7 +385,8 @@ def _launch(q, k, v, positions, k_scale, v_scale):
             out.stride(0), out.stride(2),
             _DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype], stream)
     _raise_on(lib, err, "flash_decode")
-    flash_decode.launches += 1
+    with _lock:
+        flash_decode.launches += 1
     return out
 
 
@@ -401,5 +418,6 @@ def _launch_paged(q, k, v, positions, page_tables, k_scale, v_scale):
             out.stride(0), out.stride(2),
             _DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype], stream)
     _raise_on(lib, err, "flash_decode_paged")
-    flash_decode_paged.launches += 1
+    with _lock:
+        flash_decode_paged.launches += 1
     return out

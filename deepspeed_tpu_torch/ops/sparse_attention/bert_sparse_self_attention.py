@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from deepspeed_tpu_torch.models.gpt2 import Dense
+from deepspeed_tpu_torch.ops.flash_attention import current_global_rows
 from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention import (
     SparseSelfAttention,
     collapse_additive_mask,
@@ -64,12 +65,14 @@ class BertSparseSelfAttention(nn.Module):
         key_padding_mask = None
         if attention_mask is not None:
             key_padding_mask = collapse_additive_mask(attention_mask, B, T)
-        rate, seed = 0.0, None
+        rate, seed, offset = 0.0, None, 0
         if dropout_seed is not None and self.attn_dropout_ratio > 0.0:
             rate, seed = self.attn_dropout_ratio, dropout_seed
+            offset = current_global_rows()[0] * heads
         ctx = self.core(heads_first(self.query(hidden_states)),
                         heads_first(self.key(hidden_states)),
                         heads_first(self.value(hidden_states)),
                         key_padding_mask=key_padding_mask,
-                        dropout_rate=rate, dropout_seed=seed)
+                        dropout_rate=rate, dropout_seed=seed,
+                        dropout_head_offset=offset)
         return ctx.transpose(1, 2).reshape(B, T, H)

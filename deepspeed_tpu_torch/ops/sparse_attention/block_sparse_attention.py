@@ -145,7 +145,7 @@ def _mask_to_additive(m, mode):
 def _xla_impl(q, k, v, lut, nnz, block, causal, sm_scale, rpe=None,
               key_padding_mask=None, attn_mask=None,
               key_padding_mask_mode="add", attn_mask_mode="mul",
-              dropout_rate=0.0, dropout_seed=None):
+              dropout_rate=0.0, dropout_seed=None, dropout_head_offset=0):
     """Gather each head's LUT k/v blocks and softmax over them
     (``block_sparse_attention.py:106``). q, k, v [B, T, H, D]; lut/nnz
     int tensors per :func:`build_lut`. Returns [B, T, H, D]. Counts its
@@ -189,7 +189,7 @@ def _xla_impl(q, k, v, lut, nnz, block, causal, sm_scale, rpe=None,
     p = p.reshape(B, H, nq, block, max_nnz, block)
     if dropout_rate > 0.0:
         bh = torch.arange(B, device=dev)[:, None] * H + \
-            torch.arange(H, device=dev)
+            dropout_head_offset + torch.arange(H, device=dev)
         p = p * dropout_multiplier(
             dropout_seed, bh[:, :, None, None, None, None],
             q_pos[None, None, :, :, None, None],
@@ -249,8 +249,10 @@ def _pair_positions(lut_j, block, device):
     return own, other
 
 
-def _drop_tile(seed, B, H, q_pos, k_pos, rate, device):
-    bh = torch.arange(B, device=device)[:, None] * H + \
+def _drop_tile(seed, B, H, q_pos, k_pos, rate, device, head_offset=0):
+    """The kernels' dropout multiplier of a tile at the global head
+    coordinate ``b * H + head_offset + h``."""
+    bh = torch.arange(B, device=device)[:, None] * H + head_offset + \
         torch.arange(H, device=device)
     return dropout_multiplier(seed, bh[:, :, None, None, None], q_pos,
                               k_pos, rate)
@@ -265,7 +267,8 @@ def _gather_column(xb, lut_j):
 
 def block_sparse_attention_fwd_reference(q, k, v, lut, nnz, block,
                                          causal=False, sm_scale=None,
-                                         dropout_rate=0.0, dropout_seed=0):
+                                         dropout_rate=0.0, dropout_seed=0,
+                                         dropout_head_offset=0):
     """Plain K7: ``(out [B, T, H, D] in q's dtype, lse f32 [B * H, T])``
     (``_pallas_impl``, :241-293): q pre-scaled before the dot, the
     causal mask's finite value, ``l`` over the undropped and the
@@ -295,7 +298,7 @@ def block_sparse_attention_fwd_reference(q, k, v, lut, nnz, block,
         l_new = l * corr + p.sum(-1)
         if dropout_rate > 0.0:
             p = p * _drop_tile(dropout_seed, B, H, q_pos, k_pos,
-                               dropout_rate, dev)
+                               dropout_rate, dev, dropout_head_offset)
         acc_new = acc * corr[..., None] + torch.einsum(
             "bhqrc,bhqcd->bhqrd", p, _gather_column(vb, lut_j))
         m = torch.where(valid, m_new, m)
@@ -308,7 +311,8 @@ def block_sparse_attention_fwd_reference(q, k, v, lut, nnz, block,
 
 
 def _bwd_column(qb, kb, vb, gb, lse_b, delta_b, lut_j, block, causal,
-                sm_scale, dropout_rate, dropout_seed, transposed):
+                sm_scale, dropout_rate, dropout_seed, head_offset,
+                transposed):
     """One LUT column of the backward: ``(pd, ds, q, k, dO)``, the
     visited tiles' dropped probabilities and scaled dS [B, H, nb, rows,
     cols] (rows = queries) as the kernels form them, and the operand
@@ -336,7 +340,7 @@ def _bwd_column(qb, kb, vb, gb, lse_b, delta_b, lut_j, block, causal,
     pd = p
     if dropout_rate > 0.0:
         mult = _drop_tile(dropout_seed, B, H, q_pos, k_pos, dropout_rate,
-                          dev)
+                          dev, head_offset)
         dp = dp * mult
         pd = p * mult
     ds = p * (dp - delta_g) * sm_scale
@@ -353,7 +357,8 @@ def _bwd_operands(q, k, v, g, lse, delta, block):
 def block_sparse_attention_bwd_dq_reference(q, k, v, g, lse, delta, lut, nnz,
                                             block, causal=False,
                                             sm_scale=None, dropout_rate=0.0,
-                                            dropout_seed=0):
+                                            dropout_seed=0,
+                                            dropout_head_offset=0):
     """Plain K8a: dq ``[B, T, H, D]`` in q's dtype (``dq_kernel``,
     :381-419): ``p = exp(s * sm_scale - lse)``, the dropped ``dp``,
     ``ds = p * (dp - delta) * sm_scale``, ``dq = sum ds @ k`` over the
@@ -370,7 +375,8 @@ def block_sparse_attention_bwd_dq_reference(q, k, v, g, lse, delta, lut, nnz,
         lut_j = lut[..., j].to(dev)
         _, ds, _, kg, _ = _bwd_column(qb, kb, vb, gb, lse_b, delta_b, lut_j,
                                       block, causal, sm_scale, dropout_rate,
-                                      dropout_seed, transposed=False)
+                                      dropout_seed, dropout_head_offset,
+                                      transposed=False)
         valid = (j < nnz)[None, :, :, None, None]
         # an invalid column may hold -inf - -inf: keep it out of the sum
         dq = dq + torch.where(valid, torch.einsum("bhqrc,bhqcd->bhqrd", ds,
@@ -381,7 +387,8 @@ def block_sparse_attention_bwd_dq_reference(q, k, v, g, lse, delta, lut, nnz,
 def block_sparse_attention_bwd_dkv_reference(q, k, v, g, lse, delta, lut_t,
                                              nnz_t, block, causal=False,
                                              sm_scale=None, dropout_rate=0.0,
-                                             dropout_seed=0):
+                                             dropout_seed=0,
+                                             dropout_head_offset=0):
     """Plain K8b: ``(dk, dv)`` ``[B, T, H, D]`` in k's / v's dtype
     (``dkv_kernel``, :450-498) over the transposed LUT ``lut_t`` /
     ``nnz_t``: ``dv = sum (p * mult)^T @ dO``, ``dk = sum ds^T @ q``."""
@@ -399,7 +406,7 @@ def block_sparse_attention_bwd_dkv_reference(q, k, v, g, lse, delta, lut_t,
         pd, ds, qg, _, gg = _bwd_column(qb, kb, vb, gb, lse_b, delta_b,
                                         lut_j, block, causal, sm_scale,
                                         dropout_rate, dropout_seed,
-                                        transposed=True)
+                                        dropout_head_offset, transposed=True)
         valid = (j < nnz_t)[None, :, :, None, None]
         dv = dv + torch.where(valid, torch.einsum("bhqrc,bhqrd->bhqcd", pd,
                                                   gg), 0.0)
@@ -444,22 +451,25 @@ def _on_cuda(q, k, v, block, tables, extra=()):
     return q.device.type == "cuda"
 
 
-def _options(q, causal, sm_scale, dropout_rate, dropout_seed):
+def _options(q, causal, sm_scale, dropout_rate, dropout_seed,
+             dropout_head_offset):
     if dropout_rate and not 0.0 < dropout_rate < 1.0:
         raise ValueError(f"dropout_rate {dropout_rate} not in [0, 1)")
     return dict(causal=bool(causal),
                 sm_scale=q.shape[-1] ** -0.5 if sm_scale is None
                 else float(sm_scale),
                 dropout_rate=float(dropout_rate or 0.0),
-                dropout_seed=0 if dropout_seed is None else int(dropout_seed))
+                dropout_seed=0 if dropout_seed is None else int(dropout_seed),
+                dropout_head_offset=int(dropout_head_offset))
 
 
 def block_sparse_attention_fwd(q, k, v, lut, nnz, block, causal=False,
                                sm_scale=None, dropout_rate=0.0,
-                               dropout_seed=0):
+                               dropout_seed=0, dropout_head_offset=0):
     """K7: ``(out [B, T, H, D] in q's dtype, lse f32 [B * H, T])``;
     ``lut``/``nnz`` the forward LUT as int32 tensors on q's device."""
-    kw = _options(q, causal, sm_scale, dropout_rate, dropout_seed)
+    kw = _options(q, causal, sm_scale, dropout_rate, dropout_seed,
+                  dropout_head_offset)
     if not _on_cuda(q, k, v, block, (lut, nnz)):
         return block_sparse_attention_fwd_reference(q, k, v, lut, nnz, block,
                                                     **kw)
@@ -474,9 +484,11 @@ def block_sparse_attention_fwd(q, k, v, lut, nnz, block, causal=False,
 
 def block_sparse_attention_bwd_dq(q, k, v, g, lse, delta, lut, nnz, block,
                                   causal=False, sm_scale=None,
-                                  dropout_rate=0.0, dropout_seed=0):
+                                  dropout_rate=0.0, dropout_seed=0,
+                                  dropout_head_offset=0):
     """K8a: dq ``[B, T, H, D]`` in q's dtype over the forward LUT."""
-    kw = _options(q, causal, sm_scale, dropout_rate, dropout_seed)
+    kw = _options(q, causal, sm_scale, dropout_rate, dropout_seed,
+                  dropout_head_offset)
     if not _on_cuda(q, k, v, block, (lut, nnz), (g, lse, delta)):
         return block_sparse_attention_bwd_dq_reference(
             q, k, v, g, lse, delta, lut, nnz, block, **kw)
@@ -488,9 +500,11 @@ def block_sparse_attention_bwd_dq(q, k, v, g, lse, delta, lut, nnz, block,
 
 def block_sparse_attention_bwd_dkv(q, k, v, g, lse, delta, lut_t, nnz_t,
                                    block, causal=False, sm_scale=None,
-                                   dropout_rate=0.0, dropout_seed=0):
+                                   dropout_rate=0.0, dropout_seed=0,
+                                   dropout_head_offset=0):
     """K8b: ``(dk, dv)`` ``[B, T, H, D]`` over the transposed LUT."""
-    kw = _options(q, causal, sm_scale, dropout_rate, dropout_seed)
+    kw = _options(q, causal, sm_scale, dropout_rate, dropout_seed,
+                  dropout_head_offset)
     if not _on_cuda(q, k, v, block, (lut_t, nnz_t), (g, lse, delta)):
         return block_sparse_attention_bwd_dkv_reference(
             q, k, v, g, lse, delta, lut_t, nnz_t, block, **kw)
@@ -515,7 +529,7 @@ class _Params(ctypes.Structure):
         "dq", "dk", "dv")] + \
         [(name, ctypes.c_int64) for name in (
             "B", "T", "H", "D", "block", "max_nnz", "causal", "dropping",
-            "seed", "keep_threshold", "n_col", "q_exact",
+            "seed", "keep_threshold", "head_offset", "n_col", "q_exact",
             "q_sb", "q_st", "q_sh", "k_sb", "k_st", "k_sh",
             "v_sb", "v_st", "v_sh", "g_sb", "g_st", "g_sh")] + \
         [("sm_scale", ctypes.c_double), ("inv_keep", ctypes.c_double)]
@@ -581,6 +595,7 @@ def _launch(which, q, k, v, g, lse, delta, lut, nnz, block, kw, out=None,
         causal=int(kw["causal"]), dropping=int(rate > 0.0),
         seed=kw["dropout_seed"],
         keep_threshold=_keep_threshold(rate) if rate > 0.0 else 0,
+        head_offset=kw.get("dropout_head_offset", 0),
         n_col=cols, q_exact=int(scaled_q_exact(q.dtype, kw["sm_scale"])),
         q_sb=q.stride(0), q_st=q.stride(1), q_sh=q.stride(2),
         k_sb=k.stride(0), k_st=k.stride(1), k_sh=k.stride(2),
@@ -636,7 +651,8 @@ def block_sparse_attention(q, k, v, layout, block, causal=False,
                            sm_scale=None, rpe=None, key_padding_mask=None,
                            attn_mask=None, key_padding_mask_mode="add",
                            attn_mask_mode="mul", implementation="auto",
-                           dropout_rate=0.0, dropout_seed=None):
+                           dropout_rate=0.0, dropout_seed=None,
+                           dropout_head_offset=0):
     """Fused block-sparse attention (``block_sparse_attention.py:582``).
 
     q, k, v: [B, T, H, D]; layout: [H, T // block, T // block] 0/1 (numpy,
@@ -645,7 +661,10 @@ def block_sparse_attention(q, k, v, layout, block, causal=False,
     reference softmax op, `softmax.py:219`). ``dropout_rate`` /
     ``dropout_seed`` (an int32 value): in-kernel attention-prob dropout
     with the flash kernels' counter-based mask, the same bits on every
-    route at the same (head, q, k) coordinates.
+    route at the same (head, q, k) coordinates. ``dropout_head_offset``
+    is added to every row's head coordinate ``b * H + h``: a process
+    that holds rows ``[r*B, (r+1)*B)`` of a global batch passes
+    ``r * B * H`` and draws those rows' masks.
 
     ``implementation``: ``"auto"`` takes the kernel route (``"pallas"``,
     K7/K8 on CUDA tensors, their plain versions on CPU tensors) unless
@@ -676,7 +695,8 @@ def block_sparse_attention(q, k, v, layout, block, causal=False,
             "rpe/masks route through implementation='xla'")
         kw = dict(causal=bool(causal), sm_scale=float(sm_scale),
                   dropout_rate=float(dropout_rate or 0.0),
-                  dropout_seed=int(dropout_seed or 0))
+                  dropout_seed=int(dropout_seed or 0),
+                  dropout_head_offset=int(dropout_head_offset))
         return _BlockSparseAttention.apply(q, k, v, tables, block, kw)
     if implementation == "xla":
         lut, nnz = tables[:2]
@@ -686,7 +706,8 @@ def block_sparse_attention(q, k, v, layout, block, causal=False,
                          key_padding_mask_mode=key_padding_mask_mode,
                          attn_mask_mode=attn_mask_mode,
                          dropout_rate=dropout_rate,
-                         dropout_seed=dropout_seed)
+                         dropout_seed=dropout_seed,
+                         dropout_head_offset=dropout_head_offset)
     raise ValueError(f"unknown implementation {implementation!r}")
 
 
@@ -694,7 +715,7 @@ def masked_dense_attention(q, k, v, layout, block, causal=False,
                            sm_scale=None, rpe=None, key_padding_mask=None,
                            attn_mask=None, key_padding_mask_mode="add",
                            attn_mask_mode="mul", dropout_rate=0.0,
-                           dropout_seed=None):
+                           dropout_seed=None, dropout_head_offset=0):
     """Dense attention with the layout applied as an elementwise mask
     (``block_sparse_attention.py:640``): the parity oracle for the
     sparse kernels."""
@@ -720,6 +741,7 @@ def masked_dense_attention(q, k, v, layout, block, causal=False,
     scores = torch.where(mask, scores, DEFAULT_MASK_VALUE)
     probs = torch.softmax(scores, dim=-1)
     if dropout_rate > 0.0:
-        probs = probs * _dropout_multiplier_full(B, H, T, T, dropout_rate,
-                                                 dropout_seed, device=dev)
+        probs = probs * _dropout_multiplier_full(
+            B, H, T, T, dropout_rate, dropout_seed,
+            head_offset=dropout_head_offset, device=dev)
     return torch.einsum("bhts,bshd->bthd", probs, v.float()).to(q.dtype)

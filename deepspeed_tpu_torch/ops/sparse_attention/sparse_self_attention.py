@@ -54,7 +54,8 @@ class SparseSelfAttention:
         return self._layouts[seq_len]
 
     def __call__(self, query, key, value, rpe=None, key_padding_mask=None,
-                 attn_mask=None, dropout_rate=0.0, dropout_seed=None):
+                 attn_mask=None, dropout_rate=0.0, dropout_seed=None,
+                 dropout_head_offset=0):
         """query/key/value: [B, H, T, D] -> attention context [B, H, T, D].
         ``dropout_rate``/``dropout_seed``: in-kernel attention-prob
         dropout (the counter-based mask of ops/flash_attention.py)."""
@@ -81,5 +82,6 @@ class SparseSelfAttention:
             attn_mask_mode=self.attn_mask_mode,
             implementation=self.implementation,
             dropout_rate=dropout_rate,
-            dropout_seed=dropout_seed)
+            dropout_seed=dropout_seed,
+            dropout_head_offset=dropout_head_offset)
         return out.transpose(1, 2)

@@ -43,6 +43,7 @@ from torch import nn
 
 from deepspeed_tpu_torch.ops.flash_attention import (
     _dropout_multiplier_full,
+    current_global_rows,
     dropout_generator,
     flash_attention,
     hidden_dropout,
@@ -210,6 +211,8 @@ class DeepSpeedTransformerLayer(nn.Module):
         heads = cfg.heads
         hd = H // heads
         rate = cfg.attn_dropout_ratio if seed is not None else 0.0
+        # the rows' global head coordinate (``global_rows``)
+        offset = current_global_rows()[0] * heads if rate else 0
         qkv = xin @ self.attn_qkvw.to(dtype) + self.attn_qkvb.to(dtype)
         q, k, v = (t.reshape(B, T, heads, hd) for t in qkv.split(H, dim=-1))
         if self.sparse_core is not None:
@@ -219,7 +222,8 @@ class DeepSpeedTransformerLayer(nn.Module):
             ctx = self.sparse_core(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 key_padding_mask=kpm, dropout_rate=rate,
-                dropout_seed=seed if rate else None).transpose(1, 2)
+                dropout_seed=seed if rate else None,
+                dropout_head_offset=offset).transpose(1, 2)
         elif self.use_flash_attention and (
                 attention_mask is None or
                 _is_key_padding_shape(attention_mask.shape, B, T)):
@@ -228,7 +232,8 @@ class DeepSpeedTransformerLayer(nn.Module):
                 kbias = collapse_additive_mask(attention_mask, B, T)
             ctx = flash_attention(q, k, v, causal=False, key_bias=kbias,
                                   dropout_rate=rate,
-                                  dropout_seed=seed if rate else None)
+                                  dropout_seed=seed if rate else None,
+                                  dropout_head_offset=offset)
         else:
             scale = 1.0 / torch.sqrt(torch.tensor(float(hd)))
             att = torch.einsum("bthd,bshd->bhts", q, k).float() * scale
@@ -237,7 +242,8 @@ class DeepSpeedTransformerLayer(nn.Module):
             att = torch.softmax(att, dim=-1).to(dtype)
             if rate:
                 att = att * _dropout_multiplier_full(
-                    B, heads, T, T, rate, seed, device=att.device).to(dtype)
+                    B, heads, T, T, rate, seed, head_offset=offset,
+                    device=att.device).to(dtype)
             ctx = torch.einsum("bhts,bshd->bthd", att, v)
         out = ctx.reshape(B, T, H) @ self.attn_ow.to(dtype) + \
             self.attn_ob.to(dtype)

@@ -90,3 +90,113 @@ SPARSE_GLOBAL_BLOCK_END_INDICES = "global_block_end_indices"
 SPARSE_GLOBAL_BLOCK_END_INDICES_DEFAULT = None
 SPARSE_NUM_SLIDING_WINDOW_BLOCKS = "num_sliding_window_blocks"
 SPARSE_NUM_SLIDING_WINDOW_BLOCKS_DEFAULT = 3
+
+
+#############################################
+# Top-level keys the JAX config reads (deepspeed_tpu/runtime/constants.py)
+#############################################
+ZERO_ALLOW_UNTESTED_OPTIMIZER = "zero_allow_untested_optimizer"
+ZERO_ALLOW_UNTESTED_OPTIMIZER_DEFAULT = False
+SPARSE_GRADIENTS = "sparse_gradients"
+AMP = "amp"
+AMP_ENABLED = "enabled"
+AMP_ENABLED_DEFAULT = False
+FP32_ALLREDUCE = "fp32_allreduce"
+FP32_ALLREDUCE_DEFAULT = False
+PRESCALE_GRADIENTS = "prescale_gradients"
+PRESCALE_GRADIENTS_DEFAULT = False
+GRADIENT_PREDIVIDE_FACTOR = "gradient_predivide_factor"
+GRADIENT_PREDIVIDE_FACTOR_DEFAULT = 1.0
+DISABLE_ALLGATHER = "disable_allgather"
+DISABLE_ALLGATHER_DEFAULT = False
+DUMP_STATE = "dump_state"
+DUMP_STATE_DEFAULT = False
+VOCABULARY_SIZE = "vocabulary_size"
+VOCABULARY_SIZE_DEFAULT = None
+WALL_CLOCK_BREAKDOWN = "wall_clock_breakdown"
+WALL_CLOCK_BREAKDOWN_DEFAULT = False
+MEMORY_BREAKDOWN = "memory_breakdown"
+MEMORY_BREAKDOWN_DEFAULT = False
+TENSORBOARD = "tensorboard"
+PROGRESSIVE_LAYER_DROP = "progressive_layer_drop"
+ACTIVATION_CHECKPOINTING = "activation_checkpointing"
+PROFILING = "profiling"
+COMPILATION_CACHE_DIR = "compilation_cache_dir"
+PIPELINE = "pipeline"
+MESH = "mesh"
+COMM_QUANTIZATION = "comm_quantization"
+RESILIENCE = "resilience"
+ELASTICITY = "elasticity"
+ANALYSIS = "analysis"
+TENSOR_PARALLEL = "tensor_parallel"
+FP8 = "fp8"
+TELEMETRY = "telemetry"
+
+
+#############################################
+# Inference / serving (``inference/``): the ``inference`` block's keys
+# and defaults, as ``deepspeed_tpu/runtime/constants.py`` has them
+# (``InferenceConfig`` in ``runtime/config.py`` documents each)
+#############################################
+INFERENCE = "inference"
+INFERENCE_MAX_BATCH = "max_batch"
+INFERENCE_MAX_BATCH_DEFAULT = 8
+INFERENCE_SEQ_BUCKETS = "seq_buckets"
+INFERENCE_SEQ_BUCKETS_DEFAULT = (128, 512)
+INFERENCE_PREFILL_CHUNK = "prefill_chunk"
+INFERENCE_PREFILL_CHUNK_DEFAULT = 32
+INFERENCE_KV_CACHE_DTYPE = "kv_cache_dtype"
+INFERENCE_KV_CACHE_DTYPE_DEFAULT = None
+INFERENCE_MAX_NEW_TOKENS = "max_new_tokens"
+INFERENCE_MAX_NEW_TOKENS_DEFAULT = 64
+INFERENCE_ATTENTION_IMPL = "attention_impl"
+INFERENCE_ATTENTION_IMPL_DEFAULT = "dense"
+INFERENCE_ATTENTION_BLOCK_K = "attention_block_k"
+INFERENCE_ATTENTION_BLOCK_K_DEFAULT = 128
+INFERENCE_TEMPERATURE = "temperature"
+INFERENCE_TEMPERATURE_DEFAULT = 0.0
+INFERENCE_TOP_K = "top_k"
+INFERENCE_TOP_K_DEFAULT = 0
+INFERENCE_TOP_P = "top_p"
+INFERENCE_TOP_P_DEFAULT = 1.0
+INFERENCE_SAMPLING_SEED = "sampling_seed"
+INFERENCE_SAMPLING_SEED_DEFAULT = 0
+INFERENCE_KV_LAYOUT = "kv_layout"
+INFERENCE_KV_LAYOUT_DEFAULT = "ring"
+INFERENCE_PAGE_SIZE = "page_size"
+INFERENCE_PAGE_SIZE_DEFAULT = 0
+INFERENCE_N_PAGES = "n_pages"
+INFERENCE_N_PAGES_DEFAULT = 0
+INFERENCE_PREFIX_CACHE = "prefix_cache"
+INFERENCE_PREFIX_CACHE_DEFAULT = True
+INFERENCE_HOST_PARK_THRESHOLD = "host_park_threshold"
+INFERENCE_HOST_PARK_THRESHOLD_DEFAULT = 0.25
+INFERENCE_REPLICAS = "replicas"
+INFERENCE_REPLICAS_DEFAULT = 1
+INFERENCE_MAX_REDISPATCH = "max_redispatch"
+INFERENCE_MAX_REDISPATCH_DEFAULT = 2
+INFERENCE_MAX_QUEUE_DEPTH = "max_queue_depth"
+INFERENCE_MAX_QUEUE_DEPTH_DEFAULT = 8
+INFERENCE_DEADLINE_S = "deadline_s"
+INFERENCE_DEADLINE_S_DEFAULT = 0.0
+INFERENCE_QUEUE_TIMEOUT_S = "queue_timeout_s"
+INFERENCE_QUEUE_TIMEOUT_S_DEFAULT = 0.0
+INFERENCE_DISAGGREGATED = "disaggregated"
+INFERENCE_DISAGGREGATED_DEFAULT = False
+INFERENCE_PREFILL_WORKERS = "prefill_workers"
+INFERENCE_PREFILL_WORKERS_DEFAULT = 1
+INFERENCE_DECODE_WORKERS = "decode_workers"
+INFERENCE_DECODE_WORKERS_DEFAULT = 1
+INFERENCE_PREFILL_MAX_BATCH = "prefill_max_batch"
+INFERENCE_PREFILL_MAX_BATCH_DEFAULT = 0
+INFERENCE_DECODE_MAX_BATCH = "decode_max_batch"
+INFERENCE_DECODE_MAX_BATCH_DEFAULT = 0
+INFERENCE_SPECULATIVE = "speculative"
+INFERENCE_SPECULATIVE_ENABLED = "enabled"
+INFERENCE_SPECULATIVE_ENABLED_DEFAULT = False
+INFERENCE_SPECULATIVE_K = "k"
+INFERENCE_SPECULATIVE_K_DEFAULT = 4
+INFERENCE_SPECULATIVE_DRAFT_LAYERS = "draft_layers"
+INFERENCE_SPECULATIVE_DRAFT_LAYERS_DEFAULT = 0
+INFERENCE_SPECULATIVE_MIN_ACCEPT_TO_GROW = "min_accept_to_grow"
+INFERENCE_SPECULATIVE_MIN_ACCEPT_TO_GROW_DEFAULT = 0.0

@@ -132,7 +132,7 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.ops.adam.fused_adam import init_adam_state
-from deepspeed_tpu_torch.ops.flash_attention import fold_in_seed
+from deepspeed_tpu_torch.ops.flash_attention import fold_in_seed, global_rows
 from deepspeed_tpu_torch.ops.fused_adam import fused_adam_update
 from deepspeed_tpu_torch.runtime.config import (
     ADAM_OPTIMIZER,
@@ -318,7 +318,7 @@ class DeepSpeedEngine:
 
         if self._config.fp16_enabled:
             self.compute_dtype = torch.float16
-        elif self._config.bf16_enabled:
+        elif self._config.bf16_enabled or self._config.amp_enabled:
             self.compute_dtype = torch.bfloat16
         else:
             self.compute_dtype = torch.float32
@@ -547,7 +547,9 @@ class DeepSpeedEngine:
                          self._parts[i] if self._parts else None)
                         for i, p in enumerate(self.params)],
                 self.compute_dtype, self.comm, gather=stage == 3,
-                prefetch=bool(zc.prefetch))
+                prefetch=bool(zc.prefetch),
+                gather_chunks=int(zc.gather_chunks),
+                bidirectional=bool(zc.bidirectional))
 
     def _owners(self, model):
         """``(module, name)`` owning each trained param."""
@@ -593,10 +595,16 @@ class DeepSpeedEngine:
         return hook
 
     def _loss(self, batch, seed):
-        """``loss_fn`` with the compute-dtype params in the model."""
-        if self._installer is None:
-            return self.loss_fn(batch, seed)
-        with self._installer.forward():
+        """``loss_fn`` with the compute-dtype params in the model, over
+        this rank's rows of a global batch: rank r's ``n`` rows are the
+        global rows ``[r*n, (r+1)*n)`` (JAX ``_shard_batch`` and
+        ``_place_rows`` assemble each micro-batch from the processes'
+        rows in rank order), and the models draw those rows' dropout
+        masks (``global_rows``)."""
+        rows = next(iter(batch.values())).shape[0]
+        install = self._installer.forward() if self._installer is not None \
+            else contextlib.nullcontext()
+        with global_rows(self.dp_rank * rows, self.dp_rank), install:
             return self.loss_fn(batch, seed)
 
     def _backward(self, loss, scale):
@@ -997,16 +1005,25 @@ class DeepSpeedEngine:
 
     @torch.no_grad()
     def eval_batch(self, batch):
-        """Forward-only loss over a batch (no dropout, no state change)."""
+        """Forward-only loss over the global batch (no dropout, no state
+        change; JAX ``engine.py:2806``): each process passes its rows,
+        and the ranks' losses are averaged over the data group, as
+        :meth:`train_batch` averages its loss."""
         self._wait_for_params()
-        return self._loss(self._to_device(batch), None)
+        loss = self._loss(self._to_device(batch), None)
+        if self.comm.active:
+            loss = self.comm.mean_scalar(loss)
+        return loss
 
     # ------------------------------------------------------------------
     # forward/backward/step API (``engine.py:2837-2928``)
     # ------------------------------------------------------------------
     def forward(self, batch):
-        """The micro-batch loss, with its autograd graph for
-        :meth:`backward`."""
+        """This rank's micro-batch loss, with dropout and its autograd
+        graph, for :meth:`backward` to differentiate. JAX's ``forward``
+        returns :meth:`eval_batch`'s global value instead and recomputes
+        the gradient in ``backward``; the port keeps the graph of the
+        loss it returns (``ROADMAP.md`` §3)."""
         seed = self._step_seed(1, self.micro_steps)
         self._wait_for_params()
         self._pending_loss = self._loss(self._to_device(batch), seed)

@@ -11,9 +11,11 @@ injection.
   decode failures, page corruption, checkpoint I/O failures, host-Adam
   worker failures).
 - :mod:`checksums` — per-leaf CRC32 stamps.
+- :mod:`preemption` — the SIGTERM latch the serving fleet's workers
+  check between steps.
 
-Step health guards, the hot in-memory tier and SIGTERM preemption are
-not ported yet.
+Step health guards, the hot in-memory tier and the training engine's
+preemption checkpoints are not ported yet.
 """
 
 from deepspeed_tpu_torch.runtime.resilience.checkpoint import (

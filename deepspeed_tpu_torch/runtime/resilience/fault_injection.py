@@ -17,11 +17,16 @@ test armed the matching fault.
 - ``io_failure`` — :func:`maybe_fail_io` raises :class:`InjectedIOError`
   (an ``OSError``) inside a checkpoint save or load, after the state
   files are staged and before the checkpoint is published.
+- ``heartbeat_stall`` — :func:`heartbeat_stall_seconds` tells a serving
+  replica worker to stop writing heartbeats for a while (it looks dead
+  without dying).
 - ``host_adam`` — :func:`maybe_fail_host_adam` raises
   :class:`InjectedHostAdamError` when a host-Adam range update starts,
   before the C++ kernel touches any buffer.
 
-Use :func:`clear_faults` to disarm everything between tests.
+Use :func:`clear_faults` to disarm everything between tests;
+:func:`arm_from_env` arms a subprocess replica from
+``DS_TPU_SERVE_INJECT``.
 """
 
 import os
@@ -171,3 +176,71 @@ def maybe_fail_host_adam():
         entry["times"] -= 1
         _pop_if_exhausted("host_adam", entry)
     raise InjectedHostAdamError("injected host-Adam worker failure")
+
+
+# --------------------------------------------------------------------------
+# Serving: heartbeat stall (replica looks dead without dying)
+# --------------------------------------------------------------------------
+
+def inject_heartbeat_stall(at_step, seconds):
+    """Arm a one-shot heartbeat blackout: from the first scheduler step
+    >= ``at_step`` the replica worker suppresses heartbeat writes for
+    ``seconds`` while continuing to serve."""
+    with _lock:
+        _faults["heartbeat_stall"] = {"at_step": int(at_step),
+                                      "seconds": float(seconds)}
+
+
+def heartbeat_stall_seconds(step):
+    """Seconds the replica should suppress heartbeat writes starting at
+    ``step`` (0.0 = not armed). Fires exactly once."""
+    with _lock:
+        entry = _faults.get("heartbeat_stall")
+        if entry is not None and int(step) >= entry["at_step"]:
+            _faults.pop("heartbeat_stall", None)
+            return entry["seconds"]
+    return 0.0
+
+
+# --------------------------------------------------------------------------
+# Env-var arming (subprocess serving replicas)
+# --------------------------------------------------------------------------
+
+INJECT_ENV = "DS_TPU_SERVE_INJECT"
+
+
+def arm_from_env(env=None):
+    """Arm faults described by the ``DS_TPU_SERVE_INJECT`` env var, a
+    JSON object like ``{"kill": {"op": "decode_step", "at_step": 4},
+    "decode_exception": {"at_step": 2}, "heartbeat_stall": {"at_step":
+    3, "seconds": 30}, "page_corruption": {}}``. Subprocess replica
+    workers call this on startup (first attempt only); returns the list
+    of armed fault names."""
+    import json
+    raw = (env if env is not None else os.environ).get(INJECT_ENV)
+    if not raw:
+        return []
+    spec = json.loads(raw)
+    armed = []
+    if "kill" in spec:
+        k = spec["kill"] or {}
+        inject_kill(op=k.get("op", "decode_step"),
+                    at_step=k.get("at_step"),
+                    signum=int(k.get("signum", signal.SIGKILL)))
+        armed.append("kill")
+    if "decode_exception" in spec:
+        d = spec["decode_exception"] or {}
+        inject_decode_exception(at_step=d.get("at_step", 0),
+                                times=d.get("times", 1))
+        armed.append("decode_exception")
+    if "heartbeat_stall" in spec:
+        h = spec["heartbeat_stall"] or {}
+        inject_heartbeat_stall(at_step=h.get("at_step", 0),
+                               seconds=h.get("seconds", 60.0))
+        armed.append("heartbeat_stall")
+    if "page_corruption" in spec:
+        p = spec["page_corruption"] or {}
+        inject_page_corruption(session_id=p.get("session_id"),
+                               times=p.get("times", 1))
+        armed.append("page_corruption")
+    return armed

@@ -88,6 +88,57 @@ class Comm:
         self._record("all_gather", _nbytes(out))
         return work
 
+    def all_gather_striped(self, out, inp, chunks=1, bidirectional=False,
+                           async_op=False):
+        """:meth:`all_gather` of ``inp`` into ``out`` in ``chunks``
+        collectives: stripe c of every rank's ``inp`` (a contiguous
+        ``ceil(n / chunks)`` elements) is gathered by collective c and
+        copied into place, so ``out`` holds what one all-gather writes,
+        bit for bit (the stripes only move data). This is the port of
+        the JAX stage-3 ``gather_chunks`` (``stage3.py``), whose stripes
+        are ``ppermute`` rounds of the TPU ring; NCCL and gloo schedule
+        each collective's ring or tree themselves, so a stripe is the
+        unit the port can shape. ``bidirectional`` issues the stripes
+        alternately from the front and the back of the leaf (0, C-1, 1,
+        C-2, ...), the nearest a library collective comes to the JAX
+        ring's alternating direction: NCCL already drives both
+        directions of each NVLink within every collective, and gloo's
+        ring runs one way; on either it reorders the collectives and
+        never changes a result. Each stripe lands in a buffer of its own
+        and is copied into place, so on NCCL and gloo ``chunks > 1``
+        costs one extra copy of the gathered leaf over one all-gather:
+        the two keys keep the JAX config's meaning, not a speed-up.
+        With ``async_op`` returns a handle whose
+        ``wait()`` waits for every stripe and copies them into ``out``;
+        else None."""
+        if chunks <= 1:
+            return self.all_gather(out, inp, async_op=async_op)
+        inp = inp.reshape(-1)
+        n = inp.numel()
+        step = max(1, -(-n // chunks))
+        stripes = [(lo, min(lo + step, n)) for lo in range(0, n, step)]
+        if bidirectional:
+            front, back = 0, len(stripes) - 1
+            order = []
+            while front <= back:
+                order.append(front)
+                if back != front:
+                    order.append(back)
+                front, back = front + 1, back - 1
+            stripes = [stripes[c] for c in order]
+        world = out.numel() // max(n, 1)
+        parts = []
+        for lo, hi in stripes:
+            buf = torch.empty(world * (hi - lo), dtype=out.dtype,
+                              device=out.device)
+            work = self.all_gather(buf, inp[lo:hi], async_op=async_op)
+            parts.append((lo, hi, buf, work))
+        handle = _Striped(out.view(world, n), parts)
+        if async_op:
+            return handle
+        handle.wait()
+        return None
+
     def barrier(self):
         if self.active:
             import torch.distributed as dist
@@ -109,3 +160,19 @@ class Comm:
         y = flag.to(torch.float32).reshape(1)
         self.all_reduce(y, "max", stat=True)
         return (y > 0).reshape(())
+
+
+class _Striped:
+    """The pending stripes of :meth:`Comm.all_gather_striped`."""
+
+    def __init__(self, out, parts):
+        self.out = out              # [world, n] view of the output
+        self.parts = parts          # (lo, hi, gathered buffer, work)
+
+    def wait(self):
+        world = self.out.shape[0]
+        for lo, hi, buf, work in self.parts:
+            if work is not None:
+                work.wait()
+            self.out[:, lo:hi].copy_(buf.view(world, hi - lo))
+        self.parts = []

@@ -5,8 +5,8 @@ boolean form ``"zero_optimization": true``, the deprecated
 
 The port reads every key; what runs is decided in ``runtime/config.py``:
 stages 0-3 over the data-parallel processes, with or without
-``cpu_offload``; ``gather_chunks > 1`` and ``bidirectional`` raise "not
-yet ported".
+``cpu_offload``; ``gather_chunks`` and ``bidirectional`` shape the
+stage-3 gathers (``runtime/zero/comm.py:Comm.all_gather_striped``).
 """
 
 from deepspeed_tpu_torch.runtime.zero.constants import (

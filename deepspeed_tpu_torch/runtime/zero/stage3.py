@@ -109,12 +109,17 @@ class ParamInstaller:
     :class:`~deepspeed_tpu_torch.runtime.zero.comm.Comm`.
     """
 
-    def __init__(self, model, leaves, dtype, comm, gather, prefetch=True):
+    def __init__(self, model, leaves, dtype, comm, gather, prefetch=True,
+                 gather_chunks=1, bidirectional=False):
         self.model = model
         self.dtype = dtype
         self.comm = comm
         self.gather = bool(gather)
         self.prefetch = bool(prefetch) and self.gather
+        # each gather striped into this many collectives
+        # (``Comm.all_gather_striped``)
+        self.gather_chunks = int(gather_chunks)
+        self.bidirectional = bool(bidirectional)
         self.leaves = [_Leaf(*x) for x in leaves]
         self._by_module = {}
         for i, leaf in enumerate(self.leaves):
@@ -157,8 +162,8 @@ class ParamInstaller:
         sizes = [leaf.part.numel * item for leaf in self.leaves
                  if leaf.part.sharded]
         return Zero3Plan(
-            gather_leaves=len(sizes), gather_chunks=1,
-            prefetch=self.prefetch, bidirectional=False,
+            gather_leaves=len(sizes), gather_chunks=self.gather_chunks,
+            prefetch=self.prefetch, bidirectional=self.bidirectional,
             max_gather_bytes=max(sizes, default=0),
             total_gather_bytes=sum(sizes))
 
@@ -291,7 +296,7 @@ class ParamInstaller:
         src = leaf.master.detach().to(self.dtype)
         flat = torch.empty(leaf.part.numel, dtype=self.dtype,
                            device=src.device)
-        work = self.comm.all_gather(flat, src, async_op=True)
+        work = self._all_gather(flat, src, async_op=True)
         self.gathers += 1
         self._pending[i] = (flat, work, src)
 
@@ -309,9 +314,14 @@ class ParamInstaller:
             src = leaf.master.detach().to(self.dtype)
             flat = torch.empty(leaf.part.numel, dtype=self.dtype,
                                device=src.device)
-            self.comm.all_gather(flat, src)
+            self._all_gather(flat, src)
             self.gathers += 1
         return leaf.part.from_gathered(flat)
+
+    def _all_gather(self, flat, src, async_op=False):
+        return self.comm.all_gather_striped(
+            flat, src, self.gather_chunks, self.bidirectional,
+            async_op=async_op)
 
     def _regathered(self, i):
         """Leaf ``i`` gathered again for the backward (once per
@@ -322,7 +332,7 @@ class ParamInstaller:
             src = leaf.master.detach().to(self.dtype)
             flat = torch.empty(leaf.part.numel, dtype=self.dtype,
                                device=src.device)
-            self.comm.all_gather(flat, src)
+            self._all_gather(flat, src)
             self.regathers += 1
             self._bwd[i] = flat
         return flat

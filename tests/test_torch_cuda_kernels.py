@@ -527,6 +527,41 @@ def test_block_sparse_kernels_match_plain_versions(cuda, block, causal,
         torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_sparse_kernels_at_a_head_offset_match_plain_versions(cuda,
+                                                                   dtype):
+    """A data-parallel rank's rows: K7/K8a/K8b with dropout at a nonzero
+    ``dropout_head_offset`` against their plain versions."""
+    bsa = importlib.import_module(BSA)
+    rng = np.random.default_rng(11)
+    block, b, h, d = 64, 2, 3, 64
+    t = 4 * block
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((b, t, h, d)).astype(
+        np.float32)).to(cuda, dtype) for _ in range(4))
+    lut, nnz, lut_t, nnz_t = bsa.layout_tables(
+        _sparse_layout(block, t, h, False), cuda)
+    kw = dict(dropout_rate=0.1, dropout_seed=-99,
+              dropout_head_offset=5 * b * h)
+    out, lse = bsa.block_sparse_attention_fwd(q, k, v, lut, nnz, block, **kw)
+    want_out, want_lse = bsa.block_sparse_attention_fwd_reference(
+        q, k, v, lut, nnz, block, **kw)
+    delta = (g.float() * want_out.float()).sum(-1).permute(0, 2, 1) \
+        .reshape(b * h, t).contiguous()
+    dq = bsa.block_sparse_attention_bwd_dq(q, k, v, g, want_lse, delta, lut,
+                                           nnz, block, **kw)
+    dk, dv = bsa.block_sparse_attention_bwd_dkv(q, k, v, g, want_lse, delta,
+                                                lut_t, nnz_t, block, **kw)
+    want = [bsa.block_sparse_attention_bwd_dq_reference(
+        q, k, v, g, want_lse, delta, lut, nnz, block, **kw),
+        *bsa.block_sparse_attention_bwd_dkv_reference(
+            q, k, v, g, want_lse, delta, lut_t, nnz_t, block, **kw)]
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    for got, ref in zip((out, dq, dk, dv), (want_out, *want)):
+        torch.testing.assert_close(got.float(), ref.float(), atol=tol,
+                                   rtol=tol)
+
+
 def _sparse_results(cuda, block, causal, rate, dtype, d, seed, b=2, h=3):
     """K7, K8a and K8b against their plain versions on one input set:
     ``{name: (got, want, rtol)}`` at chip_smoke.py's gate, and the

@@ -133,3 +133,34 @@ def test_scan_covers_the_training_slice_and_every_kernel_wrapper():
         "ops/sparse_attention/bert_sparse_self_attention")}
     assert len(wrappers) == 4
     assert wrappers | training | serving | bert <= scanned
+
+
+@pytest.mark.parametrize("module", [
+    "inference/router.py", "inference/fleet.py", "inference/fleet_worker.py",
+    "inference/disagg.py", "runtime/supervisor/state.py",
+    "runtime/supervisor/supervisor.py", "telemetry/watchdog.py",
+    "runtime/resilience/preemption.py"])
+def test_the_scan_covers_the_serving_fleet_modules(module):
+    path = os.path.join(REPO, "deepspeed_tpu_torch", module)
+    assert path in set(_sources())
+    assert not set(_imported_roots(path)) & set(FORBIDDEN)
+
+
+def test_fleet_worker_without_a_device_needs_the_card(tmp_path):
+    """A worker whose spec names no device runs on the card, and with
+    no card it fails (exit 1, "no CUDA device") instead of serving on
+    the CPU."""
+    import json
+    import subprocess
+    import sys
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               DS_TPU_SERVE_SPEC=json.dumps({"inf_cfg": {}, "seed": 0}),
+               DS_TPU_RUN_WORKDIR=str(tmp_path),
+               PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-m", "deepspeed_tpu_torch.inference.fleet_worker"],
+        cwd=str(tmp_path), env=env, capture_output=True, text=True,
+        timeout=120, input="")
+    assert proc.returncode == 1
+    assert "no CUDA device" in proc.stderr
+    assert proc.stdout == ""        # nothing reached the wire

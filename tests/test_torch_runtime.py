@@ -107,13 +107,15 @@ def test_json_file_load(tmp_path):
                                    "progressive_layer_drop", "fp8",
                                    "telemetry"])
 def test_unported_blocks_raise(block):
-    # ZeRO stages 0-3 are ported; the JAX ring's bidirectional stage-3
-    # gathers are not
-    body = {"stage": 3, "bidirectional": True} \
-        if block == "zero_optimization" else {}
+    # ZeRO stages 0-3 and the stage-3 gather schedule are ported; the
+    # fp8 gather wire (with the fp8 section) is not
+    cfg = {"train_batch_size": 8, "bf16": {"enabled": True}, block: {}}
+    if block == "zero_optimization":
+        cfg.update(zero_optimization={"stage": 3, "gather_chunks": 2,
+                                      "bidirectional": True},
+                   fp8={"enabled": True})
     with pytest.raises(ValueError, match="not yet ported"):
-        DeepSpeedConfig({"train_batch_size": 8, "bf16": {"enabled": True},
-                         block: body})
+        DeepSpeedConfig(cfg)
 
 
 # ---------------------------------------------------------------------------

@@ -158,9 +158,14 @@ def test_config_rejects_what_jax_rejects(jax_params):
                 {"attention_block_k": 12}, {"kv_cache_dtype": "int4"}):
         with pytest.raises(ValueError):
             _port_engine(params, **bad)
-    for unported in ({"tier": "prefill"}, {"tier": "decode"}):
-        with pytest.raises(ValueError, match="not yet ported"):
-            _port_engine(params, **unported)
+    # tiers are ported (disaggregated serving): a tier needs the paged
+    # layout, as JAX's engine checks, and a tier name it knows
+    for bad in ({"tier": "prefill"}, {"tier": "decode"},
+                {"tier": "both", "kv_layout": "paged"}):
+        with pytest.raises(ValueError, match="paged|tier must be"):
+            _port_engine(params, **bad)
+    assert _port_engine(params, tier="decode", kv_layout="paged",
+                        page_size=8).tier == "decode"
 
 
 def test_scheduler_timeouts_and_telemetry(jax_params, tmp_path):

@@ -205,11 +205,10 @@ def test_initialize_defaults_to_cuda_and_rejects_unported(jax_params,
         initialize(model=model, config=BASE)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         initialize(model=model, config=BASE, mpu=object(), device="cpu")
-    # ZeRO stages run; the JAX ring's gather striping does not
+    # ZeRO stages and their gather striping run; the pipeline does not
     with pytest.raises(ValueError, match="not yet ported"):
         initialize(model=model, config=dict(
-            BASE, zero_optimization={"stage": 3, "gather_chunks": 2}),
-            device="cpu")
+            BASE, pipeline={"stages": 2}), device="cpu")
     with pytest.raises(NotImplementedError, match="lamb"):
         initialize(model=model, config=dict(
             BASE, optimizer={"type": "Lamb", "params": {}}), device="cpu")

@@ -115,6 +115,11 @@ def jax_config(case):
         cfg["zero_optimization"] = zero
     if case.get("clip"):
         cfg["gradient_clipping"] = case["clip"]
+    if case.get("amp"):
+        # bf16 compute asked for by the amp key instead of bf16's
+        del cfg["bf16"]
+        cfg["amp"] = {"enabled": True}
+    cfg.update(case.get("keys", {}))
     return cfg
 
 

@@ -61,6 +61,11 @@ def engine_config(case):
         cfg["zero_optimization"] = zero
     if case.get("clip"):
         cfg["gradient_clipping"] = case["clip"]
+    if case.get("amp"):
+        # bf16 compute asked for by the amp key instead of bf16's
+        del cfg["bf16"]
+        cfg["amp"] = {"enabled": True}
+    cfg.update(case.get("keys", {}))
     return cfg
 
 
@@ -248,8 +253,117 @@ def run_checkpoint(case, state, world, rank, out):
     return res, {}
 
 
+def run_eval(case, state, world, rank, out):
+    """``eval_batch`` over rank r's rows ``[r*n, (r+1)*n)`` of a global
+    batch (JAX ``_place_rows``), and ``forward`` of the same rows."""
+    engine = build(case, state)
+    x = global_batches(case)[0]
+    n = x.shape[0] // world
+    mine = {"input_ids": x[rank * n:(rank + 1) * n]}
+    loss = engine.eval_batch(mine)
+    return {"eval": np.array(float(loss)),
+            "forward": np.array(float(engine.forward(mine)))}, {}
+
+
+def _recording(module, name, calls, kind):
+    """Wrap ``module.name`` (an attention entry taking q first) so each
+    call appends its dropout coordinates to ``calls``."""
+    inner = getattr(module, name)
+
+    def wrapped(q, *args, **kw):
+        if kw.get("dropout_rate"):
+            calls.append({"kind": kind, "shape": list(q.shape),
+                          "seed": int(kw["dropout_seed"]),
+                          "offset": int(kw.get("dropout_head_offset", 0)),
+                          "rate": float(kw["dropout_rate"])})
+        return inner(q, *args, **kw)
+
+    setattr(module, name, wrapped)
+
+
+def bert_batches(case):
+    rng = np.random.default_rng(case.get("data_seed", 0))
+    n, t = case.get("batch", 8), 64
+    out = []
+    for _ in range(case.get("steps", 1)):
+        labels = np.full((n, t), -100, np.int64)
+        labels[:, ::7] = rng.integers(0, 256, labels[:, ::7].shape)
+        out.append({"input_ids": rng.integers(0, 256, (n, t))
+                    .astype(np.int32), "labels": labels})
+    return out
+
+
+def run_dropout(case, state, world, rank, out):
+    """Training with dropout 0.1: the dropout coordinates of every
+    attention call of one ``train_batch`` (K1 ``flash_attention_fwd``,
+    ``dense_attention``, K7 ``block_sparse_attention_fwd``), then the
+    ``forward`` loss of rows every rank is given alike."""
+    import importlib
+    fa = importlib.import_module("deepspeed_tpu_torch.ops.flash_attention")
+    bsa = importlib.import_module(
+        "deepspeed_tpu_torch.ops.sparse_attention.block_sparse_attention")
+    calls = []
+    _recording(fa, "flash_attention_fwd", calls, "flash")
+    _recording(fa, "dense_attention", calls, "dense")
+    _recording(bsa, "block_sparse_attention_fwd", calls, "sparse")
+    accum = case.get("accum", 2)
+    if case.get("bert"):
+        from deepspeed_tpu_torch.models import bert as tbert
+        from deepspeed_tpu_torch.ops.sparse_attention import (
+            FixedSparsityConfig,
+        )
+        cfg = tbert.bert_tiny(
+            dtype=torch.float32, hidden_dropout_prob=0.1,
+            attention_probs_dropout_prob=0.1,
+            sparse_attention=FixedSparsityConfig(4, block=16,
+                                                 num_local_blocks=2))
+        model = tbert.BertForMaskedLM(
+            cfg, device="cpu",
+            generator=torch.Generator().manual_seed(0))
+        engine, _, _, _ = initialize(model=model,
+                                     config=engine_config(case),
+                                     device="cpu")
+        x = bert_batches(case)[0]
+        mine = {k: local_rows(v, accum, world, rank) for k, v in x.items()}
+        same = {k: v[:2] for k, v in x.items()}
+    else:
+        engine = build(dict(case, model=dict(case.get("model", {}),
+                                             dropout=0.1)), state)
+        x = global_batches(case)[0]
+        mine = {"input_ids": local_rows(x, accum, world, rank)}
+        same = {"input_ids": x[:2]}
+    engine.train_batch(mine)
+    step_calls = list(calls)
+    loss = float(engine.forward(same))
+    return {"forward": np.array(loss)}, {"calls": step_calls}
+
+
+def run_gather(case, state, world, rank, out):
+    """``Comm.all_gather_striped`` of each rank's random piece at 1, 2,
+    3 and 4 stripes, each way, against one all-gather."""
+    from deepspeed_tpu_torch.runtime.zero.comm import Comm
+    comm = Comm()
+    gen = torch.Generator().manual_seed(100 + rank)
+    res = {}
+    for n in (1, 7, 64, 1001):
+        for dtype in (torch.float32, torch.bfloat16):
+            piece = torch.randn(n, generator=gen).to(dtype)
+            for chunks in (1, 2, 3, 4):
+                for bidir in (False, True):
+                    flat = torch.full((world * n,), float("nan"),
+                                      dtype=dtype)
+                    handle = comm.all_gather_striped(
+                        flat, piece, chunks, bidir, async_op=bidir)
+                    if handle is not None:
+                        handle.wait()
+                    res[f"{n}/{str(dtype)[6:]}/{chunks}/{int(bidir)}"] = \
+                        flat.float().numpy()
+    return res, {"counts": comm.snapshot()}
+
+
 RUNNERS = {"train": run_train, "overflow": run_overflow,
-           "loader": run_loader, "checkpoint": run_checkpoint}
+           "loader": run_loader, "checkpoint": run_checkpoint,
+           "eval": run_eval, "dropout": run_dropout, "gather": run_gather}
 
 
 def main():
