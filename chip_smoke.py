@@ -12,6 +12,8 @@ main paths.
     python3 chip_smoke.py --kernels-only  # device, build, kernel checks
     python3 chip_smoke.py --offload-only  # device, build, phases 17-19
     python3 chip_smoke.py --zero-only     # device, build, phase 13
+    python3 chip_smoke.py --features-only # device, build, phases 13a
+                                          # and 16a
     python3 chip_smoke.py --serving-only  # device, build, phases 14
                                           # and 9a-9c
     python3 chip_smoke.py --turns DIR     # device, build, then K1-K8
@@ -78,7 +80,10 @@ Phases, each printing one JSON line:
    one arrival per decode step). Checks: every request completes,
    ``compile_counts() == {"prefill": 1, "decode": 1}``, the kernel ran
    n_layer times per decode step (K6 never), and teacher-forced decode
-   logits of the flash engine match a dense engine on the same params.
+   logits of the flash engine match a dense engine on the same params;
+   in f32 (bf16 row), 8 requests' greedy streams of the ``scan_layers``
+   model (the same weights stacked, a stacked ring cache) equal the
+   unrolled model's, with as many K5 launches.
 8. ``serve_paged`` — the same model on the paged pool (page size 128,
    33 pages) with flash decode, bf16 and int8 KV: a warmup request, 24
    requests of a shared 256-token system prompt plus 8-120 tokens of
@@ -89,13 +94,16 @@ Phases, each printing one JSON line:
    decode step and K5 never, prefix hits, skipped prefill chunks and
    pages paged back in; teacher-forced logits of the paged flash engine
    against a paged dense and a ring flash engine; in f32, 8 requests'
-   greedy streams paged == ring. Reports tokens/s, latency, peak memory
+   greedy streams paged == ring, and the ``scan_layers`` model's paged
+   streams == the unrolled one's (as many K6 launches). Reports tokens/s, latency, peak memory
    and cache bytes per session, paged against ring.
 9. ``serve_speculative`` — the paged flash engine with self-speculative
    decoding (k 4, 6 draft layers, greedy): 3 programs with decode at 0,
    K6 6 times per draft call, at least one token per live row per round;
-   in f32, 8 requests' streams equal the plain paged engine's. Reports
-   rounds, mean accepted tokens per row-round and tokens/s.
+   in f32, 8 requests' streams equal the plain paged engine's, and the
+   ``scan_layers`` model's (its draft the stack's first 6 layers) equal
+   them too, with 3 programs. Reports rounds, mean accepted tokens per
+   row-round and tokens/s.
 9a. ``serve_checkpoint`` — GPT-2 125M trained one step through
    ``initialize`` (bf16), saved with ``save_checkpoint``, served by
    ``serve --checkpoint --n-head 12`` (ring, int8 KV, flash decode K5,
@@ -176,7 +184,27 @@ Phases, each printing one JSON line:
    in the backward and a reduce-scatter of P); stage 3 gathers every
    leaf twice a step; losses and fp32 masters equal stage 0's bit for
    bit (when stage 0 repeats itself bit for bit; else losses within
-   the ``train`` phase's 5e-3). The group is destroyed after it.
+   the ``train`` phase's 5e-3). Then stage 3 with the fp8 wire
+   (``fp8.wire``, f8e4m3fn in chunks of 512): the gathered params equal
+   the exact gather (world 1: the rank's own piece, placed exactly), each
+   piece's codec round trip within its bound, all-gather bytes a step 2
+   x the wire's ``wire_nbytes``; and stage 0 with ``sparse_gradients``:
+   the tied ``wte``'s dense fallback counted. Both equal their stage's
+   losses and masters bit for bit. The group is destroyed after it.
+13a. ``train_features`` — the ``train`` row (GPT-2 350M, 8 x 1024, bf16,
+   flash), 4 steps a run from the same seeded params: the unrolled
+   baseline; ``scan_layers`` (losses and fp32 masters equal bit for
+   bit); progressive layer drop (theta 0.5 from step 1: K1-K3 launches
+   a step equal to the kept attention sublayers, below 24; the kept
+   share); LAMB (falling losses; one step through forward / backward /
+   step against the plain ``lamb_update`` on host copies, rtol 1e-6 plus
+   1e-7 of the largest master); fp8 (4 state keys a layer, the discovery
+   forward on step 1, history slots filling one a step); GPT-2's blocks
+   checkpointed through the activation checkpointing module: remat
+   ``dots`` (the module's ``dots`` policy), and a loss that runs each
+   block under ``checkpoint(..., policy="offload")`` (losses equal the
+   baseline's bit for bit, peak memory below it). Reports each run's
+   step p50, peak memory and launches against the baseline.
 
 14. ``sparse_kernel_check`` (also under ``--kernels-only``) — block-sparse
    K7 (out, lse), K8a (dq) and K8b (dk, dv) against their plain versions:
@@ -220,6 +248,13 @@ Phases, each printing one JSON line:
    accumulation 2 on the kernels and again on ``masked_dense_attention``:
    losses within a bf16 tolerance, first micro-batch attn_qkvw
    gradients within a relative tolerance.
+16a. ``train_bert_ckpt`` — the same BERT-Large (dropout 0.1,
+   accumulation 2) for 2 steps with ``normalize_invertible``,
+   ``gelu_checkpoint`` and ``attn_dropout_checkpoint`` on every layer,
+   against the same 2 steps without them: losses, the first
+   micro-batch's gradients and the masters equal bit for bit; K7 twice a
+   layer and micro-batch (the attention recompute), K8a/K8b once; peak
+   memory of both.
 
 17. ``train_offload`` — GPT-2 1.5B (n_embd 1600, 48 layers, 25 heads,
    vocab 50257, n_positions 1024; seeded random weights built on the
@@ -252,9 +287,12 @@ Phases, each printing one JSON line:
 
 Then the phases' walls, the ``kernels`` summary line (K7/K8 entries name
 their design; K1-K4 count the ``train`` path's launches and give the
-``train_zero`` path's as ``zero_launches`` and the ``train_offload``
-path's as ``offload_launches``; K5 and K6 count every serving path's,
-each also given apart: ``serve_launches``, ``checkpoint_launches``,
+``train_zero`` path's as ``zero_launches``, the ``train_features``
+path's as ``features_launches`` and the ``train_offload`` path's as
+``offload_launches``; K7/K8 add ``train_bert_ckpt``'s as
+``bert_ckpt_launches``; K5 and K6 count every serving path's,
+each also given apart: ``serve_launches``, ``scan_layers_launches``,
+``checkpoint_launches``,
 ``process_fleet_launches``, ``thread_fleet_launches``,
 ``disagg_launches``, ``thread_tier_launches``,
 ``process_tier_launches``),
@@ -1104,21 +1142,27 @@ def phase_paged_kernel_timing(torch):
     return results
 
 
-def _make_model(torch, seed, dtype=None):
-    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHead, gpt2_125m
+def _make_model(torch, seed, dtype=None, scan_layers=False):
+    """GPT-2 125M from ``seed``; with ``scan_layers`` the same weights
+    stacked (``models/gpt2.py:with_layout``)."""
+    from deepspeed_tpu_torch.models.gpt2 import (
+        GPT2LMHead, gpt2_125m, with_layout)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     cfg = gpt2_125m() if dtype is None else gpt2_125m(dtype=dtype)
-    return GPT2LMHead(cfg, device="cuda", generator=gen)
+    return with_layout(GPT2LMHead(cfg, device="cuda", generator=gen),
+                       scan_layers)
 
 
-def _engine(torch, kv, impl, session=None, dtype=None, **extra):
+def _engine(torch, kv, impl, session=None, dtype=None, scan_layers=False,
+            **extra):
     """GPT-2 125M at the repo's serving row (max_batch 8, buckets 128 /
     512, prefill chunk 64) from seed 0; ``extra`` adds config keys
     (``kv_layout``, ``host_park_threshold``, ``speculative``)."""
     from deepspeed_tpu_torch.inference.engine import InferenceEngine
     return InferenceEngine(
-        _make_model(torch, 0, dtype), session=session, device="cuda",
+        _make_model(torch, 0, dtype, scan_layers), session=session,
+        device="cuda",
         config={"max_batch": B, "seq_buckets": (128, 512),
                 "prefill_chunk": 64, "kv_cache_dtype": kv,
                 "attention_impl": impl, **extra})
@@ -1326,6 +1370,13 @@ def phase_serve(torch, kv):
     row["decode_profile"] = _profile_decode(torch, engine)
     row["paged_kernel_launches"] = paged_launches
     del engine, sched
+    if kv is None:
+        equal, plain_l, scan_l, scan_counts = _scan_layers_streams(
+            torch, Request, ContinuousBatchingScheduler, flash_decode)
+        row.update(f32_greedy_scan_layers_equals_unrolled=equal,
+                   scan_layers_kernel_launches=scan_l,
+                   unrolled_stream_kernel_launches=plain_l,
+                   scan_layers_compile_counts=scan_counts)
     (diff,), scale = _teacher_forced_diff(torch, kv)
     row.update(teacher_forced_max_abs_diff=diff,
                teacher_forced_logit_scale=scale,
@@ -1344,7 +1395,23 @@ def phase_serve(torch, kv):
     if not diff <= TEACHER_FORCED_ATOL:
         fail(f"flash vs dense teacher-forced logits differ by {diff} > "
              f"{TEACHER_FORCED_ATOL}")
+    if kv is None:
+        _check_scan_layers(row, "serve (ring)")
     return row
+
+
+def _check_scan_layers(row, where):
+    """The ``scan_layers`` streams equal the unrolled ones, and the
+    stacked model launched the decode kernel as often."""
+    if not row["f32_greedy_scan_layers_equals_unrolled"]:
+        fail(f"{where}: f32 greedy streams of the scan_layers engine "
+             f"differ from the unrolled engine's")
+    if not row["scan_layers_kernel_launches"] or \
+            row["scan_layers_kernel_launches"] != \
+            row["unrolled_stream_kernel_launches"]:
+        fail(f"{where}: the scan_layers engine launched the decode kernel "
+             f"{row['scan_layers_kernel_launches']} times, the unrolled "
+             f"{row['unrolled_stream_kernel_launches']}")
 
 
 def _paged_stream(rng, vocab, Request, n=24, sessions=4):
@@ -1369,15 +1436,35 @@ def _follow_ups(Request, first, done, step):
             for i, r in enumerate(x for x in first if x.session_id)]
 
 
-def _greedy_streams(torch, Request, ContinuousBatchingScheduler, **extra):
-    """8 requests of the paged stream, f32, greedy: {rid: tokens}."""
+def _greedy_streams(torch, Request, ContinuousBatchingScheduler,
+                    scan_layers=False, **extra):
+    """8 requests of the paged stream, f32, greedy: {rid: tokens}; with
+    ``scan_layers`` on the stacked model (and its stacked cache)."""
     rng = np.random.default_rng(5)
     reqs = _paged_stream(rng, 50257, Request, n=8, sessions=0)
-    eng = _engine(torch, None, "flash", dtype=torch.float32, **extra)
+    eng = _engine(torch, None, "flash", dtype=torch.float32,
+                  scan_layers=scan_layers, **extra)
+    if scan_layers and not (eng.spec.stacked and set(eng.cache) == {"h"}):
+        fail("the scan_layers engine does not hold a stacked cache")
     done = ContinuousBatchingScheduler(eng).run(reqs)
     counts = eng.compile_counts()
     del eng
     return {c.rid: c.tokens for c in done}, counts
+
+
+def _scan_layers_streams(torch, Request, ContinuousBatchingScheduler,
+                         kernel, **extra):
+    """The f32 greedy streams of the unrolled and the ``scan_layers``
+    engine, and the decode kernel's launches in each: ``(equal,
+    unrolled_launches, scan_launches, scan_counts)``."""
+    kernel.launches = 0
+    plain, _ = _greedy_streams(torch, Request, ContinuousBatchingScheduler,
+                               **extra)
+    plain_launches, kernel.launches = kernel.launches, 0
+    scan, counts = _greedy_streams(torch, Request,
+                                   ContinuousBatchingScheduler,
+                                   scan_layers=True, **extra)
+    return plain == scan, plain_launches, kernel.launches, counts
 
 
 def phase_serve_paged(torch, kv):
@@ -1463,6 +1550,13 @@ def phase_serve_paged(torch, kv):
                                   ContinuousBatchingScheduler)
         row["f32_greedy_paged_equals_ring"] = paged == ring
         row["f32_greedy_compile_counts"] = paged_counts
+        equal, plain_l, scan_l, scan_counts = _scan_layers_streams(
+            torch, Request, ContinuousBatchingScheduler,
+            flash_decode_paged, kv_layout="paged")
+        row.update(f32_greedy_scan_layers_equals_unrolled=equal,
+                   scan_layers_kernel_launches=scan_l,
+                   unrolled_stream_kernel_launches=plain_l,
+                   scan_layers_compile_counts=scan_counts)
     emit(row)
     if len(served) != len(reqs) + len(follow) or \
             row["finish_reasons"] != ["max_new_tokens"]:
@@ -1483,6 +1577,8 @@ def phase_serve_paged(torch, kv):
              f"ring flash by {diffs} > {TEACHER_FORCED_ATOL}")
     if kv is None and not row["f32_greedy_paged_equals_ring"]:
         fail("f32 greedy streams differ between the paged and ring engines")
+    if kv is None:
+        _check_scan_layers(row, "serve_paged")
     return row
 
 
@@ -1567,6 +1663,14 @@ def phase_serve_speculative(torch):
         torch, Request, ContinuousBatchingScheduler, kv_layout="paged")
     row["f32_greedy_equals_plain_paged"] = spec_streams == plain_streams
     row["f32_compile_counts"] = spec_counts
+    flash_decode_paged.launches = 0
+    scan_streams, scan_counts = _greedy_streams(
+        torch, Request, ContinuousBatchingScheduler, scan_layers=True,
+        kv_layout="paged", speculative=spec_cfg)
+    row.update(f32_greedy_scan_layers_equals_unrolled=(
+        scan_streams == spec_streams),
+        scan_layers_kernel_launches=flash_decode_paged.launches,
+        scan_layers_compile_counts=scan_counts)
     emit(row)
     want = {"prefill": 1, "decode": 0, "draft": 1, "verify": 1}
     if len(done) != len(reqs) or not set(row["finish_reasons"]) <= \
@@ -1585,6 +1689,11 @@ def phase_serve_speculative(torch):
     if not row["f32_greedy_equals_plain_paged"]:
         fail("f32 speculative greedy streams differ from the plain paged "
              "engine's")
+    if not row["f32_greedy_scan_layers_equals_unrolled"] or \
+            scan_counts != want or not row["scan_layers_kernel_launches"]:
+        fail(f"speculative scan_layers streams differ from the unrolled "
+             f"engine's, or programs {scan_counts} != {want}, or no K6 "
+             f"launch ({row['scan_layers_kernel_launches']})")
     return row
 
 
@@ -2689,10 +2798,12 @@ def _zero_formula(stage, p):
                 "all_gather": 2 * (p // 2)}}[stage]
 
 
-def _zero_run(torch, stage, batch, counters):
+def _zero_run(torch, stage, batch, counters, more=None):
     """One stage: 2 warmup and 5 timed steps of GPT-2 350M through the
-    data-parallel path. Returns the row and the fp32 masters (host)."""
+    data-parallel path (``more``: config keys added). Returns the row
+    and the fp32 masters (host)."""
     extra = {"zero_optimization": {"stage": stage}} if stage else {}
+    extra.update(more or {})
     gc.collect()            # nothing of an earlier phase in the peak
     torch.cuda.empty_cache()
     engine = _train_engine(torch, flash=True, extra=extra)
@@ -2728,12 +2839,63 @@ def _zero_run(torch, stage, batch, counters):
     if stage == 3:
         inst = engine._installer
         row["gathers"], row["regathers"] = inst.gathers, inst.regathers
+        if inst.wire_dtype is not None:
+            row["wire"] = _wire_check(torch, engine)
+    if engine._sparse:
+        m = engine._last_metrics
+        row["sparse_grad_dropped"] = float(m["sparse_grad_dropped"])
+        row["sparse_grad_dense_fallbacks"] = int(
+            m["sparse_grad_dense_fallbacks"])
     # after every count and the masters are read: 2 more steps, profiled
     row["profile"] = _profile(torch, lambda: engine.train_batch(batch), 2)
     del engine
     gc.collect()
     torch.cuda.empty_cache()
     return row, masters
+
+
+def _wire_check(torch, engine):
+    """Stage 3's fp8 wire: every gathered leaf against the exact gather
+    (the compute-dtype master), each rank piece's round trip through the
+    codec against its bound (per chunk, half an fp8 step at the chunk's
+    largest value, 2^-4 relative for e4m3, plus the chunk scale's
+    subnormal step and the bf16 rounding of the decode), and the bytes
+    the wire moves a gather."""
+    from deepspeed_tpu_torch.runtime.comm.codecs import (
+        decode_wire, encode_wire, get_codec, wire_nbytes)
+    inst = engine._installer
+    codec, chunk = inst.wire_dtype, inst.wire_chunk
+    qmax = get_codec(codec).qmax
+    worst_exact, worst_ratio, nbytes = 0.0, 0.0, 0
+    with torch.no_grad():
+        for i, leaf in enumerate(inst.leaves):
+            exact = leaf.master.detach().to(inst.dtype)
+            if not leaf.part.sharded:
+                continue
+            got = inst._gather(i)
+            worst_exact = max(worst_exact, float(
+                (got.float() - leaf.part.from_gathered(
+                    exact.reshape(-1)).float()).abs().max()))
+            piece = exact.reshape(-1)
+            dec = decode_wire(encode_wire(piece, codec, chunk), codec,
+                              piece.shape, inst.dtype, chunk)
+            n = piece.numel()
+            c = max(1, min(chunk, n))
+            pad = (-n) % c
+            x = torch.cat([piece.float(), piece.new_zeros(pad).float()])
+            absmax = x.view(-1, c).abs().amax(1, keepdim=True)
+            bound = (2.0 ** -4 + 2.0 ** -8) * x.view(-1, c).abs() + \
+                absmax / qmax * 2.0 ** -9
+            err = torch.cat([(dec.float() - piece.float()).abs(),
+                             piece.new_zeros(pad).float()]).view(-1, c)
+            worst_ratio = max(worst_ratio, float(
+                (err / bound.clamp_min(1e-30)).max()))
+            nbytes += wire_nbytes(tuple(leaf.part.piece_shape), codec,
+                                  chunk)
+    return {"codec": codec, "chunk": chunk,
+            "gathered_vs_exact_max_abs": worst_exact,
+            "round_trip_err_over_bound_max": worst_ratio,
+            "wire_bytes_per_gather": nbytes}
 
 
 def phase_train_zero(torch):
@@ -2754,6 +2916,12 @@ def phase_train_zero(torch):
                                                     counters)
         # stage 0 again: does the path repeat itself bit for bit?
         again, masters_again = _zero_run(torch, 0, batch, counters)
+        # stage 3 with the fp8 wire, and stage 0 with sparse gradients
+        wire, masters_wire = _zero_run(
+            torch, 3, batch, counters,
+            {"fp8": {"wire": {"enabled": True}}})
+        csr, masters_csr = _zero_run(torch, 0, batch, counters,
+                                     {"sparse_gradients": True})
     finally:
         if dist.is_initialized():
             destroy_distributed()
@@ -2778,7 +2946,19 @@ def phase_train_zero(torch):
                               "losses_equal_stage0",
                               "masters_equal_stage0")}
     out["launches"] = {n: sum(rows[s]["launches"][n] for s in ZERO_STAGES)
+                       + wire["launches"][n] + csr["launches"][n]
                        for n in counters}
+    for name, r, m, ref in (("stage3_fp8_wire", wire, masters_wire, 3),
+                            ("stage0_sparse_gradients", csr, masters_csr,
+                             0)):
+        r["losses_equal_stage"] = r["losses"] == rows[ref]["losses"]
+        r["masters_equal_stage"] = all(
+            torch.equal(a, b) for a, b in zip(m, masters[ref]))
+        emit({"phase": f"train_zero_{name}", **r})
+        out[name] = {k: r[k] for k in (
+            "step_p50_ms", "max_memory_allocated", "losses_equal_stage",
+            "masters_equal_stage")}
+    out["stage3_fp8_wire"]["wire"] = wire["wire"]
     emit(out)
     for stage in ZERO_STAGES:
         r = rows[stage]
@@ -2814,7 +2994,435 @@ def phase_train_zero(torch):
             if not gap <= TRAIN_LOSS_ATOL:
                 fail(f"train_zero stage {stage}: losses {gap} from stage "
                      f"0's (stage 0 does not repeat itself bit for bit)")
+    w = wire["wire"]
+    leaves = wire["zero3_plan"]["gather_leaves"]
+    if wire["zero3_plan"]["wire_dtype"] != "f8e4m3fn" or \
+            wire["gathers"] != leaves * steps or \
+            wire["regathers"] != leaves * steps:
+        fail(f"train_zero fp8 wire: plan {wire['zero3_plan']}, gathers "
+             f"{wire['gathers']} / {wire['regathers']}")
+    # world 1: the one piece is the rank's own, placed exactly
+    if w["gathered_vs_exact_max_abs"] != 0.0 or \
+            not w["round_trip_err_over_bound_max"] <= 1.0:
+        fail(f"train_zero fp8 wire: gathered vs exact "
+             f"{w['gathered_vs_exact_max_abs']}, round trip at "
+             f"{w['round_trip_err_over_bound_max']} of the codec's bound")
+    if wire["collectives_per_step"]["all_gather"]["bytes"] != \
+            2 * w["wire_bytes_per_gather"]:
+        fail(f"train_zero fp8 wire: all-gather bytes a step "
+             f"{wire['collectives_per_step']['all_gather']['bytes']} != 2 x "
+             f"wire_nbytes {w['wire_bytes_per_gather']}")
+    if csr["sparse_grad_dense_fallbacks"] != 1 or \
+            not csr["sparse_grad_dropped"] > 0:
+        fail(f"train_zero sparse gradients: the tied wte's fallback not "
+             f"counted ({csr['sparse_grad_dense_fallbacks']}, dropped "
+             f"{csr['sparse_grad_dropped']})")
+    for name, r, ref in (("fp8 wire", wire, 3), ("sparse gradients", csr,
+                                                 0)):
+        if not all(np.isfinite(r["losses"])) or \
+                r["launches"] != {"K1": TRAIN_LAYERS * steps,
+                                  "K2": TRAIN_LAYERS * steps,
+                                  "K3": TRAIN_LAYERS * steps, "K4": steps}:
+            fail(f"train_zero {name}: losses {r['losses']}, launches "
+                 f"{r['launches']}")
+        if stage0_repeats and not (r["losses_equal_stage"] and
+                                   r["masters_equal_stage"]):
+            fail(f"train_zero {name}: losses or fp32 masters differ from "
+                 f"stage {ref}'s ({r['losses']} vs {rows[ref]['losses']})")
     return out
+
+
+# ---------------------------------------------------------------------------
+# training features: scan_layers, progressive layer drop, LAMB, fp8 and
+# activation checkpointing on the train row; BERT's checkpoint flags
+# ---------------------------------------------------------------------------
+
+FEATURE_STEPS = 4                 # a run's steps; the first is not timed
+PLD_THETA, PLD_GAMMA = 0.5, 1000.0   # theta 1 at step 0, 0.5 from step 1
+LAMB_LR = 1e-3
+# the plain LAMB on the host against the card's step: rtol 1e-6, plus
+# 1e-7 of the masters' largest magnitude where an update cancels a
+# master to near 0 (the host Adam check's floor)
+LAMB_RTOL, LAMB_ATOL_REL = 1e-6, 1e-7
+AC_POLICIES = ("dots", "offload")
+BERT_FLAGS = ("normalize_invertible", "gelu_checkpoint",
+              "attn_dropout_checkpoint")
+
+
+def _seeded_state(torch):
+    """The ``train`` row's seeded params (``_train_engine``'s) as an fp32
+    state dict on the card: every feature run starts from it."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHead, gpt2_350m
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    model = GPT2LMHead(gpt2_350m(n_positions=TRAIN_T, dropout=0.0,
+                                 use_flash_attention=True, loss_chunk=0),
+                       device="cuda", generator=gen)
+    return {k: v.detach() for k, v in model.state_dict().items()}
+
+
+def _feature_engine(torch, state, extra=None, optimizer=None, **model_kw):
+    """GPT-2 350M on the ``train`` row's config (``extra`` added) from
+    ``state``, stacked under ``scan_layers``, through ``initialize``."""
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.gpt2 import (
+        GPT2LMHead, gpt2_350m, stack_gpt2_state_dict)
+    cfg = gpt2_350m(n_positions=TRAIN_T, dropout=0.0,
+                    use_flash_attention=True, loss_chunk=0, **model_kw)
+    model = GPT2LMHead(cfg, device="meta")
+    sd = stack_gpt2_state_dict(state) if cfg.scan_layers else state
+    model.load_state_dict({k: v.clone() for k, v in sd.items()},
+                          assign=True)
+    config = {"train_batch_size": TRAIN_B, "bf16": {"enabled": True},
+              "optimizer": {"type": "Adam", "params": {"lr": 1e-4}},
+              "steps_per_print": 10 ** 9, **(extra or {})}
+    if optimizer is not None:
+        del config["optimizer"]
+    engine, _, _, _ = initialize(model=model, config=config,
+                                 optimizer=optimizer)
+    return engine
+
+
+def _fresh(torch):
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _feature_run(torch, engine, batch, counters, steps=FEATURE_STEPS,
+                 after_step=None):
+    """``steps`` train steps: losses, walls, step p50 (the first step
+    not timed), launches a step, peak memory."""
+    _fresh(torch)
+    for c in counters.values():
+        c.launches = 0
+    losses, walls, launches = [], [], []
+    for _ in range(steps):
+        before = {n: c.launches for n, c in counters.items()}
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        walls.append(time.perf_counter() - t0)
+        launches.append({n: c.launches - before[n]
+                         for n, c in counters.items()})
+        if after_step is not None:
+            after_step(engine)
+    return {"losses": losses, "step_wall_s": walls,
+            "step_p50_ms": statistics.median(walls[1:]) * 1e3,
+            "launches_per_step": launches,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def _masters_by_name(engine):
+    return {n: m.detach().to("cpu", copy=True)
+            for n, m in zip(engine._param_names(), engine._masters)}
+
+
+def _drop(torch, engine):
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _lamb_plain_check(torch, engine, batch):
+    """One LAMB step through forward / backward / step against the plain
+    ``lamb_update`` on host copies of the same masters, gradients and
+    moments (fp32). Returns (the step's loss, max relative error, its
+    tolerance's atol, within)."""
+    from deepspeed_tpu_torch.ops.lamb import LambState, lamb_update
+    loss = float(engine.forward(batch))
+    engine.backward()
+    def host(ts):
+        return [t.detach().to("cpu", copy=True) for t in ts]
+
+    masters, grads = host(engine._masters), host(engine._grads)
+    s = engine.opt_state
+    state = LambState(m=host(s.m), v=host(s.v),
+                      step=s.step.to("cpu", copy=True))
+    engine.step()
+    want, _ = lamb_update(masters, grads, state, lr=LAMB_LR,
+                          beta1=engine._betas[0], beta2=engine._betas[1],
+                          eps=engine._eps, weight_decay=engine._weight_decay,
+                          bias_correction=engine._bias_correction,
+                          max_coeff=engine._lamb_coeffs[0],
+                          min_coeff=engine._lamb_coeffs[1])
+    atol = LAMB_ATOL_REL * max(float(w.abs().max()) for w in want)
+    worst, ok = 0.0, True
+    for m, w in zip(engine._masters, want):
+        got = m.detach().cpu()
+        err = (got - w).abs()
+        worst = max(worst, float((err / w.abs().clamp_min(1e-30)).max()))
+        ok = ok and bool((err <= LAMB_RTOL * w.abs() + atol).all())
+    return loss, worst, atol, ok
+
+
+def _offload_checkpointed_loss(torch, engine):
+    """A user's loss over the engine's GPT-2 with every block run through
+    the activation checkpointing module's ``checkpoint(..., policy=
+    "offload")`` (its residuals kept in pinned host memory): the model's
+    own forward and loss otherwise, so the losses are the baseline's."""
+    from deepspeed_tpu_torch.models.gpt2 import cross_entropy_loss
+    from deepspeed_tpu_torch.runtime.activation_checkpointing.\
+        checkpointing import checkpoint
+    model = engine.module
+    cfg = model.config
+
+    def loss_fn(batch, rng=None):
+        ids = batch["input_ids"]
+        labels = torch.cat([ids[:, 1:], torch.full(
+            (ids.shape[0], 1), -100, dtype=ids.dtype, device=ids.device)],
+            dim=1)
+        x = model.wte[ids].to(cfg.dtype) + \
+            model.wpe[:ids.shape[1]][None].to(cfg.dtype)
+        for block in model.h:
+            x = checkpoint(block, x, policy="offload")
+        logits = torch.matmul(model.ln_f(x), model.wte.to(cfg.dtype).t())
+        return cross_entropy_loss(logits, labels)
+
+    return loss_fn
+
+
+def phase_train_features(torch):
+    """GPT-2 350M on the ``train`` row (8 x 1024, bf16 over fp32 masters,
+    flash attention), each run 4 steps from the same seeded params."""
+    from deepspeed_tpu_torch.models.gpt2 import unstack_gpt2_state_dict
+    rng = np.random.default_rng(0)
+    batch = {"input_ids": rng.integers(0, 50257, (TRAIN_B, TRAIN_T))
+             .astype(np.int32)}
+    counters = _flash_counters()
+    state = _seeded_state(torch)
+    L = TRAIN_LAYERS
+    row = {"phase": "train_features", "model": "gpt2_350m",
+           "batch": TRAIN_B, "seq": TRAIN_T, "dtype": "bfloat16",
+           "attention": "flash", "steps": FEATURE_STEPS}
+    launches = dict.fromkeys(counters, 0)
+
+    def count(run):
+        for step in run["launches_per_step"]:
+            for n, v in step.items():
+                launches[n] += v
+
+    # the baseline: unrolled, Adam (K4), no checkpointing
+    engine = _feature_engine(torch, state)
+    base = _feature_run(torch, engine, batch, counters)
+    base_masters = _masters_by_name(engine)
+    _drop(torch, engine)
+    count(base)
+    row["baseline"] = base
+
+    # scan_layers: the same weights stacked
+    engine = _feature_engine(torch, state, scan_layers=True)
+    scan = _feature_run(torch, engine, batch, counters)
+    scan_masters = unstack_gpt2_state_dict(_masters_by_name(engine))
+    _drop(torch, engine)
+    count(scan)
+    scan["losses_equal_unrolled"] = scan["losses"] == base["losses"]
+    scan["masters_equal_unrolled"] = set(scan_masters) == set(
+        base_masters) and all(torch.equal(scan_masters[n], m)
+                              for n, m in base_masters.items())
+    row["scan_layers"] = scan
+    del scan_masters
+
+    # progressive layer drop
+    coins = []
+    engine = _feature_engine(torch, state, {"progressive_layer_drop": {
+        "enabled": True, "theta": PLD_THETA, "gamma": PLD_GAMMA}})
+    pld = _feature_run(torch, engine, batch, counters, after_step=lambda e:
+                       coins.append(e.module.last_pld_coins))
+    _drop(torch, engine)
+    count(pld)
+    kept = [[int(sum(c[0] for c in cs)), int(sum(c[1] for c in cs))]
+            for cs in coins]
+    pld.update(theta=PLD_THETA, gamma=PLD_GAMMA,
+               kept_sublayers_per_step=kept,
+               kept_share=sum(a + m for a, m in kept[1:]) /
+               (2 * L * (FEATURE_STEPS - 1)),
+               step_p50_vs_baseline=pld["step_p50_ms"] / base["step_p50_ms"])
+    row["pld"] = pld
+
+    # LAMB: 2 steps, then one held against the plain LAMB on the host
+    engine = _feature_engine(torch, state, {"optimizer": {
+        "type": "Lamb", "params": {"lr": LAMB_LR}}})
+    lamb = _feature_run(torch, engine, batch, counters, steps=2)
+    loss3, lamb_err, lamb_atol, lamb_ok = _lamb_plain_check(torch, engine,
+                                                            batch)
+    _drop(torch, engine)
+    count(lamb)
+    lamb["losses"].append(loss3)
+    lamb.update(plain_step_max_rel_err=lamb_err, plain_step_rtol=LAMB_RTOL,
+                plain_step_atol=lamb_atol, plain_step_within=lamb_ok)
+    row["lamb"] = lamb
+
+    # fp8 delayed scaling
+    warm = []
+    engine = _feature_engine(torch, state, {"fp8": {"enabled": True}})
+    f8 = _feature_run(torch, engine, batch, counters, after_step=lambda e:
+                      warm.append(int((e._fp8_flat > 0).sum(-1).min())))
+    f8.update(sites=len(engine._fp8_keys),
+              filled_history_slots_per_step=warm,
+              history_len=int(engine._fp8_flat.shape[-1]),
+              step_p50_vs_bf16=f8["step_p50_ms"] / base["step_p50_ms"])
+    _drop(torch, engine)
+    count(f8)
+    row["fp8"] = f8
+
+    # activation checkpointing through the module: GPT-2's remat "dots"
+    # (its blocks under the module's ``dots`` policy), and a user's loss
+    # checkpointing each block with ``offload``
+    for policy in AC_POLICIES:
+        if policy == "dots":
+            engine = _feature_engine(torch, state, remat=True,
+                                     remat_policy="dots")
+        else:
+            engine = _feature_engine(torch, state)
+            engine.loss_fn = _offload_checkpointed_loss(torch, engine)
+        ac = _feature_run(torch, engine, batch, counters)
+        _drop(torch, engine)
+        count(ac)
+        ac["losses_equal_baseline"] = ac["losses"] == base["losses"]
+        ac["peak_vs_baseline"] = ac["max_memory_allocated"] / \
+            base["max_memory_allocated"]
+        ac["step_p50_vs_baseline"] = ac["step_p50_ms"] / base["step_p50_ms"]
+        row[f"checkpoint_{policy}"] = ac
+    del state
+    torch.cuda.empty_cache()
+    row["launches"] = launches
+    emit(row)
+
+    def each_step(run, want):
+        return all(s == want for s in run["launches_per_step"])
+
+    plain_step = {"K1": L, "K2": L, "K3": L, "K4": 1}
+    for name in ("baseline", "scan_layers", "checkpoint_dots",
+                 "checkpoint_offload"):
+        r = row[name]
+        if not all(np.isfinite(r["losses"])) or \
+                not r["losses"][-1] < r["losses"][0]:
+            fail(f"train_features {name}: losses not finite and falling: "
+                 f"{r['losses']}")
+        # dots recomputes each block (K1 again); offload keeps every
+        # residual, on the host
+        ac_step = dict(plain_step, K1=2 * L) if name == "checkpoint_dots" \
+            else plain_step
+        if not each_step(r, ac_step):
+            fail(f"train_features {name}: launches {r['launches_per_step']}"
+                 f" != {ac_step} a step")
+    if not (scan["losses_equal_unrolled"] and scan["masters_equal_unrolled"]):
+        fail(f"train_features: scan_layers losses {scan['losses']} or fp32 "
+             f"masters differ from the unrolled run's {base['losses']}")
+    for policy in AC_POLICIES:
+        ac = row[f"checkpoint_{policy}"]
+        if not ac["losses_equal_baseline"] or not ac["peak_vs_baseline"] < 1:
+            fail(f"train_features checkpoint {policy}: losses "
+                 f"{ac['losses']} vs {base['losses']}, peak ratio "
+                 f"{ac['peak_vs_baseline']}")
+    for k, (step, (attn, mlp)) in enumerate(zip(pld["launches_per_step"],
+                                                kept)):
+        want = {"K1": attn, "K2": attn, "K3": attn, "K4": 1}
+        if step != want:
+            fail(f"train_features pld step {k}: launches {step} != {want} "
+                 f"(kept attention sublayers)")
+    later = [s["K1"] for s in pld["launches_per_step"][1:]]
+    if not all(np.isfinite(pld["losses"])) or \
+            not sum(later) / len(later) < L or kept[0] != [L, L]:
+        fail(f"train_features pld: K1 launches {later} a step not below {L} "
+             f"at theta {PLD_THETA}, or step 0 dropped a sublayer ({kept[0]})"
+             f", or losses {pld['losses']}")
+    if not lamb_ok or not all(np.isfinite(lamb["losses"])) or \
+            not lamb["losses"][-1] < lamb["losses"][0]:
+        fail(f"train_features lamb: losses {lamb['losses']}, plain step "
+             f"within {lamb_ok} (max rel err {lamb_err})")
+    if not each_step(lamb, dict(plain_step, K4=0)):
+        fail(f"train_features lamb: launches {lamb['launches_per_step']}")
+    f8_first = dict(plain_step, K1=2 * L)     # the discovery forward
+    if f8["launches_per_step"][0] != f8_first or \
+            not all(s == plain_step for s in f8["launches_per_step"][1:]):
+        fail(f"train_features fp8: launches {f8['launches_per_step']}")
+    if not all(np.isfinite(f8["losses"])) or \
+            not f8["losses"][-1] < f8["losses"][0]:
+        fail(f"train_features fp8: losses {f8['losses']}")
+    if f8["sites"] != 4 * L:
+        fail(f"train_features fp8: {f8['sites']} state keys, not 4 a layer")
+    if warm != list(range(1, FEATURE_STEPS + 1)):
+        fail(f"train_features fp8: history slots filled {warm}, expected "
+             f"one more a step")
+    return row
+
+
+def _bert_flag_run(torch, flags, batch, counters):
+    """BERT-Large (dropout 0.1, accumulation 2) with the layers'
+    ``flags``: step 1 through forward / backward / step, reading every
+    gradient after the first micro-batch, then one ``train_batch``."""
+    engine = _bert_engine(torch, 0.1, 2)
+    for layer in engine.module.bert.layer:
+        for flag in BERT_FLAGS:
+            setattr(layer.config, flag, flag in flags)
+    _fresh(torch)
+    for c in counters.values():
+        c.launches = 0
+    half = BERT_B // 2
+    micro, grads = [], None
+    t0 = time.perf_counter()
+    for i in range(2):
+        loss = engine.forward({k: x[i * half:(i + 1) * half]
+                               for k, x in batch.items()})
+        engine.backward(loss)
+        micro.append(float(loss.detach()))
+        if grads is None:
+            grads = [p.grad.detach().clone() for p in engine.params]
+    engine.step()
+    t1 = time.perf_counter()
+    losses = [sum(micro) / 2, float(engine.train_batch(batch))]
+    t2 = time.perf_counter()
+    out = {"losses": losses, "micro_losses": micro,
+           "step_wall_s": [t1 - t0, t2 - t1],
+           "launches": {n: c.launches for n, c in counters.items()},
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    masters = [m.detach().clone() for m in engine._masters]
+    _drop(torch, engine)
+    return out, grads, masters
+
+
+def phase_train_bert_ckpt(torch):
+    """BERT-Large, 32 x 512, block-sparse, dropout 0.1: 2 steps with
+    the three checkpoint flags on every layer against the same 2 steps
+    without them."""
+    batch = _bert_batch(BERT_VOCAB)
+    counters = _sparse_counters()
+    plain, plain_g, plain_m = _bert_flag_run(torch, (), batch, counters)
+    flags, flag_g, flag_m = _bert_flag_run(torch, BERT_FLAGS, batch,
+                                           counters)
+    grads_equal = all(torch.equal(a, b) for a, b in zip(flag_g, plain_g))
+    masters_equal = all(torch.equal(a, b) for a, b in zip(flag_m, plain_m))
+    del plain_g, flag_g, plain_m, flag_m
+    torch.cuda.empty_cache()
+    row = {"phase": "train_bert_ckpt", "model": "bert_large",
+           "batch": BERT_B, "seq": BERT_T, "micro_batch": BERT_B // 2,
+           "dtype": "bfloat16", "encoder_dtype": "float32",
+           "dropout": 0.1, "attention": "block-sparse (K7/K8)",
+           "flags": list(BERT_FLAGS), "plain": plain, "flagged": flags,
+           "losses_equal": flags["losses"] == plain["losses"],
+           "first_micro_grads_equal": grads_equal,
+           "masters_equal_after_2_steps": masters_equal,
+           "peak_vs_plain": flags["max_memory_allocated"] /
+           plain["max_memory_allocated"],
+           "launches": flags["launches"]}
+    emit(row)
+    micro = 4                      # 2 steps of 2 micro-batches
+    want = {"K7": BERT_LAYERS * micro, "K8a": BERT_LAYERS * micro,
+            "K8b": BERT_LAYERS * micro, "K1": 0, "K2": 0, "K3": 0, "K4": 2}
+    if plain["launches"] != want:
+        fail(f"train_bert_ckpt: plain launches {plain['launches']} != {want}")
+    want_flags = dict(want, K7=2 * BERT_LAYERS * micro)
+    if flags["launches"] != want_flags:
+        fail(f"train_bert_ckpt: launches with the flags {flags['launches']} "
+             f"!= {want_flags} (K7 again in each attention recompute)")
+    if not (row["losses_equal"] and grads_equal and masters_equal) or \
+            not all(np.isfinite(flags["losses"])):
+        fail(f"train_bert_ckpt: the flags changed the run: losses "
+             f"{flags['losses']} vs {plain['losses']}, grads equal "
+             f"{grads_equal}, masters equal {masters_equal}")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -4192,6 +4800,10 @@ def main(argv=None):
     parser.add_argument("--zero-only", action="store_true",
                         help="device, build, then only the train_zero "
                              "phase")
+    parser.add_argument("--features-only", action="store_true",
+                        help="device, build, then only the training "
+                             "features' phases (train_features, "
+                             "train_bert_ckpt)")
     parser.add_argument("--serving-only", action="store_true",
                         help="device, build, the decode and sparse "
                              "kernel checks, then only the checkpoint, "
@@ -4231,6 +4843,14 @@ def main(argv=None):
         return 0
     if args.zero_only:
         phase_train_zero(torch)
+        print(smi, flush=True)
+        return 0
+    if args.features_only:
+        phase_train_features(torch)
+        lap("train_features")
+        phase_train_bert_ckpt(torch)
+        lap("train_bert_ckpt")
+        emit({"phase": "walls", "seconds": walls})
         print(smi, flush=True)
         return 0
     if args.serving_only:
@@ -4278,10 +4898,14 @@ def main(argv=None):
     lap("until_train")
     zero = phase_train_zero(torch)
     lap("train_zero")
+    features = phase_train_features(torch)
+    lap("train_features")
     sparse_timing = phase_sparse_kernel_timing(torch)
     phase_wide_head_timing(torch)
     bert = phase_train_bert_sparse(torch)
     lap("until_train_bert_sparse")
+    bert_ckpt = phase_train_bert_ckpt(torch)
+    lap("train_bert_ckpt")
     offload, host_op = phase_train_offload(torch)
     lap("train_offload")
     phase_train_dense_yardstick(torch)
@@ -4296,8 +4920,10 @@ def main(argv=None):
         "replaces": "deepspeed_tpu/ops/pallas/flash_decode.py:193",
         "launches": sum(s["kernel_launches"] for s in serves)
         + checkpoint["kernel_launches"]
-        + fleet_row["process_fleet"]["kernel_launches"],
+        + fleet_row["process_fleet"]["kernel_launches"]
+        + serves[0]["scan_layers_kernel_launches"],
         "serve_launches": sum(s["kernel_launches"] for s in serves),
+        "scan_layers_launches": serves[0]["scan_layers_kernel_launches"],
         "checkpoint_launches": checkpoint["kernel_launches"],
         "process_fleet_launches":
             fleet_row["process_fleet"]["kernel_launches"],
@@ -4311,12 +4937,16 @@ def main(argv=None):
         "replaces": "deepspeed_tpu/ops/pallas/flash_decode.py:269",
         "launches": sum(s["kernel_launches"] for s in paged_serves)
         + speculative["kernel_launches"]
+        + paged_serves[0]["scan_layers_kernel_launches"]
+        + speculative["scan_layers_kernel_launches"]
         + fleet_row["thread_fleet"]["kernel_launches"]
         + disagg["coordinator"]["kernel_launches"]
         + disagg["thread_tiers"]["kernel_launches"]
         + disagg["process_tiers"]["kernel_launches"],
         "serve_launches": sum(s["kernel_launches"] for s in paged_serves)
         + speculative["kernel_launches"],
+        "scan_layers_launches": paged_serves[0]["scan_layers_kernel_launches"]
+        + speculative["scan_layers_kernel_launches"],
         "thread_fleet_launches": fleet_row["thread_fleet"]["kernel_launches"],
         "disagg_launches": disagg["coordinator"]["kernel_launches"],
         "thread_tier_launches": disagg["thread_tiers"]["kernel_launches"],
@@ -4342,6 +4972,7 @@ def main(argv=None):
             "replaces": replaces,
             "launches": train["launches"][key],
             "zero_launches": zero["launches"][key],
+            "features_launches": features["launches"][key],
             "offload_launches": offload["launches"][key],
             "max_abs_err": max(train_errs[key], r.get("max_abs_err", 0.0)),
             "ms": r["ms"],
@@ -4374,6 +5005,7 @@ def main(argv=None):
             "source": "deepspeed_tpu_torch/ops/csrc/"
                       "block_sparse_attention.cu",
             "replaces": replaces, "launches": bert["launches"][key],
+            "bert_ckpt_launches": bert_ckpt["launches"][key],
             "max_abs_err": sparse_errs[key], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -72,7 +72,9 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     (:func:`deepspeed_tpu_torch.parallel.initialize_distributed`) and
     each process passes its ``train_batch_size // world`` rows. Returns
     ``(engine, optimizer, dataloader, lr_scheduler)``; the optimizer is
-    the client's (None: the port takes none), as in JAX.
+    the client's object (``optimizer``: the port's ``FusedAdam`` or
+    ``FusedLamb``, or any object with JAX's ``init`` / ``update``
+    protocol), None without one.
     """
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
 
@@ -99,4 +101,5 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                              lr_scheduler=lr_scheduler, seed=seed,
                              training_data=training_data,
                              collate_fn=collate_fn)
-    return engine, None, engine.training_dataloader, engine.lr_scheduler
+    return engine, engine.client_optimizer, \
+        engine.training_dataloader, engine.lr_scheduler

@@ -28,6 +28,13 @@ is either stale (the row's previous tenant) or garbage from a padded
 prefill chunk — both masked, and both overwritten before the mask ever
 exposes them.
 
+A ``scan_layers`` model's cache is stacked like its params
+(``KVCacheSpec.stacked``): one ``h`` subtree whose leaves carry a
+leading layer axis, ``[L, max_batch, max_seq, H, D]`` (or ``[L,
+n_pages, ...]``); each layer reads and writes its slice, a view, so K5
+and K6 get one layer's contiguous buffer as before. :func:`batch_axis`
+says where the row (or page) axis of a subtree is.
+
 Optional int8/fp8 storage uses the codec recipe (absmax scale into the
 codec's ``qmax``, zero guard, round+clip for int) at per-(row,
 position, head) scale granularity.
@@ -51,6 +58,7 @@ class KVCacheSpec:
     head_dim: int
     dtype: torch.dtype = torch.bfloat16  # storage (codec dtype if quantized)
     codec: Optional[str] = None     # None | "int8" | "f8e4m3fn" | "f8e5m2"
+    stacked: bool = False           # scan_layers layout (leading layer axis)
     page_size: int = 0              # 0 = ring layout; >0 = paged pool
     n_pages: int = 0                # pool pages incl. the trash page
 
@@ -106,17 +114,22 @@ def spec_for_model(cfg, max_batch, max_seq, kv_cache_dtype=None,
         n_layer=cfg.n_layer, max_batch=int(max_batch),
         max_seq=int(max_seq), n_head=cfg.n_head,
         head_dim=cfg.n_embd // cfg.n_head, dtype=dtype, codec=codec,
-        page_size=page_size, n_pages=n_pages if page_size else 0)
+        stacked=bool(cfg.scan_layers), page_size=page_size,
+        n_pages=n_pages if page_size else 0)
 
 
 def init_kv_cache(spec, device):
     """Zero-filled cache ``{"h_<i>": {"k", "v"(, "k_scale",
     "v_scale")}}`` on ``device``: ``[max_batch, max_seq, H, D]`` rows
-    (ring) or ``[n_pages, page_size, H, D]`` pool pages (paged)."""
+    (ring) or ``[n_pages, page_size, H, D]`` pool pages (paged); with
+    ``spec.stacked`` one ``{"h": ...}`` subtree of ``[n_layer, ...]``
+    leaves."""
     if spec.paged:
         shape = (spec.n_pages, spec.page_size, spec.n_head, spec.head_dim)
     else:
         shape = (spec.max_batch, spec.max_seq, spec.n_head, spec.head_dim)
+    if spec.stacked:
+        shape = (spec.n_layer,) + shape
 
     def layer():
         leaves = {"k": torch.zeros(shape, dtype=spec.dtype, device=device),
@@ -127,7 +140,15 @@ def init_kv_cache(spec, device):
                                            device=device)
         return leaves
 
+    if spec.stacked:
+        return {"h": layer()}
     return {f"h_{i}": layer() for i in range(spec.n_layer)}
+
+
+def batch_axis(name):
+    """The row (ring) or page (paged) axis of the cache subtree
+    ``name``: 1 for the stacked ``h`` (after the layer axis), else 0."""
+    return 1 if name == "h" else 0
 
 
 def _leaves(cache):
@@ -392,7 +413,8 @@ def cached_attention(q, k_new, v_new, layer_cache, positions,
 def slice_rows(cache, slot):
     """The one-row sub-cache at row ``slot``: views into the cache, so
     writes through them land in the cache itself."""
-    return {name: {k: t.narrow(0, slot, 1) for k, t in layer.items()}
+    return {name: {k: t.narrow(batch_axis(name), slot, 1)
+                   for k, t in layer.items()}
             for name, layer in cache.items()}
 
 
@@ -402,7 +424,8 @@ def update_rows(cache, rows_tree, slot):
     detached block is copied."""
     for name, layer in rows_tree.items():
         for key, rows in layer.items():
-            dst = cache[name][key].narrow(0, slot, rows.shape[0])
+            axis = batch_axis(name)
+            dst = cache[name][key].narrow(axis, slot, rows.shape[axis])
             if rows.data_ptr() != dst.data_ptr():
                 dst.copy_(rows)
     return cache

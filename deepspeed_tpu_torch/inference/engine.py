@@ -39,6 +39,7 @@ import torch
 
 from deepspeed_tpu_torch import resolve_device
 from deepspeed_tpu_torch.inference.cache import (
+    batch_axis,
     cache_dtype_census,
     init_kv_cache,
     kv_cache_nbytes,
@@ -347,7 +348,8 @@ class InferenceEngine:
 
     def gather_pages(self, page_ids):
         """Snapshot the given physical pages to host RAM: a per-layer
-        ``{"h_<i>": {"k": [n, page_size, H, D], ...}}`` dict of numpy
+        ``{"h_<i>": {"k": [n, page_size, H, D], ...}}`` dict (a stacked
+        cache's one ``h`` entry, ``[L, n, ...]``) of numpy
         COPIES (a later in-place pool write must not reach the parked
         bytes). bf16 and fp8 leaves travel as integer views of the same
         width (numpy has neither); :meth:`scatter_pages` views them
@@ -358,7 +360,7 @@ class InferenceEngine:
         for name, layer in self.cache.items():
             out[name] = {}
             for key, leaf in layer.items():
-                g = leaf.index_select(0, ids)
+                g = leaf.index_select(batch_axis(name), ids)
                 if g.dtype in _HOST_VIEW:
                     g = g.view(_HOST_VIEW[g.dtype])
                 out[name][key] = g.cpu().numpy().copy()
@@ -374,7 +376,7 @@ class InferenceEngine:
         device to device. ``index_select`` copies: the snapshot is never
         a view of the pool, which the next prefill writes in place."""
         ids = self._tensor(page_ids).long()
-        return {name: {key: leaf.index_select(0, ids)
+        return {name: {key: leaf.index_select(batch_axis(name), ids)
                        for key, leaf in layer.items()}
                 for name, layer in self.cache.items()}
 
@@ -392,7 +394,8 @@ class InferenceEngine:
                 vals = vals.to(self.device)
                 if leaf.dtype in _HOST_VIEW and vals.dtype != leaf.dtype:
                     vals = vals.view(leaf.dtype)
-                leaf.index_copy_(0, ids, vals.to(leaf.dtype))
+                leaf.index_copy_(batch_axis(name), ids,
+                                 vals.to(leaf.dtype))
 
     def sample_first(self, last_logits):
         """Sample the FIRST generated token from prefill's last-prompt-

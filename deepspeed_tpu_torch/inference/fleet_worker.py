@@ -24,7 +24,8 @@ Lifecycle contract (mirrors training workers):
   CPU tests pass ``"cpu"``), optional ``jsonl`` telemetry path. The
   model is the serve CLI's test-size GPT-2 (``gpt2_tiny`` at n_embd
   32, f32), its params drawn from a ``torch.Generator`` seeded with the
-  seed on the device, as ``inference/serve.py`` seeds its model.
+  seed on the device, as ``inference/serve.py`` seeds its model
+  (stacked when the spec's ``scan_layers`` is true).
 - Faults arm from ``DS_TPU_SERVE_INJECT`` only when
   ``DS_TPU_RUN_RESTART_COUNT`` is 0 (first attempt).
 - Clean stop: drain, report stats, write ``done-p<idx:05d>``, exit 0.
@@ -249,7 +250,8 @@ def main():
             exporters=[JsonlExporter(spec["jsonl"])])
 
     device = resolve_device(spec.get("device"))
-    model = seeded_tiny_model(int(spec.get("seed", 0)), device)
+    model = seeded_tiny_model(int(spec.get("seed", 0)), device,
+                              bool(spec.get("scan_layers", False)))
     tier = spec.get("tier")
     inf_cfg = dict(spec.get("inf_cfg") or {})
     if tier:

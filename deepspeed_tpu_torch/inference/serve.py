@@ -53,8 +53,9 @@ for ``ds_tpu_metrics summary`` serve mode.
 ``--expect-compiles`` applies per surviving replica with
 ``--replicas``, and counts distinct programs across the tiers with
 ``--disaggregate`` (2). ``--expect-redispatch N`` gates on the fleet
-recovering. The JAX CLI's ``--scan-layers`` route is not ported yet
-(``ROADMAP.md`` section 1, item 3): it exits 2 with "not yet ported".
+recovering. ``--scan-layers`` serves the same model with its weights
+stacked (``GPT2Config.scan_layers``; a stacked KV cache, each layer's
+slice fed to the decode kernels), in every mode.
 
 Exit codes: 0 ok, 1 contract violation or unfinished requests,
 2 usage errors.
@@ -109,43 +110,47 @@ def _build_requests(args, vocab_size, max_seq):
     return reqs
 
 
-# routes of the JAX CLI that this port does not have yet
-_NOT_PORTED = ("scan_layers",)
-
 # gpt2_tiny's test vocab: the synthetic stream only needs the token
 # range, so fleet and tier modes build no model in the parent
 _TINY_VOCAB = 256
 
 
-def seeded_tiny_model(seed, device):
+def seeded_tiny_model(seed, device, scan_layers=False):
     """The CLI's model: ``gpt2_tiny`` at n_embd 32 in f32, params drawn
     on ``device`` from a ``torch.Generator`` seeded with ``seed``. Fleet
     workers and tier replicas build theirs the same way, so every
-    replica serves the same weights."""
+    replica serves the same weights; ``scan_layers`` holds the same
+    weights stacked (``models/gpt2.py:with_layout``)."""
     import torch
 
-    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHead, gpt2_tiny
+    from deepspeed_tpu_torch.models.gpt2 import (
+        GPT2LMHead, gpt2_tiny, with_layout)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
-    return GPT2LMHead(gpt2_tiny(n_embd=32, dtype=torch.float32),
-                      device=device, generator=gen)
+    model = GPT2LMHead(gpt2_tiny(n_embd=32, dtype=torch.float32),
+                       device=device, generator=gen)
+    return with_layout(model, scan_layers)
 
 
-def load_checkpoint_model(path, n_head, tag=None):
+def load_checkpoint_model(path, n_head, tag=None, scan_layers=False):
     """A :class:`GPT2LMHead` holding a training checkpoint's fp32 master
     params (JAX ``_load_checkpoint_model``, ``serve.py:134``):
     ``(model, info)``. The geometry comes from the leaf shapes (vocab
     and width from ``wte``, positions from ``wpe``, depth from the
     ``h.<i>.`` names) and ``n_head``; the manifest's ``topology`` is
-    reported. The model is built on the host: the serving engine moves
-    it to its device. Raises ``ValueError`` for a missing checkpoint,
+    reported. The layout converts (JAX ``serve.py:173-176``; the round
+    trip is bit-exact): a per-layer checkpoint serves as
+    ``scan_layers`` and a stacked one unrolled. The model is built on
+    the host: the serving engine moves it to its device. Raises ``ValueError`` for a missing checkpoint,
     one with no ``params``, or a head count that does not divide the
     width."""
     import re
 
     import torch
 
-    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from deepspeed_tpu_torch.models.gpt2 import (
+        GPT2Config, GPT2LMHead, stack_gpt2_state_dict,
+        unstack_gpt2_state_dict)
     from deepspeed_tpu_torch.runtime.resilience.checkpoint import (
         CheckpointCorruptError,
         CheckpointManager,
@@ -171,6 +176,7 @@ def load_checkpoint_model(path, n_head, tag=None):
     params = {k: torch.as_tensor(np.asarray(v, np.float32)
                                  if not torch.is_tensor(v) else v.float())
               for k, v in state["params"].items()}
+    params = unstack_gpt2_state_dict(params)
     wte, wpe = params["wte"], params["wpe"]
     n_layer = len({int(m.group(1)) for k in params
                    for m in [re.match(r"^h\.(\d+)\.", k)] if m})
@@ -181,9 +187,11 @@ def load_checkpoint_model(path, n_head, tag=None):
     cfg = GPT2Config(vocab_size=int(wte.shape[0]),
                      n_positions=int(wpe.shape[0]), n_embd=n_embd,
                      n_layer=n_layer, n_head=n_head, dropout=0.0,
-                     dtype=torch.float32, param_dtype=torch.float32)
+                     dtype=torch.float32, param_dtype=torch.float32,
+                     scan_layers=bool(scan_layers))
     model = GPT2LMHead(cfg, device="cpu")
-    model.load_state_dict(params)
+    model.load_state_dict(stack_gpt2_state_dict(params) if scan_layers
+                          else params)
     info = {"tag": tag, "path": ckpt, "n_layer": n_layer,
             "n_embd": n_embd, "vocab_size": cfg.vocab_size,
             "topology": topo}
@@ -307,7 +315,7 @@ def _run_fleet(args, inf_cfg, session, device):
         inject = {"kill": {"op": "decode_step",
                            "at_step": args.kill_at_step}}
     spec = {"inf_cfg": _wire_cfg(inf_cfg), "seed": args.seed,
-            "device": str(device)}
+            "device": str(device), "scan_layers": args.scan_layers}
     if args.replica_backend == "process":
         replicas = []
         for i in range(args.replicas):
@@ -324,8 +332,9 @@ def _run_fleet(args, inf_cfg, session, device):
         from deepspeed_tpu_torch.inference.engine import InferenceEngine
 
         def factory():
-            return InferenceEngine(seeded_tiny_model(args.seed, device),
-                                   config=inf_cfg, device=device)
+            return InferenceEngine(
+                seeded_tiny_model(args.seed, device, args.scan_layers),
+                config=inf_cfg, device=device)
 
         replicas = [fleet_mod.ThreadReplica(i, factory).start()
                     for i in range(args.replicas)]
@@ -447,6 +456,7 @@ def _run_disagg(args, inf_cfg, session, device):
         def spawn(i, tier, tag, inj):
             rspec = {"inf_cfg": _wire_cfg(tier_inf(tier)),
                      "seed": args.seed, "device": str(device),
+                     "scan_layers": args.scan_layers,
                      "tier": tier, "handoff_dir": handoff_dir,
                      "jsonl": os.path.join(workdir, f"{tag}.jsonl")}
             return fleet_mod.TierProcessReplica(
@@ -476,7 +486,8 @@ def _run_disagg(args, inf_cfg, session, device):
 
             def factory():
                 engine = InferenceEngine(
-                    seeded_tiny_model(args.seed, device), config=cfg_t,
+                    seeded_tiny_model(args.seed, device, args.scan_layers),
+                    config=cfg_t,
                     device=device)
                 cls = PrefillWorker if tier == "prefill" \
                     else DecodeWorker
@@ -752,15 +763,10 @@ def main(argv=None):
     parser.add_argument("--kill-prefill-worker", type=int, default=None,
                         help="arm a SIGKILL mid-prefill-chunk in this "
                              "prefill-tier worker (process backend)")
-    # a route of the JAX CLI that is recognized but not yet ported
     parser.add_argument("--scan-layers", action="store_true",
-                        help=argparse.SUPPRESS)
+                        help="serve the scan_layers model variant (the "
+                             "same weights stacked; stacked KV cache)")
     args = parser.parse_args(argv)
-
-    for name in _NOT_PORTED:
-        if getattr(args, name):
-            parser.error(f"--{name.replace('_', '-')} is not yet ported "
-                         f"to deepspeed_tpu_torch")
     _check_args(parser, args)
 
     from deepspeed_tpu_torch import resolve_device
@@ -858,11 +864,12 @@ def main(argv=None):
     if args.checkpoint:
         try:
             model, ckpt_info = load_checkpoint_model(
-                args.checkpoint, args.n_head, args.ckpt_tag)
+                args.checkpoint, args.n_head, args.ckpt_tag,
+                args.scan_layers)
         except ValueError as e:
             parser.error(f"--checkpoint: {e}")
     else:
-        model = seeded_tiny_model(args.seed, device)
+        model = seeded_tiny_model(args.seed, device, args.scan_layers)
     cfg = model.config
     try:
         engine = InferenceEngine(model, config=inf_cfg, session=session,

@@ -21,14 +21,46 @@ cache row under a position mask; ``kv_page_table`` addresses a paged
 pool, and ``truncate_layers`` runs only the first blocks, the
 speculative draft's early exit). The losses
 (:func:`cross_entropy_loss`, :func:`chunked_cross_entropy_with_head`)
-and :func:`make_gpt2_loss_fn` are ported; ``scan_layers``, progressive
-layer drop and fp8 are not yet (they raise).
+and :func:`make_gpt2_loss_fn` are ported.
 
-``remat`` checkpoints each block on the training path
-(``torch.utils.checkpoint``, non-reentrant) with ``remat_policy``
-"full" (keep only the block input; the backward recomputes the block,
-K1 included), "dots" (keep the matmul outputs through a selective
-checkpoint policy, recompute the rest: like JAX's ``checkpoint_dots``,
+``scan_layers`` stores every block weight once, stacked on a leading
+layer axis ``[L, ...]`` under the block's own names (``h.ln_1.weight``
+is ``[L, C]``, ``h.attn.c_attn.weight`` ``[L, 3C, C]``): the JAX scanned
+param tree. PyTorch has no ``lax.scan``, so the blocks still run in a
+Python loop (what the flag means here is the layout and the numbers, not
+compile time): each stacked leaf is taken apart once per forward with
+``unbind(0)`` (its backward stacks the per-layer gradients once; indexing
+``h[i]`` in the loop would make autograd write a whole ``[L, ...]`` zero
+gradient per layer), and each layer runs a weightless template block
+through ``torch.func.functional_call``. The stacked model's loss and
+gradients equal the unrolled model's bit for bit, after
+:func:`stack_gpt2_state_dict` / :func:`unstack_gpt2_state_dict`.
+
+Progressive layer drop (``pld_theta`` on the training path, JAX
+``models/gpt2.py:233-262``): sublayer ``l`` of ``L`` (attention, then the
+MLP of each block) is kept with probability ``1 - (l+1)/L (1 - theta)``.
+A dropped sublayer is not run at all, in both layouts (JAX's
+``scan_layers`` degrades the skip to a multiplicative gate, which gives
+the same values), except under ``scan_layers`` with fp8 state, where it
+runs gated by 0 as JAX's does, so that its fp8 sites record what JAX's
+record. The coins come from a CPU ``torch.Generator`` seeded
+from the forward's ``dropout_seed`` (rank folded in, as the hidden
+dropout's), drawn before each block, so a remat recompute sees the same
+coins; they cannot match ``jax.random.bernoulli``.
+
+fp8: each of the four ``Dense`` sites (``c_attn``, ``c_proj`` twice a
+layer, ``c_fc``) runs :func:`deepspeed_tpu_torch.ops.fp8.fp8_linear`
+when an :func:`~deepspeed_tpu_torch.ops.fp8.fp8_scope` is active (the
+engine's ``fp8`` block); the head matmul and attention stay full
+precision. The state keys are JAX's: a dropped sublayer's sites keep
+their keys, and under ``scan_layers`` every layer shares the scanned
+body's (``ops/fp8.py:scan_keys``).
+
+``remat`` checkpoints each block on the training path through
+``runtime/activation_checkpointing/checkpointing.py:checkpoint`` with
+``remat_policy`` "full" (its ``nothing`` policy: keep only the block
+input; the backward recomputes the block, K1 included), "dots" (keep
+the matmul outputs, recompute the rest: like JAX's ``checkpoint_dots``,
 which saves ``dot_general`` results only, so a K1 call's output is not
 kept) or "nothing" (keep everything: the same as no remat). The
 recompute draws the same hidden-dropout masks as the forward (the
@@ -60,6 +92,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from deepspeed_tpu_torch.ops import fp8 as fp8_ops
 from deepspeed_tpu_torch.ops.flash_attention import (
     current_global_rows,
     dropout_generator,
@@ -82,7 +115,7 @@ class GPT2Config:
     #                                  vocab head (no [B, T, V] logits)
     remat: bool = False              # activation checkpointing per block
     remat_policy: str = "full"       # "full" | "dots" | "nothing"
-    scan_layers: bool = False        # not yet ported
+    scan_layers: bool = False        # layer-stacked [L, ...] params
 
 
 # Sizes follow the reference perf-harness configs.
@@ -133,24 +166,28 @@ class Dense(nn.Module):
 
     reference_transposed = ("weight",)
 
-    def __init__(self, n_in, n_out, cfg, device=None):
+    def __init__(self, n_in, n_out, cfg, device=None, site="dense"):
         super().__init__()
         self.dtype = cfg.dtype
+        self.site = site          # the fp8 state's site name
         self.weight = nn.Parameter(torch.empty(
             n_out, n_in, dtype=cfg.param_dtype, device=device))
         self.bias = nn.Parameter(torch.zeros(
             n_out, dtype=cfg.param_dtype, device=device))
 
     def reset_parameters(self, generator=None):
-        std = math.sqrt(1.0 / self.weight.shape[1]) / _TRUNC_STD
+        std = math.sqrt(1.0 / self.weight.shape[-1]) / _TRUNC_STD
         nn.init.trunc_normal_(self.weight, 0.0, std, -2 * std, 2 * std,
                               generator=generator)
         nn.init.zeros_(self.bias)
 
     def forward(self, x):
         w = self.weight.to(self.dtype)
-        return torch.matmul(x.to(self.dtype), w.t()) + \
-            self.bias.to(self.dtype)
+        x = x.to(self.dtype)
+        if fp8_ops.site_active(self.site):
+            return fp8_ops.fp8_linear(x, w, self.site) + \
+                self.bias.to(self.dtype)
+        return torch.matmul(x, w.t()) + self.bias.to(self.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -186,8 +223,8 @@ class CausalSelfAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         C = cfg.n_embd
-        self.c_attn = Dense(C, 3 * C, cfg, device)
-        self.c_proj = Dense(C, C, cfg, device)
+        self.c_attn = Dense(C, 3 * C, cfg, device, site="c_attn")
+        self.c_proj = Dense(C, C, cfg, device, site="c_proj")
 
     def forward(self, x, positions=None, kv_cache=None, attn_impl="dense",
                 attn_block_k=128, attn_mask=None, kv_page_table=None,
@@ -230,12 +267,17 @@ class MLP(nn.Module):
     def __init__(self, cfg, device=None):
         super().__init__()
         C = cfg.n_embd
-        self.c_fc = Dense(C, 4 * C, cfg, device)
-        self.c_proj = Dense(4 * C, C, cfg, device)
+        self.c_fc = Dense(C, 4 * C, cfg, device, site="c_fc")
+        self.c_proj = Dense(4 * C, C, cfg, device, site="c_proj")
 
     def forward(self, x, drop=None):
         h = self.c_proj(F.gelu(self.c_fc(x), approximate="tanh"))
         return h if drop is None else drop.hidden(h)
+
+
+# the fp8 sites of a block's sublayers, in call order
+ATTN_SITES = ("c_attn", "c_proj")
+MLP_SITES = ("c_fc", "c_proj")
 
 
 class Block(nn.Module):
@@ -246,9 +288,23 @@ class Block(nn.Module):
         self.ln_2 = LayerNorm(cfg.n_embd, cfg, device=device)
         self.mlp = MLP(cfg, device)
 
-    def forward(self, x, drop=None, **attn_kw):
-        x = x + self.attn(self.ln_1(x), drop=drop, **attn_kw)
-        return x + self.mlp(self.ln_2(x), drop=drop)
+    def forward(self, x, drop=None, keep=(True, True), gate=False,
+                **attn_kw):
+        """``keep``: progressive layer drop's coins for the attention and
+        the MLP sublayer. A dropped sublayer is not run and its fp8 sites
+        keep their keys; with ``gate`` (JAX's scanned block) it runs and
+        its output is multiplied by 0."""
+        if keep[0] or gate:
+            y = self.attn(self.ln_1(x), drop=drop, **attn_kw)
+            x = x + (y if keep[0] else y * 0)
+        else:
+            fp8_ops.skip_sites(ATTN_SITES)
+        if keep[1] or gate:
+            y = self.mlp(self.ln_2(x), drop=drop)
+            x = x + (y if keep[1] else y * 0)
+        else:
+            fp8_ops.skip_sites(MLP_SITES)
+        return x
 
 
 class _Dropout:
@@ -273,49 +329,99 @@ class _Dropout:
 
 
 REMAT_POLICIES = ("full", "dots", "nothing")
-# the matmuls whose outputs remat "dots" keeps (their post-autograd forms)
-_DOT_OPS = frozenset(
-    getattr(torch.ops.aten, name).default
-    for name in ("mm", "bmm", "addmm", "baddbmm", "addbmm"))
+# remat_policy -> activation checkpointing policy
+_CHECKPOINT_POLICY = {"full": "nothing", "dots": "dots"}
 
 
-def _dots_policy(ctx, op, *args, **kwargs):
-    from torch.utils.checkpoint import CheckpointPolicy
-    return CheckpointPolicy.MUST_SAVE if op in _DOT_OPS \
-        else CheckpointPolicy.PREFER_RECOMPUTE
+def remat_block(block, x, drop, policy, keep=(True, True), gate=False):
+    """``block(x, drop=drop, keep=keep, gate=gate)`` under activation
+    checkpointing with ``policy`` ("full" or "dots"). The recompute
+    replays the forward's state (``activation_checkpointing.
+    checkpointing.replayable``): the hidden-dropout generator runs from
+    where the block's forward started (and is put back where the forward
+    left it), and the fp8 sites take the forward's state keys. ``block``
+    is a :class:`Block` or one layer of :class:`StackedBlocks`."""
+    from deepspeed_tpu_torch.runtime.activation_checkpointing.\
+        checkpointing import checkpoint
+    return checkpoint(
+        lambda h, d: block(h, drop=d, keep=keep, gate=gate), x, drop,
+        policy=_CHECKPOINT_POLICY[policy])
 
 
-def _dots_context():
-    from torch.utils.checkpoint import create_selective_checkpoint_contexts
-    return create_selective_checkpoint_contexts(_dots_policy)
+PLD_STREAM = 0x504C44   # folded into the forward's seed for the PLD coins
 
 
-def remat_block(block, x, drop, policy):
-    """``block(x, drop=drop)`` under activation checkpointing with
-    ``policy`` ("full" or "dots"). The hidden-dropout generator's state
-    is taken before the block, and the recompute runs from it (then the
-    generator is put back where the forward left it): the recomputed
-    block draws the forward's masks."""
-    from torch.utils.checkpoint import checkpoint
+def pld_keep_prob(layer, n_layer, theta):
+    """Progressive layer drop's keep probability of block ``layer``'s
+    sublayers (JAX ``Block``: ``1 - (l + 1) / L * (1 - theta)``)."""
+    return 1.0 - (layer + 1) / n_layer * (1.0 - theta)
 
-    start = None if drop is None else drop.generator.get_state()
-    calls = [0]
 
-    def run(h):
-        calls[0] += 1
-        if calls[0] == 1 or drop is None:
-            return block(h, drop=drop)
-        after = drop.generator.get_state()
-        drop.generator.set_state(start)
-        try:
-            return block(h, drop=drop)
-        finally:
-            drop.generator.set_state(after)
+def pld_coins(theta, n_layer, seed):
+    """``[(keep_attn, keep_mlp)] * n_layer`` for one forward: two draws a
+    block, in order, from a CPU generator seeded from ``seed`` (the rank
+    folded in as the hidden dropout's, ``dropout_generator``)."""
+    from deepspeed_tpu_torch.ops.flash_attention import fold_in_seed
+    gen = dropout_generator(fold_in_seed(seed, PLD_STREAM), "cpu")
+    coins = []
+    for i in range(n_layer):
+        p = pld_keep_prob(i, n_layer, float(theta))
+        a = bool(torch.rand((), generator=gen) < p)
+        m = bool(torch.rand((), generator=gen) < p)
+        coins.append((a, m))
+    return coins
 
-    kw = {"context_fn": _dots_context} if policy == "dots" else {}
-    # the default generators are not drawn from (dropout has its own)
-    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False,
-                      **kw)
+
+class _StackedLayer:
+    """Layer ``i`` of a :class:`StackedBlocks`: the template block run on
+    that layer's views of the stacked weights."""
+
+    def __init__(self, template, params):
+        self.template = template
+        self.params = params
+
+    def __call__(self, x, **kw):
+        return torch.func.functional_call(self.template, self.params, (x,),
+                                          kw)
+
+
+class StackedBlocks(nn.Module):
+    """``scan_layers``: every block weight stacked on a leading layer
+    axis, under the block's own module names (``ln_1.weight`` ``[L, C]``,
+    ``attn.c_attn.weight`` ``[L, 3C, C]``, ...). :meth:`layers` takes the
+    stack apart once (``unbind(0)``); each layer runs a weightless
+    template :class:`Block` (on the meta device, not a submodule) through
+    ``functional_call``. The engine installs and gathers the stack as one
+    unit (``install_as_one``): it runs as one module call."""
+
+    install_as_one = True
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        self.n_layer = cfg.n_layer
+        shape = Block(cfg, device="meta")
+        for name, child in shape.named_children():
+            self.add_module(name, child)
+        for mod in list(self.modules())[1:]:
+            for pname, p in list(mod._parameters.items()):
+                mod._parameters[pname] = nn.Parameter(torch.empty(
+                    (cfg.n_layer,) + tuple(p.shape), dtype=p.dtype,
+                    device=device))
+        object.__setattr__(self, "_template", Block(cfg, device="meta"))
+
+    def layers(self):
+        """The layers as callables with a :class:`Block`'s ``forward``
+        signature."""
+        stacks = {name: p.unbind(0) for name, p in self.named_parameters()}
+        return [_StackedLayer(self._template,
+                              {name: t[i] for name, t in stacks.items()})
+                for i in range(self.n_layer)]
+
+    def forward(self, x, run):
+        """``run(layers, x)``: the caller's loop over :meth:`layers`,
+        inside this module's call (so the engine's per-module install
+        hooks fire around it)."""
+        return run(self.layers(), x)
 
 
 class GPT2LMHead(nn.Module):
@@ -329,10 +435,6 @@ class GPT2LMHead(nn.Module):
 
     def __init__(self, cfg, device=None, generator=None):
         super().__init__()
-        if cfg.scan_layers:
-            raise NotImplementedError(
-                "GPT2Config.scan_layers is not yet ported to "
-                "deepspeed_tpu_torch")
         if cfg.remat and cfg.remat_policy not in REMAT_POLICIES:
             raise ValueError(f"remat_policy {cfg.remat_policy!r} not in "
                              f"{sorted(REMAT_POLICIES)}")
@@ -343,8 +445,9 @@ class GPT2LMHead(nn.Module):
         self.wpe = nn.Parameter(torch.empty(
             cfg.n_positions, cfg.n_embd, dtype=cfg.param_dtype,
             device=device))
-        self.h = nn.ModuleList(Block(cfg, device)
-                               for _ in range(cfg.n_layer))
+        self.h = StackedBlocks(cfg, device) if cfg.scan_layers else \
+            nn.ModuleList(Block(cfg, device) for _ in range(cfg.n_layer))
+        self.last_pld_coins = None    # the last PLD forward's coins
         self.ln_f = LayerNorm(cfg.n_embd, cfg, device=device)
         self.reset_parameters(generator)
 
@@ -382,18 +485,21 @@ class GPT2LMHead(nn.Module):
     def forward(self, input_ids, positions=None, kv_cache=None,
                 attn_impl="dense", attn_block_k=128, dropout_seed=None,
                 return_hidden=False, kv_page_table=None,
-                truncate_layers=None):
+                truncate_layers=None, pld_theta=None):
         """Logits ``[B, T, vocab]`` in the compute dtype; with
         ``kv_cache``, ``(logits, kv_cache)`` (the cache updated in
         place). ``positions`` ``[B, T]`` places a chunk at explicit
         absolute positions (required with ``kv_cache``).
         ``dropout_seed`` (an int) turns on training dropout on the
-        uncached path; ``return_hidden`` returns the final hidden states
-        instead of logits (the chunked loss applies the head itself).
-        ``kv_page_table`` (``[B, pages_per_row]`` int32) addresses a
-        paged cache pool. ``truncate_layers`` (cached path only) runs
-        only the first that many blocks, then ``ln_f`` and the tied
-        head: the speculative draft's early exit."""
+        uncached path, and with it ``pld_theta`` (progressive layer
+        drop's keep parameter); ``return_hidden`` returns the final
+        hidden states instead of logits (the chunked loss applies the
+        head itself). ``kv_page_table`` (``[B, pages_per_row]`` int32)
+        addresses a paged cache pool. ``truncate_layers`` (cached path
+        only) runs only the first that many blocks, then ``ln_f`` and the
+        tied head: the speculative draft's early exit. Under
+        ``scan_layers`` the cache is stacked too (``{"h": {...}}`` with a
+        leading layer axis) and each layer reads and writes its slice."""
         from deepspeed_tpu_torch.inference.cache import attention_mask
 
         cfg = self.config
@@ -420,26 +526,58 @@ class GPT2LMHead(nn.Module):
                             row_offset=current_global_rows()[0])
             x = drop.hidden(x)
         if kv_cache is None:
+            coins = None
+            if pld_theta is not None and dropout_seed is not None:
+                coins = pld_coins(pld_theta, cfg.n_layer, int(dropout_seed))
+            self.last_pld_coins = coins
             remat = cfg.remat and cfg.remat_policy != "nothing" and \
                 torch.is_grad_enabled()
-            for i, block in enumerate(self.h):
-                d = None if drop is None else drop.layer(i)
-                x = remat_block(block, x, d, cfg.remat_policy) if remat \
-                    else block(x, drop=d)
+
+            def run(layers, x):
+                # JAX's scanned block: every layer takes the body's fp8
+                # keys, and a dropped sublayer runs gated
+                enter = fp8_ops.scan_keys(ATTN_SITES + MLP_SITES) \
+                    if cfg.scan_layers else None
+                gate = enter is not None
+                for i, block in enumerate(layers):
+                    d = None if drop is None else drop.layer(i)
+                    keep = (True, True) if coins is None else coins[i]
+                    if enter is not None:
+                        enter()
+                    if not (any(keep) or gate):
+                        fp8_ops.skip_sites(ATTN_SITES + MLP_SITES)
+                        continue
+                    x = remat_block(block, x, d, cfg.remat_policy, keep,
+                                    gate) \
+                        if remat else block(x, drop=d, keep=keep, gate=gate)
+                return x
+
+            x = self.h(x, run) if cfg.scan_layers else run(self.h, x)
         else:
             if positions is None:
                 raise ValueError("the cached path needs explicit positions")
+            if cfg.scan_layers:
+                stack = kv_cache["h"]
+                caches = [{k: t[i] for k, t in stack.items()}
+                          for i in range(n_run)]
+            else:
+                caches = [kv_cache[f"h_{i}"] for i in range(n_run)]
             attn_mask = None
             if attn_impl == "dense":
                 # one position mask per step, shared by every layer
-                attn_mask = attention_mask(kv_cache["h_0"], positions,
+                attn_mask = attention_mask(caches[0], positions,
                                            page_table=kv_page_table)
-            for i in range(n_run):
-                x = self.h[i](x, positions=positions,
-                              kv_cache=kv_cache[f"h_{i}"],
-                              attn_impl=attn_impl, attn_block_k=attn_block_k,
+
+            def run(layers, x):
+                for block, layer_cache in zip(layers, caches):
+                    x = block(x, positions=positions, kv_cache=layer_cache,
+                              attn_impl=attn_impl,
+                              attn_block_k=attn_block_k,
                               attn_mask=attn_mask,
                               kv_page_table=kv_page_table)
+                return x
+
+            x = self.h(x, run) if cfg.scan_layers else run(self.h, x)
         x = self.ln_f(x)
         if return_hidden:
             return x
@@ -542,13 +680,11 @@ def make_gpt2_loss_fn(model):
     params (``models/gpt2.py:521``). ``batch`` is a dict with
     ``input_ids`` [B, T] (labels default to the next-token shift, the
     last position ignored) or explicit ``labels``; ``rng`` is the
-    engine's int dropout seed, None for a deterministic forward."""
+    engine's int dropout seed, None for a deterministic forward;
+    ``pld_theta`` progressive layer drop's keep parameter (applied only
+    with ``rng``, as in JAX)."""
 
     def loss_fn(batch, rng=None, pld_theta=None):
-        if pld_theta is not None:
-            raise NotImplementedError(
-                "progressive layer drop is not yet ported to "
-                "deepspeed_tpu_torch")
         input_ids = batch["input_ids"]
         labels = batch.get("labels")
         if labels is None:
@@ -559,11 +695,13 @@ def make_gpt2_loss_fn(model):
                             device=input_ids.device)], dim=1)
         chunk = model.config.loss_chunk
         if chunk:
-            hidden = model(input_ids, dropout_seed=rng, return_hidden=True)
+            hidden = model(input_ids, dropout_seed=rng, return_hidden=True,
+                           pld_theta=pld_theta)
             total, count = chunked_cross_entropy_sum_and_count(
                 hidden, model.wte.to(model.config.dtype), labels, chunk)
             return total / torch.clamp(count, min=1)
-        return cross_entropy_loss(model(input_ids, dropout_seed=rng), labels)
+        return cross_entropy_loss(
+            model(input_ids, dropout_seed=rng, pld_theta=pld_theta), labels)
 
     return loss_fn
 
@@ -573,31 +711,114 @@ def make_gpt2_loss_fn(model):
 # ---------------------------------------------------------------------------
 
 _LAYER_KEY_RE = re.compile(r"^h_(\d+)$")
+_SD_LAYER_RE = re.compile(r"^h\.(\d+)\.(.+)$")
 _DENSE = (("attn", "c_attn"), ("attn", "c_proj"), ("mlp", "c_fc"),
           ("mlp", "c_proj"))
 
 
-def _unstack(params):
-    """The ``scan_layers`` layout (one ``h`` subtree with a leading
-    layer axis) as per-layer ``h_<i>`` subtrees."""
-    def split(tree, i):
-        if hasattr(tree, "items"):
-            return {k: split(v, i) for k, v in tree.items()}
-        return np.asarray(tree)[i]
+def _stack(leaves):
+    if torch.is_tensor(leaves[0]):
+        return torch.stack(leaves, 0)
+    return np.stack([np.asarray(x) for x in leaves], 0)
 
-    out = {k: v for k, v in params.items() if str(k) != "h"}
-    leaf = params["h"]
-    while hasattr(leaf, "items"):
-        leaf = next(iter(leaf.values()))
-    for i in range(np.asarray(leaf).shape[0]):
-        out[f"h_{i}"] = split(params["h"], i)
+
+def _tree_map(fn, *trees):
+    if hasattr(trees[0], "items"):
+        return {k: _tree_map(fn, *(t[k] for t in trees))
+                for k in trees[0]}
+    return fn(*trees)
+
+
+def _first_leaf(tree):
+    while hasattr(tree, "items"):
+        tree = next(iter(tree.values()))
+    return tree
+
+
+def stack_gpt2_layer_params(params):
+    """Unrolled JAX param tree (``h_0`` ... ``h_{L-1}``, nested mappings
+    of numpy arrays or tensors) -> the ``scan_layers`` layout: one ``h``
+    subtree whose leaves gain a leading layer axis; wte/wpe/ln_f pass
+    through (JAX ``models/gpt2.py:607``). Bit-exact, and the inverse of
+    :func:`unstack_gpt2_layer_params`."""
+    idxs = sorted(int(m.group(1)) for k in params
+                  if (m := _LAYER_KEY_RE.match(str(k))))
+    if not idxs:
+        raise ValueError("no per-layer 'h_<i>' entries to stack")
+    if idxs != list(range(len(idxs))):
+        raise ValueError(f"non-contiguous layer indices: {idxs}")
+    out = {k: v for k, v in params.items()
+           if not _LAYER_KEY_RE.match(str(k))}
+    out["h"] = _tree_map(lambda *leaves: _stack(leaves),
+                         *[params[f"h_{i}"] for i in idxs])
     return out
 
 
-def convert_gpt2_params(params):
+def unstack_gpt2_layer_params(params):
+    """``scan_layers`` layout -> unrolled ``h_0`` ... ``h_{L-1}`` tree
+    (JAX ``models/gpt2.py:634``)."""
+    if "h" not in params:
+        raise ValueError("no stacked 'h' entry to unstack")
+    out = {k: v for k, v in params.items() if str(k) != "h"}
+    stacked = params["h"]
+    for i in range(_first_leaf(stacked).shape[0]):
+        out[f"h_{i}"] = _tree_map(lambda leaf: leaf[i], stacked)
+    return out
+
+
+def stack_gpt2_state_dict(sd):
+    """A :class:`GPT2LMHead` ``state_dict`` (``h.<i>.<name>``) as the
+    ``scan_layers`` model's (``h.<name>``, ``[L, ...]``). Bit-exact."""
+    layers = {}
+    out = {}
+    for key, t in sd.items():
+        m = _SD_LAYER_RE.match(key)
+        if m is None:
+            out[key] = t
+        else:
+            layers.setdefault(m.group(2), {})[int(m.group(1))] = t
+    for name, by_layer in layers.items():
+        idxs = sorted(by_layer)
+        if idxs != list(range(len(idxs))):
+            raise ValueError(f"non-contiguous layer indices: {idxs}")
+        out[f"h.{name}"] = torch.stack([by_layer[i] for i in idxs], 0)
+    return out
+
+
+def unstack_gpt2_state_dict(sd):
+    """Inverse of :func:`stack_gpt2_state_dict`."""
+    out = {}
+    for key, t in sd.items():
+        if key.startswith("h.") and not _SD_LAYER_RE.match(key):
+            for i in range(t.shape[0]):
+                out[f"h.{i}.{key[2:]}"] = t[i].clone()
+        else:
+            out[key] = t
+    return out
+
+
+def with_layout(model, scan_layers):
+    """``model`` itself if its layout is ``scan_layers``'s, else a new
+    :class:`GPT2LMHead` in the other layout holding the same weights
+    (the state dict stacked or unstacked, bit for bit), on the same
+    device."""
+    cfg = model.config
+    if bool(cfg.scan_layers) == bool(scan_layers):
+        return model
+    sd = model.state_dict()
+    sd = stack_gpt2_state_dict(sd) if scan_layers else \
+        unstack_gpt2_state_dict(sd)
+    out = GPT2LMHead(dataclasses.replace(cfg, scan_layers=bool(scan_layers)),
+                     device="meta")
+    out.load_state_dict(sd, assign=True)
+    return out
+
+
+def convert_gpt2_params(params, scan_layers=False):
     """The JAX package's GPT-2 param tree (nested mappings of numpy
     arrays, unrolled ``h_<i>`` or stacked ``h`` layout) as a
-    :class:`GPT2LMHead` ``state_dict`` of fp32 CPU tensors.
+    :class:`GPT2LMHead` ``state_dict`` of fp32 CPU tensors: the unrolled
+    model's, or with ``scan_layers`` the stacked model's.
 
     Flax ``Dense.kernel`` is ``[in, out]`` and becomes ``weight``
     ``[out, in]``; LayerNorm ``scale``/``bias`` become
@@ -605,7 +826,7 @@ def convert_gpt2_params(params):
     entry of its own.
     """
     if "h" in params:
-        params = _unstack(params)
+        params = unstack_gpt2_layer_params(params)
     idxs = sorted(int(m.group(1)) for k in params
                   if (m := _LAYER_KEY_RE.match(str(k))))
     if idxs != list(range(len(idxs))):
@@ -627,4 +848,4 @@ def convert_gpt2_params(params):
             sd[f"h.{i}.{mod}.{name}.weight"] = t(dense["kernel"]).t() \
                 .contiguous()
             sd[f"h.{i}.{mod}.{name}.bias"] = t(dense["bias"])
-    return sd
+    return stack_gpt2_state_dict(sd) if scan_layers else sd

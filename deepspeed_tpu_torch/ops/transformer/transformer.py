@@ -20,9 +20,17 @@ matrices in the JAX ``[in, out]`` layout, so the JAX params load 1:1.
 
 Numerics the parity rests on: the layer norm takes a two-pass variance
 (``mean((x - mu)^2)``) in fp32, eps 1e-12, ``rsqrt``, then the fp32
-affine and a cast to the compute dtype; GELU is exact (erf). The remat
-knobs ``normalize_invertible`` / ``gelu_checkpoint`` /
-``attn_dropout_checkpoint`` are not yet ported and raise.
+affine and a cast to the compute dtype; GELU is exact (erf).
+
+The remat knobs checkpoint the sub-blocks JAX wraps in ``jax.checkpoint``
+(``transformer.py:248-277``), through
+``runtime/activation_checkpointing/checkpointing.py:checkpoint`` (full
+recompute; the hidden-dropout generator is replayed, the attention-prob
+dropout is the counter hash): ``attn_dropout_checkpoint`` the attention
+sub-block (QKV to the output dropout; on the sparse path K7 runs again in
+the recompute), ``gelu_checkpoint`` the FFN, ``normalize_invertible``
+each of the two layer norms. None of them changes an output or a
+gradient bit.
 
 Compute dtype: fp16 when ``fp16``, else fp32, as in the JAX config,
 which has no bf16 flag: a BERT built in bf16 runs its encoder layers,
@@ -126,9 +134,6 @@ def _is_key_padding_shape(shape, B, T):
     return ok_b and ok_heads and ok_q and ok_k
 
 
-_REMAT = ("normalize_invertible", "gelu_checkpoint", "attn_dropout_checkpoint")
-
-
 class DeepSpeedTransformerLayer(nn.Module):
     """One transformer encoder block (reference ``DeepSpeedTransformerLayer``).
 
@@ -145,11 +150,6 @@ class DeepSpeedTransformerLayer(nn.Module):
     def __init__(self, config, use_flash_attention=False,
                  sparsity_config=None, device=None, generator=None):
         super().__init__()
-        for name in _REMAT:
-            if getattr(config, name):
-                raise NotImplementedError(
-                    f"DeepSpeedTransformerConfig.{name} (rematerialization) "
-                    f"is not yet ported to deepspeed_tpu_torch")
         self.config = config
         self.use_flash_attention = use_flash_attention
         self.sparsity_config = sparsity_config
@@ -265,16 +265,40 @@ class DeepSpeedTransformerLayer(nn.Module):
         elif generator is None:
             generator = dropout_generator(dropout_seed,
                                           hidden_states.device)
-        x = hidden_states.to(self.config.dtype)
-        ln_attn = (self.attn_nw, self.attn_nb)
-        ln_out = (self.norm_w, self.norm_b)
-        if self.config.pre_layer_norm:
-            x = x + self._attention(self._layer_norm(x, *ln_attn),
-                                    attention_mask, dropout_seed, generator)
-            x = x + self._ffn(self._layer_norm(x, *ln_out), generator)
+        from deepspeed_tpu_torch.runtime.activation_checkpointing.\
+            checkpointing import checkpoint
+        cfg = self.config
+        x = hidden_states.to(cfg.dtype)
+
+        def attention(xin):
+            return self._attention(xin, attention_mask, dropout_seed,
+                                   generator)
+
+        def ffn(xin):
+            return self._ffn(xin, generator)
+
+        def ln_attn(xin):
+            return self._layer_norm(xin, self.attn_nw, self.attn_nb)
+
+        def ln_out(xin):
+            return self._layer_norm(xin, self.norm_w, self.norm_b)
+
+        def remat(fn, gen=None):
+            # the generator rides as an argument so the recompute
+            # replays its draws
+            return lambda xin: checkpoint(lambda h, _g: fn(h), xin, gen,
+                                          policy="nothing")
+
+        if cfg.attn_dropout_checkpoint:
+            attention = remat(attention, generator)
+        if cfg.gelu_checkpoint:
+            ffn = remat(ffn, generator)
+        if cfg.normalize_invertible:
+            ln_attn, ln_out = remat(ln_attn), remat(ln_out)
+        if cfg.pre_layer_norm:
+            x = x + attention(ln_attn(x))
+            x = x + ffn(ln_out(x))
         else:
-            x = self._layer_norm(
-                x + self._attention(x, attention_mask, dropout_seed,
-                                    generator), *ln_attn)
-            x = self._layer_norm(x + self._ffn(x, generator), *ln_out)
+            x = ln_attn(x + attention(x))
+            x = ln_out(x + ffn(x))
         return x

@@ -24,6 +24,14 @@ and ``dump_state`` are plain reads (``dump_state`` logs the config),
 bf16 (JAX ``engine.py:416``), and ``wall_clock_breakdown`` /
 ``memory_breakdown`` log that the port has no step timers yet.
 
+The training-feature keys: ``activation_checkpointing``
+(:class:`~deepspeed_tpu_torch.runtime.activation_checkpointing.config.
+DeepSpeedActivationCheckpointingConfig`), ``progressive_layer_drop``
+(``enabled`` and the schedule's ``theta`` / ``gamma``),
+``sparse_gradients`` and ``fp8`` (:class:`Fp8Config`, with the JAX
+package's checks: fp8 is incompatible with OneBitAdam, sparse gradients
+and ZeRO-Offload).
+
 The keys whose features later work ports raise "not yet ported" with the
 ``ROADMAP.md`` item that ports them (:data:`_LATER_KEYS`); any other key
 raises as unknown. Key names and error texts are the JAX package's.
@@ -116,16 +124,13 @@ _PORTED_KEYS = frozenset((
     C.PRESCALE_GRADIENTS, C.GRADIENT_PREDIVIDE_FACTOR, C.FP32_ALLREDUCE,
     C.DISABLE_ALLGATHER, C.ZERO_ALLOW_UNTESTED_OPTIMIZER, C.DUMP_STATE,
     C.VOCABULARY_SIZE, C.AMP, C.WALL_CLOCK_BREAKDOWN, C.MEMORY_BREAKDOWN,
-    C.INFERENCE))
+    C.INFERENCE, C.ACTIVATION_CHECKPOINTING, C.PROGRESSIVE_LAYER_DROP,
+    C.SPARSE_GRADIENTS, C.FP8))
 
 # the keys the JAX config reads whose features are not ported yet, each
 # with the ROADMAP.md section 1 item that ports it
 _LATER_KEYS = {
-    C.ACTIVATION_CHECKPOINTING: "item 3 (training features)",
-    C.PROGRESSIVE_LAYER_DROP: "item 3 (training features)",
-    C.SPARSE_GRADIENTS: "item 3 (training features)",
-    C.FP8: "item 3 (training features)",
-    C.TELEMETRY: "item 3 (training features)",
+    C.TELEMETRY: "item 6 (slice G, operations)",
     C.PIPELINE: "item 5 (slice F, parallelism)",
     C.MESH: "item 5 (slice F, parallelism)",
     C.TENSOR_PARALLEL: "item 5 (slice F, parallelism)",
@@ -166,6 +171,75 @@ def dict_raise_error_on_duplicate_keys(ordered_pairs):
         keys = [key for key, value in counter.items() if value > 1]
         raise ValueError("Duplicate keys in DeepSpeed config: {}".format(keys))
     return d
+
+
+def get_sparse_gradients_enabled(param_dict):
+    return get_scalar_param(param_dict, C.SPARSE_GRADIENTS,
+                            C.SPARSE_GRADIENTS_DEFAULT)
+
+
+def get_pld_enabled(param_dict):
+    if C.PROGRESSIVE_LAYER_DROP in param_dict:
+        return get_scalar_param(param_dict[C.PROGRESSIVE_LAYER_DROP],
+                                C.PLD_ENABLED, C.PLD_ENABLED_DEFAULT)
+    return False
+
+
+def get_pld_params(param_dict):
+    if C.PROGRESSIVE_LAYER_DROP in param_dict:
+        pld_params = dict(param_dict[C.PROGRESSIVE_LAYER_DROP])
+        pld_params.pop(C.PLD_ENABLED, None)
+        return pld_params
+    return False
+
+
+class Fp8Config:
+    """Typed view of the ``fp8`` block (JAX ``Fp8Config``): ``enabled``
+    turns the model's hooked matmuls into delayed-scaling fp8
+    (``ops/fp8.py``); ``margin`` / ``amax_history_len`` tune the recipe
+    and ``sites`` holds per-site ``{"enabled": bool}`` overrides. The
+    ``wire`` sub-block quantizes stage 3's param gathers with a codec of
+    ``runtime/comm/codecs.py``."""
+
+    def __init__(self, param_dict):
+        sub = param_dict.get(C.FP8, {}) or {}
+        self.enabled = get_scalar_param(sub, C.FP8_ENABLED,
+                                        C.FP8_ENABLED_DEFAULT)
+        self.margin = get_scalar_param(sub, C.FP8_MARGIN,
+                                       C.FP8_MARGIN_DEFAULT)
+        self.amax_history_len = get_scalar_param(
+            sub, C.FP8_AMAX_HISTORY_LEN, C.FP8_AMAX_HISTORY_LEN_DEFAULT)
+        self.sites = get_scalar_param(sub, C.FP8_SITES, C.FP8_SITES_DEFAULT)
+        wire = sub.get(C.FP8_WIRE, {}) or {}
+        self.wire_enabled = get_scalar_param(wire, C.FP8_WIRE_ENABLED,
+                                             C.FP8_WIRE_ENABLED_DEFAULT)
+        self.wire_dtype = get_scalar_param(wire, C.FP8_WIRE_DTYPE,
+                                           C.FP8_WIRE_DTYPE_DEFAULT)
+        self.wire_chunk_size = get_scalar_param(
+            wire, C.FP8_WIRE_CHUNK_SIZE, C.FP8_WIRE_CHUNK_SIZE_DEFAULT)
+
+    def plan(self):
+        """The resolved :class:`~deepspeed_tpu_torch.ops.fp8.Fp8Plan`, or
+        None when fp8 matmuls are disabled."""
+        if not self.enabled:
+            return None
+        from deepspeed_tpu_torch.ops.fp8 import Fp8Plan
+        return Fp8Plan(margin=int(self.margin),
+                       amax_history_len=int(self.amax_history_len),
+                       sites=dict(self.sites or {}))
+
+    def active_wire_dtype(self):
+        """The codec name for quantized gathers, or None."""
+        return str(self.wire_dtype) if self.wire_enabled else None
+
+    def __repr__(self):
+        return (f"Fp8Config(enabled={self.enabled}, "
+                f"margin={self.margin}, "
+                f"amax_history_len={self.amax_history_len}, "
+                f"sites={self.sites!r}, "
+                f"wire_enabled={self.wire_enabled}, "
+                f"wire_dtype={self.wire_dtype!r}, "
+                f"wire_chunk_size={self.wire_chunk_size})")
 
 
 def get_fp16_enabled(param_dict):
@@ -558,6 +632,15 @@ class DeepSpeedConfig:
         self.memory_breakdown = get_scalar_param(
             param_dict, C.MEMORY_BREAKDOWN, C.MEMORY_BREAKDOWN_DEFAULT)
         self.inference = InferenceConfig(param_dict)
+        from deepspeed_tpu_torch.runtime.activation_checkpointing.config \
+            import DeepSpeedActivationCheckpointingConfig
+        self.activation_checkpointing_config = \
+            DeepSpeedActivationCheckpointingConfig(param_dict)
+        self.pld_enabled = get_pld_enabled(param_dict)
+        self.pld_params = get_pld_params(param_dict)
+        self.sparse_gradients_enabled = get_sparse_gradients_enabled(
+            param_dict)
+        self.fp8 = Fp8Config(param_dict)
 
     def _do_warning_check(self):
         """JAX ``_do_warning_check`` (``config.py:1666``), and what the
@@ -641,6 +724,7 @@ class DeepSpeedConfig:
 
     def _do_error_check(self):
         self._check_zero3()
+        self._check_fp8()
         self._check_inference()
         if self.zero_enabled:
             assert self.fp16_enabled or self.bf16_enabled, (
@@ -672,6 +756,68 @@ class DeepSpeedConfig:
             raise ValueError(
                 f"zero_optimization: gather_chunks must be an int >= 1, "
                 f"got {chunks!r}")
+
+    def _check_fp8(self):
+        """JAX ``_check_fp8`` (``config.py:1297``); its comm_quantization
+        case cannot arise here (that key raises as not yet ported)."""
+        from deepspeed_tpu_torch.runtime.comm.codecs import CODECS
+        f8 = self.fp8
+        if not isinstance(f8.enabled, bool):
+            raise ValueError(
+                f"fp8: enabled must be a bool, got {f8.enabled!r}")
+        if not isinstance(f8.wire_enabled, bool):
+            raise ValueError(
+                f"fp8.wire: enabled must be a bool, got "
+                f"{f8.wire_enabled!r}")
+        if isinstance(f8.margin, bool) or not isinstance(f8.margin, int) \
+                or f8.margin < 0:
+            raise ValueError(
+                f"fp8: margin must be an int >= 0, got {f8.margin!r}")
+        hl = f8.amax_history_len
+        if isinstance(hl, bool) or not isinstance(hl, int) or hl < 1:
+            raise ValueError(
+                f"fp8: amax_history_len must be an int >= 1, got {hl!r}")
+        if f8.sites is not None:
+            if not isinstance(f8.sites, dict):
+                raise ValueError(
+                    f"fp8: sites must be a dict of per-site overrides, "
+                    f"got {f8.sites!r}")
+            for site, ov in f8.sites.items():
+                if not isinstance(ov, dict):
+                    raise ValueError(
+                        f"fp8: sites[{site!r}] must be a dict, got {ov!r}")
+                for key, v in ov.items():
+                    if key != C.FP8_ENABLED:
+                        raise ValueError(
+                            f"fp8: unknown key {key!r} in sites[{site!r}];"
+                            f" allowed: [{C.FP8_ENABLED!r}]")
+                    if not isinstance(v, bool):
+                        raise ValueError(
+                            f"fp8: sites[{site!r}].{key} must be a bool, "
+                            f"got {v!r}")
+        if f8.wire_enabled:
+            if f8.wire_dtype not in CODECS:
+                raise ValueError(
+                    f"fp8.wire: dtype must be one of {sorted(CODECS)}, "
+                    f"got {f8.wire_dtype!r}")
+            wc = f8.wire_chunk_size
+            if isinstance(wc, bool) or not isinstance(wc, int) or wc < 1:
+                raise ValueError(
+                    f"fp8.wire: chunk_size must be an int >= 1, "
+                    f"got {wc!r}")
+        if f8.enabled or f8.wire_enabled:
+            if self.optimizer_name == ONEBIT_ADAM_OPTIMIZER:
+                raise ValueError(
+                    "fp8 is incompatible with OneBitAdam (both rewrite "
+                    "the gradient exchange/state threading)")
+            if self.sparse_gradients_enabled:
+                raise ValueError(
+                    "fp8 is incompatible with sparse_gradients (the CSR "
+                    "path runs its own per-leaf exchange)")
+            if self.zero_config.cpu_offload is True:
+                raise ValueError(
+                    "fp8 requires the in-jit update path; ZeRO-Offload "
+                    "steps the optimizer on host")
 
     def _check_inference(self):
         from deepspeed_tpu_torch.runtime.comm.codecs import CODECS

@@ -98,6 +98,7 @@ SPARSE_NUM_SLIDING_WINDOW_BLOCKS_DEFAULT = 3
 ZERO_ALLOW_UNTESTED_OPTIMIZER = "zero_allow_untested_optimizer"
 ZERO_ALLOW_UNTESTED_OPTIMIZER_DEFAULT = False
 SPARSE_GRADIENTS = "sparse_gradients"
+SPARSE_GRADIENTS_DEFAULT = False
 AMP = "amp"
 AMP_ENABLED = "enabled"
 AMP_ENABLED_DEFAULT = False
@@ -119,6 +120,12 @@ MEMORY_BREAKDOWN = "memory_breakdown"
 MEMORY_BREAKDOWN_DEFAULT = False
 TENSORBOARD = "tensorboard"
 PROGRESSIVE_LAYER_DROP = "progressive_layer_drop"
+PLD_ENABLED = "enabled"
+PLD_ENABLED_DEFAULT = False
+PLD_THETA = "theta"
+PLD_THETA_DEFAULT = 1.0
+PLD_GAMMA = "gamma"
+PLD_GAMMA_DEFAULT = 0.001
 ACTIVATION_CHECKPOINTING = "activation_checkpointing"
 PROFILING = "profiling"
 COMPILATION_CACHE_DIR = "compilation_cache_dir"
@@ -130,6 +137,21 @@ ELASTICITY = "elasticity"
 ANALYSIS = "analysis"
 TENSOR_PARALLEL = "tensor_parallel"
 FP8 = "fp8"
+FP8_ENABLED = "enabled"
+FP8_ENABLED_DEFAULT = False
+FP8_MARGIN = "margin"
+FP8_MARGIN_DEFAULT = 0
+FP8_AMAX_HISTORY_LEN = "amax_history_len"
+FP8_AMAX_HISTORY_LEN_DEFAULT = 16
+FP8_SITES = "sites"
+FP8_SITES_DEFAULT = None         # None = no per-site overrides
+FP8_WIRE = "wire"
+FP8_WIRE_ENABLED = "enabled"
+FP8_WIRE_ENABLED_DEFAULT = False
+FP8_WIRE_DTYPE = "dtype"
+FP8_WIRE_DTYPE_DEFAULT = "f8e4m3fn"
+FP8_WIRE_CHUNK_SIZE = "chunk_size"
+FP8_WIRE_CHUNK_SIZE_DEFAULT = 512
 TELEMETRY = "telemetry"
 
 

@@ -18,7 +18,12 @@ run eagerly:
 - Adam / AdamW: every step is one launch of the fused kernel K4
   (``ops/fused_adam.py``) over the rank's pieces, with or without
   ``optimizer.params.pallas`` (the JAX engine's choice between XLA and
-  its Pallas kernel);
+  its Pallas kernel); LAMB (``ops/lamb/fused_lamb.py:lamb_step_``, plain
+  PyTorch as JAX's is ``jnp``), its per-leaf norms summed over the data
+  group under ZeRO; a client optimizer object (``initialize(optimizer=
+  ...)``): the port's ``FusedAdam`` runs K4 and ``FusedLamb`` the LAMB
+  step with the object's hyperparameters, any other object with JAX's
+  ``init`` / ``update`` protocol runs functionally on the masters;
 - the fp16 overflow skip and :func:`loss_scale_epilogue` on device
   tensors (``torch.where``, no host sync); counters as in
   ``DeviceState``.
@@ -88,10 +93,40 @@ host master, and the updated 16-bit rows are all-gathered into every
 rank's device params. :meth:`DeepSpeedEngine._offload_sync_host_state`
 makes every rank's host buffers whole again (before a checkpoint).
 
-1-bit Adam, LAMB, sparse gradients, comm quantization, fp8, the
-pipeline, progressive layer drop and telemetry are not yet ported: their
-config blocks raise in ``runtime/config.py`` and their arguments raise
-here.
+**Progressive layer drop** (``progressive_layer_drop``): the step's
+theta is JAX's ``(1 - theta_bar) exp(-gamma t) + theta_bar`` in fp32 at
+the step counter ``t`` (``engine.py:1005``), passed to ``loss_fn`` as
+``pld_theta``.
+
+**fp8** (``fp8``, JAX ``engine.py:184-320, 1061-1215``): the loss of
+every micro-batch runs inside ``ops/fp8.py:fp8_scope`` with the step's
+input amax histories; each micro-batch adds its updated ones into a
+zeroed ``new_state`` of its own (a key used by several layers, as under
+``scan_layers``, sums them, as JAX's gradient of the state does); the
+step takes the max over its micro-batches, MAX all-reduces it over
+the data group (the amax of the global batch), and replaces the state
+with it, except after an fp16 overflow, which keeps the old
+histories. The first step allocates the state after a discovery forward
+(no gradient, no dropout) that records the sites' keys. Not
+checkpointed, as in JAX. ``fp8.wire`` moves stage 3's gathers quantized
+(``runtime/zero/stage3.py``).
+
+**Sparse gradients** (``sparse_gradients``, ZeRO stage 0 only, JAX
+``engine.py:1848-1990``): the leaves the embedding regex (or
+``engine.sparse_grad_predicate``) flags are sparsified to their top-k
+rows by L1 mass (k the rank's token count) and exchanged as CSR
+(index/value all-gather, ``runtime/csr_tensor.py``); a leaf whose
+top-k would drop mass (a tied embedding) falls back to the dense
+all-reduce by a MAX vote; ``sparse_grad_dropped`` and
+``sparse_grad_dense_fallbacks`` are in the step's metrics.
+
+**Activation checkpointing** (``activation_checkpointing``): the engine
+configures ``runtime/activation_checkpointing/checkpointing.py`` from
+the config unless the user already has (JAX ``engine.py:594-600``).
+
+1-bit Adam, comm quantization, the pipeline and telemetry are not yet
+ported: their config blocks raise in ``runtime/config.py`` and their
+arguments raise here.
 
 **Data** (``training_data``): :meth:`DeepSpeedEngine.deepspeed_io` builds
 a :class:`~deepspeed_tpu_torch.runtime.dataloader.DeepSpeedDataLoader`
@@ -124,6 +159,7 @@ for a given int32 seed.
 """
 
 import contextlib
+import re
 import time
 import weakref
 from typing import Any, NamedTuple
@@ -131,9 +167,15 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch.ops.adam.fused_adam import init_adam_state
+from deepspeed_tpu_torch.ops import fp8 as fp8_ops
+from deepspeed_tpu_torch.ops.adam.fused_adam import FusedAdam, init_adam_state
 from deepspeed_tpu_torch.ops.flash_attention import fold_in_seed, global_rows
 from deepspeed_tpu_torch.ops.fused_adam import fused_adam_update
+from deepspeed_tpu_torch.ops.lamb.fused_lamb import (
+    FusedLamb,
+    init_lamb_state,
+    lamb_step_,
+)
 from deepspeed_tpu_torch.runtime.config import (
     ADAM_OPTIMIZER,
     DeepSpeedConfig,
@@ -155,6 +197,9 @@ from deepspeed_tpu_torch.runtime.lr_schedules import (
     OneCycle,
     get_lr_scheduler,
 )
+from deepspeed_tpu_torch.runtime.progressive_layer_drop import (
+    ProgressiveLayerDrop,
+)
 from deepspeed_tpu_torch.parallel import mesh
 from deepspeed_tpu_torch.runtime.zero.comm import Comm
 from deepspeed_tpu_torch.runtime.zero.sharding import (
@@ -167,7 +212,7 @@ from deepspeed_tpu_torch.runtime.utils import (
     clip_by_global_norm,
     global_norm,
 )
-from deepspeed_tpu_torch.utils.logging import log_dist
+from deepspeed_tpu_torch.utils.logging import log_dist, logger
 
 
 class DeviceState(NamedTuple):
@@ -284,6 +329,14 @@ def make_grad_accumulator(loss_fn, accum, after_backward=None,
 _NOT_YET = "not yet ported to deepspeed_tpu_torch"
 
 
+def _int_elements(micro_batches):
+    """The integer elements of a rank's micro-batches (JAX's sparse
+    token budget: every integer leaf of the local batch)."""
+    return sum(int(x.numel()) for mb in micro_batches for x in mb.values()
+               if not x.is_floating_point() and not x.is_complex() and
+               x.dtype != torch.bool)
+
+
 class CheckpointTopologyError(ValueError):
     """The checkpoint was saved with another offload setting than this
     engine runs (its flat host state and the dense per-leaf state do not
@@ -297,9 +350,6 @@ class DeepSpeedEngine:
     def __init__(self, model, loss_fn, config, device, optimizer=None,
                  model_parameters=None, lr_scheduler=None, seed=0,
                  training_data=None, collate_fn=None):
-        if optimizer is not None:
-            raise NotImplementedError(f"client optimizer objects are "
-                                      f"{_NOT_YET}")
         # the data-parallel group: the DS_TPU_* env or an existing group
         # (NCCL on CUDA, gloo on the CPU); one process without either is
         # world 1
@@ -341,10 +391,11 @@ class DeepSpeedEngine:
                        if p.requires_grad]
         self.micro_steps = 0
         self.global_steps = 0
-        self._configure_optimizer()
+        self._configure_optimizer(optimizer)
         self._configure_lr_scheduler(lr_scheduler)
         zc = self._config.zero_config
         self._offload = bool(self._config.zero_enabled and zc.cpu_offload)
+        self._configure_training_features(model)
         if zc.offload_16bit_grads and not self._offload:
             log_dist("offload_16bit_grads: true has no effect without "
                      "cpu_offload: true (grads only cross the wire on the "
@@ -368,6 +419,7 @@ class DeepSpeedEngine:
         self.device_state = self._init_device_state()
         self._pending_loss = None
         self._micro_loss_sum = None     # forward/backward API, this step
+        self._micro_tokens = 0          # ... and its integer batch elements
         self._last_metrics = {}
         self.training_dataloader = None
         if training_data is not None:
@@ -376,6 +428,11 @@ class DeepSpeedEngine:
         self._data_iter = RepeatingLoader(self.training_dataloader) \
             if self.training_dataloader is not None else None
         self._ckpt_manager = CheckpointManager()
+        # an explicit user configure() beforehand wins over the config's
+        from deepspeed_tpu_torch.runtime.activation_checkpointing import (
+            checkpointing as act_ckpt)
+        if not act_ckpt.is_configured():
+            act_ckpt.configure(deepspeed_config=self._config)
 
     # ------------------------------------------------------------------
     # configuration accessors
@@ -431,8 +488,36 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------
     # setup
     # ------------------------------------------------------------------
-    def _configure_optimizer(self):
-        """Adam / AdamW from the config (``engine.py:785-865``)."""
+    def _configure_optimizer(self, client_optimizer=None):
+        """The optimizer (``engine.py:746-865``): a client object, else
+        Adam / AdamW or LAMB from the config. ``self._opt_kind`` is
+        "adam" (K4), "lamb" or "client" (the object's functional
+        ``update``)."""
+        self.client_optimizer = None
+        if client_optimizer is not None and \
+                not isinstance(client_optimizer, str):
+            name = type(client_optimizer).__name__.lower()
+            if name == ONEBIT_ADAM_OPTIMIZER:
+                raise NotImplementedError(
+                    f"OneBitAdam client objects are {_NOT_YET} (ROADMAP.md "
+                    f"section 1 item 5 (slice F, parallelism))")
+            opt = client_optimizer
+            self.client_optimizer = opt
+            self.optimizer_name = name
+            self._base_lr = getattr(opt, "lr", 1e-3)
+            self._betas = tuple(getattr(opt, "betas", (0.9, 0.999)))
+            self._eps = getattr(opt, "eps", 1e-8)
+            self._weight_decay = getattr(opt, "weight_decay", 0.0)
+            self._bias_correction = getattr(opt, "bias_correction", True)
+            if isinstance(opt, FusedAdam):
+                self._opt_kind = "adam"
+                self._adam_w_mode = opt.adam_w_mode
+            elif isinstance(opt, FusedLamb):
+                self._opt_kind = "lamb"
+                self._lamb_coeffs = (opt.max_coeff, opt.min_coeff)
+            else:
+                self._opt_kind = "client"
+            return
         name = (self._config.optimizer_name or ADAM_OPTIMIZER).lower()
         opt = dict(self._config.optimizer_params or {})
         self._base_lr = opt.pop("lr", 1e-3)
@@ -441,16 +526,66 @@ class DeepSpeedEngine:
         self._weight_decay = opt.pop("weight_decay", 0.0)
         self._bias_correction = opt.pop("bias_correction", True)
         self.optimizer_name = name
-        if name in (LAMB_OPTIMIZER, ONEBIT_ADAM_OPTIMIZER):
-            raise NotImplementedError(f"optimizer {name!r} is {_NOT_YET}")
+        if name == ONEBIT_ADAM_OPTIMIZER:
+            raise NotImplementedError(
+                f"optimizer {name!r} is {_NOT_YET} (ROADMAP.md section 1 "
+                f"item 5 (slice F, parallelism))")
+        if name == LAMB_OPTIMIZER:
+            self._opt_kind = "lamb"
+            self._lamb_coeffs = (opt.pop("max_coeff", 10.0),
+                                 opt.pop("min_coeff", 0.01))
+            return
         if name not in (ADAM_OPTIMIZER, "adamw"):
             raise ValueError(f"unknown optimizer {name!r}; supported: adam, "
                              f"adamw, lamb, onebitadam")
+        self._opt_kind = "adam"
         self._adam_w_mode = opt.pop("adam_w_mode", name == "adamw")
         # "pallas" is accepted for config compatibility and chooses
         # nothing: every step runs K4, whose wrapper runs its plain
         # version on CPU tensors
         opt.pop("pallas", None)
+
+    def _init_opt_state(self, masters):
+        if self._opt_kind == "adam":
+            return init_adam_state(masters)
+        if self._opt_kind == "lamb":
+            return init_lamb_state(masters)
+        return self.client_optimizer.init(masters)
+
+    def _configure_training_features(self, model):
+        """Progressive layer drop, fp8 and sparse gradients: their
+        checks and state (``engine.py:529-532``; the fp8 state is
+        allocated on the first step)."""
+        cfg = self._config
+        self.progressive_layer_drop = None
+        if cfg.pld_enabled:
+            self.progressive_layer_drop = ProgressiveLayerDrop(
+                **(cfg.pld_params or {}))
+        self._fp8_plan = cfg.fp8.plan()
+        self._fp8_wire = cfg.fp8.active_wire_dtype()
+        self._fp8_keys = None
+        self._fp8_flat = self._fp8_state = None
+        self._fp8_new = self._fp8_micro = None
+        self._sparse = bool(cfg.sparse_gradients_enabled)
+        self._sparse_warned = False
+        self._sparse_leaf_flags = None
+        if self._sparse:
+            # (ZeRO-Offload needs a stage >= 1, so this covers it too)
+            assert not cfg.zero_enabled, (
+                "sparse_gradients is incompatible with ZeRO (the "
+                "reference's CSR path is the non-ZeRO allreduce "
+                "fallback, engine.py:1127)")
+
+    def _pld_theta(self, step):
+        """Progressive layer drop's theta at step ``step`` in fp32 (the
+        JAX step's ``theta_fn``), or None when PLD is off."""
+        pld = self.progressive_layer_drop
+        if pld is None:
+            return None
+        f32 = np.float32
+        theta_bar = f32(pld.theta)
+        return float((f32(1.0) - theta_bar) *
+                     np.exp(f32(-pld.gamma) * f32(step)) + theta_bar)
 
     def _configure_lr_scheduler(self, client_scheduler):
         """Schedule resolution (``engine.py:867``): host functions of the
@@ -492,7 +627,7 @@ class DeepSpeedEngine:
         installs = stage == 3 or self.compute_dtype != torch.float32
         owners = self._owners(model) if stage >= 1 or installs else None
         self._parts = [Partition.of(p.shape, world, rank,
-                                    is_transposed(*owners[i]))
+                                    is_transposed(*owners[i][:2]))
                        for i, p in enumerate(self.params)] \
             if stage >= 1 else None
         # a replicated leaf counts in the norm on rank 0 only
@@ -538,24 +673,40 @@ class DeepSpeedEngine:
                         p.grad = None
                         p.register_post_accumulate_grad_hook(
                             self._stage2_hook(i))
-        self.opt_state = init_adam_state(self._masters)
+        self.opt_state = self._init_opt_state(self._masters)
         zc = self._config.zero_config
         if installs:
             masters = self._pieces if stage == 3 else self.params
             self._installer = ParamInstaller(
-                model, [(*owners[i], p, masters[i],
-                         self._parts[i] if self._parts else None)
+                model, [(owners[i][0], owners[i][1], p, masters[i],
+                         self._parts[i] if self._parts else None,
+                         owners[i][2])
                         for i, p in enumerate(self.params)],
                 self.compute_dtype, self.comm, gather=stage == 3,
                 prefetch=bool(zc.prefetch),
                 gather_chunks=int(zc.gather_chunks),
-                bidirectional=bool(zc.bidirectional))
+                bidirectional=bool(zc.bidirectional),
+                wire_dtype=self._fp8_wire,
+                wire_chunk=int(self._config.fp8.wire_chunk_size))
 
     def _owners(self, model):
-        """``(module, name)`` owning each trained param."""
+        """``(module, name, unit)`` owning each trained param: ``unit``
+        is the module whose call installs it (the module itself, or the
+        outermost enclosing one marked ``install_as_one``, e.g. a
+        ``scan_layers`` stack)."""
         index = {id(p): i for i, p in enumerate(self.params)}
+        mods = dict(model.named_modules())
+
+        def unit(path, module):
+            parts = path.split(".") if path else []
+            for k in range(len(parts) + 1):
+                m = mods[".".join(parts[:k])]
+                if getattr(m, "install_as_one", False):
+                    return m
+            return module
+
         owners = {}
-        for module in model.modules():
+        for path, module in mods.items():
             for name, p in module._parameters.items():
                 i = index.get(id(p)) if p is not None else None
                 if i is None:
@@ -564,7 +715,7 @@ class DeepSpeedEngine:
                     raise ValueError(
                         f"param {name!r} is registered in two modules: "
                         f"the engine installs each param in one place")
-                owners[i] = (module, name)
+                owners[i] = (module, name, unit(path, module))
         if len(owners) != len(self.params):
             raise ValueError("every trained param must belong to the model")
         return owners
@@ -594,24 +745,86 @@ class DeepSpeedEngine:
 
         return hook
 
-    def _loss(self, batch, seed):
+    def _loss(self, batch, seed, pld_theta=None):
         """``loss_fn`` with the compute-dtype params in the model, over
         this rank's rows of a global batch: rank r's ``n`` rows are the
         global rows ``[r*n, (r+1)*n)`` (JAX ``_shard_batch`` and
         ``_place_rows`` assemble each micro-batch from the processes'
         rows in rank order), and the models draw those rows' dropout
-        masks (``global_rows``)."""
+        masks (``global_rows``). Under fp8 the forward runs in the
+        step's fp8 scope; ``pld_theta`` goes to ``loss_fn`` when PLD is
+        on."""
         rows = next(iter(batch.values())).shape[0]
         install = self._installer.forward() if self._installer is not None \
             else contextlib.nullcontext()
-        with global_rows(self.dp_rank * rows, self.dp_rank), install:
-            return self.loss_fn(batch, seed)
+        scope = contextlib.nullcontext()
+        if self._fp8_new is not None:
+            micro = None
+            if torch.is_grad_enabled():
+                self._fp8_micro = torch.zeros_like(self._fp8_new)
+                micro = fp8_ops.unflatten_state(self._fp8_micro,
+                                                self._fp8_keys)
+            scope = fp8_ops.fp8_scope(self._fp8_plan, self._fp8_state,
+                                      micro)
+        kw = {} if pld_theta is None else {"pld_theta": pld_theta}
+        with global_rows(self.dp_rank * rows, self.dp_rank), install, \
+                scope:
+            return self.loss_fn(batch, seed, **kw)
+
+    # -- fp8 state (JAX ``_ensure_fp8_state``, ``engine.py:1162``) ----------
+    def _fp8_begin_step(self, micro):
+        """Allocate the state on first use (a discovery forward records
+        the sites' keys in call order; zero histories give scale 1), and
+        this step's zeroed updates: each micro-batch's forward and
+        backward add their histories into a zeroed buffer of their own
+        (``_fp8_micro``), folded into the step's by elementwise max after
+        its backward (JAX's accumulation)."""
+        if self._fp8_plan is None:
+            return
+        plan = self._fp8_plan
+        if self._fp8_keys is None:
+            keys = []
+            with torch.no_grad(), \
+                    fp8_ops.fp8_scope(plan, discover=keys):
+                self._loss(micro, None)
+            self._fp8_keys = keys
+            self._fp8_flat = torch.zeros(
+                len(keys), 3, int(plan.amax_history_len),
+                dtype=torch.float32, device=self.device)
+            self._fp8_state = fp8_ops.unflatten_state(self._fp8_flat, keys)
+            log_dist(f"fp8: delayed scaling active over {len(keys)} dot "
+                     f"site(s)", ranks=[0])
+        if self._fp8_new is None:
+            self._fp8_new = torch.zeros_like(self._fp8_flat)
+
+    def _fp8_end_step(self, overflow):
+        """The step's histories: the global batch's (MAX over the data
+        group), or the old ones after an fp16 overflow."""
+        if self._fp8_new is None:
+            return
+        new = self._fp8_new
+        if self.comm.active:
+            self.comm.all_reduce(new, op="max", stat=True)
+        if self._config.fp16_enabled:
+            new = torch.where(overflow, self._fp8_flat, new)
+        self._fp8_flat = new
+        self._fp8_state = fp8_ops.unflatten_state(new, self._fp8_keys)
+        self._fp8_new = None
+
+    @property
+    def fp8_state(self):
+        """``{"<site>:<idx>": {"in", "kernel", "out"}}`` amax histories
+        (None before the first fp8 step)."""
+        return self._fp8_state
 
     def _backward(self, loss, scale):
         scope = self._installer.backward() if self._installer is not None \
             else contextlib.nullcontext()
         with scope:
             (loss * scale).backward()
+        if self._fp8_micro is not None:
+            torch.maximum(self._fp8_new, self._fp8_micro, out=self._fp8_new)
+            self._fp8_micro = None
 
     def _configure_offload(self, model):
         """ZeRO-Offload setup (JAX ``engine.py:457-506``): the host Adam
@@ -907,11 +1120,119 @@ class DeepSpeedEngine:
                 self.comm.all_gather(flat, m)
                 p.data.copy_(part.from_gathered(flat))
 
+    def _sparse_flags(self):
+        """Which leaves take the CSR path (JAX ``_sparse_grad_flags``,
+        ``engine.py:1848``): 2-D leaves a component of whose name matches
+        the embedding regex, or ``engine.sparse_grad_predicate(names,
+        leaf)`` when set (``names`` the param name's components)."""
+        pat = re.compile(
+            r"embed|wte|wpe|vocab|token|lookup|(?:^|[._/])emb(?:[._/]|$)",
+            re.I)
+        pred = getattr(self, "sparse_grad_predicate", None) or (
+            lambda names, leaf: leaf.ndim == 2 and
+            any(pat.search(n) for n in names))
+        names = self._param_names()
+        flags = [bool(pred(n.split("."), p))
+                 for n, p in zip(names, self.params)]
+        if not any(flags):
+            logger.warning(
+                "sparse_gradients is enabled but the embedding predicate "
+                "matched NO parameter leaves — every gradient will use the "
+                "dense allreduce path. Set engine.sparse_grad_predicate to "
+                "select your embedding tables (param path names: %s).",
+                names[:16])
+        return flags
+
+    def _reduce_grads_sparse(self, tokens):
+        """Stage 0 with sparse gradients (JAX
+        ``_make_sparse_grad_train_step``): a flagged leaf with more rows
+        than the rank's ``tokens`` is cut to its top-``tokens`` rows by L1
+        mass and summed over the ranks as CSR (index/value all-gather,
+        scatter-add), unless a MAX vote over the ranks finds the cut
+        would drop mass (more than 1e-6 of the leaf's L1): then it takes
+        the dense all-reduce, as every other leaf does. Returns the
+        gradients and ``(dropped, fallbacks)``."""
+        from deepspeed_tpu_torch.runtime.csr_tensor import (
+            csr_allreduce, dense_to_csr)
+        comm = self.comm
+        grads = self._grads
+        if self._sparse_leaf_flags is None:
+            self._sparse_leaf_flags = self._sparse_flags()
+        cands = [i for i, f in enumerate(self._sparse_leaf_flags)
+                 if f and 0 < tokens < grads[i].shape[0]]
+        dev = self.device
+        dropped = torch.zeros((), dtype=torch.float32, device=dev)
+        fallbacks = torch.zeros((), dtype=torch.int32, device=dev)
+        dense = set(range(len(grads))) - set(cands)
+        if cands:
+            csrs = {i: dense_to_csr(grads[i], min(tokens, grads[i].shape[0]))
+                    for i in cands}
+            vote = torch.stack([torch.stack([
+                (grads[i].abs().sum().float() -
+                 csrs[i].values.abs().sum().float()),
+                grads[i].abs().sum().float()]) for i in cands])
+            if comm.active:
+                comm.all_reduce(vote, op="max", stat=True)
+            use_dense = vote[:, 0] > 1e-6 * vote[:, 1]
+            dropped = torch.where(use_dense, vote[:, 0], 0.0).sum()
+            fallbacks = use_dense.sum().to(torch.int32)
+            for i, fall_back in zip(cands, use_dense.tolist()):
+                if fall_back:
+                    dense.add(i)
+                    continue
+                summed = csr_allreduce(csrs[i], comm, average=False)
+                grads[i].zero_()
+                grads[i].index_add_(0, summed.indices, summed.values)
+        if comm.active:
+            for i in sorted(dense):
+                comm.all_reduce(grads[i])
+        return grads, (dropped, fallbacks)
+
+    def _optimizer_step(self, grads, lr, beta1, overflow, sharded):
+        """The update of the masters by the configured optimizer."""
+        fp16 = self._config.fp16_enabled
+        skip = overflow if fp16 else None
+        if self._opt_kind == "adam":
+            self.opt_state = fused_adam_update(
+                self._masters, grads, self.opt_state,
+                lr=lr, beta1=beta1, beta2=self._betas[1], eps=self._eps,
+                weight_decay=self._weight_decay,
+                adam_w_mode=self._adam_w_mode,
+                bias_correction=self._bias_correction, skip=skip)
+        elif self._opt_kind == "lamb":
+            reduce = None
+            if sharded and self.comm.active:
+                def reduce(t):
+                    return self.comm.all_reduce(t, stat=True)
+            self.opt_state = lamb_step_(
+                self._masters, grads, self.opt_state, lr=lr, beta1=beta1,
+                beta2=self._betas[1], eps=self._eps,
+                weight_decay=self._weight_decay,
+                bias_correction=self._bias_correction,
+                max_coeff=self._lamb_coeffs[0],
+                min_coeff=self._lamb_coeffs[1], skip=skip, reduce=reduce,
+                counted=self._counted if sharded else None)
+        else:
+            # a client object's functional update; an overflow keeps the
+            # old masters and state (JAX's select)
+            new_p, new_s = self.client_optimizer.update(
+                self._masters, grads, self.opt_state, lr=lr, beta1=beta1)
+            for m, n in zip(self._masters, new_p):
+                m.copy_(n if skip is None else torch.where(skip, m, n))
+            if skip is not None:
+                new_s = type(new_s)(*[
+                    [torch.where(skip, o, n) for o, n in zip(old, new)]
+                    if isinstance(old, (list, tuple)) else
+                    torch.where(skip, old, new)
+                    for old, new in zip(self.opt_state, new_s)])
+            self.opt_state = new_s
+
     @torch.no_grad()
-    def _apply_step(self, loss_sum, accum):
+    def _apply_step(self, loss_sum, accum, tokens=0):
         """Everything after the backward: the gradients' reduction, the
         epilogue, the optimizer, overflow skip, loss scale and counters.
-        Returns the metrics dict."""
+        Returns the metrics dict. ``tokens``: this rank's integer batch
+        elements (the sparse-gradient budget)."""
         fp16 = self._config.fp16_enabled
         clip = float(self._config.gradient_clipping or 0.0)
         scale = self._scale()
@@ -927,6 +1248,9 @@ class DeepSpeedEngine:
             else:
                 grads = [self._grad32]
             sharded, counted = offload_dp, None
+        elif self._sparse:
+            grads, sparse_stats = self._reduce_grads_sparse(tokens)
+            sharded, counted = False, None
         else:
             grads = self._reduce_grads()
             sharded, counted = self._stage >= 1, self._counted
@@ -944,15 +1268,10 @@ class DeepSpeedEngine:
                 else:
                     self._host_phase(lr, beta1)
         else:
-            self.opt_state = fused_adam_update(
-                self._masters, grads, self.opt_state,
-                lr=lr, beta1=beta1, beta2=self._betas[1], eps=self._eps,
-                weight_decay=self._weight_decay,
-                adam_w_mode=self._adam_w_mode,
-                bias_correction=self._bias_correction,
-                skip=overflow if fp16 else None)
+            self._optimizer_step(grads, lr, beta1, overflow, sharded)
             if self._stage in (1, 2):
                 self._refresh_params()
+        self._fp8_end_step(overflow)
         self.device_state = loss_scale_epilogue(
             self.device_state, overflow, fp16, self.dynamic_loss_scale,
             self._scale_args())
@@ -966,6 +1285,18 @@ class DeepSpeedEngine:
         metrics = step_metrics(loss_sum, accum, grad_norm, applied_norm, lr,
                                scale, overflow, dstate=self.device_state,
                                nonfinite=nonfinite)
+        if self._sparse:
+            metrics["sparse_grad_dropped"], \
+                metrics["sparse_grad_dense_fallbacks"] = sparse_stats
+            if not self._sparse_warned and float(sparse_stats[0]) > 1e-7:
+                self._sparse_warned = True
+                log_dist(
+                    f"sparse_gradients: {int(sparse_stats[1])} embedding "
+                    f"leaf(s) fell back to the dense all-reduce (top-k "
+                    f"would drop {float(sparse_stats[0]):.3g} of L1 gradient "
+                    f"mass, e.g. a tied embedding); set "
+                    f"engine.sparse_grad_predicate to exclude them",
+                    ranks=[0])
         self.global_steps += 1
         if self.lr_scheduler is not None and \
                 hasattr(self.lr_scheduler, "step"):
@@ -993,15 +1324,22 @@ class DeepSpeedEngine:
         step_seed = self._step_seed(0, self.global_steps)
         seeds = [fold_in_seed(step_seed, i) for i in range(accum)]
         self.module.train()
+        theta = self._pld_theta(self.global_steps)
+        self._fp8_begin_step(micro[0])
+
+        def loss(b, seed):
+            return self._loss(b, seed, theta)
+
         # built per call: stored, its bound methods would tie the engine
         # into a reference cycle that only the cyclic collector frees
         accumulate = make_grad_accumulator(
-            self._loss, accum,
+            loss, accum,
             after_backward=self._fold_grads if self._offload else None,
             backward=self._backward)
         loss_sum = accumulate(micro, seeds, self._scale())
         self.micro_steps += accum
-        return self._apply_step(loss_sum, accum)["loss"]
+        return self._apply_step(loss_sum, accum,
+                                tokens=_int_elements(micro))["loss"]
 
     @torch.no_grad()
     def eval_batch(self, batch):
@@ -1026,7 +1364,11 @@ class DeepSpeedEngine:
         loss it returns (``ROADMAP.md`` §3)."""
         seed = self._step_seed(1, self.micro_steps)
         self._wait_for_params()
-        self._pending_loss = self._loss(self._to_device(batch), seed)
+        placed = self._to_device(batch)
+        self._fp8_begin_step(placed)
+        self._micro_tokens += _int_elements([placed])
+        self._pending_loss = self._loss(
+            placed, seed, self._pld_theta(self.global_steps))
         return self._pending_loss
 
     def __call__(self, *args, **kwargs):
@@ -1060,7 +1402,9 @@ class DeepSpeedEngine:
         if self._micro_loss_sum is None:
             raise ValueError("no gradients accumulated")
         loss_sum, self._micro_loss_sum = self._micro_loss_sum, None
-        self._apply_step(loss_sum, self._config.gradient_accumulation_steps)
+        tokens, self._micro_tokens = self._micro_tokens, 0
+        self._apply_step(loss_sum, self._config.gradient_accumulation_steps,
+                         tokens=tokens)
 
     # ------------------------------------------------------------------
     # data (``engine.py:975``)

@@ -55,11 +55,14 @@ class Partition:
     @classmethod
     def of(cls, shape, world, rank, transposed=False):
         """The partition of a leaf of ``shape``; ``transposed``: the
-        leaf is the transpose of the JAX package's (2-D)."""
+        leaf's last two dimensions are swapped from the JAX package's (a
+        2-D ``[out, in]`` weight, or a ``scan_layers`` stack of them)."""
         shape = tuple(shape)
-        if transposed and len(shape) == 2 and world > 1:
-            d = partition_dim(shape[::-1], world)
-            return cls(shape, None if d is None else 1 - d, world, rank)
+        if transposed and len(shape) >= 2 and world > 1:
+            n = len(shape)
+            swap = list(range(n - 2)) + [n - 1, n - 2]
+            d = partition_dim([shape[i] for i in swap], world)
+            return cls(shape, None if d is None else swap[d], world, rank)
         return cls(shape, partition_dim(shape, world), world, rank)
 
     @property

@@ -36,6 +36,17 @@ checkpointed block (``models/gpt2.py:remat_block``), takes the same
 copy. So every sharded leaf is gathered twice per micro-batch, once each
 way. A leaf the rule leaves replicated is cast, not gathered, and its
 gradient is all-reduced.
+
+The fp8 wire (``fp8.wire``, JAX ``stage3.py:80-142`` and
+``collectives.py:_wire_all_gather_monolithic``): each gather, forward
+and backward, moves the rank's compute-dtype piece encoded by
+``runtime/comm/codecs.py:encode_wire`` (per-chunk scales packed with the
+payload, one uint8 all-gather); every other rank's row is decoded into
+its slot and the rank's own piece is placed exactly. The backward
+reduce-scatter stays full precision.
+
+A ``scan_layers`` stack installs as one unit: its leaves' ``unit`` is
+the stack module (``install_as_one``), whose call gathers them all.
 """
 
 import contextlib
@@ -62,14 +73,16 @@ class Zero3Plan:
 
 
 class _Leaf:
-    __slots__ = ("module", "name", "param", "master", "part")
+    __slots__ = ("module", "name", "param", "master", "part", "unit")
 
-    def __init__(self, module, name, param, master, part):
+    def __init__(self, module, name, param, master, part, unit=None):
         self.module = module      # the module owning the param
         self.name = name          # its attribute name there
         self.param = param        # the module's Parameter object
         self.master = master      # fp32 master: the Parameter or a piece
         self.part = part          # Partition (gather mode) or None
+        # the module whose call installs it (``install_as_one``)
+        self.unit = module if unit is None else unit
 
 
 class _SavedGathered:
@@ -98,6 +111,17 @@ class _GatherCast(torch.autograd.Function):
         return ctx.owner._reduce_grad(ctx.idx, grad), None, None
 
 
+class _Finishing:
+    """A collective's handle whose ``wait()`` also runs ``finish``."""
+
+    def __init__(self, work, finish):
+        self.work, self.finish = work, finish
+
+    def wait(self):
+        self.work.wait()
+        self.finish()
+
+
 class ParamInstaller:
     """Puts compute-dtype params into ``model`` for each forward.
 
@@ -105,13 +129,19 @@ class ParamInstaller:
     ``master`` is the fp32 tensor the optimizer updates (the Parameter
     itself in cast mode, the rank's piece in gather mode) and ``part``
     its :class:`~deepspeed_tpu_torch.runtime.zero.sharding.Partition`
-    (gather mode only). ``comm`` is the engine's
-    :class:`~deepspeed_tpu_torch.runtime.zero.comm.Comm`.
+    (gather mode only), optionally followed by the ``unit`` module whose
+    call installs it. ``comm`` is the engine's
+    :class:`~deepspeed_tpu_torch.runtime.zero.comm.Comm`; ``wire_dtype``
+    (a codec name) quantizes gather mode's all-gathers in chunks of
+    ``wire_chunk``.
     """
 
     def __init__(self, model, leaves, dtype, comm, gather, prefetch=True,
-                 gather_chunks=1, bidirectional=False):
+                 gather_chunks=1, bidirectional=False, wire_dtype=None,
+                 wire_chunk=512):
         self.model = model
+        self.wire_dtype = wire_dtype if gather else None
+        self.wire_chunk = int(wire_chunk)
         self.dtype = dtype
         self.comm = comm
         self.gather = bool(gather)
@@ -123,11 +153,12 @@ class ParamInstaller:
         self.leaves = [_Leaf(*x) for x in leaves]
         self._by_module = {}
         for i, leaf in enumerate(self.leaves):
-            self._by_module.setdefault(leaf.module, []).append(i)
+            self._by_module.setdefault(leaf.unit, []).append(i)
         self._installed = {}      # idx -> the tensor in the module's place
         self._live = {}           # gathered storage ptr -> idx (forward)
         self._live_of = {}        # idx -> its gathered storage ptr
         self._bwd = {}            # idx -> regathered flat copy (backward)
+        self._cast = {}           # idx -> cast copy of the last forward
         self._pending = {}        # idx -> (flat, work, source): prefetches
         self._order = []          # modules in the order they first ran
         self._pos = {}
@@ -165,7 +196,7 @@ class ParamInstaller:
             gather_leaves=len(sizes), gather_chunks=self.gather_chunks,
             prefetch=self.prefetch, bidirectional=self.bidirectional,
             max_gather_bytes=max(sizes, default=0),
-            total_gather_bytes=sum(sizes))
+            total_gather_bytes=sum(sizes), wire_dtype=self.wire_dtype)
 
     # -- scopes -------------------------------------------------------------
     @contextlib.contextmanager
@@ -182,6 +213,9 @@ class ParamInstaller:
             if not self.gather:
                 for i in range(len(self.leaves)):
                     self._install(i, self.leaves[i].master.to(self.dtype))
+                if torch.is_grad_enabled():
+                    # the backward's recompute runs on these copies
+                    self._cast = dict(self._installed)
             with hooks:
                 yield
         finally:
@@ -199,9 +233,16 @@ class ParamInstaller:
 
     @contextlib.contextmanager
     def backward(self):
-        """The scope of one backward: gathers here are regathers."""
+        """The scope of one backward: gathers here are regathers. In cast
+        mode the last forward's copies are put back for it, so a
+        checkpointed block's recompute reads the tensors its forward
+        read (a selective checkpoint's op log sees no cast it did not
+        see in the forward)."""
         self._phase = "backward"
         try:
+            for i, t in self._cast.items():
+                self._install(i, t)
+            self._cast = {}
             yield
         finally:
             # a checkpointed block's recompute stops once it has what the
@@ -319,9 +360,40 @@ class ParamInstaller:
         return leaf.part.from_gathered(flat)
 
     def _all_gather(self, flat, src, async_op=False):
+        if self.wire_dtype is not None:
+            return self._wire_gather(flat, src, async_op)
         return self.comm.all_gather_striped(
             flat, src, self.gather_chunks, self.bidirectional,
             async_op=async_op)
+
+    def _wire_gather(self, flat, src, async_op):
+        """The quantized all-gather: the piece encoded once, the wire
+        buffers all-gathered, each other rank's row decoded into its
+        slot and this rank's piece placed exactly."""
+        from deepspeed_tpu_torch.runtime.comm.codecs import (
+            decode_wire, encode_wire)
+        comm, codec, chunk = self.comm, self.wire_dtype, self.wire_chunk
+        src = src.reshape(-1)
+        n = src.numel()
+        wire = encode_wire(src, codec, chunk)
+        rows = torch.empty(comm.world * wire.numel(), dtype=torch.uint8,
+                           device=src.device)
+        work = comm.all_gather(rows, wire, async_op=async_op)
+
+        def finish():
+            per_rank = rows.view(comm.world, -1)
+            for r in range(comm.world):
+                dst = flat[r * n:(r + 1) * n]
+                if r == comm.rank:
+                    dst.copy_(src)
+                else:
+                    dst.copy_(decode_wire(per_rank[r], codec, (n,),
+                                          flat.dtype, chunk))
+
+        if work is None:
+            finish()
+            return None
+        return _Finishing(work, finish)
 
     def _regathered(self, i):
         """Leaf ``i`` gathered again for the backward (once per

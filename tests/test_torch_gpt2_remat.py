@@ -75,9 +75,10 @@ def test_recompute_without_the_saved_generator_state_would_differ():
     want, want_g = _loss_and_grads(_model(False, dropout=0.1), ids, 7)
     real = tg.remat_block
 
-    def fresh_masks(block, x, drop, policy):
+    def fresh_masks(block, x, drop, policy, keep=(True, True), gate=False):
         from torch.utils.checkpoint import checkpoint
-        return checkpoint(lambda h: block(h, drop=drop), x,
+        return checkpoint(lambda h: block(h, drop=drop, keep=keep,
+                                          gate=gate), x,
                           use_reentrant=False, preserve_rng_state=False)
 
     tg.remat_block = fresh_masks
@@ -169,3 +170,27 @@ def test_remat_lowers_peak_memory_at_gpt2_350m():
         torch.cuda.empty_cache()
     assert losses[True] == losses[False]
     assert peaks[True] < 0.7 * peaks[False], peaks
+
+
+@pytest.mark.parametrize("policy", ["dots", "full"])
+def test_remat_under_the_16bit_engine_is_bitwise_neutral(policy):
+    """Under a bf16 engine the forward reads the installer's cast copies
+    of the masters; the recompute reads them too (the installer puts
+    them back for the backward), so "dots"' selective checkpoint sees
+    the forward's ops and remat changes no loss or master bit."""
+    from deepspeed_tpu_torch import initialize
+    runs = []
+    for remat in (False, True):
+        model = tg.GPT2LMHead(tg.gpt2_tiny(
+            dtype=torch.bfloat16, remat=remat, remat_policy=policy,
+            use_flash_attention=True), device="cpu",
+            generator=torch.Generator().manual_seed(0))
+        engine, _, _, _ = initialize(model=model, config={
+            "train_batch_size": 4, "bf16": {"enabled": True},
+            "gradient_accumulation_steps": 2}, device="cpu")
+        ids = _ids(b=4, t=16).numpy()
+        losses = [float(engine.train_batch({"input_ids": ids}))
+                  for _ in range(3)]
+        runs.append((losses, [m.clone() for m in engine._masters]))
+    assert runs[1][0] == runs[0][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[1][1], runs[0][1]))

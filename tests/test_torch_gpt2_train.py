@@ -136,10 +136,12 @@ def test_dense_and_flash_routes_draw_the_same_attention_dropout(jax_params):
 
 
 def test_unported_training_features_raise(jax_params):
+    # ported: progressive layer drop (tests/test_torch_pld.py) and
+    # scan_layers (tests/test_torch_gpt2_scan.py) run
     model = _port_model(jax_params)
     fn = tg.make_gpt2_loss_fn(model)
-    with pytest.raises(NotImplementedError, match="progressive layer drop"):
-        fn({"input_ids": torch.zeros(1, 4, dtype=torch.int64)}, 0,
-           pld_theta=0.5)
-    with pytest.raises(NotImplementedError, match="scan_layers"):
-        tg.GPT2LMHead(tg.gpt2_tiny(scan_layers=True), device="cpu")
+    loss = fn({"input_ids": torch.zeros(1, 4, dtype=torch.int64)}, 0,
+              pld_theta=0.5)
+    assert torch.isfinite(loss) and len(model.last_pld_coins) == 2
+    stacked = tg.GPT2LMHead(tg.gpt2_tiny(scan_layers=True), device="cpu")
+    assert stacked.h.attn.c_attn.weight.shape[0] == 2

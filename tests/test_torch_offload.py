@@ -206,9 +206,8 @@ def test_offload_keeps_fp32_grad_accumulation_across_micro_batches(
 
 def test_offload_config_checks(jax_params):
     base = CASES["bf16_16bit_grads"]
-    # offload takes adam / adamw only (JAX asserts it); LAMB is not
-    # ported at all, so it stops earlier
-    with pytest.raises(NotImplementedError, match="lamb"):
+    # offload takes adam / adamw only (JAX asserts it)
+    with pytest.raises(AssertionError, match="adam/adamw, got lamb"):
         _port_engine(jax_params, dict(
             base, optimizer={"type": "Lamb", "params": {}}), torch.bfloat16)
     with pytest.raises(ValueError, match="offload_chunk_mb"):

@@ -209,17 +209,23 @@ def test_initialize_defaults_to_cuda_and_rejects_unported(jax_params,
     with pytest.raises(ValueError, match="not yet ported"):
         initialize(model=model, config=dict(
             BASE, pipeline={"stages": 2}), device="cpu")
-    with pytest.raises(NotImplementedError, match="lamb"):
+    # LAMB is ported (tests/test_torch_lamb.py); 1-bit Adam is not
+    engine, _, _, _ = initialize(model=model, config=dict(
+        BASE, optimizer={"type": "Lamb", "params": {}}), device="cpu")
+    assert engine._opt_kind == "lamb"
+    with pytest.raises(NotImplementedError, match="onebitadam.*item 5"):
         initialize(model=model, config=dict(
-            BASE, optimizer={"type": "Lamb", "params": {}}), device="cpu")
+            BASE, optimizer={"type": "OneBitAdam", "params": {}}),
+            device="cpu")
     with pytest.raises(ValueError, match="unknown optimizer"):
         initialize(model=model, config=dict(
             BASE, optimizer={"type": "SGD", "params": {}}), device="cpu")
     with pytest.raises(ValueError, match="computes in"):
         initialize(model=model, config=dict(BASE, bf16={"enabled": True}),
                    device="cpu")
-    with pytest.raises(NotImplementedError, match="scan_layers"):
-        GPT2LMHead(gpt2_tiny(scan_layers=True), device="cpu")
+    # scan_layers is ported (tests/test_torch_gpt2_scan.py)
+    assert GPT2LMHead(gpt2_tiny(scan_layers=True), device="cpu").h \
+        .n_layer == 2
 
 
 def test_dropout_training_is_deterministic_per_seed(jax_params):

@@ -127,9 +127,16 @@ def test_config_surface_matches_jax(tmp_path):
 @pytest.mark.parametrize("knob", ["normalize_invertible", "gelu_checkpoint",
                                   "attn_dropout_checkpoint"])
 def test_remat_knobs_are_not_yet_ported(knob):
-    cfg = DeepSpeedTransformerConfig(**dict(CFG, **{knob: True}))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        DeepSpeedTransformerLayer(cfg, device="cpu")
+    # ported: each knob checkpoints its sub-block and changes no bit
+    # (tests/test_torch_activation_checkpointing.py holds the gradients)
+    x = torch.randn(B, T, HIDDEN, generator=torch.Generator().manual_seed(0))
+    outs = []
+    for flags in ({}, {knob: True}):
+        cfg = DeepSpeedTransformerConfig(**dict(CFG, **flags))
+        layer = DeepSpeedTransformerLayer(
+            cfg, device="cpu", generator=torch.Generator().manual_seed(1))
+        outs.append(layer(x))
+    assert torch.equal(outs[0], outs[1])
 
 
 def test_dropout_needs_a_seed_and_replays_with_it():

@@ -307,9 +307,13 @@ def test_ring_schedule_settings_raise_not_yet_ported(zero, what):
 
 
 def test_fp8_gather_wire_raises_not_yet_ported():
-    with pytest.raises(ValueError, match="not yet ported"):
-        DeepSpeedConfig(dict(ZERO_BASE, zero_optimization={"stage": 3},
-                             fp8={"enabled": True}))
+    # ported: the fp8 section and its stage-3 gather wire are read
+    # (tests/test_torch_fp8.py runs the wire)
+    cfg = DeepSpeedConfig(dict(ZERO_BASE, zero_optimization={"stage": 3},
+                               fp8={"enabled": True,
+                                    "wire": {"enabled": True}}))
+    assert cfg.fp8.active_wire_dtype() == "f8e4m3fn"
+    assert cfg.fp8.plan().amax_history_len == 16
 
 
 @pytest.mark.parametrize("zero", [{"gather_chunks": 0},

@@ -25,6 +25,7 @@ from deepspeed_tpu_torch import initialize  # noqa: E402
 from deepspeed_tpu_torch.models.gpt2 import (  # noqa: E402
     GPT2LMHead,
     gpt2_tiny,
+    stack_gpt2_state_dict,
 )
 from deepspeed_tpu_torch.parallel import (  # noqa: E402
     dp_rank,
@@ -70,8 +71,11 @@ def engine_config(case):
 
 
 def build(case, state):
-    model = GPT2LMHead(model_config(case), device="cpu")
-    model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    cfg = model_config(case)
+    model = GPT2LMHead(cfg, device="cpu")
+    sd = {k: torch.from_numpy(v) for k, v in state.items()}
+    model.load_state_dict(stack_gpt2_state_dict(sd) if cfg.scan_layers
+                          else sd)
     engine, _, _, _ = initialize(model=model, config=engine_config(case),
                                  device="cpu")
     return engine
@@ -129,6 +133,8 @@ def run_train(case, state, world, rank, out):
             {"input_ids": local_rows(x, accum, world, rank)})))
         counts = engine.comm.snapshot()
     res = {"losses": np.array(losses)}
+    if engine._fp8_flat is not None:
+        res["fp8"] = engine._fp8_flat.numpy()
     for n, t in whole_params(engine).items():
         res[f"param/{n}"] = t.detach().float().numpy()
     if not engine._offload:
@@ -137,6 +143,12 @@ def run_train(case, state, world, rank, out):
             for n, t in pieces_in_leaf_layout(engine, ts).items():
                 res[f"{key}/{n}"] = t.numpy()
     meta = {"counts": counts, "world": world}
+    if engine._fp8_keys is not None:
+        meta["fp8_keys"] = engine._fp8_keys
+    if engine._sparse:
+        m = engine._last_metrics
+        meta["sparse"] = [float(m["sparse_grad_dropped"]),
+                          int(m["sparse_grad_dense_fallbacks"])]
     if engine._stage == 3:
         inst = engine._installer
         meta["plan"] = inst.plan.to_dict()
@@ -361,9 +373,50 @@ def run_gather(case, state, world, rank, out):
     return res, {"counts": comm.snapshot()}
 
 
+def run_wire(case, state, world, rank, out):
+    """Stage 3 with the fp8 wire: every leaf as this rank's forward
+    gather makes it (compute dtype, whole), with the gathers' counts;
+    then the case's training steps, with the fp8 state and sparse
+    metrics the run leaves."""
+    engine = build(case, state)
+    inst = engine._installer
+    engine.comm.reset()
+    res = {}
+    with torch.no_grad():
+        for i, n in enumerate(names_of(engine)):
+            res[f"gathered/{n}"] = inst._gather(i).float().numpy()
+    meta = {"counts": engine.comm.snapshot(), "plan": inst.plan.to_dict(),
+            "pieces": {n: list(p.piece_shape) for n, p in
+                       zip(names_of(engine), engine._parts) if p.sharded}}
+    train, train_meta = run_train(case, state, world, rank, out)
+    res.update(train)
+    meta["train_counts"] = train_meta.pop("counts")
+    meta.update(train_meta)
+    return res, meta
+
+
+def run_sum_order(case, state, world, rank, out):
+    """A ``[rows, 8]`` f32 leaf holding ``case["values"][rank]`` in every
+    element, summed over the group by the dense path's all-reduce and by
+    the sparse path's CSR exchange and scatter-add (every row kept)."""
+    from deepspeed_tpu_torch.runtime.csr_tensor import (
+        csr_allreduce, dense_to_csr)
+    from deepspeed_tpu_torch.runtime.zero.comm import Comm
+    comm = Comm()
+    rows = int(case.get("rows", 64))
+    g = torch.full((rows, 8), float(case["values"][rank]))
+    dense = g.clone()
+    comm.all_reduce(dense)
+    summed = csr_allreduce(dense_to_csr(g, rows), comm, average=False)
+    sparse = torch.zeros_like(g)
+    sparse.index_add_(0, summed.indices, summed.values)
+    return {"dense": dense.numpy(), "sparse": sparse.numpy()}, {}
+
+
 RUNNERS = {"train": run_train, "overflow": run_overflow,
            "loader": run_loader, "checkpoint": run_checkpoint,
-           "eval": run_eval, "dropout": run_dropout, "gather": run_gather}
+           "eval": run_eval, "dropout": run_dropout, "gather": run_gather,
+           "wire": run_wire, "sum_order": run_sum_order}
 
 
 def main():
