@@ -5,8 +5,8 @@ this checkout, holds each kernel against its plain PyTorch version,
 times it, serves GPT-2 125M (ring, paged and speculative; from a
 training checkpoint; through the replica fleet and disaggregated
 tiers), trains GPT-2 350M and BERT-Large with block-sparse attention,
-and GPT-2 1.5B under ZeRO-Offload, at full width through the port's
-main paths.
+GPT-2 1.5B under ZeRO-Offload, and GPT-2 350M through a 4-stage
+pipeline, at full width through the port's main paths.
 
     python3 chip_smoke.py                 # every phase (one GPU)
     python3 chip_smoke.py --kernels-only  # device, build, kernel checks
@@ -14,6 +14,7 @@ main paths.
     python3 chip_smoke.py --zero-only     # device, build, phase 13
     python3 chip_smoke.py --features-only # device, build, phases 13a
                                           # and 16a
+    python3 chip_smoke.py --pipe-only     # device, build, phase 20
     python3 chip_smoke.py --serving-only  # device, build, phases 14
                                           # and 9a-9c
     python3 chip_smoke.py --turns DIR     # device, build, then K1-K8
@@ -284,12 +285,35 @@ Phases, each printing one JSON line:
    4-6. Checks: its losses and final masters equal the uninterrupted
    run's bit for bit, and the data cursor is restored. Reports save and
    load GB/s.
+20. ``train_pipe`` — GPT-2 350M (the ``train`` row: 8 x 1024, bf16 over
+   fp32 masters, flash, Adam lr 1e-4, dropout 0) as a ``PipelineModule``
+   through ``initialize``: S = 4 stages of 6 layers, M = 4 micro-batches
+   of 2 rows, every stage on ``cuda:0`` (the in-process transport: NCCL
+   refuses two ranks on one device), 2 warmup and 5 timed steps. Gates:
+   step 1's loss sums and every raw stage gradient equal the sequential
+   oracle on the same stage modules bit for bit, at 350M bf16 and at
+   125M f32 with S = 2; stage 0's and stage 3's tied ``wte`` equal bit
+   for bit after every step; K1, K2 and K3 launch 24 x M times a step
+   and K4 once a stage; the p2p messages and bytes a step are 2 (S-1) M
+   of 2 x 1024 x 1024 x 2 B; at M = 16 (batch 32) as many micro-batches
+   are in flight as at M = 4 and the peak memory exceeds M = 4's by at
+   most the stage inputs of the buffers ``num_pipe_buffers`` adds (one,
+   on stage 0) and the larger batch (both peaks, taken with the same
+   tensors alive, and the allowance printed); activation checkpoint
+   interval 1 changes no gradient bit and doubles K1's launches; S = 1
+   (``DataParallelSchedule``) against the unpipelined engine over 3
+   steps (first loss rtol 1e-5, later losses 2e-3, the masters' updates
+   within 10% in L2). Reports step p50, tokens/s, MFU
+   (``bench.py:39-48`` over 989 TFLOP/s), peak memory, a 2-step
+   profile, and the same row unpipelined (accumulation 4) as the
+   yardstick.
 
 Then the phases' walls, the ``kernels`` summary line (K7/K8 entries name
 their design; K1-K4 count the ``train`` path's launches and give the
 ``train_zero`` path's as ``zero_launches``, the ``train_features``
-path's as ``features_launches`` and the ``train_offload`` path's as
-``offload_launches``; K7/K8 add ``train_bert_ckpt``'s as
+path's as ``features_launches``, the ``train_offload`` path's as
+``offload_launches`` and the ``train_pipe`` path's as
+``pipe_launches``; K7/K8 add ``train_bert_ckpt``'s as
 ``bert_ckpt_launches``; K5 and K6 count every serving path's,
 each also given apart: ``serve_launches``, ``scan_layers_launches``,
 ``checkpoint_launches``,
@@ -4784,6 +4808,294 @@ def phase_offload_resume(torch):
     return row
 
 
+PIPE_STAGES, PIPE_MICRO, PIPE_ROWS = 4, 4, 8   # S, M, train batch
+PIPE_WARMUP, PIPE_STEPS = 2, 5
+PIPE_MICRO_LONG = 16          # the 1F1B memory check's M (batch 32)
+PIPE_ONE_STAGE_STEPS = 3
+# S = 1 against the unpipelined engine (bf16, the same micro-batches): the
+# first loss within 1e-5 (one forward, the loss reduced in another
+# order); later losses within 2e-3, and the masters' 3-step updates
+# within 10% of the plain engine's in L2 over the model (the two
+# normalise the loss in another order, so their bf16 gradients round
+# apart, and Adam turns a gradient near 0 into a step of lr times its
+# sign)
+PIPE_FIRST_LOSS_RTOL, PIPE_LOSS_RTOL, PIPE_UPDATE_RTOL = 1e-5, 2e-3, 0.1
+PIPE_LR = 1e-4
+
+
+def _pipe_engine(torch, stages, micro, rows, state=None, interval=0,
+                 cfg=None, dtype="bfloat16"):
+    """GPT-2 350M (or ``cfg``) as a PipelineModule through
+    ``initialize``: every stage in this process on ``cuda:0``."""
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.gpt2 import gpt2_350m
+    from deepspeed_tpu_torch.models.gpt2_pipe import gpt2_pipeline_module
+    cfg = cfg or gpt2_350m(n_positions=TRAIN_T, dropout=0.0,
+                           use_flash_attention=True, loss_chunk=0)
+    module = gpt2_pipeline_module(cfg, seq_len=TRAIN_T,
+                                  activation_checkpoint_interval=interval)
+    config = {"train_batch_size": rows, "gradient_accumulation_steps": micro,
+              "optimizer": {"type": "Adam", "params": {"lr": PIPE_LR}},
+              "mesh": {"pipe": stages}, "steps_per_print": 10 ** 9}
+    if dtype == "bfloat16":
+        config["bf16"] = {"enabled": True}
+    engine, _, _, _ = initialize(model=module, config=config,
+                                 model_parameters=state)
+    return engine
+
+
+def _pipe_batch(rows, seed=0):
+    import torch
+    rng = np.random.default_rng(seed)
+    return {"input_ids": torch.from_numpy(
+        rng.integers(0, 50257, (rows, TRAIN_T)).astype(np.int64))}
+
+
+def _sequential_gate(torch, engine, what):
+    """Step 1's loss sums and every raw stage gradient of the 1F1B
+    executor against the sequential oracle on the same stage modules:
+    bit for bit. Returns the row; fails on any difference."""
+    got = engine.sequential_check(_pipe_batch(engine._config.
+                                              train_batch_size))
+    (en, ed, eg), (on, od, og) = got["executor"], got["oracle"]
+    diff = [int(not torch.equal(a, b)) for a, b in zip(eg, og)]
+    worst = max(float((a.float() - b.float()).abs().max())
+                for a, b in zip(eg, og))
+    row = {"what": what, "loss": float(en / ed),
+           "oracle_loss": float(on / od),
+           "loss_bitwise": bool(torch.equal(en, on) and torch.equal(ed, od)),
+           "leaves": len(eg), "leaves_not_bitwise": sum(diff),
+           "max_abs_grad_diff": worst}
+    if not row["loss_bitwise"] or sum(diff):
+        emit(dict(row, phase="train_pipe_sequential"))
+        fail(f"pipeline {what}: the 1F1B executor differs from the "
+             f"sequential oracle ({row})")
+    return row
+
+
+def _tied_equal(torch, engine):
+    first = dict(engine.parts.stages[0].tied.named_parameters())
+    last = dict(engine.parts.stages[engine.num_stages - 1].tied
+                .named_parameters())
+    return all(torch.equal(first[n], last[n]) for n in first)
+
+
+def _pipe_grads(torch, engine, counters):
+    """One ``value_and_grad`` of the phase's batch: the gradients (pipe
+    layout, on the host) and the K1-K4 launches it made."""
+    for c in counters.values():
+        c.launches = 0
+    _, grads = engine.value_and_grad(_pipe_batch(PIPE_ROWS))
+    torch.cuda.synchronize()
+    return grads, {n: c.launches for n, c in counters.items()}
+
+
+def phase_train_pipe(torch):
+    """GPT-2 350M through the pipeline with every stage on ``cuda:0``
+    (module docstring, phase 20)."""
+    from deepspeed_tpu_torch.models.gpt2 import (
+        GPT2LMHead, gpt2_125m, gpt2_350m)
+    from deepspeed_tpu_torch.models.gpt2_pipe import pipe_state_to_lm
+    from deepspeed_tpu_torch.runtime.pipe.schedule import TrainSchedule
+    counters = _flash_counters()
+    S, M = PIPE_STAGES, PIPE_MICRO
+    row = {"phase": "train_pipe", "model": "gpt2_350m", "stages": S,
+           "micro_batches": M, "rows": PIPE_ROWS, "seq": TRAIN_T,
+           "dtype": "bfloat16", "transport": "in-process (cuda:0 x 4)"}
+
+    # the bitwise gate at 125M f32, S = 2, then at 350M bf16, S = 4
+    small = _pipe_engine(torch, 2, M, PIPE_ROWS, dtype="float32",
+                         cfg=gpt2_125m(n_positions=TRAIN_T, dropout=0.0,
+                                       dtype=torch.float32,
+                                       use_flash_attention=True))
+    row["sequential_125m_f32"] = _sequential_gate(torch, small,
+                                                  "125M f32, S = 2")
+    del small
+    torch.cuda.empty_cache()
+    engine = _pipe_engine(torch, S, M, PIPE_ROWS)
+    row["sequential_350m_bf16"] = _sequential_gate(torch, engine,
+                                                   "350M bf16, S = 4")
+    state = engine.pipe_state()
+
+    # the timed run: every count zeroed just before it
+    batch = _pipe_batch(PIPE_ROWS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    losses, walls, tied = [], [], []
+    for _ in range(PIPE_WARMUP + PIPE_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        walls.append(time.perf_counter() - t0)
+        tied.append(_tied_equal(torch, engine))
+    steps = PIPE_WARMUP + PIPE_STEPS
+    launches = {n: c.launches for n, c in counters.items()}
+    peak4 = torch.cuda.max_memory_allocated()
+    p2p = engine.p2p_counts()
+    act_bytes = (PIPE_ROWS // M) * TRAIN_T * 1024 * 2
+    timed = walls[PIPE_WARMUP:]
+    fpt = model_flops_per_token(gpt2_350m(n_positions=TRAIN_T), TRAIN_T)
+    tps = PIPE_ROWS * TRAIN_T * len(timed) / sum(timed)
+    in_flight = dict(engine.executor.max_in_flight)
+    profile = _profile(torch, lambda: engine.train_batch(batch), 2)
+    row["tied_equal_after_profile"] = _tied_equal(torch, engine)
+    del engine
+    torch.cuda.empty_cache()
+    row.update({
+        "losses": losses, "step_wall_s": walls,
+        "step_p50_ms": statistics.median(timed) * 1e3,
+        "tokens_per_s": tps, "model_flops_per_token": fpt,
+        "mfu": tps * fpt / BF16_PEAK_FLOPS,
+        "max_memory_allocated": peak4, "launches": launches,
+        "launches_per_step": {n: v / steps for n, v in launches.items()},
+        "tied_equal_after_each_step": tied,
+        "p2p_per_step": p2p,
+        "p2p_predicted": {"messages": 2 * (S - 1) * M,
+                          "bytes": 2 * (S - 1) * M * act_bytes},
+        "max_in_flight": in_flight, "profile": profile})
+
+    # the 1F1B memory property: M = 16 against M = 4
+    long = _pipe_engine(torch, S, PIPE_MICRO_LONG, 2 * PIPE_MICRO_LONG,
+                        state=state)
+    long_batch = _pipe_batch(2 * PIPE_MICRO_LONG)
+    long.train_batch(long_batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    long.train_batch(long_batch)
+    peak16 = torch.cuda.max_memory_allocated()
+    bufs = {m: sum(TrainSchedule(m, S, s).num_pipe_buffers()
+                   for s in range(S)) for m in (M, PIPE_MICRO_LONG)}
+    # the stage inputs of the buffers M = 16 adds over M = 4 (one, on
+    # stage 0), and the larger batch's token ids and labels
+    extra = bufs[PIPE_MICRO_LONG] - bufs[M]
+    allowance = extra * act_bytes + 2 * (
+        long_batch["input_ids"].numel() - batch["input_ids"].numel()) * 8
+    row["memory_1f1b"] = {
+        "peak_m4": peak4, "peak_m16": peak16,
+        "growth": peak16 - peak4, "allowance": allowance,
+        "num_pipe_buffers": {"m4": bufs[M],
+                             "m16": bufs[PIPE_MICRO_LONG]},
+        "stage_input_bytes": act_bytes,
+        "max_in_flight_m16": dict(long.executor.max_in_flight)}
+    del long
+    torch.cuda.empty_cache()
+
+    # activation checkpointing every layer: no bit changes, K1 doubles
+    plain_engine = _pipe_engine(torch, S, M, PIPE_ROWS, state=state)
+    g0, l0 = _pipe_grads(torch, plain_engine, counters)
+    del plain_engine
+    ck_engine = _pipe_engine(torch, S, M, PIPE_ROWS, state=state,
+                             interval=1)
+    g1, l1 = _pipe_grads(torch, ck_engine, counters)
+    del ck_engine
+    ck_diff = sorted(n for n in g0 if not torch.equal(g0[n], g1[n]))
+    row["checkpoint_interval_1"] = {"launches": l1, "launches_none": l0,
+                                    "leaves_not_bitwise": len(ck_diff)}
+    del g0, g1
+    torch.cuda.empty_cache()
+
+    # S = 1 against the unpipelined engine, then the yardstick's time
+    one = _pipe_engine(torch, 1, M, PIPE_ROWS, state=_restack(state, 1))
+    lm = GPT2LMHead(gpt2_350m(n_positions=TRAIN_T, dropout=0.0,
+                              use_flash_attention=True, loss_chunk=0),
+                    device="meta")
+    lm.load_state_dict({k: v.detach().to("cuda").clone()
+                        for k, v in pipe_state_to_lm(state).items()},
+                       assign=True)
+    from deepspeed_tpu_torch import initialize
+    ref, _, _, _ = initialize(model=lm, config={
+        "train_batch_size": PIPE_ROWS, "gradient_accumulation_steps": M,
+        "bf16": {"enabled": True},
+        "optimizer": {"type": "Adam", "params": {"lr": PIPE_LR}},
+        "steps_per_print": 10 ** 9})
+    one_losses, ref_losses = [], []
+    for i in range(PIPE_ONE_STAGE_STEPS):
+        b = _pipe_batch(PIPE_ROWS, seed=i)
+        one_losses.append(float(one.train_batch(b)))
+        ref_losses.append(float(ref.train_batch(b)))
+    got = pipe_state_to_lm(one.pipe_state())
+    init = pipe_state_to_lm(state)
+    master_diff, num, den = 0.0, 0.0, 0.0
+    for n, p in lm.named_parameters():
+        d_ref = p.detach() - init[n].to(p.device)
+        d_one = got[n].to(p.device) - init[n].to(p.device)
+        master_diff = max(master_diff, float((d_one - d_ref).abs().max()))
+        num += float(((d_one - d_ref) ** 2).sum())
+        den += float((d_ref ** 2).sum())
+    update_rel = (num / den) ** 0.5
+    del one
+    torch.cuda.empty_cache()
+    ref_walls = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(PIPE_WARMUP + PIPE_STEPS):
+        t0 = time.perf_counter()
+        float(ref.train_batch(batch))
+        ref_walls.append(time.perf_counter() - t0)
+    ref_timed = ref_walls[PIPE_WARMUP:]
+    ref_peak = torch.cuda.max_memory_allocated()
+    ref_tps = PIPE_ROWS * TRAIN_T * len(ref_timed) / sum(ref_timed)
+    del ref, lm
+    torch.cuda.empty_cache()
+    row["one_stage_vs_plain"] = {
+        "losses": one_losses, "plain_losses": ref_losses,
+        "max_abs_master_diff": master_diff,
+        "update_rel_l2": update_rel, "update_rtol": PIPE_UPDATE_RTOL,
+        "first_loss_rtol": PIPE_FIRST_LOSS_RTOL, "loss_rtol": PIPE_LOSS_RTOL}
+    row["yardstick_unpipelined"] = {
+        "step_p50_ms": statistics.median(ref_timed) * 1e3,
+        "tokens_per_s": ref_tps, "mfu": ref_tps * fpt / BF16_PEAK_FLOPS,
+        "max_memory_allocated": ref_peak,
+        "gradient_accumulation_steps": M}
+    emit(row)
+
+    # the gates
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"pipeline training loss not finite and falling: {losses}")
+    if not all(tied) or not row["tied_equal_after_profile"]:
+        fail(f"the tied wte copies of stages 0 and {S - 1} differ after "
+             f"a step: {tied}")
+    want = {"K1": TRAIN_LAYERS * M * steps, "K2": TRAIN_LAYERS * M * steps,
+            "K3": TRAIN_LAYERS * M * steps, "K4": S * steps}
+    if launches != want:
+        fail(f"pipeline launches {launches} != {want} over {steps} steps")
+    if p2p != {"messages": 2 * (S - 1) * M,
+               "bytes": 2 * (S - 1) * M * act_bytes, "meta_messages": 0}:
+        fail(f"p2p a step {p2p} != the predicted {row['p2p_predicted']}")
+    mem = row["memory_1f1b"]
+    if mem["growth"] > allowance or \
+            mem["max_in_flight_m16"] != row["max_in_flight"]:
+        fail(f"peak memory grew by {mem['growth']} B from M = {M} to "
+             f"{PIPE_MICRO_LONG}, past the {allowance} B of the stage "
+             f"inputs num_pipe_buffers adds and the batch, or more micro-batches were in "
+             f"flight: {mem}")
+    ck = row["checkpoint_interval_1"]
+    if ck["leaves_not_bitwise"] or ck["launches"]["K1"] != \
+            2 * ck["launches_none"]["K1"] or \
+            ck["launches_none"]["K1"] != TRAIN_LAYERS * M:
+        fail(f"activation_checkpoint_interval 1 changed bits or K1's "
+             f"launches are not doubled: {ck}")
+    one_row = row["one_stage_vs_plain"]
+    if not (abs(one_losses[0] - ref_losses[0]) <=
+            PIPE_FIRST_LOSS_RTOL * abs(ref_losses[0]) and
+            np.allclose(one_losses, ref_losses, rtol=PIPE_LOSS_RTOL,
+                        atol=0) and
+            update_rel <= PIPE_UPDATE_RTOL):
+        fail(f"S = 1 differs from the unpipelined engine: {one_row}")
+    return row
+
+
+def _restack(state, stages):
+    """The pipe layout ``state`` restacked over ``stages`` stages."""
+    out = {}
+    for name, t in state.items():
+        if name.startswith("body."):
+            t = t.reshape((stages, -1) + tuple(t.shape[2:]))
+        out[name] = t
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -4804,6 +5116,9 @@ def main(argv=None):
                         help="device, build, then only the training "
                              "features' phases (train_features, "
                              "train_bert_ckpt)")
+    parser.add_argument("--pipe-only", action="store_true",
+                        help="device, build, then only the pipeline "
+                             "phase (train_pipe)")
     parser.add_argument("--serving-only", action="store_true",
                         help="device, build, the decode and sparse "
                              "kernel checks, then only the checkpoint, "
@@ -4843,6 +5158,12 @@ def main(argv=None):
         return 0
     if args.zero_only:
         phase_train_zero(torch)
+        print(smi, flush=True)
+        return 0
+    if args.pipe_only:
+        phase_train_pipe(torch)
+        lap("train_pipe")
+        emit({"phase": "walls", "seconds": walls})
         print(smi, flush=True)
         return 0
     if args.features_only:
@@ -4912,6 +5233,8 @@ def main(argv=None):
     lap("train_dense_yardstick")
     phase_offload_resume(torch)
     lap("offload_resume")
+    pipe = phase_train_pipe(torch)
+    lap("train_pipe")
     emit({"phase": "walls", "seconds": walls})
     t = timing["bfloat16/serve_mix"]
     kernels = [{
@@ -4974,6 +5297,7 @@ def main(argv=None):
             "zero_launches": zero["launches"][key],
             "features_launches": features["launches"][key],
             "offload_launches": offload["launches"][key],
+            "pipe_launches": pipe["launches"][key],
             "max_abs_err": max(train_errs[key], r.get("max_abs_err", 0.0)),
             "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -21,7 +21,9 @@ C++ host Adam, :mod:`deepspeed_tpu_torch.ops.adam.cpu_adam`), GPT-2's
 remat, the data loader and preemption-safe checkpoints; and data
 parallelism across processes (:mod:`deepspeed_tpu_torch.parallel`, one
 process a GPU over NCCL) with ZeRO stages 0-3
-(:mod:`deepspeed_tpu_torch.runtime.zero`) and offload across processes.
+(:mod:`deepspeed_tpu_torch.runtime.zero`) and offload across processes;
+and pipeline parallelism over a ``pipe`` x ``data`` topology
+(:mod:`deepspeed_tpu_torch.pipe`, :mod:`deepspeed_tpu_torch.runtime.pipe`).
 
 Nothing heavy is imported here: submodules load on first use.
 """
@@ -52,10 +54,25 @@ def resolve_device(device=None):
     return dev
 
 
+def _check_plain_mesh(config):
+    """A model that is not a PipelineModule runs on the data axis only."""
+    from deepspeed_tpu_torch.parallel.mesh import check_mesh_axes
+    from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+    raw = config if isinstance(config, dict) else \
+        DeepSpeedConfig(config)._param_dict
+    check_mesh_axes(raw.get("mesh"))
+    pipe = (raw.get("mesh") or {}).get("pipe") or \
+        (raw.get("pipeline") or {}).get("stages") or 1
+    if int(pipe) > 1:
+        raise ValueError(f"a pipeline of {pipe} stages needs a "
+                         f"PipelineModule (deepspeed_tpu_torch.pipe)")
+
+
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                training_data=None, lr_scheduler=None, mpu=None,
                dist_init_required=None, collate_fn=None, config=None,
-               config_params=None, loss_fn=None, seed=0, device=None):
+               config_params=None, loss_fn=None, seed=0, device=None,
+               stage_devices=None):
     """Build the training engine (``deepspeed_tpu/__init__.py:28``).
 
     ``model`` is an ``nn.Module`` holding fp32 master params. The
@@ -75,8 +92,17 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     the client's object (``optimizer``: the port's ``FusedAdam`` or
     ``FusedLamb``, or any object with JAX's ``init`` / ``update``
     protocol), None without one.
+
+    A :class:`deepspeed_tpu_torch.pipe.PipelineModule` routes to the
+    :class:`~deepspeed_tpu_torch.runtime.pipe.engine.PipelineEngine`
+    (JAX ``__init__.py:47-110``): its ``loss_fn`` is the module's,
+    ``model_parameters`` (optional) its weights in the pipe layout, and
+    the ``mesh`` key lays its stages over the processes;
+    ``stage_devices`` runs every stage in this process, stage s on
+    ``stage_devices[s]``.
     """
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
+    from deepspeed_tpu_torch.runtime.pipe.module import PipelineModule
 
     if mpu is not None:
         raise NotImplementedError(
@@ -90,6 +116,17 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     if config is None:
         raise ValueError("config (dict or json path) required")
     dev = resolve_device(device)
+    if isinstance(model, PipelineModule):
+        from deepspeed_tpu_torch.runtime.pipe.engine import PipelineEngine
+        engine = PipelineEngine(model, config, dev, optimizer=optimizer,
+                                model_parameters=model_parameters,
+                                lr_scheduler=lr_scheduler, seed=seed,
+                                training_data=training_data,
+                                collate_fn=collate_fn,
+                                stage_devices=stage_devices)
+        return engine, engine.client_optimizer, \
+            engine.training_dataloader, engine.lr_scheduler
+    _check_plain_mesh(config)
     if loss_fn is None:
         loss_fn = getattr(model, "loss_fn", None)
     if loss_fn is None:

@@ -15,7 +15,8 @@ library. A source listed in ``VARIANTS`` is built once per value of its
 macros, each into a library of its own, so those builds too run side by
 side (each library holds a share of the source's instances).
 
-The host ops (``HOST_KERNELS``: the C++ Adam of ZeRO-Offload) are built
+The host ops (``HOST_KERNELS``: the C++ Adam of ZeRO-Offload, the
+block-sparse LUT builder and the flatten / unflatten helper) are built
 the same way by ``g++`` with OpenMP and the SIMD flags the CPU reports
 (:func:`load_host_library`).
 """
@@ -51,7 +52,8 @@ def libraries():
             for v in (VARIANTS[name][1] if name in VARIANTS else (None,))]
 
 
-HOST_KERNELS = ("cpu_adam",)                        # csrc/<name>.cpp
+HOST_KERNELS = ("cpu_adam", "lut_builder",
+                "flatten_unflatten")                # csrc/<name>.cpp
 HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-fopenmp")
 
 

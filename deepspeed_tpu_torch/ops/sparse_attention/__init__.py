@@ -1,6 +1,5 @@
 """Block-sparse attention ops (port of
-``deepspeed_tpu/ops/sparse_attention/``; ``SparseAttentionUtils`` is not
-yet ported)."""
+``deepspeed_tpu/ops/sparse_attention/``)."""
 
 from deepspeed_tpu_torch.ops.sparse_attention.sparsity_config import (
     SparsityConfig,
@@ -20,4 +19,7 @@ from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention import (
 )
 from deepspeed_tpu_torch.ops.sparse_attention.bert_sparse_self_attention import (
     BertSparseSelfAttention,
+)
+from deepspeed_tpu_torch.ops.sparse_attention.sparse_attention_utils import (
+    SparseAttentionUtils,
 )

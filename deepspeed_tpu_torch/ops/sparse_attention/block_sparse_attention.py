@@ -44,7 +44,7 @@ Layout: q, k, v ``[B, T, H, D]`` as in the JAX package; the kernels
 read them in place through their strides (the head dim must be
 contiguous). lse and delta are f32 ``[B * H, T]``, the JAX
 ``[B * H, T, 1]`` without its unit axis. The LUTs are int32 tensors on
-the inputs' device, built with numpy and uploaded once per (layout,
+the inputs' device, built by the C++ builder and uploaded once per (layout,
 device), as the JAX package caches them per layout: a call makes no
 host-to-device copy. Attention-prob dropout is the counter hash of
 ``ops/flash_attention.py`` at head ``b * H + h`` and global positions.
@@ -71,17 +71,13 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 # ---------------------------------------------------------------------------
-# LUT construction (``block_sparse_attention.py:42-99``; the numpy builder
-# only: the OpenMP one is a host helper with the same output)
+# LUT construction (``block_sparse_attention.py:42-99``): the OpenMP C++
+# builder (``ops/csrc/lut_builder.cpp``); the numpy builder is its plain
+# version, for tests only
 # ---------------------------------------------------------------------------
 
-def build_lut(layout):
-    """Per-(head, q-block) list of nonzero k-block indices.
-
-    layout: [H, nq, nk] 0/1 array ->
-      lut: [H, nq, max_nnz] int32 (k-block index; padded entries are 0)
-      nnz: [H, nq] int32 (valid entries per row)
-    """
+def build_lut_numpy(layout):
+    """The plain version of :func:`build_lut` (JAX ``_build_lut_numpy``)."""
     layout = np.asarray(layout)
     H, nq, _ = layout.shape
     nnz = layout.sum(axis=-1).astype(np.int32)
@@ -91,6 +87,33 @@ def build_lut(layout):
         for qi in range(nq):
             cols = np.nonzero(layout[h, qi])[0]
             lut[h, qi, :len(cols)] = cols
+    return lut, nnz
+
+
+def build_lut(layout):
+    """Per-(head, q-block) list of nonzero k-block indices, built by the
+    C++ builder (``SparseAttnBuilder``; JAX ``_build_lut_native``). A
+    build failure raises: unlike the JAX package, the port never falls
+    back to the numpy builder.
+
+    layout: [H, nq, nk] 0/1 array ->
+      lut: [H, nq, max_nnz] int32 (k-block index; padded entries are 0)
+      nnz: [H, nq] int32 (valid entries per row)
+    """
+    from deepspeed_tpu_torch.ops.op_builder import SparseAttnBuilder
+
+    lib = SparseAttnBuilder().load(verbose=False)
+    layout = np.asarray(layout)
+    H, nq, nk = layout.shape
+    flat = np.ascontiguousarray(layout.reshape(-1), dtype=np.int64)
+    p64 = flat.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+    max_nnz = max(int(lib.ds_lut_max_nnz(p64, H, nq, nk)), 1)
+    lut = np.zeros((H, nq, max_nnz), dtype=np.int32)
+    nnz = np.zeros((H, nq), dtype=np.int32)
+    lib.ds_build_lut(
+        p64, H, nq, nk, max_nnz,
+        lut.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        nnz.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
     return lut, nnz
 
 

@@ -19,6 +19,11 @@ device, every process a data-parallel rank.
 
 On the card each rank runs on ``cuda:LOCAL_RANK`` (``LOCAL_RANK``
 defaults to the process id modulo the visible devices).
+
+The ``mesh`` config key (:func:`pipe_data_topology`) lays a pipeline
+over the processes as ``pipe`` x ``data``: one process a stage rank, or
+every stage of a data replica in one process. The ``model``, ``seq``
+and ``expert`` axes raise "not yet ported" (:func:`check_mesh_axes`).
 """
 
 import os
@@ -144,3 +149,65 @@ def dp_world_size():
 def dp_rank():
     """This process's data-parallel rank: the group's, or 0."""
     return _dist().get_rank() if is_initialized() else 0
+
+
+# the JAX package's mesh axes beyond pipe x data, each with the ROADMAP.md
+# section 1 item 5 sub-item that ports it
+_LATER_AXES = {"model": "F2 (tensor parallelism)",
+               "seq": "F3 (sequence parallelism)",
+               "expert": "F4 (MoE)"}
+
+
+def check_mesh_axes(mesh_config):
+    """Raise for a ``mesh`` axis the port does not run yet (``model``,
+    ``seq`` or ``expert`` above 1), naming the sub-item that ports it."""
+    cfg = dict(mesh_config or {})
+    unknown = sorted(set(cfg) - {"data", "pipe", *_LATER_AXES})
+    if unknown:
+        raise ValueError(f"mesh axes {unknown} are not mesh axes "
+                         f"('data', 'pipe', 'expert', 'seq', 'model')")
+    for axis, item in _LATER_AXES.items():
+        if int(cfg.get(axis) or 1) > 1:
+            raise NotImplementedError(
+                f"mesh axis {axis!r} = {cfg[axis]} is not yet ported to "
+                f"deepspeed_tpu_torch (ROADMAP.md section 1 item 5 {item})")
+
+
+def pipe_data_topology(mesh_config, world, stages=None, in_process=None):
+    """``(pipe, data, in_process)`` of a pipeline over ``world``
+    processes, from the ``mesh`` config (JAX ``normalize_mesh_shape``:
+    unset axes are 1 and a ``data`` of None absorbs what is left).
+
+    ``in_process`` picks the transport: True runs every stage of a data
+    replica in one process (``world == data``), False one process a
+    stage rank (``world == pipe * data``, ranks laid out by
+    ``PipeDataParallelTopology``: rank = stage * data + replica). None
+    decides from the mesh: a ``data`` that covers the world, or a world
+    that ``pipe`` does not divide (one process included), runs in
+    process. ``stages`` (``pipeline.stages`` or the module's) is the
+    pipe size when the mesh names none, and must agree when it does."""
+    check_mesh_axes(mesh_config)
+    cfg = dict(mesh_config or {})
+    pipe = cfg.get("pipe")
+    if pipe is None:
+        pipe = stages or 1
+    elif stages is not None and int(stages) != int(pipe):
+        raise ValueError(f"pipeline stages {stages} do not match the mesh "
+                         f"pipe axis ({pipe})")
+    pipe = int(pipe)
+    data = cfg.get("data")
+    if in_process is None:
+        if data is not None:
+            in_process = int(data) == world and pipe * int(data) != world
+        else:
+            in_process = world % pipe != 0 or world == 1
+    if data is None:
+        data = world if in_process else world // pipe
+    data = int(data)
+    want = data if in_process else pipe * data
+    if want != world:
+        raise ValueError(
+            f"mesh {cfg} (pipe {pipe}, data {data}) does not cover "
+            f"{world} processes ("
+            f"{'all stages' if in_process else 'one stage'} a process)")
+    return pipe, data, bool(in_process)

@@ -32,6 +32,11 @@ DeepSpeedActivationCheckpointingConfig`), ``progressive_layer_drop``
 package's checks: fp8 is incompatible with OneBitAdam, sparse gradients
 and ZeRO-Offload).
 
+The pipeline keys: ``pipeline`` (``stages``, ``partition``,
+``seed_layers``, ``activation_checkpoint_interval``, read with JAX's
+defaults as ``config.pipeline``) and ``mesh`` (``config.mesh_shape``);
+``runtime/pipe/engine.py`` reads both.
+
 The keys whose features later work ports raise "not yet ported" with the
 ``ROADMAP.md`` item that ports them (:data:`_LATER_KEYS`); any other key
 raises as unknown. Key names and error texts are the JAX package's.
@@ -125,16 +130,15 @@ _PORTED_KEYS = frozenset((
     C.DISABLE_ALLGATHER, C.ZERO_ALLOW_UNTESTED_OPTIMIZER, C.DUMP_STATE,
     C.VOCABULARY_SIZE, C.AMP, C.WALL_CLOCK_BREAKDOWN, C.MEMORY_BREAKDOWN,
     C.INFERENCE, C.ACTIVATION_CHECKPOINTING, C.PROGRESSIVE_LAYER_DROP,
-    C.SPARSE_GRADIENTS, C.FP8))
+    C.SPARSE_GRADIENTS, C.FP8, C.PIPELINE, C.MESH))
 
 # the keys the JAX config reads whose features are not ported yet, each
 # with the ROADMAP.md section 1 item that ports it
 _LATER_KEYS = {
     C.TELEMETRY: "item 6 (slice G, operations)",
-    C.PIPELINE: "item 5 (slice F, parallelism)",
-    C.MESH: "item 5 (slice F, parallelism)",
-    C.TENSOR_PARALLEL: "item 5 (slice F, parallelism)",
-    C.COMM_QUANTIZATION: "item 5 (slice F, parallelism)",
+    C.TENSOR_PARALLEL: "item 5 F2 (tensor parallelism)",
+    C.COMM_QUANTIZATION: "item 5 F5 (1-bit Adam, quantized and compressed "
+                         "all-reduce)",
     C.RESILIENCE: "item 6 (slice G, operations)",
     C.ELASTICITY: "item 6 (slice G, operations)",
     C.ANALYSIS: "item 6 (slice G, operations)",
@@ -146,6 +150,27 @@ _LATER_KEYS = {
 
 def get_scalar_param(param_dict, param_name, param_default_value):
     return param_dict.get(param_name, param_default_value)
+
+
+def get_pipeline_config(param_dict):
+    """The ``pipeline`` section with defaults (JAX ``config.py:230``)."""
+    defaults = {
+        C.PIPELINE_STAGES: C.PIPELINE_STAGES_DEFAULT,
+        C.PIPELINE_PARTITION: C.PIPELINE_PARTITION_DEFAULT,
+        C.PIPELINE_SEED_LAYERS: C.PIPELINE_SEED_LAYERS_DEFAULT,
+        C.PIPELINE_ACTIVATION_CHECKPOINT_INTERVAL:
+            C.PIPELINE_ACTIVATION_CHECKPOINT_INTERVAL_DEFAULT,
+    }
+    config = dict(defaults)
+    config.update(param_dict.get(C.PIPELINE, {}) or {})
+    return config
+
+
+def get_mesh_config(param_dict):
+    """The ``mesh`` axes ``{"data": N|None, "model": M, "pipe": P, "seq":
+    S, "expert": E}`` or None (JAX ``config.py:244``); the port runs
+    ``pipe`` x ``data`` (``parallel/mesh.py:pipe_data_topology``)."""
+    return param_dict.get(C.MESH, C.MESH_DEFAULT)
 
 
 def get_amp_enabled(param_dict):
@@ -641,6 +666,8 @@ class DeepSpeedConfig:
         self.sparse_gradients_enabled = get_sparse_gradients_enabled(
             param_dict)
         self.fp8 = Fp8Config(param_dict)
+        self.pipeline = get_pipeline_config(param_dict)
+        self.mesh_shape = get_mesh_config(param_dict)
 
     def _do_warning_check(self):
         """JAX ``_do_warning_check`` (``config.py:1666``), and what the

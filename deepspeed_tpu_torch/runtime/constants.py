@@ -130,7 +130,16 @@ ACTIVATION_CHECKPOINTING = "activation_checkpointing"
 PROFILING = "profiling"
 COMPILATION_CACHE_DIR = "compilation_cache_dir"
 PIPELINE = "pipeline"
+PIPELINE_STAGES = "stages"
+PIPELINE_STAGES_DEFAULT = None
+PIPELINE_PARTITION = "partition"
+PIPELINE_PARTITION_DEFAULT = "best"
+PIPELINE_SEED_LAYERS = "seed_layers"
+PIPELINE_SEED_LAYERS_DEFAULT = False
+PIPELINE_ACTIVATION_CHECKPOINT_INTERVAL = "activation_checkpoint_interval"
+PIPELINE_ACTIVATION_CHECKPOINT_INTERVAL_DEFAULT = 0
 MESH = "mesh"
+MESH_DEFAULT = None
 COMM_QUANTIZATION = "comm_quantization"
 RESILIENCE = "resilience"
 ELASTICITY = "elasticity"

@@ -124,9 +124,12 @@ all-reduce by a MAX vote; ``sparse_grad_dropped`` and
 configures ``runtime/activation_checkpointing/checkpointing.py`` from
 the config unless the user already has (JAX ``engine.py:594-600``).
 
-1-bit Adam, comm quantization, the pipeline and telemetry are not yet
-ported: their config blocks raise in ``runtime/config.py`` and their
-arguments raise here.
+1-bit Adam, comm quantization and telemetry are not yet ported: their
+config blocks raise in ``runtime/config.py`` and their arguments raise
+here. The pipeline is ``runtime/pipe/engine.py:PipelineEngine``, which
+runs one engine of this class per stage: its ``comm`` is the stage's
+data group (:class:`Comm` over a sub-group), its model the stage's
+layers.
 
 **Data** (``training_data``): :meth:`DeepSpeedEngine.deepspeed_io` builds
 a :class:`~deepspeed_tpu_torch.runtime.dataloader.DeepSpeedDataLoader`
@@ -349,10 +352,11 @@ class DeepSpeedEngine:
 
     def __init__(self, model, loss_fn, config, device, optimizer=None,
                  model_parameters=None, lr_scheduler=None, seed=0,
-                 training_data=None, collate_fn=None):
+                 training_data=None, collate_fn=None, comm=None):
         # the data-parallel group: the DS_TPU_* env or an existing group
         # (NCCL on CUDA, gloo on the CPU); one process without either is
-        # world 1
+        # world 1. ``comm``: the collectives over another group (a
+        # pipeline stage's data group)
         mesh.initialize_distributed(device=device)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
@@ -360,7 +364,7 @@ class DeepSpeedEngine:
         self.loss_fn = loss_fn
         self.device = device
         self.seed = int(seed)
-        self.comm = Comm()
+        self.comm = comm if comm is not None else Comm()
         self.dp_world_size = self.comm.world
         self.dp_rank = self.comm.rank
         self._config = DeepSpeedConfig(config,
@@ -500,7 +504,7 @@ class DeepSpeedEngine:
             if name == ONEBIT_ADAM_OPTIMIZER:
                 raise NotImplementedError(
                     f"OneBitAdam client objects are {_NOT_YET} (ROADMAP.md "
-                    f"section 1 item 5 (slice F, parallelism))")
+                    f"section 1 item 5 F5 (1-bit Adam))")
             opt = client_optimizer
             self.client_optimizer = opt
             self.optimizer_name = name
@@ -529,7 +533,7 @@ class DeepSpeedEngine:
         if name == ONEBIT_ADAM_OPTIMIZER:
             raise NotImplementedError(
                 f"optimizer {name!r} is {_NOT_YET} (ROADMAP.md section 1 "
-                f"item 5 (slice F, parallelism))")
+                f"item 5 F5 (1-bit Adam))")
         if name == LAMB_OPTIMIZER:
             self._opt_kind = "lamb"
             self._lamb_coeffs = (opt.pop("max_coeff", 10.0),

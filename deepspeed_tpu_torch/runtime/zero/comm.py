@@ -29,12 +29,19 @@ def _nbytes(t):
 
 
 class Comm:
-    """Counted collectives over the data-parallel group."""
+    """Counted collectives over the data-parallel group: the default
+    group, or ``group`` (a pipeline stage's data group)."""
 
-    def __init__(self):
+    def __init__(self, group=None):
         self.active = mesh.is_initialized()
-        self.world = mesh.dp_world_size()
-        self.rank = mesh.dp_rank()
+        self.group = group
+        if self.active and group is not None:
+            import torch.distributed as dist
+            self.world = dist.get_world_size(group)
+            self.rank = dist.get_rank(group)
+        else:
+            self.world = mesh.dp_world_size()
+            self.rank = mesh.dp_rank()
         self.reset()
 
     def reset(self):
@@ -59,7 +66,7 @@ class Comm:
             return t
         import torch.distributed as dist
         red = dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX
-        dist.all_reduce(t, op=red)
+        dist.all_reduce(t, op=red, group=self.group)
         self._record("all_reduce", _nbytes(t), stat)
         return t
 
@@ -70,7 +77,8 @@ class Comm:
             out.copy_(inp.reshape(out.shape))
             return out
         import torch.distributed as dist
-        dist.reduce_scatter_tensor(out.view(-1), inp.reshape(-1))
+        dist.reduce_scatter_tensor(out.view(-1), inp.reshape(-1),
+                                 group=self.group)
         self._record("reduce_scatter", _nbytes(inp))
         return out
 
@@ -84,6 +92,7 @@ class Comm:
             return None
         import torch.distributed as dist
         work = dist.all_gather_into_tensor(out.view(-1), inp.reshape(-1),
+                                            group=self.group,
                                             async_op=async_op)
         self._record("all_gather", _nbytes(out))
         return work
@@ -142,7 +151,7 @@ class Comm:
     def barrier(self):
         if self.active:
             import torch.distributed as dist
-            dist.barrier()
+            dist.barrier(group=self.group)
 
     def mean_scalar(self, x):
         """A 0-d tensor averaged over the group (a ``stat`` vote)."""

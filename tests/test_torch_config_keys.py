@@ -135,14 +135,34 @@ def test_vocabulary_size_off_8_warns(monkeypatch):
 
 
 @pytest.mark.parametrize("key,item", [
-    ("telemetry", "item 6"), ("pipeline", "item 5"), ("mesh", "item 5"),
-    ("tensor_parallel", "item 5"), ("comm_quantization", "item 5"),
+    ("telemetry", "item 6"), ("tensor_parallel", "item 5 F2"),
+    ("comm_quantization", "item 5 F5"),
     ("resilience", "item 6"), ("elasticity", "item 6"),
     ("analysis", "item 6"), ("tensorboard", "item 6"),
     ("profiling", "item 6"), ("compilation_cache_dir", "item 6")])
 def test_later_keys_name_their_item(key, item):
     with pytest.raises(ValueError, match=f"{key}.*not yet ported.*{item}"):
         DeepSpeedConfig(dict(BASE, **{key: {}}))
+
+
+@pytest.mark.parametrize("key,value,attr,want", [
+    ("pipeline", {}, "pipeline",
+     {"stages": None, "partition": "best", "seed_layers": False,
+      "activation_checkpoint_interval": 0}),
+    ("pipeline", {"stages": 4, "activation_checkpoint_interval": 1},
+     "pipeline", {"stages": 4, "partition": "best", "seed_layers": False,
+                  "activation_checkpoint_interval": 1}),
+    ("mesh", {"pipe": 2, "data": None}, "mesh_shape",
+     {"pipe": 2, "data": None})])
+def test_pipeline_and_mesh_keys_read_as_jax(key, value, attr, want):
+    """The pipeline keys are read with JAX's defaults
+    (``config.py:230-246``): JAX's own reader gives the same."""
+    from deepspeed_tpu.runtime import config as jax_config
+    got = getattr(DeepSpeedConfig(dict(BASE, **{key: value})), attr)
+    assert got == want
+    reader = jax_config.get_pipeline_config if key == "pipeline" else \
+        jax_config.get_mesh_config
+    assert reader({key: value}) == want
 
 
 def test_unknown_keys_raise():

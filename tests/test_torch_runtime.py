@@ -108,14 +108,15 @@ def test_json_file_load(tmp_path):
                                    "telemetry"])
 def test_unported_blocks_raise(block):
     # ZeRO stages 0-3 with the stage-3 gather schedule and its fp8 wire,
-    # progressive layer drop and fp8 are ported and read; the pipeline,
-    # the mesh and telemetry still raise
+    # progressive layer drop, fp8, the pipeline and the mesh are ported
+    # and read; telemetry still raises
     cfg = {"train_batch_size": 8, "bf16": {"enabled": True}, block: {}}
     if block == "zero_optimization":
         cfg.update(zero_optimization={"stage": 3, "gather_chunks": 2,
                                       "bidirectional": True},
                    fp8={"enabled": True, "wire": {"enabled": True}})
-    if block in ("zero_optimization", "progressive_layer_drop", "fp8"):
+    if block in ("zero_optimization", "progressive_layer_drop", "fp8",
+                 "pipeline", "mesh"):
         got = DeepSpeedConfig(cfg)
         assert got.fp8.enabled == (block == "zero_optimization")
         assert got.pld_enabled is False

@@ -205,8 +205,12 @@ def test_initialize_defaults_to_cuda_and_rejects_unported(jax_params,
         initialize(model=model, config=BASE)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         initialize(model=model, config=BASE, mpu=object(), device="cpu")
-    # ZeRO stages and their gather striping run; the pipeline does not
+    # ZeRO stages and their gather striping run; tensor parallelism does
+    # not, and a pipeline needs a PipelineModule
     with pytest.raises(ValueError, match="not yet ported"):
+        initialize(model=model, config=dict(
+            BASE, tensor_parallel={}), device="cpu")
+    with pytest.raises(ValueError, match="needs a PipelineModule"):
         initialize(model=model, config=dict(
             BASE, pipeline={"stages": 2}), device="cpu")
     # LAMB is ported (tests/test_torch_lamb.py); 1-bit Adam is not

@@ -43,8 +43,10 @@ def save_port_state(params, path):
     return str(path)
 
 
-def spawn_world(world, cases, state_path, out_dir, timeout=SPAWN_TIMEOUT_S):
-    """Run ``cases`` in ``world`` gloo processes; returns their stdout."""
+def spawn_world(world, cases, state_path, out_dir, timeout=SPAWN_TIMEOUT_S,
+                worker=WORKER):
+    """Run ``cases`` in ``world`` gloo processes of ``worker`` (the ZeRO
+    worker by default); returns their stdout."""
     out_dir = str(out_dir)
     os.makedirs(out_dir, exist_ok=True)
     spec = os.path.join(out_dir, "spec.json")
@@ -60,7 +62,7 @@ def spawn_world(world, cases, state_path, out_dir, timeout=SPAWN_TIMEOUT_S):
     for rank in range(world):
         penv = dict(env, DS_TPU_PROCESS_ID=str(rank))
         procs.append(subprocess.Popen(
-            [sys.executable, WORKER, spec], env=penv, cwd=out_dir,
+            [sys.executable, worker, spec], env=penv, cwd=out_dir,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     outs = []
     try:
