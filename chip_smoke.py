@@ -4,9 +4,11 @@ NVIDIA GPU: builds the port's CUDA kernels and its host C++ Adam from
 this checkout, holds each kernel against its plain PyTorch version,
 times it, serves GPT-2 125M (ring, paged and speculative; from a
 training checkpoint; through the replica fleet and disaggregated
-tiers), trains GPT-2 350M and BERT-Large with block-sparse attention,
-GPT-2 1.5B under ZeRO-Offload, and GPT-2 350M through a 4-stage
-pipeline, at full width through the port's main paths.
+tiers; at model 2), trains GPT-2 350M and BERT-Large with block-sparse
+attention, GPT-2 1.5B under ZeRO-Offload, GPT-2 350M through a 4-stage
+pipeline (also at ZeRO 3 and under offload) and at model 2, and the TP
+pipeline at pipe 2 x model 2, at full width through the port's main
+paths.
 
     python3 chip_smoke.py                 # every phase (one GPU)
     python3 chip_smoke.py --kernels-only  # device, build, kernel checks
@@ -15,6 +17,7 @@ pipeline, at full width through the port's main paths.
     python3 chip_smoke.py --features-only # device, build, phases 13a
                                           # and 16a
     python3 chip_smoke.py --pipe-only     # device, build, phase 20
+    python3 chip_smoke.py --tp-only       # device, build, phases 21-24
     python3 chip_smoke.py --serving-only  # device, build, phases 14
                                           # and 9a-9c
     python3 chip_smoke.py --turns DIR     # device, build, then K1-K8
@@ -308,18 +311,69 @@ Phases, each printing one JSON line:
    profile, and the same row unpipelined (accumulation 4) as the
    yardstick.
 
+21. ``train_pipe_zero`` (run before 22-24) — the ``train_pipe`` row
+   (GPT-2 350M, S = 4 stages of 6 layers, M = 4 micro-batches of 2 rows,
+   bf16, flash, Adam lr 1e-4, every stage on ``cuda:0``) at ZeRO stage
+   0, at stage 3 and under ZeRO-Offload (stage 2, ``cpu_offload``), 1
+   warmup and 3 timed steps each from the same seeded weights. Gates:
+   stage 3's losses and pipe-layout fp32 masters equal stage 0's bit for
+   bit (when stage 0 repeats itself bit for bit; else losses within the
+   ``train`` phase's 5e-3), its backwards regathered leaves with S
+   micro-batches in flight on stage 0; offload's device params equal
+   bf16(host masters) bit for bit and its losses are within 5e-3 of
+   stage 0's; K1-K3 24 x M launches a step, K4 once a stage (none under
+   offload). Reports each run's step p50 and peak memory.
+22. ``train_tp`` — GPT-2 350M (the ``train`` row: 8 x 1024, bf16 over
+   fp32 masters, flash, Adam lr 1e-4, dropout 0) at ``{"mesh":
+   {"model": 2}}``: two processes of this script (``--tp-worker``) on
+   ``cuda:0``, joined by gloo on CUDA tensors (NCCL refuses two ranks on
+   one device; the port allows gloo there only because both ranks' CUDA
+   UUIDs agree), each holding its shard, 2 warmup and 5 timed steps;
+   the model-1 run of the same seed first, in this process. Gates: the
+   first loss within rtol 1e-3 of model 1's, the same on both ranks; the
+   fp32 masters after 7 steps within 5e-3 relative L2 of model 1's; K1,
+   K2, K3 24 launches a step a rank at 8 local heads and K4 one; then one
+   step at dropout 0.1: every K1 call's dropout coordinates are model
+   1's at the rank's heads, and K1's masks at them, read back, equal
+   model 1's masks at those heads bit for bit. Reports p50, tokens/s,
+   peak memory a rank, the collectives' calls and bytes a step and which
+   ones were staged through host memory.
+23. ``serve_tp`` — GPT-2 125M served at model 2 by two such processes,
+   each over its shard with 6 of the 12 heads in its cache: the
+   ``serve`` row's engine (max_batch 8, buckets 128 / 512, prefill chunk
+   64, flash decode) and its requests (8-120 prompt tokens, 32 new): the
+   first 8 in f32 on the ring (K5) and the paged pool (K6), all 24 in
+   bf16 on the ring and int8 on the pool; model 1 of the same seed in
+   this process first. Gates:
+   f32 greedy streams equal model 1's bit for bit and equal on both
+   ranks; teacher-forced logits within ``TEACHER_FORCED_ATOL`` of model
+   1's (every dtype); 2 programs; K5 (ring) or K6 (paged) n_layer times
+   a decode step and the other never. Reports tokens/s beside model 1's.
+24. ``train_pipe_tp`` — JAX's collective-matmul bench row
+   (``bench.py:450-500``): ``tp_pipeline_module`` (vocab 32000, d_model
+   1024, 16 heads, 4 blocks, 2 stages, flash) at pipe 2 x model 2, f32,
+   8 x 512 tokens in 4 micro-batches, each process holding both stages
+   of its model rank; 3 steps each with ``tensor_parallel.overlap`` off,
+   at chunks 4 and at chunks 1. Gates: chunks 4's losses within rtol
+   1e-5 of off's, chunks 1's equal off's bit for bit, the ranks agree,
+   the chunked run's rings ran (ppermutes), K1-K3 16 launches a step and
+   K4 one a stage. Reports p50 and tokens/s of each.
+
 Then the phases' walls, the ``kernels`` summary line (K7/K8 entries name
 their design; K1-K4 count the ``train`` path's launches and give the
 ``train_zero`` path's as ``zero_launches``, the ``train_features``
 path's as ``features_launches``, the ``train_offload`` path's as
-``offload_launches`` and the ``train_pipe`` path's as
-``pipe_launches``; K7/K8 add ``train_bert_ckpt``'s as
+``offload_launches``, the ``train_pipe`` path's as
+``pipe_launches``, ``train_pipe_zero``'s (stage 0, 3, offload) as
+``pipe_zero_launches``, ``train_tp``'s a rank as ``tp_launches_by_rank``
+and ``train_pipe_tp``'s as ``pipe_tp_launches``; K7/K8 add ``train_bert_ckpt``'s as
 ``bert_ckpt_launches``; K5 and K6 count every serving path's,
 each also given apart: ``serve_launches``, ``scan_layers_launches``,
 ``checkpoint_launches``,
 ``process_fleet_launches``, ``thread_fleet_launches``,
 ``disagg_launches``, ``thread_tier_launches``,
-``process_tier_launches``),
+``process_tier_launches``, and ``serve_tp``'s summed over its ranks as
+``tp_launches``),
 the ``host_ops`` line (the C++ Adam's ms a step over the 1.56 G masters
 beside its plain version and ``probe_ms``: the 28 bytes an element it
 must read and write at the best host memory rate that torch probes with
@@ -5096,6 +5150,669 @@ def _restack(state, stages):
     return out
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism on one card (phases 21-23) and the pipeline's ZeRO
+# compositions (phase 24)
+# ---------------------------------------------------------------------------
+
+TP_WORLD = 2                       # model-parallel processes on cuda:0
+TP_WARMUP, TP_STEPS = 2, 5
+TP_LOSS_RTOL = 1e-3                # bf16 losses (test_torch_gpt2_train)
+TP_MASTER_REL_L2 = 5e-3            # masters after 7 steps, relative L2
+TP_SPAWN_TIMEOUT_S = 420
+TP_HEADS = TRAIN_H // TP_WORLD     # each rank's heads at 350M
+PIPE_TP_VOCAB, PIPE_TP_D, PIPE_TP_H, PIPE_TP_BLOCKS = 32000, 1024, 16, 4
+PIPE_TP_ROWS, PIPE_TP_T, PIPE_TP_MICRO = 8, 512, 4
+PIPE_TP_STEPS = 3
+PIPE_TP_LOSS_RTOL = 1e-5           # chunks 4 vs off, f32
+PIPE_ZERO_WARMUP, PIPE_ZERO_STEPS = 1, 3
+
+
+def _spawn_tp(torch, phase, spec, world=TP_WORLD):
+    """Run ``phase`` in ``world`` processes of this script
+    (``--tp-worker``) on ``cuda:0``, joined by gloo on a file store; they
+    share the build in ``.torch_ext``. Returns each rank's result dict
+    and the phase's directory; every process is killed when one fails or
+    runs out of time."""
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix=f"tp_{phase}_")
+    spec = dict(spec, phase=phase, world=world,
+                store=os.path.join(tmp, "store"), out=tmp)
+    path = os.path.join(tmp, "spec.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--tp-worker", path,
+         str(r)], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+    errs = []
+    try:
+        deadline = time.monotonic() + TP_SPAWN_TIMEOUT_S
+        for r, p in enumerate(procs):
+            try:
+                _, err = p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                fail(f"{phase}: rank {r} ran past {TP_SPAWN_TIMEOUT_S} s")
+            if p.returncode != 0:
+                errs.append(f"rank {r} exited {p.returncode}:\n"
+                            f"{err[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    if errs:
+        fail(f"{phase}: " + "\n".join(errs))
+    out = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"{r}.json")) as f:
+            out.append(json.load(f))
+    return out, tmp
+
+
+def _tp_worker(torch, spec_path, rank):
+    """One model-parallel rank of a TP phase (``_spawn_tp``)."""
+    from deepspeed_tpu_torch.parallel import mesh
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    mesh.initialize_distributed(
+        coordinator_address="file://" + spec["store"],
+        num_processes=spec["world"], process_id=rank, device="cuda:0",
+        backend="gloo")
+    try:
+        groups = mesh.MeshGroups(spec["mesh"], in_process_pipe=bool(
+            spec.get("in_process_pipe")))
+        res = _TP_WORKERS[spec["phase"]](torch, spec, groups, rank)
+        with open(os.path.join(spec["out"], f"{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        gc.collect()
+        mesh.destroy_distributed()
+    return 0
+
+
+def _tp_350m(torch, dropout, mpu=None):
+    """The ``train`` row's GPT-2 350M from seed 0 (a TP shard with
+    ``mpu``: each leaf drawn whole, in the same order, then cut)."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHead, gpt2_350m
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    return GPT2LMHead(gpt2_350m(n_positions=TRAIN_T, dropout=dropout,
+                                use_flash_attention=True, loss_chunk=0),
+                      device="cuda", generator=gen, mpu=mpu)
+
+
+def _tp_config(mesh_shape=None):
+    cfg = {"train_batch_size": TRAIN_B, "bf16": {"enabled": True},
+           "optimizer": {"type": "Adam",
+                         "params": {"lr": 1e-4, "pallas": True}},
+           "steps_per_print": 10 ** 9}
+    if mesh_shape:
+        cfg["mesh"] = mesh_shape
+    return cfg
+
+
+def _train_batch_350m():
+    rng = np.random.default_rng(0)
+    return {"input_ids": rng.integers(0, 50257, (TRAIN_B, TRAIN_T))
+            .astype(np.int32)}
+
+
+def _recorded_k1_calls(fa):
+    """Wrap the models' flash-attention entry (the one that launches K1
+    forward) to note each call's dropout coordinates; returns
+    ``(calls, restore)``."""
+    calls = []
+    orig = fa.flash_attention
+
+    def rec(q, *args, **kw):
+        if kw.get("dropout_rate", 0.0) > 0.0:
+            B_, T_, H_, _ = q.shape
+            calls.append([B_, H_, T_, int(kw["dropout_seed"]),
+                          int(kw.get("dropout_head_offset", 0)),
+                          kw.get("dropout_num_heads")])
+        return orig(q, *args, **kw)
+
+    fa.flash_attention = rec
+
+    def restore():
+        fa.flash_attention = orig
+    return calls, restore
+
+
+def _tp_train_run(torch, engine, batch, steps, counters, comm=None):
+    """``steps`` train steps: losses, step walls, the K1-K4 launches and
+    (TP) the collectives' calls and bytes of the last step."""
+    for c in counters.values():
+        c.launches = 0
+    losses, walls, last = [], [], {}
+    for _ in range(steps):
+        if comm is not None:
+            comm.reset_collective_counts()
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        walls.append(time.perf_counter() - t0)
+        if comm is not None:
+            last = comm.collective_counts()
+    return losses, walls, {n: c.launches for n, c in counters.items()}, last
+
+
+def _tp_train_worker(torch, spec, groups, rank):
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.parallel import collectives as C
+    from deepspeed_tpu_torch.parallel.tensor_parallel import shard_tensor
+    tp = groups.axis("model")
+    counters = _flash_counters()
+    torch.cuda.reset_peak_memory_stats()
+    model = _tp_350m(torch, 0.0, groups)
+    engine, _, _, _ = initialize(model=model, config=_tp_config(
+        {"model": TP_WORLD}), mpu=groups)
+    batch = _train_batch_350m()
+    losses, walls, launches, counts = _tp_train_run(
+        torch, engine, batch, TP_WARMUP + TP_STEPS, counters, C)
+    routes = {n: dict(c.routes) for n, c in counters.items()
+              if hasattr(c, "routes")}
+    peak = torch.cuda.max_memory_allocated()
+    staged = sorted(C.STAGED)
+    # the masters against the model-1 run's (split leaves summed over the
+    # group, a replicated leaf counted on rank 0)
+    ref = torch.load(spec["ref_masters"])
+    specs = engine._tp_specs
+    sq = torch.zeros(2, dtype=torch.float64, device="cuda")
+    for name, p, s in zip(engine._param_names(), engine.params, specs):
+        if s is None and tp.rank != 0:
+            continue
+        want = shard_tensor(ref[name], s, tp.rank, tp.size).cuda()
+        sq[0] += (p.detach().double() - want.double()).square().sum()
+        sq[1] += want.double().square().sum()
+    del ref
+    C.all_reduce(sq, tp)
+    heads = engine.module.h[0].attn.c_attn.weight.shape[0] // 3 // TRAIN_D
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # one step at dropout 0.1: the K1 calls' dropout coordinates
+    calls, restore = _recorded_k1_calls(fa)
+    try:
+        model = _tp_350m(torch, 0.1, groups)
+        engine, _, _, _ = initialize(model=model, config=_tp_config(
+            {"model": TP_WORLD}), mpu=groups)
+        drop_loss = float(engine.train_batch(batch))
+    finally:
+        restore()
+    del engine, model
+    torch.cuda.empty_cache()
+    return {"rank": rank, "losses": losses, "walls": walls,
+            "launches": launches, "routes": routes, "peak": peak,
+            "collectives_last_step": counts, "staged": staged,
+            "master_rel_l2": float((sq[0] / sq[1]).sqrt()),
+            "local_heads": heads, "dropout_loss": drop_loss,
+            "dropout_calls": calls}
+
+
+def _k1_mask(torch, fa, h, seed, offset, heads, rate=0.1):
+    """K1's dropout keep-mask at these coordinates, read back (q = k = 0,
+    v = I; bf16 on the tensor-core route: its zeros are the drops)."""
+    b, t, s = 2, 128, 64
+    q = torch.zeros((b, t, h, s), device="cuda", dtype=torch.bfloat16)
+    k = torch.zeros((b, s, h, s), device="cuda", dtype=torch.bfloat16)
+    v = torch.eye(s, device="cuda", dtype=torch.bfloat16)[
+        None, :, None, :].expand(b, s, h, s).contiguous()
+    out, _ = fa.flash_attention_fwd(
+        q, k, v, causal=False, dropout_rate=rate, dropout_seed=seed,
+        dropout_head_offset=offset, dropout_num_heads=heads)
+    return out.permute(0, 2, 1, 3) != 0
+
+
+def phase_train_tp(torch):
+    """GPT-2 350M at model 2: two processes on ``cuda:0`` over gloo
+    (module docstring, phase 21)."""
+    import tempfile
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    counters = _flash_counters()
+    batch = _train_batch_350m()
+    # the model-1 run: the reference losses and masters
+    engine, _, _, _ = initialize(model=_tp_350m(torch, 0.0),
+                                 config=_tp_config())
+    ref_losses, ref_walls, _, _ = _tp_train_run(
+        torch, engine, batch, TP_WARMUP + TP_STEPS, counters)
+    tmp = tempfile.mkdtemp(prefix="tp_ref_")
+    ref_path = os.path.join(tmp, "masters.pt")
+    torch.save({n: p.detach().float().cpu() for n, p in
+                zip(engine._param_names(), engine.params)}, ref_path)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    calls1, restore = _recorded_k1_calls(fa)
+    try:
+        engine, _, _, _ = initialize(model=_tp_350m(torch, 0.1),
+                                     config=_tp_config())
+        ref_drop_loss = float(engine.train_batch(batch))
+    finally:
+        restore()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks, _ = _spawn_tp(torch, "train_tp", {"mesh": {"model": TP_WORLD},
+                                             "ref_masters": ref_path})
+    os.remove(ref_path)
+    # the masks: each rank's K1 calls at its heads' coordinates against
+    # the model-1 call's heads, read back from K1 at the recorded seeds
+    masks_equal = True
+    for r, res in enumerate(ranks):
+        calls = res["dropout_calls"]
+        if len(calls) != len(calls1):
+            masks_equal = False
+            continue
+        for i, (got, want) in enumerate(zip(calls, calls1)):
+            Bq, Hq, Tq, seed, off, heads = got
+            if seed != want[3] or heads != TRAIN_H or Hq != TP_HEADS or \
+                    off != want[4] + r * TP_HEADS:
+                masks_equal = False
+                continue
+            if i < 2:       # the kernel's masks at these coordinates
+                mine = _k1_mask(torch, fa, Hq, seed, off, heads)
+                full = _k1_mask(torch, fa, TRAIN_H, want[3], want[4],
+                                TRAIN_H)
+                masks_equal = masks_equal and bool(torch.equal(
+                    mine, full[:, r * TP_HEADS:(r + 1) * TP_HEADS]))
+    steps = TP_WARMUP + TP_STEPS
+    timed = [max(r["walls"][i] for r in ranks)
+             for i in range(TP_WARMUP, steps)]
+    tokens = TRAIN_B * TRAIN_T
+    row = {"phase": "train_tp", "model": "gpt2_350m", "mesh": {
+        "model": TP_WORLD}, "processes": TP_WORLD, "device": "cuda:0",
+        "backend": "gloo (CUDA tensors, one device)",
+        "model1_losses": ref_losses, "losses": ranks[0]["losses"],
+        "losses_by_rank_equal": all(r["losses"] == ranks[0]["losses"]
+                                    for r in ranks),
+        "first_loss_rtol": TP_LOSS_RTOL,
+        "master_rel_l2": ranks[0]["master_rel_l2"],
+        "master_rel_l2_limit": TP_MASTER_REL_L2,
+        "step_p50_ms": statistics.median(timed) * 1e3,
+        "model1_step_p50_ms": statistics.median(
+            ref_walls[TP_WARMUP:]) * 1e3,
+        "tokens_per_s": tokens * len(timed) / sum(timed),
+        "peak_memory_by_rank": [r["peak"] for r in ranks],
+        "launches_by_rank": [r["launches"] for r in ranks],
+        "routes_by_rank": [r["routes"] for r in ranks],
+        "local_heads": [r["local_heads"] for r in ranks],
+        "collectives_a_step": ranks[0]["collectives_last_step"],
+        "staged_through_host": ranks[0]["staged"],
+        "dropout_loss_model1": ref_drop_loss,
+        "dropout_loss": ranks[0]["dropout_loss"],
+        "dropout_calls": len(calls1),
+        "dropout_masks_equal_model1": masks_equal}
+    emit(row)
+    if not all(np.isfinite(row["losses"])) or not row["losses_by_rank_equal"]:
+        fail(f"train_tp losses not finite or not the same on every rank: "
+             f"{[r['losses'] for r in ranks]}")
+    if not abs(row["losses"][0] - ref_losses[0]) <= \
+            TP_LOSS_RTOL * abs(ref_losses[0]):
+        fail(f"train_tp first loss {row['losses'][0]} vs model 1 "
+             f"{ref_losses[0]}: beyond rtol {TP_LOSS_RTOL}")
+    if not row["master_rel_l2"] <= TP_MASTER_REL_L2:
+        fail(f"train_tp masters after {steps} steps differ from model 1's "
+             f"by {row['master_rel_l2']} (relative L2) > {TP_MASTER_REL_L2}")
+    want = {"K1": TRAIN_LAYERS * steps, "K2": TRAIN_LAYERS * steps,
+            "K3": TRAIN_LAYERS * steps, "K4": steps}
+    if any(r["launches"] != want for r in ranks) or \
+            any(h != TP_HEADS for h in row["local_heads"]):
+        fail(f"train_tp launches {row['launches_by_rank']} != {want} a rank "
+             f"or local heads {row['local_heads']} != {TP_HEADS}")
+    if not masks_equal or len(calls1) != TRAIN_LAYERS:
+        fail("train_tp at dropout 0.1: a rank's attention masks differ from "
+             "the model-1 run's at its heads")
+    return row
+
+
+def _tp_serve_engine(torch, kv, layout, dtype, mpu=None):
+    from deepspeed_tpu_torch.inference.engine import InferenceEngine
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHead, gpt2_125m
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    model = GPT2LMHead(gpt2_125m(dtype=dtype), device="cuda", generator=gen,
+                       mpu=mpu)
+    extra = {"kv_layout": "paged"} if layout == "paged" else {}
+    return InferenceEngine(model, device="cuda", config={
+        "max_batch": B, "seq_buckets": (128, 512), "prefill_chunk": 64,
+        "kv_cache_dtype": kv, "attention_impl": "flash", **extra})
+
+
+def _tp_serve_requests(Request, n, vocab=50257):
+    rng = np.random.default_rng(0)
+    return [Request(f"r{i}", rng.integers(0, vocab,
+                                          int(rng.integers(8, 120))).tolist(),
+                    max_new_tokens=32, arrival_step=i) for i in range(n)]
+
+
+def _tp_serve_run(torch, kv, layout, dtype, n, mpu=None):
+    """``n`` of the serve row's requests through one engine: greedy tokens,
+    decode steps, the decode kernels' launches, the step wall, and the
+    teacher-forced logits of ``_teacher_forced_diff``'s prompts."""
+    from deepspeed_tpu_torch.inference.scheduler import (
+        ContinuousBatchingScheduler, Request)
+    k5, k6 = _decode_counters()
+    engine = _tp_serve_engine(torch, kv, layout, dtype, mpu)
+    sched = ContinuousBatchingScheduler(engine)
+    sched.run([Request("warmup", [1, 2, 3, 4, 5, 6, 7, 8],
+                       max_new_tokens=4)])
+    k5.launches = k6.launches = 0
+    t0 = time.perf_counter()
+    done = sched.run(_tp_serve_requests(Request, n))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tokens = {c.rid: list(map(int, c.tokens)) for c in done}
+    out = {"tokens": tokens, "wall_s": wall,
+           "generated": sum(len(t) for t in tokens.values()),
+           "k5": k5.launches, "k6": k6.launches,
+           "counts": engine.compile_counts(),
+           "cache_heads": engine.spec.n_head,
+           "peak": torch.cuda.max_memory_allocated()}
+    engine.reset()
+    rng = np.random.default_rng(2)
+    lens = rng.integers(8, 150, B)
+    prompts = [rng.integers(0, 50257, k).tolist() for k in lens]
+    steps = rng.integers(0, 50257, (4, B)).astype(np.int32)
+    if layout == "paged":
+        engine = _tp_serve_engine(torch, kv, layout, dtype, mpu)
+    out["forced"] = _forced_logits(engine, prompts, steps)
+    del engine, sched
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_serve_worker(torch, spec, groups, rank):
+    from deepspeed_tpu_torch.parallel import collectives as C
+    out = {}
+    for name, kv, layout, dtype, n in spec["runs"]:
+        C.reset_collective_counts()
+        # every rank runs every program (their collectives pair up);
+        # rank 0 keeps the logits
+        res = _tp_serve_run(torch, kv, layout, getattr(torch, dtype), n,
+                            groups)
+        forced = res.pop("forced")
+        if rank == 0:
+            np.save(os.path.join(spec["out"], f"{name}.npy"), forced)
+        res["collectives"] = C.collective_counts()
+        res["staged"] = sorted(C.STAGED)
+        out[name] = res
+    return out
+
+
+# the f32 streams (the bitwise gate) take the first 8 requests, as the
+# serve phases' f32 stream checks do; bf16 and int8 the serve row's 24
+TP_SERVE_RUNS = [("f32_ring", None, "ring", "float32", 8),
+                 ("f32_paged", None, "paged", "float32", 8),
+                 ("bf16_ring", "bf16", "ring", "bfloat16", 24),
+                 ("int8_paged", "int8", "paged", "bfloat16", 24)]
+
+
+def phase_serve_tp(torch):
+    """GPT-2 125M served at model 2 (module docstring, phase 22)."""
+    ref = {name: _tp_serve_run(torch, kv, layout, getattr(torch, dtype), n)
+           for name, kv, layout, dtype, n in TP_SERVE_RUNS}
+    ranks, tmp = _spawn_tp(torch, "serve_tp", {
+        "mesh": {"model": TP_WORLD}, "runs": TP_SERVE_RUNS})
+    row = {"phase": "serve_tp", "model": "gpt2_125m",
+           "mesh": {"model": TP_WORLD}, "processes": TP_WORLD,
+           "device": "cuda:0", "runs": {}}
+    ok = True
+    for name, kv, layout, dtype, n in TP_SERVE_RUNS:
+        mine = [r[name] for r in ranks]
+        forced = np.load(os.path.join(tmp, f"{name}.npy"))
+        diff = float(np.abs(forced - ref[name]["forced"]).max())
+        scale = float(np.abs(ref[name]["forced"]).max())
+        kernel = "k6" if layout == "paged" else "k5"
+        other = "k5" if layout == "paged" else "k6"
+        steps1 = ref[name][kernel] / N_LAYER
+        r = {"kv_cache_dtype": kv, "layout": layout, "dtype": dtype,
+             "requests": n,
+             "streams_equal_model1": all(m["tokens"] == ref[name]["tokens"]
+                                         for m in mine),
+             "streams_equal_across_ranks": all(
+                 m["tokens"] == mine[0]["tokens"] for m in mine),
+             "teacher_forced_max_abs_diff": diff,
+             "teacher_forced_logit_scale": scale,
+             "tokens_per_s": mine[0]["generated"] / max(
+                 m["wall_s"] for m in mine),
+             "model1_tokens_per_s": ref[name]["generated"] /
+             ref[name]["wall_s"],
+             "decode_launches_by_rank": [m[kernel] for m in mine],
+             "model1_decode_launches": ref[name][kernel],
+             "other_kernel_launches": [m[other] for m in mine],
+             "cache_heads": [m["cache_heads"] for m in mine],
+             "compile_counts": [m["counts"] for m in mine],
+             "peak_memory_by_rank": [m["peak"] for m in mine],
+             "collectives": mine[0]["collectives"]}
+        row["runs"][name] = r
+        good = r["streams_equal_across_ranks"] and \
+            all(h == 6 for h in r["cache_heads"]) and \
+            all(c == {"prefill": 1, "decode": 1}
+                for c in r["compile_counts"]) and \
+            not any(r["other_kernel_launches"]) and \
+            all(n > 0 and n % N_LAYER == 0
+                for n in r["decode_launches_by_rank"]) and steps1 > 0
+        if dtype == "float32":
+            good = good and r["streams_equal_model1"] and \
+                diff <= TEACHER_FORCED_ATOL
+        else:
+            good = good and diff <= TEACHER_FORCED_ATOL
+        ok = ok and good
+        r["ok"] = good
+    row["staged_through_host"] = sorted({k for m in ranks for r in m.values()
+                                         for k in r["staged"]})
+    emit(row)
+    if not ok:
+        fail(f"serve_tp: a gate failed ({[(n, r['ok']) for n, r in row['runs'].items()]})")
+    return row
+
+
+def _pipe_tp_worker(torch, spec, groups, rank):
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.parallel import collectives as C
+    from deepspeed_tpu_torch.parallel.pipe_tp import tp_pipeline_module
+    counters = _flash_counters()
+    out = {}
+    rng = np.random.default_rng(0)
+    batch = {"input_ids": torch.from_numpy(rng.integers(
+        0, PIPE_TP_VOCAB, (PIPE_TP_ROWS, PIPE_TP_T)).astype(np.int64))}
+    for name, overlap in spec["runs"]:
+        module = tp_pipeline_module(PIPE_TP_VOCAB, PIPE_TP_D, PIPE_TP_H,
+                                    PIPE_TP_T, n_blocks=PIPE_TP_BLOCKS,
+                                    num_stages=2, use_flash=True)
+        cfg = {"train_batch_size": PIPE_TP_ROWS,
+               "gradient_accumulation_steps": PIPE_TP_MICRO,
+               "optimizer": {"type": "Adam", "params": {"lr": 1e-4}},
+               "steps_per_print": 10 ** 9,
+               "mesh": {"pipe": 2, "model": TP_WORLD},
+               "tensor_parallel": {"overlap": overlap}}
+        engine, _, _, _ = initialize(model=module, config=cfg, mpu=groups)
+        for c in counters.values():
+            c.launches = 0
+        losses, walls, counts = [], [], {}
+        for _ in range(PIPE_TP_STEPS):
+            C.reset_collective_counts()
+            t0 = time.perf_counter()
+            losses.append(float(engine.train_batch(batch)))
+            walls.append(time.perf_counter() - t0)
+            counts = C.collective_counts()
+        out[name] = {"losses": losses, "walls": walls,
+                     "launches": {n: c.launches
+                                  for n, c in counters.items()},
+                     "collectives": counts, "staged": sorted(C.STAGED),
+                     "peak": torch.cuda.max_memory_allocated()}
+        del engine, module
+        torch.cuda.empty_cache()
+    return out
+
+
+PIPE_TP_RUNS = [("off", {"enabled": False}),
+                ("chunks4", {"enabled": True, "chunks": 4}),
+                ("chunks1", {"enabled": True, "chunks": 1})]
+
+
+def phase_train_pipe_tp(torch):
+    """The collective-matmul row: pipe 2 x model 2 (module docstring,
+    phase 23)."""
+    ranks, _ = _spawn_tp(torch, "train_pipe_tp", {
+        "mesh": {"pipe": 2, "model": TP_WORLD}, "in_process_pipe": True,
+        "runs": PIPE_TP_RUNS})
+    res = ranks[0]
+    tokens = PIPE_TP_ROWS * PIPE_TP_T
+    runs = {}
+    for name, _ in PIPE_TP_RUNS:
+        timed = [max(r[name]["walls"][i] for r in ranks)
+                 for i in range(1, PIPE_TP_STEPS)]
+        runs[name] = {"losses": res[name]["losses"],
+                      "step_p50_ms": statistics.median(timed) * 1e3,
+                      "tokens_per_s": tokens * len(timed) / sum(timed),
+                      "launches": res[name]["launches"],
+                      "collectives_a_step": res[name]["collectives"],
+                      "staged_through_host": res[name]["staged"],
+                      "peak_memory_by_rank": [r[name]["peak"]
+                                              for r in ranks]}
+    off, c4, c1 = (runs[n]["losses"] for n in ("off", "chunks4", "chunks1"))
+    gap = max(abs(a - b) / abs(b) for a, b in zip(c4, off))
+    row = {"phase": "train_pipe_tp", "model": "tp_pipeline_module",
+           "vocab": PIPE_TP_VOCAB, "d_model": PIPE_TP_D,
+           "n_head": PIPE_TP_H, "blocks": PIPE_TP_BLOCKS, "stages": 2,
+           "mesh": {"pipe": 2, "model": TP_WORLD}, "rows": PIPE_TP_ROWS,
+           "seq": PIPE_TP_T, "micro_batches": PIPE_TP_MICRO,
+           "dtype": "float32", "runs": runs,
+           "chunks4_vs_off_max_rel": gap, "loss_rtol": PIPE_TP_LOSS_RTOL,
+           "chunks1_bitwise_off": c1 == off,
+           "ranks_agree": all(r[n]["losses"] == res[n]["losses"]
+                              for r in ranks for n, _ in PIPE_TP_RUNS)}
+    emit(row)
+    per_step = PIPE_TP_BLOCKS * PIPE_TP_MICRO * PIPE_TP_STEPS
+    want = {"K1": per_step, "K2": per_step, "K3": per_step,
+            "K4": 2 * PIPE_TP_STEPS}
+    if not all(np.isfinite(off)) or not row["ranks_agree"]:
+        fail(f"train_pipe_tp losses not finite or not equal on the ranks")
+    if not gap <= PIPE_TP_LOSS_RTOL or not row["chunks1_bitwise_off"]:
+        fail(f"train_pipe_tp: overlap chunks 4 vs off {gap} > "
+             f"{PIPE_TP_LOSS_RTOL}, or chunks 1 not bitwise off")
+    if any(r[n]["launches"] != want for r in ranks for n, _ in PIPE_TP_RUNS):
+        fail(f"train_pipe_tp launches {[r['off']['launches'] for r in ranks]}"
+             f" != {want}")
+    if not runs["chunks4"]["collectives_a_step"].get("ppermute"):
+        fail("train_pipe_tp: the chunks-4 plan issued no ring")
+    return row
+
+
+def _pipe_zero_engine(torch, zero):
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.gpt2 import gpt2_350m
+    from deepspeed_tpu_torch.models.gpt2_pipe import gpt2_pipeline_module
+    cfg = gpt2_350m(n_positions=TRAIN_T, dropout=0.0,
+                    use_flash_attention=True, loss_chunk=0)
+    config = {"train_batch_size": PIPE_ROWS,
+              "gradient_accumulation_steps": PIPE_MICRO,
+              "optimizer": {"type": "Adam", "params": {"lr": PIPE_LR}},
+              "mesh": {"pipe": PIPE_STAGES}, "steps_per_print": 10 ** 9,
+              "bf16": {"enabled": True}}
+    if zero:
+        config["zero_optimization"] = zero
+    engine, _, _, _ = initialize(
+        model=gpt2_pipeline_module(cfg, seq_len=TRAIN_T), config=config)
+    return engine
+
+
+def _pipe_zero_run(torch, zero, counters):
+    torch.cuda.reset_peak_memory_stats()
+    engine = _pipe_zero_engine(torch, zero)
+    batch = _pipe_batch(PIPE_ROWS)
+    for c in counters.values():
+        c.launches = 0
+    losses, walls = [], []
+    for _ in range(PIPE_ZERO_WARMUP + PIPE_ZERO_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        walls.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    out = {"losses": losses,
+           "step_p50_ms": statistics.median(walls[PIPE_ZERO_WARMUP:]) * 1e3,
+           "launches": {n: c.launches for n, c in counters.items()},
+           "peak": torch.cuda.max_memory_allocated(),
+           "masters": {n: t.cpu() for n, t in engine.pipe_state().items()}}
+    if engine._stage_offload:
+        out["device_equals_bf16_masters"] = all(
+            torch.equal(p.data, m.to(torch.bfloat16).to(p.device))
+            for se in engine.stage_engines
+            for p, m in zip(se.params, se.cpu_optimizer.params()))
+        out["host_phase_s"] = [se.last_host_phase_s
+                               for se in engine.stage_engines]
+    else:
+        inst = engine.stage_engines[0]._installer
+        out["regathers"] = inst.regathers if inst is not None and \
+            inst.gather else 0
+        out["max_in_flight"] = dict(engine.executor.max_in_flight)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_pipe_zero(torch):
+    """The ``train_pipe`` row at ZeRO stage 3 and under ZeRO-Offload
+    (module docstring, phase 24)."""
+    counters = _flash_counters()
+    s0 = _pipe_zero_run(torch, None, counters)
+    s3 = _pipe_zero_run(torch, {"stage": 3}, counters)
+    off = _pipe_zero_run(torch, {"stage": 2, "cpu_offload": True}, counters)
+    bitwise = s3["losses"] == s0["losses"] and all(
+        torch.equal(s3["masters"][n], s0["masters"][n]) for n in s0["masters"])
+    repeat = None
+    if not bitwise:       # does stage 0 repeat itself bit for bit?
+        again = _pipe_zero_run(torch, None, counters)
+        repeat = again["losses"] == s0["losses"]
+    steps = PIPE_ZERO_WARMUP + PIPE_ZERO_STEPS
+    off_gap = max(abs(a - b) for a, b in zip(off["losses"], s0["losses"]))
+    row = {"phase": "train_pipe_zero", "model": "gpt2_350m",
+           "stages": PIPE_STAGES, "micro_batches": PIPE_MICRO,
+           "rows": PIPE_ROWS, "dtype": "bfloat16",
+           "stage0": {k: v for k, v in s0.items() if k != "masters"},
+           "stage3": {k: v for k, v in s3.items() if k != "masters"},
+           "offload": {k: v for k, v in off.items() if k != "masters"},
+           "stage3_equals_stage0_bitwise": bitwise,
+           "stage0_repeats_bitwise": repeat,
+           "offload_vs_stage0_max_loss_gap": off_gap,
+           "loss_atol": TRAIN_LOSS_ATOL}
+    emit(row)
+    want = {"K1": TRAIN_LAYERS * PIPE_MICRO * steps,
+            "K2": TRAIN_LAYERS * PIPE_MICRO * steps,
+            "K3": TRAIN_LAYERS * PIPE_MICRO * steps,
+            "K4": PIPE_STAGES * steps}
+    if s0["launches"] != want or s3["launches"] != want or \
+            off["launches"] != dict(want, K4=0):
+        fail(f"train_pipe_zero launches {s0['launches']}, "
+             f"{s3['launches']}, {off['launches']} != {want} (offload: K4 0)")
+    if not bitwise and (repeat or any(
+            abs(a - b) > TRAIN_LOSS_ATOL
+            for a, b in zip(s3["losses"], s0["losses"]))):
+        fail(f"train_pipe_zero: stage 3 {s3['losses']} != stage 0 "
+             f"{s0['losses']} bit for bit")
+    if not s3["regathers"] or s3["max_in_flight"].get(0) != PIPE_STAGES:
+        fail(f"train_pipe_zero: stage 3 regathered {s3['regathers']} "
+             f"leaves with {s3['max_in_flight']} micro-batches in flight")
+    if not off["device_equals_bf16_masters"] or not off_gap <= \
+            TRAIN_LOSS_ATOL or not all(np.isfinite(off["losses"])):
+        fail(f"train_pipe_zero offload: device params == bf16(masters) "
+             f"{off['device_equals_bf16_masters']}, loss gap {off_gap}")
+    return row
+
+
+_TP_WORKERS = {"train_tp": _tp_train_worker, "serve_tp": _tp_serve_worker,
+               "train_pipe_tp": _pipe_tp_worker}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -5119,6 +5836,13 @@ def main(argv=None):
     parser.add_argument("--pipe-only", action="store_true",
                         help="device, build, then only the pipeline "
                              "phase (train_pipe)")
+    parser.add_argument("--tp-only", action="store_true",
+                        help="device, build, then only the tensor-"
+                             "parallel phases and the pipeline's ZeRO "
+                             "compositions (train_tp, serve_tp, "
+                             "train_pipe_tp, train_pipe_zero)")
+    parser.add_argument("--tp-worker", nargs=2, metavar=("SPEC", "RANK"),
+                        help=argparse.SUPPRESS)   # a TP phase's rank
     parser.add_argument("--serving-only", action="store_true",
                         help="device, build, the decode and sparse "
                              "kernel checks, then only the checkpoint, "
@@ -5132,6 +5856,8 @@ def main(argv=None):
         sys.path.insert(0, args.turns_worker)
         torch.backends.cuda.matmul.allow_tf32 = False
         return _turns_serve(torch)
+    if args.tp_worker:
+        return _tp_worker(torch, args.tp_worker[0], int(args.tp_worker[1]))
     try:
         import deepspeed_tpu_torch  # noqa: F401
     except ImportError as e:
@@ -5163,6 +5889,18 @@ def main(argv=None):
     if args.pipe_only:
         phase_train_pipe(torch)
         lap("train_pipe")
+        emit({"phase": "walls", "seconds": walls})
+        print(smi, flush=True)
+        return 0
+    if args.tp_only:
+        phase_train_pipe_zero(torch)
+        lap("train_pipe_zero")
+        phase_train_tp(torch)
+        lap("train_tp")
+        phase_serve_tp(torch)
+        lap("serve_tp")
+        phase_train_pipe_tp(torch)
+        lap("train_pipe_tp")
         emit({"phase": "walls", "seconds": walls})
         print(smi, flush=True)
         return 0
@@ -5235,6 +5973,14 @@ def main(argv=None):
     lap("offload_resume")
     pipe = phase_train_pipe(torch)
     lap("train_pipe")
+    pipe_zero = phase_train_pipe_zero(torch)
+    lap("train_pipe_zero")
+    train_tp = phase_train_tp(torch)
+    lap("train_tp")
+    serve_tp = phase_serve_tp(torch)
+    lap("serve_tp")
+    pipe_tp = phase_train_pipe_tp(torch)
+    lap("train_pipe_tp")
     emit({"phase": "walls", "seconds": walls})
     t = timing["bfloat16/serve_mix"]
     kernels = [{
@@ -5250,6 +5996,8 @@ def main(argv=None):
         "checkpoint_launches": checkpoint["kernel_launches"],
         "process_fleet_launches":
             fleet_row["process_fleet"]["kernel_launches"],
+        "tp_launches": [sum(serve_tp["runs"][n]["decode_launches_by_rank"])
+                        for n in ("f32_ring", "bf16_ring")],
         "max_abs_err": worst, "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"]}]
@@ -5275,6 +6023,8 @@ def main(argv=None):
         "thread_tier_launches": disagg["thread_tiers"]["kernel_launches"],
         "process_tier_launches":
             disagg["process_tiers"]["kernel_launches"],
+        "tp_launches": [sum(serve_tp["runs"][n]["decode_launches_by_rank"])
+                        for n in ("f32_paged", "int8_paged")],
         "max_abs_err": paged_worst, "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"]})
@@ -5298,6 +6048,11 @@ def main(argv=None):
             "features_launches": features["launches"][key],
             "offload_launches": offload["launches"][key],
             "pipe_launches": pipe["launches"][key],
+            "pipe_zero_launches": [pipe_zero[s]["launches"][key] for s in
+                                   ("stage0", "stage3", "offload")],
+            "tp_launches_by_rank": [lr[key] for lr in
+                                    train_tp["launches_by_rank"]],
+            "pipe_tp_launches": pipe_tp["runs"]["off"]["launches"][key],
             "max_abs_err": max(train_errs[key], r.get("max_abs_err", 0.0)),
             "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -22,8 +22,11 @@ remat, the data loader and preemption-safe checkpoints; and data
 parallelism across processes (:mod:`deepspeed_tpu_torch.parallel`, one
 process a GPU over NCCL) with ZeRO stages 0-3
 (:mod:`deepspeed_tpu_torch.runtime.zero`) and offload across processes;
-and pipeline parallelism over a ``pipe`` x ``data`` topology
-(:mod:`deepspeed_tpu_torch.pipe`, :mod:`deepspeed_tpu_torch.runtime.pipe`).
+pipeline parallelism over a ``pipe`` x ``data`` topology
+(:mod:`deepspeed_tpu_torch.pipe`, :mod:`deepspeed_tpu_torch.runtime.pipe`)
+with ZeRO 0-3, offload and sparse gradients inside a stage; and tensor
+parallelism over a ``model`` axis (:mod:`deepspeed_tpu_torch.parallel`:
+Megatron GPT-2 training and serving, the TP pipeline blocks).
 
 Nothing heavy is imported here: submodules load on first use.
 """
@@ -55,7 +58,8 @@ def resolve_device(device=None):
 
 
 def _check_plain_mesh(config):
-    """A model that is not a PipelineModule runs on the data axis only."""
+    """A model that is not a PipelineModule runs on the data and model
+    axes."""
     from deepspeed_tpu_torch.parallel.mesh import check_mesh_axes
     from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
     raw = config if isinstance(config, dict) else \
@@ -72,7 +76,7 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                training_data=None, lr_scheduler=None, mpu=None,
                dist_init_required=None, collate_fn=None, config=None,
                config_params=None, loss_fn=None, seed=0, device=None,
-               stage_devices=None):
+               stage_devices=None, param_specs=None):
     """Build the training engine (``deepspeed_tpu/__init__.py:28``).
 
     ``model`` is an ``nn.Module`` holding fp32 master params. The
@@ -100,13 +104,20 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     the ``mesh`` key lays its stages over the processes;
     ``stage_devices`` runs every stage in this process, stage s on
     ``stage_devices[s]``.
+
+    Tensor parallelism (``mesh`` ``{"data": N, "model": M}``): ``mpu``
+    is the model and data groups
+    (:class:`deepspeed_tpu_torch.parallel.mesh.MeshGroups` or a Megatron
+    ``mpu``; default: the model's own ``mpu``), and the model holds its
+    model rank's shard (``GPT2LMHead(cfg, mpu=mpu)``); ``param_specs``
+    maps param names to their split
+    (:class:`~deepspeed_tpu_torch.parallel.tensor_parallel.Shard`;
+    default: the model's ``partition_specs``). The engine's
+    ``mp_world_size`` is M (JAX ``engine.py:396``).
     """
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
     from deepspeed_tpu_torch.runtime.pipe.module import PipelineModule
 
-    if mpu is not None:
-        raise NotImplementedError(
-            "initialize: ['mpu'] not yet ported to deepspeed_tpu_torch")
     if model is None:
         raise ValueError("initialize needs the model (an nn.Module)")
     if config is None:
@@ -123,7 +134,7 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                                 lr_scheduler=lr_scheduler, seed=seed,
                                 training_data=training_data,
                                 collate_fn=collate_fn,
-                                stage_devices=stage_devices)
+                                stage_devices=stage_devices, mpu=mpu)
         return engine, engine.client_optimizer, \
             engine.training_dataloader, engine.lr_scheduler
     _check_plain_mesh(config)
@@ -137,6 +148,7 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                              model_parameters=model_parameters,
                              lr_scheduler=lr_scheduler, seed=seed,
                              training_data=training_data,
-                             collate_fn=collate_fn)
+                             collate_fn=collate_fn, mpu=mpu,
+                             param_specs=param_specs)
     return engine, engine.client_optimizer, \
         engine.training_dataloader, engine.lr_scheduler

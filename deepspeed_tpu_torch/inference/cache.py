@@ -73,12 +73,13 @@ class KVCacheSpec:
 
 
 def spec_for_model(cfg, max_batch, max_seq, kv_cache_dtype=None,
-                   page_size=0, n_pages=0):
+                   page_size=0, n_pages=0, model_size=1):
     """Resolve a :class:`KVCacheSpec` from a ``GPT2Config`` and the
     ``kv_cache_dtype`` knob (None = model compute dtype, "bf16"/"f32" =
     plain storage, a codec name = quantized storage). ``page_size > 0``
     selects the paged pool; ``n_pages=0`` then defaults to ring-capacity
-    parity plus the trash page."""
+    parity plus the trash page. ``model_size`` (tensor parallelism) keeps
+    this rank's ``n_head / model_size`` heads (:func:`kv_partition_specs`)."""
     codec = None
     if kv_cache_dtype is None:
         dtype = cfg.dtype
@@ -112,10 +113,27 @@ def spec_for_model(cfg, max_batch, max_seq, kv_cache_dtype=None,
                 f"got {n_pages}")
     return KVCacheSpec(
         n_layer=cfg.n_layer, max_batch=int(max_batch),
-        max_seq=int(max_seq), n_head=cfg.n_head,
+        max_seq=int(max_seq), n_head=cfg.n_head // int(model_size),
         head_dim=cfg.n_embd // cfg.n_head, dtype=dtype, codec=codec,
         stacked=bool(cfg.scan_layers), page_size=page_size,
         n_pages=n_pages if page_size else 0)
+
+
+def kv_partition_specs(spec):
+    """``{subtree: {leaf: split dim}}``: the cache's head axis split over
+    the model axis (JAX ``cache.py:166``), the scales with their heads.
+    Each rank allocates only its heads (``spec_for_model(...,
+    model_size)``), so decode attention runs on them with no collective
+    and the row-parallel ``c_proj`` sum is the only combine. The ring's
+    row axis and the pool's page axis sit in the same slot, so one spec
+    covers both layouts."""
+    lead = 1 if spec.stacked else 0
+    per_layer = {"k": lead + 2, "v": lead + 2}
+    if spec.codec is not None:
+        per_layer.update(k_scale=lead + 2, v_scale=lead + 2)
+    if spec.stacked:
+        return {"h": per_layer}
+    return {f"h_{i}": dict(per_layer) for i in range(spec.n_layer)}
 
 
 def init_kv_cache(spec, device):

@@ -32,6 +32,15 @@ for the in-process KV handoff.
 
 The engine runs on ``device`` (default: the GPU, raising when there is
 none); the KV cache is updated in place.
+
+**Tensor parallelism.** A GPT-2 built with an ``mpu`` whose model axis
+has M ranks (``models/gpt2.py``) holds its rank's shard; every rank runs
+its own engine over it, on the same requests in the same order. The
+cache holds the rank's ``n_head / M`` heads (``cache.kv_partition_specs``;
+K5 and K6 run on them), the row-parallel ``c_proj`` sums over the model
+group, and the logits are all-gathered over the vocab before sampling.
+Every rank samples from the same logits with the same seeded generator,
+so every rank emits the same token.
 """
 
 import numpy as np
@@ -197,10 +206,15 @@ class InferenceEngine:
         else:
             self.page_size = 0
             self.n_pages = 0
+        # tensor parallelism: the model holds its model rank's shard
+        # (models/gpt2.py) and the cache this rank's heads
+        tp = getattr(model, "tp", None)
+        self.model_parallel_size = tp.size if tp is not None else 1
         self.spec = spec_for_model(cfg, self.max_batch, self.max_seq,
                                    self.kv_cache_dtype,
                                    page_size=self.page_size,
-                                   n_pages=self.n_pages)
+                                   n_pages=self.n_pages,
+                                   model_size=self.model_parallel_size)
         self.n_pages = self.spec.n_pages
         self.pages_per_row = self.spec.pages_per_row
         self.session = session

@@ -143,7 +143,9 @@ def load_checkpoint_model(path, n_head, tag=None, scan_layers=False):
     ``scan_layers`` and a stacked one unrolled. The model is built on
     the host: the serving engine moves it to its device. Raises ``ValueError`` for a missing checkpoint,
     one with no ``params``, or a head count that does not divide the
-    width."""
+    width. A checkpoint of a model-parallel run records its
+    ``mesh_shape`` (JAX ``serve.py:166-171``); the port saves its leaves
+    whole, so it serves as saved."""
     import re
 
     import torch
@@ -170,9 +172,8 @@ def load_checkpoint_model(path, n_head, tag=None, scan_layers=False):
     saved_tp = int((topo.get("mesh_shape") or {}).get("model", 1) or 1)
     if saved_tp > 1:
         print(f"note: checkpoint {tag} was saved on a model-parallel "
-              f"mesh (model axis {saved_tp}); if its leaves were "
-              f"persisted sharded, relayout before serving",
-              file=sys.stderr)
+              f"mesh (model axis {saved_tp}); its leaves are saved "
+              f"whole and serve as they are", file=sys.stderr)
     params = {k: torch.as_tensor(np.asarray(v, np.float32)
                                  if not torch.is_tensor(v) else v.float())
               for k, v in state["params"].items()}

@@ -81,6 +81,38 @@ masks its own.
 
 :func:`convert_gpt2_params` turns the JAX package's param tree (as
 numpy arrays) into a ``state_dict`` for :class:`GPT2LMHead`.
+
+**Tensor parallelism** (``GPT2LMHead(cfg, mpu=...)``, Megatron's layout,
+JAX ``gpt2_partition_specs``, ``models/gpt2.py:565-601``): the model
+holds only the shard of its model rank (``mpu``'s model axis, ``M``
+ranks). ``c_attn`` and ``c_fc`` are column parallel (``c_attn`` as q, k
+and v blocks, so a rank owns ``n_head / M`` whole heads), both
+``c_proj`` row parallel, ``wte`` split over the vocab, and ``wpe``, the
+LayerNorms and every bias after a row-parallel sum replicated
+(:func:`gpt2_partition_specs`). The embedding lookup is vocab parallel
+(each rank looks up the ids it holds, zeros for the rest, summed over
+the group: one nonzero term, so the sum is exact), and so are the tied
+head and the loss (:func:`vocab_parallel_cross_entropy`: the max and the
+sum of exponentials all-reduced over the group); ``forward`` gathers the
+vocab for the logits it returns (serving samples from them).
+
+*Vocab padding.* 50257 divides by neither 2 nor 4. JAX's GSPMD pads an
+uneven shard; the port pads too: ``wte`` is ``ceil(V / M) * M`` rows,
+split evenly, the rows past ``V`` zero. A padded row never enters the
+softmax (its logit is set to -inf before the max and the sum, and it is
+cut from gathered logits), no id looks it up, so its gradient is 0 and
+Adam leaves it at 0; :func:`~deepspeed_tpu_torch.parallel.
+tensor_parallel.unshard` drops it from a whole leaf.
+
+*Dropout across shards.* A rank's attention passes
+``dropout_head_offset = row_offset * H + rank * H / M`` and
+``dropout_num_heads = H`` to K1-K3, so its masks are the unsharded
+model's at its heads, bit for bit. Hidden dropout runs on replicated
+activations: its generator is seeded by the data rank only (the
+engine's ``global_rows``), so every rank of a model group draws the
+same mask. A TP model initialises each leaf whole from ``generator``,
+in the unsharded model's order, and keeps its shard: the same seed gives
+the unsharded model's weights.
 """
 
 import dataclasses
@@ -97,6 +129,13 @@ from deepspeed_tpu_torch.ops.flash_attention import (
     current_global_rows,
     dropout_generator,
     hidden_dropout,
+)
+from deepspeed_tpu_torch.parallel import collectives as tp_comm
+from deepspeed_tpu_torch.parallel.tensor_parallel import (
+    Shard,
+    padded_len,
+    set_shard,
+    shard_tensor,
 )
 
 
@@ -158,36 +197,76 @@ def gpt2_tiny(**kw):
 _TRUNC_STD = 0.87962566103423978
 
 
+def _tp_active(tp):
+    return tp is not None and tp.size > 1
+
+
 class Dense(nn.Module):
     """flax ``nn.Dense``: ``x.to(dtype) @ kernel.to(dtype) +
     bias.to(dtype)``. ``weight`` is stored ``[out, in]`` (torch
     convention; the flax kernel is its transpose, which ZeRO's partition
-    rule reads: ``reference_transposed``)."""
+    rule reads: ``reference_transposed``).
+
+    With a model axis ``tp`` (an ``AxisGroup`` of more than one rank),
+    ``mode`` "column" keeps rows ``r`` of each of the ``groups`` output
+    blocks (the input's cotangent summed over the group: Megatron's
+    ``f``) and "row" keeps the input columns ``r`` (the partial products
+    summed over the group, then the bias: ``g``)."""
 
     reference_transposed = ("weight",)
 
-    def __init__(self, n_in, n_out, cfg, device=None, site="dense"):
+    def __init__(self, n_in, n_out, cfg, device=None, site="dense", tp=None,
+                 mode=None, groups=1):
         super().__init__()
         self.dtype = cfg.dtype
         self.site = site          # the fp8 state's site name
+        self.tp = tp if _tp_active(tp) else None
+        self.mode = mode if self.tp is not None else None
+        self.fan_in = n_in
+        self.full_shape = (n_out, n_in)
+        w_shape, b_len = (n_out, n_in), n_out
+        if self.mode == "column":
+            w_shape = (n_out // tp.size, n_in)
+            b_len = n_out // tp.size
+        elif self.mode == "row":
+            w_shape = (n_out, n_in // tp.size)
         self.weight = nn.Parameter(torch.empty(
-            n_out, n_in, dtype=cfg.param_dtype, device=device))
+            w_shape, dtype=cfg.param_dtype, device=device))
         self.bias = nn.Parameter(torch.zeros(
-            n_out, dtype=cfg.param_dtype, device=device))
+            b_len, dtype=cfg.param_dtype, device=device))
+        if self.mode == "column":
+            set_shard(self.weight, Shard(0, groups))
+            set_shard(self.bias, Shard(0, groups))
+        elif self.mode == "row":
+            set_shard(self.weight, Shard(1))
 
     def reset_parameters(self, generator=None):
-        std = math.sqrt(1.0 / self.weight.shape[-1]) / _TRUNC_STD
-        nn.init.trunc_normal_(self.weight, 0.0, std, -2 * std, 2 * std,
-                              generator=generator)
+        std = math.sqrt(1.0 / self.fan_in) / _TRUNC_STD
+        if self.tp is None:
+            nn.init.trunc_normal_(self.weight, 0.0, std, -2 * std, 2 * std,
+                                  generator=generator)
+        else:
+            # the whole leaf from the generator, then this rank's shard
+            full = torch.empty(self.full_shape, dtype=self.weight.dtype,
+                               device=self.weight.device)
+            nn.init.trunc_normal_(full, 0.0, std, -2 * std, 2 * std,
+                                  generator=generator)
+            self.weight.copy_(shard_tensor(full, self.weight.tp_shard,
+                                           self.tp.rank, self.tp.size))
         nn.init.zeros_(self.bias)
 
     def forward(self, x):
         w = self.weight.to(self.dtype)
         x = x.to(self.dtype)
+        if self.mode == "column":
+            x = tp_comm.psum_grad(x, self.tp)
         if fp8_ops.site_active(self.site):
-            return fp8_ops.fp8_linear(x, w, self.site) + \
-                self.bias.to(self.dtype)
-        return torch.matmul(x, w.t()) + self.bias.to(self.dtype)
+            y = fp8_ops.fp8_linear(x, w, self.site)
+        else:
+            y = torch.matmul(x, w.t())
+        if self.mode == "row":
+            y = tp_comm.psum_combine(y, self.tp)
+        return y + self.bias.to(self.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -219,12 +298,15 @@ class CausalSelfAttention(nn.Module):
     buffers) the call writes this chunk's k/v and attends over the
     cache row."""
 
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, device=None, tp=None):
         super().__init__()
         self.cfg = cfg
         C = cfg.n_embd
-        self.c_attn = Dense(C, 3 * C, cfg, device, site="c_attn")
-        self.c_proj = Dense(C, C, cfg, device, site="c_proj")
+        self.tp = tp if _tp_active(tp) else None
+        self.c_attn = Dense(C, 3 * C, cfg, device, site="c_attn", tp=tp,
+                            mode="column", groups=3)
+        self.c_proj = Dense(C, C, cfg, device, site="c_proj", tp=tp,
+                            mode="row")
 
     def forward(self, x, positions=None, kv_cache=None, attn_impl="dense",
                 attn_block_k=128, attn_mask=None, kv_page_table=None,
@@ -237,10 +319,13 @@ class CausalSelfAttention(nn.Module):
         cfg = self.cfg
         B, T, C = x.shape
         H = cfg.n_head
-        q, k, v = self.c_attn(x).split(C, dim=-1)
-        q = q.reshape(B, T, H, C // H)
-        k = k.reshape(B, T, H, C // H)
-        v = v.reshape(B, T, H, C // H)
+        D = C // H
+        M = 1 if self.tp is None else self.tp.size
+        hl = H // M                       # the rank's heads
+        q, k, v = self.c_attn(x).split(C // M, dim=-1)
+        q = q.reshape(B, T, hl, D)
+        k = k.reshape(B, T, hl, D)
+        v = v.reshape(B, T, hl, D)
         if kv_cache is not None:
             y, _ = cached_attention(q, k, v, kv_cache, positions,
                                     compute_dtype=cfg.dtype, impl=attn_impl,
@@ -249,26 +334,33 @@ class CausalSelfAttention(nn.Module):
         else:
             rate, seed, offset = (0.0, None, 0) if drop is None else \
                 (drop.rate, drop.attn_seed, drop.row_offset * H)
+            heads = None
+            if self.tp is not None:       # the heads' global coordinates
+                offset += self.tp.rank * hl
+                heads = H
             if cfg.use_flash_attention:
                 y = flash_attention(q, k, v, causal=True, dropout_rate=rate,
                                     dropout_seed=seed,
-                                    dropout_head_offset=offset)
+                                    dropout_head_offset=offset,
+                                    dropout_num_heads=heads)
             else:
                 y = dense_attention(
                     q, k, v, causal=True,
                     sm_scale=attention_scale(C // H, cfg.dtype),
                     dropout_rate=rate, dropout_seed=seed,
-                    dropout_head_offset=offset)
-        y = self.c_proj(y.reshape(B, T, C))
+                    dropout_head_offset=offset, dropout_num_heads=heads)
+        y = self.c_proj(y.reshape(B, T, hl * D))
         return y if drop is None else drop.hidden(y)
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, device=None, tp=None):
         super().__init__()
         C = cfg.n_embd
-        self.c_fc = Dense(C, 4 * C, cfg, device, site="c_fc")
-        self.c_proj = Dense(4 * C, C, cfg, device, site="c_proj")
+        self.c_fc = Dense(C, 4 * C, cfg, device, site="c_fc", tp=tp,
+                          mode="column")
+        self.c_proj = Dense(4 * C, C, cfg, device, site="c_proj", tp=tp,
+                            mode="row")
 
     def forward(self, x, drop=None):
         h = self.c_proj(F.gelu(self.c_fc(x), approximate="tanh"))
@@ -281,12 +373,12 @@ MLP_SITES = ("c_fc", "c_proj")
 
 
 class Block(nn.Module):
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, device=None, tp=None):
         super().__init__()
         self.ln_1 = LayerNorm(cfg.n_embd, cfg, device=device)
-        self.attn = CausalSelfAttention(cfg, device)
+        self.attn = CausalSelfAttention(cfg, device, tp=tp)
         self.ln_2 = LayerNorm(cfg.n_embd, cfg, device=device)
-        self.mlp = MLP(cfg, device)
+        self.mlp = MLP(cfg, device, tp=tp)
 
     def forward(self, x, drop=None, keep=(True, True), gate=False,
                 **attn_kw):
@@ -431,29 +523,58 @@ class GPT2LMHead(nn.Module):
     from ``generator`` (a ``torch.Generator`` on the same device) with
     the JAX model's initializers: wte N(0, 0.02), wpe N(0, 0.01), Dense
     kernels lecun-normal, biases 0, LayerNorm scale 1.
+
+    ``mpu`` (``parallel.mesh.MeshGroups`` or any Megatron ``mpu``) with
+    a model axis of ``M > 1`` ranks builds this rank's shard (module
+    docstring, *Tensor parallelism*).
     """
 
-    def __init__(self, cfg, device=None, generator=None):
+    def __init__(self, cfg, device=None, generator=None, mpu=None):
         super().__init__()
         if cfg.remat and cfg.remat_policy not in REMAT_POLICIES:
             raise ValueError(f"remat_policy {cfg.remat_policy!r} not in "
                              f"{sorted(REMAT_POLICIES)}")
+        from deepspeed_tpu_torch.parallel.mesh import model_axis_of
         self.config = cfg
+        self.mpu = mpu
+        tp = model_axis_of(mpu)
+        self.tp = tp if _tp_active(tp) else None
+        vocab = cfg.vocab_size
+        if self.tp is not None:
+            M = tp.size
+            if cfg.n_head % M:
+                raise ValueError(f"n_head {cfg.n_head} does not divide the "
+                                 f"model axis ({M})")
+            if cfg.scan_layers or cfg.loss_chunk:
+                raise NotImplementedError(
+                    "GPT-2 with a model axis runs the unrolled layers and "
+                    "the whole-vocab loss (scan_layers and loss_chunk "
+                    "shard nothing here)")
+            vocab = padded_len(cfg.vocab_size, M) // M
         self.wte = nn.Parameter(torch.empty(
-            cfg.vocab_size, cfg.n_embd, dtype=cfg.param_dtype,
-            device=device))
+            vocab, cfg.n_embd, dtype=cfg.param_dtype, device=device))
+        if self.tp is not None:
+            set_shard(self.wte, Shard(0, 1, full=cfg.vocab_size))
         self.wpe = nn.Parameter(torch.empty(
             cfg.n_positions, cfg.n_embd, dtype=cfg.param_dtype,
             device=device))
         self.h = StackedBlocks(cfg, device) if cfg.scan_layers else \
-            nn.ModuleList(Block(cfg, device) for _ in range(cfg.n_layer))
+            nn.ModuleList(Block(cfg, device, tp=self.tp)
+                          for _ in range(cfg.n_layer))
         self.last_pld_coins = None    # the last PLD forward's coins
         self.ln_f = LayerNorm(cfg.n_embd, cfg, device=device)
         self.reset_parameters(generator)
 
     @torch.no_grad()
     def reset_parameters(self, generator=None):
-        nn.init.normal_(self.wte, 0.0, 0.02, generator=generator)
+        if self.tp is None:
+            nn.init.normal_(self.wte, 0.0, 0.02, generator=generator)
+        else:
+            full = torch.empty(self.config.vocab_size, self.config.n_embd,
+                               dtype=self.wte.dtype, device=self.wte.device)
+            nn.init.normal_(full, 0.0, 0.02, generator=generator)
+            self.wte.copy_(shard_tensor(full, self.wte.tp_shard,
+                                        self.tp.rank, self.tp.size))
         nn.init.normal_(self.wpe, 0.0, 0.01, generator=generator)
         for mod in self.modules():
             if isinstance(mod, Dense):
@@ -517,7 +638,7 @@ class GPT2LMHead(nn.Module):
             pos_emb = self.wpe[:T][None]
         else:
             pos_emb = self.wpe[positions]
-        x = self.wte[input_ids].to(cfg.dtype) + pos_emb.to(cfg.dtype)
+        x = self.embed(input_ids).to(cfg.dtype) + pos_emb.to(cfg.dtype)
         drop = None
         if dropout_seed is not None and cfg.dropout > 0.0 and \
                 kv_cache is None:
@@ -581,10 +702,36 @@ class GPT2LMHead(nn.Module):
         x = self.ln_f(x)
         if return_hidden:
             return x
-        logits = torch.matmul(x, self.wte.to(cfg.dtype).t())
+        logits = self.head_logits(x)
+        if self.tp is not None:           # the whole vocab, padding cut
+            logits = _GatherVocab.apply(logits, self.tp)[
+                ..., :cfg.vocab_size]
         if kv_cache is not None:
             return logits, kv_cache
         return logits
+
+    def embed(self, input_ids):
+        """``wte[input_ids]``; with a model axis the vocab-parallel lookup
+        (each rank's rows, zeros for ids it does not hold, summed over
+        the group)."""
+        if self.tp is None:
+            return self.wte[input_ids]
+        n = self.wte.shape[0]
+        local = input_ids.long() - self.tp.rank * n
+        mine = (local >= 0) & (local < n)
+        rows = self.wte[local.clamp(0, n - 1)]
+        rows = torch.where(mine[..., None], rows,
+                           torch.zeros((), dtype=rows.dtype,
+                                       device=rows.device))
+        return tp_comm.psum_combine(rows, self.tp)
+
+    def head_logits(self, x):
+        """The tied head: ``x @ wte.T`` in the compute dtype (this rank's
+        vocab rows with a model axis: a column-parallel consumer of the
+        replicated ``x``, whose cotangent Megatron's ``f`` sums)."""
+        if self.tp is not None:
+            x = tp_comm.psum_grad(x, self.tp)
+        return torch.matmul(x, self.wte.to(self.config.dtype).t())
 
 
 # ---------------------------------------------------------------------------
@@ -599,6 +746,52 @@ def cross_entropy_sum_and_count(logits, labels, ignore_index=-100):
     logp = torch.log_softmax(logits, dim=-1)
     token_loss = -torch.gather(logp, -1, safe[..., None].long())[..., 0]
     token_loss = torch.where(mask, token_loss, 0.0)
+    return token_loss.sum(), mask.sum()
+
+
+class _GatherVocab(torch.autograd.Function):
+    """Every rank's logits over its vocab rows, concatenated (rank
+    order); the backward keeps this rank's columns of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, logits, tp):
+        ctx.tp, ctx.n = tp, logits.shape[-1]
+        return tp_comm.all_gather(logits.contiguous(), tp,
+                                  dim=logits.ndim - 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        r, n = ctx.tp.rank, ctx.n
+        return g[..., r * n:(r + 1) * n], None
+
+
+def vocab_parallel_cross_entropy(local_logits, labels, tp, vocab_size,
+                                 ignore_index=-100):
+    """``(summed token cross-entropy in fp32, valid-token count)`` from
+    each rank's logits over its vocab rows (Megatron's vocab-parallel
+    loss): rows past ``vocab_size`` (padding) get -inf; the row max is
+    all-reduced with MAX (a constant to the gradient, as JAX's
+    ``log_softmax`` stops it), the sum of exponentials and the target's
+    logit with a sum (``psum_combine``: every rank holds the same loss,
+    so each partial takes its cotangent once)."""
+    logits = local_logits.float()
+    n = logits.shape[-1]
+    lo = tp.rank * n
+    cols = torch.arange(lo, lo + n, device=logits.device)
+    logits = torch.where(cols < vocab_size, logits,
+                         torch.full((), float("-inf"),
+                                    device=logits.device))
+    with torch.no_grad():
+        m = tp_comm.all_reduce(logits.amax(-1), tp, op="max")
+    shifted = logits - m[..., None]
+    total_exp = tp_comm.psum_combine(torch.exp(shifted).sum(-1), tp)
+    mask = labels != ignore_index
+    safe = torch.where(mask, labels, torch.zeros_like(labels)).long()
+    local = safe - lo
+    mine = (local >= 0) & (local < n)
+    z = torch.gather(shifted, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    z = tp_comm.psum_combine(torch.where(mine, z, 0.0), tp)
+    token_loss = torch.where(mask, torch.log(total_exp) - z, 0.0)
     return token_loss.sum(), mask.sum()
 
 
@@ -694,6 +887,14 @@ def make_gpt2_loss_fn(model):
                             dtype=input_ids.dtype,
                             device=input_ids.device)], dim=1)
         chunk = model.config.loss_chunk
+        tp = getattr(model, "tp", None)
+        if tp is not None:
+            hidden = model(input_ids, dropout_seed=rng, return_hidden=True,
+                           pld_theta=pld_theta)
+            total, count = vocab_parallel_cross_entropy(
+                model.head_logits(hidden), labels, tp,
+                model.config.vocab_size)
+            return total / torch.clamp(count, min=1)
         if chunk:
             hidden = model(input_ids, dropout_seed=rng, return_hidden=True,
                            pld_theta=pld_theta)
@@ -814,11 +1015,49 @@ def with_layout(model, scan_layers):
     return out
 
 
-def convert_gpt2_params(params, scan_layers=False):
+def gpt2_partition_specs(state, vocab_size):
+    """``{name: Shard or None}`` of a GPT-2 ``state_dict`` (names only are
+    read): JAX ``gpt2_partition_specs``'s Megatron layout on the port's
+    ``[out, in]`` weights (module docstring)."""
+    specs = {}
+    for name in state:
+        if name == "wte":
+            spec = Shard(0, 1, full=int(vocab_size))
+        elif name.endswith("attn.c_attn.weight") or \
+                name.endswith("attn.c_attn.bias"):
+            spec = Shard(0, 3)
+        elif name.endswith("mlp.c_fc.weight") or \
+                name.endswith("mlp.c_fc.bias"):
+            spec = Shard(0)
+        elif name.endswith("c_proj.weight"):
+            spec = Shard(1)
+        else:
+            spec = None
+        specs[name] = spec
+    return specs
+
+
+def shard_gpt2_state_dict(state, model_rank, model_size, vocab_size=None):
+    """Rank ``model_rank``'s shard of a whole GPT-2 ``state_dict`` under
+    :func:`gpt2_partition_specs` (``wte`` padded when ``model_size`` does
+    not divide the vocab)."""
+    if model_size == 1:
+        return dict(state)
+    vocab = int(vocab_size if vocab_size is not None
+                else state["wte"].shape[0])
+    specs = gpt2_partition_specs(state, vocab)
+    return {n: shard_tensor(t, specs[n], model_rank, model_size)
+            for n, t in state.items()}
+
+
+def convert_gpt2_params(params, scan_layers=False, model_rank=0,
+                        model_size=1):
     """The JAX package's GPT-2 param tree (nested mappings of numpy
     arrays, unrolled ``h_<i>`` or stacked ``h`` layout) as a
     :class:`GPT2LMHead` ``state_dict`` of fp32 CPU tensors: the unrolled
-    model's, or with ``scan_layers`` the stacked model's.
+    model's, or with ``scan_layers`` the stacked model's; with
+    ``model_size > 1`` the shard of model rank ``model_rank``
+    (:func:`shard_gpt2_state_dict`).
 
     Flax ``Dense.kernel`` is ``[in, out]`` and becomes ``weight``
     ``[out, in]``; LayerNorm ``scale``/``bias`` become
@@ -848,4 +1087,9 @@ def convert_gpt2_params(params, scan_layers=False):
             sd[f"h.{i}.{mod}.{name}.weight"] = t(dense["kernel"]).t() \
                 .contiguous()
             sd[f"h.{i}.{mod}.{name}.bias"] = t(dense["bias"])
+    if model_size > 1:
+        if scan_layers:
+            raise NotImplementedError("a model-parallel shard is of the "
+                                      "unrolled layout")
+        return shard_gpt2_state_dict(sd, model_rank, model_size)
     return stack_gpt2_state_dict(sd) if scan_layers else sd

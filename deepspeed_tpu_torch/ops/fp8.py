@@ -38,8 +38,15 @@ operands and the quantized cotangent).
 :func:`fp8_scope` declares the plan (and state) active for the
 forwards run inside it, like JAX's trace-time scope: no scope means
 :func:`site_active` is False and the model's ``Dense`` runs its plain
-matmul. Without a state (and not discovering) the scope gives current
-scaling: scales from the current amax, no history.
+matmul. Without a state (and not discovering) the scope gives JAX's
+current scaling (``fp8_dot_general``'s manual path, which the pipeline
+runs): :func:`in_qdq_current` on both operands, the matmul, then
+:func:`out_qdq_current`. JAX differentiates ``in_qdq_current`` as
+written, so its gradient is not straight through: the cotangent times
+the scale is cast to ``float8_e4m3fn`` on its way back (the transpose of
+the cast), the clamp halves it at a tie, and the scale's own gradient
+reaches the operand's largest element through the max.
+:class:`_InQdqCurrent` is that gradient, op for op.
 """
 
 import contextlib
@@ -77,6 +84,69 @@ def quantize_dequantize(x, scale, qmax, dtype):
     ``x``'s dtype (JAX ``quantize_dequantize``)."""
     q = quantize(x, scale, qmax, dtype)
     return (q.to(torch.float32) * scale).to(x.dtype)
+
+
+class _InQdqCurrent(torch.autograd.Function):
+    """``quantize_dequantize(x, s, 448, e4m3fn)`` with ``s`` from the
+    current amax, and the gradient JAX's autodiff gives it (module
+    docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, margin):
+        c = E4M3_MAX / (2.0 ** margin)
+        raw = x.detach().abs().max().to(torch.float32)
+        amax = torch.where(raw > 0.0, raw, torch.ones_like(raw))
+        s = amax / c
+        scaled = x.to(torch.float32) / s
+        q = torch.clamp(scaled, -E4M3_MAX, E4M3_MAX) \
+            .to(torch.float8_e4m3fn).to(torch.float32)
+        ctx.save_for_backward(x, scaled, q, raw, s)
+        ctx.c = c
+        return (q * s).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scaled, q, raw, s = ctx.saved_tensors
+        g = g.to(torch.float32)
+        g_s = (g * q).sum()                      # y = q * s
+        g_q = (g * s).to(torch.float8_e4m3fn).to(torch.float32)
+        # clip = minimum(maximum(scaled, -qmax), qmax): 1/2 at a tie
+        lo = torch.maximum(scaled, torch.full_like(scaled, -E4M3_MAX))
+        d = torch.where(scaled > -E4M3_MAX, 1.0,
+                        torch.where(scaled == -E4M3_MAX, 0.5, 0.0)) * \
+            torch.where(lo < E4M3_MAX, 1.0,
+                        torch.where(lo == E4M3_MAX, 0.5, 0.0))
+        g_scaled = g_q * d
+        g_x = g_scaled / s                       # scaled = x / s
+        g_s = g_s - (g_scaled * scaled / s).sum()
+        if raw > 0:     # s = max|x| / c: the max's elements share it
+            hit = (x.detach().abs().to(torch.float32) == raw)
+            g_amax = g_s / ctx.c / hit.sum()
+            g_x = g_x + torch.where(hit, torch.sign(x.detach().float())
+                                    * g_amax, 0.0)
+        return g_x.to(x.dtype), None
+
+
+def in_qdq_current(x, margin=0):
+    """JAX ``in_qdq_current``: the forward operand's qdq to
+    ``float8_e4m3fn`` at the scale of its current amax, with JAX's
+    gradient (:class:`_InQdqCurrent`)."""
+    return _InQdqCurrent.apply(x, int(margin))
+
+
+def out_qdq_current(y, margin=0):
+    """JAX ``out_qdq_current``: the identity forward; the backward qdq's
+    the cotangent to ``float8_e5m2`` at its current amax's scale."""
+    return _OutQdq.apply(y, None, None, None, int(margin))
+
+
+def current_scaling_matmul(x, w, margin=0):
+    """``x @ w.T`` (``w`` ``[out, in]``) as JAX's ``fp8_dot_general``
+    runs it without a state: both operands through
+    :func:`in_qdq_current`, the product, then :func:`out_qdq_current`."""
+    return out_qdq_current(torch.matmul(in_qdq_current(x, margin),
+                                        in_qdq_current(w, margin).t()),
+                           margin)
 
 
 def _current_scale(x, qmax, margin):
@@ -156,6 +226,11 @@ def fp8_scope(plan, state=None, new_state=None, discover=None):
         yield
     finally:
         _SCOPE = prev
+
+
+def scope_margin():
+    """The active plan's scaling margin."""
+    return int(_SCOPE.plan.margin)
 
 
 def site_active(site):
@@ -286,6 +361,8 @@ def fp8_linear(x, w, site):
     discovers) the state key ``"<site>:<idx>"``."""
     scope = _SCOPE
     margin = int(scope.plan.margin)
+    if not scope.keyed():
+        return current_scaling_matmul(x, w, margin)
     hists = new_state = key = None
     if scope.keyed():
         key = scope.next_key(site)

@@ -32,9 +32,15 @@ take the forward's state keys (``ops/fp8.py:snapshot``). The default
 generators are replayed by ``preserve_rng_state``. Attention-prob
 dropout is the counter hash and replays by construction.
 
-``partition_activations`` is a no-op: without a model-parallel axis,
-which the port does not have yet (``ROADMAP.md`` item 5), JAX's
-``_partition_constraint`` is a no-op too. ``contiguous_memory_
+``partition_activations`` with a model axis of M ranks (``configure(
+mpu_=...)``; the engine passes its ``mpu``): a full-recompute segment
+(policy ``nothing``) keeps 1/M of each tensor input on each rank (the
+flattened input cut in M pieces, the reference's flatten-and-split,
+where JAX's ``_partition_constraint`` shards the trailing dim) and
+all-gathers them over the model group before its recompute
+(:class:`_PartitionedSegment`); the gradients do not change. Without a
+model axis, or under another policy (which keeps its saved tensors),
+it is a no-op, as JAX's is outside a mesh. ``contiguous_memory_
 optimization`` is read and recorded, as in JAX. ``profile`` times each
 checkpointed call with a :class:`~deepspeed_tpu_torch.telemetry.timers.
 SynchronizedWallClockTimer`; ``synchronize_checkpoint_boundary``
@@ -58,14 +64,18 @@ __all__ = [
 
 _config = None
 _timers = None
+_mpu = None
 
 
 def configure(mpu_=None, deepspeed_config=None, partition_activations=None,
               contiguous_checkpointing=None, num_checkpoints=None,
               checkpoint_in_cpu=None, synchronize=None, profile=None):
     """Configure the module from a ``DeepSpeedConfig`` (or a config
-    dict) or explicit kwargs (JAX ``configure``)."""
-    global _config, _timers
+    dict) or explicit kwargs (JAX ``configure``); ``mpu_`` gives
+    ``partition_activations`` its model axis."""
+    global _config, _timers, _mpu
+    if mpu_ is not None:
+        _mpu = mpu_
     if deepspeed_config is not None:
         cfg = getattr(deepspeed_config, "activation_checkpointing_config",
                       None)
@@ -100,11 +110,19 @@ def is_configured():
     return _config is not None
 
 
+def set_mpu(mpu_):
+    """The model axis ``partition_activations`` splits over (the
+    engine's ``mpu`` when the user configured the module first)."""
+    global _mpu
+    _mpu = mpu_
+
+
 def reset():
     """Drop the configuration and the RNG tracker's streams."""
-    global _config, _timers
+    global _config, _timers, _mpu
     _config = None
     _timers = None
+    _mpu = None
     _RNG_TRACKER.reset()
 
 
@@ -226,6 +244,68 @@ def _profiled(name):
         yield
 
 
+_TENSOR = object()       # a tensor argument's place in a segment's inputs
+
+
+class _PartitionedSegment(torch.autograd.Function):
+    """A full-recompute segment whose tensor inputs are kept as this
+    rank's 1/M piece of their flattened values, all-gathered over the
+    model group before the recompute (``partition_activations``)."""
+
+    @staticmethod
+    def forward(ctx, run, tp, *args):
+        ctx.run, ctx.tp = run, tp
+        ctx.kinds, kept, ctx.geometry = [], [], []
+        for a in args:
+            if torch.is_tensor(a):
+                flat = a.detach().reshape(-1)
+                n = -(-flat.numel() // tp.size)
+                flat = torch.nn.functional.pad(
+                    flat, (0, n * tp.size - flat.numel()))
+                kept.append(flat[tp.rank * n:(tp.rank + 1) * n].clone())
+                ctx.geometry.append((a.shape, a.requires_grad))
+                ctx.kinds.append(_TENSOR)
+            else:
+                ctx.kinds.append(a)
+        ctx.save_for_backward(*kept)
+        with torch.no_grad():
+            return run(*args)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from deepspeed_tpu_torch.parallel.collectives import all_gather
+        pieces = iter(ctx.saved_tensors)
+        geometry = iter(ctx.geometry)
+        inputs = []
+        for kind in ctx.kinds:
+            if kind is not _TENSOR:
+                inputs.append(kind)
+                continue
+            shape, needs = next(geometry)
+            whole = all_gather(next(pieces), ctx.tp, dim=0)
+            x = whole[:int(torch.Size(shape).numel())].reshape(shape)
+            inputs.append(x.detach().requires_grad_(needs))
+        with torch.enable_grad():
+            out = ctx.run(*inputs)
+        outs = out if isinstance(out, tuple) else (out,)
+        pairs = [(o, g) for o, g in zip(outs, grads)
+                 if torch.is_tensor(o) and o.requires_grad and g is not None]
+        torch.autograd.backward([o for o, _ in pairs],
+                                [g for _, g in pairs])
+        return (None, None) + tuple(
+            x.grad if torch.is_tensor(x) and x.requires_grad else None
+            for x in inputs)
+
+
+def _partition_axis():
+    """The model axis ``partition_activations`` splits over, or None."""
+    if not _cfg().partition_activations or _mpu is None:
+        return None
+    from deepspeed_tpu_torch.parallel.mesh import model_axis_of
+    tp = model_axis_of(_mpu)
+    return tp if tp.active else None
+
+
 def checkpoint(function, *args, policy=None, static_argnums=(),
                prevent_cse=False):
     """``function(*args)`` with its activations recomputed in the
@@ -236,8 +316,13 @@ def checkpoint(function, *args, policy=None, static_argnums=(),
     del static_argnums, prevent_cse
     cfg = _cfg()
     pol = make_policy(policy)
+    tp = _partition_axis() if pol == "nothing" and \
+        torch.is_grad_enabled() else None
     with _profiled("activation_checkpoint"):
-        if pol == "everything":
+        if tp is not None:
+            run = replayable(function, _generators(args))
+            out = _PartitionedSegment.apply(run, tp, *args)
+        elif pol == "everything":
             out = function(*args)
         elif pol == "offload":
             with torch.autograd.graph.save_on_cpu(

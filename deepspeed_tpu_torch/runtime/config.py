@@ -130,13 +130,12 @@ _PORTED_KEYS = frozenset((
     C.DISABLE_ALLGATHER, C.ZERO_ALLOW_UNTESTED_OPTIMIZER, C.DUMP_STATE,
     C.VOCABULARY_SIZE, C.AMP, C.WALL_CLOCK_BREAKDOWN, C.MEMORY_BREAKDOWN,
     C.INFERENCE, C.ACTIVATION_CHECKPOINTING, C.PROGRESSIVE_LAYER_DROP,
-    C.SPARSE_GRADIENTS, C.FP8, C.PIPELINE, C.MESH))
+    C.SPARSE_GRADIENTS, C.FP8, C.PIPELINE, C.MESH, C.TENSOR_PARALLEL))
 
 # the keys the JAX config reads whose features are not ported yet, each
 # with the ROADMAP.md section 1 item that ports it
 _LATER_KEYS = {
     C.TELEMETRY: "item 6 (slice G, operations)",
-    C.TENSOR_PARALLEL: "item 5 F2 (tensor parallelism)",
     C.COMM_QUANTIZATION: "item 5 F5 (1-bit Adam, quantized and compressed "
                          "all-reduce)",
     C.RESILIENCE: "item 6 (slice G, operations)",
@@ -216,6 +215,42 @@ def get_pld_params(param_dict):
         pld_params.pop(C.PLD_ENABLED, None)
         return pld_params
     return False
+
+
+class TensorParallelConfig:
+    """The ``tensor_parallel`` block (JAX ``config.py:539-570``): its
+    ``overlap`` sub-block opts the TP pipeline blocks' collectives into
+    the chunked rings of ``parallel/collectives.py``."""
+
+    def __init__(self, param_dict):
+        sub = param_dict.get(C.TENSOR_PARALLEL, {}) or {}
+        ov = sub.get(C.TP_OVERLAP, {}) or {}
+        self.overlap_enabled = get_scalar_param(
+            ov, C.TP_OVERLAP_ENABLED, C.TP_OVERLAP_ENABLED_DEFAULT)
+        self.overlap_chunks = get_scalar_param(
+            ov, C.TP_OVERLAP_CHUNKS, C.TP_OVERLAP_CHUNKS_DEFAULT)
+        self.overlap_bidirectional = get_scalar_param(
+            ov, C.TP_OVERLAP_BIDIRECTIONAL,
+            C.TP_OVERLAP_BIDIRECTIONAL_DEFAULT)
+        self.overlap_sites = get_scalar_param(
+            ov, C.TP_OVERLAP_SITES, C.TP_OVERLAP_SITES_DEFAULT)
+        self.overlap_wire_dtype = get_scalar_param(
+            ov, C.TP_OVERLAP_WIRE_DTYPE, C.TP_OVERLAP_WIRE_DTYPE_DEFAULT)
+        self.overlap_wire_chunk = get_scalar_param(
+            ov, C.TP_OVERLAP_WIRE_CHUNK, C.TP_OVERLAP_WIRE_CHUNK_DEFAULT)
+
+    def overlap_plan(self):
+        """The resolved :class:`~deepspeed_tpu_torch.parallel.collectives.
+        OverlapPlan`, or None when overlap is disabled."""
+        if not self.overlap_enabled:
+            return None
+        from deepspeed_tpu_torch.parallel.collectives import OverlapPlan
+        wd = self.overlap_wire_dtype
+        return OverlapPlan(chunks=int(self.overlap_chunks),
+                           bidirectional=bool(self.overlap_bidirectional),
+                           sites=dict(self.overlap_sites or {}),
+                           wire_dtype=(str(wd) if wd else None),
+                           wire_chunk=int(self.overlap_wire_chunk))
 
 
 class Fp8Config:
@@ -666,6 +701,7 @@ class DeepSpeedConfig:
         self.sparse_gradients_enabled = get_sparse_gradients_enabled(
             param_dict)
         self.fp8 = Fp8Config(param_dict)
+        self.tensor_parallel = TensorParallelConfig(param_dict)
         self.pipeline = get_pipeline_config(param_dict)
         self.mesh_shape = get_mesh_config(param_dict)
 
@@ -752,6 +788,7 @@ class DeepSpeedConfig:
     def _do_error_check(self):
         self._check_zero3()
         self._check_fp8()
+        self._check_tensor_parallel()
         self._check_inference()
         if self.zero_enabled:
             assert self.fp16_enabled or self.bf16_enabled, (
@@ -763,6 +800,68 @@ class DeepSpeedConfig:
                     f"{MAX_STAGE_ZERO_OPTIMIZATION}")
         if self.fp16_enabled and self.bf16_enabled:
             raise ValueError("fp16 and bf16 cannot both be enabled")
+
+    def _check_tensor_parallel(self):
+        """JAX ``config.py:1391-1450``: its checks and texts."""
+        from deepspeed_tpu_torch.parallel.collectives import OVERLAP_SITES
+        from deepspeed_tpu_torch.runtime.comm.codecs import CODECS
+        tp = self.tensor_parallel
+
+        def _bool(name, v):
+            if not isinstance(v, bool):
+                raise ValueError(
+                    f"tensor_parallel.overlap: {name} must be a bool, "
+                    f"got {v!r}")
+
+        def _chunks(name, v):
+            if isinstance(v, bool) or not isinstance(v, int) or v < 1:
+                raise ValueError(
+                    f"tensor_parallel.overlap: {name} must be an int >= 1,"
+                    f" got {v!r}")
+
+        def _wire(name, v):
+            if v is not None and v not in CODECS:
+                raise ValueError(
+                    f"tensor_parallel.overlap: {name} must be one of "
+                    f"{sorted(CODECS)} (or null), got {v!r}")
+
+        _bool("enabled", tp.overlap_enabled)
+        _bool("bidirectional", tp.overlap_bidirectional)
+        _chunks("chunks", tp.overlap_chunks)
+        _wire("wire_dtype", tp.overlap_wire_dtype)
+        _chunks("wire_chunk", tp.overlap_wire_chunk)
+        sites = tp.overlap_sites
+        if sites is None:
+            return
+        if not isinstance(sites, dict):
+            raise ValueError(
+                f"tensor_parallel.overlap: sites must be a dict of "
+                f"per-site overrides, got {sites!r}")
+        for site, ov in sites.items():
+            if site not in OVERLAP_SITES:
+                raise ValueError(
+                    f"tensor_parallel.overlap: unknown site {site!r}; "
+                    f"known: {list(OVERLAP_SITES)}")
+            if not isinstance(ov, dict):
+                raise ValueError(
+                    f"tensor_parallel.overlap: sites[{site!r}] must be a "
+                    f"dict, got {ov!r}")
+            for key, v in ov.items():
+                if key in (C.TP_OVERLAP_ENABLED, C.TP_OVERLAP_BIDIRECTIONAL):
+                    _bool(f"sites[{site!r}].{key}", v)
+                elif key in (C.TP_OVERLAP_CHUNKS, C.TP_OVERLAP_WIRE_CHUNK):
+                    _chunks(f"sites[{site!r}].{key}", v)
+                elif key == C.TP_OVERLAP_WIRE_DTYPE:
+                    _wire(f"sites[{site!r}].{key}", v)
+                else:
+                    raise ValueError(
+                        f"tensor_parallel.overlap: unknown key {key!r} in "
+                        f"sites[{site!r}]; allowed: "
+                        f"[{C.TP_OVERLAP_ENABLED!r}, "
+                        f"{C.TP_OVERLAP_CHUNKS!r}, "
+                        f"{C.TP_OVERLAP_BIDIRECTIONAL!r}, "
+                        f"{C.TP_OVERLAP_WIRE_DTYPE!r}, "
+                        f"{C.TP_OVERLAP_WIRE_CHUNK!r}]")
 
     def _check_zero3(self):
         """The stage-3 schedule keys (JAX ``config.py:1362``), then the

@@ -145,6 +145,21 @@ RESILIENCE = "resilience"
 ELASTICITY = "elasticity"
 ANALYSIS = "analysis"
 TENSOR_PARALLEL = "tensor_parallel"
+# the overlap block of the TP layers' collective matmuls
+# (parallel/collectives.py), JAX's keys and defaults
+TP_OVERLAP = "overlap"
+TP_OVERLAP_ENABLED = "enabled"
+TP_OVERLAP_ENABLED_DEFAULT = False
+TP_OVERLAP_CHUNKS = "chunks"
+TP_OVERLAP_CHUNKS_DEFAULT = 4
+TP_OVERLAP_BIDIRECTIONAL = "bidirectional"
+TP_OVERLAP_BIDIRECTIONAL_DEFAULT = False
+TP_OVERLAP_SITES = "sites"
+TP_OVERLAP_SITES_DEFAULT = None  # None = no per-site overrides
+TP_OVERLAP_WIRE_DTYPE = "wire_dtype"
+TP_OVERLAP_WIRE_DTYPE_DEFAULT = None
+TP_OVERLAP_WIRE_CHUNK = "wire_chunk"
+TP_OVERLAP_WIRE_CHUNK_DEFAULT = 512
 FP8 = "fp8"
 FP8_ENABLED = "enabled"
 FP8_ENABLED_DEFAULT = False

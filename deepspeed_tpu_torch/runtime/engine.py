@@ -120,6 +120,23 @@ top-k would drop mass (a tied embedding) falls back to the dense
 all-reduce by a MAX vote; ``sparse_grad_dropped`` and
 ``sparse_grad_dense_fallbacks`` are in the step's metrics.
 
+**Tensor parallelism** (``initialize(mpu=...)`` or a model built with
+one, and ``mesh`` ``{"data": N, "model": M}``): the model holds the
+shard of its model rank (``models/gpt2.py``), ``mp_world_size`` is M
+and ``param_specs`` (default: the model's ``partition_specs``) says
+which leaves are split. The engine's :class:`Comm` runs over the data
+group only: gradients are reduced there, and ZeRO 1-3 and offload shard
+each model rank's leaves over it. The overflow vote and the global
+norm also cross the model group: a split leaf's sum of squares is
+summed over it, a replicated one counted on model rank 0 only (JAX's
+GSPMD norm of the global arrays). fp8's amax histories take the max
+over both groups. Checkpoints hold whole leaves (each split leaf
+gathered over the model group, its vocab padding cut) and record
+``mesh_shape`` in their topology, as JAX's do; they load at any model
+size. LAMB sums each split leaf's norms over the model group too.
+Sparse gradients refuse a model axis (JAX: pure data parallelism
+only).
+
 **Activation checkpointing** (``activation_checkpointing``): the engine
 configures ``runtime/activation_checkpointing/checkpointing.py`` from
 the config unless the user already has (JAX ``engine.py:594-600``).
@@ -203,7 +220,9 @@ from deepspeed_tpu_torch.runtime.lr_schedules import (
 from deepspeed_tpu_torch.runtime.progressive_layer_drop import (
     ProgressiveLayerDrop,
 )
+from deepspeed_tpu_torch.parallel import collectives as tp_comm
 from deepspeed_tpu_torch.parallel import mesh
+from deepspeed_tpu_torch.parallel import tensor_parallel as tpl
 from deepspeed_tpu_torch.runtime.zero.comm import Comm
 from deepspeed_tpu_torch.runtime.zero.sharding import (
     Partition,
@@ -227,7 +246,7 @@ class DeviceState(NamedTuple):
 
 
 def grad_epilogue(grads, scale, accum, fp16, clip, comm=None,
-                  sharded=False, counted=None):
+                  sharded=False, counted=None, tp=None):
     """Unscale and average over micro-batches, the fp16 overflow check,
     the global norm and clipping (``engine.py:99``), IN PLACE on
     ``grads`` (the engine's gradient buffers, so the fused optimizer's
@@ -239,7 +258,10 @@ def grad_epilogue(grads, scale, accum, fp16, clip, comm=None,
     overflow flag is voted (MAX) so every rank skips together. With
     ``sharded`` they are this rank's pieces and the norm is the global
     one (``counted``: see :func:`global_norm`); else they are replicated
-    and the local norm is the global one."""
+    and the local norm is the global one. ``tp`` (the model axis, more
+    than one rank) votes the overflow and sums the squares over the
+    model group too (``counted`` then leaves a replicated leaf out
+    everywhere but model rank 0)."""
     world = comm.world if comm is not None else 1
     denom = scale * accum * world if world > 1 else scale * accum
     for g in grads:
@@ -249,14 +271,20 @@ def grad_epilogue(grads, scale, accum, fp16, clip, comm=None,
         nonfinite = check_overflow(grads)
         if comm is not None:
             nonfinite = comm.any_flag(nonfinite)
+        if tp is not None:
+            nonfinite = tp_comm.all_reduce(
+                nonfinite.to(torch.float32).reshape(1), tp, op="max") \
+                .reshape(()) > 0
         overflow = nonfinite
     else:
         nonfinite = overflow = torch.zeros((), dtype=torch.bool,
                                            device=device)
     reduce = None
-    if sharded and comm is not None:
+    if (sharded and comm is not None) or tp is not None:
         def reduce(t):
-            return comm.all_reduce(t, stat=True)
+            if sharded and comm is not None:
+                comm.all_reduce(t, stat=True)
+            return tp_comm.all_reduce(t, tp)
     grad_norm = global_norm(grads, reduce, counted)
     applied_norm = grad_norm
     if clip > 0:
@@ -352,11 +380,13 @@ class DeepSpeedEngine:
 
     def __init__(self, model, loss_fn, config, device, optimizer=None,
                  model_parameters=None, lr_scheduler=None, seed=0,
-                 training_data=None, collate_fn=None, comm=None):
+                 training_data=None, collate_fn=None, comm=None, mpu=None,
+                 param_specs=None):
         # the data-parallel group: the DS_TPU_* env or an existing group
         # (NCCL on CUDA, gloo on the CPU); one process without either is
         # world 1. ``comm``: the collectives over another group (a
-        # pipeline stage's data group)
+        # pipeline stage's data group); ``mpu``: the model and data
+        # groups of tensor parallelism
         mesh.initialize_distributed(device=device)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
@@ -364,11 +394,24 @@ class DeepSpeedEngine:
         self.loss_fn = loss_fn
         self.device = device
         self.seed = int(seed)
+        self.mpu = mpu if mpu is not None else getattr(model, "mpu", None)
+        tp = mesh.model_axis_of(self.mpu)
+        self._tp = tp if tp.size > 1 else None
+        self.mp_world_size = tp.size
+        if comm is None and self.mpu is not None:
+            data = mesh.data_axis_of(self.mpu)
+            comm = Comm(group=data.pg) if data.pg is not None else Comm()
         self.comm = comm if comm is not None else Comm()
         self.dp_world_size = self.comm.world
         self.dp_rank = self.comm.rank
         self._config = DeepSpeedConfig(config,
                                        world_size=self.dp_world_size)
+        want = int((self._config.mesh_shape or {}).get("model") or 1)
+        if want != self.mp_world_size and (want > 1 or self._tp):
+            raise ValueError(
+                f"the mesh's model axis is {want} but the model was built "
+                f"for {self.mp_world_size} model-parallel ranks: build it "
+                f"with mpu=MeshGroups(mesh) and pass the same mpu")
 
         if self._config.fp16_enabled:
             self.compute_dtype = torch.float16
@@ -393,6 +436,17 @@ class DeepSpeedEngine:
                                    if model_parameters is None
                                    else model_parameters)
                        if p.requires_grad]
+        specs = dict(tpl.partition_specs(model))
+        specs.update(param_specs or {})
+        names = self._param_names()
+        self._tp_specs = [specs.get(n) if self._tp else None
+                          for n in names]
+        if self._tp is not None:
+            cfg = self._config
+            if cfg.sparse_gradients_enabled:
+                raise AssertionError(
+                    f"sparse_gradients supports pure data parallelism; "
+                    f"mesh axis 'model' has size {self.mp_world_size}")
         self.micro_steps = 0
         self.global_steps = 0
         self._configure_optimizer(optimizer)
@@ -436,7 +490,9 @@ class DeepSpeedEngine:
         from deepspeed_tpu_torch.runtime.activation_checkpointing import (
             checkpointing as act_ckpt)
         if not act_ckpt.is_configured():
-            act_ckpt.configure(deepspeed_config=self._config)
+            act_ckpt.configure(mpu_=self.mpu, deepspeed_config=self._config)
+        elif self.mpu is not None:
+            act_ckpt.set_mpu(self.mpu)
 
     # ------------------------------------------------------------------
     # configuration accessors
@@ -809,6 +865,7 @@ class DeepSpeedEngine:
         new = self._fp8_new
         if self.comm.active:
             self.comm.all_reduce(new, op="max", stat=True)
+        tp_comm.all_reduce(new, self._tp, op="max")
         if self._config.fp16_enabled:
             new = torch.where(overflow, self._fp8_flat, new)
         self._fp8_flat = new
@@ -909,6 +966,30 @@ class DeepSpeedEngine:
             torch._foreach_add_(self._grad32_views, grads)
             for p in self.params:
                 p.grad = None
+
+    def fold_on_accumulate(self):
+        """Fold each param's compute-dtype gradient into the fp32
+        accumulator as soon as a backward has accumulated it (offload
+        only): the pipeline's stages run their micro-batches' backwards
+        interleaved, with no point between them where
+        :meth:`_fold_grads` could run, and a backward accumulates each
+        leaf once (a tied leaf's uses summed first), so folding there is
+        the fold after each micro-batch. The hook holds the engine
+        weakly, as :meth:`_stage2_hook` does."""
+        engine = weakref.ref(self)
+
+        def hook_of(i):
+            def hook(p):
+                self = engine()
+                if self is None:
+                    return
+                with torch.no_grad():
+                    self._grad32_views[i].add_(p.grad)
+                p.grad = None
+            return hook
+
+        for i, p in enumerate(self.params):
+            p.register_post_accumulate_grad_hook(hook_of(i))
 
     def _wait_for_params(self):
         """Order the device's next use of the params after the last
@@ -1192,6 +1273,31 @@ class DeepSpeedEngine:
                 comm.all_reduce(grads[i])
         return grads, (dropped, fallbacks)
 
+    def offload_leaf_views(self):
+        """``(leaf indices, views)``: the offload gradient buffer cut into
+        its leaves (this rank's row's part of each, across processes)."""
+        opt = self.cpu_optimizer
+        if not self._offload_dp:
+            return list(range(len(self._grad32_views))), self._grad32_views
+        lo, chunk = self._off_lo, self._off_chunk
+        idx, views = [], []
+        for i, (off, size) in enumerate(zip(opt.offsets, opt.sizes)):
+            a, b = max(off, lo), min(off + size, lo + chunk)
+            if a < b:
+                idx.append(i)
+                views.append(self._grad_row[a - lo:b - lo])
+        return idx, views
+
+    def _tp_counted(self, grads, counted):
+        """``counted`` with the model axis: a leaf no spec splits counts
+        on model rank 0 only (offload's leaf views are counted where they
+        are cut, in :meth:`_apply_step`)."""
+        if self._tp is None or self._offload:
+            return counted
+        base = counted if counted is not None else [True] * len(grads)
+        return [c and (spec is not None or self._tp.rank == 0)
+                for c, spec in zip(base, self._tp_specs)]
+
     def _optimizer_step(self, grads, lr, beta1, overflow, sharded):
         """The update of the masters by the configured optimizer."""
         fp16 = self._config.fp16_enabled
@@ -1204,10 +1310,16 @@ class DeepSpeedEngine:
                 adam_w_mode=self._adam_w_mode,
                 bias_correction=self._bias_correction, skip=skip)
         elif self._opt_kind == "lamb":
+            # each leaf's norms over its pieces: the data group's (ZeRO)
+            # and the model group's (a split leaf; a replicated one
+            # counted on model rank 0)
+            data = sharded and self.comm.active
             reduce = None
-            if sharded and self.comm.active:
+            if data or self._tp is not None:
                 def reduce(t):
-                    return self.comm.all_reduce(t, stat=True)
+                    if data:
+                        self.comm.all_reduce(t, stat=True)
+                    return tp_comm.all_reduce(t, self._tp)
             self.opt_state = lamb_step_(
                 self._masters, grads, self.opt_state, lr=lr, beta1=beta1,
                 beta2=self._betas[1], eps=self._eps,
@@ -1215,7 +1327,8 @@ class DeepSpeedEngine:
                 bias_correction=self._bias_correction,
                 max_coeff=self._lamb_coeffs[0],
                 min_coeff=self._lamb_coeffs[1], skip=skip, reduce=reduce,
-                counted=self._counted if sharded else None)
+                counted=self._tp_counted(
+                    grads, self._counted if sharded else None))
         else:
             # a client object's functional update; an overflow keeps the
             # old masters and state (JAX's select)
@@ -1252,15 +1365,21 @@ class DeepSpeedEngine:
             else:
                 grads = [self._grad32]
             sharded, counted = offload_dp, None
+            if self._tp is not None:
+                # leaf by leaf: a replicated leaf counts on model rank 0
+                idx, grads = self.offload_leaf_views()
+                counted = [self._tp_specs[i] is not None or
+                           self._tp.rank == 0 for i in idx]
         elif self._sparse:
             grads, sparse_stats = self._reduce_grads_sparse(tokens)
             sharded, counted = False, None
         else:
             grads = self._reduce_grads()
             sharded, counted = self._stage >= 1, self._counted
+        counted = self._tp_counted(grads, counted)
         overflow, nonfinite, grad_norm, applied_norm = grad_epilogue(
             grads, scale, accum, fp16, clip, comm=comm, sharded=sharded,
-            counted=counted)
+            counted=counted, tp=self._tp)
         lr = float(self._lr_fn(self.global_steps))
         beta1 = float(self._mom_fn(self.global_steps))
         if self._offload:
@@ -1430,15 +1549,36 @@ class DeepSpeedEngine:
     # checkpoints (``engine.py:2930-3270``)
     # ------------------------------------------------------------------
     def _topology(self):
-        """``meta``'s topology (JAX ``_topology``, ``engine.py:2936``)."""
-        return {"world_size": self.dp_world_size,
+        """``meta``'s topology (JAX ``_topology``, ``engine.py:2936``);
+        ``mesh_shape`` with a model axis."""
+        topo = {"world_size": mesh.dp_world_size(),
                 "dp_world_size": self.dp_world_size,
                 "zero_stage": self.zero_optimization_stage(),
                 "offload": self._offload}
+        if self._tp is not None:
+            topo["mesh_shape"] = {"data": self.dp_world_size,
+                                  "model": self.mp_world_size}
+        return topo
+
+    def _tp_whole(self, i, t):
+        """Leaf ``i`` whole over the model axis from this rank's ``t``
+        (every rank's piece all-gathered, the padding cut)."""
+        spec = self._tp_specs[i] if self._tp is not None else None
+        if spec is None:
+            return t
+        pieces = tp_comm.all_gather(t.contiguous()[None], self._tp, dim=0)
+        return tpl.unshard(list(pieces.unbind(0)), spec)
+
+    def _tp_local(self, i, full):
+        """This model rank's piece of the whole leaf ``full``."""
+        spec = self._tp_specs[i] if self._tp is not None else None
+        if spec is None:
+            return full
+        return tpl.shard_tensor(full, spec, self._tp.rank, self._tp.size)
 
     def _whole(self, i, piece):
-        """Leaf ``i`` whole from this rank's fp32 ``piece`` (an fp32
-        all-gather; the piece itself at stage 0)."""
+        """Leaf ``i`` whole over the data group from this rank's fp32
+        ``piece`` (an fp32 all-gather; the piece itself at stage 0)."""
         part = self._parts[i] if self._parts else None
         if part is None or not part.sharded:
             return piece
@@ -1456,22 +1596,36 @@ class DeepSpeedEngine:
         """The state a checkpoint holds: fp32 masters by param name, the
         optimizer state and the device counters (0-d tensors)."""
         names = self._param_names()
+        W = self._tp_whole
         if self._offload:
             opt = self.cpu_optimizer
-            params = dict(zip(names, opt.params()))
-            opt_state = {"exp_avg": opt.exp_avg, "exp_avg_sq": opt.exp_avg_sq,
-                         "step": np.int64(opt._step)}
+            params = {n: W(i, t) for i, (n, t) in
+                      enumerate(zip(names, opt.params()))}
+            if self._tp is not None:
+                def flat(buf):
+                    return torch.cat([
+                        W(i, buf[o:o + k].view(sh)).reshape(-1)
+                        for i, (o, k, sh) in enumerate(zip(
+                            opt.offsets, opt.sizes, opt.shapes))])
+                opt_state = {"exp_avg": flat(opt.exp_avg),
+                             "exp_avg_sq": flat(opt.exp_avg_sq),
+                             "step": np.int64(opt._step)}
+            else:
+                opt_state = {"exp_avg": opt.exp_avg,
+                             "exp_avg_sq": opt.exp_avg_sq,
+                             "step": np.int64(opt._step)}
         else:
             s = self.opt_state
             if self._stage == 3:
-                params = {n: self._whole(i, m) for i, (n, m) in
+                params = {n: W(i, self._whole(i, m)) for i, (n, m) in
                           enumerate(zip(names, self._masters))}
             else:
-                params = {n: p.data for n, p in zip(names, self.params)}
+                params = {n: W(i, p.data)
+                          for i, (n, p) in enumerate(zip(names, self.params))}
             opt_state = {
-                "m": {n: self._whole(i, m)
+                "m": {n: W(i, self._whole(i, m))
                       for i, (n, m) in enumerate(zip(names, s.m))},
-                "v": {n: self._whole(i, v)
+                "v": {n: W(i, self._whole(i, v))
                       for i, (n, v) in enumerate(zip(names, s.v))},
                 "step": s.step}
         ds = self.device_state
@@ -1516,13 +1670,18 @@ class DeepSpeedEngine:
             self._offload_sync_host_state()
         # every rank gathers (collectives); rank 0 writes, the rest wait
         state = self._checkpoint_state_tree()
-        if self.dp_rank == 0:
+        if mesh.dp_rank() == 0:
+            meta = self._checkpoint_meta(client_state)
+            meta["topology"] = self._topology()
             path = self._ckpt_manager.save(
-                save_dir, tag, state, self._checkpoint_meta(client_state),
-                save_latest=save_latest,
+                save_dir, tag, state, meta, save_latest=save_latest,
                 extra_manifest={"topology": self._topology()})
             log_dist(f"saved checkpoint {path}", ranks=[0])
-        self.comm.barrier()
+        if self._tp is not None:
+            import torch.distributed as dist
+            dist.barrier()
+        else:
+            self.comm.barrier()
         return True
 
     def load_checkpoint(self, load_dir, tag=None, load_optimizer_states=True,
@@ -1578,17 +1737,29 @@ class DeepSpeedEngine:
                     f"expected {tuple(want)}: checkpoint is from a "
                     f"different model shape")
 
+        L = self._tp_local
         if self._offload:
             opt = self.cpu_optimizer
-            for name, off, size, shape in zip(names, opt.offsets, opt.sizes,
-                                              opt.shapes):
-                leaf = tensor(saved[name])
+            for i, (name, off, size, shape) in enumerate(zip(
+                    names, opt.offsets, opt.sizes, opt.shapes)):
+                leaf = L(i, tensor(saved[name]))
                 check_shape(name, leaf, shape)
                 opt.master[off:off + size].copy_(leaf.reshape(-1))
             if load_optimizer_states:
                 o = state["opt_state"]
-                opt.exp_avg.copy_(tensor(o["exp_avg"]).reshape(-1))
-                opt.exp_avg_sq.copy_(tensor(o["exp_avg_sq"]).reshape(-1))
+                for key, buf in (("exp_avg", opt.exp_avg),
+                                 ("exp_avg_sq", opt.exp_avg_sq)):
+                    flat = tensor(o[key]).reshape(-1)
+                    if self._tp is not None:   # whole leaves, in order
+                        at, parts = 0, []
+                        for i, name in enumerate(names):
+                            n = int(np.prod(tensor(saved[name]).shape))
+                            whole = flat[at:at + n].view(
+                                tensor(saved[name]).shape)
+                            parts.append(L(i, whole).reshape(-1))
+                            at += n
+                        flat = torch.cat(parts)
+                    buf.copy_(flat)
                 opt._step = int(np.asarray(o["step"]))
             self._upload_offload_params()
         else:
@@ -1598,7 +1769,7 @@ class DeepSpeedEngine:
                     self._parts[i].piece(full)
 
             for i, (name, p) in enumerate(zip(names, self.params)):
-                leaf = tensor(saved[name])
+                leaf = L(i, tensor(saved[name]))
                 check_shape(name, leaf, self._parts[i].shape
                             if self._stage == 3 else p.shape)
                 if self._stage < 3:
@@ -1609,8 +1780,8 @@ class DeepSpeedEngine:
                 o = state["opt_state"]
                 for i, (name, m, v) in enumerate(zip(
                         names, self.opt_state.m, self.opt_state.v)):
-                    m.copy_(mine(i, tensor(o["m"][name])))
-                    v.copy_(mine(i, tensor(o["v"][name])))
+                    m.copy_(mine(i, L(i, tensor(o["m"][name]))))
+                    v.copy_(mine(i, L(i, tensor(o["v"][name]))))
                 self.opt_state = self.opt_state._replace(
                     step=torch.as_tensor(int(np.asarray(o["step"])),
                                          dtype=torch.int32,

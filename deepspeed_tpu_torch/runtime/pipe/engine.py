@@ -54,16 +54,54 @@ topology of their manifest and meta; they resume bit for bit at the same
 topology and load at another stage count (JAX's restage: only the
 body's leading split changes).
 
+Inside a stage, as JAX's engine runs them over the pipeline's params:
+
+- **ZeRO stage 3**: the stage's params live as fp32 pieces and are
+  gathered on use (``runtime/zero/stage3.py``). Each forward and each
+  backward of the 1F1B stream runs in its own installer scope: a
+  forward releases what it gathered when it ends, and a backward
+  gathers every leaf its saved tensors name again (the saved-tensor
+  hooks keep no gathered copy in a micro-batch's graph), so a backward
+  that runs after later micro-batches' forwards never reads a released
+  buffer. The pieces' gradients arrive reduce-scattered and accumulate
+  over the micro-batches.
+- **ZeRO-Offload**: each stage engine has its own host C++ Adam over the
+  stage's params. A stage's compute-dtype gradient is folded into its
+  fp32 accumulator as each backward makes it
+  (:meth:`DeepSpeedEngine.fold_on_accumulate`); the tied sum, the data
+  group's reduce-scatter (across processes), the pipeline's epilogue,
+  then each stage's host phase run on that accumulator.
+- **sparse gradients** (ZeRO stage 0): after the tied sum, a stage's
+  flagged leaves take the CSR exchange over its data group
+  (:meth:`DeepSpeedEngine._reduce_grads_sparse`), the token budget the
+  replica's integer batch elements. A tied copy's gradient is the sum
+  over its holders before the vote, so every holder votes on the same
+  summed leaf (a tied embedding falls back to the dense all-reduce on
+  each). JAX's sparse step refuses a mesh with pipe > 1
+  (``engine.py:1915``); the port runs it at any pipe, and at pipe 1 it
+  is JAX's.
+
+With a ``model`` mesh axis (``parallel/pipe_tp.py``) every stage of a
+(data, model) coordinate runs in one process over ``MeshGroups``
+(``world == data * model``, or an ``mpu`` or ``stage_devices`` given),
+or one process a stage rank of the reference's 3-D layout
+(``PipeModelDataParallelTopology``: pipe outermost, model innermost;
+``world == pipe * data * model``; the grid is the ``mpu``): the stages'
+engines reduce over the data group, the norm and the overflow vote
+cross the model group (model rank 0 counts the loss), and the executor
+runs inside the ``tensor_parallel.overlap`` plan. ``fp8`` runs every stage in a
+stateless ``fp8_scope``: JAX's current scaling of the layers' matmuls
+(JAX ``engine.py:137-150``), its wire composed into the overlap plan.
+
 What JAX's engine refuses, this one refuses with its text (progressive
-layer drop, uneven layers, ``forward`` / ``backward`` / ``step``).
-Compositions JAX accepts that later ROADMAP sub-items port raise "not
-yet ported": fp8 in the pipeline and ``auto_axes`` (F2), 1-bit Adam
-(F5), and ZeRO stage 3, ZeRO-Offload and sparse gradients inside a
-stage (F1b).
+layer drop, uneven layers, ``forward`` / ``backward`` / ``step``,
+``auto_axes``). 1-bit Adam (ROADMAP F5) raises "not yet ported".
 """
 
 import contextlib
+from typing import Any, List, NamedTuple
 
+import numpy as np
 import torch
 
 from deepspeed_tpu_torch.ops.flash_attention import fold_in_seed
@@ -78,6 +116,7 @@ from deepspeed_tpu_torch.runtime.dataloader import (
 )
 from deepspeed_tpu_torch.runtime.engine import (
     DeepSpeedEngine,
+    _int_elements,
     loss_scale_epilogue,
     step_metrics,
 )
@@ -89,6 +128,7 @@ from deepspeed_tpu_torch.runtime.pipe.schedule import (
 )
 from deepspeed_tpu_torch.runtime.pipe.topology import (
     PipeDataParallelTopology,
+    PipeModelDataParallelTopology,
     PipelineParallelGrid,
 )
 from deepspeed_tpu_torch.runtime.resilience.checkpoint import (
@@ -107,6 +147,36 @@ def _later(what, item):
         f"{item})")
 
 
+class _StageGrads(NamedTuple):
+    """A stage's reduced gradients for the pipeline's epilogue: the
+    buffers (scaled in place), their param names, whether each counts in
+    the norm on this rank, whether they are data-group pieces (summed
+    over the group in the norm), and the sparse exchange's
+    ``(dropped, fallbacks)``."""
+    grads: List[torch.Tensor]
+    names: List[str]
+    counted: List[bool]
+    sharded: bool
+    sparse: Any = None
+
+
+def _stage_masters(se):
+    """A copy of a stage engine's fp32 masters by param name, whole (the
+    host Adam's under offload, gathered at ZeRO stage 3)."""
+    names = se._param_names()
+    if se._offload:
+        if se._offload_dp:
+            se._offload_sync_host_state()
+        return {n: se._tp_whole(i, t.detach()).clone()
+                for i, (n, t) in enumerate(zip(
+                    names, se.cpu_optimizer.params()))}
+    if se._stage == 3:
+        return {n: se._tp_whole(i, se._whole(i, m)).detach().clone()
+                for i, (n, m) in enumerate(zip(names, se._masters))}
+    return {n: se._tp_whole(i, p.detach()).clone()
+            for i, (n, p) in enumerate(zip(names, se.params))}
+
+
 def _config_dict(config):
     if isinstance(config, dict):
         return config
@@ -121,7 +191,8 @@ class PipelineEngine(DeepSpeedEngine):
 
     def __init__(self, model, config, device, optimizer=None,
                  model_parameters=None, lr_scheduler=None, seed=0,
-                 training_data=None, collate_fn=None, stage_devices=None):
+                 training_data=None, collate_fn=None, stage_devices=None,
+                 mpu=None):
         if not isinstance(model, PipelineModule):
             raise AssertionError("PipelineEngine requires a PipelineModule")
         mesh.initialize_distributed(device=device)
@@ -130,9 +201,33 @@ class PipelineEngine(DeepSpeedEngine):
         raw = _config_dict(config)
         world, rank = mesh.dp_world_size(), mesh.dp_rank()
         stages_cfg = (raw.get("pipeline") or {}).get("stages")
-        pipe, data, in_process = mesh.pipe_data_topology(
-            raw.get("mesh"), world, stages=stages_cfg,
-            in_process=True if stage_devices is not None else None)
+        mesh_cfg = dict(raw.get("mesh") or {})
+        self.mpu = None
+        model_size = int(mesh_cfg.get("model") or 1)
+        if model_size > 1:
+            pipe = int(mesh_cfg.get("pipe") or stages_cfg or 1)
+            if stages_cfg is not None and int(stages_cfg) != pipe:
+                raise ValueError(f"pipeline stages {stages_cfg} do not "
+                                 f"match the mesh pipe axis ({pipe})")
+            mesh.check_mesh_axes(mesh_cfg)
+            in_process = stage_devices is not None or mpu is not None or \
+                world % (pipe * model_size) != 0 or \
+                (mesh_cfg.get("data") is not None and
+                 int(mesh_cfg["data"]) * model_size == world)
+            if in_process:
+                # every stage of a (data, model) coordinate in one process
+                self.mpu = mpu if mpu is not None else mesh.MeshGroups(
+                    mesh_cfg, in_process_pipe=True)
+                data = self.mpu.get_data_parallel_world_size()
+                rank = self.mpu.get_data_parallel_rank()
+            else:
+                # one process a stage rank of the reference's 3-D layout
+                # (pipe outermost, then data, model innermost)
+                data = world // (pipe * model_size)
+        else:
+            pipe, data, in_process = mesh.pipe_data_topology(
+                raw.get("mesh"), world, stages=stages_cfg,
+                in_process=True if stage_devices is not None else None)
         if model.num_stages is not None and model.num_stages != pipe:
             raise ValueError(
                 f"PipelineModule(num_stages={model.num_stages}) does not "
@@ -161,7 +256,9 @@ class PipelineEngine(DeepSpeedEngine):
         self.in_process = in_process
         self.seed = int(seed)
         self.device = device
-        topo = PipeDataParallelTopology(num_pp=pipe, num_dp=data)
+        topo = PipeDataParallelTopology(num_pp=pipe, num_dp=data) \
+            if model_size == 1 else PipeModelDataParallelTopology(
+                num_pp=pipe, num_mp=model_size, num_dp=data)
         if in_process:
             self.grid = None
             local_ids = list(range(pipe))
@@ -174,13 +271,18 @@ class PipelineEngine(DeepSpeedEngine):
         else:
             self.grid = PipelineParallelGrid(
                 topo, rank=rank, process_groups=mesh.is_initialized())
+            if model_size > 1:
+                self.mpu = self.grid        # Megatron's mpu accessors
             local_ids = [self.grid.stage_id]
             self.dp_rank = self.grid.data_parallel_id
             devices = [device]
         self.dp_world_size = data
-        self.parts = pl.build_pipeline_parts(
-            model, pipe, seed=seed, stage_ids=local_ids,
-            init=model_parameters is None)
+        from deepspeed_tpu_torch.parallel.pipe_tp import model_axis_scope
+        tp = mesh.model_axis_of(self.mpu)
+        with model_axis_scope(tp):
+            self.parts = pl.build_pipeline_parts(
+                model, pipe, seed=seed, stage_ids=local_ids,
+                init=model_parameters is None)
         if model_parameters is not None:
             for st in self.parts.stages.values():
                 pl.load_stage_state(st, model_parameters, pipe,
@@ -199,13 +301,23 @@ class PipelineEngine(DeepSpeedEngine):
                         f"dtype={compute}")
         # one engine a local stage, over the stage's data group
         self.stage_engines = []
-        for sid, dev in zip(local_ids, devices):
-            comm = Comm() if in_process else \
+
+        def data_comm():
+            if self.mpu is not None:
+                return Comm(group=self.mpu.get_data_parallel_group())
+            return Comm() if in_process else \
                 Comm(group=self.grid.dp_process_group)
+
+        for sid, dev in zip(local_ids, devices):
             self.stage_engines.append(DeepSpeedEngine(
                 self.parts.stages[sid], None, raw, dev, optimizer=optimizer,
-                lr_scheduler=lr_scheduler, seed=seed, comm=comm))
+                lr_scheduler=lr_scheduler, seed=seed, comm=data_comm(),
+                mpu=self.mpu))
+        for se in self.stage_engines:
+            if se._offload:
+                se.fold_on_accumulate()
         first = self.stage_engines[0]
+        self._stage_offload = first._offload
         self._config = first._config
         self.compute_dtype = first.compute_dtype
         self.dynamic_loss_scale = first.dynamic_loss_scale
@@ -219,7 +331,23 @@ class PipelineEngine(DeepSpeedEngine):
         self._offload = False
         self._installer = self.cpu_optimizer = None
         self.progressive_layer_drop = self._fp8_state = None
-        self.comm = Comm()          # every process: loss, votes, norms
+        # the loss, votes and norms: over every process, or over the data
+        # group when every stage of a (data, model) coordinate runs here
+        # (its model ranks hold the same values)
+        self.comm = data_comm() if in_process and self.mpu is not None \
+            else Comm()
+        self._tp = first._tp
+        # JAX runtime/pipe/engine.py:137-150: the overlap plan, with the
+        # fp8 wire composed into it, and fp8 current scaling of the
+        # layers' matmuls (a scope without state)
+        cfg = first._config
+        self._overlap = cfg.tensor_parallel.overlap_plan()
+        self._fp8 = cfg.fp8.plan()
+        if cfg.fp8.wire_enabled and self._overlap is not None:
+            import dataclasses
+            self._overlap = dataclasses.replace(
+                self._overlap, wire_dtype=cfg.fp8.active_wire_dtype(),
+                wire_chunk=int(cfg.fp8.wire_chunk_size))
         self.micro_steps = 0
         self.global_steps = 0
         self.device_state = self._init_device_state()
@@ -250,28 +378,23 @@ class PipelineEngine(DeepSpeedEngine):
 
     @staticmethod
     def _check_compositions(model, cfg, optimizer):
-        if tuple(getattr(model, "auto_axes", ()) or ()):
-            raise _later(f"PipelineModule(auto_axes={model.auto_axes!r})",
-                         "F2 (tensor parallelism)")
-        if cfg.fp8.enabled:
-            raise _later("fp8 (current scaling of the TP blocks' matmuls, "
-                         "JAX runtime/pipe/engine.py:141-150)",
-                         "F2 (tensor parallelism)")
+        auto_axes = tuple(getattr(model, "auto_axes", ()) or ())
+        if auto_axes:
+            # JAX's engine refuses it with this text
+            # (deepspeed_tpu/runtime/pipe/engine.py:120-136)
+            raise NotImplementedError(
+                f"PipelineModule(auto_axes={auto_axes!r}) through the "
+                "engine is experimental and currently disabled: the "
+                "in-process CPU runtime deadlocks on the pipeline's "
+                "ppermutes when params are placed sharded over an auto "
+                "axis. Use make_pipeline_value_and_grad_fn(...) directly "
+                "(works, see tests/unit/test_pipe_auto.py) or the "
+                "manual-collective TP blocks (parallel/pipe_tp.py)")
         name = type(optimizer).__name__.lower() \
             if optimizer is not None and not isinstance(optimizer, str) \
             else (cfg.optimizer_name or "").lower()
         if name == ONEBIT_ADAM_OPTIMIZER:
             raise _later("OneBitAdam", "F5 (1-bit Adam)")
-        zc = cfg.zero_config
-        if cfg.zero_enabled and zc.cpu_offload:
-            raise _later("ZeRO-Offload", "F1b (the pipeline's ZeRO "
-                         "stage 3, offload and sparse gradients)")
-        if cfg.zero_enabled and cfg.zero_optimization_stage >= 3:
-            raise _later("ZeRO stage 3", "F1b (the pipeline's ZeRO "
-                         "stage 3, offload and sparse gradients)")
-        if cfg.sparse_gradients_enabled:
-            raise _later("sparse_gradients", "F1b (the pipeline's ZeRO "
-                         "stage 3, offload and sparse gradients)")
 
     @staticmethod
     def _scope(stage_engine, kind):
@@ -306,7 +429,7 @@ class PipelineEngine(DeepSpeedEngine):
     def pipe_state(self):
         """A copy of this process's stages' fp32 masters in the pipe
         layout."""
-        named = {se.module.stage_id: pl.stage_state(se.module)
+        named = {se.module.stage_id: _stage_masters(se)
                  for se in self.stage_engines}
         return pl.to_pipe_layout(named, self.num_stages,
                                  self.parts.layers_per_stage) \
@@ -367,11 +490,23 @@ class PipelineEngine(DeepSpeedEngine):
         """``(sum(loss_sum), sum(weight))`` over the last stages of every
         data replica (the other processes add zeros)."""
         pair = torch.stack([num, den]).to(self.device)
-        if not any(se.module.is_last for se in self.stage_engines):
+        if not any(se.module.is_last for se in self.stage_engines) or \
+                (self.grid is not None and self._tp is not None and
+                 self._tp.rank != 0):
+            # one process a stage rank: every model rank holds the loss;
+            # its model rank 0 counts it
             pair = torch.zeros_like(pair)
         if self.comm.active:
             self.comm.all_reduce(pair, stat=True)
         return pair[0], pair[1]
+
+    def _run(self, *args, **kwargs):
+        """The executor inside the ``tensor_parallel.overlap`` plan and
+        the fp8 plan (current scaling)."""
+        from deepspeed_tpu_torch.ops.fp8 import fp8_scope
+        from deepspeed_tpu_torch.parallel.collectives import overlap_scope
+        with overlap_scope(self._overlap), fp8_scope(self._fp8):
+            return self.executor.run(*args, **kwargs)
 
     def _backprop(self, batch, scale):
         """The 1F1B stream over the batch, then ``ReduceTiedGrads`` and
@@ -383,14 +518,42 @@ class PipelineEngine(DeepSpeedEngine):
                  for i in range(self.micro_batches)]
         for st in self.local_stages:
             st.module.train()
-        num, den = self.executor.run(
+        for se in self.stage_engines:
+            se._wait_for_params()
+        num, den = self._run(
             micro, train=True, seeds=seeds, scale=scale,
             row_offset=self._row_offset(micro), data_rank=self.dp_rank)
+        tokens = _int_elements([m for m in micro if m is not None])
         with torch.no_grad():
             self._reduce_tied_grads()
-            per_stage = [se._reduce_grads() for se in self.stage_engines]
+            per_stage = [self._reduce_stage(se, tokens)
+                         for se in self.stage_engines]
             num, den = self._global_pair(num, den)
         return per_stage, num, den
+
+    def _reduce_stage(self, se, tokens):
+        """``ReduceGrads`` of one stage over its data group, as its
+        engine reduces them (the ZeRO stage, offload's reduce-scatter
+        into the rank's row, or the sparse exchange): a
+        :class:`_StageGrads`."""
+        names = se._param_names()
+        if se._offload:
+            if not se._offload_dp:
+                return _StageGrads(se._grad32_views, names,
+                                   [True] * len(names), False)
+            se.comm.reduce_scatter(se._grad_row, se._grad32)
+            idx, views = se.offload_leaf_views()
+            return _StageGrads(views, [names[i] for i in idx],
+                               [True] * len(idx), True)
+        if se._sparse:
+            grads, stats = se._reduce_grads_sparse(tokens)
+            return _StageGrads(grads, names, [True] * len(names), False,
+                               stats)
+        grads = se._reduce_grads()
+        sharded = se._stage >= 1
+        counted = se._tp_counted(grads, se._counted if sharded else None)
+        return _StageGrads(grads, names, counted if counted is not None
+                           else [True] * len(names), sharded)
 
     def train_batch(self, batch=None):
         """One optimizer step over a global batch (module docstring).
@@ -404,8 +567,13 @@ class PipelineEngine(DeepSpeedEngine):
 
     @torch.no_grad()
     def _drop_grads(self, per_stage):
-        for se, grads in zip(self.stage_engines, per_stage):
-            torch._foreach_zero_(grads)
+        for se, sg in zip(self.stage_engines, per_stage):
+            if se._offload:
+                se._grad32.zero_()
+                if se._offload_dp:
+                    se._grad_row.zero_()
+                continue
+            torch._foreach_zero_(sg.grads)
             if se._stage == 1:
                 torch._foreach_zero_([p.grad for p in se.params])
 
@@ -416,15 +584,15 @@ class PipelineEngine(DeepSpeedEngine):
         ZeRO stage 0. In the pipe layout when every stage runs here,
         else ``{stage: {stage param name: grad}}``. The engine's state
         does not change."""
-        if self._stage != 0:
+        if self._stage != 0 or self._stage_offload:
             raise ValueError("value_and_grad reads whole gradients: ZeRO "
                              "stage 0 only")
         per_stage, num, den = self._backprop(batch, scale)
         D = torch.clamp(den, min=1.0)
         named = {se.module.stage_id: {
             n: (g / D.to(g.device)).detach().cpu()
-            for n, g in zip(se._param_names(), grads)}
-            for se, grads in zip(self.stage_engines, per_stage)}
+            for n, g in zip(sg.names, sg.grads)}
+            for se, sg in zip(self.stage_engines, per_stage)}
         self._drop_grads(per_stage)
         grads = pl.to_pipe_layout(named, self.num_stages,
                                   self.parts.layers_per_stage) \
@@ -440,7 +608,8 @@ class PipelineEngine(DeepSpeedEngine):
         grads)}`` with each stage's raw gradient sums (before the tied
         and data reductions) in parameter order. Every stage in this
         process, ZeRO stage 0; the engine's state does not change."""
-        if not self.in_process or self._stage != 0:
+        if not self.in_process or self._stage != 0 or \
+                self._stage_offload:
             raise ValueError("sequential_check runs every stage here at "
                              "ZeRO stage 0")
         micro = self._split(batch)
@@ -451,7 +620,7 @@ class PipelineEngine(DeepSpeedEngine):
         out = {}
         for kind in ("executor", "oracle"):
             if kind == "executor":
-                num, den = self.executor.run(
+                num, den = self._run(
                     micro, train=True, seeds=seeds, scale=scale,
                     row_offset=self._row_offset(micro),
                     data_rank=self.dp_rank)
@@ -474,7 +643,7 @@ class PipelineEngine(DeepSpeedEngine):
         micro = self._split(batch)
         for st in self.local_stages:
             st.module.eval()
-        num, den = self.executor.run(
+        num, den = self._run(
             micro, train=False, row_offset=self._row_offset(micro),
             data_rank=self.dp_rank)
         num, den = self._global_pair(num, den)
@@ -491,8 +660,12 @@ class PipelineEngine(DeepSpeedEngine):
         for i, name in enumerate(names):
             if name.startswith("tied."):
                 key = name.split(".")[1]
-                buf = se._grads[i] if se._stage == 2 else \
-                    se.params[i].grad
+                if se._offload:
+                    buf = se._grad32_views[i]
+                elif se._stage >= 2:
+                    buf = se._grads[i]
+                else:
+                    buf = se.params[i].grad
                 out.setdefault(key, []).append(buf)
         return out
 
@@ -520,28 +693,26 @@ class PipelineEngine(DeepSpeedEngine):
                 for g in next(iter(local.values())):
                     dist.all_reduce(g, group=group)
 
-    def _stage_sq(self, se, grads, sharded):
+    def _stage_sq(self, se, sg):
         """A stage's sum of squares over its counted gradient leaves
         (a tied copy counts on its first holder only), over its data
-        group when the leaves are ZeRO pieces."""
-        names = se._param_names()
-        counted = se._counted if sharded else [True] * len(grads)
+        group when the leaves are ZeRO pieces or offload rows."""
         first = se.module.stage_id == 0
         sq = [torch.sum(torch.square(g.float()))
-              for g, c, n in zip(grads, counted, names)
+              for g, c, n in zip(sg.grads, sg.counted, sg.names)
               if c and (first or not n.startswith("tied."))]
         total = torch.stack(sq).sum() if sq else \
             torch.zeros((), dtype=torch.float32, device=se.device)
-        if sharded and se.comm.active:
+        if sg.sharded and se.comm.active:
             total = se.comm.all_reduce(total.reshape(1).clone(),
                                        stat=True).reshape(())
         return total
 
-    def _global_norm(self, per_stage, sharded):
+    def _global_norm(self, per_stage):
         """The norm over every stage: each stage's sum of squares, summed
         in stage order (gathered over the pipe group across processes)."""
-        sq = [self._stage_sq(se, g, sharded)
-              for se, g in zip(self.stage_engines, per_stage)]
+        sq = [self._stage_sq(se, sg)
+              for se, sg in zip(self.stage_engines, per_stage)]
         if self.in_process:
             vec = torch.stack([s.to(self.device) for s in sq])
         else:
@@ -556,41 +727,60 @@ class PipelineEngine(DeepSpeedEngine):
             else:
                 parts = [sq[0].reshape(1)]
             vec = torch.cat(parts)
-        return torch.sqrt(vec.sum())
+        total = vec.sum()
+        if self._tp is not None:        # split leaves: their other rows
+            from deepspeed_tpu_torch.parallel.collectives import all_reduce
+            total = all_reduce(total.reshape(1), self._tp).reshape(())
+        return torch.sqrt(total)
 
     @torch.no_grad()
     def _apply_pipe_step(self, per_stage, num, den, scale):
         cfg = self._config
         fp16 = cfg.fp16_enabled
         clip = float(cfg.gradient_clipping or 0.0)
-        sharded = self._stage >= 1
         D = torch.clamp(den, min=1.0)
         loss = num / D
         denom = scale * D
-        for grads in per_stage:
-            for g in grads:
+        for sg in per_stage:
+            for g in sg.grads:
                 g.div_(denom.to(g.device))
         if fp16:
-            flags = [check_overflow(g).to(self.device) for g in per_stage]
+            flags = [check_overflow(sg.grads).to(self.device)
+                     for sg in per_stage]
             overflow = torch.stack(flags).any()
             overflow = self.comm.any_flag(overflow)
+            if self._tp is not None:
+                from deepspeed_tpu_torch.parallel.collectives import (
+                    all_reduce)
+                overflow = all_reduce(overflow.float().reshape(1), self._tp,
+                                      op="max").reshape(()) > 0
         else:
             overflow = torch.zeros((), dtype=torch.bool, device=self.device)
-        grad_norm = self._global_norm(per_stage, sharded)
+        grad_norm = self._global_norm(per_stage)
         applied = grad_norm
         if clip > 0:
             coef = torch.clamp(clip / (grad_norm + 1e-6), max=1.0)
-            for grads in per_stage:
-                for g in grads:
+            for sg in per_stage:
+                for g in sg.grads:
                     g.copy_((g * coef.to(g.device)).to(g.dtype))
-            applied = self._global_norm(per_stage, sharded)
+            applied = self._global_norm(per_stage)
         lr = float(self._lr_fn(self.global_steps))
         beta1 = float(self._mom_fn(self.global_steps))
-        for se, grads in zip(self.stage_engines, per_stage):
-            se._optimizer_step(grads, lr, beta1, overflow.to(se.device),
-                               sharded)
+        for se, sg in zip(self.stage_engines, per_stage):
+            if se._offload:
+                if se._grads_16bit and not se._offload_dp:
+                    se._wire.copy_(se._grad32)
+                if not bool(overflow):      # waits for the device step
+                    if se._offload_dp:
+                        se._host_phase_dp(lr, beta1)
+                    else:
+                        se._host_phase(lr, beta1)
+                continue
+            se._optimizer_step(sg.grads, lr, beta1, overflow.to(se.device),
+                               sg.sharded)
             if se._stage in (1, 2):
                 se._refresh_params()
+        sparse = [sg.sparse for sg in per_stage if sg.sparse is not None]
         self._drop_grads(per_stage)
         self.device_state = loss_scale_epilogue(
             self.device_state, overflow, fp16, self.dynamic_loss_scale,
@@ -598,6 +788,11 @@ class PipelineEngine(DeepSpeedEngine):
         metrics = step_metrics(loss, 1, grad_norm, applied, lr, scale,
                                overflow, dstate=self.device_state,
                                nonfinite=overflow)
+        if sparse:
+            metrics["sparse_grad_dropped"] = sum(
+                d.to(self.device) for d, _ in sparse)
+            metrics["sparse_grad_dense_fallbacks"] = sum(
+                f.to(self.device) for _, f in sparse)
         self.global_steps += 1
         if self.lr_scheduler is not None and \
                 hasattr(self.lr_scheduler, "step"):
@@ -628,19 +823,38 @@ class PipelineEngine(DeepSpeedEngine):
     # checkpoints
     # ------------------------------------------------------------------
     def _topology(self):
-        return {"world_size": mesh.dp_world_size(),
+        topo = {"world_size": mesh.dp_world_size(),
                 "dp_world_size": self.dp_world_size,
                 "pipe": self.num_stages, "data": self.dp_world_size,
                 "zero_stage": self.zero_optimization_stage(),
-                "offload": False}
+                "offload": self._stage_offload}
+        if self._tp is not None:
+            topo["mesh_shape"] = {"data": self.dp_world_size,
+                                  "pipe": self.num_stages,
+                                  "model": self._tp.size}
+        return topo
 
     def _stage_trees(self):
         """``{stage: {"params", "m", "v"}}`` of this process's stages
         (whole leaves, by stage param name), and the Adam step."""
         trees, step = {}, None
         for se in self.stage_engines:
+            if se._offload:
+                if se._upload_done is not None:
+                    se._upload_done.synchronize()
+                if se._offload_dp:
+                    se._offload_sync_host_state()
             t = se._checkpoint_state_tree()
             o = t["opt_state"]
+            if se._offload:     # the host Adam's flat moments, by leaf
+                opt = se.cpu_optimizer
+                leaves = list(zip(se._param_names(), opt.offsets,
+                                  opt.sizes, opt.shapes))
+                o = {k: {n: flat[off:off + size].view(shape)
+                         for n, off, size, shape in leaves}
+                     for k, flat in (("m", o["exp_avg"]),
+                                     ("v", o["exp_avg_sq"]))}
+                o["step"] = np.int64(opt._step)
             trees[se.module.stage_id] = {
                 k: {n: torch.as_tensor(v).detach().cpu()
                     for n, v in d.items()}
@@ -720,11 +934,17 @@ class PipelineEngine(DeepSpeedEngine):
         opt = state["opt_state"]
         for se in self.stage_engines:
             st = se.module
+            m = pl.stage_view(opt["m"], st, S, L)
+            v = pl.stage_view(opt["v"], st, S, L)
+            o = {"m": m, "v": v, "step": opt["step"]}
+            if se._offload:         # back to the host Adam's flat form
+                names = se._param_names()
+                o = {k: torch.cat([torch.as_tensor(np.asarray(d[n]))
+                                   .reshape(-1) for n in names])
+                     for k, d in (("exp_avg", m), ("exp_avg_sq", v))}
+                o["step"] = opt["step"]
             view = {"params": pl.stage_view(state["params"], st, S, L),
-                    "opt_state": {
-                        "m": pl.stage_view(opt["m"], st, S, L),
-                        "v": pl.stage_view(opt["v"], st, S, L),
-                        "step": opt["step"]},
+                    "opt_state": o,
                     "device_state": state["device_state"]}
             se._install_restored_state(view, meta, load_optimizer_states,
                                        load_lr_scheduler_states)

@@ -146,6 +146,20 @@ def _call(layer, x, ctx):
     return layer(x)
 
 
+def _hooked(layer, fn, x):
+    """``fn()`` run inside ``layer``'s forward hooks, as a call of the
+    layer would run: a tied layer's ``forward_fn`` reads its params
+    without calling it, and ZeRO stage 3's installer gathers them in a
+    pre-hook and releases them in a post-hook."""
+    args = (x,)
+    for hook in layer._forward_pre_hooks.values():
+        hook(layer, args)
+    out = fn()
+    for hook in layer._forward_hooks.values():
+        hook(layer, args, out)
+    return out
+
+
 def _seeded_init(layer, seed):
     """Initialize ``layer`` from ``seed`` on the CPU: its
     ``reset_parameters(generator=...)`` where it takes one, else its own
@@ -187,7 +201,7 @@ class StageModule(nn.Module):
         if isinstance(spec, TiedLayerSpec):
             layer = self.tied[spec.key]
             if spec.forward_fn is not None:
-                return spec.forward_fn(layer, x)
+                return _hooked(layer, lambda: spec.forward_fn(layer, x), x)
         else:
             layer = getattr(self, section)[name]
         return _call(layer, x, ctx)
@@ -410,12 +424,17 @@ def stage_state(stage):
 
 @torch.no_grad()
 def load_stage_state(stage, pipe_state, num_stages, layers_per_stage):
-    """Copy the pipe-layout ``pipe_state`` into ``stage``'s params."""
+    """Copy the pipe-layout ``pipe_state`` (whole leaves) into ``stage``'s
+    params (a tensor-parallel leaf takes its model rank's rows)."""
+    from deepspeed_tpu_torch.parallel.tensor_parallel import shard_tensor
     view = stage_view(pipe_state, stage, num_stages, layers_per_stage)
     for name, p in stage.named_parameters():
         src = view[name]
         src = torch.as_tensor(np.asarray(src)) if not torch.is_tensor(src) \
             else src
+        axis = getattr(p, "tp_axis", None)
+        if axis is not None and axis.size > 1:     # a TP leaf: its rows
+            src = shard_tensor(src, p.tp_shard, axis.rank, axis.size)
         if tuple(src.shape) != tuple(p.shape):
             raise ValueError(f"pipe state leaf {name} has shape "
                              f"{tuple(src.shape)}, the stage "

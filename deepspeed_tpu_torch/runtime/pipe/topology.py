@@ -154,6 +154,7 @@ class PipelineParallelGrid:
 
         # p2p: successor/predecessor stage for this rank's pipe group
         self.dp_process_group = self.pp_process_group = None
+        self.mp_process_group = None
         self.tied_process_group = None
         self.p2p_process_groups = {}
         self.p2p_groups = self._build_p2p_groups(process_groups)
@@ -189,6 +190,10 @@ class PipelineParallelGrid:
                 g = dist.new_group(ranks)
                 if me in ranks:
                     self.pp_process_group = g
+            for ranks in self.mp_groups:
+                g = dist.new_group(ranks)
+                if me in ranks:
+                    self.mp_process_group = g
             if self.pipe_parallel_size > 1:
                 for ranks in self.pp_groups:
                     tied = [ranks[0], ranks[-1]]
@@ -240,6 +245,12 @@ class PipelineParallelGrid:
 
     def get_model_parallel_world_size(self):
         return self.model_parallel_size
+
+    def get_model_parallel_group(self):
+        return self.mp_process_group
+
+    def get_data_parallel_group(self):
+        return self.dp_process_group
 
     # --- mesh bridge ------------------------------------------------------
     def mesh_shape(self):

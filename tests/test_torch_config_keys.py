@@ -135,8 +135,7 @@ def test_vocabulary_size_off_8_warns(monkeypatch):
 
 
 @pytest.mark.parametrize("key,item", [
-    ("telemetry", "item 6"), ("tensor_parallel", "item 5 F2"),
-    ("comm_quantization", "item 5 F5"),
+    ("telemetry", "item 6"), ("comm_quantization", "item 5 F5"),
     ("resilience", "item 6"), ("elasticity", "item 6"),
     ("analysis", "item 6"), ("tensorboard", "item 6"),
     ("profiling", "item 6"), ("compilation_cache_dir", "item 6")])
@@ -163,6 +162,55 @@ def test_pipeline_and_mesh_keys_read_as_jax(key, value, attr, want):
     reader = jax_config.get_pipeline_config if key == "pipeline" else \
         jax_config.get_mesh_config
     assert reader({key: value}) == want
+
+
+def test_tensor_parallel_key_reads_as_jax():
+    """The ``tensor_parallel`` block (``overlap`` with JAX's defaults)
+    resolves to the plan JAX's config resolves."""
+    from deepspeed_tpu.runtime.config import DeepSpeedConfig as JaxConfig
+    for block in ({}, {"overlap": {"enabled": True}},
+                  {"overlap": {"enabled": True, "chunks": 2,
+                               "bidirectional": True,
+                               "sites": {"row_parallel": {"chunks": 4},
+                                         "ulysses": {"enabled": False}},
+                               "wire_dtype": "int8", "wire_chunk": 64}}):
+        cfg = dict(BASE, tensor_parallel=block)
+        got = DeepSpeedConfig(cfg).tensor_parallel.overlap_plan()
+        want = JaxConfig(cfg).tensor_parallel.overlap_plan()
+        if want is None:
+            assert got is None
+            continue
+        assert (got.chunks, got.bidirectional, got.sites, got.wire_dtype,
+                got.wire_chunk) == (want.chunks, want.bidirectional,
+                                    want.sites, want.wire_dtype,
+                                    want.wire_chunk)
+        for site in ("row_parallel", "column_parallel", "ulysses"):
+            g, w = got.site(site), want.site(site)
+            assert (g is None) == (w is None)
+            if g is not None:
+                assert (g.chunks, g.bidirectional, g.wire_dtype,
+                        g.wire_chunk) == (w.chunks, w.bidirectional,
+                                          w.wire_dtype, w.wire_chunk)
+
+
+@pytest.mark.parametrize("overlap", [
+    {"chunks": 0}, {"chunks": 2.0}, {"chunks": True}, {"enabled": 1},
+    {"bidirectional": "yes"}, {"wire_dtype": "int4"}, {"wire_chunk": 0},
+    {"sites": []}, {"sites": {"nowhere": {}}},
+    {"sites": {"row_parallel": 4}},
+    {"sites": {"row_parallel": {"chunks": 0}}},
+    {"sites": {"row_parallel": {"enabled": "no"}}},
+    {"sites": {"row_parallel": {"wire_dtype": "int4"}}},
+    {"sites": {"row_parallel": {"color": 1}}}])
+def test_tensor_parallel_overlap_errors_are_jax(overlap):
+    """A bad ``overlap`` value raises JAX's ValueError, text for text."""
+    from deepspeed_tpu.runtime.config import DeepSpeedConfig as JaxConfig
+    cfg = dict(BASE, tensor_parallel={"overlap": overlap})
+    with pytest.raises(ValueError) as want:
+        JaxConfig(cfg)
+    with pytest.raises(ValueError) as got:
+        DeepSpeedConfig(cfg)
+    assert str(got.value) == str(want.value)
 
 
 def test_unknown_keys_raise():

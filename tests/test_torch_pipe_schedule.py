@@ -202,11 +202,30 @@ def test_mesh_lays_out_pipe_by_data(cfg, world, want):
     assert mesh.pipe_data_topology(cfg, world) == want
 
 
-@pytest.mark.parametrize("axis,item", [("model", "F2"), ("seq", "F3"),
-                                       ("expert", "F4")])
+@pytest.mark.parametrize("axis,item", [("seq", "F3"), ("expert", "F4")])
 def test_mesh_axes_past_pipe_and_data_name_their_item(axis, item):
     with pytest.raises(NotImplementedError,
                        match=f"{axis}.*not yet ported.*item 5 {item}"):
         mesh.pipe_data_topology({"pipe": 2, axis: 2}, 4)
     with pytest.raises(ValueError, match="does not cover"):
         mesh.pipe_data_topology({"pipe": 2, "data": 3}, 4)
+
+
+@pytest.mark.parametrize("shape,world,want", [
+    ({"model": 2}, 4, {"data": 2, "model": 2}),
+    ({"data": 2, "model": 2}, 4, {"data": 2, "model": 2}),
+    ({"model": 4}, 4, {"data": 1, "model": 4}),
+    ({"pipe": 2, "model": 2}, 8, {"data": 2, "pipe": 2, "model": 2})])
+def test_mesh_model_axis_is_innermost(shape, world, want):
+    """The model axis (ported, PR 14) takes JAX's canonical order: a
+    rank's coordinates are its C-order unravel, ``model`` fastest."""
+    full = mesh.normalize_mesh_shape(shape, world)
+    assert {a: n for a, n in full.items() if n > 1 or a == "data"} == want
+    model = full["model"]
+    for r in range(world):
+        assert mesh.mesh_coords(r, full)["model"] == r % model
+    with pytest.raises(ValueError, match="does not cover"):
+        mesh.normalize_mesh_shape({"model": 2, "data": 3}, 4)
+    with pytest.raises(ValueError, match="lays its processes out by "
+                                         "MeshGroups"):
+        mesh.pipe_data_topology(dict(shape, pipe=2), world)

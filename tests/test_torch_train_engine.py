@@ -203,13 +203,14 @@ def test_initialize_defaults_to_cuda_and_rejects_unported(jax_params,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         initialize(model=model, config=BASE)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        initialize(model=model, config=BASE, mpu=object(), device="cpu")
-    # ZeRO stages and their gather striping run; tensor parallelism does
-    # not, and a pipeline needs a PipelineModule
-    with pytest.raises(ValueError, match="not yet ported"):
-        initialize(model=model, config=dict(
-            BASE, tensor_parallel={}), device="cpu")
+    # tensor parallelism runs (tests/test_torch_tp_train.py): a model
+    # axis needs the model built for it, and a pipeline a PipelineModule
+    with pytest.raises(ValueError, match="model axis is 2"):
+        initialize(model=model, config=dict(BASE, mesh={"model": 2}),
+                   device="cpu")
+    engine, _, _, _ = initialize(model=model, config=dict(
+        BASE, tensor_parallel={}), device="cpu")
+    assert engine.mp_world_size == 1
     with pytest.raises(ValueError, match="needs a PipelineModule"):
         initialize(model=model, config=dict(
             BASE, pipeline={"stages": 2}), device="cpu")

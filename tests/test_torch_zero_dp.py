@@ -365,13 +365,22 @@ def test_cuda_engine_takes_nccl_or_raises(monkeypatch):
     monkeypatch.setattr(dist, "is_nccl_available", lambda: False)
     with pytest.raises(RuntimeError, match="NCCL"):
         mesh.backend_for("cuda")
-    # a gloo group never serves a CUDA engine
+    # a gloo group serves a CUDA engine only when every rank is on one
+    # device (the model axis on one card); an NCCL group never serves a
+    # CPU engine
     monkeypatch.setattr(dist, "is_nccl_available", lambda: True)
     monkeypatch.setattr(mesh, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_backend", lambda *a: "gloo")
-    with pytest.raises(RuntimeError, match="needs 'nccl'"):
+    monkeypatch.setattr(mesh, "ranks_share_one_device", lambda d: False)
+    with pytest.raises(RuntimeError, match="only when every rank is on "
+                                           "one physical device"):
         mesh.check_backend("cuda")
+    monkeypatch.setattr(mesh, "ranks_share_one_device", lambda d: True)
+    mesh.check_backend("cuda")
     mesh.check_backend("cpu")
+    monkeypatch.setattr(dist, "get_backend", lambda *a: "nccl")
+    with pytest.raises(RuntimeError, match="needs 'gloo'"):
+        mesh.check_backend("cpu")
 
 
 SHAPES = [(50257, 1024), (1024, 50257), (1024,), (3072, 1024),

@@ -16,6 +16,7 @@ into ``<case>.<rank>.json``. It imports only ``torch``, ``numpy`` and
 the port.
 """
 
+import gc
 import json
 import os
 import sys
@@ -32,6 +33,9 @@ from deepspeed_tpu_torch.models.gpt2_pipe import (  # noqa: E402
     gpt2_pipeline_module,
 )
 from deepspeed_tpu_torch.parallel import mesh  # noqa: E402
+from deepspeed_tpu_torch.runtime.pipe.engine import (  # noqa: E402
+    _stage_masters,
+)
 
 VOCAB, SEQ = 64, 16
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -45,8 +49,11 @@ def engine_config(case):
                          "params": {"lr": 1e-2, "eps": 1e-3}}}
     if case["dtype"] == "bf16":
         cfg["bf16"] = {"enabled": True}
-    if case.get("stage"):
-        cfg["zero_optimization"] = {"stage": case["stage"]}
+    if case.get("stage") or case.get("zero"):
+        cfg["zero_optimization"] = dict(case.get("zero") or {},
+                                        stage=case.get("stage", 0))
+    if case.get("sparse"):
+        cfg["sparse_gradients"] = True
     return cfg
 
 
@@ -58,8 +65,9 @@ def batches(case):
 
 
 def run(case, state, out, rank):
-    cfg = gpt2_tiny(vocab_size=VOCAB, n_positions=SEQ, n_embd=32, n_layer=4,
-                    n_head=4, dtype=DTYPES[case["dtype"]])
+    cfg = gpt2_tiny(vocab_size=VOCAB, n_positions=case.get("positions", SEQ),
+                    n_embd=32, n_layer=4, n_head=4,
+                    dtype=DTYPES[case["dtype"]])
     engine, _, _, _ = initialize(
         model=gpt2_pipeline_module(cfg, seq_len=SEQ),
         config=engine_config(case), model_parameters=state, device="cpu")
@@ -76,7 +84,8 @@ def run(case, state, out, rank):
                                    for se in engine.stage_engines],
                         "data_rank": d, "in_process": engine.in_process}
     xs = batches(case)
-    if not case.get("stage"):
+    if not case.get("stage") and not case.get("zero") and \
+            not case.get("sparse"):
         loss, grads = engine.value_and_grad(mine(xs[0]), 3.0)
         meta["vag_loss"] = float(loss)
         if engine.in_process:       # the pipe layout
@@ -84,12 +93,24 @@ def run(case, state, out, rank):
         for s, by in grads.items():
             for name, g in by.items():
                 arrays[f"grad/{s}/{name}"] = g.float().numpy()
-    meta["losses"] = [float(engine.train_batch(mine(x))) for x in xs]
+    meta["losses"] = []
+    for x in xs:
+        meta["losses"].append(float(engine.train_batch(mine(x))))
+        if case.get("sparse"):
+            m = engine._last_metrics
+            meta.setdefault("sparse_fallbacks", []).append(
+                int(m["sparse_grad_dense_fallbacks"]))
     meta["p2p"] = engine.p2p_counts()
+    meta["gathers"] = [se.comm.counts["all_gather"]["calls"]
+                       for se in engine.stage_engines]
     for se in engine.stage_engines:
-        for name, p in se.module.named_parameters():
+        for name, t in _stage_masters(se).items():
             arrays[f"master/{se.module.stage_id}/{name}"] = \
-                p.detach().float().numpy()
+                t.float().numpy()
+        if se._offload:     # the device params: the masters' bf16 copy
+            for name, p in se.module.named_parameters():
+                arrays[f"device/{se.module.stage_id}/{name}"] = \
+                    p.detach().float().numpy()
     base = os.path.join(out, f"{case['name']}.{rank}")
     np.savez(base + ".npz", **arrays)
     with open(base + ".json", "w") as f:
@@ -103,9 +124,13 @@ def main():
         state = {k: torch.from_numpy(z[k]) for k in z.files}
     mesh.initialize_distributed(device="cpu")
     rank = mesh.dp_rank()
-    for name, case in spec["cases"].items():
-        run(dict(case, name=name), state, spec["out"], rank)
-    mesh.destroy_distributed()
+    try:
+        for name, case in spec["cases"].items():
+            run(dict(case, name=name), state, spec["out"], rank)
+    finally:
+        # every engine dropped, then one barrier before the group goes
+        gc.collect()
+        mesh.destroy_distributed()
 
 
 if __name__ == "__main__":

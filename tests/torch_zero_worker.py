@@ -28,6 +28,7 @@ from deepspeed_tpu_torch.models.gpt2 import (  # noqa: E402
     stack_gpt2_state_dict,
 )
 from deepspeed_tpu_torch.parallel import (  # noqa: E402
+    destroy_distributed,
     dp_rank,
     dp_world_size,
     initialize_distributed,
@@ -425,20 +426,30 @@ def main():
     torch.set_num_threads(1)
     initialize_distributed(device="cpu")
     world, rank = dp_world_size(), dp_rank()
-    states = {}
-    for case in spec["cases"]:
-        path = case.get("state", spec["state"])
-        if path not in states:
-            states[path] = dict(np.load(path))
-        res, meta = RUNNERS[case.get("kind", "train")](
-            case, states[path], world, rank, spec["out"])
-        base = os.path.join(spec["out"], f"{case['name']}.{rank}")
-        np.savez(base + ".npz", **res)
-        with open(base + ".json", "w") as f:
-            json.dump(meta, f)
-    print(f"rank {rank} of {world}: {len(spec['cases'])} cases done",
-          flush=True)
+    try:
+        states = {}
+        for case in spec["cases"]:
+            path = case.get("state", spec["state"])
+            if path not in states:
+                states[path] = dict(np.load(path))
+            res, meta = RUNNERS[case.get("kind", "train")](
+                case, states[path], world, rank, spec["out"])
+            base = os.path.join(spec["out"], f"{case['name']}.{rank}")
+            np.savez(base + ".npz", **res)
+            with open(base + ".json", "w") as f:
+                json.dump(meta, f)
+        print(f"rank {rank} of {world}: {len(spec['cases'])} cases done",
+              flush=True)
+    finally:
+        teardown()
 
+
+def teardown():
+    """Leave the group in order: the engines dropped (an installer waits
+    on its pending prefetch gathers when released), then one barrier and
+    ``destroy_distributed``."""
+    gc.collect()
+    destroy_distributed()
 
 if __name__ == "__main__":
     main()
