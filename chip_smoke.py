@@ -6,9 +6,11 @@ times it, serves GPT-2 125M (ring, paged and speculative; from a
 training checkpoint; through the replica fleet and disaggregated
 tiers; at model 2), trains GPT-2 350M and BERT-Large with block-sparse
 attention, GPT-2 1.5B under ZeRO-Offload, GPT-2 350M through a 4-stage
-pipeline (also at ZeRO 3 and under offload) and at model 2, and the TP
-pipeline at pipe 2 x model 2, at full width through the port's main
-paths.
+pipeline (also at ZeRO 3 and under offload) and at model 2, the TP
+pipeline at pipe 2 x model 2, ring and Ulysses attention at seq 2, the
+SP pipeline at pipe 2 x seq 2, GPT-2 MoE 350M at expert 2 and the TP x
+expert pipeline at pipe 2 x model 2 x expert 2, at full width through
+the port's main paths.
 
     python3 chip_smoke.py                 # every phase (one GPU)
     python3 chip_smoke.py --kernels-only  # device, build, kernel checks
@@ -18,6 +20,9 @@ paths.
                                           # and 16a
     python3 chip_smoke.py --pipe-only     # device, build, phase 20
     python3 chip_smoke.py --tp-only       # device, build, phases 21-24
+    python3 chip_smoke.py --sp-moe-only   # device, build, phases 25-28
+    python3 chip_smoke.py --moe-faults    # device, build, phase 27 with
+                                          # planted faults
     python3 chip_smoke.py --serving-only  # device, build, phases 14
                                           # and 9a-9c
     python3 chip_smoke.py --turns DIR     # device, build, then K1-K8
@@ -359,6 +364,63 @@ Phases, each printing one JSON line:
    the chunked run's rings ran (ppermutes), K1-K3 16 launches a step and
    K4 one a stage. Reports p50 and tokens/s of each.
 
+Phases 25-28 run sequence and expert parallelism on ``cuda:0``: every
+rank a process of this script (``--tp-worker``) joined by gloo on CUDA
+tensors through host memory, as phases 22-24. Their collective times
+are host-staged ones on one card, not NVLink times.
+
+25. ``seq_attention`` — causal q, k, v ``[2, 8192, 16, 64]`` bf16 (seeded)
+   at seq 2, each rank its half of the sequence; the references in this
+   process first: dense f32 attention of the whole sequence (per head),
+   without and with dropout 0.1 at seed 1234 (the ring's hash
+   coordinates), and K1-K3 on all 16 heads. Gates: the ring's output and
+   gradients (of ``sum(out * w)``, w seeded) within ``SEQ_REL_TOL`` (max
+   |diff| / max |ref|) of the dense ones at the rank's slice, with and
+   without dropout; Ulysses (K1-K3 at 8 heads a rank) bit for bit equal
+   to K1-K3 on 16 heads (output and gradients); K1-K3 once a call
+   and never in the ring; Ulysses' K1 seed at dropout 0.1 is
+   ``fold_in_seed(1234, seq rank)``. Reports each call's ms, the
+   collectives a call and peak memory a rank.
+26. ``train_pipe_sp`` — ``sp_pipeline_module(50257, 1024, 16, 1024,
+   n_blocks=8)`` at pipe 2 (every stage in a process) x seq 2 (two
+   processes), 8 x 1024 tokens as 4 micro-batches, Adam lr 1e-4,
+   dropout 0; seq 1 in this process first at the same (seeded) weights.
+   Gates: f32 value-and-grad at seq 2 against seq 1's: loss rtol 1e-5,
+   no gradient element outside rtol 3e-4 / atol 1e-6 (JAX's bounds);
+   bf16 over f32 masters, 2 + 3 steps: the losses within 5e-3 of seq
+   1's and equal on both ranks; K1-K3 32 launches a step a rank at 8
+   heads on the tensor cores, K4 two (one a stage). Reports step p50,
+   tokens/s, peak memory, the collectives a step, and seq 1's p50.
+27. ``train_moe`` — ``GPT2MoELMHead`` at GPT-2 350M (24 layers, 1024
+   positions; ``GPT2MoEConfig`` defaults: 8 experts, top 2, capacity
+   1.25, MoE every 2nd block, aux 0.01: 12 MoE blocks, 1.06 B params),
+   8 x 1024 tokens, bf16 over f32 masters, ZeRO 1, Adam lr 1e-4,
+   dropout 0, 2 + 3 steps: expert 1 in this process, then expert 2 in two
+   processes. Gates (``MOE_LIMITS``; each limit lies between the sound
+   run's reading and the planted faults' of ``--moe-faults``): losses
+   equal on the ranks, the first within rtol 1e-4 of expert 1's; each
+   step's gradient norm (the engine's, each expert shard counted once)
+   relative to expert 1's; the first step's ``gate`` gradients by
+   relative L2; the update of the masters (after minus before the 5
+   steps) by relative L2 over the gate, expert and other leaves apart;
+   the first step's tokens kept and dropped per expert equal to expert
+   1's in the first MoE block (its input is the same bits) and within
+   ``MOE_ROUTE_GAP`` of the routed tokens in the others (bf16 partial
+   sums reassociate); K1-K3 24 launches a step a rank, K4 one. Reports
+   the dropped-token share. ``--moe-faults`` runs expert 2 again with
+   each of ``MOE_FAULTS`` planted and fails unless some gate catches
+   each.
+28. ``train_pipe_tp_moe`` — JAX's collective-matmul bench row (vocab
+   32000, d 1024, 16 heads, 4 blocks, 2 stages, 8 x 512 tokens in 4
+   micro-batches, f32, flash) with ``TPMoEBlockLayer`` blocks
+   (``MoEConfig(num_experts=4, top_k=2, capacity_factor=2.0)``, the aux
+   carried) at pipe 2 x model 2 x expert 2 (four processes); model 1 x
+   expert 1 in this process first. Gates: value-and-grad loss rtol 1e-5
+   and no gradient element outside rtol 3e-4 / atol 1e-6 of the
+   replicated run's, 2 steps' losses rtol 1e-5; the ``expert_combine``
+   overlap site at chunks 4 within rtol 1e-5 of off (its rings ran);
+   K1-K3 16 launches a step, K4 two.
+
 Then the phases' walls, the ``kernels`` summary line (K7/K8 entries name
 their design; K1-K4 count the ``train`` path's launches and give the
 ``train_zero`` path's as ``zero_launches``, the ``train_features``
@@ -367,7 +429,10 @@ path's as ``features_launches``, the ``train_offload`` path's as
 ``pipe_launches``, ``train_pipe_zero``'s (stage 0, 3, offload) as
 ``pipe_zero_launches``, ``train_tp``'s a rank as ``tp_launches_by_rank``
 and ``train_pipe_tp``'s as ``pipe_tp_launches``; K7/K8 add ``train_bert_ckpt``'s as
-``bert_ckpt_launches``; K5 and K6 count every serving path's,
+``bert_ckpt_launches``; K1-K4 add phases 25-28's a rank as
+``seq_attention_launches_by_rank`` (Ulysses), ``pipe_sp_launches_by_rank``,
+``moe_launches_by_rank`` and ``pipe_tp_moe_launches_by_rank``; K5 and K6
+count every serving path's,
 each also given apart: ``serve_launches``, ``scan_layers_launches``,
 ``checkpoint_launches``,
 ``process_fleet_launches``, ``thread_fleet_launches``,
@@ -388,6 +453,7 @@ before the last line; without a CUDA device it exits 1 at once.
 import argparse
 import concurrent.futures
 import gc
+import math
 import json
 import os
 import re
@@ -5181,29 +5247,44 @@ def _spawn_tp(torch, phase, spec, world=TP_WORLD):
     path = os.path.join(tmp, "spec.json")
     with open(path, "w") as f:
         json.dump(spec, f)
+    logs = [open(os.path.join(tmp, f"{r}.err"), "w+")
+            for r in range(world)]
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--tp-worker", path,
-         str(r)], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+         str(r)], stdout=subprocess.DEVNULL, stderr=logs[r], text=True)
         for r in range(world)]
-    errs = []
+
+    def tail(r):
+        logs[r].flush()
+        logs[r].seek(0)
+        return logs[r].read()[-3000:]
+
     try:
+        # a rank that fails stops the others at once (they would wait
+        # for it in a collective until the deadline)
         deadline = time.monotonic() + TP_SPAWN_TIMEOUT_S
-        for r, p in enumerate(procs):
-            try:
-                _, err = p.communicate(
-                    timeout=max(1.0, deadline - time.monotonic()))
-            except subprocess.TimeoutExpired:
-                fail(f"{phase}: rank {r} ran past {TP_SPAWN_TIMEOUT_S} s")
-            if p.returncode != 0:
-                errs.append(f"rank {r} exited {p.returncode}:\n"
-                            f"{err[-3000:]}")
+        while any(p.poll() is None for p in procs):
+            bad = [r for r, p in enumerate(procs)
+                   if p.poll() not in (None, 0)]
+            if bad:
+                fail(f"{phase}: rank {bad[0]} exited "
+                     f"{procs[bad[0]].returncode}:\n{tail(bad[0])}")
+            if time.monotonic() > deadline:
+                fail(f"{phase}: ranks ran past {TP_SPAWN_TIMEOUT_S} s:\n" +
+                     "\n".join(f"rank {r}: {tail(r)}"
+                               for r in range(world)))
+            time.sleep(0.2)
+        bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+        if bad:
+            fail(f"{phase}: rank {bad[0]} exited "
+                 f"{procs[bad[0]].returncode}:\n{tail(bad[0])}")
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.communicate()
-    if errs:
-        fail(f"{phase}: " + "\n".join(errs))
+                p.wait()
+        for f in logs:
+            f.close()
     out = []
     for r in range(world):
         with open(os.path.join(tmp, f"{r}.json")) as f:
@@ -5809,8 +5890,832 @@ def phase_train_pipe_zero(torch):
     return row
 
 
+# ---------------------------------------------------------------------------
+# sequence and expert parallelism on one card (phases 25-28)
+# ---------------------------------------------------------------------------
+
+SEQ_B, SEQ_T, SEQ_H, SEQ_D = 2, 8192, 16, 64
+SEQ_WORLD = 2                      # seq ranks on cuda:0
+SEQ_RATE, SEQ_SEED = 0.1, 1234
+SEQ_REL_TOL = 1e-2                 # bf16 ring vs dense f32: max|d| / max|ref|
+SEQ_REPS = 3
+SP_VOCAB, SP_D, SP_H, SP_T, SP_BLOCKS = 50257, 1024, 16, 1024, 8
+SP_ROWS, SP_MICRO, SP_LR = 8, 4, 1e-4
+SP_WARMUP, SP_STEPS = 2, 3
+SP_LOSS_RTOL, SP_GRAD_RTOL, SP_GRAD_ATOL = 1e-5, 3e-4, 1e-6   # JAX's
+SP_BF16_LOSS_ATOL = 5e-3           # bf16 seq 2 vs bf16 seq 1, every step
+MOE_WARMUP, MOE_STEPS = 2, 3
+# expert 2 against expert 1, bf16 (phase 27): each limit lies between
+# the sound run's reading and the planted faults' (--moe-faults) on one
+# H100 80GB HBM3 at 700 W; comments: sound / aux, bank, scale ("=": the
+# sound reading)
+MOE_LIMITS = {
+    "first_loss_rel": 1e-4,                 # 5.4e-6 / =, =, =
+    "grad_norm_rel": 1.4e-2,                # 9.1e-3 / 1.87, 3.7e-3, 2.0e-2
+    "first_grad_norm_rel/gate": 1e-2,       # 9.6e-5 / 0.995, =, =
+    "first_grad_norm_rel/expert": 1e-2,     # 3.1e-4 / 0.53, 0.13, 0.59
+    "first_grad_norm_rel/other": 1e-2,      # 1.7e-4 / 0.64, =, =
+    "gate_grad_rel_l2": 0.1,                # 1.1e-2 / 0.998, =, =
+    "update_rel_l2/gate": 0.1,              # 0.067 / 0.42, 0.12, 0.071
+    "update_rel_l2/expert": 0.4,            # 0.26 / 0.61, 0.56, 0.27
+    "update_rel_l2/other": 0.15}            # 0.075 / 0.50, 0.10, 0.076
+MOE_ROUTE_GAP = 0.005              # later MoE layers: routed tokens apart
+# planted in expert 2's ranks: the aux loss's gradient not pre-scaled by
+# 1/ep; rank 1's expert_w1 banks left unchanged (zero gradients); rank
+# 1's expert gradients doubled
+MOE_FAULTS = ("aux", "bank", "scale")
+PTM_VOCAB, PTM_D, PTM_H, PTM_BLOCKS = 32000, 1024, 16, 4
+PTM_ROWS, PTM_T, PTM_MICRO, PTM_STEPS = 8, 512, 4, 2
+PTM_WORLD = 4                      # model 2 x expert 2 processes on cuda:0
+PTM_LOSS_RTOL, PTM_GRAD_RTOL, PTM_GRAD_ATOL = 1e-5, 3e-4, 1e-6  # JAX's
+PTM_OVERLAP_RTOL = 1e-5            # expert_combine chunks 4 vs off
+
+
+def _rel_err(got, want):
+    """max |got - want| / max |want| (f32)."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(
+        1e-30))
+
+
+def _allclose_share(got, want, rtol, atol):
+    """The share of elements outside ``atol + rtol * |want|``."""
+    got, want = got.float(), want.float()
+    bad = (got - want).abs() > atol + rtol * want.abs()
+    return float(bad.float().mean())
+
+
+def _seq_inputs(torch):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    return [torch.randn((SEQ_B, SEQ_T, SEQ_H, SEQ_D), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+            for _ in range(4)]
+
+
+def _seq_references(torch, path):
+    """The dense f32 attention of the whole sequence (per head, so the
+    scores fit), plain and at the ring's dropout (its hash coordinates),
+    and K1-K3 on all 16 heads: outputs and the gradients of ``sum(out *
+    w)``, saved for the ranks."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    q, k, v, w = _seq_inputs(torch)
+    refs = {}
+    for tag, rate in (("dense", 0.0), ("dense_drop", SEQ_RATE)):
+        parts = {n: [] for n in ("out", "dq", "dk", "dv")}
+        for h in range(SEQ_H):
+            xs = [t[:, :, h:h + 1].float().requires_grad_(True)
+                  for t in (q, k, v)]
+            o = fa.dense_attention(*xs, causal=True, dropout_rate=rate,
+                                   dropout_seed=SEQ_SEED,
+                                   dropout_head_offset=h,
+                                   dropout_num_heads=SEQ_H)
+            grads = torch.autograd.grad(o, xs, w[:, :, h:h + 1].float())
+            for n, t in zip(parts, (o.detach(),) + tuple(grads)):
+                parts[n].append(t)
+        for n, ts in parts.items():
+            refs[f"{tag}/{n}"] = torch.cat(ts, dim=2).cpu()
+    xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = fa.flash_attention(*xs, causal=True)
+    o.backward(w)
+    for n, t in zip(("out", "dq", "dk", "dv"),
+                    (o.detach(),) + tuple(x.grad for x in xs)):
+        refs[f"flash/{n}"] = t.cpu()
+    torch.save(refs, path)
+
+
+def _seq_attention_worker(torch, spec, groups, rank):
+    from deepspeed_tpu_torch.ops.flash_attention import (
+        flash_attention, fold_in_seed)
+    from deepspeed_tpu_torch.parallel import collectives as C
+    from deepspeed_tpu_torch.parallel import sequence as sp
+    seq = groups.axis("seq")
+    q, k, v, w = _seq_inputs(torch)
+    t = SEQ_T // seq.size
+    sl = slice(seq.rank * t, (seq.rank + 1) * t)
+    refs = torch.load(spec["refs"])
+    counters = _flash_counters()
+    calls = []
+
+    def flash(qq, *a, **kw):
+        calls.append([int(qq.shape[2]), kw.get("dropout_seed")])
+        return flash_attention(qq, *a, **kw)
+
+    def run(fn, backward=True, **kw):
+        xs = [x[:, sl].contiguous().requires_grad_(True) for x in (q, k, v)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = fn(*xs, seq, causal=True, **kw)
+        if backward:
+            o.backward(w[:, sl].contiguous())
+        torch.cuda.synchronize()
+        return o.detach(), [x.grad for x in xs], time.perf_counter() - t0
+
+    def errors(out, grads, tag):
+        return {n: _rel_err(got, refs[f"{tag}/{n}"][:, sl].cuda())
+                for n, got in zip(("out", "dq", "dk", "dv"),
+                                  [out] + grads)}
+
+    res = {"rank": rank}
+    torch.cuda.reset_peak_memory_stats()
+    for name, fn, kw, tag in (
+            ("ring", sp.ring_attention_local, {}, "dense"),
+            ("ring_dropout", sp.ring_attention_local,
+             {"dropout_rate": SEQ_RATE, "dropout_seed": SEQ_SEED},
+             "dense_drop"),
+            ("ulysses", sp.ulysses_attention_local, {"attn_fn": flash},
+             "flash")):
+        walls, counts = [], {}
+        for c in counters.values():
+            c.launches = 0
+        for _ in range(SEQ_REPS):
+            C.reset_collective_counts()
+            out, grads, wall = run(fn, **kw)
+            walls.append(wall)
+            counts = C.collective_counts()
+        res[name] = {"rel_err": errors(out, grads, tag),
+                     "ms": statistics.median(walls) * 1e3,
+                     "launches": {n: c.launches
+                                  for n, c in counters.items()},
+                     "collectives_a_call": counts}
+        if name == "ulysses":
+            res[name]["bitwise_k1_16_heads"] = all(
+                torch.equal(got, refs[f"flash/{n}"][:, sl].cuda())
+                for n, got in zip(("out", "dq", "dk", "dv"),
+                                  [out] + grads))
+        del out, grads
+    res["ulysses_local_heads"] = sorted({c[0] for c in calls})
+    calls.clear()
+    run(sp.ulysses_attention_local, backward=False, attn_fn=flash,
+        dropout_rate=SEQ_RATE, dropout_seed=SEQ_SEED)
+    res["ulysses_dropout_seeds"] = [c[1] for c in calls]
+    res["ulysses_dropout_seeds_want"] = [fold_in_seed(SEQ_SEED, seq.rank)]
+    res["peak"] = torch.cuda.max_memory_allocated()
+    res["staged"] = sorted(C.STAGED)
+    return res
+
+
+def phase_seq_attention(torch):
+    """Ring and Ulysses at seq 2 on ``cuda:0`` (module docstring, phase
+    25)."""
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="seq_ref_")
+    refs = os.path.join(tmp, "refs.pt")
+    _seq_references(torch, refs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks, _ = _spawn_tp(torch, "seq_attention",
+                         {"mesh": {"seq": SEQ_WORLD}, "refs": refs},
+                         world=SEQ_WORLD)
+    os.remove(refs)
+    row = {"phase": "seq_attention", "shape": [SEQ_B, SEQ_T, SEQ_H, SEQ_D],
+           "dtype": "bfloat16", "causal": True, "mesh": {"seq": SEQ_WORLD},
+           "processes": SEQ_WORLD, "device": "cuda:0",
+           "backend": "gloo (CUDA tensors, one device)",
+           "rel_tol": SEQ_REL_TOL, "dropout": SEQ_RATE, "seed": SEQ_SEED}
+    for name in ("ring", "ring_dropout", "ulysses"):
+        row[name] = {
+            "rel_err_by_rank": [r[name]["rel_err"] for r in ranks],
+            "ms_by_rank": [r[name]["ms"] for r in ranks],
+            "tokens_per_s": SEQ_B * SEQ_T * 1e3 / max(
+                r[name]["ms"] for r in ranks),
+            "launches_by_rank": [r[name]["launches"] for r in ranks],
+            "collectives_a_call": ranks[0][name]["collectives_a_call"]}
+    row["ulysses"]["bitwise_k1_16_heads"] = [
+        r["ulysses"]["bitwise_k1_16_heads"] for r in ranks]
+    row["ulysses_local_heads"] = [r["ulysses_local_heads"] for r in ranks]
+    row["ulysses_dropout_seeds"] = [r["ulysses_dropout_seeds"]
+                                    for r in ranks]
+    row["peak_memory_by_rank"] = [r["peak"] for r in ranks]
+    row["staged_through_host"] = ranks[0]["staged"]
+    emit(row)
+    worst = max(e for n in ("ring", "ring_dropout", "ulysses")
+                for r in ranks for e in r[n]["rel_err"].values())
+    if not worst <= SEQ_REL_TOL:
+        fail(f"seq_attention: a rank's output or gradient is {worst} "
+             f"(max |diff| / max |ref|) from its reference > {SEQ_REL_TOL}")
+    want = {"K1": SEQ_REPS, "K2": SEQ_REPS, "K3": SEQ_REPS, "K4": 0}
+    if any(r["ulysses"]["launches"] != want for r in ranks) or \
+            any(h != [SEQ_H // SEQ_WORLD] for h in row["ulysses_local_heads"]):
+        fail(f"seq_attention: Ulysses launches {row['ulysses']} != {want} "
+             f"or local heads {row['ulysses_local_heads']}")
+    if not all(row["ulysses"]["bitwise_k1_16_heads"]):
+        fail(f"seq_attention: Ulysses is not K1-K3 on 16 heads bit for bit "
+             f"({row['ulysses']['bitwise_k1_16_heads']} by rank)")
+    if any(r["ring"]["launches"]["K1"] for r in ranks):
+        fail("seq_attention: the ring launched an attention kernel")
+    if any(r["ulysses_dropout_seeds"] != r["ulysses_dropout_seeds_want"]
+           for r in ranks):
+        fail(f"seq_attention: Ulysses' K1 seeds {row['ulysses_dropout_seeds']}"
+             f" are not fold_in_seed({SEQ_SEED}, seq rank)")
+    return row
+
+
+def _sp_engine(torch, dtype, mpu=None):
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.parallel.pipe_sp import sp_pipeline_module
+    cfg = {"train_batch_size": SP_ROWS,
+           "gradient_accumulation_steps": SP_MICRO,
+           "optimizer": {"type": "Adam", "params": {"lr": SP_LR}},
+           "steps_per_print": 10 ** 9,
+           "mesh": {"pipe": 2, "seq": mpu.axis("seq").size if mpu else 1}}
+    if dtype == "bfloat16":
+        cfg["bf16"] = {"enabled": True}
+    engine, _, _, _ = initialize(
+        model=sp_pipeline_module(SP_VOCAB, SP_D, SP_H, SP_T,
+                                 n_blocks=SP_BLOCKS, num_stages=2),
+        config=cfg, mpu=mpu)
+    return engine
+
+
+def _sp_batch(torch):
+    rng = np.random.default_rng(0)
+    return {"input_ids": torch.from_numpy(rng.integers(
+        0, SP_VOCAB, (SP_ROWS, SP_T)).astype(np.int64))}
+
+
+def _sp_steps(torch, engine, counters, comm=None):
+    """2 + 3 steps of the batch: losses, walls, K1-K4 launches of the
+    timed steps, the last step's collectives."""
+    batch = _sp_batch(torch)
+    losses, walls, counts = [], [], {}
+    for i in range(SP_WARMUP + SP_STEPS):
+        if i == SP_WARMUP:
+            for c in counters.values():
+                c.launches = 0
+        if comm is not None:
+            comm.reset_collective_counts()
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        walls.append(time.perf_counter() - t0)
+        if comm is not None:
+            counts = comm.collective_counts()
+    return {"losses": losses, "walls": walls,
+            "launches": {n: c.launches for n, c in counters.items()},
+            "routes": {n: dict(c.routes) for n, c in counters.items()
+                       if hasattr(c, "routes")},
+            "collectives_last_step": counts}
+
+
+def _sp_worker(torch, spec, groups, rank):
+    from deepspeed_tpu_torch.parallel import collectives as C
+    from deepspeed_tpu_torch.parallel import sequence as sp
+    counters = _flash_counters()
+    engine = _sp_engine(torch, "float32", groups)
+    loss, grads = engine.value_and_grad(_sp_batch(torch), 1.0)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = torch.load(spec["ref"])
+    out = {"rank": rank, "f32_loss": float(loss),
+           "f32_grad_violations": {
+               n: _allclose_share(g, ref["grads"][n], SP_GRAD_RTOL,
+                                  SP_GRAD_ATOL) for n, g in grads.items()},
+           "f32_grad_rel_err": max(_rel_err(g, ref["grads"][n])
+                                   for n, g in grads.items())}
+    del ref, grads
+    heads = []
+    orig = sp.flash_attention
+
+    def flash(q, *a, **kw):
+        heads.append(int(q.shape[2]))
+        return orig(q, *a, **kw)
+
+    sp.flash_attention = flash
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        engine = _sp_engine(torch, "bfloat16", groups)
+        out["bf16"] = _sp_steps(torch, engine, counters, C)
+        out["peak"] = torch.cuda.max_memory_allocated()
+    finally:
+        sp.flash_attention = orig
+    out["local_heads"] = sorted(set(heads))
+    out["staged"] = sorted(C.STAGED)
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_pipe_sp(torch):
+    """``sp_pipeline_module`` at pipe 2 x seq 2 (module docstring, phase
+    26)."""
+    import tempfile
+    counters = _flash_counters()
+    engine = _sp_engine(torch, "float32")
+    loss1, grads1 = engine.value_and_grad(_sp_batch(torch), 1.0)
+    tmp = tempfile.mkdtemp(prefix="sp_ref_")
+    ref = os.path.join(tmp, "grads.pt")
+    torch.save({"grads": grads1}, ref)
+    n_params = sum(int(g.numel()) for g in grads1.values())
+    del engine, grads1
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    engine = _sp_engine(torch, "bfloat16")
+    seq1 = _sp_steps(torch, engine, counters)
+    seq1_peak = torch.cuda.max_memory_allocated()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks, _ = _spawn_tp(torch, "train_pipe_sp", {
+        "mesh": {"pipe": 2, "seq": 2}, "in_process_pipe": True,
+        "ref": ref})
+    os.remove(ref)
+    tokens = SP_ROWS * SP_T
+    timed = [max(r["bf16"]["walls"][i] for r in ranks)
+             for i in range(SP_WARMUP, SP_WARMUP + SP_STEPS)]
+    row = {"phase": "train_pipe_sp", "model": "sp_pipeline_module",
+           "vocab": SP_VOCAB, "d_model": SP_D, "n_head": SP_H,
+           "blocks": SP_BLOCKS, "seq": SP_T, "rows": SP_ROWS,
+           "micro_batches": SP_MICRO, "params": n_params,
+           "mesh": {"pipe": 2, "seq": 2}, "processes": 2,
+           "device": "cuda:0", "backend": "gloo (CUDA tensors, one device)",
+           "f32_seq1_loss": float(loss1),
+           "f32_loss_by_rank": [r["f32_loss"] for r in ranks],
+           "loss_rtol": SP_LOSS_RTOL, "grad_rtol": SP_GRAD_RTOL,
+           "grad_atol": SP_GRAD_ATOL,
+           "f32_grad_violation_share": max(
+               v for r in ranks for v in r["f32_grad_violations"].values()),
+           "f32_grad_max_rel_err": max(r["f32_grad_rel_err"] for r in ranks),
+           "bf16_losses": ranks[0]["bf16"]["losses"],
+           "bf16_seq1_losses": seq1["losses"],
+           "bf16_loss_atol": SP_BF16_LOSS_ATOL,
+           "losses_by_rank_equal": all(
+               r["bf16"]["losses"] == ranks[0]["bf16"]["losses"]
+               for r in ranks),
+           "step_p50_ms": statistics.median(timed) * 1e3,
+           "tokens_per_s": tokens * len(timed) / sum(timed),
+           "seq1_step_p50_ms": statistics.median(
+               seq1["walls"][SP_WARMUP:]) * 1e3,
+           "seq1_peak_memory": seq1_peak,
+           "peak_memory_by_rank": [r["peak"] for r in ranks],
+           "launches_by_rank": [r["bf16"]["launches"] for r in ranks],
+           "seq1_launches": seq1["launches"],
+           "routes_by_rank": [r["bf16"]["routes"] for r in ranks],
+           "local_heads": [r["local_heads"] for r in ranks],
+           "collectives_a_step": ranks[0]["bf16"]["collectives_last_step"],
+           "staged_through_host": ranks[0]["staged"]}
+    emit(row)
+    if any(abs(r["f32_loss"] - loss1) > SP_LOSS_RTOL * abs(loss1)
+           for r in ranks) or row["f32_grad_violation_share"] > 0:
+        fail(f"train_pipe_sp f32: seq 2 vs seq 1 loss "
+             f"{row['f32_loss_by_rank']} / {loss1} (rtol {SP_LOSS_RTOL}) or "
+             f"{row['f32_grad_violation_share']} of a leaf's gradient "
+             f"outside rtol {SP_GRAD_RTOL} / atol {SP_GRAD_ATOL}")
+    if not row["losses_by_rank_equal"] or not all(np.isfinite(
+            row["bf16_losses"])) or any(
+            abs(a - b) > SP_BF16_LOSS_ATOL
+            for a, b in zip(row["bf16_losses"], seq1["losses"])):
+        fail(f"train_pipe_sp bf16 losses {row['bf16_losses']} vs seq 1 "
+             f"{seq1['losses']} (atol {SP_BF16_LOSS_ATOL}) or not equal "
+             f"on the ranks")
+    per = SP_BLOCKS * SP_MICRO * SP_STEPS
+    want = {"K1": per, "K2": per, "K3": per, "K4": 2 * SP_STEPS}
+    if any(r["bf16"]["launches"] != want for r in ranks) or any(
+            h != [SP_H // 2] for h in row["local_heads"]) or any(
+            r["bf16"]["routes"].get("K1", {}).get("tensor_core", 0) == 0
+            for r in ranks):
+        fail(f"train_pipe_sp launches {row['launches_by_rank']} != {want}, "
+             f"local heads {row['local_heads']} != {SP_H // 2} or K1 off "
+             f"the tensor cores ({row['routes_by_rank']})")
+    return row
+
+
+def _moe_model(torch, mpu=None):
+    from deepspeed_tpu_torch.models.gpt2_moe import (
+        GPT2MoEConfig, GPT2MoELMHead)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    cfg = GPT2MoEConfig(n_embd=1024, n_layer=24, n_head=16,
+                        n_positions=TRAIN_T, dropout=0.0,
+                        use_flash_attention=True)
+    return GPT2MoELMHead(cfg, device="cuda", generator=gen, mpu=mpu)
+
+
+def _moe_config(mesh_shape=None):
+    cfg = {"train_batch_size": TRAIN_B, "bf16": {"enabled": True},
+           "zero_optimization": {"stage": 1},
+           "optimizer": {"type": "Adam", "params": {"lr": 1e-4,
+                                                    "pallas": True}},
+           "steps_per_print": 10 ** 9}
+    if mesh_shape:
+        cfg["mesh"] = mesh_shape
+    return cfg
+
+
+def _moe_leaf_kind(name):
+    """The group of a GPT-2 MoE leaf the update is compared over."""
+    if name.endswith(".moe.gate"):
+        return "gate"
+    return "expert" if ".expert_" in name else "other"
+
+
+def _moe_run(torch, engine, model, counters, comm=None):
+    """2 + 3 steps; the first step's gradients as the params receive them
+    (``gate``: the whole gradient, summed over the expert group; the
+    rest: its squared L2 norm) and the masters before the first step
+    (CPU) come back too."""
+    batch = _train_batch_350m()
+    for c in counters.values():
+        c.launches = 0
+    first = {}
+
+    def keep(g, n):
+        if _moe_leaf_kind(n) == "gate":
+            first.setdefault(n, g.detach().float().cpu())
+        else:
+            first.setdefault(n, float(g.detach().double().square().sum()))
+
+    hooks = [p.register_hook(lambda g, n=n: keep(g, n))
+             for n, p in model.named_parameters()]
+    init = [p.detach().float().cpu().clone() for p in engine.params]
+    losses, walls, norms, routing, counts = [], [], [], None, {}
+    for i in range(MOE_WARMUP + MOE_STEPS):
+        if comm is not None:
+            comm.reset_collective_counts()
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        walls.append(time.perf_counter() - t0)
+        norms.append(float(engine._last_metrics["grad_norm"]))
+        if i == 0:
+            routing = {str(n): [k.tolist(), r.tolist()]
+                       for n, (k, r) in model.routing().items()}
+            for h in hooks:
+                h.remove()
+        if comm is not None:
+            counts = comm.collective_counts()
+    return {"losses": losses, "walls": walls, "grad_norms": norms,
+            "routing": routing,
+            "launches": {n: c.launches for n, c in counters.items()},
+            "collectives_last_step": counts}, first, init
+
+
+def _plant_moe_fault(torch, fault, model, rank):
+    """Plant ``fault`` (``MOE_FAULTS``) in this expert rank's model."""
+    if fault == "aux":
+        from deepspeed_tpu_torch.moe import layer
+        layer.prescale_aux = lambda aux, group: aux
+    elif rank == 1:
+        for n, p in model.named_parameters():
+            if fault == "bank" and n.endswith(".expert_w1"):
+                p.register_hook(torch.zeros_like)
+            elif fault == "scale" and ".expert_" in n:
+                p.register_hook(lambda g: g * 2.0)
+
+
+def _moe_worker(torch, spec, groups, rank):
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.parallel import collectives as C
+    from deepspeed_tpu_torch.parallel.tensor_parallel import shard_tensor
+    ep = groups.axis("expert")
+    counters = _flash_counters()
+    torch.cuda.reset_peak_memory_stats()
+    model = _moe_model(torch, groups)
+    if spec.get("fault"):
+        _plant_moe_fault(torch, spec["fault"], model, ep.rank)
+    engine, _, _, _ = initialize(model=model, config=_moe_config(
+        {"expert": ep.size}), mpu=groups)
+    out, first, init = _moe_run(torch, engine, model, counters, C)
+    out["peak"] = torch.cuda.max_memory_allocated()
+    out["staged"] = sorted(C.STAGED)
+    out["rank"] = rank
+    out["expert_params"] = int(sum(p.numel() for n, p in
+                                   model.named_parameters()
+                                   if ".expert_" in n))
+    ref = torch.load(spec["ref"])
+    kinds = ("gate", "expert", "other")
+    # [kind, (|update - update'|^2, |update'|^2, |grad|^2)] and the gate
+    # gradients' (|grad - grad'|^2, |grad'|^2), each leaf counted once
+    sq = torch.zeros(len(kinds), 3, dtype=torch.float64)
+    gate_sq = torch.zeros(2, dtype=torch.float64)
+    for i, (name, p) in enumerate(zip(engine._param_names(), engine.params)):
+        s = engine._tp_specs[i]
+        if s is None and ep.rank != 0:
+            continue
+        want = ref["update"][name] if s is None else shard_tensor(
+            ref["update"][name], s, ep.rank, ep.size)
+        got = p.detach().float().cpu() - init[i]
+        kind = _moe_leaf_kind(name)
+        g = first[name]
+        if kind == "gate":
+            w = ref["first_grads"][name].double()
+            gate_sq += torch.stack([(g.double() - w).square().sum(),
+                                    w.square().sum()])
+            g = float(g.double().square().sum())
+        sq[kinds.index(kind)] += torch.tensor(
+            [float((got.double() - want.double()).square().sum()),
+             float(want.double().square().sum()), g], dtype=torch.float64)
+    del ref, init
+    C.all_reduce(sq, ep)
+    C.all_reduce(gate_sq, ep)
+    out["update_rel_l2"] = {k: float((sq[j, 0] / sq[j, 1]).sqrt())
+                            for j, k in enumerate(kinds)}
+    out["first_grad_norm"] = {k: float(sq[j, 2].sqrt())
+                              for j, k in enumerate(kinds)}
+    out["gate_grad_rel_l2"] = float((gate_sq[0] / gate_sq[1]).sqrt())
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _route_gap(got, want):
+    """Per MoE layer: the largest |kept - kept'| and |dropped - dropped'|
+    over the experts, as a share of the layer's routed tokens."""
+    gaps = {}
+    for layer, (kept, routed) in want.items():
+        k2, r2 = got[layer]
+        drop, drop2 = np.subtract(routed, kept), np.subtract(r2, k2)
+        gaps[layer] = float(max(np.abs(np.subtract(kept, k2)).max(),
+                                np.abs(drop - drop2).max()) / sum(routed))
+    return gaps
+
+
+def _moe_readings(ref, ranks):
+    """An expert 2 world's readings against expert 1 (``MOE_LIMITS``'
+    keys), the route gaps by rank, and the gates it breaks."""
+    first = min(ref["routing"], key=int)
+    got = ranks[0]
+    read = {"first_loss_rel": abs(got["losses"][0] - ref["losses"][0]) /
+            abs(ref["losses"][0]),
+            "grad_norm_rel": max(abs(a - b) / b for a, b in zip(
+                got["grad_norms"], ref["grad_norms"])),
+            "gate_grad_rel_l2": got["gate_grad_rel_l2"]}
+    for k, v in got["first_grad_norm"].items():
+        read[f"first_grad_norm_rel/{k}"] = abs(
+            v - ref["first_grad_norm"][k]) / ref["first_grad_norm"][k]
+    for k, v in got["update_rel_l2"].items():
+        read[f"update_rel_l2/{k}"] = v
+    gaps = [_route_gap(r["routing"], ref["routing"]) for r in ranks]
+    broken = [k for k, lim in MOE_LIMITS.items() if not read[k] <= lim]
+    if any(g[first] != 0.0 for g in gaps) or any(
+            v > MOE_ROUTE_GAP for g in gaps for v in g.values()):
+        broken.append("route_gap")
+    if any(r["losses"] != got["losses"] for r in ranks) or not all(
+            np.isfinite(got["losses"])):
+        broken.append("losses_by_rank")
+    return read, gaps, broken
+
+
+def phase_train_moe(torch, faults=()):
+    """GPT-2 MoE 350M at expert 1, then expert 2 (module docstring, phase
+    27); with ``faults``, expert 2 again with each planted."""
+    import tempfile
+    from deepspeed_tpu_torch import initialize
+    counters = _flash_counters()
+    torch.cuda.reset_peak_memory_stats()
+    model = _moe_model(torch)
+    n_params = int(sum(p.numel() for p in model.parameters()))
+    engine, _, _, _ = initialize(model=model, config=_moe_config())
+    ref, first, init = _moe_run(torch, engine, model, counters)
+    ref_peak = torch.cuda.max_memory_allocated()
+    ref["first_grad_norm"] = {
+        k: math.sqrt(sum(float(v.double().square().sum()) if k == "gate"
+                         else v for n, v in first.items()
+                         if _moe_leaf_kind(n) == k))
+        for k in ("gate", "expert", "other")}
+    tmp = tempfile.mkdtemp(prefix="moe_ref_")
+    path = os.path.join(tmp, "ref.pt")
+    torch.save({"update": {n: p.detach().float().cpu() - p0 for n, p, p0 in
+                           zip(engine._param_names(), engine.params, init)},
+                "first_grads": {n: v for n, v in first.items()
+                                if _moe_leaf_kind(n) == "gate"}}, path)
+    del engine, model, init
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks, _ = _spawn_tp(torch, "train_moe", {"mesh": {"expert": 2},
+                                              "ref": path})
+    planted = {}
+    for fault in faults:
+        franks, _ = _spawn_tp(torch, "train_moe", {
+            "mesh": {"expert": 2}, "ref": path, "fault": fault})
+        read, _, broken = _moe_readings(ref, franks)
+        planted[fault] = {"readings": read, "gates_broken": broken}
+    os.remove(path)
+    steps = MOE_WARMUP + MOE_STEPS
+    timed = [max(r["walls"][i] for r in ranks)
+             for i in range(MOE_WARMUP, steps)]
+    tokens = TRAIN_B * TRAIN_T
+    read, gaps, broken = _moe_readings(ref, ranks)
+    kept = sum(sum(k) for k, _ in ref["routing"].values())
+    routed = sum(sum(r) for _, r in ref["routing"].values())
+    row = {"phase": "train_moe", "model": "gpt2_moe_350m", "params": n_params,
+           "experts": 8, "top_k": 2, "capacity_factor": 1.25,
+           "moe_layers": len(ref["routing"]), "zero_stage": 1,
+           "dtype": "bfloat16", "mesh": {"expert": 2}, "processes": 2,
+           "device": "cuda:0", "backend": "gloo (CUDA tensors, one device)",
+           "expert1_losses": ref["losses"], "losses": ranks[0]["losses"],
+           "losses_by_rank_equal": all(r["losses"] == ranks[0]["losses"]
+                                       for r in ranks),
+           "expert1_grad_norms": ref["grad_norms"],
+           "grad_norms": ranks[0]["grad_norms"],
+           "readings": read, "limits": MOE_LIMITS,
+           "route_gap_by_rank": gaps, "route_gap_limit": MOE_ROUTE_GAP,
+           "gates_broken": broken, "planted_faults": planted,
+           "dropped_token_share": 1.0 - kept / routed,
+           "expert1_routing_step1": ref["routing"],
+           "step_p50_ms": statistics.median(timed) * 1e3,
+           "tokens_per_s": tokens * len(timed) / sum(timed),
+           "expert1_step_p50_ms": statistics.median(
+               ref["walls"][MOE_WARMUP:]) * 1e3,
+           "expert1_peak_memory": ref_peak,
+           "peak_memory_by_rank": [r["peak"] for r in ranks],
+           "expert_params_by_rank": [r["expert_params"] for r in ranks],
+           "launches_by_rank": [r["launches"] for r in ranks],
+           "expert1_launches": ref["launches"],
+           "collectives_a_step": ranks[0]["collectives_last_step"],
+           "staged_through_host": ranks[0]["staged"]}
+    emit(row)
+    if broken:
+        fail(f"train_moe: expert 2 against expert 1 breaks {broken}: "
+             f"readings {read} (limits {MOE_LIMITS}), route gaps {gaps} "
+             f"(limit {MOE_ROUTE_GAP}; the first MoE layer must be equal)")
+    missed = [f for f, p in planted.items() if not p["gates_broken"]]
+    if missed:
+        fail(f"train_moe: no gate caught the planted faults {missed}: "
+             f"{planted}")
+    want = {"K1": TRAIN_LAYERS * steps, "K2": TRAIN_LAYERS * steps,
+            "K3": TRAIN_LAYERS * steps, "K4": steps}
+    if any(r["launches"] != want for r in ranks) or ref["launches"] != want:
+        fail(f"train_moe launches {row['launches_by_rank']} / expert 1 "
+             f"{ref['launches']} != {want}")
+    return row
+
+
+def _ptm_engine(torch, mpu=None, overlap=None):
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.moe.layer import MoEConfig
+    from deepspeed_tpu_torch.parallel.pipe_tp import tp_pipeline_module
+    from deepspeed_tpu_torch.parallel.pipe_tp_moe import TPMoEBlockLayer
+    module = tp_pipeline_module(
+        PTM_VOCAB, PTM_D, PTM_H, PTM_T, n_blocks=PTM_BLOCKS, num_stages=2,
+        block_cls=TPMoEBlockLayer, carry_aux=True, use_flash=True,
+        moe=MoEConfig(num_experts=4, top_k=2, capacity_factor=2.0))
+    mesh_shape = {"pipe": 2, "model": 2, "expert": 2} if mpu else \
+        {"pipe": 2}
+    cfg = {"train_batch_size": PTM_ROWS,
+           "gradient_accumulation_steps": PTM_MICRO,
+           "optimizer": {"type": "Adam", "params": {"lr": 1e-4}},
+           "steps_per_print": 10 ** 9, "mesh": mesh_shape}
+    if overlap:
+        cfg["tensor_parallel"] = {"overlap": overlap}
+    engine, _, _, _ = initialize(model=module, config=cfg, mpu=mpu)
+    return engine
+
+
+def _ptm_batch(torch):
+    rng = np.random.default_rng(0)
+    return {"input_ids": torch.from_numpy(rng.integers(
+        0, PTM_VOCAB, (PTM_ROWS, PTM_T)).astype(np.int64))}
+
+
+# the expert_combine site alone (row and column parallel stay monolithic)
+PTM_OVERLAP = {"enabled": True, "chunks": 4,
+               "sites": {"row_parallel": {"enabled": False},
+                         "column_parallel": {"enabled": False}}}
+
+
+def _ptm_steps(torch, engine, counters, comm=None):
+    batch = _ptm_batch(torch)
+    for c in counters.values():
+        c.launches = 0
+    losses, walls, counts = [], [], {}
+    for _ in range(PTM_STEPS):
+        if comm is not None:
+            comm.reset_collective_counts()
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        walls.append(time.perf_counter() - t0)
+        if comm is not None:
+            counts = comm.collective_counts()
+    return {"losses": losses, "walls": walls,
+            "launches": {n: c.launches for n, c in counters.items()},
+            "collectives": counts}
+
+
+def _ptm_worker(torch, spec, groups, rank):
+    from deepspeed_tpu_torch.parallel import collectives as C
+    from deepspeed_tpu_torch.parallel.tensor_parallel import Shard, unshard
+    counters = _flash_counters()
+    out = {"rank": rank}
+    torch.cuda.reset_peak_memory_stats()
+    engine = _ptm_engine(torch, groups)
+    loss, grads = engine.value_and_grad(_ptm_batch(torch), 1.0)
+    ref = torch.load(spec["ref"])
+    viol, worst = 0.0, 0.0
+    for name, g in grads.items():
+        leaf = name.split(".")[-1]
+        for prefix, axis in (("mp_", "model"), ("expert_", "expert")):
+            if leaf.startswith(prefix):
+                pieces = C.all_gather(g.cuda().contiguous()[None],
+                                      groups.axis(axis), dim=0)
+                g = unshard(list(pieces.unbind(0)), Shard(2)).cpu()
+        viol = max(viol, _allclose_share(g, ref["grads"][name],
+                                         PTM_GRAD_RTOL, PTM_GRAD_ATOL))
+        worst = max(worst, _rel_err(g, ref["grads"][name]))
+    del ref, grads
+    out.update(vag_loss=float(loss), grad_violation_share=viol,
+               grad_max_rel_err=worst)
+    out["off"] = _ptm_steps(torch, engine, counters, C)
+    out["peak"] = torch.cuda.max_memory_allocated()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine = _ptm_engine(torch, groups, overlap=PTM_OVERLAP)
+    out["chunks4"] = _ptm_steps(torch, engine, counters, C)
+    out["staged"] = sorted(C.STAGED)
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_pipe_tp_moe(torch):
+    """TP x expert blocks at pipe 2 x model 2 x expert 2 (module
+    docstring, phase 28)."""
+    import tempfile
+    counters = _flash_counters()
+    engine = _ptm_engine(torch)
+    loss1, grads1 = engine.value_and_grad(_ptm_batch(torch), 1.0)
+    rep = _ptm_steps(torch, engine, counters)
+    tmp = tempfile.mkdtemp(prefix="ptm_ref_")
+    ref = os.path.join(tmp, "grads.pt")
+    torch.save({"grads": grads1}, ref)
+    del engine, grads1
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks, _ = _spawn_tp(torch, "train_pipe_tp_moe", {
+        "mesh": {"pipe": 2, "model": 2, "expert": 2},
+        "in_process_pipe": True, "ref": ref}, world=PTM_WORLD)
+    os.remove(ref)
+    tokens = PTM_ROWS * PTM_T
+    runs = {}
+    for name in ("off", "chunks4"):
+        timed = [max(r[name]["walls"][i] for r in ranks)
+                 for i in range(1, PTM_STEPS)]
+        runs[name] = {"losses": ranks[0][name]["losses"],
+                      "step_p50_ms": statistics.median(timed) * 1e3,
+                      "tokens_per_s": tokens * len(timed) / sum(timed),
+                      "launches_by_rank": [r[name]["launches"]
+                                           for r in ranks],
+                      "collectives_a_step": ranks[0][name]["collectives"]}
+    off, c4 = runs["off"]["losses"], runs["chunks4"]["losses"]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(c4, off))
+    row = {"phase": "train_pipe_tp_moe", "model": "tp_pipeline_module",
+           "block": "TPMoEBlockLayer", "vocab": PTM_VOCAB, "d_model": PTM_D,
+           "n_head": PTM_H, "blocks": PTM_BLOCKS, "experts": 4, "top_k": 2,
+           "capacity_factor": 2.0, "aux_carried": True, "stages": 2,
+           "mesh": {"pipe": 2, "model": 2, "expert": 2},
+           "processes": PTM_WORLD, "device": "cuda:0",
+           "backend": "gloo (CUDA tensors, one device)", "rows": PTM_ROWS,
+           "seq": PTM_T, "micro_batches": PTM_MICRO, "dtype": "float32",
+           "replicated_vag_loss": float(loss1),
+           "vag_loss_by_rank": [r["vag_loss"] for r in ranks],
+           "loss_rtol": PTM_LOSS_RTOL, "grad_rtol": PTM_GRAD_RTOL,
+           "grad_atol": PTM_GRAD_ATOL,
+           "grad_violation_share": max(r["grad_violation_share"]
+                                       for r in ranks),
+           "grad_max_rel_err": max(r["grad_max_rel_err"] for r in ranks),
+           "replicated_losses": rep["losses"],
+           "replicated_step_p50_ms": statistics.median(
+               rep["walls"][1:]) * 1e3,
+           "runs": runs, "chunks4_vs_off_max_rel": gap,
+           "overlap_rtol": PTM_OVERLAP_RTOL,
+           "ranks_agree": all(r[n]["losses"] == ranks[0][n]["losses"]
+                              for r in ranks for n in ("off", "chunks4")),
+           "peak_memory_by_rank": [r["peak"] for r in ranks],
+           "staged_through_host": ranks[0]["staged"]}
+    emit(row)
+    if any(abs(r["vag_loss"] - loss1) > PTM_LOSS_RTOL * abs(loss1)
+           for r in ranks) or row["grad_violation_share"] > 0 or any(
+            abs(a - b) > PTM_LOSS_RTOL * abs(b)
+            for a, b in zip(off, rep["losses"])):
+        fail(f"train_pipe_tp_moe vs model 1 x expert 1: losses "
+             f"{row['vag_loss_by_rank']} {off} / {loss1} {rep['losses']} "
+             f"or {row['grad_violation_share']} of a gradient outside "
+             f"rtol {PTM_GRAD_RTOL} / atol {PTM_GRAD_ATOL}")
+    if not gap <= PTM_OVERLAP_RTOL or not row["ranks_agree"] or \
+            not runs["chunks4"]["collectives_a_step"].get("ppermute"):
+        fail(f"train_pipe_tp_moe: expert_combine chunks 4 vs off {gap} > "
+             f"{PTM_OVERLAP_RTOL}, ranks disagree or no ring ran")
+    per = PTM_BLOCKS * PTM_MICRO * PTM_STEPS
+    want = {"K1": per, "K2": per, "K3": per, "K4": 2 * PTM_STEPS}
+    if any(r[n]["launches"] != want for r in ranks
+           for n in ("off", "chunks4")):
+        fail(f"train_pipe_tp_moe launches "
+             f"{runs['off']['launches_by_rank']} != {want}")
+    return row
+
+
+SP_MOE_PHASES = [("seq_attention", phase_seq_attention),
+                 ("train_pipe_sp", phase_train_pipe_sp),
+                 ("train_moe", phase_train_moe),
+                 ("train_pipe_tp_moe", phase_train_pipe_tp_moe)]
+
 _TP_WORKERS = {"train_tp": _tp_train_worker, "serve_tp": _tp_serve_worker,
-               "train_pipe_tp": _pipe_tp_worker}
+               "train_pipe_tp": _pipe_tp_worker,
+               "seq_attention": _seq_attention_worker,
+               "train_pipe_sp": _sp_worker, "train_moe": _moe_worker,
+               "train_pipe_tp_moe": _ptm_worker}
 
 
 def main(argv=None):
@@ -5841,6 +6746,16 @@ def main(argv=None):
                              "parallel phases and the pipeline's ZeRO "
                              "compositions (train_tp, serve_tp, "
                              "train_pipe_tp, train_pipe_zero)")
+    parser.add_argument("--sp-moe-only", action="store_true",
+                        help="device, build, then only the sequence- and "
+                             "expert-parallel phases (seq_attention, "
+                             "train_pipe_sp, train_moe, "
+                             "train_pipe_tp_moe)")
+    parser.add_argument("--moe-faults", action="store_true",
+                        help="device, build, then only train_moe, with "
+                             "expert 2 run again under each planted "
+                             "fault (MOE_FAULTS): fails unless a gate "
+                             "catches each")
     parser.add_argument("--tp-worker", nargs=2, metavar=("SPEC", "RANK"),
                         help=argparse.SUPPRESS)   # a TP phase's rank
     parser.add_argument("--serving-only", action="store_true",
@@ -5901,6 +6816,19 @@ def main(argv=None):
         lap("serve_tp")
         phase_train_pipe_tp(torch)
         lap("train_pipe_tp")
+        emit({"phase": "walls", "seconds": walls})
+        print(smi, flush=True)
+        return 0
+    if args.moe_faults:
+        phase_train_moe(torch, faults=MOE_FAULTS)
+        lap("train_moe")
+        emit({"phase": "walls", "seconds": walls})
+        print(smi, flush=True)
+        return 0
+    if args.sp_moe_only:
+        for name, phase in SP_MOE_PHASES:
+            phase(torch)
+            lap(name)
         emit({"phase": "walls", "seconds": walls})
         print(smi, flush=True)
         return 0
@@ -5981,6 +6909,10 @@ def main(argv=None):
     lap("serve_tp")
     pipe_tp = phase_train_pipe_tp(torch)
     lap("train_pipe_tp")
+    sp_moe = {}
+    for name, phase in SP_MOE_PHASES:
+        sp_moe[name] = phase(torch)
+        lap(name)
     emit({"phase": "walls", "seconds": walls})
     t = timing["bfloat16/serve_mix"]
     kernels = [{
@@ -6053,6 +6985,16 @@ def main(argv=None):
             "tp_launches_by_rank": [lr[key] for lr in
                                     train_tp["launches_by_rank"]],
             "pipe_tp_launches": pipe_tp["runs"]["off"]["launches"][key],
+            "seq_attention_launches_by_rank": [
+                lr[key] for lr in
+                sp_moe["seq_attention"]["ulysses"]["launches_by_rank"]],
+            "pipe_sp_launches_by_rank": [
+                lr[key] for lr in sp_moe["train_pipe_sp"]["launches_by_rank"]],
+            "moe_launches_by_rank": [
+                lr[key] for lr in sp_moe["train_moe"]["launches_by_rank"]],
+            "pipe_tp_moe_launches_by_rank": [
+                lr[key] for lr in sp_moe["train_pipe_tp_moe"]["runs"]["off"][
+                    "launches_by_rank"]],
             "max_abs_err": max(train_errs[key], r.get("max_abs_err", 0.0)),
             "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

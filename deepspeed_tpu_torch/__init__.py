@@ -24,9 +24,13 @@ process a GPU over NCCL) with ZeRO stages 0-3
 (:mod:`deepspeed_tpu_torch.runtime.zero`) and offload across processes;
 pipeline parallelism over a ``pipe`` x ``data`` topology
 (:mod:`deepspeed_tpu_torch.pipe`, :mod:`deepspeed_tpu_torch.runtime.pipe`)
-with ZeRO 0-3, offload and sparse gradients inside a stage; and tensor
+with ZeRO 0-3, offload and sparse gradients inside a stage; tensor
 parallelism over a ``model`` axis (:mod:`deepspeed_tpu_torch.parallel`:
-Megatron GPT-2 training and serving, the TP pipeline blocks).
+Megatron GPT-2 training and serving, the TP pipeline blocks); sequence
+parallelism over a ``seq`` axis (ring and Ulysses attention, the pipe x
+seq pipeline); and MoE with expert parallelism over an ``expert`` axis
+(:mod:`deepspeed_tpu_torch.moe`, GPT-2 MoE through :func:`initialize`,
+the expert and TP x expert pipeline blocks).
 
 Nothing heavy is imported here: submodules load on first use.
 """
@@ -114,6 +118,13 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     (:class:`~deepspeed_tpu_torch.parallel.tensor_parallel.Shard`;
     default: the model's ``partition_specs``). The engine's
     ``mp_world_size`` is M (JAX ``engine.py:396``).
+
+    Sequence and expert parallelism (``mesh`` ``{"seq": S}`` or
+    ``{"expert": E, "data": N}``): rows shard over ``data`` only and a
+    dense model computes replicated over the axis (the engine builds
+    ``MeshGroups(mesh)`` when no ``mpu`` is given); a
+    :class:`~deepspeed_tpu_torch.models.gpt2_moe.GPT2MoELMHead` built
+    with the ``mpu`` holds its expert rank's experts.
     """
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
     from deepspeed_tpu_torch.runtime.pipe.module import PipelineModule

@@ -156,14 +156,26 @@ def ppermute(t, group, shift=1):
 def _all_to_all(x, group, split_dim, concat_dim):
     """Tiled all-to-all: piece i of ``x`` along ``split_dim`` goes to rank
     i; the received pieces are concatenated along ``concat_dim`` in
-    source-rank order (JAX ``lax.all_to_all(..., tiled=True)``)."""
-    n = group.size
+    source-rank order (JAX ``lax.all_to_all(..., tiled=True)``). Every
+    send and receive is posted in one ``batch_isend_irecv`` (a grouped
+    send / receive on NCCL, as its own all-to-all does; gloo has no
+    all-to-all in every torch build)."""
+    n, r = group.size, group.rank
     dist = _dist()
     host = _on_host(group, x, "all_to_all")
     src = x.cpu() if host else x
     pieces = [p.contiguous() for p in src.chunk(n, dim=split_dim)]
-    outs = [torch.empty_like(pieces[0]) for _ in range(n)]
-    dist.all_to_all(outs, pieces, group=group.pg)
+    outs = [pieces[r] if i == r else torch.empty_like(pieces[0])
+            for i in range(n)]
+    ops = []
+    for i in range(n):
+        if i != r:
+            ops.append(dist.P2POp(dist.isend, pieces[i], group.ranks[i],
+                                  group.pg))
+            ops.append(dist.P2POp(dist.irecv, outs[i], group.ranks[i],
+                                  group.pg))
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
     _count("all_to_all", src)
     out = torch.cat(outs, dim=concat_dim)
     return out.to(x.device) if host else out

@@ -22,10 +22,12 @@ defaults to the process id modulo the visible devices).
 
 The ``mesh`` config key (:func:`pipe_data_topology`) lays a pipeline
 over the processes as ``pipe`` x ``data``: one process a stage rank, or
-every stage of a data replica in one process. The ``seq`` and ``expert``
-axes raise "not yet ported" (:func:`check_mesh_axes`).
+every stage of a data replica in one process. A mesh with a ``model``,
+``seq`` or ``expert`` axis lays its processes out by
+:class:`MeshGroups`.
 
-**The model axis** (tensor parallelism). :class:`MeshGroups` lays the
+**The model, seq and expert axes** (tensor, sequence and expert
+parallelism). :class:`MeshGroups` lays the
 processes over JAX's canonical axis order ``("data", "pipe", "expert",
 "seq", "model")`` (``deepspeed_tpu/parallel/mesh.py:21``), ``model``
 innermost: a process's coordinates are the C-order unravel of its rank
@@ -33,14 +35,20 @@ over the mesh shape, so the ranks of one model group are consecutive.
 It builds one process group per axis line (every process builds every
 group, in the same order, as ``torch.distributed.new_group`` needs) and
 answers Megatron's ``mpu`` questions (``get_model_parallel_rank`` ...
-``get_data_parallel_group``): it is what ``initialize(mpu=...)``
-takes. A pipeline with a model axis runs every stage of a (data, model)
-coordinate in one process, so its processes are ``data`` x ``model``.
+``get_data_parallel_group``, and ``get_seq_parallel_*`` /
+``get_expert_parallel_*`` for the other two axes): it is what
+``initialize(mpu=...)`` takes. A pipeline with any of these axes runs
+every stage of a (data, expert, seq, model) coordinate in one process
+(``in_process_pipe``), or one process a stage rank over the whole mesh,
+pipe outermost. Rows are sharded over ``data`` only: every rank of a
+data replica's seq, expert and model groups gets that replica's rows
+(JAX ``engine.py:2383-2409``, ``PartitionSpec(None, "data")``), and a
+dense model's compute is replicated over ``seq`` and ``expert``.
 
 **gloo on CUDA tensors.** A CUDA engine runs NCCL, with one exception:
 when every rank of the group runs on one physical device (their CUDA
 UUIDs agree), gloo is allowed, since NCCL refuses two ranks on one
-device. That is how the model axis runs on one card: its collectives
+device. That is how these axes run on one card: their collectives
 go through gloo, which stages CUDA tensors through host memory for
 ``all_reduce``, ``broadcast`` and ``all_gather``; the others
 (``parallel/collectives.py``) stage them explicitly. Ranks on several
@@ -215,25 +223,27 @@ def dp_rank():
 # the JAX package's canonical axis order (deepspeed_tpu/parallel/mesh.py:21)
 MESH_AXES = ("data", "pipe", "expert", "seq", "model")
 
-# the JAX package's mesh axes the port does not run yet, each with the
-# ROADMAP.md section 1 item 5 sub-item that ports it
-_LATER_AXES = {"seq": "F3 (sequence parallelism)",
-               "expert": "F4 (MoE)"}
+# the axes past pipe and data: a mesh with any of them above 1 lays its
+# processes out by MeshGroups
+INNER_AXES = ("expert", "seq", "model")
 
 
 def check_mesh_axes(mesh_config):
-    """Raise for a ``mesh`` axis the port does not run yet (``seq`` or
-    ``expert`` above 1), naming the sub-item that ports it."""
+    """Raise for a ``mesh`` key that is not a mesh axis."""
     cfg = dict(mesh_config or {})
     unknown = sorted(set(cfg) - set(MESH_AXES))
     if unknown:
         raise ValueError(f"mesh axes {unknown} are not mesh axes "
                          f"('data', 'pipe', 'expert', 'seq', 'model')")
-    for axis, item in _LATER_AXES.items():
-        if int(cfg.get(axis) or 1) > 1:
-            raise NotImplementedError(
-                f"mesh axis {axis!r} = {cfg[axis]} is not yet ported to "
-                f"deepspeed_tpu_torch (ROADMAP.md section 1 item 5 {item})")
+
+
+def inner_size(mesh_config):
+    """The product of the mesh's ``expert``, ``seq`` and ``model`` sizes."""
+    cfg = dict(mesh_config or {})
+    n = 1
+    for axis in INNER_AXES:
+        n *= int(cfg.get(axis) or 1)
+    return n
 
 
 def pipe_data_topology(mesh_config, world, stages=None, in_process=None):
@@ -251,10 +261,11 @@ def pipe_data_topology(mesh_config, world, stages=None, in_process=None):
     pipe size when the mesh names none, and must agree when it does."""
     check_mesh_axes(mesh_config)
     cfg = dict(mesh_config or {})
-    if int(cfg.get("model") or 1) > 1:
-        raise ValueError("a mesh with a model axis lays its processes out "
-                         "by MeshGroups (every stage of a (data, model) "
-                         "coordinate in one process), not pipe x data")
+    if inner_size(cfg) > 1:
+        raise ValueError("a mesh with a model, seq or expert axis lays its "
+                         "processes out by MeshGroups (every stage of a "
+                         "(data, expert, seq, model) coordinate in one "
+                         "process), not pipe x data")
     pipe = cfg.get("pipe")
     if pipe is None:
         pipe = stages or 1
@@ -411,15 +422,38 @@ class MeshGroups:
     def get_pipe_parallel_group(self):
         return self.axes["pipe"].pg
 
+    def get_seq_parallel_rank(self):
+        return self.axes["seq"].rank
+
+    def get_seq_parallel_world_size(self):
+        return self.axes["seq"].size
+
+    def get_seq_parallel_group(self):
+        return self.axes["seq"].pg
+
+    def get_expert_parallel_rank(self):
+        return self.axes["expert"].rank
+
+    def get_expert_parallel_world_size(self):
+        return self.axes["expert"].size
+
+    def get_expert_parallel_group(self):
+        return self.axes["expert"].pg
+
 
 def _axis_of(mpu, name, kind):
-    """The ``kind`` ("model" or "data") :class:`AxisGroup` of an ``mpu``:
-    a :class:`MeshGroups`, or any object with Megatron's
-    ``get_<kind>_parallel_*`` accessors; no ``mpu`` is one rank."""
+    """The ``kind`` ("model", "data", "seq" or "expert") :class:`AxisGroup`
+    of an ``mpu``: a :class:`MeshGroups`, or any object with Megatron's
+    ``get_<kind>_parallel_*`` accessors (an ``mpu`` without the seq or
+    expert ones has one rank there; one without the model or data ones
+    raises); no ``mpu`` is one rank."""
     if mpu is None:
         return AxisGroup(name)
     if isinstance(mpu, MeshGroups):
         return mpu.axis(name)
+    if (kind in ("seq", "expert")
+            and not hasattr(mpu, f"get_{kind}_parallel_world_size")):
+        return AxisGroup(name)
     pg = getattr(mpu, f"get_{kind}_parallel_group")()
     size = int(getattr(mpu, f"get_{kind}_parallel_world_size")())
     ranks = None
@@ -438,3 +472,13 @@ def model_axis_of(mpu):
 def data_axis_of(mpu):
     """The data :class:`AxisGroup` of an ``mpu`` (:func:`_axis_of`)."""
     return _axis_of(mpu, "data", "data")
+
+
+def seq_axis_of(mpu):
+    """The seq :class:`AxisGroup` of an ``mpu`` (:func:`_axis_of`)."""
+    return _axis_of(mpu, "seq", "seq")
+
+
+def expert_axis_of(mpu):
+    """The expert :class:`AxisGroup` of an ``mpu`` (:func:`_axis_of`)."""
+    return _axis_of(mpu, "expert", "expert")

@@ -8,7 +8,7 @@ auto_axes=("model",))``). Explicit TP has no auto mode: a layer holds
 its shard and runs its collectives, as ``parallel/tensor_parallel.py``'s
 layers do. :class:`TorchPipelineLayer` wraps such a module constructor:
 the module is built with the model group the pipeline builds its stages
-in (``parallel/pipe_tp.py:model_axis_scope``; passed as ``group=``),
+in (``parallel/pipe_tp.py:axis_scope``; passed as ``group=``),
 and :meth:`TorchPipelineLayer.param_partition_specs` gives each param's
 shard dim (``tensor_parallel.partition_specs``), the counterpart of
 JAX's placement specs. The pipeline loads and gathers those leaves by

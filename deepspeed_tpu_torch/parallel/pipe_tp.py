@@ -25,7 +25,7 @@ hold only the rank's rows (``mp_qkv`` ``[n_head_local * 3 * D, M]``,
 ``[ffn_local, M]``, ``mp_qkv_b`` / ``mp_fc_b``); the LayerNorms and the
 biases added after a row-parallel sum are replicated. A block takes its
 model group when it is built: the pipeline engine builds the stages
-inside :func:`model_axis_scope` (every stage of a (data, model)
+inside :func:`axis_scope` (every stage of a (data, model)
 coordinate in a process, or one process a stage rank); built outside
 one, a block holds the whole leaves and runs replicated. Dropout: the attention masks hash
 global head coordinates (a sharded run draws the unsharded run's masks
@@ -73,11 +73,12 @@ _AXES = contextvars.ContextVar("pipe_tp_axes", default={})
 
 
 @contextlib.contextmanager
-def model_axis_scope(axis):
-    """Layers built inside the block take ``axis`` (an ``AxisGroup``) as
-    their ``"model"`` group (the pipeline engine builds its stages in
-    it)."""
-    token = _AXES.set(dict(_AXES.get(), model=axis))
+def axis_scope(**axes):
+    """Layers built or run inside the block take ``axes`` (``AxisGroup``
+    s by mesh axis name) as their groups: the pipeline engine builds its
+    stages in it, and runs them in it (the counterpart of JAX's
+    ``shard_map``, inside which every mesh axis is manual)."""
+    token = _AXES.set(dict(_AXES.get(), **axes))
     try:
         yield
     finally:
@@ -85,9 +86,16 @@ def model_axis_scope(axis):
 
 
 def current_axis(name="model"):
-    """The group layers built now take for axis ``name``, or None."""
+    """The group layers built now take for axis ``name``, or None (no
+    scope, or a group of one)."""
     axis = _AXES.get().get(name)
     return axis if axis is not None and axis.size > 1 else None
+
+
+def scope_axis(name):
+    """The scope's group for axis ``name`` of any size, or None outside a
+    scope that names it (JAX ``axis_is_manual``)."""
+    return _AXES.get().get(name)
 
 
 def _local_dot(x, w, site):
@@ -305,9 +313,9 @@ class TPBertBlockLayer(TPBlockLayer):
 
 
 class _Embed(nn.Module):
-    def __init__(self, vocab, d_model, ids_key):
+    def __init__(self, vocab, d_model, ids_key, carry_aux=False):
         super().__init__()
-        self.ids_key = ids_key
+        self.ids_key, self.carry_aux = ids_key, carry_aux
         self.emb = nn.Parameter(torch.zeros(vocab, d_model))
 
     @torch.no_grad()
@@ -315,7 +323,10 @@ class _Embed(nn.Module):
         nn.init.normal_(self.emb, 0.0, 0.1, generator=generator)
 
     def forward(self, micro):
-        return self.emb[micro[self.ids_key]]
+        h = self.emb[micro[self.ids_key]]
+        if self.carry_aux:      # an MoE body's (hidden, aux) activations
+            return h, torch.zeros((), dtype=torch.float32, device=h.device)
+        return h
 
 
 class _Head(nn.Module):
@@ -328,11 +339,17 @@ class _Head(nn.Module):
         nn.init.normal_(self.w, 0.0, 0.1, generator=generator)
 
     def forward(self, x):
+        if isinstance(x, tuple):
+            x, aux = x
+            return torch.matmul(x, self.w), aux
         return torch.matmul(x, self.w)
 
 
 def _next_token_loss(ids_key):
     def loss(logits, micro):
+        aux = None
+        if isinstance(logits, tuple):
+            logits, aux = logits
         ids = micro[ids_key]
         B, _ = ids.shape
         labels = torch.cat([ids[:, 1:], torch.full(
@@ -342,21 +359,28 @@ def _next_token_loss(ids_key):
         lp = torch.log_softmax(logits.float(), dim=-1)
         tok = -torch.gather(lp, -1, safe[..., None])[..., 0]
         tok = torch.where(valid, tok, 0.0)
-        return tok.sum(), valid.sum().float()
+        count = valid.sum().float()
+        if aux is not None:     # the mean loss plus the carried aux
+            return tok.sum() + aux * count, count
+        return tok.sum(), count
     return loss
 
 
 def tp_pipeline_module(vocab, d_model, n_head, seq_len, n_blocks=2,
                        num_stages=None, ids_key="input_ids",
-                       block_cls=TPBlockLayer, **block_kw):
+                       block_cls=TPBlockLayer, carry_aux=False, **block_kw):
     """The dp x pp x tp PipelineModule (JAX ``tp_pipeline_module``): embed
     -> ``n_blocks`` x ``block_cls`` -> head, the masked next-token loss
     ``(loss_sum, count)`` (the last position ignored). ``block_kw``
-    (``use_flash``, ``dropout``) goes to every block."""
+    (``use_flash``, ``dropout``; ``moe`` for ``parallel/pipe_tp_moe.py:
+    TPMoEBlockLayer``) goes to every block. ``carry_aux`` makes the
+    activations ``(hidden, aux)`` tuples from a zero aux, for MoE blocks
+    to add their Switch loss to; the loss is then the token mean plus
+    the aux."""
     from deepspeed_tpu_torch.runtime.pipe.module import (
         LayerSpec, PipelineModule)
     return PipelineModule(
-        layers=[LayerSpec(_Embed, vocab, d_model, ids_key)] +
+        layers=[LayerSpec(_Embed, vocab, d_model, ids_key, carry_aux)] +
         [LayerSpec(block_cls, d_model, n_head, **block_kw)
          for _ in range(n_blocks)] +
         [LayerSpec(_Head, vocab, d_model)],

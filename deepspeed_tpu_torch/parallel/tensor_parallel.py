@@ -49,15 +49,17 @@ from deepspeed_tpu_torch.parallel.collectives import psum_combine, psum_grad
 
 
 class Shard(NamedTuple):
-    """How a leaf is split over the model axis: along ``dim``, in
-    ``groups`` equal blocks each split evenly (rank r takes piece r of
-    every block); ``full`` is the whole leaf's length along ``dim`` when
-    the split pads it (a vocab that the axis size does not divide: the
-    whole leaf is padded with zero rows to a multiple, and the padding
-    is cut off again by :func:`unshard`)."""
+    """How a leaf is split over the mesh axis ``axis`` (``"model"``, or
+    ``"expert"`` for an MoE bank): along ``dim``, in ``groups`` equal
+    blocks each split evenly (rank r takes piece r of every block);
+    ``full`` is the whole leaf's length along ``dim`` when the split
+    pads it (a vocab that the axis size does not divide: the whole leaf
+    is padded with zero rows to a multiple, and the padding is cut off
+    again by :func:`unshard`)."""
     dim: int
     groups: int = 1
     full: Optional[int] = None
+    axis: str = "model"
 
 
 def padded_len(n, size):

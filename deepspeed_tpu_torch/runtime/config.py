@@ -167,8 +167,10 @@ def get_pipeline_config(param_dict):
 
 def get_mesh_config(param_dict):
     """The ``mesh`` axes ``{"data": N|None, "model": M, "pipe": P, "seq":
-    S, "expert": E}`` or None (JAX ``config.py:244``); the port runs
-    ``pipe`` x ``data`` (``parallel/mesh.py:pipe_data_topology``)."""
+    S, "expert": E}`` or None (JAX ``config.py:244``). The port runs
+    every axis: ``pipe`` x ``data`` alone as
+    ``parallel/mesh.py:pipe_data_topology`` lays it out, with ``model``,
+    ``seq`` or ``expert`` over ``parallel/mesh.py:MeshGroups``."""
     return param_dict.get(C.MESH, C.MESH_DEFAULT)
 
 

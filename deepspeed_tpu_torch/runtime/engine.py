@@ -137,6 +137,20 @@ size. LAMB sums each split leaf's norms over the model group too.
 Sparse gradients refuse a model axis (JAX: pure data parallelism
 only).
 
+**The seq and expert axes** (``mesh`` ``{"seq": S}`` or ``{"expert":
+E, "data": N}``): rows are sharded over ``data`` only, so every rank of
+a data replica's seq and expert groups runs that replica's rows (JAX
+``engine.py:2383-2409``), and a dense model computes replicated over
+them; without an ``mpu`` the engine builds ``MeshGroups(mesh)``. A
+:class:`~deepspeed_tpu_torch.models.gpt2_moe.GPT2MoELMHead` built with
+the ``mpu`` holds ``E / ep`` experts of each MoE block; its ``expert_*``
+leaves are split over the expert axis (``Shard(0, axis="expert")``):
+their gradients are reduced over ``data`` only, and the norm, clipping
+and the fp16 vote sum a split leaf's squares over the axis it is split
+over and count a replicated leaf once (on rank 0 of every split axis),
+which is JAX's norm of the whole leaves. Checkpoints save whole leaves;
+ZeRO 1-2 partition each rank's leaves over the data group as before.
+
 **Activation checkpointing** (``activation_checkpointing``): the engine
 configures ``runtime/activation_checkpointing/checkpointing.py`` from
 the config unless the user already has (JAX ``engine.py:594-600``).
@@ -246,7 +260,7 @@ class DeviceState(NamedTuple):
 
 
 def grad_epilogue(grads, scale, accum, fp16, clip, comm=None,
-                  sharded=False, counted=None, tp=None):
+                  sharded=False, counted=None, split=()):
     """Unscale and average over micro-batches, the fp16 overflow check,
     the global norm and clipping (``engine.py:99``), IN PLACE on
     ``grads`` (the engine's gradient buffers, so the fused optimizer's
@@ -258,10 +272,11 @@ def grad_epilogue(grads, scale, accum, fp16, clip, comm=None,
     overflow flag is voted (MAX) so every rank skips together. With
     ``sharded`` they are this rank's pieces and the norm is the global
     one (``counted``: see :func:`global_norm`); else they are replicated
-    and the local norm is the global one. ``tp`` (the model axis, more
-    than one rank) votes the overflow and sums the squares over the
-    model group too (``counted`` then leaves a replicated leaf out
-    everywhere but model rank 0)."""
+    and the local norm is the global one. ``split`` (the model and
+    expert axes of more than one rank) votes the overflow and sums the
+    squares over each of those groups too (``counted`` then leaves a
+    leaf out on every rank but rank 0 of each axis it is not split
+    over)."""
     world = comm.world if comm is not None else 1
     denom = scale * accum * world if world > 1 else scale * accum
     for g in grads:
@@ -271,20 +286,23 @@ def grad_epilogue(grads, scale, accum, fp16, clip, comm=None,
         nonfinite = check_overflow(grads)
         if comm is not None:
             nonfinite = comm.any_flag(nonfinite)
-        if tp is not None:
-            nonfinite = tp_comm.all_reduce(
-                nonfinite.to(torch.float32).reshape(1), tp, op="max") \
-                .reshape(()) > 0
+        if split:
+            flag = nonfinite.to(torch.float32).reshape(1)
+            for g in split:
+                flag = tp_comm.all_reduce(flag, g, op="max")
+            nonfinite = flag.reshape(()) > 0
         overflow = nonfinite
     else:
         nonfinite = overflow = torch.zeros((), dtype=torch.bool,
                                            device=device)
     reduce = None
-    if (sharded and comm is not None) or tp is not None:
+    if (sharded and comm is not None) or split:
         def reduce(t):
             if sharded and comm is not None:
                 comm.all_reduce(t, stat=True)
-            return tp_comm.all_reduce(t, tp)
+            for g in split:
+                t = tp_comm.all_reduce(t, g)
+            return t
     grad_norm = global_norm(grads, reduce, counted)
     applied_norm = grad_norm
     if clip > 0:
@@ -395,8 +413,22 @@ class DeepSpeedEngine:
         self.device = device
         self.seed = int(seed)
         self.mpu = mpu if mpu is not None else getattr(model, "mpu", None)
+        if self.mpu is None and comm is None:
+            # a seq or expert axis over a dense model: compute replicated
+            # over it, rows sharded over data only (JAX engine.py:2383)
+            raw = config if isinstance(config, dict) else \
+                DeepSpeedConfig(config)._param_dict
+            shape = dict(raw.get("mesh") or {})
+            if any(int(shape.get(a) or 1) > 1 for a in ("seq", "expert")):
+                self.mpu = mesh.MeshGroups(shape)
         tp = mesh.model_axis_of(self.mpu)
         self._tp = tp if tp.size > 1 else None
+        ep = mesh.expert_axis_of(self.mpu)
+        self._ep = ep if ep.size > 1 else None
+        # the axes a leaf may be split over (its Shard names one)
+        self._split_axes = {a: g for a, g in (("model", self._tp),
+                                              ("expert", self._ep))
+                            if g is not None}
         self.mp_world_size = tp.size
         if comm is None and self.mpu is not None:
             data = mesh.data_axis_of(self.mpu)
@@ -439,14 +471,15 @@ class DeepSpeedEngine:
         specs = dict(tpl.partition_specs(model))
         specs.update(param_specs or {})
         names = self._param_names()
-        self._tp_specs = [specs.get(n) if self._tp else None
-                          for n in names]
-        if self._tp is not None:
-            cfg = self._config
-            if cfg.sparse_gradients_enabled:
-                raise AssertionError(
-                    f"sparse_gradients supports pure data parallelism; "
-                    f"mesh axis 'model' has size {self.mp_world_size}")
+        self._tp_specs = [
+            spec if spec is not None and spec.axis in self._split_axes
+            else None for spec in (specs.get(n) for n in names)]
+        if self._config.sparse_gradients_enabled:
+            for axis, group in (("expert", self._ep), ("model", self._tp)):
+                if group is not None:
+                    raise AssertionError(
+                        f"sparse_gradients supports pure data parallelism; "
+                        f"mesh axis {axis!r} has size {group.size}")
         self.micro_steps = 0
         self.global_steps = 0
         self._configure_optimizer(optimizer)
@@ -865,7 +898,7 @@ class DeepSpeedEngine:
         new = self._fp8_new
         if self.comm.active:
             self.comm.all_reduce(new, op="max", stat=True)
-        tp_comm.all_reduce(new, self._tp, op="max")
+        self._split_reduce(new, op="max")
         if self._config.fp16_enabled:
             new = torch.where(overflow, self._fp8_flat, new)
         self._fp8_flat = new
@@ -1288,15 +1321,29 @@ class DeepSpeedEngine:
                 views.append(self._grad_row[a - lo:b - lo])
         return idx, views
 
+    def _split_reduce(self, t, op="sum"):
+        """``t`` summed (or maxed) over each split axis's group, in
+        place."""
+        for g in self._split_axes.values():
+            t = tp_comm.all_reduce(t, g, op=op)
+        return t
+
+    def _leaf_counted(self, i):
+        """Leaf ``i`` counts in norms on this rank: on every split axis
+        it is split over that axis or this rank is the axis's rank 0 (a
+        replicated copy counts once)."""
+        spec = self._tp_specs[i]
+        return all(g.rank == 0 or (spec is not None and spec.axis == a)
+                   for a, g in self._split_axes.items())
+
     def _tp_counted(self, grads, counted):
-        """``counted`` with the model axis: a leaf no spec splits counts
-        on model rank 0 only (offload's leaf views are counted where they
-        are cut, in :meth:`_apply_step`)."""
-        if self._tp is None or self._offload:
+        """``counted`` with the split axes (:meth:`_leaf_counted`;
+        offload's leaf views are counted where they are cut, in
+        :meth:`_apply_step`)."""
+        if not self._split_axes or self._offload:
             return counted
         base = counted if counted is not None else [True] * len(grads)
-        return [c and (spec is not None or self._tp.rank == 0)
-                for c, spec in zip(base, self._tp_specs)]
+        return [c and self._leaf_counted(i) for i, c in enumerate(base)]
 
     def _optimizer_step(self, grads, lr, beta1, overflow, sharded):
         """The update of the masters by the configured optimizer."""
@@ -1315,11 +1362,11 @@ class DeepSpeedEngine:
             # counted on model rank 0)
             data = sharded and self.comm.active
             reduce = None
-            if data or self._tp is not None:
+            if data or self._split_axes:
                 def reduce(t):
                     if data:
                         self.comm.all_reduce(t, stat=True)
-                    return tp_comm.all_reduce(t, self._tp)
+                    return self._split_reduce(t)
             self.opt_state = lamb_step_(
                 self._masters, grads, self.opt_state, lr=lr, beta1=beta1,
                 beta2=self._betas[1], eps=self._eps,
@@ -1365,11 +1412,11 @@ class DeepSpeedEngine:
             else:
                 grads = [self._grad32]
             sharded, counted = offload_dp, None
-            if self._tp is not None:
-                # leaf by leaf: a replicated leaf counts on model rank 0
+            if self._split_axes:
+                # leaf by leaf: a replicated leaf counts on rank 0 of
+                # each split axis
                 idx, grads = self.offload_leaf_views()
-                counted = [self._tp_specs[i] is not None or
-                           self._tp.rank == 0 for i in idx]
+                counted = [self._leaf_counted(i) for i in idx]
         elif self._sparse:
             grads, sparse_stats = self._reduce_grads_sparse(tokens)
             sharded, counted = False, None
@@ -1379,7 +1426,7 @@ class DeepSpeedEngine:
         counted = self._tp_counted(grads, counted)
         overflow, nonfinite, grad_norm, applied_norm = grad_epilogue(
             grads, scale, accum, fp16, clip, comm=comm, sharded=sharded,
-            counted=counted, tp=self._tp)
+            counted=counted, split=list(self._split_axes.values()))
         lr = float(self._lr_fn(self.global_steps))
         beta1 = float(self._mom_fn(self.global_steps))
         if self._offload:
@@ -1555,26 +1602,32 @@ class DeepSpeedEngine:
                 "dp_world_size": self.dp_world_size,
                 "zero_stage": self.zero_optimization_stage(),
                 "offload": self._offload}
-        if self._tp is not None:
+        if self._split_axes:
             topo["mesh_shape"] = {"data": self.dp_world_size,
                                   "model": self.mp_world_size}
+            if self._ep is not None:
+                topo["mesh_shape"]["expert"] = self._ep.size
         return topo
 
     def _tp_whole(self, i, t):
-        """Leaf ``i`` whole over the model axis from this rank's ``t``
-        (every rank's piece all-gathered, the padding cut)."""
-        spec = self._tp_specs[i] if self._tp is not None else None
+        """Leaf ``i`` whole over the axis it is split over, from this
+        rank's ``t`` (every rank's piece all-gathered, the padding
+        cut)."""
+        spec = self._tp_specs[i]
         if spec is None:
             return t
-        pieces = tp_comm.all_gather(t.contiguous()[None], self._tp, dim=0)
+        pieces = tp_comm.all_gather(t.contiguous()[None],
+                                    self._split_axes[spec.axis], dim=0)
         return tpl.unshard(list(pieces.unbind(0)), spec)
 
     def _tp_local(self, i, full):
-        """This model rank's piece of the whole leaf ``full``."""
-        spec = self._tp_specs[i] if self._tp is not None else None
+        """This rank's piece of the whole leaf ``full`` (along the axis
+        it is split over)."""
+        spec = self._tp_specs[i]
         if spec is None:
             return full
-        return tpl.shard_tensor(full, spec, self._tp.rank, self._tp.size)
+        g = self._split_axes[spec.axis]
+        return tpl.shard_tensor(full, spec, g.rank, g.size)
 
     def _whole(self, i, piece):
         """Leaf ``i`` whole over the data group from this rank's fp32
@@ -1601,7 +1654,7 @@ class DeepSpeedEngine:
             opt = self.cpu_optimizer
             params = {n: W(i, t) for i, (n, t) in
                       enumerate(zip(names, opt.params()))}
-            if self._tp is not None:
+            if self._split_axes:
                 def flat(buf):
                     return torch.cat([
                         W(i, buf[o:o + k].view(sh)).reshape(-1)
@@ -1677,7 +1730,7 @@ class DeepSpeedEngine:
                 save_dir, tag, state, meta, save_latest=save_latest,
                 extra_manifest={"topology": self._topology()})
             log_dist(f"saved checkpoint {path}", ranks=[0])
-        if self._tp is not None:
+        if self.mpu is not None and mesh.is_initialized():
             import torch.distributed as dist
             dist.barrier()
         else:
@@ -1750,7 +1803,7 @@ class DeepSpeedEngine:
                 for key, buf in (("exp_avg", opt.exp_avg),
                                  ("exp_avg_sq", opt.exp_avg_sq)):
                     flat = tensor(o[key]).reshape(-1)
-                    if self._tp is not None:   # whole leaves, in order
+                    if self._split_axes:   # whole leaves, in order
                         at, parts = 0, []
                         for i, name in enumerate(names):
                             n = int(np.prod(tensor(saved[name]).shape))

@@ -85,13 +85,28 @@ With a ``model`` mesh axis (``parallel/pipe_tp.py``) every stage of a
 (data, model) coordinate runs in one process over ``MeshGroups``
 (``world == data * model``, or an ``mpu`` or ``stage_devices`` given),
 or one process a stage rank of the reference's 3-D layout
-(``PipeModelDataParallelTopology``: pipe outermost, model innermost;
-``world == pipe * data * model``; the grid is the ``mpu``): the stages'
+(``PipeMeshTopology``: pipe outermost, model innermost; ``world ==
+pipe * data * model``; the grid is the ``mpu``): the stages'
 engines reduce over the data group, the norm and the overflow vote
 cross the model group (model rank 0 counts the loss), and the executor
 runs inside the ``tensor_parallel.overlap`` plan. ``fp8`` runs every stage in a
 stateless ``fp8_scope``: JAX's current scaling of the layers' matmuls
 (JAX ``engine.py:137-150``), its wire composed into the overlap plan.
+
+The ``seq`` and ``expert`` axes take the same two layouts (every stage
+of a (data, expert, seq, model) coordinate in one process over
+``MeshGroups``, or one process a stage rank of ``PipeMeshTopology``,
+pipe outermost); the stages are built and run inside
+``parallel/pipe_tp.py:axis_scope`` with the mesh's groups
+(``parallel/pipe_sp.py``, ``moe/expert_pipe.py``,
+``parallel/pipe_tp_moe.py``). At seq > 1 the loss must be the weighted
+``(loss_sum, weight)`` (a scalar raises JAX's ``ValueError``); both are
+summed over ``pipe``, ``data`` and ``seq``, and every stage's gradients
+are summed over ``seq`` (partial sums of replicated leaves) before the
+epilogue (JAX ``pipeline.py:490-503, 920-965``). Leaves split over
+``expert`` (``expert_*`` banks) are never averaged across it: their
+gradients reduce over ``data``, and the norm and the fp16 vote cross
+the expert group as they cross the model group.
 
 What JAX's engine refuses, this one refuses with its text (progressive
 layer drop, uneven layers, ``forward`` / ``backward`` / ``step``,
@@ -106,6 +121,8 @@ import torch
 
 from deepspeed_tpu_torch.ops.flash_attention import fold_in_seed
 from deepspeed_tpu_torch.parallel import mesh
+from deepspeed_tpu_torch.parallel.collectives import all_reduce
+from deepspeed_tpu_torch.parallel.pipe_tp import axis_scope
 from deepspeed_tpu_torch.runtime.config import (
     DeepSpeedConfig,
     ONEBIT_ADAM_OPTIMIZER,
@@ -128,7 +145,7 @@ from deepspeed_tpu_torch.runtime.pipe.schedule import (
 )
 from deepspeed_tpu_torch.runtime.pipe.topology import (
     PipeDataParallelTopology,
-    PipeModelDataParallelTopology,
+    PipeMeshTopology,
     PipelineParallelGrid,
 )
 from deepspeed_tpu_torch.runtime.resilience.checkpoint import (
@@ -203,27 +220,28 @@ class PipelineEngine(DeepSpeedEngine):
         stages_cfg = (raw.get("pipeline") or {}).get("stages")
         mesh_cfg = dict(raw.get("mesh") or {})
         self.mpu = None
-        model_size = int(mesh_cfg.get("model") or 1)
-        if model_size > 1:
+        inner = mesh.inner_size(mesh_cfg)
+        if inner > 1:
             pipe = int(mesh_cfg.get("pipe") or stages_cfg or 1)
             if stages_cfg is not None and int(stages_cfg) != pipe:
                 raise ValueError(f"pipeline stages {stages_cfg} do not "
                                  f"match the mesh pipe axis ({pipe})")
             mesh.check_mesh_axes(mesh_cfg)
             in_process = stage_devices is not None or mpu is not None or \
-                world % (pipe * model_size) != 0 or \
+                world % (pipe * inner) != 0 or \
                 (mesh_cfg.get("data") is not None and
-                 int(mesh_cfg["data"]) * model_size == world)
+                 int(mesh_cfg["data"]) * inner == world)
             if in_process:
-                # every stage of a (data, model) coordinate in one process
+                # every stage of a (data, expert, seq, model) coordinate
+                # in one process
                 self.mpu = mpu if mpu is not None else mesh.MeshGroups(
                     mesh_cfg, in_process_pipe=True)
                 data = self.mpu.get_data_parallel_world_size()
                 rank = self.mpu.get_data_parallel_rank()
             else:
-                # one process a stage rank of the reference's 3-D layout
-                # (pipe outermost, then data, model innermost)
-                data = world // (pipe * model_size)
+                # one process a stage rank over the whole mesh (pipe
+                # outermost, then data, expert, seq, model innermost)
+                data = world // (pipe * inner)
         else:
             pipe, data, in_process = mesh.pipe_data_topology(
                 raw.get("mesh"), world, stages=stages_cfg,
@@ -257,8 +275,9 @@ class PipelineEngine(DeepSpeedEngine):
         self.seed = int(seed)
         self.device = device
         topo = PipeDataParallelTopology(num_pp=pipe, num_dp=data) \
-            if model_size == 1 else PipeModelDataParallelTopology(
-                num_pp=pipe, num_mp=model_size, num_dp=data)
+            if inner == 1 else PipeMeshTopology(
+                pipe, data, *(int(mesh_cfg.get(a) or 1)
+                              for a in mesh.INNER_AXES))
         if in_process:
             self.grid = None
             local_ids = list(range(pipe))
@@ -271,15 +290,19 @@ class PipelineEngine(DeepSpeedEngine):
         else:
             self.grid = PipelineParallelGrid(
                 topo, rank=rank, process_groups=mesh.is_initialized())
-            if model_size > 1:
+            if inner > 1:
                 self.mpu = self.grid        # Megatron's mpu accessors
             local_ids = [self.grid.stage_id]
             self.dp_rank = self.grid.data_parallel_id
             devices = [device]
         self.dp_world_size = data
-        from deepspeed_tpu_torch.parallel.pipe_tp import model_axis_scope
-        tp = mesh.model_axis_of(self.mpu)
-        with model_axis_scope(tp):
+        # the groups the layers are built and run with (pipe_tp.axis_scope)
+        self._axes = {"model": mesh.model_axis_of(self.mpu),
+                      "seq": mesh.seq_axis_of(self.mpu),
+                      "expert": mesh.expert_axis_of(self.mpu),
+                      "data": mesh.AxisGroup("data", data, self.dp_rank)}
+        self._seq = self._axes["seq"]
+        with axis_scope(**self._axes):
             self.parts = pl.build_pipeline_parts(
                 model, pipe, seed=seed, stage_ids=local_ids,
                 init=model_parameters is None)
@@ -337,6 +360,7 @@ class PipelineEngine(DeepSpeedEngine):
         self.comm = data_comm() if in_process and self.mpu is not None \
             else Comm()
         self._tp = first._tp
+        self._split_axes = first._split_axes    # the model, expert groups
         # JAX runtime/pipe/engine.py:137-150: the overlap plan, with the
         # fp8 wire composed into it, and fp8 current scaling of the
         # layers' matmuls (a scope without state)
@@ -360,7 +384,8 @@ class PipelineEngine(DeepSpeedEngine):
         self.transport = pl.LocalTransport() if in_process else \
             pl.ProcessTransport(self.grid, device)
         self.executor = pl.PipeExecutor(self.local_stages, pipe,
-                                        self.transport, self.parts.loss_fn)
+                                        self.transport, self.parts.loss_fn,
+                                        seq=self._seq.size)
         self.training_dataloader = None
         if training_data is not None:
             self.training_dataloader = self.deepspeed_io(
@@ -488,24 +513,29 @@ class PipelineEngine(DeepSpeedEngine):
 
     def _global_pair(self, num, den):
         """``(sum(loss_sum), sum(weight))`` over the last stages of every
-        data replica (the other processes add zeros)."""
+        data replica and every seq rank (the other processes add zeros;
+        JAX ``pipeline.py:490-503``)."""
         pair = torch.stack([num, den]).to(self.device)
         if not any(se.module.is_last for se in self.stage_engines) or \
-                (self.grid is not None and self._tp is not None and
-                 self._tp.rank != 0):
-            # one process a stage rank: every model rank holds the loss;
-            # its model rank 0 counts it
+                (self.grid is not None and
+                 any(g.rank != 0 for g in self._split_axes.values())):
+            # one process a stage rank: every model and expert rank holds
+            # the loss; their rank 0 counts it (seq ranks hold partials)
             pair = torch.zeros_like(pair)
         if self.comm.active:
             self.comm.all_reduce(pair, stat=True)
+        if self.grid is None:
+            all_reduce(pair, self._seq)
         return pair[0], pair[1]
 
     def _run(self, *args, **kwargs):
-        """The executor inside the ``tensor_parallel.overlap`` plan and
-        the fp8 plan (current scaling)."""
+        """The executor inside the mesh's groups, the
+        ``tensor_parallel.overlap`` plan and the fp8 plan (current
+        scaling)."""
         from deepspeed_tpu_torch.ops.fp8 import fp8_scope
         from deepspeed_tpu_torch.parallel.collectives import overlap_scope
-        with overlap_scope(self._overlap), fp8_scope(self._fp8):
+        with axis_scope(**self._axes), overlap_scope(self._overlap), \
+                fp8_scope(self._fp8):
             return self.executor.run(*args, **kwargs)
 
     def _backprop(self, batch, scale):
@@ -528,6 +558,11 @@ class PipelineEngine(DeepSpeedEngine):
             self._reduce_tied_grads()
             per_stage = [self._reduce_stage(se, tokens)
                          for se in self.stage_engines]
+            # seq ranks hold partial sums of every (replicated) leaf
+            # (JAX pipeline.py:920-965)
+            for sg in per_stage:
+                for g in sg.grads:
+                    all_reduce(g, self._seq)
             num, den = self._global_pair(num, den)
         return per_stage, num, den
 
@@ -625,11 +660,13 @@ class PipelineEngine(DeepSpeedEngine):
                     row_offset=self._row_offset(micro),
                     data_rank=self.dp_rank)
             else:
-                num, den = pl.sequential_loss_fn(
-                    self.parts, micro, seeds=seeds, scale=scale,
-                    stages={st.stage_id: st for st in self.local_stages},
-                    row_offset=self._row_offset(micro),
-                    data_rank=self.dp_rank)
+                with axis_scope(**self._axes):
+                    num, den = pl.sequential_loss_fn(
+                        self.parts, micro, seeds=seeds, scale=scale,
+                        stages={st.stage_id: st
+                                for st in self.local_stages},
+                        row_offset=self._row_offset(micro),
+                        data_rank=self.dp_rank, seq=self._seq.size)
             with torch.no_grad():
                 out[kind] = (num, den, [p.grad.clone() for p in params])
                 for p in params:
@@ -727,11 +764,10 @@ class PipelineEngine(DeepSpeedEngine):
             else:
                 parts = [sq[0].reshape(1)]
             vec = torch.cat(parts)
-        total = vec.sum()
-        if self._tp is not None:        # split leaves: their other rows
-            from deepspeed_tpu_torch.parallel.collectives import all_reduce
-            total = all_reduce(total.reshape(1), self._tp).reshape(())
-        return torch.sqrt(total)
+        total = vec.sum().reshape(1)
+        for g in self._split_axes.values():     # split leaves' pieces
+            total = all_reduce(total, g)
+        return torch.sqrt(total.reshape(()))
 
     @torch.no_grad()
     def _apply_pipe_step(self, per_stage, num, den, scale):
@@ -749,11 +785,10 @@ class PipelineEngine(DeepSpeedEngine):
                      for sg in per_stage]
             overflow = torch.stack(flags).any()
             overflow = self.comm.any_flag(overflow)
-            if self._tp is not None:
-                from deepspeed_tpu_torch.parallel.collectives import (
-                    all_reduce)
-                overflow = all_reduce(overflow.float().reshape(1), self._tp,
-                                      op="max").reshape(()) > 0
+            flag = overflow.float().reshape(1)
+            for g in self._split_axes.values():
+                flag = all_reduce(flag, g, op="max")
+            overflow = flag.reshape(()) > 0
         else:
             overflow = torch.zeros((), dtype=torch.bool, device=self.device)
         grad_norm = self._global_norm(per_stage)
@@ -828,10 +863,13 @@ class PipelineEngine(DeepSpeedEngine):
                 "pipe": self.num_stages, "data": self.dp_world_size,
                 "zero_stage": self.zero_optimization_stage(),
                 "offload": self._stage_offload}
-        if self._tp is not None:
+        if self.mpu is not None:
             topo["mesh_shape"] = {"data": self.dp_world_size,
                                   "pipe": self.num_stages,
-                                  "model": self._tp.size}
+                                  "model": self._axes["model"].size}
+            topo["mesh_shape"].update({a: self._axes[a].size
+                                       for a in ("expert", "seq")
+                                       if self._axes[a].size > 1})
         return topo
 
     def _stage_trees(self):

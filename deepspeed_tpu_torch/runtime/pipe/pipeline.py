@@ -36,8 +36,13 @@ results:
   (``runtime/activation_checkpointing``), whose recompute replays the
   stage's dropout generator. JAX's recompute and the port's saved graphs
   give the same gradients.
+- **Activations** are a tensor or a tuple of tensors (an MoE body's
+  ``(hidden, aux)``): each leaf travels, takes its gradient and sends it
+  back; a leaf that carries no gradient (a constant aux of 0) is sent a
+  zero cotangent.
 - **Loss.** ``loss_fn(output, micro)`` returns ``(loss_sum, weight)`` or
-  a scalar (weight 1). Backward seeds are the loss scale on each
+  a scalar (weight 1); at seq > 1 a scalar raises (JAX
+  ``pipeline.py:445-450``). Backward seeds are the loss scale on each
   micro-batch's loss sum; the engine divides the gradients by ``scale``
   times the total weight over micro-batches and the data group (JAX
   ``pipeline.py:689-692``), and the loss is ``sum(loss_sum) /
@@ -86,6 +91,24 @@ from deepspeed_tpu_torch.runtime.pipe.module import LayerSpec, TiedLayerSpec
 # folded into a micro-batch's seed for the hidden-dropout generator of
 # stage s > 0 (stage 0 draws the unpipelined model's stream)
 PIPE_STAGE_STREAM = 0x50495045
+
+
+def _leaves(x):
+    """An activation's tensors: the tuple's, or the tensor itself."""
+    return list(x) if isinstance(x, tuple) else [x]
+
+
+def _like(x, leaves):
+    """``leaves`` in the structure of activation ``x``."""
+    return tuple(leaves) if isinstance(x, tuple) else leaves[0]
+
+
+def _to(x, device):
+    return _like(x, [t.to(device) for t in _leaves(x)])
+
+
+def _detach(x):
+    return _like(x, [t.detach() for t in _leaves(x)])
 
 
 def _spec_signature(spec: LayerSpec):
@@ -446,16 +469,25 @@ def load_stage_state(stage, pipe_state, num_stages, layers_per_stage):
 # the oracle
 # ---------------------------------------------------------------------------
 
-def _as_pair(res):
+SCALAR_LOSS_AT_SEQ = (
+    "pipeline on a mesh with seq > 1 requires the weighted "
+    "(loss_sum, weight) loss form: a scalar mean loss cannot "
+    "express seq-sharded token counts, so losses and grads "
+    "would be silently mis-scaled by the seq degree")
+
+
+def _as_pair(res, seq=1):
     if isinstance(res, tuple):
         num, den = res
         return num.float(), torch.as_tensor(den).float()
+    if seq > 1:
+        raise ValueError(SCALAR_LOSS_AT_SEQ)
     return res.float(), torch.ones((), dtype=torch.float32,
                                    device=res.device)
 
 
 def sequential_loss_fn(parts, micro_batches, seeds=None, scale=None,
-                       stages=None, row_offset=0, data_rank=0):
+                       stages=None, row_offset=0, data_rank=0, seq=1):
     """The non-pipelined execution of the same stage modules: each
     micro-batch through every stage in order, its loss pair from the last
     one. Returns ``(sum(loss_sum), sum(weight))`` (f32 0-d tensors; the
@@ -477,13 +509,14 @@ def sequential_loss_fn(parts, micro_batches, seeds=None, scale=None,
             x = micro
             for st in local:
                 x = {k: v.to(st.device) for k, v in x.items()} \
-                    if st.stage_id == 0 else x.to(st.device)
+                    if st.stage_id == 0 else _to(x, st.device)
                 with st.forward_scope():
                     x = st.module(x, PipeContext.for_stage(
                         seed, st.stage_id, st.device))
                     if st.stage_id == parts.num_stages - 1:
                         n, d = _as_pair(parts.loss_fn(x, {
-                            k: v.to(st.device) for k, v in micro.items()}))
+                            k: v.to(st.device) for k, v in micro.items()}),
+                            seq)
             if scale is not None:
                 with contextlib.ExitStack() as scopes:
                     for st in local:
@@ -508,9 +541,10 @@ class _Counts:
         self.bytes = 0
         self.meta_messages = 0
 
-    def add(self, t):
-        self.messages += 1
-        self.bytes += t.numel() * t.element_size()
+    def add(self, x):
+        for t in _leaves(x):
+            self.messages += 1
+            self.bytes += t.numel() * t.element_size()
 
     def snapshot(self):
         return {"messages": self.messages, "bytes": self.bytes,
@@ -543,7 +577,7 @@ class LocalTransport:
         if got != m:
             raise RuntimeError(f"stage {dst}: {kind} of micro-batch {got} "
                                f"arrived where {m} was expected")
-        return t.to(device)
+        return _to(t, device)
 
     def send_act(self, src, m, t):
         self._send("act", src + 1, m, t)
@@ -555,7 +589,7 @@ class LocalTransport:
         self._send("grad", src - 1, m, t)
 
     def recv_grad(self, dst, m, like):
-        return self._recv("grad", dst, m, like.device)
+        return self._recv("grad", dst, m, _leaves(like)[0].device)
 
     def end_round(self, r):
         pass
@@ -566,7 +600,9 @@ class LocalTransport:
 
 
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float64)
-_META_LEN = 8
+_META_LEAF = 8          # dtype, ndim, up to 6 dims
+_META_LEAVES = 4
+_META_LEN = 1 + _META_LEAF * _META_LEAVES
 
 
 class ProcessTransport:
@@ -607,35 +643,48 @@ class ProcessTransport:
         dist.irecv(buf, peer, group=self._group(peer)).wait()
         return buf
 
-    def send_act(self, src, m, t):
+    def send_act(self, src, m, x):
+        leaves = _leaves(x)
         if not self._meta_sent:
-            meta = torch.zeros(_META_LEN, dtype=torch.int64,
-                               device=t.device)
-            meta[0] = _DTYPES.index(t.dtype)
-            meta[1] = t.ndim
-            meta[2:2 + t.ndim] = torch.tensor(t.shape)
-            self._isend(meta, self.next)
+            # one message: the leaf count (0: a plain tensor), then each
+            # leaf's dtype, rank and shape
+            meta = torch.zeros(_META_LEN, dtype=torch.int64)
+            meta[0] = len(leaves) if isinstance(x, tuple) else 0
+            for i, t in enumerate(leaves):
+                o = 1 + i * _META_LEAF
+                meta[o] = _DTYPES.index(t.dtype)
+                meta[o + 1] = t.ndim
+                meta[o + 2:o + 2 + t.ndim] = torch.tensor(t.shape)
+            self._isend(meta.to(leaves[0].device), self.next)
             self.counts.meta_messages += 1
             self._meta_sent = True
-        self.counts.add(t)
-        self._isend(t, self.next)
+        self.counts.add(x)
+        for t in leaves:
+            self._isend(t, self.next)
 
     def recv_act(self, dst, m, device):
         if self._meta is None:
             meta = self._recv_into(torch.zeros(
                 _META_LEN, dtype=torch.int64, device=self.device), self.prev)
             meta = meta.tolist()
-            self._meta = (_DTYPES[meta[0]], tuple(meta[2:2 + meta[1]]))
-        dtype, shape = self._meta
-        return self._recv_into(torch.empty(shape, dtype=dtype,
+            k = meta[0]
+            self._meta = (k > 0, [
+                (_DTYPES[meta[o]], tuple(meta[o + 2:o + 2 + meta[o + 1]]))
+                for o in (1 + i * _META_LEAF for i in range(max(k, 1)))])
+        is_tuple, leaves = self._meta
+        got = [self._recv_into(torch.empty(shape, dtype=dtype,
                                            device=self.device), self.prev)
+               for dtype, shape in leaves]
+        return tuple(got) if is_tuple else got[0]
 
-    def send_grad(self, src, m, t):
-        self.counts.add(t)
-        self._isend(t, self.prev)
+    def send_grad(self, src, m, x):
+        self.counts.add(x)
+        for t in _leaves(x):
+            self._isend(t, self.prev)
 
     def recv_grad(self, dst, m, like):
-        return self._recv_into(torch.empty_like(like), self.next)
+        return _like(like, [self._recv_into(torch.empty_like(t), self.next)
+                            for t in _leaves(like)])
 
     def end_round(self, r):
         """Wait for the sends issued before round ``r``: their receivers
@@ -683,11 +732,12 @@ class PipeExecutor:
     order; ``transport``: :class:`LocalTransport` or
     :class:`ProcessTransport`; ``loss_fn(output, micro)``."""
 
-    def __init__(self, stages, num_stages, transport, loss_fn):
+    def __init__(self, stages, num_stages, transport, loss_fn, seq=1):
         self.stages = list(stages)
         self.num_stages = int(num_stages)
         self.transport = transport
         self.loss_fn = loss_fn
+        self.seq = int(seq)             # the seq axis size
         self.max_in_flight = {}      # stage -> most micro-batches held
 
     def _streams(self, schedule_cls, M):
@@ -741,9 +791,11 @@ class PipeExecutor:
             buf[b] = {"m": m, "micro": {k: v.to(st.device)
                                         for k, v in micro.items()}}
         elif isinstance(cmd, sched.RecvActivation):
-            x = self.transport.recv_act(s, m, st.device).detach()
+            x = _detach(self.transport.recv_act(s, m, st.device))
             if train:
-                x.requires_grad_(True)
+                for t in _leaves(x):
+                    if t.is_floating_point():
+                        t.requires_grad_(True)
             buf.setdefault(b, {"m": m})["x"] = x
         elif isinstance(cmd, sched.ForwardPass):
             slot = buf[b]
@@ -753,7 +805,7 @@ class PipeExecutor:
             with st.forward_scope():
                 out = st.module(micro if first else slot["x"], ctx)
                 if last:
-                    num, den = _as_pair(self.loss_fn(out, micro))
+                    num, den = _as_pair(self.loss_fn(out, micro), self.seq)
             if last:
                 self._num += num.detach().to(self._num.device)
                 self._den += den.detach().to(self._den.device)
@@ -768,7 +820,7 @@ class PipeExecutor:
                 buf.pop(b)
         elif isinstance(cmd, sched.SendActivation):
             slot = buf[b]
-            self.transport.send_act(s, m, slot["out"].detach())
+            self.transport.send_act(s, m, _detach(slot["out"]))
             if not train:
                 buf.pop(b)
         elif isinstance(cmd, sched.RecvGrad):
@@ -779,10 +831,17 @@ class PipeExecutor:
                 if last:
                     (slot["loss"] * scale).backward()
                 else:
-                    torch.autograd.backward(slot["out"], slot["gout"])
+                    pairs = [(o, g) for o, g in zip(_leaves(slot["out"]),
+                                                    _leaves(slot["gout"]))
+                             if o.requires_grad]
+                    torch.autograd.backward([o for o, _ in pairs],
+                                            [g for _, g in pairs])
             self._live[s] -= 1
             if not first:
-                buf[b] = {"m": m, "gin": slot["x"].grad}
+                x = slot["x"]
+                buf[b] = {"m": m, "gin": _like(x, [
+                    t.grad if t.grad is not None else torch.zeros_like(t)
+                    for t in _leaves(x)])}
         elif isinstance(cmd, sched.SendGrad):
             self.transport.send_grad(s, m, buf.pop(b)["gin"])
         else:

@@ -1,15 +1,17 @@
 """N-D process topology for hybrid parallelism (a copy of
 ``deepspeed_tpu/runtime/pipe/topology.py``: ``ProcessTopology``,
 ``PipeDataParallelTopology``, ``PipeModelDataParallelTopology`` and
-``PipelineParallelGrid``, the reference's ``runtime/pipe/topology.py``).
+``PipelineParallelGrid``, the reference's ``runtime/pipe/topology.py``),
+with :class:`PipeMeshTopology` for the whole mesh (pipe outermost).
 
 Axes are named; ranks map to coordinates in row-major (last axis
 fastest) order. The JAX package turns a topology into its mesh axes;
 the port also turns it into ``torch.distributed`` groups:
 ``PipelineParallelGrid(..., process_groups=True)`` builds each stage's
-data group, each data replica's pipe group, the tied group (the first
-and last stage of a pipe group) and the stage-to-stage pairs (every
-process calls ``new_group`` for every group, in the same order).
+data group, each data replica's pipe group, the model, seq and expert
+groups, the tied group (the first and last stage of a pipe group) and
+the stage-to-stage pairs (every process calls ``new_group`` for every
+group, in the same order).
 """
 
 import itertools
@@ -119,6 +121,21 @@ class PipeModelDataParallelTopology(ProcessTopology):
                          dims=[num_pp, num_dp, num_mp])
 
 
+class PipeMeshTopology(ProcessTopology):
+    """pipe x data x expert x seq x model: the whole mesh with pipe
+    outermost, the other axes in JAX's canonical order (model fastest),
+    for one process a stage rank with any of the inner axes. At expert =
+    seq = 1 its ranks are :class:`PipeModelDataParallelTopology`'s."""
+
+    def __init__(self, num_pp, num_dp, num_ep=1, num_sp=1, num_mp=1):
+        super().__init__(axes=["pipe", "data", "expert", "seq", "model"],
+                         dims=[num_pp, num_dp, num_ep, num_sp, num_mp])
+
+
+# the axes past pipe, data and model that a grid builds groups for
+_SEQ_EXPERT = ("seq", "expert")
+
+
 class PipelineParallelGrid:
     """Rank bookkeeping over a topology: stage ids, per-axis group ranks,
     stage-to-stage neighbors (reference ``PipelineParallelGrid``,
@@ -138,9 +155,13 @@ class PipelineParallelGrid:
         self.data_parallel_size = max(topology.get_dim("data"), 1)
         self.pipe_parallel_size = max(topology.get_dim("pipe"), 1)
         self.model_parallel_size = max(topology.get_dim("model"), 1)
+        self.seq_parallel_size = max(topology.get_dim("seq"), 1)
+        self.expert_parallel_size = max(topology.get_dim("expert"), 1)
         assert self.world_size == (self.data_parallel_size *
                                    self.pipe_parallel_size *
-                                   self.model_parallel_size)
+                                   self.model_parallel_size *
+                                   self.seq_parallel_size *
+                                   self.expert_parallel_size)
 
         self.stage_id = self.get_stage_id()
         self.data_parallel_id = self.get_data_parallel_id()
@@ -151,10 +172,14 @@ class PipelineParallelGrid:
         self.pp_groups = topology.get_axis_comm_lists("pipe")
         self.mp_groups = (topology.get_axis_comm_lists("model")
                           if "model" in topology.get_axis_names() else [])
+        # the seq and expert groups' rank lists (empty without the axis)
+        self.axis_groups = {axis: topology.get_axis_comm_lists(axis)
+                            for axis in _SEQ_EXPERT}
 
         # p2p: successor/predecessor stage for this rank's pipe group
         self.dp_process_group = self.pp_process_group = None
         self.mp_process_group = None
+        self.axis_process_groups = {axis: None for axis in _SEQ_EXPERT}
         self.tied_process_group = None
         self.p2p_process_groups = {}
         self.p2p_groups = self._build_p2p_groups(process_groups)
@@ -194,6 +219,13 @@ class PipelineParallelGrid:
                 g = dist.new_group(ranks)
                 if me in ranks:
                     self.mp_process_group = g
+            for axis, lists in self.axis_groups.items():
+                if self._topo.get_dim(axis) <= 1:
+                    continue
+                for ranks in lists:
+                    g = dist.new_group(ranks)
+                    if me in ranks:
+                        self.axis_process_groups[axis] = g
             if self.pipe_parallel_size > 1:
                 for ranks in self.pp_groups:
                     tied = [ranks[0], ranks[-1]]
@@ -251,6 +283,29 @@ class PipelineParallelGrid:
 
     def get_data_parallel_group(self):
         return self.dp_process_group
+
+    def _coord(self, axis):
+        if axis not in self._topo.get_axis_names():
+            return 0
+        return getattr(self._topo.get_coord(self.global_rank), axis)
+
+    def get_seq_parallel_rank(self):
+        return self._coord("seq")
+
+    def get_seq_parallel_world_size(self):
+        return self.seq_parallel_size
+
+    def get_seq_parallel_group(self):
+        return self.axis_process_groups["seq"]
+
+    def get_expert_parallel_rank(self):
+        return self._coord("expert")
+
+    def get_expert_parallel_world_size(self):
+        return self.expert_parallel_size
+
+    def get_expert_parallel_group(self):
+        return self.axis_process_groups["expert"]
 
     # --- mesh bridge ------------------------------------------------------
     def mesh_shape(self):

@@ -146,6 +146,16 @@ def test_the_scan_covers_the_serving_fleet_modules(module):
     assert not set(_imported_roots(path)) & set(FORBIDDEN)
 
 
+@pytest.mark.parametrize("module", [
+    "parallel/sequence.py", "parallel/pipe_sp.py",
+    "parallel/pipe_tp_moe.py", "moe/__init__.py", "moe/layer.py",
+    "moe/expert_pipe.py", "models/gpt2_moe.py"])
+def test_the_scan_covers_the_sequence_and_expert_modules(module):
+    path = os.path.join(REPO, "deepspeed_tpu_torch", module)
+    assert path in set(_sources())
+    assert not set(_imported_roots(path)) & set(FORBIDDEN)
+
+
 def test_fleet_worker_without_a_device_needs_the_card(tmp_path):
     """A worker whose spec names no device runs on the card, and with
     no card it fails (exit 1, "no CUDA device") instead of serving on

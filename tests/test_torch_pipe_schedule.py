@@ -202,13 +202,30 @@ def test_mesh_lays_out_pipe_by_data(cfg, world, want):
     assert mesh.pipe_data_topology(cfg, world) == want
 
 
-@pytest.mark.parametrize("axis,item", [("seq", "F3"), ("expert", "F4")])
-def test_mesh_axes_past_pipe_and_data_name_their_item(axis, item):
-    with pytest.raises(NotImplementedError,
-                       match=f"{axis}.*not yet ported.*item 5 {item}"):
+@pytest.mark.parametrize("axis", ["seq", "expert"])
+def test_mesh_axes_past_pipe_and_data_lay_out_by_mesh_groups(axis):
+    """A seq or expert axis lays its processes out by MeshGroups in JAX's
+    axis order (data, pipe, expert, seq, model), not pipe x data: 8
+    processes at pipe 2 x axis 2 leave data 2, the axis's ranks
+    consecutive (model 1 innermost), the pipe axis outermost but data;
+    in a pipeline every stage of a coordinate runs in one process
+    (``in_process_pipe``: pipe leaves the shape)."""
+    with pytest.raises(ValueError, match="lays its processes out by "
+                                         "MeshGroups"):
         mesh.pipe_data_topology({"pipe": 2, axis: 2}, 4)
     with pytest.raises(ValueError, match="does not cover"):
         mesh.pipe_data_topology({"pipe": 2, "data": 3}, 4)
+    shape = mesh.normalize_mesh_shape({"pipe": 2, axis: 2}, 8)
+    assert shape == {"data": 2, "pipe": 2, "expert": 1, "seq": 1,
+                     "model": 1, axis: 2}
+    coords = [mesh.mesh_coords(r, shape) for r in range(8)]
+    assert [c[axis] for c in coords] == [0, 1] * 4
+    assert [c["pipe"] for c in coords] == [0, 0, 1, 1] * 2
+    assert [c["data"] for c in coords] == [0] * 4 + [1] * 4
+    assert all(mesh.mesh_rank(c, shape) == r for r, c in enumerate(coords))
+    assert mesh.inner_size({"pipe": 2, axis: 2, "model": 2}) == 4
+    # every stage of a coordinate in one process: 4 processes, data 2
+    assert mesh.normalize_mesh_shape({axis: 2}, 4)["data"] == 2
 
 
 @pytest.mark.parametrize("shape,world,want", [

@@ -125,10 +125,10 @@ def test_partition_specs_extracted_from_the_layers(ref, world):
     out = ref[0]
     for _, meta in out[world]:
         specs = meta["specs"]
-        assert specs["attn.c_attn.weight"] == [0, 3, None]
-        assert specs["attn.c_proj.weight"] == [1, 1, None]
-        assert specs["mlp.c_fc.weight"] == [0, 1, None]
-        assert specs["mlp.c_proj.weight"] == [1, 1, None]
+        assert specs["attn.c_attn.weight"] == [0, 3, None, "model"]
+        assert specs["attn.c_proj.weight"] == [1, 1, None, "model"]
+        assert specs["mlp.c_fc.weight"] == [0, 1, None, "model"]
+        assert specs["mlp.c_proj.weight"] == [1, 1, None, "model"]
         assert specs["ln_1.weight"] is None
         assert specs["attn.c_proj.bias"] is None
 
@@ -168,10 +168,15 @@ def test_mesh_axes_order_and_coords():
     assert all(mesh.mesh_rank(c, shape) == r for r, c in enumerate(coords))
     with pytest.raises(ValueError, match="do not divide"):
         mesh.normalize_mesh_shape({"model": 3}, 8)
-    with pytest.raises(NotImplementedError, match="seq.*item 5 F3"):
-        mesh.check_mesh_axes({"seq": 2})
-    with pytest.raises(NotImplementedError, match="expert.*item 5 F4"):
-        mesh.check_mesh_axes({"expert": 2})
+    # every axis runs: the seq and expert axes lay out like the others
+    mesh.check_mesh_axes({"seq": 2})
+    mesh.check_mesh_axes({"expert": 2})
+    with pytest.raises(ValueError, match="are not mesh axes"):
+        mesh.check_mesh_axes({"tensor": 2})
+    shape = mesh.normalize_mesh_shape({"expert": 2, "seq": 2}, 8)
+    assert [(c["data"], c["expert"], c["seq"]) for c in (
+        mesh.mesh_coords(r, shape) for r in range(8))] == \
+        [(r // 4, r // 2 % 2, r % 2) for r in range(8)]
     mesh.check_mesh_axes({"model": 4, "data": 2, "pipe": 2})
 
 

@@ -1,5 +1,8 @@
-"""One rank of the tensor-parallel tests (``tests/test_torch_collectives.py``,
-``tests/test_torch_tp*.py``, ``tests/test_torch_pipe_tp.py``).
+"""One rank of the tensor-, sequence- and expert-parallel tests
+(``tests/test_torch_collectives.py``, ``tests/test_torch_tp*.py``,
+``tests/test_torch_pipe_tp.py``, ``tests/test_torch_sequence.py``,
+``tests/test_torch_pipe_sp.py``, ``tests/test_torch_moe.py``,
+``tests/test_torch_expert_pipe.py``).
 
 Run as ``python tests/torch_tp_worker.py SPEC.json`` in each of the
 world's processes with the launcher env the port reads (through
@@ -151,9 +154,11 @@ RUNNERS = {"collectives": run_collectives}
 
 
 def _runners():
-    """The runners of the other TP test files, imported on first use."""
-    from tests import torch_tp_cases
-    return dict(RUNNERS, **torch_tp_cases.RUNNERS)
+    """The runners of the other TP test files and of the sequence and
+    expert tests, imported on first use."""
+    from tests import torch_sp_moe_cases, torch_tp_cases
+    return dict(RUNNERS, **torch_tp_cases.RUNNERS,
+                **torch_sp_moe_cases.RUNNERS)
 
 
 def main():
