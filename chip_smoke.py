@@ -8,9 +8,11 @@ tiers; at model 2), trains GPT-2 350M and BERT-Large with block-sparse
 attention, GPT-2 1.5B under ZeRO-Offload, GPT-2 350M through a 4-stage
 pipeline (also at ZeRO 3 and under offload) and at model 2, the TP
 pipeline at pipe 2 x model 2, ring and Ulysses attention at seq 2, the
-SP pipeline at pipe 2 x seq 2, GPT-2 MoE 350M at expert 2 and the TP x
-expert pipeline at pipe 2 x model 2 x expert 2, at full width through
-the port's main paths.
+SP pipeline at pipe 2 x seq 2, GPT-2 MoE 350M at expert 2, the TP x
+expert pipeline at pipe 2 x model 2 x expert 2, and the gradient
+compressors (the int8 all-reduce and 1-bit Adam at data 2, 1-bit Adam
+through the pipeline at pipe 2 x data 2 and pipe 2 x model 2 x data 2),
+at full width through the port's main paths.
 
     python3 chip_smoke.py                 # every phase (one GPU)
     python3 chip_smoke.py --kernels-only  # device, build, kernel checks
@@ -23,6 +25,12 @@ the port's main paths.
     python3 chip_smoke.py --sp-moe-only   # device, build, phases 25-28
     python3 chip_smoke.py --moe-faults    # device, build, phase 27 with
                                           # planted faults
+    python3 chip_smoke.py --comm-only     # device, build, phases 29-32
+    python3 chip_smoke.py --f5-faults     # device, build, phases 31-32
+                                          # with planted faults
+    python3 chip_smoke.py --phases train_zero,train_tp
+                                          # device, build, the named
+                                          # phase_<name>(torch) phases
     python3 chip_smoke.py --serving-only  # device, build, phases 14
                                           # and 9a-9c
     python3 chip_smoke.py --turns DIR     # device, build, then K1-K8
@@ -177,9 +185,10 @@ Phases, each printing one JSON line:
    step; flash and dense losses within a
    bf16 tolerance at every step, and their first micro-batch's c_attn
    weight gradients (the q, k and v rows) within a relative tolerance.
-13. ``train_zero`` — the same model, config and fixed batch through the
-   data-parallel path in an NCCL group of one process (the port's
-   ``initialize_distributed`` on a file store), at ZeRO stages 0, 1, 2
+13. ``train_zero`` — the same model at ``ZERO_LAYERS`` blocks (its
+   widths), config and fixed batch through the data-parallel path in an
+   NCCL group of one process (the port's ``initialize_distributed`` on
+   a file store), at ZeRO stages 0, 1, 2
    and 3 (world 1 is a partition into one piece: every collective is
    issued), 2 warmup and 5 timed steps each, then stage 0 again. One
    line per stage (losses, step p50, tokens/s, MFU, peak memory, K1-K4
@@ -293,15 +302,16 @@ Phases, each printing one JSON line:
    4-6. Checks: its losses and final masters equal the uninterrupted
    run's bit for bit, and the data cursor is restored. Reports save and
    load GB/s.
-20. ``train_pipe`` — GPT-2 350M (the ``train`` row: 8 x 1024, bf16 over
-   fp32 masters, flash, Adam lr 1e-4, dropout 0) as a ``PipelineModule``
-   through ``initialize``: S = 4 stages of 6 layers, M = 4 micro-batches
+20. ``train_pipe`` — GPT-2 350M's widths at ``PIPE_LAYERS`` blocks (the
+   ``train`` row otherwise: 8 x 1024, bf16 over fp32 masters, flash,
+   Adam lr 1e-4, dropout 0) as a ``PipelineModule`` through
+   ``initialize``: S = 4 stages of 3 layers, M = 4 micro-batches
    of 2 rows, every stage on ``cuda:0`` (the in-process transport: NCCL
    refuses two ranks on one device), 2 warmup and 5 timed steps. Gates:
    step 1's loss sums and every raw stage gradient equal the sequential
    oracle on the same stage modules bit for bit, at 350M bf16 and at
    125M f32 with S = 2; stage 0's and stage 3's tied ``wte`` equal bit
-   for bit after every step; K1, K2 and K3 launch 24 x M times a step
+   for bit after every step; K1, K2 and K3 launch 12 x M times a step
    and K4 once a stage; the p2p messages and bytes a step are 2 (S-1) M
    of 2 x 1024 x 1024 x 2 B; at M = 16 (batch 32) as many micro-batches
    are in flight as at M = 4 and the peak memory exceeds M = 4's by at
@@ -328,7 +338,8 @@ Phases, each printing one JSON line:
    bf16(host masters) bit for bit and its losses are within 5e-3 of
    stage 0's; K1-K3 24 x M launches a step, K4 once a stage (none under
    offload). Reports each run's step p50 and peak memory.
-22. ``train_tp`` — GPT-2 350M (the ``train`` row: 8 x 1024, bf16 over
+22. ``train_tp`` — GPT-2 350M's widths at ``TP_LAYERS`` blocks (the
+   ``train`` row otherwise: 8 x 1024, bf16 over
    fp32 masters, flash, Adam lr 1e-4, dropout 0) at ``{"mesh":
    {"model": 2}}``: two processes of this script (``--tp-worker``) on
    ``cuda:0``, joined by gloo on CUDA tensors (NCCL refuses two ranks on
@@ -337,7 +348,7 @@ Phases, each printing one JSON line:
    the model-1 run of the same seed first, in this process. Gates: the
    first loss within rtol 1e-3 of model 1's, the same on both ranks; the
    fp32 masters after 7 steps within 5e-3 relative L2 of model 1's; K1,
-   K2, K3 24 launches a step a rank at 8 local heads and K4 one; then one
+   K2, K3 n_layer launches a step a rank at 8 local heads and K4 one; then one
    step at dropout 0.1: every K1 call's dropout coordinates are model
    1's at the rank's heads, and K1's masks at them, read back, equal
    model 1's masks at those heads bit for bit. Reports p50, tokens/s,
@@ -421,6 +432,50 @@ are host-staged ones on one card, not NVLink times.
    overlap site at chunks 4 within rtol 1e-5 of off (its rings ran);
    K1-K3 16 launches a step, K4 two.
 
+Phases 29-32 run the gradient compressors, every rank a process on
+``cuda:0`` over gloo (CUDA tensors, one device; 29-31 in one world of two
+processes, started once); every bitwise gate compares host copies
+(sha256 of the bytes). The codecs and the 1-bit
+update are plain PyTorch on the card (JAX computes them with ``jnp``
+outside any kernel): these phases add no kernel, and K1-K4 run in them.
+
+29. ``train_qcomm`` — JAX's ``bench.py:405-450`` row: GPT-2 125M, 8 x
+   1024 tokens, bf16, flash, Adam lr 1e-4, at data 2: the fp32 gradient
+   sync, ``comm_quantization`` at its defaults (chunk 512, 4 MB
+   buckets) at ZeRO 0, and at ZeRO 2 with accumulation 2 and error
+   feedback, 3 steps each. Gates: losses within 5e-3 relative of the
+   fp32 run's (JAX's pin), both ranks' params bit for bit equal after
+   every step, an int8 exchange ran, K1-K3 12 launches a micro-batch a
+   rank, K4 one a step. Reports each run's exchange bytes a step by
+   dtype, the send-basis ratio against fp32 (JAX's formula predicts
+   4 / (1 + 4/512) = 3.97) and the step p50.
+30. ``train_onebit`` — the same row under 1-bit Adam (``freeze_step`` 2,
+   6 steps, eps ``OB_EPS``), and under Adam without bias correction (K4)
+   for 3 steps. Gates: the warmup losses within rtol 1e-4 of K4's and
+   the first update within 1e-4 relative L2 (``OB_WARMUP_*``); both
+   ranks' params bit for bit equal after every step; the error buffers
+   zero through the warmup and nonzero after; ``pack_signs`` /
+   ``unpack_signs`` on the card bit for bit their host run, and the
+   worker's scale within ``OB_SCALE_RTOL`` of float64, over seeded
+   values of the model's size; K1-K3 launched, K4 not. Reports the
+   compressed step's bytes against the warmup's dense step.
+31. ``train_pipe_onebit`` — GPT-2 350M widths cut to 4 blocks (bf16,
+   flash, 8 x 1024 tokens in 4 micro-batches) at pipe 2 x data 2, every
+   stage of a replica in one process: Adam without bias correction for
+   3 steps, then 1-bit Adam (``freeze_step`` 2) for 4. Gates: the
+   warmup within JAX's rtol 2e-4, the tied leaves bit for bit equal on
+   the first and the last stage after every step, finite losses that
+   fall, nonzero error buffers, K1-K3 launched.
+32. ``train_pipe_tp_onebit`` — the ``train_pipe_tp`` row (vocab 32000,
+   d 1024, 16 heads, 2 blocks, f32, 8 x 512 tokens in 4 micro-batches)
+   at pipe 2 x model 2 x data 2, eight processes, one a stage rank; the
+   same runs and gates, plus every leaf not split over the model axis
+   bit for bit equal on the two model ranks of its stage and data rank
+   after every step. ``--f5-faults`` runs 31 and 32 with
+   ``F5_FAULTS`` planted (the tied leaves compressed in the body's
+   buffer; the model-replicated body leaves with the model-sharded
+   ones) and fails unless each breaks its equality gate.
+
 Then the phases' walls, the ``kernels`` summary line (K7/K8 entries name
 their design; K1-K4 count the ``train`` path's launches and give the
 ``train_zero`` path's as ``zero_launches``, the ``train_features``
@@ -431,7 +486,10 @@ path's as ``features_launches``, the ``train_offload`` path's as
 and ``train_pipe_tp``'s as ``pipe_tp_launches``; K7/K8 add ``train_bert_ckpt``'s as
 ``bert_ckpt_launches``; K1-K4 add phases 25-28's a rank as
 ``seq_attention_launches_by_rank`` (Ulysses), ``pipe_sp_launches_by_rank``,
-``moe_launches_by_rank`` and ``pipe_tp_moe_launches_by_rank``; K5 and K6
+``moe_launches_by_rank`` and ``pipe_tp_moe_launches_by_rank``, and
+phases 29-32's as ``qcomm_launches_by_rank`` (by run),
+``onebit_launches_by_rank``, ``pipe_onebit_launches_by_rank`` and
+``pipe_tp_onebit_launches_by_rank``; K5 and K6
 count every serving path's,
 each also given apart: ``serve_launches``, ``scan_layers_launches``,
 ``checkpoint_launches``,
@@ -2746,13 +2804,15 @@ def phase_train_kernel_timing(torch):
     return rows
 
 
-def _train_engine(torch, flash, extra=None):
+def _train_engine(torch, flash, extra=None, n_layer=TRAIN_LAYERS):
     from deepspeed_tpu_torch import initialize
-    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHead, gpt2_350m
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    model = GPT2LMHead(gpt2_350m(n_positions=TRAIN_T, dropout=0.0,
-                                 use_flash_attention=flash, loss_chunk=0),
+    # gpt2_350m's widths at n_layer blocks
+    model = GPT2LMHead(GPT2Config(n_embd=1024, n_layer=n_layer, n_head=16,
+                                  n_positions=TRAIN_T, dropout=0.0,
+                                  use_flash_attention=flash, loss_chunk=0),
                        device="cuda", generator=gen)
     config = {"train_batch_size": TRAIN_B, "bf16": {"enabled": True},
               "optimizer": {"type": "Adam",
@@ -2911,6 +2971,8 @@ def phase_train(torch):
 
 ZERO_STAGES = (0, 1, 2, 3)
 ZERO_WARMUP, ZERO_STEPS = 2, 5
+# depth cut from 24 (widths kept): the script's 1200 s holds every phase
+ZERO_LAYERS = 12
 
 
 def _zero_group(torch):
@@ -2943,14 +3005,15 @@ def _zero_formula(stage, p):
 
 
 def _zero_run(torch, stage, batch, counters, more=None):
-    """One stage: 2 warmup and 5 timed steps of GPT-2 350M through the
-    data-parallel path (``more``: config keys added). Returns the row
-    and the fp32 masters (host)."""
+    """One stage: 2 warmup and 5 timed steps of GPT-2 350M's widths at
+    ``ZERO_LAYERS`` blocks through the data-parallel path (``more``:
+    config keys added). Returns the row and the fp32 masters (host)."""
     extra = {"zero_optimization": {"stage": stage}} if stage else {}
     extra.update(more or {})
     gc.collect()            # nothing of an earlier phase in the peak
     torch.cuda.empty_cache()
-    engine = _train_engine(torch, flash=True, extra=extra)
+    engine = _train_engine(torch, flash=True, extra=extra,
+                           n_layer=ZERO_LAYERS)
     if not engine.comm.active:
         fail("train_zero: the engine did not join the process group")
     torch.cuda.synchronize()
@@ -3073,7 +3136,8 @@ def phase_train_zero(torch):
     steps = ZERO_WARMUP + ZERO_STEPS
     stage0_repeats = again["losses"] == rows[0]["losses"] and all(
         torch.equal(a, b) for a, b in zip(masters_again, masters[0]))
-    out = {"phase": "train_zero", "model": "gpt2_350m", "world": 1,
+    out = {"phase": "train_zero", "model": "gpt2_350m",
+           "layers": ZERO_LAYERS, "world": 1,
            "backend": "nccl", "batch": TRAIN_B, "seq": TRAIN_T,
            "dtype": "bfloat16", "attention": "flash",
            "warmup": ZERO_WARMUP, "steps": ZERO_STEPS,
@@ -3110,8 +3174,8 @@ def phase_train_zero(torch):
         if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
             fail(f"train_zero stage {stage}: loss not finite and falling: "
                  f"{losses}")
-        want = {"K1": TRAIN_LAYERS * steps, "K2": TRAIN_LAYERS * steps,
-                "K3": TRAIN_LAYERS * steps, "K4": steps}
+        want = {"K1": ZERO_LAYERS * steps, "K2": ZERO_LAYERS * steps,
+                "K3": ZERO_LAYERS * steps, "K4": steps}
         if r["launches"] != want:
             fail(f"train_zero stage {stage}: launches {r['launches']} != "
                  f"{want}")
@@ -3164,9 +3228,9 @@ def phase_train_zero(torch):
     for name, r, ref in (("fp8 wire", wire, 3), ("sparse gradients", csr,
                                                  0)):
         if not all(np.isfinite(r["losses"])) or \
-                r["launches"] != {"K1": TRAIN_LAYERS * steps,
-                                  "K2": TRAIN_LAYERS * steps,
-                                  "K3": TRAIN_LAYERS * steps, "K4": steps}:
+                r["launches"] != {"K1": ZERO_LAYERS * steps,
+                                  "K2": ZERO_LAYERS * steps,
+                                  "K3": ZERO_LAYERS * steps, "K4": steps}:
             fail(f"train_zero {name}: losses {r['losses']}, launches "
                  f"{r['launches']}")
         if stage0_repeats and not (r["losses_equal_stage"] and
@@ -4930,6 +4994,15 @@ def phase_offload_resume(torch):
 
 PIPE_STAGES, PIPE_MICRO, PIPE_ROWS = 4, 4, 8   # S, M, train batch
 PIPE_WARMUP, PIPE_STEPS = 2, 5
+PIPE_LAYERS = 12                   # train_pipe's depth (350M widths)
+
+
+def _pipe_350m(**kw):
+    """GPT-2 350M's widths at ``PIPE_LAYERS`` blocks."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config
+    return GPT2Config(n_embd=1024, n_layer=PIPE_LAYERS, n_head=16, **kw)
+
+
 PIPE_MICRO_LONG = 16          # the 1F1B memory check's M (batch 32)
 PIPE_ONE_STAGE_STEPS = 3
 # S = 1 against the unpipelined engine (bf16, the same micro-batches): the
@@ -4948,10 +5021,9 @@ def _pipe_engine(torch, stages, micro, rows, state=None, interval=0,
     """GPT-2 350M (or ``cfg``) as a PipelineModule through
     ``initialize``: every stage in this process on ``cuda:0``."""
     from deepspeed_tpu_torch import initialize
-    from deepspeed_tpu_torch.models.gpt2 import gpt2_350m
     from deepspeed_tpu_torch.models.gpt2_pipe import gpt2_pipeline_module
-    cfg = cfg or gpt2_350m(n_positions=TRAIN_T, dropout=0.0,
-                           use_flash_attention=True, loss_chunk=0)
+    cfg = cfg or _pipe_350m(n_positions=TRAIN_T, dropout=0.0,
+                            use_flash_attention=True, loss_chunk=0)
     module = gpt2_pipeline_module(cfg, seq_len=TRAIN_T,
                                   activation_checkpoint_interval=interval)
     config = {"train_batch_size": rows, "gradient_accumulation_steps": micro,
@@ -5014,13 +5086,14 @@ def phase_train_pipe(torch):
     """GPT-2 350M through the pipeline with every stage on ``cuda:0``
     (module docstring, phase 20)."""
     from deepspeed_tpu_torch.models.gpt2 import (
-        GPT2LMHead, gpt2_125m, gpt2_350m)
+        GPT2LMHead, gpt2_125m)
     from deepspeed_tpu_torch.models.gpt2_pipe import pipe_state_to_lm
     from deepspeed_tpu_torch.runtime.pipe.schedule import TrainSchedule
     counters = _flash_counters()
     S, M = PIPE_STAGES, PIPE_MICRO
-    row = {"phase": "train_pipe", "model": "gpt2_350m", "stages": S,
-           "micro_batches": M, "rows": PIPE_ROWS, "seq": TRAIN_T,
+    row = {"phase": "train_pipe", "model": "gpt2_350m widths",
+           "layers": PIPE_LAYERS, "stages": S, "micro_batches": M,
+           "rows": PIPE_ROWS, "seq": TRAIN_T,
            "dtype": "bfloat16", "transport": "in-process (cuda:0 x 4)"}
 
     # the bitwise gate at 125M f32, S = 2, then at 350M bf16, S = 4
@@ -5055,7 +5128,7 @@ def phase_train_pipe(torch):
     p2p = engine.p2p_counts()
     act_bytes = (PIPE_ROWS // M) * TRAIN_T * 1024 * 2
     timed = walls[PIPE_WARMUP:]
-    fpt = model_flops_per_token(gpt2_350m(n_positions=TRAIN_T), TRAIN_T)
+    fpt = model_flops_per_token(_pipe_350m(n_positions=TRAIN_T), TRAIN_T)
     tps = PIPE_ROWS * TRAIN_T * len(timed) / sum(timed)
     in_flight = dict(engine.executor.max_in_flight)
     profile = _profile(torch, lambda: engine.train_batch(batch), 2)
@@ -5117,7 +5190,7 @@ def phase_train_pipe(torch):
 
     # S = 1 against the unpipelined engine, then the yardstick's time
     one = _pipe_engine(torch, 1, M, PIPE_ROWS, state=_restack(state, 1))
-    lm = GPT2LMHead(gpt2_350m(n_positions=TRAIN_T, dropout=0.0,
+    lm = GPT2LMHead(_pipe_350m(n_positions=TRAIN_T, dropout=0.0,
                               use_flash_attention=True, loss_chunk=0),
                     device="meta")
     lm.load_state_dict({k: v.detach().to("cuda").clone()
@@ -5176,8 +5249,8 @@ def phase_train_pipe(torch):
     if not all(tied) or not row["tied_equal_after_profile"]:
         fail(f"the tied wte copies of stages 0 and {S - 1} differ after "
              f"a step: {tied}")
-    want = {"K1": TRAIN_LAYERS * M * steps, "K2": TRAIN_LAYERS * M * steps,
-            "K3": TRAIN_LAYERS * M * steps, "K4": S * steps}
+    want = {"K1": PIPE_LAYERS * M * steps, "K2": PIPE_LAYERS * M * steps,
+            "K3": PIPE_LAYERS * M * steps, "K4": S * steps}
     if launches != want:
         fail(f"pipeline launches {launches} != {want} over {steps} steps")
     if p2p != {"messages": 2 * (S - 1) * M,
@@ -5193,7 +5266,7 @@ def phase_train_pipe(torch):
     ck = row["checkpoint_interval_1"]
     if ck["leaves_not_bitwise"] or ck["launches"]["K1"] != \
             2 * ck["launches_none"]["K1"] or \
-            ck["launches_none"]["K1"] != TRAIN_LAYERS * M:
+            ck["launches_none"]["K1"] != PIPE_LAYERS * M:
         fail(f"activation_checkpoint_interval 1 changed bits or K1's "
              f"launches are not doubled: {ck}")
     one_row = row["one_stage_vs_plain"]
@@ -5223,6 +5296,7 @@ def _restack(state, stages):
 
 TP_WORLD = 2                       # model-parallel processes on cuda:0
 TP_WARMUP, TP_STEPS = 2, 5
+TP_LAYERS = 12                     # train_tp's depth (350M widths)
 TP_LOSS_RTOL = 1e-3                # bf16 losses (test_torch_gpt2_train)
 TP_MASTER_REL_L2 = 5e-3            # masters after 7 steps, relative L2
 TP_SPAWN_TIMEOUT_S = 420
@@ -5317,13 +5391,15 @@ def _tp_worker(torch, spec_path, rank):
 
 
 def _tp_350m(torch, dropout, mpu=None):
-    """The ``train`` row's GPT-2 350M from seed 0 (a TP shard with
-    ``mpu``: each leaf drawn whole, in the same order, then cut)."""
-    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHead, gpt2_350m
+    """The ``train`` row's GPT-2 350M widths at ``TP_LAYERS`` blocks from
+    seed 0 (a TP shard with ``mpu``: each leaf drawn whole, in the same
+    order, then cut)."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    return GPT2LMHead(gpt2_350m(n_positions=TRAIN_T, dropout=dropout,
-                                use_flash_attention=True, loss_chunk=0),
+    return GPT2LMHead(GPT2Config(n_embd=1024, n_layer=TP_LAYERS, n_head=16,
+                                 n_positions=TRAIN_T, dropout=dropout,
+                                 use_flash_attention=True, loss_chunk=0),
                       device="cuda", generator=gen, mpu=mpu)
 
 
@@ -5541,13 +5617,13 @@ def phase_train_tp(torch):
     if not row["master_rel_l2"] <= TP_MASTER_REL_L2:
         fail(f"train_tp masters after {steps} steps differ from model 1's "
              f"by {row['master_rel_l2']} (relative L2) > {TP_MASTER_REL_L2}")
-    want = {"K1": TRAIN_LAYERS * steps, "K2": TRAIN_LAYERS * steps,
-            "K3": TRAIN_LAYERS * steps, "K4": steps}
+    want = {"K1": TP_LAYERS * steps, "K2": TP_LAYERS * steps,
+            "K3": TP_LAYERS * steps, "K4": steps}
     if any(r["launches"] != want for r in ranks) or \
             any(h != TP_HEADS for h in row["local_heads"]):
         fail(f"train_tp launches {row['launches_by_rank']} != {want} a rank "
              f"or local heads {row['local_heads']} != {TP_HEADS}")
-    if not masks_equal or len(calls1) != TRAIN_LAYERS:
+    if not masks_equal or len(calls1) != TP_LAYERS:
         fail("train_tp at dropout 0.1: a rank's attention masks differ from "
              "the model-1 run's at its heads")
     return row
@@ -6706,6 +6782,593 @@ def phase_train_pipe_tp_moe(torch):
     return row
 
 
+# ---------------------------------------------------------------------------
+# the gradient compressors (phases 29-32): the int8 quantized all-reduce,
+# the 1-bit compressed all-reduce and 1-bit Adam
+# ---------------------------------------------------------------------------
+
+F5_WORLD = 2                       # data ranks on cuda:0 (phases 29-31)
+F5_PTP_WORLD = 8                   # pipe 2 x model 2 x data 2 (phase 32)
+QC_B, QC_LR = 8, 1e-4              # the bench.py:405-450 row: GPT-2 125M
+QC_STEPS = 3                       # a run's steps; the first is not timed
+QC_LOSS_RTOL = 5e-3                # JAX's pin (test_quantized_parity)
+QC_RUNS = [("fp32", {}),
+           ("q0", {"comm_quantization": {"enabled": True}}),
+           ("q2", {"comm_quantization": {"enabled": True,
+                                         "error_feedback": True},
+                   "zero_optimization": {"stage": 2},
+                   "gradient_accumulation_steps": 2})]
+OB_STEPS, OB_FREEZE = 6, 2
+# Adam's eps in phases 30-32: the vocabulary rows no token of the batch
+# touches keep v = 0 through the warmup, and after the freeze their
+# compressed momentum is +-scale (the 1-bit image of 0 is +scale), a
+# step of lr x scale / eps: at eps 1e-8 the loss blows up within 2 steps
+OB_EPS = 1e-4
+# 1-bit Adam's warmup against K4 without bias correction: the first
+# step's update is the same formula of the same gradient, but K4 takes
+# 1 - beta2 in fp32 (0.0010000467) and the 1-bit update, as JAX's,
+# rounds 1 - 0.999 once (0.001): v is 4.7e-5 apart, the update at most
+# half that (1e-4 relative L2 leaves 4x); the warmup losses read masters
+# that close through bf16 casts: rtol 1e-4. (The step-2 update is
+# reported, not gated: where a gradient near 0 flips its sign between
+# the runs, Adam's step is lr x sign.)
+OB_WARMUP_LOSS_RTOL, OB_WARMUP_UPDATE_RTOL = 1e-4, 1e-4
+# the 1-bit scale ||x|| / sqrt(n) in fp32 on the card against float64
+# over the model's 1.2e8 elements: torch's reduction sums a few hundred
+# terms serially per thread, then a tree, so the sum of squares errs by
+# about (256 + log2 n) 2^-24 ~ 1.7e-5 at worst and the norm by half;
+# 1e-4 leaves over 10x
+OB_SCALE_RTOL = 1e-4
+# phase 31 cuts 350M's depth to 4 blocks, phase 32 the train_pipe_tp
+# row's to 2 (one a stage): the script's 1200 s holds every phase
+PO_BLOCKS, PTO_BLOCKS, PO_STEPS, PO_FREEZE = 4, 2, 4, 2
+PO_WARMUP_RTOL = 2e-4              # JAX test_onebit_pipeline.py's
+F5_FAULTS = {"train_pipe_onebit": "tied_in_body",
+             "train_pipe_tp_onebit": "rep_with_mp"}
+
+
+def _f5_rows(x, accum, data, d):
+    """Data rank ``d``'s rows of a global batch (JAX ``_shard_batch``:
+    global micro-batch k's rows ``[d*m, (d+1)*m)``)."""
+    per = x.shape[0] // accum
+    m = per // data
+    return x.reshape((accum, per) + x.shape[1:])[:, d * m:(d + 1) * m] \
+        .reshape((accum * m,) + x.shape[1:])
+
+
+def _host_digest(tensors):
+    """sha256 of the tensors' bytes, copied to the host (a bitwise gate's
+    operand)."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().view(-1).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _f5_gpt2_125m(torch):
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHead, gpt2_125m
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    return GPT2LMHead(gpt2_125m(n_positions=TRAIN_T, dropout=0.0,
+                                use_flash_attention=True, loss_chunk=0),
+                      device="cuda", generator=gen)
+
+
+def _f5_dp_run(torch, extra, steps, counters, rank, keep=None):
+    """``steps`` steps of GPT-2 125M at data 2 under ``extra`` config
+    keys: losses, walls, each step's params digest, K1-K4 launches, the
+    last step's collectives (the port's counts by kind and dtype, and the
+    engine's data-group counts). ``keep`` (step numbers) also returns the
+    masters after those steps, by step."""
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.parallel import collectives as C
+    cfg = {"train_batch_size": QC_B, "bf16": {"enabled": True},
+           "optimizer": {"type": "Adam", "params": {"lr": QC_LR}},
+           "steps_per_print": 10 ** 9}
+    cfg.update(extra)
+    accum = int(cfg.get("gradient_accumulation_steps", 1))
+    engine, _, _, _ = initialize(model=_f5_gpt2_125m(torch), config=cfg)
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 50257, (QC_B, TRAIN_T)).astype(np.int64)
+    batch = {"input_ids": torch.from_numpy(_f5_rows(x, accum, F5_WORLD,
+                                                    rank))}
+    start = [p.detach().clone() for p in engine.params]
+    for c in counters.values():
+        c.launches = 0
+    out = {"losses": [], "walls": [], "digests": [], "errors": [],
+           "step_bytes": []}
+    kept = {}
+    for i in range(steps):
+        C.reset_collective_counts()
+        engine.comm.reset()
+        t0 = time.perf_counter()
+        out["losses"].append(float(engine.train_batch(batch)))
+        out["walls"].append(time.perf_counter() - t0)
+        counts, comm = C.collective_counts(), engine.comm.snapshot()
+        out["step_bytes"].append({
+            "collectives": counts,
+            "data_group": {k: v for k, v in comm.items()
+                           if v["calls"]}})
+        out["digests"].append(_host_digest(engine.params))
+        s = engine.opt_state
+        if hasattr(s, "worker_error"):
+            out["errors"].append(float(s.worker_error.abs().sum()))
+        if i + 1 in (keep or ()):
+            kept[i + 1] = [p.detach().clone() for p in engine.params]
+    out["launches"] = {n: c.launches for n, c in counters.items()}
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, start, kept
+
+
+def _qcomm_worker(torch, spec, groups, rank):
+    counters = _flash_counters()
+    out = {"rank": rank}
+    for name, extra in QC_RUNS:
+        out[name] = _f5_dp_run(torch, extra, QC_STEPS, counters, rank)[0]
+    return out
+
+
+def _wire_bytes(step):
+    """A step's gradient-exchange bytes by dtype: the quantized
+    exchange's all-to-all and all-gather (the port's counts), else the
+    data group's dense all-reduce (the engine's counts, scalar votes
+    apart)."""
+    out = {}
+    for kind in ("all_to_all", "all_gather", "all_reduce"):
+        for dt, n in step["collectives"].get(kind, {}).get(
+                "dtypes", {}).items():
+            out[f"{kind}/{dt}"] = out.get(f"{kind}/{dt}", 0) + n
+    dense = step["data_group"].get("all_reduce", {}).get("bytes", 0)
+    if dense:
+        out["all_reduce/float32"] = out.get("all_reduce/float32", 0) + dense
+    return out
+
+
+def _send_bytes(wire, world):
+    """Bytes a rank sends on a ring (the counted operands: an
+    all-reduce's tensor sends 2 (N-1)/N of it, an all-to-all's stack and
+    an all-gather's output (N-1)/N)."""
+    f = (world - 1) / world
+    return sum((2 * f if k.startswith("all_reduce") else f) * n
+               for k, n in wire.items())
+
+
+def phase_train_qcomm(torch, ranks):
+    """The int8 gradient all-reduce at data 2 (module docstring, phase
+    29), from its ranks' results (``_f5_data_worker``)."""
+    r0 = ranks[0]
+    base = r0["fp32"]["losses"]
+    runs = {}
+    for name, extra in QC_RUNS:
+        run = r0[name]
+        wire = _wire_bytes(run["step_bytes"][-1])
+        timed = [max(r[name]["walls"][i] for r in ranks)
+                 for i in range(1, QC_STEPS)]
+        runs[name] = {
+            "config": extra, "losses": run["losses"],
+            "max_rel_vs_fp32": max(abs(a - b) / abs(b) for a, b in
+                                   zip(run["losses"], base)),
+            "ranks_bitwise_every_step": all(
+                r[name]["digests"] == run["digests"] for r in ranks),
+            "step_p50_ms": statistics.median(timed) * 1e3,
+            "wire_bytes_a_step": wire,
+            "send_bytes_a_step": _send_bytes(wire, F5_WORLD),
+            "launches_by_rank": [r[name]["launches"] for r in ranks]}
+    fp32_send = runs["fp32"]["send_bytes_a_step"]
+    for name in ("q0", "q2"):
+        runs[name]["wire_ratio_vs_fp32"] = \
+            fp32_send / runs[name]["send_bytes_a_step"]
+    c = 512
+    row = {"phase": "train_qcomm", "model": "gpt2_125m", "rows": QC_B,
+           "seq": TRAIN_T, "dtype": "bfloat16", "data": F5_WORLD,
+           "processes": F5_WORLD, "device": "cuda:0",
+           "backend": "gloo (CUDA tensors, one device)",
+           "chunk_size": c, "bucket_mb": 4, "runs": runs,
+           "loss_rtol": QC_LOSS_RTOL,
+           "predicted_wire_ratio": 4 / (1 + 4 / c)}
+    emit(row)
+    for name, run in runs.items():
+        if not run["ranks_bitwise_every_step"]:
+            fail(f"train_qcomm {name}: the ranks' params differ")
+        if not all(np.isfinite(run["losses"])) or \
+                run["max_rel_vs_fp32"] > QC_LOSS_RTOL:
+            fail(f"train_qcomm {name}: losses {run['losses']} vs fp32 "
+                 f"{base} beyond rtol {QC_LOSS_RTOL}")
+        accum = int(QC_RUNS[[n for n, _ in QC_RUNS].index(name)][1].get(
+            "gradient_accumulation_steps", 1))
+        want = {"K1": N_LAYER * accum * QC_STEPS,
+                "K2": N_LAYER * accum * QC_STEPS,
+                "K3": N_LAYER * accum * QC_STEPS, "K4": QC_STEPS}
+        if any(lr != want for lr in run["launches_by_rank"]):
+            fail(f"train_qcomm {name} launches {run['launches_by_rank']} "
+                 f"!= {want}")
+    for name in ("q0", "q2"):
+        if "all_to_all/int8" not in runs[name]["wire_bytes_a_step"]:
+            fail(f"train_qcomm {name}: no int8 exchange ran")
+    return row
+
+
+def _onebit_worker(torch, spec, groups, rank):
+    counters = _flash_counters()
+    out = {"rank": rank}
+    nobias = {"optimizer": {"type": "Adam", "params": {
+        "lr": QC_LR, "eps": OB_EPS, "bias_correction": False}}}
+    onebit = {"optimizer": {"type": "OneBitAdam", "params": {
+        "lr": QC_LR, "eps": OB_EPS, "freeze_step": OB_FREEZE}}}
+    steps = (1, OB_FREEZE)
+    out["nobias"], start, adam = _f5_dp_run(
+        torch, nobias, OB_FREEZE + 1, counters, rank, keep=steps)
+    out["onebit"], _, ob = _f5_dp_run(torch, onebit, OB_STEPS, counters,
+                                      rank, keep=steps)
+    for step in steps:
+        num = sum(float(((x - y).double() ** 2).sum())
+                  for x, y in zip(ob[step], adam[step]))
+        den = sum(float(((y - s).double() ** 2).sum())
+                  for y, s in zip(adam[step], start))
+        out[f"update_rel_l2_step{step}"] = math.sqrt(num / den)
+    del start, adam, ob
+    torch.cuda.empty_cache()
+    return out
+
+
+def _codec_check(torch, n):
+    """``pack_signs`` / ``unpack_signs`` and the worker's 1-bit scale on
+    the card against the same functions on the host (seeded values of
+    the model's size): the bits equal, the scale within
+    ``OB_SCALE_RTOL`` of float64."""
+    from deepspeed_tpu_torch.runtime.comm import compressed as pc
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(n, generator=gen)
+    padded, _ = pc.error_feedback_sizes(n, F5_WORLD)
+    x = torch.cat([x, torch.zeros(padded - n)])
+    zeros = torch.zeros(padded)
+    dev = pc.compressed_worker(x.cuda(), zeros.cuda(), F5_WORLD, n)
+    host = pc.compressed_worker(x, zeros, F5_WORLD, n)
+    bits_equal = torch.equal(dev[0].cpu(), host[0])
+    unpacked_equal = torch.equal(pc.unpack_signs(dev[0]).cpu(),
+                                 pc.unpack_signs(host[0]))
+    want = float(np.linalg.norm(x.numpy().astype(np.float64)) /
+                 math.sqrt(n))
+    rel = abs(float(dev[1]) - want) / want
+    return {"elements": n, "bits_equal": bits_equal,
+            "unpack_equal": unpacked_equal, "scale_rel_err": rel,
+            "scale_rtol": OB_SCALE_RTOL}
+
+
+def phase_train_onebit(torch, ranks):
+    """1-bit Adam at data 2 (module docstring, phase 30), from its ranks'
+    results (``_f5_data_worker``)."""
+    r0 = ranks[0]
+    ob, nb = r0["onebit"], r0["nobias"]
+    warm = max(abs(a - b) / abs(b) for a, b in
+               zip(ob["losses"][:OB_FREEZE + 1], nb["losses"]))
+    dense = _send_bytes(_wire_bytes(ob["step_bytes"][0]), F5_WORLD)
+    comp = _send_bytes(_wire_bytes(ob["step_bytes"][-1]), F5_WORLD)
+    walls = [max(r["onebit"]["walls"][i] for r in ranks)
+             for i in range(OB_STEPS)]
+    n = sum(p.numel() for p in _f5_gpt2_125m(torch).parameters())
+    gc.collect()
+    torch.cuda.empty_cache()
+    codec = _codec_check(torch, n)
+    row = {"phase": "train_onebit", "model": "gpt2_125m", "rows": QC_B,
+           "seq": TRAIN_T, "dtype": "bfloat16", "data": F5_WORLD,
+           "freeze_step": OB_FREEZE, "steps": OB_STEPS,
+           "losses": ob["losses"], "nobias_losses": nb["losses"],
+           "warmup_loss_max_rel": warm,
+           "warmup_loss_rtol": OB_WARMUP_LOSS_RTOL,
+           "warmup_update_rel_l2": max(r["update_rel_l2_step1"]
+                                       for r in ranks),
+           "warmup_update_rel_l2_step2": max(
+               r[f"update_rel_l2_step{OB_FREEZE}"] for r in ranks),
+           "warmup_update_rtol": OB_WARMUP_UPDATE_RTOL, "eps": OB_EPS,
+           "ranks_bitwise_every_step": all(
+               r["onebit"]["digests"] == ob["digests"] for r in ranks),
+           "worker_error_abs_by_step": ob["errors"],
+           "dense_step_send_bytes": dense,
+           "compressed_step_send_bytes": comp,
+           "compression_ratio": dense / comp,
+           "wire_warmup_step": _wire_bytes(ob["step_bytes"][0]),
+           "wire_compressed_step": _wire_bytes(ob["step_bytes"][-1]),
+           "warmup_step_ms": walls[OB_FREEZE - 1] * 1e3,
+           "compressed_step_p50_ms": statistics.median(
+               walls[OB_FREEZE:]) * 1e3,
+           "launches_by_rank": [r["onebit"]["launches"] for r in ranks],
+           "codec": codec}
+    emit(row)
+    if warm > OB_WARMUP_LOSS_RTOL or \
+            row["warmup_update_rel_l2"] > OB_WARMUP_UPDATE_RTOL:
+        fail(f"train_onebit: the warmup is not Adam without bias "
+             f"correction ({warm}, {row['warmup_update_rel_l2']})")
+    if not row["ranks_bitwise_every_step"] or \
+            not all(np.isfinite(ob["losses"])):
+        fail("train_onebit: the ranks' params differ or a loss is not "
+             "finite")
+    if any(e != 0 for e in ob["errors"][:OB_FREEZE]) or \
+            not all(e > 0 for e in ob["errors"][OB_FREEZE:]):
+        fail(f"train_onebit: error buffers {ob['errors']}: zero through "
+             f"the warmup, nonzero after the freeze expected")
+    if not (codec["bits_equal"] and codec["unpack_equal"]) or \
+            codec["scale_rel_err"] > OB_SCALE_RTOL:
+        fail(f"train_onebit: the codec on the card differs from the "
+             f"host's ({codec})")
+    want = {"K1": N_LAYER * OB_STEPS, "K2": N_LAYER * OB_STEPS,
+            "K3": N_LAYER * OB_STEPS, "K4": 0}
+    if any(lr != want for lr in row["launches_by_rank"]):
+        fail(f"train_onebit launches {row['launches_by_rank']} != {want}")
+    if "all_to_all/uint8" not in row["wire_compressed_step"]:
+        fail("train_onebit: no packed signs crossed after the freeze")
+    return row
+
+
+def _plant_group_fault(fault):
+    """Replace ``pipeline_onebit_groups`` with a faulty grouping:
+    ``tied_in_body`` compresses the tied leaves in the body's buffer,
+    ``rep_with_mp`` the model-replicated body leaves with the
+    model-sharded ones."""
+    from deepspeed_tpu_torch.runtime.fp16 import onebit_adam as po
+    right = po.pipeline_onebit_groups
+
+    def faulty(names, model_sharded, model=1, reference=None):
+        kinds = dict(right(names, model_sharded, model, reference))
+        if fault == "tied_in_body" and "tied" in kinds:
+            kinds["body"] = kinds["body"] + kinds.pop("tied")
+        if fault == "rep_with_mp" and "body_rep" in kinds:
+            kinds["body_mp"] = kinds["body_mp"] + kinds.pop("body_rep")
+        return [(k, sorted(v)) for k, v in kinds.items()]
+
+    po.pipeline_onebit_groups = faulty
+
+
+def _f5_pipe_engine(torch, spec, opt, mpu=None):
+    """Phase 31's GPT-2 350M widths (``PO_BLOCKS`` blocks, bf16) at
+    pipe 2 x data 2, every stage of a replica here; phase 32's
+    ``tp_pipeline_module`` row (f32) at pipe 2 x model 2 x data 2, one
+    process a stage rank."""
+    from deepspeed_tpu_torch import initialize
+    cfg = {"train_batch_size": PIPE_TP_ROWS if spec["tp"] else PIPE_ROWS,
+           "gradient_accumulation_steps": PIPE_TP_MICRO if spec["tp"]
+           else PIPE_MICRO, "steps_per_print": 10 ** 9,
+           "mesh": spec["mesh"], "optimizer": opt}
+    if spec["tp"]:
+        from deepspeed_tpu_torch.parallel.pipe_tp import tp_pipeline_module
+        module = tp_pipeline_module(PIPE_TP_VOCAB, PIPE_TP_D, PIPE_TP_H,
+                                    PIPE_TP_T, n_blocks=PTO_BLOCKS,
+                                    num_stages=2, use_flash=True)
+    else:
+        from deepspeed_tpu_torch.models.gpt2 import GPT2Config
+        from deepspeed_tpu_torch.models.gpt2_pipe import gpt2_pipeline_module
+        # gpt2_350m's widths, depth cut to PO_BLOCKS
+        module = gpt2_pipeline_module(GPT2Config(
+            n_embd=1024, n_layer=PO_BLOCKS, n_head=16,
+            n_positions=TRAIN_T, dropout=0.0, use_flash_attention=True,
+            loss_chunk=0), seq_len=TRAIN_T)
+        cfg["bf16"] = {"enabled": True}
+    engine, _, _, _ = initialize(model=module, config=cfg, mpu=mpu)
+    return engine
+
+
+def _f5_pipe_batch(torch, spec, engine):
+    rows, micro, vocab, t = (PIPE_TP_ROWS, PIPE_TP_MICRO, PIPE_TP_VOCAB,
+                             PIPE_TP_T) if spec["tp"] else \
+        (PIPE_ROWS, PIPE_MICRO, 50257, TRAIN_T)
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, vocab, (rows, t)).astype(np.int64)
+    return {"input_ids": torch.from_numpy(_f5_rows(
+        x, micro, engine.dp_world_size, engine.dp_rank))}
+
+
+def _pipe_onebit_worker(torch, spec, groups, rank):
+    """One rank of phases 31-32: Adam without bias correction, then 1-bit
+    Adam (with ``spec["fault"]``: only 1-bit Adam, frozen at once, under
+    the planted grouping). Each step: the loss, the wall, whether this
+    process's tied copies agree, and the digest of its leaves not split
+    over the model axis (their copies on the other model ranks must be
+    equal)."""
+    from deepspeed_tpu_torch.parallel import collectives as C
+    counters = _flash_counters()
+    out = {"rank": rank}
+    runs = [("onebit", {"type": "OneBitAdam", "params": {
+        "lr": 1e-4, "eps": OB_EPS, "freeze_step": 0}}, 2)] \
+        if spec.get("fault") else [
+        ("nobias", {"type": "Adam", "params": {
+            "lr": 1e-4, "eps": OB_EPS, "bias_correction": False}},
+         PO_FREEZE + 1),
+        ("onebit", {"type": "OneBitAdam", "params": {
+            "lr": 1e-4, "eps": OB_EPS, "freeze_step": PO_FREEZE}},
+         PO_STEPS)]
+    if spec.get("fault"):
+        _plant_group_fault(spec["fault"])
+    mpu = groups if spec.get("in_process_pipe") else None
+    for name, opt, steps in runs:
+        engine = _f5_pipe_engine(torch, spec, opt, mpu)
+        batch = _f5_pipe_batch(torch, spec, engine)
+        for c in counters.values():
+            c.launches = 0
+        run = {"losses": [], "walls": [], "tied_equal": [],
+               "replicated_digest": [], "bytes": []}
+        for _ in range(steps):
+            C.reset_collective_counts()
+            t0 = time.perf_counter()
+            run["losses"].append(float(engine.train_batch(batch)))
+            run["walls"].append(time.perf_counter() - t0)
+            run["bytes"].append(C.collective_counts())
+            held = {}
+            rep = []
+            for se in engine.stage_engines:
+                for n, p, sh in zip(se._param_names(), se.params,
+                                    se._tp_specs):
+                    if n.startswith("tied."):
+                        held.setdefault(n, []).append(p.detach().cpu())
+                    if sh is None or sh.axis != "model":
+                        rep.append(p)
+            run["tied_equal"].append(all(
+                torch.equal(ts[0], t) for ts in held.values() for t in ts))
+            run["replicated_digest"].append(_host_digest(rep))
+        run["launches"] = {n: c.launches for n, c in counters.items()}
+        run["groups"] = {se.module.stage_id: [
+            [k, len(i)] for k, i in getattr(se, "_onebit_groups", [])]
+            for se in engine.stage_engines}
+        run["errors"] = [float(se.opt_state.worker_error.abs().sum())
+                         for se in engine.stage_engines
+                         if hasattr(se.opt_state, "worker_error")]
+        run["stages"] = [se.module.stage_id for se in engine.stage_engines]
+        run["data_rank"] = engine.dp_rank
+        run["model_rank"] = engine._axes["model"].rank
+        run["tied_holders"] = {k: engine.parts.tied_holders(k)
+                               for k in engine.parts.tied_keys()}
+        out[name] = run
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tied_digests_agree(ranks, name):
+    """Every step, in every process: the tied copies of its stages equal
+    (phase 31 holds both end stages in one process; phase 32's module
+    ties no layer)."""
+    return all(all(r[name]["tied_equal"]) for r in ranks)
+
+
+def _replicated_agree(ranks, name):
+    """Every step: the leaves not split over the model axis hash equal
+    on the model ranks of each (stage, data) coordinate."""
+    by = {}
+    for r in ranks:
+        run = r[name]
+        key = (tuple(run["stages"]), run["data_rank"])
+        by.setdefault(key, []).append(run["replicated_digest"])
+    return all(all(d == ds[0] for d in ds) for ds in by.values())
+
+
+def _f5_spec(tp=False, fault=None):
+    return {"tp": tp, "fault": fault,
+            "mesh": {"pipe": 2, "model": 2, "data": 2} if tp else
+            {"pipe": 2, "data": F5_WORLD}, "in_process_pipe": not tp}
+
+
+def _f5_data_worker(torch, spec, groups, rank):
+    """Phases 29-31's ranks in one world of two processes (one start-up
+    for the three; the data-parallel engines see the same data group of
+    two as the pipeline's in-process stages): each part's result by
+    phase."""
+    return {name: worker(torch, spec, groups, rank) for name, worker in (
+        ("train_qcomm", _qcomm_worker), ("train_onebit", _onebit_worker),
+        ("train_pipe_onebit", _pipe_onebit_worker))}
+
+
+def phase_train_pipe_onebit(torch, fault=None, tp=False, ranks=None):
+    """1-bit Adam through the pipeline (module docstring, phases 31 and
+    32; with ``fault`` the planted grouping, which must break its
+    equality gate), from ``ranks`` (phase 31's, ``_f5_data_worker``) or
+    a world of its own."""
+    name = "train_pipe_tp_onebit" if tp else "train_pipe_onebit"
+    spec = _f5_spec(tp, fault)
+    if ranks is None:
+        ranks, _ = _spawn_tp(torch, name, spec,
+                             world=F5_PTP_WORLD if tp else F5_WORLD)
+    r0 = ranks[0]
+    row = {"phase": name, "mesh": spec["mesh"], "processes": len(ranks),
+           "device": "cuda:0", "backend": "gloo (CUDA tensors, one device)",
+           "layout": "one process a stage rank" if tp else
+           "every stage of a data replica in one process",
+           "fault": fault}
+    if tp:
+        row.update(model="tp_pipeline_module", vocab=PIPE_TP_VOCAB,
+                   d_model=PIPE_TP_D, n_head=PIPE_TP_H,
+                   blocks=PTO_BLOCKS, rows=PIPE_TP_ROWS, seq=PIPE_TP_T,
+                   micro_batches=PIPE_TP_MICRO, dtype="float32")
+    else:
+        row.update(model="gpt2_350m widths", blocks=PO_BLOCKS,
+                   rows=PIPE_ROWS, seq=TRAIN_T, micro_batches=PIPE_MICRO,
+                   dtype="bfloat16")
+    ob = r0["onebit"]
+    tied_ok = _tied_digests_agree(ranks, "onebit")
+    rep_ok = _replicated_agree(ranks, "onebit")
+    row.update(losses=ob["losses"], groups=ob["groups"],
+               tied_equal_every_step=tied_ok,
+               replicated_equal_every_step=rep_ok,
+               tied_holders=ob["tied_holders"],
+               errors_by_rank=[r["onebit"]["errors"] for r in ranks])
+    if fault:
+        emit(row)
+        broken = not tied_ok if fault == "tied_in_body" else not rep_ok
+        row["fault_caught"] = broken
+        return row
+    nb = r0["nobias"]
+    warm = max(abs(a - b) / abs(b) for a, b in
+               zip(ob["losses"][:PO_FREEZE + 1], nb["losses"]))
+    walls = [max(r["onebit"]["walls"][i] for r in ranks)
+             for i in range(PO_STEPS)]
+    row.update(nobias_losses=nb["losses"], warmup_loss_max_rel=warm,
+               warmup_rtol=PO_WARMUP_RTOL, freeze_step=PO_FREEZE,
+               eps=OB_EPS, warmup_step_ms=walls[PO_FREEZE - 1] * 1e3,
+               compressed_step_p50_ms=statistics.median(
+                   walls[PO_FREEZE:]) * 1e3,
+               wire_compressed_step=ob["bytes"][-1],
+               wire_warmup_step=ob["bytes"][0],
+               launches_by_rank=[r["onebit"]["launches"] for r in ranks])
+    emit(row)
+    if warm > PO_WARMUP_RTOL:
+        fail(f"{name}: warmup {ob['losses'][:PO_FREEZE + 1]} vs Adam "
+             f"without bias correction {nb['losses']} beyond rtol "
+             f"{PO_WARMUP_RTOL}")
+    if not all(np.isfinite(ob["losses"])) or \
+            not ob["losses"][-1] < ob["losses"][0]:
+        fail(f"{name}: losses {ob['losses']} not finite and falling")
+    if not tied_ok or (tp and not rep_ok):
+        fail(f"{name}: shared copies diverged (tied {tied_ok}, "
+             f"model-replicated {rep_ok})")
+    if not all(e > 0 for r in ranks for e in r["onebit"]["errors"]):
+        fail(f"{name}: an error buffer is zero after the freeze")
+    blocks = (PTO_BLOCKS if tp else PO_BLOCKS) // 2
+    micro = PIPE_TP_MICRO if tp else PIPE_MICRO
+    for r in ranks:
+        per = blocks * micro * PO_STEPS * len(r["onebit"]["stages"])
+        want = {"K1": per, "K2": per, "K3": per, "K4": 0}
+        if r["onebit"]["launches"] != want:
+            fail(f"{name} launches {r['onebit']['launches']} != {want}")
+    return row
+
+
+def phase_train_pipe_tp_onebit(torch, fault=None):
+    return phase_train_pipe_onebit(torch, fault=fault, tp=True)
+
+
+def phase_f5(torch, lap):
+    """Phases 29-32: 29-31 from one world of two processes
+    (``_f5_data_worker``), then 32; ``lap`` names each world's wall.
+    Returns the rows by phase."""
+    ranks, _ = _spawn_tp(torch, "f5_data", _f5_spec(), world=F5_WORLD)
+    rows = {"train_qcomm": phase_train_qcomm(
+        torch, [r["train_qcomm"] for r in ranks]),
+        "train_onebit": phase_train_onebit(
+            torch, [r["train_onebit"] for r in ranks]),
+        "train_pipe_onebit": phase_train_pipe_onebit(
+            torch, ranks=[r["train_pipe_onebit"] for r in ranks])}
+    lap("train_qcomm+onebit+pipe_onebit")
+    rows["train_pipe_tp_onebit"] = phase_train_pipe_tp_onebit(torch)
+    lap("train_pipe_tp_onebit")
+    return rows
+
+
+def phase_f5_faults(torch):
+    """Phases 31 and 32 under their planted faults: each must break its
+    equality gate (``--f5-faults``)."""
+    rows = [phase_train_pipe_onebit(torch, fault=F5_FAULTS[
+                "train_pipe_onebit"]),
+            phase_train_pipe_tp_onebit(torch, fault=F5_FAULTS[
+                "train_pipe_tp_onebit"])]
+    emit({"phase": "f5_faults", "caught": {r["phase"]: r["fault_caught"]
+                                           for r in rows}})
+    if not all(r["fault_caught"] for r in rows):
+        fail(f"f5_faults: a planted fault passed its gate: "
+             f"{[(r['phase'], r['fault']) for r in rows]}")
+
+
 SP_MOE_PHASES = [("seq_attention", phase_seq_attention),
                  ("train_pipe_sp", phase_train_pipe_sp),
                  ("train_moe", phase_train_moe),
@@ -6715,7 +7378,10 @@ _TP_WORKERS = {"train_tp": _tp_train_worker, "serve_tp": _tp_serve_worker,
                "train_pipe_tp": _pipe_tp_worker,
                "seq_attention": _seq_attention_worker,
                "train_pipe_sp": _sp_worker, "train_moe": _moe_worker,
-               "train_pipe_tp_moe": _ptm_worker}
+               "train_pipe_tp_moe": _ptm_worker,
+               "f5_data": _f5_data_worker,
+               "train_pipe_onebit": _pipe_onebit_worker,
+               "train_pipe_tp_onebit": _pipe_onebit_worker}
 
 
 def main(argv=None):
@@ -6756,6 +7422,22 @@ def main(argv=None):
                              "expert 2 run again under each planted "
                              "fault (MOE_FAULTS): fails unless a gate "
                              "catches each")
+    parser.add_argument("--comm-only", action="store_true",
+                        help="device, build, then only the gradient "
+                             "compressors' phases (train_qcomm, "
+                             "train_onebit, train_pipe_onebit, "
+                             "train_pipe_tp_onebit)")
+    parser.add_argument("--f5-faults", action="store_true",
+                        help="device, build, then train_pipe_onebit and "
+                             "train_pipe_tp_onebit each under a planted "
+                             "buffer-grouping fault (F5_FAULTS): fails "
+                             "unless each breaks its equality gate")
+    parser.add_argument("--phases", metavar="NAMES",
+                        help="device, build, then only the named "
+                             "phases (comma-separated; each a "
+                             "phase_<name>(torch) of this script, e.g. "
+                             "train_zero,train_pipe,train_tp), with "
+                             "their walls")
     parser.add_argument("--tp-worker", nargs=2, metavar=("SPEC", "RANK"),
                         help=argparse.SUPPRESS)   # a TP phase's rank
     parser.add_argument("--serving-only", action="store_true",
@@ -6822,6 +7504,24 @@ def main(argv=None):
     if args.moe_faults:
         phase_train_moe(torch, faults=MOE_FAULTS)
         lap("train_moe")
+        emit({"phase": "walls", "seconds": walls})
+        print(smi, flush=True)
+        return 0
+    if args.phases:
+        for name in args.phases.split(","):
+            globals()[f"phase_{name}"](torch)
+            lap(name)
+        emit({"phase": "walls", "seconds": walls})
+        print(smi, flush=True)
+        return 0
+    if args.comm_only:
+        phase_f5(torch, lap)
+        emit({"phase": "walls", "seconds": walls})
+        print(smi, flush=True)
+        return 0
+    if args.f5_faults:
+        phase_f5_faults(torch)
+        lap("f5_faults")
         emit({"phase": "walls", "seconds": walls})
         print(smi, flush=True)
         return 0
@@ -6913,6 +7613,7 @@ def main(argv=None):
     for name, phase in SP_MOE_PHASES:
         sp_moe[name] = phase(torch)
         lap(name)
+    f5 = phase_f5(torch, lap)
     emit({"phase": "walls", "seconds": walls})
     t = timing["bfloat16/serve_mix"]
     kernels = [{
@@ -6994,6 +7695,17 @@ def main(argv=None):
                 lr[key] for lr in sp_moe["train_moe"]["launches_by_rank"]],
             "pipe_tp_moe_launches_by_rank": [
                 lr[key] for lr in sp_moe["train_pipe_tp_moe"]["runs"]["off"][
+                    "launches_by_rank"]],
+            "qcomm_launches_by_rank": {
+                n: [lr[key] for lr in run["launches_by_rank"]]
+                for n, run in f5["train_qcomm"]["runs"].items()},
+            "onebit_launches_by_rank": [
+                lr[key] for lr in f5["train_onebit"]["launches_by_rank"]],
+            "pipe_onebit_launches_by_rank": [
+                lr[key] for lr in f5["train_pipe_onebit"][
+                    "launches_by_rank"]],
+            "pipe_tp_onebit_launches_by_rank": [
+                lr[key] for lr in f5["train_pipe_tp_onebit"][
                     "launches_by_rank"]],
             "max_abs_err": max(train_errs[key], r.get("max_abs_err", 0.0)),
             "ms": r["ms"],

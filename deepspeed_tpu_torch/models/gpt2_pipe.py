@@ -104,6 +104,14 @@ class GPT2BlockLayer(Block):
     def forward(self, x, ctx=None):
         return super().forward(x, drop=_drop(self.config, ctx))
 
+    @staticmethod
+    def reference_leaves():
+        """The block's leaves in JAX's flat order (the flax paths sorted)
+        as ``(name, transposed)``: the order 1-bit Adam compresses a
+        stage's body in (``runtime/fp16/onebit_adam.py``)."""
+        return [(name, transposed) for name, _, transposed in
+                sorted(_block_leaves(), key=lambda leaf: leaf[1])]
+
 
 class GPT2FinalNorm(LayerNorm):
     """Epilogue ``ln_f``."""

@@ -41,13 +41,18 @@ backwards are ``torch.autograd.Function``\\ s where JAX has a
 - :func:`record_collective_sites`: a log of :class:`SiteRecord`\\ s, one
   per collective group a helper issues (JAX logs them while tracing;
   here while running).
+- The chunk-server pair (:func:`scatter_to_chunk_servers`,
+  :func:`gather_from_chunk_servers`): the two phases the int8 and the
+  1-bit all-reduces ride (``runtime/comm/quantized.py``,
+  ``runtime/comm/compressed.py``); the scatter is the batched
+  all-to-all, the gather an all-gather.
 
 JAX's ``manual_axes`` / ``axis_is_manual`` and ``barrier_after`` have no
 counterpart: explicit groups say where a collective runs, and eager
 collectives issue in program order on every rank.
 
 Every collective is counted (:func:`collective_counts`: calls and bytes
-by kind). On one card the model group runs gloo on CUDA tensors
+by kind, and the bytes by dtype). On one card the model group runs gloo on CUDA tensors
 (``parallel/mesh.py``): gloo stages ``all_reduce``, ``broadcast`` and
 ``all_gather`` through host memory itself; ``ppermute``, all-to-all and
 reduce-scatter are staged here explicitly, through a host copy
@@ -80,16 +85,20 @@ def reset_collective_counts():
 
 
 def collective_counts():
-    """``{kind: {"calls", "bytes"}}`` since the last reset (bytes of the
-    operand sent by this rank: the all-reduce's tensor, the all-gather's
-    output, the ppermute's buffer)."""
-    return {k: dict(v) for k, v in _COUNTS.items()}
+    """``{kind: {"calls", "bytes", "dtypes": {dtype: bytes}}}`` since the
+    last reset (bytes of the operand sent by this rank: the all-reduce's
+    tensor, the all-gather's output, the ppermute's buffer, the
+    all-to-all's whole stack)."""
+    return {k: dict(v, dtypes=dict(v["dtypes"])) for k, v in _COUNTS.items()}
 
 
 def _count(kind, t):
-    row = _COUNTS.setdefault(kind, {"calls": 0, "bytes": 0})
+    row = _COUNTS.setdefault(kind, {"calls": 0, "bytes": 0, "dtypes": {}})
+    nbytes = t.numel() * t.element_size()
     row["calls"] += 1
-    row["bytes"] += t.numel() * t.element_size()
+    row["bytes"] += nbytes
+    key = str(t.dtype).replace("torch.", "")
+    row["dtypes"][key] = row["dtypes"].get(key, 0) + nbytes
 
 
 def _dist():
@@ -195,6 +204,38 @@ def _reduce_scatter_last(y, group):
     _count("reduce_scatter", inp)
     out = out.reshape(src.shape[:-1] + (m_loc,))
     return out.to(y.device) if host else out
+
+
+# ---------------------------------------------------------------------------
+# the chunk-server pair
+# ---------------------------------------------------------------------------
+
+def _map_leaves(fn, tree):
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(fn(v) for v in tree)
+    return fn(tree)
+
+
+def scatter_to_chunk_servers(tree, group):
+    """Chunk-server scatter: every leaf of ``tree`` (a tensor, or a tuple
+    or list of them) is a ``[world, ...]`` stack of per-destination rows;
+    rank r receives every rank's row r, stacked in source-rank order (JAX
+    ``parallel/collectives.py:93``, one ``all_to_all`` a leaf). The
+    reduce-scatter half of the chunk-server topology: the reference's
+    gather to chunk servers (``custom_collectives.py:23``)."""
+    if group is None or not group.active:
+        return tree
+    return _map_leaves(lambda v: _all_to_all(v, group, 0, 0), tree)
+
+
+def gather_from_chunk_servers(tree, group):
+    """Chunk-server gather: every rank contributes its served (reduced)
+    chunk, a tensor of any shape; all ranks receive the ``[world, ...]``
+    stack (JAX ``parallel/collectives.py:107``, one ``all_gather`` a
+    leaf)."""
+    return _map_leaves(lambda v: all_gather(v[None], group, dim=0)
+                       if group is not None and group.active else v[None],
+                       tree)
 
 
 # ---------------------------------------------------------------------------

@@ -255,6 +255,13 @@ class TPBlockLayer(nn.Module):
         self.ln1_scale.fill_(1.0)
         self.ln2_scale.fill_(1.0)
 
+    def reference_leaves(self):
+        """The block's leaves in JAX's flat order (its keys sorted), none
+        transposed: the order 1-bit Adam compresses a stage's body in
+        (``runtime/fp16/onebit_adam.py``)."""
+        return [(name, False) for name in
+                sorted(n for n, _ in self.named_parameters())]
+
     def _drop_ctx(self, ctx):
         """``(rate, attention seed, head offset, hidden drop)``: the
         attention seed keyed by the body layer's global index, the head

@@ -32,6 +32,12 @@ DeepSpeedActivationCheckpointingConfig`), ``progressive_layer_drop``
 package's checks: fp8 is incompatible with OneBitAdam, sparse gradients
 and ZeRO-Offload).
 
+The gradient compressors: ``comm_quantization`` (:class:`CommQuantization
+Config`, the int8 all-reduce of ``runtime/comm/quantized.py``, with JAX's
+checks: 8 bits, an even chunk, ZeRO <= 2, not with OneBitAdam, sparse
+gradients, offload or the fp8 wire) and ``optimizer.type: OneBitAdam``
+(``runtime/fp16/onebit_adam.py``, ``freeze_step`` among its params).
+
 The pipeline keys: ``pipeline`` (``stages``, ``partition``,
 ``seed_layers``, ``activation_checkpoint_interval``, read with JAX's
 defaults as ``config.pipeline``) and ``mesh`` (``config.mesh_shape``);
@@ -130,14 +136,13 @@ _PORTED_KEYS = frozenset((
     C.DISABLE_ALLGATHER, C.ZERO_ALLOW_UNTESTED_OPTIMIZER, C.DUMP_STATE,
     C.VOCABULARY_SIZE, C.AMP, C.WALL_CLOCK_BREAKDOWN, C.MEMORY_BREAKDOWN,
     C.INFERENCE, C.ACTIVATION_CHECKPOINTING, C.PROGRESSIVE_LAYER_DROP,
-    C.SPARSE_GRADIENTS, C.FP8, C.PIPELINE, C.MESH, C.TENSOR_PARALLEL))
+    C.SPARSE_GRADIENTS, C.FP8, C.PIPELINE, C.MESH, C.TENSOR_PARALLEL,
+    C.COMM_QUANTIZATION))
 
 # the keys the JAX config reads whose features are not ported yet, each
 # with the ROADMAP.md section 1 item that ports it
 _LATER_KEYS = {
     C.TELEMETRY: "item 6 (slice G, operations)",
-    C.COMM_QUANTIZATION: "item 5 F5 (1-bit Adam, quantized and compressed "
-                         "all-reduce)",
     C.RESILIENCE: "item 6 (slice G, operations)",
     C.ELASTICITY: "item 6 (slice G, operations)",
     C.ANALYSIS: "item 6 (slice G, operations)",
@@ -253,6 +258,34 @@ class TensorParallelConfig:
                            sites=dict(self.overlap_sites or {}),
                            wire_dtype=(str(wd) if wd else None),
                            wire_chunk=int(self.overlap_wire_chunk))
+
+
+class CommQuantizationConfig:
+    """Typed view of the ``comm_quantization`` block (JAX
+    ``CommQuantizationConfig``): the int8 chunk-scaled gradient
+    all-reduce (``runtime/comm/quantized.py``)."""
+
+    def __init__(self, param_dict):
+        sub = param_dict.get(C.COMM_QUANTIZATION, {}) or {}
+        self.enabled = get_scalar_param(sub, C.COMM_QUANTIZATION_ENABLED,
+                                        C.COMM_QUANTIZATION_ENABLED_DEFAULT)
+        self.bits = get_scalar_param(sub, C.COMM_QUANTIZATION_BITS,
+                                     C.COMM_QUANTIZATION_BITS_DEFAULT)
+        self.chunk_size = get_scalar_param(
+            sub, C.COMM_QUANTIZATION_CHUNK_SIZE,
+            C.COMM_QUANTIZATION_CHUNK_SIZE_DEFAULT)
+        self.bucket_mb = get_scalar_param(
+            sub, C.COMM_QUANTIZATION_BUCKET_MB,
+            C.COMM_QUANTIZATION_BUCKET_MB_DEFAULT)
+        self.error_feedback = get_scalar_param(
+            sub, C.COMM_QUANTIZATION_ERROR_FEEDBACK,
+            C.COMM_QUANTIZATION_ERROR_FEEDBACK_DEFAULT)
+
+    def __repr__(self):
+        return (f"CommQuantizationConfig(enabled={self.enabled}, "
+                f"bits={self.bits}, chunk_size={self.chunk_size}, "
+                f"bucket_mb={self.bucket_mb}, "
+                f"error_feedback={self.error_feedback})")
 
 
 class Fp8Config:
@@ -703,6 +736,7 @@ class DeepSpeedConfig:
         self.sparse_gradients_enabled = get_sparse_gradients_enabled(
             param_dict)
         self.fp8 = Fp8Config(param_dict)
+        self.comm_quantization = CommQuantizationConfig(param_dict)
         self.tensor_parallel = TensorParallelConfig(param_dict)
         self.pipeline = get_pipeline_config(param_dict)
         self.mesh_shape = get_mesh_config(param_dict)
@@ -802,6 +836,35 @@ class DeepSpeedConfig:
                     f"{MAX_STAGE_ZERO_OPTIMIZATION}")
         if self.fp16_enabled and self.bf16_enabled:
             raise ValueError("fp16 and bf16 cannot both be enabled")
+        self._check_comm_quantization()
+
+    def _check_comm_quantization(self):
+        """JAX ``config.py:1044-1066``: its checks and texts."""
+        cq = self.comm_quantization
+        if not cq.enabled:
+            return
+        assert cq.bits == 8, (
+            f"comm_quantization: only 8-bit quantization is "
+            f"implemented, got bits={cq.bits}")
+        assert cq.chunk_size > 0 and cq.chunk_size % 2 == 0, (
+            f"comm_quantization: chunk_size must be a positive even "
+            f"int, got {cq.chunk_size}")
+        assert cq.bucket_mb > 0, (
+            f"comm_quantization: bucket_mb must be positive, "
+            f"got {cq.bucket_mb}")
+        assert self.zero_optimization_stage <= 2, (
+            "comm_quantization covers the dense-DP / ZeRO-1/2 gradient "
+            "sync; ZeRO-3 shards params per-use and has no full-grad "
+            "all-reduce to quantize")
+        assert self.optimizer_name != ONEBIT_ADAM_OPTIMIZER, (
+            "comm_quantization and OneBitAdam both replace the "
+            "gradient all-reduce — enable one comm compressor only")
+        assert not self.sparse_gradients_enabled, (
+            "comm_quantization is incompatible with sparse_gradients "
+            "(the CSR path runs its own per-leaf exchange)")
+        assert self.zero_config.cpu_offload is not True, (
+            "comm_quantization requires the in-jit update path; "
+            "ZeRO-Offload steps the optimizer on host")
 
     def _check_tensor_parallel(self):
         """JAX ``config.py:1391-1450``: its checks and texts."""
@@ -886,8 +949,7 @@ class DeepSpeedConfig:
                 f"got {chunks!r}")
 
     def _check_fp8(self):
-        """JAX ``_check_fp8`` (``config.py:1297``); its comm_quantization
-        case cannot arise here (that key raises as not yet ported)."""
+        """JAX ``_check_fp8`` (``config.py:1297``)."""
         from deepspeed_tpu_torch.runtime.comm.codecs import CODECS
         f8 = self.fp8
         if not isinstance(f8.enabled, bool):
@@ -933,6 +995,10 @@ class DeepSpeedConfig:
                 raise ValueError(
                     f"fp8.wire: chunk_size must be an int >= 1, "
                     f"got {wc!r}")
+            if self.comm_quantization.enabled:
+                raise ValueError(
+                    "fp8.wire and comm_quantization both quantize the "
+                    "gradient exchange — enable one comm compressor only")
         if f8.enabled or f8.wire_enabled:
             if self.optimizer_name == ONEBIT_ADAM_OPTIMIZER:
                 raise ValueError(

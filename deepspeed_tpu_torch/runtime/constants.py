@@ -140,7 +140,19 @@ PIPELINE_ACTIVATION_CHECKPOINT_INTERVAL = "activation_checkpoint_interval"
 PIPELINE_ACTIVATION_CHECKPOINT_INTERVAL_DEFAULT = 0
 MESH = "mesh"
 MESH_DEFAULT = None
+# the int8 chunk-scaled gradient all-reduce (runtime/comm/quantized.py),
+# JAX's keys and defaults
 COMM_QUANTIZATION = "comm_quantization"
+COMM_QUANTIZATION_ENABLED = "enabled"
+COMM_QUANTIZATION_ENABLED_DEFAULT = False
+COMM_QUANTIZATION_BITS = "bits"
+COMM_QUANTIZATION_BITS_DEFAULT = 8
+COMM_QUANTIZATION_CHUNK_SIZE = "chunk_size"
+COMM_QUANTIZATION_CHUNK_SIZE_DEFAULT = 512
+COMM_QUANTIZATION_BUCKET_MB = "bucket_mb"
+COMM_QUANTIZATION_BUCKET_MB_DEFAULT = 4
+COMM_QUANTIZATION_ERROR_FEEDBACK = "error_feedback"
+COMM_QUANTIZATION_ERROR_FEEDBACK_DEFAULT = False
 RESILIENCE = "resilience"
 ELASTICITY = "elasticity"
 ANALYSIS = "analysis"

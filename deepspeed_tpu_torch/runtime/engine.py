@@ -155,9 +155,29 @@ ZeRO 1-2 partition each rank's leaves over the data group as before.
 configures ``runtime/activation_checkpointing/checkpointing.py`` from
 the config unless the user already has (JAX ``engine.py:594-600``).
 
-1-bit Adam, comm quantization and telemetry are not yet ported: their
-config blocks raise in ``runtime/config.py`` and their arguments raise
-here. The pipeline is ``runtime/pipe/engine.py:PipelineEngine``, which
+**The gradient compressors** (pure data parallelism, JAX
+``engine.py:1345-1520, 2048-2150``):
+
+- ``comm_quantization`` (ZeRO 0-2): each rank's accumulated gradient is
+  unscaled before the exchange, the fp16 overflow voted on the local
+  gradients (an overflowed step ships zeros), then averaged by the
+  bucketed int8 all-reduce (``runtime/comm/quantized.py``; its
+  error-feedback residuals are engine state). Stage 0 keeps the average,
+  stages 1 and 2 the rank's piece of it: no dense gradient collective
+  runs, and stage 2 accumulates whole local gradients as stage 1 does.
+  The epilogue then runs at scale 1 on the average;
+- 1-bit Adam (``optimizer.type: OneBitAdam`` or a client
+  ``OnebitAdam``; ZeRO 0): the gradients stay local. The epilogue votes
+  the overflow by MAX, reports the ranks' mean local norm and clips by
+  their max; ``runtime/fp16/onebit_adam.py`` averages them densely
+  through ``freeze_step``, then averages the momentum with the 1-bit
+  all-reduce. An overflowed step keeps the masters and the whole state.
+  Checkpoints add the error buffers in JAX's global layout; another data
+  world restarts error feedback from zero.
+
+Telemetry is not yet ported: its config block raises in
+``runtime/config.py``. The pipeline is
+``runtime/pipe/engine.py:PipelineEngine``, which
 runs one engine of this class per stage: its ``comm`` is the stage's
 data group (:class:`Comm` over a sub-group), its model the stage's
 layers.
@@ -216,6 +236,14 @@ from deepspeed_tpu_torch.runtime.config import (
     LAMB_OPTIMIZER,
     ONEBIT_ADAM_OPTIMIZER,
 )
+from deepspeed_tpu_torch.runtime.comm.quantized import (
+    init_residuals,
+    quantized_allreduce_tree,
+)
+from deepspeed_tpu_torch.runtime.fp16.onebit_adam import (
+    OnebitAdam,
+    init_onebit_state,
+)
 from deepspeed_tpu_torch.runtime.resilience.checkpoint import (
     CheckpointManager,
 )
@@ -260,7 +288,8 @@ class DeviceState(NamedTuple):
 
 
 def grad_epilogue(grads, scale, accum, fp16, clip, comm=None,
-                  sharded=False, counted=None, split=()):
+                  sharded=False, counted=None, split=(), average=True,
+                  vote=None, norm_reduce=None, clip_norm_reduce=None):
     """Unscale and average over micro-batches, the fp16 overflow check,
     the global norm and clipping (``engine.py:99``), IN PLACE on
     ``grads`` (the engine's gradient buffers, so the fused optimizer's
@@ -276,15 +305,24 @@ def grad_epilogue(grads, scale, accum, fp16, clip, comm=None,
     expert axes of more than one rank) votes the overflow and sums the
     squares over each of those groups too (``counted`` then leaves a
     leaf out on every rank but rank 0 of each axis it is not split
-    over)."""
-    world = comm.world if comm is not None else 1
+    over).
+
+    The gradient compressors (JAX ``engine.py:99``'s hooks): ``average``
+    False leaves out the division by the world size (the quantized
+    exchange averaged already); ``vote`` replaces the fp16 overflow vote
+    over ``comm``; ``norm_reduce`` maps the local norm to the reported
+    one and ``clip_norm_reduce`` to the one clipping divides by (1-bit
+    Adam's local gradients: the ranks' mean and max)."""
+    world = comm.world if comm is not None and average else 1
     denom = scale * accum * world if world > 1 else scale * accum
     for g in grads:
         g.div_(denom)
     device = grads[0].device
     if fp16:
         nonfinite = check_overflow(grads)
-        if comm is not None:
+        if vote is not None:
+            nonfinite = vote(nonfinite)
+        elif comm is not None:
             nonfinite = comm.any_flag(nonfinite)
         if split:
             flag = nonfinite.to(torch.float32).reshape(1)
@@ -303,13 +341,19 @@ def grad_epilogue(grads, scale, accum, fp16, clip, comm=None,
             for g in split:
                 t = tp_comm.all_reduce(t, g)
             return t
-    grad_norm = global_norm(grads, reduce, counted)
+    def nr(n):
+        return norm_reduce(n) if norm_reduce is not None else n
+
+    local = global_norm(grads, reduce, counted)
+    grad_norm = nr(local)
     applied_norm = grad_norm
     if clip > 0:
-        clipped = clip_by_global_norm(grads, clip, norm=grad_norm)
+        clipped = clip_by_global_norm(
+            grads, clip, norm=clip_norm_reduce(local)
+            if clip_norm_reduce is not None else grad_norm)
         for g, c in zip(grads, clipped):
             g.copy_(c)
-        applied_norm = global_norm(grads, reduce, counted)
+        applied_norm = nr(global_norm(grads, reduce, counted))
     return overflow, nonfinite, grad_norm, applied_norm
 
 
@@ -375,9 +419,6 @@ def make_grad_accumulator(loss_fn, accum, after_backward=None,
     return accumulate
 
 
-_NOT_YET = "not yet ported to deepspeed_tpu_torch"
-
-
 def _int_elements(micro_batches):
     """The integer elements of a rank's micro-batches (JAX's sparse
     token budget: every integer leaf of the local batch)."""
@@ -408,6 +449,7 @@ class DeepSpeedEngine:
         mesh.initialize_distributed(device=device)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
+        comm_given = comm
         self.module = model
         self.loss_fn = loss_fn
         self.device = device
@@ -487,6 +529,7 @@ class DeepSpeedEngine:
         zc = self._config.zero_config
         self._offload = bool(self._config.zero_enabled and zc.cpu_offload)
         self._configure_training_features(model)
+        self._configure_compressors(comm_given)
         if zc.offload_16bit_grads and not self._offload:
             log_dist("offload_16bit_grads: true has no effect without "
                      "cpu_offload: true (grads only cross the wire on the "
@@ -590,10 +633,6 @@ class DeepSpeedEngine:
         if client_optimizer is not None and \
                 not isinstance(client_optimizer, str):
             name = type(client_optimizer).__name__.lower()
-            if name == ONEBIT_ADAM_OPTIMIZER:
-                raise NotImplementedError(
-                    f"OneBitAdam client objects are {_NOT_YET} (ROADMAP.md "
-                    f"section 1 item 5 F5 (1-bit Adam))")
             opt = client_optimizer
             self.client_optimizer = opt
             self.optimizer_name = name
@@ -602,7 +641,9 @@ class DeepSpeedEngine:
             self._eps = getattr(opt, "eps", 1e-8)
             self._weight_decay = getattr(opt, "weight_decay", 0.0)
             self._bias_correction = getattr(opt, "bias_correction", True)
-            if isinstance(opt, FusedAdam):
+            if name == ONEBIT_ADAM_OPTIMIZER:
+                self._configure_onebit(opt)
+            elif isinstance(opt, FusedAdam):
                 self._opt_kind = "adam"
                 self._adam_w_mode = opt.adam_w_mode
             elif isinstance(opt, FusedLamb):
@@ -620,9 +661,12 @@ class DeepSpeedEngine:
         self._bias_correction = opt.pop("bias_correction", True)
         self.optimizer_name = name
         if name == ONEBIT_ADAM_OPTIMIZER:
-            raise NotImplementedError(
-                f"optimizer {name!r} is {_NOT_YET} (ROADMAP.md section 1 "
-                f"item 5 F5 (1-bit Adam))")
+            self._configure_onebit(OnebitAdam(
+                lr=self._base_lr, freeze_step=opt.pop("freeze_step", 100000),
+                betas=self._betas, eps=self._eps,
+                weight_decay=self._weight_decay,
+                amsgrad=opt.pop("amsgrad", False)))
+            return
         if name == LAMB_OPTIMIZER:
             self._opt_kind = "lamb"
             self._lamb_coeffs = (opt.pop("max_coeff", 10.0),
@@ -638,11 +682,43 @@ class DeepSpeedEngine:
         # version on CPU tensors
         opt.pop("pallas", None)
 
+    def _configure_onebit(self, opt):
+        """1-bit Adam (JAX ``engine.py:753-819``): the fp16 optimizer
+        path of the reference, so ZeRO stage 0 only, over pure data
+        parallelism; ``opt`` (a client :class:`OnebitAdam`, or one built
+        from the config) supplies the hyperparameters and ``freeze_step``.
+        A pipeline's stage engines take its buffers apart
+        (``runtime/pipe/engine.py``)."""
+        stage = self._config.zero_optimization_stage \
+            if self._config.zero_enabled else 0
+        assert stage == 0, ("OneBitAdam is not compatible with ZeRO "
+                            "(reference scope: fp16 optimizer path only)")
+        self._opt_kind = "onebit"
+        self._onebit = opt
+        self._base_lr = opt.lr
+        self._betas = tuple(opt.betas)
+        self._eps = opt.eps
+        self._weight_decay = opt.weight_decay
+
+    def _check_pure_data(self, what):
+        """JAX's check of the compressors' steps (``engine.py:1352,
+        2057``): every mesh axis but ``data`` of size 1 (``initialize``
+        sends a ``pipe`` axis to the pipeline, which checks its stage
+        engines itself)."""
+        for ax, of in (("model", mesh.model_axis_of),
+                       ("expert", mesh.expert_axis_of),
+                       ("seq", mesh.seq_axis_of)):
+            size = of(self.mpu).size
+            assert size == 1, (f"{what} supports pure data parallelism; "
+                               f"mesh axis {ax!r} has size {size}")
+
     def _init_opt_state(self, masters):
         if self._opt_kind == "adam":
             return init_adam_state(masters)
         if self._opt_kind == "lamb":
             return init_lamb_state(masters)
+        if self._opt_kind == "onebit":
+            return init_onebit_state(masters, self.dp_world_size)
         return self.client_optimizer.init(masters)
 
     def _configure_training_features(self, model):
@@ -668,6 +744,23 @@ class DeepSpeedEngine:
                 "sparse_gradients is incompatible with ZeRO (the "
                 "reference's CSR path is the non-ZeRO allreduce "
                 "fallback, engine.py:1127)")
+
+    def _configure_compressors(self, comm_given):
+        """The gradient compressors' checks (JAX ``engine.py:1352-1360,
+        2057-2061``): ``comm_quantization`` (:attr:`_qcomm`) and 1-bit
+        Adam run over pure data parallelism; a pipeline's stage engines
+        (``comm`` given) are checked by the pipeline."""
+        cq = self._config.comm_quantization
+        self._qcomm = cq if cq.enabled else None
+        self._qcomm_res = None
+        if self._opt_kind == "onebit":
+            self._sparse = False        # 1-bit Adam's exchange wins
+        if comm_given is not None:
+            return
+        if self._opt_kind == "onebit":
+            self._check_pure_data("OneBitAdam")
+        if self._qcomm is not None:
+            self._check_pure_data("comm_quantization")
 
     def _pld_theta(self, step):
         """Progressive layer drop's theta at step ``step`` in fp32 (the
@@ -745,7 +838,8 @@ class DeepSpeedEngine:
                     if p.device != dev:
                         raise ValueError(f"master params must be on {dev}, "
                                          f"got {p.device}")
-                    if stage != 2 and p.grad is None:
+                    if (stage != 2 or self._qcomm is not None) and \
+                            p.grad is None:
                         p.grad = torch.zeros_like(p)
                 if stage == 0:
                     self._masters = [p.data for p in self.params]
@@ -761,12 +855,19 @@ class DeepSpeedEngine:
                         torch.zeros(part.piece_shape, dtype=torch.float32,
                                     device=dev)
                         for p, part in zip(self.params, self._parts)]
-                if stage == 2:
+                if stage == 2 and self._qcomm is None:
+                    # (the quantized exchange needs the whole local
+                    # gradient: stage 2 then accumulates as stage 1)
                     for i, p in enumerate(self.params):
                         p.grad = None
                         p.register_post_accumulate_grad_hook(
                             self._stage2_hook(i))
         self.opt_state = self._init_opt_state(self._masters)
+        if self._qcomm is not None and self._qcomm.error_feedback:
+            self._qcomm_res = init_residuals(
+                [p.numel() for p in self.params], world,
+                self._qcomm_bucket_bytes(), int(self._qcomm.chunk_size),
+                device=dev)
         zc = self._config.zero_config
         if installs:
             masters = self._pieces if stage == 3 else self.params
@@ -1224,6 +1325,41 @@ class DeepSpeedEngine:
                     comm.all_reduce(g)
         return self._grads
 
+    def _qcomm_bucket_bytes(self):
+        return int(self._qcomm.bucket_mb) * 1024 * 1024
+
+    def _reduce_grads_quantized(self, scale, accum):
+        """The step's gradients through the int8 exchange (JAX
+        ``_make_quantized_train_step``, ``engine.py:1345-1520``): each
+        rank's accumulated gradient is unscaled *before* the exchange
+        (absmax scales of finite values; residuals that do not depend
+        on the loss scale); under fp16 the overflow is voted (MAX) on the
+        local gradients and an overflowed step ships zeros; then the
+        bucketed :func:`~deepspeed_tpu_torch.runtime.comm.quantized.
+        quantized_allreduce_tree` (residuals as engine state with
+        ``error_feedback``). Stage 0 keeps the average, stages 1-2 the
+        rank's piece of it. Returns the gradients and the vote."""
+        local = [p.grad for p in self.params]
+        denom = scale * accum
+        for g in local:
+            g.div_(denom)
+        voted = torch.zeros((), dtype=torch.bool, device=self.device)
+        if self._config.fp16_enabled:
+            voted = self.comm.any_flag(check_overflow(local))
+            for g in local:
+                g.copy_(torch.where(voted, torch.zeros_like(g), g))
+        avg, self._qcomm_res = quantized_allreduce_tree(
+            local, self.comm.axis(), chunk_size=int(self._qcomm.chunk_size),
+            bucket_bytes=self._qcomm_bucket_bytes(),
+            residuals=self._qcomm_res)
+        if self._stage == 0:
+            for g, a in zip(self._grads, avg):
+                g.copy_(a)
+        else:
+            for part, g, a in zip(self._parts, self._grads, avg):
+                g.copy_(part.piece(a) if part.sharded else a)
+        return self._grads, voted
+
     def _refresh_params(self):
         """Stages 1-2: the updated master pieces all-gathered into the
         replicated params (the one param-sized refresh gather)."""
@@ -1377,10 +1513,17 @@ class DeepSpeedEngine:
                 counted=self._tp_counted(
                     grads, self._counted if sharded else None))
         else:
-            # a client object's functional update; an overflow keeps the
-            # old masters and state (JAX's select)
-            new_p, new_s = self.client_optimizer.update(
-                self._masters, grads, self.opt_state, lr=lr, beta1=beta1)
+            # a client object's functional update, or 1-bit Adam's over
+            # the data group; an overflow keeps the old masters and state
+            # (JAX's select)
+            if self._opt_kind == "onebit":
+                new_p, new_s = self._onebit.update(
+                    self._masters, grads, self.opt_state, lr=lr,
+                    beta1=beta1, group=self.comm.axis())
+            else:
+                new_p, new_s = self.client_optimizer.update(
+                    self._masters, grads, self.opt_state, lr=lr,
+                    beta1=beta1)
             for m, n in zip(self._masters, new_p):
                 m.copy_(n if skip is None else torch.where(skip, m, n))
             if skip is not None:
@@ -1402,6 +1545,7 @@ class DeepSpeedEngine:
         scale = self._scale()
         comm = self.comm if self.comm.active else None
         offload_dp = self._offload and self._offload_dp
+        epi = dict(comm=comm)
         # offload: one flat fp32 buffer (the epilogue's norm is then one
         # reduction, in another summation order than the per-leaf one);
         # across processes, the rank's row of it
@@ -1417,16 +1561,37 @@ class DeepSpeedEngine:
                 # each split axis
                 idx, grads = self.offload_leaf_views()
                 counted = [self._leaf_counted(i) for i in idx]
+        elif self._opt_kind == "onebit":
+            # local gradients: the overflow voted by MAX, the norm the
+            # ranks' mean, clipping by their max (JAX engine.py:2090-2101)
+            grads, sharded, counted = self._grads, False, None
+            epi = dict(comm=None)
+            if comm is not None:
+                def top(n):
+                    y = n.reshape(1).clone()
+                    return comm.all_reduce(y, "max", stat=True).reshape(())
+
+                epi.update(vote=comm.any_flag, norm_reduce=comm.mean_scalar,
+                           clip_norm_reduce=top)
         elif self._sparse:
             grads, sparse_stats = self._reduce_grads_sparse(tokens)
             sharded, counted = False, None
+        elif self._qcomm is not None:
+            # unscaled before the exchange: the epilogue's scale and
+            # accumulation are 1, its vote ORs in the local one
+            grads, voted = self._reduce_grads_quantized(scale, accum)
+            sharded, counted = self._stage >= 1, self._counted
+            epi = dict(comm=comm, average=False,
+                       vote=lambda o: o | voted)
         else:
             grads = self._reduce_grads()
             sharded, counted = self._stage >= 1, self._counted
         counted = self._tp_counted(grads, counted)
+        unscaled = self._qcomm is not None     # (config: not with 1-bit)
         overflow, nonfinite, grad_norm, applied_norm = grad_epilogue(
-            grads, scale, accum, fp16, clip, comm=comm, sharded=sharded,
-            counted=counted, split=list(self._split_axes.values()))
+            grads, 1.0 if unscaled else scale, 1 if unscaled else accum,
+            fp16, clip, sharded=sharded, counted=counted,
+            split=list(self._split_axes.values()), **epi)
         lr = float(self._lr_fn(self.global_steps))
         beta1 = float(self._mom_fn(self.global_steps))
         if self._offload:
@@ -1448,7 +1613,8 @@ class DeepSpeedEngine:
         torch._foreach_zero_(grads)
         if offload_dp:
             self._grad32.zero_()
-        elif self._stage == 1 and not self._offload:
+        elif self._stage in (1, 2) and not self._offload and \
+                (self._stage == 1 or self._qcomm is not None):
             torch._foreach_zero_([p.grad for p in self.params])
         if comm is not None:
             loss_sum = comm.mean_scalar(loss_sum)
@@ -1681,6 +1847,8 @@ class DeepSpeedEngine:
                 "v": {n: W(i, self._whole(i, v))
                       for i, (n, v) in enumerate(zip(names, s.v))},
                 "step": s.step}
+            if self._opt_kind == "onebit":
+                opt_state.update(self._onebit_error_tree())
         ds = self.device_state
         return {"params": params, "opt_state": opt_state,
                 "device_state": {
@@ -1691,6 +1859,43 @@ class DeepSpeedEngine:
                     "global_step": ds.global_step,
                     "skipped_steps": ds.skipped_steps,
                     "consecutive_skipped": ds.consecutive_skipped}}
+
+    def _onebit_error_tree(self):
+        """1-bit Adam's error buffers in JAX's global layout: the worker
+        errors ``[world, padded_n]`` (row r rank r's) and the server errors
+        ``[padded_n]`` (chunk r rank r's), gathered over the data
+        group."""
+        s = self.opt_state
+        we, se = s.worker_error, s.server_error
+        world = self.dp_world_size
+        out = {"worker_error": torch.empty((world,) + tuple(we.shape),
+                                           dtype=we.dtype, device=we.device),
+               "server_error": torch.empty(world * se.numel(),
+                                           dtype=se.dtype, device=se.device)}
+        self.comm.all_gather(out["worker_error"], we)
+        self.comm.all_gather(out["server_error"], se)
+        return out
+
+    def _restore_onebit_errors(self, o):
+        """This rank's rows of the saved error buffers; saved at another
+        data-parallel world (or not saved), error feedback restarts from
+        zero, with JAX's warning (``engine.py:3063-3080``)."""
+        s = self.opt_state
+        world, rank = self.dp_world_size, self.dp_rank
+        want = (world,) + tuple(s.worker_error.shape)
+        we = o.get("worker_error")
+        se = o.get("server_error")
+        if we is None or tuple(np.shape(we)) != want:
+            logger.warning(
+                "onebit error buffers saved for a different dp world "
+                "size; resetting error feedback to zero")
+            s.worker_error.zero_()
+            s.server_error.zero_()
+            return
+        chunk = s.server_error.numel()
+        s.worker_error.copy_(torch.as_tensor(np.asarray(we))[rank])
+        s.server_error.copy_(torch.as_tensor(np.asarray(se)).reshape(-1)[
+            rank * chunk:(rank + 1) * chunk])
 
     def _checkpoint_meta(self, client_state):
         """The JSON sidecar (``engine.py:2993``)."""
@@ -1839,6 +2044,8 @@ class DeepSpeedEngine:
                     step=torch.as_tensor(int(np.asarray(o["step"])),
                                          dtype=torch.int32,
                                          device=self.device))
+                if self._opt_kind == "onebit":
+                    self._restore_onebit_errors(o)
         ds = state["device_state"]
 
         def dev(key, dtype):

@@ -108,9 +108,28 @@ epilogue (JAX ``pipeline.py:490-503, 920-965``). Leaves split over
 gradients reduce over ``data``, and the norm and the fp16 vote cross
 the expert group as they cross the model group.
 
+**1-bit Adam** (``OneBitAdam`` by name or a client ``OnebitAdam``,
+ZeRO 0, over pipe x model x data; JAX ``engine.py:2152-2410``): each
+stage skips the dense all-reduce over its data group and keeps its
+*local* gradients (the tied sum still runs), scaled so that their mean
+over the data group is the gradient. The overflow is voted as above;
+each data rank's norm is taken over the whole model (the stages' sums of
+squares, a tied or model-replicated leaf counted once); the reported
+norm is the data ranks' mean, clipping divides by their max. Each stage
+engine then runs ``runtime/fp16/onebit_adam.py:pipeline_onebit_update``
+over separately compressed buffers (``pipeline_onebit_groups``): the
+body (at model > 1 the model-sharded leaves apart from the replicated
+ones), flat in JAX's order (its stacked leaves, from the body layer's
+``reference_leaves``), the stage's own prologue or epilogue, the tied
+leaves. A buffer's
+1-bit scale is its whole norm, so a copy that must stay equal is
+compressed in a buffer of the same content on every holder: the tied
+leaves on the first and the last stage, a model-replicated leaf on
+every model rank. Checkpoints add each stage's error buffers.
+
 What JAX's engine refuses, this one refuses with its text (progressive
 layer drop, uneven layers, ``forward`` / ``backward`` / ``step``,
-``auto_axes``). 1-bit Adam (ROADMAP F5) raises "not yet ported".
+``auto_axes``, ``comm_quantization``).
 """
 
 import contextlib
@@ -131,6 +150,7 @@ from deepspeed_tpu_torch.runtime.dataloader import (
     DeepSpeedDataLoader,
     RepeatingLoader,
 )
+from deepspeed_tpu_torch.runtime.fp16 import onebit_adam
 from deepspeed_tpu_torch.runtime.engine import (
     DeepSpeedEngine,
     _int_elements,
@@ -154,15 +174,6 @@ from deepspeed_tpu_torch.runtime.resilience.checkpoint import (
 from deepspeed_tpu_torch.runtime.utils import check_overflow
 from deepspeed_tpu_torch.runtime.zero.comm import Comm
 from deepspeed_tpu_torch.utils.logging import log_dist
-
-_NOT_YET = "not yet ported to deepspeed_tpu_torch"
-
-
-def _later(what, item):
-    return NotImplementedError(
-        f"{what} in a pipeline is {_NOT_YET} (ROADMAP.md section 1 item 5 "
-        f"{item})")
-
 
 class _StageGrads(NamedTuple):
     """A stage's reduced gradients for the pipeline's epilogue: the
@@ -340,6 +351,22 @@ class PipelineEngine(DeepSpeedEngine):
             if se._offload:
                 se.fold_on_accumulate()
         first = self.stage_engines[0]
+        self._onebit = first._opt_kind == "onebit"
+        if self._onebit:
+            model = self._axes["model"].size
+            for se in self.stage_engines:
+                sharded = [spec is not None and spec.axis == "model"
+                           for spec in se._tp_specs]
+                names = se._param_names()
+                layer = se.module.body[0] if len(se.module.body) else None
+                ref = layer.reference_leaves() \
+                    if hasattr(layer, "reference_leaves") else None
+                se._onebit_groups = onebit_adam.pipeline_onebit_groups(
+                    names, sharded, model, ref)
+                se._onebit_transposed = onebit_adam.body_reference_order(
+                    names, ref)[1]
+                se.opt_state = onebit_adam.init_pipeline_onebit_state(
+                    se._masters, se._onebit_groups, se.dp_world_size)
         self._stage_offload = first._offload
         self._config = first._config
         self.compute_dtype = first.compute_dtype
@@ -415,11 +442,21 @@ class PipelineEngine(DeepSpeedEngine):
                 "axis. Use make_pipeline_value_and_grad_fn(...) directly "
                 "(works, see tests/unit/test_pipe_auto.py) or the "
                 "manual-collective TP blocks (parallel/pipe_tp.py)")
+        if cfg.comm_quantization.enabled:
+            # JAX engine.py:1356-1360
+            raise AssertionError(
+                "comm_quantization needs jax.grad-able loss_fn (the "
+                "pipeline's direct value-and-grad runs its own data-plane "
+                "reduction)")
         name = type(optimizer).__name__.lower() \
             if optimizer is not None and not isinstance(optimizer, str) \
             else (cfg.optimizer_name or "").lower()
         if name == ONEBIT_ADAM_OPTIMIZER:
-            raise _later("OneBitAdam", "F5 (1-bit Adam)")
+            for ax, size in dict(cfg.mesh_shape or {}).items():
+                size = int(size or 1)
+                assert ax in ("data", "pipe", "model") or size == 1, (
+                    f"pipeline OneBitAdam supports pipe x model x data "
+                    f"meshes; axis {ax!r} has size {size}")
 
     @staticmethod
     def _scope(stage_engine, kind):
@@ -584,6 +621,11 @@ class PipelineEngine(DeepSpeedEngine):
             grads, stats = se._reduce_grads_sparse(tokens)
             return _StageGrads(grads, names, [True] * len(names), False,
                                stats)
+        if se._opt_kind == "onebit":
+            # local gradients: 1-bit Adam averages them itself
+            counted = se._tp_counted(se._grads, None)
+            return _StageGrads(se._grads, names, counted if counted
+                               is not None else [True] * len(names), False)
         grads = se._reduce_grads()
         sharded = se._stage >= 1
         counted = se._tp_counted(grads, se._counted if sharded else None)
@@ -769,6 +811,20 @@ class PipelineEngine(DeepSpeedEngine):
             total = all_reduce(total, g)
         return torch.sqrt(total.reshape(()))
 
+    @staticmethod
+    def _onebit_stage_update(se, sg, lr, beta1, overflow):
+        """One stage's 1-bit update over its buffers, in place on its
+        masters and state."""
+        opt = se._onebit
+        new_p, se.opt_state = onebit_adam.pipeline_onebit_update(
+            se._masters, sg.grads, se.opt_state, se._onebit_groups, lr=lr,
+            beta1=beta1, beta2=opt.betas[1], eps=opt.eps,
+            weight_decay=opt.weight_decay, freeze_step=opt.freeze_step,
+            group=se.comm.axis(), overflow=overflow.to(se.device),
+            transposed=se._onebit_transposed)
+        for m, n in zip(se._masters, new_p):
+            m.copy_(n)
+
     @torch.no_grad()
     def _apply_pipe_step(self, per_stage, num, den, scale):
         cfg = self._config
@@ -777,6 +833,10 @@ class PipelineEngine(DeepSpeedEngine):
         D = torch.clamp(den, min=1.0)
         loss = num / D
         denom = scale * D
+        if self._onebit:
+            # local gradients whose mean over the data group is the
+            # gradient (JAX pipeline.py:941-948)
+            denom = denom / self.stage_engines[0].dp_world_size
         for sg in per_stage:
             for g in sg.grads:
                 g.div_(denom.to(g.device))
@@ -791,17 +851,31 @@ class PipelineEngine(DeepSpeedEngine):
             overflow = flag.reshape(()) > 0
         else:
             overflow = torch.zeros((), dtype=torch.bool, device=self.device)
-        grad_norm = self._global_norm(per_stage)
+        grad_norm = clip_by = self._global_norm(per_stage)
+        comm = self.stage_engines[0].comm
+        if self._onebit and comm.active and comm.world > 1:
+            # JAX engine.py:2347-2364: each data rank's norm over the
+            # whole model; reported, their mean, and clipping by their
+            # max, so every rank applies the same factor
+            norm = grad_norm.reshape(1).float()
+            grad_norm = (comm.all_reduce(norm.clone(), stat=True)
+                         / comm.world).reshape(())
+            clip_by = comm.all_reduce(norm.clone(), "max",
+                                      stat=True).reshape(())
         applied = grad_norm
         if clip > 0:
-            coef = torch.clamp(clip / (grad_norm + 1e-6), max=1.0)
+            coef = torch.clamp(clip / (clip_by + 1e-6), max=1.0)
             for sg in per_stage:
                 for g in sg.grads:
                     g.copy_((g * coef.to(g.device)).to(g.dtype))
-            applied = self._global_norm(per_stage)
+            applied = grad_norm * coef if self._onebit \
+                else self._global_norm(per_stage)
         lr = float(self._lr_fn(self.global_steps))
         beta1 = float(self._mom_fn(self.global_steps))
         for se, sg in zip(self.stage_engines, per_stage):
+            if self._onebit:
+                self._onebit_stage_update(se, sg, lr, beta1, overflow)
+                continue
             if se._offload:
                 if se._grads_16bit and not se._offload_dp:
                     se._wire.copy_(se._grad32)
@@ -898,6 +972,10 @@ class PipelineEngine(DeepSpeedEngine):
                     for n, v in d.items()}
                 for k, d in (("params", t["params"]), ("m", o["m"]),
                              ("v", o["v"]))}
+            if "worker_error" in o:         # 1-bit Adam's, gathered
+                trees[se.module.stage_id]["onebit"] = {
+                    k: o[k].detach().cpu()
+                    for k in ("worker_error", "server_error")}
             step = o["step"]
         return trees, step
 
@@ -929,9 +1007,12 @@ class PipelineEngine(DeepSpeedEngine):
                     {s: t[kind] for s, t in trees.items()}, S, L)
 
             ds = self.device_state
+            opt_state = {"m": layout("m"), "v": layout("v"), "step": step}
+            if self._onebit:
+                opt_state["onebit"] = {f"stage_{s}": t["onebit"]
+                                       for s, t in trees.items()}
             state = {"params": layout("params"),
-                     "opt_state": {"m": layout("m"), "v": layout("v"),
-                                   "step": step},
+                     "opt_state": opt_state,
                      "device_state": {
                          "cur_scale": ds.loss_scale.cur_scale,
                          "cur_iter": ds.loss_scale.cur_iter,
@@ -975,6 +1056,9 @@ class PipelineEngine(DeepSpeedEngine):
             m = pl.stage_view(opt["m"], st, S, L)
             v = pl.stage_view(opt["v"], st, S, L)
             o = {"m": m, "v": v, "step": opt["step"]}
+            if self._onebit:
+                o.update((opt.get("onebit") or {}).get(
+                    f"stage_{st.stage_id}", {}))
             if se._offload:         # back to the host Adam's flat form
                 names = se._param_names()
                 o = {k: torch.cat([torch.as_tensor(np.asarray(d[n]))

@@ -609,7 +609,9 @@ class ProcessTransport:
     """One process a stage rank: ``isend`` and blocking ``recv`` with the
     neighbour stage's global rank, over the pair's process group. An
     activation's shape and dtype go ahead of the first one of each call
-    (a meta message, counted apart)."""
+    (a meta message, counted apart). Over gloo a CUDA tensor crosses
+    through a host copy (gloo's point-to-point reads host memory only:
+    the ranks of one card, ``parallel/mesh.py:check_backend``)."""
 
     def __init__(self, grid, device):
         self.counts = _Counts()
@@ -622,6 +624,10 @@ class ProcessTransport:
         self._round = 0
         self._meta_sent = False
         self._meta = None
+        import torch.distributed as dist
+        self._host = torch.device(device).type == "cuda" and \
+            dist.is_initialized() and \
+            str(dist.get_backend()).lower() == "gloo"
 
     def _group(self, peer):
         me = self.grid.global_rank
@@ -634,13 +640,16 @@ class ProcessTransport:
 
     def _isend(self, t, peer):
         import torch.distributed as dist
-        t = t.contiguous()
+        t = t.cpu() if self._host else t.contiguous()
         work = dist.isend(t, peer, group=self._group(peer))
         self._pending.append((self._round, work, t))
 
     def _recv_into(self, buf, peer):
         import torch.distributed as dist
-        dist.irecv(buf, peer, group=self._group(peer)).wait()
+        into = torch.empty_like(buf, device="cpu") if self._host else buf
+        dist.irecv(into, peer, group=self._group(peer)).wait()
+        if self._host:
+            buf.copy_(into)
         return buf
 
     def send_act(self, src, m, x):

@@ -148,6 +148,18 @@ class Comm:
         handle.wait()
         return None
 
+    def axis(self):
+        """The group as a :class:`~deepspeed_tpu_torch.parallel.mesh.
+        AxisGroup` named ``data`` (what the collectives of
+        ``parallel/collectives.py`` take: the chunk-server pair of the
+        quantized and 1-bit all-reduces). Counted there, not here."""
+        if not self.active:
+            return mesh.AxisGroup("data", 1, 0)
+        import torch.distributed as dist
+        pg = self.group if self.group is not None else dist.group.WORLD
+        return mesh.AxisGroup("data", self.world, self.rank,
+                              dist.get_process_group_ranks(pg), pg)
+
     def barrier(self):
         if self.active:
             import torch.distributed as dist

@@ -32,6 +32,7 @@ from deepspeed_tpu.parallel.mesh import build_mesh
 from deepspeed_tpu_torch import initialize
 from deepspeed_tpu_torch.models import bert as tbert
 from deepspeed_tpu_torch.ops.sparse_attention import FixedSparsityConfig
+from tests.torch_threads import one_thread  # noqa: F401
 
 T = 64
 LOGIT_ATOL, LOSS_RTOL, GRAD_ATOL, GRAD_RTOL, CURVE_RTOL = \
@@ -96,15 +97,16 @@ def test_mlm_logits_loss_and_grads_match_jax(sparse, masked, chunk):
     batch = _batch(masked=masked)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     tb = {k: torch.from_numpy(v).long() for k, v in batch.items()}
-    want_logits = jm.apply({"params": params}, jb["input_ids"],
-                           jb.get("attention_mask"), jb["token_type_ids"])
+    want_logits = jax.jit(jm.apply)({"params": params}, jb["input_ids"],
+                                    jb.get("attention_mask"),
+                                    jb["token_type_ids"])
     got_logits = tm(tb["input_ids"], tb.get("attention_mask"),
                     tb["token_type_ids"])
     np.testing.assert_allclose(got_logits.detach().numpy(),
                                np.asarray(want_logits), atol=LOGIT_ATOL,
                                rtol=0)
-    want, jgrads = jax.value_and_grad(jbert.make_bert_mlm_loss_fn(jm))(
-        params, jb)
+    want, jgrads = jax.jit(jax.value_and_grad(
+        jbert.make_bert_mlm_loss_fn(jm)))(params, jb)
     loss = tbert.make_bert_mlm_loss_fn(tm)(tb)
     loss.backward()
     np.testing.assert_allclose(float(loss.detach()), float(want),
@@ -122,15 +124,15 @@ def test_qa_head_matches_jax(pre_ln):
     del batch["labels"]
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     tb = {k: torch.from_numpy(v).long() for k, v in batch.items()}
-    (js, je) = jm.apply({"params": params}, jb["input_ids"],
-                        jb["attention_mask"], jb["token_type_ids"])
+    (js, je) = jax.jit(jm.apply)({"params": params}, jb["input_ids"],
+                                 jb["attention_mask"], jb["token_type_ids"])
     ts, te = tm(tb["input_ids"], tb["attention_mask"], tb["token_type_ids"])
     for got, want in ((ts, js), (te, je)):
         assert tuple(got.shape) == (2, T)
         np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
                                    atol=LOGIT_ATOL, rtol=0)
-    want, jgrads = jax.value_and_grad(jbert.make_bert_qa_loss_fn(jm))(
-        params, jb)
+    want, jgrads = jax.jit(jax.value_and_grad(
+        jbert.make_bert_qa_loss_fn(jm)))(params, jb)
     loss = tbert.make_bert_qa_loss_fn(tm)(tb)
     loss.backward()
     np.testing.assert_allclose(float(loss.detach()), float(want),
@@ -241,7 +243,7 @@ def test_sparse_bert_loss_curve_matches_jax_engine(sparse_params, name):
 def test_sparse_bert_step1_grads_match_jax(sparse_params):
     jm, params = sparse_params
     batch = _train_batches(1)[0]
-    want = jax.grad(jbert.make_bert_mlm_loss_fn(jm))(
+    want = jax.jit(jax.grad(jbert.make_bert_mlm_loss_fn(jm)))(
         params, {k: jnp.asarray(v) for k, v in batch.items()})
     teng = _port_engine(params, CONFIGS["adam"])
     teng.backward(teng.forward(batch))

@@ -39,6 +39,7 @@ from deepspeed_tpu_torch.runtime.resilience.checkpoint import (
     MANIFEST_NAME,
     TMP_PREFIX,
 )
+from tests.torch_threads import one_thread  # noqa: F401
 
 TOTAL, SAVE_AT = 6, 3
 T = 16

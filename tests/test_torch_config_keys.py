@@ -29,6 +29,7 @@ import pytest
 import deepspeed_tpu.runtime.config as jcfg
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from tests import torch_zero_harness as H
+from tests.torch_threads import one_thread  # noqa: F401
 
 WORLD = 2
 BASE = {"train_batch_size": 8, "steps_per_print": 10 ** 9}
@@ -135,13 +136,25 @@ def test_vocabulary_size_off_8_warns(monkeypatch):
 
 
 @pytest.mark.parametrize("key,item", [
-    ("telemetry", "item 6"), ("comm_quantization", "item 5 F5"),
+    ("telemetry", "item 6"),
     ("resilience", "item 6"), ("elasticity", "item 6"),
     ("analysis", "item 6"), ("tensorboard", "item 6"),
     ("profiling", "item 6"), ("compilation_cache_dir", "item 6")])
 def test_later_keys_name_their_item(key, item):
     with pytest.raises(ValueError, match=f"{key}.*not yet ported.*{item}"):
         DeepSpeedConfig(dict(BASE, **{key: {}}))
+
+
+def test_comm_quantization_is_read_as_jax():
+    """The block is read with JAX's defaults (``runtime/comm/
+    quantized.py`` runs it); an empty block leaves it off."""
+    from deepspeed_tpu.runtime.config import DeepSpeedConfig as JaxConfig
+    for block in ({}, {"enabled": True, "chunk_size": 128,
+                       "error_feedback": True}):
+        got = DeepSpeedConfig(dict(BASE, comm_quantization=block))
+        want = JaxConfig(dict(BASE, comm_quantization=block))
+        assert repr(got.comm_quantization) == repr(want.comm_quantization)
+    assert not DeepSpeedConfig(BASE).comm_quantization.enabled
 
 
 @pytest.mark.parametrize("key,value,attr,want", [

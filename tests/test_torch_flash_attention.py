@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from deepspeed_tpu_torch.ops import flash_attention as tfa
+from tests.torch_threads import one_thread  # noqa: F401
 
 # the module (the package re-exports its function under the same name)
 jfa = importlib.import_module("deepspeed_tpu.ops.pallas.flash_attention")

@@ -30,6 +30,7 @@ import torch
 
 import chip_smoke
 from deepspeed_tpu_torch.ops import flash_attention as tfa
+from tests.torch_threads import one_thread  # noqa: F401
 
 jfa = importlib.import_module("deepspeed_tpu.ops.pallas.flash_attention")
 

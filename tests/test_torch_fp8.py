@@ -48,6 +48,7 @@ from deepspeed_tpu_torch.models.gpt2 import (
 from deepspeed_tpu_torch.ops import fp8 as tfp8
 from deepspeed_tpu_torch.runtime.comm import codecs as tcodecs
 from tests import torch_zero_harness as H
+from tests.torch_threads import one_thread  # noqa: F401
 
 BASE = {"train_batch_size": 8, "steps_per_print": 10 ** 9,
         "optimizer": {"type": "Adam", "params": {"lr": 1e-3}},
@@ -417,7 +418,8 @@ def test_stage3_wire_gathers_equal_jax(wire_world):
     port is held to the caster within one e4m3 step (rtol 1/8)."""
     from deepspeed_tpu.runtime.zero.stage3 import make_gather_on_use_caster
     params, case, rows = wire_world
-    engine, mesh = H.jax_engine(params, dict(case, keys={}), 2)
+    # one JAX engine: its caster on the initial params, then its run
+    engine, mesh = H.jax_engine(params, case, 2)
     cast, plan = make_gather_on_use_caster(
         engine.params, engine._shardings["param"], mesh, jnp.bfloat16,
         wire_dtype=WIRE["dtype"], wire_chunk=WIRE["chunk_size"])
@@ -445,10 +447,11 @@ def test_stage3_wire_gathers_equal_jax(wire_world):
         assert np.isfinite(arrays["losses"]).all()
     # fp8 matmuls over the wire-gathered params, histories MAX-reduced
     # over the two ranks: JAX's run within the bf16 engine tolerance
-    want, jeng, _ = H.jax_run(params, case, 2)
+    want = [float(engine.train_batch({"input_ids": x}))
+            for x in H.jax_batches(case)]
     for arrays, meta in rows:
         np.testing.assert_allclose(arrays["losses"], want, rtol=2e-2)
-        assert sorted(meta["fp8_keys"]) == list(jeng._fp8_state)
+        assert sorted(meta["fp8_keys"]) == list(engine._fp8_state)
     np.testing.assert_array_equal(rows[0][0]["fp8"], rows[1][0]["fp8"])
     # the pieces: rank r's own exact, the other's JAX's eager codec
     wte = whole["wte"].numpy()          # split along dim 0 at world 2

@@ -27,6 +27,7 @@ import torch
 
 from deepspeed_tpu_torch.models import gpt2 as tg
 from deepspeed_tpu_torch.ops import flash_attention as fa_module
+from tests.torch_threads import one_thread  # noqa: F401
 
 POLICIES = ("full", "dots", "nothing")
 

@@ -32,6 +32,7 @@ import pytest
 import torch
 
 from deepspeed_tpu_torch.models import gpt2 as tg
+from tests.torch_threads import one_thread  # noqa: F401
 
 
 def _ids(seed=0, b=2, t=24):

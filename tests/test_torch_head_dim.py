@@ -39,6 +39,7 @@ from deepspeed_tpu.ops.pallas.flash_decode import (
 import chip_smoke
 from deepspeed_tpu_torch.ops import flash_attention as tfa
 from deepspeed_tpu_torch.ops import head_dim
+from tests.torch_threads import one_thread  # noqa: F401
 
 jfa = importlib.import_module("deepspeed_tpu.ops.pallas.flash_attention")
 jbsa = importlib.import_module(

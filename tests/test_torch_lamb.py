@@ -42,6 +42,7 @@ from deepspeed_tpu_torch.ops.adam.fused_adam import adam_update
 from deepspeed_tpu_torch.ops.lamb import (
     FusedLamb, LambState, init_lamb_state, lamb_update)
 from tests import torch_zero_harness as H
+from tests.torch_threads import one_thread  # noqa: F401
 
 LAMB = {"type": "Lamb", "params": {"lr": 2e-3, "weight_decay": 0.01,
                                    "max_coeff": 10.0, "min_coeff": 0.01}}
@@ -176,14 +177,23 @@ def test_protocol_objects_run_and_onebit_raises(jax_params):
     assert all(not torch.equal(a, b) for a, b in zip(got[1], start))
     assert int(engine.opt_state.step) == 5
 
-    class OneBitAdam:
-        pass
-
-    with pytest.raises(NotImplementedError, match="item 5"):
-        _port_engine(jax_params, cfg, OneBitAdam())
-    with pytest.raises(NotImplementedError, match="item 5"):
-        _port_engine(jax_params, dict(cfg, optimizer={
-            "type": "OneBitAdam", "params": {}}))
+    # 1-bit Adam runs, by name and as a client object (one rank: its
+    # compressed all-reduce has no exchange); AMSGrad raises the
+    # reference's error
+    from deepspeed_tpu_torch.runtime.fp16.onebit_adam import OnebitAdam
+    with pytest.raises(RuntimeError, match="AMSGrad"):
+        OnebitAdam(amsgrad=True)
+    by_name = _port_engine(jax_params, dict(cfg, optimizer={
+        "type": "OneBitAdam",
+        "params": {"lr": 1e-3, "freeze_step": 2, "eps": 1e-4}}))
+    client = _port_engine(jax_params, cfg,
+                          OnebitAdam(lr=1e-3, freeze_step=2, eps=1e-4))
+    assert by_name._opt_kind == client._opt_kind == "onebit"
+    got, want = ([float(e.train_batch(b)) for b in _batches()[:3]]
+                 for e in (by_name, client))
+    assert np.isfinite(got).all() and got == want
+    assert int(client.opt_state.step) == 3
+    assert float(client.opt_state.worker_error.abs().sum()) > 0
 
 
 # ---------------------------------------------------------------------------

@@ -333,11 +333,14 @@ def test_jax_error_texts_and_later_compositions(jax_ref):
     # ZeRO stage 3, offload and sparse gradients run in a stage
     # (tests/test_torch_pipe_zero.py), the model axis and fp8 too
     # (tests/test_torch_pipe_tp.py, test_fp8_pipeline_matches_jax_engine)
-    for extra, item in [
-            (dict(optimizer={"type": "OneBitAdam", "params": {}}), "F5")]:
-        with pytest.raises(NotImplementedError,
-                           match=f"not yet ported.*item 5 {item}"):
-            port_engine(2, None, **extra)
+    # 1-bit Adam runs in a pipeline (tests/test_torch_onebit_pipe.py);
+    # comm_quantization is refused with JAX's text
+    onebit = port_engine(2, None, optimizer={
+        "type": "OneBitAdam", "params": {"freeze_step": 1}})
+    assert [k for k, _ in onebit.stage_engines[1]._onebit_groups] == \
+        ["body", "rest", "tied"]
+    with pytest.raises(AssertionError, match="comm_quantization needs"):
+        port_engine(2, None, comm_quantization={"enabled": True})
     # the model, seq and expert axes lay out by MeshGroups: one process
     # holds no second rank of them (tests/test_torch_pipe_sp.py and
     # tests/test_torch_expert_pipe.py run them)

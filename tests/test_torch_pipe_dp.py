@@ -36,6 +36,7 @@ from deepspeed_tpu_torch.models.gpt2_pipe import (
 )
 from deepspeed_tpu_torch.runtime.pipe import pipeline as pl
 from tests import torch_zero_harness as H
+from tests.torch_threads import one_thread  # noqa: F401
 
 WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "torch_pipe_worker.py")

@@ -7,6 +7,7 @@ import subprocess
 import sys
 
 import pytest
+from tests.torch_threads import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BASE = ["--device", "cpu", "--synthetic", "4", "--max-new", "4",

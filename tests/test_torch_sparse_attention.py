@@ -28,6 +28,7 @@ import deepspeed_tpu.ops.sparse_attention as jsa
 import deepspeed_tpu_torch.ops.sparse_attention as tsa
 from deepspeed_tpu.runtime.config import get_sparse_attention as jax_parse
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+from tests.torch_threads import one_thread  # noqa: F401
 
 # the modules (each package re-exports a function under the module name)
 jbsa = importlib.import_module(

@@ -31,6 +31,7 @@ import torch
 import chip_smoke
 from deepspeed_tpu_torch.ops.flash_attention import DEFAULT_MASK_VALUE
 from deepspeed_tpu_torch.ops.sparse_attention import FixedSparsityConfig
+from tests.torch_threads import one_thread  # noqa: F401
 
 jbsa = importlib.import_module(
     "deepspeed_tpu.ops.sparse_attention.block_sparse_attention")

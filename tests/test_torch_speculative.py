@@ -42,6 +42,7 @@ from deepspeed_tpu_torch.models.gpt2 import (
     convert_gpt2_params,
     gpt2_tiny,
 )
+from tests.torch_threads import one_thread  # noqa: F401
 
 SPEC = {"enabled": True, "k": 3, "draft_layers": 1}
 BASE = {"max_batch": 2, "seq_buckets": (16, 32), "prefill_chunk": 4}

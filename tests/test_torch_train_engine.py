@@ -35,6 +35,7 @@ from deepspeed_tpu_torch.models.gpt2 import (
 )
 from deepspeed_tpu_torch.ops import fused_adam as fused_adam_module
 from deepspeed_tpu_torch.ops.fused_adam import fused_adam
+from tests.torch_threads import one_thread  # noqa: F401
 
 STEPS = 5
 T = 32
@@ -214,14 +215,16 @@ def test_initialize_defaults_to_cuda_and_rejects_unported(jax_params,
     with pytest.raises(ValueError, match="needs a PipelineModule"):
         initialize(model=model, config=dict(
             BASE, pipeline={"stages": 2}), device="cpu")
-    # LAMB is ported (tests/test_torch_lamb.py); 1-bit Adam is not
+    # LAMB and 1-bit Adam are ported (tests/test_torch_lamb.py,
+    # tests/test_torch_onebit_dp.py), 1-bit Adam with the reference's
+    # default freeze_step
     engine, _, _, _ = initialize(model=model, config=dict(
         BASE, optimizer={"type": "Lamb", "params": {}}), device="cpu")
     assert engine._opt_kind == "lamb"
-    with pytest.raises(NotImplementedError, match="onebitadam.*item 5"):
-        initialize(model=model, config=dict(
-            BASE, optimizer={"type": "OneBitAdam", "params": {}}),
-            device="cpu")
+    engine, _, _, _ = initialize(model=model, config=dict(
+        BASE, optimizer={"type": "OneBitAdam", "params": {}}), device="cpu")
+    assert engine._opt_kind == "onebit" and engine._onebit.freeze_step == \
+        100000
     with pytest.raises(ValueError, match="unknown optimizer"):
         initialize(model=model, config=dict(
             BASE, optimizer={"type": "SGD", "params": {}}), device="cpu")

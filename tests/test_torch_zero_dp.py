@@ -35,6 +35,7 @@ from deepspeed_tpu_torch.parallel import mesh
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.zero.sharding import partition_dim
 from tests import torch_zero_harness as H
+from tests.torch_threads import one_thread  # noqa: F401
 
 WORLD = 2
 BF16 = dict(dtype="bf16", flash=False, lr=1e-3, steps=2)

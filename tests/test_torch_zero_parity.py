@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 
 from tests import torch_zero_harness as H
+from tests.torch_threads import one_thread  # noqa: F401
 
 WORLDS = (2, 4)
 ODD = {"n_embd": 15, "n_head": 3}
@@ -60,24 +61,37 @@ def params():
 @pytest.fixture(scope="module")
 def runs(params, tmp_path_factory):
     """Per world: the port's per-rank results and the JAX engine's
-    losses and moment shards, for every case."""
+    losses and moment shards, for every case (both worlds' processes run
+    while the JAX engines do)."""
     root = tmp_path_factory.mktemp("zero_parity")
     states = {k: H.save_port_state(p, root / f"{k}.npz")
               for k, p in params.items()}
+    cases = [dict(c, name=name,
+                  state=states["odd" if "model" in c else "tiny"])
+             for name, c in CASES.items()]
+    worlds = {world: H.start_world(world, cases, states["tiny"],
+                                   root / f"w{world}")
+              for world in WORLDS}
     out = {}
-    for world in WORLDS:
-        cases = [dict(c, name=name,
-                      state=states["odd" if "model" in c else "tiny"])
-                 for name, c in CASES.items()]
-        H.spawn_world(world, cases, states["tiny"], root / f"w{world}")
-        for name, case in CASES.items():
-            losses, engine, mesh = H.jax_run(
-                params["odd" if "model" in case else "tiny"], case, world)
-            out[world, name] = {
-                "port": H.load_results(root / f"w{world}", name, world),
-                "jax_losses": losses,
-                "jax_m": H.device_shards(engine.opt_state.m, mesh),
-                "jax_v": H.device_shards(engine.opt_state.v, mesh)}
+    try:
+        for world in WORLDS:
+            for name, case in CASES.items():
+                losses, engine, mesh = H.jax_run(
+                    params["odd" if "model" in case else "tiny"], case,
+                    world)
+                out[world, name] = {
+                    "jax_losses": losses,
+                    "jax_m": H.device_shards(engine.opt_state.m, mesh),
+                    "jax_v": H.device_shards(engine.opt_state.v, mesh)}
+    except BaseException:
+        for procs in worlds.values():
+            H.stop_world(procs)
+        raise
+    for world, procs in worlds.items():
+        H.wait_world(procs)
+        for name in CASES:
+            out[world, name]["port"] = H.load_results(root / f"w{world}",
+                                                      name, world)
     return out
 
 

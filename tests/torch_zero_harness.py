@@ -2,11 +2,12 @@
 worlds of ``tests/torch_zero_worker.py`` processes, and the JAX engine on
 a sub-mesh of the same size.
 
-:func:`spawn_world` writes the spec, starts one worker a rank with the
-launcher env (``DS_TPU_COORDINATOR`` a ``file://`` store under the
-test's directory), waits for each with its own timeout, kills every
-worker still running when a wait runs out, and fails with the tail of
-the failed worker's stderr. :func:`load_results` reads back what the
+:func:`spawn_world` (:func:`start_world`, then :func:`wait_world`)
+writes the spec, starts one worker a rank with the launcher env
+(``DS_TPU_COORDINATOR`` a ``file://`` store under the test's
+directory), waits for each with its own timeout, kills every worker
+still running when a wait runs out, and fails with the tail of the
+failed worker's stderr. :func:`load_results` reads back what the
 workers wrote.
 """
 
@@ -43,10 +44,10 @@ def save_port_state(params, path):
     return str(path)
 
 
-def spawn_world(world, cases, state_path, out_dir, timeout=SPAWN_TIMEOUT_S,
-                worker=WORKER):
-    """Run ``cases`` in ``world`` gloo processes of ``worker`` (the ZeRO
-    worker by default); returns their stdout."""
+def start_world(world, cases, state_path, out_dir, worker=WORKER):
+    """Start ``cases`` in ``world`` gloo processes of ``worker`` (the ZeRO
+    worker by default) and return them, running; :func:`wait_world`
+    collects them."""
     out_dir = str(out_dir)
     os.makedirs(out_dir, exist_ok=True)
     spec = os.path.join(out_dir, "spec.json")
@@ -64,6 +65,15 @@ def spawn_world(world, cases, state_path, out_dir, timeout=SPAWN_TIMEOUT_S,
         procs.append(subprocess.Popen(
             [sys.executable, worker, spec], env=penv, cwd=out_dir,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    return procs
+
+
+def wait_world(procs, timeout=SPAWN_TIMEOUT_S):
+    """Wait for the processes of :func:`start_world`, each with its own
+    timeout; kill every one still running when a wait runs out or a
+    rank fails, and fail with the tail of its stderr. Returns their
+    stdout."""
+    world = len(procs)
     outs = []
     try:
         for rank, p in enumerate(procs):
@@ -81,11 +91,24 @@ def spawn_world(world, cases, state_path, out_dir, timeout=SPAWN_TIMEOUT_S,
                     f"{err[-3000:]}")
             outs.append(out)
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
+        stop_world(procs)
     return outs
+
+
+def stop_world(procs):
+    """Kill every process of :func:`start_world` still running."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
+
+
+def spawn_world(world, cases, state_path, out_dir, timeout=SPAWN_TIMEOUT_S,
+                worker=WORKER):
+    """Run ``cases`` in ``world`` gloo processes of ``worker`` (the ZeRO
+    worker by default); returns their stdout."""
+    return wait_world(start_world(world, cases, state_path, out_dir,
+                                  worker), timeout)
 
 
 def load_results(out_dir, name, world):
