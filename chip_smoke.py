@@ -12,7 +12,10 @@ SP pipeline at pipe 2 x seq 2, GPT-2 MoE 350M at expert 2, the TP x
 expert pipeline at pipe 2 x model 2 x expert 2, and the gradient
 compressors (the int8 all-reduce and 1-bit Adam at data 2, 1-bit Adam
 through the pipeline at pipe 2 x data 2 and pipe 2 x model 2 x data 2),
-at full width through the port's main paths.
+BERT-Large at model 2 on the sparse and flash cores, GPT-2 with
+``scan_layers`` and ``loss_chunk`` at model 2 in training and serving,
+and the training engine's resilience (guards, the hot tier, preemption
+and the restore ladder), at full width through the port's main paths.
 
     python3 chip_smoke.py                 # every phase (one GPU)
     python3 chip_smoke.py --kernels-only  # device, build, kernel checks
@@ -31,6 +34,11 @@ at full width through the port's main paths.
     python3 chip_smoke.py --phases train_zero,train_tp
                                           # device, build, the named
                                           # phase_<name>(torch) phases
+    python3 chip_smoke.py --phases train_bert_tp,train_tp_scan,serve_tp_scan,train_resilience
+                                          # the F6 and resilience phases
+                                          # (train_tp_scan runs in
+                                          # train_tp's world, serve_tp_
+                                          # scan in serve_tp's)
     python3 chip_smoke.py --serving-only  # device, build, phases 14
                                           # and 9a-9c
     python3 chip_smoke.py --turns DIR     # device, build, then K1-K8
@@ -209,7 +217,8 @@ Phases, each printing one JSON line:
    x the wire's ``wire_nbytes``; and stage 0 with ``sparse_gradients``:
    the tied ``wte``'s dense fallback counted. Both equal their stage's
    losses and masters bit for bit. The group is destroyed after it.
-13a. ``train_features`` — the ``train`` row (GPT-2 350M, 8 x 1024, bf16,
+13a. ``train_features`` — the ``train`` row at ``FEATURE_LAYERS`` blocks
+   (GPT-2 350M's widths, 8 x 1024, bf16,
    flash), 4 steps a run from the same seeded params: the unrolled
    baseline; ``scan_layers`` (losses and fp32 masters equal bit for
    bit); progressive layer drop (theta 0.5 from step 1: K1-K3 launches
@@ -253,7 +262,9 @@ Phases, each printing one JSON line:
    Then ``wide_head_timing``: one row at head dim 512 for each kernel
    the column chunks reach (K1-K3, K7/K8, K5/K6), beside its plain
    version, its bound and SDPA where it runs at that head dim.
-16. ``train_bert_sparse`` — BERT-Large (seq 512, bf16 over fp32 masters
+16. ``train_bert_sparse`` — BERT-Large's widths at ``BERT_LAYERS`` layers
+   (cut from 24 to keep the script within its time; seq 512, bf16 over
+   fp32 masters
    with the encoder layers in fp32 as in the JAX model, dropout 0.1, the bench's Fixed block-sparse layout, seeded random
    params) through ``initialize`` with the JAX bench's config
    (``bench.py:142-199``: train_batch_size 32, bf16, Adam lr 1e-4) on a
@@ -261,7 +272,7 @@ Phases, each printing one JSON line:
    steps; micro-batch 16 with accumulation 2 if 32 x 512 does not fit.
    Reports tokens/s, samples/s, step p50, MFU (``bench.py:51-62`` at the
    layout's density), peak memory and a profiler window. Checks: finite,
-   falling loss; K7, K8a, K8b 24 times per micro-batch, K1-K3 and the
+   falling loss; K7, K8a, K8b n_layer times per micro-batch, K1-K3 and the
    gather route never, K4 once per step; then at dropout 0, 3 steps with
    accumulation 2 on the kernels and again on ``masked_dense_attention``:
    losses within a bf16 tolerance, first micro-batch attn_qkvw
@@ -274,7 +285,9 @@ Phases, each printing one JSON line:
    layer and micro-batch (the attention recompute), K8a/K8b once; peak
    memory of both.
 
-17. ``train_offload`` — GPT-2 1.5B (n_embd 1600, 48 layers, 25 heads,
+17. ``train_offload`` — GPT-2 1.5B's widths (n_embd 1600, 25 heads) at
+   ``OFFLOAD_LAYERS`` of its 48 layers (cut to keep the script within
+   its time;
    vocab 50257, n_positions 1024; seeded random weights built on the
    host) through ``initialize`` with the JAX bench's offload row
    (``bench.py:343-398``: train_batch_size 4 x 1024, bf16,
@@ -353,18 +366,30 @@ Phases, each printing one JSON line:
    1's at the rank's heads, and K1's masks at them, read back, equal
    model 1's masks at those heads bit for bit. Reports p50, tokens/s,
    peak memory a rank, the collectives' calls and bytes a step and which
-   ones were staged through host memory.
+   ones were staged through host memory. In the same world,
+   ``train_tp_scan``: the model stacked (``scan_layers``, through
+   ``with_layout``) for 3 steps, then stacked with ``loss_chunk`` 256.
+   Gates: the stacked losses and masters after 3 steps equal the
+   unrolled run's bit for bit on both ranks (sha256 of each leaf by its
+   unrolled name); the chunked first loss within rtol 1e-3 of the
+   whole-vocab one; K1-K3 n_layer launches a step a rank, K4 one. Its
+   own row reports both runs' p50s and peak memory.
 23. ``serve_tp`` — GPT-2 125M served at model 2 by two such processes,
    each over its shard with 6 of the 12 heads in its cache: the
    ``serve`` row's engine (max_batch 8, buckets 128 / 512, prefill chunk
    64, flash decode) and its requests (8-120 prompt tokens, 32 new): the
-   first 8 in f32 on the ring (K5) and the paged pool (K6), all 24 in
-   bf16 on the ring and int8 on the pool; model 1 of the same seed in
+   first 8 in f32 on the ring (K5) and the paged pool (K6), the first 12
+   in bf16 on the ring and int8 on the pool; model 1 of the same seed in
    this process first. Gates:
    f32 greedy streams equal model 1's bit for bit and equal on both
    ranks; teacher-forced logits within ``TEACHER_FORCED_ATOL`` of model
    1's (every dtype); 2 programs; K5 (ring) or K6 (paged) n_layer times
    a decode step and the other never. Reports tokens/s beside model 1's.
+   In the same world, ``serve_tp_scan``: the f32 runs again with the
+   weights stacked (``--scan-layers``'s model, a stacked cache of 6 heads
+   a rank). Gates: its streams equal the unrolled model-2 streams and
+   model 1's bit for bit, as many K5 / K6 launches, the other kernel
+   never, 2 programs.
 24. ``train_pipe_tp`` — JAX's collective-matmul bench row
    (``bench.py:450-500``): ``tp_pipeline_module`` (vocab 32000, d_model
    1024, 16 heads, 4 blocks, 2 stages, flash) at pipe 2 x model 2, f32,
@@ -393,7 +418,7 @@ are host-staged ones on one card, not NVLink times.
    ``fold_in_seed(1234, seq rank)``. Reports each call's ms, the
    collectives a call and peak memory a rank.
 26. ``train_pipe_sp`` — ``sp_pipeline_module(50257, 1024, 16, 1024,
-   n_blocks=8)`` at pipe 2 (every stage in a process) x seq 2 (two
+   n_blocks=SP_BLOCKS)`` (4) at pipe 2 (every stage in a process) x seq 2 (two
    processes), 8 x 1024 tokens as 4 micro-batches, Adam lr 1e-4,
    dropout 0; seq 1 in this process first at the same (seeded) weights.
    Gates: f32 value-and-grad at seq 2 against seq 1's: loss rtol 1e-5,
@@ -439,7 +464,8 @@ processes, started once); every bitwise gate compares host copies
 update are plain PyTorch on the card (JAX computes them with ``jnp``
 outside any kernel): these phases add no kernel, and K1-K4 run in them.
 
-29. ``train_qcomm`` — JAX's ``bench.py:405-450`` row: GPT-2 125M, 8 x
+29. ``train_qcomm`` — JAX's ``bench.py:405-450`` row at ``F5_LAYERS``
+   blocks: GPT-2 125M's widths, 8 x
    1024 tokens, bf16, flash, Adam lr 1e-4, at data 2: the fp32 gradient
    sync, ``comm_quantization`` at its defaults (chunk 512, 4 MB
    buckets) at ZeRO 0, and at ZeRO 2 with accumulation 2 and error
@@ -475,6 +501,38 @@ outside any kernel): these phases add no kernel, and K1-K4 run in them.
    ``F5_FAULTS`` planted (the tied leaves compressed in the body's
    buffer; the model-replicated body leaves with the model-sharded
    ones) and fails unless each breaks its equality gate.
+33. ``train_bert_tp`` — ``train_bert_sparse``'s row (BERT-Large widths:
+   d 1024, 16 heads, 4096 intermediate, vocab 30522; MLM at 512, the
+   Fixed layout at block 64, bf16 with the encoder and K7/K8 in fp32)
+   at 8 x 512 and ``BERT_TP_LAYERS`` layers, at model 2 (two
+   ``--tp-worker`` processes on ``cuda:0`` over gloo), 1 warmup and 3
+   timed steps, the model-1 run of the same seed first. Gates: the first
+   loss within rtol 1e-3 of model 1's, the same on both ranks; the fp32
+   masters after 4 steps within 5e-3 relative L2 of model 1's; K7, K8a,
+   K8b n_layer launches a step a rank at 8 heads, K1-K3 none, no
+   gather-route call, K4 one a step; one step at dropout 0.1 whose first
+   loss is model 1's within 1e-3 and whose sparse calls hash each rank's
+   heads at their global coordinates (offset 8 r, 16 heads); K7/K8 at a
+   rank's shape against their plain versions, and bit for bit equal to
+   the 16-head launch at those heads. Then the flash core (K1-K3 with
+   the padding mask as a key bias) at 2 layers: the same loss and
+   master gates, K1-K3 2 launches a step a rank. Reports p50 beside
+   model 1's, peak memory a rank and the collectives a step.
+34. ``train_resilience`` — GPT-2 125M (8 x 512, bf16, flash) through
+   ``initialize`` with the ``resilience`` block, in a child process of
+   this script (``--resilience-worker``), so the SIGTERM stays there.
+   Gates: a NaN gradient planted at step 1 under ``skip_step`` leaves the
+   masters bit for bit those of a clean run of the other batches; under
+   ``rollback_to_checkpoint`` with the hot tier a NaN step restores the
+   step-2 snapshot from RAM, and a fresh engine (another seed) with
+   ``auto_resume`` restores it from the mirror, both bit for bit;
+   ``simulate_preemption`` at step 3 gives ``PreemptedError`` (code 0)
+   with its checkpoint; a fresh engine (seed 123) with ``auto_resume``
+   continues the clean loss curve bit for bit; with the newest disk
+   checkpoint torn the ladder loads the step-2 one, bit for bit the
+   clean masters at step 2; K1-K3 12 launches and K4 one a step.
+   Reports the hot snapshot's ms and bytes, a disk save's ms and bytes
+   and each rung's restore ms.
 
 Then the phases' walls, the ``kernels`` summary line (K7/K8 entries name
 their design; K1-K4 count the ``train`` path's launches and give the
@@ -489,14 +547,18 @@ and ``train_pipe_tp``'s as ``pipe_tp_launches``; K7/K8 add ``train_bert_ckpt``'s
 ``moe_launches_by_rank`` and ``pipe_tp_moe_launches_by_rank``, and
 phases 29-32's as ``qcomm_launches_by_rank`` (by run),
 ``onebit_launches_by_rank``, ``pipe_onebit_launches_by_rank`` and
-``pipe_tp_onebit_launches_by_rank``; K5 and K6
+``pipe_tp_onebit_launches_by_rank``, ``train_tp_scan``'s as
+``tp_scan_launches_by_rank``, phase 33's flash run's as
+``bert_tp_flash_launches_by_rank`` and phase 34's as
+``resilience_launches``; K7/K8 add phase 33's as
+``bert_tp_launches_by_rank``; K5 and K6
 count every serving path's,
 each also given apart: ``serve_launches``, ``scan_layers_launches``,
 ``checkpoint_launches``,
 ``process_fleet_launches``, ``thread_fleet_launches``,
 ``disagg_launches``, ``thread_tier_launches``,
 ``process_tier_launches``, and ``serve_tp``'s summed over its ranks as
-``tp_launches``),
+``tp_launches``, ``serve_tp_scan``'s as ``tp_scan_launches``),
 the ``host_ops`` line (the C++ Adam's ms a step over the 1.56 G masters
 beside its plain version and ``probe_ms``: the 28 bytes an element it
 must read and write at the best host memory rate that torch probes with
@@ -510,6 +572,7 @@ before the last line; without a CUDA device it exits 1 at once.
 
 import argparse
 import concurrent.futures
+import dataclasses
 import gc
 import math
 import json
@@ -2972,7 +3035,7 @@ def phase_train(torch):
 ZERO_STAGES = (0, 1, 2, 3)
 ZERO_WARMUP, ZERO_STEPS = 2, 5
 # depth cut from 24 (widths kept): the script's 1200 s holds every phase
-ZERO_LAYERS = 12
+ZERO_LAYERS = 6
 
 
 def _zero_group(torch):
@@ -3257,15 +3320,20 @@ BERT_FLAGS = ("normalize_invertible", "gelu_checkpoint",
               "attn_dropout_checkpoint")
 
 
+FEATURE_LAYERS = 12                # train_features' depth (350M widths)
+
+
 def _seeded_state(torch):
-    """The ``train`` row's seeded params (``_train_engine``'s) as an fp32
+    """The ``train`` row's widths at ``FEATURE_LAYERS`` blocks (cut from
+    24 to keep the script within its time), seeded params as an fp32
     state dict on the card: every feature run starts from it."""
     from deepspeed_tpu_torch.models.gpt2 import GPT2LMHead, gpt2_350m
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    model = GPT2LMHead(gpt2_350m(n_positions=TRAIN_T, dropout=0.0,
-                                 use_flash_attention=True, loss_chunk=0),
-                       device="cuda", generator=gen)
+    cfg = dataclasses.replace(
+        gpt2_350m(n_positions=TRAIN_T, dropout=0.0, use_flash_attention=True,
+                  loss_chunk=0), n_layer=FEATURE_LAYERS)
+    model = GPT2LMHead(cfg, device="cuda", generator=gen)
     return {k: v.detach() for k, v in model.state_dict().items()}
 
 
@@ -3275,8 +3343,9 @@ def _feature_engine(torch, state, extra=None, optimizer=None, **model_kw):
     from deepspeed_tpu_torch import initialize
     from deepspeed_tpu_torch.models.gpt2 import (
         GPT2LMHead, gpt2_350m, stack_gpt2_state_dict)
-    cfg = gpt2_350m(n_positions=TRAIN_T, dropout=0.0,
-                    use_flash_attention=True, loss_chunk=0, **model_kw)
+    cfg = dataclasses.replace(
+        gpt2_350m(n_positions=TRAIN_T, dropout=0.0, use_flash_attention=True,
+                  loss_chunk=0, **model_kw), n_layer=FEATURE_LAYERS)
     model = GPT2LMHead(cfg, device="meta")
     sd = stack_gpt2_state_dict(state) if cfg.scan_layers else state
     model.load_state_dict({k: v.clone() for k, v in sd.items()},
@@ -3399,7 +3468,7 @@ def phase_train_features(torch):
              .astype(np.int32)}
     counters = _flash_counters()
     state = _seeded_state(torch)
-    L = TRAIN_LAYERS
+    L = FEATURE_LAYERS
     row = {"phase": "train_features", "model": "gpt2_350m",
            "batch": TRAIN_B, "seq": TRAIN_T, "dtype": "bfloat16",
            "attention": "flash", "steps": FEATURE_STEPS}
@@ -3638,7 +3707,7 @@ def phase_train_bert_ckpt(torch):
 # ---------------------------------------------------------------------------
 
 BERT_B, BERT_T, BERT_H, BERT_D, BERT_BLOCK = 32, 512, 16, 64, 64
-BERT_LAYERS = 24
+BERT_LAYERS = 12                   # BERT-Large widths, depth cut
 BERT_VOCAB = 30522
 LONG_B, LONG_T, LONG_BLOCK = 1, 4096, 128   # benchmarks/long_context.py
 SPARSE_SEED = -123456789
@@ -3693,14 +3762,15 @@ def _sparse_layouts(sc, block, t, heads):
 
 
 def _sparse_case(torch, bsa, b, t, h, d, dtype, block, layout, causal, rate,
-                 gen, head_offset=0):
+                 gen, head_offset=0, num_heads=None):
     """K7, K8a and K8b against their plain versions on one input set
-    (``head_offset``: the dropout hash's, as a data-parallel rank's)."""
+    (``head_offset``: the dropout hash's, as a data-parallel rank's;
+    ``num_heads``: the unsharded head count of a model rank's heads)."""
     q, k, v, g, _ = _attn_inputs(torch, b, t, h, d, getattr(torch, dtype),
                                  False, gen)
     lut, nnz, lut_t, nnz_t = bsa.layout_tables(layout, "cuda")
     kw = dict(causal=causal, dropout_rate=rate, dropout_seed=SPARSE_SEED,
-              dropout_head_offset=head_offset)
+              dropout_head_offset=head_offset, dropout_num_heads=num_heads)
     out, lse = bsa.block_sparse_attention_fwd(q, k, v, lut, nnz, block, **kw)
     ref_out, ref_lse = bsa.block_sparse_attention_fwd_reference(
         q, k, v, lut, nnz, block, **kw)
@@ -3728,6 +3798,7 @@ def _sparse_case(torch, bsa, b, t, h, d, dtype, block, layout, causal, rate,
               "dv": _close(torch, dv, ref_dv, rtol)}
     return {"B": b, "T": t, "H": h, "D": d, "dtype": dtype, "block": block,
             "causal": causal, "dropout": rate, "head_offset": head_offset,
+            "num_heads": num_heads,
             "density": float(np.asarray(layout).mean()),
             "empty_rows": int(empty.any(-1).sum()),
             "max_abs_err": {n: c[0] for n, c in checks.items()},
@@ -4403,6 +4474,7 @@ def _bert_engine(torch, dropout, accum):
     # as the bench builds it: the sparse core wins over flash attention
     cfg = bert_large(dtype=torch.bfloat16, use_flash_attention=True,
                      sparse_attention=_bert_sparsity(sc),
+                     num_hidden_layers=BERT_LAYERS,
                      hidden_dropout_prob=dropout,
                      attention_probs_dropout_prob=dropout)
     model = BertForMaskedLM(cfg, device="cuda", generator=gen)
@@ -4560,7 +4632,7 @@ def phase_train_bert_sparse(torch):
 
 OFFLOAD_B, OFFLOAD_T = 4, 1024        # bench.py's offload row: bs 4 x 1024
 OFFLOAD_WARMUP, OFFLOAD_STEPS = 1, 3  # bench.py's BENCH_STEPS default
-OFFLOAD_LAYERS, OFFLOAD_HEADS = 48, 25
+OFFLOAD_LAYERS, OFFLOAD_HEADS = 24, 25   # 1.5B widths, depth cut from 48
 OFFLOAD_CHUNK = 512                   # loss_chunk
 # host RAM the offload phase needs at 1.5B: masters, both moments and the
 # fp32 gradient (16 B an element), the bf16 landing and copy-back buffers
@@ -4723,9 +4795,10 @@ def phase_train_offload(torch):
     from deepspeed_tpu_torch.ops.adam.cpu_adam import load_cpu_adam
 
     host = _host_info()
-    cfg = gpt2_1_5b(n_positions=OFFLOAD_T, dropout=0.0,
-                    use_flash_attention=True, loss_chunk=OFFLOAD_CHUNK,
-                    remat=True, remat_policy="full")
+    cfg = dataclasses.replace(
+        gpt2_1_5b(n_positions=OFFLOAD_T, dropout=0.0,
+                  use_flash_attention=True, loss_chunk=OFFLOAD_CHUNK,
+                  remat=True, remat_policy="full"), n_layer=OFFLOAD_LAYERS)
     if (cfg.n_layer, cfg.n_head) != (OFFLOAD_LAYERS, OFFLOAD_HEADS):
         fail(f"gpt2_1_5b has {cfg.n_layer} layers of {cfg.n_head} heads; "
              f"the gates and train_kernel_check's shape assume "
@@ -4873,9 +4946,10 @@ def phase_train_dense_yardstick(torch):
     from deepspeed_tpu_torch.models.gpt2 import GPT2LMHead, gpt2_1_5b
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    cfg = gpt2_1_5b(n_positions=OFFLOAD_T, dropout=0.0,
-                    use_flash_attention=True, loss_chunk=OFFLOAD_CHUNK,
-                    remat=True, remat_policy="full")
+    cfg = dataclasses.replace(
+        gpt2_1_5b(n_positions=OFFLOAD_T, dropout=0.0,
+                  use_flash_attention=True, loss_chunk=OFFLOAD_CHUNK,
+                  remat=True, remat_policy="full"), n_layer=OFFLOAD_LAYERS)
     model = GPT2LMHead(cfg, device="cuda", generator=gen)
     config = {"train_batch_size": OFFLOAD_B, "bf16": {"enabled": True},
               "optimizer": {"type": "Adam",
@@ -4994,7 +5068,7 @@ def phase_offload_resume(torch):
 
 PIPE_STAGES, PIPE_MICRO, PIPE_ROWS = 4, 4, 8   # S, M, train batch
 PIPE_WARMUP, PIPE_STEPS = 2, 5
-PIPE_LAYERS = 12                   # train_pipe's depth (350M widths)
+PIPE_LAYERS = 8                    # train_pipe's depth (350M widths)
 
 
 def _pipe_350m(**kw):
@@ -5296,7 +5370,7 @@ def _restack(state, stages):
 
 TP_WORLD = 2                       # model-parallel processes on cuda:0
 TP_WARMUP, TP_STEPS = 2, 5
-TP_LAYERS = 12                     # train_tp's depth (350M widths)
+TP_LAYERS = 6                      # train_tp's depth (350M widths)
 TP_LOSS_RTOL = 1e-3                # bf16 losses (test_torch_gpt2_train)
 TP_MASTER_REL_L2 = 5e-3            # masters after 7 steps, relative L2
 TP_SPAWN_TIMEOUT_S = 420
@@ -5441,13 +5515,15 @@ def _recorded_k1_calls(fa):
     return calls, restore
 
 
-def _tp_train_run(torch, engine, batch, steps, counters, comm=None):
+def _tp_train_run(torch, engine, batch, steps, counters, comm=None,
+                  after_step=None):
     """``steps`` train steps: losses, step walls, the K1-K4 launches and
-    (TP) the collectives' calls and bytes of the last step."""
+    (TP) the collectives' calls and bytes of the last step;
+    ``after_step(i)`` runs after step i, outside its wall."""
     for c in counters.values():
         c.launches = 0
     losses, walls, last = [], [], {}
-    for _ in range(steps):
+    for i in range(steps):
         if comm is not None:
             comm.reset_collective_counts()
         t0 = time.perf_counter()
@@ -5455,6 +5531,8 @@ def _tp_train_run(torch, engine, batch, steps, counters, comm=None):
         walls.append(time.perf_counter() - t0)
         if comm is not None:
             last = comm.collective_counts()
+        if after_step is not None:
+            after_step(i)
     return losses, walls, {n: c.launches for n, c in counters.items()}, last
 
 
@@ -5470,8 +5548,15 @@ def _tp_train_worker(torch, spec, groups, rank):
     engine, _, _, _ = initialize(model=model, config=_tp_config(
         {"model": TP_WORLD}), mpu=groups)
     batch = _train_batch_350m()
+    digests = {}
+
+    def after_step(i):
+        # the unrolled masters after train_tp_scan's steps
+        if spec.get("scan") and i == TP_SCAN_STEPS - 1:
+            digests.update(_tp_unrolled_digests(torch, engine))
+
     losses, walls, launches, counts = _tp_train_run(
-        torch, engine, batch, TP_WARMUP + TP_STEPS, counters, C)
+        torch, engine, batch, TP_WARMUP + TP_STEPS, counters, C, after_step)
     routes = {n: dict(c.routes) for n, c in counters.items()
               if hasattr(c, "routes")}
     peak = torch.cuda.max_memory_allocated()
@@ -5493,6 +5578,8 @@ def _tp_train_worker(torch, spec, groups, rank):
     del engine, model
     gc.collect()
     torch.cuda.empty_cache()
+    scan = _tp_scan_runs(torch, groups, batch, counters, losses, digests) \
+        if spec.get("scan") else None
     # one step at dropout 0.1: the K1 calls' dropout coordinates
     calls, restore = _recorded_k1_calls(fa)
     try:
@@ -5509,7 +5596,7 @@ def _tp_train_worker(torch, spec, groups, rank):
             "collectives_last_step": counts, "staged": staged,
             "master_rel_l2": float((sq[0] / sq[1]).sqrt()),
             "local_heads": heads, "dropout_loss": drop_loss,
-            "dropout_calls": calls}
+            "dropout_calls": calls, "scan": scan}
 
 
 def _k1_mask(torch, fa, h, seed, offset, heads, rate=0.1):
@@ -5557,7 +5644,8 @@ def phase_train_tp(torch):
     gc.collect()
     torch.cuda.empty_cache()
     ranks, _ = _spawn_tp(torch, "train_tp", {"mesh": {"model": TP_WORLD},
-                                             "ref_masters": ref_path})
+                                             "ref_masters": ref_path,
+                                             "scan": True})
     os.remove(ref_path)
     # the masks: each rank's K1 calls at its heads' coordinates against
     # the model-1 call's heads, read back from K1 at the recorded seeds
@@ -5626,16 +5714,21 @@ def phase_train_tp(torch):
     if not masks_equal or len(calls1) != TP_LAYERS:
         fail("train_tp at dropout 0.1: a rank's attention masks differ from "
              "the model-1 run's at its heads")
+    row["tp_scan"] = _tp_scan_row(torch, ranks, ref_losses,
+                                  row["model1_step_p50_ms"])
     return row
 
 
-def _tp_serve_engine(torch, kv, layout, dtype, mpu=None):
+def _tp_serve_engine(torch, kv, layout, dtype, mpu=None, scan=False):
     from deepspeed_tpu_torch.inference.engine import InferenceEngine
-    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHead, gpt2_125m
+    from deepspeed_tpu_torch.models.gpt2 import (
+        GPT2LMHead, gpt2_125m, with_layout)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     model = GPT2LMHead(gpt2_125m(dtype=dtype), device="cuda", generator=gen,
                        mpu=mpu)
+    if scan:            # the same weights stacked, a stacked cache
+        model = with_layout(model, True)
     extra = {"kv_layout": "paged"} if layout == "paged" else {}
     return InferenceEngine(model, device="cuda", config={
         "max_batch": B, "seq_buckets": (128, 512), "prefill_chunk": 64,
@@ -5649,14 +5742,14 @@ def _tp_serve_requests(Request, n, vocab=50257):
                     max_new_tokens=32, arrival_step=i) for i in range(n)]
 
 
-def _tp_serve_run(torch, kv, layout, dtype, n, mpu=None):
+def _tp_serve_run(torch, kv, layout, dtype, n, mpu=None, scan=False):
     """``n`` of the serve row's requests through one engine: greedy tokens,
     decode steps, the decode kernels' launches, the step wall, and the
     teacher-forced logits of ``_teacher_forced_diff``'s prompts."""
     from deepspeed_tpu_torch.inference.scheduler import (
         ContinuousBatchingScheduler, Request)
     k5, k6 = _decode_counters()
-    engine = _tp_serve_engine(torch, kv, layout, dtype, mpu)
+    engine = _tp_serve_engine(torch, kv, layout, dtype, mpu, scan)
     sched = ContinuousBatchingScheduler(engine)
     sched.run([Request("warmup", [1, 2, 3, 4, 5, 6, 7, 8],
                        max_new_tokens=4)])
@@ -5678,7 +5771,7 @@ def _tp_serve_run(torch, kv, layout, dtype, n, mpu=None):
     prompts = [rng.integers(0, 50257, k).tolist() for k in lens]
     steps = rng.integers(0, 50257, (4, B)).astype(np.int32)
     if layout == "paged":
-        engine = _tp_serve_engine(torch, kv, layout, dtype, mpu)
+        engine = _tp_serve_engine(torch, kv, layout, dtype, mpu, scan)
     out["forced"] = _forced_logits(engine, prompts, steps)
     del engine, sched
     torch.cuda.empty_cache()
@@ -5700,15 +5793,27 @@ def _tp_serve_worker(torch, spec, groups, rank):
         res["collectives"] = C.collective_counts()
         res["staged"] = sorted(C.STAGED)
         out[name] = res
+    for name, kv, layout, dtype, n in spec.get("scan_runs", ()):
+        C.reset_collective_counts()
+        res = _tp_serve_run(torch, kv, layout, getattr(torch, dtype), n,
+                            groups, scan=True)
+        res.pop("forced")
+        res["collectives"] = C.collective_counts()
+        res["staged"] = sorted(C.STAGED)
+        out[name] = res
     return out
 
 
 # the f32 streams (the bitwise gate) take the first 8 requests, as the
-# serve phases' f32 stream checks do; bf16 and int8 the serve row's 24
+# serve phases' f32 stream checks do; bf16 and int8 the serve row's first
+# 12 (of 24: cut to keep the script within its time)
 TP_SERVE_RUNS = [("f32_ring", None, "ring", "float32", 8),
                  ("f32_paged", None, "paged", "float32", 8),
-                 ("bf16_ring", "bf16", "ring", "bfloat16", 24),
-                 ("int8_paged", "int8", "paged", "bfloat16", 24)]
+                 ("bf16_ring", "bf16", "ring", "bfloat16", 12),
+                 ("int8_paged", "int8", "paged", "bfloat16", 12)]
+# serve_tp_scan: the f32 streams of the stacked model (its f32 run's twin)
+TP_SERVE_SCAN_RUNS = [("f32_ring_scan", None, "ring", "float32", 8),
+                      ("f32_paged_scan", None, "paged", "float32", 8)]
 
 
 def phase_serve_tp(torch):
@@ -5716,7 +5821,8 @@ def phase_serve_tp(torch):
     ref = {name: _tp_serve_run(torch, kv, layout, getattr(torch, dtype), n)
            for name, kv, layout, dtype, n in TP_SERVE_RUNS}
     ranks, tmp = _spawn_tp(torch, "serve_tp", {
-        "mesh": {"model": TP_WORLD}, "runs": TP_SERVE_RUNS})
+        "mesh": {"model": TP_WORLD}, "runs": TP_SERVE_RUNS,
+        "scan_runs": TP_SERVE_SCAN_RUNS})
     row = {"phase": "serve_tp", "model": "gpt2_125m",
            "mesh": {"model": TP_WORLD}, "processes": TP_WORLD,
            "device": "cuda:0", "runs": {}}
@@ -5768,6 +5874,51 @@ def phase_serve_tp(torch):
     emit(row)
     if not ok:
         fail(f"serve_tp: a gate failed ({[(n, r['ok']) for n, r in row['runs'].items()]})")
+    row["tp_scan"] = _serve_tp_scan_row(ranks, ref)
+    return row
+
+
+def _serve_tp_scan_row(ranks, ref):
+    """serve_tp_scan: the stacked model's f32 greedy streams at model 2
+    against the unrolled model's at model 2 and at model 1."""
+    row = {"phase": "serve_tp_scan", "model": "gpt2_125m",
+           "mesh": {"model": TP_WORLD}, "processes": TP_WORLD,
+           "device": "cuda:0", "world": "serve_tp's", "runs": {}}
+    ok = True
+    for name, kv, layout, dtype, n in TP_SERVE_SCAN_RUNS:
+        base = name[:-len("_scan")]
+        mine = [r[name] for r in ranks]
+        kernel = "k6" if layout == "paged" else "k5"
+        other = "k5" if layout == "paged" else "k6"
+        r = {"layout": layout, "dtype": dtype, "requests": n,
+             "streams_equal_unrolled_model2": all(
+                 m["tokens"] == u[base]["tokens"]
+                 for m, u in zip(mine, ranks)),
+             "streams_equal_model1": all(m["tokens"] == ref[base]["tokens"]
+                                         for m in mine),
+             "decode_launches_by_rank": [m[kernel] for m in mine],
+             "unrolled_decode_launches_by_rank": [u[base][kernel]
+                                                  for u in ranks],
+             "other_kernel_launches": [m[other] for m in mine],
+             "cache_heads": [m["cache_heads"] for m in mine],
+             "compile_counts": [m["counts"] for m in mine],
+             "tokens_per_s": mine[0]["generated"] / max(
+                 m["wall_s"] for m in mine)}
+        r["ok"] = r["streams_equal_unrolled_model2"] and \
+            r["streams_equal_model1"] and \
+            r["decode_launches_by_rank"] == \
+            r["unrolled_decode_launches_by_rank"] and \
+            all(x > 0 for x in r["decode_launches_by_rank"]) and \
+            not any(r["other_kernel_launches"]) and \
+            all(h == 6 for h in r["cache_heads"]) and \
+            all(c == {"prefill": 1, "decode": 1}
+                for c in r["compile_counts"])
+        ok = ok and r["ok"]
+        row["runs"][name] = r
+    emit(row)
+    if not ok:
+        fail(f"serve_tp_scan: a gate failed "
+             f"({[(n, r['ok']) for n, r in row['runs'].items()]})")
     return row
 
 
@@ -5975,7 +6126,7 @@ SEQ_WORLD = 2                      # seq ranks on cuda:0
 SEQ_RATE, SEQ_SEED = 0.1, 1234
 SEQ_REL_TOL = 1e-2                 # bf16 ring vs dense f32: max|d| / max|ref|
 SEQ_REPS = 3
-SP_VOCAB, SP_D, SP_H, SP_T, SP_BLOCKS = 50257, 1024, 16, 1024, 8
+SP_VOCAB, SP_D, SP_H, SP_T, SP_BLOCKS = 50257, 1024, 16, 1024, 4
 SP_ROWS, SP_MICRO, SP_LR = 8, 4, 1e-4
 SP_WARMUP, SP_STEPS = 2, 3
 SP_LOSS_RTOL, SP_GRAD_RTOL, SP_GRAD_ATOL = 1e-5, 3e-4, 1e-6   # JAX's
@@ -6846,13 +6997,17 @@ def _host_digest(tensors):
     return h.hexdigest()
 
 
+F5_LAYERS = 6                      # phases 29-30's depth (125M widths)
+
+
 def _f5_gpt2_125m(torch):
     from deepspeed_tpu_torch.models.gpt2 import GPT2LMHead, gpt2_125m
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    return GPT2LMHead(gpt2_125m(n_positions=TRAIN_T, dropout=0.0,
-                                use_flash_attention=True, loss_chunk=0),
-                      device="cuda", generator=gen)
+    cfg = dataclasses.replace(
+        gpt2_125m(n_positions=TRAIN_T, dropout=0.0, use_flash_attention=True,
+                  loss_chunk=0), n_layer=F5_LAYERS)
+    return GPT2LMHead(cfg, device="cuda", generator=gen)
 
 
 def _f5_dp_run(torch, extra, steps, counters, rank, keep=None):
@@ -6979,9 +7134,9 @@ def phase_train_qcomm(torch, ranks):
                  f"{base} beyond rtol {QC_LOSS_RTOL}")
         accum = int(QC_RUNS[[n for n, _ in QC_RUNS].index(name)][1].get(
             "gradient_accumulation_steps", 1))
-        want = {"K1": N_LAYER * accum * QC_STEPS,
-                "K2": N_LAYER * accum * QC_STEPS,
-                "K3": N_LAYER * accum * QC_STEPS, "K4": QC_STEPS}
+        want = {"K1": F5_LAYERS * accum * QC_STEPS,
+                "K2": F5_LAYERS * accum * QC_STEPS,
+                "K3": F5_LAYERS * accum * QC_STEPS, "K4": QC_STEPS}
         if any(lr != want for lr in run["launches_by_rank"]):
             fail(f"train_qcomm {name} launches {run['launches_by_rank']} "
                  f"!= {want}")
@@ -7094,8 +7249,8 @@ def phase_train_onebit(torch, ranks):
             codec["scale_rel_err"] > OB_SCALE_RTOL:
         fail(f"train_onebit: the codec on the card differs from the "
              f"host's ({codec})")
-    want = {"K1": N_LAYER * OB_STEPS, "K2": N_LAYER * OB_STEPS,
-            "K3": N_LAYER * OB_STEPS, "K4": 0}
+    want = {"K1": F5_LAYERS * OB_STEPS, "K2": F5_LAYERS * OB_STEPS,
+            "K3": F5_LAYERS * OB_STEPS, "K4": 0}
     if any(lr != want for lr in row["launches_by_rank"]):
         fail(f"train_onebit launches {row['launches_by_rank']} != {want}")
     if "all_to_all/uint8" not in row["wire_compressed_step"]:
@@ -7369,6 +7524,637 @@ def phase_f5_faults(torch):
              f"{[(r['phase'], r['fault']) for r in rows]}")
 
 
+# ---------------------------------------------------------------------------
+# F6: BERT at a model axis; GPT-2's scan_layers and loss_chunk at model 2
+# (the latter two in train_tp's and serve_tp's worlds)
+# ---------------------------------------------------------------------------
+
+BERT_TP_B = 8                      # train_bert_sparse's row at 8 x 512
+BERT_TP_LAYERS = 6                 # depth cut from 24 (PERF.md section 4)
+BERT_TP_FLASH_LAYERS = 2
+BERT_TP_WARMUP, BERT_TP_STEPS = 1, 3
+BERT_TP_HEADS = BERT_H // TP_WORLD
+TP_SCAN_STEPS = 3                  # the scan_layers / loss_chunk runs
+TP_SCAN_CHUNK = 256                # loss_chunk: 4 chunks of a 1024 row
+
+
+def _bert_tp_model(torch, dropout, mpu=None, sparse=True,
+                   layers=BERT_TP_LAYERS):
+    """BERT-Large's widths at ``layers`` layers from seed 0 (bf16, the
+    encoder and its attention in fp32): the Fixed sparse core of
+    ``train_bert_sparse`` (K7/K8), or the flash core (K1-K3 with the
+    padding mask as a key bias); with ``mpu`` this rank's shard."""
+    from deepspeed_tpu_torch.models.bert import BertForMaskedLM, bert_large
+    from deepspeed_tpu_torch.ops import sparse_attention as sc
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    cfg = bert_large(dtype=torch.bfloat16, use_flash_attention=not sparse,
+                     sparse_attention=_bert_sparsity(sc) if sparse else None,
+                     num_hidden_layers=layers, hidden_dropout_prob=dropout,
+                     attention_probs_dropout_prob=dropout)
+    return BertForMaskedLM(cfg, device="cuda", generator=gen, mpu=mpu)
+
+
+def _bert_tp_config(mesh_shape=None):
+    cfg = {"train_batch_size": BERT_TP_B, "bf16": {"enabled": True},
+           "optimizer": {"type": "Adam", "params": {"lr": 1e-4}},
+           "steps_per_print": 10 ** 9}
+    if mesh_shape:
+        cfg["mesh"] = mesh_shape
+    return cfg
+
+
+def _bert_tp_batch(masked):
+    """The first 8 rows of ``train_bert_sparse``'s batch; ``masked`` adds
+    a key padding mask (each row keeps at least half its keys)."""
+    batch = {k: v[:BERT_TP_B] for k, v in _bert_batch(BERT_VOCAB).items()}
+    if masked:
+        rng = np.random.default_rng(1)
+        batch["attention_mask"] = (np.arange(BERT_T)[None] < rng.integers(
+            BERT_T // 2, BERT_T + 1, (BERT_TP_B, 1))).astype(np.int32)
+    return batch
+
+
+def _rel_l2_to(torch, engine, ref, tp):
+    """Relative L2 of the engine's masters against the whole ``ref``
+    masters (split leaves summed over the model group, a replicated leaf
+    counted on rank 0)."""
+    from deepspeed_tpu_torch.parallel import collectives as C
+    from deepspeed_tpu_torch.parallel.tensor_parallel import shard_tensor
+    sq = torch.zeros(2, dtype=torch.float64, device="cuda")
+    for name, p, s in zip(engine._param_names(), engine.params,
+                          engine._tp_specs):
+        if tp is not None and s is None and tp.rank != 0:
+            continue
+        want = ref[name] if tp is None else \
+            shard_tensor(ref[name], s, tp.rank, tp.size)
+        want = want.cuda()
+        sq[0] += (p.detach().double() - want.double()).square().sum()
+        sq[1] += want.double().square().sum()
+    if tp is not None:
+        C.all_reduce(sq, tp)
+    return float((sq[0] / sq[1]).sqrt())
+
+
+def _recorded_sparse_calls():
+    """Note each call of the sparse core's kernel entry (its dropout
+    coordinates); returns ``(calls, restore)``."""
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        sparse_self_attention as ssa)
+    calls = []
+    orig = ssa.block_sparse_attention
+
+    def rec(q, *args, **kw):
+        if kw.get("dropout_rate", 0.0) > 0.0:
+            calls.append([q.shape[0], q.shape[2], q.shape[1],
+                          int(kw["dropout_seed"]),
+                          int(kw.get("dropout_head_offset", 0)),
+                          kw.get("dropout_num_heads")])
+        return orig(q, *args, **kw)
+
+    ssa.block_sparse_attention = rec
+
+    def restore():
+        ssa.block_sparse_attention = orig
+    return calls, restore
+
+
+def _bert_tp_worker(torch, spec, groups, rank):
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.parallel import collectives as C
+    tp = groups.axis("model")
+    counters = _sparse_counters()
+    mesh_shape = {"model": TP_WORLD}
+    steps = BERT_TP_WARMUP + BERT_TP_STEPS
+    out = {"rank": rank}
+    torch.cuda.reset_peak_memory_stats()
+    model = _bert_tp_model(torch, 0.0, groups)
+    engine, _, _, _ = initialize(model=model, config=_bert_tp_config(
+        mesh_shape), mpu=groups)
+    bsa = _bsa()
+    bsa._xla_impl.calls = 0
+    losses, walls, launches, counts = _tp_train_run(
+        torch, engine, _bert_tp_batch(False), steps, counters, C)
+    out.update(losses=losses, walls=walls, launches=launches,
+               collectives_last_step=counts, gather_calls=bsa._xla_impl.calls,
+               peak=torch.cuda.max_memory_allocated(),
+               local_heads=engine.module.bert.layer[0].local_heads,
+               master_rel_l2=_rel_l2_to(torch, engine, torch.load(
+                   spec["ref_sparse"]), tp))
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # one step at dropout 0.1: the sparse core's dropout coordinates
+    calls, restore = _recorded_sparse_calls()
+    try:
+        model = _bert_tp_model(torch, 0.1, groups)
+        engine, _, _, _ = initialize(model=model, config=_bert_tp_config(
+            mesh_shape), mpu=groups)
+        out["dropout_loss"] = float(engine.train_batch(_bert_tp_batch(
+            False)))
+    finally:
+        restore()
+    out["dropout_calls"] = calls
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the flash core (K1-K3 with the key bias) at 2 layers
+    model = _bert_tp_model(torch, 0.0, groups, sparse=False,
+                           layers=BERT_TP_FLASH_LAYERS)
+    engine, _, _, _ = initialize(model=model, config=_bert_tp_config(
+        mesh_shape), mpu=groups)
+    f_losses, f_walls, f_launches, _ = _tp_train_run(
+        torch, engine, _bert_tp_batch(True), steps, counters)
+    out.update(flash_losses=f_losses, flash_walls=f_walls,
+               flash_launches=f_launches,
+               flash_master_rel_l2=_rel_l2_to(torch, engine, torch.load(
+                   spec["ref_flash"]), tp))
+    del engine, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _bert_tp_kernel_checks(torch):
+    """K7, K8a and K8b at a model rank's shape (8 of 16 heads, the
+    global head count 16, the rank's first head as the offset, dropout
+    0.1): against their plain versions, and bit for bit equal to the
+    16-head launches at those heads."""
+    from deepspeed_tpu_torch.ops import sparse_attention as sc
+    bsa = _bsa()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    layout = _bert_sparsity(sc).make_layout(BERT_T)
+    hl = BERT_TP_HEADS
+    cases = [_sparse_case(torch, bsa, BERT_TP_B, BERT_T, hl, BERT_D,
+                          "float32", BERT_BLOCK, layout[r * hl:(r + 1) * hl],
+                          False, 0.1, gen, head_offset=r * hl,
+                          num_heads=BERT_H) for r in range(TP_WORLD)]
+    q, k, v, g, _ = _attn_inputs(torch, BERT_TP_B, BERT_T, BERT_H, BERT_D,
+                                 torch.float32, False, gen)
+    kw = dict(dropout_rate=0.1, dropout_seed=SPARSE_SEED)
+
+    def launch(qq, kk, vv, gg, lay, **extra):
+        lut, nnz, lut_t, nnz_t = bsa.layout_tables(lay, "cuda")
+        out, lse = bsa.block_sparse_attention_fwd(qq, kk, vv, lut, nnz,
+                                                  BERT_BLOCK, **kw, **extra)
+        delta = (gg * out).sum(-1).permute(0, 2, 1).reshape(
+            -1, BERT_T).contiguous()
+        dq = bsa.block_sparse_attention_bwd_dq(
+            qq, kk, vv, gg, lse, delta, lut, nnz, BERT_BLOCK, **kw, **extra)
+        dk, dv = bsa.block_sparse_attention_bwd_dkv(
+            qq, kk, vv, gg, lse, delta, lut_t, nnz_t, BERT_BLOCK, **kw,
+            **extra)
+        return out, dq, dk, dv
+
+    whole = launch(q, k, v, g, layout)
+    sliced_equal = True
+    for r in range(TP_WORLD):
+        sl = slice(r * hl, (r + 1) * hl)
+        mine = launch(*(x[:, :, sl].contiguous() for x in (q, k, v, g)),
+                      layout[sl], dropout_head_offset=r * hl,
+                      dropout_num_heads=BERT_H)
+        sliced_equal = sliced_equal and all(
+            bool(torch.equal(a, b[:, :, sl])) for a, b in zip(mine, whole))
+    torch.cuda.synchronize()
+    return cases, sliced_equal
+
+
+def phase_train_bert_tp(torch):
+    """BERT-Large's widths at model 2: two processes on ``cuda:0`` over
+    gloo (module docstring, phase 33)."""
+    import tempfile
+    from deepspeed_tpu_torch import initialize
+    counters = _sparse_counters()
+    steps = BERT_TP_WARMUP + BERT_TP_STEPS
+    cases, sliced_equal = _bert_tp_kernel_checks(torch)
+    tmp = tempfile.mkdtemp(prefix="bert_tp_ref_")
+    ref = {}
+    for name, sparse, layers, masked in (
+            ("sparse", True, BERT_TP_LAYERS, False),
+            ("flash", False, BERT_TP_FLASH_LAYERS, True)):
+        torch.cuda.reset_peak_memory_stats()
+        engine, _, _, _ = initialize(
+            model=_bert_tp_model(torch, 0.0, sparse=sparse, layers=layers),
+            config=_bert_tp_config())
+        losses, walls, launches, _ = _tp_train_run(
+            torch, engine, _bert_tp_batch(masked), steps, counters)
+        path = os.path.join(tmp, f"{name}.pt")
+        torch.save({n: p.detach().float().cpu() for n, p in
+                    zip(engine._param_names(), engine.params)}, path)
+        ref[name] = {"losses": losses, "walls": walls, "launches": launches,
+                     "peak": torch.cuda.max_memory_allocated(),
+                     "path": path}
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    calls1, restore = _recorded_sparse_calls()
+    try:
+        engine, _, _, _ = initialize(model=_bert_tp_model(torch, 0.1),
+                                     config=_bert_tp_config())
+        ref_drop_loss = float(engine.train_batch(_bert_tp_batch(False)))
+    finally:
+        restore()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks, _ = _spawn_tp(torch, "train_bert_tp", {
+        "mesh": {"model": TP_WORLD}, "ref_sparse": ref["sparse"]["path"],
+        "ref_flash": ref["flash"]["path"]})
+    for r in ref.values():
+        os.remove(r["path"])
+    coords_ok = len(calls1) == BERT_TP_LAYERS
+    for r, res in enumerate(ranks):
+        calls = res["dropout_calls"]
+        coords_ok = coords_ok and len(calls) == len(calls1) and all(
+            got[1] == BERT_TP_HEADS and got[3] == want[3] and
+            got[4] == want[4] + r * BERT_TP_HEADS and got[5] == BERT_H
+            for got, want in zip(calls, calls1))
+    timed = [max(r["walls"][i] for r in ranks)
+             for i in range(BERT_TP_WARMUP, steps)]
+    row = {"phase": "train_bert_tp", "model": "bert_large",
+           "layers": BERT_TP_LAYERS, "layers_cut_from": 24,
+           "batch": BERT_TP_B, "seq": BERT_T, "dtype": "bfloat16",
+           "encoder_dtype": "float32", "attention": "block-sparse (K7/K8)",
+           "mesh": {"model": TP_WORLD}, "processes": TP_WORLD,
+           "device": "cuda:0", "backend": "gloo (CUDA tensors, one device)",
+           "model1_losses": ref["sparse"]["losses"],
+           "losses": ranks[0]["losses"],
+           "losses_by_rank_equal": all(r["losses"] == ranks[0]["losses"]
+                                       for r in ranks),
+           "first_loss_rtol": TP_LOSS_RTOL,
+           "master_rel_l2": ranks[0]["master_rel_l2"],
+           "master_rel_l2_limit": TP_MASTER_REL_L2,
+           "step_p50_ms": statistics.median(timed) * 1e3,
+           "model1_step_p50_ms": statistics.median(
+               ref["sparse"]["walls"][BERT_TP_WARMUP:]) * 1e3,
+           "peak_memory_by_rank": [r["peak"] for r in ranks],
+           "model1_peak_memory": ref["sparse"]["peak"],
+           "launches_by_rank": [r["launches"] for r in ranks],
+           "model1_launches": ref["sparse"]["launches"],
+           "gather_route_calls": [r["gather_calls"] for r in ranks],
+           "local_heads": [r["local_heads"] for r in ranks],
+           "collectives_a_step": ranks[0]["collectives_last_step"],
+           "dropout_loss_model1": ref_drop_loss,
+           "dropout_loss": ranks[0]["dropout_loss"],
+           "dropout_coordinates_global": coords_ok,
+           "kernels_at_rank_shape": cases,
+           "rank_heads_equal_whole_launch_bitwise": sliced_equal,
+           "flash": {"layers": BERT_TP_FLASH_LAYERS,
+                     "attention": "flash (K1-K3, key bias)",
+                     "model1_losses": ref["flash"]["losses"],
+                     "losses": ranks[0]["flash_losses"],
+                     "master_rel_l2": ranks[0]["flash_master_rel_l2"],
+                     "launches_by_rank": [r["flash_launches"]
+                                          for r in ranks]}}
+    emit(row)
+    fl = row["flash"]
+    for what, got, want in (
+            ("sparse", row["losses"], row["model1_losses"]),
+            ("flash", fl["losses"], fl["model1_losses"]),
+            ("dropout", [row["dropout_loss"]], [ref_drop_loss])):
+        if not all(np.isfinite(got)) or not abs(got[0] - want[0]) <= \
+                TP_LOSS_RTOL * abs(want[0]):
+            fail(f"train_bert_tp {what}: first loss {got} vs model 1 "
+                 f"{want}: beyond rtol {TP_LOSS_RTOL}")
+    if not row["losses_by_rank_equal"]:
+        fail("train_bert_tp: the ranks' losses differ")
+    for what, err in (("sparse", row["master_rel_l2"]),
+                      ("flash", fl["master_rel_l2"])):
+        if not err <= TP_MASTER_REL_L2:
+            fail(f"train_bert_tp {what}: masters after {steps} steps "
+                 f"{err} (relative L2) from model 1's > {TP_MASTER_REL_L2}")
+    n = BERT_TP_LAYERS * steps
+    want = {"K7": n, "K8a": n, "K8b": n, "K1": 0, "K2": 0, "K3": 0,
+            "K4": steps}
+    nf = BERT_TP_FLASH_LAYERS * steps
+    want_f = {"K7": 0, "K8a": 0, "K8b": 0, "K1": nf, "K2": nf, "K3": nf,
+              "K4": steps}
+    if any(r["launches"] != want for r in ranks) or \
+            any(r["flash_launches"] != want_f for r in ranks) or \
+            any(h != BERT_TP_HEADS for h in row["local_heads"]) or \
+            any(row["gather_route_calls"]):
+        fail(f"train_bert_tp launches {row['launches_by_rank']} != {want} "
+             f"/ flash {fl['launches_by_rank']} != {want_f} a rank, local "
+             f"heads {row['local_heads']} or gather-route calls "
+             f"{row['gather_route_calls']}")
+    if not coords_ok:
+        fail("train_bert_tp at dropout 0.1: a rank's sparse calls are not "
+             "at its heads' global coordinates")
+    if not sliced_equal or not all(c["ok"] for c in cases):
+        fail(f"train_bert_tp: K7/K8 at a rank's heads differ from their "
+             f"plain versions or from the whole launch "
+             f"({[c['max_abs_err'] for c in cases]}, {sliced_equal})")
+    return row
+
+
+def _tp_unrolled_digests(torch, engine):
+    """sha256 of each master leaf under its unrolled name (a stacked
+    leaf taken apart by layer)."""
+    import re as _re
+    out = {}
+    for name, p in zip(engine._param_names(), engine.params):
+        if name.startswith("h.") and not _re.match(r"^h\.\d+\.", name):
+            for i, t in enumerate(p.detach().unbind(0)):
+                out[f"h.{i}.{name[2:]}"] = _host_digest([t])
+        else:
+            out[name] = _host_digest([p])
+    return out
+
+
+def _tp_scan_runs(torch, groups, batch, counters, base_losses, base_digests):
+    """``train_tp_scan`` in train_tp's world: the 350M row stacked
+    (``scan_layers``) for ``TP_SCAN_STEPS`` steps against the unrolled
+    run's first steps, then stacked with ``loss_chunk``."""
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.gpt2 import with_layout
+    from deepspeed_tpu_torch.parallel import collectives as C
+    out = {}
+    for name, chunk in (("scan", 0), ("scan_chunk", TP_SCAN_CHUNK)):
+        model = with_layout(_tp_350m(torch, 0.0, groups), True)
+        model.config = dataclasses.replace(model.config, loss_chunk=chunk)
+        torch.cuda.reset_peak_memory_stats()
+        engine, _, _, _ = initialize(model=model, config=_tp_config(
+            {"model": TP_WORLD}), mpu=groups)
+        losses, walls, launches, counts = _tp_train_run(
+            torch, engine, batch, TP_SCAN_STEPS, counters, C)
+        out[name] = {"losses": losses, "walls": walls, "launches": launches,
+                     "peak": torch.cuda.max_memory_allocated(),
+                     "collectives_last_step": counts}
+        if name == "scan":
+            out[name]["losses_equal_unrolled"] = \
+                losses == base_losses[:TP_SCAN_STEPS]
+            out[name]["masters_equal_unrolled"] = \
+                _tp_unrolled_digests(torch, engine) == base_digests
+        del engine, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tp_scan_row(torch, ranks, ref_losses, ref_p50_ms):
+    res = [r["scan"] for r in ranks]
+    row = {"phase": "train_tp_scan", "model": "gpt2_350m",
+           "layers": TP_LAYERS, "mesh": {"model": TP_WORLD},
+           "processes": TP_WORLD, "device": "cuda:0", "world": "train_tp's",
+           "steps": TP_SCAN_STEPS, "loss_chunk": TP_SCAN_CHUNK,
+           "scan_losses": res[0]["scan"]["losses"],
+           "unrolled_losses": ranks[0]["losses"][:TP_SCAN_STEPS],
+           "model1_losses": ref_losses[:TP_SCAN_STEPS],
+           "scan_losses_equal_unrolled_by_rank": [
+               r["scan"]["losses_equal_unrolled"] for r in res],
+           "scan_masters_equal_unrolled_by_rank": [
+               r["scan"]["masters_equal_unrolled"] for r in res],
+           "chunked_losses": res[0]["scan_chunk"]["losses"],
+           "chunked_first_loss_rtol": TP_LOSS_RTOL,
+           "model1_unrolled_step_p50_ms": ref_p50_ms,
+           "scan_step_p50_ms": statistics.median(
+               max(r["scan"]["walls"][i] for r in res)
+               for i in range(1, TP_SCAN_STEPS)) * 1e3,
+           "chunked_step_p50_ms": statistics.median(
+               max(r["scan_chunk"]["walls"][i] for r in res)
+               for i in range(1, TP_SCAN_STEPS)) * 1e3,
+           "peak_memory_by_rank": {n: [r[n]["peak"] for r in res]
+                                   for n in ("scan", "scan_chunk")},
+           "collectives_a_step": {n: res[0][n]["collectives_last_step"]
+                                  for n in ("scan", "scan_chunk")},
+           "launches_by_rank": [{n: r[n]["launches"] for n in
+                                 ("scan", "scan_chunk")} for r in res]}
+    emit(row)
+    if not all(row["scan_losses_equal_unrolled_by_rank"]) or \
+            not all(row["scan_masters_equal_unrolled_by_rank"]):
+        fail("train_tp_scan: the stacked model's losses or masters differ "
+             "from the unrolled model's at model 2")
+    chunked, whole = row["chunked_losses"], row["unrolled_losses"]
+    if not all(np.isfinite(chunked)) or not abs(chunked[0] - whole[0]) <= \
+            TP_LOSS_RTOL * abs(whole[0]):
+        fail(f"train_tp_scan: chunked losses {chunked} vs whole-vocab "
+             f"{whole}: first beyond rtol {TP_LOSS_RTOL}")
+    want = {"K1": TP_LAYERS * TP_SCAN_STEPS, "K2": TP_LAYERS * TP_SCAN_STEPS,
+            "K3": TP_LAYERS * TP_SCAN_STEPS, "K4": TP_SCAN_STEPS}
+    if any(lr[n] != want for lr in row["launches_by_rank"]
+           for n in ("scan", "scan_chunk")):
+        fail(f"train_tp_scan launches {row['launches_by_rank']} != {want}")
+    return row
+
+
+def phase_train_tp_scan(torch):
+    """``train_tp``'s world, which also runs the stacked and chunked
+    models (its row and ``train_tp_scan``'s)."""
+    return phase_train_tp(torch)
+
+
+def phase_serve_tp_scan(torch):
+    """``serve_tp``'s world, which also serves the stacked model (its row
+    and ``serve_tp_scan``'s)."""
+    return phase_serve_tp(torch)
+
+
+# ---------------------------------------------------------------------------
+# resilience in the training engine: guards, the hot tier, preemption and
+# the restore ladder (GPT-2 125M, in a child process)
+# ---------------------------------------------------------------------------
+
+RES_B, RES_T = 8, 512
+RES_STEPS = 5                      # the clean loss curve
+RES_PREEMPT_AT = 3
+
+
+def _res_engine(torch, seed, rz):
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHead, gpt2_125m
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    model = GPT2LMHead(gpt2_125m(n_positions=RES_T, dropout=0.0,
+                                 use_flash_attention=True),
+                       device="cuda", generator=gen)
+    engine, _, _, _ = initialize(model=model, seed=seed, config={
+        "train_batch_size": RES_B, "bf16": {"enabled": True},
+        "optimizer": {"type": "Adam", "params": {"lr": 1e-4}},
+        "steps_per_print": 10 ** 9, "resilience": rz})
+    return engine
+
+
+def _res_batches():
+    rng = np.random.default_rng(0)
+    return [{"input_ids": rng.integers(0, 50257, (RES_B, RES_T))
+             .astype(np.int32)} for _ in range(RES_STEPS)]
+
+
+def _resilience_child(torch, out_path):
+    """Every resilience gate's readings, in this (child) process: the
+    SIGTERM that ``simulate_preemption`` delivers stays here."""
+    import shutil
+    import tempfile
+    from deepspeed_tpu_torch.runtime.resilience import (
+        PreemptedError, fault_injection as fi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    root = tempfile.mkdtemp(prefix="resilience_")
+    bs = _res_batches()
+    counters = _flash_counters()
+    for c in counters.values():
+        c.launches = 0
+    res = {}
+
+    def digest(engine):
+        return _host_digest(engine.params)
+
+    def run(engine, idx):
+        return [float(engine.train_batch(bs[i])) for i in idx]
+
+    # the clean curve, and its masters after 2 steps
+    clean = _res_engine(torch, 0, {})
+    res["clean_losses"] = run(clean, [0, 1])
+    clean2 = digest(clean)
+    res["clean_losses"] += run(clean, range(2, RES_STEPS))
+    del clean
+    # a planted NaN gradient at step 1, skipped; a clean run of 0, 2
+    fi.clear_faults()
+    eng = _res_engine(torch, 0, {
+        "fault_injection": {"enabled": True},
+        "guards": {"nan_grads": {"action": "skip_step"}}})
+    fi.inject_nan_grads([1])
+    res["nan_losses"] = run(eng, [0, 1, 2])
+    res["nan_skipped"] = int(eng._last_metrics["skipped_steps"])
+    res["nan_trips"] = eng._last_metrics["health/nan_trips"]
+    nan_digest = digest(eng)
+    del eng
+    eng = _res_engine(torch, 0, {})
+    run(eng, [0, 2])
+    res["nan_skip_equals_clean_skipping_it"] = digest(eng) == nan_digest
+    del eng
+    # the hot tier: a rollback from RAM, then a fresh engine from the mirror
+    hot_dir, mirror = os.path.join(root, "hot_disk"), \
+        os.path.join(root, "mirror")
+    hot = {"enabled": True, "interval_steps": 2, "mirror_dir": mirror}
+    fi.clear_faults()
+    eng = _res_engine(torch, 0, {
+        "save_dir": hot_dir, "hot_checkpoint": hot,
+        "fault_injection": {"enabled": True},
+        "guards": {"nan_grads": {"action": "rollback_to_checkpoint"}}})
+    run(eng, [0, 1])
+    res["hot_snapshot"] = dict(eng.last_hot_snapshot)
+    at2 = digest(eng)
+    fi.inject_nan_grads([2])
+    run(eng, [2])
+    res["rollback"] = {"global_steps": eng.global_steps,
+                       **eng.last_recovery,
+                       "masters_equal_snapshot": digest(eng) == at2}
+    eng._hot_store.wait()
+    eng._hot_store.close()
+    del eng
+    fi.clear_faults()
+    eng = _res_engine(torch, 5, {"save_dir": hot_dir, "auto_resume": True,
+                                 "hot_checkpoint": hot})
+    res["mirror"] = {"global_steps": eng.global_steps,
+                     **(eng.last_recovery or {}),
+                     "masters_equal_snapshot": digest(eng) == at2}
+    eng._hot_store.close()
+    del eng
+    # preemption: a real SIGTERM at step 3, the checkpoint, the raise
+    ckpt = os.path.join(root, "ckpt")
+    eng = _res_engine(torch, 0, {
+        "save_dir": ckpt, "save_interval_steps": 2,
+        "preemption": {"save_on_sigterm": True},
+        "fault_injection": {"enabled": True}})
+    fi.simulate_preemption(RES_PREEMPT_AT)
+    losses = []
+    res["preempted"] = None
+    try:
+        for i in range(RES_STEPS):
+            losses.append(float(eng.train_batch(bs[i])))
+    except PreemptedError as e:
+        res["preempted"] = {"global_steps": eng.global_steps,
+                            "path": e.checkpoint_path, "code": e.code,
+                            "isdir": os.path.isdir(e.checkpoint_path or "")}
+    eng._preemption.uninstall()
+    t0 = time.perf_counter()
+    eng.save_checkpoint(os.path.join(root, "timed"))
+    res["disk_save_ms"] = (time.perf_counter() - t0) * 1e3
+    res["disk_bytes"] = sum(
+        os.path.getsize(os.path.join(d, f)) for d, _, fs in
+        os.walk(os.path.join(root, "timed")) for f in fs)
+    del eng
+    # a fresh engine, another seed, auto_resume: the curve goes on
+    eng = _res_engine(torch, 123, {"save_dir": ckpt, "auto_resume": True})
+    res["resume"] = {"global_steps": eng.global_steps,
+                     **(eng.last_recovery or {})}
+    losses += run(eng, range(eng.global_steps, RES_STEPS))
+    res["preempt_resume_losses"] = losses
+    del eng
+    # the newest checkpoint torn: the ladder loads the one before it
+    newest = os.path.join(ckpt, f"global_step{RES_PREEMPT_AT}", "state",
+                          "params")
+    victim = sorted(os.path.join(d, f) for d, _, fs in os.walk(newest)
+                    for f in fs)[0]
+    with open(victim, "r+b") as f:
+        f.truncate(os.path.getsize(victim) // 2)
+    eng = _res_engine(torch, 9, {"save_dir": ckpt, "auto_resume": True})
+    res["fallback"] = {"global_steps": eng.global_steps,
+                       **(eng.last_recovery or {}),
+                       "masters_equal_clean": digest(eng) == clean2}
+    del eng
+    res["launches"] = {n: c.launches for n, c in counters.items()}
+    shutil.rmtree(root, ignore_errors=True)
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def phase_train_resilience(torch):
+    """The training engine's resilience (module docstring, phase 34), in
+    a child process of this script."""
+    import tempfile
+    out = os.path.join(tempfile.mkdtemp(prefix="res_"), "res.json")
+    with open(out + ".err", "w+") as err:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__),
+             "--resilience-worker", out], stdout=subprocess.DEVNULL,
+            stderr=err, timeout=TP_SPAWN_TIMEOUT_S)
+        if proc.returncode != 0:
+            err.seek(0)
+            fail(f"train_resilience: the child exited {proc.returncode}:\n"
+                 f"{err.read()[-3000:]}")
+    with open(out) as f:
+        res = json.load(f)
+    # the steps that ran a forward and backward: 5 clean, 3 + 2 NaN, 3 hot,
+    # 3 preempted, 2 resumed
+    steps = RES_STEPS + 5 + 3 + RES_PREEMPT_AT + (RES_STEPS - RES_PREEMPT_AT)
+    row = {"phase": "train_resilience", "model": "gpt2_125m",
+           "batch": RES_B, "seq": RES_T, "dtype": "bfloat16",
+           "attention": "flash (K1-K3)", "process": "child", **res}
+    emit(row)
+    pre, back = res["preempted"], res["rollback"]
+    checks = {
+        "nan skipped and equal to a clean run without that batch":
+            res["nan_skip_equals_clean_skipping_it"] and
+            res["nan_skipped"] == 1 and res["nan_trips"] == 1,
+        "rollback from hot RAM bit for bit":
+            back["tier"] == "hot_ram" and back["global_steps"] == 2 and
+            back["masters_equal_snapshot"],
+        "auto_resume from the hot mirror bit for bit":
+            res["mirror"].get("tier") == "hot_mirror" and
+            res["mirror"]["global_steps"] == 2 and
+            res["mirror"]["masters_equal_snapshot"],
+        "SIGTERM: PreemptedError with a checkpoint":
+            pre is not None and pre["global_steps"] == RES_PREEMPT_AT and
+            pre["isdir"] and pre["code"] == 0,
+        "auto_resume continues the loss curve bit for bit":
+            res["resume"].get("tier") == "disk" and
+            res["resume"]["global_steps"] == RES_PREEMPT_AT and
+            res["preempt_resume_losses"] == res["clean_losses"],
+        "a torn newest checkpoint falls back to the one before":
+            res["fallback"].get("tier") == "disk" and
+            res["fallback"]["global_steps"] == 2 and
+            res["fallback"]["masters_equal_clean"],
+        "K1-K4 launched every step":
+            res["launches"] == {"K1": 12 * steps, "K2": 12 * steps,
+                                "K3": 12 * steps, "K4": steps}}
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"train_resilience: {bad}")
+    return row
+
+
 SP_MOE_PHASES = [("seq_attention", phase_seq_attention),
                  ("train_pipe_sp", phase_train_pipe_sp),
                  ("train_moe", phase_train_moe),
@@ -7381,7 +8167,8 @@ _TP_WORKERS = {"train_tp": _tp_train_worker, "serve_tp": _tp_serve_worker,
                "train_pipe_tp_moe": _ptm_worker,
                "f5_data": _f5_data_worker,
                "train_pipe_onebit": _pipe_onebit_worker,
-               "train_pipe_tp_onebit": _pipe_onebit_worker}
+               "train_pipe_tp_onebit": _pipe_onebit_worker,
+               "train_bert_tp": _bert_tp_worker}
 
 
 def main(argv=None):
@@ -7440,6 +8227,8 @@ def main(argv=None):
                              "their walls")
     parser.add_argument("--tp-worker", nargs=2, metavar=("SPEC", "RANK"),
                         help=argparse.SUPPRESS)   # a TP phase's rank
+    parser.add_argument("--resilience-worker", metavar="OUT",
+                        help=argparse.SUPPRESS)   # train_resilience's child
     parser.add_argument("--serving-only", action="store_true",
                         help="device, build, the decode and sparse "
                              "kernel checks, then only the checkpoint, "
@@ -7455,6 +8244,8 @@ def main(argv=None):
         return _turns_serve(torch)
     if args.tp_worker:
         return _tp_worker(torch, args.tp_worker[0], int(args.tp_worker[1]))
+    if args.resilience_worker:
+        return _resilience_child(torch, args.resilience_worker)
     try:
         import deepspeed_tpu_torch  # noqa: F401
     except ImportError as e:
@@ -7614,6 +8405,10 @@ def main(argv=None):
         sp_moe[name] = phase(torch)
         lap(name)
     f5 = phase_f5(torch, lap)
+    bert_tp = phase_train_bert_tp(torch)
+    lap("train_bert_tp")
+    resilience = phase_train_resilience(torch)
+    lap("train_resilience")
     emit({"phase": "walls", "seconds": walls})
     t = timing["bfloat16/serve_mix"]
     kernels = [{
@@ -7631,6 +8426,8 @@ def main(argv=None):
             fleet_row["process_fleet"]["kernel_launches"],
         "tp_launches": [sum(serve_tp["runs"][n]["decode_launches_by_rank"])
                         for n in ("f32_ring", "bf16_ring")],
+        "tp_scan_launches": sum(serve_tp["tp_scan"]["runs"]["f32_ring_scan"][
+            "decode_launches_by_rank"]),
         "max_abs_err": worst, "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"]}]
@@ -7658,6 +8455,8 @@ def main(argv=None):
             disagg["process_tiers"]["kernel_launches"],
         "tp_launches": [sum(serve_tp["runs"][n]["decode_launches_by_rank"])
                         for n in ("f32_paged", "int8_paged")],
+        "tp_scan_launches": sum(serve_tp["tp_scan"]["runs"][
+            "f32_paged_scan"]["decode_launches_by_rank"]),
         "max_abs_err": paged_worst, "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"]})
@@ -7707,6 +8506,12 @@ def main(argv=None):
             "pipe_tp_onebit_launches_by_rank": [
                 lr[key] for lr in f5["train_pipe_tp_onebit"][
                     "launches_by_rank"]],
+            "tp_scan_launches_by_rank": {
+                n: [lr[n][key] for lr in train_tp["tp_scan"][
+                    "launches_by_rank"]] for n in ("scan", "scan_chunk")},
+            "bert_tp_flash_launches_by_rank": [
+                lr[key] for lr in bert_tp["flash"]["launches_by_rank"]],
+            "resilience_launches": resilience["launches"][key],
             "max_abs_err": max(train_errs[key], r.get("max_abs_err", 0.0)),
             "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -7739,6 +8544,8 @@ def main(argv=None):
                       "block_sparse_attention.cu",
             "replaces": replaces, "launches": bert["launches"][key],
             "bert_ckpt_launches": bert_ckpt["launches"][key],
+            "bert_tp_launches_by_rank": [lr[key] for lr in
+                                         bert_tp["launches_by_rank"]],
             "max_abs_err": sparse_errs[key], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

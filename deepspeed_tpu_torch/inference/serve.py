@@ -132,7 +132,8 @@ def seeded_tiny_model(seed, device, scan_layers=False):
     return with_layout(model, scan_layers)
 
 
-def load_checkpoint_model(path, n_head, tag=None, scan_layers=False):
+def load_checkpoint_model(path, n_head, tag=None, scan_layers=False,
+                          mpu=None):
     """A :class:`GPT2LMHead` holding a training checkpoint's fp32 master
     params (JAX ``_load_checkpoint_model``, ``serve.py:134``):
     ``(model, info)``. The geometry comes from the leaf shapes (vocab
@@ -145,14 +146,19 @@ def load_checkpoint_model(path, n_head, tag=None, scan_layers=False):
     one with no ``params``, or a head count that does not divide the
     width. A checkpoint of a model-parallel run records its
     ``mesh_shape`` (JAX ``serve.py:166-171``); the port saves its leaves
-    whole, so it serves as saved."""
+    whole, so it serves at any model size: ``mpu`` with a model axis of
+    M > 1 ranks builds this rank's shard of either layout
+    (``models/gpt2.py:shard_gpt2_state_dict``), which an
+    :class:`~deepspeed_tpu_torch.inference.engine.InferenceEngine` serves
+    with a cache of its ``n_head / M`` heads."""
     import re
 
     import torch
 
     from deepspeed_tpu_torch.models.gpt2 import (
-        GPT2Config, GPT2LMHead, stack_gpt2_state_dict,
-        unstack_gpt2_state_dict)
+        GPT2Config, GPT2LMHead, shard_gpt2_state_dict,
+        stack_gpt2_state_dict, unstack_gpt2_state_dict)
+    from deepspeed_tpu_torch.parallel.mesh import model_axis_of
     from deepspeed_tpu_torch.runtime.resilience.checkpoint import (
         CheckpointCorruptError,
         CheckpointManager,
@@ -190,9 +196,12 @@ def load_checkpoint_model(path, n_head, tag=None, scan_layers=False):
                      n_layer=n_layer, n_head=n_head, dropout=0.0,
                      dtype=torch.float32, param_dtype=torch.float32,
                      scan_layers=bool(scan_layers))
-    model = GPT2LMHead(cfg, device="cpu")
-    model.load_state_dict(stack_gpt2_state_dict(params) if scan_layers
-                          else params)
+    model = GPT2LMHead(cfg, device="cpu", mpu=mpu)
+    if scan_layers:
+        params = stack_gpt2_state_dict(params)
+    tp = model_axis_of(mpu)
+    model.load_state_dict(shard_gpt2_state_dict(params, tp.rank, tp.size,
+                                                cfg.vocab_size))
     info = {"tag": tag, "path": ckpt, "n_layer": n_layer,
             "n_embd": n_embd, "vocab_size": cfg.vocab_size,
             "topology": topo}

@@ -20,8 +20,28 @@ converted weights give the same logits:
 The losses follow the port's engine convention ``loss_fn(batch, rng)``
 (``rng`` the int dropout seed, None for a deterministic forward).
 :func:`convert_bert_params` turns the JAX package's param tree (numpy
-leaves) into a ``state_dict``. ``bert_partition_specs`` (tensor
-parallelism) is not yet ported.
+leaves) into a ``state_dict``.
+
+**Tensor parallelism** (``BertForMaskedLM(cfg, mpu=...)`` /
+``BertForQuestionAnswering(cfg, mpu=...)``, Megatron's layout, JAX
+``bert_partition_specs``): the model holds its model rank's shard (M
+ranks). The encoder layers are the Megatron form of
+:class:`DeepSpeedTransformerLayer` (``ops/transformer/transformer.py``);
+``word_embeddings`` is split over the vocab and looked up vocab-parallel
+(``models/gpt2.py:vocab_parallel_embed``); the MLM ``decoder`` is column
+parallel over the vocab, its kernel and its bias (JAX replicates the
+1-D bias; the port splits it with its kernel's columns, which gives the
+same whole leaf and gradient); the MLM loss is the vocab-parallel
+cross-entropy (chunked under ``loss_chunk``:
+``vocab_parallel_chunked_cross_entropy``), and ``forward`` gathers the
+whole-vocab logits. A vocab the axis does not divide (30522 at 4) is
+padded with zero rows, as GPT-2's ``wte``: their logits are -inf and
+whole leaves drop them. Position and token-type tables, the MLM
+transform, the QA head and the norms are replicated.
+:func:`bert_partition_specs` gives each leaf's ``Shard``,
+:func:`shard_bert_state_dict` a rank's shard of a whole state dict, and
+``convert_bert_params(params, model_rank, model_size)`` converts straight
+to a shard.
 """
 
 import dataclasses
@@ -36,8 +56,11 @@ from torch import nn
 from deepspeed_tpu_torch.models.gpt2 import (
     Dense,
     LayerNorm,
-    chunked_cross_entropy_with_head,
     cross_entropy_loss,
+    gather_vocab,
+    vocab_parallel_chunked_cross_entropy,
+    vocab_parallel_cross_entropy,
+    vocab_parallel_embed,
 )
 from deepspeed_tpu_torch.ops.flash_attention import (
     dropout_generator,
@@ -48,6 +71,21 @@ from deepspeed_tpu_torch.ops.transformer import (
     DeepSpeedTransformerConfig,
     DeepSpeedTransformerLayer,
 )
+from deepspeed_tpu_torch.ops.transformer.transformer import TP_SPECS
+from deepspeed_tpu_torch.parallel.tensor_parallel import (
+    Shard,
+    padded_len,
+    set_shard,
+    shard_tensor,
+)
+
+
+def _model_axis(mpu):
+    """The model ``AxisGroup`` of ``mpu`` when it has more than one
+    rank, else None."""
+    from deepspeed_tpu_torch.parallel.mesh import model_axis_of
+    tp = model_axis_of(mpu)
+    return tp if tp is not None and tp.size > 1 else None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,16 +147,23 @@ def _ds_layer_config(cfg):
 
 
 class BertEmbeddings(nn.Module):
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, device=None, tp=None):
         super().__init__()
         self.config = cfg
+        self.tp = tp
 
         def table(n):
             return nn.Parameter(torch.empty(n, cfg.hidden_size,
                                             dtype=cfg.param_dtype,
                                             device=device))
 
-        self.word_embeddings = table(cfg.vocab_size)
+        if tp is None:
+            self.word_embeddings = table(cfg.vocab_size)
+        else:           # this rank's vocab rows, the vocab padded
+            self.word_embeddings = table(
+                padded_len(cfg.vocab_size, tp.size) // tp.size)
+            set_shard(self.word_embeddings,
+                      Shard(0, 1, full=cfg.vocab_size))
         self.position_embeddings = table(cfg.max_position_embeddings)
         self.token_type_embeddings = table(cfg.type_vocab_size)
         # flax nn.LayerNorm without a dtype: fp32 in and out
@@ -131,7 +176,7 @@ class BertEmbeddings(nn.Module):
         T = input_ids.shape[1]
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
-        x = self.word_embeddings[input_ids] + \
+        x = vocab_parallel_embed(self.word_embeddings, input_ids, self.tp) + \
             self.position_embeddings[:T][None] + \
             self.token_type_embeddings[token_type_ids]
         x = hidden_dropout(self.LayerNorm(x), cfg.hidden_dropout_prob,
@@ -142,16 +187,16 @@ class BertEmbeddings(nn.Module):
 class BertModel(nn.Module):
     """Embeddings + encoder stack of DeepSpeedTransformerLayers."""
 
-    def __init__(self, cfg, device=None, generator=None):
+    def __init__(self, cfg, device=None, generator=None, tp=None):
         super().__init__()
         self.config = cfg
-        self.embeddings = BertEmbeddings(cfg, device)
+        self.embeddings = BertEmbeddings(cfg, device, tp)
         ds_cfg = _ds_layer_config(cfg)
         self.layer = nn.ModuleList(
             DeepSpeedTransformerLayer(
                 ds_cfg, use_flash_attention=cfg.use_flash_attention,
                 sparsity_config=cfg.sparse_attention, device=device,
-                generator=generator)
+                generator=generator, tp=tp)
             for _ in range(cfg.num_hidden_layers))
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
@@ -178,10 +223,20 @@ def _init_tables_and_heads(model, cfg, generator):
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, BertEmbeddings):
-                for t in (mod.word_embeddings, mod.position_embeddings,
-                          mod.token_type_embeddings):
-                    nn.init.normal_(t, 0.0, cfg.initializer_range,
+                for t, n in ((mod.word_embeddings, cfg.vocab_size),
+                             (mod.position_embeddings, None),
+                             (mod.token_type_embeddings, None)):
+                    if mod.tp is None or n is None:
+                        nn.init.normal_(t, 0.0, cfg.initializer_range,
+                                        generator=generator)
+                        continue
+                    # the whole table from the generator, then the shard
+                    whole = torch.empty(n, t.shape[1], dtype=t.dtype,
+                                        device=t.device)
+                    nn.init.normal_(whole, 0.0, cfg.initializer_range,
                                     generator=generator)
+                    t.copy_(shard_tensor(whole, t.tp_shard, mod.tp.rank,
+                                         mod.tp.size))
             elif isinstance(mod, Dense):
                 mod.reset_parameters(generator)
 
@@ -190,26 +245,37 @@ class BertForMaskedLM(nn.Module):
     """MLM head over the encoder (the BERT-pretraining objective).
 
     Params are created on ``device`` in fp32 and drawn from
-    ``generator`` (a ``torch.Generator`` on the same device)."""
+    ``generator`` (a ``torch.Generator`` on the same device). ``mpu``
+    with a model axis of M > 1 ranks builds this rank's shard (module
+    docstring, *Tensor parallelism*)."""
 
-    def __init__(self, cfg, device=None, generator=None):
+    def __init__(self, cfg, device=None, generator=None, mpu=None):
         super().__init__()
         self.config = cfg
-        self.bert = BertModel(cfg, device, generator)
+        self.mpu = mpu
+        self.tp = _model_axis(mpu)
+        self.bert = BertModel(cfg, device, generator, self.tp)
         self.transform = Dense(cfg.hidden_size, cfg.hidden_size, cfg, device)
         self.transform_ln = LayerNorm(cfg.hidden_size, cfg, eps=1e-12,
                                       device=device)
-        self.decoder = Dense(cfg.hidden_size, cfg.vocab_size, cfg, device)
+        self.decoder = Dense(cfg.hidden_size, cfg.vocab_size, cfg, device,
+                             tp=self.tp, mode="column", pad=True)
         _init_tables_and_heads(self, cfg, generator)
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
                 dropout_seed=None, return_hidden=False):
+        """The MLM logits ``[B, T, vocab]`` (with a model axis every
+        rank's vocab columns gathered, the padding cut); with
+        ``return_hidden`` the decoder's input."""
         x = self.bert(input_ids, attention_mask, token_type_ids,
                       dropout_seed)
         x = self.transform_ln(torch.nn.functional.gelu(self.transform(x)))
         if return_hidden:
-            return x    # the chunked loss applies the decoder itself
-        return self.decoder(x)
+            return x    # the losses apply the decoder themselves
+        logits = self.decoder(x)
+        if self.tp is not None:
+            logits = gather_vocab(logits, self.tp, self.config.vocab_size)
+        return logits
 
     def loss_fn(self, batch, rng=None):
         """The engine's default loss: :func:`make_bert_mlm_loss_fn` of
@@ -223,20 +289,27 @@ def make_bert_mlm_loss_fn(model):
     token_type_ids [B, T]; ``rng`` the int dropout seed.
 
     With ``config.loss_chunk > 0`` the [B, T, vocab] logits never
-    materialize (chunked CE over the decoder head)."""
+    materialize (chunked CE over the decoder head). With a model axis the
+    loss is vocab parallel (the whole logits are never gathered)."""
 
     def loss_fn(batch, rng=None):
         args = (batch["input_ids"], batch.get("attention_mask"),
                 batch.get("token_type_ids"))
         chunk = model.config.loss_chunk
+        tp = getattr(model, "tp", None)
+        labels = batch["labels"]
         if chunk:
             hidden = model(*args, dropout_seed=rng, return_hidden=True)
-            total, count = chunked_cross_entropy_with_head(
+            total, count = vocab_parallel_chunked_cross_entropy(
                 hidden, model.decoder.weight.t(), model.decoder.bias,
-                batch["labels"], chunk)
+                labels, chunk, tp, model.config.vocab_size)
             return total / torch.clamp(count, min=1)
-        return cross_entropy_loss(model(*args, dropout_seed=rng),
-                                  batch["labels"])
+        if tp is not None:
+            hidden = model(*args, dropout_seed=rng, return_hidden=True)
+            total, count = vocab_parallel_cross_entropy(
+                model.decoder(hidden), labels, tp, model.config.vocab_size)
+            return total / torch.clamp(count, min=1)
+        return cross_entropy_loss(model(*args, dropout_seed=rng), labels)
 
     return loss_fn
 
@@ -244,12 +317,14 @@ def make_bert_mlm_loss_fn(model):
 class BertForQuestionAnswering(nn.Module):
     """Span-prediction head over the encoder (the reference's
     BingBertSquad fine-tuning workload). Outputs (start_logits,
-    end_logits), each [B, T]."""
+    end_logits), each [B, T]. ``mpu``: as :class:`BertForMaskedLM`'s."""
 
-    def __init__(self, cfg, device=None, generator=None):
+    def __init__(self, cfg, device=None, generator=None, mpu=None):
         super().__init__()
         self.config = cfg
-        self.bert = BertModel(cfg, device, generator)
+        self.mpu = mpu
+        self.tp = _model_axis(mpu)
+        self.bert = BertModel(cfg, device, generator, self.tp)
         self.qa_outputs = Dense(cfg.hidden_size, 2, cfg, device)
         _init_tables_and_heads(self, cfg, generator)
 
@@ -323,11 +398,46 @@ def _port_name(path):
     return None
 
 
-def convert_bert_params(params):
+def bert_partition_specs(state, vocab_size=None):
+    """``{name: Shard or None}`` of a BERT ``state_dict`` (names only are
+    read): JAX ``bert_partition_specs``'s Megatron layout (module
+    docstring) with the port's q, k, v blocks of ``attn_qkvw`` and the
+    ``decoder`` bias split with its kernel. ``vocab_size`` (default: the
+    rows of ``word_embeddings``) is the unpadded vocab."""
+    if vocab_size is None:
+        vocab_size = state["bert.embeddings.word_embeddings"].shape[0]
+    vocab = Shard(0, 1, full=int(vocab_size))
+    specs = {}
+    for name in state:
+        leaf = name.rsplit(".", 1)[-1]
+        if name in ("bert.embeddings.word_embeddings", "decoder.weight",
+                    "decoder.bias"):
+            specs[name] = vocab
+        elif name.startswith("bert.layer.") and leaf in TP_SPECS:
+            specs[name] = TP_SPECS[leaf]
+        else:
+            specs[name] = None
+    return specs
+
+
+def shard_bert_state_dict(state, model_rank, model_size, vocab_size=None):
+    """Rank ``model_rank``'s shard of a whole BERT ``state_dict`` under
+    :func:`bert_partition_specs` (the vocab leaves padded when
+    ``model_size`` does not divide the vocab)."""
+    if model_size == 1:
+        return dict(state)
+    specs = bert_partition_specs(state, vocab_size)
+    return {n: shard_tensor(t, specs[n], model_rank, model_size)
+            for n, t in state.items()}
+
+
+def convert_bert_params(params, model_rank=0, model_size=1):
     """The JAX package's BERT param tree (``BertForMaskedLM`` or
     ``BertForQuestionAnswering``; nested mappings of numpy arrays) as a
-    ``state_dict`` of fp32 CPU tensors. Every leaf is used exactly once:
-    a leaf the port has no place for raises ``ValueError``.
+    ``state_dict`` of fp32 CPU tensors; with ``model_size > 1`` the shard
+    of model rank ``model_rank`` (:func:`shard_bert_state_dict`). Every
+    leaf is used exactly once: a leaf the port has no place for raises
+    ``ValueError``.
 
     Flax ``Dense.kernel`` ``[in, out]`` becomes ``weight`` ``[out, in]``;
     LayerNorm ``scale``/``bias`` become ``weight``/``bias``; the
@@ -343,4 +453,4 @@ def convert_bert_params(params):
         name, transpose = found
         x = torch.from_numpy(np.array(leaf, dtype=np.float32))
         sd[name] = x.t().contiguous() if transpose else x
-    return sd
+    return shard_bert_state_dict(sd, model_rank, model_size)

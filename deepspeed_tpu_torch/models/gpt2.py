@@ -104,6 +104,18 @@ cut from gathered logits), no id looks it up, so its gradient is 0 and
 Adam leaves it at 0; :func:`~deepspeed_tpu_torch.parallel.
 tensor_parallel.unshard` drops it from a whole leaf.
 
+*Stacked layers and the chunked loss.* Under ``scan_layers`` the stack
+holds the TP block's shards (:class:`StackedBlocks`: each ``[L, ...]``
+leaf split as its layer's leaf behind a replicated layer axis, JAX's
+``gpt2_partition_specs`` of the scanned tree), and each layer runs the
+block's collectives. ``loss_chunk`` takes
+:func:`vocab_parallel_chunked_cross_entropy`: each chunk's logits over
+the rank's vocab columns, the max and the sum reduced over the group a
+chunk. :func:`gpt2_partition_specs`, :func:`shard_gpt2_state_dict` and
+``convert_gpt2_params(scan_layers=True, model_size=M)`` cover both
+layouts, so a checkpoint of either layout serves or resumes in the
+other at any model size.
+
 *Dropout across shards.* A rank's attention passes
 ``dropout_head_offset = row_offset * H + rank * H / M`` and
 ``dropout_num_heads = H`` to K1-K3, so its masks are the unsharded
@@ -211,12 +223,14 @@ class Dense(nn.Module):
     ``mode`` "column" keeps rows ``r`` of each of the ``groups`` output
     blocks (the input's cotangent summed over the group: Megatron's
     ``f``) and "row" keeps the input columns ``r`` (the partial products
-    summed over the group, then the bias: ``g``)."""
+    summed over the group, then the bias: ``g``). ``pad`` (column mode)
+    pads ``n_out`` with zero rows to a multiple of the axis (a vocab
+    head: ``Shard(0, full=n_out)``)."""
 
     reference_transposed = ("weight",)
 
     def __init__(self, n_in, n_out, cfg, device=None, site="dense", tp=None,
-                 mode=None, groups=1):
+                 mode=None, groups=1, pad=False):
         super().__init__()
         self.dtype = cfg.dtype
         self.site = site          # the fp8 state's site name
@@ -225,9 +239,13 @@ class Dense(nn.Module):
         self.fan_in = n_in
         self.full_shape = (n_out, n_in)
         w_shape, b_len = (n_out, n_in), n_out
+        full = None
         if self.mode == "column":
-            w_shape = (n_out // tp.size, n_in)
-            b_len = n_out // tp.size
+            local = padded_len(n_out, tp.size) // tp.size if pad \
+                else n_out // tp.size
+            full = n_out if pad else None
+            w_shape = (local, n_in)
+            b_len = local
         elif self.mode == "row":
             w_shape = (n_out, n_in // tp.size)
         self.weight = nn.Parameter(torch.empty(
@@ -235,8 +253,8 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(
             b_len, dtype=cfg.param_dtype, device=device))
         if self.mode == "column":
-            set_shard(self.weight, Shard(0, groups))
-            set_shard(self.bias, Shard(0, groups))
+            set_shard(self.weight, Shard(0, groups, full))
+            set_shard(self.bias, Shard(0, groups, full))
         elif self.mode == "row":
             set_shard(self.weight, Shard(1))
 
@@ -247,7 +265,9 @@ class Dense(nn.Module):
                                   generator=generator)
         else:
             # the whole leaf from the generator, then this rank's shard
-            full = torch.empty(self.full_shape, dtype=self.weight.dtype,
+            # (a stacked leaf: every layer's whole leaf)
+            full = torch.empty(tuple(self.weight.shape[:-2]) +
+                               self.full_shape, dtype=self.weight.dtype,
                                device=self.weight.device)
             nn.init.trunc_normal_(full, 0.0, std, -2 * std, 2 * std,
                                   generator=generator)
@@ -484,22 +504,34 @@ class StackedBlocks(nn.Module):
     stack apart once (``unbind(0)``); each layer runs a weightless
     template :class:`Block` (on the meta device, not a submodule) through
     ``functional_call``. The engine installs and gathers the stack as one
-    unit (``install_as_one``): it runs as one module call."""
+    unit (``install_as_one``): it runs as one module call.
+
+    With a model axis ``tp`` the template is the TP block, each stacked
+    leaf the ``[L, ...]`` stack of the rank's shards, split as the
+    block's leaf behind a replicated layer axis (its :class:`~deepspeed_
+    tpu_torch.parallel.tensor_parallel.Shard` one dim later: JAX
+    ``gpt2_partition_specs`` prepends ``None`` to a stacked leaf's spec),
+    and each layer runs the block's collectives."""
 
     install_as_one = True
 
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, device=None, tp=None):
         super().__init__()
         self.n_layer = cfg.n_layer
-        shape = Block(cfg, device="meta")
+        shape = Block(cfg, device="meta", tp=tp)
         for name, child in shape.named_children():
             self.add_module(name, child)
         for mod in list(self.modules())[1:]:
             for pname, p in list(mod._parameters.items()):
-                mod._parameters[pname] = nn.Parameter(torch.empty(
+                stacked = nn.Parameter(torch.empty(
                     (cfg.n_layer,) + tuple(p.shape), dtype=p.dtype,
                     device=device))
-        object.__setattr__(self, "_template", Block(cfg, device="meta"))
+                spec = getattr(p, "tp_shard", None)
+                if spec is not None:
+                    set_shard(stacked, spec._replace(dim=spec.dim + 1))
+                mod._parameters[pname] = stacked
+        object.__setattr__(self, "_template",
+                           Block(cfg, device="meta", tp=tp))
 
     def layers(self):
         """The layers as callables with a :class:`Block`'s ``forward``
@@ -545,11 +577,6 @@ class GPT2LMHead(nn.Module):
             if cfg.n_head % M:
                 raise ValueError(f"n_head {cfg.n_head} does not divide the "
                                  f"model axis ({M})")
-            if cfg.scan_layers or cfg.loss_chunk:
-                raise NotImplementedError(
-                    "GPT-2 with a model axis runs the unrolled layers and "
-                    "the whole-vocab loss (scan_layers and loss_chunk "
-                    "shard nothing here)")
             vocab = padded_len(cfg.vocab_size, M) // M
         self.wte = nn.Parameter(torch.empty(
             vocab, cfg.n_embd, dtype=cfg.param_dtype, device=device))
@@ -558,7 +585,8 @@ class GPT2LMHead(nn.Module):
         self.wpe = nn.Parameter(torch.empty(
             cfg.n_positions, cfg.n_embd, dtype=cfg.param_dtype,
             device=device))
-        self.h = StackedBlocks(cfg, device) if cfg.scan_layers else \
+        self.h = StackedBlocks(cfg, device, tp=self.tp) \
+            if cfg.scan_layers else \
             nn.ModuleList(Block(cfg, device, tp=self.tp)
                           for _ in range(cfg.n_layer))
         self.last_pld_coins = None    # the last PLD forward's coins
@@ -704,8 +732,7 @@ class GPT2LMHead(nn.Module):
             return x
         logits = self.head_logits(x)
         if self.tp is not None:           # the whole vocab, padding cut
-            logits = _GatherVocab.apply(logits, self.tp)[
-                ..., :cfg.vocab_size]
+            logits = gather_vocab(logits, self.tp, cfg.vocab_size)
         if kv_cache is not None:
             return logits, kv_cache
         return logits
@@ -714,16 +741,7 @@ class GPT2LMHead(nn.Module):
         """``wte[input_ids]``; with a model axis the vocab-parallel lookup
         (each rank's rows, zeros for ids it does not hold, summed over
         the group)."""
-        if self.tp is None:
-            return self.wte[input_ids]
-        n = self.wte.shape[0]
-        local = input_ids.long() - self.tp.rank * n
-        mine = (local >= 0) & (local < n)
-        rows = self.wte[local.clamp(0, n - 1)]
-        rows = torch.where(mine[..., None], rows,
-                           torch.zeros((), dtype=rows.dtype,
-                                       device=rows.device))
-        return tp_comm.psum_combine(rows, self.tp)
+        return vocab_parallel_embed(self.wte, input_ids, self.tp)
 
     def head_logits(self, x):
         """The tied head: ``x @ wte.T`` in the compute dtype (this rank's
@@ -732,6 +750,29 @@ class GPT2LMHead(nn.Module):
         if self.tp is not None:
             x = tp_comm.psum_grad(x, self.tp)
         return torch.matmul(x, self.wte.to(self.config.dtype).t())
+
+
+def vocab_parallel_embed(table, input_ids, tp):
+    """``table[input_ids]``; with a model axis ``tp`` (``table`` this
+    rank's vocab rows) each rank looks up the ids it holds, zeros for the
+    rest, summed over the group: one nonzero term a row, so the sum is
+    exact."""
+    if tp is None:
+        return table[input_ids]
+    n = table.shape[0]
+    local = input_ids.long() - tp.rank * n
+    mine = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)]
+    rows = torch.where(mine[..., None], rows,
+                       torch.zeros((), dtype=rows.dtype, device=rows.device))
+    return tp_comm.psum_combine(rows, tp)
+
+
+def gather_vocab(local_logits, tp, vocab_size):
+    """The whole-vocab logits from every rank's over its vocab rows
+    (rank order, the padding cut); the backward keeps this rank's
+    columns."""
+    return _GatherVocab.apply(local_logits, tp)[..., :vocab_size]
 
 
 # ---------------------------------------------------------------------------
@@ -861,6 +902,56 @@ def chunked_cross_entropy_with_head(x, head, bias, labels, chunk,
     return total, count
 
 
+def _chunk_loss_vocab_parallel(xc, lc, head, bias, tp, vocab_size,
+                               ignore_index):
+    logits = _HeadMatmul.apply(xc, head)
+    if bias is not None:
+        logits = logits + bias.to(logits.dtype)
+    return vocab_parallel_cross_entropy(logits, lc, tp, vocab_size,
+                                        ignore_index)
+
+
+def vocab_parallel_chunked_cross_entropy(x, head, bias, labels, chunk, tp,
+                                         vocab_size, ignore_index=-100):
+    """:func:`chunked_cross_entropy_with_head` over a vocab split on the
+    model axis ``tp``: ``head`` ``[M, V / tp]`` and ``bias`` ``[V / tp]``
+    (or None) are this rank's vocab columns (padded past
+    ``vocab_size``). Each chunk's logits are local; their max and sum of
+    exponentials are reduced over the group per chunk
+    (:func:`vocab_parallel_cross_entropy`), and the recompute in the
+    backward runs those collectives again, in the same order on every
+    rank. ``x`` takes Megatron's ``f`` once (its cotangent summed over
+    the group), the head's gradient is this rank's columns. At one rank
+    (``tp`` None or of size 1) it is :func:`chunked_cross_entropy_with_
+    head`, bit for bit."""
+    if tp is None or tp.size == 1:
+        return chunked_cross_entropy_with_head(x, head, bias, labels, chunk,
+                                               ignore_index)
+    from torch.utils.checkpoint import checkpoint
+
+    x = tp_comm.psum_grad(x, tp)
+    B, T, M = x.shape
+    chunk = min(chunk, T)
+    n = -(-T // chunk)
+    pad = n * chunk - T
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=ignore_index)
+    head = head.float()
+    if bias is not None:
+        bias = bias.float()
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = torch.zeros((), dtype=torch.int64, device=x.device)
+    for i in range(n):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        s, c = checkpoint(_chunk_loss_vocab_parallel, x[:, sl],
+                          labels[:, sl], head, bias, tp, int(vocab_size),
+                          ignore_index, use_reentrant=False)
+        total = total + s
+        count = count + c
+    return total, count
+
+
 def chunked_cross_entropy_sum_and_count(x, wte, labels, chunk,
                                         ignore_index=-100):
     """Tied-head form: cross-entropy against ``wte.T``."""
@@ -891,9 +982,14 @@ def make_gpt2_loss_fn(model):
         if tp is not None:
             hidden = model(input_ids, dropout_seed=rng, return_hidden=True,
                            pld_theta=pld_theta)
-            total, count = vocab_parallel_cross_entropy(
-                model.head_logits(hidden), labels, tp,
-                model.config.vocab_size)
+            if chunk:
+                total, count = vocab_parallel_chunked_cross_entropy(
+                    hidden, model.wte.to(model.config.dtype).t(), None,
+                    labels, chunk, tp, model.config.vocab_size)
+            else:
+                total, count = vocab_parallel_cross_entropy(
+                    model.head_logits(hidden), labels, tp,
+                    model.config.vocab_size)
             return total / torch.clamp(count, min=1)
         if chunk:
             hidden = model(input_ids, dropout_seed=rng, return_hidden=True,
@@ -1002,7 +1098,8 @@ def with_layout(model, scan_layers):
     """``model`` itself if its layout is ``scan_layers``'s, else a new
     :class:`GPT2LMHead` in the other layout holding the same weights
     (the state dict stacked or unstacked, bit for bit), on the same
-    device."""
+    device; a model built for a model axis keeps its ``mpu`` and
+    shard."""
     cfg = model.config
     if bool(cfg.scan_layers) == bool(scan_layers):
         return model
@@ -1010,31 +1107,48 @@ def with_layout(model, scan_layers):
     sd = stack_gpt2_state_dict(sd) if scan_layers else \
         unstack_gpt2_state_dict(sd)
     out = GPT2LMHead(dataclasses.replace(cfg, scan_layers=bool(scan_layers)),
-                     device="meta")
+                     device="meta", mpu=model.mpu)
+    specs = {n: getattr(p, "tp_shard", None)
+             for n, p in out.named_parameters()}
     out.load_state_dict(sd, assign=True)
+    for name, p in out.named_parameters():    # (assign drops the marks)
+        if specs[name] is not None:
+            set_shard(p, specs[name])
     return out
+
+
+def _is_stacked_name(name):
+    """A ``scan_layers`` block leaf (``h.<name>``, no layer index)."""
+    return name.startswith("h.") and _SD_LAYER_RE.match(name) is None
 
 
 def gpt2_partition_specs(state, vocab_size):
     """``{name: Shard or None}`` of a GPT-2 ``state_dict`` (names only are
     read): JAX ``gpt2_partition_specs``'s Megatron layout on the port's
-    ``[out, in]`` weights (module docstring)."""
+    ``[out, in]`` weights (module docstring). A stacked block leaf of the
+    ``scan_layers`` layout (``h.<name>``, ``[L, ...]``) is split as its
+    layer's leaf behind a replicated layer axis: its spec's dim one
+    later."""
     specs = {}
     for name in state:
-        if name == "wte":
-            spec = Shard(0, 1, full=int(vocab_size))
-        elif name.endswith("attn.c_attn.weight") or \
-                name.endswith("attn.c_attn.bias"):
-            spec = Shard(0, 3)
-        elif name.endswith("mlp.c_fc.weight") or \
-                name.endswith("mlp.c_fc.bias"):
-            spec = Shard(0)
-        elif name.endswith("c_proj.weight"):
-            spec = Shard(1)
-        else:
-            spec = None
+        spec = _layer_spec(name, vocab_size)
+        if spec is not None and _is_stacked_name(name):
+            spec = spec._replace(dim=spec.dim + 1)
         specs[name] = spec
     return specs
+
+
+def _layer_spec(name, vocab_size):
+    """The :class:`Shard` of an unrolled GPT-2 leaf ``name``, or None."""
+    if name == "wte":
+        return Shard(0, 1, full=int(vocab_size))
+    if name.endswith(("attn.c_attn.weight", "attn.c_attn.bias")):
+        return Shard(0, 3)
+    if name.endswith(("mlp.c_fc.weight", "mlp.c_fc.bias")):
+        return Shard(0)
+    if name.endswith("c_proj.weight"):
+        return Shard(1)
+    return None
 
 
 def shard_gpt2_state_dict(state, model_rank, model_size, vocab_size=None):
@@ -1056,8 +1170,8 @@ def convert_gpt2_params(params, scan_layers=False, model_rank=0,
     arrays, unrolled ``h_<i>`` or stacked ``h`` layout) as a
     :class:`GPT2LMHead` ``state_dict`` of fp32 CPU tensors: the unrolled
     model's, or with ``scan_layers`` the stacked model's; with
-    ``model_size > 1`` the shard of model rank ``model_rank``
-    (:func:`shard_gpt2_state_dict`).
+    ``model_size > 1`` the shard of model rank ``model_rank`` of either
+    layout (:func:`shard_gpt2_state_dict`).
 
     Flax ``Dense.kernel`` is ``[in, out]`` and becomes ``weight``
     ``[out, in]``; LayerNorm ``scale``/``bias`` become
@@ -1087,9 +1201,6 @@ def convert_gpt2_params(params, scan_layers=False, model_rank=0,
             sd[f"h.{i}.{mod}.{name}.weight"] = t(dense["kernel"]).t() \
                 .contiguous()
             sd[f"h.{i}.{mod}.{name}.bias"] = t(dense["bias"])
-    if model_size > 1:
-        if scan_layers:
-            raise NotImplementedError("a model-parallel shard is of the "
-                                      "unrolled layout")
-        return shard_gpt2_state_dict(sd, model_rank, model_size)
-    return stack_gpt2_state_dict(sd) if scan_layers else sd
+    if scan_layers:
+        sd = stack_gpt2_state_dict(sd)
+    return shard_gpt2_state_dict(sd, model_rank, model_size)

@@ -58,4 +58,16 @@ __device__ __forceinline__ float drop_mult(uint32_t seed, uint32_t head,
   return (h >> 8) < thr ? inv_keep : 0.0f;
 }
 
+// the dropout hash's head coordinate of program (b * H + h) = bh over a
+// rank's H heads: b * num_heads + head_offset + h, the head's coordinate
+// in the unsharded model (num_heads its head count, head_offset the
+// rows before this rank's times num_heads plus the rank's first head;
+// num_heads == H is the unsharded b * H + h + head_offset)
+__device__ __forceinline__ uint32_t global_head_of(int bh, int H,
+                                                  int num_heads,
+                                                  int head_offset) {
+  return static_cast<uint32_t>(bh + (bh / H) * (num_heads - H) +
+                               head_offset);
+}
+
 }  // namespace

@@ -127,7 +127,8 @@ struct SparseParams {
   void* dk;               // [B, T, H, D] (K8b)
   void* dv;
   int64_t B, T, H, D, block, max_nnz, causal, dropping, seed, keep_threshold;
-  int64_t head_offset;    // added to the hashed (b * H + h): global rows
+  int64_t head_offset;    // the rank's rows and first head (global_head_of)
+  int64_t num_heads;      // the unsharded model's heads (H at one rank)
   int64_t n_col;          // column chunks of kColChunk (grid z)
   int64_t q_exact;        // K7: q * sm_scale is exact in TF32 (no lo term)
   int64_t q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh;
@@ -495,9 +496,10 @@ __device__ __forceinline__ void fwd_mma(const SparseParams& p, bool vec) {
   const float inv_keep = static_cast<float>(p.inv_keep);
   const uint32_t seed = static_cast<uint32_t>(p.seed);
   const uint32_t thr = static_cast<uint32_t>(p.keep_threshold);
-  // the dropout hash's head coordinate: this program's (b * H + h) plus
-  // the rows before this rank's in the global batch
-  const uint32_t ghead = static_cast<uint32_t>(bh + p.head_offset);
+  // the dropout hash's head coordinate: this program's head in the
+  // unsharded model, at its row of the global batch
+  const uint32_t ghead = global_head_of(bh, H, static_cast<int>(p.num_heads),
+                                        static_cast<int>(p.head_offset));
   const bool q_lo = !kExact || p.q_exact == 0;  // the scaled q has a lo
   const int lrow = h * nb + qb;
   const int n = p.nnz[lrow] * G::kSub;         // visited tiles
@@ -861,9 +863,10 @@ __device__ __forceinline__ void bwd_mma(const SparseParams& p, bool vec) {
   const float inv_keep = static_cast<float>(p.inv_keep);
   const uint32_t seed = static_cast<uint32_t>(p.seed);
   const uint32_t thr = static_cast<uint32_t>(p.keep_threshold);
-  // the dropout hash's head coordinate: this program's (b * H + h) plus
-  // the rows before this rank's in the global batch
-  const uint32_t ghead = static_cast<uint32_t>(bh + p.head_offset);
+  // the dropout hash's head coordinate: this program's head in the
+  // unsharded model, at its row of the global batch
+  const uint32_t ghead = global_head_of(bh, H, static_cast<int>(p.num_heads),
+                                        static_cast<int>(p.head_offset));
   const int lrow = h * nb + ob;
   const int n = p.nnz[lrow] * G::kSub;         // visited tiles
   const int32_t* lut = p.lut + static_cast<int64_t>(lrow) * p.max_nnz;

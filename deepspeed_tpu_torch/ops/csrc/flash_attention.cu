@@ -117,9 +117,9 @@ constexpr int kThreads = 256;
 
 __device__ __forceinline__ uint32_t global_head(const AttnParams& p,
                                                 int bh) {
-  const int H = static_cast<int>(p.H);
-  return static_cast<uint32_t>(bh + (bh / H) * (static_cast<int>(
-      p.num_heads) - H) + static_cast<int>(p.head_offset));
+  return global_head_of(bh, static_cast<int>(p.H),
+                        static_cast<int>(p.num_heads),
+                        static_cast<int>(p.head_offset));
 }
 
 // rows [r0, r0 + kRows) x columns [0, n) of a [B, L, H, D] tensor of

@@ -60,6 +60,7 @@ import torch
 from deepspeed_tpu_torch.ops.flash_attention import (
     DEFAULT_MASK_VALUE,
     _dropout_multiplier_full,
+    _global_heads,
     _keep_threshold,
     dropout_multiplier,
 )
@@ -168,7 +169,8 @@ def _mask_to_additive(m, mode):
 def _xla_impl(q, k, v, lut, nnz, block, causal, sm_scale, rpe=None,
               key_padding_mask=None, attn_mask=None,
               key_padding_mask_mode="add", attn_mask_mode="mul",
-              dropout_rate=0.0, dropout_seed=None, dropout_head_offset=0):
+              dropout_rate=0.0, dropout_seed=None, dropout_head_offset=0,
+              dropout_num_heads=None):
     """Gather each head's LUT k/v blocks and softmax over them
     (``block_sparse_attention.py:106``). q, k, v [B, T, H, D]; lut/nnz
     int tensors per :func:`build_lut`. Returns [B, T, H, D]. Counts its
@@ -211,8 +213,8 @@ def _xla_impl(q, k, v, lut, nnz, block, causal, sm_scale, rpe=None,
     p = torch.softmax(s.reshape(B, H, nq, block, max_nnz * block), dim=-1)
     p = p.reshape(B, H, nq, block, max_nnz, block)
     if dropout_rate > 0.0:
-        bh = torch.arange(B, device=dev)[:, None] * H + \
-            dropout_head_offset + torch.arange(H, device=dev)
+        bh = _global_heads(B, H, dropout_head_offset,
+                           dropout_num_heads).to(dev)
         p = p * dropout_multiplier(
             dropout_seed, bh[:, :, None, None, None, None],
             q_pos[None, None, :, :, None, None],
@@ -272,11 +274,12 @@ def _pair_positions(lut_j, block, device):
     return own, other
 
 
-def _drop_tile(seed, B, H, q_pos, k_pos, rate, device, head_offset=0):
+def _drop_tile(seed, B, H, q_pos, k_pos, rate, device, head_offset=0,
+               num_heads=None):
     """The kernels' dropout multiplier of a tile at the global head
-    coordinate ``b * H + head_offset + h``."""
-    bh = torch.arange(B, device=device)[:, None] * H + head_offset + \
-        torch.arange(H, device=device)
+    coordinate ``b * num_heads + head_offset + h`` (``num_heads`` the
+    unsharded model's heads, H when None)."""
+    bh = _global_heads(B, H, head_offset, num_heads).to(device)
     return dropout_multiplier(seed, bh[:, :, None, None, None], q_pos,
                               k_pos, rate)
 
@@ -291,7 +294,8 @@ def _gather_column(xb, lut_j):
 def block_sparse_attention_fwd_reference(q, k, v, lut, nnz, block,
                                          causal=False, sm_scale=None,
                                          dropout_rate=0.0, dropout_seed=0,
-                                         dropout_head_offset=0):
+                                         dropout_head_offset=0,
+                                         dropout_num_heads=None):
     """Plain K7: ``(out [B, T, H, D] in q's dtype, lse f32 [B * H, T])``
     (``_pallas_impl``, :241-293): q pre-scaled before the dot, the
     causal mask's finite value, ``l`` over the undropped and the
@@ -321,7 +325,8 @@ def block_sparse_attention_fwd_reference(q, k, v, lut, nnz, block,
         l_new = l * corr + p.sum(-1)
         if dropout_rate > 0.0:
             p = p * _drop_tile(dropout_seed, B, H, q_pos, k_pos,
-                               dropout_rate, dev, dropout_head_offset)
+                               dropout_rate, dev, dropout_head_offset,
+                               dropout_num_heads)
         acc_new = acc * corr[..., None] + torch.einsum(
             "bhqrc,bhqcd->bhqrd", p, _gather_column(vb, lut_j))
         m = torch.where(valid, m_new, m)
@@ -335,7 +340,7 @@ def block_sparse_attention_fwd_reference(q, k, v, lut, nnz, block,
 
 def _bwd_column(qb, kb, vb, gb, lse_b, delta_b, lut_j, block, causal,
                 sm_scale, dropout_rate, dropout_seed, head_offset,
-                transposed):
+                num_heads, transposed):
     """One LUT column of the backward: ``(pd, ds, q, k, dO)``, the
     visited tiles' dropped probabilities and scaled dS [B, H, nb, rows,
     cols] (rows = queries) as the kernels form them, and the operand
@@ -363,7 +368,7 @@ def _bwd_column(qb, kb, vb, gb, lse_b, delta_b, lut_j, block, causal,
     pd = p
     if dropout_rate > 0.0:
         mult = _drop_tile(dropout_seed, B, H, q_pos, k_pos, dropout_rate,
-                          dev, head_offset)
+                          dev, head_offset, num_heads)
         dp = dp * mult
         pd = p * mult
     ds = p * (dp - delta_g) * sm_scale
@@ -381,7 +386,8 @@ def block_sparse_attention_bwd_dq_reference(q, k, v, g, lse, delta, lut, nnz,
                                             block, causal=False,
                                             sm_scale=None, dropout_rate=0.0,
                                             dropout_seed=0,
-                                            dropout_head_offset=0):
+                                            dropout_head_offset=0,
+                                            dropout_num_heads=None):
     """Plain K8a: dq ``[B, T, H, D]`` in q's dtype (``dq_kernel``,
     :381-419): ``p = exp(s * sm_scale - lse)``, the dropped ``dp``,
     ``ds = p * (dp - delta) * sm_scale``, ``dq = sum ds @ k`` over the
@@ -399,7 +405,7 @@ def block_sparse_attention_bwd_dq_reference(q, k, v, g, lse, delta, lut, nnz,
         _, ds, _, kg, _ = _bwd_column(qb, kb, vb, gb, lse_b, delta_b, lut_j,
                                       block, causal, sm_scale, dropout_rate,
                                       dropout_seed, dropout_head_offset,
-                                      transposed=False)
+                                      dropout_num_heads, transposed=False)
         valid = (j < nnz)[None, :, :, None, None]
         # an invalid column may hold -inf - -inf: keep it out of the sum
         dq = dq + torch.where(valid, torch.einsum("bhqrc,bhqcd->bhqrd", ds,
@@ -411,7 +417,8 @@ def block_sparse_attention_bwd_dkv_reference(q, k, v, g, lse, delta, lut_t,
                                              nnz_t, block, causal=False,
                                              sm_scale=None, dropout_rate=0.0,
                                              dropout_seed=0,
-                                             dropout_head_offset=0):
+                                             dropout_head_offset=0,
+                                             dropout_num_heads=None):
     """Plain K8b: ``(dk, dv)`` ``[B, T, H, D]`` in k's / v's dtype
     (``dkv_kernel``, :450-498) over the transposed LUT ``lut_t`` /
     ``nnz_t``: ``dv = sum (p * mult)^T @ dO``, ``dk = sum ds^T @ q``."""
@@ -429,7 +436,8 @@ def block_sparse_attention_bwd_dkv_reference(q, k, v, g, lse, delta, lut_t,
         pd, ds, qg, _, gg = _bwd_column(qb, kb, vb, gb, lse_b, delta_b,
                                         lut_j, block, causal, sm_scale,
                                         dropout_rate, dropout_seed,
-                                        dropout_head_offset, transposed=True)
+                                        dropout_head_offset,
+                                        dropout_num_heads, transposed=True)
         valid = (j < nnz_t)[None, :, :, None, None]
         dv = dv + torch.where(valid, torch.einsum("bhqrc,bhqrd->bhqcd", pd,
                                                   gg), 0.0)
@@ -475,7 +483,7 @@ def _on_cuda(q, k, v, block, tables, extra=()):
 
 
 def _options(q, causal, sm_scale, dropout_rate, dropout_seed,
-             dropout_head_offset):
+             dropout_head_offset, dropout_num_heads=None):
     if dropout_rate and not 0.0 < dropout_rate < 1.0:
         raise ValueError(f"dropout_rate {dropout_rate} not in [0, 1)")
     return dict(causal=bool(causal),
@@ -483,16 +491,19 @@ def _options(q, causal, sm_scale, dropout_rate, dropout_seed,
                 else float(sm_scale),
                 dropout_rate=float(dropout_rate or 0.0),
                 dropout_seed=0 if dropout_seed is None else int(dropout_seed),
-                dropout_head_offset=int(dropout_head_offset))
+                dropout_head_offset=int(dropout_head_offset),
+                dropout_num_heads=None if dropout_num_heads is None
+                else int(dropout_num_heads))
 
 
 def block_sparse_attention_fwd(q, k, v, lut, nnz, block, causal=False,
                                sm_scale=None, dropout_rate=0.0,
-                               dropout_seed=0, dropout_head_offset=0):
+                               dropout_seed=0, dropout_head_offset=0,
+                               dropout_num_heads=None):
     """K7: ``(out [B, T, H, D] in q's dtype, lse f32 [B * H, T])``;
     ``lut``/``nnz`` the forward LUT as int32 tensors on q's device."""
     kw = _options(q, causal, sm_scale, dropout_rate, dropout_seed,
-                  dropout_head_offset)
+                  dropout_head_offset, dropout_num_heads)
     if not _on_cuda(q, k, v, block, (lut, nnz)):
         return block_sparse_attention_fwd_reference(q, k, v, lut, nnz, block,
                                                     **kw)
@@ -508,10 +519,11 @@ def block_sparse_attention_fwd(q, k, v, lut, nnz, block, causal=False,
 def block_sparse_attention_bwd_dq(q, k, v, g, lse, delta, lut, nnz, block,
                                   causal=False, sm_scale=None,
                                   dropout_rate=0.0, dropout_seed=0,
-                                  dropout_head_offset=0):
+                                  dropout_head_offset=0,
+                                  dropout_num_heads=None):
     """K8a: dq ``[B, T, H, D]`` in q's dtype over the forward LUT."""
     kw = _options(q, causal, sm_scale, dropout_rate, dropout_seed,
-                  dropout_head_offset)
+                  dropout_head_offset, dropout_num_heads)
     if not _on_cuda(q, k, v, block, (lut, nnz), (g, lse, delta)):
         return block_sparse_attention_bwd_dq_reference(
             q, k, v, g, lse, delta, lut, nnz, block, **kw)
@@ -524,10 +536,11 @@ def block_sparse_attention_bwd_dq(q, k, v, g, lse, delta, lut, nnz, block,
 def block_sparse_attention_bwd_dkv(q, k, v, g, lse, delta, lut_t, nnz_t,
                                    block, causal=False, sm_scale=None,
                                    dropout_rate=0.0, dropout_seed=0,
-                                   dropout_head_offset=0):
+                                   dropout_head_offset=0,
+                                   dropout_num_heads=None):
     """K8b: ``(dk, dv)`` ``[B, T, H, D]`` over the transposed LUT."""
     kw = _options(q, causal, sm_scale, dropout_rate, dropout_seed,
-                  dropout_head_offset)
+                  dropout_head_offset, dropout_num_heads)
     if not _on_cuda(q, k, v, block, (lut_t, nnz_t), (g, lse, delta)):
         return block_sparse_attention_bwd_dkv_reference(
             q, k, v, g, lse, delta, lut_t, nnz_t, block, **kw)
@@ -552,7 +565,8 @@ class _Params(ctypes.Structure):
         "dq", "dk", "dv")] + \
         [(name, ctypes.c_int64) for name in (
             "B", "T", "H", "D", "block", "max_nnz", "causal", "dropping",
-            "seed", "keep_threshold", "head_offset", "n_col", "q_exact",
+            "seed", "keep_threshold", "head_offset", "num_heads", "n_col",
+            "q_exact",
             "q_sb", "q_st", "q_sh", "k_sb", "k_st", "k_sh",
             "v_sb", "v_st", "v_sh", "g_sb", "g_st", "g_sh")] + \
         [("sm_scale", ctypes.c_double), ("inv_keep", ctypes.c_double)]
@@ -619,6 +633,8 @@ def _launch(which, q, k, v, g, lse, delta, lut, nnz, block, kw, out=None,
         seed=kw["dropout_seed"],
         keep_threshold=_keep_threshold(rate) if rate > 0.0 else 0,
         head_offset=kw.get("dropout_head_offset", 0),
+        num_heads=H if kw.get("dropout_num_heads") is None
+        else kw["dropout_num_heads"],
         n_col=cols, q_exact=int(scaled_q_exact(q.dtype, kw["sm_scale"])),
         q_sb=q.stride(0), q_st=q.stride(1), q_sh=q.stride(2),
         k_sb=k.stride(0), k_st=k.stride(1), k_sh=k.stride(2),
@@ -675,7 +691,7 @@ def block_sparse_attention(q, k, v, layout, block, causal=False,
                            attn_mask=None, key_padding_mask_mode="add",
                            attn_mask_mode="mul", implementation="auto",
                            dropout_rate=0.0, dropout_seed=None,
-                           dropout_head_offset=0):
+                           dropout_head_offset=0, dropout_num_heads=None):
     """Fused block-sparse attention (``block_sparse_attention.py:582``).
 
     q, k, v: [B, T, H, D]; layout: [H, T // block, T // block] 0/1 (numpy,
@@ -687,7 +703,11 @@ def block_sparse_attention(q, k, v, layout, block, causal=False,
     route at the same (head, q, k) coordinates. ``dropout_head_offset``
     is added to every row's head coordinate ``b * H + h``: a process
     that holds rows ``[r*B, (r+1)*B)`` of a global batch passes
-    ``r * B * H`` and draws those rows' masks.
+    ``r * B * H`` and draws those rows' masks. ``dropout_num_heads``
+    (default H) is the unsharded model's head count when q holds a
+    model rank's H of them: row b's head h is then hashed at ``b *
+    dropout_num_heads + dropout_head_offset + h`` (the offset adds the
+    rank's first head), the coordinate the unsharded model gives it.
 
     ``implementation``: ``"auto"`` takes the kernel route (``"pallas"``,
     K7/K8 on CUDA tensors, their plain versions on CPU tensors) unless
@@ -719,7 +739,8 @@ def block_sparse_attention(q, k, v, layout, block, causal=False,
         kw = dict(causal=bool(causal), sm_scale=float(sm_scale),
                   dropout_rate=float(dropout_rate or 0.0),
                   dropout_seed=int(dropout_seed or 0),
-                  dropout_head_offset=int(dropout_head_offset))
+                  dropout_head_offset=int(dropout_head_offset),
+                  dropout_num_heads=dropout_num_heads)
         return _BlockSparseAttention.apply(q, k, v, tables, block, kw)
     if implementation == "xla":
         lut, nnz = tables[:2]
@@ -730,7 +751,8 @@ def block_sparse_attention(q, k, v, layout, block, causal=False,
                          attn_mask_mode=attn_mask_mode,
                          dropout_rate=dropout_rate,
                          dropout_seed=dropout_seed,
-                         dropout_head_offset=dropout_head_offset)
+                         dropout_head_offset=dropout_head_offset,
+                         dropout_num_heads=dropout_num_heads)
     raise ValueError(f"unknown implementation {implementation!r}")
 
 
@@ -738,7 +760,8 @@ def masked_dense_attention(q, k, v, layout, block, causal=False,
                            sm_scale=None, rpe=None, key_padding_mask=None,
                            attn_mask=None, key_padding_mask_mode="add",
                            attn_mask_mode="mul", dropout_rate=0.0,
-                           dropout_seed=None, dropout_head_offset=0):
+                           dropout_seed=None, dropout_head_offset=0,
+                           dropout_num_heads=None):
     """Dense attention with the layout applied as an elementwise mask
     (``block_sparse_attention.py:640``): the parity oracle for the
     sparse kernels."""
@@ -766,5 +789,6 @@ def masked_dense_attention(q, k, v, layout, block, causal=False,
     if dropout_rate > 0.0:
         probs = probs * _dropout_multiplier_full(
             B, H, T, T, dropout_rate, dropout_seed,
-            head_offset=dropout_head_offset, device=dev)
+            head_offset=dropout_head_offset, num_heads=dropout_num_heads,
+            device=dev)
     return torch.einsum("bhts,bshd->bthd", probs, v.float()).to(q.dtype)

@@ -6,6 +6,14 @@ sparse_self_attention.py:13`), which chains SDD matmul -> sparse softmax
 -> DSD matmul; here the chain is one fused block-sparse flash-attention
 call (`block_sparse_attention.py`). Tensors follow the reference
 convention: [batch, heads, seq, head_dim].
+
+Tensor parallelism: with ``model_size`` M > 1 the module runs model rank
+``model_rank``'s ``num_heads / M`` heads ``[rank * hl, (rank + 1) *
+hl)``: its layout (and so its LUT) is those heads' rows of the whole
+layout, which matters under ``different_layout_per_head``, and the
+kernels hash dropout at the unsharded head count (the caller's
+``dropout_head_offset`` holds the rows before its own times the head
+count plus the rank's first head, :attr:`first_head`).
 """
 
 from deepspeed_tpu_torch.ops.sparse_attention.block_sparse_attention import (
@@ -33,7 +41,8 @@ class SparseSelfAttention:
     """
 
     def __init__(self, sparsity_config=None, key_padding_mask_mode="add",
-                 attn_mask_mode="mul", implementation="auto"):
+                 attn_mask_mode="mul", implementation="auto", model_rank=0,
+                 model_size=1):
         if sparsity_config is None:
             sparsity_config = FixedSparsityConfig(num_heads=4)
         assert isinstance(sparsity_config, SparsityConfig)
@@ -43,14 +52,24 @@ class SparseSelfAttention:
         self.key_padding_mask_mode = key_padding_mask_mode
         self.attn_mask_mode = attn_mask_mode
         self.implementation = implementation
+        heads = sparsity_config.num_heads
+        if heads % model_size:
+            raise ValueError(f"sparsity config's {heads} heads do not "
+                             f"divide the model axis ({model_size})")
+        self.model_size = int(model_size)
+        self.local_heads = heads // self.model_size
+        self.first_head = int(model_rank) * self.local_heads
         # per-instance layout cache keyed by seq len - the analog of the
         # reference's per-seq-len ops cache (`sparse_self_attention.py:41-66`)
         self._layouts = {}
 
     def get_layout(self, seq_len):
+        """The layout of this module's heads at ``seq_len`` (the whole
+        layout's rows ``[first_head, first_head + local_heads)``)."""
         if seq_len not in self._layouts:
-            self._layouts[seq_len] = \
-                self.sparsity_config.make_layout(seq_len)
+            whole = self.sparsity_config.make_layout(seq_len)
+            self._layouts[seq_len] = whole[
+                self.first_head:self.first_head + self.local_heads]
         return self._layouts[seq_len]
 
     def __call__(self, query, key, value, rpe=None, key_padding_mask=None,
@@ -63,9 +82,9 @@ class SparseSelfAttention:
         if query.shape != key.shape or key.shape != value.shape:
             raise NotImplementedError(
                 "only self-attention is supported for now")
-        assert num_heads == self.sparsity_config.num_heads, (
+        assert num_heads == self.local_heads, (
             f"tensor has {num_heads} heads, sparsity config expects "
-            f"{self.sparsity_config.num_heads}")
+            f"{self.local_heads}")
 
         layout = self.get_layout(tgt_len)
         causal = getattr(self.sparsity_config, "attention",
@@ -83,5 +102,6 @@ class SparseSelfAttention:
             implementation=self.implementation,
             dropout_rate=dropout_rate,
             dropout_seed=dropout_seed,
-            dropout_head_offset=dropout_head_offset)
+            dropout_head_offset=dropout_head_offset,
+            dropout_num_heads=self.sparsity_config.num_heads)
         return out.transpose(1, 2)

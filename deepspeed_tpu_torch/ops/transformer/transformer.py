@@ -41,6 +41,26 @@ attention-prob dropout of every core is the counter hash of
 ``ops/flash_attention.py`` at that seed (the dense core applies the same
 multiplier), the hidden dropouts draw from a ``torch.Generator``. Neither
 reproduces ``jax.random``; parity tests run at dropout 0.
+
+**Tensor parallelism** (``tp``, a model-axis ``AxisGroup`` of M > 1
+ranks; Megatron's layout, JAX ``bert_partition_specs``): the layer holds
+model rank r's shard. ``attn_qkvw`` ``[H, 3H]`` and ``attn_qkvb`` are
+column parallel as q, k and v blocks (``Shard(1, 3)`` / ``Shard(0, 3)``:
+rank r owns whole heads ``[r * hl, (r + 1) * hl)`` of each), ``inter_w``
+/ ``inter_b`` column parallel, ``attn_ow`` and ``output_w`` row parallel
+(``Shard(0)``, the JAX ``[in, out]`` layout's input rows); the output
+biases and the norms are replicated. The input of each column-parallel
+product takes Megatron's ``f`` (``psum_grad``) and each row-parallel
+product's partial sum ``g`` (``psum_combine``) before its bias. JAX's
+``P(None, "model")`` on ``attn_qkvw`` splits the 3H columns in equal
+contiguous pieces and lets GSPMD compute the unsharded function; the
+port's q, k, v blocks compute the same function with no resharding, and
+its converters cut a rank's heads from the whole leaf. Every attention
+core runs at the rank's hl heads with the dropout hash at the heads'
+global coordinates (``head_offset = row * heads + r * hl``, the head
+count ``heads``); the hidden dropouts act on replicated activations and
+draw the same masks on every rank of the group (the generator is seeded
+by the data rank only).
 """
 
 import json
@@ -56,6 +76,18 @@ from deepspeed_tpu_torch.ops.flash_attention import (
     flash_attention,
     hidden_dropout,
 )
+from deepspeed_tpu_torch.parallel.collectives import psum_combine, psum_grad
+from deepspeed_tpu_torch.parallel.tensor_parallel import (
+    Shard,
+    set_shard,
+    shard_tensor,
+)
+
+# the layer's split leaves under tensor parallelism (``[in, out]``
+# matrices: a column-parallel one splits dim 1, a row-parallel one dim 0)
+TP_SPECS = {"attn_qkvw": Shard(1, 3), "attn_qkvb": Shard(0, 3),
+            "inter_w": Shard(1), "inter_b": Shard(0),
+            "attn_ow": Shard(0), "output_w": Shard(0)}
 
 
 class DeepSpeedTransformerConfig:
@@ -144,39 +176,56 @@ class DeepSpeedTransformerLayer(nn.Module):
     ``device``, drawn from ``generator`` as the JAX initializers draw
     them: N(0, initializer_range) for the QKV and intermediate weights,
     N(0, initializer_range / sqrt(2 L)) for the output projections when
-    ``adjust_init_range``, zero biases, unit norm scales.
+    ``adjust_init_range``, zero biases, unit norm scales. With ``tp``
+    (a model-axis group of more than one rank) the layer holds its
+    model rank's shard (module docstring); each split leaf is drawn
+    whole from ``generator`` and cut, so a seed gives the unsharded
+    layer's weights.
     """
 
     def __init__(self, config, use_flash_attention=False,
-                 sparsity_config=None, device=None, generator=None):
+                 sparsity_config=None, device=None, generator=None,
+                 tp=None):
         super().__init__()
         self.config = config
         self.use_flash_attention = use_flash_attention
         self.sparsity_config = sparsity_config
+        self.tp = tp if tp is not None and tp.size > 1 else None
+        M = 1 if self.tp is None else self.tp.size
+        rank = 0 if self.tp is None else self.tp.rank
+        if config.heads % M or config.intermediate_size % M:
+            raise ValueError(f"heads {config.heads} and intermediate size "
+                             f"{config.intermediate_size} must divide the "
+                             f"model axis ({M})")
+        self.local_heads = config.heads // M
         self.sparse_core = None
         if sparsity_config is not None:
             from deepspeed_tpu_torch.ops.sparse_attention import (
                 SparseSelfAttention)
             self.sparse_core = SparseSelfAttention(
-                sparsity_config, key_padding_mask_mode="add")
+                sparsity_config, key_padding_mask_mode="add",
+                model_rank=rank, model_size=M)
         H, I = config.hidden_size, config.intermediate_size
 
         def param(*shape):
             return nn.Parameter(torch.empty(shape, dtype=torch.float32,
                                             device=device))
 
-        self.attn_qkvw = param(H, 3 * H)
-        self.attn_qkvb = param(3 * H)
-        self.attn_ow = param(H, H)
+        self.attn_qkvw = param(H, 3 * H // M)
+        self.attn_qkvb = param(3 * H // M)
+        self.attn_ow = param(H // M, H)
         self.attn_ob = param(H)
         self.attn_nw = param(H)
         self.attn_nb = param(H)
-        self.inter_w = param(H, I)
-        self.inter_b = param(I)
-        self.output_w = param(I, H)
+        self.inter_w = param(H, I // M)
+        self.inter_b = param(I // M)
+        self.output_w = param(I // M, H)
         self.output_b = param(H)
         self.norm_w = param(H)
         self.norm_b = param(H)
+        if self.tp is not None:
+            for name, spec in TP_SPECS.items():
+                set_shard(getattr(self, name), spec)
         self.reset_parameters(generator)
 
     @torch.no_grad()
@@ -186,9 +235,18 @@ class DeepSpeedTransformerLayer(nn.Module):
         # the reference shrinks the output-projection init by 1/sqrt(2L)
         out_std = std / (2.0 * max(cfg.num_hidden_layers, 1)) ** 0.5 \
             if cfg.adjust_init_range else std
-        for w, s in ((self.attn_qkvw, std), (self.attn_ow, out_std),
-                     (self.inter_w, std), (self.output_w, out_std)):
-            nn.init.normal_(w, 0.0, s, generator=generator)
+        H, I = cfg.hidden_size, cfg.intermediate_size
+        for w, s, full in ((self.attn_qkvw, std, (H, 3 * H)),
+                           (self.attn_ow, out_std, (H, H)),
+                           (self.inter_w, std, (H, I)),
+                           (self.output_w, out_std, (I, H))):
+            if self.tp is None:
+                nn.init.normal_(w, 0.0, s, generator=generator)
+            else:   # the whole leaf, then this rank's piece
+                whole = torch.empty(full, dtype=w.dtype, device=w.device)
+                nn.init.normal_(whole, 0.0, s, generator=generator)
+                w.copy_(shard_tensor(whole, w.tp_shard, self.tp.rank,
+                                     self.tp.size))
         for b in (self.attn_qkvb, self.attn_ob, self.attn_nb, self.inter_b,
                   self.output_b, self.norm_b):
             nn.init.zeros_(b)
@@ -210,11 +268,19 @@ class DeepSpeedTransformerLayer(nn.Module):
         B, T, H = xin.shape
         heads = cfg.heads
         hd = H // heads
+        hl = self.local_heads           # this rank's heads
         rate = cfg.attn_dropout_ratio if seed is not None else 0.0
-        # the rows' global head coordinate (``global_rows``)
+        # the rows' global head coordinate (``global_rows``), and with a
+        # model axis the rank's first head, hashed at ``heads`` a row
         offset = current_global_rows()[0] * heads if rate else 0
+        num_heads = None
+        if self.tp is not None:
+            offset += self.tp.rank * hl
+            num_heads = heads
+            xin = psum_grad(xin, self.tp)
         qkv = xin @ self.attn_qkvw.to(dtype) + self.attn_qkvb.to(dtype)
-        q, k, v = (t.reshape(B, T, heads, hd) for t in qkv.split(H, dim=-1))
+        q, k, v = (t.reshape(B, T, hl, hd)
+                   for t in qkv.split(hl * hd, dim=-1))
         if self.sparse_core is not None:
             kpm = None
             if attention_mask is not None:
@@ -224,6 +290,7 @@ class DeepSpeedTransformerLayer(nn.Module):
                 key_padding_mask=kpm, dropout_rate=rate,
                 dropout_seed=seed if rate else None,
                 dropout_head_offset=offset).transpose(1, 2)
+            # (the core hashes at its config's head count itself)
         elif self.use_flash_attention and (
                 attention_mask is None or
                 _is_key_padding_shape(attention_mask.shape, B, T)):
@@ -233,7 +300,8 @@ class DeepSpeedTransformerLayer(nn.Module):
             ctx = flash_attention(q, k, v, causal=False, key_bias=kbias,
                                   dropout_rate=rate,
                                   dropout_seed=seed if rate else None,
-                                  dropout_head_offset=offset)
+                                  dropout_head_offset=offset,
+                                  dropout_num_heads=num_heads)
         else:
             scale = 1.0 / torch.sqrt(torch.tensor(float(hd)))
             att = torch.einsum("bthd,bshd->bhts", q, k).float() * scale
@@ -242,18 +310,29 @@ class DeepSpeedTransformerLayer(nn.Module):
             att = torch.softmax(att, dim=-1).to(dtype)
             if rate:
                 att = att * _dropout_multiplier_full(
-                    B, heads, T, T, rate, seed, head_offset=offset,
-                    device=att.device).to(dtype)
+                    B, hl, T, T, rate, seed, head_offset=offset,
+                    num_heads=num_heads, device=att.device).to(dtype)
             ctx = torch.einsum("bhts,bshd->bthd", att, v)
-        out = ctx.reshape(B, T, H) @ self.attn_ow.to(dtype) + \
-            self.attn_ob.to(dtype)
+        out = self._row_parallel(ctx.reshape(B, T, hl * hd), self.attn_ow,
+                                 self.attn_ob)
         return hidden_dropout(out, cfg.hidden_dropout_ratio, generator)
+
+    def _row_parallel(self, y, w, b):
+        """``y @ w + b`` of a row-parallel ``w``: the partial products
+        summed over the model group, then the replicated bias."""
+        dtype = self.config.dtype
+        part = y @ w.to(dtype)
+        if self.tp is not None:
+            part = psum_combine(part, self.tp)
+        return part + b.to(dtype)
 
     def _ffn(self, xin, generator):
         dtype = self.config.dtype
+        if self.tp is not None:
+            xin = psum_grad(xin, self.tp)
         h = xin @ self.inter_w.to(dtype) + self.inter_b.to(dtype)
         h = F.gelu(h)
-        h = h @ self.output_w.to(dtype) + self.output_b.to(dtype)
+        h = self._row_parallel(h, self.output_w, self.output_b)
         return hidden_dropout(h, self.config.hidden_dropout_ratio, generator)
 
     def forward(self, hidden_states, attention_mask=None, dropout_seed=None,

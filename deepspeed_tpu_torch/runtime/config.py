@@ -43,6 +43,10 @@ The pipeline keys: ``pipeline`` (``stages``, ``partition``,
 defaults as ``config.pipeline``) and ``mesh`` (``config.mesh_shape``);
 ``runtime/pipe/engine.py`` reads both.
 
+The ``resilience`` block (:class:`ResilienceConfig`, JAX's keys, defaults
+and checks) configures the engine's preemption-safe checkpoints, the
+restore ladder, the step health guards and fault injection.
+
 The keys whose features later work ports raise "not yet ported" with the
 ``ROADMAP.md`` item that ports them (:data:`_LATER_KEYS`); any other key
 raises as unknown. Key names and error texts are the JAX package's.
@@ -137,13 +141,12 @@ _PORTED_KEYS = frozenset((
     C.VOCABULARY_SIZE, C.AMP, C.WALL_CLOCK_BREAKDOWN, C.MEMORY_BREAKDOWN,
     C.INFERENCE, C.ACTIVATION_CHECKPOINTING, C.PROGRESSIVE_LAYER_DROP,
     C.SPARSE_GRADIENTS, C.FP8, C.PIPELINE, C.MESH, C.TENSOR_PARALLEL,
-    C.COMM_QUANTIZATION))
+    C.COMM_QUANTIZATION, C.RESILIENCE))
 
 # the keys the JAX config reads whose features are not ported yet, each
 # with the ROADMAP.md section 1 item that ports it
 _LATER_KEYS = {
     C.TELEMETRY: "item 6 (slice G, operations)",
-    C.RESILIENCE: "item 6 (slice G, operations)",
     C.ELASTICITY: "item 6 (slice G, operations)",
     C.ANALYSIS: "item 6 (slice G, operations)",
     C.TENSORBOARD: "item 6 (slice G, operations)",
@@ -286,6 +289,114 @@ class CommQuantizationConfig:
                 f"bits={self.bits}, chunk_size={self.chunk_size}, "
                 f"bucket_mb={self.bucket_mb}, "
                 f"error_feedback={self.error_feedback})")
+
+
+class ResilienceConfig:
+    """Typed view of the ``resilience`` block (JAX ``ResilienceConfig``,
+    its keys and defaults): preemption-safe checkpointing, auto-resume,
+    step health guards, the hot checkpoint tier and fault injection
+    (``runtime/resilience/``; the engine wiring is in
+    ``runtime/engine.py``)."""
+
+    def __init__(self, param_dict):
+        sub = param_dict.get(C.RESILIENCE, {}) or {}
+        self.auto_resume = get_scalar_param(
+            sub, C.RESILIENCE_AUTO_RESUME, C.RESILIENCE_AUTO_RESUME_DEFAULT)
+        self.save_dir = get_scalar_param(sub, C.RESILIENCE_SAVE_DIR,
+                                         C.RESILIENCE_SAVE_DIR_DEFAULT)
+        self.save_interval_steps = get_scalar_param(
+            sub, C.RESILIENCE_SAVE_INTERVAL_STEPS,
+            C.RESILIENCE_SAVE_INTERVAL_STEPS_DEFAULT)
+        ckpt = sub.get(C.RESILIENCE_CHECKPOINT, {}) or {}
+        self.async_save = get_scalar_param(
+            ckpt, C.RESILIENCE_CKPT_ASYNC_SAVE,
+            C.RESILIENCE_CKPT_ASYNC_SAVE_DEFAULT)
+        self.keep_last_n = get_scalar_param(
+            ckpt, C.RESILIENCE_CKPT_KEEP_LAST_N,
+            C.RESILIENCE_CKPT_KEEP_LAST_N_DEFAULT)
+        self.io_retries = get_scalar_param(
+            ckpt, C.RESILIENCE_CKPT_IO_RETRIES,
+            C.RESILIENCE_CKPT_IO_RETRIES_DEFAULT)
+        self.io_retry_base_s = get_scalar_param(
+            ckpt, C.RESILIENCE_CKPT_IO_RETRY_BASE_S,
+            C.RESILIENCE_CKPT_IO_RETRY_BASE_S_DEFAULT)
+        self.io_timeout_s = get_scalar_param(
+            ckpt, C.RESILIENCE_CKPT_IO_TIMEOUT_S,
+            C.RESILIENCE_CKPT_IO_TIMEOUT_S_DEFAULT)
+        guards = sub.get(C.RESILIENCE_GUARDS, {}) or {}
+        nan = guards.get(C.RESILIENCE_GUARD_NAN, {}) or {}
+        self.nan_guard_action = get_scalar_param(
+            nan, C.RESILIENCE_GUARD_ACTION,
+            C.RESILIENCE_GUARD_NAN_ACTION_DEFAULT)
+        spike = guards.get(C.RESILIENCE_GUARD_LOSS_SPIKE, {}) or {}
+        self.loss_spike_action = get_scalar_param(
+            spike, C.RESILIENCE_GUARD_ACTION,
+            C.RESILIENCE_GUARD_LOSS_SPIKE_ACTION_DEFAULT)
+        self.loss_spike_window = get_scalar_param(
+            spike, C.RESILIENCE_GUARD_LOSS_SPIKE_WINDOW,
+            C.RESILIENCE_GUARD_LOSS_SPIKE_WINDOW_DEFAULT)
+        self.loss_spike_factor = get_scalar_param(
+            spike, C.RESILIENCE_GUARD_LOSS_SPIKE_FACTOR,
+            C.RESILIENCE_GUARD_LOSS_SPIKE_FACTOR_DEFAULT)
+        self.loss_spike_min_history = get_scalar_param(
+            spike, C.RESILIENCE_GUARD_LOSS_SPIKE_MIN_HISTORY,
+            C.RESILIENCE_GUARD_LOSS_SPIKE_MIN_HISTORY_DEFAULT)
+        collapse = guards.get(C.RESILIENCE_GUARD_SCALE_COLLAPSE, {}) or {}
+        self.scale_collapse_action = get_scalar_param(
+            collapse, C.RESILIENCE_GUARD_ACTION,
+            C.RESILIENCE_GUARD_SCALE_COLLAPSE_ACTION_DEFAULT)
+        self.scale_collapse_patience = get_scalar_param(
+            collapse, C.RESILIENCE_GUARD_SCALE_COLLAPSE_PATIENCE,
+            C.RESILIENCE_GUARD_SCALE_COLLAPSE_PATIENCE_DEFAULT)
+        preempt = sub.get(C.RESILIENCE_PREEMPTION, {}) or {}
+        self.save_on_sigterm = get_scalar_param(
+            preempt, C.RESILIENCE_PREEMPTION_SAVE_ON_SIGTERM,
+            C.RESILIENCE_PREEMPTION_SAVE_ON_SIGTERM_DEFAULT)
+        fi = sub.get(C.RESILIENCE_FAULT_INJECTION, {}) or {}
+        self.fault_injection = get_scalar_param(
+            fi, C.RESILIENCE_FAULT_INJECTION_ENABLED,
+            C.RESILIENCE_FAULT_INJECTION_ENABLED_DEFAULT)
+        hot = sub.get(C.RESILIENCE_HOT_CHECKPOINT, {}) or {}
+        self.hot_enabled = get_scalar_param(
+            hot, C.RESILIENCE_HOT_ENABLED, C.RESILIENCE_HOT_ENABLED_DEFAULT)
+        self.hot_interval_steps = get_scalar_param(
+            hot, C.RESILIENCE_HOT_INTERVAL_STEPS,
+            C.RESILIENCE_HOT_INTERVAL_STEPS_DEFAULT)
+        self.hot_capacity = get_scalar_param(
+            hot, C.RESILIENCE_HOT_CAPACITY, C.RESILIENCE_HOT_CAPACITY_DEFAULT)
+        self.hot_mirror_dir = get_scalar_param(
+            hot, C.RESILIENCE_HOT_MIRROR_DIR,
+            C.RESILIENCE_HOT_MIRROR_DIR_DEFAULT)
+        self.hot_mirror_keep = get_scalar_param(
+            hot, C.RESILIENCE_HOT_MIRROR_KEEP,
+            C.RESILIENCE_HOT_MIRROR_KEEP_DEFAULT)
+        self.host_adam_retries = get_scalar_param(
+            sub, C.RESILIENCE_HOST_ADAM_RETRIES,
+            C.RESILIENCE_HOST_ADAM_RETRIES_DEFAULT)
+
+    @property
+    def guards_enabled(self):
+        return any(a is not None for a in (self.nan_guard_action,
+                                           self.loss_spike_action,
+                                           self.scale_collapse_action))
+
+    @property
+    def enabled(self):
+        return bool(self.auto_resume or self.save_interval_steps or
+                    self.guards_enabled or self.save_on_sigterm or
+                    self.fault_injection or self.save_dir)
+
+    def __repr__(self):
+        return (f"ResilienceConfig(auto_resume={self.auto_resume}, "
+                f"save_dir={self.save_dir!r}, "
+                f"save_interval_steps={self.save_interval_steps}, "
+                f"async_save={self.async_save}, "
+                f"keep_last_n={self.keep_last_n}, "
+                f"guards=[nan={self.nan_guard_action}, "
+                f"loss_spike={self.loss_spike_action}, "
+                f"scale_collapse={self.scale_collapse_action}], "
+                f"save_on_sigterm={self.save_on_sigterm}, "
+                f"fault_injection={self.fault_injection})")
 
 
 class Fp8Config:
@@ -737,6 +848,7 @@ class DeepSpeedConfig:
             param_dict)
         self.fp8 = Fp8Config(param_dict)
         self.comm_quantization = CommQuantizationConfig(param_dict)
+        self.resilience = ResilienceConfig(param_dict)
         self.tensor_parallel = TensorParallelConfig(param_dict)
         self.pipeline = get_pipeline_config(param_dict)
         self.mesh_shape = get_mesh_config(param_dict)
@@ -837,6 +949,84 @@ class DeepSpeedConfig:
         if self.fp16_enabled and self.bf16_enabled:
             raise ValueError("fp16 and bf16 cannot both be enabled")
         self._check_comm_quantization()
+        self._check_resilience()
+
+    def _check_resilience(self):
+        """JAX ``config.py:1590-1664``: its checks and texts."""
+        from deepspeed_tpu_torch.runtime.resilience.guards import (
+            ACTION_ROLLBACK, ACTION_SKIP_STEP, VALID_ACTIONS)
+        rz = self.resilience
+        if rz.auto_resume and not rz.save_dir:
+            raise ValueError(
+                "resilience: auto_resume requires save_dir — there is "
+                "nowhere to discover checkpoints from")
+        if rz.save_interval_steps and not rz.save_dir:
+            raise ValueError(
+                "resilience: save_interval_steps requires save_dir")
+        if rz.save_interval_steps < 0:
+            raise ValueError(
+                f"resilience: save_interval_steps must be >= 0, "
+                f"got {rz.save_interval_steps}")
+        if rz.keep_last_n < 0:
+            raise ValueError(
+                f"resilience: checkpoint.keep_last_n must be >= 0 "
+                f"(0 keeps everything), got {rz.keep_last_n}")
+        if rz.io_retries < 1:
+            raise ValueError(
+                f"resilience: checkpoint.io_retries must be >= 1, "
+                f"got {rz.io_retries}")
+        guard_actions = {
+            "nan_grads": rz.nan_guard_action,
+            "loss_spike": rz.loss_spike_action,
+            "scale_collapse": rz.scale_collapse_action,
+        }
+        for guard, action in guard_actions.items():
+            if action is None:
+                continue
+            if action not in VALID_ACTIONS:
+                raise ValueError(
+                    f"resilience: guards.{guard}.action must be one of "
+                    f"{list(VALID_ACTIONS)} (or omitted to disable), "
+                    f"got {action!r}")
+            if action == ACTION_ROLLBACK and not rz.save_dir:
+                raise ValueError(
+                    f"resilience: guards.{guard}.action="
+                    f"'rollback_to_checkpoint' requires save_dir — there "
+                    "is no checkpoint to roll back to")
+            if action == ACTION_SKIP_STEP and guard != "nan_grads":
+                raise ValueError(
+                    f"resilience: guards.{guard} detects the problem only "
+                    "after the update has been applied, so 'skip_step' is "
+                    "impossible — use 'warn', 'rollback_to_checkpoint' or "
+                    "'abort'")
+        if rz.scale_collapse_action is not None and not self.fp16_enabled:
+            raise ValueError(
+                "resilience: guards.scale_collapse watches the dynamic "
+                "fp16 loss scale; it requires fp16 to be enabled")
+        if rz.loss_spike_action is not None and \
+                rz.loss_spike_min_history < 1:
+            raise ValueError(
+                f"resilience: guards.loss_spike.min_history must be >= 1, "
+                f"got {rz.loss_spike_min_history}")
+        if rz.scale_collapse_action is not None and \
+                rz.scale_collapse_patience < 1:
+            raise ValueError(
+                f"resilience: guards.scale_collapse.patience must be >= 1, "
+                f"got {rz.scale_collapse_patience}")
+        if rz.hot_enabled:
+            if rz.hot_interval_steps < 1:
+                raise ValueError(
+                    f"resilience: hot_checkpoint.interval_steps must be "
+                    f">= 1 when the tier is enabled, "
+                    f"got {rz.hot_interval_steps}")
+            if rz.hot_capacity < 1:
+                raise ValueError(
+                    f"resilience: hot_checkpoint.capacity must be >= 1, "
+                    f"got {rz.hot_capacity}")
+            if rz.hot_mirror_keep < 1:
+                raise ValueError(
+                    f"resilience: hot_checkpoint.mirror_keep must be "
+                    f">= 1, got {rz.hot_mirror_keep}")
 
     def _check_comm_quantization(self):
         """JAX ``config.py:1044-1066``: its checks and texts."""

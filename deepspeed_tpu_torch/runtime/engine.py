@@ -175,6 +175,26 @@ the config unless the user already has (JAX ``engine.py:594-600``).
   Checkpoints add the error buffers in JAX's global layout; another data
   world restarts error feedback from zero.
 
+**Resilience** (the ``resilience`` block, JAX ``engine.py:614-690,
+1235-1290, 2725-2760, 3274-3360``): the checkpoint manager takes the
+block's retention, retries, deadline and async saves; ``save_dir`` with
+``save_interval_steps`` saves every that many steps; the hot tier
+(``runtime/resilience/hotckpt.py``) snapshots the checkpoint tree to
+host RAM every ``hot_checkpoint.interval_steps`` (CRC-stamped on a
+worker thread, mirrored under ``mirror_dir``). The guards
+(``runtime/resilience/guards.py``) read each step's loss, finiteness
+verdict and scale on the host (one sync a step); the NaN guard runs the
+finiteness check in fp32 and bf16 too, and ``skip_step`` folds it into
+the overflow skip; ``rollback_to_checkpoint`` goes down the restore
+ladder (hot RAM, hot mirror, disk: ``_restore_ladder``), ``abort``
+raises ``HealthGuardAbort``. ``save_on_sigterm`` latches SIGTERM and,
+at the next :meth:`train_batch`, saves and raises ``PreemptedError``
+with the checkpoint's path; ``auto_resume`` runs the ladder at
+construction. ``fault_injection.enabled`` lets the fault harness plant
+NaN gradients and a preemption. ``host_adam_retries`` and
+``checkpoint.io_timeout_s`` go to the host Adam. A pipeline's stage
+engines run none of it, as JAX's pipeline runs none.
+
 Telemetry is not yet ported: its config block raises in
 ``runtime/config.py``. The pipeline is
 ``runtime/pipe/engine.py:PipelineEngine``, which
@@ -213,7 +233,10 @@ for a given int32 seed.
 """
 
 import contextlib
+import json
+import os
 import re
+import signal
 import time
 import weakref
 from typing import Any, NamedTuple
@@ -244,8 +267,24 @@ from deepspeed_tpu_torch.runtime.fp16.onebit_adam import (
     OnebitAdam,
     init_onebit_state,
 )
+from deepspeed_tpu_torch.runtime.resilience import fault_injection
 from deepspeed_tpu_torch.runtime.resilience.checkpoint import (
     CheckpointManager,
+)
+from deepspeed_tpu_torch.runtime.resilience.guards import (
+    ACTION_ABORT,
+    ACTION_ROLLBACK,
+    ACTION_SKIP_STEP,
+    HealthGuardAbort,
+    StepHealthMonitor,
+)
+from deepspeed_tpu_torch.runtime.resilience.hotckpt import (
+    HotCheckpointCorruptError,
+    HotCheckpointStore,
+)
+from deepspeed_tpu_torch.runtime.resilience.preemption import (
+    PreemptedError,
+    PreemptionHandler,
 )
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import (
     init_loss_scale_state,
@@ -289,7 +328,8 @@ class DeviceState(NamedTuple):
 
 def grad_epilogue(grads, scale, accum, fp16, clip, comm=None,
                   sharded=False, counted=None, split=(), average=True,
-                  vote=None, norm_reduce=None, clip_norm_reduce=None):
+                  vote=None, norm_reduce=None, clip_norm_reduce=None,
+                  detect_nonfinite=False, nan_skip=False):
     """Unscale and average over micro-batches, the fp16 overflow check,
     the global norm and clipping (``engine.py:99``), IN PLACE on
     ``grads`` (the engine's gradient buffers, so the fused optimizer's
@@ -312,13 +352,19 @@ def grad_epilogue(grads, scale, accum, fp16, clip, comm=None,
     exchange averaged already); ``vote`` replaces the fp16 overflow vote
     over ``comm``; ``norm_reduce`` maps the local norm to the reported
     one and ``clip_norm_reduce`` to the one clipping divides by (1-bit
-    Adam's local gradients: the ranks' mean and max)."""
+    Adam's local gradients: the ranks' mean and max).
+
+    The NaN guard (JAX's ``detect_nonfinite`` / ``nan_skip``):
+    ``detect_nonfinite`` runs the finiteness check (voted as above) in
+    fp32 and bf16 too, where it is otherwise skipped; ``nan_skip`` also
+    folds its verdict into ``overflow``, so the overflow skip drops the
+    update. ``nonfinite`` is always the check's own verdict."""
     world = comm.world if comm is not None and average else 1
     denom = scale * accum * world if world > 1 else scale * accum
     for g in grads:
         g.div_(denom)
     device = grads[0].device
-    if fp16:
+    if fp16 or detect_nonfinite:
         nonfinite = check_overflow(grads)
         if vote is not None:
             nonfinite = vote(nonfinite)
@@ -329,10 +375,10 @@ def grad_epilogue(grads, scale, accum, fp16, clip, comm=None,
             for g in split:
                 flag = tp_comm.all_reduce(flag, g, op="max")
             nonfinite = flag.reshape(()) > 0
-        overflow = nonfinite
     else:
-        nonfinite = overflow = torch.zeros((), dtype=torch.bool,
-                                           device=device)
+        nonfinite = torch.zeros((), dtype=torch.bool, device=device)
+    overflow = nonfinite if (fp16 or nan_skip) else \
+        torch.zeros((), dtype=torch.bool, device=device)
     reduce = None
     if (sharded and comm is not None) or split:
         def reduce(t):
@@ -561,7 +607,7 @@ class DeepSpeedEngine:
                 training_data, collate_fn=collate_fn)
         self._data_iter = RepeatingLoader(self.training_dataloader) \
             if self.training_dataloader is not None else None
-        self._ckpt_manager = CheckpointManager()
+        self._configure_resilience(comm_given)
         # an explicit user configure() beforehand wins over the config's
         from deepspeed_tpu_torch.runtime.activation_checkpointing import (
             checkpointing as act_ckpt)
@@ -569,6 +615,207 @@ class DeepSpeedEngine:
             act_ckpt.configure(mpu_=self.mpu, deepspeed_config=self._config)
         elif self.mpu is not None:
             act_ckpt.set_mpu(self.mpu)
+        if self._resilience_on and self._config.resilience.auto_resume:
+            resumed = self._restore_ladder()
+            if resumed:
+                log_dist(f"resilience: auto-resumed from {resumed} at "
+                         f"step {self.global_steps}", ranks=[0])
+            else:
+                log_dist("resilience: auto_resume found no valid "
+                         "checkpoint; starting fresh", ranks=[0])
+
+    def _configure_resilience(self, comm_given):
+        """The ``resilience`` block (JAX ``engine.py:614-690``): the
+        checkpoint manager's retention, retries and async saves, the hot
+        tier, the step health guards, the SIGTERM latch and the host
+        Adam's retries. A pipeline's stage engines (``comm`` given) keep
+        the plain manager: JAX's pipeline runs no resilience either."""
+        rz = self._config.resilience
+        own = comm_given is None
+        self._resilience_on = own and (rz.enabled or rz.hot_enabled)
+        self._fault_on = own and bool(rz.fault_injection)
+        self._nan_detect = own and rz.nan_guard_action is not None
+        self._nan_skip = own and rz.nan_guard_action == ACTION_SKIP_STEP
+        self._ckpt_manager = CheckpointManager(
+            save_dir=rz.save_dir, keep_last_n=rz.keep_last_n,
+            async_save=rz.async_save, io_retries=rz.io_retries,
+            io_retry_base_s=rz.io_retry_base_s,
+            io_timeout_s=rz.io_timeout_s) if own else CheckpointManager()
+        self._hot_store = None
+        self._health_monitor = None
+        self._preemption = None
+        # the last hot snapshot's {"tag", "ms", "bytes"} and the last
+        # restore's {"tier", "source", "ms"}
+        self.last_hot_snapshot = None
+        self.last_recovery = None
+        if not own:
+            return
+        if rz.hot_enabled:
+            self._hot_store = HotCheckpointStore(
+                capacity=rz.hot_capacity, mirror_dir=rz.hot_mirror_dir,
+                mirror_keep=rz.hot_mirror_keep,
+                process_index=mesh.dp_rank())
+        if rz.guards_enabled:
+            self._health_monitor = StepHealthMonitor(
+                nan_action=rz.nan_guard_action,
+                spike_action=rz.loss_spike_action,
+                collapse_action=rz.scale_collapse_action,
+                fp16_dynamic=self._config.fp16_enabled and
+                self.dynamic_loss_scale,
+                spike_window=rz.loss_spike_window,
+                spike_factor=rz.loss_spike_factor,
+                spike_min_history=rz.loss_spike_min_history,
+                collapse_patience=rz.scale_collapse_patience,
+                min_scale=self._scale_args()["min_scale"])
+        if rz.save_on_sigterm:
+            self._preemption = PreemptionHandler().install()
+        if self._offload:
+            self.cpu_optimizer.host_adam_retries = rz.host_adam_retries
+            self.cpu_optimizer.host_adam_timeout_s = rz.io_timeout_s
+
+    # ------------------------------------------------------------------
+    # resilience: preemption, guards, the hot tier and the restore ladder
+    # (JAX ``engine.py:1235-1290, 2725-2760, 3274-3360``)
+    # ------------------------------------------------------------------
+    def _check_preemption(self):
+        """The step-boundary preemption point (the top of
+        :meth:`train_batch`). The fault harness delivers a real SIGTERM
+        to this process, so the production signal path is what runs;
+        the handler only latches a flag, and the save and the raise
+        happen here, where the engine's state is consistent."""
+        if self._fault_on and \
+                fault_injection.preemption_due(self.global_steps):
+            if self._preemption is not None:
+                os.kill(os.getpid(), signal.SIGTERM)
+            else:
+                # no handler (save_on_sigterm off): preempt directly
+                # rather than let the default SIGTERM kill the process
+                self._preempt_now()
+        if self._preemption is not None and self._preemption.preempted:
+            self._preempt_now()
+
+    def _preempt_now(self):
+        rz = self._config.resilience
+        path = None
+        if rz.save_dir:
+            tag = f"global_step{self.global_steps}"
+            self.save_checkpoint(rz.save_dir, tag=tag)
+            self._ckpt_manager.wait()   # the exit must not race the write
+            path = self._ckpt_manager.ckpt_path(rz.save_dir, tag)
+        raise PreemptedError(
+            f"preempted at step {self.global_steps}" +
+            (f"; checkpoint saved to {path}" if path
+             else "; no resilience.save_dir configured — nothing saved"),
+            checkpoint_path=path)
+
+    def _after_step_resilience(self, metrics):
+        """After a step: the guards (one host read of the loss, the
+        finiteness verdict and the scale), their actions, the hot
+        snapshot and the periodic disk save."""
+        rz = self._config.resilience
+        if self._health_monitor is not None:
+            fp16_dyn = self._config.fp16_enabled and self.dynamic_loss_scale
+            trips = self._health_monitor.observe(
+                step=self.global_steps - 1, loss=float(metrics["loss"]),
+                grad_nonfinite=bool(metrics["grad_nonfinite"]),
+                cur_scale=float(metrics["loss_scale"]) if fp16_dyn
+                else None)
+            metrics = dict(metrics)
+            metrics.update(self._health_monitor.metrics())
+            for trip in trips:
+                self._apply_guard_trip(trip)
+        if self._hot_store is not None and \
+                self.global_steps % rz.hot_interval_steps == 0:
+            self._hot_snapshot()
+        if rz.save_interval_steps and rz.save_dir and \
+                self.global_steps % rz.save_interval_steps == 0:
+            self.save_checkpoint(rz.save_dir)
+        return metrics
+
+    def _apply_guard_trip(self, trip):
+        """One trip's action: ``warn`` and ``skip_step`` need nothing
+        here (logged; skipped on the device); ``rollback_to_checkpoint``
+        goes down the restore ladder and aborts when nothing is there;
+        ``abort`` raises :class:`HealthGuardAbort`."""
+        if trip.action == ACTION_ROLLBACK:
+            path = self._restore_ladder()
+            if path is None:
+                raise HealthGuardAbort(trip)
+            log_dist(f"health guard '{trip.guard}' rolled back to {path} "
+                     f"(step {self.global_steps})", ranks=[0])
+        elif trip.action == ACTION_ABORT:
+            raise HealthGuardAbort(trip)
+
+    def _hot_snapshot(self):
+        """One hot snapshot: the checkpoint tree copied to host RAM (the
+        CRC stamp and the mirror write on the store's worker)."""
+        t0 = time.perf_counter()
+        tag = f"step{self.global_steps}"
+        snap = self._hot_store.snapshot(tag, self._checkpoint_state_tree(),
+                                        self._checkpoint_meta(None),
+                                        topology=self._topology())
+        self.last_hot_snapshot = {
+            "tag": tag, "ms": (time.perf_counter() - t0) * 1e3,
+            "bytes": snap.nbytes}
+
+    def _install_hot_restore(self, got, tier):
+        """Install a hot ``(state, meta, topology)``; False when its
+        topology is not this engine's (a restart on another mesh falls
+        through to the disk tier, whose whole leaves load anywhere)."""
+        state, meta, topology = got
+
+        def plain(topo):
+            return json.loads(json.dumps(topo))
+
+        here = plain(self._topology())
+        if plain(topology) != here:
+            logger.warning("hot restore (%s): snapshot topology %s is not "
+                           "this engine's %s; falling through", tier,
+                           topology, here)
+            return False
+        self._install_restored_state(state, meta, True, True)
+        return True
+
+    def _restore_ladder(self):
+        """Restore the newest state down the ladder: the hot RAM tier,
+        the hot mirror, the newest valid disk checkpoint (``resolve_tag``
+        scans past a torn newest one). Returns what served it ("<hot_
+        ram>", "<hot_mirror:dir>" or the checkpoint path), or None when
+        nothing is loadable; :attr:`last_recovery` holds the rung and its
+        time."""
+        rz = self._config.resilience
+        t0 = time.perf_counter()
+
+        def served(tier, source):
+            self.last_recovery = {"tier": tier, "source": str(source),
+                                  "ms": (time.perf_counter() - t0) * 1e3}
+            return source
+
+        if self._hot_store is not None:
+            try:
+                got = self._hot_store.restore()
+            except HotCheckpointCorruptError as e:
+                logger.warning("hot RAM restore rejected: %s", e)
+                got = None
+            if got is not None and self._install_hot_restore(got,
+                                                             "hot_ram"):
+                return served("hot_ram", "<hot_ram>")
+            if rz.hot_mirror_dir and os.path.isdir(rz.hot_mirror_dir):
+                try:
+                    got = HotCheckpointStore.load_mirror(
+                        rz.hot_mirror_dir, self._checkpoint_state_tree())
+                except HotCheckpointCorruptError as e:
+                    logger.warning("hot mirror restore rejected: %s", e)
+                    got = None
+                if got is not None and self._install_hot_restore(
+                        got, "hot_mirror"):
+                    return served("hot_mirror",
+                                  f"<hot_mirror:{rz.hot_mirror_dir}>")
+        if not rz.save_dir or \
+                self._ckpt_manager.resolve_tag(rz.save_dir, None) is None:
+            return None
+        path, _ = self.load_checkpoint(rz.save_dir)
+        return None if path is None else served("disk", path)
 
     # ------------------------------------------------------------------
     # configuration accessors
@@ -1483,8 +1730,8 @@ class DeepSpeedEngine:
 
     def _optimizer_step(self, grads, lr, beta1, overflow, sharded):
         """The update of the masters by the configured optimizer."""
-        fp16 = self._config.fp16_enabled
-        skip = overflow if fp16 else None
+        skip = overflow if self._config.fp16_enabled or self._nan_skip \
+            else None
         if self._opt_kind == "adam":
             self.opt_state = fused_adam_update(
                 self._masters, grads, self.opt_state,
@@ -1587,11 +1834,18 @@ class DeepSpeedEngine:
             grads = self._reduce_grads()
             sharded, counted = self._stage >= 1, self._counted
         counted = self._tp_counted(grads, counted)
+        if self._fault_on:
+            # the fault harness's gradient multiplier (NaN when armed)
+            fault = fault_injection.grad_fault_value(self.global_steps)
+            if fault != 1.0:
+                torch._foreach_mul_(grads, fault)
         unscaled = self._qcomm is not None     # (config: not with 1-bit)
         overflow, nonfinite, grad_norm, applied_norm = grad_epilogue(
             grads, 1.0 if unscaled else scale, 1 if unscaled else accum,
             fp16, clip, sharded=sharded, counted=counted,
-            split=list(self._split_axes.values()), **epi)
+            split=list(self._split_axes.values()),
+            detect_nonfinite=self._nan_detect, nan_skip=self._nan_skip,
+            **epi)
         lr = float(self._lr_fn(self.global_steps))
         beta1 = float(self._mom_fn(self.global_steps))
         if self._offload:
@@ -1641,6 +1895,8 @@ class DeepSpeedEngine:
             log_dist(f"step={self.global_steps}, skipped="
                      f"{self.skipped_steps}, lr={lr:.6g}, "
                      f"loss={float(metrics['loss']):.5f}", ranks=[0])
+        if self._resilience_on:
+            metrics = self._after_step_resilience(metrics)
         self._last_metrics = metrics
         return metrics
 
@@ -1649,6 +1905,11 @@ class DeepSpeedEngine:
         ``batch`` is a dict of arrays or tensors with leading dim
         ``train_batch_size``, or None to pull the next one from the
         engine's data loader. Returns the mean loss (a 0-d tensor)."""
+        # a pending preemption saves and raises here, before this step
+        # takes a batch (the saved data cursor must not run ahead of the
+        # optimizer state)
+        if self._resilience_on:
+            self._check_preemption()
         if batch is None:
             if self._data_iter is None:
                 raise ValueError("no training_data given; pass a batch "
@@ -2071,3 +2332,6 @@ class DeepSpeedEngine:
             sched.load_state_dict(meta["lr_scheduler"])
         if meta.get("dataloader") is not None and self._data_iter is not None:
             self._data_iter.load_state_dict(meta["dataloader"])
+        if self._health_monitor is not None:
+            # the pre-restore loss history would trip the spike guard
+            self._health_monitor.reset_history()

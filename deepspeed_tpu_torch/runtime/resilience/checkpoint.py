@@ -105,11 +105,16 @@ def to_host(leaf):
     takes. bfloat16 comes back as its ``uint16`` bit pattern."""
     if hasattr(leaf, "detach"):          # a torch tensor
         import torch
-        t = leaf.detach().to("cpu")
+        # a device tensor's host copy is already the caller's own; a
+        # host tensor's bytes are copied (its numpy view would alias)
+        fresh = leaf.device.type != "cpu"
+        t = leaf.detach().to("cpu").contiguous()
         if t.dtype == torch.bfloat16:
-            return t.contiguous().view(torch.int16).numpy().view(
-                np.uint16).copy(), BF16
-        return t.contiguous().numpy().copy(), str(t.numpy().dtype)
+            arr, dtype = t.view(torch.int16).numpy().view(np.uint16), BF16
+        else:
+            arr = t.numpy()
+            dtype = str(arr.dtype)
+        return (arr if fresh else arr.copy()), dtype
     arr = np.array(leaf, copy=True)
     return arr, str(arr.dtype)
 

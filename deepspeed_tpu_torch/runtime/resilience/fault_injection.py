@@ -1,5 +1,5 @@
-"""Deterministic fault injection: the serving, checkpoint and host-Adam
-seams of ``deepspeed_tpu/runtime/resilience/fault_injection.py``.
+"""Deterministic fault injection: the serving, checkpoint, training and
+host-Adam seams of ``deepspeed_tpu/runtime/resilience/fault_injection.py``.
 
 A process-global registry of *armed* faults that the serving and
 training paths probe at fixed seams. Every probe is a no-op unless a
@@ -20,9 +20,18 @@ test armed the matching fault.
 - ``heartbeat_stall`` — :func:`heartbeat_stall_seconds` tells a serving
   replica worker to stop writing heartbeats for a while (it looks dead
   without dying).
+- ``nan_grads`` — :func:`grad_fault_value` gives the training engine a
+  NaN multiplier for its gradients at the armed steps (the engine reads
+  it only with ``resilience.fault_injection.enabled``).
+- ``preemption`` — :func:`preemption_due` tells the training engine, at
+  the top of the armed step, to deliver itself a real SIGTERM (the
+  installed preemption handler's path).
 - ``host_adam`` — :func:`maybe_fail_host_adam` raises
   :class:`InjectedHostAdamError` when a host-Adam range update starts,
   before the C++ kernel touches any buffer.
+
+The JAX file's ``inject_hang`` / ``hang_seconds`` come with the
+watchdog, and ``inject_reshard_failure`` with elasticity.
 
 Use :func:`clear_faults` to disarm everything between tests;
 :func:`arm_from_env` arms a subprocess replica from
@@ -58,6 +67,40 @@ def clear_faults():
     """Disarm all faults."""
     with _lock:
         _faults.clear()
+
+
+def inject_nan_grads(at_steps):
+    """Arm NaN gradients for the given engine global steps (0-based)."""
+    with _lock:
+        _faults["nan_grads"] = {"at_steps": set(int(s) for s in at_steps)}
+
+
+def grad_fault_value(step):
+    """The multiplier folded into the gradients at ``step``: NaN where
+    armed, else 1.0."""
+    with _lock:
+        entry = _faults.get("nan_grads")
+        if entry is not None and int(step) in entry["at_steps"]:
+            return float("nan")
+    return 1.0
+
+
+def simulate_preemption(at_step):
+    """Arm a simulated preemption (SIGTERM) before engine step
+    ``at_step``."""
+    with _lock:
+        _faults["preemption"] = {"at_step": int(at_step)}
+
+
+def preemption_due(step):
+    """True exactly once, when ``step`` reaches the armed preemption
+    point."""
+    with _lock:
+        entry = _faults.get("preemption")
+        if entry is not None and int(step) >= entry["at_step"]:
+            _faults.pop("preemption", None)
+            return True
+    return False
 
 
 KILL_OPS = ("decode_step", "prefill_chunk")

@@ -5,12 +5,12 @@ preemption.py``).
 Spot and preemptible capacity announce eviction with SIGTERM and a
 grace window. The serving fleet's workers (``inference/fleet_worker.py``)
 finish the current decode step, report what completed and exit 0
-without their done marker. The handler only sets a flag: all actual
-work happens synchronously at the next step boundary, where the state
-is consistent (signal-handler-safe: no I/O, no locks in the handler
-itself). ``PreemptedError`` is kept for the training engine's
-preemption checkpoints, which come with the rest of resilience
-(``ROADMAP.md`` section 1, item 6).
+without their done marker. The training engine (``resilience.
+preemption.save_on_sigterm``) saves a checkpoint at the next step
+boundary and raises :class:`PreemptedError` with its path. The handler
+only sets a flag: all actual work happens synchronously at the next
+step boundary, where the state is consistent (signal-handler-safe: no
+I/O, no locks in the handler itself).
 """
 
 import faulthandler

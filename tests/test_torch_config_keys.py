@@ -136,8 +136,7 @@ def test_vocabulary_size_off_8_warns(monkeypatch):
 
 
 @pytest.mark.parametrize("key,item", [
-    ("telemetry", "item 6"),
-    ("resilience", "item 6"), ("elasticity", "item 6"),
+    ("telemetry", "item 6"), ("elasticity", "item 6"),
     ("analysis", "item 6"), ("tensorboard", "item 6"),
     ("profiling", "item 6"), ("compilation_cache_dir", "item 6")])
 def test_later_keys_name_their_item(key, item):

@@ -2,7 +2,8 @@
 (``tests/test_torch_collectives.py``, ``tests/test_torch_tp*.py``,
 ``tests/test_torch_pipe_tp.py``, ``tests/test_torch_sequence.py``,
 ``tests/test_torch_pipe_sp.py``, ``tests/test_torch_moe.py``,
-``tests/test_torch_expert_pipe.py``, ``tests/test_torch_onebit_*.py``).
+``tests/test_torch_expert_pipe.py``, ``tests/test_torch_onebit_*.py``,
+``tests/test_torch_bert_tp.py``, ``tests/test_torch_tp_scan.py``).
 
 Run as ``python tests/torch_tp_worker.py SPEC.json`` in each of the
 world's processes with the launcher env the port reads (through
@@ -156,9 +157,11 @@ RUNNERS = {"collectives": run_collectives}
 def _runners():
     """The runners of the other TP test files and of the sequence and
     expert tests, imported on first use."""
-    from tests import torch_onebit_cases, torch_sp_moe_cases, torch_tp_cases
+    from tests import (torch_f6_cases, torch_onebit_cases,
+                       torch_sp_moe_cases, torch_tp_cases)
     return dict(RUNNERS, **torch_tp_cases.RUNNERS,
-                **torch_sp_moe_cases.RUNNERS, **torch_onebit_cases.RUNNERS)
+                **torch_sp_moe_cases.RUNNERS, **torch_onebit_cases.RUNNERS,
+                **torch_f6_cases.RUNNERS)
 
 
 def main():
