@@ -14,8 +14,10 @@ compressors (the int8 all-reduce and 1-bit Adam at data 2, 1-bit Adam
 through the pipeline at pipe 2 x data 2 and pipe 2 x model 2 x data 2),
 BERT-Large at model 2 on the sparse and flash cores, GPT-2 with
 ``scan_layers`` and ``loss_chunk`` at model 2 in training and serving,
-and the training engine's resilience (guards, the hot tier, preemption
-and the restore ladder), at full width through the port's main paths.
+the training engine's resilience (guards, the hot tier, preemption
+and the restore ladder), and telemetry on the training step (spans, the
+trace window, the hang watchdog and the kernel build cache), at full
+width through the port's main paths.
 
     python3 chip_smoke.py                 # every phase (one GPU)
     python3 chip_smoke.py --kernels-only  # device, build, kernel checks
@@ -39,6 +41,9 @@ and the restore ladder), at full width through the port's main paths.
                                           # (train_tp_scan runs in
                                           # train_tp's world, serve_tp_
                                           # scan in serve_tp's)
+    python3 chip_smoke.py --phases train_telemetry
+                                          # telemetry on the training
+                                          # step (phase 35)
     python3 chip_smoke.py --serving-only  # device, build, phases 14
                                           # and 9a-9c
     python3 chip_smoke.py --turns DIR     # device, build, then K1-K8
@@ -533,6 +538,27 @@ outside any kernel): these phases add no kernel, and K1-K4 run in them.
    clean masters at step 2; K1-K3 12 launches and K4 one a step.
    Reports the hot snapshot's ms and bytes, a disk save's ms and bytes
    and each rung's restore ms.
+35. ``train_telemetry`` — the ``train`` row (GPT-2 350M, 24 layers, 8 x
+   1024, bf16, flash, K4 Adam), ``TEL_STEPS`` steps from seed 0 without
+   and then with the ``telemetry`` block (a JSONL log,
+   ``flops_per_token``) and a 2-step ``profiling`` window. Gates: the
+   losses equal bit for bit; K1-K3 24 launches and K4 one a step in both
+   runs; every step event has ``dispatch`` and ``device_wait`` and its
+   top-level phases sum to no more than its ``wall_s``; the window's
+   Chrome trace holds ``ds_tpu/dispatch`` and ``ds_tpu/device_wait``
+   once a step and, by kernel name, as many K1-K4 kernels as the
+   wrappers counted over the window. Then, in ``--telemetry-worker``
+   children of this script at GPT-2 125M (8 x 512): the hang watchdog
+   (floor ``WD_MIN_DEADLINE_S``, a ``WD_HANG_S`` hang injected inside
+   dispatch) fires once, ``this_host_stuck``, with one flight dump that
+   the port's ``postmortem`` renders with ``dispatch/injected_hang``;
+   with ``action: abort`` the child dies by SIGABRT after its dump; and
+   ``compilation_cache_dir``: a cold child (dense attention, so only K4's
+   library builds) counts misses and leaves the library in the
+   directory, a warm one on the same directory counts hits, no miss, no
+   build and a smaller ``compile_seconds``. Reports both runs' step p50,
+   the log's ``summary`` (MFU at 989 TFLOP/s) on a line of its own, and
+   the children's walls.
 
 Then the phases' walls, the ``kernels`` summary line (K7/K8 entries name
 their design; K1-K4 count the ``train`` path's launches and give the
@@ -549,8 +575,9 @@ phases 29-32's as ``qcomm_launches_by_rank`` (by run),
 ``onebit_launches_by_rank``, ``pipe_onebit_launches_by_rank`` and
 ``pipe_tp_onebit_launches_by_rank``, ``train_tp_scan``'s as
 ``tp_scan_launches_by_rank``, phase 33's flash run's as
-``bert_tp_flash_launches_by_rank`` and phase 34's as
-``resilience_launches``; K7/K8 add phase 33's as
+``bert_tp_flash_launches_by_rank``, phase 34's as
+``resilience_launches`` and phase 35's (both runs) as
+``telemetry_launches``; K7/K8 add phase 33's as
 ``bert_tp_launches_by_rank``; K5 and K6
 count every serving path's,
 each also given apart: ``serve_launches``, ``scan_layers_launches``,
@@ -7959,7 +7986,7 @@ RES_STEPS = 5                      # the clean loss curve
 RES_PREEMPT_AT = 3
 
 
-def _res_engine(torch, seed, rz):
+def _res_engine(torch, seed, rz, extra=None):
     from deepspeed_tpu_torch import initialize
     from deepspeed_tpu_torch.models.gpt2 import GPT2LMHead, gpt2_125m
     gen = torch.Generator(device="cuda")
@@ -7970,7 +7997,7 @@ def _res_engine(torch, seed, rz):
     engine, _, _, _ = initialize(model=model, seed=seed, config={
         "train_batch_size": RES_B, "bf16": {"enabled": True},
         "optimizer": {"type": "Adam", "params": {"lr": 1e-4}},
-        "steps_per_print": 10 ** 9, "resilience": rz})
+        "steps_per_print": 10 ** 9, "resilience": rz, **(extra or {})})
     return engine
 
 
@@ -8155,6 +8182,316 @@ def phase_train_resilience(torch):
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 35: telemetry on the training step
+# ---------------------------------------------------------------------------
+
+TEL_STEPS = 8                      # a run's steps: 2 warmup, 2 timed, the
+TEL_WINDOW = (4, 2)                # 2-step trace window, 2 timed
+TEL_TIMED = (2, 3, 6, 7)           # the steps whose walls give the p50
+WD_MIN_DEADLINE_S = 1.0            # the watchdog child's deadline floor
+WD_HANG_S = 3.0                    # its injected hang: 3 deadlines
+WD_STEPS = 4                       # fast steps before the hang
+# the kernels each wrapper launches, by their __global__ names
+TEL_KERNELS = {"K1": ("fwd_wgmma_kernel", "fwd_kernel"),
+               "K2": ("dq_wgmma_kernel", "dq_kernel"),
+               "K3": ("dkv_wgmma_kernel", "dkv_kernel"),
+               "K4": ("adam_kernel",)}
+
+
+def _tel_run(torch, tele, counters, trace_dir=None):
+    """``TEL_STEPS`` steps of GPT-2 350M (the ``train`` row) from seed 0,
+    with the ``telemetry`` block (and a trace window) when ``tele`` is a
+    path, without when it is None. Returns the losses, the step walls,
+    the launches of the run and those of the trace window."""
+    rng = np.random.default_rng(0)
+    batch = {"input_ids": rng.integers(0, 50257, (TRAIN_B, TRAIN_T))
+             .astype(np.int32)}
+    extra = {}
+    if tele is not None:
+        from deepspeed_tpu_torch.models.gpt2 import GPT2Config
+        fpt = model_flops_per_token(GPT2Config(
+            n_embd=1024, n_layer=TRAIN_LAYERS, n_head=16,
+            n_positions=TRAIN_T), TRAIN_T)
+        extra = {"telemetry": {"enabled": True, "jsonl_path": tele,
+                               "flops_per_token": fpt},
+                 "profiling": {"trace_dir": trace_dir,
+                               "trace_start_step": TEL_WINDOW[0],
+                               "trace_num_steps": TEL_WINDOW[1]}}
+    engine = _train_engine(torch, True, extra)
+    for c in counters.values():
+        c.launches = 0
+    losses, walls, window = [], [], {}
+    for i in range(TEL_STEPS):
+        if i == TEL_WINDOW[0]:
+            window = {n: c.launches for n, c in counters.items()}
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        walls.append(time.perf_counter() - t0)
+        if i == sum(TEL_WINDOW) - 1:
+            window = {n: c.launches - window[n] for n, c in counters.items()}
+    launches = {n: c.launches for n, c in counters.items()}
+    traces = list(engine.trace_profiler.traces)
+    history = list(engine.metrics_history)
+    if engine.telemetry is not None:
+        engine.telemetry.close()
+    del engine
+    torch.cuda.empty_cache()
+    return losses, walls, launches, window, traces, history
+
+
+def _trace_readings(path):
+    """{K: kernels of the K's wrapper} and the span ranges in a Chrome
+    trace written by ``TraceProfiler``."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = dict.fromkeys(TEL_KERNELS, 0)
+    spans = {}
+    for e in events:
+        name = e.get("name") or ""
+        if e.get("cat") == "kernel":
+            m = re.search(r"\(anonymous namespace\)::(\w+)", name)
+            for key, fns in TEL_KERNELS.items():
+                if m is not None and m.group(1) in fns:
+                    kernels[key] += 1
+        elif name.startswith("ds_tpu/") and \
+                e.get("cat") != "gpu_user_annotation":
+            spans[name] = spans.get(name, 0) + 1
+    return kernels, spans, len(events)
+
+
+def _telemetry_child(torch, mode, out_path):
+    """The watchdog and cache readings, in this (child) process: ``dump``
+    and ``abort`` train GPT-2 125M (8 x 512, bf16, flash) with the
+    watchdog armed and a hang injected at step ``WD_STEPS``; ``cold`` /
+    ``warm`` train it with dense attention (only K4's library to build)
+    one step with ``compilation_cache_dir`` at the directory in
+    ``out_path``'s."""
+    import contextlib
+    import io
+    import resource
+    from deepspeed_tpu_torch.ops import _build
+    from deepspeed_tpu_torch.runtime.resilience import fault_injection as fi
+    from deepspeed_tpu_torch.telemetry import cli, uninstall_crash_hooks
+    from deepspeed_tpu_torch.telemetry.flight import read_dump
+    # the abort ends this process by SIGABRT: no core file
+    resource.setrlimit(resource.RLIMIT_CORE, (0, 0))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = json.loads(open(out_path + ".spec").read())
+    root = spec["dir"]
+    res = {}
+    if mode in ("cold", "warm"):
+        from deepspeed_tpu_torch import initialize
+        from deepspeed_tpu_torch.models.gpt2 import GPT2LMHead, gpt2_125m
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        model = GPT2LMHead(gpt2_125m(n_positions=RES_T, dropout=0.0,
+                                     use_flash_attention=False),
+                           device="cuda", generator=gen)
+        engine, _, _, _ = initialize(model=model, config={
+            "train_batch_size": RES_B, "bf16": {"enabled": True},
+            "optimizer": {"type": "Adam", "params": {"lr": 1e-4}},
+            "steps_per_print": 10 ** 9, "compilation_cache_dir": root,
+            "telemetry": {"enabled": True}})
+        loss = float(engine.train_batch(_res_batches()[0]))
+        comp = engine.telemetry.events.recent(event="compile")[0]
+        res = {"loss": loss, "compile": comp,
+               "build_info": {k: v["seconds"]
+                              for k, v in _build.build_info.items()},
+               "files": sorted(os.listdir(root))}
+        engine.telemetry.close()
+    else:
+        log = os.path.join(root, "run.jsonl")
+        fi.clear_faults()
+        engine = _res_engine(
+            torch, 0, {"fault_injection": {"enabled": True}}, extra={
+                "telemetry": {
+                    "enabled": True, "jsonl_path": log,
+                    "crash_dump_dir": root,
+                    "watchdog": {"enabled": True, "deadline_factor": 3.0,
+                                 "min_deadline_s": WD_MIN_DEADLINE_S,
+                                 "action": mode}}})
+        bs = _res_batches()
+        for i in range(WD_STEPS):
+            engine.train_batch(bs[i % len(bs)])
+        fi.inject_hang(at_step=WD_STEPS, seconds=WD_HANG_S)
+        t0 = time.perf_counter()
+        engine.train_batch(bs[0])
+        res["hang_step_s"] = time.perf_counter() - t0
+        wd = engine.telemetry.watchdog
+        res["fired"] = list(wd.fired)
+        engine.telemetry.close()
+        uninstall_crash_hooks()
+        with open(log) as f:
+            events = [json.loads(ln) for ln in f if ln.strip()]
+        res["watchdog_events"] = [e for e in events
+                                  if e["event"] == "watchdog"]
+        dumps = sorted(f for f in os.listdir(root)
+                       if f.startswith("flight-") and "watchdog" in f)
+        res["dumps"] = dumps
+        if dumps:
+            dump = read_dump(os.path.join(root, dumps[0]))
+            res["in_flight"] = dump["in_flight_phases"]
+            res["collectives"] = dump["collectives"]
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                res["postmortem_rc"] = cli.main(
+                    ["postmortem", os.path.join(root, dumps[0])])
+            res["postmortem"] = buf.getvalue()
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _spawn_telemetry_child(mode, root):
+    """One ``--telemetry-worker`` child on ``root``: (exit code, its
+    readings or None, the tail of its stderr, wall seconds)."""
+    import tempfile
+    out = os.path.join(tempfile.mkdtemp(prefix="tel_"), "res.json")
+    with open(out + ".spec", "w") as f:
+        json.dump({"dir": root}, f)
+    t0 = time.perf_counter()
+    with open(out + ".err", "w+") as err:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__),
+             "--telemetry-worker", mode, out], stdout=subprocess.DEVNULL,
+            stderr=err, timeout=TP_SPAWN_TIMEOUT_S)
+        err.seek(0)
+        tail = err.read()[-3000:]
+    wall = time.perf_counter() - t0
+    res = None
+    if os.path.exists(out):
+        with open(out) as f:
+            res = json.load(f)
+    return proc.returncode, res, tail, wall
+
+
+def phase_train_telemetry(torch):
+    """Telemetry on the training step (module docstring, phase 35)."""
+    import shutil
+    import signal
+    import tempfile
+    from deepspeed_tpu_torch.telemetry import cli
+    root = tempfile.mkdtemp(prefix="telemetry_")
+    log = os.path.join(root, "run.jsonl")
+    counters = _flash_counters()
+    t_phase = time.perf_counter()
+    # (a) telemetry off, then on (with the trace window), same seed
+    off = _tel_run(torch, None, counters)
+    on = _tel_run(torch, log, counters,
+                  trace_dir=os.path.join(root, "trace"))
+    off_losses, off_walls, off_launches = off[:3]
+    on_losses, on_walls, on_launches, window, traces, history = on
+    events = cli.read_events(log)
+    steps = [e for e in events if e["event"] == "step"]
+    phases_ok = len(steps) == TEL_STEPS and all(
+        "dispatch" in e["phases"] and "device_wait" in e["phases"] and
+        sum(e["phases"].get(k, 0.0) for k in
+            ("data_load", "dispatch", "device_wait")) <= e["wall_s"]
+        for e in steps)
+    summary = cli.summarize(events, peak_tflops=BF16_PEAK_FLOPS / 1e12)
+    emit({"phase": "train_telemetry_summary", "log": "telemetry on",
+          **summary})
+    # (b) the trace window's kernels and spans
+    kernels, spans, n_events = _trace_readings(traces[0]) if traces \
+        else ({}, {}, 0)
+    # (c) the watchdog, in children: dump, then abort
+    wd_root = os.path.join(root, "wd_dump")
+    os.makedirs(wd_root)
+    rc, dump, dump_err, dump_wall = _spawn_telemetry_child("dump", wd_root)
+    ab_root = os.path.join(root, "wd_abort")
+    os.makedirs(ab_root)
+    ab_rc, _, ab_err, ab_wall = _spawn_telemetry_child("abort", ab_root)
+    ab_dumps = [f for f in os.listdir(ab_root)
+                if f.startswith("flight-") and "watchdog" in f]
+    # (d) compilation_cache_dir: a cold child, then a warm one, one dir
+    cache = os.path.join(root, "kernel_cache")
+    os.makedirs(cache)
+    cold_rc, cold, cold_err, cold_wall = _spawn_telemetry_child(
+        "cold", cache)
+    warm_rc, warm, warm_err, warm_wall = _spawn_telemetry_child(
+        "warm", cache)
+    wall = time.perf_counter() - t_phase
+
+    def p50(walls):
+        return statistics.median(walls[i] for i in TEL_TIMED) * 1e3
+
+    fired = (dump or {}).get("fired") or []
+    row = {"phase": "train_telemetry", "model": "gpt2_350m",
+           "batch": TRAIN_B, "seq": TRAIN_T, "dtype": "bfloat16",
+           "attention": "flash (K1-K3)", "optimizer": "adam (fused K4)",
+           "steps": TEL_STEPS, "off_losses": off_losses,
+           "on_losses": on_losses,
+           "off_step_p50_ms": p50(off_walls), "on_step_p50_ms": p50(on_walls),
+           "off_step_wall_s": off_walls, "on_step_wall_s": on_walls,
+           "step_events": len(steps),
+           "phases_last_step": steps[-1]["phases"] if steps else None,
+           "launches": {n: off_launches[n] + on_launches[n]
+                        for n in counters},
+           "off_launches": off_launches, "on_launches": on_launches,
+           "trace": {"window_steps": list(TEL_WINDOW), "events": n_events,
+                     "kernels": kernels, "window_launches": window,
+                     "spans": spans},
+           "watchdog": {"rc": rc, "wall_s": dump_wall,
+                        "min_deadline_s": WD_MIN_DEADLINE_S,
+                        "hang_s": WD_HANG_S, "fired": fired,
+                        **{k: (dump or {}).get(k) for k in (
+                            "hang_step_s", "dumps", "in_flight",
+                            "collectives", "postmortem_rc")},
+                        "watchdog_events": len(
+                            (dump or {}).get("watchdog_events") or []),
+                        "abort_rc": ab_rc, "abort_wall_s": ab_wall,
+                        "abort_dumps": len(ab_dumps)},
+           "cache": {"cold_rc": cold_rc, "warm_rc": warm_rc,
+                     "cold_wall_s": cold_wall, "warm_wall_s": warm_wall,
+                     "cold": cold, "warm": warm},
+           "wall_s": wall}
+    emit(row)
+    postmortem = (dump or {}).get("postmortem") or ""
+    want = {"K1": TRAIN_LAYERS * TEL_STEPS, "K2": TRAIN_LAYERS * TEL_STEPS,
+            "K3": TRAIN_LAYERS * TEL_STEPS, "K4": TEL_STEPS}
+    cc = lambda r: (r or {}).get("compile") or {}   # noqa: E731
+    checks = {
+        "losses equal bit for bit with telemetry on and off":
+            off_losses == on_losses and all(np.isfinite(on_losses)),
+        "K1-K4 launched every step of both runs":
+            off_launches == want and on_launches == want,
+        "every step event has dispatch and device_wait, phases <= wall":
+            phases_ok,
+        "the trace window's K1-K4 kernels equal the wrappers' launches":
+            bool(traces) and kernels == window and all(window.values()),
+        "the trace holds the dispatch and device_wait spans":
+            spans.get("ds_tpu/dispatch", 0) == TEL_WINDOW[1] and
+            spans.get("ds_tpu/device_wait", 0) == TEL_WINDOW[1],
+        "the watchdog fired once: this_host_stuck, one dump":
+            rc == 0 and len(fired) == 1 and
+            fired[0]["verdict"] == "this_host_stuck" and
+            len(dump["watchdog_events"]) == 1 and len(dump["dumps"]) == 1,
+        "postmortem renders the in-flight dispatch/injected_hang":
+            (dump or {}).get("postmortem_rc") == 0 and
+            "dispatch/injected_hang" in postmortem and
+            (dump or {}).get("in_flight", {}).get("MainThread") ==
+            "dispatch/injected_hang",
+        "action abort: the child dies by SIGABRT after its dump":
+            ab_rc == -signal.SIGABRT and len(ab_dumps) == 1,
+        "cold cache: misses >= 1, the libraries in the directory":
+            cold_rc == 0 and cc(cold).get("compile_cache_misses", 0) >= 1
+            and any(f.endswith(".so") for f in cold["files"]),
+        "warm cache: hits, 0 misses, no build, a smaller compile_seconds":
+            warm_rc == 0 and cc(warm).get("compile_cache_misses") == 0 and
+            cc(warm).get("compile_cache_hits", 0) >= 1 and
+            not any(warm["build_info"].values()) and
+            cc(warm)["compile_seconds"] < cc(cold)["compile_seconds"]}
+    shutil.rmtree(root, ignore_errors=True)
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"train_telemetry: {bad}; children's stderr: "
+             f"{dump_err[-800:]} | {ab_err[-400:]} | {cold_err[-400:]} | "
+             f"{warm_err[-400:]}")
+    row["history"] = len(history)
+    return row
+
+
 SP_MOE_PHASES = [("seq_attention", phase_seq_attention),
                  ("train_pipe_sp", phase_train_pipe_sp),
                  ("train_moe", phase_train_moe),
@@ -8229,6 +8566,9 @@ def main(argv=None):
                         help=argparse.SUPPRESS)   # a TP phase's rank
     parser.add_argument("--resilience-worker", metavar="OUT",
                         help=argparse.SUPPRESS)   # train_resilience's child
+    parser.add_argument("--telemetry-worker", nargs=2,
+                        metavar=("MODE", "OUT"),
+                        help=argparse.SUPPRESS)   # train_telemetry's child
     parser.add_argument("--serving-only", action="store_true",
                         help="device, build, the decode and sparse "
                              "kernel checks, then only the checkpoint, "
@@ -8246,6 +8586,8 @@ def main(argv=None):
         return _tp_worker(torch, args.tp_worker[0], int(args.tp_worker[1]))
     if args.resilience_worker:
         return _resilience_child(torch, args.resilience_worker)
+    if args.telemetry_worker:
+        return _telemetry_child(torch, *args.telemetry_worker)
     try:
         import deepspeed_tpu_torch  # noqa: F401
     except ImportError as e:
@@ -8409,6 +8751,8 @@ def main(argv=None):
     lap("train_bert_tp")
     resilience = phase_train_resilience(torch)
     lap("train_resilience")
+    telemetry = phase_train_telemetry(torch)
+    lap("train_telemetry")
     emit({"phase": "walls", "seconds": walls})
     t = timing["bfloat16/serve_mix"]
     kernels = [{
@@ -8512,6 +8856,7 @@ def main(argv=None):
             "bert_tp_flash_launches_by_rank": [
                 lr[key] for lr in bert_tp["flash"]["launches_by_rank"]],
             "resilience_launches": resilience["launches"][key],
+            "telemetry_launches": telemetry["launches"][key],
             "max_abs_err": max(train_errs[key], r.get("max_abs_err", 0.0)),
             "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -19,6 +19,12 @@ The host ops (``HOST_KERNELS``: the C++ Adam of ZeRO-Offload, the
 block-sparse LUT builder and the flatten / unflatten helper) are built
 the same way by ``g++`` with OpenMP and the SIMD flags the CPU reports
 (:func:`load_host_library`).
+
+Since the libraries are content-addressed, the build directory is the
+port's persistent compile cache: ``compilation_cache_dir`` points
+:data:`BUILD_DIR` elsewhere (:func:`set_build_dir`, through
+``telemetry/compile_cache.py``), and :data:`cache_counts` counts each
+library found there (a hit) or built (a miss).
 """
 
 import ctypes
@@ -90,6 +96,16 @@ _libs = {}
 # library key -> {"seconds": build wall (0.0 when reused), "ptxas": [lines
 # of ptxas -v, with each function's spill line]}
 build_info = {}
+# libraries loaded from BUILD_DIR as built earlier (hits) and built now
+# (misses), since the process started or the last reset
+cache_counts = {"hits": 0, "misses": 0}
+
+
+def set_build_dir(path):
+    """Build and look up libraries under ``path`` from now on. A library
+    already loaded in this process stays loaded from where it was."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path).resolve()
 
 
 def _nvcc():
@@ -148,7 +164,9 @@ def load_host_library(name):
         so = BUILD_DIR / f"{name}-{digest[:16]}.so"
         if so.exists():
             build_info[name] = {"seconds": 0.0, "ptxas": []}
+            cache_counts["hits"] += 1
         else:
+            cache_counts["misses"] += 1
             gxx = shutil.which("g++")
             if gxx is None:
                 raise RuntimeError(
@@ -188,7 +206,9 @@ def load_library(name, variant=None):
         so = BUILD_DIR / f"{key}-{digest[:16]}.so"
         if so.exists():
             build_info[key] = {"seconds": 0.0, "ptxas": []}
+            cache_counts["hits"] += 1
         else:
+            cache_counts["misses"] += 1
             _compile(key, [_nvcc(), *flags, str(src), "-o"], so)
         lib = ctypes.CDLL(str(so))
         _libs[key] = lib

@@ -21,8 +21,16 @@ fp32, JAX ``engine.py:1115-1121``), ``fp32_allreduce`` and
 ``disable_allgather`` are read and unused, ``zero_allow_untested_optimizer``
 and ``dump_state`` are plain reads (``dump_state`` logs the config),
 ``vocabulary_size`` warns when not a multiple of 8, ``amp`` computes in
-bf16 (JAX ``engine.py:416``), and ``wall_clock_breakdown`` /
-``memory_breakdown`` log that the port has no step timers yet.
+bf16 (JAX ``engine.py:416``), ``wall_clock_breakdown`` logs each step's
+synchronized wall and ``memory_breakdown`` adds the CUDA allocator's
+figures to that line (``telemetry/timers.py``).
+
+The operations keys: ``telemetry`` (:class:`TelemetryConfig`, JAX's
+keys, defaults and checks), ``profiling`` (the ``torch.profiler`` trace
+window, ``telemetry/profiler.py``), ``tensorboard`` (``enabled``,
+``output_path``, ``job_name``: the engine's scalars through
+``torch.utils.tensorboard``) and ``compilation_cache_dir`` (the
+directory of the kernel builds, ``telemetry/compile_cache.py``).
 
 The training-feature keys: ``activation_checkpointing``
 (:class:`~deepspeed_tpu_torch.runtime.activation_checkpointing.config.
@@ -141,17 +149,14 @@ _PORTED_KEYS = frozenset((
     C.VOCABULARY_SIZE, C.AMP, C.WALL_CLOCK_BREAKDOWN, C.MEMORY_BREAKDOWN,
     C.INFERENCE, C.ACTIVATION_CHECKPOINTING, C.PROGRESSIVE_LAYER_DROP,
     C.SPARSE_GRADIENTS, C.FP8, C.PIPELINE, C.MESH, C.TENSOR_PARALLEL,
-    C.COMM_QUANTIZATION, C.RESILIENCE))
+    C.COMM_QUANTIZATION, C.RESILIENCE, C.TELEMETRY, C.TENSORBOARD,
+    C.PROFILING, C.COMPILATION_CACHE_DIR))
 
 # the keys the JAX config reads whose features are not ported yet, each
 # with the ROADMAP.md section 1 item that ports it
 _LATER_KEYS = {
-    C.TELEMETRY: "item 6 (slice G, operations)",
     C.ELASTICITY: "item 6 (slice G, operations)",
     C.ANALYSIS: "item 6 (slice G, operations)",
-    C.TENSORBOARD: "item 6 (slice G, operations)",
-    C.PROFILING: "item 6 (slice G, operations)",
-    C.COMPILATION_CACHE_DIR: "item 6 (slice G, operations)",
 }
 
 
@@ -748,6 +753,97 @@ class InferenceConfig:
 
 
 
+class TelemetryConfig:
+    """Typed view of the ``telemetry`` block (JAX's keys and defaults):
+    the runtime telemetry session (``telemetry/``): metrics registry,
+    step-phase spans, the schema-versioned JSONL event log, the
+    JSONL / console / Prometheus-textfile exporters, and the forensics
+    (``crash_dump_dir``, ``watchdog``, ``anomaly_trace``)."""
+
+    KEYS = (C.TELEMETRY_ENABLED, C.TELEMETRY_JSONL_PATH, C.TELEMETRY_CONSOLE,
+            C.TELEMETRY_PROMETHEUS_TEXTFILE, C.TELEMETRY_PROMETHEUS_WRITE_EVERY,
+            C.TELEMETRY_HISTORY, C.TELEMETRY_STAMP_STATIC_FACTS,
+            C.TELEMETRY_FLOPS_PER_TOKEN, C.TELEMETRY_CRASH_DUMP_DIR,
+            C.TELEMETRY_FLIGHT_HISTORY, C.TELEMETRY_WATCHDOG,
+            C.TELEMETRY_ANOMALY_TRACE)
+    WATCHDOG_KEYS = (C.TELEMETRY_WATCHDOG_ENABLED,
+                     C.TELEMETRY_WATCHDOG_DEADLINE_FACTOR,
+                     C.TELEMETRY_WATCHDOG_MIN_DEADLINE_S,
+                     C.TELEMETRY_WATCHDOG_ACTION)
+    ANOMALY_KEYS = (C.TELEMETRY_ANOMALY_TRACE_ENABLED,
+                    C.TELEMETRY_ANOMALY_TRACE_FACTOR,
+                    C.TELEMETRY_ANOMALY_TRACE_WINDOW,
+                    C.TELEMETRY_ANOMALY_TRACE_CAPTURE_STEPS)
+
+    def __init__(self, param_dict):
+        sub = param_dict.get(C.TELEMETRY, {}) or {}
+        self._given_keys = tuple(sub)
+        self.enabled = get_scalar_param(sub, C.TELEMETRY_ENABLED,
+                                        C.TELEMETRY_ENABLED_DEFAULT)
+        self.jsonl_path = get_scalar_param(sub, C.TELEMETRY_JSONL_PATH,
+                                           C.TELEMETRY_JSONL_PATH_DEFAULT)
+        self.console = get_scalar_param(sub, C.TELEMETRY_CONSOLE,
+                                        C.TELEMETRY_CONSOLE_DEFAULT)
+        self.prometheus_textfile = get_scalar_param(
+            sub, C.TELEMETRY_PROMETHEUS_TEXTFILE,
+            C.TELEMETRY_PROMETHEUS_TEXTFILE_DEFAULT)
+        self.prometheus_write_every = get_scalar_param(
+            sub, C.TELEMETRY_PROMETHEUS_WRITE_EVERY,
+            C.TELEMETRY_PROMETHEUS_WRITE_EVERY_DEFAULT)
+        self.history = get_scalar_param(sub, C.TELEMETRY_HISTORY,
+                                        C.TELEMETRY_HISTORY_DEFAULT)
+        self.stamp_static_facts = get_scalar_param(
+            sub, C.TELEMETRY_STAMP_STATIC_FACTS,
+            C.TELEMETRY_STAMP_STATIC_FACTS_DEFAULT)
+        self.flops_per_token = get_scalar_param(
+            sub, C.TELEMETRY_FLOPS_PER_TOKEN,
+            C.TELEMETRY_FLOPS_PER_TOKEN_DEFAULT)
+        self.crash_dump_dir = get_scalar_param(
+            sub, C.TELEMETRY_CRASH_DUMP_DIR, C.TELEMETRY_CRASH_DUMP_DIR_DEFAULT)
+        self.flight_history = get_scalar_param(
+            sub, C.TELEMETRY_FLIGHT_HISTORY, C.TELEMETRY_FLIGHT_HISTORY_DEFAULT)
+        wd = sub.get(C.TELEMETRY_WATCHDOG, {}) or {}
+        self._watchdog_given_keys = tuple(wd)
+        self.watchdog_enabled = get_scalar_param(
+            wd, C.TELEMETRY_WATCHDOG_ENABLED,
+            C.TELEMETRY_WATCHDOG_ENABLED_DEFAULT)
+        self.watchdog_deadline_factor = get_scalar_param(
+            wd, C.TELEMETRY_WATCHDOG_DEADLINE_FACTOR,
+            C.TELEMETRY_WATCHDOG_DEADLINE_FACTOR_DEFAULT)
+        self.watchdog_min_deadline_s = get_scalar_param(
+            wd, C.TELEMETRY_WATCHDOG_MIN_DEADLINE_S,
+            C.TELEMETRY_WATCHDOG_MIN_DEADLINE_S_DEFAULT)
+        self.watchdog_action = get_scalar_param(
+            wd, C.TELEMETRY_WATCHDOG_ACTION, C.TELEMETRY_WATCHDOG_ACTION_DEFAULT)
+        an = sub.get(C.TELEMETRY_ANOMALY_TRACE, {}) or {}
+        self._anomaly_given_keys = tuple(an)
+        self.anomaly_trace_enabled = get_scalar_param(
+            an, C.TELEMETRY_ANOMALY_TRACE_ENABLED,
+            C.TELEMETRY_ANOMALY_TRACE_ENABLED_DEFAULT)
+        self.anomaly_trace_factor = get_scalar_param(
+            an, C.TELEMETRY_ANOMALY_TRACE_FACTOR,
+            C.TELEMETRY_ANOMALY_TRACE_FACTOR_DEFAULT)
+        self.anomaly_trace_window = get_scalar_param(
+            an, C.TELEMETRY_ANOMALY_TRACE_WINDOW,
+            C.TELEMETRY_ANOMALY_TRACE_WINDOW_DEFAULT)
+        self.anomaly_trace_capture_steps = get_scalar_param(
+            an, C.TELEMETRY_ANOMALY_TRACE_CAPTURE_STEPS,
+            C.TELEMETRY_ANOMALY_TRACE_CAPTURE_STEPS_DEFAULT)
+
+    def __repr__(self):
+        return (f"TelemetryConfig(enabled={self.enabled}, "
+                f"jsonl_path={self.jsonl_path!r}, "
+                f"console={self.console}, "
+                f"prometheus_textfile={self.prometheus_textfile!r}, "
+                f"history={self.history}, "
+                f"stamp_static_facts={self.stamp_static_facts}, "
+                f"flops_per_token={self.flops_per_token}, "
+                f"crash_dump_dir={self.crash_dump_dir!r}, "
+                f"watchdog_enabled={self.watchdog_enabled}, "
+                f"anomaly_trace_enabled={self.anomaly_trace_enabled})")
+
+
+
 class DeepSpeedConfig:
     """Typed view of a DeepSpeed config dict or JSON file, world size 1
     unless given."""
@@ -837,6 +933,21 @@ class DeepSpeedConfig:
             C.WALL_CLOCK_BREAKDOWN_DEFAULT)
         self.memory_breakdown = get_scalar_param(
             param_dict, C.MEMORY_BREAKDOWN, C.MEMORY_BREAKDOWN_DEFAULT)
+        # the torch.profiler trace window (telemetry/profiler.py):
+        # {"trace_dir", "trace_start_step", "trace_num_steps", "history"},
+        # checked by TraceProfiler when the engine builds it, as in JAX
+        self.profiling_params = param_dict.get(C.PROFILING, None)
+        # the directory of the kernel builds (telemetry/compile_cache.py)
+        self.compilation_cache_dir = get_scalar_param(
+            param_dict, C.COMPILATION_CACHE_DIR, None)
+        tb = param_dict.get(C.TENSORBOARD) or {}
+        self.tensorboard_enabled = get_scalar_param(
+            tb, C.TENSORBOARD_ENABLED, C.TENSORBOARD_ENABLED_DEFAULT)
+        self.tensorboard_output_path = get_scalar_param(
+            tb, C.TENSORBOARD_OUTPUT_PATH, C.TENSORBOARD_OUTPUT_PATH_DEFAULT)
+        self.tensorboard_job_name = get_scalar_param(
+            tb, C.TENSORBOARD_JOB_NAME, C.TENSORBOARD_JOB_NAME_DEFAULT)
+        self.telemetry = TelemetryConfig(param_dict)
         self.inference = InferenceConfig(param_dict)
         from deepspeed_tpu_torch.runtime.activation_checkpointing.config \
             import DeepSpeedActivationCheckpointingConfig
@@ -854,20 +965,13 @@ class DeepSpeedConfig:
         self.mesh_shape = get_mesh_config(param_dict)
 
     def _do_warning_check(self):
-        """JAX ``_do_warning_check`` (``config.py:1666``), and what the
-        port cannot honour yet."""
+        """JAX ``_do_warning_check`` (``config.py:1666``)."""
         vocab = self.vocabulary_size
         if vocab and vocab % TENSOR_CORE_ALIGN_SIZE != 0:
             logger.warning(
                 "DeepSpeedConfig: vocabulary size {} is not aligned to {}, "
                 "may import tensor core utilization.".format(
                     vocab, TENSOR_CORE_ALIGN_SIZE))
-        for key in (C.WALL_CLOCK_BREAKDOWN, C.MEMORY_BREAKDOWN):
-            if getattr(self, key):
-                logger.warning(
-                    f"DeepSpeedConfig: {key} is read, but the port has no "
-                    f"step timers yet (ROADMAP.md section 1 item 6): "
-                    f"nothing is broken down")
 
     def print(self, name):
         logger.info("{}:".format(name))
@@ -950,6 +1054,93 @@ class DeepSpeedConfig:
             raise ValueError("fp16 and bf16 cannot both be enabled")
         self._check_comm_quantization()
         self._check_resilience()
+        self._check_telemetry()
+
+    def _check_telemetry(self):
+        """JAX ``config.py:1483-1567``: its checks and texts."""
+        tl = self.telemetry
+        unknown = sorted(set(tl._given_keys) - set(tl.KEYS))
+        if unknown:
+            raise ValueError(
+                f"telemetry: unknown key(s) {unknown}; "
+                f"allowed: {sorted(tl.KEYS)}")
+        for name, v in (("enabled", tl.enabled),
+                        ("console", tl.console),
+                        ("stamp_static_facts", tl.stamp_static_facts)):
+            if not isinstance(v, bool):
+                raise ValueError(
+                    f"telemetry: {name} must be a bool, got {v!r}")
+        for name, v in (("jsonl_path", tl.jsonl_path),
+                        ("prometheus_textfile", tl.prometheus_textfile)):
+            if v is not None and not isinstance(v, str):
+                raise ValueError(
+                    f"telemetry: {name} must be a path string or null, "
+                    f"got {v!r}")
+        for name, v, lo in (
+                ("history", tl.history, 1),
+                ("prometheus_write_every", tl.prometheus_write_every, 1)):
+            if isinstance(v, bool) or not isinstance(v, int) or v < lo:
+                raise ValueError(
+                    f"telemetry: {name} must be an int >= {lo}, "
+                    f"got {v!r}")
+        fpt = tl.flops_per_token
+        if isinstance(fpt, bool) or \
+                not isinstance(fpt, (int, float)) or fpt < 0:
+            raise ValueError(
+                f"telemetry: flops_per_token must be a non-negative "
+                f"number (0 = unknown), got {fpt!r}")
+        self._check_telemetry_forensics(tl)
+
+    def _check_telemetry_forensics(self, tl):
+        from deepspeed_tpu_torch.telemetry.watchdog import WATCHDOG_ACTIONS
+        if tl.crash_dump_dir is not None and \
+                not isinstance(tl.crash_dump_dir, str):
+            raise ValueError(
+                f"telemetry: crash_dump_dir must be a path string or "
+                f"null, got {tl.crash_dump_dir!r}")
+        fh = tl.flight_history
+        if isinstance(fh, bool) or not isinstance(fh, int) or fh < 1:
+            raise ValueError(
+                f"telemetry: flight_history must be an int >= 1, "
+                f"got {fh!r}")
+        for label, given, allowed in (
+                ("watchdog", tl._watchdog_given_keys, tl.WATCHDOG_KEYS),
+                ("anomaly_trace", tl._anomaly_given_keys, tl.ANOMALY_KEYS)):
+            unknown = sorted(set(given) - set(allowed))
+            if unknown:
+                raise ValueError(
+                    f"telemetry: unknown {label} key(s) {unknown}; "
+                    f"allowed: {sorted(allowed)}")
+        for name, v in (("watchdog.enabled", tl.watchdog_enabled),
+                        ("anomaly_trace.enabled", tl.anomaly_trace_enabled)):
+            if not isinstance(v, bool):
+                raise ValueError(
+                    f"telemetry: {name} must be a bool, got {v!r}")
+        for name, v in (
+                ("watchdog.deadline_factor", tl.watchdog_deadline_factor),
+                ("watchdog.min_deadline_s", tl.watchdog_min_deadline_s),
+                ("anomaly_trace.factor", tl.anomaly_trace_factor)):
+            if isinstance(v, bool) or not isinstance(v, (int, float)) \
+                    or v <= 0:
+                raise ValueError(
+                    f"telemetry: {name} must be a positive number, "
+                    f"got {v!r}")
+        if tl.watchdog_action not in WATCHDOG_ACTIONS:
+            raise ValueError(
+                f"telemetry: watchdog.action must be one of "
+                f"{list(WATCHDOG_ACTIONS)}, got {tl.watchdog_action!r}")
+        for name, v in (
+                ("anomaly_trace.window", tl.anomaly_trace_window),
+                ("anomaly_trace.capture_steps",
+                 tl.anomaly_trace_capture_steps)):
+            if isinstance(v, bool) or not isinstance(v, int) or v < 1:
+                raise ValueError(
+                    f"telemetry: {name} must be an int >= 1, got {v!r}")
+        if tl.watchdog_enabled and not tl.crash_dump_dir:
+            raise ValueError(
+                "telemetry: watchdog.enabled requires crash_dump_dir — "
+                "the watchdog writes its heartbeat files and flight "
+                "dumps there")
 
     def _check_resilience(self):
         """JAX ``config.py:1590-1664``: its checks and texts."""

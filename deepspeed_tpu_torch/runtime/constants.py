@@ -119,6 +119,12 @@ WALL_CLOCK_BREAKDOWN_DEFAULT = False
 MEMORY_BREAKDOWN = "memory_breakdown"
 MEMORY_BREAKDOWN_DEFAULT = False
 TENSORBOARD = "tensorboard"
+TENSORBOARD_ENABLED = "enabled"
+TENSORBOARD_ENABLED_DEFAULT = False
+TENSORBOARD_OUTPUT_PATH = "output_path"
+TENSORBOARD_OUTPUT_PATH_DEFAULT = ""
+TENSORBOARD_JOB_NAME = "job_name"
+TENSORBOARD_JOB_NAME_DEFAULT = "DeepSpeedTpuJobName"
 PROGRESSIVE_LAYER_DROP = "progressive_layer_drop"
 PLD_ENABLED = "enabled"
 PLD_ENABLED_DEFAULT = False
@@ -243,7 +249,74 @@ FP8_WIRE_DTYPE = "dtype"
 FP8_WIRE_DTYPE_DEFAULT = "f8e4m3fn"
 FP8_WIRE_CHUNK_SIZE = "chunk_size"
 FP8_WIRE_CHUNK_SIZE_DEFAULT = 512
+# Runtime telemetry (telemetry/, JAX's keys and defaults): metrics
+# registry, step-phase spans, and the schema-versioned JSONL event log
+# the ds_tpu_metrics CLI reads. Disabled by default: the engine's hot
+# path then pays one no-op check per phase.
 TELEMETRY = "telemetry"
+TELEMETRY_ENABLED = "enabled"
+TELEMETRY_ENABLED_DEFAULT = False
+TELEMETRY_JSONL_PATH = "jsonl_path"
+TELEMETRY_JSONL_PATH_DEFAULT = None  # None = in-memory ring only
+TELEMETRY_CONSOLE = "console"
+TELEMETRY_CONSOLE_DEFAULT = False
+TELEMETRY_PROMETHEUS_TEXTFILE = "prometheus_textfile"
+TELEMETRY_PROMETHEUS_TEXTFILE_DEFAULT = None
+TELEMETRY_PROMETHEUS_WRITE_EVERY = "prometheus_write_every"
+TELEMETRY_PROMETHEUS_WRITE_EVERY_DEFAULT = 20
+# Bounded event ring (engine.metrics_history): last N step events kept
+# in memory so tests/health guards can assert without file I/O.
+TELEMETRY_HISTORY = "history"
+TELEMETRY_HISTORY_DEFAULT = 256
+# JAX stamps the compiled step's static facts (collective bytes, static
+# peak memory, from its HLO) into the `compile` event; the port reads and
+# checks the key and has no such facts (runtime/engine.py:
+# _stamp_compile_facts lists what its compile event carries).
+TELEMETRY_STAMP_STATIC_FACTS = "stamp_static_facts"
+TELEMETRY_STAMP_STATIC_FACTS_DEFAULT = True
+# Model flops per token for the MFU estimate (0 = unknown; the
+# ds_tpu_metrics CLI can also supply it at read time).
+TELEMETRY_FLOPS_PER_TOKEN = "flops_per_token"
+TELEMETRY_FLOPS_PER_TOKEN_DEFAULT = 0
+
+# Runtime forensics (telemetry/flight.py, telemetry/watchdog.py):
+# setting crash_dump_dir turns on the flight recorder — a bounded
+# black-box ring of events / span transitions / the step's collectives
+# dumped atomically there (plus all-thread stacks) on unhandled
+# exception, SIGTERM/SIGQUIT, guard-trip abort, or watchdog firing.
+# It also holds per-process heartbeat files and watchdog dumps, so the
+# nested watchdog block requires it.
+TELEMETRY_CRASH_DUMP_DIR = "crash_dump_dir"
+TELEMETRY_CRASH_DUMP_DIR_DEFAULT = None
+TELEMETRY_FLIGHT_HISTORY = "flight_history"
+TELEMETRY_FLIGHT_HISTORY_DEFAULT = 512
+# Hang watchdog: daemon thread fed per-phase heartbeats from the span
+# stack; fires when a step's elapsed wall exceeds
+# max(min_deadline_s, deadline_factor * rolling-median step wall).
+TELEMETRY_WATCHDOG = "watchdog"
+TELEMETRY_WATCHDOG_ENABLED = "enabled"
+TELEMETRY_WATCHDOG_ENABLED_DEFAULT = False
+TELEMETRY_WATCHDOG_DEADLINE_FACTOR = "deadline_factor"
+TELEMETRY_WATCHDOG_DEADLINE_FACTOR_DEFAULT = 3.0
+TELEMETRY_WATCHDOG_MIN_DEADLINE_S = "min_deadline_s"
+TELEMETRY_WATCHDOG_MIN_DEADLINE_S_DEFAULT = 60.0
+# "dump" = flight dump once per hung step, run continues if the step
+# ever completes; "abort" = dump + thread stacks + SIGABRT so a cluster
+# supervisor restarts the process.
+TELEMETRY_WATCHDOG_ACTION = "action"
+TELEMETRY_WATCHDOG_ACTION_DEFAULT = "dump"
+# Anomaly-triggered trace capture: a step-wall regression past factor x
+# rolling median (or a guard trip) arms the profiling
+# block's TraceProfiler to capture the next capture_steps steps.
+TELEMETRY_ANOMALY_TRACE = "anomaly_trace"
+TELEMETRY_ANOMALY_TRACE_ENABLED = "enabled"
+TELEMETRY_ANOMALY_TRACE_ENABLED_DEFAULT = False
+TELEMETRY_ANOMALY_TRACE_FACTOR = "factor"
+TELEMETRY_ANOMALY_TRACE_FACTOR_DEFAULT = 2.0
+TELEMETRY_ANOMALY_TRACE_WINDOW = "window"
+TELEMETRY_ANOMALY_TRACE_WINDOW_DEFAULT = 32
+TELEMETRY_ANOMALY_TRACE_CAPTURE_STEPS = "capture_steps"
+TELEMETRY_ANOMALY_TRACE_CAPTURE_STEPS_DEFAULT = 3
 
 
 #############################################

@@ -29,7 +29,8 @@ run eagerly:
   ``DeviceState``.
 
 Nothing in a step waits on the device except the ``steps_per_print``
-log line.
+log line, and what the config asks for: telemetry, ``wall_clock_
+breakdown``, a trace window, TensorBoard or the resilience guards.
 
 **Data parallelism** (one process a device, joined by
 :func:`~deepspeed_tpu_torch.parallel.initialize_distributed` from the
@@ -195,12 +196,31 @@ NaN gradients and a preemption. ``host_adam_retries`` and
 ``checkpoint.io_timeout_s`` go to the host Adam. A pipeline's stage
 engines run none of it, as JAX's pipeline runs none.
 
-Telemetry is not yet ported: its config block raises in
-``runtime/config.py``. The pipeline is
-``runtime/pipe/engine.py:PipelineEngine``, which
+**Telemetry** (the ``telemetry``, ``profiling``, ``tensorboard``,
+``wall_clock_breakdown`` / ``memory_breakdown`` and
+``compilation_cache_dir`` keys, JAX ``engine.py:533-657, 2547-2800``):
+:meth:`DeepSpeedEngine.train_batch` runs its host phases in spans
+(``data_load``, ``dispatch``, ``injected_hang``, ``host_adam``,
+``device_wait``) of a :class:`~deepspeed_tpu_torch.telemetry.session.
+TelemetrySession` and emits JAX's events (``run_start``, one
+``compile``, ``step`` with the drained phases, ``health_guard``,
+``anomaly``, ``preemption``, ``checkpoint_save`` / ``_load``,
+``hot_snapshot``, ``recovery_ladder``) into the session's exporters;
+``metrics_history`` keeps the last ``history`` step events. The spans
+are ``torch.profiler`` ranges, so the ``profiling`` window's Chrome
+trace shows them beside the kernels. ``crash_dump_dir`` adds the flight
+recorder (crash hooks installed after the preemption handler, the
+step's collectives as its collective source) and ``watchdog`` the hang
+watchdog; ``anomaly_trace`` arms the trace window on a step-wall
+regression or a guard trip. With telemetry off a step pays one
+``is None`` check and the shared no-op span, and waits for nothing.
+``compilation_cache_dir`` is the directory of the kernel builds
+(``telemetry/compile_cache.py``), applied before the first build.
+
+The pipeline is ``runtime/pipe/engine.py:PipelineEngine``, which
 runs one engine of this class per stage: its ``comm`` is the stage's
 data group (:class:`Comm` over a sub-group), its model the stage's
-layers.
+layers; the stage engines run no telemetry of their own.
 
 **Data** (``training_data``): :meth:`DeepSpeedEngine.deepspeed_io` builds
 a :class:`~deepspeed_tpu_torch.runtime.dataloader.DeepSpeedDataLoader`
@@ -232,11 +252,14 @@ the attention-prob dropout mask is still the bit-identical counter hash
 for a given int32 seed.
 """
 
+import atexit
+import collections
 import contextlib
 import json
 import os
 import re
 import signal
+import socket
 import time
 import weakref
 from typing import Any, NamedTuple
@@ -315,6 +338,18 @@ from deepspeed_tpu_torch.runtime.utils import (
     clip_by_global_norm,
     global_norm,
 )
+from deepspeed_tpu_torch.telemetry import compile_cache
+from deepspeed_tpu_torch.telemetry.profiler import TraceProfiler
+from deepspeed_tpu_torch.telemetry.session import (
+    TelemetrySession,
+    set_default_session,
+)
+from deepspeed_tpu_torch.telemetry.spans import null_span
+from deepspeed_tpu_torch.telemetry.timers import (
+    SynchronizedWallClockTimer,
+    ThroughputTimer,
+)
+from deepspeed_tpu_torch.telemetry.watchdog import StepAnomalyDetector
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 
 
@@ -465,6 +500,26 @@ def make_grad_accumulator(loss_fn, accum, after_backward=None,
     return accumulate
 
 
+def _batch_tokens(batch):
+    """Rows x the second dim of the batch's first leaf: tokens for LM
+    batches (``[rows, seq]`` ids), rows x features otherwise (JAX
+    ``engine.py:2563-2569``); None for no batch."""
+    if batch is None:
+        return None
+    # the first leaf in key order, as JAX's tree_leaves takes it
+    first = batch[sorted(batch)[0]] if isinstance(batch, dict) else batch
+    shape = tuple(np.shape(first))
+    return int(shape[0]) * (int(shape[1]) if len(shape) > 1 else 1)
+
+
+def _device_wait(t):
+    """Wait until the card has run the work queued before ``t`` on its
+    stream (the step's loss is the last value a step computes); a CPU
+    tensor is ready."""
+    if t.is_cuda:
+        torch.cuda.current_stream(t.device).synchronize()
+
+
 def _int_elements(micro_batches):
     """The integer elements of a rank's micro-batches (JAX's sparse
     token budget: every integer leaf of the local batch)."""
@@ -526,6 +581,10 @@ class DeepSpeedEngine:
         self.dp_rank = self.comm.rank
         self._config = DeepSpeedConfig(config,
                                        world_size=self.dp_world_size)
+        if self._config.compilation_cache_dir:
+            # before any kernel or host op is built (telemetry/
+            # compile_cache.py)
+            compile_cache.apply(self._config.compilation_cache_dir)
         want = int((self._config.mesh_shape or {}).get("model") or 1)
         if want != self.mp_world_size and (want > 1 or self._tp):
             raise ValueError(
@@ -556,6 +615,9 @@ class DeepSpeedEngine:
                                    if model_parameters is None
                                    else model_parameters)
                        if p.requires_grad]
+        # the fp32 masters' bytes (this process's leaves, before any
+        # partition), for the compile event
+        self._param_bytes = 4 * sum(p.numel() for p in self.params)
         specs = dict(tpl.partition_specs(model))
         specs.update(param_specs or {})
         names = self._param_names()
@@ -608,6 +670,7 @@ class DeepSpeedEngine:
         self._data_iter = RepeatingLoader(self.training_dataloader) \
             if self.training_dataloader is not None else None
         self._configure_resilience(comm_given)
+        self._configure_telemetry(own=comm_given is None)
         # an explicit user configure() beforehand wins over the config's
         from deepspeed_tpu_torch.runtime.activation_checkpointing import (
             checkpointing as act_ckpt)
@@ -674,6 +737,227 @@ class DeepSpeedEngine:
             self.cpu_optimizer.host_adam_timeout_s = rz.io_timeout_s
 
     # ------------------------------------------------------------------
+    # telemetry (JAX ``engine.py:533-592, 649-657, 961-971, 2412-2512``)
+    # ------------------------------------------------------------------
+    def _configure_telemetry(self, own=True):
+        """The synchronized timers, the trace window (``profiling``), the
+        ``telemetry`` session with its forensics, and the TensorBoard
+        writer. ``own`` is False for a pipeline's stage engines: the
+        pipeline engine runs these for the whole step."""
+        cfg = self._config
+        self.timers = SynchronizedWallClockTimer()
+        self.tput_timer = ThroughputTimer(
+            batch_size=cfg.train_micro_batch_size_per_gpu *
+            cfg.gradient_accumulation_steps,
+            num_workers=self.dp_world_size,
+            steps_per_output=cfg.steps_per_print)
+        self.trace_profiler = TraceProfiler(**(cfg.profiling_params or {})) \
+            if own else TraceProfiler()
+        if self.trace_profiler.enabled:
+            atexit.register(self.trace_profiler.close)
+        tl = cfg.telemetry
+        self.telemetry = None
+        self.metrics_history = collections.deque(maxlen=tl.history)
+        self.summary_writer = None
+        self._batch_tokens = None
+        self._anomaly_detector = None
+        self._dispatched = False       # a train_batch has run
+        self._coll_base = None         # collective counts at step start
+        # process identity on run_start / step events and flight dumps:
+        # the join key of ``ds_tpu_metrics aggregate``
+        self._proc_meta = {"process_index": mesh.dp_rank(),
+                           "process_count": mesh.dp_world_size(),
+                           "hostname": socket.gethostname()}
+        if not own:
+            return
+        if tl.enabled:
+            self.telemetry = TelemetrySession.from_config(
+                tl, meta={**self._proc_meta,
+                          "flavor": self._telemetry_flavor(),
+                          **self._forensics_extra()})
+            set_default_session(self.telemetry, replace=False)
+            atexit.register(self.telemetry.close)
+            if tl.anomaly_trace_enabled:
+                self._anomaly_detector = StepAnomalyDetector(
+                    factor=tl.anomaly_trace_factor,
+                    window=tl.anomaly_trace_window)
+            self.telemetry.emit(
+                "run_start",
+                flavor=self._telemetry_flavor(),
+                train_batch_size=cfg.train_batch_size,
+                gradient_accumulation_steps=cfg.gradient_accumulation_steps,
+                zero_stage=self.zero_optimization_stage(),
+                dp_world_size=self.dp_world_size,
+                mp_world_size=self.mp_world_size,
+                n_devices=mesh.dp_world_size(),
+                fp16=self.fp16_enabled(),
+                bf16=self.bfloat16_enabled(),
+                flops_per_token=tl.flops_per_token or None,
+                **self._proc_meta,
+                **self._forensics_extra())
+        if cfg.tensorboard_enabled and self._proc_meta["process_index"] == 0:
+            self.summary_writer = self._get_summary_writer()
+        # forensics: after the preemption handler, so a SIGTERM dumps the
+        # flight record first and then sets the checkpoint latch
+        if self.telemetry is not None:
+            flight = self.telemetry.flight
+            if flight is not None:
+                # weakly: the process-wide crash hooks keep the recorder
+                rows = weakref.WeakMethod(self._collective_rows)
+                flight.set_collective_source(
+                    lambda: rows()() if rows() is not None else [])
+                flight.install()
+            if self.telemetry.watchdog is not None:
+                self.telemetry.watchdog.start()
+
+    def _get_summary_writer(self):
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except Exception:
+            logger.warning("tensorboard unavailable; disabling")
+            return None
+        base = os.environ.get("DLWS_JOB_ID", "local")
+        log_dir = os.path.join(self._config.tensorboard_output_path or
+                               os.path.join(".", "runs"), base,
+                               self._config.tensorboard_job_name)
+        os.makedirs(log_dir, exist_ok=True)
+        return SummaryWriter(log_dir=log_dir)
+
+    def _telemetry_flavor(self):
+        """The step flavor on telemetry events: the taxonomy of JAX
+        ``analysis/audit.py:_engine_flavor`` (dense, zero1-3, offload,
+        quantized, onebit, sparse, fp8; the pipeline engine says
+        pipeline)."""
+        cfg = self._config
+        if self._offload:
+            return "offload"
+        if cfg.comm_quantization.enabled:
+            return "quantized"
+        if (cfg.optimizer_name or "").lower() == ONEBIT_ADAM_OPTIMIZER or \
+                getattr(self, "_opt_kind", None) == "onebit":
+            return "onebit"
+        if cfg.sparse_gradients_enabled:
+            return "sparse"
+        if cfg.fp8.enabled or cfg.fp8.wire_enabled:
+            return "fp8"
+        stage = self.zero_optimization_stage()
+        return f"zero{stage}" if stage else "dense"
+
+    def _forensics_extra(self):
+        """Extra run facts on run_start events and flight-dump meta; the
+        pipeline engine adds its topology."""
+        return {}
+
+    def _comms(self):
+        """The data-group collectives whose counts a flight dump reads."""
+        return [self.comm]
+
+    def _collective_counts(self):
+        return ([c.snapshot() for c in self._comms()],
+                tp_comm.collective_counts())
+
+    def _collective_rows(self):
+        """The collectives issued since the current step began (since
+        the process began, outside a step): the flight recorder's
+        collective source. One row per kind and group, with its calls
+        and bytes."""
+        base_comm, base_mesh = self._coll_base or ([], {})
+        now_comm, now_mesh = self._collective_counts()
+        rows = []
+
+        def add(site, axis, kind, row, old):
+            calls = row["calls"] - old.get("calls", 0)
+            if calls:
+                rows.append({"site": site, "axis": axis, "primitive": kind,
+                             "calls": calls,
+                             "bytes": row["bytes"] - old.get("bytes", 0)})
+
+        for i, snap in enumerate(now_comm):
+            old = base_comm[i] if i < len(base_comm) else {}
+            for kind, row in snap.items():
+                add(f"comm{i}/{kind}", "data", kind, row,
+                    old.get(kind, {}))
+        for kind, row in now_mesh.items():
+            add(f"mesh/{kind}", "mesh", kind, row, base_mesh.get(kind, {}))
+        return rows
+
+    @staticmethod
+    def _scalar_metrics(metrics):
+        """Host-scalar view of a step's metrics for the step event
+        (missing keys are absent)."""
+        out = {}
+        for key in ("loss", "lr", "grad_norm", "applied_grad_norm",
+                    "loss_scale"):
+            if key in metrics:
+                try:
+                    out[key] = float(metrics[key])
+                except Exception:
+                    pass
+        for key, cast in (("overflow", bool), ("grad_nonfinite", bool),
+                          ("skipped_steps", int),
+                          ("consecutive_skipped_steps", int)):
+            if key in metrics:
+                try:
+                    out[key] = cast(metrics[key])
+                except Exception:
+                    pass
+        return out
+
+    def _stamp_compile_facts(self, step, compile_seconds):
+        """The one-shot ``compile`` event (JAX ``engine.py:2449-2512``).
+        ``compile_seconds`` is the first step's host wall through its
+        dispatch, kernel loads and builds included. It carries the step
+        (``step``, the 0-based index of that first step, as JAX's), the
+        flavor, ``flops_per_token``, ``batch_tokens``, the fp32
+        masters' ``param_bytes`` and, with ``compilation_cache_dir`` set,
+        the kernel build cache's ``compile_cache_hits`` / ``_misses``.
+        The JAX event's facts read off the compiled step's HLO
+        (``collective_bytes``, ``collective_bytes_by_dtype``,
+        ``while_loops``, ``static_peak_bytes``,
+        ``static_temp_peak_bytes``) have no counterpart in an eager
+        step and are absent."""
+        tl = self._config.telemetry
+        facts = {"step": step,
+                 "flavor": self._telemetry_flavor(),
+                 "flops_per_token": tl.flops_per_token or None,
+                 "batch_tokens": self._batch_tokens,
+                 "compile_seconds": round(compile_seconds, 4),
+                 "param_bytes": int(self._param_bytes)}
+        if self._config.compilation_cache_dir:
+            cc = compile_cache.counts()
+            facts["compile_cache_hits"] = cc["hits"]
+            facts["compile_cache_misses"] = cc["misses"]
+        self.telemetry.emit("compile", **facts)
+
+    def _dump_flight(self, reason, extra=None):
+        """Dump the flight record when the recorder is configured (no-op
+        otherwise); never raises."""
+        flight = self.telemetry.flight if self.telemetry is not None \
+            else None
+        if flight is not None:
+            return flight.dump(reason, extra=extra)
+        return None
+
+    def _arm_anomaly_trace(self, reason):
+        """Anomaly-triggered trace capture: arm the trace window for the
+        next ``capture_steps`` steps (no-op when anomaly_trace is off, a
+        window is active, or no trace dir is resolvable)."""
+        if self._anomaly_detector is None or self.telemetry is None:
+            return
+        tl = self._config.telemetry
+        trace_dir = self.trace_profiler.trace_dir
+        if trace_dir is None and tl.crash_dump_dir:
+            trace_dir = os.path.join(tl.crash_dump_dir, "anomaly_traces")
+        if not self.trace_profiler.arm(
+                self.global_steps, tl.anomaly_trace_capture_steps,
+                trace_dir=trace_dir, reason=reason):
+            return
+        self.telemetry.emit(
+            "anomaly", step=self.global_steps, reason=reason,
+            capture_steps=tl.anomaly_trace_capture_steps,
+            trace_dir=self.trace_profiler.trace_dir)
+
+    # ------------------------------------------------------------------
     # resilience: preemption, guards, the hot tier and the restore ladder
     # (JAX ``engine.py:1235-1290, 2725-2760, 3274-3360``)
     # ------------------------------------------------------------------
@@ -702,6 +986,9 @@ class DeepSpeedEngine:
             self.save_checkpoint(rz.save_dir, tag=tag)
             self._ckpt_manager.wait()   # the exit must not race the write
             path = self._ckpt_manager.ckpt_path(rz.save_dir, tag)
+        if self.telemetry is not None:
+            self.telemetry.emit("preemption", step=self.global_steps,
+                                path=str(path) if path else None)
         raise PreemptedError(
             f"preempted at step {self.global_steps}" +
             (f"; checkpoint saved to {path}" if path
@@ -723,6 +1010,11 @@ class DeepSpeedEngine:
             metrics = dict(metrics)
             metrics.update(self._health_monitor.metrics())
             for trip in trips:
+                if self.telemetry is not None:
+                    # before the action: a rollback or an abort must not
+                    # keep the trip off the record
+                    self.telemetry.emit("health_guard", **trip.as_event())
+                    self._arm_anomaly_trace(f"health_guard:{trip.guard}")
                 self._apply_guard_trip(trip)
         if self._hot_store is not None and \
                 self.global_steps % rz.hot_interval_steps == 0:
@@ -736,14 +1028,19 @@ class DeepSpeedEngine:
         """One trip's action: ``warn`` and ``skip_step`` need nothing
         here (logged; skipped on the device); ``rollback_to_checkpoint``
         goes down the restore ladder and aborts when nothing is there;
-        ``abort`` raises :class:`HealthGuardAbort`."""
+        ``abort`` raises :class:`HealthGuardAbort`, after dumping the
+        flight record (JAX ``engine.py:1299-1316``)."""
         if trip.action == ACTION_ROLLBACK:
             path = self._restore_ladder()
             if path is None:
+                self._dump_flight(f"guard_abort:{trip.guard}",
+                                  extra={"guard_trip": trip.as_event()})
                 raise HealthGuardAbort(trip)
             log_dist(f"health guard '{trip.guard}' rolled back to {path} "
                      f"(step {self.global_steps})", ranks=[0])
         elif trip.action == ACTION_ABORT:
+            self._dump_flight(f"guard_abort:{trip.guard}",
+                              extra={"guard_trip": trip.as_event()})
             raise HealthGuardAbort(trip)
 
     def _hot_snapshot(self):
@@ -757,6 +1054,11 @@ class DeepSpeedEngine:
         self.last_hot_snapshot = {
             "tag": tag, "ms": (time.perf_counter() - t0) * 1e3,
             "bytes": snap.nbytes}
+        if self.telemetry is not None:
+            self.telemetry.emit(
+                "hot_snapshot", step=self.global_steps, tag=tag,
+                mirrored=bool(self._hot_store.mirror_dir),
+                duration_s=round(time.perf_counter() - t0, 6))
 
     def _install_hot_restore(self, got, tier):
         """Install a hot ``(state, meta, topology)``; False when its
@@ -789,6 +1091,12 @@ class DeepSpeedEngine:
         def served(tier, source):
             self.last_recovery = {"tier": tier, "source": str(source),
                                   "ms": (time.perf_counter() - t0) * 1e3}
+            if getattr(self, "telemetry", None) is not None:
+                self.telemetry.emit(
+                    "recovery_ladder", tier=tier, source=str(source),
+                    step=self.global_steps,
+                    duration_s=round(time.perf_counter() - t0, 6),
+                    error=None)
             return source
 
         if self._hot_store is not None:
@@ -1781,8 +2089,15 @@ class DeepSpeedEngine:
                     for old, new in zip(self.opt_state, new_s)])
             self.opt_state = new_s
 
-    @torch.no_grad()
     def _apply_step(self, loss_sum, accum, tokens=0):
+        """Everything after the backward (:meth:`_step_math`), then the
+        resilience and the log line. Returns the metrics dict."""
+        metrics = self._after_step(self._step_math(loss_sum, accum, tokens))
+        self._log_step(metrics)
+        return metrics
+
+    @torch.no_grad()
+    def _step_math(self, loss_sum, accum, tokens=0):
         """Everything after the backward: the gradients' reduction, the
         epilogue, the optimizer, overflow skip, loss scale and counters.
         Returns the metrics dict. ``tokens``: this rank's integer batch
@@ -1852,10 +2167,12 @@ class DeepSpeedEngine:
             if self._grads_16bit and not offload_dp:
                 self._wire.copy_(self._grad32)
             if not bool(overflow):      # waits for the device step
-                if offload_dp:
-                    self._host_phase_dp(lr, beta1)
-                else:
-                    self._host_phase(lr, beta1)
+                with (self.telemetry.span if self.telemetry is not None
+                      else null_span)("host_adam"):
+                    if offload_dp:
+                        self._host_phase_dp(lr, beta1)
+                    else:
+                        self._host_phase(lr, beta1)
         else:
             self._optimizer_step(grads, lr, beta1, overflow, sharded)
             if self._stage in (1, 2):
@@ -1891,30 +2208,144 @@ class DeepSpeedEngine:
         if self.lr_scheduler is not None and \
                 hasattr(self.lr_scheduler, "step"):
             self.lr_scheduler.step()
-        if self.global_steps % self._config.steps_per_print == 0:
-            log_dist(f"step={self.global_steps}, skipped="
-                     f"{self.skipped_steps}, lr={lr:.6g}, "
-                     f"loss={float(metrics['loss']):.5f}", ranks=[0])
+        return metrics
+
+    @torch.no_grad()
+    def _after_step(self, metrics):
+        """After a step's math: the resilience (guards, hot snapshot,
+        periodic save). Returns the metrics (with the guards' counters
+        when they run)."""
         if self._resilience_on:
             metrics = self._after_step_resilience(metrics)
         self._last_metrics = metrics
         return metrics
 
+    def _log_step(self, metrics):
+        """The ``steps_per_print`` line and the TensorBoard scalars (JAX
+        ``engine.py:2783-2804``); both read the step's values on the
+        host."""
+        if self.global_steps % self._config.steps_per_print == 0:
+            log_dist(f"step={self.global_steps}, skipped="
+                     f"{self.skipped_steps}, lr={float(metrics['lr']):.6g}, "
+                     f"loss={float(metrics['loss']):.5f}", ranks=[0])
+            summ = self.trace_profiler.summary()
+            if summ is not None:
+                mean_s, min_s, max_s = summ
+                log_dist(f"device step time: mean={mean_s * 1e3:.1f}ms "
+                         f"min={min_s * 1e3:.1f}ms max={max_s * 1e3:.1f}ms",
+                         ranks=[0])
+        writer = self.summary_writer
+        if writer is not None:
+            writer.add_scalar("Train/loss", float(metrics["loss"]),
+                              self.global_steps)
+            writer.add_scalar("Train/lr", float(metrics["lr"]),
+                              self.global_steps)
+            if self._config.fp16_enabled:
+                writer.add_scalar("Train/loss_scale",
+                                  float(metrics["loss_scale"]),
+                                  self.global_steps)
+
+    # the pipeline engine's middle stages may pass no batch
+    _batch_optional = False
+
     def train_batch(self, batch=None):
         """One optimizer step over a global batch (``engine.py:2537``):
         ``batch`` is a dict of arrays or tensors with leading dim
         ``train_batch_size``, or None to pull the next one from the
-        engine's data loader. Returns the mean loss (a 0-d tensor)."""
+        engine's data loader. Returns the mean loss (a 0-d tensor).
+
+        Under telemetry the step runs in the spans ``data_load``,
+        ``dispatch`` (``injected_hang`` inside it under fault injection,
+        ``host_adam`` under offload) and ``device_wait``, the one wait for
+        the card (on the loss's stream), and emits a ``step`` event (and
+        once a ``compile`` event). Without telemetry, timers or a trace
+        window the step waits for nothing new."""
         # a pending preemption saves and raises here, before this step
         # takes a batch (the saved data cursor must not run ahead of the
         # optimizer state)
         if self._resilience_on:
             self._check_preemption()
-        if batch is None:
-            if self._data_iter is None:
-                raise ValueError("no training_data given; pass a batch "
-                                 "explicitly")
-            batch = next(self._data_iter)
+        tele = self.telemetry
+        span = tele.span if tele is not None else null_span
+        watchdog = tele.watchdog if tele is not None else None
+        step = self.global_steps
+        step_wall_t0 = time.perf_counter() if tele is not None else 0.0
+        if watchdog is not None:
+            watchdog.step_start(step)
+        if tele is not None and tele.flight is not None:
+            self._coll_base = self._collective_counts()
+        if batch is None and self._data_iter is not None:
+            with span("data_load"):
+                batch = next(self._data_iter)
+        elif batch is None and not self._batch_optional:
+            raise ValueError("no training_data given; pass a batch "
+                             "explicitly")
+        first = not self._dispatched
+        if tele is not None and self._batch_tokens is None:
+            self._batch_tokens = _batch_tokens(batch)
+        wall_clock = self._config.wall_clock_breakdown
+        self.trace_profiler.before_step(step)
+        # synchronized timing only for wall_clock_breakdown runs and the
+        # steps inside the trace window
+        timed = wall_clock or self.trace_profiler.in_window(step)
+        step_t0 = time.perf_counter() if timed else None
+        if wall_clock:
+            self.timers("train_batch").start()
+            self.tput_timer.start()
+        with span("dispatch"):
+            if self._fault_on:
+                # a hard death inside the step, then a stuck step (the
+                # watchdog's seam)
+                fault_injection.maybe_kill("step", step)
+                hang_s = fault_injection.hang_seconds(step)
+                if hang_s > 0.0:
+                    with span("injected_hang"):
+                        time.sleep(hang_s)
+            compile_t0 = time.perf_counter()
+            metrics = self._dispatch(batch)
+        self._dispatched = True
+        if first and tele is not None:
+            self._stamp_compile_facts(step, time.perf_counter() - compile_t0)
+        if timed or tele is not None:
+            # the step's wall covers the device's work: device_wait is
+            # the dispatch slack (near zero when the host is the bound)
+            with span("device_wait"):
+                _device_wait(metrics["loss"])
+        if wall_clock:
+            self.tput_timer.stop()
+            self.timers("train_batch").stop()
+            self.timers.log(["train_batch"],
+                            memory_breakdown=self._config.memory_breakdown)
+        self.trace_profiler.after_step(
+            step, None if step_t0 is None else
+            time.perf_counter() - step_t0)
+        metrics = self._after_step(metrics)
+        if tele is not None:
+            step_wall = time.perf_counter() - step_wall_t0
+            if watchdog is not None:
+                watchdog.step_end(step, step_wall)
+            evt = tele.step_event(
+                step=self.global_steps,
+                flavor=self._telemetry_flavor(),
+                wall_s=step_wall,
+                phases={k: round(v, 6)
+                        for k, v in tele.drain_phases().items()},
+                tokens=self._batch_tokens,
+                process_index=self._proc_meta["process_index"],
+                hostname=self._proc_meta["hostname"],
+                **self._scalar_metrics(metrics))
+            self.metrics_history.append(evt)
+            if self._anomaly_detector is not None:
+                reason = self._anomaly_detector.observe(step_wall)
+                if reason is not None:
+                    self._arm_anomaly_trace(reason)
+        self._log_step(metrics)
+        return metrics["loss"]
+
+    def _dispatch(self, batch):
+        """The step's work on the host's side: the micro-batches'
+        forwards and backwards and :meth:`_step_math`; returns its
+        metrics."""
         accum = self._config.gradient_accumulation_steps
         micro = self._micro_batches(batch)
         self._wait_for_params()
@@ -1935,8 +2366,7 @@ class DeepSpeedEngine:
             backward=self._backward)
         loss_sum = accumulate(micro, seeds, self._scale())
         self.micro_steps += accum
-        return self._apply_step(loss_sum, accum,
-                                tokens=_int_elements(micro))["loss"]
+        return self._step_math(loss_sum, accum, tokens=_int_elements(micro))
 
     @torch.no_grad()
     def eval_batch(self, batch):
@@ -2183,25 +2613,55 @@ class DeepSpeedEngine:
         when I/O fails past the retry budget."""
         if tag is None:
             tag = f"global_step{self.global_steps}"
-        if self._offload and self._upload_done is not None:
-            self._upload_done.synchronize()
-        if self._offload and self._offload_dp:
-            self._offload_sync_host_state()
-        # every rank gathers (collectives); rank 0 writes, the rest wait
-        state = self._checkpoint_state_tree()
-        if mesh.dp_rank() == 0:
-            meta = self._checkpoint_meta(client_state)
-            meta["topology"] = self._topology()
-            path = self._ckpt_manager.save(
-                save_dir, tag, state, meta, save_latest=save_latest,
-                extra_manifest={"topology": self._topology()})
-            log_dist(f"saved checkpoint {path}", ranks=[0])
-        if self.mpu is not None and mesh.is_initialized():
-            import torch.distributed as dist
-            dist.barrier()
-        else:
-            self.comm.barrier()
+        t0 = time.perf_counter()
+        with (self.telemetry.span if self.telemetry is not None
+              else null_span)("checkpoint"):
+            if self._offload and self._upload_done is not None:
+                self._upload_done.synchronize()
+            if self._offload and self._offload_dp:
+                self._offload_sync_host_state()
+            # every rank gathers (collectives); rank 0 writes, the rest
+            # wait
+            state = self._checkpoint_state_tree()
+            if mesh.dp_rank() == 0:
+                meta = self._checkpoint_meta(client_state)
+                meta["topology"] = self._topology()
+                path = self._ckpt_manager.save(
+                    save_dir, tag, state, meta, save_latest=save_latest,
+                    extra_manifest={"topology": self._topology()})
+                log_dist(f"saved checkpoint {path}", ranks=[0])
+            if self.mpu is not None and mesh.is_initialized():
+                import torch.distributed as dist
+                dist.barrier()
+            else:
+                self.comm.barrier()
+        self._emit_checkpoint_save(save_dir, tag, t0)
         return True
+
+    def _emit_checkpoint_save(self, save_dir, tag, t0):
+        """The ``checkpoint_save`` event (JAX ``engine.py:3040-3046``);
+        under ``async_save`` its duration is the staging's."""
+        if self.telemetry is not None:
+            self.telemetry.emit(
+                "checkpoint_save", step=self.global_steps, tag=tag,
+                path=str(self._ckpt_manager.ckpt_path(save_dir, tag)),
+                duration_s=round(time.perf_counter() - t0, 6),
+                async_save=bool(self._ckpt_manager.async_save))
+
+    def _emit_checkpoint_load(self, path, meta, t0):
+        """The ``checkpoint_load`` event (JAX ``engine.py:3172-3178``):
+        ``topology`` is "same" when the checkpoint's topology is this
+        engine's, "elastic" when the whole leaves were laid out anew."""
+        if self.telemetry is not None:
+            saved = meta.get("topology") or {}
+            same = json.loads(json.dumps(saved)) == \
+                json.loads(json.dumps(self._topology()))
+            self.telemetry.emit(
+                "checkpoint_load", step=self.global_steps, path=str(path),
+                duration_s=round(time.perf_counter() - t0, 6),
+                topology="same" if same else "elastic",
+                saved_dp_world_size=saved.get("dp_world_size"),
+                dp_world_size=self.dp_world_size)
 
     def load_checkpoint(self, load_dir, tag=None, load_optimizer_states=True,
                         load_lr_scheduler_states=True):
@@ -2210,6 +2670,7 @@ class DeepSpeedEngine:
         when it validates, else a scan past corrupt or partial ones); an
         explicit tag is strict. Returns ``(path, client_state)``, or
         ``(None, {})`` when nothing valid is there."""
+        t0 = time.perf_counter()
         mgr = self._ckpt_manager
         mgr.wait()
         resolved = mgr.resolve_tag(load_dir, tag)
@@ -2231,6 +2692,7 @@ class DeepSpeedEngine:
         self._install_restored_state(state, meta, load_optimizer_states,
                                      load_lr_scheduler_states)
         log_dist(f"loaded checkpoint {path}", ranks=[0])
+        self._emit_checkpoint_load(path, meta, t0)
         return path, meta.get("client_state", {})
 
     @torch.no_grad()

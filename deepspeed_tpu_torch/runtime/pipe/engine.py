@@ -127,12 +127,21 @@ compressed in a buffer of the same content on every holder: the tied
 leaves on the first and the last stage, a model-replicated leaf on
 every model rank. Checkpoints add each stage's error buffers.
 
+**Telemetry**: ``train_batch`` is the base engine's, around
+:meth:`PipelineEngine._dispatch` (the 1F1B stream and the step), so the
+pipeline step runs under the same spans and emits the same events with
+flavor ``pipeline``; its run_start events and flight dumps add
+``num_stages`` and ``micro_batches``, and a dump's collectives count the
+pipeline's and every local stage's data group. The stage engines run no
+session of their own.
+
 What JAX's engine refuses, this one refuses with its text (progressive
 layer drop, uneven layers, ``forward`` / ``backward`` / ``step``,
 ``auto_axes``, ``comm_quantization``).
 """
 
 import contextlib
+import time
 from typing import Any, List, NamedTuple
 
 import numpy as np
@@ -173,6 +182,7 @@ from deepspeed_tpu_torch.runtime.resilience.checkpoint import (
 )
 from deepspeed_tpu_torch.runtime.utils import check_overflow
 from deepspeed_tpu_torch.runtime.zero.comm import Comm
+from deepspeed_tpu_torch.telemetry.spans import null_span
 from deepspeed_tpu_torch.utils.logging import log_dist
 
 class _StageGrads(NamedTuple):
@@ -420,6 +430,14 @@ class PipelineEngine(DeepSpeedEngine):
         self._data_iter = RepeatingLoader(self.training_dataloader) \
             if self.training_dataloader is not None else None
         self._ckpt_manager = CheckpointManager()
+        # the base engine's step telemetry (spans, events, the trace
+        # window, forensics) over the whole pipeline step; its resilience
+        # stays off, its fault seams follow the config
+        self._resilience_on = False
+        self._fault_on = bool(cfg.resilience.fault_injection)
+        self.mp_world_size = self._axes["model"].size
+        self._param_bytes = sum(se._param_bytes for se in self.stage_engines)
+        self._configure_telemetry(own=True)
         where = "all stages in one process" if in_process else \
             "one stage a process"
         log_dist(
@@ -632,15 +650,30 @@ class PipelineEngine(DeepSpeedEngine):
         return _StageGrads(grads, names, counted if counted is not None
                            else [True] * len(names), sharded)
 
-    def train_batch(self, batch=None):
-        """One optimizer step over a global batch (module docstring).
-        Returns the loss (a 0-d tensor)."""
-        if batch is None and self._data_iter is not None:
-            batch = next(self._data_iter)
+    # a process that runs neither the first nor the last stage passes None
+    _batch_optional = True
+
+    def _dispatch(self, batch):
+        """One optimizer step over a global batch (module docstring),
+        inside the base engine's ``train_batch`` (spans, events, the
+        trace window); returns its metrics."""
         scale = self._scale()
         per_stage, num, den = self._backprop(batch, scale)
         self.micro_steps += self.micro_batches
-        return self._apply_pipe_step(per_stage, num, den, scale)["loss"]
+        return self._apply_pipe_step(per_stage, num, den, scale)
+
+    def _telemetry_flavor(self):
+        return "pipeline"
+
+    def _forensics_extra(self):
+        """The pipeline's topology on run_start events and flight-dump
+        meta (JAX ``pipe/engine.py:202-207``): a postmortem of a hung
+        1F1B stream needs the stages and micro-batches."""
+        return {"num_stages": self.num_stages,
+                "micro_batches": self.micro_batches}
+
+    def _comms(self):
+        return [self.comm] + [se.comm for se in self.stage_engines]
 
     @torch.no_grad()
     def _drop_grads(self, per_stage):
@@ -906,10 +939,6 @@ class PipelineEngine(DeepSpeedEngine):
         if self.lr_scheduler is not None and \
                 hasattr(self.lr_scheduler, "step"):
             self.lr_scheduler.step()
-        if self.global_steps % cfg.steps_per_print == 0:
-            log_dist(f"step={self.global_steps}, skipped="
-                     f"{self.skipped_steps}, lr={lr:.6g}, "
-                     f"loss={float(loss):.5f}", ranks=[0])
         self._last_metrics = metrics
         return metrics
 
@@ -998,6 +1027,16 @@ class PipelineEngine(DeepSpeedEngine):
         """Write one checkpoint (the pipe layout; module docstring)."""
         if tag is None:
             tag = f"global_step{self.global_steps}"
+        t0 = time.perf_counter()
+        with (self.telemetry.span if self.telemetry is not None
+              else null_span)("checkpoint"):
+            self._save_pipe_checkpoint(save_dir, tag, client_state,
+                                       save_latest)
+        self._emit_checkpoint_save(save_dir, tag, t0)
+        return True
+
+    def _save_pipe_checkpoint(self, save_dir, tag, client_state,
+                              save_latest):
         trees, step = self._gathered_trees()
         if mesh.dp_rank() == 0:
             S, L = self.num_stages, self.parts.layers_per_stage
@@ -1029,13 +1068,13 @@ class PipelineEngine(DeepSpeedEngine):
                 extra_manifest={"topology": self._topology()})
             log_dist(f"saved checkpoint {path}", ranks=[0])
         self.comm.barrier()
-        return True
 
     def load_checkpoint(self, load_dir, tag=None, load_optimizer_states=True,
                         load_lr_scheduler_states=True):
         """Restore from a checkpoint under ``load_dir`` (any stage count:
         the body restages). Returns ``(path, client_state)``, or ``(None,
         {})`` when nothing valid is there."""
+        t0 = time.perf_counter()
         mgr = self._ckpt_manager
         mgr.wait()
         resolved = mgr.resolve_tag(load_dir, tag)
@@ -1078,4 +1117,5 @@ class PipelineEngine(DeepSpeedEngine):
         if meta.get("dataloader") is not None and self._data_iter is not None:
             self._data_iter.load_state_dict(meta["dataloader"])
         log_dist(f"loaded checkpoint {path}", ranks=[0])
+        self._emit_checkpoint_load(path, meta, t0)
         return path, meta.get("client_state", {})

@@ -6,7 +6,8 @@ training paths probe at fixed seams. Every probe is a no-op unless a
 test armed the matching fault.
 
 - ``kill`` — :func:`maybe_kill` delivers a hard signal (default
-  SIGKILL) to the process itself, inside the scheduler's decode step
+  SIGKILL) to the process itself, inside the training engine's dispatch
+  span (``op="step"``), the scheduler's decode step
   (``op="decode_step"``) or the engine's chunked-prefill loop
   (``op="prefill_chunk"``). It never raises: the process just dies.
 - ``decode_exception`` — :func:`maybe_fail_decode` raises
@@ -29,9 +30,11 @@ test armed the matching fault.
 - ``host_adam`` — :func:`maybe_fail_host_adam` raises
   :class:`InjectedHostAdamError` when a host-Adam range update starts,
   before the C++ kernel touches any buffer.
+- ``hang`` — :func:`hang_seconds` tells the training engine to sleep
+  inside the dispatch span of the armed step (a stuck collective or a
+  straggler, as the hang watchdog sees it).
 
-The JAX file's ``inject_hang`` / ``hang_seconds`` come with the
-watchdog, and ``inject_reshard_failure`` with elasticity.
+The JAX file's ``inject_reshard_failure`` comes with elasticity.
 
 Use :func:`clear_faults` to disarm everything between tests;
 :func:`arm_from_env` arms a subprocess replica from
@@ -69,6 +72,12 @@ def clear_faults():
         _faults.clear()
 
 
+def active_faults():
+    """Names of the currently armed faults (for assertions in tests)."""
+    with _lock:
+        return sorted(_faults)
+
+
 def inject_nan_grads(at_steps):
     """Arm NaN gradients for the given engine global steps (0-based)."""
     with _lock:
@@ -103,15 +112,42 @@ def preemption_due(step):
     return False
 
 
-KILL_OPS = ("decode_step", "prefill_chunk")
+def inject_hang(at_step, seconds):
+    """Arm a one-shot host-side sleep of ``seconds`` inside the dispatch
+    phase of engine global step ``at_step``."""
+    with _lock:
+        _faults["hang"] = {"at_step": int(at_step),
+                           "seconds": float(seconds)}
+
+
+def hang_seconds(step):
+    """Seconds the engine should sleep at ``step`` (0.0 = not armed).
+    Fires exactly once, at the first step >= the armed point."""
+    with _lock:
+        entry = _faults.get("hang")
+        if entry is not None and int(step) >= entry["at_step"]:
+            _faults.pop("hang", None)
+            return entry["seconds"]
+    return 0.0
+
+
+KILL_OPS = ("step", "decode_step", "prefill_chunk")
 
 
 def inject_kill(op="decode_step", at_step=None, signum=signal.SIGKILL):
     """Arm a hard self-delivered signal at the first ``op`` probe whose
-    step (scheduler decode step, or prefill chunk index) is >=
-    ``at_step``."""
+    step (engine global step, scheduler decode step, or prefill chunk
+    index) is >= ``at_step``. ``op="step"`` fires inside the training
+    engine's dispatch span and must name its step (JAX's fires at the
+    next step without one; the port refuses that, so a kill meant for a
+    serving seam cannot land in a training step). The default SIGKILL
+    cannot be caught, so no preemption handler, atexit hook or flight
+    recorder runs."""
     if op not in KILL_OPS:
         raise ValueError(f"kill op must be one of {KILL_OPS}, got {op!r}")
+    if op == "step" and at_step is None:
+        raise ValueError("kill op 'step' needs at_step: the engine global "
+                         "step to die in")
     with _lock:
         _faults[f"kill:{op}"] = {
             "at_step": None if at_step is None else int(at_step),

@@ -59,6 +59,11 @@ class GuardTrip:
     step: int       # engine global step the trip fired on
     reason: str     # human-readable diagnosis
 
+    def as_event(self):
+        """Flat payload for the telemetry ``health_guard`` event."""
+        return {"guard": self.guard, "action": self.action,
+                "step": self.step, "reason": self.reason}
+
 
 class StepHealthMonitor:
     """Host-side health state machine fed once per optimizer step.

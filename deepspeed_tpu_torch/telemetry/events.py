@@ -1,14 +1,25 @@
-"""Schema-versioned structured event log (copy of
+"""Schema-versioned structured event log (port of
 ``deepspeed_tpu/telemetry/events.py``).
 
 Every record is one JSON object with a fixed envelope::
 
-    {"schema": "ds-tpu-telemetry/1", "event": "decode_step",
-     "t": 1756000000.123, ...payload fields per type...}
+    {"schema": "ds-tpu-telemetry/1",   # version tag, bump on breaking
+     "event":  "step",                 # event type
+     "t":      1756000000.123,        # unix seconds (host clock)
+     ...payload fields per type...}
 
-The log keeps a bounded in-memory ring and fans each event out to the
+The schema is the JAX package's, so either package's ``ds_tpu_metrics``
+reads a log the other wrote. Event types the port emits: ``run_start``,
+``compile`` (once, after the first step's dispatch), ``step`` (per-step
+metrics and phase breakdown), ``health_guard``, ``anomaly``,
+``watchdog``, ``preemption``, ``checkpoint_save`` / ``checkpoint_load``,
+``hot_snapshot``, ``recovery_ladder``, and the serving loop's
+``decode_step`` and fleet events.
+
+The log keeps a bounded in-memory ring (the engine re-exposes the step
+slice as ``engine.metrics_history``) and fans each event out to the
 configured exporters. A throwing exporter is disabled with one warning
-instead of propagating: telemetry must never kill a serve.
+instead of propagating: telemetry must never kill a run.
 """
 
 import collections
@@ -21,8 +32,12 @@ SCHEMA_VERSION = "ds-tpu-telemetry/1"
 
 
 class EventLog:
-    """Bounded ring of events + exporter fan-out (serialized under a
-    lock so concurrent emitters never interleave JSONL lines)."""
+    """Bounded ring of events + exporter fan-out.
+
+    ``emit`` serializes under a lock: the hang watchdog emits its
+    ``watchdog`` event from its own daemon thread, and interleaved
+    exporter writes would corrupt the JSONL line stream.
+    """
 
     def __init__(self, exporters=(), history=256):
         self.exporters = list(exporters)

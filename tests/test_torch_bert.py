@@ -170,9 +170,12 @@ def test_bf16_model_runs_its_encoder_in_fp32_as_jax_does():
 
 
 def test_convert_uses_every_leaf_once():
+    # seq_len T: the shape the other tests already traced (the leaves do
+    # not depend on it)
     jm = jbert.BertForMaskedLM(_cfgs()[0])
     params = jax.tree_util.tree_map(
-        np.asarray, jbert.init_bert_params(jm, jax.random.PRNGKey(0)))
+        np.asarray, jbert.init_bert_params(jm, jax.random.PRNGKey(0),
+                                           seq_len=T))
     sd = tbert.convert_bert_params(params)
     assert len(sd) == len(jax.tree_util.tree_leaves(params))
     model = tbert.BertForMaskedLM(_cfgs()[1], device="cpu")

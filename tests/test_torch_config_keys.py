@@ -86,13 +86,50 @@ def params():
     return H.init_jax_params(use_flash_attention=False)
 
 
+# the runs held to the JAX engine's run with the key
+JAX_NAMES = sorted(KEYS) + ["amp"] + sorted(FEATURES)
+
+
+def _case_of(name):
+    return CASES["amp" if name == "amp" else f"key_{name}"]
+
+
+def _jax_reference(params, name):
+    """The JAX engine's losses with the key (world 2) and, in f32 but for
+    fp8, its fp32 masters in the port's names."""
+    from jax.tree_util import tree_map
+    from deepspeed_tpu_torch.models.gpt2 import convert_gpt2_params
+    case = _case_of(name)
+    losses, engine, _ = H.jax_run(params, case, WORLD)
+    masters = None
+    if case["dtype"] == "f32" and name != "fp8":
+        masters = {n: w.numpy() for n, w in convert_gpt2_params(
+            tree_map(np.asarray, engine.params)).items()}
+    return losses, masters
+
+
 @pytest.fixture(scope="module")
-def world(params, tmp_path_factory):
+def runs(params, tmp_path_factory):
+    """Every case in one world of ``WORLD`` gloo processes, and the JAX
+    engine's run with each key of :data:`JAX_NAMES`, computed in this
+    process while the world runs."""
     root = tmp_path_factory.mktemp("config_keys")
     state = H.save_port_state(params, root / "tiny.npz")
-    H.spawn_world(WORLD, [dict(c, name=n) for n, c in CASES.items()],
-                  state, root / "out")
-    return {n: H.load_results(root / "out", n, WORLD) for n in CASES}
+    procs = H.start_world(WORLD, [dict(c, name=n) for n, c in CASES.items()],
+                          state, root / "out")
+    try:
+        jax_refs = {name: _jax_reference(params, name) for name in JAX_NAMES}
+    except BaseException:
+        H.stop_world(procs)
+        raise
+    H.wait_world(procs)
+    return ({n: H.load_results(root / "out", n, WORLD) for n in CASES},
+            jax_refs)
+
+
+@pytest.fixture(scope="module")
+def world(runs):
+    return runs[0]
 
 
 def _same_run(a, b):
@@ -136,9 +173,7 @@ def test_vocabulary_size_off_8_warns(monkeypatch):
 
 
 @pytest.mark.parametrize("key,item", [
-    ("telemetry", "item 6"), ("elasticity", "item 6"),
-    ("analysis", "item 6"), ("tensorboard", "item 6"),
-    ("profiling", "item 6"), ("compilation_cache_dir", "item 6")])
+    ("elasticity", "item 6"), ("analysis", "item 6")])
 def test_later_keys_name_their_item(key, item):
     with pytest.raises(ValueError, match=f"{key}.*not yet ported.*{item}"):
         DeepSpeedConfig(dict(BASE, **{key: {}}))
@@ -243,8 +278,8 @@ def test_amp_is_the_bf16_run(world):
     _same_run(world["amp"], world["bf16"])
 
 
-@pytest.mark.parametrize("name", sorted(KEYS) + ["amp"] + sorted(FEATURES))
-def test_a_run_with_the_key_equals_jax(params, world, name):
+@pytest.mark.parametrize("name", JAX_NAMES)
+def test_a_run_with_the_key_equals_jax(runs, name):
     """Losses at the parity rtol; in f32 the fp32 masters too, at the
     f32 moments' relative L2 of ``test_torch_zero_parity.py`` per leaf
     (bf16 values differ across frameworks, ``ROADMAP.md`` section 3).
@@ -252,19 +287,17 @@ def test_a_run_with_the_key_equals_jax(params, world, name):
     operands one fp32 ulp apart can land one fp8 step apart, and such a
     step moves the next losses by about 1e-4 (its first two steps agree
     at 1e-5)."""
-    case = CASES["amp" if name == "amp" else f"key_{name}"]
-    losses, engine, _ = H.jax_run(params, case, WORLD)
+    case = _case_of(name)
+    world, jax_refs = runs
+    losses, want = jax_refs[name]
     arrays = world["amp" if name == "amp" else f"key_{name}"][0][0]
     np.testing.assert_allclose(
         arrays["losses"], losses,
         rtol=FP8_LOSS_RTOL if name == "fp8" else LOSS_RTOL[case["dtype"]])
     if case["dtype"] != "f32" or name == "fp8":
         return
-    from jax.tree_util import tree_map
-    from deepspeed_tpu_torch.models.gpt2 import convert_gpt2_params
-    want = convert_gpt2_params(tree_map(np.asarray, engine.params))
     for leaf, w in want.items():
-        got, w = arrays[f"param/{leaf}"], w.numpy()
+        got = arrays[f"param/{leaf}"]
         assert got.shape == w.shape, leaf
         if leaf.endswith("attn.c_attn.bias"):
             # the key third's true gradient is 0 (softmax ignores a bias

@@ -399,26 +399,11 @@ def test_wire_round_trip_equals_jax(codec, n, chunk):
 WIRE = {"enabled": True, "dtype": "f8e4m3fn", "chunk_size": 64}
 
 
-@pytest.fixture(scope="module")
-def wire_world(tmp_path_factory):
-    root = tmp_path_factory.mktemp("fp8_wire")
-    params = H.init_jax_params(use_flash_attention=False)
-    state = H.save_port_state(params, root / "tiny.npz")
-    case = dict(kind="wire", dtype="bf16", flash=False, stage=3,
-                name="wire", keys={"fp8": {"enabled": True, "wire": WIRE}})
-    H.spawn_world(2, [case], state, root / "out")
-    return params, case, H.load_results(root / "out", "wire", 2)
-
-
-def test_stage3_wire_gathers_equal_jax(wire_world):
-    """Rank r's gathered leaf: its own piece exact, the other rank's
-    piece JAX's ``decode_wire(encode_wire(piece))`` bit for bit. JAX's
-    jitted caster itself differs from its own codec functions by one fp8
-    step on a few chunks (XLA rewrites the per-chunk division), so the
-    port is held to the caster within one e4m3 step (rtol 1/8)."""
+def _jax_wire_reference(params, case):
+    """One JAX engine: its gather-on-use caster's output on the initial
+    params, by rank, the bf16 params whole, then its run's losses and
+    fp8 keys."""
     from deepspeed_tpu.runtime.zero.stage3 import make_gather_on_use_caster
-    params, case, rows = wire_world
-    # one JAX engine: its caster on the initial params, then its run
     engine, mesh = H.jax_engine(params, case, 2)
     cast, plan = make_gather_on_use_caster(
         engine.params, engine._shardings["param"], mesh, jnp.bfloat16,
@@ -428,30 +413,64 @@ def test_stage3_wire_gathers_equal_jax(wire_world):
     whole = convert_gpt2_params(jax.tree_util.tree_map(
         lambda a: np.asarray(a.astype(jnp.bfloat16)).astype(np.float32),
         engine.params))
+    casters = [convert_gpt2_params(jax.tree_util.tree_map(
+        lambda a: next(np.asarray(s.data).astype(np.float32)
+                       for s in a.addressable_shards if s.device == d), out))
+        for d in devices]
+    losses = [float(engine.train_batch({"input_ids": x}))
+              for x in H.jax_batches(case)]
+    return {"casters": casters, "whole": whole, "losses": losses,
+            "fp8_keys": list(engine._fp8_state),
+            "wire_dtype": plan.wire_dtype}
+
+
+@pytest.fixture(scope="module")
+def wire_world(tmp_path_factory):
+    """The port's two-rank run, and JAX's reference computed in this
+    process while the ranks run."""
+    root = tmp_path_factory.mktemp("fp8_wire")
+    params = H.init_jax_params(use_flash_attention=False)
+    state = H.save_port_state(params, root / "tiny.npz")
+    case = dict(kind="wire", dtype="bf16", flash=False, stage=3,
+                name="wire", keys={"fp8": {"enabled": True, "wire": WIRE}})
+    procs = H.start_world(2, [case], state, root / "out")
+    try:
+        ref = _jax_wire_reference(params, case)
+    except BaseException:
+        H.stop_world(procs)
+        raise
+    H.wait_world(procs)
+    return ref, H.load_results(root / "out", "wire", 2)
+
+
+def test_stage3_wire_gathers_equal_jax(wire_world):
+    """Rank r's gathered leaf: its own piece exact, the other rank's
+    piece JAX's ``decode_wire(encode_wire(piece))`` bit for bit. JAX's
+    jitted caster itself differs from its own codec functions by one fp8
+    step on a few chunks (XLA rewrites the per-chunk division), so the
+    port is held to the caster within one e4m3 step (rtol 1/8)."""
+    ref, rows = wire_world
+    whole = ref["whole"]
     for rank, (arrays, meta) in enumerate(rows):
-        mine = jax.tree_util.tree_map(
-            lambda a: next(np.asarray(s.data).astype(np.float32)
-                           for s in a.addressable_shards
-                           if s.device == devices[rank]), out)
-        caster = convert_gpt2_params(mine)
+        caster = ref["casters"][rank]
         for name, w in caster.items():
             got = arrays[f"gathered/{name}"]
             np.testing.assert_allclose(got, w.numpy(), rtol=0.125,
                                        atol=1e-6, err_msg=name)
             if name not in meta["pieces"]:
                 np.testing.assert_array_equal(got, whole[name].numpy())
-        assert meta["plan"]["wire_dtype"] == WIRE["dtype"] == plan.wire_dtype
+        assert meta["plan"]["wire_dtype"] == WIRE["dtype"] == \
+            ref["wire_dtype"]
         want_bytes = sum(2 * tcodecs.wire_nbytes(s, WIRE["dtype"], 64)
                          for s in meta["pieces"].values())
         assert meta["counts"]["all_gather"]["bytes"] == want_bytes
         assert np.isfinite(arrays["losses"]).all()
     # fp8 matmuls over the wire-gathered params, histories MAX-reduced
     # over the two ranks: JAX's run within the bf16 engine tolerance
-    want = [float(engine.train_batch({"input_ids": x}))
-            for x in H.jax_batches(case)]
     for arrays, meta in rows:
-        np.testing.assert_allclose(arrays["losses"], want, rtol=2e-2)
-        assert sorted(meta["fp8_keys"]) == list(engine._fp8_state)
+        np.testing.assert_allclose(arrays["losses"], ref["losses"],
+                                   rtol=2e-2)
+        assert sorted(meta["fp8_keys"]) == ref["fp8_keys"]
     np.testing.assert_array_equal(rows[0][0]["fp8"], rows[1][0]["fp8"])
     # the pieces: rank r's own exact, the other's JAX's eager codec
     wte = whole["wte"].numpy()          # split along dim 0 at world 2

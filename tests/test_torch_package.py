@@ -139,7 +139,11 @@ def test_scan_covers_the_training_slice_and_every_kernel_wrapper():
     "inference/router.py", "inference/fleet.py", "inference/fleet_worker.py",
     "inference/disagg.py", "runtime/supervisor/state.py",
     "runtime/supervisor/supervisor.py", "telemetry/watchdog.py",
-    "runtime/resilience/preemption.py"])
+    "runtime/resilience/preemption.py", "telemetry/__init__.py",
+    "telemetry/registry.py", "telemetry/events.py", "telemetry/exporters.py",
+    "telemetry/spans.py", "telemetry/session.py", "telemetry/timers.py",
+    "telemetry/profiler.py", "telemetry/compile_cache.py",
+    "telemetry/flight.py", "telemetry/cli.py"])
 def test_the_scan_covers_the_serving_fleet_modules(module):
     path = os.path.join(REPO, "deepspeed_tpu_torch", module)
     assert path in set(_sources())

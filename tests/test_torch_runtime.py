@@ -108,21 +108,21 @@ def test_json_file_load(tmp_path):
                                    "telemetry"])
 def test_unported_blocks_raise(block):
     # ZeRO stages 0-3 with the stage-3 gather schedule and its fp8 wire,
-    # progressive layer drop, fp8, the pipeline and the mesh are ported
-    # and read; telemetry still raises
+    # progressive layer drop, fp8, the pipeline, the mesh and telemetry
+    # are ported and read (an empty telemetry block leaves it off)
     cfg = {"train_batch_size": 8, "bf16": {"enabled": True}, block: {}}
     if block == "zero_optimization":
         cfg.update(zero_optimization={"stage": 3, "gather_chunks": 2,
                                       "bidirectional": True},
                    fp8={"enabled": True, "wire": {"enabled": True}})
-    if block in ("zero_optimization", "progressive_layer_drop", "fp8",
-                 "pipeline", "mesh"):
-        got = DeepSpeedConfig(cfg)
-        assert got.fp8.enabled == (block == "zero_optimization")
-        assert got.pld_enabled is False
-        return
-    with pytest.raises(ValueError, match="not yet ported"):
-        DeepSpeedConfig(cfg)
+    got = DeepSpeedConfig(cfg)
+    assert got.fp8.enabled == (block == "zero_optimization")
+    assert got.pld_enabled is False
+    assert got.telemetry.enabled is False
+    if block == "telemetry":
+        assert got.telemetry.history == 256
+        assert DeepSpeedConfig(dict(cfg, telemetry={
+            "enabled": True})).telemetry.enabled is True
 
 
 # ---------------------------------------------------------------------------
